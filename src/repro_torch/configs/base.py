@@ -1,0 +1,62 @@
+"""Model configuration: a frozen, hashable ``ModelConfig`` per architecture.
+
+A copy of ``repro/configs/base.py`` restricted to what the dense decoder of
+this package needs. ``use_pallas`` is ``use_kernels`` here and defaults to
+True: the hot spots (norms, prefill attention, the guarded logit statistic)
+run on the CUDA kernels of ``repro_torch.kernels``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab_size: int
+    # Repeating layer pattern cycled to n_layers; only "attn" (global
+    # self-attention + FFN) is ported.
+    block_pattern: tuple[str, ...] = ("attn",)
+    norm: str = "rmsnorm"          # rmsnorm | layernorm_np
+    ffn_kind: str = "swiglu"       # swiglu (gelu is not ported)
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    # --- framework knobs (not architecture) ---
+    dtype: str = "bfloat16"        # params/activations dtype
+    use_kernels: bool = True       # route hot spots to the CUDA kernels
+
+    @property
+    def pattern_layers(self) -> tuple[str, ...]:
+        reps = -(-self.n_layers // len(self.block_pattern))
+        return (self.block_pattern * reps)[: self.n_layers]
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks + head), the same
+        formula as the reference for the dense attention block."""
+        d = self.d_model
+        total = self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        for kind in self.pattern_layers:
+            if kind != "attn":
+                raise NotImplementedError(
+                    f"block kind {kind!r} is not ported; only 'attn' is"
+                )
+            total += d * self.n_heads * self.d_head
+            total += 2 * d * self.n_kv_heads * self.d_head
+            total += self.n_heads * self.d_head * d
+            total += self._ffn_params()
+        return int(total)
+
+    def _ffn_params(self) -> int:
+        d = self.d_model
+        return 3 * d * self.d_ff if self.ffn_kind == "swiglu" else 2 * d * self.d_ff

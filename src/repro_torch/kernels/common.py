@@ -1,0 +1,210 @@
+"""Shared kernel utilities: prologue/epilogue chains, tile helpers, the
+device rule and the per-kernel launch counters.
+
+A copy of the chain semantics of ``repro/kernels/common.py`` in torch. The
+same chain definitions run host-side (the plain versions and the non-kernel
+backends) and, encoded by ``encode_epilogue``, inside the CUDA kernels.
+
+Device rule, shared by every kernel wrapper: a wrapper given CPU tensors
+runs its plain PyTorch version; given CUDA tensors it launches its kernel
+or raises. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MXU = 128  # the paper's tile size m, kept from the reference for 1:1 layouts
+
+# In-kernel elementwise prologues: the per-element map applied after the
+# compute cast and the tail mask, before the reduction. "moments" is the
+# paired (x, x^2) dual accumulator (structural, not a single map).
+PROLOGUES = ("identity", "square", "abs", "moments")
+ELEMENTWISE_PROLOGUES = ("identity", "square", "abs")
+
+
+def check_prologue(prologue: str) -> str:
+    if prologue not in PROLOGUES:
+        raise ValueError(
+            f"unknown prologue {prologue!r}; expected one of {PROLOGUES}"
+        )
+    return prologue
+
+
+def normalize_part_prologues(prologue, nseg: int) -> tuple:
+    """One validated prologue name per part, from a uniform string or a
+    sequence."""
+    if isinstance(prologue, str):
+        return (check_prologue(prologue),) * nseg
+    pros = tuple(check_prologue(p) for p in prologue)
+    if len(pros) != nseg:
+        raise ValueError(f"got {len(pros)} part prologues for {nseg} parts")
+    return pros
+
+
+def apply_prologue(x: torch.Tensor, prologue: str) -> torch.Tensor:
+    """Elementwise prologue at the operand's precision (identity adds no
+    op). Zero is a fixed point of every map, so masked lanes stay zero."""
+    if prologue == "identity":
+        return x
+    if prologue == "square":
+        return x * x
+    if prologue == "abs":
+        return torch.abs(x)
+    raise ValueError(
+        f"prologue {prologue!r} is not elementwise; expected one of "
+        f"{ELEMENTWISE_PROLOGUES}"
+    )
+
+
+# Scalar EPILOGUES: the post-combine chain applied to a reduced f32 value.
+# A chain is a tuple of ``(name, *float_params)`` steps.
+EPILOGUES = ("identity", "sqrt", "scale", "rsqrt", "add_eps", "clip_coeff")
+
+_EPILOGUE_ARITY = {
+    "identity": (0,),
+    "sqrt": (0,),
+    "scale": (1,),        # scale(a): t * a
+    "rsqrt": (0, 1),      # rsqrt(eps=0): 1 / sqrt(t + eps)
+    "add_eps": (1,),      # add_eps(eps): t + eps
+    "clip_coeff": (1, 2),  # clip_coeff(max_norm, eps=0): min(1, max/max(t,eps))
+}
+
+# Op codes of the CUDA kernels' epilogue interpreter (csrc/parts_reduce.cu).
+EPILOGUE_OPCODES = {"sqrt": 0, "scale": 1, "rsqrt": 2, "add_eps": 3,
+                    "clip_coeff": 4}
+
+
+def _normalize_step(step) -> tuple:
+    if isinstance(step, str):
+        step = (step,)
+    step = tuple(step)
+    if not step or not isinstance(step[0], str):
+        raise ValueError(f"epilogue step must start with a name: {step!r}")
+    name, params = step[0], step[1:]
+    if name not in EPILOGUES:
+        raise ValueError(
+            f"unknown epilogue {name!r}; expected one of {EPILOGUES}"
+        )
+    if len(params) not in _EPILOGUE_ARITY[name]:
+        raise ValueError(
+            f"epilogue {name!r} takes {_EPILOGUE_ARITY[name]} parameter(s); "
+            f"got {step!r}"
+        )
+    return (name,) + tuple(float(p) for p in params)
+
+
+def normalize_epilogue(spec) -> tuple:
+    """Canonical hashable chain: ``None`` / ``"identity"`` / ``()`` -> the
+    empty chain; a name or a ``(name, *params)`` step; or a tuple of steps.
+    """
+    if spec is None or spec == "identity" or spec == ():
+        return ()
+    if isinstance(spec, str):
+        steps = (spec,)
+    elif isinstance(spec, tuple) and spec and isinstance(spec[0], str):
+        steps = (spec,)
+    else:
+        steps = tuple(spec)
+    chain = tuple(_normalize_step(s) for s in steps)
+    return tuple(s for s in chain if s[0] != "identity")
+
+
+def normalize_epilogue_fork(spec) -> tuple:
+    """A Python list marks a fork: ``[chain_a, chain_b]`` -> one chain per
+    output scalar. Anything else is a single chain."""
+    if isinstance(spec, list):
+        if not spec:
+            raise ValueError("an epilogue fork needs at least one chain")
+        return tuple(normalize_epilogue(c) for c in spec)
+    return (normalize_epilogue(spec),)
+
+
+def apply_epilogue(t: torch.Tensor, chain: tuple) -> torch.Tensor:
+    """Evaluate a chain on a reduced f32 tensor (every step is elementwise).
+    """
+    for step in chain:
+        name, params = step[0], step[1:]
+        if name == "sqrt":
+            t = torch.sqrt(t)
+        elif name == "scale":
+            t = t * params[0]
+        elif name == "rsqrt":
+            eps = params[0] if params else 0.0
+            t = 1.0 / torch.sqrt(t + eps)
+        elif name == "add_eps":
+            t = t + params[0]
+        elif name == "clip_coeff":
+            max_norm = params[0]
+            eps = params[1] if len(params) > 1 else 0.0
+            t = torch.clamp_max(max_norm / torch.clamp_min(t, eps), 1.0)
+        elif name != "identity":  # pragma: no cover - normalize_* rejects
+            raise ValueError(f"unknown epilogue {name!r}")
+    return t
+
+
+def encode_epilogue(chain: tuple) -> list:
+    """A normalized chain -> ``[(opcode, p0, p1), ...]`` for the kernels."""
+    out = []
+    for step in chain:
+        name, params = step[0], tuple(step[1:])
+        if name == "rsqrt" and not params:
+            params = (0.0,)
+        if name == "clip_coeff" and len(params) == 1:
+            params = params + (0.0,)
+        params = params + (0.0,) * (2 - len(params))
+        out.append((EPILOGUE_OPCODES[name],) + params)
+    return out
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return ceil_div(a, b) * b
+
+
+# ------------------------- device rule and counters --------------------------
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """The device rule: True when every tensor lies on the CPU (run the
+    plain version), False when every tensor lies on a CUDA device (launch
+    the kernel). Anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("kernel operands lie on different CUDA devices")
+        return False
+    raise ValueError(
+        f"kernel operands must all be on the CPU or all on one CUDA device; "
+        f"got {sorted(kinds)}"
+    )
+
+
+# Every kernel wrapper, by kernel name. Each wrapper carries ``launches``, a
+# plain int that it increments where it launches its kernel and nowhere else.
+KERNEL_WRAPPERS: dict = {}
+
+
+def counted(name: str):
+    """Register a kernel wrapper and give it a ``launches`` counter."""
+
+    def wrap(fn):
+        fn.launches = 0
+        KERNEL_WRAPPERS[name] = fn
+        return fn
+
+    return wrap
+
+
+def reset_launches() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}

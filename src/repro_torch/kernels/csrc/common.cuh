@@ -1,0 +1,64 @@
+// Shared device helpers for the repro_torch kernels (sm_90a).
+//
+// The kernels are compiled by nvcc into one shared library with a plain C
+// interface (kernels/build.py) and called through ctypes. Every C entry
+// point returns cudaGetLastError() right after its launch; the Python
+// wrapper raises when that is not cudaSuccess.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// dtype codes shared with kernels/build.py
+enum DType : int { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// Two floats rounded to bf16 (round to nearest even) in one 32-bit MMA
+// operand register: `lo` in the low half, as the fragment layouts want.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// bf16 1.0 in both halves: the all-ones B operand of eq. (9), D = X @ 1.
+#define ONES_BF16X2 0x3F803F80u
+
+// D = A(16x16 bf16, row) * B(16x8 bf16, col) + D, f32 accumulate.
+// Fragments (g = lane / 4, t = lane % 4):
+//   A: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
+//   B: b0 (k = 2t..2t+1, n = g)  b1 (k = 2t+8.., n = g)
+//   D: d0 (g, 2t)  d1 (g, 2t+1)  d2 (g+8, 2t)  d3 (g+8, 2t+1)
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}

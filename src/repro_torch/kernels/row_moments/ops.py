@@ -1,0 +1,94 @@
+"""Fused row-moment norms: non-parametric LayerNorm (OLMo) and RMSNorm.
+
+Port of ``repro/kernels/row_moments`` (``layernorm_np_kernel`` and
+``rmsnorm_kernel``). On CUDA tensors the wrappers launch
+``csrc/row_moments.cu``; on CPU tensors they run the plain versions below,
+which round exactly where the kernel does: x and the f32 square x*x are
+each rounded to bf16 before the all-ones row sum, accumulated in f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, common
+
+
+def _bf16_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """(R, d) f32 -> (R,): the ones-MMA row sum of bf16(x) with f32
+    accumulation (bf16 * 1 is exact in f32, so an f32 sum of the rounded
+    values is the same product)."""
+    return torch.sum(x.to(torch.bfloat16).to(torch.float32), dim=-1)
+
+
+def layernorm_np_plain(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of the layernorm_np kernel, last axis."""
+    xf = x.to(torch.float32)
+    d = x.shape[-1]
+    s = _bf16_row_sum(xf)
+    ss = _bf16_row_sum(xf * xf)
+    mu = s / d
+    var = torch.clamp_min(ss / d - mu * mu, 0.0)
+    rstd = 1.0 / torch.sqrt(var + eps)
+    return ((xf - mu[..., None]) * rstd[..., None]).to(x.dtype)
+
+
+def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of the rmsnorm kernel, last axis."""
+    xf = x.to(torch.float32)
+    d = x.shape[-1]
+    ss = _bf16_row_sum(xf * xf)
+    rstd = 1.0 / torch.sqrt(ss / d + eps)
+    return (xf * rstd[..., None] * gamma.to(torch.float32)).to(x.dtype)
+
+
+def _check_rows(x: torch.Tensor) -> torch.Tensor:
+    d = x.shape[-1]
+    if d % 16:
+        raise ValueError(f"the norm kernel takes a last axis that is a multiple of 16; got {d}")
+    if x.numel() // max(d, 1) >= 2**31:
+        raise ValueError("too many rows for one launch")
+    return x.contiguous()
+
+
+@common.counted("layernorm_np")
+def layernorm_np(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Non-parametric LayerNorm (OLMo) over the last axis; any leading
+    shape. CPU tensor: plain version; CUDA tensor: the kernel."""
+    if common.on_cpu(x):
+        return layernorm_np_plain(x, eps)
+    x = _check_rows(x)
+    out = torch.empty_like(x)
+    rows = x.numel() // x.shape[-1]
+    if rows:
+        with torch.cuda.device(x.device):
+            err = build.library().rm_layernorm_np(
+                x.data_ptr(), out.data_ptr(), rows, x.shape[-1], float(eps),
+                build.dtype_code(x), build.stream_ptr(x),
+            )
+        build.check(err, "layernorm_np")
+        layernorm_np.launches += 1
+    return out
+
+
+@common.counted("rmsnorm")
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, scaled by ``gamma``; any leading shape.
+    CPU tensors: plain version; CUDA tensors: the kernel."""
+    if common.on_cpu(x, gamma):
+        return rmsnorm_plain(x, gamma, eps)
+    x = _check_rows(x)
+    if gamma.shape != (x.shape[-1],):
+        raise ValueError(f"gamma must have shape ({x.shape[-1]},); got {tuple(gamma.shape)}")
+    g32 = gamma.to(torch.float32).contiguous()
+    out = torch.empty_like(x)
+    rows = x.numel() // x.shape[-1]
+    if rows:
+        with torch.cuda.device(x.device):
+            err = build.library().rm_rmsnorm(
+                x.data_ptr(), g32.data_ptr(), out.data_ptr(), rows, x.shape[-1],
+                float(eps), build.dtype_code(x), build.stream_ptr(x),
+            )
+        build.check(err, "rmsnorm")
+        rmsnorm.launches += 1
+    return out

@@ -1,0 +1,258 @@
+"""Serving driver: batched prefill + decode with resident caches.
+
+Port of ``repro/launch/serve.py``. A request queue is packed into fixed
+slots; each engine step decodes one token for every slot.
+
+  Engine.serve        -- the plain loop (a short last wave is padded with
+                         MASKED dummy slots, never duplicated requests).
+  GuardedEngine + runtime.ServingRuntime -- the resilient path (--guard):
+                         bounded admission, per-request deadlines, the
+                         census-guarded step (every step's logit statistic
+                         rides ``reduce_tree(census=True)``: one kernel
+                         launch on cuda_fused), and the per-backend circuit
+                         breaker degrading cuda_fused -> mma_torch -> torch.
+
+Engines run on the GPU unless the caller passes ``device="cpu"``; with no
+GPU and no device they raise. Everything runs under inference mode.
+
+  python -m repro_torch.launch.serve --arch olmo-1b --guard \\
+      --requests 8 --batch-slots 4 --prompt-len 256 --max-new 16
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import reduce as R
+from repro_torch.configs import get_arch
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import init_params
+from repro_torch.runtime.serving import Request, ServingRuntime, guarded_logit_stat
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` -> the GPU; a GPU request with no GPU present raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the engine runs on the GPU unless "
+            "it is given device='cpu'"
+        )
+    return dev
+
+
+def _tok_ints(tok: torch.Tensor) -> np.ndarray:
+    """Per-slot int tokens from a (B, 1) greedy-argmax output."""
+    return tok[:, 0].cpu().numpy()
+
+
+class Engine:
+    """Greedy decoding engine over fixed batch slots. ``params`` (e.g. from
+    ``models.convert.params_from_jax``) replaces the seeded random init."""
+
+    def __init__(self, cfg, s_max: int, batch_slots: int, seed: int = 0, *,
+                 device=None, params=None):
+        self.cfg = cfg
+        self.s_max = s_max
+        self.slots = batch_slots
+        self.device = resolve_device(device)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(cfg, gen, self.device)
+        self.params = params
+        self._prefill = make_prefill_step(cfg, s_max)
+        self._decode = make_decode_step(cfg)
+
+    def check_fits(self, prompt_len: int, max_new: int) -> None:
+        """A prompt + its generation + the one trailing decode position must
+        fit the resident caches."""
+        need = int(prompt_len) + int(max_new) + 1
+        if need > self.s_max:
+            raise ValueError(
+                f"prompt_len ({prompt_len}) + max_new ({max_new}) + 1 = "
+                f"{need} exceeds the engine's cache length s_max="
+                f"{self.s_max}; shorten the request or rebuild the engine"
+            )
+
+    def _pack_wave(self, wave: list) -> torch.Tensor:
+        """Stack a wave of prompts into (slots, L), padding the tail with
+        MASKED dummy slots (zero prompts)."""
+        if len(wave) < self.slots:
+            dummy = np.zeros_like(np.asarray(wave[0]))
+            wave = list(wave) + [dummy] * (self.slots - len(wave))
+        prompts = np.stack([np.asarray(w) for w in wave]).astype(np.int64)
+        return torch.from_numpy(prompts).to(self.device)
+
+    def serve(self, requests: list, max_new: int) -> list:
+        """Greedy tokens for each request (prompts of one length)."""
+        out: list = []
+        for r in requests:
+            self.check_fits(np.asarray(r).shape[0], max_new)
+        queue = list(requests)
+        with torch.inference_mode():
+            while queue:
+                wave, queue = queue[: self.slots], queue[self.slots:]
+                prompts = self._pack_wave(wave)
+                logits, caches = self._prefill(self.params, prompts)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                gen = [tok]
+                pos = prompts.shape[1]
+                for t in range(max_new - 1):
+                    tok, caches = self._decode(self.params, caches, gen[-1], pos + t)
+                    gen.append(tok)
+                toks = np.stack([_tok_ints(g) for g in gen], 1)
+                out.extend(list(toks[: len(wave)]))
+        return [list(map(int, o)) for o in out]
+
+
+class GuardedEngine(Engine):
+    """``runtime.serving`` protocol over the prefill/decode pair.
+
+    Each step is: model step + the chaos scale multiply (x1.0 is bitwise
+    identity) + the per-slot logit statistic with its in-launch non-finite
+    census (``guarded_logit_stat`` on the breaker's backend) + the greedy
+    argmax. Caches are written in place; a retried step from the committed
+    state rewrites the same slot with the same values (idempotent, see
+    ``models.attention``), so it reproduces the clean step bitwise."""
+
+    def __init__(self, cfg, s_max: int, batch_slots: int, seed: int = 0, *,
+                 device=None, params=None):
+        super().__init__(cfg, s_max, batch_slots, seed, device=device, params=params)
+        self._decode_logits = make_decode_step(cfg, greedy=False)
+
+    def validate(self, prompt, max_new: int):
+        try:
+            self.check_fits(np.asarray(prompt).shape[0], max_new)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    def _scales(self, scales) -> torch.Tensor:
+        s = np.ones((self.slots,), np.float32)
+        s[: len(scales)] = np.asarray(scales, np.float32)[: self.slots]
+        return torch.from_numpy(s).to(self.device)
+
+    @staticmethod
+    def _scale_logits(logits, scales):
+        return logits * scales.reshape((-1,) + (1,) * (logits.ndim - 1)).to(logits.dtype)
+
+    def _guard(self, logits, scales, backend):
+        logits = self._scale_logits(logits, self._scales(scales))
+        _stat, census = guarded_logit_stat(logits, backend=backend)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        return tok, census.cpu().numpy()
+
+    # -- the ServingRuntime protocol --------------------------------------
+
+    def start_wave(self, prompts: list, scales, backend: str):
+        live = [p for p in prompts if p is not None]
+        if not live:
+            raise ValueError("start_wave needs at least one live prompt")
+        with torch.inference_mode():
+            packed = self._pack_wave([np.asarray(p) for p in live])
+            logits, caches = self._prefill(self.params, packed)
+            tok, census = self._guard(logits, scales, backend)
+        state = {"caches": caches, "tok": tok, "pos": int(packed.shape[1]), "t": 0}
+        return state, _tok_ints(tok), census
+
+    def decode(self, state: dict, scales, backend: str):
+        with torch.inference_mode():
+            logits, caches = self._decode_logits(
+                self.params, state["caches"], state["tok"], state["pos"] + state["t"]
+            )
+            tok, census = self._guard(logits, scales, backend)
+        new_state = {"caches": caches, "tok": tok, "pos": state["pos"], "t": state["t"] + 1}
+        return new_state, _tok_ints(tok), census
+
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch-slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--reduce-backend", default=None,
+                    choices=R.available_backends() + ("auto",),
+                    help="process-wide reduce backend (default: auto)")
+    ap.add_argument("--guard", action="store_true",
+                    help="serve through the resilient runtime (admission "
+                    "queue, deadlines, census-guarded decode, breaker)")
+    ap.add_argument("--queue-capacity", type=int, default=64)
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request deadline, seconds from submission")
+    ap.add_argument("--chaos", action="store_true",
+                    help="per-request fault injection (--guard only)")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--status-path", default=None,
+                    help="atomic JSON ServeMetrics export path")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' runs the "
+                    "kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    if args.reduce_backend:
+        R.set_default_backend(args.reduce_backend)
+    cfg = get_arch(args.arch, tiny=args.tiny)
+    s_max = args.prompt_len + args.max_new + 1
+    rng = np.random.default_rng(0)
+    reqs = [
+        rng.integers(0, cfg.vocab_size, size=(args.prompt_len,)).astype(np.int32)
+        for _ in range(args.requests)
+    ]
+    t0 = time.time()
+    if args.guard:
+        from repro_torch.runtime.chaos import ChaosMonkey
+
+        eng = GuardedEngine(cfg, s_max, args.batch_slots, device=args.device)
+        chaos = (
+            ChaosMonkey.from_seed(
+                args.chaos_seed, n_steps=args.requests,
+                nan_rate=0.15, fail_rate=0.15, preempt_rate=0.1,
+            )
+            if args.chaos else None
+        )
+        runtime = ServingRuntime(
+            eng, queue_capacity=args.queue_capacity, chaos=chaos,
+            status_path=args.status_path,
+        )
+        now = runtime.clock()
+        results = runtime.serve([
+            Request(
+                rid=i, prompt=p, max_new=args.max_new,
+                deadline_s=(now + args.deadline_s if args.deadline_s is not None else None),
+            )
+            for i, p in enumerate(reqs)
+        ])
+        dt = time.time() - t0
+        outs = [list(r.tokens) for r in results if r.ok]
+        n_tok = sum(len(o) for o in outs)
+        snap = runtime.metrics.snapshot()
+        print(f"served {len(outs)}/{len(reqs)} requests, {n_tok} tokens in "
+              f"{dt:.2f}s ({n_tok / max(dt, 1e-9):.1f} tok/s incl. init)")
+        print(f"admitted={snap['admitted']} shed={snap['shed_queue_full']}"
+              f"+{snap['shed_infeasible']} deadline_missed="
+              f"{snap['deadline_missed']} quarantined={snap['quarantined']} "
+              f"breaker_trips={snap['breaker_trips']} "
+              f"p50={snap['token_latency_p50_s'] * 1e3:.1f}ms "
+              f"p99={snap['token_latency_p99_s'] * 1e3:.1f}ms")
+        return results
+    eng = Engine(cfg, s_max, args.batch_slots, device=args.device)
+    outs = eng.serve(reqs, args.max_new)
+    dt = time.time() - t0
+    n_tok = sum(len(o) for o in outs)
+    print(f"served {len(outs)} requests, {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s incl. init)")
+    for i, o in enumerate(outs[:3]):
+        print(f"req{i}: {o[:12]}...")
+    return outs
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,133 @@
+"""Attention: projections, the kernel prefill route, KV caches and decode.
+
+Port of ``repro/models/attention.py`` for global causal self-attention.
+Activations keep the reference's (B, S, H, D) layout; the kernel takes
+(B, H, S, D), as the reference's does.
+
+  prefill: ``self_attention_train`` runs ``kernels.flash_attention`` (the
+           chunked non-kernel route ``flash_attention_xla`` is not ported:
+           ``use_kernels=False`` raises NotImplementedError).
+  decode:  ``self_attention_decode`` writes the new K/V into the cache and
+           runs ``decode_attention``, plain torch whose softmax denominator
+           is the ones-MMA row sum of ``repro_torch.reduce``.
+
+KV caches are written IN PLACE (the reference's are immutable arrays). The
+serving runtime may retry a decode step from its committed state; the step
+at position p writes slot p and then reads slots <= p, so a retry rewrites
+that slot with the same values before reading it: the in-place write is
+idempotent under retry, and a retried step reproduces the clean step
+bitwise (tests/test_torch_serve.py checks both).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch import reduce as R
+from repro_torch.models import layers as L
+from repro_torch.models import params as P
+
+NEG = -1e30
+
+
+def attn_init(gen, d: int, n_heads: int, n_kv: int, d_head: int, dtype, device) -> dict:
+    return {
+        "q": P.dense_init(gen, d, n_heads * d_head, dtype, device),
+        "k": P.dense_init(gen, d, n_kv * d_head, dtype, device),
+        "v": P.dense_init(gen, d, n_kv * d_head, dtype, device),
+        "o": P.dense_init(gen, n_heads * d_head, d, dtype, device,
+                          scale=(n_heads * d_head) ** -0.5),
+    }
+
+
+def _project_qkv(p, x, n_heads, n_kv, d_head):
+    b, s, _ = x.shape
+    q = P.dense_apply(p["q"], x).reshape(b, s, n_heads, d_head)
+    k = P.dense_apply(p["k"], x).reshape(b, s, n_kv, d_head)
+    v = P.dense_apply(p["v"], x).reshape(b, s, n_kv, d_head)
+    return q, k, v
+
+
+def self_attention_train(p, x, positions, cfg, *, return_kv=False):
+    """(B, S, d) -> (B, S, d): causal self-attention, train/prefill path.
+    ``return_kv=True`` also returns the RoPE'd keys and the values
+    (B, S, Hkv, D) -- what the prefill writes into the cache."""
+    if not cfg.use_kernels:
+        raise NotImplementedError(
+            "the non-kernel attention route (the reference's chunked "
+            "flash_attention_xla) is not ported; use use_kernels=True"
+        )
+    q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    out = K.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+    ).transpose(1, 2)
+    b, s = out.shape[0], out.shape[1]
+    out = P.dense_apply(p["o"], out.reshape(b, s, -1))
+    return (out, k, v) if return_kv else out
+
+
+def make_kv_cache(batch: int, s_max: int, n_kv: int, d_head: int, dtype, device) -> dict:
+    return {
+        "k": torch.zeros((batch, s_max, n_kv, d_head), dtype=dtype, device=device),
+        "v": torch.zeros((batch, s_max, n_kv, d_head), dtype=dtype, device=device),
+        "slot_pos": torch.full((s_max,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def fill_kv_cache(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """Prefill: the prompt's RoPE'd keys and values into slots [0, S), in
+    place. (Ring caches for local attention are not ported.)"""
+    s = k.shape[1]
+    s_max = cache["k"].shape[1]
+    if s > s_max:
+        raise ValueError(f"prompt of {s} tokens exceeds the cache length {s_max}")
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    cache["slot_pos"][:s] = torch.arange(s, dtype=torch.int32, device=k.device)
+    return cache
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, sm_scale=None) -> torch.Tensor:
+    """q: (B, 1, H, D), RoPE'd; caches (B, Smax, Hkv, D); slot_pos (Smax,)
+    absolute position per slot (-1 empty). Products of bf16-rounded
+    operands accumulate in f32, as the reference's einsums do."""
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
+    g = h // hkv
+    scale = sm_scale if sm_scale is not None else d**-0.5
+    qg = _bf16(q.reshape(b, hkv, g, d))
+    s = torch.matmul(qg, _bf16(k_cache).permute(0, 2, 3, 1)) * scale  # (B,Hkv,G,S)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    s = torch.where(valid, s, NEG)
+    m = s.amax(-1, keepdim=True)
+    e = torch.where(valid, torch.exp(s - m), 0.0)
+    denom = R.reduce(e, -1, backend=R.backend_for_flags(True))
+    out = torch.matmul(_bf16(e), _bf16(v_cache).permute(0, 2, 1, 3))
+    out = out / torch.clamp_min(denom, 1e-30)[..., None]
+    return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
+
+
+def self_attention_decode(p, x_t, cache, pos: int, cfg):
+    """One decode step at absolute position ``pos``. x_t: (B, 1, d). Writes
+    K/V at slot ``pos`` of the cache in place (see the module doc).
+    Returns (out (B, 1, d), cache)."""
+    b = x_t.shape[0]
+    q, k, v = _project_qkv(p, x_t, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    posb = torch.full((b, 1), pos, dtype=torch.int64, device=x_t.device)
+    q = L.rope(q, posb, cfg.rope_theta)
+    k = L.rope(k, posb, cfg.rope_theta)
+    s_max = cache["k"].shape[1]
+    if pos >= s_max:
+        raise ValueError(f"decode position {pos} is past the cache length {s_max}")
+    cache["k"][:, pos] = k[:, 0]
+    cache["v"][:, pos] = v[:, 0]
+    cache["slot_pos"][pos] = pos
+    out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos)
+    return P.dense_apply(p["o"], out.reshape(b, 1, -1)), cache

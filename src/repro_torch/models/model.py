@@ -1,0 +1,122 @@
+"""Model assembly: the dense decoder stack, prefill and decode.
+
+Port of ``repro/models/model.py`` restricted to the dense ``attn`` block
+(OLMo). The reference stacks unit parameters on a leading axis for
+``lax.scan``; here each layer is its own entry of ``params["layers"]`` and
+the stack is a Python loop.
+
+  prefill      (B, S) tokens -> last-token logits, caches filled
+  decode_step  one token per slot against the caches (written in place)
+
+Logits are f32 (the head multiplies in f32, as the reference's einsum
+does), pad-vocab masked, and cut to ``vocab_size`` entries.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import params as P
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def param_dtype(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def _check_ported(cfg) -> None:
+    for kind in cfg.pattern_layers:
+        if kind != "attn":
+            raise NotImplementedError(f"block kind {kind!r} is not ported; only 'attn' is")
+    if not cfg.tie_embeddings:
+        raise NotImplementedError("untied output heads are not ported")
+
+
+def block_init(gen, cfg, device) -> dict:
+    dt = param_dtype(cfg)
+    d = cfg.d_model
+    return {
+        "norm1": P.norm_init(cfg.norm, d, dt, device),
+        "mix": A.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, dt, device),
+        "norm2": P.norm_init(cfg.norm, d, dt, device),
+        "ffn": L.ffn_init(gen, d, cfg.d_ff, cfg.ffn_kind, dt, device),
+    }
+
+
+def init_params(cfg, gen: torch.Generator, device) -> dict:
+    """Random parameters drawn from ``gen`` (a generator on ``device``)."""
+    _check_ported(cfg)
+    dt = param_dtype(cfg)
+    return {
+        "embed": P.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
+        "layers": [block_init(gen, cfg, device) for _ in range(cfg.n_layers)],
+        "final_norm": P.norm_init(cfg.norm, cfg.d_model, dt, device),
+    }
+
+
+def _norm(p, h, cfg):
+    return L.norm_apply(cfg.norm, p, h, eps=cfg.norm_eps)
+
+
+def _embed(params, tokens):
+    return params["embed"]["table"][tokens]
+
+
+def _mask_pad_logits(logits, cfg):
+    """Pad-vocab logits are masked to -1e30 so argmax and softmax see the
+    unpadded math."""
+    nv = logits.shape[-1]
+    if nv == cfg.vocab_size:
+        return logits
+    pad = torch.arange(nv, device=logits.device) >= cfg.vocab_size
+    return torch.where(pad, -1e30, logits)
+
+
+def _head(params, cfg, h):
+    """Tied-embedding head in f32 -> (B, S, vocab_size)."""
+    logits = torch.matmul(h.to(torch.float32), params["embed"]["table"].to(torch.float32).T)
+    return _mask_pad_logits(logits, cfg)[..., : cfg.vocab_size]
+
+
+def make_caches(cfg, batch: int, s_max: int, device) -> dict:
+    dt = param_dtype(cfg)
+    return {
+        "layers": [
+            A.make_kv_cache(batch, s_max, cfg.n_kv_heads, cfg.d_head, dt, device)
+            for _ in range(cfg.n_layers)
+        ]
+    }
+
+
+def prefill(params, cfg, tokens: torch.Tensor, caches: dict):
+    """Run the prompt, filling caches. Returns (last-token logits (B, 1, V),
+    caches)."""
+    _check_ported(cfg)
+    h = _embed(params, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for p, cache in zip(params["layers"], caches["layers"]):
+        mix, k, v = A.self_attention_train(
+            p["mix"], _norm(p["norm1"], h, cfg), positions, cfg, return_kv=True
+        )
+        A.fill_kv_cache(cache, k, v)
+        h = h + mix
+        h = h + L.ffn_apply(p["ffn"], _norm(p["norm2"], h, cfg))
+    h = _norm(params["final_norm"], h, cfg)
+    return _head(params, cfg, h[:, -1:]), caches
+
+
+def decode_step(params, cfg, token_t: torch.Tensor, caches: dict, pos: int):
+    """One token step. token_t: (B, 1); pos: the absolute position of this
+    token. Returns (logits (B, 1, V), caches)."""
+    _check_ported(cfg)
+    h = _embed(params, token_t)
+    for p, cache in zip(params["layers"], caches["layers"]):
+        mix, _ = A.self_attention_decode(p["mix"], _norm(p["norm1"], h, cfg), cache, pos, cfg)
+        h = h + mix
+        h = h + L.ffn_apply(p["ffn"], _norm(p["norm2"], h, cfg))
+    h = _norm(params["final_norm"], h, cfg)
+    return _head(params, cfg, h), caches

@@ -1,0 +1,205 @@
+"""Backend registry: the interchangeable executors behind ``repro_torch.reduce``.
+
+Port of the serving path's part of ``repro/reduce/backends.py``. A backend
+supplies four primitives:
+
+  sum_axis(x, plan)       -- (..., L) -> (...) sum over the last axis
+  moments_axis(x, plan)   -- (..., L) -> ((...), (...)) fused (sum, sumsq)
+  sum_parts(parts, plan, prologue)
+                          -- S separate arrays -> (S,) prologue-mapped sums
+  sum_parts_total(parts, plan, prologue, total_chains, census)
+                          -- (S,) sums, then chain k of the cross-part total
+                             at slot S + k, then (census) S + 1 non-finite
+                             counts: the row behind ``reduce_tree``
+
+Registered here (analogues of the reference's xla / mma_jnp /
+pallas_fused):
+
+  torch       -- plain ``torch.sum`` at accumulator precision; the oracle.
+  mma_torch   -- the paper's algorithm as all-ones matmuls
+                 (``core.mma_reduce``): rows via one ones-product, parts as
+                 rows of m plus an exact f32 fold of the row partials.
+  cuda_fused  -- the parts kernel (``kernels.mma_reduce.mma_sum_parts``):
+                 every part enters ONE launch as its own operand, mapped
+                 in-kernel (``native_prologue``), with the chains and the
+                 census finished in the same launch. Rows ride the same
+                 ones-product as mma_torch. Past ``PARTS_KERNEL_MAX`` live
+                 parts it folds host-side through the base class, as the
+                 reference's kernel backends do.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+
+from repro_torch.core import mma_reduce as _core
+from repro_torch.kernels import common as _kcommon
+from repro_torch.kernels.mma_reduce import ops as _parts_ops
+from repro_torch.reduce.plan import ReducePlan
+
+
+def _host_prologue(x: torch.Tensor, plan: ReducePlan, prologue: str) -> torch.Tensor:
+    """The elementwise map at accumulator precision (reference semantics of
+    the non-kernel backends)."""
+    return _kcommon.apply_prologue(x.to(plan.accum_torch), prologue)
+
+
+def host_nonfinite_census(parts, dtype) -> torch.Tensor:
+    """``out[s]`` counts the NaN/Inf elements of part s, ``out[S]`` their
+    total. Integer and bool parts count 0."""
+    counts = []
+    for p in parts:
+        if p.numel() and (p.is_floating_point() or p.is_complex()):
+            counts.append(torch.sum(~torch.isfinite(p.reshape(-1))).to(dtype))
+        else:
+            counts.append(torch.zeros((), dtype=dtype, device=p.device))
+    dev = parts[0].device if parts else None
+    per = torch.stack(counts) if counts else torch.zeros((0,), dtype=dtype, device=dev)
+    return torch.cat([per, torch.sum(per)[None]])
+
+
+class Backend:
+    """Base class; subclasses override the primitives."""
+
+    name: str = "?"
+    # True -> the prologue runs INSIDE the kernel on the raw leaf, and
+    # reduce_tree hands the leaves themselves to sum_parts[_total].
+    native_prologue: bool = False
+
+    def sum_axis(self, x: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
+        raise NotImplementedError
+
+    def moments_axis(self, x: torch.Tensor, plan: ReducePlan):
+        """Fused (sum, sumsq) over the last axis: the stacked all-ones
+        product (both moments in one matmul)."""
+        return _core.row_moments_mma(
+            x.to(plan.accum_torch), compute_dtype=plan.compute_torch,
+            accum_dtype=plan.accum_torch,
+        )
+
+    def _part_sum(self, flat: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
+        raise NotImplementedError
+
+    def sum_parts(self, parts: Sequence[torch.Tensor], plan: ReducePlan,
+                  prologue="identity") -> torch.Tensor:
+        """``out[s] = sum(P_s(parts[s]))`` over separate arrays, each mapped
+        at accumulator precision; empty parts give 0."""
+        pros = _kcommon.normalize_part_prologues(prologue, len(parts))
+        if "moments" in pros:
+            raise NotImplementedError("'moments' parts are not ported")
+        accum = plan.accum_torch
+        if not parts:
+            return torch.zeros((0,), dtype=accum)
+        outs = []
+        for p, pro in zip(parts, pros):
+            flat = _host_prologue(p.reshape(-1), plan, pro)
+            outs.append(
+                self._part_sum(flat, plan) if flat.numel()
+                else torch.zeros((), dtype=accum, device=p.device)
+            )
+        return torch.stack(outs).to(accum)
+
+    def sum_parts_total(self, parts, plan: ReducePlan, prologue="identity",
+                        total_chains: tuple = ((),), census: bool = False):
+        """Per-part sums, chain k of their total at slot S + k and, with
+        ``census``, S + 1 non-finite counts -- host-side fold (reference
+        semantics); cuda_fused finishes all of it in its launch."""
+        per = self.sum_parts(parts, plan, prologue)
+        total = torch.sum(per)
+        totals = torch.stack([_kcommon.apply_epilogue(total, ch) for ch in total_chains])
+        pieces = [per, totals.to(per.dtype)]
+        if census:
+            pieces.append(host_nonfinite_census(parts, per.dtype))
+        return torch.cat(pieces)
+
+
+class TorchBackend(Backend):
+    """Plain torch reductions at accumulator precision -- the oracle."""
+
+    name = "torch"
+
+    def sum_axis(self, x, plan):
+        return torch.sum(x.to(plan.accum_torch), dim=-1)
+
+    def moments_axis(self, x, plan):
+        xf = x.to(plan.accum_torch)
+        return torch.sum(xf, dim=-1), torch.sum(xf * xf, dim=-1)
+
+    def _part_sum(self, flat, plan):
+        return torch.sum(flat)
+
+
+class MmaTorchBackend(Backend):
+    """The paper's algorithm as all-ones matmuls (runs on any device)."""
+
+    name = "mma_torch"
+
+    def sum_axis(self, x, plan):
+        return _core.row_sum_mma(
+            x.to(plan.accum_torch), compute_dtype=plan.compute_torch,
+            accum_dtype=plan.accum_torch,
+        )
+
+    def _part_sum(self, flat, plan):
+        # zero-padded rows of m through ONE ones-product, then an exact f32
+        # fold of the row partials (the upper rungs of the hierarchy)
+        m = plan.m
+        rows = _kcommon.ceil_div(flat.numel(), m)
+        padded = torch.nn.functional.pad(flat, (0, rows * m - flat.numel()))
+        return torch.sum(self.sum_axis(padded.view(rows, m), plan))
+
+
+class CudaFusedBackend(MmaTorchBackend):
+    """The one-launch parts kernel; rows ride mma_torch's ones-product."""
+
+    name = "cuda_fused"
+    native_prologue = True
+
+    def sum_parts(self, parts, plan, prologue="identity"):
+        live = sum(1 for p in parts if p.numel())
+        if live > _parts_ops.PARTS_KERNEL_MAX:
+            return super().sum_parts(parts, plan, prologue)
+        out = _parts_ops.mma_sum_parts(
+            parts, compute_dtype=plan.compute_torch, prologue=prologue,
+        )
+        return out.to(plan.accum_torch)
+
+    def sum_parts_total(self, parts, plan, prologue="identity",
+                        total_chains=((),), census=False):
+        live = sum(1 for p in parts if p.numel())
+        if live > _parts_ops.PARTS_KERNEL_MAX:
+            return super().sum_parts_total(parts, plan, prologue, total_chains, census)
+        out = _parts_ops.mma_sum_parts(
+            parts, compute_dtype=plan.compute_torch, prologue=prologue,
+            total_chains=tuple(total_chains), census=census,
+        )
+        return out.to(plan.accum_torch)
+
+
+_REGISTRY: Dict[str, Backend] = {}
+
+
+def register_backend(backend: Backend, name: str | None = None) -> Backend:
+    _REGISTRY[name or backend.name] = backend
+    return backend
+
+
+def get_backend(name: str) -> Backend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown reduce backend {name!r}; available: "
+            f"{', '.join(available_backends())}"
+        ) from None
+
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+register_backend(TorchBackend())
+register_backend(MmaTorchBackend())
+register_backend(CudaFusedBackend())

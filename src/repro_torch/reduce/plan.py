@@ -1,0 +1,151 @@
+"""Reduction planning: backend and dtypes for one reduction.
+
+Port of the parts of ``repro/reduce/plan.py`` the serving path uses: the
+frozen ``ReducePlan``, ``plan_for`` with the reference's defaults (f32
+accumulation; the exactness-sensitive kinds sumsq/norm2 multiply at f32,
+other float reductions at bf16, the tensor-core mode the paper analyzes),
+the process default backend, and the circuit breaker's quarantine.
+
+Backend resolution: an explicit ``backend=`` wins; else the process
+default (``set_default_backend``); else "auto", which picks the MMA
+algorithm ``mma_torch`` for reductions longer than one tile and plain
+``torch`` below (the reference's off-TPU choice). The kernel backend
+``cuda_fused`` is reached by name (the guard's breaker chain).
+Quarantined backends leave AUTO rotation along cuda_fused -> mma_torch ->
+torch; explicit pins still reach them (the breaker's half-open probes).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels.common import MXU
+
+_default_backend: Optional[str] = None
+_QUARANTINED: set = set()
+_QUARANTINE_FALLBACK = {"cuda_fused": "mma_torch", "mma_torch": "torch"}
+
+_DTYPES = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def dtype_name(dtype) -> str:
+    if isinstance(dtype, str):
+        if dtype not in _DTYPES:
+            raise ValueError(f"unknown dtype {dtype!r}")
+        return dtype
+    return str(dtype).replace("torch.", "")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReducePlan:
+    """backend: registry name ("torch" | "mma_torch" | "cuda_fused");
+    m: the MMA tile size; compute_dtype: dtype of the MMA multipliers;
+    accum_dtype: accumulator / result dtype (dtype names, so plans hash)."""
+
+    backend: str = "mma_torch"
+    m: int = MXU
+    compute_dtype: str = "bfloat16"
+    accum_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.m < 2:
+            raise ValueError(f"m must be >= 2; got {self.m}")
+
+    @property
+    def compute_torch(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    @property
+    def accum_torch(self) -> torch.dtype:
+        return _DTYPES[self.accum_dtype]
+
+    def replace(self, **kw) -> "ReducePlan":
+        return dataclasses.replace(self, **kw)
+
+
+def set_default_backend(name: Optional[str]) -> None:
+    """Set the process-wide default backend (None restores auto)."""
+    global _default_backend
+    _default_backend = name
+
+
+def default_backend() -> str:
+    return _default_backend if _default_backend is not None else "auto"
+
+
+def quarantine_backend(name: str) -> None:
+    """Take ``name`` out of AUTO rotation (circuit-breaker trip)."""
+    _QUARANTINED.add(str(name))
+
+
+def reinstate_backend(name: str) -> None:
+    """Undo ``quarantine_backend`` (breaker close)."""
+    _QUARANTINED.discard(str(name))
+
+
+def quarantined_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_QUARANTINED))
+
+
+def _dequarantine(name: str) -> str:
+    while name in _QUARANTINED:
+        nxt = _QUARANTINE_FALLBACK.get(name)
+        if nxt is None:
+            return name  # terminal: serve it even quarantined
+        name = nxt
+    return name
+
+
+def backend_for_flags(mma: bool) -> str:
+    """The backend of a model reduction: ``mma_torch`` for the paper's
+    ones-MMA form, else ``torch``; an explicit process default (the
+    launcher's ``--reduce-backend``) overrides the flag."""
+    if _default_backend:
+        return _default_backend
+    return "mma_torch" if mma else "torch"
+
+
+def plan_for(
+    shape: Sequence[int],
+    dtype,
+    *,
+    kind: str = "sum",
+    axis=None,
+    backend: Optional[str] = None,
+    compute_dtype=None,
+    accum_dtype=None,
+) -> ReducePlan:
+    """The plan for reducing ``shape``/``dtype`` over ``axis`` (the reduced
+    extent picks the auto backend; unset dtypes follow the reference)."""
+    name = backend if backend is not None else default_backend()
+    if name == "auto":
+        axes = range(len(shape)) if axis is None else (
+            (axis,) if isinstance(axis, int) else tuple(axis))
+        n = math.prod(int(shape[a]) for a in axes)
+        name = _dequarantine("mma_torch" if n > MXU else "torch")
+    dt = dtype_name(dtype)
+    if accum_dtype is None:
+        accum_dtype = "float64" if dt == "float64" else "float32"
+    if compute_dtype is None:
+        if dt == "float64":
+            compute_dtype = "float64"
+        elif dt not in _DTYPES:
+            compute_dtype = "float32"  # integer/bool data: exact f32 MMA
+        elif kind in ("sumsq", "norm2"):
+            compute_dtype = "float32"  # exactness matters for clipping
+        else:
+            compute_dtype = "bfloat16"
+    return ReducePlan(
+        backend=name,
+        compute_dtype=dtype_name(compute_dtype),
+        accum_dtype=dtype_name(accum_dtype),
+    )

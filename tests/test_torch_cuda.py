@@ -1,0 +1,109 @@
+"""The port's CUDA kernels on the card, each against its plain version.
+
+Marked ``cuda``: these need an NVIDIA GPU and nvcc, and skip elsewhere
+(the decision is taken inside the fixture, never at import). Run them on
+the card with
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances as in ``chip_smoke.py``: one bf16 ulp for the norms (same
+roundings, other f32 summation orders), 2 bf16 ulps + 2e-3 for attention,
+1e-6 x mass for the parts sums and exact census counts.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels import common, flash_attention, layernorm_np, mma_sum_parts, rmsnorm
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.mma_reduce import mma_sum_parts_plain
+from repro_torch.kernels.row_moments import layernorm_np_plain, rmsnorm_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _ulp_close(got, want, ulps=1):
+    g, w = got.float(), want.float()
+    return bool(torch.all((g - w).abs() <= ulps * 2.0**-7 * w.abs() + 1e-6))
+
+
+@pytest.mark.parametrize("rows,d", [(1, 16), (37, 64), (300, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_norms_match_plain(gen, rows, d, dtype):
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3 + 1).to(dtype)
+    gamma = torch.rand((d,), generator=gen, device="cuda") + 0.5
+    before = layernorm_np.launches
+    assert _ulp_close(layernorm_np(x), layernorm_np_plain(x))
+    assert _ulp_close(rmsnorm(x, gamma), rmsnorm_plain(x, gamma))
+    assert layernorm_np.launches == before + 1
+
+
+@pytest.mark.parametrize("case", [
+    (2, 4, 4, 100, 100, 32, True, None, 0),
+    (1, 8, 2, 130, 200, 64, False, None, 0),
+    (1, 4, 2, 200, 200, 128, True, 64, 0),
+    (1, 2, 1, 40, 200, 16, True, None, 160),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(gen, case, dtype):
+    b, hq, hkv, sq, skv, d, causal, window, q_offset = case
+    q, k, v = ((torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, plain = flash_attention(q, k, v, **kw), flash_attention_plain(q, k, v, **kw)
+    assert out.dtype == dtype
+    diff = (out.float() - plain.float()).abs()
+    assert bool(torch.all(diff <= 2.0**-6 * plain.float().abs() + 2e-3))
+
+
+def test_flash_attention_rejects_unsupported_head_dim(gen):
+    q = torch.zeros((1, 1, 8, 24), device="cuda")
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+
+
+def test_parts_match_plain_with_census(gen):
+    sizes = (100, 0, 20000, 16384, 3 * 16384 + 5)
+    parts = [torch.randn((n,), generator=gen, device="cuda") for n in sizes]
+    parts[2][7] = float("nan")
+    parts[4][-1] = float("inf")
+    parts.append(torch.randn((50,), generator=gen, device="cuda").to(torch.bfloat16))
+    chains = ((), (("clip_coeff", 1.0),), (("sqrt",), ("scale", 0.5)))
+    out = mma_sum_parts(parts, prologue="square", total_chains=chains, census=True)
+    plain = mma_sum_parts_plain(parts, ("square",) * len(parts), chains, True)
+    s = len(parts)
+    assert torch.equal(out[s + len(chains):], plain[s + len(chains):])
+    assert out[s + len(chains):].tolist() == [0, 0, 1, 0, 1, 0, 2]
+    mass = float(sum(torch.nan_to_num(p.float(), posinf=0.0).square().sum() for p in parts))
+    fin = torch.isfinite(plain)
+    assert torch.equal(fin, torch.isfinite(out))
+    assert float((out[fin] - plain[fin]).abs().max()) <= 1e-6 * mass
+
+
+def test_parts_repeat_launches_agree(gen):
+    # the fold ticket resets itself: later launches, of other tile counts
+    # too, fold exactly as the first one did
+    parts = [torch.randn((n,), generator=gen, device="cuda") for n in (50304, 7, 40000)]
+    first = mma_sum_parts(parts, prologue="square", total_chains=((),), census=True)
+    for n_parts in (1, 3, 2, 3):
+        again = mma_sum_parts(parts[:n_parts], prologue="square", total_chains=((),),
+                              census=True)
+        if n_parts == 3:
+            assert torch.equal(again, first)
+        else:
+            plain = mma_sum_parts_plain(parts[:n_parts], ("square",) * n_parts, ((),), True)
+            assert torch.equal(again[-n_parts - 1:], plain[-n_parts - 1:])
+
+
+def test_mixed_devices_raise(gen):
+    with pytest.raises(ValueError):
+        rmsnorm(torch.ones((2, 16), device="cuda"), torch.ones(16))
+    assert "mma_sum_parts" in common.KERNEL_WRAPPERS

@@ -1,0 +1,67 @@
+"""Port parity: ``repro_torch.kernels.flash_attention`` against the
+reference's Pallas ``flash_attention`` (interpret mode on the CPU).
+
+Cases: causal and non-causal, GQA (Hq=4, Hkv=2), a sliding window, a
+``q_offset``, and sequence lengths that are not block multiples. On the
+CPU the port runs the kernel's plain version.
+
+Tolerance 2e-3 (outputs are O(0.5)): both sides round q, k, v and the
+probabilities p to bf16 and accumulate in f32, but the port streams 64-key
+blocks where the reference streams 128-key blocks, so past 64 keys the
+running max differs between the two when p is rounded -- one bf16 rounding
+(2^-9 relative) of each p, not an error of the algorithm. At <= 64 keys the
+two walk the same blocks and agree to f32 rounding.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as ref_flash_attention
+from repro_torch.kernels import flash_attention
+
+CASES = [
+    # b, hq, hkv, sq, skv, d, causal, window, q_offset
+    pytest.param(1, 4, 4, 100, 100, 32, True, None, 0, id="causal-ragged"),
+    pytest.param(1, 4, 2, 130, 130, 32, False, None, 0, id="noncausal-gqa-ragged"),
+    pytest.param(1, 4, 2, 200, 200, 32, True, 64, 0, id="window-gqa"),
+    pytest.param(1, 2, 2, 40, 200, 32, True, None, 160, id="q-offset"),
+    pytest.param(1, 4, 1, 50, 90, 16, False, None, 0, id="mqa-cross-lengths"),
+    pytest.param(2, 4, 4, 64, 64, 16, True, None, 0, id="one-block"),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,q_offset", CASES)
+def test_matches_reference(b, hq, hkv, sq, skv, d, causal, window, q_offset):
+    rng = np.random.default_rng(sq * 1000 + skv)
+    q = (rng.standard_normal((b, hq, sq, d)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((b, hkv, skv, d)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((b, hkv, skv, d)) * 0.5).astype(np.float32)
+    want = np.asarray(ref_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        causal=causal, window=window, q_offset=q_offset,
+    ))
+    got = flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, window=window, q_offset=q_offset,
+    ).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+
+
+def test_bf16_inputs_keep_dtype():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 20, 16)).astype(np.float32)).to(torch.bfloat16)
+    out = flash_attention(q, q, q)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+
+
+def test_rejects_bad_arguments():
+    q = torch.zeros((1, 3, 8, 16))
+    k = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)  # Hq not a multiple of Hkv
+    with pytest.raises(ValueError):
+        flash_attention(k, k, k, window=0)
