@@ -8,7 +8,7 @@ Only olmo-1b is ported so far.
 from __future__ import annotations
 
 from repro_torch.configs import olmo_1b
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: F401
 
 _MODULES = (olmo_1b,)
 

@@ -1,9 +1,10 @@
 """Model configuration: a frozen, hashable ``ModelConfig`` per architecture.
 
 A copy of ``repro/configs/base.py`` restricted to what the dense decoder of
-this package needs. ``use_pallas`` is ``use_kernels`` here and defaults to
-True: the hot spots (norms, prefill attention, the guarded logit statistic)
-run on the CUDA kernels of ``repro_torch.kernels``.
+this package needs, plus the optimizer's ``TrainConfig``. ``use_pallas`` is
+``use_kernels`` here and defaults to True: the hot spots (norms, attention,
+the cross-entropy, the loss and clip statistics) run on the CUDA kernels of
+``repro_torch.kernels``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ class ModelConfig:
     # --- framework knobs (not architecture) ---
     dtype: str = "bfloat16"        # params/activations dtype
     use_kernels: bool = True       # route hot spots to the CUDA kernels
+    mma_reductions: bool = True    # paper's technique on/off (off = baseline)
+    remat: bool = True             # activation checkpointing per layer
 
     @property
     def pattern_layers(self) -> tuple[str, ...]:
@@ -60,3 +63,24 @@ class ModelConfig:
     def _ffn_params(self) -> int:
         d = self.d_model
         return 3 * d * self.d_ff if self.ffn_kind == "swiglu" else 2 * d * self.d_ff
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """AdamW and schedule settings: ``repro.configs.base.TrainConfig``
+    without ``grad_compression`` (the cross-pod gradient hop is not ported).
+    """
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1          # gradient-accumulation chunks per step
+    # olmax-style scalar second-moment EMA per reference leaf, fed by the
+    # norm launch's per-leaf sumsq slots (see optim.adamw); must match the
+    # init_state that built the opt state
+    fused_second_moment: bool = False
+    seed: int = 0

@@ -1,8 +1,9 @@
-"""Row reductions as all-ones matrix products (the paper's eq. 9).
+"""Reductions as all-ones matrix products (the paper's eqs. 9-13).
 
-Port of ``row_sum_mma`` / ``row_moments_mma`` of
-``repro/core/mma_reduce.py``: the ``mma_torch`` backend's row path, which
-decode attention's softmax denominator uses. The operand is rounded to the
+Port of ``row_sum_mma`` / ``row_moments_mma`` / ``mma_sum`` of
+``repro/core/mma_reduce.py``: the ``mma_torch`` backend's row path (decode
+attention's softmax denominator, the non-kernel CE) and its full
+reduction (the hierarchy of eq. 13). The operand is rounded to the
 compute dtype, then multiplied by an all-ones column with f32
 accumulation. PyTorch's low-precision matmul would round its OUTPUT to the
 compute dtype, so the rounded operand is lifted to the accumulator dtype
@@ -44,3 +45,31 @@ def row_moments_mma(
     stacked = torch.stack([xa.to(compute_dtype), (xa * xa).to(compute_dtype)], 0)
     out = torch.matmul(stacked.to(accum_dtype), _ones_col(x.shape[-1], accum_dtype, x.device))
     return out[0, ..., 0], out[1, ..., 0]
+
+
+def mma_sum(
+    x: torch.Tensor,
+    *,
+    m: int = 128,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    accum_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Reduce ``x`` to a scalar with the paper's hierarchical two-MMA
+    algorithm (eq. 13): split into zero-padded groups of m^2, reduce each
+    group with two all-ones products -- D = A @ 1 (row sums), then 1 @ D
+    with D re-entering at the compute dtype -- and recurse on the group
+    sums until one is left."""
+    if m < 2:
+        raise ValueError(f"m must be >= 2 (paper section V); got {m}")
+    group = m * m
+    flat = x.reshape(-1).to(accum_dtype)
+    if flat.numel() == 0:
+        return torch.zeros((), dtype=accum_dtype, device=x.device)
+    while flat.numel() > 1:
+        k = -(-flat.numel() // group)
+        flat = torch.nn.functional.pad(flat, (0, k * group - flat.numel()))
+        rows = row_sum_mma(flat.view(k * m, m), compute_dtype=compute_dtype,
+                           accum_dtype=accum_dtype)
+        flat = row_sum_mma(rows.view(k, m), compute_dtype=compute_dtype,
+                           accum_dtype=accum_dtype)
+    return flat.reshape(())

@@ -3,9 +3,13 @@ PyTorch version and with a launch counter (``kernels.common``):
 
   row_moments     -- layernorm_np / rmsnorm, row statistics as ones-MMAs
   flash_attention -- online-softmax attention, ones-MMA denominator
-  mma_reduce      -- the one-launch multi-part reduction with census
+  cross_entropy   -- online logsumexp over the vocabulary, ones-MMA
+                     denominator, exact label logit
+  mma_reduce      -- the striped one-launch full reduction and the
+                     one-launch multi-part reduction, both with census
 """
 
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
-from repro_torch.kernels.mma_reduce import mma_sum_parts  # noqa: F401
+from repro_torch.kernels.cross_entropy import cross_entropy  # noqa: F401
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_diff  # noqa: F401
+from repro_torch.kernels.mma_reduce import mma_sum_fused, mma_sum_parts  # noqa: F401
 from repro_torch.kernels.row_moments import layernorm_np, rmsnorm  # noqa: F401

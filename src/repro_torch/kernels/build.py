@@ -26,7 +26,10 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("row_moments.cu", "flash_attention.cu", "parts_reduce.cu")
+SOURCES = (
+    "row_moments.cu", "flash_attention.cu", "parts_reduce.cu", "cross_entropy.cu",
+    "fused_reduce.cu",
+)
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +46,8 @@ _SIGNATURES = {
     "rm_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
     "fa_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     "pr_parts": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    "ce_forward": (_P, _P, _P, _I, _LL, _I, _I, _I, _P),
+    "fr_sum": (_P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
 }
 
 

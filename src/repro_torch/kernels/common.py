@@ -8,6 +8,10 @@ backends) and, encoded by ``encode_epilogue``, inside the CUDA kernels.
 Device rule, shared by every kernel wrapper: a wrapper given CPU tensors
 runs its plain PyTorch version; given CUDA tensors it launches its kernel
 or raises. There is no fallback from one to the other.
+
+Gradient rule: a wrapper called with grad mode on and an input that
+requires grad either goes through its ``torch.autograd.Function`` or
+raises (``refuse_grad``); it never returns an output cut from the graph.
 """
 
 from __future__ import annotations
@@ -157,6 +161,12 @@ def encode_epilogue(chain: tuple) -> list:
     return out
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (round to nearest even) and lifted back to f32:
+    where the kernels round an MMA operand."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -183,6 +193,26 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
         f"kernel operands must all be on the CPU or all on one CUDA device; "
         f"got {sorted(kinds)}"
     )
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd would record an op on these tensors."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    )
+
+
+def refuse_grad(name: str, *tensors, entry: str) -> None:
+    """A wrapper whose kernel writes a fresh output through ctypes has no
+    ``grad_fn``: called on inputs that need a gradient it would cut the
+    graph without a word. Such wrappers raise instead and name the
+    differentiable entry point."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name} is not differentiable: its input requires grad. Call "
+            f"{entry}, which differentiates through its own autograd "
+            "Function, or run under torch.no_grad()"
+        )
 
 
 # Every kernel wrapper, by kernel name. Each wrapper carries ``launches``, a

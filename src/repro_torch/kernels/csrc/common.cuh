@@ -24,6 +24,10 @@ __device__ __forceinline__ float2 load_pair(const __half* p) {
   return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -61,4 +65,42 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// fp16 1.0 in both halves, and the fp16 form of the ones-MMA above.
+#define ONES_F16X2 0x3C003C00u
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_f16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// NaN-propagating min/max: the reference's jnp.minimum / jnp.maximum
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+
+// One step of an epilogue chain. Op codes: kernels/common.py
+// EPILOGUE_OPCODES.
+__device__ __forceinline__ float epilogue_step(float t, int op, float a, float b) {
+  switch (op) {
+    case 0: return sqrtf(t);                          // sqrt
+    case 1: return t * a;                             // scale(a)
+    case 2: return 1.f / sqrtf(t + a);                // rsqrt(eps)
+    case 3: return t + a;                             // add_eps(eps)
+    case 4: return nan_min(1.f, a / nan_max(t, b));   // clip_coeff(max, eps)
+    default: return t;
+  }
 }

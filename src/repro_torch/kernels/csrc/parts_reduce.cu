@@ -56,27 +56,9 @@ __device__ __forceinline__ float load_elem(const void* p, int dtype, long long i
   return static_cast<const float*>(p)[i];
 }
 
-// NaN-propagating min/max: the reference's jnp.minimum / jnp.maximum
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? a + b : fmaxf(a, b);
-}
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? a + b : fminf(a, b);
-}
-
-// Op codes: kernels/common.py EPILOGUE_OPCODES.
 __device__ float apply_chain(float t, const PartsTable& tab, int k) {
-  for (int s = 0; s < tab.chain_len[k]; ++s) {
-    const float a = tab.p0[k][s], b = tab.p1[k][s];
-    switch (tab.op[k][s]) {
-      case 0: t = sqrtf(t); break;                          // sqrt
-      case 1: t = t * a; break;                             // scale(a)
-      case 2: t = 1.f / sqrtf(t + a); break;                // rsqrt(eps)
-      case 3: t = t + a; break;                             // add_eps(eps)
-      case 4: t = nan_min(1.f, a / nan_max(t, b)); break;   // clip_coeff(max, eps)
-      default: break;
-    }
-  }
+  for (int s = 0; s < tab.chain_len[k]; ++s)
+    t = epilogue_step(t, tab.op[k][s], tab.p0[k][s], tab.p1[k][s]);
   return t;
 }
 

@@ -6,6 +6,13 @@ q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D); Hq a multiple of Hkv (GQA).
 On CUDA tensors the wrapper launches ``csrc/flash_attention.cu``; on CPU
 tensors it runs ``flash_attention_plain``, which walks the same 64-key
 blocks with the same run test, masks, bf16 roundings and online update.
+
+``flash_attention_diff`` is the differentiable entry, the counterpart of
+the reference's custom-VJP ``flash_attention_diff``: the kernel forward,
+and a backward that recomputes attention densely through
+``attention_ref`` (the reference's ``_bwd``; FlashAttention's recompute
+strategy, no residual but q, k, v). ``flash_attention`` itself goes
+through it whenever grad mode is on and an input requires grad.
 """
 
 from __future__ import annotations
@@ -13,15 +20,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, common
+from repro_torch.kernels.common import bf16_round
 
 NEG = -1e30
 BLOCK_Q = 64    # csrc/flash_attention.cu FA_BQ
 BLOCK_K = 64    # csrc/flash_attention.cu FA_BK
 MAX_HEAD_DIM = 128
-
-
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def flash_attention_plain(
@@ -44,9 +48,9 @@ def flash_attention_plain(
     scale = sm_scale if sm_scale is not None else d**-0.5
     rep = hq // hkv
     dev = q.device
-    qf = _bf16(q)
-    kf = _bf16(k).repeat_interleave(rep, dim=1)
-    vf = _bf16(v).repeat_interleave(rep, dim=1)
+    qf = bf16_round(q)
+    kf = bf16_round(k).repeat_interleave(rep, dim=1)
+    vf = bf16_round(v).repeat_interleave(rep, dim=1)
     qpos = q_offset + torch.arange(sq, device=dev)
     qpos0 = q_offset + (torch.arange(sq, device=dev) // block_q) * block_q
     m = torch.full((b, hq, sq), NEG, dtype=torch.float32, device=dev)
@@ -73,7 +77,7 @@ def flash_attention_plain(
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)
-        pb = _bf16(p)
+        pb = bf16_round(p)
         l_new = l * alpha + pb.sum(-1)
         acc_new = acc * alpha[..., None] + torch.matmul(pb, vb)
         m = torch.where(run, m_new, m)
@@ -81,6 +85,66 @@ def flash_attention_plain(
         acc = torch.where(run[:, None], acc_new, acc)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.to(q.dtype)
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Dense attention in f32 (port of ``ref.attention_ref``): query i sits
+    at absolute position q_offset + i, key j at j; causal keeps key <=
+    query, a window W keeps query - key < W."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    rep = hq // hkv
+    kk = k.repeat_interleave(rep, dim=1)
+    vv = v.repeat_interleave(rep, dim=1)
+    s = torch.matmul(q.to(torch.float32), kk.to(torch.float32).transpose(-1, -2)) * sm_scale
+    dev = q.device
+    qpos = q_offset + torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(skv, device=dev)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, NEG)
+    p = torch.exp(s - torch.amax(s, -1, keepdim=True))
+    p = p / torch.clamp_min(torch.sum(p, -1, keepdim=True), 1e-30)
+    out = torch.matmul(p, vv.to(torch.float32))
+    return out.to(q.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset, sm_scale=sm_scale)
+        return _flash_attention_forward(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
+            out = attention_ref(*leaves, **ctx.kw)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_diff(q, k, v, causal=True, window=None, q_offset=0, sm_scale=None):
+    """Differentiable attention: the kernel forward (or its plain version
+    on CPU tensors), backward by dense recompute through ``attention_ref``.
+    Same argument order as the reference's ``flash_attention_diff``."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset, sm_scale)
 
 
 @common.counted("flash_attention")
@@ -96,7 +160,16 @@ def flash_attention(
 ) -> torch.Tensor:
     """IO-aware attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).
     CPU tensors: plain version; CUDA tensors: the kernel (D a multiple of
-    16 up to 128)."""
+    16 up to 128). With an input that needs a gradient, the call goes
+    through ``flash_attention_diff``."""
+    if common.needs_grad(q, k, v):
+        return flash_attention_diff(q, k, v, causal, window, q_offset, sm_scale)
+    return _flash_attention_forward(
+        q, k, v, causal=causal, window=window, q_offset=q_offset, sm_scale=sm_scale
+    )
+
+
+def _flash_attention_forward(q, k, v, *, causal, window, q_offset, sm_scale):
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if k.shape != (b, hkv, skv, d) or v.shape != k.shape:

@@ -1,10 +1,16 @@
 """Fused row-moment norms: non-parametric LayerNorm (OLMo) and RMSNorm.
 
 Port of ``repro/kernels/row_moments`` (``layernorm_np_kernel`` and
-``rmsnorm_kernel``). On CUDA tensors the wrappers launch
-``csrc/row_moments.cu``; on CPU tensors they run the plain versions below,
-which round exactly where the kernel does: x and the f32 square x*x are
-each rounded to bf16 before the all-ones row sum, accumulated in f32.
+``rmsnorm_kernel``, with the custom VJPs of its ``ops.py``). On CUDA
+tensors the forward launches ``csrc/row_moments.cu``; on CPU tensors it
+runs the plain versions below, which round exactly where the kernel does:
+x and the f32 square x*x are each rounded to bf16 before the all-ones row
+sum, accumulated in f32.
+
+Differentiable: with grad mode on and an input that requires grad, the
+wrappers go through ``torch.autograd.Function``s whose backward is the
+reference's host math (``_ln_bwd`` / ``_rms_bwd``) in torch, recomputing
+the statistics from the saved input (no residual but the inputs).
 """
 
 from __future__ import annotations
@@ -51,10 +57,7 @@ def _check_rows(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-@common.counted("layernorm_np")
-def layernorm_np(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Non-parametric LayerNorm (OLMo) over the last axis; any leading
-    shape. CPU tensor: plain version; CUDA tensor: the kernel."""
+def _layernorm_np_forward(x: torch.Tensor, eps: float) -> torch.Tensor:
     if common.on_cpu(x):
         return layernorm_np_plain(x, eps)
     x = _check_rows(x)
@@ -71,10 +74,7 @@ def layernorm_np(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return out
 
 
-@common.counted("rmsnorm")
-def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis, scaled by ``gamma``; any leading shape.
-    CPU tensors: plain version; CUDA tensors: the kernel."""
+def _rmsnorm_forward(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     if common.on_cpu(x, gamma):
         return rmsnorm_plain(x, gamma, eps)
     x = _check_rows(x)
@@ -92,3 +92,82 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Te
         build.check(err, "rmsnorm")
         rmsnorm.launches += 1
     return out
+
+
+def layernorm_np_bwd(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
+    """d/dx of the non-parametric LayerNorm: the reference's ``_ln_bwd``."""
+    xf = x.to(torch.float32)
+    gf = g.to(torch.float32)
+    mu = torch.mean(xf, -1, keepdim=True)
+    xc = xf - mu
+    var = torch.mean(xc * xc, -1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = xc * rstd
+    dx = rstd * (
+        gf
+        - torch.mean(gf, -1, keepdim=True)
+        - xhat * torch.mean(gf * xhat, -1, keepdim=True)
+    )
+    return dx.to(x.dtype)
+
+
+def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, g: torch.Tensor, eps: float):
+    """(dx, dgamma) of RMSNorm: the reference's ``_rms_bwd``."""
+    xf = x.to(torch.float32)
+    gf = g.to(torch.float32)
+    gam = gamma.to(torch.float32)
+    d = x.shape[-1]
+    ms = torch.mean(xf * xf, -1, keepdim=True)
+    rstd = torch.rsqrt(ms + eps)
+    xhat = xf * rstd
+    dgamma = torch.sum((gf * xhat).reshape(-1, d), 0).to(gamma.dtype)
+    gg = gf * gam
+    dx = rstd * gg - xf * (rstd**3) * torch.mean(gg * xf, -1, keepdim=True)
+    return dx.to(x.dtype), dgamma
+
+
+class _LayerNormNP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, eps):
+        ctx.save_for_backward(x)
+        ctx.eps = eps
+        return _layernorm_np_forward(x, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return layernorm_np_bwd(x, g, ctx.eps), None
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return _rmsnorm_forward(x, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma = rmsnorm_bwd(x, gamma, g, ctx.eps)
+        return dx, dgamma, None
+
+
+@common.counted("layernorm_np")
+def layernorm_np(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Non-parametric LayerNorm (OLMo) over the last axis; any leading
+    shape. CPU tensor: plain version; CUDA tensor: the kernel.
+    Differentiable (host-math backward)."""
+    if common.needs_grad(x):
+        return _LayerNormNP.apply(x, eps)
+    return _layernorm_np_forward(x, eps)
+
+
+@common.counted("rmsnorm")
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, scaled by ``gamma``; any leading shape.
+    CPU tensors: plain version; CUDA tensors: the kernel. Differentiable in
+    x and gamma (host-math backward)."""
+    if common.needs_grad(x, gamma):
+        return _RMSNorm.apply(x, gamma, eps)
+    return _rmsnorm_forward(x, gamma, eps)

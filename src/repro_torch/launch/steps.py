@@ -1,16 +1,80 @@
-"""Serving steps: prefill and one-token decode against resident caches.
+"""Training and serving steps.
 
-Port of ``make_prefill_step`` / ``make_decode_step`` of
-``repro/launch/steps.py``. PyTorch runs eagerly, so a step is a plain
+Port of ``make_train_step``, ``make_prefill_step`` and ``make_decode_step``
+of ``repro/launch/steps.py``. PyTorch runs eagerly, so a step is a plain
 closure over the config (the reference jits it).
+
+make_train_step: a Python loop over microbatches (the reference's
+``lax.scan``), f32 gradient accumulators, the remat'd forward and chunked
+loss, and the AdamW update whose clip statistic is one reduction launch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import optim
+from repro_torch import reduce as R
 from repro_torch.models import decode_step as model_decode
 from repro_torch.models import make_caches, prefill
+from repro_torch.models.convert import reference_leaf_groups
+from repro_torch.models.losses import lm_loss_chunked
+from repro_torch.models.model import forward_hidden
+
+
+def _split_batch(tokens: torch.Tensor, n_micro: int) -> torch.Tensor:
+    gb = tokens.shape[0]
+    if gb % n_micro:
+        raise ValueError(f"batch {gb} does not split into {n_micro} microbatches")
+    return tokens.reshape((n_micro, gb // n_micro) + tuple(tokens.shape[1:]))
+
+
+def make_grads_fn(cfg, tcfg):
+    """``compute_grads(params, batch) -> (grads, mean_loss)``: per
+    microbatch the loss and its gradients, accumulated in f32 and averaged
+    over the microbatches (``grads`` are the flat leaves in
+    ``reduce.tree_leaves`` order)."""
+
+    def loss_fn(params, tokens):
+        h = forward_hidden(params, cfg, tokens[:, :-1])
+        loss, _ = lm_loss_chunked(params, cfg, h, tokens[:, 1:], 0.0)
+        return loss
+
+    def compute_grads(params, batch):
+        leaves = R.tree_leaves(params)
+        n_micro = tcfg.microbatches
+        gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        lacc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for mb in _split_batch(batch["tokens"], n_micro):
+            loss = loss_fn(params, mb.to(torch.int64))
+            grads = torch.autograd.grad(loss, leaves)
+            for a, g in zip(gacc, grads):
+                a.add_(g.to(torch.float32))
+            lacc = lacc + loss.detach()
+        return [a / n_micro for a in gacc], lacc / n_micro
+
+    return compute_grads
+
+
+def make_train_step(cfg, tcfg):
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; ``batch = {"tokens": (GB, S + 1) int}``. Parameters must
+    require grad; they and the optimizer state update in place. The clip
+    statistic runs on the config flags' backend (``cuda_fused`` with the
+    kernels on; the launchers' ``--reduce-backend`` overrides it)."""
+    reduce_backend = R.backend_for_flags(cfg.mma_reductions, cfg.use_kernels)
+    compute_grads = make_grads_fn(cfg, tcfg)
+
+    def train_step(params, opt_state, batch):
+        grads, mean_loss = compute_grads(params, batch)
+        params, opt_state, metrics = optim.apply_updates(
+            params, grads, opt_state, tcfg, reduce_backend=reduce_backend,
+            fused_second_moment=tcfg.fused_second_moment,
+            leaf_groups=reference_leaf_groups(params, cfg),
+        )
+        return params, opt_state, dict(metrics, loss=mean_loss)
+
+    return train_step
 
 
 def make_prefill_step(cfg, s_max: int):

@@ -4,9 +4,11 @@ Port of ``repro/models/attention.py`` for global causal self-attention.
 Activations keep the reference's (B, S, H, D) layout; the kernel takes
 (B, H, S, D), as the reference's does.
 
-  prefill: ``self_attention_train`` runs ``kernels.flash_attention`` (the
-           chunked non-kernel route ``flash_attention_xla`` is not ported:
-           ``use_kernels=False`` raises NotImplementedError).
+  train and prefill: ``self_attention_train`` runs
+           ``kernels.flash_attention_diff`` -- the kernel forward,
+           differentiable by dense recompute (the chunked non-kernel route
+           ``flash_attention_xla`` is not ported: ``use_kernels=False``
+           raises NotImplementedError).
   decode:  ``self_attention_decode`` writes the new K/V into the cache and
            runs ``decode_attention``, plain torch whose softmax denominator
            is the ones-MMA row sum of ``repro_torch.reduce``.
@@ -24,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.kernels.common import bf16_round
 from repro_torch import reduce as R
 from repro_torch.models import layers as L
 from repro_torch.models import params as P
@@ -61,8 +64,8 @@ def self_attention_train(p, x, positions, cfg, *, return_kv=False):
     q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
-    out = K.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+    out = K.flash_attention_diff(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True, None, 0, None
     ).transpose(1, 2)
     b, s = out.shape[0], out.shape[1]
     out = P.dense_apply(p["o"], out.reshape(b, s, -1))
@@ -90,10 +93,6 @@ def fill_kv_cache(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
     return cache
 
 
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(torch.float32)
-
-
 def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, sm_scale=None) -> torch.Tensor:
     """q: (B, 1, H, D), RoPE'd; caches (B, Smax, Hkv, D); slot_pos (Smax,)
     absolute position per slot (-1 empty). Products of bf16-rounded
@@ -102,14 +101,14 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, sm_scale=None) 
     hkv = k_cache.shape[2]
     g = h // hkv
     scale = sm_scale if sm_scale is not None else d**-0.5
-    qg = _bf16(q.reshape(b, hkv, g, d))
-    s = torch.matmul(qg, _bf16(k_cache).permute(0, 2, 3, 1)) * scale  # (B,Hkv,G,S)
+    qg = bf16_round(q.reshape(b, hkv, g, d))
+    s = torch.matmul(qg, bf16_round(k_cache).permute(0, 2, 3, 1)) * scale  # (B,Hkv,G,S)
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     s = torch.where(valid, s, NEG)
     m = s.amax(-1, keepdim=True)
     e = torch.where(valid, torch.exp(s - m), 0.0)
     denom = R.reduce(e, -1, backend=R.backend_for_flags(True))
-    out = torch.matmul(_bf16(e), _bf16(v_cache).permute(0, 2, 1, 3))
+    out = torch.matmul(bf16_round(e), bf16_round(v_cache).permute(0, 2, 1, 3))
     out = out / torch.clamp_min(denom, 1e-30)[..., None]
     return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
 

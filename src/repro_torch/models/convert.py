@@ -7,6 +7,13 @@ stacks unit parameters on a leading ``n_units`` axis (for ``lax.scan``);
 here each layer becomes its own entry. bf16 leaves arrive as
 ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses, so they
 cross as their raw 16-bit patterns and are reinterpreted: bitwise exact.
+
+``reference_leaf_groups`` maps the port's optimizer leaves onto the
+reference's: the reference keeps one leaf per stacked unit position (8 for
+olmo: the embedding and 7 weights stacked over 16 layers), the port one
+per layer (113). Optimizer state kept per leaf -- the fused second
+moment's scalar ``v`` -- must be kept per REFERENCE leaf for the two
+packages to take the same update.
 """
 
 from __future__ import annotations
@@ -49,3 +56,32 @@ def params_from_jax(np_tree: dict, cfg, device="cpu") -> dict:
         "layers": layers,
         "final_norm": _convert(np_tree["final_norm"], device),
     }
+
+
+def _leaf_paths(tree, prefix=()):
+    """Key paths of a nested dict / list of tensors in ``reduce.tree_leaves``
+    order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, sub in enumerate(tree) for p in _leaf_paths(sub, prefix + (i,))]
+    return [prefix]
+
+
+def reference_leaf_groups(params: dict, cfg) -> tuple:
+    """For each leaf of the port's ``params`` (in ``tree_leaves`` order),
+    the index of the reference leaf it belongs to, in the reference's
+    flatten order. Layer ``u * P + j`` (P = pattern length) sits in the
+    stacked leaf ``units/pos{j}/...``, a tail layer in ``tail/pos{j}/...``."""
+    pat = len(cfg.block_pattern)
+    n_units = cfg.n_layers // pat
+    ref_paths = []
+    for path in _leaf_paths(params):
+        if path[0] == "layers":
+            layer, rest = path[1], path[2:]
+            unit = ("units", f"pos{layer % pat}") if layer < n_units * pat else (
+                "tail", f"pos{layer - n_units * pat}")
+            path = unit + rest
+        ref_paths.append(tuple(str(k) for k in path))
+    order = {p: i for i, p in enumerate(sorted(set(ref_paths)))}
+    return tuple(order[p] for p in ref_paths)

@@ -1,20 +1,26 @@
-"""Model assembly: the dense decoder stack, prefill and decode.
+"""Model assembly: the dense decoder stack for training, prefill and decode.
 
 Port of ``repro/models/model.py`` restricted to the dense ``attn`` block
 (OLMo). The reference stacks unit parameters on a leading axis for
 ``lax.scan``; here each layer is its own entry of ``params["layers"]`` and
 the stack is a Python loop.
 
-  prefill      (B, S) tokens -> last-token logits, caches filled
-  decode_step  one token per slot against the caches (written in place)
+  forward_hidden  (B, S) tokens -> final normed hidden, every layer under
+                  ``torch.utils.checkpoint`` when ``cfg.remat`` (the
+                  reference's ``jax.checkpoint`` of the scanned unit)
+  prefill         (B, S) tokens -> last-token logits, caches filled
+  decode_step     one token per slot against the caches (written in place)
 
 Logits are f32 (the head multiplies in f32, as the reference's einsum
-does), pad-vocab masked, and cut to ``vocab_size`` entries.
+does) and pad-vocab masked. ``_head`` keeps the padded width (the chunked
+loss uses it, as the reference's does); ``_head_public`` cuts it to
+``vocab_size`` entries.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -76,9 +82,36 @@ def _mask_pad_logits(logits, cfg):
 
 
 def _head(params, cfg, h):
-    """Tied-embedding head in f32 -> (B, S, vocab_size)."""
+    """Tied-embedding head in f32 -> (B, S, padded vocab), pad logits at
+    -1e30."""
     logits = torch.matmul(h.to(torch.float32), params["embed"]["table"].to(torch.float32).T)
-    return _mask_pad_logits(logits, cfg)[..., : cfg.vocab_size]
+    return _mask_pad_logits(logits, cfg)
+
+
+def _head_public(params, cfg, h):
+    """Public logits contract: exactly ``vocab_size`` entries."""
+    return _head(params, cfg, h)[..., : cfg.vocab_size]
+
+
+def block_train(p, h, positions, cfg):
+    """One ``attn`` block, train/prefill compute: (B, S, d) -> (B, S, d)."""
+    h = h + A.self_attention_train(p["mix"], _norm(p["norm1"], h, cfg), positions, cfg)
+    return h + L.ffn_apply(p["ffn"], _norm(p["norm2"], h, cfg))
+
+
+def forward_hidden(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """Backbone forward to the final normed hidden state (B, S, d); no head
+    (the chunked loss applies it per sequence chunk)."""
+    _check_ported(cfg)
+    h = _embed(params, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for p in params["layers"]:
+        if cfg.remat:
+            h = checkpoint(block_train, p, h, positions, cfg, use_reentrant=False)
+        else:
+            h = block_train(p, h, positions, cfg)
+    return _norm(params["final_norm"], h, cfg)
 
 
 def make_caches(cfg, batch: int, s_max: int, device) -> dict:
@@ -106,7 +139,7 @@ def prefill(params, cfg, tokens: torch.Tensor, caches: dict):
         h = h + mix
         h = h + L.ffn_apply(p["ffn"], _norm(p["norm2"], h, cfg))
     h = _norm(params["final_norm"], h, cfg)
-    return _head(params, cfg, h[:, -1:]), caches
+    return _head_public(params, cfg, h[:, -1:]), caches
 
 
 def decode_step(params, cfg, token_t: torch.Tensor, caches: dict, pos: int):
@@ -119,4 +152,4 @@ def decode_step(params, cfg, token_t: torch.Tensor, caches: dict, pos: int):
         h = h + mix
         h = h + L.ffn_apply(p["ffn"], _norm(p["norm2"], h, cfg))
     h = _norm(params["final_norm"], h, cfg)
-    return _head(params, cfg, h), caches
+    return _head_public(params, cfg, h), caches

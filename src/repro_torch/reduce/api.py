@@ -1,20 +1,35 @@
 """``repro_torch.reduce.reduce`` and ``reduce_tree``: the reduction entry
-points of the serving path.
+points of the serving and training paths.
 
-Port of ``repro/reduce/api.py`` restricted to this slice:
+Port of ``repro/reduce/api.py``:
 
-  reduce(x, axis=-1, kind=...)   -- row reductions, kinds sum / sumsq /
-                                    moments (the norm and softmax
-                                    statistics), on any backend
+  reduce(x)                      -- full reductions (axis=None, the
+                                    default, as in the reference), kinds
+                                    sum / mean / sumsq / norm2, with the
+                                    in-kernel prologue, an epilogue chain
+                                    and ``census=True``; on cuda_fused ONE
+                                    launch of the fused kernel (K1)
+  reduce(x, axis=..., kind=...)  -- reductions over axes, kinds sum / mean
+                                    / sumsq / norm2 / moments (the norm and
+                                    softmax statistics), on any backend
   reduce_tree(leaves, kind=...)  -- a whole tree of arrays to one
                                     statistic (sum / sumsq / norm2), with
                                     epilogue chains, per-leaf partials and
                                     the in-launch NaN/Inf census; on
-                                    cuda_fused ONE kernel launch
+                                    cuda_fused ONE launch of the parts
+                                    kernel (K4)
 
-Full reductions (``axis=None``: the reference's kernels K1-K3) and
-``reduce_many`` are not ported yet and raise NotImplementedError. Nothing
-here needs a gradient: the serving path runs under inference mode.
+Differentiation: the torch and mma_torch backends are torch code and
+differentiate natively. A kernel-backed full reduction goes through
+``_KSum``, the counterpart of the reference's custom-VJP ``_ksum``: the
+cotangent is the prologue's chain rule (identity: broadcast g; square:
+2 x g; abs: sign(x) g), after the epilogue's own chain rule taken by
+autograd on the raw total. Not differentiable: ``census=True`` (raises on
+an input that requires grad) and ``reduce_tree`` (the optimizer's
+statistic of gradients).
+
+Not ported: full ``kind="moments"`` (the dual-accumulator kernel K2),
+``precision="kahan"`` (K3), ``reduce_many`` and ``mesh_axes``.
 """
 
 from __future__ import annotations
@@ -26,52 +41,198 @@ import torch
 
 from repro_torch.kernels import common as _kcommon
 from repro_torch.reduce import backends as _backends
-from repro_torch.reduce.plan import plan_for
+from repro_torch.reduce.plan import ReducePlan, plan_for
 
-AXIS_KINDS = ("sum", "sumsq", "moments")
+KINDS = ("sum", "mean", "sumsq", "norm2", "moments")
 TREE_KINDS = ("sum", "sumsq", "norm2")
+
+# sentinel for axis=(): numpy semantics -- reduce over NO axes (identity)
+_NO_AXES = ()
+
+
+def _normalize_axis(axis, ndim: int):
+    """-> None (reduce everything), () (reduce nothing), or a sorted tuple
+    of unique non-negative axes (the reference's ``_normalize_axis``)."""
+    if axis is None:
+        return None
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    if not axes:
+        return _NO_AXES
+    out = []
+    for a in axes:
+        if ndim == 0:
+            if a not in (0, -1):
+                raise ValueError(f"axis {a} out of range for 0-d array")
+            continue
+        if not -ndim <= a < ndim:
+            raise ValueError(f"axis {a} out of range for ndim {ndim}")
+        a %= ndim
+        if a in out:
+            raise ValueError(f"duplicate axis {a} in reduction axes")
+        out.append(a)
+    if ndim == 0 or len(out) == ndim:
+        return None  # covers every axis: a full reduction
+    return tuple(sorted(out))
+
+
+def _to_rows(x: torch.Tensor, axis: tuple):
+    """Move the reduced axes last and flatten them: -> ((..., L), batch)."""
+    keep = tuple(a for a in range(x.ndim) if a not in axis)
+    xt = x.permute(keep + axis)
+    batch = xt.shape[: len(keep)]
+    return xt.reshape(batch + (int(math.prod(xt.shape[len(keep):])),)), batch
+
+
+class _KSum(torch.autograd.Function):
+    """Kernel-backed full reduction with the reference's ``_ksum`` VJP. The
+    forward reduces epilogue-free and applies the chain host-side, so the
+    backward can take the chain's derivative at the raw total. It saves
+    only what the backward reads -- x for square/abs, the raw total for a
+    chain -- so a recompute under ``torch.utils.checkpoint`` (which stops at
+    the last saved tensor) need not rerun a plain sum's kernel."""
+
+    @staticmethod
+    def forward(ctx, x, plan, prologue, epilogue):
+        raw = _backends.get_backend(plan.backend).sum_all(x, plan, prologue).to(plan.accum_torch)
+        ctx.plan, ctx.prologue, ctx.epilogue = plan, prologue, epilogue
+        ctx.shape, ctx.dtype = x.shape, x.dtype
+        ctx.save_for_backward(x if prologue != "identity" else None,
+                              raw if epilogue else None)
+        return _kcommon.apply_epilogue(raw, epilogue)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, raw = ctx.saved_tensors
+        if ctx.epilogue:
+            with torch.enable_grad():
+                r = raw.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad(_kcommon.apply_epilogue(r, ctx.epilogue), r,
+                                           g.to(raw.dtype))
+        if ctx.prologue == "identity":
+            return g.expand(ctx.shape).to(ctx.dtype), None, None, None
+        xf = x.to(ctx.plan.accum_torch)
+        dx = 2.0 * xf * g if ctx.prologue == "square" else torch.sign(xf) * g
+        return dx.to(ctx.dtype), None, None, None
+
+
+def _sum_full(x: torch.Tensor, plan: ReducePlan, prologue: str = "identity",
+              epilogue: tuple = ()) -> torch.Tensor:
+    """Differentiable full sum dispatch: native autograd on the torch-code
+    backends, ``_KSum`` around the kernel."""
+    accum = plan.accum_torch
+    if x.numel() == 0:
+        return _kcommon.apply_epilogue(torch.zeros((), dtype=accum, device=x.device), epilogue)
+    be = _backends.get_backend(plan.backend)
+    if not be.native_autodiff and _kcommon.needs_grad(x):
+        return _KSum.apply(x, plan, prologue, epilogue)
+    return be.sum_all(x, plan, prologue, epilogue).to(accum)
+
+
+def _reduce_census_full(x: torch.Tensor, kind: str, plan: ReducePlan, chain: tuple):
+    """Full reduction plus the NaN/Inf count of x from the same launch:
+    ``(statistic, count)``. The kind's finisher (norm2's sqrt, mean's 1/n)
+    leads the chain."""
+    if _kcommon.needs_grad(x):
+        raise RuntimeError("census=True is not differentiable; call it under torch.no_grad()")
+    accum = plan.accum_torch
+    prologue = "square" if kind in ("sumsq", "norm2") else "identity"
+    post = chain
+    if kind == "norm2":
+        post = (("sqrt",),) + post
+    if kind == "mean":
+        post = (("scale", 1.0 / x.numel() if x.numel() else float("nan")),) + post
+    if x.numel() == 0:
+        z = torch.zeros((), dtype=accum, device=x.device)
+        return _kcommon.apply_epilogue(z, post), z
+    stat, count = _backends.get_backend(plan.backend).sum_all(x, plan, prologue, post,
+                                                              census=True)
+    return stat.to(accum), count.to(accum)
 
 
 def reduce(
     x: torch.Tensor,
-    axis=-1,
+    axis=None,
     kind: str = "sum",
     *,
     backend: Optional[str] = None,
     compute_dtype=None,
+    num_lanes: Optional[int] = None,
+    epilogue=None,
+    census: bool = False,
 ):
-    """Reduce ``x`` over its LAST axis: "sum" and "sumsq" -> (...) in the
-    plan's accumulator dtype; "moments" -> the (sum, sumsq) pair, both from
-    one stacked all-ones product. The square of "sumsq" is taken at
-    accumulator precision before the row sum, as in the reference."""
-    if axis is None:
-        raise NotImplementedError(
-            "full reductions (axis=None; the reference's fused kernels K1-K3) "
-            "are not ported yet"
+    """Reduce ``x`` over ``axis`` (None = all elements, the default; () =
+    no axes, numpy's convention).
+
+    kind: "sum"; "mean" (an empty full mean is NaN, 0/0); "sumsq" (full
+    reductions square in-kernel at the plan's compute dtype on cuda_fused
+    -- f32 by default for sumsq/norm2 -- and at accumulator precision
+    elsewhere; axis reductions square at accumulator precision); "norm2"
+    (sqrt of sumsq); "moments" ((sum, sumsq), axis reductions only: one
+    stacked all-ones product).
+
+    ``epilogue`` appends a scalar chain to a FULL reduction (after the
+    kind's own finisher: norm2's sqrt and mean's 1/n lead it); on
+    cuda_fused it runs inside the launch. ``census=True`` (full reductions,
+    not moments) also returns the NaN/Inf count of x's elements from the
+    same launch: ``(statistic, count)``. ``num_lanes`` stripes the fused
+    kernel over that many CTAs (None: the device's default). All kinds are
+    differentiable (see the module doc) except with ``census``.
+    """
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
+    chain = _kcommon.normalize_epilogue(epilogue)
+    axis_t = _normalize_axis(axis, x.ndim)
+    if (census or chain) and axis_t is not None:
+        raise ValueError(
+            "census and epilogue chains apply to FULL reductions (axis=None); "
+            f"got axis={axis!r}"
         )
-    if kind not in AXIS_KINDS:
-        raise NotImplementedError(
-            f"kind {kind!r} is not ported for axis reductions; ported: {AXIS_KINDS}"
-        )
-    axes = (axis,) if isinstance(axis, int) else tuple(axis)
-    if len(axes) != 1 or axes[0] % max(x.ndim, 1) != x.ndim - 1:
-        raise NotImplementedError(
-            f"only the last axis is ported; got axis={axis!r} for ndim {x.ndim}"
-        )
-    p = plan_for(x.shape, x.dtype, kind=kind, axis=-1, backend=backend,
-                 compute_dtype=compute_dtype)
-    be = _backends.get_backend(p.backend)
+    if (census or chain) and kind == "moments":
+        raise ValueError("census and epilogue chains do not compose with kind='moments'")
+    p = plan_for(x.shape, x.dtype, kind=kind, axis=axis_t, backend=backend,
+                 compute_dtype=compute_dtype, num_lanes=num_lanes)
     accum = p.accum_torch
-    if x.shape[-1] == 0 or x.numel() == 0:
-        z = torch.zeros(x.shape[:-1], dtype=accum, device=x.device)
-        return (z, z.clone()) if kind == "moments" else z
-    if kind == "sum":
-        return be.sum_axis(x, p).to(accum)
-    if kind == "sumsq":
+    if census:
+        return _reduce_census_full(x, kind, p, chain)
+    if axis_t == _NO_AXES:
         xf = x.to(accum)
-        return be.sum_axis(xf * xf, p).to(accum)
-    s, ss = be.moments_axis(x, p)
-    return s.to(accum), ss.to(accum)
+        return {"sum": xf, "mean": xf, "sumsq": xf * xf, "norm2": torch.abs(xf),
+                "moments": (xf, xf * xf)}[kind]
+    if axis_t is None:
+        if kind == "sum":
+            return _sum_full(x, p, epilogue=chain)
+        if kind == "mean":
+            n = x.numel()
+            if chain:
+                inv = 1.0 / n if n else float("nan")
+                return _sum_full(x, p, epilogue=(("scale", inv),) + chain)
+            return _sum_full(x, p) / n
+        if kind == "sumsq":
+            return _sum_full(x, p, "square", chain)
+        if kind == "norm2":
+            if chain:
+                return _sum_full(x, p, "square", (("sqrt",),) + chain)
+            return torch.sqrt(_sum_full(x, p, "square"))
+        raise NotImplementedError(
+            "full kind='moments' (the dual-accumulator kernel K2) is not ported; "
+            "reduce 'sum' and 'sumsq' instead"
+        )
+    rows, batch = _to_rows(x, axis_t)
+    be = _backends.get_backend(p.backend)
+    if rows.shape[-1] == 0 or rows.numel() == 0:
+        z = torch.zeros(batch, dtype=accum, device=x.device)
+        if kind == "moments":
+            return z, z.clone()
+        return z / 0 if kind == "mean" else z
+    if kind == "moments":
+        s, ss = be.moments_axis(rows, p)
+        return s.to(accum), ss.to(accum)
+    if kind in ("sum", "mean"):
+        out = be.sum_axis(rows, p).to(accum)
+        return out / rows.shape[-1] if kind == "mean" else out
+    xf = rows.to(accum)
+    out = be.sum_axis(xf * xf, p).to(accum)
+    return torch.sqrt(out) if kind == "norm2" else out
 
 
 def tree_leaves(tree) -> list:

@@ -1,8 +1,12 @@
 """Backend registry: the interchangeable executors behind ``repro_torch.reduce``.
 
-Port of the serving path's part of ``repro/reduce/backends.py``. A backend
-supplies four primitives:
+Port of the serving and training paths' part of
+``repro/reduce/backends.py``. A backend supplies five primitives:
 
+  sum_all(x, plan, prologue, epilogue, census)
+                          -- the full reduction: the chain of the sum of
+                             the prologue-mapped elements, and with
+                             ``census`` also the NaN/Inf count
   sum_axis(x, plan)       -- (..., L) -> (...) sum over the last axis
   moments_axis(x, plan)   -- (..., L) -> ((...), (...)) fused (sum, sumsq)
   sum_parts(parts, plan, prologue)
@@ -17,15 +21,22 @@ pallas_fused):
 
   torch       -- plain ``torch.sum`` at accumulator precision; the oracle.
   mma_torch   -- the paper's algorithm as all-ones matmuls
-                 (``core.mma_reduce``): rows via one ones-product, parts as
-                 rows of m plus an exact f32 fold of the row partials.
-  cuda_fused  -- the parts kernel (``kernels.mma_reduce.mma_sum_parts``):
-                 every part enters ONE launch as its own operand, mapped
-                 in-kernel (``native_prologue``), with the chains and the
-                 census finished in the same launch. Rows ride the same
+                 (``core.mma_reduce``): full reductions by the eq. 13
+                 hierarchy, rows via one ones-product, parts as rows of m
+                 plus an exact f32 fold of the row partials.
+  cuda_fused  -- the kernels: a full reduction is ONE launch of the fused
+                 kernel (``kernels.mma_reduce.mma_sum_fused``, K1) with the
+                 prologue at the compute dtype, the chain and the census in
+                 the launch; a tree is ONE launch of the parts kernel
+                 (``mma_sum_parts``, K4), every part its own operand, mapped
+                 in-kernel (``native_prologue``). Rows ride the same
                  ones-product as mma_torch. Past ``PARTS_KERNEL_MAX`` live
                  parts it folds host-side through the base class, as the
                  reference's kernel backends do.
+
+``torch`` and ``mma_torch`` are torch code and differentiate natively
+(``native_autodiff``); ``cuda_fused``'s full reduction differentiates
+through ``reduce.api``'s ``_KSum`` Function.
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ import torch
 
 from repro_torch.core import mma_reduce as _core
 from repro_torch.kernels import common as _kcommon
-from repro_torch.kernels.mma_reduce import ops as _parts_ops
+from repro_torch.kernels.mma_reduce import ops as _mma_ops
 from repro_torch.reduce.plan import ReducePlan
 
 
@@ -64,9 +75,26 @@ class Backend:
     """Base class; subclasses override the primitives."""
 
     name: str = "?"
+    # True -> the primitives are torch code; autograd flows through them.
+    native_autodiff: bool = True
     # True -> the prologue runs INSIDE the kernel on the raw leaf, and
     # reduce_tree hands the leaves themselves to sum_parts[_total].
     native_prologue: bool = False
+
+    def _full_sum(self, x: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
+        raise NotImplementedError
+
+    def sum_all(self, x: torch.Tensor, plan: ReducePlan, prologue: str = "identity",
+                epilogue: tuple = (), census: bool = False):
+        """The chain of the sum of all prologue-mapped elements (mapped at
+        accumulator precision, reference semantics of the non-kernel
+        backends); ``census`` adds the NaN/Inf count of the raw elements:
+        ``(total, count)``."""
+        total = _kcommon.apply_epilogue(
+            self._full_sum(_host_prologue(x.reshape(-1), plan, prologue), plan), epilogue)
+        if census:
+            return total, host_nonfinite_census([x], total.dtype)[-1]
+        return total
 
     def sum_axis(self, x: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
         raise NotImplementedError
@@ -120,6 +148,9 @@ class TorchBackend(Backend):
 
     name = "torch"
 
+    def _full_sum(self, x, plan):
+        return torch.sum(x)
+
     def sum_axis(self, x, plan):
         return torch.sum(x.to(plan.accum_torch), dim=-1)
 
@@ -135,6 +166,10 @@ class MmaTorchBackend(Backend):
     """The paper's algorithm as all-ones matmuls (runs on any device)."""
 
     name = "mma_torch"
+
+    def _full_sum(self, x, plan):
+        return _core.mma_sum(x, m=plan.m, compute_dtype=plan.compute_torch,
+                             accum_dtype=plan.accum_torch)
 
     def sum_axis(self, x, plan):
         return _core.row_sum_mma(
@@ -152,16 +187,34 @@ class MmaTorchBackend(Backend):
 
 
 class CudaFusedBackend(MmaTorchBackend):
-    """The one-launch parts kernel; rows ride mma_torch's ones-product."""
+    """The one-launch fused and parts kernels; rows ride mma_torch's
+    ones-product."""
 
     name = "cuda_fused"
+    native_autodiff = False
     native_prologue = True
+
+    def sum_all(self, x, plan, prologue="identity", epilogue=(), census=False):
+        if plan.m != _mma_ops.MXU:
+            raise ValueError(
+                f"cuda_fused implements the m={_mma_ops.MXU} tile only; got "
+                f"m={plan.m}. Use backend='mma_torch' for tile-size ablations."
+            )
+        lanes = plan.num_lanes if plan.num_lanes is not None else (
+            _mma_ops.default_num_lanes(x))
+        out = _mma_ops.mma_sum_fused(
+            x, compute_dtype=plan.compute_torch, prologue=prologue, epilogue=epilogue,
+            census=census, num_lanes=lanes,
+        )
+        if census:
+            return out[0].to(plan.accum_torch), out[1].to(plan.accum_torch)
+        return out.to(plan.accum_torch)
 
     def sum_parts(self, parts, plan, prologue="identity"):
         live = sum(1 for p in parts if p.numel())
-        if live > _parts_ops.PARTS_KERNEL_MAX:
+        if live > _mma_ops.PARTS_KERNEL_MAX:
             return super().sum_parts(parts, plan, prologue)
-        out = _parts_ops.mma_sum_parts(
+        out = _mma_ops.mma_sum_parts(
             parts, compute_dtype=plan.compute_torch, prologue=prologue,
         )
         return out.to(plan.accum_torch)
@@ -169,9 +222,9 @@ class CudaFusedBackend(MmaTorchBackend):
     def sum_parts_total(self, parts, plan, prologue="identity",
                         total_chains=((),), census=False):
         live = sum(1 for p in parts if p.numel())
-        if live > _parts_ops.PARTS_KERNEL_MAX:
+        if live > _mma_ops.PARTS_KERNEL_MAX:
             return super().sum_parts_total(parts, plan, prologue, total_chains, census)
-        out = _parts_ops.mma_sum_parts(
+        out = _mma_ops.mma_sum_parts(
             parts, compute_dtype=plan.compute_torch, prologue=prologue,
             total_chains=tuple(total_chains), census=census,
         )

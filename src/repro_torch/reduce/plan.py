@@ -1,16 +1,18 @@
 """Reduction planning: backend and dtypes for one reduction.
 
-Port of the parts of ``repro/reduce/plan.py`` the serving path uses: the
-frozen ``ReducePlan``, ``plan_for`` with the reference's defaults (f32
-accumulation; the exactness-sensitive kinds sumsq/norm2 multiply at f32,
-other float reductions at bf16, the tensor-core mode the paper analyzes),
-the process default backend, and the circuit breaker's quarantine.
+Port of the parts of ``repro/reduce/plan.py`` the serving and training
+paths use: the frozen ``ReducePlan``, ``plan_for`` with the reference's
+defaults (f32 accumulation; the exactness-sensitive kinds sumsq/norm2
+multiply at f32, other float reductions -- sum, mean, moments -- at bf16,
+the tensor-core mode the paper analyzes), the process default backend,
+``backend_for_flags`` and the circuit breaker's quarantine.
 
 Backend resolution: an explicit ``backend=`` wins; else the process
 default (``set_default_backend``); else "auto", which picks the MMA
 algorithm ``mma_torch`` for reductions longer than one tile and plain
 ``torch`` below (the reference's off-TPU choice). The kernel backend
-``cuda_fused`` is reached by name (the guard's breaker chain).
+``cuda_fused`` is reached by name (the launchers' ``--reduce-backend``,
+the guard's breaker chain) or by the config flags (``backend_for_flags``).
 Quarantined backends leave AUTO rotation along cuda_fused -> mma_torch ->
 torch; explicit pins still reach them (the breaker's half-open probes).
 """
@@ -49,16 +51,22 @@ def dtype_name(dtype) -> str:
 class ReducePlan:
     """backend: registry name ("torch" | "mma_torch" | "cuda_fused");
     m: the MMA tile size; compute_dtype: dtype of the MMA multipliers;
-    accum_dtype: accumulator / result dtype (dtype names, so plans hash)."""
+    accum_dtype: accumulator / result dtype (dtype names, so plans hash);
+    num_lanes: the full-reduction kernel's lane (CTA) count -- None leaves
+    it to the device
+    (``kernels.mma_reduce.default_num_lanes``: 1 on the CPU)."""
 
     backend: str = "mma_torch"
     m: int = MXU
     compute_dtype: str = "bfloat16"
     accum_dtype: str = "float32"
+    num_lanes: Optional[int] = None
 
     def __post_init__(self):
         if self.m < 2:
             raise ValueError(f"m must be >= 2; got {self.m}")
+        if self.num_lanes is not None and self.num_lanes < 1:
+            raise ValueError(f"num_lanes must be >= 1 or None; got {self.num_lanes}")
 
     @property
     def compute_torch(self) -> torch.dtype:
@@ -105,13 +113,17 @@ def _dequarantine(name: str) -> str:
     return name
 
 
-def backend_for_flags(mma: bool) -> str:
-    """The backend of a model reduction: ``mma_torch`` for the paper's
-    ones-MMA form, else ``torch``; an explicit process default (the
-    launcher's ``--reduce-backend``) overrides the flag."""
+def backend_for_flags(mma: bool, use_kernels: bool = False) -> str:
+    """Map the config pair (cfg.mma_reductions, cfg.use_kernels) onto a
+    registry name, as the reference maps (mma_reductions, use_pallas):
+    ``torch`` without the paper's technique, ``cuda_fused`` with it on the
+    kernels, else ``mma_torch``. An explicit process default (the
+    launchers' ``--reduce-backend``) overrides the flags."""
     if _default_backend:
         return _default_backend
-    return "mma_torch" if mma else "torch"
+    if not mma:
+        return "torch"
+    return "cuda_fused" if use_kernels else "mma_torch"
 
 
 def plan_for(
@@ -123,6 +135,7 @@ def plan_for(
     backend: Optional[str] = None,
     compute_dtype=None,
     accum_dtype=None,
+    num_lanes: Optional[int] = None,
 ) -> ReducePlan:
     """The plan for reducing ``shape``/``dtype`` over ``axis`` (the reduced
     extent picks the auto backend; unset dtypes follow the reference)."""
@@ -148,4 +161,5 @@ def plan_for(
         backend=name,
         compute_dtype=dtype_name(compute_dtype),
         accum_dtype=dtype_name(accum_dtype),
+        num_lanes=num_lanes,
     )

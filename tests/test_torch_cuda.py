@@ -8,15 +8,31 @@ the card with
 
 Tolerances as in ``chip_smoke.py``: one bf16 ulp for the norms (same
 roundings, other f32 summation orders), 2 bf16 ulps + 2e-3 for attention,
-1e-6 x mass for the parts sums and exact census counts.
+1e-6 x mass for the parts sums and exact census counts; for the fused
+full reduction the same compute-dtype roundings of every element are
+summed in f32 in other orders: one f32 ulp of the running sum per
+accumulation step, n / (lanes x 256) steps per thread (tensor cores may
+truncate their f32 accumulation, so the error can be one-sided), times
+the mass, with exact counts and bitwise repeats;
+for the cross-entropy 1e-3 (the same tiles and running max, but expf and
+torch.exp may differ in the last ulp and flip one bf16 rounding of p).
 """
 
 import pytest
 import torch
 
-from repro_torch.kernels import common, flash_attention, layernorm_np, mma_sum_parts, rmsnorm
+from repro_torch.kernels import (
+    common,
+    cross_entropy,
+    flash_attention,
+    layernorm_np,
+    mma_sum_fused,
+    mma_sum_parts,
+    rmsnorm,
+)
+from repro_torch.kernels.cross_entropy import cross_entropy_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.mma_reduce import mma_sum_parts_plain
+from repro_torch.kernels.mma_reduce import lane_geometry, mma_sum_fused_plain, mma_sum_parts_plain
 from repro_torch.kernels.row_moments import layernorm_np_plain, rmsnorm_plain
 
 pytestmark = pytest.mark.cuda
@@ -107,3 +123,62 @@ def test_mixed_devices_raise(gen):
     with pytest.raises(ValueError):
         rmsnorm(torch.ones((2, 16), device="cuda"), torch.ones(16))
     assert "mma_sum_parts" in common.KERNEL_WRAPPERS
+
+
+@pytest.mark.parametrize("rows,width,vocab", [(2048, 50432, 50304), (37, 1000, 1000),
+                                              (20, 2305, 2301)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_entropy_matches_plain(gen, rows, width, vocab, dtype):
+    logits = (torch.randn((rows, width), generator=gen, device="cuda") * 3).to(dtype)
+    logits[:, vocab:] = -1e30
+    labels = torch.randint(0, vocab, (rows,), generator=gen, device="cuda")
+    before = cross_entropy.launches
+    out = cross_entropy(logits, labels)
+    plain = cross_entropy_plain(logits, labels)
+    assert cross_entropy.launches == before + 1
+    assert float((out - plain).abs().max()) <= 1e-3
+    # the cut width (odd for 2301: unpaired loads) gives the padded loss
+    cut = cross_entropy(logits[:, :vocab].contiguous(), labels)
+    assert float((cut - out).abs().max()) <= 1e-6
+
+
+def test_cross_entropy_grad_on_card(gen):
+    logits = (torch.randn((64, 700), generator=gen, device="cuda") * 2).requires_grad_(True)
+    labels = torch.randint(0, 700, (64,), generator=gen, device="cuda")
+    (got,) = torch.autograd.grad(cross_entropy(logits, labels).sum(), logits)
+    want = torch.softmax(logits.detach(), -1)
+    want[torch.arange(64), labels] -= 1.0
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n", [1, 2048, 3 * 16384 + 5, 40 * 131072 + 17])
+@pytest.mark.parametrize("lanes", [1, 3, 528])
+@pytest.mark.parametrize("dtype,compute", [(torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float32),
+                                           (torch.float16, torch.float16)])
+@pytest.mark.parametrize("prologue", ["identity", "square", "abs"])
+def test_fused_sum_matches_plain(gen, n, lanes, dtype, compute, prologue):
+    x = (torch.randn((n,), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    kw = dict(compute_dtype=compute, prologue=prologue, num_lanes=lanes)
+    got = mma_sum_fused(x, **kw)
+    want = mma_sum_fused_plain(x, **kw)
+    xf = x.float()
+    mass = float((xf * xf if prologue == "square" else xf.abs()).sum())
+    c = lane_geometry(n, lanes)[1]
+    assert abs(float(got) - float(want)) <= max(1.0, n / (c * 256)) * 2.0**-23 * mass + 1e-6
+    assert torch.equal(got, mma_sum_fused(x, **kw))  # repeat launches agree bitwise
+
+
+def test_fused_census_and_epilogue(gen):
+    x = torch.randn((5 * 131072 + 3,), generator=gen, device="cuda")
+    x[[7, 131072, x.numel() - 1]] = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                                                 device="cuda")
+    tot, cnt = mma_sum_fused(x, census=True, num_lanes=4)
+    assert float(cnt) == 3.0 and not torch.isfinite(tot)
+    clean = x.nan_to_num(0.0, 0.0, 0.0)
+    chain = (("sqrt",), ("clip_coeff", 1.0, 1e-9))
+    got, cnt = mma_sum_fused(clean, prologue="square", epilogue=chain, census=True,
+                             compute_dtype=torch.float32, num_lanes=4)
+    want = mma_sum_fused_plain(clean, torch.float32, "square", chain, False, 4)
+    assert float(cnt) == 0.0 and abs(float(got) - float(want)) <= 1e-6 * float(want)

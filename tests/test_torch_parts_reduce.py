@@ -117,20 +117,32 @@ def test_reduce_rows_match_reference(backend, kind):
         _close(got, want, row_mass[kind])
 
 
-def test_full_reductions_not_ported():
-    with pytest.raises(NotImplementedError):
-        R.reduce(torch.ones(8), axis=None)
+@pytest.mark.parametrize("backend", ["torch", "mma_torch", "cuda_fused"])
+def test_default_axis_is_full_reduction(backend):
+    # reduce(x) with no axis is a full reduction in both packages
+    x = np.random.default_rng(6).standard_normal((5, 300)).astype(np.float32)
+    ref_backend = {"torch": "xla", "mma_torch": "mma_jnp", "cuda_fused": "pallas_fused"}[backend]
+    want = RR.reduce(jnp.asarray(x), backend=ref_backend)
+    got = R.reduce(torch.from_numpy(x), backend=backend)
+    assert tuple(got.shape) == tuple(want.shape) == ()
+    # both sides round the same elements at the same width; only the f32
+    # summation order differs: 8e-6 x mass
+    _close(got, want, float(np.abs(x).sum()) * 8)
 
 
 @pytest.mark.parametrize("mma", [True, False])
 def test_backend_for_flags_matches_reference(mma):
-    # the flag maps onto the counterpart of the reference's non-kernel
-    # backend, and a process default overrides it in both packages
-    names = {"xla": "torch", "mma_jnp": "mma_torch"}
+    # the flags map onto the counterpart of the reference's backend --
+    # (mma, kernels) as the reference's (mma, use_pallas) -- and a process
+    # default overrides them in both packages
+    names = {"xla": "torch", "mma_jnp": "mma_torch", "pallas_fused": "cuda_fused"}
+    for kernels in (False, True):
+        assert R.backend_for_flags(mma, kernels) == names[RR.backend_for_flags(mma, kernels)]
     assert R.backend_for_flags(mma) == names[RR.backend_for_flags(mma)]
     try:
         R.set_default_backend("cuda_fused")
         assert R.backend_for_flags(mma) == "cuda_fused"
+        assert R.backend_for_flags(mma, False) == "cuda_fused"
     finally:
         R.set_default_backend(None)
     assert R.backend_for_flags(mma) == names[RR.backend_for_flags(mma)]
