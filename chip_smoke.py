@@ -6,23 +6,30 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version at the full-width
 shapes of the serving and training paths (olmo-1b: d_model 2048, 16 heads
-of 128, vocab 50304 padded to 50432, bf16) and times it, checks tiny and
-2-layer models end to end against the CPU (serving and training), then
-drives the two main paths with every kernel launch counted:
+of 128, vocab 50304 padded to 50432, bf16) and of the paper's reduction
+(n = 2^28) and times it, checks tiny and 2-layer models end to end against
+the CPU (serving and training) and the reduction engine card against CPU,
+then drives the three main paths with every kernel launch counted:
 
   serving   full-width olmo-1b through the guarded runtime (8 requests,
             prompt 256, 16 new tokens, 4 slots);
   training  full-width olmo-1b, batch 4 x seq 512, 3 AdamW steps through
             ``python -m repro_torch.launch.train``'s ``main`` with
-            ``--reduce-backend cuda_fused``; then one step profiled.
+            ``--reduce-backend cuda_fused``; then one step profiled;
+  paper     ``python -m repro_torch.launch.reduce_demo``'s ``main`` at
+            n = 2^28: step counts, precision and time per backend, through
+            the hierarchy's level kernel (K10), the moments kernel (K2)
+            and the Kahan kernel (K3).
 
 Exits nonzero, with no result line, when any check fails or there is no
 GPU.
 
 Output: the card's name and power limit (nvidia-smi), the build time, one
-line per kernel check, the serving and training figures, then the kernels
-JSON line (each kernel timed at this slice's training shapes, with its
-serving-shape figures under "serving") and, last,
+line per kernel check, the serving, training and paper figures, then the
+kernels JSON line (each kernel timed at its main path's shapes: training
+for K1/K4-K7, with serving-shape figures under "serving"; the paper's
+n = 2^28 f32 for K2, K3, K10, with bf16 figures beside them; "launches"
+counts the kernel's own main path) and, last,
 ``{"ok": true, "device": {...}}``.
 
 Peak rates used for the bounds are the H100 SXM data sheet's: 3.35 TB/s of
@@ -80,6 +87,9 @@ def launches_per_step(n_layers: int):
 
 
 TPU_KERNELS = {
+    "tile_partials": "src/repro/kernels/mma_reduce/kernel.py:131",
+    "mma_moments_fused": "src/repro/kernels/mma_reduce/kernel.py:257",
+    "mma_sum_kahan": "src/repro/kernels/mma_reduce/kernel.py:286",
     "layernorm_np": "src/repro/kernels/row_moments/kernel.py:57",
     "rmsnorm": "src/repro/kernels/row_moments/kernel.py:47",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:50",
@@ -88,6 +98,9 @@ TPU_KERNELS = {
     "mma_sum_fused": "src/repro/kernels/mma_reduce/kernel.py:186",
 }
 SOURCES = {
+    "tile_partials": "src/repro_torch/kernels/csrc/tile_partials.cu",
+    "mma_moments_fused": "src/repro_torch/kernels/csrc/fused_reduce.cu",
+    "mma_sum_kahan": "src/repro_torch/kernels/csrc/fused_kahan.cu",
     "layernorm_np": "src/repro_torch/kernels/csrc/row_moments.cu",
     "rmsnorm": "src/repro_torch/kernels/csrc/row_moments.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -96,7 +109,9 @@ SOURCES = {
     "mma_sum_fused": "src/repro_torch/kernels/csrc/fused_reduce.cu",
 }
 KERNELS = ("mma_sum_parts", "layernorm_np", "rmsnorm", "flash_attention", "cross_entropy",
-           "mma_sum_fused")
+           "mma_sum_fused", "mma_moments_fused", "mma_sum_kahan", "tile_partials")
+PAPER_KERNELS = ("mma_moments_fused", "mma_sum_kahan", "tile_partials")
+PAPER_N = 2**28  # the reduce demo's n: 1.07 GB of f32
 
 
 DEVICE = "cuda"
@@ -601,6 +616,321 @@ def check_fused_sum(results: dict, gen) -> None:
     )
 
 
+# ------------------------- the paper's reduction (K10, K2, K3) -----------------------
+
+_UNIT = {"torch.float32": 2.0**-24, "torch.bfloat16": 2.0**-8, "torch.float16": 2.0**-11}
+
+
+def _unit(dtype) -> float:
+    """Unit roundoff of a compute dtype."""
+    return _UNIT[str(dtype)]
+
+
+def _mapped(x, compute, prologue):
+    """x cast to the compute dtype and mapped by the prologue there, as f32
+    (the squares of "moments")."""
+    from repro_torch.kernels.mma_reduce.ops import _map, _round
+
+    return _map(_round(x.float(), compute), "square" if prologue == "moments" else prologue,
+                compute)
+
+
+def _tile_tol(v, compute):
+    """Per tile of a K10 level over the mapped values ``v``: two ulps of the
+    tile's largest row sum at the compute dtype (a row summed in another
+    order may round the other way before the second MMA; f32 sums on the
+    card and in torch take other orders) plus f32 noise of its mass."""
+    import torch
+
+    t = -(-v.numel() // 16384)
+    rows = torch.nn.functional.pad(v, (0, t * 16384 - v.numel())).view(t, 128, 128)
+    rows = rows.sum(-1).abs()
+    return 4 * _unit(compute) * rows.amax(-1) + 2.0**-16 * rows.sum(-1) + 1e-6
+
+
+def plain_hierarchy(x, compute, prologue="identity", chain=()):
+    """The hierarchy with every level's plain version, on the card."""
+    from repro_torch.kernels.mma_reduce import tile_partials_plain
+
+    v, pro = x, prologue
+    while v.numel() > 1:
+        t = -(-v.numel() // 16384)
+        v = tile_partials_plain(v, compute, pro, chain if t == 1 else ())[:t]
+        pro = "identity"
+    return (_mapped(v, compute, pro) if pro != "identity" else v).reshape(())
+
+
+def hierarchy_tol(x, compute, prologue="identity") -> float:
+    """The levels' tile tolerances (``_tile_tol``) summed along the plain
+    hierarchy."""
+    from repro_torch.kernels.mma_reduce import tile_partials_plain
+
+    v, pro, tol = x, prologue, 0.0
+    while v.numel() > 1:
+        tol += float(_tile_tol(_mapped(v, compute, pro), compute).sum())
+        v = tile_partials_plain(v, compute, pro)[:-(-v.numel() // 16384)]
+        pro = "identity"
+    return tol
+
+
+def check_tile_partials(results: dict, gen) -> None:
+    """K10 against its plain version on the card: level 0 tile by tile, then
+    the whole hierarchy (two launches at 2^28) against the plain hierarchy
+    and the f64 sum, with its launch count and the bytes at the launch
+    boundary held against the cost model. The main path's f32 2^28, bf16
+    2^28, 2^28 - 4097 (the tail mask), f16 once, the square, abs and
+    moments prologues, and an epilogue chain on the final level."""
+    import torch
+
+    from repro_torch.core import cost_model
+    from repro_torch.kernels import common
+    from repro_torch.kernels.mma_reduce import (mma_moments_hier, mma_sum_hier, tile_partials,
+                                                tile_partials_plain)
+
+    base = torch.randn((PAPER_N,), generator=gen, device=DEVICE) * 2 + 0.3
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # what, x, compute, prologue, chain
+        ("2^28 f32 at bf16 compute (the demo's sum)", base, bf, "identity", ()),
+        ("2^28 f32 at f32 compute", base, f32, "identity", ()),
+        ("2^28 bf16", base.to(bf), bf, "identity", ()),
+        ("2^28 - 4097 bf16 (tail mask)", base[:PAPER_N - 4097].to(bf), bf, "identity", ()),
+        # zero mean: f16 partials of a 0.3 mean overflow at level 1 (rows of
+        # 128 partials of ~4900), the reference's semantics too
+        ("2^26 f16, mean 0", (base[:2**26] - 0.3).to(torch.float16), torch.float16, "identity",
+         ()),
+        ("2^28 bf16, square", base.to(bf), bf, "square", ()),
+        ("2^28 bf16, abs", base.to(bf), bf, "abs", ()),
+        ("2^28 f32, square at f32, chain sqrt+clip", base, f32, "square",
+         (("sqrt",), ("clip_coeff", 1.0, 1e-9))),
+    ]
+    for what, x, cd, pro, chain in cases:
+        n = x.numel()
+        level0 = tile_partials(x, compute_dtype=cd, prologue=pro)
+        want0 = tile_partials_plain(x, cd, pro)[:level0.numel()]
+        err0 = float((level0 - want0).abs().max())
+        check(bool(torch.all((level0 - want0).abs() <= _tile_tol(_mapped(x, cd, pro), cd))),
+              f"K10 level 0 ({what}) disagrees with its plain version")
+        before, tr = tile_partials.launches, []
+        total = float(mma_sum_hier(x, compute_dtype=cd, prologue=pro, epilogue=chain, trace=tr))
+        launched = tile_partials.launches - before
+        raw, tol = float(plain_hierarchy(x, cd, pro)), hierarchy_tol(x, cd, pro)
+        exact = float(_mapped(x, f32, pro).double().sum())
+        mass = float(_mapped(x, f32, "abs" if pro == "identity" else pro).double().sum())
+        tol_f64 = max(2 * _unit(cd), 2.0**-17) * mass + 1e-6
+        want = raw
+        if chain:  # the chain of the total: its relative errors carry over
+            def fin(v):
+                return float(common.apply_epilogue(torch.tensor(v, dtype=torch.float64), chain))
+
+            want, exact_c = fin(raw), fin(exact)
+            tol, tol_f64 = abs(want) * tol / abs(raw), abs(exact_c) * tol_f64 / abs(exact)
+            exact = exact_c
+        model = cost_model.hier_hbm_bytes(n, x.element_size())
+        print(f"K10 tile_partials {what}: level 0 max_abs_err {err0:.3g} vs plain (tol: 2 ulps of "
+              f"each tile's largest row sum at the compute dtype); hierarchy {total:.9g} vs plain "
+              f"{want:.9g} (|d| {abs(total - want):.3g}, tol {tol:.3g}: the levels' tile "
+              f"tolerances summed), vs f64 {exact:.9g} (|d| {abs(total - exact):.3g}, tol "
+              f"{tol_f64:.3g}: two compute-dtype roundings of the mass); {launched} launches, "
+              f"{tr[0].launch_io_bytes} bytes at the launches (cost model "
+              f"{cost_model.levels(n, 128)}, {model.launch_io})")
+        check(abs(total - want) <= tol, f"K10 hierarchy ({what}) disagrees with its plain version")
+        check(abs(total - exact) <= tol_f64, f"K10 hierarchy ({what}) is off the f64 sum")
+        check(launched == cost_model.levels(n, 128) == tr[0].levels,
+              f"K10 ({what}): {launched} launches, cost model {cost_model.levels(n, 128)}")
+        check(tr[0].launch_io_bytes == model.launch_io,
+              f"K10 ({what}): {tr[0].launch_io_bytes} bytes at the launches, model {model.launch_io}")
+    # the moments prologue: a (t, 2) level 0, then one hierarchy per column
+    x = base.to(bf)
+    pair = tile_partials(x, compute_dtype=bf, prologue="moments")
+    want = tile_partials_plain(x, bf, "moments")[:pair.shape[0]]
+    check(bool(torch.all((pair[:, 0] - want[:, 0]).abs() <= _tile_tol(_mapped(x, bf, "abs"), bf)))
+          and bool(torch.all((pair[:, 1] - want[:, 1]).abs() <= _tile_tol(_mapped(x, bf, "square"),
+                                                                          bf))),
+          "K10 moments level 0 disagrees with its plain version")
+    before, tr = tile_partials.launches, []
+    s, ss = mma_moments_hier(x, trace=tr)
+    t0 = -(-PAPER_N // 16384)
+    check(tile_partials.launches - before == 1 + 2 * cost_model.levels(t0, 128),
+          "K10 moments: launch count")
+    check(tr[0].launch_io_bytes == cost_model.hier_moments_hbm_bytes(PAPER_N, 2).launch_io,
+          "K10 moments: bytes at the launches differ from the cost model")
+    ps, pss = float(plain_hierarchy(x, bf)), float(plain_hierarchy(x, bf, "square"))
+    print(f"K10 moments 2^28 bf16: ({float(s):.9g}, {float(ss):.9g}) vs plain ({ps:.9g}, "
+          f"{pss:.9g}); {tr[0].levels} launches, bytes as the cost model")
+    check(abs(float(s) - ps) <= hierarchy_tol(x, bf)
+          and abs(float(ss) - pss) <= hierarchy_tol(x, bf, "square"),
+          "K10 moments hierarchy disagrees with its plain version")
+
+    def timings(x):
+        n = x.numel()
+        b, by = bound_ms(n * x.element_size() + 4, tensor_flops=16 * n)
+        return {
+            "ms": device_ms(lambda: mma_sum_hier(x), "::tile_partials_kernel<"),
+            "call_ms": time_ms(lambda: mma_sum_hier(x), iters=20),
+            "plain_ms": device_ms(lambda: plain_hierarchy(x, bf), iters=3),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": device_ms(lambda: torch.sum(x, dtype=torch.float32)),
+        }
+
+    results["tile_partials"] = dict(
+        timings(base), max_abs_err=abs(float(mma_sum_hier(base)) - float(plain_hierarchy(base, bf))),
+        at_2e28_bf16=timings(base.to(bf)))
+
+
+def check_moments_and_kahan(results: dict, gen) -> None:
+    """K2 and K3 at 2^28 (the demo's f32, and bf16) against their plain
+    versions and the f64 sums, repeat launches bitwise; then Kahan against
+    native where the carry dominates: one lane, 2^24 f32."""
+    import torch
+
+    from repro_torch.core.precision import ulps
+    from repro_torch.kernels.mma_reduce import (default_num_lanes, mma_moments_fused,
+                                                mma_moments_fused_plain, mma_sum_fused,
+                                                mma_sum_kahan, mma_sum_kahan_plain)
+
+    base = torch.randn((PAPER_N,), generator=gen, device=DEVICE) * 2 + 0.3
+    bf = torch.bfloat16
+    for what, x in (("2^28 f32 at bf16 compute", base), ("2^28 bf16", base.to(bf)),
+                    ("2^28 - 4097 bf16", base[:PAPER_N - 4097].to(bf))):
+        lanes = default_num_lanes(x)
+        (s, ss), (s2, ss2) = mma_moments_fused(x, num_lanes=lanes), mma_moments_fused(
+            x, num_lanes=lanes)
+        ps, pss = mma_moments_fused_plain(x, bf, lanes)
+        xc = x.to(bf).double()
+        ts = fused_tol(x.numel(), lanes, float(xc.abs().sum()))
+        tss = fused_tol(x.numel(), lanes, float((x.float() ** 2).sum()))
+        es, ess = float(xc.sum()), float((xc * xc).sum())
+        print(f"K2 mma_moments_fused {what}: ({float(s):.9g}, {float(ss):.9g}) vs plain "
+              f"|d| ({abs(float(s) - float(ps)):.3g}, {abs(float(ss) - float(pss)):.3g}) (tol "
+              f"({ts:.3g}, {tss:.3g}): one f32 ulp of the running sum per accumulation step); "
+              f"vs f64 of the bf16 values and their bf16 squares |d| ({abs(float(s) - es):.3g}, "
+              f"{abs(float(ss) - ess):.3g}); repeat bitwise")
+        check(torch.equal(s, s2) and torch.equal(ss, ss2), f"K2 {what}: a second launch differs")
+        check(abs(float(s) - float(ps)) <= ts and abs(float(ss) - float(pss)) <= tss,
+              f"K2 {what} disagrees with its plain version")
+        check(abs(float(s) - es) <= ts + 1e-6 * float(xc.abs().sum())
+              and abs(float(ss) - ess) <= tss + 2 * _unit(bf) * float((xc * xc).sum()),
+              f"K2 {what} is off the f64 sums")
+        k, k2 = mma_sum_kahan(x, num_lanes=lanes), mma_sum_kahan(x, num_lanes=lanes)
+        kp = mma_sum_kahan_plain(x, bf, "identity", (), lanes)
+        mass = float(xc.abs().sum())
+        print(f"K3 mma_sum_kahan {what}: {float(k):.9g} vs plain {float(kp):.9g} (|d| "
+              f"{abs(float(k) - float(kp)):.3g}, tol {2.0**-20 * mass:.3g}: the same row sums up "
+              f"to their order, carried and folded by the same steps), vs f64 of the bf16 values "
+              f"|d| {abs(float(k) - es):.3g}; repeat bitwise")
+        check(torch.equal(k, k2), f"K3 {what}: a second launch differs")
+        check(abs(float(k) - float(kp)) <= 2.0**-20 * mass, f"K3 {what} disagrees with plain")
+        check(abs(float(k) - es) <= 2.0**-20 * mass + 1e-3, f"K3 {what} is off the f64 sum")
+
+    # one lane, 1024 tiles: f32 compute, so only the carry differs
+    for what, x, gate in (
+            ("1 + U[0, 1e-3) (one-sided noise)", 1.0 + torch.rand(
+                (2**24,), generator=gen, device=DEVICE) * 1e-3, True),
+            ("1 + N(0, 1e-3) (symmetric noise)", 1.0 + torch.randn(
+                (2**24,), generator=gen, device=DEVICE) * 1e-3, False)):
+        exact = float(x.double().sum())
+        native = float(mma_sum_fused(x, compute_dtype=torch.float32, num_lanes=1))
+        kahan = float(mma_sum_kahan(x, compute_dtype=torch.float32, num_lanes=1))
+        print(f"Kahan where the carry dominates, 2^24 f32 {what}, one lane, f32 compute: native "
+              f"off the f64 sum by {abs(native - exact):.4g} ({ulps(native, exact):.1f} ulps of "
+              f"the total), kahan by {abs(kahan - exact):.4g} ({ulps(kahan, exact):.1f} ulps)")
+        if gate:
+            check(ulps(native, exact) >= 10, "the carry-dominated input does not stress native")
+            check(abs(kahan - exact) <= abs(native - exact), "Kahan is less accurate than native")
+
+    def timings(x, fn, plain, kernel, library):
+        n = x.numel()
+        b, by = bound_ms(n * x.element_size() + 8, tensor_flops=16 * n)
+        return {"ms": device_ms(fn, kernel), "call_ms": time_ms(fn, iters=20),
+                "plain_ms": device_ms(plain, iters=3), "bound_ms": b, "bound_by": by,
+                "library_ms": device_ms(library) if library is not None else None}
+
+    lanes = default_num_lanes(base)
+    xb = base.to(bf)
+    results["mma_moments_fused"] = dict(
+        timings(base, lambda: mma_moments_fused(base, num_lanes=lanes),
+                lambda: mma_moments_fused_plain(base, bf, lanes), "::fused_sum_kernel<", None),
+        max_abs_err=abs(float(mma_moments_fused(base, num_lanes=lanes)[0])
+                        - float(mma_moments_fused_plain(base, bf, lanes)[0])),
+        at_2e28_bf16=timings(xb, lambda: mma_moments_fused(xb, num_lanes=lanes),
+                             lambda: mma_moments_fused_plain(xb, bf, lanes),
+                             "::fused_sum_kernel<", None))
+    results["mma_sum_kahan"] = dict(
+        timings(base, lambda: mma_sum_kahan(base, num_lanes=lanes),
+                lambda: mma_sum_kahan_plain(base, bf, "identity", (), lanes),
+                "::fused_kahan_kernel<", lambda: torch.sum(base, dtype=torch.float32)),
+        max_abs_err=abs(float(mma_sum_kahan(base, num_lanes=lanes))
+                        - float(mma_sum_kahan_plain(base, bf, "identity", (), lanes))),
+        at_2e28_bf16=timings(xb, lambda: mma_sum_kahan(xb, num_lanes=lanes),
+                             lambda: mma_sum_kahan_plain(xb, bf, "identity", (), lanes),
+                             "::fused_kahan_kernel<", lambda: torch.sum(xb, dtype=torch.float32)))
+
+
+def check_reduce_against_cpu(gen) -> None:
+    """``reduce`` on the card against the same call on the CPU (the kernels'
+    plain versions) at 2^20, every kind, backend and precision. Tolerance:
+    the compute dtype's unit roundoff times the mass / 64 (a row sum may
+    round the other way; lanes fold in other orders), f32 noise at f32
+    compute."""
+    import torch
+
+    from repro_torch import reduce as R
+
+    x = torch.randn((2**20,), generator=gen, device=DEVICE) * 2 + 0.3
+    xc = x.cpu()
+    worst = 0.0
+    for backend in R.available_backends():
+        for kind in ("sum", "mean", "sumsq", "norm2", "moments"):
+            for prec in ("native", "kahan"):
+                got = R.reduce(x, kind=kind, backend=backend, precision=prec)
+                want = R.reduce(xc, kind=kind, backend=backend, precision=prec)
+                cd = R.plan_for(x.shape, x.dtype, kind=kind, backend=backend).compute_torch
+                pairs = zip(got, want, ("sum", "sumsq")) if kind == "moments" else [
+                    (got, want, kind)]
+                for g, w, k in pairs:
+                    v = xc.double() ** 2 if k in ("sumsq", "norm2") else xc.double().abs()
+                    tol = max(_unit(cd) / 64, 2.0**-20) * float(v.sum())
+                    if k == "mean":
+                        tol /= x.numel()
+                    if k == "norm2":
+                        tol /= 2 * float(w)
+                    err = abs(float(g) - float(w))
+                    worst = max(worst, err / tol)
+                    check(g.device.type == "cuda" and err <= tol,
+                          f"reduce({kind}, {backend}, {prec}): card {float(g)} vs CPU {float(w)}")
+    print(f"reduce card vs CPU, 2^20 f32, {len(R.available_backends())} backends x 5 kinds x "
+          f"2 precisions: all within tolerance (worst |d| / tol {worst:.3g})")
+
+
+def run_reduce_demo() -> dict:
+    """The paper's main path: ``launch.reduce_demo``'s ``main`` at n = 2^28
+    on the card, every kernel launch counted. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.launch import reduce_demo
+
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    out = reduce_demo.main(["--n", str(PAPER_N)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    print(f"reduce demo at n = {PAPER_N}: {wall:.2f} s; launches {launches}")
+    for n, m, levels, steps, eq16, _, s_meas, s17 in out["steps"]:
+        check(steps == 5 * levels and abs(eq16 - steps) < 1e-9 and abs(s_meas - s17) < 1e-9,
+              f"step counts at n={n}, m={m} differ from eqs. 16-17")
+    rel = {name: r for name, _, r in out["precision"]}
+    check(all(np.isfinite(v) for v in rel.values()), "non-finite precision row")
+    check(rel["cuda_fused f32 multipliers, kahan"] <= 1e-6, "Kahan's error is above 1e-6")
+    check(all(ms > 0 for _, ms in out["times"]), "a time per call is not positive")
+    for name in PAPER_KERNELS:
+        check(launches[name] > 0, f"the paper's path did not launch {name}")
+    return launches
+
+
 def check_backward_times(results: dict, gen) -> None:
     """Device time of the torch-math backward passes of K5 (layernorm_np,
     the reference's host math) and K6 (dense recompute) at the training
@@ -991,6 +1321,10 @@ def main() -> int:
     check_parts(results, gen)
     check_cross_entropy(results, gen)
     check_fused_sum(results, gen)
+    check_tile_partials(results, gen)
+    check_moments_and_kahan(results, gen)
+    check_reduce_against_cpu(gen)
+    torch.cuda.empty_cache()
     check_backward_times(results, gen)
     check_tiny_against_cpu()
     check_full_width_against_cpu()
@@ -1006,26 +1340,32 @@ def main() -> int:
         train_launches = train_full_width()
     finally:
         R.set_default_backend(None)
+    torch.cuda.empty_cache()
+    paper_launches = run_reduce_demo()
 
     kernels = []
     for name in KERNELS:
         r = results[name]
+        main_path = paper_launches if name in PAPER_KERNELS else train_launches
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": TPU_KERNELS[name], "launches": train_launches[name],
+            "replaces": TPU_KERNELS[name], "launches": main_path[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],
-            "launches_serving": serve_launches[name],
+            "launches_training": train_launches[name],
+            "launches_serving": serve_launches[name], "launches_paper": paper_launches[name],
         }
         entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
     for k in kernels:
         lib = "-" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.1f} us"
-        print(f"{k['name']}: device {k['ms'] * 1e3:.2f} us per launch at the training shape "
+        shape = "2^28 f32" if k["name"] in PAPER_KERNELS else "the training shape"
+        print(f"{k['name']}: device {k['ms'] * 1e3:.2f} us per call at {shape} "
               f"(whole call {k['call_ms'] * 1e3:.1f} us; plain {k['plain_ms'] * 1e3:.1f} us, "
               f"library {lib}, bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}), "
-              f"{k['launches']} launches in training, {k['launches_serving']} in serving")
+              f"launches: {k['launches_training']} in training, {k['launches_serving']} in "
+              f"serving, {k['launches_paper']} in the paper's demo")
     print(f"backward passes (torch math): {results['backward']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,243 @@
+"""Cost models of the full reduction: the paper's step model, the lane
+geometry the kernels launch, and the bytes they move.
+
+A torch-free copy of the parts of ``repro/core/cost_model.py`` the full
+reduction's kernels (K1, K2, K3, K10) and traces are held to. It counts
+model steps, MMAs and bytes only; it states no rate of any device (the
+card's rates are in ``chip_smoke.py``, beside the numbers measured there).
+
+Paper model (section IV.B): coalesced r/w = 1, tile fill = 1, MMA = 1,
+result write = 1, so
+
+  T_tc(n) = 5 log_{m^2}(n)       (eq. 16)
+  T_classic(n) = 4 log_2(n)      (the pairwise baseline)
+  S = (4/5) log_2(m^2)           (eq. 17)
+
+Not copied yet: the scan, segmented, parts and interconnect models (they
+come with their kernels).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+M = 128  # the paper's tile size m as the kernels run it (common.MXU)
+
+_F32 = 4  # partials, accumulators and outputs are f32
+
+
+# ----------------------------- paper's model --------------------------------
+
+
+def t_tensor_core(n: float, m: int) -> float:
+    """Paper eq. (16): T_tc(n) = 5 log_{m^2}(n), in model steps."""
+    if n <= 1:
+        return 0.0
+    return 5.0 * math.log(n, m * m)
+
+
+def t_classic(n: float) -> float:
+    """The paper's classic pairwise reduction: T(n) = 4 log2(n)."""
+    if n <= 1:
+        return 0.0
+    return 4.0 * math.log2(n)
+
+
+def speedup_model(m: int) -> float:
+    """Paper eq. (17): S = (4/5) log2(m^2)."""
+    return 0.8 * math.log2(m * m)
+
+
+def levels(n: int, m: int) -> int:
+    """Two-MMA passes (launches) the hierarchy of eq. 13 runs on n elements."""
+    if n <= 1:
+        return 0
+    group, out = m * m, 0
+    while n > 1:
+        n = -(-n // group)
+        out += 1
+    return out
+
+
+# ------------------------- striped lane geometry ------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MmaOpCount:
+    """MMA count of one striped fused pass: ``lane`` main-stream MMAs per
+    lane (the lanes run concurrently), ``combine`` collapse and fold MMAs
+    after the lanes join."""
+
+    n: int
+    m: int
+    num_cores: int  # effective lanes (clamped to the block count)
+    lane: int
+    combine: int
+    serial_tail: int | None = None
+
+    @property
+    def total(self) -> int:
+        return self.num_cores * self.lane + self.combine
+
+    @property
+    def critical_path(self) -> int:
+        return self.lane + (self.combine if self.serial_tail is None else self.serial_tail)
+
+
+def stripe_geometry(tiles: int, tiles_per_block: int, num_cores: int):
+    """``(r, c, blocks_per_lane, padded_tiles)`` of a striped tile stream:
+    block depth, effective lane count (never more lanes than blocks), blocks
+    per lane and the padded tile count ``r * c * blocks_per_lane``. The one
+    source of the geometry: the fused kernels' wrappers launch this grid."""
+    r = max(1, min(tiles_per_block, tiles))
+    blocks = -(-tiles // r)
+    c = max(1, min(num_cores, blocks))
+    blocks_per_lane = -(-blocks // c)
+    return r, c, blocks_per_lane, r * c * blocks_per_lane
+
+
+def fused_mma_ops(n: int, m: int = M, num_cores: int = 1, tiles_per_block: int = 8,
+                  dual: bool = False) -> MmaOpCount:
+    """MMAs of the striped fused kernel: padded tiles / c per lane, c lane
+    collapses plus one fold; ``dual`` (moments) doubles both."""
+    tiles = max(1, -(-n // (m * m)))
+    _, c, _, tpad = stripe_geometry(tiles, tiles_per_block, num_cores)
+    k = 2 if dual else 1
+    return MmaOpCount(n=n, m=m, num_cores=c, lane=k * (tpad // c), combine=k * (c + 1))
+
+
+# ------------------------------ bytes moved ----------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HbmTraffic:
+    """Bytes of one reduction, split along the launch boundary:
+    ``kernel_read`` / ``kernel_write`` are the operands and results crossing
+    the launches (``launch_io``); ``stage_*`` are copies made before a
+    launch; ``combine_*`` the host-side combine of the partials."""
+
+    kernel_read: int
+    kernel_write: int
+    stage_read: int = 0
+    stage_write: int = 0
+    combine_read: int = 0
+    combine_write: int = 0
+    refetch_read: int = 0
+
+    @property
+    def launch_io(self) -> int:
+        return self.kernel_read + self.kernel_write
+
+    @property
+    def read(self) -> int:
+        return self.kernel_read + self.stage_read + self.combine_read + self.refetch_read
+
+    @property
+    def write(self) -> int:
+        return self.kernel_write + self.stage_write + self.combine_write
+
+    @property
+    def total(self) -> int:
+        return self.read + self.write
+
+
+def fused_hbm_bytes(n: int, itemsize: int, *, m: int = M, num_cores: int = 1,
+                    tiles_per_block: int = 8, kahan: bool = False, dual: bool = False,
+                    epilogue: bool = False) -> HbmTraffic:
+    """One fused pass: the buffer read once at its own width, C lane
+    partials written ((C, 2, m, m) under the Kahan carry or the moments
+    pair) and read back by the combine, which writes the scalar (a pair
+    for moments). ``epilogue`` is the in-kernel finish of a single-lane
+    launch: one f32 leaves the launch."""
+    tiles = max(1, -(-n // (m * m)))
+    _, c, _, _ = stripe_geometry(tiles, tiles_per_block, num_cores)
+    if epilogue:
+        if c != 1 or kahan or dual:
+            raise ValueError(
+                "in-kernel fused epilogue requires a single-lane, non-kahan, non-dual "
+                f"launch; got c={c}, kahan={kahan}, dual={dual}"
+            )
+        return HbmTraffic(kernel_read=n * itemsize, kernel_write=_F32)
+    partials = (2 if (kahan or dual) else 1) * c * m * m * _F32
+    return HbmTraffic(kernel_read=n * itemsize, kernel_write=partials,
+                      combine_read=partials, combine_write=(2 if dual else 1) * _F32)
+
+
+def hier_hbm_bytes(n: int, itemsize: int, *, m: int = M,
+                   tiles_per_block: int = 8) -> HbmTraffic:
+    """The hierarchy of eq. 13: level 0 reads the buffer at its own width;
+    every level writes its block-padded f32 partials and the next level
+    reads the t real ones back."""
+    group = m * m
+    kread, kwrite, size, bs = 0, 0, max(n, 1), itemsize
+    while size > 1:
+        kread += size * bs
+        t = -(-size // group)
+        r = max(1, min(tiles_per_block, t))
+        kwrite += -(-t // r) * r * _F32
+        size = t
+        bs = _F32
+    return HbmTraffic(kernel_read=kread, kernel_write=kwrite)
+
+
+def hier_moments_hbm_bytes(n: int, itemsize: int, *, m: int = M,
+                           tiles_per_block: int = 8) -> HbmTraffic:
+    """The hierarchy under the moments prologue: level 0 reads the buffer
+    once and writes a (tpad, 2) pair; each f32 column then climbs the
+    identity hierarchy."""
+    group = m * m
+    size = max(n, 1)
+    t = -(-size // group)
+    r = max(1, min(tiles_per_block, t))
+    tpad = -(-t // r) * r
+    upper = hier_hbm_bytes(t, _F32, m=m, tiles_per_block=tiles_per_block)
+    return HbmTraffic(kernel_read=size * itemsize + 2 * upper.kernel_read,
+                      kernel_write=2 * tpad * _F32 + 2 * upper.kernel_write)
+
+
+def blocked_hier_hbm_bytes(n: int, itemsize: int, block: int, *, m: int = M,
+                           tiles_per_block: int = 8) -> HbmTraffic:
+    """The blocked compensated combine on the hierarchy (``precision=
+    "kahan"`` on ``cuda_hier``): one staging copy lays the f32 blocks of
+    ``block`` elements out with each block padded to whole tiles (read the
+    buffer, write the padded stream); then every level reduces all blocks
+    at once (level 0 reads the staged stream, each level writes its
+    block-padded partials), and the host reads the block totals back for
+    the serial Kahan pass. With ``block <= m^2`` that is one launch."""
+    group = m * m
+    nblk = max(1, -(-n // block))
+    kread = kwrite = 0
+    sread, swrite = n * itemsize, 0
+    size = block
+    while True:
+        kb = -(-size // group)  # tiles per block at this level
+        swrite += nblk * kb * group * _F32
+        kread += nblk * kb * group * _F32
+        t = nblk * kb
+        r = max(1, min(tiles_per_block, t))
+        kwrite += -(-t // r) * r * _F32
+        if kb == 1:
+            break
+        # a block spans several tiles: its partials are laid out again,
+        # each block's padded to whole tiles, for the next level
+        sread += t * _F32
+        size = kb
+    return HbmTraffic(kernel_read=kread, kernel_write=kwrite, stage_read=sread,
+                      stage_write=swrite, combine_read=nblk * _F32, combine_write=_F32)
+
+
+def hbm_bytes(path: str, n: int, itemsize: int, *, m: int = M, num_cores: int = 1,
+              tiles_per_block: int = 8, kahan: bool = False, dual: bool = False,
+              epilogue: bool = False) -> HbmTraffic:
+    """Dispatch over the full-reduction models: ``path`` is "fused",
+    "hier" or "hier_moments"."""
+    if path == "fused":
+        return fused_hbm_bytes(n, itemsize, m=m, num_cores=num_cores,
+                               tiles_per_block=tiles_per_block, kahan=kahan, dual=dual,
+                               epilogue=epilogue)
+    if path == "hier":
+        return hier_hbm_bytes(n, itemsize, m=m, tiles_per_block=tiles_per_block)
+    if path == "hier_moments":
+        return hier_moments_hbm_bytes(n, itemsize, m=m, tiles_per_block=tiles_per_block)
+    raise ValueError(f"unknown hbm_bytes path {path!r}; expected fused, hier or hier_moments")

@@ -28,9 +28,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "row_moments.cu", "flash_attention.cu", "parts_reduce.cu", "cross_entropy.cu",
-    "fused_reduce.cu",
+    "fused_reduce.cu", "fused_kahan.cu", "tile_partials.cu",
 )
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "reduce_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -48,6 +48,9 @@ _SIGNATURES = {
     "pr_parts": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
     "ce_forward": (_P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "fr_sum": (_P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "fr_moments": (_P, _LL, _I, _I, _LL, _LL, _I, _I, _P, _P, _P, _P),
+    "fk_sum": (_P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "tp_level": (_P, _LL, _LL, _I, _I, _I, _I, _LL, _I, _I, _P, _P, _P, _P, _P),
 }
 
 

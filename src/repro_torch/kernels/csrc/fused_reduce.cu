@@ -28,80 +28,69 @@
 // ticket is a buffer the caller zeroes once; the last CTA sets it back to 0.
 // One launch per call; two launches on the same input agree bitwise.
 //
+// The moments pair (`fr_moments`, replacing `fused_moments_kernel` of the
+// same file, the reference's prologue "moments") is the same kernel with a
+// second accumulator: every element feeds X @ 1 at the compute dtype and
+// its square, taken at the compute dtype (a bf16 product for bf16
+// compute), feeds X^2 @ 1; the two halves fold by the same fixed tree and
+// the launch writes [sum, sumsq]. It has no census and no epilogue, as in
+// the reference.
+//
 // Bound on this card: bytes (n * itemsize read once; the ones-MMA is 16
 // flops per element, far below the bf16 roofline). Loads are 16 bytes per
 // thread, four groups in flight per thread; at the loss's 2048 elements
 // the launch is latency.
-#include "common.cuh"
+#include "reduce_common.cuh"
 
 namespace {
 
 constexpr int FR_THREADS = 256;
 constexpr int FR_WARPS = FR_THREADS / 32;
-constexpr int FR_GROUP = 8;      // elements per thread per group: 16 bytes of bf16
-constexpr int FR_UNROLL = 4;     // groups in flight per thread
-constexpr int FR_MAX_STEPS = 8;  // ops.FUSED_MAX_CHAIN_STEPS
+constexpr int FR_GROUP = RC_GROUP;  // elements per thread per group: 16 bytes of bf16
+constexpr int FR_UNROLL = 4;        // groups in flight per thread
+constexpr int FR_MAX_STEPS = RC_MAX_STEPS;
 
-enum Prologue : int { PRO_IDENTITY = 0, PRO_SQUARE = 1, PRO_ABS = 2 };
-
-struct Chain {
-  int len;
-  int op[FR_MAX_STEPS];
-  float p0[FR_MAX_STEPS];
-  float p1[FR_MAX_STEPS];
-};
-
+// Eight mapped values into the running sum: one ones-MMA (bf16 / f16
+// compute; the MMA accumulator carries the warp's row sums over the lane)
+// or eight f32 adds (f32 compute).
 template <int CD>
-__device__ __forceinline__ float to_compute(float v) {
-  if (CD == DT_BF16) return __bfloat162float(__float2bfloat16_rn(v));
-  if (CD == DT_F16) return __half2float(__float2half_rn(v));
-  return v;
-}
-
-// Eight elements [e, e + 8) as f32; elements at or past `end` read as 0.
-__device__ __forceinline__ void load_group(const float* x, long long e, long long end,
-                                           bool aligned, float (&v)[FR_GROUP]) {
-  if (aligned && e + FR_GROUP <= end) {
-    const float4 a = *reinterpret_cast<const float4*>(x + e);
-    const float4 b = *reinterpret_cast<const float4*>(x + e + 4);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    return;
+__device__ __forceinline__ void accumulate(const float (&v)[FR_GROUP], float (&acc)[4],
+                                           float& fsum) {
+  if (CD == DT_F32) {
+#pragma unroll
+    for (int i = 0; i < FR_GROUP; ++i) fsum += v[i];
+  } else if (CD == DT_BF16) {
+    const uint32_t A[4] = {pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                           pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7])};
+    mma_bf16_16816(acc, A, ONES_BF16X2, ONES_BF16X2);
+  } else {
+    const uint32_t A[4] = {pack_f16(v[0], v[1]), pack_f16(v[2], v[3]),
+                           pack_f16(v[4], v[5]), pack_f16(v[6], v[7])};
+    mma_f16_16816(acc, A, ONES_F16X2, ONES_F16X2);
   }
-#pragma unroll
-  for (int i = 0; i < FR_GROUP; ++i) v[i] = e + i < end ? x[e + i] : 0.f;
 }
 
-template <typename T>
-__device__ __forceinline__ void load_group(const T* x, long long e, long long end,
-                                           bool aligned, float (&v)[FR_GROUP]) {
-  if (aligned && e + FR_GROUP <= end) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(x + e);
-    const T* h = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < FR_GROUP; ++i) v[i] = to_f32(h[i]);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < FR_GROUP; ++i) v[i] = e + i < end ? to_f32(x[e + i]) : 0.f;
-}
-
-template <typename T, int CD>
+// DUAL: the moments pair (no census, no prologue, no chain); `lane_cnt`
+// then holds the lanes' sums of squares as floats.
+template <typename T, int CD, bool DUAL>
 __global__ void __launch_bounds__(FR_THREADS)
 fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, long long blocks,
                  int prologue, int census, int aligned, const Chain chain,
                  float* __restrict__ lane_sum, int* __restrict__ lane_cnt,
                  unsigned int* __restrict__ ticket, float* __restrict__ out) {
   __shared__ float warp_sum[FR_WARPS];
+  __shared__ float warp_sum2[FR_WARPS];
   __shared__ long long warp_cnt[FR_WARPS];
   __shared__ bool am_last;
 
   const int lane_id = blockIdx.x, lanes = gridDim.x;
   const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
   const long long stride = static_cast<long long>(FR_THREADS) * FR_GROUP;
+  float* lane_sq = reinterpret_cast<float*>(lane_cnt);
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // ones-MMA accumulator (bf16/f16 compute)
-  float fsum = 0.f;                     // f32 compute
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};   // ones-MMA accumulator (bf16/f16 compute)
+  float acc2[4] = {0.f, 0.f, 0.f, 0.f};  // DUAL: the squares' accumulator
+  float fsum = 0.f, fsum2 = 0.f;         // f32 compute
   int cnt = 0;
   for (long long b = lane_id; b < blocks; b += lanes) {
     const long long base = b * block_elems;
@@ -117,51 +106,54 @@ fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, lo
       for (int u = 0; u < FR_UNROLL; ++u) load_group(x, e0 + u * stride, end, aligned != 0, v[u]);
 #pragma unroll
       for (int u = 0; u < FR_UNROLL; ++u) {
+        if constexpr (DUAL) {
+          float sq[FR_GROUP];
 #pragma unroll
-        for (int i = 0; i < FR_GROUP; ++i) {
-          float cv = to_compute<CD>(v[u][i]);
-          cnt += isfinite(cv) ? 0 : 1;  // census before the prologue
-          if (prologue == PRO_SQUARE) cv = to_compute<CD>(cv * cv);
-          else if (prologue == PRO_ABS) cv = fabsf(cv);
-          v[u][i] = cv;
-        }
-        if (CD == DT_F32) {
-#pragma unroll
-          for (int i = 0; i < FR_GROUP; ++i) fsum += v[u][i];
-        } else if (CD == DT_BF16) {
-          const uint32_t A[4] = {pack_bf16(v[u][0], v[u][1]), pack_bf16(v[u][2], v[u][3]),
-                                 pack_bf16(v[u][4], v[u][5]), pack_bf16(v[u][6], v[u][7])};
-          mma_bf16_16816(acc, A, ONES_BF16X2, ONES_BF16X2);
+          for (int i = 0; i < FR_GROUP; ++i) {
+            v[u][i] = to_compute<CD>(v[u][i]);
+            sq[i] = to_compute<CD>(v[u][i] * v[u][i]);  // the square at the compute dtype
+          }
+          accumulate<CD>(v[u], acc, fsum);
+          accumulate<CD>(sq, acc2, fsum2);
         } else {
-          const uint32_t A[4] = {pack_f16(v[u][0], v[u][1]), pack_f16(v[u][2], v[u][3]),
-                                 pack_f16(v[u][4], v[u][5]), pack_f16(v[u][6], v[u][7])};
-          mma_f16_16816(acc, A, ONES_F16X2, ONES_F16X2);
+#pragma unroll
+          for (int i = 0; i < FR_GROUP; ++i) {
+            float cv = to_compute<CD>(v[u][i]);
+            cnt += isfinite(cv) ? 0 : 1;  // census before the prologue
+            v[u][i] = prologue_map<CD>(cv, prologue);
+          }
+          accumulate<CD>(v[u], acc, fsum);
         }
       }
     }
   }
   // every column of D holds its row's sum: lane t == 0 owns rows g, g + 8
   float s = CD == DT_F32 ? fsum : ((lid & 3) == 0 ? acc[0] + acc[2] : 0.f);
+  float s2 = CD == DT_F32 ? fsum2 : ((lid & 3) == 0 ? acc2[0] + acc2[2] : 0.f);
   long long c = cnt;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {  // fixed-shape tree
     s += __shfl_down_sync(0xffffffffu, s, off);
-    c += __shfl_down_sync(0xffffffffu, c, off);
+    if (DUAL) s2 += __shfl_down_sync(0xffffffffu, s2, off);
+    else c += __shfl_down_sync(0xffffffffu, c, off);
   }
   if (lid == 0) {
     warp_sum[warp] = s;
+    warp_sum2[warp] = s2;
     warp_cnt[warp] = c;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    float ls = 0.f;
+    float ls = 0.f, ls2 = 0.f;
     long long lc = 0;
     for (int w = 0; w < FR_WARPS; ++w) {
       ls += warp_sum[w];
+      ls2 += warp_sum2[w];
       lc += warp_cnt[w];
     }
     lane_sum[lane_id] = ls;
-    lane_cnt[lane_id] = static_cast<int>(lc);
+    if (DUAL) lane_sq[lane_id] = ls2;
+    else lane_cnt[lane_id] = static_cast<int>(lc);
     __threadfence();  // publish the partial before taking a ticket
     am_last = atomicAdd(ticket, 1u) == static_cast<unsigned int>(lanes - 1);
     if (am_last) *ticket = 0u;  // every other CTA has taken its ticket
@@ -172,64 +164,96 @@ fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, lo
   // The last CTA folds the lanes (ops.combine_lane_partials).
   __threadfence();
   s = 0.f;
+  s2 = 0.f;
   c = 0;
   for (int i = threadIdx.x; i < lanes; i += FR_THREADS) {
     s += __ldcg(lane_sum + i);
-    c += __ldcg(lane_cnt + i);
+    if (DUAL) s2 += __ldcg(lane_sq + i);
+    else c += __ldcg(lane_cnt + i);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     s += __shfl_down_sync(0xffffffffu, s, off);
-    c += __shfl_down_sync(0xffffffffu, c, off);
+    if (DUAL) s2 += __shfl_down_sync(0xffffffffu, s2, off);
+    else c += __shfl_down_sync(0xffffffffu, c, off);
   }
   if (lid == 0) {
     warp_sum[warp] = s;
+    warp_sum2[warp] = s2;
     warp_cnt[warp] = c;
   }
   __syncthreads();
   if (threadIdx.x != 0) return;
-  float total = 0.f;
+  float total = 0.f, total2 = 0.f;
   long long total_cnt = 0;
   for (int w = 0; w < FR_WARPS; ++w) {
     total += warp_sum[w];
+    total2 += warp_sum2[w];
     total_cnt += warp_cnt[w];
   }
-  for (int k = 0; k < chain.len; ++k) total = epilogue_step(total, chain.op[k], chain.p0[k], chain.p1[k]);
-  out[0] = total;
-  if (census) out[1] = static_cast<float>(total_cnt);
+  if constexpr (DUAL) {
+    out[0] = total;
+    out[1] = total2;
+  } else {
+    out[0] = apply_chain(total, chain);
+    if (census) out[1] = static_cast<float>(total_cnt);
+  }
 }
 
-template <typename T, int CD>
+template <typename T, int CD, bool DUAL>
 void launch_one(const void* x, long long n, long long block_elems, long long blocks, int lanes,
                 int prologue, int census, int aligned, const Chain& chain, float* lane_sum,
                 int* lane_cnt, unsigned int* ticket, float* out, cudaStream_t stream) {
-  fused_sum_kernel<T, CD><<<lanes, FR_THREADS, 0, stream>>>(
+  fused_sum_kernel<T, CD, DUAL><<<lanes, FR_THREADS, 0, stream>>>(
       static_cast<const T*>(x), n, block_elems, blocks, prologue, census, aligned, chain,
       lane_sum, lane_cnt, ticket, out);
 }
 
-template <typename T>
+template <typename T, bool DUAL>
 int launch(const void* x, long long n, long long block_elems, long long blocks, int lanes,
            int compute, int prologue, int census, int aligned, const Chain& chain,
            float* lane_sum, int* lane_cnt, unsigned int* ticket, float* out,
            cudaStream_t stream) {
   switch (compute) {
     case DT_F32:
-      launch_one<T, DT_F32>(x, n, block_elems, blocks, lanes, prologue, census, aligned, chain,
-                            lane_sum, lane_cnt, ticket, out, stream);
+      launch_one<T, DT_F32, DUAL>(x, n, block_elems, blocks, lanes, prologue, census, aligned,
+                                  chain, lane_sum, lane_cnt, ticket, out, stream);
       break;
     case DT_BF16:
-      launch_one<T, DT_BF16>(x, n, block_elems, blocks, lanes, prologue, census, aligned, chain,
-                             lane_sum, lane_cnt, ticket, out, stream);
+      launch_one<T, DT_BF16, DUAL>(x, n, block_elems, blocks, lanes, prologue, census, aligned,
+                                   chain, lane_sum, lane_cnt, ticket, out, stream);
       break;
     case DT_F16:
-      launch_one<T, DT_F16>(x, n, block_elems, blocks, lanes, prologue, census, aligned, chain,
-                            lane_sum, lane_cnt, ticket, out, stream);
+      launch_one<T, DT_F16, DUAL>(x, n, block_elems, blocks, lanes, prologue, census, aligned,
+                                  chain, lane_sum, lane_cnt, ticket, out, stream);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DUAL>
+int dispatch(const void* x, long long n, int dtype, int compute, int prologue, int census,
+             long long block_elems, long long blocks, int lanes, int aligned, const Chain& chain,
+             float* out, void* scratch, unsigned int* ticket, void* stream) {
+  float* lane_sum = static_cast<float*>(scratch);
+  int* lane_cnt = reinterpret_cast<int*>(lane_sum + lanes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case DT_F32:
+      return launch<float, DUAL>(x, n, block_elems, blocks, lanes, compute, prologue, census,
+                                 aligned, chain, lane_sum, lane_cnt, ticket, out, s);
+    case DT_BF16:
+      return launch<__nv_bfloat16, DUAL>(x, n, block_elems, blocks, lanes, compute, prologue,
+                                         census, aligned, chain, lane_sum, lane_cnt, ticket,
+                                         out, s);
+    case DT_F16:
+      return launch<__half, DUAL>(x, n, block_elems, blocks, lanes, compute, prologue, census,
+                                  aligned, chain, lane_sum, lane_cnt, ticket, out, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -244,30 +268,23 @@ extern "C" int fr_sum(const void* x, long long n, int dtype, int compute, int pr
                       int aligned, int chain_len, const int* chain_ops, const float* chain_p0,
                       const float* chain_p1, float* out, void* scratch, unsigned int* ticket,
                       void* stream) {
-  if (n < 1 || lanes < 1 || lanes > blocks || block_elems < 1 || chain_len < 0 ||
-      chain_len > FR_MAX_STEPS || prologue < PRO_IDENTITY || prologue > PRO_ABS)
-    return static_cast<int>(cudaErrorInvalidValue);
   Chain chain;
-  chain.len = chain_len;
-  for (int k = 0; k < FR_MAX_STEPS; ++k) {
-    chain.op[k] = k < chain_len ? chain_ops[k] : -1;
-    chain.p0[k] = k < chain_len ? chain_p0[k] : 0.f;
-    chain.p1[k] = k < chain_len ? chain_p1[k] : 0.f;
-  }
-  float* lane_sum = static_cast<float*>(scratch);
-  int* lane_cnt = reinterpret_cast<int*>(lane_sum + lanes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DT_F32:
-      return launch<float>(x, n, block_elems, blocks, lanes, compute, prologue, census, aligned,
-                           chain, lane_sum, lane_cnt, ticket, out, s);
-    case DT_BF16:
-      return launch<__nv_bfloat16>(x, n, block_elems, blocks, lanes, compute, prologue, census,
-                                   aligned, chain, lane_sum, lane_cnt, ticket, out, s);
-    case DT_F16:
-      return launch<__half>(x, n, block_elems, blocks, lanes, compute, prologue, census, aligned,
-                            chain, lane_sum, lane_cnt, ticket, out, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n < 1 || lanes < 1 || lanes > blocks || block_elems < 1 || prologue < PRO_IDENTITY ||
+      prologue > PRO_ABS || !make_chain(chain_len, chain_ops, chain_p0, chain_p1, &chain))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(x, n, dtype, compute, prologue, census, block_elems, blocks, lanes,
+                         aligned, chain, out, scratch, ticket, stream);
+}
+
+// The moments pair: the same geometry and scratch; `out` receives [sum,
+// sumsq] of the compute-cast elements and their compute-dtype squares.
+extern "C" int fr_moments(const void* x, long long n, int dtype, int compute,
+                          long long block_elems, long long blocks, int lanes, int aligned,
+                          float* out, void* scratch, unsigned int* ticket, void* stream) {
+  Chain chain;
+  make_chain(0, nullptr, nullptr, nullptr, &chain);
+  if (n < 1 || lanes < 1 || lanes > blocks || block_elems < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(x, n, dtype, compute, PRO_IDENTITY, 0, block_elems, blocks, lanes,
+                        aligned, chain, out, scratch, ticket, stream);
 }

@@ -1,6 +1,6 @@
-"""The one-launch reductions behind ``reduce`` and ``reduce_tree``.
+"""The full reductions behind ``reduce`` and ``reduce_tree``.
 
-Port of ``repro/kernels/mma_reduce``'s fused and parts paths:
+Port of ``repro/kernels/mma_reduce``'s fused, hierarchical and parts paths:
 
   mma_sum_fused  -- the striped single-launch full reduction (the
                     counterpart of ``mma_sum_pallas(mode="fused")``; kernel
@@ -15,15 +15,31 @@ Port of ``repro/kernels/mma_reduce``'s fused and parts paths:
                     chains of the cross-part total][S non-finite counts][1
                     total count]`` (the last two with ``census=True``).
                     CUDA: ``csrc/parts_reduce.cu``.
+  mma_sum_fused(kahan=True)
+                 -- the fused stream with a per-lane Kahan carry of every
+                    tile's row sums (``fused_kahan_kernel``, K3), folded by
+                    ``combine_lane_partials_kahan`` in the launch's last
+                    CTA. CUDA: ``csrc/fused_kahan.cu``.
+  mma_moments_fused
+                 -- (sum, sumsq) from one fused stream, two accumulators
+                    (``fused_moments_kernel``, K2), each half folded by
+                    ``combine_lane_partials``. CUDA: ``csrc/fused_reduce.cu``.
+  tile_partials  -- one level of the paper's hierarchy (``reduce_tiles``;
+                    kernel ``tile_partials_kernel``, K10): every m^2 tile
+                    through two all-ones MMAs. ``mma_sum_hier`` /
+                    ``mma_moments_hier`` relaunch it per level (eq. 13);
+                    ``mma_sum_hier_blocks`` reduces many blocks in each
+                    level's one launch. CUDA: ``csrc/tile_partials.cu``.
 
 On CPU tensors each wrapper runs its plain version, which folds in the
-kernel's order where f32 adds decide it (the lane fold, the parts' tiles
-and parts). Neither wrapper records a gradient: called on an input that
-requires grad it raises and names ``repro_torch.reduce.reduce``, whose
-``_ksum`` Function differentiates the full reduction.
+kernel's order where f32 adds decide it (the lane folds, the Kahan carry,
+the parts' tiles and parts). No wrapper records a gradient: called on an
+input that requires grad it raises and names ``repro_torch.reduce.reduce``,
+whose Functions differentiate the full reduction.
 
-Not ported: the dual-accumulator moments kernel (K2), the per-lane Kahan
-kernel (K3), and bf16/f16 compute in the parts kernel.
+The geometry of the striped kernels is ``core.cost_model.stripe_geometry``
+(``lane_geometry``), so the grids launched are the ones the cost model
+charges for. Not ported: bf16/f16 compute in the parts kernel.
 """
 
 from __future__ import annotations
@@ -33,6 +49,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import cost_model
+from repro_torch.core import precision as _precision
+from repro_torch.core.mma_reduce import ReductionTrace
 from repro_torch.kernels import build, common
 from repro_torch.kernels.common import ELEMENTWISE_PROLOGUES
 
@@ -46,25 +65,19 @@ MAX_CHAIN_STEPS = 4   # csrc/parts_reduce.cu PR_MAX_STEPS
 FUSED_MAX_CHAIN_STEPS = 8  # csrc/fused_reduce.cu FR_MAX_STEPS
 TILES_PER_BLOCK = 8   # the reference's default block depth
 LANE_FOLD_THREADS = 256  # csrc/fused_reduce.cu FR_THREADS
-_PROLOGUE_CODES = {"identity": 0, "square": 1, "abs": 2}
+_PROLOGUE_CODES = {"identity": 0, "square": 1, "abs": 2, "moments": 3}
 _NATIVE = (torch.float32, torch.bfloat16, torch.float16)
 
 
-# ------------------------------ fused (K1) ------------------------------------
+# ------------------------- striped fused (K1, K2, K3) ---------------------------
 
 
-def lane_geometry(n: int, num_lanes: int = 1):
+def lane_geometry(n: int, num_lanes: int = 1, tiles_per_block: int = TILES_PER_BLOCK):
     """``(r, c, blocks_per_lane, padded_tiles)`` of a striped stream of
-    ``n`` elements: block depth in m^2 tiles (``TILES_PER_BLOCK``), the
-    effective lane count (never more lanes than blocks), blocks per lane,
-    and the padded tile count -- the reference's
-    ``cost_model.stripe_geometry``."""
+    ``n`` elements: ``core.cost_model.stripe_geometry`` over its m^2 tiles
+    (block depth, effective lane count, blocks per lane, padded tiles)."""
     tiles = max(1, common.ceil_div(n, TILE))
-    r = max(1, min(TILES_PER_BLOCK, tiles))
-    blocks = common.ceil_div(tiles, r)
-    c = max(1, min(num_lanes, blocks))
-    blocks_per_lane = common.ceil_div(blocks, c)
-    return r, c, blocks_per_lane, r * c * blocks_per_lane
+    return cost_model.stripe_geometry(tiles, tiles_per_block, num_lanes)
 
 
 def default_num_lanes(x: torch.Tensor) -> int:
@@ -99,13 +112,47 @@ def combine_lane_partials(partials: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def combine_lane_pair_partials(partials: torch.Tensor) -> tuple:
+    """(C, 2) moments lane pairs -> the (sum, sumsq) scalars, each half
+    folded by ``combine_lane_partials`` (the kernel's fold of each half)."""
+    return combine_lane_partials(partials[:, 0]), combine_lane_partials(partials[:, 1])
+
+
+def combine_lane_partials_kahan(partials: torch.Tensor) -> torch.Tensor:
+    """(C, 2, m) per-lane (acc rows, comp rows) -> f32 scalar by ONE serial
+    Kahan pass: lane 0's acc rows, then its negated comp rows (Kahan's
+    corrected sum is s - c), then lane 1's, ... (the reference's order,
+    ``ops.py:85-96``). The kernel's last CTA runs the same pass."""
+    acc, comp = partials[:, 0], partials[:, 1]
+    v = torch.stack([acc, -comp], dim=1).reshape(-1)
+    return _precision.kahan_sum(v, dtype=torch.float32)
+
+
 def _round(x: torch.Tensor, compute_dtype) -> torch.Tensor:
     """f32 values rounded to the compute dtype, kept in f32."""
     return x if compute_dtype == torch.float32 else x.to(compute_dtype).to(torch.float32)
 
 
+def _map(flat: torch.Tensor, prologue: str, compute_dtype) -> torch.Tensor:
+    """The prologue on compute-cast f32 values, at the compute dtype."""
+    if prologue == "square":
+        return _round(flat * flat, compute_dtype)
+    if prologue == "abs":
+        return torch.abs(flat)
+    return flat
+
+
+def _striped(flat: torch.Tensor, num_lanes: int, tiles_per_block: int) -> torch.Tensor:
+    """The zero-padded stream as (blocks_per_lane, lanes, r * m^2): ``[j,
+    c]`` is block j * C + c, the block lane c streams at its step j."""
+    r, c, bpl, tpad = lane_geometry(flat.numel(), num_lanes, tiles_per_block)
+    padded = torch.nn.functional.pad(flat, (0, tpad * TILE - flat.numel()))
+    return padded.view(bpl, c, r * TILE)
+
+
 def mma_sum_fused_plain(x: torch.Tensor, compute_dtype=torch.bfloat16, prologue="identity",
-                        epilogue=(), census: bool = False, num_lanes: int = 1):
+                        epilogue=(), census: bool = False, num_lanes: int = 1,
+                        tiles_per_block: int = TILES_PER_BLOCK):
     """Plain PyTorch version of the fused kernel: every element cast to the
     compute dtype, counted if non-finite, mapped by the prologue at the
     compute dtype; lane c sums blocks c, c + C, ... in f32; the lanes fold
@@ -113,16 +160,77 @@ def mma_sum_fused_plain(x: torch.Tensor, compute_dtype=torch.bfloat16, prologue=
     total, or ``(total, count)`` with ``census``."""
     chain = common.normalize_epilogue(epilogue)
     flat = _round(x.reshape(-1).to(torch.float32), compute_dtype)
-    n = flat.numel()
     count = torch.sum(~torch.isfinite(flat)).to(torch.float32)
-    if prologue == "square":
-        flat = _round(flat * flat, compute_dtype)
-    elif prologue == "abs":
-        flat = torch.abs(flat)
-    r, c, bpl, tpad = lane_geometry(n, num_lanes)
-    blocks = torch.nn.functional.pad(flat, (0, tpad * TILE - n)).view(bpl, c, r * TILE)
+    blocks = _striped(_map(flat, prologue, compute_dtype), num_lanes, tiles_per_block)
     total = common.apply_epilogue(combine_lane_partials(torch.sum(blocks, dim=(0, 2))), chain)
     return (total, count) if census else total
+
+
+def mma_sum_kahan_plain(x: torch.Tensor, compute_dtype=torch.bfloat16, prologue="identity",
+                        epilogue=(), num_lanes: int = 1, tiles_per_block: int = TILES_PER_BLOCK):
+    """Plain PyTorch version of the Kahan kernel: the fused kernel's cast,
+    prologue and striping; each tile's 128 row sums (f32, from zero) are
+    two-summed into the lane's (acc, comp) rows in the lane's tile order
+    (padded zero tiles included, as the reference's grid runs them); the
+    lanes fold by ``combine_lane_partials_kahan``; the chain maps the
+    total."""
+    chain = common.normalize_epilogue(epilogue)
+    flat = _map(_round(x.reshape(-1).to(torch.float32), compute_dtype), prologue, compute_dtype)
+    blocks = _striped(flat, num_lanes, tiles_per_block)
+    bpl, c, _ = blocks.shape
+    rows = torch.sum(blocks.view(bpl, c, -1, MXU, MXU), dim=-1)  # (bpl, c, r, m)
+    r = rows.shape[2]
+    acc = torch.zeros((c, MXU), dtype=torch.float32, device=flat.device)
+    comp = torch.zeros_like(acc)
+    for j in range(bpl):
+        for t in range(r):
+            y = rows[j, :, t] - comp
+            s = acc + y
+            comp = (s - acc) - y
+            acc = s
+    total = combine_lane_partials_kahan(torch.stack([acc, comp], dim=1))
+    return common.apply_epilogue(total, chain)
+
+
+def mma_moments_fused_plain(x: torch.Tensor, compute_dtype=torch.bfloat16, num_lanes: int = 1,
+                            tiles_per_block: int = TILES_PER_BLOCK) -> tuple:
+    """Plain PyTorch version of the moments kernel: the compute-cast
+    elements and their squares taken at the compute dtype, each summed per
+    lane in f32 and folded by ``combine_lane_pair_partials``."""
+    flat = _round(x.reshape(-1).to(torch.float32), compute_dtype)
+    sq = _round(flat * flat, compute_dtype)
+    lanes = torch.stack([
+        torch.sum(_striped(v, num_lanes, tiles_per_block), dim=(0, 2)) for v in (flat, sq)
+    ], dim=1)
+    return combine_lane_pair_partials(lanes)
+
+
+def fused_trace(n: int, tiles_per_block: int = TILES_PER_BLOCK, num_lanes: int = 1, *,
+                itemsize: int = 4, kahan: bool = False, dual: bool = False,
+                epilogue: bool = False, census: bool = False,
+                fallback: str = "") -> ReductionTrace:
+    """The reference's per-lane / combine MMA count and modeled bytes of one
+    fused pass, at the geometry the kernel launches (``lane_geometry``).
+    ``dual``: the moments pair (two MMAs per tile, a doubled combine);
+    ``epilogue``: the single-lane in-kernel finish; ``census``: the NaN/Inf
+    count (the moments pair's output shape). The modeled partials are the
+    reference's (m, m) lane accumulators; the port's kernels write less (a
+    float or two per lane, 2 x 128 rows under the Kahan carry)."""
+    _, c, _, tpad = lane_geometry(n, num_lanes, tiles_per_block)
+    d = 2 if (dual or census) else 1
+    lane, combine = d * (tpad // c), d * (c + 1)
+    if census and epilogue:
+        hbm = cost_model.fused_hbm_bytes(n, itemsize, num_cores=num_lanes,
+                                         tiles_per_block=tiles_per_block, kahan=kahan,
+                                         epilogue=True)
+        hbm = cost_model.HbmTraffic(kernel_read=hbm.kernel_read, kernel_write=2 * hbm.kernel_write)
+    else:
+        hbm = cost_model.fused_hbm_bytes(n, itemsize, num_cores=num_lanes,
+                                         tiles_per_block=tiles_per_block, kahan=kahan,
+                                         dual=dual or census, epilogue=epilogue)
+    return ReductionTrace(n=n, m=MXU, levels=1, mma_ops=d * tpad + combine, num_cores=c,
+                          lane_mma_ops=lane, combine_mma_ops=combine, hbm_bytes=hbm.total,
+                          fallback=fallback, census=census)
 
 
 # One fold ticket per (kernel, device, stream), zeroed once at first use. A
@@ -138,16 +246,30 @@ def _ticket(kernel: str, dev: torch.device, stream: int) -> torch.Tensor:
     return _TICKETS[key]
 
 
-def _launch_fused(flat, compute_dtype, prologue, chain, census, num_lanes):
-    n = flat.numel()
-    r, c, _, _ = lane_geometry(n, num_lanes)
-    blocks = common.ceil_div(max(1, common.ceil_div(n, TILE)), r)
+def _encode_chain(chain: tuple):
     enc = common.encode_epilogue(chain)
     if len(enc) > FUSED_MAX_CHAIN_STEPS:
         raise ValueError(f"a chain takes at most {FUSED_MAX_CHAIN_STEPS} steps; got {chain!r}")
-    ops = np.array([op for op, _, _ in enc] or [0], dtype=np.int32)
-    p0 = np.array([a for _, a, _ in enc] or [0.0], dtype=np.float32)
-    p1 = np.array([b for _, _, b in enc] or [0.0], dtype=np.float32)
+    return (len(enc), np.array([op for op, _, _ in enc] or [0], dtype=np.int32),
+            np.array([a for _, a, _ in enc] or [0.0], dtype=np.float32),
+            np.array([b for _, _, b in enc] or [0.0], dtype=np.float32))
+
+
+def _ingest(x: torch.Tensor):
+    """Flat view of x in a dtype the kernels read (f32, bf16, f16), and the
+    staging taken: other dtypes are cast to f32 first (one copy, the
+    reference's ``_ingest``)."""
+    flat = x.reshape(-1)
+    if flat.dtype in _NATIVE:
+        return flat, ""
+    return flat.to(torch.float32), "ingest_f32"
+
+
+def _launch_fused(flat, compute_dtype, prologue, chain, census, num_lanes, tiles_per_block):
+    n = flat.numel()
+    r, c, bpl, _ = lane_geometry(n, num_lanes, tiles_per_block)
+    blocks = common.ceil_div(max(1, common.ceil_div(n, TILE)), r)
+    steps, ops, p0, p1 = _encode_chain(chain)
     dev = flat.device
     out = torch.empty((2 if census else 1,), dtype=torch.float32, device=dev)
     # c f32 lane sums and c int32 lane counts: every CTA writes its own
@@ -157,12 +279,41 @@ def _launch_fused(flat, compute_dtype, prologue, chain, census, num_lanes):
         err = build.library().fr_sum(
             flat.data_ptr(), n, build.dtype_code(flat), build.DTYPE_CODES[compute_dtype],
             _PROLOGUE_CODES[prologue], int(bool(census)), r * TILE, blocks, c,
-            int(flat.data_ptr() % 16 == 0), len(enc), ops.ctypes.data, p0.ctypes.data,
+            int(flat.data_ptr() % 16 == 0), steps, ops.ctypes.data, p0.ctypes.data,
             p1.ctypes.data, out.data_ptr(), scratch.data_ptr(),
             _ticket("fused", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_sum_fused")
     return out
+
+
+def _launch_kahan(flat, compute_dtype, prologue, chain, num_lanes, tiles_per_block):
+    n = flat.numel()
+    r, c, bpl, _ = lane_geometry(n, num_lanes, tiles_per_block)
+    blocks = common.ceil_div(max(1, common.ceil_div(n, TILE)), r)
+    steps, ops, p0, p1 = _encode_chain(chain)
+    dev = flat.device
+    out = torch.empty((1,), dtype=torch.float32, device=dev)
+    lane_part = torch.empty((c, 2, MXU), dtype=torch.float32, device=dev)
+    stream = build.stream_ptr(out)
+    with torch.cuda.device(dev):
+        err = build.library().fk_sum(
+            flat.data_ptr(), n, build.dtype_code(flat), build.DTYPE_CODES[compute_dtype],
+            _PROLOGUE_CODES[prologue], r, blocks, bpl, c, int(flat.data_ptr() % 16 == 0), steps,
+            ops.ctypes.data, p0.ctypes.data, p1.ctypes.data, out.data_ptr(),
+            lane_part.data_ptr(), _ticket("kahan", dev, stream).data_ptr(), stream,
+        )
+    build.check(err, "mma_sum_fused(kahan=True)")
+    return out
+
+
+def _check_fused_args(compute_dtype, num_lanes, tiles_per_block):
+    if compute_dtype not in _NATIVE:
+        raise ValueError(f"compute dtype must be one of {_NATIVE}; got {compute_dtype}")
+    if num_lanes < 1:
+        raise ValueError(f"num_lanes must be >= 1; got {num_lanes}")
+    if tiles_per_block < 1:
+        raise ValueError(f"tiles_per_block must be >= 1; got {tiles_per_block}")
 
 
 @common.counted("mma_sum_fused")
@@ -174,37 +325,393 @@ def mma_sum_fused(
     epilogue=(),
     census: bool = False,
     num_lanes: int = 1,
+    tiles_per_block: int = TILES_PER_BLOCK,
+    kahan: bool = False,
+    trace: list | None = None,
 ):
     """Sum all (prologue-mapped) elements of ``x`` in ONE kernel launch ->
     f32 scalar, or ``(total, count)`` with ``census`` (the NaN/Inf count of
     the compute-cast elements, before the prologue). ``epilogue`` maps the
-    total in-launch. ``num_lanes`` stripes the blocks over that many CTAs
-    (clamped to the block count); the lane fold is fixed, so the result is
-    bitwise reproducible at a given lane count. Blocks are
-    ``TILES_PER_BLOCK`` m^2 tiles, the reference's default depth. bf16/f16 compute runs the
-    ones-MMA on tensor cores; f32 compute sums on CUDA cores. Input other
-    than f32/bf16/f16 is cast to f32 first (one staging copy, as the
-    reference's ``_ingest``). CPU tensors: plain version."""
+    total in-launch. ``num_lanes`` stripes the blocks of ``tiles_per_block``
+    m^2 tiles over that many CTAs (clamped to the block count); the lane
+    fold is fixed, so the result is bitwise reproducible at a given lane
+    count. bf16/f16 compute runs the ones-MMA on tensor cores; f32 compute
+    sums on CUDA cores. Input other than f32/bf16/f16 is cast to f32 first
+    (one staging copy, as the reference's ``_ingest``). ``trace``: a list
+    that gets the pass's ``fused_trace``. CPU tensors: plain version.
+    ``kahan=True`` is the compensated kernel, ``mma_sum_kahan`` (no
+    census)."""
+    if kahan:
+        if census:
+            raise ValueError("census does not compose with kahan=True (the compensation rows "
+                             "take the second accumulator)")
+        return mma_sum_kahan(x, compute_dtype=compute_dtype, prologue=prologue,
+                             epilogue=epilogue, num_lanes=num_lanes,
+                             tiles_per_block=tiles_per_block, trace=trace)
     common.refuse_grad("mma_sum_fused", x, entry="repro_torch.reduce.reduce(x, axis=None)")
     if prologue not in ELEMENTWISE_PROLOGUES:
         raise ValueError(f"prologue must be one of {ELEMENTWISE_PROLOGUES}; got {prologue!r}")
-    if compute_dtype not in _NATIVE:
-        raise ValueError(f"compute dtype must be one of {_NATIVE}; got {compute_dtype}")
-    if num_lanes < 1:
-        raise ValueError(f"num_lanes must be >= 1; got {num_lanes}")
+    _check_fused_args(compute_dtype, num_lanes, tiles_per_block)
     chain = common.normalize_epilogue(epilogue)
     if x.numel() == 0:  # nothing streamed: the chain of a zero total, count 0
+        if trace is not None:
+            trace.append(ReductionTrace(n=0, m=MXU, levels=0, mma_ops=0))
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         total = common.apply_epilogue(zero, chain)
         return (total, zero.clone()) if census else total
+    flat, fallback = _ingest(x)
+    if trace is not None:
+        c = lane_geometry(flat.numel(), num_lanes, tiles_per_block)[1]
+        trace.append(fused_trace(flat.numel(), tiles_per_block, num_lanes,
+                                 itemsize=flat.element_size(), epilogue=bool(chain) and c == 1,
+                                 census=census, fallback=fallback))
     if common.on_cpu(x):
-        return mma_sum_fused_plain(x, compute_dtype, prologue, chain, census, num_lanes)
-    flat = x.reshape(-1)
-    if flat.dtype not in _NATIVE:
-        flat = flat.to(torch.float32)
-    out = _launch_fused(flat.contiguous(), compute_dtype, prologue, chain, census, num_lanes)
+        return mma_sum_fused_plain(flat, compute_dtype, prologue, chain, census, num_lanes,
+                                   tiles_per_block)
+    out = _launch_fused(flat.contiguous(), compute_dtype, prologue, chain, census, num_lanes,
+                        tiles_per_block)
     mma_sum_fused.launches += 1
     return (out[0], out[1]) if census else out[0]
+
+
+@common.counted("mma_sum_kahan")
+def mma_sum_kahan(
+    x: torch.Tensor,
+    *,
+    compute_dtype=torch.bfloat16,
+    prologue: str = "identity",
+    epilogue=(),
+    num_lanes: int = 1,
+    tiles_per_block: int = TILES_PER_BLOCK,
+    trace: list | None = None,
+) -> torch.Tensor:
+    """``mma_sum_fused`` with the per-lane Kahan carry (the reference's
+    ``kahan=True``), in ONE launch: each tile's 128 row sums are two-summed
+    into the lane's (acc, comp) rows, and the last CTA folds the lanes by
+    one serial Kahan pass (``combine_lane_partials_kahan``) and maps the
+    total by the chain. Composes with square and abs; no census (the
+    compensation rows take the second accumulator). Repeat launches agree
+    bitwise. CPU tensors: plain version."""
+    common.refuse_grad("mma_sum_kahan", x, entry="repro_torch.reduce.reduce(x, axis=None)")
+    if prologue not in ELEMENTWISE_PROLOGUES:
+        raise ValueError(
+            f"prologue must be one of {ELEMENTWISE_PROLOGUES}; got {prologue!r} (the moments "
+            "pair needs its own accumulators and does not compose with the Kahan carry)")
+    _check_fused_args(compute_dtype, num_lanes, tiles_per_block)
+    chain = common.normalize_epilogue(epilogue)
+    if x.numel() == 0:
+        if trace is not None:
+            trace.append(ReductionTrace(n=0, m=MXU, levels=0, mma_ops=0))
+        return common.apply_epilogue(torch.zeros((), dtype=torch.float32, device=x.device), chain)
+    flat, fallback = _ingest(x)
+    if trace is not None:
+        trace.append(fused_trace(flat.numel(), tiles_per_block, num_lanes,
+                                 itemsize=flat.element_size(), kahan=True, fallback=fallback))
+    if common.on_cpu(x):
+        return mma_sum_kahan_plain(flat, compute_dtype, prologue, chain, num_lanes,
+                                   tiles_per_block)
+    out = _launch_kahan(flat.contiguous(), compute_dtype, prologue, chain, num_lanes,
+                        tiles_per_block)
+    mma_sum_kahan.launches += 1
+    return out[0]
+
+
+@common.counted("mma_moments_fused")
+def mma_moments_fused(
+    x: torch.Tensor,
+    *,
+    compute_dtype=torch.bfloat16,
+    num_lanes: int = 1,
+    tiles_per_block: int = TILES_PER_BLOCK,
+    trace: list | None = None,
+) -> tuple:
+    """(sum, sum of squares) of every element of ``x`` from ONE launch over
+    the raw buffer: two accumulators, X @ 1 on the compute-cast elements and
+    X^2 @ 1 on their squares taken at the compute dtype (the reference's
+    dual accumulator, ``fused_moments_kernel``), each half folded by the
+    lane fold. No census and no epilogue, as in the reference. CPU
+    tensors: plain version."""
+    common.refuse_grad("mma_moments_fused", x,
+                       entry="repro_torch.reduce.reduce(x, kind='moments')")
+    _check_fused_args(compute_dtype, num_lanes, tiles_per_block)
+    if x.numel() == 0:
+        if trace is not None:
+            trace.append(ReductionTrace(n=0, m=MXU, levels=0, mma_ops=0))
+        z = torch.zeros((), dtype=torch.float32, device=x.device)
+        return z, z.clone()
+    flat, fallback = _ingest(x)
+    if trace is not None:
+        trace.append(fused_trace(flat.numel(), tiles_per_block, num_lanes,
+                                 itemsize=flat.element_size(), dual=True, fallback=fallback))
+    if common.on_cpu(x):
+        return mma_moments_fused_plain(flat, compute_dtype, num_lanes, tiles_per_block)
+    flat = flat.contiguous()
+    n = flat.numel()
+    r, c, _, _ = lane_geometry(n, num_lanes, tiles_per_block)
+    blocks = common.ceil_div(max(1, common.ceil_div(n, TILE)), r)
+    dev = flat.device
+    out = torch.empty((2,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((2 * c,), dtype=torch.float32, device=dev)  # sums, then squares
+    stream = build.stream_ptr(out)
+    with torch.cuda.device(dev):
+        err = build.library().fr_moments(
+            flat.data_ptr(), n, build.dtype_code(flat), build.DTYPE_CODES[compute_dtype],
+            r * TILE, blocks, c, int(flat.data_ptr() % 16 == 0), out.data_ptr(),
+            scratch.data_ptr(), _ticket("moments", dev, stream).data_ptr(), stream,
+        )
+    build.check(err, "mma_moments_fused")
+    mma_moments_fused.launches += 1
+    return out[0], out[1]
+
+
+# --------------------------- the paper's level (K10) ---------------------------
+
+
+def tile_geometry(n: int, tiles_per_block: int = TILES_PER_BLOCK):
+    """``(t, r, blocks, tpad)`` of one level over n values: m^2 tiles, tiles
+    per CTA, CTAs, and the padded tile count the launch writes."""
+    t = max(1, common.ceil_div(n, TILE))
+    r = max(1, min(tiles_per_block, t))
+    blocks = common.ceil_div(t, r)
+    return t, r, blocks, blocks * r
+
+
+def _two_mma_plain(tiles: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """(T, m, m) compute-cast values -> (T,) f32: D = X @ 1 (row sums in
+    f32), D rounded to the compute dtype, then 1 @ D."""
+    return torch.sum(_round(torch.sum(tiles, dim=-1), compute_dtype), dim=-1)
+
+
+def tile_partials_plain(flat: torch.Tensor, compute_dtype=torch.bfloat16, prologue="identity",
+                        epilogue=(), tiles_per_block: int = TILES_PER_BLOCK) -> torch.Tensor:
+    """Plain PyTorch version of one level: the values cast to the compute
+    dtype (f32 partials too, as ``_load_tiles`` does), zero-padded to the
+    launch's tiles, mapped by the prologue at the compute dtype, each tile
+    through ``_two_mma_plain``; the chain maps the partials. Returns the
+    (tpad,) row the launch writes, or (tpad, 2) for moments."""
+    chain = common.normalize_epilogue(epilogue)
+    _, _, _, tpad = tile_geometry(flat.numel(), tiles_per_block)
+    v = _round(flat.reshape(-1).to(torch.float32), compute_dtype)
+    tiles = torch.nn.functional.pad(v, (0, tpad * TILE - v.numel())).view(tpad, MXU, MXU)
+    if prologue == "moments":
+        return torch.stack([_two_mma_plain(tiles, compute_dtype),
+                            _two_mma_plain(_round(tiles * tiles, compute_dtype), compute_dtype)],
+                           dim=-1)
+    return common.apply_epilogue(_two_mma_plain(_map(tiles, prologue, compute_dtype),
+                                                compute_dtype), chain)
+
+
+@common.counted("tile_partials")
+def tile_partials(
+    flat: torch.Tensor,
+    *,
+    compute_dtype=torch.bfloat16,
+    prologue: str = "identity",
+    epilogue=(),
+    tiles_per_block: int = TILES_PER_BLOCK,
+    io: list | None = None,
+) -> torch.Tensor:
+    """One level of the hierarchy in ONE launch: (n,) values -> (t,) tile
+    partials (t = ceil(n / m^2)), or (t, 2) under the moments prologue (the
+    tile sums of x and of x^2 at the compute dtype, from one pass). Level 0
+    reads the caller's buffer in its own dtype; a level above reads the f32
+    partials, possibly one column of a moments pair (a stride-2 view, read
+    in place). ``epilogue`` only on a final level (t == 1). ``io``: a list
+    that gets the bytes the launch reads and writes (its operand's and its
+    padded output's), to hold against ``cost_model.hier_hbm_bytes``. CPU
+    tensors: plain version."""
+    common.refuse_grad("tile_partials", flat, entry="repro_torch.reduce.reduce(x, axis=None)")
+    common.check_prologue(prologue)
+    if flat.ndim != 1 or flat.numel() == 0:
+        raise ValueError(f"tile_partials takes a non-empty 1-D operand; got {tuple(flat.shape)}")
+    if compute_dtype not in _NATIVE:
+        raise ValueError(f"compute dtype must be one of {_NATIVE}; got {compute_dtype}")
+    if tiles_per_block < 1:
+        raise ValueError(f"tiles_per_block must be >= 1; got {tiles_per_block}")
+    chain = common.normalize_epilogue(epilogue)
+    n = flat.numel()
+    t, r, blocks, tpad = tile_geometry(n, tiles_per_block)
+    if chain and (t != 1 or prologue == "moments"):
+        raise ValueError(
+            "tile_partials epilogue requires a final single-tile level (t == 1, non-moments); "
+            f"got t={t}, prologue={prologue!r}")
+    if flat.dtype not in _NATIVE:
+        raise TypeError(f"tile_partials reads float32, bfloat16 or float16; got {flat.dtype}")
+    cols = 2 if prologue == "moments" else 1
+    if io is not None:
+        io.append(n * flat.element_size() + tpad * cols * 4)
+    if common.on_cpu(flat):
+        out = tile_partials_plain(flat, compute_dtype, prologue, chain, tiles_per_block)
+        return out[:t]
+    stride = flat.stride(0)
+    if stride != 1 and flat.dtype != torch.float32:
+        flat, stride = flat.contiguous(), 1
+    steps, ops, p0, p1 = _encode_chain(chain)
+    dev = flat.device
+    out = torch.empty((tpad, 2) if cols == 2 else (tpad,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = build.library().tp_level(
+            flat.data_ptr(), n, stride, build.dtype_code(flat), build.DTYPE_CODES[compute_dtype],
+            _PROLOGUE_CODES[prologue], r, blocks, int(flat.data_ptr() % 16 == 0 and stride == 1),
+            steps, ops.ctypes.data, p0.ctypes.data, p1.ctypes.data, out.data_ptr(),
+            build.stream_ptr(out),
+        )
+    build.check(err, "tile_partials")
+    tile_partials.launches += 1
+    return out[:t]
+
+
+def mma_sum_hier(
+    x: torch.Tensor,
+    *,
+    compute_dtype=torch.bfloat16,
+    prologue: str = "identity",
+    epilogue=(),
+    tiles_per_block: int = TILES_PER_BLOCK,
+    trace: list | None = None,
+) -> torch.Tensor:
+    """The paper's hierarchy (eq. 13) on the kernel: one ``tile_partials``
+    launch per level, each on the f32 partials the previous one wrote,
+    until one value is left -- ``cost_model.levels(n, m)`` launches. Level 0
+    reads x in its own dtype and applies the prologue; the epilogue chain
+    maps the total inside the final launch. ``trace``: a list that gets a
+    ``ReductionTrace`` (levels, MMAs, the modeled ``hier_hbm_bytes`` and the
+    bytes measured at the launches)."""
+    common.check_prologue(prologue)
+    if prologue == "moments":
+        raise ValueError("the moments pair has its own entry point, mma_moments_hier")
+    chain = common.normalize_epilogue(epilogue)
+    if x.numel() == 0:
+        if trace is not None:
+            trace.append(ReductionTrace(n=0, m=MXU, levels=0, mma_ops=0))
+        return common.apply_epilogue(torch.zeros((), dtype=torch.float32, device=x.device), chain)
+    flat, fallback = _ingest(x)
+    n0 = flat.numel()
+    hbm = cost_model.hier_hbm_bytes(n0, flat.element_size(), m=MXU,
+                                    tiles_per_block=tiles_per_block)
+    levels = mma_ops = 0
+    io: list = []
+    level_prologue, chain_applied = prologue, not chain
+    while flat.numel() > 1:
+        t = common.ceil_div(flat.numel(), TILE)
+        flat = tile_partials(flat, compute_dtype=compute_dtype, prologue=level_prologue,
+                             epilogue=chain if t == 1 else (), tiles_per_block=tiles_per_block,
+                             io=io)
+        chain_applied |= t == 1
+        level_prologue = "identity"  # upper levels run on mapped partials
+        levels += 1
+        mma_ops += 2 * t
+    out = flat.reshape(()).to(torch.float32)
+    if level_prologue != "identity":
+        # one element: no level ran, so the map applies here, at the compute
+        # dtype, as a level-0 launch would
+        out = _map(_round(out, compute_dtype), level_prologue, compute_dtype)
+    if not chain_applied:
+        out = common.apply_epilogue(out, chain)
+    if trace is not None:
+        trace.append(ReductionTrace(n=n0, m=MXU, levels=levels, mma_ops=mma_ops,
+                                    hbm_bytes=hbm.total, fallback=fallback,
+                                    launch_io_bytes=sum(io)))
+    return out
+
+
+def mma_moments_hier(
+    x: torch.Tensor,
+    *,
+    compute_dtype=torch.bfloat16,
+    tiles_per_block: int = TILES_PER_BLOCK,
+    trace: list | None = None,
+) -> tuple:
+    """(sum, sum of squares) on the hierarchy: level 0 emits the (t, 2)
+    pair from one pass over x; each column then climbs the identity
+    hierarchy, read in place from the pair. ``trace`` as in
+    ``mma_sum_hier`` (modeled by ``hier_moments_hbm_bytes``)."""
+    if x.numel() == 0:
+        if trace is not None:
+            trace.append(ReductionTrace(n=0, m=MXU, levels=0, mma_ops=0))
+        z = torch.zeros((), dtype=torch.float32, device=x.device)
+        return z, z.clone()
+    flat, fallback = _ingest(x)
+    n0 = flat.numel()
+    hbm = cost_model.hier_moments_hbm_bytes(n0, flat.element_size(), m=MXU,
+                                            tiles_per_block=tiles_per_block)
+    io: list = []
+    t0 = common.ceil_div(n0, TILE)
+    pair = tile_partials(flat, compute_dtype=compute_dtype, prologue="moments",
+                         tiles_per_block=tiles_per_block, io=io)
+    levels, mma_ops = 1, 4 * t0
+    outs = []
+    for col in (pair[:, 0], pair[:, 1]):
+        v = col
+        while v.numel() > 1:
+            t = common.ceil_div(v.numel(), TILE)
+            v = tile_partials(v, compute_dtype=compute_dtype, tiles_per_block=tiles_per_block,
+                              io=io)
+            levels += 1
+            mma_ops += 2 * t
+        outs.append(v.reshape(()).to(torch.float32))
+    if trace is not None:
+        trace.append(ReductionTrace(n=n0, m=MXU, levels=levels, mma_ops=mma_ops,
+                                    hbm_bytes=hbm.total, fallback=fallback,
+                                    launch_io_bytes=sum(io)))
+    return outs[0], outs[1]
+
+
+def mma_sum_hier_blocks(
+    x: torch.Tensor,
+    block: int,
+    *,
+    compute_dtype=torch.bfloat16,
+    prologue: str = "identity",
+    tiles_per_block: int = TILES_PER_BLOCK,
+    trace: list | None = None,
+) -> torch.Tensor:
+    """Every block of ``block`` consecutive elements of x (the last one
+    zero-padded), as f32, reduced by the hierarchy on its own -> (nblk,)
+    block totals, with all blocks in each level's one launch: the blocked
+    compensated combine's inner sums (``precision="kahan"`` on
+    ``cuda_hier``). One staging copy lays the blocks out padded to whole
+    tiles, so block b's values fill tiles of its own and each total is
+    what a launch on that block alone gives; with ``block <= m^2`` that is
+    ONE launch. ``trace`` gets the levels, MMAs and the modeled bytes
+    (``cost_model.blocked_hier_hbm_bytes``, staging included)."""
+    common.check_prologue(prologue)
+    if prologue == "moments":
+        raise ValueError("mma_sum_hier_blocks takes an elementwise prologue")
+    if block < 1:
+        raise ValueError(f"block must be >= 1; got {block}")
+    flat = x.reshape(-1)
+    n = flat.numel()
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.float32, device=x.device)
+    nblk = common.ceil_div(n, block)
+    io: list = []
+    levels = mma_ops = 0
+    vals, size, pro = flat, block, prologue
+    while True:
+        kb = common.ceil_div(size, TILE)
+        staged = torch.empty((nblk, kb * TILE), dtype=torch.float32, device=x.device)
+        staged[:, size:].zero_()
+        whole = vals.numel() // size  # blocks filled to the end
+        staged[:whole, :size].copy_(vals[:whole * size].view(whole, size))
+        if whole < nblk:
+            tail = vals.numel() - whole * size
+            staged[whole, :tail].copy_(vals[whole * size:])
+            staged[whole, tail:size].zero_()
+        vals = tile_partials(staged.view(-1), compute_dtype=compute_dtype, prologue=pro,
+                             tiles_per_block=tiles_per_block, io=io)
+        levels += 1
+        mma_ops += 2 * nblk * kb
+        pro = "identity"
+        if kb == 1:
+            break
+        size = kb
+    if trace is not None:
+        hbm = cost_model.blocked_hier_hbm_bytes(n, flat.element_size(), block, m=MXU,
+                                                tiles_per_block=tiles_per_block)
+        trace.append(ReductionTrace(n=n, m=MXU, levels=levels, mma_ops=mma_ops,
+                                    hbm_bytes=hbm.total, launch_io_bytes=sum(io)))
+    return vals
 
 
 # ------------------------------ parts (K4) ------------------------------------

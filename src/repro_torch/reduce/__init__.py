@@ -1,6 +1,7 @@
-"""The reduction engine of the serving path: ``reduce`` (row reductions)
-and ``reduce_tree`` (one statistic over many arrays, with the in-launch
-census), over the ``torch`` / ``mma_torch`` / ``cuda_fused`` backends."""
+"""The reduction engine: ``reduce`` (full and row reductions, with the
+precision policy) and ``reduce_tree`` (one statistic over many arrays, with
+the in-launch census), over the ``torch`` / ``mma_torch`` / ``cuda_hier`` /
+``cuda_fused`` backends."""
 
 from repro_torch.reduce.api import reduce, reduce_tree, tree_leaves  # noqa: F401
 from repro_torch.reduce.backends import (  # noqa: F401

@@ -5,10 +5,13 @@ Port of ``repro/reduce/api.py``:
 
   reduce(x)                      -- full reductions (axis=None, the
                                     default, as in the reference), kinds
-                                    sum / mean / sumsq / norm2, with the
-                                    in-kernel prologue, an epilogue chain
-                                    and ``census=True``; on cuda_fused ONE
-                                    launch of the fused kernel (K1)
+                                    sum / mean / sumsq / norm2 / moments,
+                                    with the in-kernel prologue, an
+                                    epilogue chain, ``census=True`` and
+                                    ``precision="kahan"``; on cuda_fused
+                                    ONE launch (K1, the moments pair K2,
+                                    the Kahan carry K3), on cuda_hier one
+                                    launch per level of eq. 13 (K10)
   reduce(x, axis=..., kind=...)  -- reductions over axes, kinds sum / mean
                                     / sumsq / norm2 / moments (the norm and
                                     softmax statistics), on any backend
@@ -19,17 +22,24 @@ Port of ``repro/reduce/api.py``:
                                     cuda_fused ONE launch of the parts
                                     kernel (K4)
 
+``precision="kahan"`` compensates the full sum: inside the fused kernel's
+one launch on cuda_fused (``native_kahan``), elsewhere by the blocked
+combine ``_kahan_sum_all`` (each block of ``kahan_block`` elements summed
+by the backend, a serial Kahan pass over the block totals). Row
+reductions have no serial combine to compensate and multiply at the
+accumulator width instead (``_row_plan``).
+
 Differentiation: the torch and mma_torch backends are torch code and
 differentiate natively. A kernel-backed full reduction goes through
 ``_KSum``, the counterpart of the reference's custom-VJP ``_ksum``: the
 cotangent is the prologue's chain rule (identity: broadcast g; square:
 2 x g; abs: sign(x) g), after the epilogue's own chain rule taken by
-autograd on the raw total. Not differentiable: ``census=True`` (raises on
-an input that requires grad) and ``reduce_tree`` (the optimizer's
-statistic of gradients).
+autograd on the raw total; full moments through ``_KMoments`` (the
+reference's ``_kmoments``: gs + 2 x gss). Not differentiable:
+``census=True`` (raises on an input that requires grad) and
+``reduce_tree`` (the optimizer's statistic of gradients).
 
-Not ported: full ``kind="moments"`` (the dual-accumulator kernel K2),
-``precision="kahan"`` (K3), ``reduce_many`` and ``mesh_axes``.
+Not ported: ``reduce_many`` and ``mesh_axes``.
 """
 
 from __future__ import annotations
@@ -39,9 +49,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import precision as _precision
 from repro_torch.kernels import common as _kcommon
 from repro_torch.reduce import backends as _backends
-from repro_torch.reduce.plan import ReducePlan, plan_for
+from repro_torch.reduce.plan import ReducePlan, dtype_name, plan_for
 
 KINDS = ("sum", "mean", "sumsq", "norm2", "moments")
 TREE_KINDS = ("sum", "sumsq", "norm2")
@@ -83,6 +94,29 @@ def _to_rows(x: torch.Tensor, axis: tuple):
     return xt.reshape(batch + (int(math.prod(xt.shape[len(keep):])),)), batch
 
 
+def _kahan_sum_all(x: torch.Tensor, plan: ReducePlan, be, prologue: str = "identity"):
+    """The blocked compensated combine (the reference's ``_kahan_sum_all``):
+    the backend sums each zero-padded f32 block of ``plan.kahan_block``
+    elements (``block_sums``: batched, one launch per level on cuda_hier),
+    then a serial Kahan pass over the block totals. Zero padding is exact:
+    0 is a fixed point of every prologue."""
+    flat = x.reshape(-1)
+    if flat.numel() <= plan.kahan_block:
+        return be.sum_all(flat.to(plan.accum_torch), plan, prologue)
+    return _precision.kahan_sum(be.block_sums(flat, plan, prologue), dtype=plan.accum_torch)
+
+
+def _sum_all_impl(x: torch.Tensor, plan: ReducePlan, prologue: str = "identity",
+                  epilogue: tuple = ()) -> torch.Tensor:
+    """The backend's full sum under the plan's precision policy."""
+    be = _backends.get_backend(plan.backend)
+    if plan.precision == "kahan" and not be.native_kahan:
+        # the epilogue maps the compensated total: a post-combine chain
+        out = _kahan_sum_all(x, plan, be, prologue).to(plan.accum_torch)
+        return _kcommon.apply_epilogue(out, epilogue)
+    return be.sum_all(x, plan, prologue, epilogue).to(plan.accum_torch)
+
+
 class _KSum(torch.autograd.Function):
     """Kernel-backed full reduction with the reference's ``_ksum`` VJP. The
     forward reduces epilogue-free and applies the chain host-side, so the
@@ -93,7 +127,7 @@ class _KSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, plan, prologue, epilogue):
-        raw = _backends.get_backend(plan.backend).sum_all(x, plan, prologue).to(plan.accum_torch)
+        raw = _sum_all_impl(x, plan, prologue)
         ctx.plan, ctx.prologue, ctx.epilogue = plan, prologue, epilogue
         ctx.shape, ctx.dtype = x.shape, x.dtype
         ctx.save_for_backward(x if prologue != "identity" else None,
@@ -118,14 +152,57 @@ class _KSum(torch.autograd.Function):
 def _sum_full(x: torch.Tensor, plan: ReducePlan, prologue: str = "identity",
               epilogue: tuple = ()) -> torch.Tensor:
     """Differentiable full sum dispatch: native autograd on the torch-code
-    backends, ``_KSum`` around the kernel."""
+    backends, ``_KSum`` around the kernel and around the Kahan pass (a
+    host loop over the block totals)."""
     accum = plan.accum_torch
     if x.numel() == 0:
         return _kcommon.apply_epilogue(torch.zeros((), dtype=accum, device=x.device), epilogue)
     be = _backends.get_backend(plan.backend)
-    if not be.native_autodiff and _kcommon.needs_grad(x):
+    if (not be.native_autodiff or plan.precision == "kahan") and _kcommon.needs_grad(x):
         return _KSum.apply(x, plan, prologue, epilogue)
-    return be.sum_all(x, plan, prologue, epilogue).to(accum)
+    return _sum_all_impl(x, plan, prologue, epilogue)
+
+
+class _KMoments(torch.autograd.Function):
+    """Kernel-backed full (sum, sumsq) with the reference's ``_kmoments``
+    VJP: dx = gs + 2 x gss."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        s, ss = _backends.get_backend(plan.backend).moments_all(x, plan)
+        ctx.plan = plan
+        ctx.save_for_backward(x)
+        return s.to(plan.accum_torch), ss.to(plan.accum_torch)
+
+    @staticmethod
+    def backward(ctx, gs, gss):
+        (x,) = ctx.saved_tensors
+        xf = x.to(ctx.plan.accum_torch)
+        return (gs + 2.0 * xf * gss).to(x.dtype), None
+
+
+def _moments_full(x: torch.Tensor, plan: ReducePlan):
+    """Differentiable full (sum, sumsq): under ``precision="kahan"`` two
+    compensated sums (identity, square); else the backend's one pass."""
+    accum = plan.accum_torch
+    if x.numel() == 0:
+        z = torch.zeros((), dtype=accum, device=x.device)
+        return z, z.clone()
+    if plan.precision == "kahan":
+        return _sum_full(x, plan), _sum_full(x, plan, "square")
+    be = _backends.get_backend(plan.backend)
+    if not be.native_autodiff and _kcommon.needs_grad(x):
+        return _KMoments.apply(x, plan)
+    s, ss = be.moments_all(x, plan)
+    return s.to(accum), ss.to(accum)
+
+
+def _row_plan(plan: ReducePlan) -> ReducePlan:
+    """Row reductions have no serial combine to compensate: under
+    ``precision="kahan"`` they multiply at the accumulator width."""
+    if plan.precision == "kahan":
+        return plan.replace(compute_dtype=plan.accum_dtype)
+    return plan
 
 
 def _reduce_census_full(x: torch.Tensor, kind: str, plan: ReducePlan, chain: tuple):
@@ -134,6 +211,10 @@ def _reduce_census_full(x: torch.Tensor, kind: str, plan: ReducePlan, chain: tup
     leads the chain."""
     if _kcommon.needs_grad(x):
         raise RuntimeError("census=True is not differentiable; call it under torch.no_grad()")
+    if plan.precision == "kahan":
+        # the census rides the one uncompensated pass (the reference's parts
+        # path), multiplying at the accumulator width
+        plan = plan.replace(precision="native", compute_dtype=plan.accum_dtype)
     accum = plan.accum_torch
     prologue = "square" if kind in ("sumsq", "norm2") else "identity"
     post = chain
@@ -149,14 +230,29 @@ def _reduce_census_full(x: torch.Tensor, kind: str, plan: ReducePlan, chain: tup
     return stat.to(accum), count.to(accum)
 
 
+def _resolve_plan(x, axis_t, kind, plan, **fields) -> ReducePlan:
+    """The planner's choice (``plan_for``), or the given plan with the set
+    keyword fields overriding it (the reference's ``_resolve_plan``)."""
+    if plan is None:
+        return plan_for(x.shape, x.dtype, kind=kind, axis=axis_t or None, **fields)
+    over = {k: v for k, v in fields.items() if v is not None}
+    if "compute_dtype" in over:
+        over["compute_dtype"] = dtype_name(over["compute_dtype"])
+    return plan.replace(**over) if over else plan
+
+
 def reduce(
     x: torch.Tensor,
     axis=None,
     kind: str = "sum",
     *,
+    plan: Optional[ReducePlan] = None,
     backend: Optional[str] = None,
     compute_dtype=None,
     num_lanes: Optional[int] = None,
+    tiles_per_block: Optional[int] = None,
+    precision: Optional[str] = None,
+    kahan_block: Optional[int] = None,
     epilogue=None,
     census: bool = False,
 ):
@@ -164,18 +260,25 @@ def reduce(
     no axes, numpy's convention).
 
     kind: "sum"; "mean" (an empty full mean is NaN, 0/0); "sumsq" (full
-    reductions square in-kernel at the plan's compute dtype on cuda_fused
-    -- f32 by default for sumsq/norm2 -- and at accumulator precision
-    elsewhere; axis reductions square at accumulator precision); "norm2"
-    (sqrt of sumsq); "moments" ((sum, sumsq), axis reductions only: one
-    stacked all-ones product).
+    reductions square in-kernel at the plan's compute dtype on the kernel
+    backends -- f32 by default for sumsq/norm2 -- and at accumulator
+    precision elsewhere; axis reductions square at accumulator precision);
+    "norm2" (sqrt of sumsq); "moments" ((sum, sumsq): one stacked all-ones
+    product over axes; a full one in one pass -- the moments kernel K2 on
+    cuda_fused, a dual level-0 launch on cuda_hier -- with squares at the
+    plan's compute dtype, bf16 by default).
+
+    ``plan`` pins the whole strategy; the keyword fields override it (or
+    the planner's choice): ``num_lanes`` stripes the fused kernels over
+    that many CTAs (None: the device's default), ``tiles_per_block`` sets
+    the kernels' block depth, ``precision="kahan"`` compensates the full
+    sum (``kahan_block``: the blocked combine's block length).
 
     ``epilogue`` appends a scalar chain to a FULL reduction (after the
-    kind's own finisher: norm2's sqrt and mean's 1/n lead it); on
-    cuda_fused it runs inside the launch. ``census=True`` (full reductions,
-    not moments) also returns the NaN/Inf count of x's elements from the
-    same launch: ``(statistic, count)``. ``num_lanes`` stripes the fused
-    kernel over that many CTAs (None: the device's default). All kinds are
+    kind's own finisher: norm2's sqrt and mean's 1/n lead it); on the
+    kernel backends it runs inside the launch that forms the total.
+    ``census=True`` (full reductions, not moments) also returns the
+    NaN/Inf count of x's elements: ``(statistic, count)``. All kinds are
     differentiable (see the module doc) except with ``census``.
     """
     if kind not in KINDS:
@@ -189,8 +292,9 @@ def reduce(
         )
     if (census or chain) and kind == "moments":
         raise ValueError("census and epilogue chains do not compose with kind='moments'")
-    p = plan_for(x.shape, x.dtype, kind=kind, axis=axis_t, backend=backend,
-                 compute_dtype=compute_dtype, num_lanes=num_lanes)
+    p = _resolve_plan(x, axis_t, kind, plan, backend=backend, compute_dtype=compute_dtype,
+                      num_lanes=num_lanes, tiles_per_block=tiles_per_block,
+                      precision=precision, kahan_block=kahan_block)
     accum = p.accum_torch
     if census:
         return _reduce_census_full(x, kind, p, chain)
@@ -213,25 +317,23 @@ def reduce(
             if chain:
                 return _sum_full(x, p, "square", (("sqrt",),) + chain)
             return torch.sqrt(_sum_full(x, p, "square"))
-        raise NotImplementedError(
-            "full kind='moments' (the dual-accumulator kernel K2) is not ported; "
-            "reduce 'sum' and 'sumsq' instead"
-        )
+        return _moments_full(x, p)
     rows, batch = _to_rows(x, axis_t)
     be = _backends.get_backend(p.backend)
+    rp = _row_plan(p)
     if rows.shape[-1] == 0 or rows.numel() == 0:
         z = torch.zeros(batch, dtype=accum, device=x.device)
         if kind == "moments":
             return z, z.clone()
         return z / 0 if kind == "mean" else z
     if kind == "moments":
-        s, ss = be.moments_axis(rows, p)
+        s, ss = be.moments_axis(rows, rp)
         return s.to(accum), ss.to(accum)
     if kind in ("sum", "mean"):
-        out = be.sum_axis(rows, p).to(accum)
+        out = be.sum_axis(rows, rp).to(accum)
         return out / rows.shape[-1] if kind == "mean" else out
     xf = rows.to(accum)
-    out = be.sum_axis(xf * xf, p).to(accum)
+    out = be.sum_axis(xf * xf, rp).to(accum)
     return torch.sqrt(out) if kind == "norm2" else out
 
 

@@ -9,6 +9,12 @@ Port of the serving and training paths' part of
                              ``census`` also the NaN/Inf count
   sum_axis(x, plan)       -- (..., L) -> (...) sum over the last axis
   moments_axis(x, plan)   -- (..., L) -> ((...), (...)) fused (sum, sumsq)
+  moments_all(x, plan)    -- the full (sum, sumsq) pair: two sums by
+                             default, one pass on the kernel backends
+  block_sums(flat, plan, prologue)
+                          -- (nblk,) sums of the f32 blocks of
+                             ``plan.kahan_block`` elements: the inner sums
+                             of the blocked compensated combine
   sum_parts(parts, plan, prologue)
                           -- S separate arrays -> (S,) prologue-mapped sums
   sum_parts_total(parts, plan, prologue, total_chains, census)
@@ -17,7 +23,7 @@ Port of the serving and training paths' part of
                              counts: the row behind ``reduce_tree``
 
 Registered here (analogues of the reference's xla / mma_jnp /
-pallas_fused):
+pallas_hier / pallas_fused):
 
   torch       -- plain ``torch.sum`` at accumulator precision; the oracle.
   mma_torch   -- the paper's algorithm as all-ones matmuls
@@ -32,11 +38,20 @@ pallas_fused):
                  in-kernel (``native_prologue``). Rows ride the same
                  ones-product as mma_torch. Past ``PARTS_KERNEL_MAX`` live
                  parts it folds host-side through the base class, as the
-                 reference's kernel backends do.
+                 reference's kernel backends do. ``precision="kahan"`` is
+                 the compensated kernel K3 (``native_kahan``: one launch);
+                 full moments the moments kernel K2 (one launch).
+  cuda_hier   -- the paper's hierarchy (eq. 13) on the level kernel
+                 (``mma_sum_hier``, K10): one launch per level, full moments
+                 from one dual level-0 launch and a hierarchy per column,
+                 the blocked compensated combine's block sums in one launch
+                 per level. Rows, parts and trees as cuda_fused. It has no
+                 census column: with ``census`` the count is taken on the
+                 host beside the hierarchy's total.
 
 ``torch`` and ``mma_torch`` are torch code and differentiate natively
-(``native_autodiff``); ``cuda_fused``'s full reduction differentiates
-through ``reduce.api``'s ``_KSum`` Function.
+(``native_autodiff``); the kernel backends' full reductions differentiate
+through ``reduce.api``'s ``_KSum`` and ``_KMoments`` Functions.
 """
 
 from __future__ import annotations
@@ -71,6 +86,14 @@ def host_nonfinite_census(parts, dtype) -> torch.Tensor:
     return torch.cat([per, torch.sum(per)[None]])
 
 
+def _f32_blocks(flat: torch.Tensor, block: int) -> torch.Tensor:
+    """(nblk, block) f32 view of the zero-padded flat stream."""
+    n = flat.numel()
+    nblk = -(-n // block)
+    return torch.nn.functional.pad(flat.reshape(-1).to(torch.float32),
+                                   (0, nblk * block - n)).view(nblk, block)
+
+
 class Backend:
     """Base class; subclasses override the primitives."""
 
@@ -80,6 +103,10 @@ class Backend:
     # True -> the prologue runs INSIDE the kernel on the raw leaf, and
     # reduce_tree hands the leaves themselves to sum_parts[_total].
     native_prologue: bool = False
+    # True -> sum_all honours plan.precision == "kahan" itself (the fused
+    # kernel's in-kernel carry); else reduce.api wraps the backend in the
+    # blocked compensated combine.
+    native_kahan: bool = False
 
     def _full_sum(self, x: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
         raise NotImplementedError
@@ -97,6 +124,18 @@ class Backend:
         return total
 
     def sum_axis(self, x: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
+        raise NotImplementedError
+
+    def moments_all(self, x: torch.Tensor, plan: ReducePlan):
+        """The full (sum, sumsq) pair: two ``sum_all`` passes, identity and
+        square (the reference's default)."""
+        return self.sum_all(x, plan), self.sum_all(x, plan, "square")
+
+    def block_sums(self, flat: torch.Tensor, plan: ReducePlan,
+                   prologue: str = "identity") -> torch.Tensor:
+        """(nblk,) sums of the zero-padded f32 blocks of ``plan.kahan_block``
+        elements of ``flat``, each what this backend's ``sum_all`` gives for
+        the block, all blocks batched."""
         raise NotImplementedError
 
     def moments_axis(self, x: torch.Tensor, plan: ReducePlan):
@@ -161,6 +200,12 @@ class TorchBackend(Backend):
     def _part_sum(self, flat, plan):
         return torch.sum(flat)
 
+    def block_sums(self, flat, plan, prologue="identity"):
+        # one row sum per block: each row reduced as torch.sum reduces a
+        # block of its own
+        blocks = _host_prologue(_f32_blocks(flat, plan.kahan_block), plan, prologue)
+        return torch.sum(blocks, dim=-1)
+
 
 class MmaTorchBackend(Backend):
     """The paper's algorithm as all-ones matmuls (runs on any device)."""
@@ -185,30 +230,60 @@ class MmaTorchBackend(Backend):
         padded = torch.nn.functional.pad(flat, (0, rows * m - flat.numel()))
         return torch.sum(self.sum_axis(padded.view(rows, m), plan))
 
+    def block_sums(self, flat, plan, prologue="identity"):
+        # every block through the hierarchy on its own, all blocks in each
+        # level's one batched product (the f32 products' summation order may
+        # depend on the row count, so a block's bits can differ from a
+        # lone mma_sum of it in the last place at f32 compute)
+        blocks = _host_prologue(_f32_blocks(flat, plan.kahan_block), plan, prologue)
+        out, _, _ = _core.mma_sum_rows(blocks, m=plan.m, compute_dtype=plan.compute_torch,
+                                       accum_dtype=plan.accum_torch)
+        return out
+
+
+def _check_kernel_m(plan: ReducePlan, name: str) -> None:
+    if plan.m != _mma_ops.MXU:
+        raise ValueError(
+            f"{name} implements the m={_mma_ops.MXU} tile only; got m={plan.m}. "
+            "Use backend='mma_torch' for tile-size ablations."
+        )
+
 
 class CudaFusedBackend(MmaTorchBackend):
-    """The one-launch fused and parts kernels; rows ride mma_torch's
-    ones-product."""
+    """The one-launch fused, Kahan, moments and parts kernels; rows ride
+    mma_torch's ones-product."""
 
     name = "cuda_fused"
     native_autodiff = False
     native_prologue = True
+    native_kahan = True  # the compensation rides the one launch (K3)
+
+    @staticmethod
+    def _lanes(x, plan) -> int:
+        return plan.num_lanes if plan.num_lanes is not None else _mma_ops.default_num_lanes(x)
 
     def sum_all(self, x, plan, prologue="identity", epilogue=(), census=False):
-        if plan.m != _mma_ops.MXU:
-            raise ValueError(
-                f"cuda_fused implements the m={_mma_ops.MXU} tile only; got "
-                f"m={plan.m}. Use backend='mma_torch' for tile-size ablations."
-            )
-        lanes = plan.num_lanes if plan.num_lanes is not None else (
-            _mma_ops.default_num_lanes(x))
+        _check_kernel_m(plan, self.name)
         out = _mma_ops.mma_sum_fused(
             x, compute_dtype=plan.compute_torch, prologue=prologue, epilogue=epilogue,
-            census=census, num_lanes=lanes,
+            census=census, num_lanes=self._lanes(x, plan), tiles_per_block=plan.tiles_per_block,
+            kahan=plan.precision == "kahan",
         )
         if census:
             return out[0].to(plan.accum_torch), out[1].to(plan.accum_torch)
         return out.to(plan.accum_torch)
+
+    def moments_all(self, x, plan):
+        _check_kernel_m(plan, self.name)
+        if plan.precision == "kahan":
+            raise ValueError(
+                "kind='moments' does not compose with precision='kahan' on cuda_fused: the "
+                "moments pair needs both accumulators, which the Kahan carry takes. Replan "
+                "with precision='native', or compensate 'sum' and 'sumsq' separately")
+        s, ss = _mma_ops.mma_moments_fused(x, compute_dtype=plan.compute_torch,
+                                           num_lanes=self._lanes(x, plan),
+                                           tiles_per_block=plan.tiles_per_block)
+        return s.to(plan.accum_torch), ss.to(plan.accum_torch)
 
     def sum_parts(self, parts, plan, prologue="identity"):
         live = sum(1 for p in parts if p.numel())
@@ -229,6 +304,35 @@ class CudaFusedBackend(MmaTorchBackend):
             total_chains=tuple(total_chains), census=census,
         )
         return out.to(plan.accum_torch)
+
+
+class CudaHierBackend(CudaFusedBackend):
+    """The paper's hierarchy on the level kernel (K10); parts and trees as
+    cuda_fused."""
+
+    name = "cuda_hier"
+    native_kahan = False  # the blocked combine, its block sums batched
+
+    def sum_all(self, x, plan, prologue="identity", epilogue=(), census=False):
+        _check_kernel_m(plan, self.name)
+        total = _mma_ops.mma_sum_hier(x, compute_dtype=plan.compute_torch, prologue=prologue,
+                                      epilogue=epilogue, tiles_per_block=plan.tiles_per_block)
+        total = total.to(plan.accum_torch)
+        if census:
+            return total, host_nonfinite_census([x], total.dtype)[-1]
+        return total
+
+    def moments_all(self, x, plan):
+        _check_kernel_m(plan, self.name)
+        s, ss = _mma_ops.mma_moments_hier(x, compute_dtype=plan.compute_torch,
+                                          tiles_per_block=plan.tiles_per_block)
+        return s.to(plan.accum_torch), ss.to(plan.accum_torch)
+
+    def block_sums(self, flat, plan, prologue="identity"):
+        _check_kernel_m(plan, self.name)
+        return _mma_ops.mma_sum_hier_blocks(
+            flat, plan.kahan_block, compute_dtype=plan.compute_torch, prologue=prologue,
+            tiles_per_block=plan.tiles_per_block).to(plan.accum_torch)
 
 
 _REGISTRY: Dict[str, Backend] = {}
@@ -255,4 +359,5 @@ def available_backends() -> tuple[str, ...]:
 
 register_backend(TorchBackend())
 register_backend(MmaTorchBackend())
+register_backend(CudaHierBackend())
 register_backend(CudaFusedBackend())

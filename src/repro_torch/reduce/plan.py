@@ -5,16 +5,20 @@ paths use: the frozen ``ReducePlan``, ``plan_for`` with the reference's
 defaults (f32 accumulation; the exactness-sensitive kinds sumsq/norm2
 multiply at f32, other float reductions -- sum, mean, moments -- at bf16,
 the tensor-core mode the paper analyzes), the process default backend,
-``backend_for_flags`` and the circuit breaker's quarantine.
+``backend_for_flags`` and the circuit breaker's quarantine, with the
+reference's precision policy (``precision``, ``kahan_block``) and block
+depth (``tiles_per_block``).
 
 Backend resolution: an explicit ``backend=`` wins; else the process
 default (``set_default_backend``); else "auto", which picks the MMA
 algorithm ``mma_torch`` for reductions longer than one tile and plain
 ``torch`` below (the reference's off-TPU choice). The kernel backend
 ``cuda_fused`` is reached by name (the launchers' ``--reduce-backend``,
-the guard's breaker chain) or by the config flags (``backend_for_flags``).
-Quarantined backends leave AUTO rotation along cuda_fused -> mma_torch ->
-torch; explicit pins still reach them (the breaker's half-open probes).
+the guard's breaker chain) or by the config flags (``backend_for_flags``);
+``cuda_hier`` (the paper's multi-launch hierarchy) by name. Quarantined
+backends leave AUTO rotation along cuda_fused -> mma_torch, cuda_hier ->
+mma_torch, mma_torch -> torch; explicit pins still reach them (the
+breaker's half-open probes).
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ from repro_torch.kernels.common import MXU
 
 _default_backend: Optional[str] = None
 _QUARANTINED: set = set()
-_QUARANTINE_FALLBACK = {"cuda_fused": "mma_torch", "mma_torch": "torch"}
+_QUARANTINE_FALLBACK = {"cuda_fused": "mma_torch", "cuda_hier": "mma_torch",
+                        "mma_torch": "torch"}
+PRECISIONS = ("native", "kahan")
 
 _DTYPES = {
     "float32": torch.float32,
@@ -49,24 +55,36 @@ def dtype_name(dtype) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class ReducePlan:
-    """backend: registry name ("torch" | "mma_torch" | "cuda_fused");
-    m: the MMA tile size; compute_dtype: dtype of the MMA multipliers;
-    accum_dtype: accumulator / result dtype (dtype names, so plans hash);
-    num_lanes: the full-reduction kernel's lane (CTA) count -- None leaves
-    it to the device
-    (``kernels.mma_reduce.default_num_lanes``: 1 on the CPU)."""
+    """backend: registry name ("torch" | "mma_torch" | "cuda_hier" |
+    "cuda_fused"); m: the MMA tile size; tiles_per_block: m^2 tiles per
+    block of the kernels' grids; compute_dtype: dtype of the MMA
+    multipliers; accum_dtype: accumulator / result dtype (dtype names, so
+    plans hash); num_lanes: the fused kernels' lane (CTA) count -- None
+    leaves it to the device (``kernels.mma_reduce.default_num_lanes``: 1 on
+    the CPU); precision: "native" or "kahan" (the compensated sum: in the
+    fused kernel's carry on cuda_fused, the blocked combine elsewhere);
+    kahan_block: the blocked combine's block length."""
 
     backend: str = "mma_torch"
     m: int = MXU
+    tiles_per_block: int = 8
     compute_dtype: str = "bfloat16"
     accum_dtype: str = "float32"
     num_lanes: Optional[int] = None
+    precision: str = "native"
+    kahan_block: int = 4096
 
     def __post_init__(self):
         if self.m < 2:
             raise ValueError(f"m must be >= 2; got {self.m}")
+        if self.tiles_per_block < 1:
+            raise ValueError(f"tiles_per_block must be >= 1; got {self.tiles_per_block}")
         if self.num_lanes is not None and self.num_lanes < 1:
             raise ValueError(f"num_lanes must be >= 1 or None; got {self.num_lanes}")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"unknown precision policy {self.precision!r}; expected {PRECISIONS}")
+        if self.kahan_block < 1:
+            raise ValueError(f"kahan_block must be >= 1; got {self.kahan_block}")
 
     @property
     def compute_torch(self) -> torch.dtype:
@@ -136,9 +154,13 @@ def plan_for(
     compute_dtype=None,
     accum_dtype=None,
     num_lanes: Optional[int] = None,
+    tiles_per_block: Optional[int] = None,
+    precision: Optional[str] = None,
+    kahan_block: Optional[int] = None,
 ) -> ReducePlan:
     """The plan for reducing ``shape``/``dtype`` over ``axis`` (the reduced
-    extent picks the auto backend; unset dtypes follow the reference)."""
+    extent picks the auto backend; unset fields follow the reference:
+    8 tiles per block, native precision, Kahan blocks of 4096)."""
     name = backend if backend is not None else default_backend()
     if name == "auto":
         axes = range(len(shape)) if axis is None else (
@@ -162,4 +184,7 @@ def plan_for(
         compute_dtype=dtype_name(compute_dtype),
         accum_dtype=dtype_name(accum_dtype),
         num_lanes=num_lanes,
+        tiles_per_block=8 if tiles_per_block is None else int(tiles_per_block),
+        precision="native" if precision is None else precision,
+        kahan_block=4096 if kahan_block is None else int(kahan_block),
     )

@@ -182,3 +182,114 @@ def test_fused_census_and_epilogue(gen):
                              compute_dtype=torch.float32, num_lanes=4)
     want = mma_sum_fused_plain(clean, torch.float32, "square", chain, False, 4)
     assert float(cnt) == 0.0 and abs(float(got) - float(want)) <= 1e-6 * float(want)
+
+
+# ------------------- the paper's reduction engine: K10, K2, K3 -------------------
+
+_UNIT = {torch.float32: 2.0**-23, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+
+
+def _tile_tol(x, compute, prologue):
+    """Per tile of a K10 level: two ulps of the tile's largest row sum at
+    the compute dtype (a row sum summed in another order may round the
+    other way before the second MMA), plus f32 noise of the tile's mass."""
+    from repro_torch.kernels.mma_reduce.ops import TILE, _map, _round
+
+    t = -(-x.numel() // TILE)
+    v = _map(_round(x.float(), compute), "square" if prologue == "moments" else prologue, compute)
+    rows = torch.nn.functional.pad(v, (0, t * TILE - v.numel())).view(t, 128, 128).sum(-1)
+    return 2 * _UNIT[compute] * rows.abs().amax(-1) + 2.0**-16 * rows.abs().sum(-1) + 1e-6
+
+
+@pytest.mark.parametrize("n", [1, 5000, 3 * 16384 + 5, 40 * 16384 + 17])
+@pytest.mark.parametrize("dtype,compute", [(torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float32),
+                                           (torch.float16, torch.float16)])
+@pytest.mark.parametrize("prologue", ["identity", "square", "abs", "moments"])
+def test_tile_partials_match_plain(gen, n, dtype, compute, prologue):
+    from repro_torch.kernels.mma_reduce import tile_partials, tile_partials_plain
+
+    x = (torch.randn((n,), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    before = tile_partials.launches
+    got = tile_partials(x, compute_dtype=compute, prologue=prologue)
+    assert tile_partials.launches == before + 1
+    want = tile_partials_plain(x, compute, prologue)[:got.shape[0]]
+    tol = _tile_tol(x, compute, prologue)
+    diff = (got - want).abs()
+    if prologue == "moments":
+        assert bool(torch.all(diff[:, 1] <= tol))
+        assert bool(torch.all(diff[:, 0] <= _tile_tol(x, compute, "abs")))
+    else:
+        assert bool(torch.all(diff <= tol))
+
+
+@pytest.mark.parametrize("n", [2**20, 2**24 - 4097])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hierarchy_launches_and_bytes_match_cost_model(gen, n, dtype):
+    from repro_torch.core import cost_model
+    from repro_torch.kernels.mma_reduce import mma_sum_hier, tile_partials
+
+    x = torch.randn((n,), generator=gen, device="cuda").to(dtype)
+    before, tr = tile_partials.launches, []
+    total = mma_sum_hier(x, trace=tr)
+    model = cost_model.hier_hbm_bytes(n, x.element_size())
+    assert tile_partials.launches - before == cost_model.levels(n, 128) == tr[0].levels
+    assert tr[0].launch_io_bytes == model.launch_io and tr[0].hbm_bytes == model.total
+    plain = mma_sum_hier(x.cpu())
+    mass = float(x.float().abs().sum())
+    assert abs(float(total) - float(plain)) <= 2 * 2.0**-7 * mass / 128 + 1e-3
+
+
+@pytest.mark.parametrize("n", [1, 3 * 16384 + 5, 40 * 131072 + 17])
+@pytest.mark.parametrize("lanes", [1, 3, 528])
+@pytest.mark.parametrize("dtype,compute", [(torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float32)])
+def test_moments_and_kahan_match_plain(gen, n, lanes, dtype, compute):
+    from repro_torch.kernels.mma_reduce import (mma_moments_fused, mma_moments_fused_plain,
+                                                mma_sum_kahan, mma_sum_kahan_plain)
+
+    x = (torch.randn((n,), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    s, ss = mma_moments_fused(x, compute_dtype=compute, num_lanes=lanes)
+    ps, pss = mma_moments_fused_plain(x, compute, lanes)
+    xf = x.float()
+    c = lane_geometry(n, lanes)[1]
+    steps = max(1.0, n / (c * 256)) * 2.0**-23
+    assert abs(float(s) - float(ps)) <= steps * float(xf.abs().sum()) + 1e-6
+    assert abs(float(ss) - float(pss)) <= steps * float((xf * xf).sum()) + 1e-6
+    again = mma_moments_fused(x, compute_dtype=compute, num_lanes=lanes)
+    assert torch.equal(s, again[0]) and torch.equal(ss, again[1])
+    k = mma_sum_kahan(x, compute_dtype=compute, num_lanes=lanes)
+    kp = mma_sum_kahan_plain(x, compute, "identity", (), lanes)
+    # the same row sums up to their summation order, carried and folded
+    # by the same compensated steps
+    assert abs(float(k) - float(kp)) <= 2.0**-20 * float(xf.abs().sum()) + 1e-6
+    assert torch.equal(k, mma_sum_kahan(x, compute_dtype=compute, num_lanes=lanes))
+
+
+def test_kahan_beats_native_where_the_carry_dominates(gen):
+    from repro_torch.core.precision import ulps
+
+    # one lane, 1024 tiles: mean 1 + 5e-4, one-sided noise of width 1e-3
+    x = 1.0 + torch.rand((2**24,), generator=gen, device="cuda") * 1e-3
+    exact = float(x.double().sum())
+    native = float(mma_sum_fused(x, compute_dtype=torch.float32, num_lanes=1))
+    kahan = float(mma_sum_fused(x, compute_dtype=torch.float32, num_lanes=1, kahan=True))
+    assert ulps(native, exact) >= 10
+    assert abs(kahan - exact) <= abs(native - exact)
+
+
+@pytest.mark.parametrize("backend", ["torch", "mma_torch", "cuda_hier", "cuda_fused"])
+@pytest.mark.parametrize("kind", ["sum", "mean", "sumsq", "norm2", "moments"])
+@pytest.mark.parametrize("precision", ["native", "kahan"])
+def test_reduce_card_matches_cpu(gen, backend, kind, precision):
+    from repro_torch import reduce as R
+
+    x = torch.randn((2**16 + 5,), generator=gen, device="cuda") * 2 + 0.3
+    got = R.reduce(x, kind=kind, backend=backend, precision=precision, num_lanes=4)
+    want = R.reduce(x.cpu(), kind=kind, backend=backend, precision=precision, num_lanes=4)
+    pairs = zip(got, want) if kind == "moments" else [(got, want)]
+    for g, w in pairs:
+        assert g.device.type == "cuda"
+        assert abs(float(g) - float(w)) <= 1e-3 * abs(float(w)) + 1e-3
