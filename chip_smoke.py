@@ -19,7 +19,14 @@ then drives the three main paths with every kernel launch counted:
   paper     ``python -m repro_torch.launch.reduce_demo``'s ``main`` at
             n = 2^28: step counts, precision and time per backend, through
             the hierarchy's level kernel (K10), the moments kernel (K2)
-            and the Kahan kernel (K3).
+            and the Kahan kernel (K3), and its segmented section;
+  multi     the multi-reduce and scan path: ``reduce_many`` over 2^28 f32
+            values in 2048 packed ragged segments (the pack and one launch
+            of the gather kernel, K8), ``reduce_many`` kinds sum and
+            moments over full-width olmo-1b's 113 parameter leaves (the
+            parts kernel, K4, at bf16 compute), ``repro_torch.scan`` over
+            2^28 f32 and bf16 values (the scan kernel, K9) and
+            ``packing_offsets`` of 2048 lengths on ``cuda_fused``.
 
 Exits nonzero, with no result line, when any check fails or there is no
 GPU.
@@ -29,7 +36,8 @@ line per kernel check, the serving, training and paper figures, then the
 kernels JSON line (each kernel timed at its main path's shapes: training
 for K1/K4-K7, with serving-shape figures under "serving"; the paper's
 n = 2^28 f32 for K2, K3, K10, with bf16 figures beside them; "launches"
-counts the kernel's own main path) and, last,
+counts the kernel's own main path; K8 and K9 at 2^28 f32, bf16 beside) and,
+last,
 ``{"ok": true, "device": {...}}``.
 
 Peak rates used for the bounds are the H100 SXM data sheet's: 3.35 TB/s of
@@ -96,6 +104,8 @@ TPU_KERNELS = {
     "mma_sum_parts": "src/repro/kernels/mma_reduce/kernel.py:728",
     "cross_entropy": "src/repro/kernels/cross_entropy/kernel.py:39",
     "mma_sum_fused": "src/repro/kernels/mma_reduce/kernel.py:186",
+    "mma_sum_segments": "src/repro/kernels/mma_reduce/kernel.py:512",
+    "mma_scan": "src/repro/kernels/scan.py:68",
 }
 SOURCES = {
     "tile_partials": "src/repro_torch/kernels/csrc/tile_partials.cu",
@@ -107,10 +117,14 @@ SOURCES = {
     "mma_sum_parts": "src/repro_torch/kernels/csrc/parts_reduce.cu",
     "cross_entropy": "src/repro_torch/kernels/csrc/cross_entropy.cu",
     "mma_sum_fused": "src/repro_torch/kernels/csrc/fused_reduce.cu",
+    "mma_sum_segments": "src/repro_torch/kernels/csrc/segmented_gather.cu",
+    "mma_scan": "src/repro_torch/kernels/csrc/scan.cu",
 }
 KERNELS = ("mma_sum_parts", "layernorm_np", "rmsnorm", "flash_attention", "cross_entropy",
-           "mma_sum_fused", "mma_moments_fused", "mma_sum_kahan", "tile_partials")
+           "mma_sum_fused", "mma_moments_fused", "mma_sum_kahan", "tile_partials",
+           "mma_sum_segments", "mma_scan")
 PAPER_KERNELS = ("mma_moments_fused", "mma_sum_kahan", "tile_partials")
+MULTI_KERNELS = ("mma_sum_segments", "mma_scan")
 PAPER_N = 2**28  # the reduce demo's n: 1.07 GB of f32
 
 
@@ -882,8 +896,15 @@ def check_reduce_against_cpu(gen) -> None:
     for backend in R.available_backends():
         for kind in ("sum", "mean", "sumsq", "norm2", "moments"):
             for prec in ("native", "kahan"):
+                # "segmented" picks its executor by device: at native
+                # precision, hold the card's pick against the same
+                # executor's plain versions on the CPU; under "kahan" it
+                # runs the blocked combine over torch-math block sums on
+                # either device, so against itself
+                cpu_backend = (R.segmented_backend_for(x.numel(), x.dtype, 128, x.device)
+                               if backend == "segmented" and prec == "native" else backend)
                 got = R.reduce(x, kind=kind, backend=backend, precision=prec)
-                want = R.reduce(xc, kind=kind, backend=backend, precision=prec)
+                want = R.reduce(xc, kind=kind, backend=cpu_backend, precision=prec)
                 cd = R.plan_for(x.shape, x.dtype, kind=kind, backend=backend).compute_torch
                 pairs = zip(got, want, ("sum", "sumsq")) if kind == "moments" else [
                     (got, want, kind)]
@@ -900,6 +921,413 @@ def check_reduce_against_cpu(gen) -> None:
                           f"reduce({kind}, {backend}, {prec}): card {float(g)} vs CPU {float(w)}")
     print(f"reduce card vs CPU, 2^20 f32, {len(R.available_backends())} backends x 5 kinds x "
           f"2 precisions: all within tolerance (worst |d| / tol {worst:.3g})")
+
+
+# -------------------- the multi-reduce and scan path (K8, K9, K4) --------------------
+
+MULTI_N = 2**28  # the packed buffer and the scans: 1.07 GB of f32
+SEGMENTS = 2048
+
+
+def _segment_mass(x, offsets, square=False):
+    """(S,) f64 sums of |x| (or x^2) per segment, on the card."""
+    import torch
+    import numpy as np
+
+    lengths = torch.from_numpy(np.diff(offsets)).to(x.device)
+    ids = torch.repeat_interleave(torch.arange(lengths.numel(), device=x.device), lengths)
+    v = x.double()
+    v = v * v if square else v.abs()
+    return torch.zeros(lengths.numel(), dtype=torch.float64, device=x.device).index_add_(
+        0, ids, v.nan_to_num(0.0, 0.0, 0.0))
+
+
+def check_segments(results: dict, gen) -> None:
+    """K8 at 2^28 in 2048 packed ragged segments (the demo's offsets: two
+    empty in the middle, boundaries off the tile grid) against its plain
+    version: f32 and bf16 input, the default lanes and 1 lane, the square
+    prologue at f32 compute (bitwise: the same adds in the same order),
+    moments, the census on planted NaN/Inf, an epilogue chain; one launch
+    per call, and the launch-boundary bytes against
+    ``cost_model.segmented_hbm_bytes``. Tolerance at bf16 compute: 2^-16 of
+    each segment's mass -- the same element roundings, summed in f32 in
+    another order on the tensor cores (a lost row or tile would move a
+    segment by 2^-10 of its mass or more); counts exact."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cost_model
+    from repro_torch.kernels.mma_reduce import default_num_lanes, ops
+    from repro_torch.launch.reduce_demo import packed_offsets
+
+    offsets = packed_offsets(MULTI_N, SEGMENTS, 0)
+    nseg = SEGMENTS
+    cover_src = ops.segment_cover_layout(offsets, ops.TILE)[1]
+    fetched = ops._cover_fetched_elems(cover_src, MULTI_N, ops.TILE)
+    x = torch.randn((MULTI_N,), generator=gen, device=DEVICE) * 2 + 0.3
+    lanes = default_num_lanes(x)
+    bf, f32 = torch.bfloat16, torch.float32
+    mass = _segment_mass(x, offsets)
+    mass_sq = _segment_mass(x, offsets, square=True)
+
+    def compare(what, xin, cd, lanes, prologue="identity", census=False, chain=(),
+                bitwise=False):
+        before, tr = ops.mma_sum_segments.launches, []
+        got = ops.mma_sum_segments(xin, offsets, compute_dtype=cd, prologue=prologue,
+                                   census=census, epilogue=chain, num_lanes=lanes, trace=tr)
+        launched = ops.mma_sum_segments.launches - before
+        want = ops.mma_sum_segments_plain(xin, offsets, cd, prologue, chain, census, lanes)
+        torch.cuda.synchronize()
+        sq = prologue in ("square", "moments")
+        tol = 2.0**-16 * (mass_sq if sq else mass) + 1e-6
+        if chain:  # (sqrt, clip): d clip / d t <= 1 / t near the clip point; d sqrt = dt / 2 sqrt t
+            tol = tol / (2 * torch.sqrt(mass_sq.clamp_min(1.0)))
+        g, w = got[:nseg].double(), want[:nseg].double()
+        err = float((g - w).abs().nan_to_num(0.0).max())
+        ok = bool(torch.all(((g - w).abs() <= tol) | (g == w) | (g.isnan() & w.isnan())))
+        if prologue == "moments":
+            ok &= bool(torch.all((got[nseg:].double() - want[nseg:].double()).abs()
+                                 <= 2.0**-16 * mass_sq + 1e-6))
+        if census:
+            ok &= torch.equal(got[nseg:], want[nseg:])
+        same = torch.equal(got.nan_to_num(), want.nan_to_num())
+        model = cost_model.segmented_hbm_bytes(fetched, xin.element_size(), segments=got.numel(),
+                                               tiles=cover_src.size, num_cores=lanes)
+        print(f"K8 mma_sum_segments {what}, {tr[0].num_cores} lanes: max_abs_err {err:.3g} vs "
+              f"plain (tol 2^-16 x segment mass{'; counts exact' if census else ''}), bitwise "
+              f"{same}; {launched} launch, {tr[0].launch_io_bytes} bytes at the launch "
+              f"(cost model {model.launch_io}; {fetched - xin.numel()} elements read twice at "
+              "unaligned boundaries)")
+        check(ok, f"K8 {what} ({lanes} lanes) disagrees with its plain version")
+        check(not bitwise or same, f"K8 {what}: f32 compute is not bitwise its plain version")
+        check(launched == 1, f"K8 {what}: {launched} launches")
+        check(tr[0].launch_io_bytes == model.launch_io,
+              f"K8 {what}: launch bytes {tr[0].launch_io_bytes} != model {model.launch_io}")
+        return got, want
+
+    for lanes_ in (lanes, 1):
+        compare("2^28 f32 at bf16 compute", x, bf, lanes_)
+    compare("2^28 f32, square at f32 compute", x, f32, lanes, "square", bitwise=True)
+    compare("2^28 f32, moments at bf16 compute", x, bf, lanes, "moments")
+    got, _ = compare("2^28 f32, square at f32, chain sqrt+clip", x, f32, lanes, "square",
+                     chain=(("sqrt",), ("clip_coeff", 100.0, 1e-9)))
+    check(bool(torch.all(got[[0, nseg // 3, 2 * nseg // 3]] == 1.0)),
+          "K8: an empty segment's slot is not the chain of 0")
+    xb = x.to(bf)
+    compare("2^28 bf16", xb, bf, lanes)
+    bad = x.clone()
+    bad[[5, int(offsets[nseg // 2]), MULTI_N - 1]] = torch.tensor([float("nan"), float("inf"),
+                                                             float("-inf")], device=DEVICE)
+    got, _ = compare("2^28 f32, census on planted NaN/Inf", bad, bf, lanes, census=True)
+    check(float(got[nseg:].sum()) == 3.0, "K8 census total is not 3")
+    del bad
+
+    lengths = torch.from_numpy(np.diff(offsets)).to(DEVICE)
+
+    def timings(xin):
+        n, isz = xin.numel(), xin.element_size()
+        b, by = bound_ms(n * isz + nseg * 4, tensor_flops=16 * n)
+        return {
+            "ms": device_ms(lambda: ops.mma_sum_segments(xin, offsets, num_lanes=lanes),
+                            "::segments_kernel<", iters=10),
+            "call_ms": time_ms(lambda: ops.mma_sum_segments(xin, offsets, num_lanes=lanes),
+                               iters=10),
+            "plain_ms": time_ms(lambda: ops.mma_sum_segments_plain(
+                xin, offsets, bf, "identity", (), False, lanes), iters=1, warmup=1),
+            "bound_ms": b, "bound_by": by,
+            "bound_fetched_ms": fetched * isz / HBM_BYTES_PER_S * 1e3,
+            "library_ms": device_ms(lambda: torch.segment_reduce(xin, "sum", lengths=lengths),
+                                    iters=10),
+        }
+
+    results["mma_sum_segments"] = dict(
+        timings(x), at_2e28_bf16=timings(xb),
+        max_abs_err=float((ops.mma_sum_segments(x, offsets, num_lanes=lanes)
+                           - ops.mma_sum_segments_plain(x, offsets, bf, "identity", (), False,
+                                                        lanes)).abs().max()))
+    print(f"K8 timings at 2^28 f32 / bf16 ({lanes} lanes): device "
+          f"{results['mma_sum_segments']['ms']:.4f} / "
+          f"{results['mma_sum_segments']['at_2e28_bf16']['ms']:.4f} ms")
+
+
+def check_scan(results: dict, gen) -> None:
+    """K9 at 2^28 f32 (f32 compute: bitwise its plain version, the same
+    adds in the same order) and bf16 (bf16 compute on the tensor cores:
+    within one bf16 ulp of the output plus 2^-17 of the running mass --
+    f32 sums of the same products in another order, then the same rounding
+    to bf16); bitwise at 1, 2, 4 and 8 lanes and the exclusive scan the
+    inclusive one shifted, at 2^24; one launch, launch-boundary bytes
+    against ``cost_model.scan_hbm_bytes``."""
+    import torch
+
+    from repro_torch.core import cost_model
+    from repro_torch.kernels.scan import ops as sops
+
+    x = torch.randn((MULTI_N,), generator=gen, device=DEVICE) + 0.1
+    for what, xin in (("2^28 f32", x), ("2^28 bf16", x.to(torch.bfloat16))):
+        before, tr = sops.mma_scan.launches, []
+        got = sops.mma_scan(xin, trace=tr)
+        launched = sops.mma_scan.launches - before
+        want = sops.mma_scan_plain(xin)[:MULTI_N]
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        model = cost_model.scan_hbm_bytes(MULTI_N, xin.element_size())
+        if xin.dtype == torch.float32:
+            ok = torch.equal(got, want)
+            tol_text = "bitwise"
+        else:
+            run = torch.cumsum(xin.double().abs(), 0)
+            ok = bool(torch.all((got.double() - want.double()).abs()
+                                <= 2.0**-8 * want.double().abs() + 2.0**-17 * run + 1e-6))
+            tol_text = "1 bf16 ulp + 2^-17 x running mass"
+            del run
+        rel = float(((got.double() - torch.cumsum(xin.double(), 0)).abs()).max())
+        print(f"K9 mma_scan {what}: max_abs_err {err:.3g} vs plain (tol {tol_text}); max |d| "
+              f"vs f64 cumsum {rel:.4g} at a final value {float(want[-1]):.6g}; {launched} "
+              f"launch, {tr[0].launch_io_bytes} bytes at the launch (cost model "
+              f"{model.launch_io})")
+        check(ok, f"K9 {what} disagrees with its plain version")
+        check(launched == 1, f"K9 {what}: {launched} launches")
+        check(tr[0].launch_io_bytes == model.launch_io, f"K9 {what}: launch bytes off the model")
+        del got, want
+    small = x[:2**24]
+    for xin in (small, small.to(torch.bfloat16)):
+        outs = [sops.mma_scan(xin, num_lanes=c, tiles_per_block=1) for c in (1, 2, 4, 8)]
+        exc = sops.mma_scan(xin, inclusive=False)
+        torch.cuda.synchronize()
+        same = [torch.equal(o, outs[0]) for o in outs]
+        shift = torch.equal(exc[1:], outs[0][:-1]) and float(exc[0]) == 0.0
+        print(f"K9 2^24 {str(xin.dtype)[6:]}: bitwise at 1/2/4/8 lanes {same}; exclusive is the "
+              f"inclusive shifted {shift}")
+        check(all(same), "K9 output differs between lane counts")
+        check(shift, "K9 exclusive scan is not the inclusive one shifted")
+        del outs, exc
+
+    def timings(xin):
+        # a call keeps the card busy for a fifth of a second, far longer than
+        # its host work: CUDA events around back-to-back calls read device
+        # time (the profiler's reading of a kernel this long is kept beside)
+        n, isz = xin.numel(), xin.element_size()
+        b, by = bound_ms(2 * n * isz, tensor_flops=3 * 2 * 128 * n)
+        ms = time_ms(lambda: sops.mma_scan(xin), iters=2, warmup=1)
+        return {
+            "ms": ms, "call_ms": ms,
+            "profiler_ms": device_ms(lambda: sops.mma_scan(xin), "::scan_kernel<", iters=2,
+                                     warmup=0),
+            "plain_ms": time_ms(lambda: sops.mma_scan_plain(xin), iters=1, warmup=0),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": device_ms(lambda: torch.cumsum(xin, 0)),
+        }
+
+    results["mma_scan"] = dict(timings(x), at_2e28_bf16=timings(x.to(torch.bfloat16)),
+                               max_abs_err=0.0)
+    print(f"K9 timings at 2^28 f32 / bf16 (1 lane): device {results['mma_scan']['ms']:.3f} / "
+          f"{results['mma_scan']['at_2e28_bf16']['ms']:.3f} ms")
+
+
+def check_parts_bf16(results: dict, gen) -> None:
+    """K4 completed, over full-width olmo-1b's 113 parameter leaves (f32,
+    1.18 B elements): ``mma_sum_parts`` at bf16 compute (kind sum) and
+    with moments parts, against its plain version. Tolerance 2^-16 of each
+    leaf's mass: the same element roundings, summed in f32 in another order
+    on the tensor cores."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.mma_reduce import ops
+
+    leaves = [torch.randn(shape, generator=gen, device=DEVICE) * 0.02
+              for shape in olmo_leaf_shapes(get_arch("olmo-1b"))]
+    s = len(leaves)
+    total = sum(p.numel() for p in leaves)
+    absmass = torch.stack([p.double().abs().sum() for p in leaves])
+    sqmass = torch.stack([(p.double() ** 2).sum() for p in leaves])
+    figures = {}
+    for pro in ("identity", "moments"):
+        got = ops.mma_sum_parts(leaves, compute_dtype=torch.bfloat16, prologue=pro)
+        again = ops.mma_sum_parts(leaves, compute_dtype=torch.bfloat16, prologue=pro)
+        want = ops.mma_sum_parts_plain(leaves, (pro,) * s, (), False, torch.bfloat16)
+        torch.cuda.synchronize()
+        ok = bool(torch.all((got[:s].double() - want[:s].double()).abs()
+                            <= 2.0**-16 * absmass + 1e-6))
+        if pro == "moments":
+            ok &= bool(torch.all((got[s:].double() - want[s:].double()).abs()
+                                 <= 2.0**-16 * sqmass + 1e-6))
+        err = float((got - want).abs().max())
+        print(f"K4 mma_sum_parts at bf16 compute, {pro}, {s} f32 leaves ({total} elements): "
+              f"max_abs_err {err:.3g} vs plain (tol 2^-16 x leaf mass); repeat bitwise "
+              f"{torch.equal(got, again)}")
+        check(ok, f"K4 at bf16 compute ({pro}) disagrees with its plain version")
+        check(torch.equal(got, again), f"K4 at bf16 compute ({pro}): a second launch differs")
+        nbytes = total * 4 + got.numel() * 4
+        b, by = bound_ms(nbytes, tensor_flops=(32 if pro == "moments" else 16) * total)
+
+        def k4(pro=pro):
+            return ops.mma_sum_parts(leaves, compute_dtype=torch.bfloat16, prologue=pro)
+
+        figures[pro] = {"max_abs_err": err, "ms": time_ms(k4, iters=3, warmup=1),
+                        "plain_ms": time_ms(lambda pro=pro: ops.mma_sum_parts_plain(
+                            leaves, (pro,) * s, (), False, torch.bfloat16), iters=1, warmup=0),
+                        "bound_ms": b, "bound_by": by, "library_ms": None}
+        print(f"K4 at bf16 compute, {pro}: {figures[pro]['ms']:.4f} ms per call (CUDA events), "
+              f"bound {b:.4f} ms by {by}")
+    results["mma_sum_parts"]["bf16_compute"] = figures
+    del leaves
+    torch.cuda.empty_cache()
+
+
+def check_multi_against_cpu(gen) -> None:
+    """``reduce_many`` (both axes, every backend and kind), ``scan`` (every
+    backend) and ``reduce_tree``'s gradient (the kernel backends) on the
+    card against the same calls on the CPU (the kernels' plain versions;
+    "segmented" against the executor it picks on the card) at 2^20.
+    Tolerance as the ``reduce`` check: the compute dtype's unit roundoff
+    / 64 of the mass (f32 noise at f32 compute); per element of a scan,
+    2^-18 of the running mass."""
+    import torch
+
+    from repro_torch import reduce as R
+
+    sizes = (300, 0, 20000, 2**20 - 20300)
+    x = torch.randn((2**20,), generator=gen, device=DEVICE) * 2 + 0.3
+    parts = list(torch.split(x, sizes))
+    cparts = [p.cpu() for p in parts]
+    worst = 0.0
+    for backend in R.available_backends():
+        cpu_backend = (R.segmented_backend_for(x.numel(), x.dtype, 128, x.device)
+                       if backend == "segmented" else backend)
+        for kind in ("sum", "mean", "sumsq", "norm2", "moments"):
+            cd = R.plan_for((x.numel(),), x.dtype, kind=kind, backend=cpu_backend,
+                            segments=len(parts)).compute_torch
+            unit = max(_unit(cd) / 64, 2.0**-20)
+            got = R.reduce_many(parts, kind=kind, backend=backend)
+            want = R.reduce_many(cparts, kind=kind, backend=cpu_backend)
+            pairs = zip(got, want, ("sum", "sumsq")) if kind == "moments" else [(got, want, kind)]
+            for g, w, k in pairs:
+                for i, p in enumerate(cparts):
+                    v = p.double() ** 2 if k in ("sumsq", "norm2") else p.double().abs()
+                    tol = unit * float(v.sum()) + 1e-6
+                    tol = tol / max(p.numel(), 1) if k == "mean" else tol
+                    tol = tol / (2 * max(float(w[i]), 1e-3)) if k == "norm2" else tol
+                    err = abs(float(g[i]) - float(w[i]))
+                    worst = max(worst, err / tol)
+                    check(g.device.type == "cuda" and err <= tol,
+                          f"reduce_many({kind}, {backend}) slot {i}: card {float(g[i])} vs CPU "
+                          f"{float(w[i])}")
+            rows = [x[:3 * 1000].view(3, 1000), x[:0].view(0, 7), x[5000:5000 + 4 * 700].view(4, 700)]
+            got = R.reduce_many(rows, kind=kind, axis=-1, backend=backend)
+            want = R.reduce_many([r.cpu() for r in rows], kind=kind, axis=-1, backend=cpu_backend)
+            flat_g = got[0] + got[1] if kind == "moments" else got
+            flat_w = want[0] + want[1] if kind == "moments" else want
+            for g, w in zip(flat_g, flat_w):
+                check(tuple(g.shape) == tuple(w.shape) and bool(torch.allclose(
+                    g.cpu(), w, rtol=unit * 64, atol=unit * 64 * 100)),
+                    f"reduce_many({kind}, axis=-1, {backend}): card and CPU differ")
+        # scans of every backend against themselves on the CPU ("segmented"
+        # has no scan of its own: the base cumsum on either device); f32
+        # compute, so f32 order noise of the running mass (cumsum is a
+        # parallel scan on the card, double-accumulated on the CPU)
+        y = x[:2**20 - 7]
+        got = R.scan(y, backend=backend).cpu().double()
+        want = R.scan(y.cpu(), backend=backend).double()
+        run = torch.cumsum(y.cpu().double().abs(), 0)
+        check(bool(torch.all((got - want).abs() <= 2.0**-18 * run + 1e-5)),
+              f"scan({backend}): card and CPU differ")
+    print(f"reduce_many card vs CPU, 2^20 f32 in 4 arrays (one empty), "
+          f"{len(R.available_backends())} backends x 5 kinds, both axes, and scan: within "
+          f"tolerance (worst |d| / tol of the full reductions {worst:.3g})")
+    for backend in ("cuda_fused", "cuda_hier"):
+        grads = []
+        for ps in (parts, cparts):
+            leaves = [p.detach().clone().requires_grad_(True) for p in ps]
+            out = R.reduce_tree(leaves, "norm2", backend=backend,
+                                epilogue=[(), ("clip_coeff", 1.0)])
+            grads.append(torch.autograd.grad((out * torch.tensor([1.0, 3.0], device=out.device))
+                                             .sum(), leaves, allow_unused=True))
+        for g, c in zip(*grads):
+            check((g is None) == (c is None) and (g is None or bool(torch.allclose(
+                g.cpu(), c, rtol=1e-4, atol=1e-9))), f"reduce_tree gradient ({backend}) differs")
+    print("reduce_tree(norm2, clip fork) gradients card vs CPU on cuda_fused and cuda_hier: "
+          "within 1e-4 relative")
+
+
+def check_packing_offsets(gen) -> None:
+    """``packing_offsets`` of 2048 lengths (total below 2^24, so f32 is
+    integer-exact) on ``cuda_fused`` (the scan kernel on the f32 copy of
+    the lengths): exactly the host's int64 cumsum."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import packing_offsets
+
+    lengths = torch.randint(0, 8000, (SEGMENTS,), generator=gen, device=DEVICE).to(torch.int32)
+    lengths[[3, SEGMENTS // 2]] = 0
+    got = packing_offsets(lengths, backend="cuda_fused")
+    want = np.concatenate([[0], np.cumsum(lengths.cpu().numpy().astype(np.int64))])
+    print(f"packing_offsets of {SEGMENTS} lengths on cuda_fused: total {int(want[-1])} "
+          f"(< 2^24), equal to the int64 cumsum {bool(np.array_equal(got.cpu().numpy(), want))}")
+    check(int(want[-1]) < 2**24 and got.dtype == torch.int32
+          and got.device.type == torch.device(DEVICE).type
+          and np.array_equal(got.cpu().numpy(), want), "packing_offsets differs from cumsum")
+
+
+def run_multi_reduce_path() -> dict:
+    """The slice's main path, every kernel launch counted: ``reduce_many``
+    over 2^28 f32 values in 2048 packed segments (more than 128 arrays:
+    the pack and ONE launch of K8), ``reduce_many`` kinds sum and moments
+    over olmo-1b's 113 parameter leaves (one K4 launch each, bf16
+    compute), ``repro_torch.scan`` over 2^28 f32 and bf16 values (the auto
+    route on the card: one K9 launch each) and ``packing_offsets`` on
+    ``cuda_fused`` (one K9 launch). Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import reduce as R
+    from repro_torch.configs import get_arch
+    from repro_torch.data import packing_offsets
+    from repro_torch.kernels import common
+    from repro_torch.launch.reduce_demo import packed_offsets
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    x = torch.randn((MULTI_N,), generator=gen, device=DEVICE) + 1.0
+    offsets = packed_offsets(MULTI_N, SEGMENTS, 1)
+    docs = list(torch.split(x, np.diff(offsets).tolist()))
+    leaves = [torch.randn(shape, generator=gen, device=DEVICE) * 0.02
+              for shape in olmo_leaf_shapes(get_arch("olmo-1b"))]
+    lengths = torch.randint(0, 8000, (SEGMENTS,), generator=gen, device=DEVICE).to(torch.int32)
+    xb = x.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    per_doc = R.reduce_many(docs, backend="cuda_fused")
+    leaf_sums = R.reduce_many(leaves, kind="sum", backend="cuda_fused")
+    leaf_s, leaf_ss = R.reduce_many(leaves, kind="moments", backend="cuda_fused")
+    prefix = repro_torch.scan(x)
+    prefix_b = repro_torch.scan(xb)
+    offs = packing_offsets(lengths, backend="cuda_fused")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    print(f"multi-reduce and scan path: {wall:.2f} s; launches {launches}")
+    check(per_doc.shape == (SEGMENTS,) and bool(torch.isfinite(per_doc).all()),
+          "reduce_many over the packed documents: bad result")
+    lens = torch.from_numpy(np.diff(offsets)).to(x.device)
+    exact = torch.zeros(SEGMENTS, dtype=torch.float64, device=x.device).index_add_(
+        0, torch.repeat_interleave(torch.arange(SEGMENTS, device=x.device), lens), x.double())
+    check(bool(torch.all((per_doc.double() - exact).abs()
+                         <= 2.0**-8 * _segment_mass(x, offsets) + 1e-3)),
+          "reduce_many over the packed documents is off the f64 sums by more than bf16 rounding")
+    check(bool(torch.isfinite(leaf_sums).all() and torch.isfinite(leaf_ss).all()
+               and torch.all(leaf_ss >= 0)), "reduce_many over the olmo leaves: bad result")
+    check(prefix.shape == x.shape and prefix_b.dtype == torch.bfloat16
+          and abs(float(prefix[-1]) - float(x.double().sum())) <= 1e-3 * float(x.double().sum()),
+          "scan of 2^28: bad result")
+    check(int(offs[-1]) == int(lengths.long().sum()), "packing offsets: bad total")
+    check(launches["mma_sum_segments"] == 1 and launches["mma_sum_parts"] == 2
+          and launches["mma_scan"] == 3,
+          f"the multi-reduce path ran {launches} launches, expected K8 1, K4 2, K9 3")
+    return launches
 
 
 def run_reduce_demo() -> dict:
@@ -926,7 +1354,12 @@ def run_reduce_demo() -> dict:
     check(all(np.isfinite(v) for v in rel.values()), "non-finite precision row")
     check(rel["cuda_fused f32 multipliers, kahan"] <= 1e-6, "Kahan's error is above 1e-6")
     check(all(ms > 0 for _, ms in out["times"]), "a time per call is not positive")
-    for name in PAPER_KERNELS:
+    seg = out["segments"]
+    check(seg["count"] == 2048 and seg["worst_rel_to_mass"] <= 2.0**-8 and seg["ms"] > 0,
+          "the demo's segmented section: bad result")
+    for n, got, exact in seg["three"]:
+        check(abs(got - exact) <= 1e-4 * exact, "the demo's three segments are off f64")
+    for name in PAPER_KERNELS + ("mma_sum_segments",):
         check(launches[name] > 0, f"the paper's path did not launch {name}")
     return launches
 
@@ -1095,7 +1528,7 @@ def profile_steps(eng, prompts) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / 5 * 1e3
         per_step, _ = launches_per_step(eng.cfg.n_layers)
-        expect = {"::row_norm_kernel<": 5 * per_step["layernorm_np"], "::parts_kernel(": 5}
+        expect = {"::row_norm_kernel<": 5 * per_step["layernorm_np"], "::parts_kernel<": 5}
         if name == "prefill":
             expect["::attn_fwd_kernel<"] = 5 * per_step["flash_attention"]
         events = complete_events(lambda: [step() for _ in range(5)], expect, 1,
@@ -1271,7 +1704,7 @@ def profile_train_step(step_fn, params, opt, batches) -> None:
     n = train_launches_per_step(get_arch("olmo-1b").n_layers)
     expect = {"::row_norm_kernel<": n["layernorm_np"], "::attn_fwd_kernel<": n["flash_attention"],
               "::ce_kernel<": n["cross_entropy"], "::fused_sum_kernel<": n["mma_sum_fused"],
-              "::parts_kernel(": n["mma_sum_parts"]}
+              "::parts_kernel<": n["mma_sum_parts"]}
     events = complete_events(lambda: step_fn(params, opt, batches[3]), expect, 1,
                              "the training step")
     busy_ms = sum(us for _, us in events.values()) / 1e3
@@ -1341,12 +1774,23 @@ def main() -> int:
     finally:
         R.set_default_backend(None)
     torch.cuda.empty_cache()
+    check_segments(results, gen)
+    torch.cuda.empty_cache()
+    check_scan(results, gen)
+    torch.cuda.empty_cache()
+    check_parts_bf16(results, gen)
+    check_multi_against_cpu(gen)
+    check_packing_offsets(gen)
+    torch.cuda.empty_cache()
+    multi_launches = run_multi_reduce_path()
+    torch.cuda.empty_cache()
     paper_launches = run_reduce_demo()
 
     kernels = []
     for name in KERNELS:
         r = results[name]
-        main_path = paper_launches if name in PAPER_KERNELS else train_launches
+        main_path = (paper_launches if name in PAPER_KERNELS else
+                     multi_launches if name in MULTI_KERNELS else train_launches)
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name], "launches": main_path[name],
@@ -1355,17 +1799,20 @@ def main() -> int:
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],
             "launches_training": train_launches[name],
             "launches_serving": serve_launches[name], "launches_paper": paper_launches[name],
+            "launches_multi_reduce": multi_launches[name],
         }
         entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
     for k in kernels:
         lib = "-" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.1f} us"
-        shape = "2^28 f32" if k["name"] in PAPER_KERNELS else "the training shape"
+        shape = ("2^28 f32" if k["name"] in PAPER_KERNELS + MULTI_KERNELS
+                 else "the training shape")
         print(f"{k['name']}: device {k['ms'] * 1e3:.2f} us per call at {shape} "
               f"(whole call {k['call_ms'] * 1e3:.1f} us; plain {k['plain_ms'] * 1e3:.1f} us, "
               f"library {lib}, bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}), "
               f"launches: {k['launches_training']} in training, {k['launches_serving']} in "
-              f"serving, {k['launches_paper']} in the paper's demo")
+              f"serving, {k['launches_paper']} in the paper's demo, "
+              f"{k['launches_multi_reduce']} in the multi-reduce path")
     print(f"backward passes (torch math): {results['backward']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,12 @@ so each port sits beside its counterpart:
   kernels      -- CUDA kernels (``csrc/``), their ctypes build, and the
                   plain PyTorch version beside each one
   core         -- the all-ones-MMA reductions (rows and the eq. 13 sum)
-  reduce       -- the ``reduce`` / ``reduce_tree`` engine and its backends
+  reduce       -- the ``reduce`` / ``reduce_many`` / ``reduce_tree`` /
+                  ``scan`` engine and its backends (``repro_torch.scan`` is
+                  the engine's prefix sum)
   models       -- parameters, layers, attention, the decoder stack, losses
   optim        -- AdamW with the one-launch clip statistic
-  data         -- the seeded synthetic token stream
+  data         -- the seeded synthetic token stream, packing offsets
   runtime      -- chaos injection, metrics, the guarded serving runtime
   launch       -- train/prefill/decode steps, the training and serving CLIs
 
@@ -21,3 +23,13 @@ or anything of ``repro``. Entry points run on the GPU unless the caller
 passes ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.
 """
+
+
+def __getattr__(name):
+    # ``repro_torch.scan``, resolved on first use so that ``import
+    # repro_torch`` stays light (the reference's lazy export)
+    if name == "scan":
+        from repro_torch.reduce.scan import scan
+
+        return scan
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

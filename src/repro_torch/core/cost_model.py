@@ -13,8 +13,9 @@ result write = 1, so
   T_classic(n) = 4 log_2(n)      (the pairwise baseline)
   S = (4/5) log_2(m^2)           (eq. 17)
 
-Not copied yet: the scan, segmented, parts and interconnect models (they
-come with their kernels).
+Also the models of the multi-reduce and scan kernels: the segmented
+gather (K8), the parts pass (K4) and the triangular scan (K9). Not copied
+yet: the interconnect model (it comes with the distributed combine).
 """
 
 from __future__ import annotations
@@ -105,6 +106,53 @@ def fused_mma_ops(n: int, m: int = M, num_cores: int = 1, tiles_per_block: int =
     _, c, _, tpad = stripe_geometry(tiles, tiles_per_block, num_cores)
     k = 2 if dual else 1
     return MmaOpCount(n=n, m=m, num_cores=c, lane=k * (tpad // c), combine=k * (c + 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanMmaOps:
+    """MMAs of one triangular-scan pass on a CONTIGUOUS lane partition (lane
+    ci owns blocks [ci bpl, (ci + 1) bpl)): two carry MMAs per tile (T1 = X
+    @ J, D = Ls @ T1) in both the carry rebuild and the owned stripe, plus
+    R = X @ U on owned tiles. Lanes do different amounts of work, so this
+    is not an ``MmaOpCount``."""
+
+    n: int
+    m: int
+    num_cores: int       # effective lanes (clamped to the block count)
+    tiles: int           # padded tile count (r * c * blocks_per_lane)
+    lane_scan: int       # MMAs on one lane's owned stripe (3 per tile)
+    carry_worst: int     # carry-rebuild MMAs on the last lane (2 per tile)
+
+    @property
+    def total(self) -> int:
+        t_per = self.tiles // self.num_cores
+        return self.num_cores * self.lane_scan + sum(
+            2 * t_per * ci for ci in range(self.num_cores))
+
+    @property
+    def critical_path(self) -> int:
+        return self.carry_worst + self.lane_scan
+
+
+def scan_mma_ops(n: int, m: int = M, num_cores: int = 1, tiles_per_block: int = 8) -> ScanMmaOps:
+    """MMAs of the triangular scan: ``stripe_geometry`` with the lanes as
+    contiguous ranges; one lane gives the serial count 3 * tiles."""
+    tiles = max(1, -(-n // (m * m)))
+    _, c, _, tpad = stripe_geometry(tiles, tiles_per_block, num_cores)
+    per_lane_tiles = tpad // c
+    return ScanMmaOps(n=n, m=m, num_cores=c, tiles=tpad, lane_scan=3 * per_lane_tiles,
+                      carry_worst=2 * per_lane_tiles * (c - 1))
+
+
+def segmented_mma_ops(n: int, tiles: int, flushes: int, m: int = M, num_cores: int = 1,
+                      max_lane_flushes: int | None = None) -> MmaOpCount:
+    """MMAs of the segmented gather: tile-granular striping of the cover's
+    ``tiles`` over the lanes, one collapse MMA per lane-aware flush (the
+    worst lane's share, ``max_lane_flushes``, on the critical path; all of
+    ``flushes`` when unknown). One lane gives n/m^2 + S."""
+    _, c, _, tpad = stripe_geometry(tiles, 1, num_cores)
+    return MmaOpCount(n=n, m=m, num_cores=c, lane=tpad // c, combine=flushes,
+                      serial_tail=flushes if max_lane_flushes is None else max_lane_flushes)
 
 
 # ------------------------------ bytes moved ----------------------------------
@@ -227,11 +275,62 @@ def blocked_hier_hbm_bytes(n: int, itemsize: int, block: int, *, m: int = M,
                       stage_write=swrite, combine_read=nblk * _F32, combine_write=_F32)
 
 
+def segmented_hbm_bytes(fetched_elems: int, itemsize: int, *, segments: int, tiles: int = 0,
+                        m: int = M, num_cores: int = 1) -> HbmTraffic:
+    """The segmented gather: every cover tile is one m^2-aligned block of the
+    caller's buffer (``fetched_elems`` counts them, clipped to the buffer:
+    n plus one block per non-aligned boundary), plus five (tpad,) int32
+    cover maps read; (C, S) lane sub-partials written, read back by the
+    lane fold, which writes the (S,) result."""
+    _, c, _, tpad = stripe_geometry(max(tiles, 1), 1, num_cores)
+    sub = c * segments * _F32
+    return HbmTraffic(kernel_read=fetched_elems * itemsize + 5 * tpad * 4, kernel_write=sub,
+                      combine_read=sub, combine_write=segments * _F32)
+
+
+def parts_hbm_bytes(part_bytes: int, *, segments: int) -> HbmTraffic:
+    """The parts pass: every part read once at its own width (``part_bytes``
+    summed over the live parts), the output row of ``segments`` f32 slots
+    written; no combine."""
+    return HbmTraffic(kernel_read=part_bytes, kernel_write=segments * _F32)
+
+
+def scan_hbm_bytes(n: int, itemsize: int, *, out_itemsize: int | None = None, m: int = M,
+                   num_cores: int = 1, tiles_per_block: int = 8) -> HbmTraffic:
+    """The triangular scan: the buffer read once at its own width, the
+    block-padded prefix written in the output dtype; ``refetch_read``
+    charges each lane's carry rebuild (lane ci re-reads blocks [0, ci
+    bpl), clipped to n), outside ``launch_io``."""
+    out_itemsize = itemsize if out_itemsize is None else out_itemsize
+    tiles = max(1, -(-n // (m * m)))
+    r, c, bpl, tpad = stripe_geometry(tiles, tiles_per_block, num_cores)
+    block_elems = r * m * m
+    refetch = sum(min(ci * bpl * block_elems, n) for ci in range(c))
+    return HbmTraffic(kernel_read=n * itemsize, kernel_write=tpad * m * m * out_itemsize,
+                      refetch_read=refetch * itemsize)
+
+
+def staged_scan_hbm_bytes(n: int, itemsize: int, *, m: int = M, num_cores: int = 1,
+                          tiles_per_block: int = 8) -> HbmTraffic:
+    """The staged comparison for a sub-f32 cumsum: an f32 copy of the input
+    (read n * itemsize, write n * 4), the scan at f32, and the result cast
+    back (read n * 4, write n * itemsize)."""
+    zc = scan_hbm_bytes(n, _F32, out_itemsize=_F32, m=m, num_cores=num_cores,
+                        tiles_per_block=tiles_per_block)
+    return HbmTraffic(kernel_read=zc.kernel_read, kernel_write=zc.kernel_write,
+                      stage_read=n * itemsize, stage_write=n * _F32, combine_read=n * _F32,
+                      combine_write=n * itemsize, refetch_read=zc.refetch_read)
+
+
 def hbm_bytes(path: str, n: int, itemsize: int, *, m: int = M, num_cores: int = 1,
               tiles_per_block: int = 8, kahan: bool = False, dual: bool = False,
-              epilogue: bool = False) -> HbmTraffic:
-    """Dispatch over the full-reduction models: ``path`` is "fused",
-    "hier" or "hier_moments"."""
+              segments: int = 1, tiles: int = 0, fetched_elems: int | None = None,
+              epilogue: bool = False, census: int = 0) -> HbmTraffic:
+    """Dispatch over the models: ``path`` is "fused", "hier",
+    "hier_moments", "segmented", "parts", "scan" or "scan_staged".
+    ``census`` widens the output of the multi-reduce paths by that many f32
+    slots (no input bytes); for "parts", ``n * itemsize`` is the parts'
+    summed bytes."""
     if path == "fused":
         return fused_hbm_bytes(n, itemsize, m=m, num_cores=num_cores,
                                tiles_per_block=tiles_per_block, kahan=kahan, dual=dual,
@@ -240,4 +339,16 @@ def hbm_bytes(path: str, n: int, itemsize: int, *, m: int = M, num_cores: int = 
         return hier_hbm_bytes(n, itemsize, m=m, tiles_per_block=tiles_per_block)
     if path == "hier_moments":
         return hier_moments_hbm_bytes(n, itemsize, m=m, tiles_per_block=tiles_per_block)
-    raise ValueError(f"unknown hbm_bytes path {path!r}; expected fused, hier or hier_moments")
+    if path == "segmented":
+        return segmented_hbm_bytes(fetched_elems if fetched_elems is not None else n, itemsize,
+                                   segments=segments + census, tiles=tiles, m=m,
+                                   num_cores=num_cores)
+    if path == "parts":
+        return parts_hbm_bytes(n * itemsize, segments=segments + census)
+    if path == "scan":
+        return scan_hbm_bytes(n, itemsize, m=m, num_cores=num_cores,
+                              tiles_per_block=tiles_per_block)
+    if path == "scan_staged":
+        return staged_scan_hbm_bytes(n, itemsize, m=m, num_cores=num_cores,
+                                     tiles_per_block=tiles_per_block)
+    raise ValueError(f"unknown hbm_bytes path {path!r}")

@@ -1,6 +1,8 @@
-"""Deterministic, sharded synthetic token stream (numpy only).
+"""Deterministic, sharded synthetic token stream (numpy only), and the
+packing offsets of ragged sequences.
 
-A copy of ``ShardInfo`` and ``SyntheticLM`` of ``repro/data/pipeline.py``:
+A copy of ``ShardInfo``, ``SyntheticLM`` and ``packing_offsets`` of
+``repro/data/pipeline.py``:
 every batch is drawn from ``SeedSequence([seed, step, shard])``, so any host
 can rebuild any batch without coordination, and this stream and the
 reference's give identical tokens for the same (seed, step, shard).
@@ -65,3 +67,21 @@ class SyntheticLM:
     def __iter__(self) -> Iterator[dict]:
         while True:
             yield self.next()
+
+
+def packing_offsets(lengths, backend=None):
+    """(N,) sequence lengths -> (N + 1,) int32 offsets [0, l0, l0 + l1, ...]
+    of the sequences packed into one flat buffer, by the engine's scan
+    (``repro_torch.scan``), on the lengths' device. ``backend=None`` takes
+    the auto route, which keeps integer lengths on the exact integer
+    cumsum; an explicit kernel or MMA backend scans in f32, integer-exact
+    only while the total is below 2**24."""
+    import torch
+
+    from repro_torch.reduce.scan import scan
+
+    lengths = torch.as_tensor(lengths).to(torch.int32)
+    if lengths.ndim != 1:
+        raise ValueError("packing_offsets expects a 1-D length vector")
+    incl = scan(lengths, backend=backend).to(torch.int32)
+    return torch.cat([torch.zeros((1,), dtype=torch.int32, device=incl.device), incl])

@@ -5,8 +5,10 @@ PyTorch version and with a launch counter (``kernels.common``):
   flash_attention -- online-softmax attention, ones-MMA denominator
   cross_entropy   -- online logsumexp over the vocabulary, ones-MMA
                      denominator, exact label logit
-  mma_reduce      -- the striped one-launch full reduction and the
-                     one-launch multi-part reduction, both with census
+  mma_reduce      -- the striped one-launch full reduction, the paper's
+                     level, the one-launch multi-part reduction and the
+                     one-launch segmented gather, with census
+  scan            -- the triangular-MMA prefix sum
 """
 
 from repro_torch.kernels.cross_entropy import cross_entropy  # noqa: F401

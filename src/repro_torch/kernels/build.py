@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "row_moments.cu", "flash_attention.cu", "parts_reduce.cu", "cross_entropy.cu",
-    "fused_reduce.cu", "fused_kahan.cu", "tile_partials.cu",
+    "fused_reduce.cu", "fused_kahan.cu", "tile_partials.cu", "segmented_gather.cu", "scan.cu",
 )
 HEADERS = ("common.cuh", "reduce_common.cuh")
 NVCC_FLAGS = (
@@ -45,12 +45,16 @@ _SIGNATURES = {
     "rm_layernorm_np": (_P, _P, _I, _I, _F, _I, _P),
     "rm_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
     "fa_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P),
-    "pr_parts": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    "pr_parts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                 _P, _P, _P, _P),
     "ce_forward": (_P, _P, _P, _I, _LL, _I, _I, _I, _P),
     "fr_sum": (_P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "fr_moments": (_P, _LL, _I, _I, _LL, _LL, _I, _I, _P, _P, _P, _P),
     "fk_sum": (_P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "tp_level": (_P, _LL, _LL, _I, _I, _I, _I, _LL, _I, _I, _P, _P, _P, _P, _P),
+    "sg_segments": (_P, _LL, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                    _P),
+    "sc_scan": (_P, _LL, _I, _I, _LL, _I, _I, _I, _P, _P),
 }
 
 

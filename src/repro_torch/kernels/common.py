@@ -20,6 +20,15 @@ import torch
 
 MXU = 128  # the paper's tile size m, kept from the reference for 1:1 layouts
 
+# Dtypes the kernels read straight from the caller's buffer; anything else
+# (f64, ints, bools) is cast to f32 first -- one staging copy.
+NATIVE_INGEST_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def native_ingest_dtype(dtype) -> bool:
+    """True when the kernels read this dtype in place."""
+    return dtype in NATIVE_INGEST_DTYPES
+
 # In-kernel elementwise prologues: the per-element map applied after the
 # compute cast and the tail mask, before the reduction. "moments" is the
 # paired (x, x^2) dual accumulator (structural, not a single map).
@@ -165,6 +174,20 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bf16 (round to nearest even) and lifted back to f32:
     where the kernels round an MMA operand."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def triu_tile(m: int, dtype=torch.float32, k: int = 0, device=None) -> torch.Tensor:
+    """Upper-triangular ones (m, m), ones where col >= row + k: the scan's
+    prefix operand (x @ U turns each row into its running prefix; ``k=1``,
+    strictly upper, gives the exclusive prefix)."""
+    return torch.triu(torch.ones((m, m), dtype=dtype, device=device), diagonal=k)
+
+
+def tril_tile(m: int, dtype=torch.float32, k: int = 0, device=None) -> torch.Tensor:
+    """Lower-triangular ones (m, m), ones where col <= row + k; ``k=-1``
+    (strict) is the scan's carry-down operand: Ls @ T1 gives, in row i, the
+    fold of the rows before i."""
+    return torch.tril(torch.ones((m, m), dtype=dtype, device=device), diagonal=k)
 
 
 def ceil_div(a: int, b: int) -> int:

@@ -4,37 +4,43 @@
 // Replaces the TPU kernel `parts_accumulate_kernel` of
 // src/repro/kernels/mma_reduce/kernel.py (launcher `reduce_parts`). The
 // output row is the reference's: [S part totals][K chains][S counts][1
-// total count]. Empty parts keep 0 in their total and count slots.
+// total count], or [S sums][S sums of squares] when a part carries the
+// moments prologue (its square slot; other parts leave theirs 0). Empty
+// parts keep 0 in their slots.
 //
 // Bound on this card: bytes, and at the serving size (4 parts of 50304
-// f32 logits, 0.8 MB) launch latency. The compute dtype of this path is
-// f32, and tensor cores have no exact f32 product (TF32 keeps 10 mantissa
-// bits), so each element is prologue-mapped and accumulated in f32 on the
-// CUDA cores; the ones-MMA form belongs to bf16/f16 compute, which this
-// kernel does not take (the wrapper raises NotImplementedError).
+// f32 logits, 0.8 MB) launch latency.
 //
 // Design: a by-value table of (pointer, size, dtype, prologue, output slot,
 // tile run) for up to 128 live parts, so no part is copied or packed. One
 // CTA per (part, 16384-element tile) -- the reference's m^2 tile -- writes a
-// partial sum and a partial non-finite count. The census counts the raw
-// (masked) value before the prologue, as the reference does. The fold is
-// deterministic and uses no float atomics: the last CTA to finish, found by
-// an integer ticket, folds the partials of each part in tile order, then the
-// part totals in part order, and writes the row with the epilogue chains
-// applied. The ticket lives in a buffer the caller zeroes once and keeps;
-// the last CTA sets it back to 0, so the next launch on the stream finds it
-// zeroed and the partials need no clearing. One kernel launch per call.
-#include "common.cuh"
+// partial sum (and, for a moments part, a partial sum of squares) and a
+// partial non-finite count. Each value is cast to the compute dtype, counted
+// if non-finite (before the prologue, as the reference does) and mapped by
+// the prologue there. f32 compute has no exact tensor-core product (TF32
+// keeps 10 mantissa bits), so it sums on the CUDA cores: thread i adds
+// elements i, i + 256, ... in order, then a fixed shuffle tree and the warps
+// in order. bf16 / f16 compute is the ones-MMA of eq. 9: warp w owns tile
+// rows 16w .. 16w + 15 (reduce_common.cuh `tile_row_sums`, m16n8k16 MMAs
+// with f32 accumulation), and the 128 row sums fold in the fixed order of
+// `block_fold` (ops.fold_rows_plain). The fold is deterministic and uses no
+// float atomics: the last CTA to finish, found by an integer ticket, folds
+// the partials of each part in tile order, maps each part total by the slot
+// chain, folds the raw part totals in part order, and writes the row with
+// the total chains applied. The ticket lives in a buffer the caller zeroes
+// once and keeps; the last CTA sets it back to 0, so the next launch on the
+// stream finds it zeroed and the partials need no clearing. One kernel
+// launch per call.
+#include "reduce_common.cuh"
 
 namespace {
 
 constexpr int PR_MAX_PARTS = 128;   // ops.PARTS_KERNEL_MAX
 constexpr int PR_TILE = 128 * 128;  // the reference's m^2 tile
 constexpr int PR_THREADS = 256;
+constexpr int PR_WARPS = PR_THREADS / 32;
 constexpr int PR_MAX_CHAINS = 4;
 constexpr int PR_MAX_STEPS = 4;
-
-enum Prologue : unsigned char { PRO_IDENTITY = 0, PRO_SQUARE = 1, PRO_ABS = 2 };
 
 struct PartsTable {
   const void* ptr[PR_MAX_PARTS];
@@ -43,12 +49,14 @@ struct PartsTable {
   int seg[PR_MAX_PARTS];        // output slot of live part i
   unsigned char dtype[PR_MAX_PARTS];
   unsigned char prologue[PR_MAX_PARTS];
-  int n_live, n_seg, n_chains, census;
-  int chain_len[PR_MAX_CHAINS];
-  int op[PR_MAX_CHAINS][PR_MAX_STEPS];
-  float p0[PR_MAX_CHAINS][PR_MAX_STEPS];
-  float p1[PR_MAX_CHAINS][PR_MAX_STEPS];
+  int n_live, n_seg, n_chains, census, dual;
+  int chain_len[PR_MAX_CHAINS + 1];  // the K total chains, then the slot chain
+  int op[PR_MAX_CHAINS + 1][PR_MAX_STEPS];
+  float p0[PR_MAX_CHAINS + 1][PR_MAX_STEPS];
+  float p1[PR_MAX_CHAINS + 1][PR_MAX_STEPS];
 };
+
+constexpr int SLOT_CHAIN = PR_MAX_CHAINS;
 
 __device__ __forceinline__ float load_elem(const void* p, int dtype, long long i) {
   if (dtype == DT_BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
@@ -62,11 +70,42 @@ __device__ float apply_chain(float t, const PartsTable& tab, int k) {
   return t;
 }
 
+// Eight elements [e, e + 8) of a part of any dtype as f32, 0 past `end`.
+__device__ __forceinline__ void load_any(const void* p, int dtype, long long e, long long end,
+                                         bool aligned, float (&v)[RC_GROUP]) {
+  if (dtype == DT_BF16)
+    load_group(static_cast<const __nv_bfloat16*>(p), e, end, aligned, v);
+  else if (dtype == DT_F16)
+    load_group(static_cast<const __half*>(p), e, end, aligned, v);
+  else
+    load_group(static_cast<const float*>(p), e, end, aligned, v);
+}
+
+// The fixed fold of one tile's 128 row values (ops.fold_rows_plain): the
+// leader of quad g in warp w holds rows 16w + g (`a`) and 16w + g + 8 (`b`).
+// Returns the total in thread 0; uses `warp_buf` and two barriers.
+__device__ __forceinline__ float block_fold(float a, float b, float* warp_buf) {
+  const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
+  float v = (lid & 3) == 0 ? a + b : 0.f;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if (lid == 0) warp_buf[warp] = v;
+  __syncthreads();
+  float total = 0.f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < PR_WARPS; ++w) total += warp_buf[w];
+  __syncthreads();
+  return total;
+}
+
+template <int CD>
 __global__ void __launch_bounds__(PR_THREADS)
 parts_kernel(const PartsTable tab, float* __restrict__ out, float* __restrict__ tile_sum,
-             int* __restrict__ tile_cnt, unsigned int* __restrict__ ticket) {
-  __shared__ float warp_sum[PR_THREADS / 32];
-  __shared__ int warp_cnt[PR_THREADS / 32];
+             float* __restrict__ tile_sq, int* __restrict__ tile_cnt,
+             unsigned int* __restrict__ ticket) {
+  __shared__ float warp_sum[PR_WARPS];
+  __shared__ float warp_sq[PR_WARPS];
+  __shared__ int warp_cnt[PR_WARPS];
   __shared__ bool am_last;
 
   const int tile = blockIdx.x;
@@ -81,37 +120,84 @@ parts_kernel(const PartsTable tab, float* __restrict__ out, float* __restrict__ 
   const int n = left < PR_TILE ? static_cast<int>(left) : PR_TILE;
   const void* src = tab.ptr[part];
   const int dtype = tab.dtype[part], pro = tab.prologue[part];
+  const bool moments = pro == PRO_MOMENTS;
+  const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
 
-  float sum = 0.f;
+  float sum = 0.f, sq = 0.f;
   int cnt = 0;
-  for (int i = threadIdx.x; i < n; i += PR_THREADS) {
-    float v = load_elem(src, dtype, base + i);
-    cnt += isfinite(v) ? 0 : 1;  // census on the raw value
-    if (pro == PRO_SQUARE) v = v * v;
-    else if (pro == PRO_ABS) v = fabsf(v);
-    sum += v;
-  }
-  // fixed-shape tree: the same order on every run
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sum += __shfl_down_sync(0xffffffffu, sum, off);
-    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    warp_sum[warp] = sum;
-    warp_cnt[warp] = cnt;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    int c = 0;
-    for (int w = 0; w < PR_THREADS / 32; ++w) {
-      s += warp_sum[w];
-      c += warp_cnt[w];
+  if constexpr (CD == DT_F32) {
+    for (int i = threadIdx.x; i < n; i += PR_THREADS) {
+      float v = load_elem(src, dtype, base + i);
+      cnt += isfinite(v) ? 0 : 1;  // census on the compute-cast value
+      if (moments) sq += v * v;
+      if (pro == PRO_SQUARE) v = v * v;
+      else if (pro == PRO_ABS) v = fabsf(v);
+      sum += v;
     }
-    tile_sum[tile] = s;
-    tile_cnt[tile] = c;
+    // fixed-shape tree: the same order on every run
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sum += __shfl_down_sync(0xffffffffu, sum, off);
+      sq += __shfl_down_sync(0xffffffffu, sq, off);
+      cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+    }
+    if (lid == 0) {
+      warp_sum[warp] = sum;
+      warp_sq[warp] = sq;
+      warp_cnt[warp] = cnt;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      sum = sq = 0.f;
+      cnt = 0;
+      for (int w = 0; w < PR_WARPS; ++w) {
+        sum += warp_sum[w];
+        sq += warp_sq[w];
+        cnt += warp_cnt[w];
+      }
+    }
+  } else {
+    // warp w: tile rows 16w + g and 16w + g + 8, elements 8 t4 + 32 u + i
+    const int g = lid / 4, t4 = lid % 4;
+    const long long row0 = base + static_cast<long long>(16 * warp + g) * RC_ROW;
+    const long long row1 = row0 + 8 * RC_ROW;
+    const long long end = base + n;
+    const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+    float r0[4][RC_GROUP], r1[4][RC_GROUP];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      load_any(src, dtype, row0 + 8 * t4 + 32 * u, end, aligned, r0[u]);
+      load_any(src, dtype, row1 + 8 * t4 + 32 * u, end, aligned, r1[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int i = 0; i < RC_GROUP; ++i) {
+        const float c0 = to_compute<CD>(r0[u][i]), c1 = to_compute<CD>(r1[u][i]);
+        cnt += (isfinite(c0) ? 0 : 1) + (isfinite(c1) ? 0 : 1);
+        r0[u][i] = moments ? c0 : prologue_map<CD>(c0, pro);
+        r1[u][i] = moments ? c1 : prologue_map<CD>(c1, pro);
+      }
+    }
+    const float2 d = tile_row_sums<CD>(r0, r1);
+    sum = block_fold(d.x, d.y, warp_sum);
+    if (moments) {  // one part per CTA: the branch, its MMAs and barriers are CTA-uniform
+      const float2 d2 = tile_row_sums<CD, true>(r0, r1);
+      sq = block_fold(d2.x, d2.y, warp_sq);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+    if (lid == 0) warp_cnt[warp] = cnt;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      cnt = 0;
+      for (int w = 0; w < PR_WARPS; ++w) cnt += warp_cnt[w];
+    }
+  }
+  if (threadIdx.x == 0) {
+    tile_sum[tile] = sum;
+    tile_sq[tile] = sq;
+    tile_cnt[tile] = cnt;
     __threadfence();  // publish the partials before taking a ticket
     am_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
     // every other CTA has taken its ticket: reset it for the next launch
@@ -122,46 +208,56 @@ parts_kernel(const PartsTable tab, float* __restrict__ out, float* __restrict__ 
 
   // The last CTA folds: parts in order, each part's tiles in order.
   __threadfence();
-  const int n_out = tab.n_seg + tab.n_chains + (tab.census ? tab.n_seg + 1 : 0);
+  const int out_slots = tab.dual ? 2 * tab.n_seg : tab.n_seg;
+  const int n_out = out_slots + tab.n_chains + (tab.census ? tab.n_seg + 1 : 0);
   for (int s = 0; s < n_out; ++s) out[s] = 0.f;
-  const int cbase = tab.n_seg + tab.n_chains;
+  const int cbase = out_slots + tab.n_chains;
   float total = 0.f;
   long long total_cnt = 0;
   for (int p = 0; p < tab.n_live; ++p) {
-    float ps = 0.f;
+    float ps = 0.f, ps2 = 0.f;
     long long pc = 0;
     for (int t = tab.start[p]; t < tab.start[p + 1]; ++t) {
       ps += __ldcg(tile_sum + t);
+      ps2 += __ldcg(tile_sq + t);
       pc += __ldcg(tile_cnt + t);
     }
-    out[tab.seg[p]] = ps;
+    out[tab.seg[p]] = apply_chain(ps, tab, SLOT_CHAIN);
+    if (tab.prologue[p] == PRO_MOMENTS) out[tab.n_seg + tab.seg[p]] = ps2;
     total += ps;
     if (tab.census) {
       out[cbase + tab.seg[p]] = static_cast<float>(pc);
       total_cnt += pc;
     }
   }
-  for (int k = 0; k < tab.n_chains; ++k) out[tab.n_seg + k] = apply_chain(total, tab, k);
+  for (int k = 0; k < tab.n_chains; ++k) out[out_slots + k] = apply_chain(total, tab, k);
   if (tab.census) out[n_out - 1] = static_cast<float>(total_cnt);
 }
 
 }  // namespace
 
-// Host arrays describe the live parts (in layout order); `chain_ops` and
-// `chain_p0/p1` are [n_chains][PR_MAX_STEPS] row-major. `scratch` holds
-// n_tiles floats, then n_tiles ints (uninitialised); `ticket` is one
-// unsigned int that is 0 on entry and 0 again when the kernel ends.
-// Returns a cudaError_t value, or cudaErrorInvalidValue on a bad table.
+// Host arrays describe the live parts (in layout order); prologue codes 0
+// identity, 1 square, 2 abs, 3 moments (then `dual` is 1 and there are no
+// chains and no census). `slot_*` is the chain of every part total;
+// `chain_ops` and `chain_p0/p1` are [n_chains][PR_MAX_STEPS] row-major.
+// `scratch` holds 3 n_tiles words (uninitialised); `ticket` is one unsigned
+// int that is 0 on entry and 0 again when the kernel ends. Returns a
+// cudaError_t value, or cudaErrorInvalidValue on a bad table.
 extern "C" int pr_parts(const void* const* ptrs, const long long* sizes, const int* starts,
                         const int* segs, const int* dtypes, const int* prologues,
-                        int n_live, int n_seg, const int* chain_lens, const int* chain_ops,
-                        const float* chain_p0, const float* chain_p1, int n_chains,
-                        int census, float* out, void* scratch, unsigned int* ticket,
-                        void* stream) {
-  if (n_live < 1 || n_live > PR_MAX_PARTS || n_chains < 0 || n_chains > PR_MAX_CHAINS)
+                        int n_live, int n_seg, int compute, int dual, int slot_len,
+                        const int* slot_ops, const float* slot_p0, const float* slot_p1,
+                        const int* chain_lens, const int* chain_ops, const float* chain_p0,
+                        const float* chain_p1, int n_chains, int census, float* out,
+                        void* scratch, unsigned int* ticket, void* stream) {
+  if (n_live < 1 || n_live > PR_MAX_PARTS || n_chains < 0 || n_chains > PR_MAX_CHAINS ||
+      slot_len < 0 || slot_len > PR_MAX_STEPS || (dual && (n_chains || census || slot_len)))
     return static_cast<int>(cudaErrorInvalidValue);
   PartsTable tab;
   for (int i = 0; i < n_live; ++i) {
+    if (prologues[i] < PRO_IDENTITY || prologues[i] > PRO_MOMENTS ||
+        (prologues[i] == PRO_MOMENTS && !dual))
+      return static_cast<int>(cudaErrorInvalidValue);
     tab.ptr[i] = ptrs[i];
     tab.size[i] = sizes[i];
     tab.seg[i] = segs[i];
@@ -173,20 +269,39 @@ extern "C" int pr_parts(const void* const* ptrs, const long long* sizes, const i
   tab.n_seg = n_seg;
   tab.n_chains = n_chains;
   tab.census = census;
-  for (int k = 0; k < n_chains; ++k) {
-    if (chain_lens[k] < 0 || chain_lens[k] > PR_MAX_STEPS)
-      return static_cast<int>(cudaErrorInvalidValue);
-    tab.chain_len[k] = chain_lens[k];
+  tab.dual = dual;
+  for (int k = 0; k <= PR_MAX_CHAINS; ++k) {
+    const bool slot = k == SLOT_CHAIN;
+    const int len = slot ? slot_len : (k < n_chains ? chain_lens[k] : 0);
+    if (len < 0 || len > PR_MAX_STEPS) return static_cast<int>(cudaErrorInvalidValue);
+    tab.chain_len[k] = len;
     for (int s = 0; s < PR_MAX_STEPS; ++s) {
-      tab.op[k][s] = chain_ops[k * PR_MAX_STEPS + s];
-      tab.p0[k][s] = chain_p0[k * PR_MAX_STEPS + s];
-      tab.p1[k][s] = chain_p1[k * PR_MAX_STEPS + s];
+      const bool used = slot || k < n_chains;
+      tab.op[k][s] = used ? (slot ? slot_ops[s] : chain_ops[k * PR_MAX_STEPS + s]) : -1;
+      tab.p0[k][s] = used ? (slot ? slot_p0[s] : chain_p0[k * PR_MAX_STEPS + s]) : 0.f;
+      tab.p1[k][s] = used ? (slot ? slot_p1[s] : chain_p1[k * PR_MAX_STEPS + s]) : 0.f;
     }
   }
   const int n_tiles = starts[n_live];
   float* tile_sum = static_cast<float*>(scratch);
-  int* tile_cnt = reinterpret_cast<int*>(tile_sum + n_tiles);
-  parts_kernel<<<n_tiles, PR_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      tab, out, tile_sum, tile_cnt, ticket);
+  float* tile_sq = tile_sum + n_tiles;
+  int* tile_cnt = reinterpret_cast<int*>(tile_sq + n_tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (compute) {
+    case DT_F32:
+      parts_kernel<DT_F32><<<n_tiles, PR_THREADS, 0, s>>>(tab, out, tile_sum, tile_sq, tile_cnt,
+                                                          ticket);
+      break;
+    case DT_BF16:
+      parts_kernel<DT_BF16><<<n_tiles, PR_THREADS, 0, s>>>(tab, out, tile_sum, tile_sq,
+                                                           tile_cnt, ticket);
+      break;
+    case DT_F16:
+      parts_kernel<DT_F16><<<n_tiles, PR_THREADS, 0, s>>>(tab, out, tile_sum, tile_sq, tile_cnt,
+                                                          ticket);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

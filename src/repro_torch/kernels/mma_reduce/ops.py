@@ -1,6 +1,7 @@
-"""The full reductions behind ``reduce`` and ``reduce_tree``.
+"""The reductions behind ``reduce``, ``reduce_many`` and ``reduce_tree``.
 
-Port of ``repro/kernels/mma_reduce``'s fused, hierarchical and parts paths:
+Port of ``repro/kernels/mma_reduce``'s fused, hierarchical, parts and
+segmented paths:
 
   mma_sum_fused  -- the striped single-launch full reduction (the
                     counterpart of ``mma_sum_pallas(mode="fused")``; kernel
@@ -11,10 +12,19 @@ Port of ``repro/kernels/mma_reduce``'s fused, hierarchical and parts paths:
   mma_sum_parts  -- S separate arrays in one launch (the counterpart of
                     ``mma_sum_parts_pallas``; kernel
                     ``parts_accumulate_kernel``), each in its own dtype with
-                    no packing copy; the output row is ``[S part totals][K
-                    chains of the cross-part total][S non-finite counts][1
-                    total count]`` (the last two with ``census=True``).
-                    CUDA: ``csrc/parts_reduce.cu``.
+                    no packing copy, at f32, bf16 or f16 compute; the output
+                    row is ``[S part totals][K chains of the cross-part
+                    total][S non-finite counts][1 total count]`` (the last
+                    two with ``census=True``), or ``[S sums][S sums of
+                    squares]`` with "moments" parts. CUDA:
+                    ``csrc/parts_reduce.cu``.
+  mma_sum_segments
+                 -- S segments of ONE flat buffer in one launch (the
+                    counterpart of ``mma_sum_segments_pallas``; kernel
+                    ``segmented_gather_kernel``), read in place through
+                    the aligned-block cover, striped one tile at a time
+                    over lanes folded in lane order. CUDA:
+                    ``csrc/segmented_gather.cu``.
   mma_sum_fused(kahan=True)
                  -- the fused stream with a per-lane Kahan carry of every
                     tile's row sums (``fused_kahan_kernel``, K3), folded by
@@ -33,17 +43,20 @@ Port of ``repro/kernels/mma_reduce``'s fused, hierarchical and parts paths:
 
 On CPU tensors each wrapper runs its plain version, which folds in the
 kernel's order where f32 adds decide it (the lane folds, the Kahan carry,
-the parts' tiles and parts). No wrapper records a gradient: called on an
-input that requires grad it raises and names ``repro_torch.reduce.reduce``,
-whose Functions differentiate the full reduction.
+the parts' tiles and parts, the gather's rows, flushes and lanes). No
+wrapper records a gradient: called on an input that requires grad it
+raises and names the entry point (``reduce``, ``reduce_many``) whose
+Functions differentiate it.
 
 The geometry of the striped kernels is ``core.cost_model.stripe_geometry``
 (``lane_geometry``), so the grids launched are the ones the cost model
-charges for. Not ported: bf16/f16 compute in the parts kernel.
+charges for.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -66,7 +79,7 @@ FUSED_MAX_CHAIN_STEPS = 8  # csrc/fused_reduce.cu FR_MAX_STEPS
 TILES_PER_BLOCK = 8   # the reference's default block depth
 LANE_FOLD_THREADS = 256  # csrc/fused_reduce.cu FR_THREADS
 _PROLOGUE_CODES = {"identity": 0, "square": 1, "abs": 2, "moments": 3}
-_NATIVE = (torch.float32, torch.bfloat16, torch.float16)
+_NATIVE = common.NATIVE_INGEST_DTYPES
 
 
 # ------------------------- striped fused (K1, K2, K3) ---------------------------
@@ -714,6 +727,41 @@ def mma_sum_hier_blocks(
     return vals
 
 
+# --------------------- the kernels' in-tile order (K4, K8) ---------------------
+
+
+def tile_row_sums_plain(tiles: torch.Tensor) -> torch.Tensor:
+    """(T, m^2) f32 values -> (T, m) f32 row sums in the order the gather
+    and parts kernels take at f32 compute (``reduce_common.cuh``
+    ``tile_row_sums``): thread t4 of a row's quad adds its 32 elements 8 t4 +
+    32 u + i in (u, i) order, then the quad folds (s0 + s1) + (s2 + s3). At
+    bf16/f16 compute the kernels take the same sums on tensor cores, whose
+    f32 accumulation order is the hardware's."""
+    v = tiles.reshape(-1, MXU, 4, 4, 8)  # (tile, row, u, t4, i)
+    s = torch.zeros(v.shape[:2] + (4,), dtype=torch.float32, device=tiles.device)
+    for u in range(4):
+        for i in range(8):
+            s = s + v[:, :, u, :, i]
+    return (s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3])
+
+
+def fold_rows_plain(rows: torch.Tensor) -> torch.Tensor:
+    """(K, m) f32 row values -> (K,) in the kernels' fold of one tile's rows
+    (``csrc/segmented_gather.cu`` ``block_fold``): in warp w, the leader of
+    quad g adds rows 16 w + g and 16 w + g + 8; a shuffle-down tree folds the
+    warp's 32 lanes (non-leaders give 0); thread 0 adds the 8 warp totals in
+    order, from 0."""
+    r = rows.reshape(-1, 8, 2, 8)  # (k, warp, half, g)
+    lanes = torch.zeros((r.shape[0], 8, 32), dtype=torch.float32, device=rows.device)
+    lanes[:, :, 0::4] = r[:, :, 0] + r[:, :, 1]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :off] + lanes[..., off:2 * off]
+    total = torch.zeros((r.shape[0],), dtype=torch.float32, device=rows.device)
+    for w in range(8):
+        total = total + lanes[:, w, 0]
+    return total
+
+
 # ------------------------------ parts (K4) ------------------------------------
 
 
@@ -732,11 +780,13 @@ def parts_layout(sizes: Sequence[int], group: int) -> tuple:
     return tuple(layout)
 
 
-def _empty_row(nseg, total_chains, census, device) -> torch.Tensor:
-    """Every part empty: zero totals, each chain of a zero total, and (with
-    census) zero counts -- nothing streamed, nothing non-finite."""
+def _empty_row(nseg, out_slots, slot_chain, total_chains, census, device) -> torch.Tensor:
+    """Every part empty: the slot chain of zero totals, each total chain of
+    a zero total, and (with census) zero counts -- nothing streamed, nothing
+    non-finite (the reference's all-empty row)."""
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    pieces = [torch.zeros((nseg,), dtype=torch.float32, device=device)]
+    pieces = [common.apply_epilogue(torch.zeros((out_slots,), dtype=torch.float32,
+                                                device=device), slot_chain)]
     if total_chains:
         pieces.append(torch.stack([common.apply_epilogue(zero, ch) for ch in total_chains]))
     if census:
@@ -744,15 +794,44 @@ def _empty_row(nseg, total_chains, census, device) -> torch.Tensor:
     return torch.cat(pieces)
 
 
-def mma_sum_parts_plain(parts, prologues, total_chains, census) -> torch.Tensor:
-    """Plain PyTorch version of the parts kernel (f32 compute): per tile an
-    f32 sum of the prologue-mapped values and a count of the raw non-finite
-    ones; per part a sequential fold of its tiles; then a sequential fold of
-    the part totals. Empty parts keep 0."""
+def _part_tile_sums(flat: torch.Tensor, pro: str, compute_dtype):
+    """One part's per-tile (sum, sum of squares or None, non-finite count)
+    as the parts kernel takes them. f32 compute: the raw f32 values, each
+    tile summed on its own (its CUDA-core order is not mirrored). bf16/f16:
+    the values rounded to the compute dtype, counted, mapped there, and
+    each tile's rows summed and folded in the kernels' order."""
+    n = flat.numel()
+    nblk = common.ceil_div(n, TILE)
+    v = _round(flat, compute_dtype)
+    cnt = int(torch.sum(~torch.isfinite(v)))
+    tiles = torch.nn.functional.pad(v, (0, nblk * TILE - n)).view(nblk, TILE)
+    squares = None
+    if compute_dtype == torch.float32:
+        if pro == "moments":
+            return torch.sum(tiles, dim=1), torch.sum(tiles * tiles, dim=1), cnt
+        return torch.sum(common.apply_prologue(tiles, pro), dim=1), None, cnt
+    if pro == "moments":
+        squares = fold_rows_plain(tile_row_sums_plain(_round(tiles * tiles, compute_dtype)))
+        mapped = tiles
+    else:
+        mapped = _map(tiles, pro, compute_dtype)
+    return fold_rows_plain(tile_row_sums_plain(mapped)), squares, cnt
+
+
+def mma_sum_parts_plain(parts, prologues, total_chains, census, compute_dtype=torch.float32,
+                        slot_epilogue=()) -> torch.Tensor:
+    """Plain PyTorch version of the parts kernel: per tile a sum of the
+    prologue-mapped values (``_part_tile_sums``) and a count of the
+    non-finite compute-cast ones; per part a sequential fold of its tiles,
+    mapped by the slot chain; then a sequential fold of the raw part totals
+    for the chains. A "moments" part also folds its tiles' sums of squares
+    (at the compute dtype) into slot S + s. Empty parts keep 0."""
     nseg = len(parts)
     dev = parts[0].device
+    dual = "moments" in prologues
+    out_slots = 2 * nseg if dual else nseg
     n_chains = len(total_chains)
-    out = torch.zeros((nseg + n_chains + ((nseg + 1) if census else 0),),
+    out = torch.zeros((out_slots + n_chains + ((nseg + 1) if census else 0),),
                       dtype=torch.float32, device=dev)
     total = torch.zeros((), dtype=torch.float32, device=dev)
     total_cnt = 0
@@ -760,26 +839,46 @@ def mma_sum_parts_plain(parts, prologues, total_chains, census) -> torch.Tensor:
         flat = part.reshape(-1).to(torch.float32)
         if flat.numel() == 0:
             continue
-        nblk = common.ceil_div(flat.numel(), TILE)
-        tiles = torch.nn.functional.pad(flat, (0, nblk * TILE - flat.numel())).view(nblk, TILE)
-        sums = torch.sum(common.apply_prologue(tiles, pro), dim=1)
+        sums, squares, cnt = _part_tile_sums(flat, pro, compute_dtype)
         ps = torch.zeros((), dtype=torch.float32, device=dev)
-        for t in range(nblk):
+        ps2 = torch.zeros((), dtype=torch.float32, device=dev)
+        for t in range(sums.numel()):
             ps = ps + sums[t]
-        out[s] = ps
+            if squares is not None:
+                ps2 = ps2 + squares[t]
+        out[s] = common.apply_epilogue(ps, slot_epilogue)
+        if squares is not None:
+            out[nseg + s] = ps2
         total = total + ps
         if census:
-            cnt = int(torch.sum(~torch.isfinite(flat)))
-            out[nseg + n_chains + s] = cnt
+            out[out_slots + n_chains + s] = cnt
             total_cnt += cnt
     for k, ch in enumerate(total_chains):
-        out[nseg + k] = common.apply_epilogue(total, ch)
+        out[out_slots + k] = common.apply_epilogue(total, ch)
     if census:
         out[-1] = total_cnt
     return out
 
 
-def _launch(parts, layout, prologues, total_chains, census) -> torch.Tensor:
+def _encode_chains(chains: tuple):
+    """K chains -> (lens, ops, p0, p1) arrays of [K][MAX_CHAIN_STEPS]."""
+    k = max(len(chains), 1)
+    lens = np.zeros((k,), dtype=np.int32)
+    ops = np.zeros((k, MAX_CHAIN_STEPS), dtype=np.int32)
+    p0 = np.zeros((k, MAX_CHAIN_STEPS), dtype=np.float32)
+    p1 = np.zeros((k, MAX_CHAIN_STEPS), dtype=np.float32)
+    for i, ch in enumerate(chains):
+        enc = common.encode_epilogue(ch)
+        if len(enc) > MAX_CHAIN_STEPS:
+            raise ValueError(f"a chain takes at most {MAX_CHAIN_STEPS} steps; got {ch!r}")
+        lens[i] = len(enc)
+        for j, (op, a, b) in enumerate(enc):
+            ops[i, j], p0[i, j], p1[i, j] = op, a, b
+    return lens, ops, p0, p1
+
+
+def _launch(parts, layout, prologues, compute_dtype, slot_chain, total_chains, census,
+            dual) -> torch.Tensor:
     nseg = len(parts)
     dev = parts[0].device
     n_live = len(layout)
@@ -792,29 +891,24 @@ def _launch(parts, layout, prologues, total_chains, census) -> torch.Tensor:
     dtypes = np.array([build.dtype_code(p) for p in live], dtype=np.int32)
     pros = np.array([_PROLOGUE_CODES[prologues[s]] for (s, _, _, _) in layout], dtype=np.int32)
     k = len(total_chains)
-    lens = np.zeros((max(k, 1),), dtype=np.int32)
-    ops = np.zeros((max(k, 1), MAX_CHAIN_STEPS), dtype=np.int32)
-    p0 = np.zeros((max(k, 1), MAX_CHAIN_STEPS), dtype=np.float32)
-    p1 = np.zeros((max(k, 1), MAX_CHAIN_STEPS), dtype=np.float32)
-    for i, ch in enumerate(total_chains):
-        enc = common.encode_epilogue(ch)
-        if len(enc) > MAX_CHAIN_STEPS:
-            raise ValueError(f"a chain takes at most {MAX_CHAIN_STEPS} steps; got {ch!r}")
-        lens[i] = len(enc)
-        for j, (op, a, b) in enumerate(enc):
-            ops[i, j], p0[i, j], p1[i, j] = op, a, b
-    out = torch.empty((nseg + k + ((nseg + 1) if census else 0),),
+    lens, ops, p0, p1 = _encode_chains(total_chains)
+    s_len, s_ops, s_p0, s_p1 = _encode_chains((slot_chain,))
+    out_slots = 2 * nseg if dual else nseg
+    out = torch.empty((out_slots + k + ((nseg + 1) if census else 0),),
                       dtype=torch.float32, device=dev)
-    # n_tiles f32 partial sums and n_tiles int32 partial counts: every CTA
-    # writes its own, so they need no clearing (and no second launch)
-    scratch = torch.empty((2 * n_tiles,), dtype=torch.int32, device=dev)
+    # n_tiles f32 partial sums, n_tiles f32 partial sums of squares and
+    # n_tiles int32 partial counts: every CTA writes its own, so they need
+    # no clearing (and no second launch)
+    scratch = torch.empty((3 * n_tiles,), dtype=torch.int32, device=dev)
     stream = build.stream_ptr(out)
     with torch.cuda.device(dev):
         err = build.library().pr_parts(
             ptrs.ctypes.data, sizes.ctypes.data, starts.ctypes.data, segs.ctypes.data,
-            dtypes.ctypes.data, pros.ctypes.data, n_live, nseg, lens.ctypes.data,
-            ops.ctypes.data, p0.ctypes.data, p1.ctypes.data, k, int(bool(census)),
-            out.data_ptr(), scratch.data_ptr(), _ticket("parts", dev, stream).data_ptr(), stream,
+            dtypes.ctypes.data, pros.ctypes.data, n_live, nseg,
+            build.DTYPE_CODES[compute_dtype], int(dual), int(s_len[0]), s_ops.ctypes.data,
+            s_p0.ctypes.data, s_p1.ctypes.data, lens.ctypes.data, ops.ctypes.data,
+            p0.ctypes.data, p1.ctypes.data, k, int(bool(census)), out.data_ptr(),
+            scratch.data_ptr(), _ticket("parts", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_sum_parts")
     return out
@@ -826,6 +920,7 @@ def mma_sum_parts(
     *,
     compute_dtype=torch.float32,
     prologue="identity",
+    slot_epilogue=(),
     total_chains=(),
     census: bool = False,
 ) -> torch.Tensor:
@@ -833,20 +928,25 @@ def mma_sum_parts(
     packing copy -> ``(S + K [+ S + 1],)`` f32 row (see the module doc).
 
     ``prologue`` is a name or one name per part ("identity", "square",
-    "abs"); ``total_chains`` is a tuple of K normalized epilogue chains of
-    the cross-part total. The compute dtype is f32 (``reduce_tree`` forces
-    it); bf16/f16 compute is not ported and raises NotImplementedError.
-    CPU tensors run the plain version; CUDA tensors launch the kernel. Not
-    differentiable: an input that requires grad raises."""
+    "abs", "moments"); a "moments" part also sums its squares (at the
+    compute dtype) into slot S + s of the widened ``(2 S,)`` row, and other
+    parts leave that slot 0. ``slot_epilogue`` maps every flushed per-part
+    total in the launch (empty parts keep 0 while any part is live, as in
+    the reference); ``total_chains`` is a tuple of K normalized chains of
+    the RAW cross-part total. Neither chains nor census compose with a
+    "moments" part. ``compute_dtype``: f32 sums on the CUDA cores; bf16 and
+    f16 round each element there and take the row sums as ones-MMAs on the
+    tensor cores. Parts other than f32/bf16/f16 are cast to f32 first (one
+    staging copy each). CPU tensors run the plain version; CUDA tensors
+    launch the kernel. Not differentiable: an input that requires grad
+    raises (``reduce_many`` and ``reduce_tree`` differentiate it)."""
     parts = tuple(parts)
-    common.refuse_grad("mma_sum_parts", *parts, entry="repro_torch.reduce.reduce_tree")
+    common.refuse_grad("mma_sum_parts", *parts, entry="repro_torch.reduce.reduce_many")
     nseg = len(parts)
+    slot_chain = common.normalize_epilogue(slot_epilogue)
     total_chains = tuple(common.normalize_epilogue(c) for c in total_chains)
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"parts reduction with compute dtype {compute_dtype} is not ported; "
-            "only float32 compute (the reduce_tree path) is"
-        )
+    if compute_dtype not in _NATIVE:
+        raise ValueError(f"compute dtype must be one of {_NATIVE}; got {compute_dtype}")
     if nseg == 0:
         if total_chains:
             raise ValueError("total_chains need at least one part")
@@ -854,22 +954,336 @@ def mma_sum_parts(
             raise ValueError("census needs at least one part")
         return torch.zeros((0,), dtype=torch.float32)
     pros = common.normalize_part_prologues(prologue, nseg)
-    if "moments" in pros:
-        raise ValueError("the parts kernel does not take a 'moments' part")
+    dual = "moments" in pros
+    if dual and (slot_chain or total_chains or census):
+        raise ValueError(
+            "parts epilogues/census do not compose with a 'moments' part (its flush writes "
+            "two coupled slots); run the moments leaf as separate 'identity'/'square' parts")
     if len(total_chains) > MAX_CHAINS:
         raise ValueError(f"at most {MAX_CHAINS} total chains; got {len(total_chains)}")
-    layout = parts_layout([p.numel() for p in parts], TILE)
-    if common.on_cpu(*parts):
-        if not layout:
-            return _empty_row(nseg, total_chains, census, parts[0].device)
-        return mma_sum_parts_plain(parts, pros, total_chains, census)
+    if len(common.encode_epilogue(slot_chain)) > MAX_CHAIN_STEPS:
+        raise ValueError(f"a chain takes at most {MAX_CHAIN_STEPS} steps; got {slot_chain!r}")
+    flats = [_ingest(p)[0] for p in parts]
+    layout = parts_layout([f.numel() for f in flats], TILE)
+    out_slots = 2 * nseg if dual else nseg
     if not layout:
-        return _empty_row(nseg, total_chains, census, parts[0].device)
+        return _empty_row(nseg, out_slots, slot_chain, total_chains, census, parts[0].device)
+    if common.on_cpu(*parts):
+        return mma_sum_parts_plain(flats, pros, total_chains, census, compute_dtype, slot_chain)
     if len(layout) > PARTS_KERNEL_MAX:
         raise ValueError(
             f"{len(layout)} live parts exceed PARTS_KERNEL_MAX={PARTS_KERNEL_MAX}; "
-            "the reduce backends fold such trees host-side"
+            "the reduce backends pack such trees and take one sum_segments pass"
         )
-    out = _launch(parts, layout, pros, total_chains, census)
+    out = _launch(flats, layout, pros, compute_dtype, slot_chain, total_chains, census, dual)
     mma_sum_parts.launches += 1
+    return out
+
+
+# --------------------------- segmented gather (K8) -----------------------------
+
+
+def segment_cover_layout(offsets: Sequence[int], group: int):
+    """Aligned-block cover of a segmented flat buffer (the reference's):
+    segment s spans ``[offsets[s], offsets[s + 1])``; its tiles are the
+    ``group``-aligned blocks that overlap it, each with the in-block window
+    ``[lo, hi)`` of s's elements. A non-aligned boundary puts its block in
+    both neighbours' covers. Returns ``(tile_counts, src_blk, seg_of, lo_in,
+    hi_in)``: per-segment cover sizes (0 for empty segments) and the four
+    int32 per-tile maps."""
+    offs = np.asarray(offsets, np.int64)
+    a, b = offs[:-1], offs[1:]
+    live = b > a
+    blk0 = a // group
+    counts = np.where(live, -(-b // group) - blk0, 0)
+    seg = np.repeat(np.arange(counts.size, dtype=np.int64), counts)
+    # each cover tile's block: its segment's first block plus its rank there
+    first = np.cumsum(counts) - counts
+    src = blk0[seg] + np.arange(seg.size, dtype=np.int64) - first[seg]
+    lo = np.maximum(a[seg] - src * group, 0)
+    hi = np.minimum(b[seg] - src * group, group)
+    return (tuple(int(c) for c in counts),) + tuple(v.astype(np.int32)
+                                                    for v in (src, seg, lo, hi))
+
+
+def segment_tile_layout(offsets: Sequence[int], group: int):
+    """Tile bookkeeping of a PACKED segmented stream (each segment
+    zero-padded to whole tiles and concatenated): per-segment tile counts,
+    the tile -> segment map and the serial flush map (1 on each non-empty
+    segment's last tile)."""
+    sizes = np.diff(np.asarray(offsets, np.int64))
+    tcounts = tuple(int(-(-s // group)) if s > 0 else 0 for s in sizes)
+    total = sum(tcounts)
+    seg_of = np.zeros((total,), np.int32)
+    flush = np.zeros((total,), np.int32)
+    pos = 0
+    for s, tc in enumerate(tcounts):
+        if tc == 0:
+            continue
+        seg_of[pos:pos + tc] = s
+        flush[pos + tc - 1] = 1
+        pos += tc
+    return tcounts, seg_of, flush
+
+
+def lane_flush_map(seg_of, tiles_per_block: int, num_cores: int) -> np.ndarray:
+    """Lane-aware flush flags of a striped segmented stream: lane ci of C
+    streams blocks ci, ci + C, ... of ``tiles_per_block`` tiles, and flags
+    position p iff p is the last tile of its segment within its own stripe.
+    One lane gives the serial last-tile-of-segment map. (The reference's
+    loop, as one vectorized pass: the next tile of p's stripe is p + 1 inside
+    a block, else the first tile of the lane's next block.)"""
+    seg_of = np.asarray(seg_of)
+    t = int(seg_of.size)
+    if t == 0:
+        return np.zeros((0,), np.int32)
+    r, c, _, _ = cost_model.stripe_geometry(t, tiles_per_block, num_cores)
+    p = np.arange(t, dtype=np.int64)
+    nxt = np.where(p % r < r - 1, p + 1, p + (c - 1) * r + 1)
+    last = nxt >= t
+    differs = seg_of[np.minimum(nxt, t - 1)] != seg_of
+    return (last | differs).astype(np.int32)
+
+
+def segmented_trace(n: int, flushes: int, tiles: int, num_cores: int, *, itemsize: int = 4,
+                    fetched_elems: int | None = None, segments: int = 1, dual: bool = False,
+                    census: bool = False, launch_io_bytes: int = 0) -> ReductionTrace:
+    """The reference's MMA count and modeled bytes of one gather pass (flush
+    MMAs are the combine; ``fetched_elems`` counts every element the cover
+    reads; ``segments`` and ``flushes`` arrive widened for moments and
+    census), with the bytes measured at the launch."""
+    _, c, _, tpad = cost_model.stripe_geometry(tiles, 1, num_cores)
+    d = 2 if (dual or census) else 1
+    hbm = cost_model.segmented_hbm_bytes(fetched_elems if fetched_elems is not None else n,
+                                         itemsize, segments=segments, tiles=tiles,
+                                         num_cores=num_cores)
+    return ReductionTrace(n=n, m=MXU, levels=1, mma_ops=d * tpad + flushes, num_cores=c,
+                          lane_mma_ops=d * (tpad // c), combine_mma_ops=flushes,
+                          hbm_bytes=hbm.total, census=census, launch_io_bytes=launch_io_bytes)
+
+
+def _cover_fetched_elems(src_blk, flat_size: int, group: int) -> int:
+    """Elements the gather reads: one block per cover tile, clipped to the
+    buffer (n for aligned segments; a straddled block is read once per
+    neighbour)."""
+    src = np.asarray(src_blk, np.int64)
+    return int(np.minimum(group, flat_size - src * group).sum())
+
+
+def segment_lanes(seg_of, nseg: int, lanes: int) -> np.ndarray:
+    """(C, S) bool: lane c streamed a tile of segment s (tile t of the
+    cover is lane t mod C's)."""
+    seg_of = np.asarray(seg_of, np.int64)
+    touched = np.zeros((lanes, nseg), bool)
+    touched[np.arange(seg_of.size) % lanes, seg_of] = True
+    return touched
+
+
+def combine_segment_partials(sub: torch.Tensor, touched=None) -> torch.Tensor:
+    """(C, S) lane sub-partials -> (S,) per-segment totals, in lane order
+    (f32): each segment's first lane's value, then the next lane's added,
+    ... over the lanes that streamed a tile of it (``touched``, (C, S)
+    bool; all lanes when None); a segment no lane streamed is 0. The
+    kernel's last CTA folds in the same order, so the two agree bitwise on
+    the same partials; with C = 1 this is the identity."""
+    if touched is None:
+        touched = np.ones(tuple(sub.shape), bool)
+    touched = torch.as_tensor(touched, device=sub.device)
+    out = torch.zeros(sub.shape[1], dtype=sub.dtype, device=sub.device)
+    started = torch.zeros(sub.shape[1], dtype=torch.bool, device=sub.device)
+    for c in range(sub.shape[0]):
+        m = touched[c]
+        out = torch.where(m & started, out + sub[c], torch.where(m, sub[c], out))
+        started |= m
+    return out
+
+
+def _segments_all_empty(nseg, epilogue, census, dual, device) -> torch.Tensor:
+    per = common.apply_epilogue(torch.zeros((nseg,), dtype=torch.float32, device=device),
+                                epilogue)
+    if census:  # nothing streamed: zero counts, no chain
+        return torch.cat([per, torch.zeros((nseg,), dtype=torch.float32, device=device)])
+    return torch.zeros((2 * nseg,), dtype=torch.float32, device=device) if dual else per
+
+
+@functools.lru_cache(maxsize=64)
+def _cover_maps(offsets: tuple, num_lanes: int):
+    """The cover layout and the (5, tpad) int32 map array the gather kernel
+    reads: rows src block, segment, lane-aware flush flag, lo, hi; padded to
+    whole lanes with fully masked tiles (lo == hi == 0, no flush) whose
+    segment is S, so the segment row stays sorted. Cached on the offsets
+    (a packed layout is reduced again and again); callers must not write
+    to the arrays."""
+    tcounts, src, seg, lo, hi = segment_cover_layout(offsets, TILE)
+    t = int(src.size)
+    flush = lane_flush_map(seg, 1, num_lanes)
+    _, c, tpl, tpad = cost_model.stripe_geometry(max(t, 1), 1, num_lanes)
+    maps = np.zeros((5, tpad), np.int32)
+    maps[1, t:] = len(offsets) - 1
+    for row, a in enumerate((src, seg, flush, lo, hi)):
+        maps[row, :t] = a
+    maps.setflags(write=False)
+    return tcounts, maps, t, c, tpl
+
+
+@functools.lru_cache(maxsize=16)
+def _device_maps(offsets: tuple, num_lanes: int, device: str) -> torch.Tensor:
+    """``_cover_maps``' array on the card, uploaded once per layout."""
+    return torch.from_numpy(_cover_maps(offsets, num_lanes)[1].copy()).to(device)
+
+
+def mma_sum_segments_plain(flat: torch.Tensor, offsets: Sequence[int],
+                           compute_dtype=torch.bfloat16, prologue: str = "identity",
+                           epilogue=(), census: bool = False,
+                           num_lanes: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of the gather kernel: each cover tile's block,
+    cast to the compute dtype and masked to its window ``[lo, hi)``, counted
+    if non-finite, mapped by the prologue at the compute dtype, its rows
+    summed (``tile_row_sums_plain``); lane c adds its tiles' rows in its
+    stripe order and at each flush folds them (``fold_rows_plain``) into its
+    (c, segment) slot; the lanes fold in order (``combine_segment_partials``)
+    and the chain maps every sum slot, empty segments included. At f32
+    compute this is the kernel's arithmetic, bitwise; at bf16/f16 the
+    tensor cores sum each row in their own order."""
+    chain = common.normalize_epilogue(epilogue)
+    nseg = len(offsets) - 1
+    dual = prologue == "moments"
+    flat = flat.reshape(-1)
+    dev = flat.device
+    tcounts, maps, t, c, tpl = _cover_maps(tuple(int(o) for o in offsets), num_lanes)
+    if t == 0:
+        return _segments_all_empty(nseg, chain, census, dual, dev)
+    out_slots = 2 * nseg if (dual or census) else nseg
+    n = flat.numel()
+    nblk = common.ceil_div(n, TILE)
+    v = _round(flat.to(torch.float32), compute_dtype)
+    blocks = torch.nn.functional.pad(v, (0, nblk * TILE - n)).view(nblk, TILE)
+    m = torch.from_numpy(maps.astype(np.int64)).to(dev)
+    src, seg, flush, lo, hi = m
+    tiles = blocks[src]  # (tpad, m^2): padded tiles read block 0, fully masked
+    lin = torch.arange(TILE, device=dev)
+    window = (lin[None, :] >= lo[:, None]) & (lin[None, :] < hi[:, None])
+    tiles = torch.where(window, tiles, torch.zeros((), device=dev))
+    second = None
+    if census:
+        second = tile_row_sums_plain((~torch.isfinite(tiles)).to(torch.float32))
+    if dual:
+        first = tile_row_sums_plain(tiles)
+        second = tile_row_sums_plain(_round(tiles * tiles, compute_dtype))
+    else:
+        first = tile_row_sums_plain(_map(tiles, prologue, compute_dtype))
+    sub = torch.zeros((c, out_slots), dtype=torch.float32, device=dev)
+    acc = torch.zeros((c, MXU), dtype=torch.float32, device=dev)
+    acc2 = torch.zeros_like(acc)
+    lanes = torch.arange(c, device=dev)
+    first, seg_l, flush_l = (a.view(tpl, c, *a.shape[1:]) for a in (first, seg, flush))
+    second = second.view(tpl, c, MXU) if second is not None else None
+    for j in range(tpl):
+        acc = acc + first[j]
+        if second is not None:
+            acc2 = acc2 + second[j]
+        f = flush_l[j] != 0
+        if not bool(f.any()):
+            continue
+        cols = seg_l[j][f]
+        sub[lanes[f], cols] = fold_rows_plain(acc[f])
+        acc[f] = 0.0
+        if second is not None:
+            sub[lanes[f], nseg + cols] = fold_rows_plain(acc2[f])
+            acc2[f] = 0.0
+    touched = segment_lanes(maps[1, :t], nseg, c)
+    if out_slots > nseg:  # the second slot of a segment was streamed by the same lanes
+        touched = np.concatenate([touched, touched], axis=1)
+    out = combine_segment_partials(sub, touched)
+    if chain:  # the sum slots; counts stay raw tallies
+        out = torch.cat([common.apply_epilogue(out[:nseg], chain), out[nseg:]])
+    return out
+
+
+@common.counted("mma_sum_segments")
+def mma_sum_segments(
+    flat: torch.Tensor,
+    offsets: Sequence[int],
+    *,
+    compute_dtype=torch.bfloat16,
+    prologue: str = "identity",
+    epilogue=(),
+    census: bool = False,
+    num_lanes: int = 1,
+    trace: list | None = None,
+) -> torch.Tensor:
+    """Sum S segments ``flat[offsets[s]:offsets[s + 1]]`` of one flat buffer
+    in ONE kernel launch, reading the buffer in place through the aligned
+    block cover (``segment_cover_layout``; no slice-pad-concatenate copy).
+    Returns (S,) f32, or (2 S,) with ``prologue="moments"`` (sums, then sums
+    of squares at the compute dtype) or with ``census`` (sums, then each
+    segment's non-finite count of its compute-cast values). The prologue
+    (identity, square, abs) maps each masked value at the compute dtype.
+    ``epilogue`` maps every sum slot -- empty segments give the chain of 0
+    at any lane count -- but not with "moments"; counts stay raw.
+
+    The cover is striped over ``num_lanes`` CTAs one tile at a time; each
+    lane flushes one sub-partial per segment it visits (``lane_flush_map``),
+    and the launch's last CTA folds the lanes in lane order
+    (``combine_segment_partials``). Input other than f32/bf16/f16 is cast
+    to f32 first. ``trace`` gets the pass's ``segmented_trace``, with the
+    bytes handed to and written by the launch. CPU tensors: plain
+    version."""
+    common.refuse_grad("mma_sum_segments", flat, entry="repro_torch.reduce.reduce_many")
+    common.check_prologue(prologue)
+    if compute_dtype not in _NATIVE:
+        raise ValueError(f"compute dtype must be one of {_NATIVE}; got {compute_dtype}")
+    if num_lanes < 1:
+        raise ValueError(f"num_lanes must be >= 1; got {num_lanes}")
+    chain = common.normalize_epilogue(epilogue)
+    dual = prologue == "moments"
+    if chain and dual:
+        raise ValueError("segment epilogues do not compose with prologue='moments' "
+                         "(each flush writes two coupled slots)")
+    if census and dual:
+        raise ValueError("census does not compose with prologue='moments' (both claim the "
+                         "second accumulator); run moments as separate segments")
+    offsets = tuple(int(o) for o in offsets)
+    nseg = len(offsets) - 1
+    if nseg <= 0:
+        return torch.zeros((0,), dtype=torch.float32, device=flat.device)
+    src_flat, fallback = _ingest(flat)
+    if offsets[0] < 0 or offsets[-1] > src_flat.numel() or any(
+            b < a for a, b in zip(offsets, offsets[1:])):
+        raise ValueError(f"offsets must rise from 0 within the buffer of {src_flat.numel()}")
+    tcounts, maps, t, c, tpl = _cover_maps(offsets, num_lanes)
+    if t == 0:
+        return _segments_all_empty(nseg, chain, census, dual, flat.device)
+    out_slots = 2 * nseg if (dual or census) else nseg
+    if trace is not None:
+        itemsize = src_flat.element_size()
+        fetched = _cover_fetched_elems(maps[0, :t], src_flat.numel(), TILE)
+        io = fetched * itemsize + maps.nbytes + c * out_slots * 4
+        flushes = int(maps[2].sum())
+        trace.append(dataclasses.replace(
+            segmented_trace(src_flat.numel(), (2 if (dual or census) else 1) * flushes, t,
+                            num_lanes, itemsize=itemsize, fetched_elems=fetched,
+                            segments=out_slots, dual=dual, census=census,
+                            launch_io_bytes=io),
+            fallback=fallback))
+    if common.on_cpu(flat):
+        return mma_sum_segments_plain(src_flat, offsets, compute_dtype, prologue, chain, census,
+                                      num_lanes)
+    x = src_flat.contiguous()
+    dev = x.device
+    steps, ops, p0, p1 = _encode_chain(chain)
+    dmaps = _device_maps(offsets, num_lanes, str(dev))
+    sub = torch.empty((c, out_slots), dtype=torch.float32, device=dev)
+    out = torch.empty((out_slots,), dtype=torch.float32, device=dev)
+    stream = build.stream_ptr(out)
+    with torch.cuda.device(dev):
+        err = build.library().sg_segments(
+            x.data_ptr(), x.numel(), build.dtype_code(x), build.DTYPE_CODES[compute_dtype],
+            _PROLOGUE_CODES[prologue], int(bool(census)), dmaps.data_ptr(), maps.shape[1], c,
+            nseg, int(x.data_ptr() % 16 == 0), steps, ops.ctypes.data, p0.ctypes.data,
+            p1.ctypes.data, sub.data_ptr(), out.data_ptr(),
+            _ticket("segments", dev, stream).data_ptr(), stream,
+        )
+    build.check(err, "mma_sum_segments")
+    mma_sum_segments.launches += 1
     return out

@@ -9,7 +9,7 @@ with no GPU and no ``--device`` it raises.
   python -m repro_torch.launch.reduce_demo                 # n = 2^28 on the card
   python -m repro_torch.launch.reduce_demo --device cpu --n 65536
 
-Three tables:
+Four tables:
 
   1. step counts: for m = 4, 16 (``mma_torch``) and 128 (the level kernel,
      ``cuda_hier``), the levels and model steps of the hierarchy's trace,
@@ -21,7 +21,14 @@ Three tables:
      carry differs);
   3. time per call of each backend on the same numbers (CUDA events on the
      card, the card's name and power limit beside them; on the CPU the
-     host clock, which is no device time).
+     host clock, which is no device time);
+  4. the segmented multi-reduce (the reference demo's section): three
+     segments through ``reduce_many(kind="sumsq")`` against f64, and the
+     plan line; then the n numbers as 2048 packed segments of seeded ragged
+     lengths (two empty in the middle, boundaries off the tile grid)
+     through ``reduce_many`` on ``cuda_fused`` -- the pack and ONE launch
+     of the gather kernel -- with the worst error against the f64 segment
+     sums relative to each segment's mass, and the time per call.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from repro_torch.kernels.mma_reduce import mma_sum_hier
 from repro_torch.launch.serve import resolve_device
 
 STEP_MS = (4, 16, 128)
+SEGMENTS = 2048  # packed documents in the segmented table
 MULTIPLIERS = (("bf16", torch.bfloat16), ("f16", torch.float16), ("f32", torch.float32))
 TIMED = (
     ("torch", dict(backend="torch")),
@@ -128,6 +136,51 @@ def time_table(x: torch.Tensor, iters: int) -> list:
     return rows
 
 
+def packed_offsets(n: int, count: int = SEGMENTS, seed: int = 0) -> np.ndarray:
+    """Offsets of ``count`` ragged segments that pack n numbers: seeded
+    random boundaries (off the 16384-element tile grid, almost surely), the
+    first segment and two in the middle empty."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.integers(1, n, size=count - 1))
+    for i in (count // 3, 2 * count // 3):
+        cuts[i] = cuts[i - 1]
+    offsets = np.concatenate([[0], cuts, [n]]).astype(np.int64)
+    offsets[1] = 0
+    return offsets
+
+
+def segmented_table(x: torch.Tensor, iters: int, seed: int) -> dict:
+    """The reference demo's three segments, then ``x`` as packed segments
+    through ``reduce_many`` on ``cuda_fused``."""
+    gen = np.random.default_rng(seed)
+    segs = [torch.from_numpy(gen.standard_normal(k).astype(np.float32)).to(x.device)
+            for k in (33, 1000, 16385)]
+    batched = R.reduce_many(segs, kind="sumsq")
+    three = []
+    for a, got in zip(segs, batched.tolist()):
+        exact = float((a.double() ** 2).sum())
+        three.append((a.numel(), got, exact))
+        print(f"  segment n={a.numel():>6}: batched={got:12.4f} exact={exact:12.4f}")
+    plan = R.plan_for((sum(a.numel() for a in segs),), torch.float32, kind="sumsq",
+                      segments=len(segs))
+    print("  plan:", plan)
+    offsets = packed_offsets(x.numel(), min(SEGMENTS, x.numel()), seed)
+    parts = list(torch.split(x, np.diff(offsets).tolist()))
+    got = R.reduce_many(parts, backend="cuda_fused").double()
+    ids = torch.repeat_interleave(torch.arange(len(parts), device=x.device),
+                                  torch.from_numpy(np.diff(offsets)).to(x.device))
+    exact = torch.zeros(len(parts), dtype=torch.float64, device=x.device).index_add_(
+        0, ids, x.double())
+    mass = torch.zeros_like(exact).index_add_(0, ids, x.double().abs())
+    worst = float(((got - exact).abs() / mass.clamp_min(1e-30)).max())
+    ms = time_per_call(lambda: R.reduce_many(parts, backend="cuda_fused"), x.device, iters)
+    print(f"  {len(parts)} packed segments of n = {x.numel()} f32 (reduce_many, cuda_fused, "
+          f"bf16 multipliers): worst |error| / segment mass vs f64 {worst:.3e}; "
+          f"{ms * 1e3:.2f} us per call")
+    return {"three": three, "plan": plan, "count": len(parts), "worst_rel_to_mass": worst,
+            "ms": ms, "offsets": offsets}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 28, help="numbers reduced (default 2^28)")
@@ -156,7 +209,11 @@ def main(argv=None) -> dict:
     times = time_table(x, args.iters)
     for name, ms in times:
         print(f"  {name:24s} {ms * 1e3:12.2f} us")
-    return {"steps": steps, "precision": prec, "times": times, "device": label}
+
+    print(f"\n=== segmented multi-reduce: N reductions, ONE pass ({label}) ===")
+    segments = segmented_table(x, args.iters, args.seed)
+    return {"steps": steps, "precision": prec, "times": times, "segments": segments,
+            "device": label}
 
 
 if __name__ == "__main__":

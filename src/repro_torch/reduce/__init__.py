@@ -1,9 +1,10 @@
 """The reduction engine: ``reduce`` (full and row reductions, with the
-precision policy) and ``reduce_tree`` (one statistic over many arrays, with
-the in-launch census), over the ``torch`` / ``mma_torch`` / ``cuda_hier`` /
-``cuda_fused`` backends."""
+precision policy), ``reduce_many`` (N arrays in one pass), ``reduce_tree``
+(one statistic over many arrays, with the in-launch census) and ``scan``
+(prefix sums), over the ``torch`` / ``mma_torch`` / ``cuda_hier`` /
+``cuda_fused`` backends and the ``segmented`` auto route."""
 
-from repro_torch.reduce.api import reduce, reduce_tree, tree_leaves  # noqa: F401
+from repro_torch.reduce.api import KINDS, reduce, reduce_many, reduce_tree, tree_leaves  # noqa: F401
 from repro_torch.reduce.backends import (  # noqa: F401
     Backend,
     available_backends,
@@ -12,11 +13,15 @@ from repro_torch.reduce.backends import (  # noqa: F401
 )
 from repro_torch.reduce.plan import (  # noqa: F401
     ReducePlan,
+    ScanPlan,
     backend_for_flags,
     default_backend,
     plan_for,
     quarantine_backend,
     quarantined_backends,
     reinstate_backend,
+    scan_plan_for,
+    segmented_backend_for,
     set_default_backend,
 )
+from repro_torch.reduce.scan import SCAN_KINDS, scan  # noqa: F401

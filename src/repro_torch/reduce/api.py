@@ -1,5 +1,5 @@
-"""``repro_torch.reduce.reduce`` and ``reduce_tree``: the reduction entry
-points of the serving and training paths.
+"""``repro_torch.reduce.reduce``, ``reduce_many`` and ``reduce_tree``: the
+reduction entry points.
 
 Port of ``repro/reduce/api.py``:
 
@@ -15,6 +15,13 @@ Port of ``repro/reduce/api.py``:
   reduce(x, axis=..., kind=...)  -- reductions over axes, kinds sum / mean
                                     / sumsq / norm2 / moments (the norm and
                                     softmax statistics), on any backend
+  reduce_many(arrays, kind=...)  -- N arrays reduced in ONE backend pass:
+                                    each fully (axis=None) -> (N,), or over
+                                    its last axis (axis=-1) -> a list; on
+                                    the kernel backends one launch of the
+                                    parts kernel (K4) up to 128 live
+                                    arrays, past that the arrays packed and
+                                    one launch of the gather kernel (K8)
   reduce_tree(leaves, kind=...)  -- a whole tree of arrays to one
                                     statistic (sum / sumsq / norm2), with
                                     epilogue chains, per-leaf partials and
@@ -35,15 +42,19 @@ differentiate natively. A kernel-backed full reduction goes through
 cotangent is the prologue's chain rule (identity: broadcast g; square:
 2 x g; abs: sign(x) g), after the epilogue's own chain rule taken by
 autograd on the raw total; full moments through ``_KMoments`` (the
-reference's ``_kmoments``: gs + 2 x gss). Not differentiable:
-``census=True`` (raises on an input that requires grad) and
-``reduce_tree`` (the optimizer's statistic of gradients).
+reference's ``_kmoments``: gs + 2 x gss). The parts pass of ``reduce_many``
+and ``reduce_tree`` goes through ``_KSumParts`` and ``_KSumPartsTotal``
+(the reference's ``_ksum_parts`` and ``_ksum_parts_total``): each part's
+cotangent is the prologue's chain rule against its slot(s), after the
+chains' own rule at the raw totals. Not differentiable: ``reduce(...,
+census=True)`` (raises on an input that requires grad).
 
-Not ported: ``reduce_many`` and ``mesh_axes``.
+Not ported: ``mesh_axes`` (the distributed combine).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -52,6 +63,7 @@ import torch
 from repro_torch.core import precision as _precision
 from repro_torch.kernels import common as _kcommon
 from repro_torch.reduce import backends as _backends
+from repro_torch.reduce import plan as P
 from repro_torch.reduce.plan import ReducePlan, dtype_name, plan_for
 
 KINDS = ("sum", "mean", "sumsq", "norm2", "moments")
@@ -230,14 +242,16 @@ def _reduce_census_full(x: torch.Tensor, kind: str, plan: ReducePlan, chain: tup
     return stat.to(accum), count.to(accum)
 
 
-def _resolve_plan(x, axis_t, kind, plan, **fields) -> ReducePlan:
+def _resolve_plan(shape, dtype, axis_t, kind, plan, segments=None, **fields) -> ReducePlan:
     """The planner's choice (``plan_for``), or the given plan with the set
     keyword fields overriding it (the reference's ``_resolve_plan``)."""
     if plan is None:
-        return plan_for(x.shape, x.dtype, kind=kind, axis=axis_t or None, **fields)
+        return plan_for(shape, dtype, kind=kind, axis=axis_t or None, segments=segments,
+                        **fields)
     over = {k: v for k, v in fields.items() if v is not None}
-    if "compute_dtype" in over:
-        over["compute_dtype"] = dtype_name(over["compute_dtype"])
+    for key in ("compute_dtype", "accum_dtype"):
+        if key in over:
+            over[key] = dtype_name(over[key])
     return plan.replace(**over) if over else plan
 
 
@@ -292,7 +306,8 @@ def reduce(
         )
     if (census or chain) and kind == "moments":
         raise ValueError("census and epilogue chains do not compose with kind='moments'")
-    p = _resolve_plan(x, axis_t, kind, plan, backend=backend, compute_dtype=compute_dtype,
+    p = _resolve_plan(x.shape, x.dtype, axis_t, kind, plan, backend=backend,
+                      compute_dtype=compute_dtype,
                       num_lanes=num_lanes, tiles_per_block=tiles_per_block,
                       precision=precision, kahan_block=kahan_block)
     accum = p.accum_torch
@@ -337,6 +352,289 @@ def reduce(
     return torch.sqrt(out) if kind == "norm2" else out
 
 
+# ------------------------- the parts pass (K4, K8) ---------------------------
+
+
+def _sum_parts_impl(parts, plan: ReducePlan, prologue="identity", epilogue: tuple = ()):
+    """(S,) (or (2 S,) with moments) per-part sums of the backend's pass."""
+    accum = plan.accum_torch
+    if not parts:
+        return torch.zeros((0,), dtype=accum)
+    if plan.precision == "kahan":
+        # each part flushes once: no serial combine to compensate, so the
+        # multipliers run at the accumulator width, as for rows
+        plan = plan.replace(compute_dtype=plan.accum_dtype)
+    return _backends.get_backend(plan.backend).sum_parts(tuple(parts), plan, prologue,
+                                                         epilogue).to(accum)
+
+
+def _sum_parts_total_impl(parts, plan: ReducePlan, prologue="identity", chains=((),),
+                          census: bool = False):
+    """(S + K [+ S + 1],): per-part sums, chain k of their total at S + k,
+    and the census counts, from one backend pass."""
+    if plan.precision == "kahan":
+        plan = plan.replace(compute_dtype=plan.accum_dtype)
+    return _backends.get_backend(plan.backend).sum_parts_total(
+        tuple(parts), plan, prologue, chains, census).to(plan.accum_torch)
+
+
+def _parts_grads(ctx, g):
+    """Per-part cotangents from the (S,) or (2 S,) slot cotangent ``g``:
+    identity broadcasts g[s]; square 2 x g[s]; abs sign(x) g[s]; moments
+    g[s] + 2 x g[S + s]."""
+    saved = ctx.saved_tensors
+    nseg = len(ctx.pros)
+    grads = []
+    for s, (pro, x, shape, dtype) in enumerate(zip(ctx.pros, saved, ctx.shapes, ctx.dtypes)):
+        if not ctx.needs_input_grad[ctx.first + s]:
+            grads.append(None)
+            continue
+        if pro == "identity":
+            grads.append(g[s].expand(shape).to(dtype))
+            continue
+        xf = x.to(ctx.accum)
+        if pro == "square":
+            dx = 2.0 * xf * g[s]
+        elif pro == "abs":
+            dx = torch.sign(xf) * g[s]
+        else:
+            dx = g[s] + 2.0 * xf * g[nseg + s]
+        grads.append(dx.to(dtype))
+    return grads
+
+
+def _save_parts(ctx, parts, prologue, plan, first):
+    """Keep what the chain rule reads: the parts of non-identity prologues,
+    and every part's shape and dtype."""
+    ctx.pros = _kcommon.normalize_part_prologues(prologue, len(parts))
+    ctx.shapes = [p.shape for p in parts]
+    ctx.dtypes = [p.dtype for p in parts]
+    ctx.accum = plan.accum_torch
+    ctx.first = first
+    ctx.save_for_backward(*[p if pro != "identity" else None
+                            for p, pro in zip(parts, ctx.pros)])
+
+
+def _chain_grad(raw: torch.Tensor, chain: tuple, g: torch.Tensor) -> torch.Tensor:
+    """The cotangent of ``apply_epilogue(raw, chain)`` mapped back to raw."""
+    with torch.enable_grad():
+        r = raw.detach().requires_grad_(True)
+        (out,) = torch.autograd.grad(_kcommon.apply_epilogue(r, chain), r, g.to(raw.dtype))
+    return out
+
+
+class _KSumParts(torch.autograd.Function):
+    """The kernel-backed parts pass with the reference's ``_ksum_parts``
+    VJP. The forward sums epilogue-free and maps the chain host-side, so
+    the backward can take the chain's derivative at the raw sums."""
+
+    @staticmethod
+    def forward(ctx, plan, prologue, epilogue, *parts):
+        raw = _sum_parts_impl(parts, plan, prologue)
+        _save_parts(ctx, parts, prologue, plan, 3)
+        ctx.epilogue, ctx.raw = epilogue, raw.detach() if epilogue else None
+        return _kcommon.apply_epilogue(raw, epilogue)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.epilogue:
+            g = _chain_grad(ctx.raw, ctx.epilogue, g)
+        return (None, None, None, *_parts_grads(ctx, g))
+
+
+class _KSumPartsTotal(torch.autograd.Function):
+    """The kernel-backed per-part sums plus the chains of their total, with
+    the reference's ``_ksum_parts_total`` VJP. As the reference's
+    differentiated forward, the chains (and the census, from the host)
+    finish on the host, so the backward has the raw total: slot s feeds its
+    own output and, through the total, every chain output."""
+
+    @staticmethod
+    def forward(ctx, plan, prologue, chains, census, *parts):
+        per = _sum_parts_impl(parts, plan, prologue)
+        total = torch.sum(per)
+        pieces = [per, torch.stack([_kcommon.apply_epilogue(total, ch)
+                                    for ch in chains]).to(per.dtype)]
+        if census:
+            pieces.append(_backends.host_nonfinite_census(parts, per.dtype))
+        _save_parts(ctx, parts, prologue, plan, 4)
+        ctx.chains, ctx.total = chains, total.detach()
+        return torch.cat(pieces)
+
+    @staticmethod
+    def backward(ctx, g):
+        nseg = len(ctx.pros)
+        gtot = torch.zeros((), dtype=ctx.total.dtype, device=g.device)
+        for k, ch in enumerate(ctx.chains):
+            gtot = gtot + _chain_grad(ctx.total, ch, g[nseg + k])
+        return (None, None, None, None, *_parts_grads(ctx, g[:nseg] + gtot))
+
+
+def _prologue_arg(prologue):
+    return prologue if isinstance(prologue, str) else tuple(prologue)
+
+
+def _sum_parts(parts, plan: ReducePlan, prologue="identity", epilogue: tuple = ()):
+    """Differentiable parts pass: native autograd on the torch-code
+    backends, ``_KSumParts`` around the kernels."""
+    parts, prologue = tuple(parts), _prologue_arg(prologue)
+    if _backends.get_backend(plan.backend).native_autodiff or not _kcommon.needs_grad(*parts):
+        return _sum_parts_impl(parts, plan, prologue, epilogue)
+    return _KSumParts.apply(plan, prologue, epilogue, *parts)
+
+
+def _sum_parts_total(parts, plan: ReducePlan, prologue="identity", chains=((),),
+                     census: bool = False):
+    """Differentiable per-part sums plus the chains of their total."""
+    parts, prologue = tuple(parts), _prologue_arg(prologue)
+    if _backends.get_backend(plan.backend).native_autodiff or not _kcommon.needs_grad(*parts):
+        return _sum_parts_total_impl(parts, plan, prologue, chains, census)
+    return _KSumPartsTotal.apply(plan, prologue, chains, census, *parts)
+
+
+def _reduce_many_full(arrs, kind: str, plan: ReducePlan, chain: tuple = ()):
+    """Every array fully reduced by one parts pass: each array its own
+    operand in its own dtype on the kernel backends (squares for
+    sumsq/norm2 and the moments pair in-kernel), packed at accumulator
+    precision by the torch-code backends. ``chain`` maps every per-array
+    statistic (sum/sumsq/norm2)."""
+    sizes = [a.numel() for a in arrs]
+    if kind in ("sum", "mean"):
+        out = _sum_parts(arrs, plan, epilogue=chain)
+        if kind == "mean":
+            out = out / torch.tensor([max(n, 1) for n in sizes], dtype=plan.accum_torch,
+                                     device=out.device)
+        return out
+    if kind == "sumsq":
+        return _sum_parts(arrs, plan, "square", chain)
+    if kind == "norm2":
+        if chain:
+            return _sum_parts(arrs, plan, "square", (("sqrt",),) + chain)
+        return torch.sqrt(_sum_parts(arrs, plan, "square"))
+    # moments: both statistics from the one pass, the (2N,) layout
+    out = _sum_parts(arrs, plan, "moments")
+    return out[:len(arrs)], out[len(arrs):]
+
+
+def _reduce_many_rows(arrs, kind: str, plan: ReducePlan):
+    """Every array reduced over its last axis in one backend pass: the rows
+    zero-padded to the widest (exact: zeros add nothing) and stacked into
+    one row stream. Torch code on every backend, so autograd flows."""
+    accum = plan.accum_torch
+    for a in arrs:
+        if a.ndim == 0:
+            raise ValueError("reduce_many(axis=-1) needs arrays of ndim >= 1")
+    batch_shapes = [tuple(a.shape[:-1]) for a in arrs]
+    widths = [int(a.shape[-1]) for a in arrs]
+    rows_per = [int(math.prod(b)) for b in batch_shapes]
+    live = [i for i in range(len(arrs)) if widths[i] > 0 and rows_per[i] > 0]
+
+    def identities():
+        return [torch.zeros(b, dtype=accum, device=a.device) for a, b in zip(arrs, batch_shapes)]
+
+    if not live:
+        return (identities(), identities()) if kind == "moments" else identities()
+    lmax = max(widths[i] for i in live)
+
+    def stream(src):
+        rows = []
+        for i in live:
+            r = src[i].to(accum).reshape(-1, widths[i])
+            if widths[i] < lmax:
+                r = torch.nn.functional.pad(r, (0, lmax - widths[i]))
+            rows.append(r)
+        return rows[0] if len(rows) == 1 else torch.cat(rows)
+
+    def split(flat_out):
+        outs = identities()
+        for i, piece in zip(live, torch.split(flat_out, [rows_per[i] for i in live])):
+            outs[i] = piece.reshape(batch_shapes[i])
+        return outs
+
+    rp = _row_plan(plan)
+    be = _backends.get_backend(rp.backend)
+    if kind == "moments":
+        s, ss = be.moments_axis(stream(arrs), rp)
+        return split(s.to(accum)), split(ss.to(accum))
+    src = [torch.square(a.to(accum)) for a in arrs] if kind in ("sumsq", "norm2") else list(arrs)
+    outs = split(be.sum_axis(stream(src), rp).to(accum))
+    if kind == "mean":
+        return [o / max(w, 1) for o, w in zip(outs, widths)]
+    if kind == "norm2":
+        return [torch.sqrt(o) for o in outs]
+    return outs
+
+
+def reduce_many(
+    arrays,
+    kind: str = "sum",
+    *,
+    axis: Optional[int] = None,
+    plan: Optional[ReducePlan] = None,
+    backend: Optional[str] = None,
+    compute_dtype=None,
+    accum_dtype=None,
+    num_lanes: Optional[int] = None,
+    tiles_per_block: Optional[int] = None,
+    precision: Optional[str] = None,
+    kahan_block: Optional[int] = None,
+    epilogue=None,
+    mesh_axes=None,
+):
+    """Reduce N independent arrays in ONE backend pass instead of N.
+
+    ``arrays`` is a tree of tensors (``tree_leaves`` order). ``axis=None``
+    reduces every array fully -> an (N,) vector (moments: a pair of (N,)
+    vectors, both from the same pass as 2N slots); ``axis=-1`` reduces each
+    over its own last axis (widths may differ) -> a list (moments: a pair
+    of lists). Kinds as ``reduce``; an empty array's mean is 0 (0 / 1).
+
+    On the kernel backends the full reduction is ONE launch of the parts
+    kernel (K4), each array its own operand, mapped in-kernel at the
+    plan's compute dtype (bf16 for sum/mean/moments, f32 for sumsq/norm2,
+    as ``plan_for`` chooses); past 128 live arrays the arrays are packed at
+    accumulator precision and summed by ONE launch of the gather kernel
+    (K8), the reference's route. The auto backend is the "segmented" route.
+    ``epilogue`` (axis=None; sum/sumsq/norm2) maps every per-array
+    statistic. Differentiable on every backend. ``mesh_axes`` is not
+    ported.
+    """
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
+    if axis not in (None, -1):
+        raise ValueError("reduce_many reduces each array fully (axis=None) or over its last "
+                         f"axis (axis=-1); got axis={axis!r}")
+    if mesh_axes:
+        raise NotImplementedError(
+            "reduce_many(mesh_axes=...) is not ported: the distributed combine is ROADMAP.md "
+            "Queue 1 item 12")
+    chain = _kcommon.normalize_epilogue(epilogue)
+    if chain and axis is not None:
+        raise ValueError(f"reduce_many epilogues apply to full reductions (axis=None); "
+                         f"got axis={axis!r}")
+    if chain and kind in ("mean", "moments"):
+        raise ValueError(f"reduce_many epilogues do not compose with kind={kind!r} (mean: "
+                         "per-array 1/n scales differ; moments: two coupled outputs)")
+    arrs = tree_leaves(arrays)
+    if not arrs:
+        accum = P._DTYPES[dtype_name(accum_dtype)] if accum_dtype is not None else torch.float32
+        z = torch.zeros((0,), dtype=accum)
+        if axis is None:
+            return (z, z.clone()) if kind == "moments" else z
+        return ([], []) if kind == "moments" else []
+    total = sum(a.numel() for a in arrs)
+    dtype = functools.reduce(torch.promote_types, (a.dtype for a in arrs), arrs[0].dtype)
+    p = _resolve_plan((total,), dtype, None if axis is None else (-1,), kind, plan,
+                      segments=len(arrs), backend=backend, compute_dtype=compute_dtype,
+                      accum_dtype=accum_dtype, num_lanes=num_lanes,
+                      tiles_per_block=tiles_per_block, precision=precision,
+                      kahan_block=kahan_block)
+    if axis is None:
+        return _reduce_many_full(arrs, kind, p, chain)
+    return _reduce_many_rows(arrs, kind, p)
+
+
+
 def tree_leaves(tree) -> list:
     """Leaves of a nested dict / list / tuple of tensors, dict keys sorted
     (the reference's flatten order)."""
@@ -375,7 +673,9 @@ def reduce_tree(
     On cuda_fused the leaves themselves are the launch operands: ONE launch
     squares, sums, folds, finishes the chains and counts the census. The
     other backends reduce each leaf's rows, fold the partials, and apply
-    the chains and the census host-side (reference semantics).
+    the chains and the census host-side (reference semantics). Leaves that
+    require grad differentiate on every backend (``_KSumParts`` /
+    ``_KSumPartsTotal`` around the kernel; the census counts get none).
     """
     if kind not in TREE_KINDS:
         raise ValueError(f"reduce_tree supports {TREE_KINDS}; got {kind!r}")
@@ -413,12 +713,12 @@ def reduce_tree(
     prologue = "square" if square else "identity"
     if be.native_prologue:
         if chains is not None:
-            out = be.sum_parts_total(leaves, plan, prologue, chains, census).to(accum)
+            out = _sum_parts_total(leaves, plan, prologue, chains, census)
             s, k = len(leaves), len(chains)
             if census:
                 return _finish(out[:s], out[s:s + k], out[s + k:])
             return _finish(out[:s], out[s:])
-        total = torch.sum(be.sum_parts(leaves, plan, prologue))
+        total = torch.sum(_sum_parts(leaves, plan, prologue))
         return torch.sqrt(total) if kind == "norm2" else total
     partials = []
     for leaf in leaves:
@@ -428,7 +728,7 @@ def reduce_tree(
             partials.append(v.reshape(1))
             continue
         partials.append(be.sum_axis(v, plan).to(accum).reshape(-1))
-    per_leaf = be.sum_parts(partials, plan).to(accum)
+    per_leaf = _sum_parts(partials, plan)
     total = torch.sum(per_leaf)
     if chains is not None:
         totals = torch.stack([_kcommon.apply_epilogue(total, ch) for ch in chains]).to(accum)

@@ -1,7 +1,6 @@
-"""Reduction planning: backend and dtypes for one reduction.
+"""Reduction planning: backend and dtypes for one reduction or scan.
 
-Port of the parts of ``repro/reduce/plan.py`` the serving and training
-paths use: the frozen ``ReducePlan``, ``plan_for`` with the reference's
+Port of ``repro/reduce/plan.py``: the frozen ``ReducePlan``, ``plan_for`` with the reference's
 defaults (f32 accumulation; the exactness-sensitive kinds sumsq/norm2
 multiply at f32, other float reductions -- sum, mean, moments -- at bf16,
 the tensor-core mode the paper analyzes), the process default backend,
@@ -19,6 +18,13 @@ the guard's breaker chain) or by the config flags (``backend_for_flags``);
 backends leave AUTO rotation along cuda_fused -> mma_torch, cuda_hier ->
 mma_torch, mma_torch -> torch; explicit pins still reach them (the
 breaker's half-open probes).
+
+Segmented multi-reduce problems (``plan_for(..., segments=N)``, the route of
+``reduce_many``) go to the registered "segmented" backend on auto, which
+picks its executor per call (``segmented_backend_for``). Scans have their
+own plan (``ScanPlan`` / ``scan_plan_for``): compute at the operand's own
+dtype, and on auto the scan kernel for a long 1-D float stream on a CUDA
+device. Plans are not memoized here (they are small frozen dataclasses).
 """
 
 from __future__ import annotations
@@ -29,12 +35,15 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.common import MXU
+from repro_torch.kernels.common import MXU, native_ingest_dtype
 
 _default_backend: Optional[str] = None
 _QUARANTINED: set = set()
 _QUARANTINE_FALLBACK = {"cuda_fused": "mma_torch", "cuda_hier": "mma_torch",
                         "mma_torch": "torch"}
+# The kernel routes take a problem only when it spans at least this many
+# full tiles (the reference's _MIN_PALLAS_TILES).
+_MIN_KERNEL_TILES = 2
 PRECISIONS = ("native", "kahan")
 
 _DTYPES = {
@@ -51,6 +60,13 @@ def dtype_name(dtype) -> str:
             raise ValueError(f"unknown dtype {dtype!r}")
         return dtype
     return str(dtype).replace("torch.", "")
+
+
+def _is_float(dtype) -> bool:
+    """True for floating dtypes (a torch dtype or one of the dtype names)."""
+    if isinstance(dtype, str):
+        return dtype in _DTYPES
+    return dtype.is_floating_point
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,11 +173,16 @@ def plan_for(
     tiles_per_block: Optional[int] = None,
     precision: Optional[str] = None,
     kahan_block: Optional[int] = None,
+    segments: Optional[int] = None,
 ) -> ReducePlan:
     """The plan for reducing ``shape``/``dtype`` over ``axis`` (the reduced
     extent picks the auto backend; unset fields follow the reference:
-    8 tiles per block, native precision, Kahan blocks of 4096)."""
+    8 tiles per block, native precision, Kahan blocks of 4096).
+    ``segments=N`` marks a multi-reduce of N pieces (``shape`` is then the
+    packed stream): on auto it routes to the "segmented" backend."""
     name = backend if backend is not None else default_backend()
+    if name == "auto" and segments is not None:
+        name = "segmented"
     if name == "auto":
         axes = range(len(shape)) if axis is None else (
             (axis,) if isinstance(axis, int) else tuple(axis))
@@ -187,4 +208,121 @@ def plan_for(
         tiles_per_block=8 if tiles_per_block is None else int(tiles_per_block),
         precision="native" if precision is None else precision,
         kahan_block=4096 if kahan_block is None else int(kahan_block),
+    )
+
+
+def segmented_backend_for(n: int, dtype, m: int = MXU, device=None) -> str:
+    """The executor of a segmented multi-reduce of ``n`` elements in all
+    (the "segmented" backend's per-call choice, the reference's rules with
+    "on a real TPU" read as "the operand lies on a CUDA device"): exact
+    ``torch`` for non-float data and for n <= m; the kernels
+    (``cuda_fused``) for streams of at least two m^2 tiles at m = 128 on a
+    CUDA device; ``mma_torch`` otherwise. Quarantine applies."""
+    if not _is_float(dtype) or n <= m:
+        return "torch"
+    on_card = device is not None and torch.device(device).type == "cuda"
+    if on_card and m == MXU and n >= _MIN_KERNEL_TILES * m * m:
+        return _dequarantine("cuda_fused")
+    return _dequarantine("mma_torch")
+
+
+# ------------------------------- scan plans ----------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """How one prefix sum runs (the reference's fields, ``num_lanes`` for
+    ``num_cores``): backend ("torch": ``torch.cumsum`` at f32; "mma_torch":
+    the batched triangular product; "cuda_fused" / "cuda_hier": the scan
+    kernel for 1-D streams), the tile m, tiles per block, the kernel's lane
+    count (contiguous block ranges; 1 by default on every device: more lanes
+    only add carry-rebuild reads), and dtype names. The compute dtype
+    defaults to the operand's own ingest dtype, not bf16: every partial of a
+    scan is an output."""
+
+    backend: str = "mma_torch"
+    m: int = MXU
+    tiles_per_block: int = 8
+    num_lanes: int = 1
+    compute_dtype: str = "float32"
+    accum_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.m < 2:
+            raise ValueError(f"m must be >= 2; got {self.m}")
+        if self.num_lanes < 1:
+            raise ValueError(f"num_lanes must be >= 1; got {self.num_lanes}")
+        if self.tiles_per_block < 1:
+            raise ValueError(f"tiles_per_block must be >= 1; got {self.tiles_per_block}")
+
+    @property
+    def compute_torch(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    @property
+    def accum_torch(self) -> torch.dtype:
+        return _DTYPES[self.accum_dtype]
+
+    def replace(self, **kw) -> "ScanPlan":
+        return dataclasses.replace(self, **kw)
+
+    def hbm_bytes(self, n: int, dtype):
+        """Modeled bytes of scanning n elements of ``dtype`` under this plan:
+        ``cost_model.scan_hbm_bytes`` on the kernel backends (non-native
+        input at the f32 width it is cast to), one read and one write of
+        the operand elsewhere."""
+        from repro_torch.core import cost_model
+
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if self.backend in ("cuda_fused", "cuda_hier"):
+            return cost_model.scan_hbm_bytes(
+                n, itemsize if native_ingest_dtype(dtype) else 4, m=self.m,
+                num_cores=self.num_lanes, tiles_per_block=self.tiles_per_block)
+        return cost_model.HbmTraffic(kernel_read=n * itemsize, kernel_write=n * itemsize)
+
+
+def _auto_scan_backend(shape, dtype, m: int, device) -> str:
+    """Non-float data: exact integer adds (``torch``). Batched and short
+    streams: ``mma_torch`` (``torch`` up to one row of m). A long 1-D float
+    stream: the scan kernel on a CUDA device, else ``mma_torch``."""
+    n = int(shape[-1]) if shape else 1
+    if not _is_float(dtype):
+        return "torch"
+    if len(shape) > 1 or n < _MIN_KERNEL_TILES * m * m:
+        return "mma_torch" if n > m else "torch"
+    if device is not None and torch.device(device).type == "cuda":
+        return "cuda_fused"
+    return "mma_torch"
+
+
+def scan_plan_for(
+    shape: Sequence[int],
+    dtype,
+    *,
+    backend: Optional[str] = None,
+    m: Optional[int] = None,
+    tiles_per_block: Optional[int] = None,
+    num_lanes: Optional[int] = None,
+    compute_dtype=None,
+    device=None,
+) -> ScanPlan:
+    """The plan for scanning ``shape``/``dtype`` over its LAST axis.
+    Unset fields follow ``ScanPlan``; the backend resolves as ``plan_for``
+    does (explicit, process default, auto with quarantine), ``device`` the
+    operand's (auto picks the kernel only on a CUDA device)."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    m_ = MXU if m is None else int(m)
+    name = backend if backend is not None else default_backend()
+    if name == "auto":
+        name = _dequarantine(_auto_scan_backend(tuple(shape), dtype, m_, device))
+    if compute_dtype is None:
+        compute_dtype = dtype if native_ingest_dtype(dtype) else "float32"
+    return ScanPlan(
+        backend=name,
+        m=m_,
+        tiles_per_block=8 if tiles_per_block is None else int(tiles_per_block),
+        num_lanes=1 if num_lanes is None else int(num_lanes),
+        compute_dtype=dtype_name(compute_dtype),
+        accum_dtype="float32",
     )

@@ -1,7 +1,8 @@
 """Port parity: ``repro_torch.core.cost_model`` against
 ``repro.core.cost_model``, function by function over a grid of n, m, tiles
-per block and lanes; and the fused kernels' launch grids (K1, K2, K3)
-against the cost model's ``stripe_geometry``.
+per block and lanes (the full-reduction, segmented, parts and scan models);
+and the fused kernels' launch grids (K1, K2, K3) against the cost model's
+``stripe_geometry``.
 
 Every model is exact integer (or float) arithmetic on the same formulas,
 so the two sides must be equal.
@@ -79,8 +80,52 @@ def test_epilogue_model_refuses_what_the_reference_refuses():
     for fn in (C.fused_hbm_bytes, RC.fused_hbm_bytes):
         with pytest.raises(ValueError):
             fn(2**20, 4, num_cores=4, epilogue=True)
-    with pytest.raises(ValueError):
-        C.hbm_bytes("segmented", 10, 4)
+    for model in (C, RC):  # an unknown path
+        with pytest.raises(ValueError):
+            model.hbm_bytes("segmented_staged", 10, 4)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("tpb", TPBS)
+def test_scan_and_segmented_mma_models_match_reference(lanes, tpb):
+    for n, m in itertools.product(NS, (16, 128)):
+        got, want = C.scan_mma_ops(n, m, lanes, tpb), RC.scan_mma_ops(n, m, lanes, tpb)
+        assert dataclasses.astuple(got) == dataclasses.astuple(want)
+        assert (got.total, got.critical_path) == (want.total, want.critical_path)
+    for n, tiles, flushes, worst in ((1, 1, 1, None), (2**20, 80, 9, 3), (2**28, 18432, 2100,
+                                                                            None)):
+        got = C.segmented_mma_ops(n, tiles, flushes, 128, lanes, worst)
+        want = RC.segmented_mma_ops(n, tiles, flushes, 128, lanes, worst)
+        assert dataclasses.astuple(got) == dataclasses.astuple(want)
+        assert (got.total, got.critical_path) == (want.total, want.critical_path)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_multi_reduce_and_scan_hbm_models_match_reference(lanes, itemsize):
+    for n, m, tpb in itertools.product(NS, (16, 128), TPBS):
+        for path in ("scan", "scan_staged"):
+            kw = dict(m=m, num_cores=lanes, tiles_per_block=tpb)
+            assert _traffic(C.hbm_bytes(path, n, itemsize, **kw)) == _traffic(
+                RC.hbm_bytes(path, n, itemsize, **kw)), (path, n)
+        assert _traffic(C.scan_hbm_bytes(n, itemsize, out_itemsize=4, m=m, num_cores=lanes,
+                                         tiles_per_block=tpb)) == _traffic(
+            RC.scan_hbm_bytes(n, itemsize, out_itemsize=4, m=m, num_cores=lanes,
+                              tiles_per_block=tpb))
+    for n, segments, tiles, census in ((100, 1, 1, 0), (2**20, 30, 70, 30),
+                                       (2**28, 2048, 18432, 0), (2**28 + 9, 4096, 18433, 2048)):
+        fetched = n + 3 * 16384
+        kw = dict(segments=segments, tiles=tiles, num_cores=lanes, census=census)
+        assert _traffic(C.hbm_bytes("segmented", n, itemsize, fetched_elems=fetched, **kw)) == \
+            _traffic(RC.hbm_bytes("segmented", n, itemsize, fetched_elems=fetched, **kw))
+        assert _traffic(C.hbm_bytes("parts", n, itemsize, segments=segments, census=census)) == \
+            _traffic(RC.hbm_bytes("parts", n, itemsize, segments=segments, census=census))
+        assert _traffic(C.segmented_hbm_bytes(fetched, itemsize, segments=segments, tiles=tiles,
+                                              num_cores=lanes)) == _traffic(
+            RC.segmented_hbm_bytes(fetched, itemsize, segments=segments, tiles=tiles,
+                                   num_cores=lanes))
+        assert _traffic(C.parts_hbm_bytes(n * itemsize, segments=segments)) == _traffic(
+            RC.parts_hbm_bytes(n * itemsize, segments=segments))
 
 
 @pytest.mark.parametrize("block", [1, 100, 4096, 16384, 16385, 40000])

@@ -293,3 +293,87 @@ def test_reduce_card_matches_cpu(gen, backend, kind, precision):
     for g, w in pairs:
         assert g.device.type == "cuda"
         assert abs(float(g) - float(w)) <= 1e-3 * abs(float(w)) + 1e-3
+
+
+# ------------------- the multi-reduce and scan kernels (K8, K9, K4) -------------------
+
+SEG_OFFSETS = (0, 0, 100, 20000, 20000, 3 * 16384 + 5, 3 * 16384 + 7, 9 * 16384 - 3)
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 528])
+@pytest.mark.parametrize("dtype,compute", [(torch.float32, torch.float32),
+                                           (torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("prologue", ["identity", "square", "moments"])
+def test_segments_match_plain(gen, lanes, dtype, compute, prologue):
+    from repro_torch.kernels.mma_reduce import ops
+
+    x = (torch.randn((SEG_OFFSETS[-1],), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    before = ops.mma_sum_segments.launches
+    got = ops.mma_sum_segments(x, SEG_OFFSETS, compute_dtype=compute, prologue=prologue,
+                               num_lanes=lanes)
+    assert ops.mma_sum_segments.launches == before + 1
+    want = ops.mma_sum_segments_plain(x, SEG_OFFSETS, compute, prologue, (), False, lanes)
+    if compute == torch.float32:  # CUDA-core adds in the plain version's order
+        assert torch.equal(got, want)
+    else:  # tensor-core f32 sums of the same products in another order
+        xf = x.float()
+        assert float((got - want).abs().max()) <= 2.0**-16 * float((xf * xf).sum()) + 1e-4
+
+
+def test_segments_census_and_empty_epilogue(gen):
+    from repro_torch.kernels.mma_reduce import ops
+
+    x = torch.randn((SEG_OFFSETS[-1],), generator=gen, device="cuda")
+    x[[150, 3 * 16384 + 6]] = torch.tensor([float("nan"), float("inf")], device="cuda")
+    chain = (("add_eps", 2.0),)
+    outs = [ops.mma_sum_segments(x, SEG_OFFSETS, census=True, epilogue=chain, num_lanes=c)
+            for c in (1, 2, 7)]
+    plain = ops.mma_sum_segments_plain(x, SEG_OFFSETS, torch.bfloat16, "identity", chain, True)
+    n = len(SEG_OFFSETS) - 1
+    for out in outs:
+        assert torch.equal(out[n:], plain[n:]) and float(out[n:].sum()) == 2.0
+        assert float(out[0]) == float(out[3]) == 2.0  # empty segments: the chain of 0
+
+
+@pytest.mark.parametrize("n", [1, 5000, 3 * 16384 + 5, 2**22 + 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_scan_matches_plain_and_is_lane_invariant(gen, n, dtype, inclusive):
+    from repro_torch.kernels.scan import ops as sops
+
+    x = (torch.randn((n,), generator=gen, device="cuda") + 0.1).to(dtype)
+    outs = [sops.mma_scan(x, inclusive=inclusive, num_lanes=c, tiles_per_block=1)
+            for c in (1, 2, 4, 8)]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    want = sops.mma_scan_plain(x, inclusive)[:n]
+    if dtype == torch.float32:
+        assert torch.equal(outs[0], want)
+    else:  # one ulp of the storage dtype, plus f32 order noise of the running mass
+        # (equal values pass: past 65504 the f16 prefix is inf on both sides)
+        run = torch.cumsum(x.double().abs(), 0)
+        g, w = outs[0].double(), want.double()
+        assert bool(torch.all(((g - w).abs() <= 2.0**-7 * w.abs() + 2.0**-17 * run + 1e-5)
+                              | (g == w)))
+    if not inclusive:
+        inc = sops.mma_scan(x)
+        assert float(outs[0][0]) == 0.0 and torch.equal(outs[0][1:], inc[:-1])
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float16])
+def test_parts_bf16_compute_moments_and_slot_chain_match_plain(gen, compute):
+    from repro_torch.kernels.mma_reduce import ops
+
+    parts = [torch.randn(s, generator=gen, device="cuda") for s in (100, 0, 20000, 70000)]
+    parts[2] = parts[2].to(torch.bfloat16)
+    for pros, chain in (("identity", ()), (("moments", "identity", "square", "moments"), ()),
+                        ("square", (("sqrt",),))):
+        got = ops.mma_sum_parts(parts, compute_dtype=compute, prologue=pros, slot_epilogue=chain)
+        names = (pros,) * 4 if isinstance(pros, str) else pros
+        want = ops.mma_sum_parts_plain(parts, names, (), False, compute, chain)
+        mass = sum(float((p.float() ** 2).sum() + p.float().abs().sum()) for p in parts)
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 2.0**-16 * mass + 1e-4
+        assert torch.equal(got, ops.mma_sum_parts(parts, compute_dtype=compute, prologue=pros,
+                                                  slot_epilogue=chain))

@@ -135,7 +135,8 @@ def test_kahan_rows_multiply_at_accumulator_width():
 
 
 def test_backends_and_quarantine_chain():
-    assert R.available_backends() == ("cuda_fused", "cuda_hier", "mma_torch", "torch")
+    assert R.available_backends() == ("cuda_fused", "cuda_hier", "mma_torch", "segmented",
+                                      "torch")
     R.quarantine_backend("cuda_hier")
     try:
         assert P._dequarantine("cuda_hier") == "mma_torch"
@@ -174,6 +175,16 @@ def test_reduce_demo_on_cpu(capsys):
     assert rel["mma bf16 multipliers, f32 accum (cuda_hier)"] < 2e-2
     assert [name for name, _ in out["times"]] == [name for name, _ in reduce_demo.TIMED]
     assert all(ms > 0 for _, ms in out["times"])
+    # the segmented section: the reference demo's three segments, then the
+    # numbers as 2048 packed segments (two empty in the middle)
+    assert "segmented multi-reduce" in text
+    for n, got, exact in out["segments"]["three"]:
+        assert abs(got - exact) <= 2e-4 * exact
+    assert out["segments"]["plan"].backend == "segmented"
+    assert out["segments"]["count"] == 2048 and out["segments"]["worst_rel_to_mass"] < 8e-3
+    offsets = out["segments"]["offsets"]
+    assert offsets[0] == offsets[1] == 0 and offsets[-1] == 65536
+    assert (np.diff(offsets) == 0).sum() >= 3
 
 
 def test_reduce_demo_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
