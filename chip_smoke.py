@@ -26,7 +26,11 @@ then drives the three main paths with every kernel launch counted:
             moments over full-width olmo-1b's 113 parameter leaves (the
             parts kernel, K4, at bf16 compute), ``repro_torch.scan`` over
             2^28 f32 and bf16 values (the scan kernel, K9) and
-            ``packing_offsets`` of 2048 lengths on ``cuda_fused``.
+            ``packing_offsets`` of 2048 lengths on ``cuda_fused``;
+  matmul    the K11 entry, ``repro_torch.kernels.matmul_stats``, at
+            olmo-1b's MLP down projection, (2048 x 8192) @ (8192 x 2048)
+            at bf16 and f32 and the serving prefill's 1024 rows at bf16
+            (the fused matmul with its row moments, K11).
 
 Exits nonzero, with no result line, when any check fails or there is no
 GPU.
@@ -36,8 +40,9 @@ line per kernel check, the serving, training and paper figures, then the
 kernels JSON line (each kernel timed at its main path's shapes: training
 for K1/K4-K7, with serving-shape figures under "serving"; the paper's
 n = 2^28 f32 for K2, K3, K10, with bf16 figures beside them; "launches"
-counts the kernel's own main path; K8 and K9 at 2^28 f32, bf16 beside) and,
-last,
+counts the kernel's own main path; K8 and K9 at 2^28 f32, bf16 beside;
+K11 at (2048 x 8192) @ (8192 x 2048) bf16, the serving rows and f32
+beside) and, last,
 ``{"ok": true, "device": {...}}``.
 
 Peak rates used for the bounds are the H100 SXM data sheet's: 3.35 TB/s of
@@ -106,6 +111,7 @@ TPU_KERNELS = {
     "mma_sum_fused": "src/repro/kernels/mma_reduce/kernel.py:186",
     "mma_sum_segments": "src/repro/kernels/mma_reduce/kernel.py:512",
     "mma_scan": "src/repro/kernels/scan.py:68",
+    "matmul_stats": "src/repro/kernels/matmul_stats/kernel.py:29",
 }
 SOURCES = {
     "tile_partials": "src/repro_torch/kernels/csrc/tile_partials.cu",
@@ -119,10 +125,11 @@ SOURCES = {
     "mma_sum_fused": "src/repro_torch/kernels/csrc/fused_reduce.cu",
     "mma_sum_segments": "src/repro_torch/kernels/csrc/segmented_gather.cu",
     "mma_scan": "src/repro_torch/kernels/csrc/scan.cu",
+    "matmul_stats": "src/repro_torch/kernels/csrc/matmul_stats.cu",
 }
 KERNELS = ("mma_sum_parts", "layernorm_np", "rmsnorm", "flash_attention", "cross_entropy",
            "mma_sum_fused", "mma_moments_fused", "mma_sum_kahan", "tile_partials",
-           "mma_sum_segments", "mma_scan")
+           "mma_sum_segments", "mma_scan", "matmul_stats")
 PAPER_KERNELS = ("mma_moments_fused", "mma_sum_kahan", "tile_partials")
 MULTI_KERNELS = ("mma_sum_segments", "mma_scan")
 PAPER_N = 2**28  # the reduce demo's n: 1.07 GB of f32
@@ -1388,6 +1395,196 @@ def check_backward_times(results: dict, gen) -> None:
           f"{tuple(q.shape)} bf16, dense recompute {results['backward']['attention_bwd_ms']:.4f} ms")
 
 
+# ------------------- the fused matmul with its row moments (K11) -------------------
+
+# olmo-1b's MLP down projection: X is the training batch's (4 x 512, d_ff)
+# hidden activations, W the (d_ff, d_model) projection, so Y's rows have the
+# width of the LayerNorm that follows. The training rows at bf16 (timed:
+# the kernel's main figures), the serving prefill's rows, and f32 operands
+# (the in-kernel cast).
+MS_CASES = ((TRAIN_BATCH * TRAIN_SEQ, "bfloat16"), (SLOTS * PROMPT, "bfloat16"),
+            (TRAIN_BATCH * TRAIN_SEQ, "float32"))
+MS_TOL = 1e-5  # s, ss: this fraction of each row's sum of |y|, of y^2
+
+
+def ms_operands(m: int, dtype: str, gen):
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("olmo-1b")
+    x = torch.randn((m, cfg.d_ff), generator=gen, device=DEVICE).to(getattr(torch, dtype))
+    w = (torch.randn((cfg.d_ff, cfg.d_model), generator=gen, device=DEVICE) * 0.02).to(
+        getattr(torch, dtype))
+    return x, w
+
+
+def ms_compare(x, w, got, want):
+    """(max |dY|, worst |ds| / sum|y|, worst |dss| / sum y^2, ok): Y within
+    one ulp of its dtype plus two f32 ulps of the product's absolute mass
+    per accumulation step of 16 (the tensor cores' f32 accumulation may
+    truncate; the other side sums in another order); s and ss within
+    ``MS_TOL`` of each row's sum of |y| and of y^2 (both sides sum the f32
+    accumulator, not the stored Y)."""
+    import torch
+
+    from repro_torch.kernels.common import bf16_round
+
+    (y, s, ss), (yp, sp, ssp) = got, want
+    xb, wb = bf16_round(x.float()), bf16_round(w.float())
+    mass = xb.abs() @ wb.abs()
+    ulp = {torch.float32: 2.0**-23, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}[y.dtype]
+    dy = (y.float() - yp.float()).abs()
+    ok_y = bool(torch.all(dy <= ulp * yp.float().abs()
+                          + 2.0**-22 * -(-x.shape[1] // 16) * mass + 1e-6))
+    y32 = xb @ wb
+    abs_mass, sq_mass = y32.abs().sum(-1), (y32 * y32).sum(-1)
+    rs = float(((s - sp).abs() / (abs_mass + 1e-30)).max())
+    rss = float(((ss - ssp).abs() / (sq_mass + 1e-30)).max())
+    ok = ok_y and rs <= MS_TOL and rss <= MS_TOL
+    return float(dy.max()), rs, rss, ok
+
+
+def _ms_f64(x, w):
+    """The f64 product of the bf16-rounded operands and its row moments."""
+    from repro_torch.kernels.common import bf16_round
+
+    y64 = bf16_round(x.float()).double() @ bf16_round(w.float()).double()
+    return y64, y64.sum(-1), (y64 * y64).sum(-1)
+
+
+def check_matmul_stats(results: dict, gen) -> None:
+    """K11 against its plain version at the three full-width cases: Y, s and
+    ss within ``ms_compare``'s tolerance, two launches bitwise the same, one
+    launch per call; each side's moments against the f64 product, and the
+    moments of the stored, rounded Y against ``MS_TOL`` (at bf16 they must
+    fail it: the tolerance can tell the accumulator's moments from the
+    output's). Card against CPU on a ragged case and on a K that is not
+    16-byte aligned. Timed at each case; the library time is
+    ``torch.matmul`` on the same bf16 operands, the product alone, with
+    the product plus the two row reductions of its result beside it."""
+    import torch
+
+    from repro_torch.kernels import matmul_stats
+    from repro_torch.kernels.matmul_stats import matmul_stats_plain
+
+    for m, k, n, dtype in ((100, 500, 300, torch.bfloat16), (64, 100, 96, torch.bfloat16),
+                           (33, 65, 129, torch.float32)):
+        x = torch.randn((m, k), generator=gen, device=DEVICE).to(dtype)
+        w = (torch.randn((k, n), generator=gen, device=DEVICE) * 0.1).to(dtype)
+        got = matmul_stats(x, w)
+        cpu = [t.to(DEVICE) for t in matmul_stats(x.cpu(), w.cpu())]
+        torch.cuda.synchronize()
+        dy, rs, rss, ok = ms_compare(x, w, got, cpu)
+        print(f"K11 matmul_stats card vs CPU ({m}x{k})@({k}x{n}) {str(dtype)[6:]}: max |dY| "
+              f"{dy:.3g}, s {rs:.3g} and ss {rss:.3g} of the row mass (tol {MS_TOL})")
+        check(ok, f"K11 card and CPU disagree at ({m}, {k}, {n}) {dtype}")
+
+    def library_moments(xb, wb):
+        yl = torch.matmul(xb, wb).float()
+        return yl.sum(-1), (yl * yl).sum(-1)
+
+    timed = {}
+    for m, dtype in MS_CASES:
+        x, w = ms_operands(m, dtype, gen)
+        k, n = w.shape
+        what = f"({m}x{k})@({k}x{n}) {dtype}"
+        before = matmul_stats.launches
+        got = matmul_stats(x, w)
+        launched = matmul_stats.launches - before
+        again = matmul_stats(x, w)
+        plain = matmul_stats_plain(x, w)
+        torch.cuda.synchronize()
+        dy, rs, rss, ok = ms_compare(x, w, got, plain)
+        y64, s64, ss64 = _ms_f64(x, w)
+        mass_s = y64.abs().sum(-1)
+        del y64
+        k_s = float(((got[1].double() - s64).abs() / mass_s).max())
+        k_ss = float(((got[2].double() - ss64).abs() / ss64).max())
+        p_s = float(((plain[1].double() - s64).abs() / mass_s).max())
+        p_ss = float(((plain[2].double() - ss64).abs() / ss64).max())
+        yr = got[0].double()
+        r_s = float(((yr.sum(-1) - s64).abs() / mass_s).max())
+        r_ss = float((((yr * yr).sum(-1) - ss64).abs() / ss64).max())
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"K11 matmul_stats {what}: vs plain max |dY| {dy:.3g}, s {rs:.3g} and ss "
+              f"{rss:.3g} of the row mass (tol {MS_TOL}); vs the f64 product: kernel s "
+              f"{k_s:.3g} / ss {k_ss:.3g}, plain s {p_s:.3g} / ss {p_ss:.3g}, sums of the "
+              f"stored Y s {r_s:.3g} / ss {r_ss:.3g}; {launched} launch; repeat bitwise {same}")
+        check(ok, f"K11 disagrees with its plain version at {what}")
+        check(same, f"K11 {what}: a second launch differs")
+        check(launched == 1, f"K11 {what}: {launched} launches for one call")
+        check(k_s <= MS_TOL and k_ss <= MS_TOL, f"K11 {what}: moments off the f64 product")
+        if dtype == "bfloat16":
+            check(r_s > MS_TOL and r_ss > MS_TOL,
+                  f"K11 {what}: the stored Y's sums pass the tolerance, which then cannot "
+                  "tell them from the accumulator's")
+        isz = x.element_size()
+        b, by = bound_ms((x.numel() + w.numel() + m * n) * isz + 2 * m * 4,
+                         tensor_flops=2 * m * n * k + 2 * 16 * m * n, core_flops=m * n)
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        timed[(m, dtype)] = {
+            "max_abs_err": dy, "s_err_rel": rs, "ss_err_rel": rss,
+            "s_err_vs_f64": k_s, "ss_err_vs_f64": k_ss,
+            "ms": device_ms(lambda: matmul_stats(x, w), "matmul_stats_kernel"),
+            "call_ms": time_ms(lambda: matmul_stats(x, w), iters=20),
+            "plain_ms": device_ms(lambda: matmul_stats_plain(x, w), iters=3),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": device_ms(lambda: torch.matmul(xb, wb)),
+            "library_with_moments_ms": device_ms(lambda: library_moments(xb, wb)),
+        }
+        del x, w, xb, wb, got, again, plain, yr
+    main_case = MS_CASES[0]
+    results["matmul_stats"] = dict(timed[main_case], serving=timed[MS_CASES[1]],
+                                   at_f32=timed[MS_CASES[2]])
+    for (m, dtype), t in timed.items():
+        print(f"K11 timings ({m} rows, {dtype}): device {t['ms'] * 1e3:.2f} us, call "
+              f"{t['call_ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.1f} us, torch.matmul "
+              f"{t['library_ms'] * 1e3:.2f} us (+ row moments "
+              f"{t['library_with_moments_ms'] * 1e3:.2f} us), bound {t['bound_ms'] * 1e3:.2f} us "
+              f"by {t['bound_by']}")
+
+
+def run_matmul_stats_path() -> dict:
+    """The K11 entry's main path, every kernel launch counted:
+    ``repro_torch.kernels.matmul_stats`` at the three full-width cases (one
+    launch each), each output checked: shapes and dtypes, finite values,
+    ss >= s^2 / N (Cauchy-Schwarz), and s and ss within ``MS_TOL`` of the
+    f64 product's. Returns the launch counts."""
+    import torch
+
+    from repro_torch.kernels import common, matmul_stats
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    operands = [ms_operands(m, dtype, gen) for m, dtype in MS_CASES]
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    outs = [matmul_stats(x, w) for x, w in operands]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = common.launch_counts()
+    print(f"matmul_stats path: {wall * 1e3:.2f} ms for {len(MS_CASES)} calls; launches "
+          f"{launches}")
+    for (x, w), (y, s, ss) in zip(operands, outs):
+        m, n = x.shape[0], w.shape[1]
+        check(y.shape == (m, n) and y.dtype == x.dtype and s.shape == ss.shape == (m,)
+              and s.dtype == ss.dtype == torch.float32, "matmul_stats path: bad shapes or dtypes")
+        check(bool(torch.isfinite(y.float()).all() & torch.isfinite(s).all()
+                   & torch.isfinite(ss).all()), "matmul_stats path: non-finite output")
+        check(bool(torch.all(ss.double() * (1 + 1e-6) >= s.double() ** 2 / n)),
+              "matmul_stats path: ss < s^2 / N")
+        y64, s64, ss64 = _ms_f64(x, w)
+        mass_s = y64.abs().sum(-1)
+        check(float(((s.double() - s64).abs() / mass_s).max()) <= MS_TOL
+              and float(((ss.double() - ss64).abs() / ss64).max()) <= MS_TOL,
+              "matmul_stats path: moments off the f64 product")
+    check(launches["matmul_stats"] == len(MS_CASES),
+          f"the matmul_stats path ran {launches['matmul_stats']} K11 launches, expected "
+          f"{len(MS_CASES)}")
+    return launches
+
+
 # ------------------------------- model checks --------------------------------
 
 
@@ -1785,12 +1982,16 @@ def main() -> int:
     multi_launches = run_multi_reduce_path()
     torch.cuda.empty_cache()
     paper_launches = run_reduce_demo()
+    torch.cuda.empty_cache()
+    check_matmul_stats(results, gen)
+    ms_launches = run_matmul_stats_path()
 
     kernels = []
     for name in KERNELS:
         r = results[name]
         main_path = (paper_launches if name in PAPER_KERNELS else
-                     multi_launches if name in MULTI_KERNELS else train_launches)
+                     multi_launches if name in MULTI_KERNELS else
+                     ms_launches if name == "matmul_stats" else train_launches)
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name], "launches": main_path[name],
@@ -1800,19 +2001,22 @@ def main() -> int:
             "launches_training": train_launches[name],
             "launches_serving": serve_launches[name], "launches_paper": paper_launches[name],
             "launches_multi_reduce": multi_launches[name],
+            "launches_matmul_stats": ms_launches[name],
         }
         entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
     for k in kernels:
         lib = "-" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.1f} us"
         shape = ("2^28 f32" if k["name"] in PAPER_KERNELS + MULTI_KERNELS
+                 else "(2048x8192)@(8192x2048) bf16" if k["name"] == "matmul_stats"
                  else "the training shape")
         print(f"{k['name']}: device {k['ms'] * 1e3:.2f} us per call at {shape} "
               f"(whole call {k['call_ms'] * 1e3:.1f} us; plain {k['plain_ms'] * 1e3:.1f} us, "
               f"library {lib}, bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}), "
               f"launches: {k['launches_training']} in training, {k['launches_serving']} in "
               f"serving, {k['launches_paper']} in the paper's demo, "
-              f"{k['launches_multi_reduce']} in the multi-reduce path")
+              f"{k['launches_multi_reduce']} in the multi-reduce path, "
+              f"{k['launches_matmul_stats']} in the matmul_stats path")
     print(f"backward passes (torch math): {results['backward']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

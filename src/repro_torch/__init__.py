@@ -10,8 +10,9 @@ so each port sits beside its counterpart:
                   plain PyTorch version beside each one
   core         -- the all-ones-MMA reductions (rows and the eq. 13 sum)
   reduce       -- the ``reduce`` / ``reduce_many`` / ``reduce_tree`` /
-                  ``scan`` engine and its backends (``repro_torch.scan`` is
-                  the engine's prefix sum)
+                  ``scan`` engine and its backends (``repro_torch.scan``,
+                  ``ScanPlan`` and ``scan_plan_for`` are exported at top
+                  level, lazily, as in the reference)
   models       -- parameters, layers, attention, the decoder stack, losses
   optim        -- AdamW with the one-launch clip statistic
   data         -- the seeded synthetic token stream, packing offsets
@@ -25,11 +26,24 @@ PyTorch version.
 """
 
 
-def __getattr__(name):
-    # ``repro_torch.scan``, resolved on first use so that ``import
-    # repro_torch`` stays light (the reference's lazy export)
-    if name == "scan":
-        from repro_torch.reduce.scan import scan
+_LAZY = {
+    "scan": ("repro_torch.reduce.scan", "scan"),
+    "ScanPlan": ("repro_torch.reduce.plan", "ScanPlan"),
+    "scan_plan_for": ("repro_torch.reduce.plan", "scan_plan_for"),
+}
 
-        return scan
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+def __getattr__(name):
+    # top-level exports resolved on first use, so that ``import
+    # repro_torch`` stays light (the reference's lazy exports)
+    try:
+        module, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+    import importlib
+
+    return getattr(importlib.import_module(module), attr)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

@@ -9,9 +9,12 @@ PyTorch version and with a launch counter (``kernels.common``):
                      level, the one-launch multi-part reduction and the
                      one-launch segmented gather, with census
   scan            -- the triangular-MMA prefix sum
+  matmul_stats    -- Y = X @ W with the row sum and sum of squares of the
+                     f32 accumulator fused into the epilogue (ones-MMAs)
 """
 
 from repro_torch.kernels.cross_entropy import cross_entropy  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_diff  # noqa: F401
+from repro_torch.kernels.matmul_stats import matmul_stats  # noqa: F401
 from repro_torch.kernels.mma_reduce import mma_sum_fused, mma_sum_parts  # noqa: F401
 from repro_torch.kernels.row_moments import layernorm_np, rmsnorm  # noqa: F401

@@ -29,6 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "row_moments.cu", "flash_attention.cu", "parts_reduce.cu", "cross_entropy.cu",
     "fused_reduce.cu", "fused_kahan.cu", "tile_partials.cu", "segmented_gather.cu", "scan.cu",
+    "matmul_stats.cu",
 )
 HEADERS = ("common.cuh", "reduce_common.cuh")
 NVCC_FLAGS = (
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "sg_segments": (_P, _LL, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                     _P),
     "sc_scan": (_P, _LL, _I, _I, _LL, _I, _I, _I, _P, _P),
+    "ms_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

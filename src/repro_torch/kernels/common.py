@@ -225,17 +225,35 @@ def needs_grad(*tensors) -> bool:
     )
 
 
-def refuse_grad(name: str, *tensors, entry: str) -> None:
+def refuse_grad(name: str, *tensors, entry: str | None) -> None:
     """A wrapper whose kernel writes a fresh output through ctypes has no
     ``grad_fn``: called on inputs that need a gradient it would cut the
     graph without a word. Such wrappers raise instead and name the
-    differentiable entry point."""
+    differentiable entry point, or say that there is none (``entry=None``:
+    the reference has no gradient either)."""
     if needs_grad(*tensors):
+        hint = (f"Call {entry}, which differentiates through its own autograd Function, or "
+                if entry else "It has no gradient (nor has the reference's kernel); ")
         raise RuntimeError(
-            f"{name} is not differentiable: its input requires grad. Call "
-            f"{entry}, which differentiates through its own autograd "
-            "Function, or run under torch.no_grad()"
+            f"{name} is not differentiable: its input requires grad. {hint}"
+            "run under torch.no_grad()"
         )
+
+
+# Fold tickets: the integer counters by which a kernel's last CTA (or the
+# last CTA of each row block) finds itself. One buffer per (kernel, device,
+# stream), zeroed at first use and regrown, zeroed, when a launch needs more
+# counters. The last CTA sets its ticket back to 0, and launches on one
+# stream run in order, so each launch finds them zeroed.
+_TICKETS: dict = {}
+
+
+def fold_tickets(kernel: str, dev: torch.device, stream: int, count: int = 1) -> torch.Tensor:
+    key = (kernel, dev.index, stream)
+    have = _TICKETS.get(key)
+    if have is None or have.numel() < count:
+        _TICKETS[key] = have = torch.zeros((count,), dtype=torch.int32, device=dev)
+    return have
 
 
 # Every kernel wrapper, by kernel name. Each wrapper carries ``launches``, a

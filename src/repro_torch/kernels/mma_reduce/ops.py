@@ -246,19 +246,6 @@ def fused_trace(n: int, tiles_per_block: int = TILES_PER_BLOCK, num_lanes: int =
                           fallback=fallback, census=census)
 
 
-# One fold ticket per (kernel, device, stream), zeroed once at first use. A
-# kernel's last CTA sets it back to 0, and launches on one stream run in
-# order, so each launch finds it zeroed.
-_TICKETS: dict = {}
-
-
-def _ticket(kernel: str, dev: torch.device, stream: int) -> torch.Tensor:
-    key = (kernel, dev.index, stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
-    return _TICKETS[key]
-
-
 def _encode_chain(chain: tuple):
     enc = common.encode_epilogue(chain)
     if len(enc) > FUSED_MAX_CHAIN_STEPS:
@@ -294,7 +281,7 @@ def _launch_fused(flat, compute_dtype, prologue, chain, census, num_lanes, tiles
             _PROLOGUE_CODES[prologue], int(bool(census)), r * TILE, blocks, c,
             int(flat.data_ptr() % 16 == 0), steps, ops.ctypes.data, p0.ctypes.data,
             p1.ctypes.data, out.data_ptr(), scratch.data_ptr(),
-            _ticket("fused", dev, stream).data_ptr(), stream,
+            common.fold_tickets("fused", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_sum_fused")
     return out
@@ -314,7 +301,7 @@ def _launch_kahan(flat, compute_dtype, prologue, chain, num_lanes, tiles_per_blo
             flat.data_ptr(), n, build.dtype_code(flat), build.DTYPE_CODES[compute_dtype],
             _PROLOGUE_CODES[prologue], r, blocks, bpl, c, int(flat.data_ptr() % 16 == 0), steps,
             ops.ctypes.data, p0.ctypes.data, p1.ctypes.data, out.data_ptr(),
-            lane_part.data_ptr(), _ticket("kahan", dev, stream).data_ptr(), stream,
+            lane_part.data_ptr(), common.fold_tickets("kahan", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_sum_fused(kahan=True)")
     return out
@@ -470,7 +457,7 @@ def mma_moments_fused(
         err = build.library().fr_moments(
             flat.data_ptr(), n, build.dtype_code(flat), build.DTYPE_CODES[compute_dtype],
             r * TILE, blocks, c, int(flat.data_ptr() % 16 == 0), out.data_ptr(),
-            scratch.data_ptr(), _ticket("moments", dev, stream).data_ptr(), stream,
+            scratch.data_ptr(), common.fold_tickets("moments", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_moments_fused")
     mma_moments_fused.launches += 1
@@ -908,7 +895,7 @@ def _launch(parts, layout, prologues, compute_dtype, slot_chain, total_chains, c
             build.DTYPE_CODES[compute_dtype], int(dual), int(s_len[0]), s_ops.ctypes.data,
             s_p0.ctypes.data, s_p1.ctypes.data, lens.ctypes.data, ops.ctypes.data,
             p0.ctypes.data, p1.ctypes.data, k, int(bool(census)), out.data_ptr(),
-            scratch.data_ptr(), _ticket("parts", dev, stream).data_ptr(), stream,
+            scratch.data_ptr(), common.fold_tickets("parts", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_sum_parts")
     return out
@@ -1282,7 +1269,7 @@ def mma_sum_segments(
             _PROLOGUE_CODES[prologue], int(bool(census)), dmaps.data_ptr(), maps.shape[1], c,
             nseg, int(x.data_ptr() % 16 == 0), steps, ops.ctypes.data, p0.ctypes.data,
             p1.ctypes.data, sub.data_ptr(), out.data_ptr(),
-            _ticket("segments", dev, stream).data_ptr(), stream,
+            common.fold_tickets("segments", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_sum_segments")
     mma_sum_segments.launches += 1

@@ -377,3 +377,77 @@ def test_parts_bf16_compute_moments_and_slot_chain_match_plain(gen, compute):
         assert float((got - want).abs().max()) <= 2.0**-16 * mass + 1e-4
         assert torch.equal(got, ops.mma_sum_parts(parts, compute_dtype=compute, prologue=pros,
                                                   slot_epilogue=chain))
+
+
+# ------------------- the fused matmul with its row moments (K11) -------------------
+
+
+def _matmul_stats_close(x, w, got, want):
+    """Y within one ulp of its dtype (a sum near a rounding boundary may
+    round the other way) plus two f32 ulps of the product's absolute mass
+    per accumulation step of 16 (the tensor cores' f32 accumulation may
+    truncate; the plain version sums in another order);
+    s and ss within 1e-5 of each row's sum of |y| and of y^2 (both are sums
+    of the f32 accumulator, not of the stored Y)."""
+    from repro_torch.kernels.common import bf16_round
+
+    (y, s, ss), (yp, sp, ssp) = got, want
+    k = x.shape[1]
+    mass = bf16_round(x.float()).abs() @ bf16_round(w.float()).abs()
+    ulp = {torch.float32: 2.0**-23, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}[y.dtype]
+    ok_y = torch.all((y.float() - yp.float()).abs()
+                     <= ulp * yp.float().abs() + 2.0**-22 * -(-k // 16) * mass + 1e-6)
+    y32 = bf16_round(x.float()) @ bf16_round(w.float())
+    ok_s = torch.all((s - sp).abs() <= 1e-5 * y32.abs().sum(-1) + 1e-5)
+    ok_ss = torch.all((ss - ssp).abs() <= 1e-5 * (y32 * y32).sum(-1) + 1e-5)
+    return bool(ok_y), bool(ok_s), bool(ok_ss)
+
+
+# (m, k, n): ragged, tiny, 16-byte-unaligned K and N at 16-bit widths, and aligned
+MS_SHAPES = [(1, 2, 2), (33, 65, 129), (100, 300, 500), (128, 256, 256), (300, 1024, 384),
+             (257, 100, 260)]
+
+
+@pytest.mark.parametrize("m,k,n", MS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_matmul_stats_matches_plain_one_launch_bitwise_repeat(gen, m, k, n, dtype):
+    from repro_torch.kernels import matmul_stats
+    from repro_torch.kernels.matmul_stats import matmul_stats_plain
+
+    x = (torch.randn((m, k), generator=gen, device="cuda") + 0.1).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.5).to(dtype)
+    before = matmul_stats.launches
+    got = matmul_stats(x, w)
+    assert matmul_stats.launches == before + 1
+    again = matmul_stats(x, w)
+    want = matmul_stats_plain(x, w)
+    assert got[0].dtype == dtype and got[0].shape == (m, n)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _matmul_stats_close(x, w, got, want) == (True, True, True)
+
+
+@pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.bfloat16),
+                                     (torch.float16, torch.float32)])
+def test_matmul_stats_mixed_dtypes_and_unaligned_views(gen, xdt, wdt):
+    from repro_torch.kernels import matmul_stats
+    from repro_torch.kernels.matmul_stats import matmul_stats_plain
+
+    base = torch.randn((70, 131), generator=gen, device="cuda").to(xdt)
+    x = base[:, 1:]  # not 16-byte aligned, not contiguous: the wrapper's copy
+    w = torch.randn((130, 96), generator=gen, device="cuda").to(wdt)
+    got = matmul_stats(x, w)
+    assert got[0].dtype == xdt
+    assert _matmul_stats_close(x, w, got, matmul_stats_plain(x, w)) == (True, True, True)
+    x_off = torch.randn((70 * 130 + 1,), generator=gen, device="cuda").to(xdt)[1:].view(70, 130)
+    got = matmul_stats(x_off, w)  # contiguous at an odd element offset: the scalar loads
+    assert _matmul_stats_close(x_off, w, got, matmul_stats_plain(x_off, w)) == (True, True, True)
+
+
+def test_matmul_stats_card_matches_cpu(gen):
+    from repro_torch.kernels import matmul_stats
+
+    x = torch.randn((100, 500), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((500, 300), generator=gen, device="cuda").to(torch.bfloat16)
+    got = matmul_stats(x, w)
+    cpu = matmul_stats(x.cpu(), w.cpu())
+    assert _matmul_stats_close(x, w, got, [t.cuda() for t in cpu]) == (True, True, True)

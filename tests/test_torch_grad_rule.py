@@ -45,12 +45,13 @@ def test_wrapper_keeps_the_graph(name):
     assert g.shape == leaf.shape and bool(torch.isfinite(g).all())
 
 
-@pytest.mark.parametrize("name", ["mma_sum_fused", "mma_sum_parts"])
+@pytest.mark.parametrize("name", ["mma_sum_fused", "mma_sum_parts", "matmul_stats"])
 def test_reduction_wrappers_refuse_grad(name):
     x = _x(100)
     call = {
         "mma_sum_fused": lambda: K.mma_sum_fused(x),
         "mma_sum_parts": lambda: K.mma_sum_parts([x, torch.ones(3)]),
+        "matmul_stats": lambda: K.matmul_stats(x.reshape(10, 10), torch.ones(10, 3))[1],
     }[name]
     with pytest.raises(RuntimeError, match="not differentiable"):
         call()
