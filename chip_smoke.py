@@ -358,7 +358,7 @@ def check_attention(results: dict, gen) -> None:
         torch.cuda.synchronize()
         err = float((out.float() - plain.float()).abs().max())
         print(f"K6 flash_attention {case}: max_abs_err {err:.3g} vs plain "
-              "(tol: 2 bf16 ulps of the output -- the same 64-key blocks, f32 sums in "
+              "(tol: 2 bf16 ulps of the output -- the same 128-key blocks, f32 sums in "
               "another order, which can flip one bf16 rounding of p)")
         check(bool(torch.isfinite(out.float()).all()), f"flash_attention non-finite at {case}")
         check(bool(torch.all((out.float() - plain.float()).abs()
@@ -930,6 +930,49 @@ def check_reduce_against_cpu(gen) -> None:
           f"2 precisions: all within tolerance (worst |d| / tol {worst:.3g})")
 
 
+def check_auto_route(gen) -> None:
+    """``reduce(x)`` with no backend named, at 2^28 f32 on the card: the
+    planner takes the operand's device and sends a full reduction this long
+    to ``cuda_fused``, ONE launch of K1 and no other kernel. Tolerance: one
+    bf16 unit roundoff (the auto plan's compute dtype) times the mass,
+    against the f64 sum. An f64 operand of 2 m^2 elements, which the
+    kernels cannot read, stays on ``mma_torch`` and launches none (within
+    n f64 unit roundoffs times the mass)."""
+    import torch
+
+    from repro_torch import reduce as R
+    from repro_torch.kernels import common
+
+    x = torch.randn((PAPER_N,), generator=gen, device=DEVICE) + 0.5
+    plan = R.plan_for(x.shape, x.dtype, device=x.device)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    got = R.reduce(x)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in common.launch_counts().items() if v}
+    exact = float(x.double().sum())
+    err = abs(float(got) - exact)
+    print(f"reduce(x) on auto, 2^28 f32 on the card: plan backend {plan.backend}, launches "
+          f"{launches}, |d| vs f64 {err:.4g} (sum {exact:.6g})")
+    check(plan.backend == "cuda_fused" and launches == {"mma_sum_fused": 1},
+          f"auto reduce at 2^28 on the card did not take one cuda_fused launch: {launches}")
+    check(err <= 2.0**-8 * float(x.double().abs().sum()), "auto reduce at 2^28: off the f64 sum")
+    x64 = x[:2 * 128 * 128].double()
+    plan64 = R.plan_for(x64.shape, x64.dtype, device=x64.device)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    got64 = R.reduce(x64)
+    torch.cuda.synchronize()
+    launches64 = {k: v for k, v in common.launch_counts().items() if v}
+    err64 = abs(float(got64) - float(x64.sum()))
+    print(f"reduce(x) on auto, 2*128^2 f64 on the card: plan backend {plan64.backend}, "
+          f"launches {launches64}, |d| vs torch.sum {err64:.4g}")
+    check(plan64.backend == "mma_torch" and not launches64 and got64.dtype == torch.float64,
+          f"auto reduce of f64 on the card: {plan64.backend}, {launches64}")
+    check(err64 <= x64.numel() * 2.0**-53 * float(x64.abs().sum()),
+          "auto reduce of f64 on the card: off torch.sum")
+
+
 # -------------------- the multi-reduce and scan path (K8, K9, K4) --------------------
 
 MULTI_N = 2**28  # the packed buffer and the scans: 1.07 GB of f32
@@ -1057,14 +1100,23 @@ def check_segments(results: dict, gen) -> None:
           f"{results['mma_sum_segments']['at_2e28_bf16']['ms']:.4f} ms")
 
 
+# K9's time per call at 2^28 f32 / bf16 before the look-back kernel: the
+# one-SM kernel it replaced, by CUDA events on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md's table of kernels); printed beside this run's time, not
+# measured here.
+K9_ONE_SM_MS = {"float32": 201.631, "bfloat16": 178.206}
+
+
 def check_scan(results: dict, gen) -> None:
     """K9 at 2^28 f32 (f32 compute: bitwise its plain version, the same
     adds in the same order) and bf16 (bf16 compute on the tensor cores:
     within one bf16 ulp of the output plus 2^-17 of the running mass --
     f32 sums of the same products in another order, then the same rounding
-    to bf16); bitwise at 1, 2, 4 and 8 lanes and the exclusive scan the
-    inclusive one shifted, at 2^24; one launch, launch-boundary bytes
-    against ``cost_model.scan_hbm_bytes``."""
+    to bf16); bitwise at 1, 2, 4 and 8 lanes, across five launches, and
+    the exclusive scan the inclusive one shifted, at 2^24; one launch,
+    launch-boundary bytes (input, output and look-back state) against the
+    kernel's model ``cost_model.lookback_scan_hbm_bytes`` (the reference's
+    striped ``scan_hbm_bytes`` printed beside it)."""
     import torch
 
     from repro_torch.core import cost_model
@@ -1078,7 +1130,8 @@ def check_scan(results: dict, gen) -> None:
         want = sops.mma_scan_plain(xin)[:MULTI_N]
         torch.cuda.synchronize()
         err = float((got.double() - want.double()).abs().max())
-        model = cost_model.scan_hbm_bytes(MULTI_N, xin.element_size())
+        model = cost_model.lookback_scan_hbm_bytes(MULTI_N, xin.element_size())
+        striped = cost_model.scan_hbm_bytes(MULTI_N, xin.element_size())
         if xin.dtype == torch.float32:
             ok = torch.equal(got, want)
             tol_text = "bitwise"
@@ -1091,8 +1144,9 @@ def check_scan(results: dict, gen) -> None:
         rel = float(((got.double() - torch.cumsum(xin.double(), 0)).abs()).max())
         print(f"K9 mma_scan {what}: max_abs_err {err:.3g} vs plain (tol {tol_text}); max |d| "
               f"vs f64 cumsum {rel:.4g} at a final value {float(want[-1]):.6g}; {launched} "
-              f"launch, {tr[0].launch_io_bytes} bytes at the launch (cost model "
-              f"{model.launch_io})")
+              f"launch, {tr[0].launch_io_bytes} bytes at the launch (the kernel's model "
+              f"{model.launch_io}; the reference's striped model {striped.launch_io} + "
+              f"{striped.refetch_read} refetched at one lane)")
         check(ok, f"K9 {what} disagrees with its plain version")
         check(launched == 1, f"K9 {what}: {launched} launches")
         check(tr[0].launch_io_bytes == model.launch_io, f"K9 {what}: launch bytes off the model")
@@ -1100,27 +1154,23 @@ def check_scan(results: dict, gen) -> None:
     small = x[:2**24]
     for xin in (small, small.to(torch.bfloat16)):
         outs = [sops.mma_scan(xin, num_lanes=c, tiles_per_block=1) for c in (1, 2, 4, 8)]
+        outs += [sops.mma_scan(xin) for _ in range(5)]
         exc = sops.mma_scan(xin, inclusive=False)
         torch.cuda.synchronize()
         same = [torch.equal(o, outs[0]) for o in outs]
         shift = torch.equal(exc[1:], outs[0][:-1]) and float(exc[0]) == 0.0
-        print(f"K9 2^24 {str(xin.dtype)[6:]}: bitwise at 1/2/4/8 lanes {same}; exclusive is the "
-              f"inclusive shifted {shift}")
-        check(all(same), "K9 output differs between lane counts")
+        print(f"K9 2^24 {str(xin.dtype)[6:]}: bitwise at 1/2/4/8 lanes and across five more "
+              f"launches {same}; exclusive is the inclusive shifted {shift}")
+        check(all(same), "K9 output differs between lane counts or launches")
         check(shift, "K9 exclusive scan is not the inclusive one shifted")
         del outs, exc
 
     def timings(xin):
-        # a call keeps the card busy for a fifth of a second, far longer than
-        # its host work: CUDA events around back-to-back calls read device
-        # time (the profiler's reading of a kernel this long is kept beside)
         n, isz = xin.numel(), xin.element_size()
         b, by = bound_ms(2 * n * isz, tensor_flops=3 * 2 * 128 * n)
-        ms = time_ms(lambda: sops.mma_scan(xin), iters=2, warmup=1)
         return {
-            "ms": ms, "call_ms": ms,
-            "profiler_ms": device_ms(lambda: sops.mma_scan(xin), "::scan_kernel<", iters=2,
-                                     warmup=0),
+            "ms": device_ms(lambda: sops.mma_scan(xin), "::scan_kernel<", iters=10),
+            "call_ms": time_ms(lambda: sops.mma_scan(xin), iters=20),
             "plain_ms": time_ms(lambda: sops.mma_scan_plain(xin), iters=1, warmup=0),
             "bound_ms": b, "bound_by": by,
             "library_ms": device_ms(lambda: torch.cumsum(xin, 0)),
@@ -1128,8 +1178,11 @@ def check_scan(results: dict, gen) -> None:
 
     results["mma_scan"] = dict(timings(x), at_2e28_bf16=timings(x.to(torch.bfloat16)),
                                max_abs_err=0.0)
-    print(f"K9 timings at 2^28 f32 / bf16 (1 lane): device {results['mma_scan']['ms']:.3f} / "
-          f"{results['mma_scan']['at_2e28_bf16']['ms']:.3f} ms")
+    for what, r, dt in (("f32", results["mma_scan"], "float32"),
+                        ("bf16", results["mma_scan"]["at_2e28_bf16"], "bfloat16")):
+        print(f"K9 at 2^28 {what}: device {r['ms']:.4f} ms (profiler), call {r['call_ms']:.4f} "
+              f"ms (CUDA events) (bound {r['bound_ms']:.4f}, torch.cumsum {r['library_ms']:.4f}; "
+              f"the one-SM kernel it replaced: {K9_ONE_SM_MS[dt]} ms, from PERF.md, not this run)")
 
 
 def check_parts_bf16(results: dict, gen) -> None:
@@ -1954,6 +2007,7 @@ def main() -> int:
     check_tile_partials(results, gen)
     check_moments_and_kahan(results, gen)
     check_reduce_against_cpu(gen)
+    check_auto_route(gen)
     torch.cuda.empty_cache()
     check_backward_times(results, gen)
     check_tiny_against_cpu()

@@ -14,7 +14,9 @@ result write = 1, so
   S = (4/5) log_2(m^2)           (eq. 17)
 
 Also the models of the multi-reduce and scan kernels: the segmented
-gather (K8), the parts pass (K4) and the triangular scan (K9). Not copied
+gather (K8), the parts pass (K4) and the triangular scan (K9; the
+reference's striped model, and the port's own look-back kernel beside it,
+``lookback_scan_hbm_bytes``). Not copied
 yet: the interconnect model (it comes with the distributed combine).
 """
 
@@ -308,6 +310,20 @@ def scan_hbm_bytes(n: int, itemsize: int, *, out_itemsize: int | None = None, m:
     refetch = sum(min(ci * bpl * block_elems, n) for ci in range(c))
     return HbmTraffic(kernel_read=n * itemsize, kernel_write=tpad * m * m * out_itemsize,
                       refetch_read=refetch * itemsize)
+
+
+def lookback_scan_hbm_bytes(n: int, itemsize: int, *, out_itemsize: int | None = None,
+                            m: int = M) -> HbmTraffic:
+    """The port's scan kernel (one tile per CTA, carries by look-back; no
+    counterpart in the reference): the buffer read once at its own width,
+    the tile-padded prefix written once in the output dtype, and the
+    look-back state written once (a ticket word and one 8-byte word per
+    tile). No refetch at any lane count: lanes and block depth do not
+    enter."""
+    out_itemsize = itemsize if out_itemsize is None else out_itemsize
+    tiles = max(1, -(-n // (m * m)))
+    return HbmTraffic(kernel_read=n * itemsize,
+                      kernel_write=tiles * m * m * out_itemsize + 8 * (tiles + 1))
 
 
 def staged_scan_hbm_bytes(n: int, itemsize: int, *, m: int = M, num_cores: int = 1,

@@ -55,7 +55,7 @@ _SIGNATURES = {
     "tp_level": (_P, _LL, _LL, _I, _I, _I, _I, _LL, _I, _I, _P, _P, _P, _P, _P),
     "sg_segments": (_P, _LL, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                     _P),
-    "sc_scan": (_P, _LL, _I, _I, _LL, _I, _I, _I, _P, _P),
+    "sc_scan": (_P, _LL, _I, _I, _I, _I, _P, _P, _I, _P),
     "ms_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 

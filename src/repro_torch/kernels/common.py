@@ -241,19 +241,31 @@ def refuse_grad(name: str, *tensors, entry: str | None) -> None:
 
 
 # Fold tickets: the integer counters by which a kernel's last CTA (or the
-# last CTA of each row block) finds itself. One buffer per (kernel, device,
-# stream), zeroed at first use and regrown, zeroed, when a launch needs more
-# counters. The last CTA sets its ticket back to 0, and launches on one
-# stream run in order, so each launch finds them zeroed.
+# last CTA of each row block) finds itself, and the scan's look-back words.
+# One buffer per (kernel, device, stream), zeroed at first use and regrown,
+# zeroed, when a launch needs more counters. The last CTA sets its ticket
+# back to 0, and launches on one stream run in order, so each launch finds
+# them zeroed. An epoch-tagged kernel (``epoch=True``) also gets a fresh
+# epoch per launch, which tags the words it publishes, so the words of
+# earlier launches read as unpublished and nothing is cleared between
+# launches. Epochs run 1 .. 2^31 - 1; the buffer is zeroed again when they
+# run out.
 _TICKETS: dict = {}
+_EPOCH_MAX = 2**31 - 1
 
 
-def fold_tickets(kernel: str, dev: torch.device, stream: int, count: int = 1) -> torch.Tensor:
+def fold_tickets(kernel: str, dev: torch.device, stream: int, count: int = 1,
+                 dtype: torch.dtype = torch.int32, epoch: bool = False):
+    """The kernel's buffer of at least ``count`` counters of ``dtype``;
+    with ``epoch``, ``(buffer, epoch)``: also the epoch this launch
+    publishes under."""
     key = (kernel, dev.index, stream)
-    have = _TICKETS.get(key)
-    if have is None or have.numel() < count:
-        _TICKETS[key] = have = torch.zeros((count,), dtype=torch.int32, device=dev)
-    return have
+    have, last = _TICKETS.get(key, (None, 0))
+    if have is None or have.numel() < count or last >= _EPOCH_MAX:
+        have, last = torch.zeros((count,), dtype=dtype, device=dev), 0
+    last += int(epoch)
+    _TICKETS[key] = (have, last)
+    return (have, last) if epoch else have
 
 
 # Every kernel wrapper, by kernel name. Each wrapper carries ``launches``, a

@@ -4,8 +4,9 @@ Port of ``repro/kernels/flash_attention`` (``_attn_kernel`` behind
 ``flash_attention``). Layout at this function, as in the reference:
 q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D); Hq a multiple of Hkv (GQA).
 On CUDA tensors the wrapper launches ``csrc/flash_attention.cu``; on CPU
-tensors it runs ``flash_attention_plain``, which walks the same 64-key
-blocks with the same run test, masks, bf16 roundings and online update.
+tensors it runs ``flash_attention_plain``, which walks the same blocks
+(128 queries, 128 keys: the reference's ``block_q`` and ``block_k``) with
+the same run test, masks, bf16 roundings and online update.
 
 ``flash_attention_diff`` is the differentiable entry, the counterpart of
 the reference's custom-VJP ``flash_attention_diff``: the kernel forward,
@@ -17,14 +18,17 @@ through it whenever grad mode is on and an input requires grad.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import build, common
 from repro_torch.kernels.common import bf16_round
 
 NEG = -1e30
-BLOCK_Q = 64    # csrc/flash_attention.cu FA_BQ
-BLOCK_K = 64    # csrc/flash_attention.cu FA_BK
+LOG2E = math.log2(math.e)  # the kernel's softmax runs in base 2
+BLOCK_Q = 128   # csrc/flash_attention.cu FA_BQ
+BLOCK_K = 128   # csrc/flash_attention.cu FA_BK
 MAX_HEAD_DIM = 128
 
 
@@ -42,10 +46,12 @@ def flash_attention_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the online softmax over
     ``block_k``-key blocks, each q block skipping the k blocks the kernel's
-    run test skips. Products of bf16-rounded operands accumulate in f32."""
+    run test skips. Products of bf16-rounded operands accumulate in f32;
+    the softmax runs in base 2, as the kernel's does (s = q.k * scale *
+    log2 e, p = 2^(s - m): e^(scale q.k - scale m))."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    scale = sm_scale if sm_scale is not None else d**-0.5
+    scale = (sm_scale if sm_scale is not None else d**-0.5) * LOG2E
     rep = hq // hkv
     dev = q.device
     qf = bf16_round(q)
@@ -75,8 +81,8 @@ def flash_attention_plain(
         s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
         s = torch.where(mask, s, NEG)
         m_new = torch.maximum(m, s.amax(-1))
-        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
-        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp2(s - m_new[..., None]), 0.0)
+        alpha = torch.exp2(m - m_new)
         pb = bf16_round(p)
         l_new = l * alpha + pb.sum(-1)
         acc_new = acc * alpha[..., None] + torch.matmul(pb, vb)
@@ -188,15 +194,17 @@ def _flash_attention_forward(q, k, v, *, causal, window, q_offset, sm_scale):
         raise ValueError(f"the attention kernel takes D a multiple of 16 up to {MAX_HEAD_DIM}; got {d}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    qc = q.reshape(b * hq, sq, d).contiguous()
-    kc = k.reshape(b * hkv, skv, d).contiguous()
-    vc = v.reshape(b * hkv, skv, d).contiguous()
+    # the kernel reads 16-byte aligned rows (TMA, vector loads): a view
+    # that starts off that alignment is copied
+    qc, kc, vc = (t.reshape(n, s, d).contiguous() for t, n, s in
+                  ((q, b * hq, sq), (k, b * hkv, skv), (v, b * hkv, skv)))
+    qc, kc, vc = (t.clone() if t.data_ptr() % 16 else t for t in (qc, kc, vc))
     out = torch.empty_like(qc)
     if qc.numel() and skv:
         with torch.cuda.device(q.device):
             err = build.library().fa_forward(
                 qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-                b * hq, sq, skv, d, hq, hkv, float(sm_scale), int(bool(causal)),
+                b * hq, sq, skv, d, hq, hkv, float(sm_scale) * LOG2E, int(bool(causal)),
                 -1 if window is None else int(window), int(q_offset), skv,
                 build.dtype_code(qc), build.stream_ptr(qc),
             )

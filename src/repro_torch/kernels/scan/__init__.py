@@ -3,5 +3,4 @@ from repro_torch.kernels.scan.ops import (  # noqa: F401
     mma_scan,
     mma_scan_plain,
     mma_scan_torch,
-    scan_geometry,
 )

@@ -19,10 +19,15 @@ fold over the rows before i (the reference's Ls @ T1), R = X @ U each row's
 running prefix (U strictly upper for the exclusive scan), and the output is
 (R + D) + carry in the storage dtype. The tile's total is read off the
 corner D[m-1] + T1[m-1] and folded into the f32 carry strictly left to
-right, so a tile's carry is the same chain of adds at every lane count:
-lanes own contiguous block ranges and rebuild their carry by re-reading the
-tiles before them (``cost_model.scan_hbm_bytes``' refetch), and the output
-is bitwise the same at any lane count.
+right. The kernel runs one tile per CTA over the whole card and learns
+each carry by a look-back over the tiles' published totals and inclusive
+carries that keeps that chain of adds (csrc/scan.cu), so the output is
+bitwise the plain version's on every run, whatever ``num_lanes`` and
+``tiles_per_block`` say (accepted for parity with the reference's
+``num_cores``; they change neither the launch nor its bytes). Its traffic
+is ``cost_model.lookback_scan_hbm_bytes``, and the trace reports it; the
+reference's striped model (``scan_hbm_bytes``, with its carry-rebuild
+refetch) describes the reference's kernel only.
 """
 
 from __future__ import annotations
@@ -41,28 +46,17 @@ TILE = MXU * MXU
 
 @dataclasses.dataclass(frozen=True)
 class ScanTrace:
-    """Instrumentation of one scan (the reference's fields): geometry, the
-    modeled MMAs and bytes, and the bytes handed to and written by the
-    launch (``launch_io_bytes``, the port's, to hold against the model's
-    ``launch_io``)."""
+    """Instrumentation of one scan: the kernel's modeled bytes
+    (``cost_model.lookback_scan_hbm_bytes``' total) and the bytes handed to
+    and written by the launch (``launch_io_bytes``: input, output and
+    look-back state, counted from the buffers the wrapper passes)."""
 
     n: int
     m: int
-    num_cores: int = 1
-    mma_ops: int = 0          # chip-wide MMAs (cost_model.ScanMmaOps.total)
-    lane_mma_ops: int = 0     # one lane's owned-stripe MMAs
-    carry_mma_ops: int = 0    # the worst lane's carry-rebuild MMAs
-    hbm_bytes: int = 0        # modeled total traffic (refetch included)
+    hbm_bytes: int = 0        # the kernel's modeled traffic (no refetch)
     inclusive: bool = True
     fallback: str = ""        # "" (in place) or "ingest_f32"
     launch_io_bytes: int = 0
-
-
-def scan_geometry(n: int, m: int = MXU, tiles_per_block: int = 8, num_cores: int = 1):
-    """``(r, c, blocks_per_lane, padded_tiles)`` of a scan over n elements:
-    ``cost_model.stripe_geometry``, with each lane's blocks contiguous."""
-    tiles = max(1, common.ceil_div(n, m * m))
-    return cost_model.stripe_geometry(tiles, tiles_per_block, num_cores)
 
 
 def _round(x: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -83,39 +77,55 @@ def _row_prefix(rows: torch.Tensor, inclusive: bool) -> torch.Tensor:
     return out
 
 
-def mma_scan_plain(flat: torch.Tensor, inclusive: bool = True, compute_dtype=None,
-                   tiles_per_block: int = 8, num_lanes: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of the scan kernel: the block-padded prefix
-    (``padded_tiles * m^2`` values in the storage dtype). Each value is
+def scan_tile_parts(flat: torch.Tensor, inclusive: bool = True, compute_dtype=None):
+    """The per-tile half of the plain version: ``(r, down, totals)`` of the
+    ``ceil(n / m^2)`` zero-padded tiles -- each row's running f32 prefix R
+    (``(tiles, m, m)``), D (``(tiles, m)``) and the tile totals D[m-1] +
+    T1[m-1] (``(tiles,)``), each value rounded to the compute dtype first."""
+    flat = flat.reshape(-1)
+    cd = flat.dtype if compute_dtype is None else compute_dtype
+    n = flat.numel()
+    tiles = max(1, common.ceil_div(n, TILE))
+    v = _round(flat.to(torch.float32), cd)
+    rows = torch.nn.functional.pad(v, (0, tiles * TILE - n)).view(tiles * MXU, MXU)
+    incl = _row_prefix(rows, True)
+    t1 = incl[:, -1].view(tiles, MXU)
+    r = incl if inclusive else _row_prefix(rows, False)
+    down = torch.empty_like(t1)
+    d = torch.zeros(tiles, dtype=torch.float32, device=flat.device)
+    for i in range(MXU):
+        down[:, i] = d
+        d = d + t1[:, i]
+    return r.view(tiles, MXU, MXU), down, down[:, -1] + t1[:, -1]
+
+
+def carry_chain(totals: torch.Tensor) -> torch.Tensor:
+    """Each tile's carry: 0, then a left-to-right f32 fold of the tile
+    totals, c[t + 1] = c[t] + total[t] (numpy's float32 accumulate is
+    sequential)."""
+    chain = np.cumsum(np.concatenate([np.zeros(1, np.float32),
+                                      totals.cpu().numpy().astype(np.float32)]), dtype=np.float32)
+    return torch.from_numpy(chain[:-1]).to(totals.device)
+
+
+def scan_from_parts(r: torch.Tensor, down: torch.Tensor, carry: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """The tile-padded prefix (R + D) + carry, flat, in ``dtype``."""
+    return ((r + down[:, :, None]) + carry[:, None, None]).reshape(-1).to(dtype)
+
+
+def mma_scan_plain(flat: torch.Tensor, inclusive: bool = True,
+                   compute_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of the scan kernel: the tile-padded prefix
+    (``ceil(n / m^2) * m^2`` values in the storage dtype). Each value is
     rounded to the compute dtype; each tile row is summed left to right in
     f32 (R; its last value is T1), D folds T1 over the rows left to right,
     the tile totals D[m-1] + T1[m-1] are folded left to right into the
     carry, and the output is (R + D) + carry. At f32 compute this is the
     kernel's arithmetic, bitwise; at bf16/f16 the kernel takes R and T1 on
-    tensor cores, whose f32 accumulation order is the hardware's. The
-    result does not depend on ``num_lanes`` (only the padding does)."""
-    flat = flat.reshape(-1)
-    cd = flat.dtype if compute_dtype is None else compute_dtype
-    n = flat.numel()
-    _, _, _, tpad = scan_geometry(n, MXU, tiles_per_block, num_lanes)
-    v = _round(flat.to(torch.float32), cd)
-    rows = torch.nn.functional.pad(v, (0, tpad * TILE - n)).view(tpad * MXU, MXU)
-    incl = _row_prefix(rows, True)
-    t1 = incl[:, -1].view(tpad, MXU)
-    r = incl if inclusive else _row_prefix(rows, False)
-    down = torch.empty_like(t1)
-    d = torch.zeros(tpad, dtype=torch.float32, device=flat.device)
-    for i in range(MXU):
-        down[:, i] = d
-        d = d + t1[:, i]
-    totals = down[:, -1] + t1[:, -1]
-    # the carry: 0, then a left-to-right f32 fold of the tile totals
-    # (numpy's float32 accumulate is sequential)
-    chain = np.cumsum(np.concatenate([np.zeros(1, np.float32),
-                                      totals.cpu().numpy().astype(np.float32)]), dtype=np.float32)
-    carry = torch.from_numpy(chain[:-1]).to(flat.device)
-    out = (r.view(tpad, MXU, MXU) + down[:, :, None]) + carry[:, None, None]
-    return out.reshape(-1).to(flat.dtype)
+    tensor cores, whose f32 accumulation order is the hardware's."""
+    r, down, totals = scan_tile_parts(flat, inclusive, compute_dtype)
+    return scan_from_parts(r, down, carry_chain(totals), flat.dtype)
 
 
 def _ingest(x: torch.Tensor):
@@ -137,14 +147,17 @@ def mma_scan(
 ) -> torch.Tensor:
     """Cumsum of every element of ``x`` in flat order, in ONE launch ->
     x's shape and dtype. Reads the buffer once in its own dtype (other than
-    f32/bf16/f16: one f32 staging copy), writes the block-padded prefix in
+    f32/bf16/f16: one f32 staging copy), writes the tile-padded prefix in
     the storage dtype and returns its first n values. ``compute_dtype=None``
-    scans at the ingest dtype itself. ``num_lanes`` CTAs own contiguous
-    block ranges and rebuild their carries by re-reading (clamped to the
-    block count); the output is the same, bit for bit, at any count.
+    scans at the ingest dtype itself. ``num_lanes`` and ``tiles_per_block``
+    shape the reference's striped kernel; here they are checked only (one
+    CTA per tile over the whole card, carries by look-back: the output is
+    the same, bit for bit, at any count and on every run).
     ``trace`` gets a ``ScanTrace``. CPU tensors: plain version. Not
     differentiable: an input that requires grad raises (``repro_torch.scan``
-    differentiates it)."""
+    differentiates it). Each launch publishes its look-back words under a
+    fresh epoch drawn here, so a CUDA graph that replayed a captured launch
+    would reuse a stale epoch: do not capture it."""
     common.refuse_grad("mma_scan", x, entry="repro_torch.scan")
     if num_lanes < 1:
         raise ValueError(f"num_lanes must be >= 1; got {num_lanes}")
@@ -159,26 +172,26 @@ def mma_scan(
         if trace is not None:
             trace.append(ScanTrace(n=0, m=MXU, inclusive=inclusive))
         return torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-    r, c, bpl, tpad = scan_geometry(n, MXU, tiles_per_block, num_lanes)
+    tiles = common.ceil_div(n, TILE)
     itemsize = flat.element_size()
     if trace is not None:
-        ops = cost_model.scan_mma_ops(n, MXU, num_lanes, tiles_per_block)
-        hbm = cost_model.scan_hbm_bytes(n, itemsize, m=MXU, num_cores=num_lanes,
-                                        tiles_per_block=tiles_per_block)
-        trace.append(ScanTrace(n=n, m=MXU, num_cores=c, mma_ops=ops.total,
-                               lane_mma_ops=ops.lane_scan, carry_mma_ops=ops.carry_worst,
-                               hbm_bytes=hbm.total, inclusive=inclusive, fallback=fallback,
-                               launch_io_bytes=n * itemsize + tpad * TILE * itemsize))
+        hbm = cost_model.lookback_scan_hbm_bytes(n, itemsize, m=MXU)
+        trace.append(ScanTrace(n=n, m=MXU, hbm_bytes=hbm.total, inclusive=inclusive,
+                               fallback=fallback,
+                               launch_io_bytes=(n + tiles * TILE) * itemsize + 8 * (tiles + 1)))
     if common.on_cpu(flat):
-        out = mma_scan_plain(flat, inclusive, cd, tiles_per_block, num_lanes)
+        out = mma_scan_plain(flat, inclusive, cd)
     else:
         src = flat.contiguous()
-        out = torch.empty((tpad * TILE,), dtype=src.dtype, device=src.device)
+        out = torch.empty((tiles * TILE,), dtype=src.dtype, device=src.device)
+        stream = build.stream_ptr(out)
+        state, epoch = common.fold_tickets("mma_scan", src.device, stream, tiles + 1,
+                                           torch.int64, epoch=True)
         with torch.cuda.device(src.device):
             err = build.library().sc_scan(
-                src.data_ptr(), n, build.dtype_code(src), build.DTYPE_CODES[cd], bpl * r, c,
+                src.data_ptr(), n, build.dtype_code(src), build.DTYPE_CODES[cd],
                 int(bool(inclusive)), int(src.data_ptr() % 16 == 0), out.data_ptr(),
-                build.stream_ptr(out),
+                state.data_ptr(), epoch, stream,
             )
         build.check(err, "mma_scan")
         mma_scan.launches += 1

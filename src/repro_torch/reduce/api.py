@@ -242,12 +242,14 @@ def _reduce_census_full(x: torch.Tensor, kind: str, plan: ReducePlan, chain: tup
     return stat.to(accum), count.to(accum)
 
 
-def _resolve_plan(shape, dtype, axis_t, kind, plan, segments=None, **fields) -> ReducePlan:
-    """The planner's choice (``plan_for``), or the given plan with the set
-    keyword fields overriding it (the reference's ``_resolve_plan``)."""
+def _resolve_plan(shape, dtype, axis_t, kind, plan, segments=None, device=None,
+                  **fields) -> ReducePlan:
+    """The planner's choice (``plan_for``, auto routed by the operand's
+    ``device``), or the given plan with the set keyword fields overriding
+    it (the reference's ``_resolve_plan``)."""
     if plan is None:
         return plan_for(shape, dtype, kind=kind, axis=axis_t or None, segments=segments,
-                        **fields)
+                        device=device, **fields)
     over = {k: v for k, v in fields.items() if v is not None}
     for key in ("compute_dtype", "accum_dtype"):
         if key in over:
@@ -263,6 +265,7 @@ def reduce(
     plan: Optional[ReducePlan] = None,
     backend: Optional[str] = None,
     compute_dtype=None,
+    accum_dtype=None,
     num_lanes: Optional[int] = None,
     tiles_per_block: Optional[int] = None,
     precision: Optional[str] = None,
@@ -271,7 +274,8 @@ def reduce(
     census: bool = False,
 ):
     """Reduce ``x`` over ``axis`` (None = all elements, the default; () =
-    no axes, numpy's convention).
+    no axes, numpy's convention). The result's dtype is the plan's
+    ``accum_dtype`` (f32, f64 for f64 input, unless set).
 
     kind: "sum"; "mean" (an empty full mean is NaN, 0/0); "sumsq" (full
     reductions square in-kernel at the plan's compute dtype on the kernel
@@ -283,7 +287,8 @@ def reduce(
     plan's compute dtype, bf16 by default).
 
     ``plan`` pins the whole strategy; the keyword fields override it (or
-    the planner's choice): ``num_lanes`` stripes the fused kernels over
+    the planner's choice): ``compute_dtype`` and ``accum_dtype`` set the
+    multipliers' and the result's dtypes, ``num_lanes`` stripes the fused kernels over
     that many CTAs (None: the device's default), ``tiles_per_block`` sets
     the kernels' block depth, ``precision="kahan"`` compensates the full
     sum (``kahan_block``: the blocked combine's block length).
@@ -306,9 +311,9 @@ def reduce(
         )
     if (census or chain) and kind == "moments":
         raise ValueError("census and epilogue chains do not compose with kind='moments'")
-    p = _resolve_plan(x.shape, x.dtype, axis_t, kind, plan, backend=backend,
-                      compute_dtype=compute_dtype,
-                      num_lanes=num_lanes, tiles_per_block=tiles_per_block,
+    p = _resolve_plan(x.shape, x.dtype, axis_t, kind, plan, device=x.device,
+                      backend=backend, compute_dtype=compute_dtype,
+                      accum_dtype=accum_dtype, num_lanes=num_lanes, tiles_per_block=tiles_per_block,
                       precision=precision, kahan_block=kahan_block)
     accum = p.accum_torch
     if census:
@@ -625,7 +630,8 @@ def reduce_many(
     total = sum(a.numel() for a in arrs)
     dtype = functools.reduce(torch.promote_types, (a.dtype for a in arrs), arrs[0].dtype)
     p = _resolve_plan((total,), dtype, None if axis is None else (-1,), kind, plan,
-                      segments=len(arrs), backend=backend, compute_dtype=compute_dtype,
+                      segments=len(arrs), device=arrs[0].device, backend=backend,
+                      compute_dtype=compute_dtype,
                       accum_dtype=accum_dtype, num_lanes=num_lanes,
                       tiles_per_block=tiles_per_block, precision=precision,
                       kahan_block=kahan_block)
@@ -653,7 +659,9 @@ def reduce_tree(
     tree,
     kind: str = "sumsq",
     *,
+    plan: Optional[ReducePlan] = None,
     backend: Optional[str] = None,
+    num_lanes: Optional[int] = None,
     epilogue=None,
     return_per_leaf: bool = False,
     census: bool = False,
@@ -669,6 +677,12 @@ def reduce_tree(
     no chain), as ``(per_leaf, result)``. ``census=True`` appends the
     per-leaf NaN/Inf counts and their total, (S + 1,) f32, counted on the
     raw elements: ``(result, counts)`` or ``(per_leaf, result, counts)``.
+
+    ``plan`` pins the strategy (``backend`` and ``num_lanes`` override its
+    fields; the lane count reaches the kernels that take one: the gather
+    kernel K8 past 128 leaves, and the fused kernels); without one the planner
+    chooses for the total element count at f32 multipliers (exactness for
+    clipping), on the leaves' device.
 
     On cuda_fused the leaves themselves are the launch operands: ONE launch
     squares, sums, folds, finishes the chains and counts the census. The
@@ -687,10 +701,17 @@ def reduce_tree(
     leaves = tree_leaves(tree)
     square = kind in ("sumsq", "norm2")
     total_n = sum(int(math.prod(leaf.shape)) for leaf in leaves)
-    plan = plan_for(
-        (total_n,), torch.float32, kind="sumsq" if square else "sum",
-        backend=backend, compute_dtype="float32",  # exactness for clipping
-    )
+    if plan is None:
+        plan = plan_for(
+            (total_n,), torch.float32, kind="sumsq" if square else "sum",
+            backend=backend, num_lanes=num_lanes,
+            compute_dtype="float32",  # exactness for clipping
+            device=leaves[0].device if leaves else None,
+        )
+    else:
+        over = {k: v for k, v in (("backend", backend), ("num_lanes", num_lanes))
+                if v is not None}
+        plan = plan.replace(**over) if over else plan
     accum = plan.accum_torch
 
     def _finish(per_leaf, out, counts=None):

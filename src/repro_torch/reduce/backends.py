@@ -490,7 +490,7 @@ class SegmentedBackend(Backend):
     native_autodiff = False  # it may resolve to a kernel backend
 
     def _delegate(self, n: int, dtype, device, plan):
-        name = segmented_backend_for(n, dtype, plan.m, device)
+        name = segmented_backend_for(n, dtype, plan.m, device, plan)
         return get_backend(name), plan.replace(backend=name)
 
     def sum_all(self, x, plan, prologue="identity", epilogue=(), census=False):

@@ -9,15 +9,21 @@ reference's precision policy (``precision``, ``kahan_block``) and block
 depth (``tiles_per_block``).
 
 Backend resolution: an explicit ``backend=`` wins; else the process
-default (``set_default_backend``); else "auto", which picks the MMA
-algorithm ``mma_torch`` for reductions longer than one tile and plain
-``torch`` below (the reference's off-TPU choice). The kernel backend
-``cuda_fused`` is reached by name (the launchers' ``--reduce-backend``,
-the guard's breaker chain) or by the config flags (``backend_for_flags``);
-``cuda_hier`` (the paper's multi-launch hierarchy) by name. Quarantined
-backends leave AUTO rotation along cuda_fused -> mma_torch, cuda_hier ->
-mma_torch, mma_torch -> torch; explicit pins still reach them (the
-breaker's half-open probes).
+default (``set_default_backend``); else "auto", the reference's
+``_auto_backend`` with its names mapped (xla -> torch, mma_jnp ->
+mma_torch, "on a real TPU" -> "the operand lies on a CUDA device"):
+non-float data -> ``torch`` (exact adds); reductions over axes ->
+``mma_torch`` for an extent above m, else ``torch``; a full reduction of
+at least ``_MIN_KERNEL_TILES`` m^2 tiles on a CUDA device -> the fused
+kernel ``cuda_fused``, when the kernels read the plan's dtypes (compute
+at f32, bf16 or f16; under Kahan the accumulator too, since the census
+multiplies at its width) and else ``mma_torch``; anything else -> ``mma_torch`` above m, ``torch``
+up to m. The kernel backends are also reached by name (the launchers'
+``--reduce-backend``, the guard's breaker chain) or by the config flags
+(``backend_for_flags``); ``cuda_hier`` (the paper's multi-launch
+hierarchy) only by name. Quarantined backends leave AUTO rotation along
+cuda_fused -> mma_torch, cuda_hier -> mma_torch, mma_torch -> torch;
+explicit pins still reach them (the breaker's half-open probes).
 
 Segmented multi-reduce problems (``plan_for(..., segments=N)``, the route of
 ``reduce_many``) go to the registered "segmented" backend on auto, which
@@ -35,7 +41,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.common import MXU, native_ingest_dtype
+from repro_torch.kernels.common import MXU, NATIVE_INGEST_DTYPES, native_ingest_dtype
 
 _default_backend: Optional[str] = None
 _QUARANTINED: set = set()
@@ -160,6 +166,30 @@ def backend_for_flags(mma: bool, use_kernels: bool = False) -> str:
     return "cuda_fused" if use_kernels else "mma_torch"
 
 
+def kernels_take(compute_dtype, accum_dtype, precision: str) -> bool:
+    """Whether the kernel backends run a plan with these fields: their
+    multipliers are f32, bf16 or f16 (f64 stays on mma_torch), and under
+    ``precision="kahan"`` the census multiplies at the accumulator's dtype."""
+    dts = (compute_dtype, accum_dtype) if precision == "kahan" else (compute_dtype,)
+    return all(_DTYPES.get(dtype_name(d)) in NATIVE_INGEST_DTYPES for d in dts)
+
+
+def _auto_backend(shape, dtype, axis, device) -> str:
+    """The reference's ``_auto_backend`` at m = 128, names mapped (see the
+    module docstring); ``plan_for`` then keeps off the kernels what they
+    cannot read (``kernels_take``)."""
+    axes = range(len(shape)) if axis is None else (
+        (axis,) if isinstance(axis, int) else tuple(axis))
+    n = math.prod(int(shape[a]) for a in axes)
+    if not _is_float(dtype):
+        return "torch"
+    if axis is not None or n < _MIN_KERNEL_TILES * MXU * MXU:
+        return "mma_torch" if n > MXU else "torch"
+    if device is not None and torch.device(device).type == "cuda":
+        return "cuda_fused"
+    return "mma_torch"
+
+
 def plan_for(
     shape: Sequence[int],
     dtype,
@@ -174,20 +204,17 @@ def plan_for(
     precision: Optional[str] = None,
     kahan_block: Optional[int] = None,
     segments: Optional[int] = None,
+    device=None,
 ) -> ReducePlan:
     """The plan for reducing ``shape``/``dtype`` over ``axis`` (the reduced
-    extent picks the auto backend; unset fields follow the reference:
-    8 tiles per block, native precision, Kahan blocks of 4096).
-    ``segments=N`` marks a multi-reduce of N pieces (``shape`` is then the
-    packed stream): on auto it routes to the "segmented" backend."""
+    extent, the dtype and the operand's ``device`` pick the auto backend;
+    unset fields follow the reference: 8 tiles per block, native
+    precision, Kahan blocks of 4096). ``segments=N`` marks a multi-reduce
+    of N pieces (``shape`` is then the packed stream): on auto it routes
+    to the "segmented" backend."""
     name = backend if backend is not None else default_backend()
     if name == "auto" and segments is not None:
         name = "segmented"
-    if name == "auto":
-        axes = range(len(shape)) if axis is None else (
-            (axis,) if isinstance(axis, int) else tuple(axis))
-        n = math.prod(int(shape[a]) for a in axes)
-        name = _dequarantine("mma_torch" if n > MXU else "torch")
     dt = dtype_name(dtype)
     if accum_dtype is None:
         accum_dtype = "float64" if dt == "float64" else "float32"
@@ -200,28 +227,36 @@ def plan_for(
             compute_dtype = "float32"  # exactness matters for clipping
         else:
             compute_dtype = "bfloat16"
+    precision = "native" if precision is None else precision
+    if name == "auto":
+        name = _auto_backend(shape, dtype, axis, device)
+        if name == "cuda_fused" and not kernels_take(compute_dtype, accum_dtype, precision):
+            name = "mma_torch"
+        name = _dequarantine(name)
     return ReducePlan(
         backend=name,
         compute_dtype=dtype_name(compute_dtype),
         accum_dtype=dtype_name(accum_dtype),
         num_lanes=num_lanes,
         tiles_per_block=8 if tiles_per_block is None else int(tiles_per_block),
-        precision="native" if precision is None else precision,
+        precision=precision,
         kahan_block=4096 if kahan_block is None else int(kahan_block),
     )
 
 
-def segmented_backend_for(n: int, dtype, m: int = MXU, device=None) -> str:
+def segmented_backend_for(n: int, dtype, m: int = MXU, device=None, plan=None) -> str:
     """The executor of a segmented multi-reduce of ``n`` elements in all
     (the "segmented" backend's per-call choice, the reference's rules with
     "on a real TPU" read as "the operand lies on a CUDA device"): exact
     ``torch`` for non-float data and for n <= m; the kernels
     (``cuda_fused``) for streams of at least two m^2 tiles at m = 128 on a
-    CUDA device; ``mma_torch`` otherwise. Quarantine applies."""
+    CUDA device, when the kernels read ``plan``'s dtypes
+    (``kernels_take``); ``mma_torch`` otherwise. Quarantine applies."""
     if not _is_float(dtype) or n <= m:
         return "torch"
     on_card = device is not None and torch.device(device).type == "cuda"
-    if on_card and m == MXU and n >= _MIN_KERNEL_TILES * m * m:
+    readable = plan is None or kernels_take(plan.compute_dtype, plan.accum_dtype, plan.precision)
+    if on_card and readable and m == MXU and n >= _MIN_KERNEL_TILES * m * m:
         return _dequarantine("cuda_fused")
     return _dequarantine("mma_torch")
 
@@ -234,9 +269,10 @@ class ScanPlan:
     """How one prefix sum runs (the reference's fields, ``num_lanes`` for
     ``num_cores``): backend ("torch": ``torch.cumsum`` at f32; "mma_torch":
     the batched triangular product; "cuda_fused" / "cuda_hier": the scan
-    kernel for 1-D streams), the tile m, tiles per block, the kernel's lane
-    count (contiguous block ranges; 1 by default on every device: more lanes
-    only add carry-rebuild reads), and dtype names. The compute dtype
+    kernel for 1-D streams), the tile m, tiles per block and the lane count
+    (the reference's striped geometry, 1 lane by default; the port's kernel
+    runs one CTA per tile whatever they say, and ``hbm_bytes`` keeps the
+    reference's model), and dtype names. The compute dtype
     defaults to the operand's own ingest dtype, not bf16: every partial of a
     scan is an output."""
 

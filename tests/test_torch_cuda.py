@@ -361,6 +361,88 @@ def test_scan_matches_plain_and_is_lane_invariant(gen, n, dtype, inclusive):
         assert float(outs[0][0]) == 0.0 and torch.equal(outs[0][1:], inc[:-1])
 
 
+@pytest.mark.parametrize("n", [1, 128 * 128, 128 * 128 + 1, 3 * 2**20 + 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_lookback_scan_bitwise_across_lanes_and_launches(gen, n, dtype, inclusive):
+    # f32: bitwise the plain version (the same adds in the same order);
+    # bf16 / f16: the tolerance of the cell above (tensor-core f32 sums in
+    # their own order). Bitwise across lane counts and five launches in
+    # every dtype: the look-back keeps the left-to-right carry chain.
+    from repro_torch.core import cost_model
+    from repro_torch.kernels.scan import ops as sops
+
+    x = (torch.randn((n + 1,), generator=gen, device="cuda") + 0.1).to(dtype)
+    for xin in (x[:n], x[1:]):  # 16-byte aligned, and not (the element-wise loads)
+        before, tr = sops.mma_scan.launches, []
+        first = sops.mma_scan(xin, inclusive=inclusive, trace=tr)
+        assert sops.mma_scan.launches == before + 1
+        assert tr[0].launch_io_bytes == \
+            cost_model.lookback_scan_hbm_bytes(n, xin.element_size()).launch_io
+        for lanes in (1, 2, 8):
+            assert torch.equal(sops.mma_scan(xin, inclusive=inclusive, num_lanes=lanes,
+                                             tiles_per_block=1), first)
+        for _ in range(5):
+            assert torch.equal(sops.mma_scan(xin, inclusive=inclusive), first)
+        want = sops.mma_scan_plain(xin, inclusive)[:n]
+        if dtype == torch.float32:
+            assert torch.equal(first, want)
+        else:
+            run = torch.cumsum(xin.double().abs(), 0)
+            g, w = first.double(), want.double()
+            assert bool(torch.all(((g - w).abs() <= 2.0**-7 * w.abs() + 2.0**-17 * run + 1e-5)
+                                  | (g == w)))
+
+
+def test_auto_reduce_reaches_the_fused_kernel(gen):
+    from repro_torch import reduce as R
+
+    x = torch.randn((2 * 128 * 128,), generator=gen, device="cuda")
+    assert R.plan_for(x.shape, x.dtype, device=x.device).backend == "cuda_fused"
+    before = mma_sum_fused.launches
+    got = R.reduce(x)
+    assert mma_sum_fused.launches == before + 1
+    assert abs(float(got) - float(R.reduce(x.cpu()))) <= 2.0**-7 * float(x.abs().sum()) / 64
+    before = mma_sum_parts.launches
+    R.reduce_tree([x, x[:7]], kind="sumsq")
+    assert mma_sum_parts.launches == before + 1
+    # f64 (which the kernels cannot read) stays on mma_torch and runs
+    x64 = x.double()
+    assert R.plan_for(x64.shape, x64.dtype, device=x64.device).backend == "mma_torch"
+    before = mma_sum_fused.launches
+    got64 = R.reduce(x64)
+    assert mma_sum_fused.launches == before
+    assert got64.dtype == torch.float64
+    assert abs(float(got64) - float(x64.sum())) <= x64.numel() * 2.0**-53 * float(x64.abs().sum())
+    many = R.reduce_many([x64, x64[:7]])
+    torch.testing.assert_close(many, torch.stack([x64.sum(), x64[:7].sum()]),
+                               rtol=0, atol=x64.numel() * 2.0**-53 * float(x64.abs().sum()))
+
+
+@pytest.mark.parametrize("case", [  # chip_smoke.py's check_attention cases
+    (4, 16, 16, 512, 512, 128, True, None, 0),
+    (4, 16, 16, 256, 256, 128, True, None, 0),
+    (1, 16, 4, 64, 320, 128, True, 128, 256),
+    (2, 4, 2, 100, 100, 64, False, None, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_flash_attention_main_path_cases_match_plain(gen, case, dtype):
+    # tolerance: 2 bf16 ulps of the output + 2e-3 (the same 128-key blocks,
+    # f32 sums in another order, which can flip one bf16 rounding of p)
+    b, hq, hkv, sq, skv, d, causal, window, q_offset = case
+    q, k, v = ((torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    plain = flash_attention_plain(q, k, v, **kw)
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    assert bool(torch.all((out.float() - plain.float()).abs()
+                          <= 2.0**-6 * plain.float().abs() + 2e-3))
+    assert torch.equal(flash_attention(q, k, v, **kw), out)
+
+
 @pytest.mark.parametrize("compute", [torch.bfloat16, torch.float16])
 def test_parts_bf16_compute_moments_and_slot_chain_match_plain(gen, compute):
     from repro_torch.kernels.mma_reduce import ops

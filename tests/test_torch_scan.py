@@ -213,9 +213,15 @@ def test_scan_trace_and_plan_bytes_match_the_models(lanes, dtype, itemsize):
     RS.mma_scan_pallas(jnp.zeros((n,), jnp.float32), tiles_per_block=2, num_cores=lanes,
                        trace=rtr, interpret=True)
     ops.mma_scan(torch.zeros(n), tiles_per_block=2, num_lanes=lanes, trace=tr)
-    for field in ("n", "m", "num_cores", "mma_ops", "lane_mma_ops", "carry_mma_ops",
-                  "hbm_bytes", "inclusive", "fallback"):
+    for field in ("n", "m", "inclusive", "fallback"):
         assert getattr(tr[0], field) == getattr(rtr[0], field), field
+    # the reference's trace reads the striped models, which the port keeps
+    # equal; the port's trace reads its own kernel's bytes
+    ops_model = cost_model.scan_mma_ops(n, num_cores=lanes, tiles_per_block=2)
+    striped = cost_model.scan_hbm_bytes(n, 4, num_cores=lanes, tiles_per_block=2)
+    assert (rtr[0].mma_ops, rtr[0].lane_mma_ops, rtr[0].carry_mma_ops, rtr[0].hbm_bytes) == \
+        (ops_model.total, ops_model.lane_scan, ops_model.carry_worst, striped.total)
+    assert tr[0].hbm_bytes == cost_model.lookback_scan_hbm_bytes(n, 4).total
     plan = R.scan_plan_for((n,), dtype, backend="cuda_fused", num_lanes=lanes)
     ref_plan = RR.scan_plan_for((n,), jnp.bfloat16 if itemsize == 2 else jnp.float32,
                                 backend="pallas_fused", num_cores=lanes)
@@ -227,8 +233,8 @@ class _FakeLibrary:
     def __init__(self):
         self.calls = []
 
-    def sc_scan(self, x, n, dt, cd, tiles_per_lane, lanes, inclusive, aligned, out, stream):
-        self.calls.append((n, dt, cd, tiles_per_lane, lanes, inclusive))
+    def sc_scan(self, x, n, dt, cd, inclusive, aligned, out, state, epoch, stream):
+        self.calls.append((n, dt, cd, inclusive, epoch))
         return 0
 
 
@@ -249,11 +255,15 @@ def test_scan_launch_matches_geometry_and_bytes(fake_launch, n, lanes):
     tr = []
     before = ops.mma_scan.launches
     ops.mma_scan(x, inclusive=False, num_lanes=lanes, trace=tr)
-    assert ops.mma_scan.launches == before + 1
-    r, c, bpl, tpad = ops.scan_geometry(n, 128, 8, lanes)
-    assert fake_launch.calls == [(n, 1, 1, bpl * r, c, 0)]
+    ops.mma_scan(x, inclusive=True, num_lanes=lanes)
+    assert ops.mma_scan.launches == before + 2
+    # one launch whatever the lane count, each under a fresh look-back epoch
+    (n0, dt, cd, inc, e0), (n1, _, _, inc1, e1) = fake_launch.calls
+    assert (n0, dt, cd, inc, n1, inc1) == (n, 1, 1, 0, n, 1) and e1 == e0 + 1 >= 2
+    own = cost_model.lookback_scan_hbm_bytes(n, 2)
+    assert tr[0].launch_io_bytes == own.launch_io
+    assert own.refetch_read == 0 and tr[0].hbm_bytes == own.total
     model = cost_model.scan_hbm_bytes(n, 2, num_cores=lanes)
-    assert tr[0].launch_io_bytes == model.launch_io
     assert model.refetch_read == RC.scan_hbm_bytes(n, 2, num_cores=lanes).refetch_read
 
 
@@ -269,3 +279,95 @@ def test_packing_offsets_match_reference(backend, ref_backend):
     np.testing.assert_array_equal(got.numpy()[1:], np.cumsum(lengths.astype(np.int64)))
     with pytest.raises(ValueError):
         packing_offsets(torch.ones((2, 2), dtype=torch.int32))
+
+
+# ------------------- the kernel's look-back, emulated ------------------------
+
+
+def _look_back(status, value, t, lanes, windows, prog):
+    """One attempt of tile t's look-back, as csrc/scan.cu's warp runs it
+    with ``lanes`` lanes and room for ``windows`` windows of words: read the
+    words of t-1-lanes*w-i (lane i; before tile 0 an inclusive 0); wait
+    unless every word before the nearest inclusive carry is published;
+    keep a window of totals and read the next; start again from t-1 when
+    the room runs out. Returns c[t], or None while it waits."""
+    w, held = prog.setdefault(t, [0, []])
+    j = t - 1 - lanes * w - np.arange(lanes)
+    st = np.where(j < 0, 2, status[np.maximum(j, 0)])
+    val = np.where(j < 0, np.float32(0), value[np.maximum(j, 0)]).astype(np.float32)
+    incl = np.flatnonzero(st == 2)
+    first = incl[0] if incl.size else lanes
+    if np.any(st[:first] == 0):
+        return None
+    held = held + list(val[:first])
+    if not incl.size:
+        prog[t] = [w + 1, held] if w + 1 < windows else [0, []]
+        return None
+    c = val[first]
+    for q in range(len(held) - 1, -1, -1):  # tiles k+1 .. t-1, left to right
+        c = np.float32(c + held[q])
+    del prog[t]
+    return c
+
+
+def lookback_carries(totals, seed, lanes=4, windows=2):
+    """Every tile's carry as the kernel's CTAs find it, the events drawn in
+    a random order: a CTA takes the next ticket; a started tile publishes
+    its total (tile 0 its inclusive carry 0 + total[0] at once); a tile
+    with its total out tries its look-back and, once it has c[t],
+    publishes c[t] + total[t]."""
+    rng = np.random.default_rng(seed)
+    n = len(totals)
+    status = np.zeros(n, np.int8)  # 0 unpublished, 1 total, 2 inclusive carry
+    value = np.zeros(n, np.float32)
+    carry = np.full(n, np.nan, np.float32)
+    computing, waiting, prog, ticket = [], [], {}, 0
+    while ticket < n or computing or waiting:
+        pick = rng.integers(3)
+        if (pick == 0 or not (computing or waiting)) and ticket < n:
+            computing.append(ticket)
+            ticket += 1
+        elif (pick == 1 or not waiting) and computing:
+            t = computing.pop(rng.integers(len(computing)))
+            if t == 0:
+                status[0], value[0], carry[0] = 2, np.float32(0) + totals[0], 0
+            else:
+                status[t], value[t] = 1, totals[t]
+                waiting.append(t)
+        elif waiting:
+            t = waiting[rng.integers(len(waiting))]
+            c = _look_back(status, value, t, lanes, windows, prog)
+            if c is not None:
+                carry[t], status[t], value[t] = c, 2, np.float32(c + totals[t])
+                waiting.remove(t)
+    return carry
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("tiles,lanes,windows", [(1, 4, 2), (2, 4, 2), (37, 4, 2),
+                                                 (300, 8, 3), (2000, 32, 16)])
+def test_lookback_carries_are_the_left_fold_bitwise(seed, tiles, lanes, windows):
+    # totals across six decades, so that another order of the adds shows
+    rng = np.random.default_rng(100 + seed)
+    totals = (rng.standard_normal(tiles) * 10.0 ** rng.uniform(-3, 3, tiles)).astype(np.float32)
+    got = lookback_carries(totals, seed, lanes, windows)
+    want = np.cumsum(np.concatenate([np.zeros(1, np.float32), totals]), dtype=np.float32)[:-1]
+    assert_bits_equal(got, want)
+    assert_bits_equal(got, ops.carry_chain(torch.from_numpy(totals)).numpy())
+
+
+@pytest.mark.parametrize("n", [1, 100, T, T + 1, 3 * T + 5, 9 * T + 3])
+@pytest.mark.parametrize("dtype,cd", [(torch.float32, None), (torch.bfloat16, None),
+                                      (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_lookback_scan_is_the_plain_version_bitwise(n, dtype, cd, inclusive):
+    x = torch.from_numpy(_x(n, seed=n % 7)).to(dtype)
+    r, down, totals = ops.scan_tile_parts(x, inclusive, cd)
+    assert r.shape[0] == max(1, -(-n // T))
+    for seed in range(3):
+        carry = torch.from_numpy(lookback_carries(totals.numpy(), seed, lanes=2, windows=2))
+        got = ops.scan_from_parts(r, down, carry, dtype)
+        assert_bits_equal(got.float().numpy(),
+                          ops.mma_scan_plain(x, inclusive, cd).float().numpy())
+    assert_bits_equal(ops.mma_scan(x, inclusive=inclusive, compute_dtype=cd).float().numpy(),
+                      got[:n].float().numpy())
