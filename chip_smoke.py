@@ -30,7 +30,9 @@ then drives the three main paths with every kernel launch counted:
   matmul    the K11 entry, ``repro_torch.kernels.matmul_stats``, at
             olmo-1b's MLP down projection, (2048 x 8192) @ (8192 x 2048)
             at bf16 and f32 and the serving prefill's 1024 rows at bf16
-            (the fused matmul with its row moments, K11).
+            (the fused matmul with its row moments, K11); checked also at
+            full width on the element loads (x 2 bytes past a 16-byte
+            boundary, and K = 8190).
 
 Exits nonzero, with no result line, when any check fails or there is no
 GPU.
@@ -383,7 +385,7 @@ def check_attention(results: dict, gen) -> None:
 def check_parts(results: dict, gen) -> None:
     import torch
 
-    from repro_torch.kernels import mma_sum_parts
+    from repro_torch.kernels import mma_sum_fused, mma_sum_parts
     from repro_torch.kernels.mma_reduce import mma_sum_parts_plain
 
     vocab = 50304
@@ -421,7 +423,8 @@ def check_parts(results: dict, gen) -> None:
     def k4():
         return mma_sum_parts(parts, prologue="square", total_chains=chains, census=True)
 
-    results["mma_sum_parts"] = {"serving": {
+    flat = logits.reshape(-1)
+    serving = {
         "max_abs_err": err,
         "ms": device_ms(k4, "parts_kernel"),
         "call_ms": time_ms(k4),
@@ -429,7 +432,14 @@ def check_parts(results: dict, gen) -> None:
                                                           True), iters=5),
         "bound_ms": b_k4, "bound_by": by_k4,
         "library_ms": device_ms(lambda: logits.square().sum(-1)),
-    }}
+        "stream_ms": device_ms(lambda: mma_sum_fused(flat, compute_dtype=torch.float32,
+                                                     prologue="square", census=True)),
+    }
+    serving["fold_estimate_ms"] = serving["ms"] - serving["stream_ms"]
+    print(f"K4 at the serving shape: {serving['ms'] * 1e3:.2f} us on the card; K1 over the same "
+          f"{flat.numel()} f32 elements {serving['stream_ms'] * 1e3:.2f} us; fold_estimate_ms "
+          f"{serving['fold_estimate_ms']:.5f}")
+    results["mma_sum_parts"] = {"serving": serving}
 
 
 def olmo_leaf_shapes(cfg) -> list:
@@ -448,8 +458,8 @@ def check_parts_training(results: dict, gen) -> None:
     113 f32 gradient leaves (1.18 B elements), with the optimizer's
     epilogue fork and the census. Also times the fused kernel (K1) over one
     buffer of the same elements, f32 compute and square prologue: the same
-    bytes streamed with a 528-lane fold instead of K4's single-thread fold
-    over every tile partial, so the difference estimates that fold."""
+    bytes streamed with a 528-lane fold instead of K4's folds per part, so
+    the difference (``fold_estimate_ms``) estimates what K4's folds add."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -507,8 +517,8 @@ def check_parts_training(results: dict, gen) -> None:
     print(f"K4 at the training shape: {results['mma_sum_parts']['ms']:.4f} ms on the card "
           f"(CUDA events; the profiler reads {results['mma_sum_parts']['profiler_ms']:.4f} ms); "
           f"K1 over the same {total} f32 elements ({lanes} lanes): {stream_ms:.4f} ms; "
-          f"the difference, {fold:.4f} ms, estimates K4's single-thread fold over "
-          f"{tiles} tile partials")
+          f"the difference, fold_estimate_ms {fold:.4f}, estimates what K4's folds of "
+          f"{tiles} tile partials add")
     del flat
     torch.cuda.empty_cache()
 
@@ -1190,11 +1200,13 @@ def check_parts_bf16(results: dict, gen) -> None:
     1.18 B elements): ``mma_sum_parts`` at bf16 compute (kind sum) and
     with moments parts, against its plain version. Tolerance 2^-16 of each
     leaf's mass: the same element roundings, summed in f32 in another order
-    on the tensor cores."""
+    on the tensor cores. Also times K1 at bf16 compute over one buffer of the
+    same elements: the difference estimates what K4's folds add."""
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.mma_reduce import ops
+    from repro_torch.kernels import mma_sum_fused
+    from repro_torch.kernels.mma_reduce import default_num_lanes, ops
 
     leaves = [torch.randn(shape, generator=gen, device=DEVICE) * 0.02
               for shape in olmo_leaf_shapes(get_arch("olmo-1b"))]
@@ -1231,8 +1243,19 @@ def check_parts_bf16(results: dict, gen) -> None:
                         "bound_ms": b, "bound_by": by, "library_ms": None}
         print(f"K4 at bf16 compute, {pro}: {figures[pro]['ms']:.4f} ms per call (CUDA events), "
               f"bound {b:.4f} ms by {by}")
-    results["mma_sum_parts"]["bf16_compute"] = figures
+    flat = torch.cat([p.reshape(-1) for p in leaves])
     del leaves
+    stream_ms = time_ms(lambda: mma_sum_fused(flat, compute_dtype=torch.bfloat16,
+                                              num_lanes=default_num_lanes(flat)),
+                        iters=3, warmup=1)
+    for fig in figures.values():
+        fig["stream_ms"] = stream_ms
+        fig["fold_estimate_ms"] = fig["ms"] - stream_ms
+    print(f"K4 at bf16 compute: K1 over the same {total} f32 elements at bf16 compute "
+          f"{stream_ms:.4f} ms; fold_estimate_ms {figures['identity']['fold_estimate_ms']:.4f} "
+          f"(sum), {figures['moments']['fold_estimate_ms']:.4f} (moments)")
+    results["mma_sum_parts"]["bf16_compute"] = figures
+    del flat
     torch.cuda.empty_cache()
 
 
@@ -1513,9 +1536,11 @@ def check_matmul_stats(results: dict, gen) -> None:
     moments of the stored, rounded Y against ``MS_TOL`` (at bf16 they must
     fail it: the tolerance can tell the accumulator's moments from the
     output's). Card against CPU on a ragged case and on a K that is not
-    16-byte aligned. Timed at each case; the library time is
-    ``torch.matmul`` on the same bf16 operands, the product alone, with
-    the product plus the two row reductions of its result beside it."""
+    16-byte aligned. Timed at each case, with the achieved TFLOP/s; the
+    library time is ``torch.matmul`` on the same bf16 operands, the product
+    alone, with the product plus the two row reductions of its result
+    beside it. Then the full-width cases of the element loads
+    (``check_matmul_stats_staging``)."""
     import torch
 
     from repro_torch.kernels import matmul_stats
@@ -1576,10 +1601,11 @@ def check_matmul_stats(results: dict, gen) -> None:
         b, by = bound_ms((x.numel() + w.numel() + m * n) * isz + 2 * m * 4,
                          tensor_flops=2 * m * n * k + 2 * 16 * m * n, core_flops=m * n)
         xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        dev_ms = device_ms(lambda: matmul_stats(x, w), "matmul_stats_kernel")
         timed[(m, dtype)] = {
             "max_abs_err": dy, "s_err_rel": rs, "ss_err_rel": rss,
             "s_err_vs_f64": k_s, "ss_err_vs_f64": k_ss,
-            "ms": device_ms(lambda: matmul_stats(x, w), "matmul_stats_kernel"),
+            "ms": dev_ms, "tflops": 2 * m * n * k / (dev_ms * 1e-3) / 1e12,
             "call_ms": time_ms(lambda: matmul_stats(x, w), iters=20),
             "plain_ms": device_ms(lambda: matmul_stats_plain(x, w), iters=3),
             "bound_ms": b, "bound_by": by,
@@ -1587,15 +1613,63 @@ def check_matmul_stats(results: dict, gen) -> None:
             "library_with_moments_ms": device_ms(lambda: library_moments(xb, wb)),
         }
         del x, w, xb, wb, got, again, plain, yr
+    staging = check_matmul_stats_staging(gen)
     main_case = MS_CASES[0]
     results["matmul_stats"] = dict(timed[main_case], serving=timed[MS_CASES[1]],
-                                   at_f32=timed[MS_CASES[2]])
+                                   at_f32=timed[MS_CASES[2]], staging=staging)
     for (m, dtype), t in timed.items():
-        print(f"K11 timings ({m} rows, {dtype}): device {t['ms'] * 1e3:.2f} us, call "
-              f"{t['call_ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.1f} us, torch.matmul "
-              f"{t['library_ms'] * 1e3:.2f} us (+ row moments "
-              f"{t['library_with_moments_ms'] * 1e3:.2f} us), bound {t['bound_ms'] * 1e3:.2f} us "
-              f"by {t['bound_by']}")
+        print(f"K11 timings ({m} rows, {dtype}): device {t['ms'] * 1e3:.2f} us "
+              f"({t['tflops']:.1f} TFLOP/s), call {t['call_ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_ms'] * 1e3:.1f} us, torch.matmul {t['library_ms'] * 1e3:.2f} us (+ row "
+              f"moments {t['library_with_moments_ms'] * 1e3:.2f} us), bound "
+              f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}")
+
+
+def check_matmul_stats_staging(gen) -> dict:
+    """K11 at full width on the producer's element loads, which serve the
+    operands TMA cannot take: bf16 X 2 bytes past a 16-byte boundary, and
+    K = 8190 (rows of 16 380 bytes). The same checks as the main cases:
+    ``ms_compare`` against the plain version, a bitwise repeat, one launch
+    per call, and the moments within ``MS_TOL`` of the f64 product's."""
+    import torch
+
+    from repro_torch.kernels import matmul_stats
+    from repro_torch.kernels.matmul_stats import matmul_stats_plain, ops
+
+    m, n = TRAIN_BATCH * TRAIN_SEQ, 2048
+    out = {}
+    for name, k, offset in (("x at a 2-byte offset", 8192, 1), ("K = 8190", 8190, 0)):
+        flat = torch.randn((m * k + 8,), generator=gen, device=DEVICE).to(torch.bfloat16)
+        x = flat[offset:offset + m * k].view(m, k)
+        w = (torch.randn((k, n), generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        routes = ops.load_routes(x, w)
+        before = matmul_stats.launches
+        got = matmul_stats(x, w)
+        launched = matmul_stats.launches - before
+        again = matmul_stats(x, w)
+        plain = matmul_stats_plain(x, w)
+        torch.cuda.synchronize()
+        dy, rs, rss, ok = ms_compare(x, w, got, plain)
+        y64, s64, ss64 = _ms_f64(x, w)
+        k_s = float(((got[1].double() - s64).abs() / y64.abs().sum(-1)).max())
+        k_ss = float(((got[2].double() - ss64).abs() / ss64).max())
+        del y64
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        what = f"({m}x{k})@({k}x{n}) bf16, {name}"
+        t = device_ms(lambda: matmul_stats(x, w), "matmul_stats_kernel", iters=5)
+        print(f"K11 matmul_stats {what}: load routes (x, w) {routes}; vs plain max |dY| "
+              f"{dy:.3g}, s {rs:.3g} and ss {rss:.3g} of the row mass (tol {MS_TOL}); vs the "
+              f"f64 product s {k_s:.3g} / ss {k_ss:.3g}; {launched} launch; repeat bitwise "
+              f"{same}; device {t * 1e3:.2f} us")
+        check(routes[0] == ops.ROUTE_ELEM, f"K11 {what}: x should take the element loads")
+        check(ok, f"K11 disagrees with its plain version at {what}")
+        check(same, f"K11 {what}: a second launch differs")
+        check(launched == 1, f"K11 {what}: {launched} launches for one call")
+        check(k_s <= MS_TOL and k_ss <= MS_TOL, f"K11 {what}: moments off the f64 product")
+        out[name] = {"ms": t, "max_abs_err": dy, "s_err_vs_f64": k_s, "ss_err_vs_f64": k_ss,
+                     "routes": list(routes)}
+        del flat, x, w, got, again, plain
+    return out
 
 
 def run_matmul_stats_path() -> dict:

@@ -31,7 +31,7 @@ SOURCES = (
     "fused_reduce.cu", "fused_kahan.cu", "tile_partials.cu", "segmented_gather.cu", "scan.cu",
     "matmul_stats.cu",
 )
-HEADERS = ("common.cuh", "reduce_common.cuh")
+HEADERS = ("common.cuh", "reduce_common.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -56,7 +56,7 @@ _SIGNATURES = {
     "sg_segments": (_P, _LL, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                     _P),
     "sc_scan": (_P, _LL, _I, _I, _I, _I, _P, _P, _I, _P),
-    "ms_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "ms_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

@@ -42,12 +42,10 @@
 // (ex2.approx, one instruction; p = e^(scale q.k - scale m_new) as in the
 // reference); l = l * 2^(m - m_new) + rowsum(bf16 p);
 // acc = acc * alpha + bf16(p) @ bf16(v); out = acc / max(l, 1e-30).
-#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
-
 #include <cstring>
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -69,94 +67,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers ----
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 3-D tensor map (coordinates innermost first) into shared
-// memory; its bytes complete on the mbarrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// ---- wgmma ----
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, both byte offsets 1024 (the stride between 8-row groups; the
-// other offset is unused by every operand here: K-major operands take 16
-// of K per instruction inside one 128-byte row, and V's 64-wide N is one
-// swizzle atom), layout type 1 (128-byte swizzle).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accumulator reads across the asynchronous MMA
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// D (+)= A B, A (64 x 16) and B (16 x 128) both K-major in shared memory
-// (descriptors), f32 accumulate; scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t desc_a,
-                                                   uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // D += A B, A (64 x 16) from registers (the m16n8k16 A fragment of each
@@ -212,7 +122,7 @@ __device__ __forceinline__ void stage_tile(unsigned char* tile, const T* src, in
     *reinterpret_cast<uint4*>(tile + half * FA_HALF + r * 128 + ((c ^ (r & 7)) * 16)) = packed;
   }
   // the consumers read the tile through the async proxy (wgmma)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
   __syncwarp();
 }
 
@@ -259,7 +169,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__
       mbar_init(full(s), 1);
       mbar_init(empty(s), FA_CWARPS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -274,7 +184,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__
         for (int t = 0; t < 1 + 2 * FA_STAGES; ++t)
           for (int c = lane; c < static_cast<int>(FA_HALF / 16); c += 32)
             reinterpret_cast<uint4*>(smem + t * FA_TILE + FA_HALF)[c] = make_uint4(0, 0, 0, 0);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fence_proxy_async();
         __syncwarp();
       }
       if (lane == 0) {
@@ -341,7 +251,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__
 #pragma unroll
     for (int kk = 0; kk < FA_DMAX / 16; ++kk) {
       const uint32_t off = (kk / 4) * FA_HALF + (kk % 4) * 32;
-      wgmma_m64n128_ss(sc, sw128_desc(q_rows + off), sw128_desc(sK(s) + off), kk > 0);
+      wgmma_m64n128_ss<0>(sc, sw128_desc(q_rows + off), sw128_desc(sK(s) + off), kk > 0);
     }
     wg_commit();
     wg_wait0();
@@ -456,47 +366,16 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point (the
-// library links no libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The (d, rows, mats) bf16 tensor at `base` as boxes of 64 columns x
 // `box_rows` rows, 128-byte swizzle, rows past `rows` zero-filled.
 int encode(CUtensorMap* map, const void* base, int d, int rows, int mats, int box_rows) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(mats)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
                                  static_cast<cuuint64_t>(rows) * d * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <typename T>

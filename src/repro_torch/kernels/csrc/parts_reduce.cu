@@ -15,22 +15,33 @@
 // tile run) for up to 128 live parts, so no part is copied or packed. One
 // CTA per (part, 16384-element tile) -- the reference's m^2 tile -- writes a
 // partial sum (and, for a moments part, a partial sum of squares) and a
-// partial non-finite count. Each value is cast to the compute dtype, counted
-// if non-finite (before the prologue, as the reference does) and mapped by
-// the prologue there. f32 compute has no exact tensor-core product (TF32
-// keeps 10 mantissa bits), so it sums on the CUDA cores: thread i adds
-// elements i, i + 256, ... in order, then a fixed shuffle tree and the warps
-// in order. bf16 / f16 compute is the ones-MMA of eq. 9: warp w owns tile
-// rows 16w .. 16w + 15 (reduce_common.cuh `tile_row_sums`, m16n8k16 MMAs
-// with f32 accumulation), and the 128 row sums fold in the fixed order of
-// `block_fold` (ops.fold_rows_plain). The fold is deterministic and uses no
-// float atomics: the last CTA to finish, found by an integer ticket, folds
-// the partials of each part in tile order, maps each part total by the slot
-// chain, folds the raw part totals in part order, and writes the row with
-// the total chains applied. The ticket lives in a buffer the caller zeroes
-// once and keeps; the last CTA sets it back to 0, so the next launch on the
-// stream finds it zeroed and the partials need no clearing. One kernel
-// launch per call.
+// partial non-finite count. The CTA switches once on its part's dtype and
+// reads the tile in 16-byte groups (`load_group`): warp w owns tile rows
+// 16w .. 16w + 15, thread (g, t) the elements 8t + 32u + i of rows g and
+// g + 8. Each value is cast to the compute dtype, counted if non-finite
+// (before the prologue, as the reference does) and mapped by the prologue
+// there. f32 compute has no exact tensor-core product (TF32 keeps 10
+// mantissa bits), so it sums on the CUDA cores (reduce_common.cuh
+// `tile_row_sums`: each thread's 32 in order, then the row's quad); bf16 /
+// f16 compute is the ones-MMA of eq. 9 (m16n8k16 MMAs with f32
+// accumulation). The 128 row sums fold in the fixed order of `block_fold`
+// (ops.fold_rows_plain).
+//
+// The fold is deterministic and uses no float atomics. Each CTA publishes
+// its partials and takes its part's integer ticket; the part's last CTA
+// folds the part: its 256 threads stage the part's tile partials into
+// shared memory with coalesced loads, 1024 tiles at a time, and one thread
+// adds them in tile order (sums, squares and counts as three independent
+// chains). So a part's fold overlaps the streaming of the parts after it,
+// and the tickets spread over up to 128 counters. The part's folding CTA
+// then publishes the raw part total and takes the grid ticket; the last of
+// those maps each part total by the slot chain, folds the raw part totals
+// in part order, and writes the row with the total chains applied -- the
+// order of ops.mma_sum_parts_plain, so at bf16 / f16 compute the row is
+// bitwise that version's fold of the same tile partials. The tickets live
+// in a buffer the caller zeroes once and keeps; each last CTA sets its
+// counter back to 0, so the next launch on the stream finds them zeroed
+// and the partials need no clearing. One kernel launch per call.
 #include "reduce_common.cuh"
 
 namespace {
@@ -41,6 +52,7 @@ constexpr int PR_THREADS = 256;
 constexpr int PR_WARPS = PR_THREADS / 32;
 constexpr int PR_MAX_CHAINS = 4;
 constexpr int PR_MAX_STEPS = 4;
+constexpr int PR_FOLD_CHUNK = 1024;  // tile partials staged per pass of a part's fold
 
 struct PartsTable {
   const void* ptr[PR_MAX_PARTS];
@@ -58,27 +70,10 @@ struct PartsTable {
 
 constexpr int SLOT_CHAIN = PR_MAX_CHAINS;
 
-__device__ __forceinline__ float load_elem(const void* p, int dtype, long long i) {
-  if (dtype == DT_BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  if (dtype == DT_F16) return __half2float(static_cast<const __half*>(p)[i]);
-  return static_cast<const float*>(p)[i];
-}
-
 __device__ float apply_chain(float t, const PartsTable& tab, int k) {
   for (int s = 0; s < tab.chain_len[k]; ++s)
     t = epilogue_step(t, tab.op[k][s], tab.p0[k][s], tab.p1[k][s]);
   return t;
-}
-
-// Eight elements [e, e + 8) of a part of any dtype as f32, 0 past `end`.
-__device__ __forceinline__ void load_any(const void* p, int dtype, long long e, long long end,
-                                         bool aligned, float (&v)[RC_GROUP]) {
-  if (dtype == DT_BF16)
-    load_group(static_cast<const __nv_bfloat16*>(p), e, end, aligned, v);
-  else if (dtype == DT_F16)
-    load_group(static_cast<const __half*>(p), e, end, aligned, v);
-  else
-    load_group(static_cast<const float*>(p), e, end, aligned, v);
 }
 
 // The fixed fold of one tile's 128 row values (ops.fold_rows_plain): the
@@ -98,14 +93,70 @@ __device__ __forceinline__ float block_fold(float a, float b, float* warp_buf) {
   return total;
 }
 
+// One tile of a part of dtype T: its (sum, sum of squares, non-finite
+// count) in thread 0. A moments part also sums its squares; other parts
+// leave `sq` 0.
+template <int CD, typename T>
+__device__ __forceinline__ void tile_pass(const T* __restrict__ src, long long base, int n,
+                                          int pro, float& sum, float& sq, int& cnt,
+                                          float* warp_sum, float* warp_sq, int* warp_cnt) {
+  const bool moments = pro == PRO_MOMENTS;
+  const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
+  const int g = lid / 4, t4 = lid % 4;
+  const long long row0 = base + static_cast<long long>(16 * warp + g) * RC_ROW;
+  const long long row1 = row0 + 8 * RC_ROW;
+  const long long end = base + n;
+  const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  float r0[4][RC_GROUP], r1[4][RC_GROUP];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    load_group(src, row0 + 8 * t4 + 32 * u, end, aligned, r0[u]);
+    load_group(src, row1 + 8 * t4 + 32 * u, end, aligned, r1[u]);
+  }
+  cnt = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+#pragma unroll
+    for (int i = 0; i < RC_GROUP; ++i) {
+      const float c0 = to_compute<CD>(r0[u][i]), c1 = to_compute<CD>(r1[u][i]);
+      cnt += (isfinite(c0) ? 0 : 1) + (isfinite(c1) ? 0 : 1);
+      r0[u][i] = moments ? c0 : prologue_map<CD>(c0, pro);
+      r1[u][i] = moments ? c1 : prologue_map<CD>(c1, pro);
+    }
+  }
+  const float2 d = tile_row_sums<CD>(r0, r1);
+  sum = block_fold(d.x, d.y, warp_sum);
+  sq = 0.f;
+  if (moments) {  // one part per CTA: the branch, its MMAs and barriers are CTA-uniform
+    const float2 d2 = tile_row_sums<CD, true>(r0, r1);
+    sq = block_fold(d2.x, d2.y, warp_sq);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+  if (lid == 0) warp_cnt[warp] = cnt;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    cnt = 0;
+    for (int w = 0; w < PR_WARPS; ++w) cnt += warp_cnt[w];
+  }
+}
+
+// scratch: n_tiles tile sums, tile squares and tile counts (int), then,
+// from an even word, PR_MAX_PARTS part sums and part squares (float) and
+// part counts (long long). tickets: PR_MAX_PARTS part counters, then the
+// grid's.
 template <int CD>
 __global__ void __launch_bounds__(PR_THREADS)
 parts_kernel(const PartsTable tab, float* __restrict__ out, float* __restrict__ tile_sum,
              float* __restrict__ tile_sq, int* __restrict__ tile_cnt,
-             unsigned int* __restrict__ ticket) {
+             float* __restrict__ part_sum, float* __restrict__ part_sq,
+             long long* __restrict__ part_cnt, unsigned int* __restrict__ tickets) {
   __shared__ float warp_sum[PR_WARPS];
   __shared__ float warp_sq[PR_WARPS];
   __shared__ int warp_cnt[PR_WARPS];
+  __shared__ float st_sum[PR_FOLD_CHUNK];
+  __shared__ float st_sq[PR_FOLD_CHUNK];
+  __shared__ int st_cnt[PR_FOLD_CHUNK];
   __shared__ bool am_last;
 
   const int tile = blockIdx.x;
@@ -118,95 +169,68 @@ parts_kernel(const PartsTable tab, float* __restrict__ out, float* __restrict__ 
   const long long base = static_cast<long long>(tile - tab.start[part]) * PR_TILE;
   const long long left = tab.size[part] - base;  // ragged tail of THIS part
   const int n = left < PR_TILE ? static_cast<int>(left) : PR_TILE;
-  const void* src = tab.ptr[part];
-  const int dtype = tab.dtype[part], pro = tab.prologue[part];
-  const bool moments = pro == PRO_MOMENTS;
-  const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
+  const int pro = tab.prologue[part];
 
-  float sum = 0.f, sq = 0.f;
-  int cnt = 0;
-  if constexpr (CD == DT_F32) {
-    for (int i = threadIdx.x; i < n; i += PR_THREADS) {
-      float v = load_elem(src, dtype, base + i);
-      cnt += isfinite(v) ? 0 : 1;  // census on the compute-cast value
-      if (moments) sq += v * v;
-      if (pro == PRO_SQUARE) v = v * v;
-      else if (pro == PRO_ABS) v = fabsf(v);
-      sum += v;
-    }
-    // fixed-shape tree: the same order on every run
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      sum += __shfl_down_sync(0xffffffffu, sum, off);
-      sq += __shfl_down_sync(0xffffffffu, sq, off);
-      cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-    }
-    if (lid == 0) {
-      warp_sum[warp] = sum;
-      warp_sq[warp] = sq;
-      warp_cnt[warp] = cnt;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      sum = sq = 0.f;
-      cnt = 0;
-      for (int w = 0; w < PR_WARPS; ++w) {
-        sum += warp_sum[w];
-        sq += warp_sq[w];
-        cnt += warp_cnt[w];
-      }
-    }
-  } else {
-    // warp w: tile rows 16w + g and 16w + g + 8, elements 8 t4 + 32 u + i
-    const int g = lid / 4, t4 = lid % 4;
-    const long long row0 = base + static_cast<long long>(16 * warp + g) * RC_ROW;
-    const long long row1 = row0 + 8 * RC_ROW;
-    const long long end = base + n;
-    const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-    float r0[4][RC_GROUP], r1[4][RC_GROUP];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      load_any(src, dtype, row0 + 8 * t4 + 32 * u, end, aligned, r0[u]);
-      load_any(src, dtype, row1 + 8 * t4 + 32 * u, end, aligned, r1[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int i = 0; i < RC_GROUP; ++i) {
-        const float c0 = to_compute<CD>(r0[u][i]), c1 = to_compute<CD>(r1[u][i]);
-        cnt += (isfinite(c0) ? 0 : 1) + (isfinite(c1) ? 0 : 1);
-        r0[u][i] = moments ? c0 : prologue_map<CD>(c0, pro);
-        r1[u][i] = moments ? c1 : prologue_map<CD>(c1, pro);
-      }
-    }
-    const float2 d = tile_row_sums<CD>(r0, r1);
-    sum = block_fold(d.x, d.y, warp_sum);
-    if (moments) {  // one part per CTA: the branch, its MMAs and barriers are CTA-uniform
-      const float2 d2 = tile_row_sums<CD, true>(r0, r1);
-      sq = block_fold(d2.x, d2.y, warp_sq);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-    if (lid == 0) warp_cnt[warp] = cnt;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      cnt = 0;
-      for (int w = 0; w < PR_WARPS; ++w) cnt += warp_cnt[w];
-    }
+  float sum, sq;
+  int cnt;
+  switch (tab.dtype[part]) {  // CTA-uniform
+    case DT_BF16:
+      tile_pass<CD>(static_cast<const __nv_bfloat16*>(tab.ptr[part]), base, n, pro, sum, sq, cnt,
+                    warp_sum, warp_sq, warp_cnt);
+      break;
+    case DT_F16:
+      tile_pass<CD>(static_cast<const __half*>(tab.ptr[part]), base, n, pro, sum, sq, cnt,
+                    warp_sum, warp_sq, warp_cnt);
+      break;
+    default:
+      tile_pass<CD>(static_cast<const float*>(tab.ptr[part]), base, n, pro, sum, sq, cnt,
+                    warp_sum, warp_sq, warp_cnt);
   }
+  const int t0 = tab.start[part], t1 = tab.start[part + 1];
   if (threadIdx.x == 0) {
     tile_sum[tile] = sum;
     tile_sq[tile] = sq;
     tile_cnt[tile] = cnt;
-    __threadfence();  // publish the partials before taking a ticket
-    am_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    // every other CTA has taken its ticket: reset it for the next launch
-    if (am_last) *ticket = 0u;
+    __threadfence();  // publish the partials before taking the part's ticket
+    am_last = atomicAdd(tickets + part, 1u) == static_cast<unsigned int>(t1 - t0 - 1);
+    // every other CTA of the part has taken its ticket: reset it for the next launch
+    if (am_last) tickets[part] = 0u;
   }
   __syncthreads();
-  if (!am_last || threadIdx.x != 0) return;
+  if (!am_last) return;
 
-  // The last CTA folds: parts in order, each part's tiles in order.
+  // The part's last CTA folds the part's tiles in tile order.
+  __threadfence();
+  float ps = 0.f, ps2 = 0.f;
+  long long pc = 0;
+  for (int c0 = t0; c0 < t1; c0 += PR_FOLD_CHUNK) {  // CTA-uniform trip count
+    const int len = min(PR_FOLD_CHUNK, t1 - c0);
+    for (int i = threadIdx.x; i < len; i += PR_THREADS) {
+      st_sum[i] = __ldcg(tile_sum + c0 + i);
+      st_sq[i] = __ldcg(tile_sq + c0 + i);
+      st_cnt[i] = __ldcg(tile_cnt + c0 + i);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+#pragma unroll 8
+      for (int i = 0; i < len; ++i) {
+        ps += st_sum[i];
+        ps2 += st_sq[i];
+        pc += st_cnt[i];
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+  part_sum[part] = ps;
+  part_sq[part] = ps2;
+  part_cnt[part] = pc;
+  __threadfence();  // publish the part total before taking the grid ticket
+  const unsigned int grid_ticket = atomicAdd(tickets + PR_MAX_PARTS, 1u);
+  if (grid_ticket != static_cast<unsigned int>(tab.n_live - 1)) return;
+  tickets[PR_MAX_PARTS] = 0u;  // every part's folder has taken its ticket
+
+  // The last part folder writes the row: part totals in part order.
   __threadfence();
   const int out_slots = tab.dual ? 2 * tab.n_seg : tab.n_seg;
   const int n_out = out_slots + tab.n_chains + (tab.census ? tab.n_seg + 1 : 0);
@@ -215,19 +239,14 @@ parts_kernel(const PartsTable tab, float* __restrict__ out, float* __restrict__ 
   float total = 0.f;
   long long total_cnt = 0;
   for (int p = 0; p < tab.n_live; ++p) {
-    float ps = 0.f, ps2 = 0.f;
-    long long pc = 0;
-    for (int t = tab.start[p]; t < tab.start[p + 1]; ++t) {
-      ps += __ldcg(tile_sum + t);
-      ps2 += __ldcg(tile_sq + t);
-      pc += __ldcg(tile_cnt + t);
-    }
-    out[tab.seg[p]] = apply_chain(ps, tab, SLOT_CHAIN);
-    if (tab.prologue[p] == PRO_MOMENTS) out[tab.n_seg + tab.seg[p]] = ps2;
-    total += ps;
+    const float pt = __ldcg(part_sum + p);
+    out[tab.seg[p]] = apply_chain(pt, tab, SLOT_CHAIN);
+    if (tab.prologue[p] == PRO_MOMENTS) out[tab.n_seg + tab.seg[p]] = __ldcg(part_sq + p);
+    total += pt;
     if (tab.census) {
-      out[cbase + tab.seg[p]] = static_cast<float>(pc);
-      total_cnt += pc;
+      const long long pcnt = __ldcg(part_cnt + p);
+      out[cbase + tab.seg[p]] = static_cast<float>(pcnt);
+      total_cnt += pcnt;
     }
   }
   for (int k = 0; k < tab.n_chains; ++k) out[out_slots + k] = apply_chain(total, tab, k);
@@ -240,8 +259,9 @@ parts_kernel(const PartsTable tab, float* __restrict__ out, float* __restrict__ 
 // identity, 1 square, 2 abs, 3 moments (then `dual` is 1 and there are no
 // chains and no census). `slot_*` is the chain of every part total;
 // `chain_ops` and `chain_p0/p1` are [n_chains][PR_MAX_STEPS] row-major.
-// `scratch` holds 3 n_tiles words (uninitialised); `ticket` is one unsigned
-// int that is 0 on entry and 0 again when the kernel ends. Returns a
+// `scratch` holds parts_scratch_words(n_tiles) 4-byte words
+// (uninitialised, 8-byte aligned); `tickets` is PR_MAX_PARTS + 1 unsigned
+// ints that are 0 on entry and 0 again when the kernel ends. Returns a
 // cudaError_t value, or cudaErrorInvalidValue on a bad table.
 extern "C" int pr_parts(const void* const* ptrs, const long long* sizes, const int* starts,
                         const int* segs, const int* dtypes, const int* prologues,
@@ -249,7 +269,7 @@ extern "C" int pr_parts(const void* const* ptrs, const long long* sizes, const i
                         const int* slot_ops, const float* slot_p0, const float* slot_p1,
                         const int* chain_lens, const int* chain_ops, const float* chain_p0,
                         const float* chain_p1, int n_chains, int census, float* out,
-                        void* scratch, unsigned int* ticket, void* stream) {
+                        void* scratch, unsigned int* tickets, void* stream) {
   if (n_live < 1 || n_live > PR_MAX_PARTS || n_chains < 0 || n_chains > PR_MAX_CHAINS ||
       slot_len < 0 || slot_len > PR_MAX_STEPS || (dual && (n_chains || census || slot_len)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -286,22 +306,19 @@ extern "C" int pr_parts(const void* const* ptrs, const long long* sizes, const i
   float* tile_sum = static_cast<float*>(scratch);
   float* tile_sq = tile_sum + n_tiles;
   int* tile_cnt = reinterpret_cast<int*>(tile_sq + n_tiles);
+  float* part_sum = tile_sum + (3 * static_cast<size_t>(n_tiles) + 1) / 2 * 2;
+  float* part_sq = part_sum + PR_MAX_PARTS;
+  long long* part_cnt = reinterpret_cast<long long*>(part_sq + PR_MAX_PARTS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PR_LAUNCH(CD)                                                                          \
+  parts_kernel<CD><<<n_tiles, PR_THREADS, 0, s>>>(tab, out, tile_sum, tile_sq, tile_cnt,      \
+                                                  part_sum, part_sq, part_cnt, tickets)
   switch (compute) {
-    case DT_F32:
-      parts_kernel<DT_F32><<<n_tiles, PR_THREADS, 0, s>>>(tab, out, tile_sum, tile_sq, tile_cnt,
-                                                          ticket);
-      break;
-    case DT_BF16:
-      parts_kernel<DT_BF16><<<n_tiles, PR_THREADS, 0, s>>>(tab, out, tile_sum, tile_sq,
-                                                           tile_cnt, ticket);
-      break;
-    case DT_F16:
-      parts_kernel<DT_F16><<<n_tiles, PR_THREADS, 0, s>>>(tab, out, tile_sum, tile_sq, tile_cnt,
-                                                          ticket);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case DT_F32: PR_LAUNCH(DT_F32); break;
+    case DT_BF16: PR_LAUNCH(DT_BF16); break;
+    case DT_F16: PR_LAUNCH(DT_F16); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef PR_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

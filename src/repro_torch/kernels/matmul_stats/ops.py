@@ -29,6 +29,28 @@ from repro_torch.kernels import build, common
 # The CUDA kernel's fixed CTA tile (csrc/matmul_stats.cu MS_BM / MS_BN).
 KERNEL_BM, KERNEL_BN = 128, 128
 
+# How the kernel's producer loads an operand (csrc/matmul_stats.cu Route):
+# TMA straight into the swizzled bf16 tile; TMA of the raw tile, then the
+# producer's cast to bf16; or element by element.
+ROUTE_TMA, ROUTE_CAST, ROUTE_ELEM = 0, 1, 2
+
+
+def load_route(dtype: torch.dtype, address: int, row_elems: int) -> int:
+    """The kernel's route for a row-major operand of ``dtype`` at device
+    ``address`` with rows of ``row_elems`` elements: TMA needs a 16-byte
+    aligned base and rows a multiple of 16 bytes; bf16 then goes straight
+    into the tile, f32 and f16 through the cast. Anything else is loaded
+    element by element."""
+    if address % 16 or row_elems * dtype.itemsize % 16:
+        return ROUTE_ELEM
+    return ROUTE_TMA if dtype == torch.bfloat16 else ROUTE_CAST
+
+
+def load_routes(x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """``(route of x, route of w)`` for contiguous x (M, K) and w (K, N)."""
+    return (load_route(x.dtype, x.data_ptr(), x.shape[1]),
+            load_route(w.dtype, w.data_ptr(), w.shape[1]))
+
 
 def matmul_stats_ref(x: torch.Tensor, w: torch.Tensor):
     """Oracle: Y = bf16(X) @ bf16(W) in f32, then ``sum(y)`` and
@@ -89,20 +111,19 @@ def _launch(x: torch.Tensor, w: torch.Tensor):
     n = w.shape[1]
     row_blocks = common.ceil_div(m, KERNEL_BM)
     col_blocks = common.ceil_div(n, KERNEL_BN)
-    if row_blocks >= 2**16:
-        raise ValueError(f"matmul_stats: {m} rows is more than one launch takes")
+    if row_blocks * col_blocks >= 2**31:
+        raise ValueError(f"matmul_stats: ({m}, {n}) is more tiles than one launch takes")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     s = torch.empty((m,), dtype=torch.float32, device=x.device)
     ss = torch.empty((m,), dtype=torch.float32, device=x.device)
     # (M, column blocks, 2): every CTA writes its rows' partial moments
     ws = torch.empty((m, col_blocks, 2), dtype=torch.float32, device=x.device)
-    aligned = (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-               and k * x.element_size() % 16 == 0 and n * w.element_size() % 16 == 0)
+    route_x, route_w = load_routes(x, w)
     stream = build.stream_ptr(x)
     with torch.cuda.device(x.device):
         err = build.library().ms_forward(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), s.data_ptr(), ss.data_ptr(), m, n, k,
-            build.dtype_code(x), build.dtype_code(w), int(aligned), ws.data_ptr(),
+            build.dtype_code(x), build.dtype_code(w), route_x, route_w, ws.data_ptr(),
             common.fold_tickets("matmul_stats", x.device, stream, row_blocks).data_ptr(), stream,
         )
     build.check(err, "matmul_stats")

@@ -864,6 +864,15 @@ def _encode_chains(chains: tuple):
     return lens, ops, p0, p1
 
 
+def parts_scratch_words(n_tiles: int) -> int:
+    """4-byte words of the parts kernel's scratch (``csrc/parts_reduce.cu``):
+    a sum, a sum of squares and a non-finite count per tile, then, from an
+    even word, a sum and a sum of squares (f32) and a count (int64) per
+    part. Every CTA writes its own words before any are read, so the
+    scratch needs no clearing (and no second launch)."""
+    return (3 * n_tiles + 1) // 2 * 2 + 4 * PARTS_KERNEL_MAX
+
+
 def _launch(parts, layout, prologues, compute_dtype, slot_chain, total_chains, census,
             dual) -> torch.Tensor:
     nseg = len(parts)
@@ -883,10 +892,7 @@ def _launch(parts, layout, prologues, compute_dtype, slot_chain, total_chains, c
     out_slots = 2 * nseg if dual else nseg
     out = torch.empty((out_slots + k + ((nseg + 1) if census else 0),),
                       dtype=torch.float32, device=dev)
-    # n_tiles f32 partial sums, n_tiles f32 partial sums of squares and
-    # n_tiles int32 partial counts: every CTA writes its own, so they need
-    # no clearing (and no second launch)
-    scratch = torch.empty((3 * n_tiles,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((parts_scratch_words(n_tiles),), dtype=torch.int32, device=dev)
     stream = build.stream_ptr(out)
     with torch.cuda.device(dev):
         err = build.library().pr_parts(
@@ -895,7 +901,9 @@ def _launch(parts, layout, prologues, compute_dtype, slot_chain, total_chains, c
             build.DTYPE_CODES[compute_dtype], int(dual), int(s_len[0]), s_ops.ctypes.data,
             s_p0.ctypes.data, s_p1.ctypes.data, lens.ctypes.data, ops.ctypes.data,
             p0.ctypes.data, p1.ctypes.data, k, int(bool(census)), out.data_ptr(),
-            scratch.data_ptr(), common.fold_tickets("parts", dev, stream).data_ptr(), stream,
+            scratch.data_ptr(),
+            common.fold_tickets("parts", dev, stream, count=PARTS_KERNEL_MAX + 1).data_ptr(),
+            stream,
         )
     build.check(err, "mma_sum_parts")
     return out

@@ -109,7 +109,7 @@ def test_parts_repeat_launches_agree(gen):
     # too, fold exactly as the first one did
     parts = [torch.randn((n,), generator=gen, device="cuda") for n in (50304, 7, 40000)]
     first = mma_sum_parts(parts, prologue="square", total_chains=((),), census=True)
-    for n_parts in (1, 3, 2, 3):
+    for n_parts in (1, 3, 2, 3, 1):
         again = mma_sum_parts(parts[:n_parts], prologue="square", total_chains=((),),
                               census=True)
         if n_parts == 3:
@@ -117,6 +117,52 @@ def test_parts_repeat_launches_agree(gen):
         else:
             plain = mma_sum_parts_plain(parts[:n_parts], ("square",) * n_parts, ((),), True)
             assert torch.equal(again[-n_parts - 1:], plain[-n_parts - 1:])
+
+
+def _parts_close(out, plain, parts, n_counts):
+    # f32 sums in another order: 1e-6 x the summed mass; the counts exact
+    mass = float(sum(torch.nan_to_num(p.float(), posinf=0.0, neginf=0.0).square().sum()
+                     for p in parts))
+    assert torch.equal(out[-n_counts:], plain[-n_counts:])
+    fin = torch.isfinite(plain)
+    assert torch.equal(fin, torch.isfinite(out))
+    return float((out[fin] - plain[fin]).abs().max()) <= 1e-6 * mass + 1e-6
+
+
+@pytest.mark.parametrize("sizes", [
+    (100, 50304 * 2048, 0, 16384, 7),  # one part of 6288 tiles beside small ones
+    tuple(1 + 5000 * (i % 7) for i in range(128)),  # exactly PARTS_KERNEL_MAX parts
+], ids=["6288-tile-part", "128-parts"])
+def test_parts_fold_per_part_matches_plain(gen, sizes):
+    parts = [torch.randn((n,), generator=gen, device="cuda") * 1e-2 for n in sizes]
+    chains = ((("sqrt",),), (("sqrt",), ("clip_coeff", 1.0, 1e-9)))
+    out = mma_sum_parts(parts, prologue="square", total_chains=chains, census=True)
+    again = mma_sum_parts(parts, prologue="square", total_chains=chains, census=True)
+    plain = mma_sum_parts_plain(parts, ("square",) * len(parts), chains, True)
+    assert torch.equal(out, again)
+    assert _parts_close(out, plain, parts, len(parts) + 1)
+
+
+def test_parts_census_counts_nan_and_inf_exactly(gen):
+    parts = [torch.randn((n,), generator=gen, device="cuda") for n in (16384 * 3, 5, 0, 40000)]
+    parts[0][16384 + 3] = float("nan")
+    parts[0][-1] = float("inf")
+    parts[1][0] = float("-inf")
+    parts[3][7] = float("nan")
+    parts[3][39999] = float("nan")
+    out = mma_sum_parts(parts, prologue="abs", total_chains=((),), census=True)
+    assert out[-5:].tolist() == [2, 1, 0, 2, 5]
+    assert all(bool(torch.isnan(out[i]) | torch.isinf(out[i])) for i in (0, 1, 3))
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float16])
+def test_parts_low_precision_compute_repeats_bitwise(gen, compute):
+    parts = [torch.randn((n,), generator=gen, device="cuda") for n in (3 * 16384 + 11, 1, 70000)]
+    parts[1] = parts[1].to(torch.bfloat16)
+    for pro in ("identity", "moments"):
+        first = mma_sum_parts(parts, compute_dtype=compute, prologue=pro)
+        for _ in range(3):
+            assert torch.equal(mma_sum_parts(parts, compute_dtype=compute, prologue=pro), first)
 
 
 def test_mixed_devices_raise(gen):
@@ -533,3 +579,41 @@ def test_matmul_stats_card_matches_cpu(gen):
     got = matmul_stats(x, w)
     cpu = matmul_stats(x.cpu(), w.cpu())
     assert _matmul_stats_close(x, w, got, [t.cuda() for t in cpu]) == (True, True, True)
+
+
+_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("xdt", _DTYPES)
+@pytest.mark.parametrize("wdt", _DTYPES)
+@pytest.mark.parametrize("m,k,n", [(1, 0, 9), (1, 70, 9), (130, 8190, 136), (257, 1000, 300)])
+def test_matmul_stats_dtype_pairs_and_ragged_shapes(gen, xdt, wdt, m, k, n):
+    # every load route: TMA (bf16, aligned), the cast (f32 / f16, aligned)
+    # and the element loads (K or N times the itemsize not a multiple of 16
+    # bytes); M, N and K not multiples of the tile, K = 0 and M = 1
+    from repro_torch.kernels import matmul_stats
+    from repro_torch.kernels.matmul_stats import matmul_stats_plain
+
+    x = (torch.randn((m, k), generator=gen, device="cuda") + 0.1).to(xdt)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.3).to(wdt)
+    got = matmul_stats(x, w)
+    assert got[0].dtype == xdt and got[0].shape == (m, n)
+    assert all(torch.equal(a, b) for a, b in zip(got, matmul_stats(x, w)))
+    assert _matmul_stats_close(x, w, got, matmul_stats_plain(x, w)) == (True, True, True)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_matmul_stats_two_byte_offset_operands(gen, dtype):
+    # contiguous views 2 bytes past a 16-byte boundary: the element loads
+    from repro_torch.kernels import matmul_stats
+    from repro_torch.kernels.matmul_stats import matmul_stats_plain
+
+    m, k, n = 200, 512, 256
+    step = 2 // torch.empty((), dtype=dtype).element_size() or 1
+    xs = torch.randn((m * k + 8,), generator=gen, device="cuda").to(dtype)
+    ws_ = (torch.randn((k * n + 8,), generator=gen, device="cuda") * 0.1).to(dtype)
+    x, w = xs[step:step + m * k].view(m, k), ws_[step:step + k * n].view(k, n)
+    for a, b in ((x, ws_[:k * n].view(k, n)), (xs[:m * k].view(m, k), w), (x, w)):
+        got = matmul_stats(a, b)
+        assert all(torch.equal(u, v) for u, v in zip(got, matmul_stats(a, b)))
+        assert _matmul_stats_close(a, b, got, matmul_stats_plain(a, b)) == (True, True, True)

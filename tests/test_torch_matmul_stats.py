@@ -27,7 +27,7 @@ from _optional_hypothesis import hypothesis, st
 from repro.kernels.matmul_stats import matmul_stats as ref_matmul_stats
 from repro.kernels.matmul_stats import matmul_stats_ref as ref_oracle
 from repro_torch.kernels import common, matmul_stats
-from repro_torch.kernels.matmul_stats import matmul_stats_plain, matmul_stats_ref
+from repro_torch.kernels.matmul_stats import matmul_stats_plain, matmul_stats_ref, ops
 from repro_torch.models.convert import tensor_from_numpy
 
 # The reference test's shapes and tiles
@@ -169,3 +169,39 @@ def test_cpu_path_counts_no_launch_and_refuses_grad():
     assert common.launch_counts() == before
     with pytest.raises(RuntimeError, match="not differentiable"):
         matmul_stats(x, w.requires_grad_(True))
+
+
+# --------------------------- the kernel's load routes ---------------------------
+
+
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("wdt", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("k,n", [(8192, 2048), (8190, 2048), (64, 100), (3, 5), (0, 8)])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+def test_load_routes(xdt, wdt, k, n, offset):
+    # TMA takes a 16-byte aligned base and rows of a multiple of 16 bytes;
+    # bf16 then goes straight into the swizzled tile, f32 and f16 through
+    # the producer's cast; anything else is loaded element by element
+    xdt, wdt = getattr(torch, xdt), getattr(torch, wdt)
+    x = torch.zeros((4 * max(k, 1) + 16,), dtype=xdt)[offset:offset + 4 * k].view(4, k)
+    w = torch.zeros((k * n + 16,), dtype=wdt)[:k * n].view(k, n)
+    rx, rw = ops.load_routes(x, w)
+    x_ok = x.data_ptr() % 16 == 0 and k * x.element_size() % 16 == 0
+    w_ok = w.data_ptr() % 16 == 0 and n * w.element_size() % 16 == 0
+    fast = {torch.bfloat16: ops.ROUTE_TMA, torch.float32: ops.ROUTE_CAST,
+            torch.float16: ops.ROUTE_CAST}
+    assert rx == (fast[xdt] if x_ok else ops.ROUTE_ELEM)
+    assert rw == (fast[wdt] if w_ok else ops.ROUTE_ELEM)
+    # a 2-byte offset or K = 8190 always leaves X to the element loads at 16-bit widths
+    if xdt != torch.float32 and k and (offset or k == 8190):
+        assert rx == ops.ROUTE_ELEM
+
+
+def test_load_route_by_address_and_row_bytes():
+    assert ops.load_route(torch.bfloat16, 4096, 8192) == ops.ROUTE_TMA
+    assert ops.load_route(torch.bfloat16, 4098, 8192) == ops.ROUTE_ELEM
+    assert ops.load_route(torch.bfloat16, 4096, 8190) == ops.ROUTE_ELEM
+    assert ops.load_route(torch.float32, 4096, 8190) == ops.ROUTE_ELEM
+    assert ops.load_route(torch.float32, 4096, 8188) == ops.ROUTE_CAST
+    assert ops.load_route(torch.float16, 4112, 8) == ops.ROUTE_CAST
+    assert ops.load_route(torch.float16, 4104, 8) == ops.ROUTE_ELEM
