@@ -40,7 +40,8 @@ GPU.
 Output: the card's name and power limit (nvidia-smi), the build time, one
 line per kernel check, the serving, training and paper figures, then the
 kernels JSON line (each kernel timed at its main path's shapes: training
-for K1/K4-K7, with serving-shape figures under "serving"; the paper's
+for K1/K4-K7, with serving-shape figures under "serving", and K5's
+decode rows under "decode"; the paper's
 n = 2^28 f32 for K2, K3, K10, with bf16 figures beside them; "launches"
 counts the kernel's own main path; K8 and K9 at 2^28 f32, bf16 beside;
 K11 at (2048 x 8192) @ (8192 x 2048) bf16, the serving rows and f32
@@ -269,33 +270,42 @@ def bf16_ulp_ok(got, want) -> bool:
 
 def check_norms(results: dict, gen) -> None:
     """K5 at decode rows, prefill rows (serving) and the training rows,
-    each against its plain version; timed at prefill and training rows."""
+    each against its plain version, bitwise over two launches, and timed
+    with its library call; then f32 and f16 input at the training rows and
+    the other routes at full width: a 2-byte offset base (element route),
+    d = 2050 (element route) and a row too long for the registers (the
+    re-read route). Prints each call's route."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import layernorm_np, rmsnorm
-    from repro_torch.kernels.row_moments import layernorm_np_plain, rmsnorm_plain
+    from repro_torch.kernels.row_moments import layernorm_np_plain, plan_for, rmsnorm_plain
 
     d = 2048
     rms_lib = getattr(F, "rms_norm", None)
-    timed = {}
-    for rows in (SLOTS, SLOTS * PROMPT, TRAIN_BATCH * TRAIN_SEQ):
-        x = (torch.randn((rows, d), generator=gen, device=DEVICE) * 3 + 1).to(torch.bfloat16)
-        gamma = (torch.rand((d,), generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16)
+
+    def agree(x, gamma, what):
         ln, ln_p = layernorm_np(x, 1e-5), layernorm_np_plain(x, 1e-5)
         rn, rn_p = rmsnorm(x, gamma, 1e-6), rmsnorm_plain(x, gamma, 1e-6)
         torch.cuda.synchronize()
         err_ln = float((ln.float() - ln_p.float()).abs().max())
         err_rn = float((rn.float() - rn_p.float()).abs().max())
-        print(f"K5a layernorm_np ({rows}, {d}) bf16: max_abs_err {err_ln:.3g} vs plain "
-              "(tol: 1 bf16 ulp -- both round x and x*x to bf16 and sum in f32, "
-              "in different orders)")
-        print(f"K5b rmsnorm      ({rows}, {d}) bf16: max_abs_err {err_rn:.3g} vs plain "
-              "(tol: 1 bf16 ulp, same reason)")
-        check(bf16_ulp_ok(ln, ln_p), f"layernorm_np disagrees with its plain version at rows={rows}")
-        check(bf16_ulp_ok(rn, rn_p), f"rmsnorm disagrees with its plain version at rows={rows}")
-        if rows == SLOTS:
-            continue
+        print(f"K5a layernorm_np {what}: max_abs_err {err_ln:.3g} vs plain (tol: 1 bf16 ulp -- "
+              "both round x and x*x to bf16 and sum in f32, in different orders); "
+              f"route {plan_for(x).name}")
+        print(f"K5b rmsnorm      {what}: max_abs_err {err_rn:.3g} vs plain (tol: 1 bf16 ulp, "
+              f"same reason); gamma {str(gamma.dtype)[6:]}, route {plan_for(x, gamma).name}")
+        check(bf16_ulp_ok(ln, ln_p), f"layernorm_np disagrees with its plain version at {what}")
+        check(bf16_ulp_ok(rn, rn_p), f"rmsnorm disagrees with its plain version at {what}")
+        check(torch.equal(ln, layernorm_np(x, 1e-5)) and torch.equal(rn, rmsnorm(x, gamma, 1e-6)),
+              f"the norms differ between two launches at {what}")
+        return err_ln, err_rn
+
+    timed = {}
+    for rows in (SLOTS, SLOTS * PROMPT, TRAIN_BATCH * TRAIN_SEQ):
+        x = (torch.randn((rows, d), generator=gen, device=DEVICE) * 3 + 1).to(torch.bfloat16)
+        gamma = (torch.rand((d,), generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16)
+        err_ln, err_rn = agree(x, gamma, f"({rows}, {d}) bf16")
         nbytes = 2 * x.numel() * 2
         mma = x.numel() * 16  # m16n8k16 ones-MMA: 16 flops per element per statistic
         b_ln, by_ln = bound_ms(nbytes, tensor_flops=2 * mma, core_flops=6 * x.numel())
@@ -308,6 +318,7 @@ def check_norms(results: dict, gen) -> None:
                 "plain_ms": device_ms(lambda: layernorm_np_plain(x, 1e-5)),
                 "bound_ms": b_ln, "bound_by": by_ln,
                 "library_ms": device_ms(lambda: F.layer_norm(x, (d,), eps=1e-5)),
+                "norm_route": plan_for(x).name,
             },
             "rmsnorm": {
                 "max_abs_err": err_rn,
@@ -317,11 +328,34 @@ def check_norms(results: dict, gen) -> None:
                 "bound_ms": b_rn, "bound_by": by_rn,
                 "library_ms": (device_ms(lambda: rms_lib(x, (d,), gamma, 1e-6))
                                if rms_lib is not None else None),
+                "norm_route": plan_for(x, gamma).name,
             },
         }
+        for name in ("layernorm_np", "rmsnorm"):
+            t = timed[rows][name]
+            lib = "-" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f}"
+            print(f"{name} ({rows}, {d}) bf16: device {t['ms'] * 1e3:.2f} us, call "
+                  f"{t['call_ms'] * 1e3:.2f} us, library {lib} us, "
+                  f"bound {t['bound_ms'] * 1e3:.2f} us")
     for name in ("layernorm_np", "rmsnorm"):
         results[name] = dict(timed[TRAIN_BATCH * TRAIN_SEQ][name],
-                             serving=timed[SLOTS * PROMPT][name])
+                             serving=timed[SLOTS * PROMPT][name], decode=timed[SLOTS][name])
+
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    for dtype in (torch.float32, torch.float16):
+        x = (torch.randn((rows, d), generator=gen, device=DEVICE) * 3 + 1).to(dtype)
+        gamma = (torch.rand((d,), generator=gen, device=DEVICE) + 0.5).to(dtype)
+        agree(x, gamma, f"({rows}, {d}) {str(dtype)[6:]}")
+    buf = (torch.randn((1024 * d + 8,), generator=gen, device=DEVICE) * 3 + 1).to(torch.bfloat16)
+    x = buf[1:1 + 1024 * d].view(1024, d)  # 2 bytes past a 16-byte boundary: read in place
+    gamma = (torch.rand((d,), generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16)
+    check(x.data_ptr() % 16 == 2, "the offset view is not 2 bytes off")
+    agree(x, gamma, f"(1024, {d}) bf16 at a 2-byte offset")
+    for shape in ((1024, 2050), (64, 40000)):  # d % 16 != 0; a row longer than the registers
+        x = (torch.randn(shape, generator=gen, device=DEVICE) * 3 + 1).to(torch.bfloat16)
+        gamma = (torch.rand((shape[1],), generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16)
+        agree(x, gamma, f"{shape} bf16")
+    check(plan_for(x).slabs > 1, "the (64, 40000) case did not take the re-read route")
 
 
 def _causal_pairs(sq: int, skv: int, q_offset: int, window) -> int:

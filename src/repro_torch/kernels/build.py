@@ -43,8 +43,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    "rm_layernorm_np": (_P, _P, _I, _I, _F, _I, _P),
-    "rm_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
+    "rm_layernorm_np": (_P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P),
+    "rm_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P),
     "fa_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     "pr_parts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                  _P, _P, _P, _P),

@@ -62,6 +62,110 @@ def test_norms_match_plain(gen, rows, d, dtype):
     assert layernorm_np.launches == before + 1
 
 
+def _norm_input(gen, rows, d, dtype, offset_bytes=0):
+    """(rows, d) of ``dtype``, contiguous, starting ``offset_bytes`` past a
+    512-byte aligned allocation."""
+    step = offset_bytes // torch.empty((), dtype=dtype).element_size()
+    buf = (torch.randn((rows * d + 16,), generator=gen, device="cuda") * 3 + 1).to(dtype)
+    x = buf[step:step + rows * d].view(rows, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 == offset_bytes
+    return x
+
+
+def _block(t):
+    """The caching allocator's block for ``t``: its bytes rounded up to 512."""
+    return -(-t.numel() * t.element_size() // 512) * 512
+
+
+def _norms_agree(x, gamma):
+    """Both norms within one bf16 ulp of their plain versions, each one
+    launch, bitwise equal over two launches."""
+    before = (layernorm_np.launches, rmsnorm.launches)
+    ln, rn = layernorm_np(x), rmsnorm(x, gamma)
+    assert (layernorm_np.launches, rmsnorm.launches) == (before[0] + 1, before[1] + 1)
+    assert ln.dtype == x.dtype and rn.dtype == x.dtype
+    assert torch.equal(ln, layernorm_np(x)) and torch.equal(rn, rmsnorm(x, gamma))
+    assert _ulp_close(ln, layernorm_np_plain(x))
+    assert _ulp_close(rn, rmsnorm_plain(x, gamma))
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 4), (torch.bfloat16, 2),
+                                          (torch.float16, 2)])
+def test_norms_offset_base_match_plain(gen, dtype, offset):
+    # a contiguous view off the pair alignment: read in place, never copied
+    x = _norm_input(gen, 37, 2048, dtype, offset)
+    gamma = torch.rand((2048,), generator=gen, device="cuda") + 0.5
+    _norms_agree(x, gamma)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = layernorm_np(x)
+    assert torch.cuda.max_memory_allocated() - base == _block(out)
+
+
+@pytest.mark.parametrize("rows,d", [(37, 100), (5, 2050), (3, 50), (1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_norms_any_d_match_plain(gen, rows, d, dtype):
+    x = _norm_input(gen, rows, d, dtype)
+    gamma = torch.rand((d,), generator=gen, device="cuda") + 0.5
+    _norms_agree(x, gamma)
+
+
+@pytest.mark.parametrize("case", ["vector", "element", "vector re-read", "element re-read"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_norm_routes_match_plain(gen, case, dtype):
+    # every route the host can pick (row_moments.ops.launch_plan)
+    from repro_torch.kernels.row_moments import ROUTE_ELEMENT, ROUTE_VECTOR, plan_for
+
+    d = {"vector": 2048, "element": 2048, "vector re-read": 40000, "element re-read": 40001}[case]
+    offset = dtype.itemsize if case == "element" else 0  # one element off
+    x = _norm_input(gen, 5, d, dtype, offset)
+    gamma = torch.rand((d,), generator=gen, device="cuda") + 0.5
+    plan = plan_for(x, gamma)
+    assert plan.route == (ROUTE_VECTOR if case.startswith("vector") else ROUTE_ELEMENT)
+    assert (plan.slabs > 1) == case.endswith("re-read")
+    _norms_agree(x, gamma)
+
+
+@pytest.mark.parametrize("rows", [1, 4, 37, 1024, 2049])
+@pytest.mark.parametrize("d", [16, 100, 2048, 2050, 6144])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_norms_rows_and_widths_match_plain(gen, rows, d, dtype):
+    x = _norm_input(gen, rows, d, dtype)
+    gamma = (torch.rand((d,), generator=gen, device="cuda") + 0.5).to(dtype)
+    _norms_agree(x, gamma)
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16, torch.float16])
+def test_rmsnorm_reads_gamma_in_its_dtype_one_launch(gen, xdt, gdt):
+    # gamma reaches the kernel as it is: no cast launch, no staging copy
+    x = _norm_input(gen, 1024, 2048, xdt)
+    gamma = (torch.rand((2048,), generator=gen, device="cuda") + 0.5).to(gdt)
+    want = rmsnorm_plain(x, gamma)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base, before = torch.cuda.memory_allocated(), rmsnorm.launches
+    out = rmsnorm(x, gamma)
+    assert rmsnorm.launches == before + 1
+    assert torch.cuda.max_memory_allocated() - base == _block(out)
+    assert _ulp_close(out, want)
+
+
+@pytest.mark.parametrize("rows", [4, 37, 2048])
+def test_norm_nan_stays_in_its_row(gen, rows):
+    x = _norm_input(gen, rows, 2048, torch.bfloat16)
+    gamma = torch.rand((2048,), generator=gen, device="cuda") + 0.5
+    bad = rows // 2
+    x[bad, 100] = float("nan")
+    keep = torch.arange(rows, device="cuda") != bad
+    for got, want in ((layernorm_np(x), layernorm_np_plain(x)),
+                      (rmsnorm(x, gamma), rmsnorm_plain(x, gamma))):
+        assert torch.isnan(got[bad]).all()
+        assert torch.isfinite(got[keep]).all()
+        assert _ulp_close(got[keep], want[keep])
+
+
 @pytest.mark.parametrize("case", [
     (2, 4, 4, 100, 100, 32, True, None, 0),
     (1, 8, 2, 130, 200, 64, False, None, 0),
