@@ -215,23 +215,31 @@ def device_ms(fn, match: str | None = None, iters: int = 20, warmup: int = 3,
     A profiling session can drop device events (seen on this card: 1 to 3
     of 5 launches of a 1.5 ms kernel, a few hundred of the ~1800 kernels of
     one plain-version call), and a total divided by the call count then
-    reads short. So each device item's time is its mean over the launches
-    the profiler did record, times its launches per call: the larger of
-    the counts seen in a one-call session and an ``iters``-call session.
-    With ``match``, the call must have run a kernel whose name contains
-    it."""
+    reads short; the means over what such sessions did record have read
+    one kernel 12% apart on one card. So a pair of sessions whose launch
+    counts differ (one call against ``iters`` calls) is run again, up to
+    ``tries`` in all; if every pair dropped events, each device item's time
+    is its mean over the launches the profiler did record, times its
+    launches per call: the larger of the two sessions' counts. With
+    ``match``, the call must have run a kernel whose name contains it."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     what = match or getattr(fn, "__qualname__", "the call")
+    one = many = {}
     for attempt in range(1, tries + 1):
         one, many = device_events(fn), device_events(fn, iters)
-        if one or many:
+        if not (one or many):
+            print(f"profiling sessions {attempt} of {what} recorded no device time")
+        elif all(one.get(k, (0, 0.0))[0] * iters == many.get(k, (0, 0.0))[0]
+                 for k in set(one) | set(many)):
             break
-        print(f"profiling sessions {attempt} of {what} recorded no device time")
-    else:
+        else:
+            print(f"profiling sessions {attempt} of {what}: launch counts differ (events "
+                  "dropped)")
+    if not (one or many):
         raise SmokeFailure(f"the profiler recorded no device time for {what} in {tries} sessions")
     total_us, dropped = 0.0, False
     for key in set(one) | set(many):
@@ -661,6 +669,34 @@ def check_fused_sum(results: dict, gen) -> None:
           f"total {float(tot)}")
     check(float(cnt) == float(pcnt) == 3.0 and not bool(torch.isfinite(tot)),
           "K1 census counts wrong")
+    # The one-lane route (one CTA writes [chain(0 + total), count], no
+    # ticket): integer values sum exactly in any order, so the kernel is its
+    # plain version bitwise at every compute dtype; -0.0 values sum to +0.0.
+    chain = (("scale", 0.5), ("add_eps", 3.0))
+    for n in (1, 7, 2048, 131072, 131073):
+        ints = torch.randint(-8, 9, (n,), generator=gen, device=DEVICE).to(torch.float32)
+        if n > 2:
+            ints[n // 2] = float("nan")
+        zeros = torch.full((n,), -0.0, device=DEVICE)
+        for what, x, kw in (("integers, census and chain", ints, dict(census=True, epilogue=chain)),
+                            ("-0.0 values", zeros, dict(census=True)),
+                            ("bf16 integers, square", ints.nan_to_num(0.0).to(torch.bfloat16),
+                             dict(prologue="square"))):
+            for cd in (torch.float32, torch.bfloat16):
+                got = mma_sum_fused(x, compute_dtype=cd, num_lanes=1, **kw)
+                want = mma_sum_fused_plain(x, compute_dtype=cd, num_lanes=1, **kw)
+                got, want = (torch.stack(list(v)) if kw.get("census") else v.reshape(1)
+                             for v in (got, want))
+                real = ~want.isnan()
+                check(torch.equal(got.nan_to_num(), want.nan_to_num())
+                      and torch.equal(got.isnan(), want.isnan())
+                      and torch.equal(got[real].signbit(), want[real].signbit()),
+                      f"K1 one-lane route, n = {n}, {what} at {cd}: {got.tolist()} vs plain "
+                      f"{want.tolist()}")
+    print("K1 one-lane route (n = 1, 7, 2048, 131072, 131073 in one lane; census, chain, "
+          "square, a -0.0 total): bitwise its plain version at f32 and bf16 compute")
+    buf = (torch.randn((2**20 + 11,), generator=gen, device=DEVICE) * 2 + 0.3).to(torch.bfloat16)
+    compare(buf[1:2**20 + 4], "2^20 + 3 bf16, one element off 16-byte alignment")
 
     def timings(x):
         lanes = default_num_lanes(x)
@@ -1065,32 +1101,34 @@ def check_segments(results: dict, gen) -> None:
     mass_sq = _segment_mass(x, offsets, square=True)
 
     def compare(what, xin, cd, lanes, prologue="identity", census=False, chain=(),
-                bitwise=False):
+                bitwise=False, case=None):
+        offs, m, m_sq, fetch, cover = case or (offsets, mass, mass_sq, fetched, cover_src.size)
         before, tr = ops.mma_sum_segments.launches, []
-        got = ops.mma_sum_segments(xin, offsets, compute_dtype=cd, prologue=prologue,
+        got = ops.mma_sum_segments(xin, offs, compute_dtype=cd, prologue=prologue,
                                    census=census, epilogue=chain, num_lanes=lanes, trace=tr)
         launched = ops.mma_sum_segments.launches - before
-        want = ops.mma_sum_segments_plain(xin, offsets, cd, prologue, chain, census, lanes)
+        want = ops.mma_sum_segments_plain(xin, offs, cd, prologue, chain, census, lanes)
         torch.cuda.synchronize()
+        nseg = len(offs) - 1
         sq = prologue in ("square", "moments")
-        tol = 2.0**-16 * (mass_sq if sq else mass) + 1e-6
+        tol = 2.0**-16 * (m_sq if sq else m) + 1e-6
         if chain:  # (sqrt, clip): d clip / d t <= 1 / t near the clip point; d sqrt = dt / 2 sqrt t
-            tol = tol / (2 * torch.sqrt(mass_sq.clamp_min(1.0)))
+            tol = tol / (2 * torch.sqrt(m_sq.clamp_min(1.0)))
         g, w = got[:nseg].double(), want[:nseg].double()
         err = float((g - w).abs().nan_to_num(0.0).max())
         ok = bool(torch.all(((g - w).abs() <= tol) | (g == w) | (g.isnan() & w.isnan())))
         if prologue == "moments":
             ok &= bool(torch.all((got[nseg:].double() - want[nseg:].double()).abs()
-                                 <= 2.0**-16 * mass_sq + 1e-6))
+                                 <= 2.0**-16 * m_sq + 1e-6))
         if census:
             ok &= torch.equal(got[nseg:], want[nseg:])
         same = torch.equal(got.nan_to_num(), want.nan_to_num())
-        model = cost_model.segmented_hbm_bytes(fetched, xin.element_size(), segments=got.numel(),
-                                               tiles=cover_src.size, num_cores=lanes)
+        model = cost_model.segmented_hbm_bytes(fetch, xin.element_size(), segments=got.numel(),
+                                               tiles=cover, num_cores=lanes)
         print(f"K8 mma_sum_segments {what}, {tr[0].num_cores} lanes: max_abs_err {err:.3g} vs "
               f"plain (tol 2^-16 x segment mass{'; counts exact' if census else ''}), bitwise "
               f"{same}; {launched} launch, {tr[0].launch_io_bytes} bytes at the launch "
-              f"(cost model {model.launch_io}; {fetched - xin.numel()} elements read twice at "
+              f"(cost model {model.launch_io}; {fetch - xin.numel()} elements read twice at "
               "unaligned boundaries)")
         check(ok, f"K8 {what} ({lanes} lanes) disagrees with its plain version")
         check(not bitwise or same, f"K8 {what}: f32 compute is not bitwise its plain version")
@@ -1115,6 +1153,32 @@ def check_segments(results: dict, gen) -> None:
     got, _ = compare("2^28 f32, census on planted NaN/Inf", bad, bf, lanes, census=True)
     check(float(got[nseg:].sum()) == 3.0, "K8 census total is not 3")
     del bad
+    # More lanes than CTAs stay resident (two a SM at 16-bit input, one at
+    # f32): a CTA's lane is its own, launched in later waves.
+    compare("2^28 bf16, 2000 lanes", xb, bf, 2000)
+    compare("2^28 f32, square at f32 compute, 2000 lanes", x, f32, 2000, "square", bitwise=True)
+    # An unaligned buffer (one element off 16 bytes: every tile by element
+    # loads) whose last block is clipped at n (not a multiple of 8), in 128
+    # ragged segments; interior tiles, cut tiles, empty segments.
+    n_u = 2**24 + 5
+    offs_u = tuple(int(o) for o in packed_offsets(n_u, 128, 1))
+    for what, xu in (("f32", x[1:1 + n_u]), ("bf16", xb[1:1 + n_u])):
+        cover_u = ops.segment_cover_layout(offs_u, ops.TILE)[1]
+        case = (offs_u, _segment_mass(xu, offs_u), _segment_mass(xu, offs_u, square=True),
+                ops._cover_fetched_elems(cover_u, n_u, ops.TILE), cover_u.size)
+        check(xu.data_ptr() % 16 != 0, "the unaligned case is aligned")
+        compare(f"2^24 + 5 {what}, unaligned base, clipped block, 128 segments", xu, bf, lanes,
+                case=case)
+        compare(f"2^24 + 5 {what}, unaligned base, square at f32 compute", xu, f32, lanes,
+                "square", bitwise=True, case=case)
+        xc = xu.clone()
+        xc[[3, n_u // 2, n_u - 1]] = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                                                  device=DEVICE).to(xu.dtype)
+        xcu = torch.empty((n_u + 1,), dtype=xu.dtype, device=DEVICE)[1:]
+        xcu.copy_(xc)
+        got, _ = compare(f"2^24 + 5 {what}, unaligned base, census", xcu, bf, 7, census=True,
+                         case=case)
+        check(float(got[len(offs_u) - 1:].sum()) == 3.0, "K8 census total is not 3 (unaligned)")
 
     lengths = torch.from_numpy(np.diff(offsets)).to(DEVICE)
 

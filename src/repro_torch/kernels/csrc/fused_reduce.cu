@@ -26,7 +26,13 @@
 // i + 256, ... in order; a fixed shuffle tree per warp; the warps in order),
 // applies the epilogue chain to the total and writes [total, count]. The
 // ticket is a buffer the caller zeroes once; the last CTA sets it back to 0.
-// One launch per call; two launches on the same input agree bitwise.
+// A stripe of ONE lane (n <= one block, as the loss's token sum) has
+// nothing to fold across CTAs: its CTA writes [epilogue(0 + total), count]
+// itself -- `combine_lane_partials` of one partial is 0 + it (a -0 total
+// comes out +0) -- with no lane partial, fence or ticket, the in-kernel
+// finish of a single-lane launch that the reference's cost model counts
+// (`fused_hbm_bytes(epilogue=True)`). One launch per call; two launches on
+// the same input agree bitwise.
 //
 // The moments pair (`fr_moments`, replacing `fused_moments_kernel` of the
 // same file, the reference's prologue "moments") is the same kernel with a
@@ -34,12 +40,18 @@
 // its square, taken at the compute dtype (a bf16 product for bf16
 // compute), feeds X^2 @ 1; the two halves fold by the same fixed tree and
 // the launch writes [sum, sumsq]. It has no census and no epilogue, as in
-// the reference.
+// the reference, and keeps the element route it had before the word route.
 //
 // Bound on this card: bytes (n * itemsize read once; the ones-MMA is 16
-// flops per element, far below the bf16 roofline). Loads are 16 bytes per
-// thread, four groups in flight per thread; at the loss's 2048 elements
-// the launch is latency.
+// flops per element, far below the bf16 roofline); at the loss's 2048
+// elements the launch is latency. Loads are 16 bytes per thread, four
+// groups per step, and the next step's groups are loaded as soon as this
+// step's words are read (before its MMAs), across the block loop, so a
+// warp always has a step in flight. Outside the moments pair the words
+// stay as loaded until they are the MMA's A operand (reduce_common.cuh's
+// word route: a bf16 / f16 input at its own compute dtype is not converted
+// at all, f32 is rounded once per pair), with prologue and census as
+// template parameters.
 #include "reduce_common.cuh"
 
 namespace {
@@ -47,12 +59,12 @@ namespace {
 constexpr int FR_THREADS = 256;
 constexpr int FR_WARPS = FR_THREADS / 32;
 constexpr int FR_GROUP = RC_GROUP;  // elements per thread per group: 16 bytes of bf16
-constexpr int FR_UNROLL = 4;        // groups in flight per thread
+constexpr int FR_UNROLL = 4;  // groups a thread loads per step
 constexpr int FR_MAX_STEPS = RC_MAX_STEPS;
 
 // Eight mapped values into the running sum: one ones-MMA (bf16 / f16
 // compute; the MMA accumulator carries the warp's row sums over the lane)
-// or eight f32 adds (f32 compute).
+// or eight f32 adds (f32 compute). The moments pair's element route.
 template <int CD>
 __device__ __forceinline__ void accumulate(const float (&v)[FR_GROUP], float (&acc)[4],
                                            float& fsum) {
@@ -70,14 +82,16 @@ __device__ __forceinline__ void accumulate(const float (&v)[FR_GROUP], float (&a
   }
 }
 
-// DUAL: the moments pair (no census, no prologue, no chain); `lane_cnt`
-// then holds the lanes' sums of squares as floats.
-template <typename T, int CD, bool DUAL>
+// PRO: identity, square or abs (census as CENSUS), or moments (the pair:
+// `lane_cnt` then holds the lanes' sums of squares as floats).
+template <typename T, int CD, int PRO, bool CENSUS>
 __global__ void __launch_bounds__(FR_THREADS)
 fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, long long blocks,
-                 int prologue, int census, int aligned, const Chain chain,
-                 float* __restrict__ lane_sum, int* __restrict__ lane_cnt,
-                 unsigned int* __restrict__ ticket, float* __restrict__ out) {
+                 int aligned, const Chain chain, float* __restrict__ lane_sum,
+                 int* __restrict__ lane_cnt, unsigned int* __restrict__ ticket,
+                 float* __restrict__ out) {
+  constexpr bool DUAL = PRO == PRO_MOMENTS;
+  constexpr bool WORDS = !DUAL && CD != DT_F32;  // the word route into the ones-MMA
   __shared__ float warp_sum[FR_WARPS];
   __shared__ float warp_sum2[FR_WARPS];
   __shared__ long long warp_cnt[FR_WARPS];
@@ -86,27 +100,25 @@ fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, lo
   const int lane_id = blockIdx.x, lanes = gridDim.x;
   const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
   const long long stride = static_cast<long long>(FR_THREADS) * FR_GROUP;
+  const long long warp_off = static_cast<long long>(warp) * 32 * FR_GROUP;
+  const bool vec = aligned != 0;
   float* lane_sq = reinterpret_cast<float*>(lane_cnt);
 
   float acc[4] = {0.f, 0.f, 0.f, 0.f};   // ones-MMA accumulator (bf16/f16 compute)
   float acc2[4] = {0.f, 0.f, 0.f, 0.f};  // DUAL: the squares' accumulator
   float fsum = 0.f, fsum2 = 0.f;         // f32 compute
   int cnt = 0;
-  for (long long b = lane_id; b < blocks; b += lanes) {
-    const long long base = b * block_elems;
-    const long long end = base + block_elems < n ? base + block_elems : n;
-    // The loop bound is the WARP's first element, so every thread of a warp
-    // runs the same iterations: mma.sync must be issued by the whole warp.
-    // Groups past `end` load as zeros.
-    const long long first = base + static_cast<long long>(warp) * 32 * FR_GROUP;
-    for (long long w0 = first; w0 < end; w0 += FR_UNROLL * stride) {
-      const long long e0 = w0 + lid * FR_GROUP;
-      float v[FR_UNROLL][FR_GROUP];
+  if constexpr (DUAL) {  // the moments pair: its loop and element route as before
+    for (long long b = lane_id; b < blocks; b += lanes) {
+      const long long base = b * block_elems;
+      const long long end = base + block_elems < n ? base + block_elems : n;
+      for (long long w0 = base + warp_off; w0 < end; w0 += FR_UNROLL * stride) {
+        const long long e0 = w0 + lid * FR_GROUP;
+        float v[FR_UNROLL][FR_GROUP];
 #pragma unroll
-      for (int u = 0; u < FR_UNROLL; ++u) load_group(x, e0 + u * stride, end, aligned != 0, v[u]);
+        for (int u = 0; u < FR_UNROLL; ++u) load_group(x, e0 + u * stride, end, vec, v[u]);
 #pragma unroll
-      for (int u = 0; u < FR_UNROLL; ++u) {
-        if constexpr (DUAL) {
+        for (int u = 0; u < FR_UNROLL; ++u) {
           float sq[FR_GROUP];
 #pragma unroll
           for (int i = 0; i < FR_GROUP; ++i) {
@@ -115,15 +127,58 @@ fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, lo
           }
           accumulate<CD>(v[u], acc, fsum);
           accumulate<CD>(sq, acc2, fsum2);
-        } else {
+        }
+      }
+    }
+  } else {  // the word route, the next step in flight
+    // The warp's steps: lane c's blocks c, c + C, ..., in each the groups from
+    // the WARP's first element (so every thread of a warp runs the same steps:
+    // mma.sync must be issued by the whole warp) on, FR_UNROLL groups a step.
+    // Groups past `end` load as zeros. Only the last block can be short, so a
+    // warp with no step left in a block has no block after it.
+    long long b = lane_id;
+    long long w0 = b * block_elems + warp_off;
+    long long end = w0 - warp_off + block_elems < n ? w0 - warp_off + block_elems : n;
+    bool have = b < blocks && w0 < end;
+    Raw<T> raw[FR_UNROLL];
+    auto load_step = [&]() {
+      const long long e0 = w0 + lid * FR_GROUP;
+#pragma unroll
+      for (int u = 0; u < FR_UNROLL; ++u) load_raw(x, e0 + u * stride, end, vec, raw[u]);
+    };
+    if (have) load_step();
+    while (have) {
+      uint32_t w[FR_UNROLL][4];  // WORDS: this step's A operands
+#pragma unroll
+      for (int u = 0; u < FR_UNROLL; ++u) {
+        if constexpr (WORDS) {
+          raw_words<T, CD>(raw[u], w[u]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (CENSUS) cnt += nonfinite_halves<CD>(w[u][k]);  // census before the prologue
+            w[u][k] = prologue_word<CD, PRO>(w[u][k]);
+          }
+        } else {  // f32 compute
 #pragma unroll
           for (int i = 0; i < FR_GROUP; ++i) {
-            float cv = to_compute<CD>(v[u][i]);
-            cnt += isfinite(cv) ? 0 : 1;  // census before the prologue
-            v[u][i] = prologue_map<CD>(cv, prologue);
+            const float v = raw_elem(raw[u], i);
+            if (CENSUS) cnt += isfinite(v) ? 0 : 1;
+            fsum += PRO == PRO_SQUARE ? __fmul_rn(v, v) : PRO == PRO_ABS ? fabsf(v) : v;
           }
-          accumulate<CD>(v[u], acc, fsum);
         }
+      }
+      // the next step's loads go out before this step's MMAs
+      w0 += FR_UNROLL * stride;
+      if (w0 >= end) {
+        b += lanes;
+        w0 = b * block_elems + warp_off;
+        end = w0 - warp_off + block_elems < n ? w0 - warp_off + block_elems : n;
+      }
+      have = b < blocks && w0 < end;
+      if (have) load_step();
+      if constexpr (WORDS) {
+#pragma unroll
+        for (int u = 0; u < FR_UNROLL; ++u) ones_mma<CD>(acc, w[u]);
       }
     }
   }
@@ -143,13 +198,32 @@ fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, lo
     warp_cnt[warp] = c;
   }
   __syncthreads();
+  if (lanes == 1) {  // the one-lane route: this CTA's total is the launch's
+    if (threadIdx.x == 0) {
+      float ls = 0.f, ls2 = 0.f;
+      long long lc = 0;
+      for (int k = 0; k < FR_WARPS; ++k) {
+        ls += warp_sum[k];
+        ls2 += warp_sum2[k];
+        lc += warp_cnt[k];
+      }
+      if constexpr (DUAL) {
+        out[0] = __fadd_rn(0.f, ls);
+        out[1] = __fadd_rn(0.f, ls2);
+      } else {
+        out[0] = apply_chain(__fadd_rn(0.f, ls), chain);
+        if (CENSUS) out[1] = static_cast<float>(lc);
+      }
+    }
+    return;
+  }
   if (threadIdx.x == 0) {
     float ls = 0.f, ls2 = 0.f;
     long long lc = 0;
-    for (int w = 0; w < FR_WARPS; ++w) {
-      ls += warp_sum[w];
-      ls2 += warp_sum2[w];
-      lc += warp_cnt[w];
+    for (int k = 0; k < FR_WARPS; ++k) {
+      ls += warp_sum[k];
+      ls2 += warp_sum2[k];
+      lc += warp_cnt[k];
     }
     lane_sum[lane_id] = ls;
     if (DUAL) lane_sq[lane_id] = ls2;
@@ -186,73 +260,78 @@ fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, lo
   if (threadIdx.x != 0) return;
   float total = 0.f, total2 = 0.f;
   long long total_cnt = 0;
-  for (int w = 0; w < FR_WARPS; ++w) {
-    total += warp_sum[w];
-    total2 += warp_sum2[w];
-    total_cnt += warp_cnt[w];
+  for (int k = 0; k < FR_WARPS; ++k) {
+    total += warp_sum[k];
+    total2 += warp_sum2[k];
+    total_cnt += warp_cnt[k];
   }
   if constexpr (DUAL) {
     out[0] = total;
     out[1] = total2;
   } else {
     out[0] = apply_chain(total, chain);
-    if (census) out[1] = static_cast<float>(total_cnt);
+    if (CENSUS) out[1] = static_cast<float>(total_cnt);
   }
 }
 
-template <typename T, int CD, bool DUAL>
-void launch_one(const void* x, long long n, long long block_elems, long long blocks, int lanes,
-                int prologue, int census, int aligned, const Chain& chain, float* lane_sum,
-                int* lane_cnt, unsigned int* ticket, float* out, cudaStream_t stream) {
-  fused_sum_kernel<T, CD, DUAL><<<lanes, FR_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), n, block_elems, blocks, prologue, census, aligned, chain,
-      lane_sum, lane_cnt, ticket, out);
-}
+struct Launch {
+  const void* x;
+  long long n, block_elems, blocks;
+  int lanes, aligned;
+  Chain chain;
+  float* lane_sum;
+  int* lane_cnt;
+  unsigned int* ticket;
+  float* out;
+  cudaStream_t stream;
+};
 
-template <typename T, bool DUAL>
-int launch(const void* x, long long n, long long block_elems, long long blocks, int lanes,
-           int compute, int prologue, int census, int aligned, const Chain& chain,
-           float* lane_sum, int* lane_cnt, unsigned int* ticket, float* out,
-           cudaStream_t stream) {
-  switch (compute) {
-    case DT_F32:
-      launch_one<T, DT_F32, DUAL>(x, n, block_elems, blocks, lanes, prologue, census, aligned,
-                                  chain, lane_sum, lane_cnt, ticket, out, stream);
-      break;
-    case DT_BF16:
-      launch_one<T, DT_BF16, DUAL>(x, n, block_elems, blocks, lanes, prologue, census, aligned,
-                                   chain, lane_sum, lane_cnt, ticket, out, stream);
-      break;
-    case DT_F16:
-      launch_one<T, DT_F16, DUAL>(x, n, block_elems, blocks, lanes, prologue, census, aligned,
-                                  chain, lane_sum, lane_cnt, ticket, out, stream);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <typename T, int CD, int PRO, bool CENSUS>
+int launch(const Launch& a) {
+  fused_sum_kernel<T, CD, PRO, CENSUS><<<a.lanes, FR_THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.x), a.n, a.block_elems, a.blocks, a.aligned, a.chain, a.lane_sum,
+      a.lane_cnt, a.ticket, a.out);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool DUAL>
+template <typename T, int CD>
+int by_prologue(int prologue, int census, const Launch& a) {
+  switch (prologue) {
+    case PRO_IDENTITY:
+      return census ? launch<T, CD, PRO_IDENTITY, true>(a) : launch<T, CD, PRO_IDENTITY, false>(a);
+    case PRO_SQUARE:
+      return census ? launch<T, CD, PRO_SQUARE, true>(a) : launch<T, CD, PRO_SQUARE, false>(a);
+    case PRO_ABS:
+      return census ? launch<T, CD, PRO_ABS, true>(a) : launch<T, CD, PRO_ABS, false>(a);
+    case PRO_MOMENTS:
+      return launch<T, CD, PRO_MOMENTS, false>(a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int by_compute(int compute, int prologue, int census, const Launch& a) {
+  switch (compute) {
+    case DT_F32: return by_prologue<T, DT_F32>(prologue, census, a);
+    case DT_BF16: return by_prologue<T, DT_BF16>(prologue, census, a);
+    case DT_F16: return by_prologue<T, DT_F16>(prologue, census, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 int dispatch(const void* x, long long n, int dtype, int compute, int prologue, int census,
              long long block_elems, long long blocks, int lanes, int aligned, const Chain& chain,
              float* out, void* scratch, unsigned int* ticket, void* stream) {
   float* lane_sum = static_cast<float*>(scratch);
-  int* lane_cnt = reinterpret_cast<int*>(lane_sum + lanes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Launch a{x, n, block_elems, blocks, lanes, aligned, chain, lane_sum,
+           reinterpret_cast<int*>(lane_sum + lanes), ticket, out,
+           static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case DT_F32:
-      return launch<float, DUAL>(x, n, block_elems, blocks, lanes, compute, prologue, census,
-                                 aligned, chain, lane_sum, lane_cnt, ticket, out, s);
-    case DT_BF16:
-      return launch<__nv_bfloat16, DUAL>(x, n, block_elems, blocks, lanes, compute, prologue,
-                                         census, aligned, chain, lane_sum, lane_cnt, ticket,
-                                         out, s);
-    case DT_F16:
-      return launch<__half, DUAL>(x, n, block_elems, blocks, lanes, compute, prologue, census,
-                                  aligned, chain, lane_sum, lane_cnt, ticket, out, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case DT_F32: return by_compute<float>(compute, prologue, census, a);
+    case DT_BF16: return by_compute<__nv_bfloat16>(compute, prologue, census, a);
+    case DT_F16: return by_compute<__half>(compute, prologue, census, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -260,9 +339,10 @@ int dispatch(const void* x, long long n, int dtype, int compute, int prologue, i
 
 // x: n elements of `dtype`, read flat; `block_elems`, `blocks` and `lanes`
 // are the stripe geometry of ops.lane_geometry (lanes <= blocks). `scratch`
-// holds `lanes` floats then `lanes` ints (uninitialised); `ticket` is one
-// unsigned int that is 0 on entry and 0 again when the kernel ends. `out`
-// receives [epilogue(total)] or, with census, [epilogue(total), count].
+// holds `lanes` floats then `lanes` ints (uninitialised; not read with one
+// lane, and may then be null); `ticket` is one unsigned int that is 0 on
+// entry and 0 again when the kernel ends. `out` receives
+// [epilogue(total)] or, with census, [epilogue(total), count].
 extern "C" int fr_sum(const void* x, long long n, int dtype, int compute, int prologue,
                       int census, long long block_elems, long long blocks, int lanes,
                       int aligned, int chain_len, const int* chain_ops, const float* chain_p0,
@@ -272,8 +352,8 @@ extern "C" int fr_sum(const void* x, long long n, int dtype, int compute, int pr
   if (n < 1 || lanes < 1 || lanes > blocks || block_elems < 1 || prologue < PRO_IDENTITY ||
       prologue > PRO_ABS || !make_chain(chain_len, chain_ops, chain_p0, chain_p1, &chain))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<false>(x, n, dtype, compute, prologue, census, block_elems, blocks, lanes,
-                         aligned, chain, out, scratch, ticket, stream);
+  return dispatch(x, n, dtype, compute, prologue, census, block_elems, blocks, lanes, aligned,
+                  chain, out, scratch, ticket, stream);
 }
 
 // The moments pair: the same geometry and scratch; `out` receives [sum,
@@ -285,6 +365,6 @@ extern "C" int fr_moments(const void* x, long long n, int dtype, int compute,
   make_chain(0, nullptr, nullptr, nullptr, &chain);
   if (n < 1 || lanes < 1 || lanes > blocks || block_elems < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<true>(x, n, dtype, compute, PRO_IDENTITY, 0, block_elems, blocks, lanes,
-                        aligned, chain, out, scratch, ticket, stream);
+  return dispatch(x, n, dtype, compute, PRO_MOMENTS, 0, block_elems, blocks, lanes, aligned,
+                  chain, out, scratch, ticket, stream);
 }

@@ -149,3 +149,143 @@ __device__ __forceinline__ float2 tile_row_sums(const float (&r0)[4][RC_GROUP],
   }
   return make_float2(d[0], d[2]);
 }
+
+// ---------------------------------------------------------------------------
+// The word route (K1 and K8 since their redesign; the helpers above stay as
+// they are for K2's element route, K3, K4 and K10).
+//
+// A load group's eight elements are kept as the words loaded (`Raw`) until
+// they become the ones-MMA's A operand: four 32-bit words, each two
+// compute-dtype values, `lo` in the low half (pack_bf16's order). When the
+// input dtype is the compute dtype the loaded words ARE that operand; f32
+// (or the other 16-bit dtype) is rounded once per pair (cvt.rn.bf16x2.f32 /
+// cvt.rn.f16x2.f32), which is what to_compute followed by pack_bf16 /
+// pack_f16 gives (the second rounding of an exact value changes nothing).
+// On the words: the window mask clears halves, the census counts halves
+// whose exponent is all ones (non-finite; 0x7f80 in bf16, 0x7c00 in f16),
+// abs clears the sign bits, square unpacks (exactly), squares in f32 and
+// packs (one rounding: to_compute then pack again gives the same bits).
+// tests/test_torch_word_route.py holds these identities over every 16-bit
+// pattern.
+
+template <typename T> struct DtypeOf;
+template <> struct DtypeOf<float> { static constexpr int value = DT_F32; };
+template <> struct DtypeOf<__nv_bfloat16> { static constexpr int value = DT_BF16; };
+template <> struct DtypeOf<__half> { static constexpr int value = DT_F16; };
+
+// Eight consecutive elements as loaded: one 16-byte word for 16-bit
+// dtypes, two for f32.
+template <typename T>
+struct Raw {
+  uint4 q[sizeof(T) / 2];
+};
+
+// Elements [e, e + 8) as loaded; elements at or past `end` read as 0. One
+// or two 16-byte loads when `vec` (16-byte aligned base) and the group
+// lies before `end`, else element loads.
+template <typename T>
+__device__ __forceinline__ void load_raw(const T* x, long long e, long long end, bool vec,
+                                         Raw<T>& g) {
+  constexpr int Q = sizeof(T) / 2;
+  if (vec && e + RC_GROUP <= end) {
+    const uint4* p = reinterpret_cast<const uint4*>(x + e);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) g.q[q] = __ldg(p + q);
+    return;
+  }
+  uint32_t w[4 * Q];
+  if constexpr (sizeof(T) == 4) {
+    const uint32_t* b = reinterpret_cast<const uint32_t*>(x);
+#pragma unroll
+    for (int i = 0; i < RC_GROUP; ++i) w[i] = e + i < end ? __ldg(b + e + i) : 0u;
+  } else {
+    const unsigned short* b = reinterpret_cast<const unsigned short*>(x);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t lo = e + 2 * k < end ? __ldg(b + e + 2 * k) : 0u;
+      const uint32_t hi = e + 2 * k + 1 < end ? __ldg(b + e + 2 * k + 1) : 0u;
+      w[k] = lo | (hi << 16);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) g.q[q] = make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+}
+
+// Element i of a loaded group as f32 (exact).
+template <typename T>
+__device__ __forceinline__ float raw_elem(const Raw<T>& g, int i) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(g.q);
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(w[i]);
+  } else {
+    const unsigned short h = static_cast<unsigned short>(w[i / 2] >> (16 * (i % 2)));
+    if constexpr (DtypeOf<T>::value == DT_BF16) return __uint_as_float(static_cast<uint32_t>(h) << 16);
+    else return __half2float(__ushort_as_half(h));
+  }
+}
+
+// Two f32 values rounded to the 16-bit compute dtype in one word.
+template <int CD>
+__device__ __forceinline__ uint32_t pack_cd(float lo, float hi) {
+  return CD == DT_BF16 ? pack_bf16(lo, hi) : pack_f16(lo, hi);
+}
+
+// The two compute-dtype values of a word, as f32 (exact).
+template <int CD>
+__device__ __forceinline__ float2 unpack_cd(uint32_t w) {
+  if (CD == DT_BF16) return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+  __half2 h = *reinterpret_cast<__half2*>(&w);
+  return __half22float2(h);
+}
+
+// The group as four compute-dtype words (CD bf16 or f16): the loaded words
+// when the input dtype is CD, else one rounding per pair.
+template <typename T, int CD>
+__device__ __forceinline__ void raw_words(const Raw<T>& g, uint32_t (&w)[4]) {
+  if constexpr (DtypeOf<T>::value == CD) {
+    w[0] = g.q[0].x; w[1] = g.q[0].y; w[2] = g.q[0].z; w[3] = g.q[0].w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = pack_cd<CD>(raw_elem(g, 2 * k), raw_elem(g, 2 * k + 1));
+  }
+}
+
+// Keeps the halves of elements [lin, lin + 8) that lie in [lo, hi).
+__device__ __forceinline__ void mask_words(uint32_t (&w)[4], int lin, int lo, int hi) {
+  if (lin >= lo && lin + RC_GROUP <= hi) return;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int e = lin + 2 * k;
+    const uint32_t keep = (e >= lo && e < hi ? 0x0000ffffu : 0u) |
+                          (e + 1 >= lo && e + 1 < hi ? 0xffff0000u : 0u);
+    w[k] &= keep;
+  }
+}
+
+// Non-finite halves of a compute-dtype word: exponent all ones.
+template <int CD>
+__device__ __forceinline__ int nonfinite_halves(uint32_t w) {
+  constexpr uint32_t E = CD == DT_BF16 ? 0x7f807f80u : 0x7c007c00u;
+  const uint32_t e = w & E;
+  return static_cast<int>((e & 0xffffu) == (E & 0xffffu)) + static_cast<int>((e >> 16) == (E >> 16));
+}
+
+// The elementwise prologue (identity, square, abs) on a compute-dtype word.
+template <int CD, int PRO>
+__device__ __forceinline__ uint32_t prologue_word(uint32_t w) {
+  if constexpr (PRO == PRO_ABS) {
+    return w & 0x7fff7fffu;
+  } else if constexpr (PRO == PRO_SQUARE) {
+    const float2 v = unpack_cd<CD>(w);
+    return pack_cd<CD>(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+  } else {
+    return w;
+  }
+}
+
+// The ones-MMA at the compute dtype: D += A @ 1.
+template <int CD>
+__device__ __forceinline__ void ones_mma(float (&d)[4], const uint32_t (&a)[4]) {
+  if (CD == DT_BF16) mma_bf16_16816(d, a, ONES_BF16X2, ONES_BF16X2);
+  else mma_f16_16816(d, a, ONES_F16X2, ONES_F16X2);
+}

@@ -265,6 +265,20 @@ def _ingest(x: torch.Tensor):
     return flat.to(torch.float32), "ingest_f32"
 
 
+def _lane_scratch(lanes: int, dev):
+    """The fused kernels' lane partials: ``lanes`` f32 sums, then ``lanes``
+    int32 counts (f32 sums of squares for the moments pair), each CTA
+    writing its own; None for one lane, whose CTA writes the total itself
+    (the kernel then takes a null pointer)."""
+    if lanes == 1:
+        return None
+    return torch.empty((2 * lanes,), dtype=torch.int32, device=dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_fused(flat, compute_dtype, prologue, chain, census, num_lanes, tiles_per_block):
     n = flat.numel()
     r, c, bpl, _ = lane_geometry(n, num_lanes, tiles_per_block)
@@ -272,15 +286,14 @@ def _launch_fused(flat, compute_dtype, prologue, chain, census, num_lanes, tiles
     steps, ops, p0, p1 = _encode_chain(chain)
     dev = flat.device
     out = torch.empty((2 if census else 1,), dtype=torch.float32, device=dev)
-    # c f32 lane sums and c int32 lane counts: every CTA writes its own
-    scratch = torch.empty((2 * c,), dtype=torch.int32, device=dev)
+    scratch = _lane_scratch(c, dev)
     stream = build.stream_ptr(out)
     with torch.cuda.device(dev):
         err = build.library().fr_sum(
             flat.data_ptr(), n, build.dtype_code(flat), build.DTYPE_CODES[compute_dtype],
             _PROLOGUE_CODES[prologue], int(bool(census)), r * TILE, blocks, c,
             int(flat.data_ptr() % 16 == 0), steps, ops.ctypes.data, p0.ctypes.data,
-            p1.ctypes.data, out.data_ptr(), scratch.data_ptr(),
+            p1.ctypes.data, out.data_ptr(), _ptr(scratch),
             common.fold_tickets("fused", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_sum_fused")
@@ -451,13 +464,13 @@ def mma_moments_fused(
     blocks = common.ceil_div(max(1, common.ceil_div(n, TILE)), r)
     dev = flat.device
     out = torch.empty((2,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((2 * c,), dtype=torch.float32, device=dev)  # sums, then squares
+    scratch = _lane_scratch(c, dev)  # sums, then squares
     stream = build.stream_ptr(out)
     with torch.cuda.device(dev):
         err = build.library().fr_moments(
             flat.data_ptr(), n, build.dtype_code(flat), build.DTYPE_CODES[compute_dtype],
             r * TILE, blocks, c, int(flat.data_ptr() % 16 == 0), out.data_ptr(),
-            scratch.data_ptr(), common.fold_tickets("moments", dev, stream).data_ptr(), stream,
+            _ptr(scratch), common.fold_tickets("moments", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_moments_fused")
     mma_moments_fused.launches += 1

@@ -149,13 +149,16 @@ class _FakeLibrary:
 
     def __init__(self):
         self.calls = []
+        self.scratch = []  # (kernel, lanes, the lane-partials pointer)
 
     def fr_sum(self, x, n, dt, cd, pro, census, block_elems, blocks, lanes, *rest):
         self.calls.append(("K1", n, block_elems // ops.TILE, blocks, lanes, None))
+        self.scratch.append(("K1", lanes, rest[6]))
         return 0
 
     def fr_moments(self, x, n, dt, cd, block_elems, blocks, lanes, *rest):
         self.calls.append(("K2", n, block_elems // ops.TILE, blocks, lanes, None))
+        self.scratch.append(("K2", lanes, rest[2]))
         return 0
 
     def fk_sum(self, x, n, dt, cd, pro, r, blocks, bpl, lanes, *rest):
@@ -174,6 +177,21 @@ def fake_launch(monkeypatch):
     monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     return lib
+
+
+@pytest.mark.parametrize("n", [1, 2048, 131072, 131073, 40 * 131072 + 17])
+@pytest.mark.parametrize("lanes", [1, 528])
+def test_one_lane_launch_takes_no_lane_partials(fake_launch, n, lanes):
+    """K1 and K2 on a one-lane stripe write their total from the one CTA:
+    the wrappers allocate no lane partials and pass a null pointer; with
+    more lanes, a buffer of 2 C words."""
+    x = torch.zeros(n, dtype=torch.bfloat16)
+    ops.mma_sum_fused(x, num_lanes=lanes)
+    ops.mma_moments_fused(x, num_lanes=lanes)
+    c = ops.lane_geometry(n, lanes)[1]
+    assert [(k, got_c) for k, got_c, _ in fake_launch.scratch] == [("K1", c), ("K2", c)]
+    for _, _, ptr in fake_launch.scratch:
+        assert (ptr is None) == (c == 1) and (ptr is None or ptr != 0)
 
 
 @pytest.mark.parametrize("n", [1, 16385, 8 * 16384, 40 * 131072 + 17, 2**22 + 3])

@@ -486,6 +486,125 @@ def test_segments_census_and_empty_epilogue(gen):
         assert float(out[0]) == float(out[3]) == 2.0  # empty segments: the chain of 0
 
 
+# K8's tile cases: interior tiles (an aligned boundary at 7 m^2), tiles a
+# boundary cuts, empty segments, the last block clipped at n (n not a
+# multiple of 8); at a 16-byte aligned base and one element off it.
+EDGE_N = 9 * 16384 - 3
+EDGE_OFFSETS = (0, 0, 100, 20000, 20000, 3 * 16384 + 5, 3 * 16384 + 7, 7 * 16384, EDGE_N)
+EDGE_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+              (torch.float32, torch.float16), (torch.bfloat16, torch.bfloat16),
+              (torch.float16, torch.float16), (torch.bfloat16, torch.float16),
+              (torch.float16, torch.float32)]
+# Beyond bf16's (f16's) largest finite value, finite in f32: infinite
+# after the compute cast, so the census counts it there.
+_PAST_RANGE = {torch.bfloat16: 3.4e38, torch.float16: 7.0e4}
+
+
+@pytest.mark.parametrize("lanes", [1, 7, 528, 2000])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("prologue,census", [("identity", False), ("identity", True),
+                                             ("square", False), ("square", True),
+                                             ("abs", False), ("abs", True),
+                                             ("moments", False)])
+@pytest.mark.parametrize("dtype,compute", EDGE_PAIRS)
+def test_segments_edge_tiles_match_plain(gen, lanes, offset, prologue, census, dtype, compute):
+    """Every tile case of the redesigned K8 against its plain version,
+    bitwise at every compute dtype: the values are small nonzero integers,
+    so every sum is exact in any order and an element the masks drop,
+    shift or count twice moves its segment's sum; census counts exact
+    (planted NaN, Inf and past-range values, one of them in a block that
+    the neighbour's cover reads masked)."""
+    from repro_torch.kernels.mma_reduce import ops
+
+    mag = torch.randint(1, 4, (EDGE_N + 8,), generator=gen, device="cuda")
+    sign = torch.randint(0, 2, (EDGE_N + 8,), generator=gen, device="cuda") * 2 - 1
+    buf = (mag * sign).to(torch.float32)
+    if census:
+        buf[offset + 3 * 16384 + 6] = float("inf")  # segment 6's, in segment 5's block
+        buf[offset + 50] = float("nan")
+        if dtype == torch.float32 and compute in _PAST_RANGE:
+            buf[offset + 8 * 16384 + 9] = _PAST_RANGE[compute]
+    x = buf.to(dtype)[offset:offset + EDGE_N]
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = ops.mma_sum_segments.launches
+    got = ops.mma_sum_segments(x, EDGE_OFFSETS, compute_dtype=compute, prologue=prologue,
+                               census=census, num_lanes=lanes)
+    assert ops.mma_sum_segments.launches == before + 1
+    want = ops.mma_sum_segments_plain(x, EDGE_OFFSETS, compute, prologue, (), census, lanes)
+    nseg = len(EDGE_OFFSETS) - 1
+    if census:
+        assert torch.equal(got[nseg:], want[nseg:]) and float(got[nseg:].sum()) >= 2.0
+    assert torch.equal(got.nan_to_num(), want.nan_to_num()), (got, want)
+    assert torch.equal(got.isnan(), want.isnan())
+
+
+@pytest.mark.parametrize("lanes", [528, 2000])
+@pytest.mark.parametrize("dtype,compute,prologue", [
+    (torch.float32, torch.float32, "square"), (torch.float32, torch.bfloat16, "identity"),
+    (torch.bfloat16, torch.bfloat16, "identity"), (torch.float16, torch.float16, "moments")])
+def test_segments_more_lanes_than_resident_ctas(gen, lanes, dtype, compute, prologue):
+    """K8 with more lanes than CTAs stay resident (two a SM, one for
+    moments) over a cover of 2100 tiles in 40 ragged segments: one launch,
+    the plain version's lane fold (bitwise at f32 compute)."""
+    import numpy as np
+
+    from repro_torch.kernels.mma_reduce import ops
+
+    n = 2100 * 16384 + 77
+    cuts = np.sort(np.random.default_rng(3).integers(1, n, size=39))
+    offsets = (0, *(int(c) for c in cuts), n)
+    x = (torch.randn((n,), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    before = ops.mma_sum_segments.launches
+    got = ops.mma_sum_segments(x, offsets, compute_dtype=compute, prologue=prologue,
+                               num_lanes=lanes)
+    assert ops.mma_sum_segments.launches == before + 1
+    assert ops._cover_maps(offsets, lanes)[3] == lanes
+    want = ops.mma_sum_segments_plain(x, offsets, compute, prologue, (), False, lanes)
+    if compute == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        xf = x.float()
+        assert float((got - want).abs().max()) <= 2.0**-16 * float((xf * xf).sum()) + 1e-4
+
+
+@pytest.mark.parametrize("n", [1, 7, 2048, 131072, 131073])
+@pytest.mark.parametrize("lanes", [1, None], ids=["one-lane", "default-lanes"])
+@pytest.mark.parametrize("dtype,compute", [(torch.float32, torch.float32),
+                                           (torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float16, torch.float16)])
+def test_fused_one_lane_route_matches_plain(gen, n, lanes, dtype, compute):
+    """K1's one-lane route (one CTA writes [chain(0 + total), count] with no
+    ticket): integer-valued inputs sum exactly in any order, so the kernel
+    equals the plain version bitwise at every compute dtype, census and
+    chain included; a sum of -0.0 values comes out +0.0, as the lane fold
+    gives; random inputs agree within the fused tolerance, repeat bitwise."""
+    from repro_torch.kernels.mma_reduce import default_num_lanes
+
+    lanes = lanes or default_num_lanes(torch.empty((1,), device="cuda"))
+    ints = torch.randint(-8, 9, (n,), generator=gen, device="cuda").to(torch.float32)
+    if n > 2:
+        ints[n // 2] = float("nan")
+    chain = (("scale", 0.5), ("add_eps", 3.0))
+    for x, kw in ((ints.to(dtype), dict(census=True, epilogue=chain)),
+                  (ints.nan_to_num(0.0).to(dtype), dict(prologue="square")),
+                  (ints.nan_to_num(0.0).to(dtype), dict(prologue="abs", epilogue=(("sqrt",),))),
+                  (torch.full((n,), -0.0, device="cuda").to(dtype), dict(census=True))):
+        kw.update(compute_dtype=compute, num_lanes=lanes)
+        got, want = mma_sum_fused(x, **kw), mma_sum_fused_plain(x, **kw)
+        got, want = (torch.stack(list(v)) if kw.get("census") else v for v in (got, want))
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()), (kw, got, want)
+        assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.signbit(),
+                                                                     want.signbit())
+    x = (torch.randn((n,), generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+    kw = dict(compute_dtype=compute, num_lanes=lanes)
+    got, want = mma_sum_fused(x, **kw), mma_sum_fused_plain(x, **kw)
+    c = lane_geometry(n, lanes)[1]
+    mass = float(x.float().abs().sum())
+    assert abs(float(got) - float(want)) <= max(1.0, n / (c * 256)) * 2.0**-23 * mass + 1e-6
+    assert torch.equal(got, mma_sum_fused(x, **kw))
+
+
 @pytest.mark.parametrize("n", [1, 5000, 3 * 16384 + 5, 2**22 + 17])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("inclusive", [True, False])
