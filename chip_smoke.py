@@ -42,7 +42,8 @@ line per kernel check, the serving, training and paper figures, then the
 kernels JSON line (each kernel timed at its main path's shapes: training
 for K1/K4-K7, with serving-shape figures under "serving", and K5's
 decode rows under "decode"; the paper's
-n = 2^28 f32 for K2, K3, K10, with bf16 figures beside them; "launches"
+n = 2^28 f32 for K2, K3, K10, with bf16 figures beside them, and K3's
+one-lane route; "launches"
 counts the kernel's own main path; K8 and K9 at 2^28 f32, bf16 beside;
 K11 at (2048 x 8192) @ (8192 x 2048) bf16, the serving rows and f32
 beside) and, last,
@@ -779,7 +780,8 @@ def check_tile_partials(results: dict, gen) -> None:
     the whole hierarchy (two launches at 2^28) against the plain hierarchy
     and the f64 sum, with its launch count and the bytes at the launch
     boundary held against the cost model. The main path's f32 2^28, bf16
-    2^28, 2^28 - 4097 (the tail mask), f16 once, the square, abs and
+    2^28, 2^28 - 4097 (the tail mask), 2^26 + 5 bf16 two bytes off its
+    base (element loads, ragged tail), f16 once, the square, abs and
     moments prologues, and an epilogue chain on the final level."""
     import torch
 
@@ -795,6 +797,9 @@ def check_tile_partials(results: dict, gen) -> None:
         ("2^28 f32 at f32 compute", base, f32, "identity", ()),
         ("2^28 bf16", base.to(bf), bf, "identity", ()),
         ("2^28 - 4097 bf16 (tail mask)", base[:PAPER_N - 4097].to(bf), bf, "identity", ()),
+        # a view 2 bytes past an aligned base (element loads) with a ragged tail
+        ("2^26 + 5 bf16, 2 bytes off the base", base[:2**26 + 6].to(bf)[1:], bf, "identity",
+         ()),
         # zero mean: f16 partials of a 0.3 mean overflow at level 1 (rows of
         # 128 partials of ~4900), the reference's semantics too
         ("2^26 f16, mean 0", (base[:2**26] - 0.3).to(torch.float16), torch.float16, "identity",
@@ -881,16 +886,21 @@ def check_tile_partials(results: dict, gen) -> None:
 def check_moments_and_kahan(results: dict, gen) -> None:
     """K2 and K3 at 2^28 (the demo's f32, and bf16) against their plain
     versions and the f64 sums, repeat launches bitwise; then Kahan against
-    native where the carry dominates: one lane, 2^24 f32."""
+    native where the carry dominates: 2^24 f32 at one lane and at the
+    default lanes."""
     import torch
 
     from repro_torch.core.precision import ulps
-    from repro_torch.kernels.mma_reduce import (default_num_lanes, mma_moments_fused,
-                                                mma_moments_fused_plain, mma_sum_fused,
-                                                mma_sum_kahan, mma_sum_kahan_plain)
+    from repro_torch.kernels.mma_reduce import (default_num_lanes, lane_geometry,
+                                                mma_moments_fused, mma_moments_fused_plain,
+                                                mma_sum_fused, mma_sum_kahan,
+                                                mma_sum_kahan_plain)
 
     base = torch.randn((PAPER_N,), generator=gen, device=DEVICE) * 2 + 0.3
     bf = torch.bfloat16
+    print("K3's fold: each lane's CTA runs one Kahan pass over its acc rows 0..127, then its "
+          "negated comp rows, giving (s_c, c_c); the last CTA runs one over s_0, -c_0, s_1, "
+          "-c_1, ... in lane order (ops.combine_lane_pairs_kahan)")
     for what, x in (("2^28 f32 at bf16 compute", base), ("2^28 bf16", base.to(bf)),
                     ("2^28 - 4097 bf16", base[:PAPER_N - 4097].to(bf))):
         lanes = default_num_lanes(x)
@@ -923,21 +933,27 @@ def check_moments_and_kahan(results: dict, gen) -> None:
         check(abs(float(k) - float(kp)) <= 2.0**-20 * mass, f"K3 {what} disagrees with plain")
         check(abs(float(k) - es) <= 2.0**-20 * mass + 1e-3, f"K3 {what} is off the f64 sum")
 
-    # one lane, 1024 tiles: f32 compute, so only the carry differs
+    # 1024 tiles: f32 compute, so only the carry differs; at one lane
+    # native's running sums drop the noise's low bits
     for what, x, gate in (
             ("1 + U[0, 1e-3) (one-sided noise)", 1.0 + torch.rand(
                 (2**24,), generator=gen, device=DEVICE) * 1e-3, True),
             ("1 + N(0, 1e-3) (symmetric noise)", 1.0 + torch.randn(
                 (2**24,), generator=gen, device=DEVICE) * 1e-3, False)):
         exact = float(x.double().sum())
-        native = float(mma_sum_fused(x, compute_dtype=torch.float32, num_lanes=1))
-        kahan = float(mma_sum_kahan(x, compute_dtype=torch.float32, num_lanes=1))
-        print(f"Kahan where the carry dominates, 2^24 f32 {what}, one lane, f32 compute: native "
-              f"off the f64 sum by {abs(native - exact):.4g} ({ulps(native, exact):.1f} ulps of "
-              f"the total), kahan by {abs(kahan - exact):.4g} ({ulps(kahan, exact):.1f} ulps)")
-        if gate:
-            check(ulps(native, exact) >= 10, "the carry-dominated input does not stress native")
-            check(abs(kahan - exact) <= abs(native - exact), "Kahan is less accurate than native")
+        for lanes in (1, default_num_lanes(x)):
+            native = float(mma_sum_fused(x, compute_dtype=torch.float32, num_lanes=lanes))
+            kahan = float(mma_sum_kahan(x, compute_dtype=torch.float32, num_lanes=lanes))
+            lanes = lane_geometry(x.numel(), lanes)[1]  # the lanes launched
+            print(f"Kahan where the carry dominates, 2^24 f32 {what}, {lanes} lanes, f32 "
+                  f"compute: native off the f64 sum by {abs(native - exact):.4g} "
+                  f"({ulps(native, exact):.1f} ulps of the total), kahan by "
+                  f"{abs(kahan - exact):.4g} ({ulps(kahan, exact):.1f} ulps)")
+            if gate:
+                check(lanes > 1 or ulps(native, exact) >= 10,
+                      "the carry-dominated input does not stress native")
+                check(abs(kahan - exact) <= abs(native - exact),
+                      f"Kahan is less accurate than native at {lanes} lanes")
 
     def timings(x, fn, plain, kernel, library):
         n = x.numel()
@@ -964,7 +980,12 @@ def check_moments_and_kahan(results: dict, gen) -> None:
                         - float(mma_sum_kahan_plain(base, bf, "identity", (), lanes))),
         at_2e28_bf16=timings(xb, lambda: mma_sum_kahan(xb, num_lanes=lanes),
                              lambda: mma_sum_kahan_plain(xb, bf, "identity", (), lanes),
-                             "::fused_kahan_kernel<", lambda: torch.sum(xb, dtype=torch.float32)))
+                             "::fused_kahan_kernel<", lambda: torch.sum(xb, dtype=torch.float32)),
+        # one CTA streams the whole input (the route of n <= one block)
+        one_lane_ms={what: device_ms(lambda v=v: mma_sum_kahan(v, num_lanes=1),
+                                     "::fused_kahan_kernel<", iters=3, warmup=1)
+                     for what, v in (("2^28 f32", base), ("2^28 bf16", xb))})
+    print(f"K3 at one lane, device ms: {results['mma_sum_kahan']['one_lane_ms']}")
 
 
 def check_reduce_against_cpu(gen) -> None:

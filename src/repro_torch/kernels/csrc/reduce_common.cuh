@@ -151,8 +151,8 @@ __device__ __forceinline__ float2 tile_row_sums(const float (&r0)[4][RC_GROUP],
 }
 
 // ---------------------------------------------------------------------------
-// The word route (K1 and K8 since their redesign; the helpers above stay as
-// they are for K2's element route, K3, K4 and K10).
+// The word route (K1 and K8 since their redesign, K3 and K10 since theirs;
+// the helpers above stay as they are for K2's element route and K4).
 //
 // A load group's eight elements are kept as the words loaded (`Raw`) until
 // they become the ones-MMA's A operand: four 32-bit words, each two
@@ -288,4 +288,120 @@ template <int CD>
 __device__ __forceinline__ void ones_mma(float (&d)[4], const uint32_t (&a)[4]) {
   if (CD == DT_BF16) mma_bf16_16816(d, a, ONES_BF16X2, ONES_BF16X2);
   else mma_f16_16816(d, a, ONES_F16X2, ONES_F16X2);
+}
+
+// A strided group of f32 partials (an upper level reading one column of a
+// moments pair), else load_raw: elements [e, e + 8) at x[(e + i) * stride].
+template <typename T>
+__device__ __forceinline__ void load_raw_at(const T* x, long long e, long long end,
+                                            long long stride, bool vec, Raw<T>& g) {
+  if constexpr (sizeof(T) == 4) {
+    if (stride != 1) {
+      const uint32_t* b = reinterpret_cast<const uint32_t*>(x);
+      uint32_t w[RC_GROUP];
+#pragma unroll
+      for (int i = 0; i < RC_GROUP; ++i) w[i] = e + i < end ? __ldg(b + (e + i) * stride) : 0u;
+      g.q[0] = make_uint4(w[0], w[1], w[2], w[3]);
+      g.q[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      return;
+    }
+  }
+  load_raw(x, e, end, vec, g);
+}
+
+// ---------------------------------------------------------------------------
+// Tile strips on the word route (K3 and K10).
+//
+// Warp w of a 256-thread CTA owns rows 16w .. 16w + 15 of a tile, and thread
+// (g = lane / 4, t = lane % 4) the groups 8t + 32u (u < 4) of rows g and
+// g + 8 of that strip, as tile_row_sums takes them. A kernel reads a strip
+// in 4 / SU steps of SU = STRIP_U<T> values of u, 4 KB a warp (the whole
+// strip at 16-bit input, half of it at f32: 32 registers of loaded words
+// either way), and loads the next step while it sums this one. Word pair
+// (2i, 2i + 1) of a group is pack(r[u][2i], r[u][2i + 1]), so every
+// ones-MMA gets the A operand tile_row_sums gave it, in the same order,
+// and f32 compute adds the same values in the same order: the row sums are
+// bitwise the element route's.
+
+template <typename T>
+constexpr int STRIP_U = 8 / static_cast<int>(sizeof(T));
+
+template <typename T, int SU>
+struct Strip {
+  Raw<T> r0[SU], r1[SU];  // rows g and g + 8
+};
+
+// Step `s` of the strip whose thread's first element (row g, u = 0) is e.
+template <typename T, int SU>
+__device__ __forceinline__ void load_strip(const T* x, long long e, int s, long long end,
+                                           long long stride, bool vec, Strip<T, SU>& st) {
+#pragma unroll
+  for (int k = 0; k < SU; ++k) {
+    const long long off = e + 32 * (SU * s + k);
+    load_raw_at(x, off, end, stride, vec, st.r0[k]);
+    load_raw_at(x, off + 8 * RC_ROW, end, stride, vec, st.r1[k]);
+  }
+}
+
+// The step's A operands at the compute dtype (bf16 / f16), mapped by PRO.
+template <typename T, int CD, int PRO, int SU>
+__device__ __forceinline__ void strip_words(const Strip<T, SU>& st, uint32_t (&w0)[SU][4],
+                                            uint32_t (&w1)[SU][4]) {
+#pragma unroll
+  for (int k = 0; k < SU; ++k) {
+    raw_words<T, CD>(st.r0[k], w0[k]);
+    raw_words<T, CD>(st.r1[k], w1[k]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w0[k][i] = prologue_word<CD, PRO>(w0[k][i]);
+      w1[k][i] = prologue_word<CD, PRO>(w1[k][i]);
+    }
+  }
+}
+
+// The step's ones-MMAs into D (rows g and g + 8 in d[0] and d[2]); SQ feeds
+// the squares of the words, each rounded to the compute dtype.
+template <int CD, int SU, bool SQ = false>
+__device__ __forceinline__ void strip_mma(float (&d)[4], const uint32_t (&w0)[SU][4],
+                                          const uint32_t (&w1)[SU][4]) {
+  constexpr int P = SQ ? PRO_SQUARE : PRO_IDENTITY;
+#pragma unroll
+  for (int k = 0; k < SU; ++k) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t a[4] = {prologue_word<CD, P>(w0[k][2 * h]), prologue_word<CD, P>(w1[k][2 * h]),
+                             prologue_word<CD, P>(w0[k][2 * h + 1]),
+                             prologue_word<CD, P>(w1[k][2 * h + 1])};
+      ones_mma<CD>(d, a);
+    }
+  }
+}
+
+// f32 compute: the step's values, mapped by PRO, into the thread's running
+// sums of rows g (d[0]) and g + 8 (d[2]), in (u, i) order.
+template <typename T, int PRO, int SU>
+__device__ __forceinline__ void strip_f32(const Strip<T, SU>& st, float (&d)[4]) {
+#pragma unroll
+  for (int k = 0; k < SU; ++k) {
+#pragma unroll
+    for (int i = 0; i < RC_GROUP; ++i) {
+      const float a = raw_elem(st.r0[k], i), b = raw_elem(st.r1[k], i);
+      d[0] = __fadd_rn(d[0], PRO == PRO_SQUARE ? __fmul_rn(a, a) : PRO == PRO_ABS ? fabsf(a) : a);
+      d[2] = __fadd_rn(d[2], PRO == PRO_SQUARE ? __fmul_rn(b, b) : PRO == PRO_ABS ? fabsf(b) : b);
+    }
+  }
+}
+
+// The strip's two row sums once its last step is in, in every thread of the
+// row's quad: D's (ones-MMA), or the quad's f32 sums folded by the fixed
+// shuffle tree of tile_row_sums.
+template <int CD>
+__device__ __forceinline__ float2 strip_row_sums(const float (&d)[4]) {
+  if (CD != DT_F32) return make_float2(d[0], d[2]);
+  float s0 = d[0], s1 = d[2];
+  s0 = __fadd_rn(s0, __shfl_xor_sync(0xffffffffu, s0, 1));
+  s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, 1));
+  s0 = __fadd_rn(s0, __shfl_xor_sync(0xffffffffu, s0, 2));
+  s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, 2));
+  return make_float2(s0, s1);
 }

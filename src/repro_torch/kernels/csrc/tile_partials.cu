@@ -7,15 +7,16 @@
 // paper relaunches its kernel: cost_model.levels(n, 128) launches, two at
 // n = 2^28.
 //
-// Grid: one CTA per block of `r` tiles (`tiles_per_block`, the reference's
-// block); no state is carried between CTAs. Level 0 reads the caller's
-// buffer in its own dtype and masks the tail past n; upper levels read the
-// previous launch's f32 partials, `stride` floats apart (2 for one column
-// of the moments pair), and round them to the compute dtype before the MMA,
-// as the reference's `_load_tiles` does (its lossy semantics, kept). The
-// prologue (identity, square, abs) maps each value after the compute cast;
-// the moments prologue emits a (tile, 2) pair: X and X * X at the compute
-// dtype.
+// Grid: blocks of `r` tiles (`tiles_per_block`, the reference's block),
+// CTA c taking blocks c, c + G, ... (G CTAs: as many as fit on the card at
+// once, at most one per block); no state is carried between blocks. Level 0
+// reads the caller's buffer in its own dtype and masks the tail past n;
+// upper levels read the previous launch's f32 partials, `stride` floats
+// apart (2 for one column of the moments pair), and round them to the
+// compute dtype before the MMA, as the reference's `_load_tiles` does (its
+// lossy semantics, kept). The prologue (identity, square, abs) maps each
+// value after the compute cast; the moments prologue emits a (tile, 2)
+// pair: X and X * X at the compute dtype.
 //
 // The two MMAs of `_two_mma` (kernel.py:91-107): D = X @ 1 gives the 128
 // row sums (f32 accumulation; warp w owns rows 16w .. 16w + 15, eight
@@ -24,31 +25,28 @@
 // tile, with B = D from shared memory). f32 compute sums on the CUDA cores
 // (TF32 would round), in a fixed order. Tiles are taken eight at a time:
 // one barrier hands each batch's row sums from the row warps to the column
-// warps. The epilogue chain runs on the final level only (one tile, t ==
-// 1). The launch writes a partial for every tile of its padded grid (zero
-// tiles give 0), as the reference's output block does.
+// warps, through one of two buffers (the next batch fills the other, so no
+// second barrier). The epilogue chain runs on the final level only (one
+// tile, t == 1). The launch writes a partial for every tile of its padded
+// grid (zero tiles give 0), as the reference's output block does.
 //
 // Bound on this card: bytes (level 0 reads n * itemsize once; the upper
 // levels read 4 bytes per tile of the level below). Sixteen MMA flops per
-// element for the first product is far below the tensor-core rate.
+// element for the first product is far below the tensor-core rate. The
+// stream is the word route (reduce_common.cuh's tile strips): a warp reads
+// its strip of a tile in steps of 4 KB and loads the next step -- of this
+// tile, the next, or the CTA's next block -- before this step's MMAs, so
+// loads stay in flight across tiles and across the batch's barrier and
+// column sums (measured faster than one CTA per block, or 2 KB steps:
+// PERF.md). The loaded words are the MMA's A operands (a bf16 / f16 input
+// at its own compute dtype unconverted, f32 rounded once a pair); they are
+// tile_row_sums' operands, so every partial is bitwise the element route's.
 #include "reduce_common.cuh"
 
 namespace {
 
 constexpr int TP_THREADS = 256;
 constexpr int TP_WARPS = TP_THREADS / 32;  // also the tiles per batch
-
-template <typename T>
-__device__ __forceinline__ void load_tile_group(const T* x, long long e, long long n,
-                                                long long stride, bool aligned,
-                                                float (&v)[RC_GROUP]) {
-  if (stride == 1) {
-    load_group(x, e, n, aligned, v);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < RC_GROUP; ++i) v[i] = e + i < n ? to_f32(x[(e + i) * stride]) : 0.f;
-}
 
 // Column sum of one tile's 128 rounded row sums: 1 @ D.
 template <int CD>
@@ -61,8 +59,7 @@ __device__ __forceinline__ float column_sum(const float* rs, int lid) {
     for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
     return s;
   }
-  const int g = lid / 4, t = lid % 4;
-  (void)g;
+  const int t = lid % 4;
   float d[4] = {0.f, 0.f, 0.f, 0.f};
   const uint32_t ones = CD == DT_BF16 ? ONES_BF16X2 : ONES_F16X2;
   const uint32_t A[4] = {ones, ones, ones, ones};
@@ -80,106 +77,147 @@ __device__ __forceinline__ float column_sum(const float* rs, int lid) {
   return d[0];
 }
 
-// MOM: the moments prologue (two statistics); else `prologue` is
-// elementwise. Two CTAs per SM: at most 128 registers a thread.
-template <typename T, int CD, bool MOM>
+// PRO: identity, square, abs, or moments (the pair X, X * X). Two CTAs per
+// SM: at most 128 registers a thread.
+template <typename T, int CD, int PRO>
 __global__ void __launch_bounds__(TP_THREADS, 2)
 tile_partials_kernel(const T* __restrict__ x, long long n, long long stride, int r,
-                     int prologue, int aligned, const Chain chain, float* __restrict__ out) {
-  __shared__ float rows[MOM ? 2 : 1][TP_WARPS][RC_ROW];  // [statistic][tile of batch][row]
+                     long long blocks, int aligned, const Chain chain, float* __restrict__ out) {
+  constexpr bool MOM = PRO == PRO_MOMENTS;
+  constexpr int WPRO = MOM ? PRO_IDENTITY : PRO;  // the prologue of the MMA's words
+  constexpr int SU = STRIP_U<T>, STEPS = 4 / SU;  // values of u a step, steps a strip
+  // [buffer][statistic][tile of batch][row]
+  __shared__ float rows[2][MOM ? 2 : 1][TP_WARPS][RC_ROW];
 
   const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
   const int g = lid / 4, t = lid % 4;
   const int row0 = 16 * warp + g, row1 = row0 + 8;
-  const long long first_tile = static_cast<long long>(blockIdx.x) * r;
+  const long long first = static_cast<long long>(row0) * RC_ROW + 8 * t;  // in its tile
+  const bool vec = aligned != 0;
 
-  for (int b0 = 0; b0 < r; b0 += TP_WARPS) {
-    const int batch = r - b0 < TP_WARPS ? r - b0 : TP_WARPS;
-    // D = X @ 1 for every tile of the batch: this warp's 16 rows of each
-    for (int j = 0; j < batch; ++j) {
-      const long long tile = (first_tile + b0 + j) * RC_TILE;
-      float v0[4][RC_GROUP], v1[4][RC_GROUP];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const long long off = 8 * t + 32 * u;
-        load_tile_group(x, tile + row0 * RC_ROW + off, n, stride, aligned != 0, v0[u]);
-        load_tile_group(x, tile + row1 * RC_ROW + off, n, stride, aligned != 0, v1[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int i = 0; i < RC_GROUP; ++i) {
-          const float c0 = to_compute<CD>(v0[u][i]), c1 = to_compute<CD>(v1[u][i]);
-          v0[u][i] = MOM ? c0 : prologue_map<CD>(c0, prologue);
-          v1[u][i] = MOM ? c1 : prologue_map<CD>(c1, prologue);
-        }
-      }
-      const float2 d = tile_row_sums<CD>(v0, v1);
-      // D re-enters the second MMA at the compute dtype
-      if (t == 0) {
-        rows[0][j][row0] = to_compute<CD>(d.x);
-        rows[0][j][row1] = to_compute<CD>(d.y);
-      }
-      if constexpr (MOM) {  // X * X at the compute dtype, from the same registers
-        const float2 d2 = tile_row_sums<CD, true>(v0, v1);
-        if (t == 0) {
-          rows[1][j][row0] = to_compute<CD>(d2.x);
-          rows[1][j][row1] = to_compute<CD>(d2.y);
-        }
+  // The CTA's steps: block b (blockIdx.x, + gridDim.x, ...), tile tt of it,
+  // step s of the strip. Every thread of the CTA runs the same steps.
+  long long b = blockIdx.x;
+  int tt = 0, s = 0, buf = 0;
+  Strip<T, SU> st;
+  load_strip(x, b * r * RC_TILE + first, 0, n, stride, vec, st);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  float q[4] = {0.f, 0.f, 0.f, 0.f};  // MOM: the squares' D
+  for (bool have = b < blocks; have;) {
+    uint32_t w0[SU][4], w1[SU][4];
+    if constexpr (CD == DT_F32) {
+      strip_f32<T, WPRO>(st, d);
+      if constexpr (MOM) strip_f32<T, PRO_SQUARE>(st, q);
+    } else {
+      strip_words<T, CD, WPRO>(st, w0, w1);
+    }
+    // the next step's loads go out before this step's MMAs, and across the
+    // batch's barrier and column sums
+    const long long tile = b * r + tt;
+    const int j = tt % TP_WARPS;  // the tile's place in its batch
+    const bool tile_end = s == STEPS - 1;
+    const bool batch_end = tile_end && (j == TP_WARPS - 1 || tt == r - 1);
+    if (++s == STEPS) {
+      s = 0;
+      if (++tt == r) {
+        tt = 0;
+        b += gridDim.x;
       }
     }
+    have = b < blocks;
+    if (have) load_strip(x, (b * r + tt) * RC_TILE + first, s, n, stride, vec, st);
+    if constexpr (CD != DT_F32) {
+      strip_mma<CD, SU>(d, w0, w1);
+      if constexpr (MOM) strip_mma<CD, SU, true>(q, w0, w1);
+    }
+    if (!tile_end) continue;
+    // D re-enters the second MMA at the compute dtype
+    const float2 rs = strip_row_sums<CD>(d);
+    if (t == 0) {
+      rows[buf][0][j][row0] = to_compute<CD>(rs.x);
+      rows[buf][0][j][row1] = to_compute<CD>(rs.y);
+    }
+    if constexpr (MOM) {
+      const float2 rq = strip_row_sums<CD>(q);
+      if (t == 0) {
+        rows[buf][1][j][row0] = to_compute<CD>(rq.x);
+        rows[buf][1][j][row1] = to_compute<CD>(rq.y);
+      }
+    }
+    d[0] = d[1] = d[2] = d[3] = 0.f;
+    q[0] = q[1] = q[2] = q[3] = 0.f;
+    if (!batch_end) continue;
     __syncthreads();
-    // 1 @ D: warp j sums tile j's rounded row sums
-    if (warp < batch) {
-      const long long tile = first_tile + b0 + warp;
-      const float s = column_sum<CD>(rows[0][warp], lid);
+    // 1 @ D: warp i sums the batch's tile i
+    if (warp <= j) {
+      const long long mine = tile - j + warp;
+      const float cs = column_sum<CD>(rows[buf][0][warp], lid);
       if constexpr (MOM) {
-        const float s2 = column_sum<CD>(rows[1][warp], lid);
+        const float cq = column_sum<CD>(rows[buf][1][warp], lid);
         if (lid == 0) {
-          out[2 * tile] = s;
-          out[2 * tile + 1] = s2;
+          out[2 * mine] = cs;
+          out[2 * mine + 1] = cq;
         }
       } else if (lid == 0) {
-        out[tile] = apply_chain(s, chain);
+        out[mine] = apply_chain(cs, chain);
       }
     }
-    __syncthreads();
+    buf ^= 1;
   }
 }
 
-template <typename T, int CD>
-int launch(const void* x, long long n, long long stride, int r, long long blocks, int prologue,
-           int aligned, const Chain& chain, float* out, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned int>(blocks));
-  if (prologue == PRO_MOMENTS)
-    tile_partials_kernel<T, CD, true><<<grid, TP_THREADS, 0, stream>>>(
-        static_cast<const T*>(x), n, stride, r, prologue, aligned, chain, out);
-  else
-    tile_partials_kernel<T, CD, false><<<grid, TP_THREADS, 0, stream>>>(
-        static_cast<const T*>(x), n, stride, r, prologue, aligned, chain, out);
+struct Level {
+  const void* x;
+  long long n, stride, blocks;
+  int r, aligned;
+  Chain chain;
+  float* out;
+  cudaStream_t stream;
+};
+
+template <typename T, int CD, int PRO>
+int launch(const Level& a) {
+  // as many CTAs as the card holds at once, at most one per block
+  const auto kernel = tile_partials_kernel<T, CD, PRO>;
+  static int per_sm = 0;  // CTAs a SM holds: the kernel's own, found once
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TP_THREADS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const dim3 grid(static_cast<unsigned int>(a.blocks < resident ? a.blocks : resident));
+  kernel<<<grid, TP_THREADS, 0, a.stream>>>(static_cast<const T*>(a.x), a.n, a.stride, a.r,
+                                            a.blocks, a.aligned, a.chain, a.out);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int CD>
+int by_prologue(int prologue, const Level& a) {
+  switch (prologue) {
+    case PRO_IDENTITY: return launch<T, CD, PRO_IDENTITY>(a);
+    case PRO_SQUARE: return launch<T, CD, PRO_SQUARE>(a);
+    case PRO_ABS: return launch<T, CD, PRO_ABS>(a);
+    case PRO_MOMENTS: return launch<T, CD, PRO_MOMENTS>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
-int by_compute(const void* x, long long n, long long stride, int compute, int r,
-               long long blocks, int prologue, int aligned, const Chain& chain, float* out,
-               cudaStream_t stream) {
+int by_compute(int compute, int prologue, const Level& a) {
   switch (compute) {
-    case DT_F32:
-      return launch<T, DT_F32>(x, n, stride, r, blocks, prologue, aligned, chain, out, stream);
-    case DT_BF16:
-      return launch<T, DT_BF16>(x, n, stride, r, blocks, prologue, aligned, chain, out, stream);
-    case DT_F16:
-      return launch<T, DT_F16>(x, n, stride, r, blocks, prologue, aligned, chain, out, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case DT_F32: return by_prologue<T, DT_F32>(prologue, a);
+    case DT_BF16: return by_prologue<T, DT_BF16>(prologue, a);
+    case DT_F16: return by_prologue<T, DT_F16>(prologue, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
 // x: n values of `dtype`, value i at x[i * stride] (stride > 1 only for f32
-// partials). `r` tiles per CTA, `blocks` CTAs (r * blocks * m^2 >= n).
+// partials). `r` tiles per block, `blocks` blocks (r * blocks * m^2 >= n).
 // `prologue`: 0 identity, 1 square, 2 abs, 3 moments. `out` receives
 // r * blocks partials ((r * blocks, 2) for moments); the chain (final level
 // only) maps each partial.
@@ -187,24 +225,16 @@ extern "C" int tp_level(const void* x, long long n, long long stride, int dtype,
                         int prologue, int r, long long blocks, int aligned, int chain_len,
                         const int* chain_ops, const float* chain_p0, const float* chain_p1,
                         float* out, void* stream) {
-  Chain chain;
+  Level a{x, n, stride, blocks, r, aligned, {}, out, static_cast<cudaStream_t>(stream)};
   if (n < 1 || stride < 1 || (stride > 1 && dtype != DT_F32) || r < 1 || blocks < 1 ||
       blocks > 0x7fffffffLL || static_cast<long long>(r) * blocks * RC_TILE < n ||
-      prologue < PRO_IDENTITY || prologue > PRO_MOMENTS ||
       (prologue == PRO_MOMENTS && chain_len != 0) ||
-      !make_chain(chain_len, chain_ops, chain_p0, chain_p1, &chain))
+      !make_chain(chain_len, chain_ops, chain_p0, chain_p1, &a.chain))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case DT_F32:
-      return by_compute<float>(x, n, stride, compute, r, blocks, prologue, aligned, chain, out, s);
-    case DT_BF16:
-      return by_compute<__nv_bfloat16>(x, n, stride, compute, r, blocks, prologue, aligned,
-                                       chain, out, s);
-    case DT_F16:
-      return by_compute<__half>(x, n, stride, compute, r, blocks, prologue, aligned, chain, out,
-                                s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case DT_F32: return by_compute<float>(compute, prologue, a);
+    case DT_BF16: return by_compute<__nv_bfloat16>(compute, prologue, a);
+    case DT_F16: return by_compute<__half>(compute, prologue, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -27,9 +27,10 @@ segmented paths:
                     ``csrc/segmented_gather.cu``.
   mma_sum_fused(kahan=True)
                  -- the fused stream with a per-lane Kahan carry of every
-                    tile's row sums (``fused_kahan_kernel``, K3), folded by
-                    ``combine_lane_partials_kahan`` in the launch's last
-                    CTA. CUDA: ``csrc/fused_kahan.cu``.
+                    tile's row sums (``fused_kahan_kernel``, K3), folded in
+                    two levels by ``combine_lane_pairs_kahan``: each lane's
+                    CTA, then the launch's last CTA over the lanes' pairs.
+                    CUDA: ``csrc/fused_kahan.cu``.
   mma_moments_fused
                  -- (sum, sumsq) from one fused stream, two accumulators
                     (``fused_moments_kernel``, K2), each half folded by
@@ -141,6 +142,28 @@ def combine_lane_partials_kahan(partials: torch.Tensor) -> torch.Tensor:
     return _precision.kahan_sum(v, dtype=torch.float32)
 
 
+def combine_lane_pairs_kahan(partials: torch.Tensor) -> torch.Tensor:
+    """(C, 2, m) per-lane (acc rows, comp rows) -> f32 scalar, in K3's two
+    levels: (1) for every lane at once, one serial Kahan pass over its acc
+    rows 0..m-1, then its negated comp rows, gives the lane's pair (s_c,
+    c_c); (2) one serial Kahan pass over s_0, -c_0, s_1, -c_1, ... in lane
+    order gives the total (that pass's sum, as ``core.precision.kahan_sum``
+    returns). Each lane enters pass (1) with the values and in the order it
+    enters ``combine_lane_partials_kahan``'s single pass; the order across
+    lanes differs. f32 operations in a fixed order: the kernel and this
+    function agree bitwise on the same partials."""
+    acc, comp = partials[:, 0].to(torch.float32), partials[:, 1].to(torch.float32)
+    v = torch.cat([acc, -comp], dim=1)  # (C, 2m): each lane's pass, in order
+    s = torch.zeros((v.shape[0],), dtype=torch.float32, device=v.device)
+    c = torch.zeros_like(s)
+    for i in range(v.shape[1]):
+        y = v[:, i] - c
+        t = s + y
+        c = (t - s) - y
+        s = t
+    return _precision.kahan_sum(torch.stack([s, -c], dim=1).reshape(-1), dtype=torch.float32)
+
+
 def _round(x: torch.Tensor, compute_dtype) -> torch.Tensor:
     """f32 values rounded to the compute dtype, kept in f32."""
     return x if compute_dtype == torch.float32 else x.to(compute_dtype).to(torch.float32)
@@ -185,8 +208,12 @@ def mma_sum_kahan_plain(x: torch.Tensor, compute_dtype=torch.bfloat16, prologue=
     prologue and striping; each tile's 128 row sums (f32, from zero) are
     two-summed into the lane's (acc, comp) rows in the lane's tile order
     (padded zero tiles included, as the reference's grid runs them); the
-    lanes fold by ``combine_lane_partials_kahan``; the chain maps the
-    total."""
+    lanes fold in two levels by ``combine_lane_pairs_kahan`` -- one Kahan
+    pass per lane over its acc rows then its negated comp rows, then one
+    over the lanes' pairs (s_0, -c_0, s_1, -c_1, ...) -- and the chain maps
+    the total. The reference folds all lanes' rows in one serial pass
+    (``combine_lane_partials_kahan``); with one lane the two orders differ
+    only in the last step, which adds the lane's -c_0."""
     chain = common.normalize_epilogue(epilogue)
     flat = _map(_round(x.reshape(-1).to(torch.float32), compute_dtype), prologue, compute_dtype)
     blocks = _striped(flat, num_lanes, tiles_per_block)
@@ -201,7 +228,7 @@ def mma_sum_kahan_plain(x: torch.Tensor, compute_dtype=torch.bfloat16, prologue=
             s = acc + y
             comp = (s - acc) - y
             acc = s
-    total = combine_lane_partials_kahan(torch.stack([acc, comp], dim=1))
+    total = combine_lane_pairs_kahan(torch.stack([acc, comp], dim=1))
     return common.apply_epilogue(total, chain)
 
 
@@ -307,7 +334,7 @@ def _launch_kahan(flat, compute_dtype, prologue, chain, num_lanes, tiles_per_blo
     steps, ops, p0, p1 = _encode_chain(chain)
     dev = flat.device
     out = torch.empty((1,), dtype=torch.float32, device=dev)
-    lane_part = torch.empty((c, 2, MXU), dtype=torch.float32, device=dev)
+    lane_part = torch.empty((c, 2), dtype=torch.float32, device=dev)  # each lane's (s_c, c_c)
     stream = build.stream_ptr(out)
     with torch.cuda.device(dev):
         err = build.library().fk_sum(
@@ -400,11 +427,12 @@ def mma_sum_kahan(
 ) -> torch.Tensor:
     """``mma_sum_fused`` with the per-lane Kahan carry (the reference's
     ``kahan=True``), in ONE launch: each tile's 128 row sums are two-summed
-    into the lane's (acc, comp) rows, and the last CTA folds the lanes by
-    one serial Kahan pass (``combine_lane_partials_kahan``) and maps the
-    total by the chain. Composes with square and abs; no census (the
-    compensation rows take the second accumulator). Repeat launches agree
-    bitwise. CPU tensors: plain version."""
+    into the lane's (acc, comp) rows, each lane's CTA folds its rows by one
+    Kahan pass, and the last CTA folds the lanes' pairs by another
+    (``combine_lane_pairs_kahan``) and maps the total by the chain.
+    Composes with square and abs; no census (the compensation rows take the
+    second accumulator). Repeat launches agree bitwise. CPU tensors: plain
+    version."""
     common.refuse_grad("mma_sum_kahan", x, entry="repro_torch.reduce.reduce(x, axis=None)")
     if prologue not in ELEMENTWISE_PROLOGUES:
         raise ValueError(

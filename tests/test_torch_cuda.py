@@ -418,16 +418,73 @@ def test_moments_and_kahan_match_plain(gen, n, lanes, dtype, compute):
     assert torch.equal(k, mma_sum_kahan(x, compute_dtype=compute, num_lanes=lanes))
 
 
-def test_kahan_beats_native_where_the_carry_dominates(gen):
+@pytest.mark.parametrize("lanes", [1, None], ids=["one-lane", "default-lanes"])
+def test_kahan_beats_native_where_the_carry_dominates(gen, lanes):
     from repro_torch.core.precision import ulps
+    from repro_torch.kernels.mma_reduce import default_num_lanes
 
-    # one lane, 1024 tiles: mean 1 + 5e-4, one-sided noise of width 1e-3
+    # 1024 tiles: mean 1 + 5e-4, one-sided noise of width 1e-3; at one lane
+    # native's running sums drop the noise's low bits
     x = 1.0 + torch.rand((2**24,), generator=gen, device="cuda") * 1e-3
+    lanes = lanes or default_num_lanes(x)
     exact = float(x.double().sum())
-    native = float(mma_sum_fused(x, compute_dtype=torch.float32, num_lanes=1))
-    kahan = float(mma_sum_fused(x, compute_dtype=torch.float32, num_lanes=1, kahan=True))
-    assert ulps(native, exact) >= 10
+    native = float(mma_sum_fused(x, compute_dtype=torch.float32, num_lanes=lanes))
+    kahan = float(mma_sum_fused(x, compute_dtype=torch.float32, num_lanes=lanes, kahan=True))
+    if lanes == 1:
+        assert ulps(native, exact) >= 10
     assert abs(kahan - exact) <= abs(native - exact)
+
+
+_ALL_PAIRS = [(d, c) for d in (torch.float32, torch.bfloat16, torch.float16)
+              for c in (torch.float32, torch.bfloat16, torch.float16)]
+
+
+def _small_ints(gen, n, dtype, offset):
+    """n integers in [-8, 8] of ``dtype`` (exact in every compute dtype),
+    viewed ``offset`` elements past a 16-byte aligned base."""
+    v = torch.randint(-8, 9, (n + offset,), generator=gen, device="cuda").to(dtype)
+    return v[offset:]
+
+
+@pytest.mark.parametrize("lanes,n", [(1, 2 * 16384 + 5), (3, 7 * 16384 + 5),
+                                     (528, 528 * 16384 + 5)])
+@pytest.mark.parametrize("dtype,compute", _ALL_PAIRS)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "one-element-off"])
+@pytest.mark.parametrize("prologue", ["identity", "square", "abs"])
+def test_kahan_small_integers_bitwise_plain(gen, lanes, n, dtype, compute, offset, prologue):
+    """K3 on integers: every row sum, carry and lane pass is exact, so the
+    kernel (blocks of one tile: the lanes' zero tiles past the real blocks
+    run too) equals its plain version bitwise, through the same cross-lane
+    fold; on an unaligned base (2 bytes off at 16-bit, 4 at f32) and a
+    ragged tail, with a bitwise repeat."""
+    from repro_torch.kernels.mma_reduce import mma_sum_kahan, mma_sum_kahan_plain
+
+    x = _small_ints(gen, n, dtype, offset)
+    kw = dict(compute_dtype=compute, prologue=prologue, num_lanes=lanes, tiles_per_block=1)
+    got = mma_sum_kahan(x, **kw)
+    want = mma_sum_kahan_plain(x, compute, prologue, (), lanes, 1)
+    assert torch.equal(got, want.reshape(got.shape)), (float(got), float(want))
+    assert torch.equal(got, mma_sum_kahan(x, **kw))
+
+
+@pytest.mark.parametrize("n", [1, 16385, 3 * 16384 + 5])
+@pytest.mark.parametrize("dtype,compute", _ALL_PAIRS)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "one-element-off"])
+@pytest.mark.parametrize("prologue", ["identity", "square", "abs", "moments"])
+def test_tile_partials_small_integers_bitwise_plain(gen, n, dtype, compute, offset, prologue):
+    """K10 on integers: the row sums are exact, rounded to the compute
+    dtype as the plain version rounds them, and 1 @ D adds integers below
+    2^24, so every partial equals the plain version's bitwise, at every
+    prologue, on an unaligned base and a ragged tail, in blocks of three
+    tiles; a repeat launch agrees bitwise."""
+    from repro_torch.kernels.mma_reduce import tile_partials, tile_partials_plain
+
+    x = _small_ints(gen, n, dtype, offset)
+    got = tile_partials(x, compute_dtype=compute, prologue=prologue, tiles_per_block=3)
+    want = tile_partials_plain(x, compute, prologue, (), 3)[:got.shape[0]]
+    assert torch.equal(got, want)
+    assert torch.equal(got, tile_partials(x, compute_dtype=compute, prologue=prologue,
+                                          tiles_per_block=3))
 
 
 @pytest.mark.parametrize("backend", ["torch", "mma_torch", "cuda_hier", "cuda_fused"])

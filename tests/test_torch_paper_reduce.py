@@ -187,6 +187,47 @@ def test_kahan_fold_is_the_reference_order():
     assert float(P.kahan_sum(torch.from_numpy(v))) == want
 
 
+def _kahan_steps(values, s, c):
+    """Serial Kahan steps in numpy float32 scalars (each operation rounds to
+    f32): y = v - c; t = s + y; c = (t - s) - y; s = t."""
+    for v in values:
+        y = np.float32(v - c)
+        t = np.float32(s + y)
+        c = np.float32(np.float32(t - s) - y)
+        s = t
+    return s, c
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 528])
+def test_lane_pairs_kahan_fold_is_the_stated_order(lanes):
+    """K3's two-level fold, step by step: each lane's pass over its acc rows
+    then its negated comp rows gives (s_c, c_c); one pass over s_0, -c_0,
+    s_1, -c_1, ... gives the total. Partials span six decades, with random
+    signs and compensations near an f32 ulp of their rows."""
+    rng = np.random.default_rng(20 + lanes)
+    acc = rng.choice([-1.0, 1.0], (lanes, 128)) * 10.0 ** rng.uniform(-3, 3, (lanes, 128))
+    comp = acc * rng.uniform(-2.0**-24, 2.0**-24, (lanes, 128))
+    parts = np.stack([acc, comp], axis=1).astype(np.float32)
+    f0 = np.float32(0.0)
+    pairs = []
+    for lane in parts:
+        s, c = _kahan_steps(np.concatenate([lane[0], -lane[1]]), f0, f0)
+        pairs += [s, -c]
+    want, _ = _kahan_steps(pairs, f0, f0)
+    got = ops.combine_lane_pairs_kahan(torch.from_numpy(parts))
+    assert got.dtype == torch.float32
+    assert np.float32(got.item()).tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 528])
+@pytest.mark.parametrize("cd", DTYPES, ids=[d[0] for d in DTYPES])
+def test_kahan_plain_within_budget_of_the_oracle(lanes, cd):
+    # 53 tiles in blocks of one: 53 lanes at most, zero tiles past them
+    x = _x(53 * T - 77, seed=11)
+    got = float(ops.mma_sum_kahan_plain(torch.from_numpy(x), cd[1], "identity", (), lanes, 1))
+    assert abs(got - oracle(x, "sum")) <= budget_for(x, "sum", compute_dtype=cd[0])
+
+
 def test_kahan_refuses_moments_and_census():
     x = torch.ones(10)
     with pytest.raises(ValueError):

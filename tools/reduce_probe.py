@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Probe of the segmented gather (K8) and the fused sum (K1) on one GPU.
+"""Probe of the striped and tiled sum kernels on one GPU: the Kahan sum
+(K3), the paper's level (K10), the segmented gather (K8) and the fused sum
+(K1).
 
     python3 tools/reduce_probe.py [--parent DIR]
 
@@ -12,19 +14,25 @@ buffers, beside the PyTorch call that computes the same function:
                 commit's ``segmented_gather.cu``, ``fused_reduce.cu``,
                 ``fused_kahan.cu`` and ``tile_partials.cu``, built from DIR
                 into one library, and this tree's, in turns (earlier, this,
-                this, earlier): K8 over 2^28 values in 2048 packed segments
-                (f32 and bf16 input, bf16 compute; ``torch.segment_reduce``),
-                K1 at the token sum (4 x 512 f32) and at 2^26 bf16 and 2^28
-                f32 (``torch.sum``), and the controls K2 (moments), K3
-                (Kahan) and K10 (one level of the hierarchy) at 2^28 f32.
-                The new K8 must be bitwise the earlier one at bf16 compute
-                (the same ones-MMA operands), K1 and K2 bitwise at one lane.
+                this, earlier): K3 at the default lanes and at one lane, K10
+                level 0 and the whole hierarchy (two launches), each at
+                2^28 f32 (bf16 compute) and 2^28 bf16 (``torch.sum``
+                beside them); the controls K8 over 2^28 values in 2048
+                packed segments (``torch.segment_reduce``), K1 at the token
+                sum (4 x 512 f32), 2^26 bf16 and 2^28 f32, K2 (moments) at
+                2^28 f32. K10, K8 and K1 must be bitwise the earlier
+                kernels (the same MMA operands in the same order); K10 is
+                also held bitwise at f32 and f16 compute and under the
+                square and moments prologues. K3 (a new fold order) is held
+                to its plain version and the f64 sum, and bitwise on repeat.
   lanes         K8 at 2^28 bf16 over 132 to 2112 lanes.
-  stream        K8 built without its last CTA's fold over the lanes (each
-                tree's), at 2^28 f32 and bf16: the stream alone.
-  registers     ``ptxas -v`` of this tree's two sources: the most registers
-                and any spill of each kernel (the whole listing goes to
-                chiprun_out/reduce_probe_ptxas.txt).
+  stream        K8 without its last CTA's fold over the lanes, and K3
+                without its folds (each tree's): the stream alone, at 2^28
+                f32 and bf16.
+  registers     ``ptxas -v`` of this tree's sources: the most registers,
+                any spill and any C75xx note of each kernel (the whole
+                listing is written to ``reduce_probe_ptxas.txt`` in the
+                output directory).
 
 Prints the card's name and power limit first. Needs a CUDA device and nvcc.
 """
@@ -82,25 +90,40 @@ def build_library(csrc: str, name: str, sources=PROBE_SOURCES, flags=()) -> ctyp
     return lib
 
 
-def without_last_fold(csrc: str, name: str) -> str:
-    """A copy of ``csrc`` whose K8 returns after the ticket: every CTA
-    streams its lane and flushes, and no CTA folds the lanes (the output is
-    not the sum; only its time is read)."""
+# each tree's K3 right after its stream (this tree's, then the earlier one's)
+_KAHAN_FOLD_MARKS = ("  // 1. the lane's own pass: acc rows 0..127, then -comp rows 0..127\n",
+                     "  // lane partial: [acc rows 0..127][comp rows 0..127]\n")
+
+
+def without_folds(csrc: str, name: str) -> str:
+    """A copy of ``csrc`` whose K8 returns after the ticket (every CTA
+    streams its lane and flushes, no CTA folds the lanes) and whose K3
+    returns after its stream, writing one value of its carries (no lane
+    pass, no ticket, no last CTA). The outputs are not the sums; only their
+    times are read."""
     out = os.path.join(OUT_DIR, f"{name}_stream_csrc")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc, out)
     path = os.path.join(out, "segmented_gather.cu")
     text = open(path).read()
     if "  if (!am_last) return;" not in text:
-        raise RuntimeError("the gather's last-CTA test moved: update without_last_fold")
+        raise RuntimeError("the gather's last-CTA test moved: update without_folds")
     with open(path, "w") as f:
         f.write(text.replace("  if (!am_last) return;", "  return;"))
+    path = os.path.join(out, "fused_kahan.cu")
+    text = open(path).read()
+    mark = next((m for m in _KAHAN_FOLD_MARKS if m in text), None)
+    if mark is None:
+        raise RuntimeError("the Kahan kernel's fold moved: update without_folds")
+    with open(path, "w") as f:
+        f.write(text.replace(mark, "  if (t == 0) lane_part[2 * lane_id] = acc0 + comp0 + acc1 + "
+                                   "comp1;  // the stream alone\n  return;\n" + mark))
     return out
 
 
 def registers(log: str) -> list:
-    """(kernel, most registers, spill lines) per kernel name in a ptxas -v
-    listing."""
+    """(kernel, most registers, instantiations with spill stores, C75xx
+    notes) per kernel name in a ptxas -v listing."""
     worst: dict = {}
     current = None
     for line in log.splitlines():
@@ -113,15 +136,16 @@ def registers(log: str) -> list:
                                    "tile_partials_kernel") if current and k in current), None)
         if kernel is None:
             continue
+        regs, spills, notes = worst.get(kernel, (0, 0, 0))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            regs, spills = worst.get(kernel, (0, 0))
-            worst[kernel] = (max(regs, int(m.group(1))), spills)
+            regs = max(regs, int(m.group(1)))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and int(m.group(1)):
-            regs, spills = worst.get(kernel, (0, 0))
-            worst[kernel] = (regs, spills + 1)
-    return [(k, r, s) for k, (r, s) in sorted(worst.items())]
+            spills += 1
+        notes += "C75" in line
+        worst[kernel] = (regs, spills, notes)
+    return [(k, *v) for k, v in sorted(worst.items())]
 
 
 class Calls:
@@ -209,21 +233,49 @@ class Calls:
 
         return call
 
-    def level(self, x, compute):
+    def level(self, x, compute, prologue=0):
+        """Level 0 of the hierarchy (prologue 3: the moments pair)."""
         from repro_torch.kernels import build
         from repro_torch.kernels.mma_reduce import ops
 
         n = x.numel()
         t, r, blocks, tpad = ops.tile_geometry(n)
-        out = self.torch.empty((tpad,), dtype=self.torch.float32, device="cuda")
+        shape = (tpad, 2) if prologue == 3 else (tpad,)
+        out = self.torch.empty(shape, dtype=self.torch.float32, device="cuda")
         stream = build.stream_ptr(out)
 
         def call():
             self._check(self.lib.tp_level(
-                x.data_ptr(), n, 1, build.dtype_code(x), build.DTYPE_CODES[compute], 0, r,
-                blocks, int(x.data_ptr() % 16 == 0), *self.chain, out.data_ptr(), stream),
+                x.data_ptr(), n, 1, build.dtype_code(x), build.DTYPE_CODES[compute], prologue,
+                r, blocks, int(x.data_ptr() % 16 == 0), *self.chain, out.data_ptr(), stream),
                 "tp_level")
-            return out
+            return out[:t]
+
+        return call
+
+    def hierarchy(self, x, compute):
+        """Every level, as ``ops.mma_sum_hier`` launches them (two at
+        2^28): level 0 on x, each level above on the f32 partials below."""
+        from repro_torch.kernels import build
+        from repro_torch.kernels.mma_reduce import ops
+
+        first = self.level(x, compute)
+        above, n = [], -(-x.numel() // ops.TILE)
+        while n > 1:
+            t, r, blocks, tpad = ops.tile_geometry(n)
+            above.append((n, r, blocks, self.torch.empty((tpad,), dtype=self.torch.float32,
+                                                         device="cuda")))
+            n = t
+
+        def call():
+            v = first()
+            for n, r, blocks, out in above:
+                self._check(self.lib.tp_level(
+                    v.data_ptr(), n, 1, 0, build.DTYPE_CODES[compute], 0, r, blocks,
+                    int(v.data_ptr() % 16 == 0), *self.chain, out.data_ptr(),
+                    build.stream_ptr(out)), "tp_level")
+                v = out
+            return v[:1]
 
         return call
 
@@ -237,7 +289,7 @@ def main() -> int:
 
     import chip_smoke as cs
     from repro_torch.kernels import build
-    from repro_torch.kernels.mma_reduce import default_num_lanes
+    from repro_torch.kernels.mma_reduce import default_num_lanes, mma_sum_kahan_plain
     from repro_torch.launch.reduce_demo import packed_offsets
 
     if not torch.cuda.is_available():
@@ -251,8 +303,8 @@ def main() -> int:
                                         "src/repro_torch/kernels/csrc"), "earlier",
                            PROBE_SOURCES, ())
     for name in [k for k in ("this", "earlier") if k in jobs]:
-        jobs[f"{name} stream"] = (without_last_fold(jobs[name][0], name), f"{name}_stream",
-                                  ("segmented_gather.cu",), ())
+        jobs[f"{name} stream"] = (without_folds(jobs[name][0], name), f"{name}_stream",
+                                  ("segmented_gather.cu", "fused_kahan.cu"), ())
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:  # every nvcc at once
         built = {k: pool.submit(build_library, *job) for k, job in jobs.items()}
         built = {k: f.result() for k, f in built.items()}
@@ -260,9 +312,9 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "reduce_probe_ptxas.txt"), "w") as f:
         f.write(this.ptxas_log)
-    for kernel, regs, spills in registers(this.ptxas_log):
+    for kernel, regs, spills, notes in registers(this.ptxas_log):
         print(f"ptxas, this tree: {kernel}: at most {regs} registers, "
-              f"{spills} instantiations with spill stores")
+              f"{spills} instantiations with spill stores, {notes} C75xx notes")
     libs = {k: built[k] for k in ("this", "earlier") if k in built}
     turns = ("earlier", "this", "this", "earlier") if args.parent else ("this",)
 
@@ -272,7 +324,7 @@ def main() -> int:
     x = torch.randn((n_seg,), generator=gen, device="cuda") * 2 + 0.3
     xb = x.to(torch.bfloat16)
     lanes = default_num_lanes(x)
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     calls = {k: Calls(v, torch, offsets) for k, v in libs.items()}
     lengths = torch.from_numpy(np.diff(offsets)).to("cuda")
     token = torch.rand((4, 512), generator=gen, device="cuda") * 4 + 9
@@ -281,7 +333,21 @@ def main() -> int:
     def us(fn, match):
         return f"{cs.device_ms(fn, match, iters=10) * 1e3:.2f}"
 
+    def tsum(v):
+        return lambda: torch.sum(v, dtype=f32)
+
+    kahan, level = "::fused_kahan_kernel<", "::tile_partials_kernel<"
     cases = (
+        (f"K3 2^28 f32, bf16 compute, {lanes} lanes", kahan, lambda c: c.kahan(x, lanes, bf),
+         tsum(x)),
+        (f"K3 2^28 bf16, {lanes} lanes", kahan, lambda c: c.kahan(xb, lanes, bf), tsum(xb)),
+        ("K3 2^28 f32, bf16 compute, one lane", kahan, lambda c: c.kahan(x, 1, bf), None),
+        ("K3 2^28 bf16, one lane", kahan, lambda c: c.kahan(xb, 1, bf), None),
+        ("K10 level 0 of 2^28 f32, bf16 compute", level, lambda c: c.level(x, bf), tsum(x)),
+        ("K10 level 0 of 2^28 bf16", level, lambda c: c.level(xb, bf), tsum(xb)),
+        ("K10 hierarchy (2 launches) 2^28 f32, bf16 compute", level,
+         lambda c: c.hierarchy(x, bf), None),
+        ("K10 hierarchy (2 launches) 2^28 bf16", level, lambda c: c.hierarchy(xb, bf), None),
         ("K8 2^28 f32 in 2048 segments, bf16 compute", "::segments_kernel<",
          lambda c: c.segments(x, lanes, bf),
          lambda: torch.segment_reduce(x, "sum", lengths=lengths)),
@@ -290,17 +356,12 @@ def main() -> int:
          lambda: torch.segment_reduce(xb, "sum", lengths=lengths)),
         ("K1 (4, 512) f32, bf16 compute (the token sum)", "fused_sum_kernel",
          lambda c: c.fused(token, default_num_lanes(token), bf),
-         lambda: torch.sum(token, dtype=torch.float32)),
-        ("K1 2^26 bf16", "fused_sum_kernel", lambda c: c.fused(big, lanes, bf),
-         lambda: torch.sum(big, dtype=torch.float32)),
+         lambda: torch.sum(token, dtype=f32)),
+        ("K1 2^26 bf16", "fused_sum_kernel", lambda c: c.fused(big, lanes, bf), tsum(big)),
         ("K1 2^28 f32, bf16 compute", "fused_sum_kernel", lambda c: c.fused(x, lanes, bf),
-         lambda: torch.sum(x, dtype=torch.float32)),
+         tsum(x)),
         ("K2 (control) 2^28 f32, bf16 compute", "fused_sum_kernel",
          lambda c: c.fused(x, lanes, bf, moments=True), None),
-        ("K3 (control) 2^28 f32, bf16 compute", "fused_kahan_kernel",
-         lambda c: c.kahan(x, lanes, bf), None),
-        ("K10 (control) level 0 of 2^28 f32, bf16 compute", "tile_partials_kernel",
-         lambda c: c.level(x, bf), None),
     )
     for what, match, make, library in cases:
         fns = {k: make(c) for k, c in calls.items()}
@@ -310,8 +371,23 @@ def main() -> int:
         if "earlier" in outs:
             eq = torch.equal(outs["this"].nan_to_num(), outs["earlier"].nan_to_num())
             same = f"; bitwise the earlier kernel: {eq}"
-            if what.startswith(("K8", "K1")):
+            if what.startswith(("K10", "K8", "K1 ")):
                 cs.check(eq, f"{what}: this tree's kernel differs from the earlier one")
+        if what.startswith("K3"):
+            n_lanes = lanes if "one lane" not in what else 1
+            xin = xb if "bf16," in what else x
+            got, again = outs["this"], fns["this"]().clone()
+            plain = float(mma_sum_kahan_plain(xin, bf, "identity", (), n_lanes))
+            exact = float(xin.to(bf).double().sum())
+            mass = float(xin.to(bf).double().abs().sum())
+            tol = 2.0**-20 * mass
+            d_plain, d_exact = abs(float(got) - plain), abs(float(got) - exact)
+            same += (f"; vs its plain version |d| {d_plain:.4g}, vs f64 |d| {d_exact:.4g} "
+                     f"(tol {tol:.4g}); repeat bitwise {torch.equal(got, again)}")
+            cs.check(d_plain <= tol and d_exact <= tol + 1e-3 and torch.equal(got, again),
+                     f"{what}: off its plain version or the f64 sum, or a repeat differs")
+            if "earlier" in outs:
+                same += f"; earlier kernel {float(outs['earlier']):.9g}, this {float(got):.9g}"
         t = {}
         for turn in turns:
             t.setdefault(turn, []).append(us(fns[turn], match))
@@ -319,15 +395,32 @@ def main() -> int:
         print(f"{what}, device us: " + "; ".join(f"{k} {' / '.join(v)}" for k, v in t.items())
               + lib + same)
 
+    if "earlier" in calls:  # K10 bitwise at every compute dtype and under its prologues
+        xh = (x - 0.3).to(torch.float16)  # mean 0: f16 partials of a 0.3 mean overflow
+        for what, v, cd, pro in (("f32 at f32 compute", x, f32, 0), ("bf16, square", xb, bf, 1),
+                                 ("bf16, abs", xb, bf, 2), ("bf16, moments", xb, bf, 3),
+                                 ("f32 at bf16 compute, moments", x, bf, 3),
+                                 ("f16", xh, torch.float16, 0), ("f16, moments", xh,
+                                                                torch.float16, 3),
+                                 ("f32 at f16 compute", x - 0.3, torch.float16, 0)):
+            a, b = (calls[k].level(v, cd, pro)().clone() for k in ("earlier", "this"))
+            eq = torch.equal(a.nan_to_num(), b.nan_to_num())
+            print(f"K10 level 0 of 2^28 {what}: bitwise the earlier kernel: {eq}")
+            cs.check(eq, f"K10 level 0 of 2^28 {what}: this tree's kernel differs")
+        a, b = (calls[k].hierarchy(x, f32)() for k in ("earlier", "this"))
+        cs.check(torch.equal(a, b), "K10 hierarchy at f32 compute differs from the earlier one")
+
     for c in (132, 264, 528, 1056, 2112):
         t = us(calls["this"].segments(xb, c, bf), "::segments_kernel<")
         print(f"K8 2^28 bf16 over {c} lanes: {t} us")
 
-    for name in libs:  # K8 less its last CTA's fold: the stream alone
+    for name in libs:  # K8 less its last CTA's fold, K3 less its folds: the streams alone
         c = Calls(built[f"{name} stream"], torch, offsets)
         print(f"K8 without the last CTA's fold ({name}), 2^28 f32 / bf16: "
               f"{us(c.segments(x, lanes, bf), '::segments_kernel<')} / "
               f"{us(c.segments(xb, lanes, bf), '::segments_kernel<')} us")
+        print(f"K3 without its folds ({name}), 2^28 f32 / bf16, {lanes} lanes: "
+              f"{us(c.kahan(x, lanes, bf), kahan)} / {us(c.kahan(xb, lanes, bf), kahan)} us")
     return 0
 
 
