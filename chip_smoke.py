@@ -570,8 +570,9 @@ def check_cross_entropy(results: dict, gen) -> None:
     """K7 against its plain version: the training path's (2048, 50432) f32
     padded logits (pad logits at -1e30, as the chunked loss's head gives
     them), the same logits cut to the 50304 real columns (the serving
-    head's width: the same loss), a ragged odd width (the kernel's unpaired
-    loads) and bf16 logits."""
+    head's width: the same loss), a ragged odd width (the element route),
+    one row, a vocabulary under one slice, bf16 logits at 256 rows and at
+    the training shape; one launch a call, a repeat bitwise."""
     import torch
     import torch.nn.functional as F
 
@@ -579,23 +580,31 @@ def check_cross_entropy(results: dict, gen) -> None:
     from repro_torch.kernels.cross_entropy import cross_entropy_plain
 
     rows, width, vocab = TRAIN_BATCH * TRAIN_SEQ, 50432, 50304
-    cases = [(300, 1001, torch.float32), (256, vocab, torch.bfloat16),
+    print("K7's fold: 2048-column slices (one CTA each per 16-row block), 4 KB warp steps dealt "
+          "to 4 warps in turn, each warp's running max over its steps; warps merged in warp "
+          "order, slices in slice order (csrc/cross_entropy.cu, ops.cross_entropy_plain)")
+    cases = [(300, 1001, torch.float32), (1, vocab, torch.float32), (20, 1000, torch.float32),
+             (256, vocab, torch.bfloat16), (rows, width, torch.bfloat16),
              (rows, width, torch.float32)]  # the last: the training path (timed)
     for r, w, dtype in cases:
         logits = torch.randn((r, w), generator=gen, device=DEVICE) * 3
         logits[:, vocab:] = -1e30
         logits = logits.to(dtype)
         labels = torch.randint(0, min(w, vocab), (r,), generator=gen, device=DEVICE)
+        before = cross_entropy.launches
         out = cross_entropy(logits, labels)
+        check(cross_entropy.launches == before + 1, f"cross_entropy at {(r, w)}: launches")
         plain = cross_entropy_plain(logits, labels)
         torch.cuda.synchronize()
         err = float((out - plain).abs().max())
         print(f"K7 cross_entropy ({r}, {w}) {str(dtype)[6:]}: max_abs_err {err:.3g} vs plain "
-              "(tol 1e-3: the same 512-column tiles and running max; expf and torch.exp may "
-              "differ in the last ulp and flip one bf16 rounding of p, moving l by up to "
-              "2^-9 of that p)")
+              "(tol 1e-3: the same slices, steps and running maxima; the kernel's ex2.approx "
+              "and torch.exp may differ by an ulp or two and flip one bf16 rounding of p, "
+              "moving l by up to 2^-9 of that p)")
         check(bool(torch.isfinite(out).all()), "cross_entropy non-finite")
         check(err <= 1e-3, f"cross_entropy disagrees with its plain version at {(r, w)}")
+        check(torch.equal(out, cross_entropy(logits, labels)),
+              f"cross_entropy at {(r, w)}: a repeat differs")
     cut = cross_entropy(logits[:, :vocab].contiguous(), labels)
     d_cut = float((cut - out).abs().max())
     print(f"K7 the same logits cut to their {vocab} real columns: max |d| {d_cut:.3g} "
@@ -955,23 +964,28 @@ def check_moments_and_kahan(results: dict, gen) -> None:
                 check(abs(kahan - exact) <= abs(native - exact),
                       f"Kahan is less accurate than native at {lanes} lanes")
 
-    def timings(x, fn, plain, kernel, library):
+    def timings(x, fn, plain, kernel, library, nearest=None):
         n = x.numel()
         b, by = bound_ms(n * x.element_size() + 8, tensor_flops=16 * n)
-        return {"ms": device_ms(fn, kernel), "call_ms": time_ms(fn, iters=20),
-                "plain_ms": device_ms(plain, iters=3), "bound_ms": b, "bound_by": by,
-                "library_ms": device_ms(library) if library is not None else None}
+        t = {"ms": device_ms(fn, kernel), "call_ms": time_ms(fn, iters=20),
+             "plain_ms": device_ms(plain, iters=3), "bound_ms": b, "bound_by": by,
+             "library_ms": device_ms(library) if library is not None else None}
+        if nearest is not None:  # no call gives (sum, sumsq); var_mean reads x once for both
+            t["var_mean_ms"] = device_ms(nearest)
+        return t
 
     lanes = default_num_lanes(base)
     xb = base.to(bf)
     results["mma_moments_fused"] = dict(
         timings(base, lambda: mma_moments_fused(base, num_lanes=lanes),
-                lambda: mma_moments_fused_plain(base, bf, lanes), "::fused_sum_kernel<", None),
+                lambda: mma_moments_fused_plain(base, bf, lanes), "::fused_sum_kernel<", None,
+                lambda: torch.var_mean(base, correction=0)),
         max_abs_err=abs(float(mma_moments_fused(base, num_lanes=lanes)[0])
                         - float(mma_moments_fused_plain(base, bf, lanes)[0])),
         at_2e28_bf16=timings(xb, lambda: mma_moments_fused(xb, num_lanes=lanes),
                              lambda: mma_moments_fused_plain(xb, bf, lanes),
-                             "::fused_sum_kernel<", None))
+                             "::fused_sum_kernel<", None,
+                             lambda: torch.var_mean(xb, correction=0)))
     results["mma_sum_kahan"] = dict(
         timings(base, lambda: mma_sum_kahan(base, num_lanes=lanes),
                 lambda: mma_sum_kahan_plain(base, bf, "identity", (), lanes),

@@ -3,22 +3,31 @@ denominator, exact label logit.
 
 Port of ``repro/kernels/cross_entropy`` (``_ce_kernel`` behind
 ``cross_entropy_call``, with the custom VJP of its ``ops.py``). Per row
-(token) it streams the vocabulary in tiles of ``BLOCK_V`` columns and keeps
-the running max ``m``, the denominator ``l = l * exp(m_old - m_new) +
-rowsum(bf16(exp(s - m_new)))`` and the label's logit; the loss is
-``m + log(max(l, 1e-30)) - pick``. Columns past the logits' width are
-masked in the last tile, so a caller may pass the head's padded width (pad
-logits at -1e30, as the chunked loss does) or the cut ``vocab_size``
-width: both give the same loss.
+(token) the loss is ``m + log(max(l, 1e-30)) - pick``: ``m`` the row max,
+``l`` the sum of bf16-rounded ``exp(s - m)`` (the ones-MMA row sum) and
+``pick`` the label's logit. Columns past the logits' width are masked, so a
+caller may pass the head's padded width (pad logits at -1e30, as the
+chunked loss does) or the cut ``vocab_size`` width: both give the same loss.
 
 On CUDA tensors ``cross_entropy`` launches ``csrc/cross_entropy.cu``; on CPU
-tensors it runs ``cross_entropy_plain``, which walks the kernel's own
-vocab tiles with the same running max, so p is rounded to bf16 at the same
-values (the reference's tiles are 2048 wide; the rounding of p depends on
-the running max at each tile, so the two agree to a stated tolerance, not
-bitwise). The label logit is selected, not multiplied: the reference's
-one-hot product is exact in f32, and a TF32 tensor-core product would
-round it.
+tensors it runs ``cross_entropy_plain``, which walks the kernel's own fold
+order, so p is rounded to bf16 at the same running maxima:
+
+  slices of ``SLICE_V`` columns (one CTA each per 16-row block), each cut
+  into steps of ``step_columns(itemsize)`` columns dealt to ``WARPS`` warps
+  in turn (step k to warp k % WARPS); each warp keeps a running max and sum
+  over its own steps (``l = l * exp(m - m_new) + sum(bf16(exp(s - m_new)))``
+  over the step's unmasked columns); the warps merge in warp order, then the
+  slices in slice order, each by ``M = max m``, ``L = sum l * exp(m - M)``.
+
+Every boundary sits at a column offset that does not depend on the width.
+The kernel takes p by ``ex2.approx``, this version by ``torch.exp``: an ulp
+or two apart, so the two agree to a stated tolerance, not bitwise. The
+reference's tiles are 2048 wide with one running max a tile; the rounding
+of p depends on the max at which it is taken, so the port and the
+reference agree to a wider one. The label logit is selected, not
+multiplied: the reference's one-hot product is exact in f32, and a TF32
+tensor-core product would round it.
 
 ``cross_entropy`` is differentiable in the logits: its backward is
 ``(softmax - onehot) * g`` in f32, the reference's host math.
@@ -33,31 +42,56 @@ from repro_torch.kernels.common import bf16_round
 
 NEG = -1e30
 BLOCK_ROWS = 16   # csrc/cross_entropy.cu CE_ROWS: one m16 MMA tile of rows
-BLOCK_V = 512     # csrc/cross_entropy.cu CE_BV: 8 warps x 64 columns
+WARPS = 4         # CE_WARPS: the warps of a CTA, each with its own running max
+SLICE_V = 2048    # CE_SLICE: the columns of one CTA
 
 
-def cross_entropy_plain(logits: torch.Tensor, labels: torch.Tensor,
-                        block_v: int = BLOCK_V) -> torch.Tensor:
+def step_columns(itemsize: int) -> int:
+    """Columns of one warp step (csrc/cross_entropy.cu ``step_cols``): four
+    threads of a quad, four 16-byte chunks each: 64 f32 or 128 bf16 / f16."""
+    return 4 * 4 * (16 // itemsize)
+
+
+def cross_entropy_plain(logits: torch.Tensor, labels: torch.Tensor, slice_v: int = SLICE_V,
+                        warps: int = WARPS, step_v: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: (R, V) logits, (R,) int labels
-    -> (R,) f32 per-row loss, walking ``block_v``-column tiles with the
-    kernel's running max, masks and bf16 rounding of p."""
+    -> (R,) f32 per-row loss, in the kernel's fold order (module doc):
+    ``slice_v``-column slices, ``step_v``-column steps (by default the
+    kernel's for the logits' dtype) dealt to ``warps`` warps in turn, each
+    warp's running max, masks and bf16 rounding of p, then the warps and
+    the slices merged in order. A label outside [0, V) picks 0."""
     rows, vocab = logits.shape
+    step_v = step_v or step_columns(logits.element_size())
+    if slice_v % (warps * step_v):
+        raise ValueError(f"a slice of {slice_v} columns is not whole rounds of {warps} warp "
+                         f"steps of {step_v}")
     dev = logits.device
-    lf = logits.to(torch.float32)
-    lab = labels.to(torch.int64)
-    m = torch.full((rows,), NEG, dtype=torch.float32, device=dev)
-    l = torch.zeros((rows,), dtype=torch.float32, device=dev)
-    pick = torch.zeros((rows,), dtype=torch.float32, device=dev)
-    for v0 in range(0, vocab, block_v):
-        s = lf[:, v0:min(v0 + block_v, vocab)]
-        vpos = v0 + torch.arange(s.shape[1], device=dev)
-        hit = vpos[None, :] == lab[:, None]
-        pick = pick + torch.sum(torch.where(hit, s, 0.0), -1)  # one term: exact
-        m_new = torch.maximum(m, torch.amax(s, -1))
-        p = torch.exp(s - m_new[:, None])
+    slices, steps = common.ceil_div(vocab, slice_v), slice_v // (warps * step_v)
+    width = slices * slice_v
+    lf = torch.nn.functional.pad(logits.to(torch.float32), (0, width - vocab), value=NEG)
+    x = lf.view(rows, slices, steps, warps, step_v)
+    valid = (torch.arange(width, device=dev) < vocab).view(slices, steps, warps, step_v)
+    m = torch.full((rows, slices, warps), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((rows, slices, warps), dtype=torch.float32, device=dev)
+    for s in range(steps):  # 1. each warp over its steps
+        ok = valid[:, s]
+        v = torch.where(ok, x[:, :, s], NEG)
+        m_new = torch.maximum(m, torch.amax(v, -1))
+        p = torch.where(ok, torch.exp(v - m_new[..., None]), 0.0)
         l = l * torch.exp(m - m_new) + torch.sum(bf16_round(p), -1)
         m = m_new
-    return m + torch.log(torch.clamp_min(l, 1e-30)) - pick
+    mj = torch.amax(m, -1)  # 2. the warps in warp order
+    lj = torch.zeros_like(mj)
+    for w in range(warps):
+        lj = lj + l[..., w] * torch.exp(m[..., w] - mj)
+    big_m = torch.amax(mj, -1)  # 3. the slices in slice order
+    big_l = torch.zeros_like(big_m)
+    for j in range(slices):
+        big_l = big_l + lj[:, j] * torch.exp(mj[:, j] - big_m)
+    lab = labels.to(torch.int64)
+    hit = (lab >= 0) & (lab < vocab)
+    pick = torch.where(hit, torch.gather(lf, 1, torch.where(hit, lab, 0)[:, None])[:, 0], 0.0)
+    return big_m + torch.log(torch.clamp_min(big_l, 1e-30)) - pick
 
 
 def cross_entropy_bwd(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -85,13 +119,20 @@ def _cross_entropy_forward(logits: torch.Tensor, labels: torch.Tensor):
     out = torch.empty((rows.shape[0],), dtype=torch.float32, device=rows.device)
     if rows.shape[0] >= 2**31:
         raise ValueError("too many rows for one launch")
-    # pair loads need an even row stride and an 8-byte aligned base
-    even = int(width % 2 == 0 and rows.data_ptr() % (2 * rows.element_size()) == 0)
+    # 16-byte loads need a 16-byte aligned base and row stride
+    vec = int(rows.data_ptr() % 16 == 0 and width * rows.element_size() % 16 == 0)
+    blocks = common.ceil_div(rows.shape[0], BLOCK_ROWS)
+    slices = common.ceil_div(width, SLICE_V)
+    part = torch.empty((blocks * slices * BLOCK_ROWS * 2,) if slices > 1 else (0,),
+                       dtype=torch.float32, device=rows.device)
     if rows.shape[0]:
+        stream = build.stream_ptr(rows)
+        ticket = common.fold_tickets("cross_entropy", rows.device, stream, count=blocks)
         with torch.cuda.device(rows.device):
             err = build.library().ce_forward(
                 rows.data_ptr(), lab.data_ptr(), out.data_ptr(), rows.shape[0], width,
-                width, even, build.dtype_code(rows), build.stream_ptr(rows),
+                width, vec, build.dtype_code(rows), part.data_ptr() if slices > 1 else None,
+                ticket.data_ptr(), stream,
             )
         build.check(err, "cross_entropy")
         cross_entropy.launches += 1

@@ -36,19 +36,23 @@
 //
 // The moments pair (`fr_moments`, replacing `fused_moments_kernel` of the
 // same file, the reference's prologue "moments") is the same kernel with a
-// second accumulator: every element feeds X @ 1 at the compute dtype and
-// its square, taken at the compute dtype (a bf16 product for bf16
-// compute), feeds X^2 @ 1; the two halves fold by the same fixed tree and
-// the launch writes [sum, sumsq]. It has no census and no epilogue, as in
-// the reference, and keeps the element route it had before the word route.
+// second accumulator: every loaded word feeds X @ 1 at the compute dtype
+// and its square, taken at the compute dtype (`prologue_word<CD,
+// PRO_SQUARE>` of the same word: one rounding of the f32 product), feeds
+// X^2 @ 1 (f32 compute: the element into one running sum, and v * v into
+// the other by one fma, as nvcc contracted the element route's square and
+// add); the two halves fold by the same fixed tree and the launch writes
+// [sum, sumsq]. It has no census and no epilogue, as in the reference. Its
+// A operands sit in the k-slots the element route it replaced gave them,
+// so the pair is bitwise that route's.
 //
 // Bound on this card: bytes (n * itemsize read once; the ones-MMA is 16
 // flops per element, far below the bf16 roofline); at the loss's 2048
 // elements the launch is latency. Loads are 16 bytes per thread, four
 // groups per step, and the next step's groups are loaded as soon as this
 // step's words are read (before its MMAs), across the block loop, so a
-// warp always has a step in flight. Outside the moments pair the words
-// stay as loaded until they are the MMA's A operand (reduce_common.cuh's
+// warp always has a step in flight. The words stay as loaded until they
+// are the MMA's A operand (reduce_common.cuh's
 // word route: a bf16 / f16 input at its own compute dtype is not converted
 // at all, f32 is rounded once per pair), with prologue and census as
 // template parameters.
@@ -62,28 +66,9 @@ constexpr int FR_GROUP = RC_GROUP;  // elements per thread per group: 16 bytes o
 constexpr int FR_UNROLL = 4;  // groups a thread loads per step
 constexpr int FR_MAX_STEPS = RC_MAX_STEPS;
 
-// Eight mapped values into the running sum: one ones-MMA (bf16 / f16
-// compute; the MMA accumulator carries the warp's row sums over the lane)
-// or eight f32 adds (f32 compute). The moments pair's element route.
-template <int CD>
-__device__ __forceinline__ void accumulate(const float (&v)[FR_GROUP], float (&acc)[4],
-                                           float& fsum) {
-  if (CD == DT_F32) {
-#pragma unroll
-    for (int i = 0; i < FR_GROUP; ++i) fsum += v[i];
-  } else if (CD == DT_BF16) {
-    const uint32_t A[4] = {pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                           pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7])};
-    mma_bf16_16816(acc, A, ONES_BF16X2, ONES_BF16X2);
-  } else {
-    const uint32_t A[4] = {pack_f16(v[0], v[1]), pack_f16(v[2], v[3]),
-                           pack_f16(v[4], v[5]), pack_f16(v[6], v[7])};
-    mma_f16_16816(acc, A, ONES_F16X2, ONES_F16X2);
-  }
-}
-
 // PRO: identity, square or abs (census as CENSUS), or moments (the pair:
-// `lane_cnt` then holds the lanes' sums of squares as floats).
+// a second accumulator for the squares, and `lane_cnt` then holds the
+// lanes' sums of squares as floats).
 template <typename T, int CD, int PRO, bool CENSUS>
 __global__ void __launch_bounds__(FR_THREADS)
 fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, long long blocks,
@@ -91,7 +76,7 @@ fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, lo
                  int* __restrict__ lane_cnt, unsigned int* __restrict__ ticket,
                  float* __restrict__ out) {
   constexpr bool DUAL = PRO == PRO_MOMENTS;
-  constexpr bool WORDS = !DUAL && CD != DT_F32;  // the word route into the ones-MMA
+  constexpr bool WORDS = CD != DT_F32;  // the word route into the ones-MMA
   __shared__ float warp_sum[FR_WARPS];
   __shared__ float warp_sum2[FR_WARPS];
   __shared__ long long warp_cnt[FR_WARPS];
@@ -108,77 +93,66 @@ fused_sum_kernel(const T* __restrict__ x, long long n, long long block_elems, lo
   float acc2[4] = {0.f, 0.f, 0.f, 0.f};  // DUAL: the squares' accumulator
   float fsum = 0.f, fsum2 = 0.f;         // f32 compute
   int cnt = 0;
-  if constexpr (DUAL) {  // the moments pair: its loop and element route as before
-    for (long long b = lane_id; b < blocks; b += lanes) {
-      const long long base = b * block_elems;
-      const long long end = base + block_elems < n ? base + block_elems : n;
-      for (long long w0 = base + warp_off; w0 < end; w0 += FR_UNROLL * stride) {
-        const long long e0 = w0 + lid * FR_GROUP;
-        float v[FR_UNROLL][FR_GROUP];
+  // The warp's steps: lane c's blocks c, c + C, ..., in each the groups from
+  // the WARP's first element (so every thread of a warp runs the same steps:
+  // mma.sync must be issued by the whole warp) on, FR_UNROLL groups a step.
+  // Groups past `end` load as zeros. Only the last block can be short, so a
+  // warp with no step left in a block has no block after it.
+  long long b = lane_id;
+  long long w0 = b * block_elems + warp_off;
+  long long end = w0 - warp_off + block_elems < n ? w0 - warp_off + block_elems : n;
+  bool have = b < blocks && w0 < end;
+  Raw<T> raw[FR_UNROLL];
+  auto load_step = [&]() {
+    const long long e0 = w0 + lid * FR_GROUP;
 #pragma unroll
-        for (int u = 0; u < FR_UNROLL; ++u) load_group(x, e0 + u * stride, end, vec, v[u]);
+    for (int u = 0; u < FR_UNROLL; ++u) load_raw(x, e0 + u * stride, end, vec, raw[u]);
+  };
+  if (have) load_step();
+  while (have) {
+    uint32_t w[FR_UNROLL][4];  // WORDS: this step's A operands
 #pragma unroll
-        for (int u = 0; u < FR_UNROLL; ++u) {
-          float sq[FR_GROUP];
+    for (int u = 0; u < FR_UNROLL; ++u) {
+      if constexpr (WORDS) {
+        raw_words<T, CD>(raw[u], w[u]);
 #pragma unroll
-          for (int i = 0; i < FR_GROUP; ++i) {
-            v[u][i] = to_compute<CD>(v[u][i]);
-            sq[i] = to_compute<CD>(v[u][i] * v[u][i]);  // the square at the compute dtype
-          }
-          accumulate<CD>(v[u], acc, fsum);
-          accumulate<CD>(sq, acc2, fsum2);
+        for (int k = 0; k < 4; ++k) {
+          if (CENSUS) cnt += nonfinite_halves<CD>(w[u][k]);  // census before the prologue
+          w[u][k] = prologue_word<CD, PRO>(w[u][k]);  // moments: the words as they are
         }
-      }
-    }
-  } else {  // the word route, the next step in flight
-    // The warp's steps: lane c's blocks c, c + C, ..., in each the groups from
-    // the WARP's first element (so every thread of a warp runs the same steps:
-    // mma.sync must be issued by the whole warp) on, FR_UNROLL groups a step.
-    // Groups past `end` load as zeros. Only the last block can be short, so a
-    // warp with no step left in a block has no block after it.
-    long long b = lane_id;
-    long long w0 = b * block_elems + warp_off;
-    long long end = w0 - warp_off + block_elems < n ? w0 - warp_off + block_elems : n;
-    bool have = b < blocks && w0 < end;
-    Raw<T> raw[FR_UNROLL];
-    auto load_step = [&]() {
-      const long long e0 = w0 + lid * FR_GROUP;
+      } else {  // f32 compute
 #pragma unroll
-      for (int u = 0; u < FR_UNROLL; ++u) load_raw(x, e0 + u * stride, end, vec, raw[u]);
-    };
-    if (have) load_step();
-    while (have) {
-      uint32_t w[FR_UNROLL][4];  // WORDS: this step's A operands
-#pragma unroll
-      for (int u = 0; u < FR_UNROLL; ++u) {
-        if constexpr (WORDS) {
-          raw_words<T, CD>(raw[u], w[u]);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if (CENSUS) cnt += nonfinite_halves<CD>(w[u][k]);  // census before the prologue
-            w[u][k] = prologue_word<CD, PRO>(w[u][k]);
-          }
-        } else {  // f32 compute
-#pragma unroll
-          for (int i = 0; i < FR_GROUP; ++i) {
-            const float v = raw_elem(raw[u], i);
-            if (CENSUS) cnt += isfinite(v) ? 0 : 1;
+        for (int i = 0; i < FR_GROUP; ++i) {
+          const float v = raw_elem(raw[u], i);
+          if (CENSUS) cnt += isfinite(v) ? 0 : 1;
+          if constexpr (DUAL) {  // the element route's v * v + fsum2 compiled to one fma
+            fsum += v;
+            fsum2 = fmaf(v, v, fsum2);
+          } else {
             fsum += PRO == PRO_SQUARE ? __fmul_rn(v, v) : PRO == PRO_ABS ? fabsf(v) : v;
           }
         }
       }
-      // the next step's loads go out before this step's MMAs
-      w0 += FR_UNROLL * stride;
-      if (w0 >= end) {
-        b += lanes;
-        w0 = b * block_elems + warp_off;
-        end = w0 - warp_off + block_elems < n ? w0 - warp_off + block_elems : n;
-      }
-      have = b < blocks && w0 < end;
-      if (have) load_step();
-      if constexpr (WORDS) {
+    }
+    // the next step's loads go out before this step's MMAs
+    w0 += FR_UNROLL * stride;
+    if (w0 >= end) {
+      b += lanes;
+      w0 = b * block_elems + warp_off;
+      end = w0 - warp_off + block_elems < n ? w0 - warp_off + block_elems : n;
+    }
+    have = b < blocks && w0 < end;
+    if (have) load_step();
+    if constexpr (WORDS) {
 #pragma unroll
-        for (int u = 0; u < FR_UNROLL; ++u) ones_mma<CD>(acc, w[u]);
+      for (int u = 0; u < FR_UNROLL; ++u) {
+        ones_mma<CD>(acc, w[u]);
+        if constexpr (DUAL) {  // the squares of the same words, at the compute dtype
+          uint32_t sq[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) sq[k] = prologue_word<CD, PRO_SQUARE>(w[u][k]);
+          ones_mma<CD>(acc2, sq);
+        }
       }
     }
   }

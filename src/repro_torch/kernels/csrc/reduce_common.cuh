@@ -151,8 +151,7 @@ __device__ __forceinline__ float2 tile_row_sums(const float (&r0)[4][RC_GROUP],
 }
 
 // ---------------------------------------------------------------------------
-// The word route (K1 and K8 since their redesign, K3 and K10 since theirs;
-// the helpers above stay as they are for K2's element route and K4).
+// The word route (K1, K2, K3, K8 and K10; the helpers above serve K4).
 //
 // A load group's eight elements are kept as the words loaded (`Raw`) until
 // they become the ones-MMA's A operand: four 32-bit words, each two

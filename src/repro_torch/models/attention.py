@@ -11,7 +11,10 @@ Activations keep the reference's (B, S, H, D) layout; the kernel takes
            raises NotImplementedError).
   decode:  ``self_attention_decode`` writes the new K/V into the cache and
            runs ``decode_attention``, plain torch whose softmax denominator
-           is the ones-MMA row sum of ``repro_torch.reduce``.
+           is a row sum of ``repro_torch.reduce`` on
+           ``backend_for_flags(mma)``: the ones-MMA route with the paper's
+           technique on, plain ``torch`` with it off, and the step passes
+           ``mma=cfg.mma_reductions``, as the reference's does.
 
 KV caches are written IN PLACE (the reference's are immutable arrays). The
 serving runtime may retry a decode step from its committed state; the step
@@ -93,10 +96,12 @@ def fill_kv_cache(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
     return cache
 
 
-def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, sm_scale=None) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, mma: bool = True,
+                     sm_scale=None) -> torch.Tensor:
     """q: (B, 1, H, D), RoPE'd; caches (B, Smax, Hkv, D); slot_pos (Smax,)
     absolute position per slot (-1 empty). Products of bf16-rounded
-    operands accumulate in f32, as the reference's einsums do."""
+    operands accumulate in f32, as the reference's einsums do; ``mma``
+    picks the denominator's reduce backend (``backend_for_flags(mma)``)."""
     b, _, h, d = q.shape
     hkv = k_cache.shape[2]
     g = h // hkv
@@ -107,7 +112,7 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, sm_scale=None) 
     s = torch.where(valid, s, NEG)
     m = s.amax(-1, keepdim=True)
     e = torch.where(valid, torch.exp(s - m), 0.0)
-    denom = R.reduce(e, -1, backend=R.backend_for_flags(True))
+    denom = R.reduce(e, -1, backend=R.backend_for_flags(mma))
     out = torch.matmul(bf16_round(e), bf16_round(v_cache).permute(0, 2, 1, 3))
     out = out / torch.clamp_min(denom, 1e-30)[..., None]
     return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
@@ -128,5 +133,6 @@ def self_attention_decode(p, x_t, cache, pos: int, cfg):
     cache["k"][:, pos] = k[:, 0]
     cache["v"][:, pos] = v[:, 0]
     cache["slot_pos"][pos] = pos
-    out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos)
+    out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos,
+                           mma=cfg.mma_reductions)
     return P.dense_apply(p["o"], out.reshape(b, 1, -1)), cache

@@ -14,8 +14,9 @@ summed in f32 in other orders: one f32 ulp of the running sum per
 accumulation step, n / (lanes x 256) steps per thread (tensor cores may
 truncate their f32 accumulation, so the error can be one-sided), times
 the mass, with exact counts and bitwise repeats;
-for the cross-entropy 1e-3 (the same tiles and running max, but expf and
-torch.exp may differ in the last ulp and flip one bf16 rounding of p).
+for the cross-entropy 1e-3 (the same slices, steps and running maxima,
+but the kernel's ex2.approx and torch.exp may differ by an ulp or two and
+flip one bf16 rounding of p).
 """
 
 import pytest
@@ -292,6 +293,36 @@ def test_cross_entropy_matches_plain(gen, rows, width, vocab, dtype):
     assert float((cut - out).abs().max()) <= 1e-6
 
 
+def _ce_logits(gen, rows, width, vocab, dtype, offset=0):
+    """(rows, width) logits of ``dtype`` (pad logits past ``vocab``),
+    viewed ``offset`` elements past a 16-byte aligned base."""
+    flat = torch.randn((rows * width + offset,), generator=gen, device="cuda") * 3
+    logits = flat[offset:].view(rows, width)
+    logits[:, vocab:] = -1e30
+    return flat.to(dtype)[offset:].view(rows, width)
+
+
+@pytest.mark.parametrize("rows,width,vocab,offset", [
+    (37, 4100, 4100, 1),     # an unaligned base: the element route
+    (33, 2305, 2305, 0),     # an odd width: the element route
+    (256, 50304, 50304, 0),  # the card tests' bf16 rows over the cut vocabulary
+    (1, 50432, 50304, 0),    # one row of the padded head
+    (45, 1000, 1000, 0),     # a vocabulary under one slice: no fold across CTAs
+    (17, 2056, 2056, 0),     # eight columns into a second slice
+], ids=["unaligned", "odd-width", "256-rows", "one-row", "one-slice", "ragged-slice"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_entropy_edge_geometries(gen, rows, width, vocab, offset, dtype):
+    logits = _ce_logits(gen, rows, width, vocab, dtype, offset)
+    labels = torch.randint(0, vocab, (rows,), generator=gen, device="cuda")
+    labels[0] = vocab - 1  # a label in the last partial step
+    before = cross_entropy.launches
+    out = cross_entropy(logits, labels)
+    assert cross_entropy.launches == before + 1
+    plain = cross_entropy_plain(logits, labels)
+    assert float((out - plain).abs().max()) <= 1e-3
+    assert torch.equal(out, cross_entropy(logits, labels))  # bitwise on repeat
+
+
 def test_cross_entropy_grad_on_card(gen):
     logits = (torch.randn((64, 700), generator=gen, device="cuda") * 2).requires_grad_(True)
     labels = torch.randint(0, 700, (64,), generator=gen, device="cuda")
@@ -416,6 +447,32 @@ def test_moments_and_kahan_match_plain(gen, n, lanes, dtype, compute):
     # by the same compensated steps
     assert abs(float(k) - float(kp)) <= 2.0**-20 * float(xf.abs().sum()) + 1e-6
     assert torch.equal(k, mma_sum_kahan(x, compute_dtype=compute, num_lanes=lanes))
+
+
+@pytest.mark.parametrize("lanes,n", [(1, 2 * 16384 + 5), (3, 7 * 16384 + 5),
+                                     (528, 528 * 16384 + 5)])
+@pytest.mark.parametrize("dtype,compute", [(d, c) for d in (torch.float32, torch.bfloat16,
+                                                            torch.float16)
+                                           for c in (torch.float32, torch.bfloat16,
+                                                     torch.float16)])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "one-element-off"])
+def test_moments_small_integers_bitwise_plain(gen, lanes, n, dtype, compute, offset):
+    """K2 on nonzero integers (+-1, and +-2 for one element in eight): every
+    value and square is exact in every compute dtype and every partial sum
+    stays under 2^24, so any summation order gives the same f32 sums and
+    the kernel (blocks of one tile) equals its plain version bitwise, on an
+    unaligned base and a ragged tail, with a bitwise repeat."""
+    from repro_torch.kernels.mma_reduce import mma_moments_fused, mma_moments_fused_plain
+
+    sign = torch.randint(0, 2, (n + offset,), generator=gen, device="cuda") * 2 - 1
+    two = (torch.rand((n + offset,), generator=gen, device="cuda") < 0.125).to(sign.dtype)
+    x = (sign * (1 + two)).to(dtype)[offset:]
+    kw = dict(compute_dtype=compute, num_lanes=lanes, tiles_per_block=1)
+    s, ss = mma_moments_fused(x, **kw)
+    ps, pss = mma_moments_fused_plain(x, compute, lanes, 1)
+    assert torch.equal(s, ps.reshape(s.shape)) and torch.equal(ss, pss.reshape(ss.shape))
+    again = mma_moments_fused(x, **kw)
+    assert torch.equal(s, again[0]) and torch.equal(ss, again[1])
 
 
 @pytest.mark.parametrize("lanes", [1, None], ids=["one-lane", "default-lanes"])
