@@ -32,7 +32,22 @@ then drives the three main paths with every kernel launch counted:
             at bf16 and f32 and the serving prefill's 1024 rows at bf16
             (the fused matmul with its row moments, K11); checked also at
             full width on the element loads (x 2 bytes past a 16-byte
-            boundary, and K = 8190).
+            boundary, and K = 8190);
+  non-kernel full-depth olmo-1b on 4 x 512 tokens through ``models.forward``
+            and ``lm_loss`` with ``use_kernels=False``, the paper's
+            technique on (``mma_torch``) and off (``torch``), against the
+            kernel route from the same weights;
+  guarded   full-width olmo-1b, batch 4 x seq 512, 3 guarded steps through
+            the training CLI's ``main`` (``--guard``, NaN on step 2): the
+            census (K4, one launch a step) finds it and the step is
+            skipped; a clean guarded step equals a plain step bitwise, a
+            poisoned one leaves the state bitwise; the guarded step's
+            device time, and K4's with and without the census;
+  rollback  olmo-1b at full width cut to 2 layers through ``main`` with
+            ``--guard --ckpt-dir``: NaN on three steps in a row, a rollback
+            to the step-0 anchor, the replay's losses bitwise the first
+            run's, a truncated shard caught and ``restore_latest_valid``
+            falling back; the checkpoints' bytes and seconds.
 
 Exits nonzero, with no result line, when any check fails or there is no
 GPU.
@@ -58,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -549,6 +565,20 @@ def check_parts_training(results: dict, gen) -> None:
         "tiles": tiles,
     })
     results["mma_sum_parts"]["call_ms"] = results["mma_sum_parts"]["ms"]
+
+    def k4_no_census():
+        return mma_sum_parts(leaves, prologue="square", total_chains=chains)
+
+    # the guarded step's census against the same launch without it, three
+    # of each in turns (off, on, off, on, off, on)
+    on, off = [], []
+    for _ in range(3):
+        off.append(time_ms(k4_no_census, iters=5, warmup=1))
+        on.append(time_ms(k4, iters=5, warmup=1))
+    results["mma_sum_parts"]["census_on_ms"] = sorted(on)[1]
+    results["mma_sum_parts"]["census_off_ms"] = sorted(off)[1]
+    print(f"K4 at the training shape, census on {on} ms, off {off} ms (CUDA events, in turns): "
+          f"the census costs {(sorted(on)[1] / sorted(off)[1] - 1) * 100:+.2f}% (medians)")
     flat = torch.cat([p.reshape(-1) for p in leaves])
     del leaves
     lanes = default_num_lanes(flat)
@@ -2138,37 +2168,358 @@ def train_full_width() -> dict:
                                            DEVICE)
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
     batches = [{"tokens": torch.from_numpy(data.next()["tokens"]).to(DEVICE)} for _ in range(4)]
-    profile_train_step(step_fn, params, opt, batches)
-    return launches
+    prof = profile_train_step(step_fn, params, opt, batches)
+    return launches, prof
 
 
-def profile_train_step(step_fn, params, opt, batches) -> None:
+def profile_train_step(step_fn, params, opt, batches, guard=None, what="train step") -> dict:
     """Where a training step's time goes: wall time on the host clock
     (without the profiler) against the device's busy time (profiler: every
     kernel, memset and copy, from a session whose kernel counts match the
-    step's launches), and the device items that take the most."""
+    step's launches), and the device items that take the most. With
+    ``guard`` (a guard state) ``step_fn`` is a guarded step. Returns
+    ``{"wall_ms", "busy_ms"}``."""
     import torch
 
     from repro_torch.configs import get_arch
 
-    params, opt, _ = step_fn(params, opt, batches[0])  # warm-up
+    def run(batch):
+        nonlocal params, opt, guard
+        if guard is None:
+            params, opt, _ = step_fn(params, opt, batch)
+        else:
+            params, opt, guard, _ = step_fn(params, opt, guard, batch)
+
+    run(batches[0])  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for batch in batches[1:3]:
-        params, opt, _ = step_fn(params, opt, batch)
+        run(batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 2 * 1e3
     n = train_launches_per_step(get_arch("olmo-1b").n_layers)
     expect = {"::row_norm_kernel<": n["layernorm_np"], "::attn_fwd_kernel<": n["flash_attention"],
               "::ce_kernel<": n["cross_entropy"], "::fused_sum_kernel<": n["mma_sum_fused"],
               "::parts_kernel<": n["mma_sum_parts"]}
-    events = complete_events(lambda: step_fn(params, opt, batches[3]), expect, 1,
-                             "the training step")
+    events = complete_events(lambda: run(batches[3]), expect, 1, f"the {what}")
     busy_ms = sum(us for _, us in events.values()) / 1e3
-    print(f"train step (4 x 512 tokens): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+    print(f"{what} (4 x 512 tokens): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {max(0.0, 1.0 - busy_ms / wall_ms):.3f}")
     for key, (count, us) in sorted(events.items(), key=lambda kv: kv[1][1], reverse=True)[:10]:
         print(f"    {us / 1e3:9.4f} ms/step  {count:5d}x  {key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+# ------------------- guarded training, rollback, non-kernel route -------------------
+
+# The non-kernel route against the kernel route, full-depth olmo-1b in bf16
+# on 4 x 512 tokens: per-token losses within 0.25 and mean losses within
+# 0.02. The routes round different intermediates to bf16 (K5a and K6 against
+# the engine's row statistics and the chunked attention). Tiny olmo in bf16
+# on the CPU (3 and 16 layers, 4 x 64 tokens, random weights) puts the two
+# non-kernel routes' per-token losses at most 0.075 and their means at most
+# 0.004 from the kernel route's (f32: 0.013 and 0.0003); the bounds here are
+# about three and five times those.
+NONKERNEL_TOK_TOL, NONKERNEL_MEAN_TOL = 0.25, 0.02
+
+
+class _Tee:
+    """stdout that is also kept: what a CLI printed, for the checks."""
+
+    def __init__(self, out):
+        import io
+
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        return self.buf.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_captured(fn):
+    """``fn()`` with its standard output shown and kept: (result, text)."""
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn()
+    return out, tee.buf.getvalue()
+
+
+def run_nonkernel_route() -> dict:
+    """Full-depth olmo-1b (random weights) on 4 x 512 seeded tokens through
+    ``models.forward`` and ``losses.lm_loss`` on three routes from the same
+    weights: the kernels (K5a, K6, K7), and ``use_kernels=False`` with the
+    paper's technique on (``mma_torch``) and off (``torch``). Mean losses,
+    the largest per-token difference against the kernel route (tolerances
+    above), and the forward's time per route (CUDA events, each route
+    twice, in turns). The non-kernel
+    routes launch no kernel of this repository: that is what they are for.
+    Returns the kernel route's launches of one forward and its loss."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import common
+    from repro_torch.models import losses
+
+    t_phase = time.time()
+    cfg = get_arch("olmo-1b")
+    params = models.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(4), DEVICE)
+    tokens = torch.from_numpy(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                          seed=5).next()["tokens"]).to(DEVICE).long()
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    routes = {
+        "kernels": cfg,
+        "mma_torch": dataclasses.replace(cfg, use_kernels=False, mma_reductions=True),
+        "torch": dataclasses.replace(cfg, use_kernels=False, mma_reductions=False),
+    }
+    per_tok, means, fwd_ms, launches = {}, {}, {}, {}
+    with torch.inference_mode():
+        for name, c in routes.items():
+            torch.cuda.synchronize()
+            common.reset_launches()
+            logits, aux = models.forward(params, c, inputs)
+            loss, _ = losses.lm_loss(logits, labels, aux, c)
+            per_tok[name] = losses.cross_entropy_tokens(logits, labels, mma=c.mma_reductions,
+                                                        use_kernels=c.use_kernels)
+            torch.cuda.synchronize()
+            launches[name] = {k: v for k, v in common.launch_counts().items() if v}
+            means[name] = float(loss)
+            check(logits.shape == (TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()), f"non-finite logits on route {name}")
+            del logits
+        # the routes timed in turns, each twice: kernels, mma_torch, torch,
+        # torch, mma_torch, kernels
+        for name in list(routes) + list(routes)[::-1]:
+            fwd_ms.setdefault(name, []).append(
+                time_ms(lambda: models.forward(params, routes[name], inputs), iters=3, warmup=1))
+    diffs = {n: float((per_tok[n] - per_tok["kernels"]).abs().max()) for n in routes}
+    print(f"olmo-1b full depth, 4 x {TRAIN_SEQ} tokens: mean loss kernels {means['kernels']:.5f}, "
+          f"mma_torch {means['mma_torch']:.5f}, torch {means['torch']:.5f}; largest per-token "
+          f"difference from the kernel route: mma_torch {diffs['mma_torch']:.4g}, torch "
+          f"{diffs['torch']:.4g} (tol {NONKERNEL_TOK_TOL}; means tol {NONKERNEL_MEAN_TOL})")
+    print(f"forward (CUDA events, two readings each, in turns): kernels {fwd_ms['kernels']} "
+          f"ms, mma_torch {fwd_ms['mma_torch']} ms, torch {fwd_ms['torch']} ms; launches per "
+          f"forward {launches}")
+    for name in ("mma_torch", "torch"):
+        check(diffs[name] <= NONKERNEL_TOK_TOL, f"route {name}: per-token losses differ")
+        check(abs(means[name] - means["kernels"]) <= NONKERNEL_MEAN_TOL,
+              f"route {name}: mean loss differs")
+        check(not launches[name], f"route {name} launched kernels: {launches[name]}")
+    check(launches["kernels"].get("layernorm_np") == 2 * cfg.n_layers + 1
+          and launches["kernels"].get("flash_attention") == cfg.n_layers,
+          f"kernel route launches {launches['kernels']}")
+    print(f"non-kernel route phase: {time.time() - t_phase:.1f} s")
+    return {"forward_ms": fwd_ms, "mean_loss": means, "max_tok_diff": diffs,
+            "launches": launches["kernels"]}
+
+
+GUARD_STEPS = 3  # the guarded CLI run: step 2 poisoned with NaN
+
+
+def _tree_bits(tensors) -> list:
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return [t.detach().view(ints[t.element_size()]) for t in tensors]
+
+
+def _bitwise_equal(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(_tree_bits(a),
+                                                                       _tree_bits(b)))
+
+
+def _state_tensors(params, opt) -> list:
+    from repro_torch import reduce as R
+
+    return R.tree_leaves(params) + [opt.step] + list(opt.m) + list(opt.v)
+
+
+def run_guarded_training(plain_busy_ms: float) -> dict:
+    """Full-width olmo-1b, batch 4 x seq 512, through the training CLI's
+    ``main`` with ``--guard --reduce-backend cuda_fused`` and a
+    ``ChaosMonkey`` that poisons step 2's gradients with NaN: the census
+    sees it (nonfinite > 0), the step is skipped, the losses stay finite,
+    and every guarded step launches K4 exactly once (the clip statistic and
+    the census in one launch). Then, from one seeded state on the same
+    batch: a clean guarded step equals a plain step bitwise (parameters,
+    moments, step), and a NaN-poisoned guarded step leaves all of them
+    bitwise unchanged with one K4 launch. Last, the guarded step's device
+    time against the plain step's (``plain_busy_ms``, this run)."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import common
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime import ChaosMonkey
+
+    t_phase = time.time()
+    cfg = get_arch("olmo-1b")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    common.reset_launches()
+    losses, out = run_captured(lambda: train_cli.main([
+        "--arch", "olmo-1b", "--guard", "--reduce-backend", "cuda_fused",
+        "--steps", str(GUARD_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--log-every", "1"], chaos=ChaosMonkey(nan_steps=(2,))))
+    torch.cuda.synchronize()
+    launches = common.launch_counts()
+    skipped = [ln for ln in out.splitlines() if ln.startswith("guard: step 2 skipped")]
+    nonfinite = float(skipped[0].split("nonfinite ")[1].split(",")[0]) if skipped else 0.0
+    print(f"guarded CLI run: losses {losses}; step 2 skipped: {bool(skipped)}, census "
+          f"nonfinite {nonfinite:.0f}; launches {launches}")
+    check(len(losses) == GUARD_STEPS and all(map(math.isfinite, losses)),
+          "guarded training: non-finite loss")
+    check(bool(skipped) and nonfinite > 0, "guarded training: the NaN step was not skipped")
+    check(out.count(" skipped (") == 1, "guarded training: a clean step was skipped")
+    per_step = train_launches_per_step(cfg.n_layers)
+    for k, n in per_step.items():
+        check(launches[k] == n * GUARD_STEPS,
+              f"guarded training: {k}: {launches[k]} launches, expected {n * GUARD_STEPS}")
+
+    tcfg = TrainConfig(total_steps=10, warmup_steps=1)
+    pparams, popt, plain = train_cli.build(cfg, tcfg, DEVICE)
+    gparams, gopt, guarded = train_cli.build(cfg, tcfg, DEVICE, guard=True)  # same seed
+    guard = optim.init_guard_state(16, DEVICE)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=6)
+    batches = [{"tokens": torch.from_numpy(data.next()["tokens"]).to(DEVICE)} for _ in range(5)]
+    pparams, popt, pm = plain(pparams, popt, batches[0])
+    common.reset_launches()
+    gparams, gopt, guard, gm = guarded(gparams, gopt, guard, batches[0])
+    torch.cuda.synchronize()
+    k4_clean = common.launch_counts()["mma_sum_parts"]
+    equal = _bitwise_equal(_state_tensors(gparams, gopt), _state_tensors(pparams, popt))
+    print(f"clean guarded step vs plain step, same state and batch: loss {float(gm['loss'])!r} "
+          f"vs {float(pm['loss'])!r}, skipped {float(gm['skipped'])}, parameters, moments and "
+          f"step bitwise equal: {equal}; K4 launches {k4_clean}")
+    check(equal and float(gm["skipped"]) == 0.0, "a clean guarded step differs from a plain step")
+    check(k4_clean == 1, f"the guarded step launched K4 {k4_clean} times")
+    del pparams, popt, plain
+    torch.cuda.empty_cache()
+    before = [t.detach().clone() for t in _state_tensors(gparams, gopt)]
+    common.reset_launches()
+    poisoned = dict(batches[1], chaos_scale=torch.full((1,), float("nan"), device=DEVICE))
+    gparams, gopt, guard, gm = guarded(gparams, gopt, guard, poisoned)
+    torch.cuda.synchronize()
+    k4_bad = common.launch_counts()["mma_sum_parts"]
+    unchanged = _bitwise_equal(_state_tensors(gparams, gopt), before)
+    print(f"NaN-poisoned guarded step: nonfinite {float(gm['nonfinite']):.0f}, skipped "
+          f"{float(gm['skipped'])}, parameters, moments and step bitwise unchanged: "
+          f"{unchanged}; K4 launches {k4_bad}")
+    check(float(gm["nonfinite"]) > 0 and float(gm["skipped"]) == 1.0,
+          "the poisoned guarded step was not skipped")
+    check(unchanged, "a skipped guarded step changed the state")
+    check(k4_bad == 1, f"the poisoned guarded step launched K4 {k4_bad} times")
+    del before
+    torch.cuda.empty_cache()
+    prof = profile_train_step(guarded, gparams, gopt, batches[1:], guard=guard,
+                              what="guarded train step")
+    print(f"guarded step device busy {prof['busy_ms']:.3f} ms against the plain step's "
+          f"{plain_busy_ms:.3f} ms (this run): {prof['busy_ms'] - plain_busy_ms:+.3f} ms")
+    del gparams, gopt, guarded
+    torch.cuda.empty_cache()
+    print(f"guarded training phase: {time.time() - t_phase:.1f} s")
+    return {"launches": launches, "busy_ms": prof["busy_ms"], "wall_ms": prof["wall_ms"],
+            "plain_busy_ms": plain_busy_ms}
+
+
+DRILL_LAYERS, DRILL_STEPS = 2, 5  # NaN on steps 3, 4, 5; rollback to the step-0 anchor
+
+
+def run_rollback_drill() -> dict:
+    """The rollback drill: olmo-1b at full width cut to 2 layers (one
+    commit ~2.4 GB: 237.5 M bf16 parameters and two f32 moments), batch 4 x
+    seq 512, through the training CLI's ``main`` with ``--guard
+    --ckpt-dir`` (a temporary directory under ``build/``, deleted after)
+    ``--ckpt-every 5 --max-bad-steps 3`` and NaN on steps 3, 4 and 5.
+    Steps 1 and 2 run clean, 3 to 5 are skipped, the run rolls back to the
+    step-0 anchor and replays: the replayed steps 1 to 3 must give the
+    first run's losses bitwise (step 3's poisoned attempt computed its loss
+    before its skip, from the same state). Then step 5's shard is truncated:
+    restoring it raises ``CheckpointCorruptionError`` and
+    ``restore_latest_valid`` falls back to the anchor, whose state equals
+    the seeded initial state bitwise. Prints each save's and restore's
+    bytes and seconds (CRC32 of every leaf verified)."""
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointCorruptionError, CheckpointManager
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.kernels import common
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime import ChaosMonkey
+
+    t_phase = time.time()
+    cfg = dataclasses.replace(get_arch("olmo-1b"), n_layers=DRILL_LAYERS)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="rollback_drill_", dir=os.path.join(ROOT, "build"))
+    try:
+        torch.cuda.synchronize()
+        common.reset_launches()
+        losses, out = run_captured(lambda: train_cli.main([
+            "--arch", "olmo-1b", "--guard", "--reduce-backend", "cuda_fused",
+            "--steps", str(DRILL_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt-dir", tmp, "--ckpt-every", "5", "--max-bad-steps", "3",
+            "--log-every", "1"], cfg=cfg, chaos=ChaosMonkey(nan_steps=(3, 4, 5))))
+        torch.cuda.synchronize()
+        launches = common.launch_counts()
+        rolled = re.findall(r"guard: rolled back to step (\d+) \(data step (\d+)\)", out)
+        records = re.findall(r"checkpoint (save|restore) step (\d+): (\d+) bytes, (.*)", out)
+        print(f"rollback drill: losses {losses}; rollbacks {rolled}; launches {launches}")
+        check(rolled == [("0", "0")], f"rollback drill: rollbacks {rolled}, expected one to 0")
+        check(len(losses) == 2 * DRILL_STEPS and all(map(math.isfinite, losses)),
+              "rollback drill: missing or non-finite losses")
+        replay = losses[DRILL_STEPS:DRILL_STEPS + 3]
+        print(f"losses of steps 1-3 before the fault {losses[:3]}, after the rollback {replay}")
+        check(replay == losses[:3],
+              "rollback drill: the replay's losses differ from the first run's")
+        check(launches["mma_sum_parts"] == 2 * DRILL_STEPS,
+              f"rollback drill: {launches['mma_sum_parts']} K4 launches for "
+              f"{2 * DRILL_STEPS} guarded steps")
+        check([(op, st) for op, st, _, _ in records] ==
+              [("save", "0"), ("restore", "0"), ("save", "5")],
+              f"rollback drill: checkpoint operations {records}")
+        shard = os.path.join(tmp, "step_00000005", "shard_00000.npz")
+        with open(shard, "r+b") as f:
+            f.truncate(os.path.getsize(shard) // 2)
+        like_params, like_opt, _ = train_cli.build(cfg, TrainConfig(), DEVICE)
+        cm = CheckpointManager(tmp)
+        try:
+            cm.restore(5, (like_params, like_opt))
+            raised = False
+        except CheckpointCorruptionError as e:
+            raised = True
+            print(f"the truncated step-5 shard: {e}")
+        check(raised, "rollback drill: a truncated shard did not raise")
+        (rparams, ropt), step = cm.restore_latest_valid((like_params, like_opt))
+        fresh = _state_tensors(like_params, like_opt)
+        anchor = _bitwise_equal(_state_tensors(rparams, ropt), fresh)
+        print(f"restore_latest_valid fell back to step {step}; quarantined: "
+              f"{sorted(n for n in os.listdir(tmp) if n.startswith('quarantine'))}; the "
+              f"state equals the seeded initial state bitwise: {anchor}")
+        check(step == 0 and anchor, "rollback drill: restore_latest_valid did not fall back")
+        records += [("restore", str(r["step"]), str(r["bytes"]), f"{r['seconds']:.3f} s, CRC "
+                     "verified") for r in cm.records]
+        for op, st, nbytes, what in records:
+            print(f"    {op} step {st}: {int(nbytes) / 1e9:.3f} GB, {what}")
+        del like_params, like_opt, rparams, ropt, fresh
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"rollback drill phase: {time.time() - t_phase:.1f} s")
+    return {"launches": launches, "records": records}
 
 
 # ----------------------------------- main ------------------------------------
@@ -2220,6 +2571,9 @@ def main() -> int:
     check_tiny_against_cpu()
     check_full_width_against_cpu()
     serve_launches = serve_full_width()
+    torch.cuda.empty_cache()
+    nonkernel = run_nonkernel_route()
+    torch.cuda.empty_cache()
 
     from repro_torch import reduce as R
 
@@ -2228,7 +2582,9 @@ def main() -> int:
         check_tiny_training_against_cpu()
         check_full_width_training_against_cpu()
         check_parts_training(results, gen)
-        train_launches = train_full_width()
+        train_launches, train_prof = train_full_width()
+        guarded = run_guarded_training(train_prof["busy_ms"])
+        drill = run_rollback_drill()
     finally:
         R.set_default_backend(None)
     torch.cuda.empty_cache()
@@ -2263,6 +2619,9 @@ def main() -> int:
             "launches_serving": serve_launches[name], "launches_paper": paper_launches[name],
             "launches_multi_reduce": multi_launches[name],
             "launches_matmul_stats": ms_launches[name],
+            "launches_guarded_training": guarded["launches"][name],
+            "launches_rollback_drill": drill["launches"][name],
+            "launches_forward_kernel_route": nonkernel["launches"].get(name, 0),
         }
         entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
@@ -2279,6 +2638,12 @@ def main() -> int:
               f"{k['launches_multi_reduce']} in the multi-reduce path, "
               f"{k['launches_matmul_stats']} in the matmul_stats path")
     print(f"backward passes (torch math): {results['backward']}")
+    k4 = results["mma_sum_parts"]
+    print(f"guarded training: step device busy {guarded['busy_ms']:.3f} ms (plain "
+          f"{guarded['plain_busy_ms']:.3f} ms); K4 at the training shape with the census "
+          f"{k4['census_on_ms']:.4f} ms, without {k4['census_off_ms']:.4f} ms; non-kernel "
+          f"route forward ms {nonkernel['forward_ms']}; checkpoints "
+          f"{[(op, int(st), int(b), w) for op, st, b, w in drill['records']]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,17 @@
 """Training and serving steps.
 
-Port of ``make_train_step``, ``make_prefill_step`` and ``make_decode_step``
-of ``repro/launch/steps.py``. PyTorch runs eagerly, so a step is a plain
+Port of ``make_train_step``, ``make_guarded_train_step``,
+``make_prefill_step`` and ``make_decode_step`` of
+``repro/launch/steps.py``. PyTorch runs eagerly, so a step is a plain
 closure over the config (the reference jits it).
 
 make_train_step: a Python loop over microbatches (the reference's
 ``lax.scan``), f32 gradient accumulators, the remat'd forward and chunked
 loss, and the AdamW update whose clip statistic is one reduction launch.
+make_guarded_train_step: the same gradients (``make_grads_fn``), finished
+by ``optim.guarded_apply_updates``: the same launch also counts NaN/Inf
+gradient elements, and a poisoned or loss-spiking step passes the
+parameters and the optimizer state through bitwise unchanged.
 """
 
 from __future__ import annotations
@@ -75,6 +80,40 @@ def make_train_step(cfg, tcfg):
         return params, opt_state, dict(metrics, loss=mean_loss)
 
     return train_step
+
+
+def make_guarded_train_step(cfg, tcfg, reduce_backend=None, spike_z: float = 6.0):
+    """Returns ``guarded_step(params, opt_state, guard_state, batch) ->
+    (params, opt_state, guard_state, metrics)``; ``guard_state`` is
+    ``optim.init_guard_state(W)`` on the training device. The clip
+    statistic's launch also counts NaN/Inf gradient elements, and a
+    poisoned or loss-spiking step passes the parameters and the optimizer
+    state through BITWISE unchanged (``metrics['skipped']`` flags it for
+    the rollback counter); an accepted step is bitwise ``make_train_step``'s
+    on the same batch. ``batch`` may carry ``"chaos_scale"``, a (1,)
+    tensor the gradients are multiplied by: the fault drills drive it to
+    NaN or Inf on a scheduled step, and x1.0 is bitwise identity."""
+    if reduce_backend is None:
+        reduce_backend = R.backend_for_flags(cfg.mma_reductions, cfg.use_kernels)
+    compute_grads = make_grads_fn(cfg, tcfg)
+
+    def guarded_step(params, opt_state, guard_state, batch):
+        batch = dict(batch)
+        scale = batch.pop("chaos_scale", None)
+        grads, mean_loss = compute_grads(params, batch)
+        if scale is not None:
+            s = scale.reshape(-1)[0]
+            for g in grads:
+                g.mul_(s.to(g.dtype))
+        params, opt_state, guard_state, metrics = optim.guarded_apply_updates(
+            params, grads, opt_state, tcfg, loss=mean_loss, guard=guard_state,
+            spike_z=spike_z, reduce_backend=reduce_backend,
+            fused_second_moment=tcfg.fused_second_moment,
+            leaf_groups=reference_leaf_groups(params, cfg),
+        )
+        return params, opt_state, guard_state, dict(metrics, loss=mean_loss)
+
+    return guarded_step
 
 
 def make_prefill_step(cfg, s_max: int):

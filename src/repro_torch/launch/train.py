@@ -1,4 +1,5 @@
-"""Training driver: config -> seeded synthetic data -> train step -> loop.
+"""Training CLI: config -> seeded synthetic data -> train step ->
+checkpointed, optionally guarded loop.
 
 Port of ``repro/launch/train.py``. Runs on the GPU unless given
 ``--device cpu``; with no GPU and no ``--device`` it raises. Parameters are
@@ -7,41 +8,65 @@ stream, identical to the reference's for the same seed.
 
   python -m repro_torch.launch.train --arch olmo-1b --reduce-backend cuda_fused \\
       --steps 3 --batch 4 --seq 512
-  python -m repro_torch.launch.train --arch olmo-1b --tiny --steps 2 --device cpu
+  python -m repro_torch.launch.train --arch olmo-1b --tiny --guard --chaos 0.5 \\
+      --chaos-seed 0 --ckpt-dir /tmp/ckpt --steps 12 --device cpu
 
-Not ported yet, and refused with the ROADMAP item that ports them:
-``--guard`` and ``--chaos`` (Queue 1, item 11, guarded training),
-``--mesh`` (item 12, distributed) and ``--ckpt-dir`` (item 6,
-checkpoints).
+Flags beyond the model and schedule:
+  --ckpt-dir, --ckpt-every   atomic checkpoints (``checkpoint.CheckpointManager``)
+                             every N steps; a run resumes from the newest
+                             commit, with the data rewound to its step
+  --guard                    the guarded step: the clip statistic's launch
+                             also counts NaN/Inf gradient elements, and a
+                             poisoned or loss-spiking step passes parameters
+                             and optimizer state through bitwise unchanged;
+                             --max-bad-steps consecutive skips roll back to
+                             the last commit (the anchor commit at step 0
+                             when nothing newer exists)
+  --spike-window, --spike-z  the loss-spike test's window and robust z-score
+  --max-bad-steps            consecutive skips before a rollback
+  --chaos, --chaos-seed      the fault drill (needs --guard): per step, a
+                             NaN-poisoned gradient or a transient failure
+                             (retried), each with half the given probability
+  --status-path              the guard metrics' JSON status file, rewritten
+                             at every commit (default
+                             <ckpt-dir>/guard_status.json)
+
+``--mesh`` and ``--chaos-host`` are refused: they belong to the ROADMAP's
+distributed item, which is not ported. The unguarded loop reads its batches
+through a ``Prefetcher``; the guarded loop reads the source directly,
+because a rollback rewinds it.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
 from repro_torch import optim
 from repro_torch import reduce as R
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_arch
-from repro_torch.data import ShardInfo, SyntheticLM
+from repro_torch.data import Prefetcher, ShardInfo, SyntheticLM
 from repro_torch.launch.serve import resolve_device
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import make_guarded_train_step, make_train_step
 from repro_torch.models import init_params
 from repro_torch.models.convert import reference_leaf_groups
+from repro_torch.runtime import ChaosMonkey, GuardMetrics, PreemptionGuard, StepGuard
 
 _NOT_PORTED = {
-    "guard": "ROADMAP Queue 1, item 11 (guarded training)",
-    "chaos": "ROADMAP Queue 1, item 11 (guarded training)",
-    "mesh": "ROADMAP Queue 1, item 12 (distributed)",
-    "ckpt_dir": "ROADMAP Queue 1, item 6 (checkpoints)",
+    "mesh": "the ROADMAP's distributed item (the data mesh and its deterministic combine)",
+    "chaos_host": "the ROADMAP's distributed item (per-host poisoning needs the data mesh)",
 }
 
 
-def build(cfg, tcfg, device, params=None):
+def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0):
     """Parameters (seeded random unless given; they are set to require
-    grad), optimizer state and the train step."""
+    grad), optimizer state and the train step: ``make_train_step``'s, or
+    with ``guard`` ``make_guarded_train_step``'s (which also takes and
+    returns the guard state)."""
     if params is None:
         gen = torch.Generator(device=device).manual_seed(tcfg.seed)
         params = init_params(cfg, gen, device)
@@ -51,10 +76,21 @@ def build(cfg, tcfg, device, params=None):
         params, fused_second_moment=tcfg.fused_second_moment,
         leaf_groups=reference_leaf_groups(params, cfg),
     )
-    return params, opt_state, make_train_step(cfg, tcfg)
+    step_fn = (make_guarded_train_step(cfg, tcfg, spike_z=spike_z) if guard
+               else make_train_step(cfg, tcfg))
+    return params, opt_state, step_fn
 
 
-def main(argv=None):
+def _restore(ckpt, step: int, params, opt_state):
+    """The committed state of ``step`` in place of the live one (the live
+    tensors are released); the restored parameters require grad."""
+    params, opt_state = ckpt.restore(step, (params, opt_state))
+    for p in R.tree_leaves(params):
+        p.requires_grad_(True)
+    return params, opt_state, ckpt.manifest(step)["extra"]["data_step"]
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--tiny", action="store_true")
@@ -63,6 +99,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument(
         "--fused-second-moment", action="store_true",
@@ -70,49 +108,216 @@ def main(argv=None):
         "launch's per-leaf sumsq slots",
     )
     ap.add_argument(
+        "--guard", action="store_true",
+        help="guarded step: the clip statistic's launch also counts NaN/Inf "
+        "grad elements (in-launch census); a poisoned or loss-spiking step "
+        "passes params and optimizer state through bitwise unchanged, and "
+        "--max-bad-steps consecutive skips roll back to the last committed "
+        "checkpoint (requires --ckpt-dir for rollback)",
+    )
+    ap.add_argument("--spike-window", type=int, default=16,
+                    help="guarded step: accepted-loss window length for the median/MAD "
+                    "loss-spike detector")
+    ap.add_argument("--spike-z", type=float, default=6.0,
+                    help="guarded step: robust z-score above the window median that forces "
+                    "a skip")
+    ap.add_argument("--max-bad-steps", type=int, default=3,
+                    help="guarded step: consecutive skipped steps before rollback")
+    ap.add_argument(
+        "--chaos", type=float, default=0.0,
+        help="deterministic fault-injection drill: per-step probability of an injected "
+        "fault (half NaN-poisoned grads, half transient step failure), scheduled by "
+        "--chaos-seed (requires --guard)",
+    )
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed for the --chaos schedule (same seed = same faults on every "
+                    "rerun)")
+    ap.add_argument("--status-path", default=None,
+                    help="guard-metrics JSON status file, rewritten atomically at every "
+                    "checkpoint commit (default: <ckpt-dir>/guard_status.json)")
+    ap.add_argument(
         "--reduce-backend", default=None, choices=R.available_backends() + ("auto",),
         help="process-wide repro_torch.reduce backend (default: the config flags)",
     )
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the plain versions)")
-    for flag in ("--guard", "--mesh"):
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--chaos", type=float, default=0.0, help=argparse.SUPPRESS)
-    ap.add_argument("--ckpt-dir", default=None, help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--chaos-host", type=int, default=None, help=argparse.SUPPRESS)
+    return ap
 
+
+def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
+    """Run the CLI. ``cfg`` (a ``ModelConfig``) replaces ``--arch``'s
+    configuration and ``chaos`` (a ``ChaosMonkey``) the ``--chaos``
+    schedule: the entries for callers that cut depth or name the faulted
+    steps. Returns the loss of every step taken, replays after a rollback
+    included."""
+    ap = _parser()
+    args = ap.parse_args(argv)
     for name, item in _NOT_PORTED.items():
-        if getattr(args, name):
+        if getattr(args, name) not in (None, False):
             ap.error(f"--{name.replace('_', '-')} is not ported yet: {item}")
+    if (args.chaos or chaos is not None) and not args.guard:
+        ap.error("--chaos requires --guard")
     device = resolve_device(args.device)
     if args.reduce_backend:
         R.set_default_backend(args.reduce_backend)
-    cfg = get_arch(args.arch, tiny=args.tiny)
+    if cfg is None:
+        cfg = get_arch(args.arch, tiny=args.tiny)
     tcfg = TrainConfig(
         learning_rate=args.lr, total_steps=args.steps,
         warmup_steps=max(1, args.steps // 10), microbatches=args.microbatches,
         fused_second_moment=args.fused_second_moment,
     )
-    params, opt_state, step_fn = build(cfg, tcfg, device)
+    params, opt_state, step_fn = build(cfg, tcfg, device, guard=args.guard,
+                                       spike_z=args.spike_z)
     n_params = sum(p.numel() for p in R.tree_leaves(params))
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M steps={args.steps} device={device}")
 
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, ShardInfo(), seed=tcfg.seed)
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    if chaos is None and args.chaos > 0:
+        chaos = ChaosMonkey.from_seed(args.chaos_seed, n_steps=args.steps,
+                                      nan_rate=args.chaos / 2, fail_rate=args.chaos / 2)
+    if chaos is not None:
+        origin = f"seed={args.chaos_seed} rate={args.chaos}" if args.chaos > 0 else "given"
+        print(f"chaos: {origin} nan_steps={sorted(chaos.nan_steps)} "
+              f"fail_steps={sorted(chaos.fail_steps)}")
+    guard_state = optim.init_guard_state(args.spike_window, device) if args.guard else None
+    step_guard = StepGuard(args.max_bad_steps) if args.guard else None
+    gmetrics = GuardMetrics() if args.guard else None
+    status_path = args.status_path
+    if status_path is None and args.ckpt_dir:
+        status_path = os.path.join(args.ckpt_dir, "guard_status.json")
+    start_step = 0
+    if ckpt and ckpt.latest() is not None:
+        ckpt.wait()  # drain any mid-flush save of an earlier incarnation
+        start_step = ckpt.latest()
+        params, opt_state, data_step = _restore(ckpt, start_step, params, opt_state)
+        data.seek(data_step)
+        print(f"resumed from step {start_step}")
+    if args.guard and ckpt and ckpt.latest() is None:
+        # anchor commit: a guard trip before the first periodic save still
+        # has a rollback target
+        ckpt.save(0, (params, opt_state), extra={"data_step": data.state()["step"]})
+        print("anchor commit step 0")
+    # created after any resume's seek, so its first batch is the resumed one
+    prefetch = None if args.guard else Prefetcher(data)
+    preempt = PreemptionGuard()
+
     losses = []
     t0 = time.time()
-    for step in range(1, args.steps + 1):
-        batch = {"tokens": torch.from_numpy(data.next()["tokens"]).to(device)}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        losses.append(float(metrics["loss"]))
-        if step % args.log_every == 0 or step == args.steps:
-            n = (step - 1) % args.log_every + 1
-            dt = (time.time() - t0) / n
-            print(
-                f"step {step:5d} loss {losses[-1]:.4f} "
-                f"gnorm {float(metrics['grad_norm']):.3f} "
-                f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f} ms/step"
-            )
-            t0 = time.time()
+    step = start_step
+    try:
+        while step < args.steps:
+            batch = data.next() if prefetch is None else prefetch.next()
+            feed = {"tokens": torch.from_numpy(batch["tokens"]).to(device)}
+            if chaos is not None:
+                # keyed on step + 1, the step being taken; fire-once keeps
+                # a post-rollback replay clean
+                feed["chaos_scale"] = chaos.corrupt(
+                    torch.ones((1,), dtype=torch.float32, device=device), step + 1)
+
+            def attempt():
+                if chaos is not None:
+                    chaos.on_step(step + 1, preempt)
+                if args.guard:
+                    return step_fn(params, opt_state, guard_state, feed)
+                return step_fn(params, opt_state, feed)
+
+            if step_guard is not None:
+                failures_before = step_guard.transient_failures
+                out = step_guard.retry(attempt)
+                retries = step_guard.transient_failures - failures_before
+                gmetrics.record_retry(retries)
+                if retries:
+                    print(f"guard: step {step + 1} retried after {retries} transient "
+                          f"fault(s)")
+            else:
+                out = attempt()
+            if args.guard:
+                params, opt_state, guard_state, metrics = out
+            else:
+                params, opt_state, metrics = out
+            losses.append(float(metrics["loss"]))
+            step += 1
+            skipped = False
+            if step_guard is not None:
+                skipped = float(metrics["skipped"]) > 0.0
+                if skipped:
+                    print(f"guard: step {step} skipped (nonfinite "
+                          f"{float(metrics['nonfinite']):.0f}, spike "
+                          f"{float(metrics['spike']):.0f})")
+            if step % args.log_every == 0 or step == args.steps:
+                n = (step - 1) % args.log_every + 1
+                dt = (time.time() - t0) / n
+                extra = ""
+                if args.guard:
+                    extra = (f" nonfinite {float(metrics['nonfinite']):.0f}"
+                             f" skips {int(guard_state.skipped)}")
+                print(
+                    f"step {step:5d} loss {losses[-1]:.4f} "
+                    f"gnorm {float(metrics['grad_norm']):.3f} "
+                    f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f} ms/step" + extra
+                )
+                t0 = time.time()
+            if step_guard is not None:
+                step_guard.record(skipped)
+                gmetrics.record_step(step, skipped=skipped,
+                                     census_total=float(metrics["nonfinite"]))
+                if step_guard.should_rollback():
+                    if ckpt is None:
+                        print("guard: rollback wanted but no --ckpt-dir; resetting the "
+                              "bad-step counter only")
+                        step_guard.reset()
+                    else:
+                        ckpt.wait()
+                        back = ckpt.latest()
+                        params, opt_state, data_step = _restore(ckpt, back, params,
+                                                                opt_state)
+                        data.seek(data_step)
+                        guard_state = optim.init_guard_state(args.spike_window, device)
+                        step_guard.reset()
+                        step_guard.rollbacks += 1
+                        gmetrics.record_rollback()
+                        if status_path:
+                            gmetrics.write(status_path)
+                        print(f"guard: rolled back to step {back} (data step {data_step})")
+                        step = back
+                    continue
+            # never commit mid-skip-streak (see TrainSupervisor.run)
+            if ckpt and ((step % args.ckpt_every == 0 and not skipped)
+                         or preempt.should_stop):
+                ckpt.save(step, (params, opt_state), extra={"data_step": data.state()["step"]})
+                if gmetrics is not None:
+                    gmetrics.record_commit()
+                    if status_path:
+                        gmetrics.write(status_path)
+                    snap = gmetrics.snapshot()
+                    print(f"commit step {step}: skipped {snap['steps_skipped']}/"
+                          f"{snap['steps_total']} retries {snap['retries']} "
+                          f"rollbacks {snap['rollbacks']}")
+                else:
+                    print(f"commit step {step}")
+            if preempt.should_stop:
+                print("preempted: checkpoint flushed, exiting cleanly")
+                break
+    finally:
+        preempt.uninstall()
+        if prefetch is not None:
+            prefetch.close()
+        if ckpt:
+            ckpt.wait()
+    if ckpt:
+        for r in ckpt.records:
+            if r["op"] == "save":
+                what = (f"snapshot {r['snapshot_s']:.3f} s, flush "
+                        f"{r.get('flush_s', float('nan')):.3f} s")
+            else:
+                what = f"{r['seconds']:.3f} s" + (", CRC verified" if r["verified"] else "")
+            print(f"checkpoint {r['op']} step {r['step']}: {r['bytes']} bytes, {what}")
+    if losses:
+        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     return losses
 
 

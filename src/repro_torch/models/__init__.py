@@ -1,9 +1,15 @@
-"""The dense decoder (OLMo) of the serving and training paths."""
+"""The dense decoder (OLMo) of the serving and training paths.
+
+``init_params`` / ``forward`` / ``prefill`` / ``decode_step`` /
+``make_caches`` are the public contract of the launchers, as in the
+reference's ``repro.models``; ``losses`` holds the training losses."""
 
 from repro_torch.models.model import (  # noqa: F401
     decode_step,
+    forward,
     forward_hidden,
     init_params,
     make_caches,
     prefill,
 )
+from repro_torch.models import losses  # noqa: F401

@@ -1,20 +1,25 @@
-"""Attention: projections, the kernel prefill route, KV caches and decode.
+"""Attention: projections, the two train/prefill routes, KV caches and decode.
 
 Port of ``repro/models/attention.py`` for global causal self-attention.
 Activations keep the reference's (B, S, H, D) layout; the kernel takes
 (B, H, S, D), as the reference's does.
 
-  train and prefill: ``self_attention_train`` runs
+  train and prefill: ``self_attention_train`` runs, with ``use_kernels``,
            ``kernels.flash_attention_diff`` -- the kernel forward,
-           differentiable by dense recompute (the chunked non-kernel route
-           ``flash_attention_xla`` is not ported: ``use_kernels=False``
-           raises NotImplementedError).
+           differentiable by dense recompute -- and without it
+           ``flash_attention_xla``: q and kv tiled into chunks with an
+           online softmax, O(Sq x kv_chunk) score memory, each kv chunk
+           under ``torch.utils.checkpoint`` (the reference's
+           ``jax.checkpoint``: the backward pass recomputes each score tile
+           instead of keeping every one of every layer).
   decode:  ``self_attention_decode`` writes the new K/V into the cache and
-           runs ``decode_attention``, plain torch whose softmax denominator
-           is a row sum of ``repro_torch.reduce`` on
-           ``backend_for_flags(mma)``: the ones-MMA route with the paper's
-           technique on, plain ``torch`` with it off, and the step passes
-           ``mma=cfg.mma_reductions``, as the reference's does.
+           runs ``decode_attention``.
+
+Both non-kernel routes multiply bf16-rounded operands with f32
+accumulation, as the reference's einsums do, and take the softmax
+denominator as a row sum of ``repro_torch.reduce`` on
+``backend_for_flags(mma)``: the ones-MMA route with the paper's technique
+on, plain ``torch`` with it off; the steps pass ``mma=cfg.mma_reductions``.
 
 KV caches are written IN PLACE (the reference's are immutable arrays). The
 serving runtime may retry a decode step from its committed state; the step
@@ -26,7 +31,10 @@ bitwise (tests/test_torch_serve.py checks both).
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import kernels as K
 from repro_torch.kernels.common import bf16_round
@@ -55,21 +63,85 @@ def _project_qkv(p, x, n_heads, n_kv, d_head):
     return q, k, v
 
 
+def _online_block(m, l, acc, qc, kc, vc, qpos, kpos, *, causal, window, kv_len, scale,
+                  mma):
+    """One (q-chunk, kv-chunk) online-softmax update.
+
+    qc: (B, Hkv, G, Cq, D); kc/vc: (B, Hkv, Ck, D); m, l: (B, Hkv, G, Cq);
+    acc: (B, Hkv, G, Cq, Dv)."""
+    s = torch.matmul(bf16_round(qc), bf16_round(kc).transpose(-1, -2)[:, :, None]) * scale
+    mask = kpos[None, :] < kv_len
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
+    s = torch.where(mask, s, NEG)
+    m_new = torch.maximum(m, s.amax(-1))
+    e = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+    esum = R.reduce(e, -1, backend=R.backend_for_flags(mma))
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + esum
+    pv = torch.matmul(bf16_round(e), bf16_round(vc)[:, :, None])
+    return m_new, l_new, acc * alpha[..., None] + pv
+
+
+def flash_attention_xla(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0,
+                        q_chunk: int = 512, kv_chunk: int = 1024, mma: bool = True,
+                        sm_scale=None) -> torch.Tensor:
+    """Chunked attention with an online softmax, the reference's non-kernel
+    route. q: (B, Sq, H, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv) ->
+    (B, Sq, H, Dv) in q's dtype. Query i sits at position ``q_offset + i``;
+    ``window`` keeps keys less than ``window`` positions behind."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // hkv
+    scale = sm_scale if sm_scale is not None else d**-0.5
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    nq = -(-sq // q_chunk)
+    nk = -(-skv // kv_chunk)
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - sq))
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * kv_chunk - skv))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * kv_chunk - skv))
+    qg = qp.reshape(b, nq * q_chunk, hkv, g, d).permute(0, 2, 3, 1, 4)  # (B, Hkv, G, Sq, D)
+    kg = kp.permute(0, 2, 1, 3)                                         # (B, Hkv, Skv, D)
+    vg = vp.permute(0, 2, 1, 3)
+    block = functools.partial(_online_block, causal=causal, window=window, kv_len=skv,
+                              scale=scale, mma=mma)
+    # inference keeps no tiles for a backward pass: no recompute needed
+    step = (functools.partial(checkpoint, block, use_reentrant=False)
+            if torch.is_grad_enabled() else block)
+    outs = []
+    for iq in range(nq):
+        qc = qg[:, :, :, iq * q_chunk:(iq + 1) * q_chunk]
+        qpos = q_offset + iq * q_chunk + torch.arange(q_chunk, device=q.device)
+        m = torch.full((b, hkv, g, q_chunk), NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, hkv, g, q_chunk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, hkv, g, q_chunk, dv), dtype=torch.float32, device=q.device)
+        for ik in range(nk):
+            sl = slice(ik * kv_chunk, (ik + 1) * kv_chunk)
+            kpos = ik * kv_chunk + torch.arange(kv_chunk, device=q.device)
+            m, l, acc = step(m, l, acc, qc, kg[:, :, sl], vg[:, :, sl], qpos, kpos)
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])        # (B, Hkv, G, Cq, Dv)
+    out = torch.cat(outs, 3).permute(0, 3, 1, 2, 4).reshape(b, nq * q_chunk, h, dv)
+    return out[:, :sq].to(q.dtype)
+
+
 def self_attention_train(p, x, positions, cfg, *, return_kv=False):
-    """(B, S, d) -> (B, S, d): causal self-attention, train/prefill path.
-    ``return_kv=True`` also returns the RoPE'd keys and the values
-    (B, S, Hkv, D) -- what the prefill writes into the cache."""
-    if not cfg.use_kernels:
-        raise NotImplementedError(
-            "the non-kernel attention route (the reference's chunked "
-            "flash_attention_xla) is not ported; use use_kernels=True"
-        )
+    """(B, S, d) -> (B, S, d): causal self-attention, train/prefill path,
+    on the kernel with ``cfg.use_kernels`` and on ``flash_attention_xla``
+    without it. ``return_kv=True`` also returns the RoPE'd keys and the
+    values (B, S, Hkv, D) -- what the prefill writes into the cache."""
     q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
-    out = K.flash_attention_diff(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True, None, 0, None
-    ).transpose(1, 2)
+    if cfg.use_kernels:
+        out = K.flash_attention_diff(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True, None, 0, None
+        ).transpose(1, 2)
+    else:
+        out = flash_attention_xla(q, k, v, causal=True, mma=cfg.mma_reductions)
     b, s = out.shape[0], out.shape[1]
     out = P.dense_apply(p["o"], out.reshape(b, s, -1))
     return (out, k, v) if return_kv else out

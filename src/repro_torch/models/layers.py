@@ -1,8 +1,12 @@
 """Shared layers: norms, FFNs, RoPE.
 
 Port of ``repro/models/layers.py`` (``norm_apply``, ``ffn_apply``,
-``rope``). The norms run the fused kernels of ``kernels.row_moments`` (the
-reference's ``use_pallas`` route); the non-kernel route is not ported.
+``rope``). With ``use_kernels`` the norms run the fused kernels of
+``kernels.row_moments`` (the reference's ``use_pallas`` route); without it
+their f32 row statistics are row reductions of the engine on
+``backend_for_flags(mma)`` -- the ones-MMA route with the paper's technique
+on, plain ``torch`` with it off -- and the normalization is applied in the
+activation dtype, as the reference applies it.
 """
 
 from __future__ import annotations
@@ -11,14 +15,35 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels as K
+from repro_torch import reduce as R
 from repro_torch.models import params as P
 
 
-def norm_apply(kind: str, p: dict, x: torch.Tensor, *, eps: float) -> torch.Tensor:
+def norm_apply(kind: str, p: dict, x: torch.Tensor, *, eps: float, mma: bool,
+               use_kernels: bool = False) -> torch.Tensor:
+    if use_kernels:
+        if kind == "rmsnorm":
+            return K.rmsnorm(x, p["scale"], eps)
+        if kind == "layernorm_np":
+            return K.layernorm_np(x, eps)
+    xf = x.to(torch.float32)
+    d = x.shape[-1]
+    backend = R.backend_for_flags(mma)
     if kind == "rmsnorm":
-        return K.rmsnorm(x, p["scale"], eps)
-    if kind == "layernorm_np":
-        return K.layernorm_np(x, eps)
+        # bf16 multipliers with f32 accumulation on the MMA route
+        ss = R.reduce(xf, axis=-1, kind="sumsq", backend=backend,
+                      compute_dtype="bfloat16" if mma else None)
+        rstd = torch.rsqrt(ss / d + eps).to(x.dtype)
+        return x * rstd[..., None] * p["scale"].to(x.dtype)
+    if kind in ("layernorm", "layernorm_np"):
+        s, ss = R.reduce(xf, axis=-1, kind="moments", backend=backend)
+        mu = s / d
+        var = torch.clamp_min(ss / d - mu * mu, 0.0)
+        rstd = torch.rsqrt(var + eps)
+        y = (x - mu[..., None].to(x.dtype)) * rstd[..., None].to(x.dtype)
+        if kind == "layernorm":
+            y = y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+        return y
     raise ValueError(f"norm {kind!r} is not ported")
 
 

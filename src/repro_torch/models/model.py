@@ -8,8 +8,17 @@ the stack is a Python loop.
   forward_hidden  (B, S) tokens -> final normed hidden, every layer under
                   ``torch.utils.checkpoint`` when ``cfg.remat`` (the
                   reference's ``jax.checkpoint`` of the scanned unit)
+  forward         (B, S) tokens -> (logits (B, S, vocab_size), aux): the
+                  teacher-forcing contract; aux is the f32 zero of the dense
+                  block (the reference's MoE load-balancing term)
   prefill         (B, S) tokens -> last-token logits, caches filled
   decode_step     one token per slot against the caches (written in place)
+
+Both routes run here: ``cfg.use_kernels`` puts the norms and the
+train/prefill attention on the CUDA kernels; without it they run the
+reference's non-kernel route (``layers.norm_apply``'s engine row
+statistics, ``attention.flash_attention_xla``), with ``cfg.mma_reductions``
+choosing the ones-MMA or the plain reduce backend.
 
 Logits are f32 (the head multiplies in f32, as the reference's einsum
 does) and pad-vocab masked. ``_head`` keeps the padded width (the chunked
@@ -64,7 +73,8 @@ def init_params(cfg, gen: torch.Generator, device) -> dict:
 
 
 def _norm(p, h, cfg):
-    return L.norm_apply(cfg.norm, p, h, eps=cfg.norm_eps)
+    return L.norm_apply(cfg.norm, p, h, eps=cfg.norm_eps, mma=cfg.mma_reductions,
+                        use_kernels=cfg.use_kernels)
 
 
 def _embed(params, tokens):
@@ -112,6 +122,13 @@ def forward_hidden(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
         else:
             h = block_train(p, h, positions, cfg)
     return _norm(params["final_norm"], h, cfg)
+
+
+def forward(params, cfg, tokens: torch.Tensor):
+    """Teacher-forcing forward. tokens: (B, S) -> (logits (B, S,
+    vocab_size) f32, aux f32 scalar)."""
+    h = forward_hidden(params, cfg, tokens)
+    return _head_public(params, cfg, h), torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def make_caches(cfg, batch: int, s_max: int, device) -> dict:

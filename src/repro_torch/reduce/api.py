@@ -611,8 +611,8 @@ def reduce_many(
                          f"axis (axis=-1); got axis={axis!r}")
     if mesh_axes:
         raise NotImplementedError(
-            "reduce_many(mesh_axes=...) is not ported: the distributed combine is ROADMAP.md "
-            "Queue 1 item 12")
+            "reduce_many(mesh_axes=...) is not ported: the distributed combine belongs to "
+            "the ROADMAP's distributed item")
     chain = _kcommon.normalize_epilogue(epilogue)
     if chain and axis is not None:
         raise ValueError(f"reduce_many epilogues apply to full reductions (axis=None); "

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and nothing in
 ``chip_smoke.py`` imports jax, jaxlib or the reference package ``repro``,
-and importing the serving entry point loads neither."""
+and importing the serving or the training entry point loads neither."""
 
 import ast
 import os
@@ -40,6 +40,29 @@ def test_serve_import_loads_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.launch.serve\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_guarded_training_modules_are_covered():
+    """The modules of the guarded training path are among the files
+    checked above."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in _sources()[:-1]}
+    assert {"checkpoint/manager.py", "runtime/fault_tolerance.py", "runtime/chaos.py",
+            "data/pipeline.py", "optim/adamw.py", "launch/train.py"} <= names
+
+
+def test_train_import_loads_neither_jax_nor_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.train, repro_torch.checkpoint, repro_torch.runtime\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -116,7 +116,7 @@ def test_reduce_many_empty_list_zero_size_and_epilogue():
         R.reduce_many(ts, kind="mean", epilogue=chain)
     with pytest.raises(ValueError):
         R.reduce_many(ts, axis=0)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="distributed item"):
         R.reduce_many(ts, mesh_axes="data")
 
 

@@ -148,7 +148,13 @@ def test_engine_without_gpu_raises(monkeypatch):
 
 
 def test_non_kernel_attention_route_not_ported():
-    cfg = dataclasses.replace(get_arch("olmo-1b", tiny=True), use_kernels=False)
-    eng = Engine(cfg, S_MAX, SLOTS, device="cpu")
-    with pytest.raises(NotImplementedError, match="flash_attention_xla"):
-        eng.serve(_prompts(1), 2)
+    """The non-kernel route (``use_kernels=False``: the chunked
+    ``flash_attention_xla`` and the engine's norm statistics) now serves:
+    from the same weights it gives the kernel route's greedy tokens (tiny
+    olmo in f32; the two routes round the same operands to bf16)."""
+    cfg = get_arch("olmo-1b", tiny=True)
+    kernel = Engine(cfg, S_MAX, SLOTS, device="cpu")
+    plain = Engine(dataclasses.replace(cfg, use_kernels=False), S_MAX, SLOTS, device="cpu",
+                   params=kernel.params)
+    prompts = _prompts(3)
+    assert plain.serve(prompts, 4) == kernel.serve(prompts, 4)

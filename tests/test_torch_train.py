@@ -11,7 +11,8 @@
     the reference with ``use_pallas=True`` and pallas_fused (interpret
     mode); plain AdamW, the fused second moment, and 2 microbatches. Per
     step: loss, grad norm, clip coefficient and every parameter.
-  * The CLI on the CPU, and its refusal without a GPU or ``--device``.
+  * The CLI on the CPU, and its refusal without a GPU or ``--device``, of
+    the distributed flags, and of ``--chaos`` without ``--guard``.
 
 Tolerances (tiny olmo is f32):
   * loss 1e-3: the token sum (K1) rounds each per-token loss to bf16, as
@@ -157,6 +158,7 @@ def test_cli_needs_a_device_or_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--arch", "olmo-1b", "--tiny", "--steps", "1"])
-    for flag in (["--guard"], ["--mesh"], ["--ckpt-dir", "x"], ["--chaos", "0.1"]):
+    # refused: the distributed flags, and the chaos drill without the guard
+    for flag in (["--mesh"], ["--guard", "--chaos-host", "1"], ["--chaos", "0.1"]):
         with pytest.raises(SystemExit):
             train_cli.main(["--arch", "olmo-1b", "--tiny", "--device", "cpu"] + flag)
