@@ -6,16 +6,36 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version at the full-width
 shapes of the serving and training paths (olmo-1b: d_model 2048, 16 heads
-of 128, vocab 50304 padded to 50432, bf16) and of the paper's reduction
+of 128, vocab 50304 padded to 50432, bf16; internlm2-1.8b: RMSNorm at
+2048, 16 query heads on 8 kv heads, vocab 92544 padded to 92672;
+deepseek-7b: RMSNorm at 4096, 32 heads) and of the paper's reduction
 (n = 2^28) and times it, checks tiny and 2-layer models end to end against
-the CPU (serving and training) and the reduction engine card against CPU,
-then drives the three main paths with every kernel launch counted:
+the CPU (serving and training; tiny olmo, internlm2 and deepseek) and the
+reduction engine card against CPU, then drives the main paths with every
+kernel launch counted by the launch meter
+(``repro_torch.reduce.inspect.count_kernel_launches``):
 
-  serving   full-width olmo-1b through the guarded runtime (8 requests,
-            prompt 256, 16 new tokens, 4 slots);
+  meter     ``measured_hbm_bytes`` of ``reduce`` on cuda_hier and on
+            cuda_fused's one-lane finish equal to ``ReducePlan.hbm_bytes
+            (...).launch_io`` at 2^28 f32 and bf16 (cuda_fused at the
+            device's lanes against ``cost_model.fused_launch_bytes``), and
+            ``assert_staging_free`` on the kernel routes of ``reduce``,
+            ``reduce_many`` and ``reduce_tree``;
+  autotune  ``reduce.autotune`` at 2^28 f32 and bf16: the winner and its
+            time beside the untuned auto plan's, and ``plan_for`` returning
+            the winner from its memo;
+  serving   full-width olmo-1b, internlm2-1.8b and deepseek-7b (in that
+            order, each engine freed before the next) through the guarded
+            runtime (8 requests, prompt 256, 16 new tokens, 4 slots), the
+            launches held to the config's model (``launches_per_step``:
+            K5b for RMSNorm, K5a for OLMo's LayerNorm);
   training  full-width olmo-1b, batch 4 x seq 512, 3 AdamW steps through
             ``python -m repro_torch.launch.train``'s ``main`` with
-            ``--reduce-backend cuda_fused``; then one step profiled;
+            ``--reduce-backend cuda_fused``; then one step profiled; the
+            same for internlm2-1.8b, plus one ``--guard`` step: its 219
+            gradient leaves take the clip statistic past K4's 128 parts
+            (the f32 pack, one K8 launch, the host census), whose bytes,
+            launches and device time are printed beside olmo's K4;
   paper     ``python -m repro_torch.launch.reduce_demo``'s ``main`` at
             n = 2^28: step counts, precision and time per backend, through
             the hierarchy's level kernel (K10), the moments kernel (K2)
@@ -96,25 +116,45 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
 LOSS_CHUNK = 512  # models.losses.lm_loss_chunked's seq_chunk
 
 
-def train_launches_per_step(n_layers: int) -> dict:
+def _norm_kernels(cfg, per: int) -> dict:
+    """``per`` launches of the config's norm kernel (K5b for RMSNorm, K5a
+    for OLMo's non-parametric LayerNorm) and none of the other."""
+    rms = cfg.norm == "rmsnorm"
+    return {"rmsnorm": per if rms else 0, "layernorm_np": 0 if rms else per}
+
+
+def clip_statistic_kernels(cfg) -> dict:
+    """The clip statistic's launches a step: one parts launch (K4) up to
+    ``PARTS_KERNEL_MAX`` gradient leaves; past it the tree is packed at f32
+    and summed by one segmented gather (K8), the reference's route past its
+    kernel's table."""
+    from repro_torch.kernels.mma_reduce import PARTS_KERNEL_MAX
+    from repro_torch.launch.train import param_leaves
+
+    parts = param_leaves(cfg) <= PARTS_KERNEL_MAX
+    return {"mma_sum_parts": int(parts), "mma_sum_segments": int(not parts)}
+
+
+def train_launches_per_step(cfg) -> dict:
     """Kernel launches per training step under remat. Forward: two norms
     per layer plus the final norm, one attention per layer; backward: each
     layer recomputed (two norms, one attention). The chunked loss runs the
     CE kernel in its forward and again in its recompute; the token sum's
     kernel runs once, because its backward reads nothing of its output and
     the recompute stops at the last tensor the backward needs. The clip
-    statistic is one parts launch."""
+    statistic: ``clip_statistic_kernels``."""
     chunks = -(-TRAIN_SEQ // LOSS_CHUNK)
-    return {"layernorm_np": 4 * n_layers + 1, "flash_attention": 2 * n_layers,
-            "cross_entropy": 2 * chunks, "mma_sum_fused": chunks, "mma_sum_parts": 1,
-            "rmsnorm": 0}
+    return dict(_norm_kernels(cfg, 4 * cfg.n_layers + 1), **clip_statistic_kernels(cfg),
+                flash_attention=2 * cfg.n_layers, cross_entropy=2 * chunks,
+                mma_sum_fused=chunks)
 
 
-def launches_per_step(n_layers: int):
+def launches_per_step(cfg):
     """Kernel launches per prefill and per decode step: two norms per layer
-    plus the final norm, prefill attention per layer, one logit statistic."""
-    prefill = {"layernorm_np": 2 * n_layers + 1, "flash_attention": n_layers,
-               "mma_sum_parts": 1}
+    plus the final norm, prefill attention per layer, one logit statistic
+    (K4 over the slots' logits)."""
+    prefill = dict(_norm_kernels(cfg, 2 * cfg.n_layers + 1), flash_attention=cfg.n_layers,
+                   mma_sum_parts=1)
     decode = dict(prefill, flash_attention=0)
     return prefill, decode
 
@@ -153,6 +193,9 @@ KERNELS = ("mma_sum_parts", "layernorm_np", "rmsnorm", "flash_attention", "cross
 PAPER_KERNELS = ("mma_moments_fused", "mma_sum_kahan", "tile_partials")
 MULTI_KERNELS = ("mma_sum_segments", "mma_scan")
 PAPER_N = 2**28  # the reduce demo's n: 1.07 GB of f32
+# The dense archs, each served at full width; internlm2-1.8b also trains at
+# full width (deepseek-7b's training state does not fit one card).
+DENSE_ARCHS = ("olmo-1b", "internlm2-1.8b", "deepseek-7b")
 
 
 DEVICE = "cuda"
@@ -167,7 +210,37 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def counted_run(fn):
+    """``fn()`` with every kernel launch counted by the launch meter
+    (``repro_torch.reduce.inspect.count_kernel_launches``: every wrapper's
+    count set to 0 just before, read just after), the card synchronised on
+    both sides. Returns ``(fn's result, {kernel: launches})``. A wrapper
+    that ran its plain version in the run (an operand on the CPU) launched
+    nothing: the meter raises."""
+    import torch
+
+    from repro_torch.reduce.inspect import count_kernel_launches
+
+    torch.cuda.synchronize()
+
+    def synced():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+
+    return count_kernel_launches(synced)
+
+
+class EventsMs(float):
+    """A time taken by CUDA events (``time_ms``), not by the profiler: the
+    kernels line names each time's source (``timed_by``)."""
+
+
+def timed_by(ms) -> str:
+    return "cuda_events" if isinstance(ms, EventsMs) else "profiler"
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> EventsMs:
     """Mean time of one CALL: CUDA events around ``iters`` back-to-back
     calls after ``warmup`` calls. Where the host takes longer to issue a
     call than the device to run it, this is the host's time per call."""
@@ -183,7 +256,7 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return EventsMs(start.elapsed_time(end) / iters)
 
 
 def _self_device_us(evt) -> float:
@@ -232,13 +305,16 @@ def device_ms(fn, match: str | None = None, iters: int = 20, warmup: int = 3,
     A profiling session can drop device events (seen on this card: 1 to 3
     of 5 launches of a 1.5 ms kernel, a few hundred of the ~1800 kernels of
     one plain-version call), and a total divided by the call count then
-    reads short; the means over what such sessions did record have read
-    one kernel 12% apart on one card. So a pair of sessions whose launch
-    counts differ (one call against ``iters`` calls) is run again, up to
-    ``tries`` in all; if every pair dropped events, each device item's time
-    is its mean over the launches the profiler did record, times its
-    launches per call: the larger of the two sessions' counts. With
-    ``match``, the call must have run a kernel whose name contains it."""
+    reads short. So a pair of sessions whose launch counts differ (one call
+    against ``iters`` calls) is run again, up to ``tries`` in all. The
+    means over what such sessions did record are no time either: they have
+    read K8 and K9 at 2^28 below the HBM bound. So where every pair dropped
+    events, or every session came back empty (most often late in a long
+    run: K11 after some hundred sessions), the call is timed by CUDA events
+    instead (``time_ms``: the device's time where the call keeps it busy,
+    else the host's issue time), this is printed, and the kernels line says
+    so (``timed_by``). With ``match``, the call must have run a kernel
+    whose name contains it."""
     import torch
 
     for _ in range(warmup):
@@ -256,22 +332,20 @@ def device_ms(fn, match: str | None = None, iters: int = 20, warmup: int = 3,
         else:
             print(f"profiling sessions {attempt} of {what}: launch counts differ (events "
                   "dropped)")
-    if not (one or many):
-        raise SmokeFailure(f"the profiler recorded no device time for {what} in {tries} sessions")
-    total_us, dropped = 0.0, False
-    for key in set(one) | set(many):
-        c1, u1 = one.get(key, (0, 0.0))
-        cn, un = many.get(key, (0, 0.0))
-        per_call = max(c1, cn / iters)
-        dropped |= c1 != cn / iters
-        total_us += (u1 + un) / (c1 + cn) * per_call
-    if dropped:
-        print(f"profiling of {what}: launch counts differ between sessions (events dropped); "
-              "timed by each item's mean over its recorded launches")
+    recorded = set(one) | set(many)
+    if not recorded:
+        print(f"the profiler recorded no device time for {what} in {tries} sessions: timed by "
+              "CUDA events")
+        return time_ms(fn, iters=iters, warmup=0)
     if match is not None:
-        check(any(match in k for k in set(one) | set(many)),
+        check(any(match in k for k in recorded),
               f"the profiler recorded no device time for a kernel named {match}")
-    return total_us / 1e3
+    if any(one.get(k, (0, 0.0))[0] * iters != many.get(k, (0, 0.0))[0] for k in recorded):
+        print(f"profiling of {what}: launch counts differ in all {tries} pairs of sessions "
+              "(events dropped): timed by CUDA events")
+        return time_ms(fn, iters=iters, warmup=0)
+    return sum((u1 + un) / (c1 + cn) * c1 for (c1, u1), (cn, un)
+               in ((one[k], many[k]) for k in recorded)) / 1e3
 
 
 def bound_ms(nbytes: float, tensor_flops: float = 0.0, core_flops: float = 0.0):
@@ -1086,15 +1160,11 @@ def check_auto_route(gen) -> None:
     import torch
 
     from repro_torch import reduce as R
-    from repro_torch.kernels import common
 
     x = torch.randn((PAPER_N,), generator=gen, device=DEVICE) + 0.5
     plan = R.plan_for(x.shape, x.dtype, device=x.device)
-    torch.cuda.synchronize()
-    common.reset_launches()
-    got = R.reduce(x)
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in common.launch_counts().items() if v}
+    got, launches = counted_run(lambda: R.reduce(x))
+    launches = {k: v for k, v in launches.items() if v}
     exact = float(x.double().sum())
     err = abs(float(got) - exact)
     print(f"reduce(x) on auto, 2^28 f32 on the card: plan backend {plan.backend}, launches "
@@ -1104,11 +1174,8 @@ def check_auto_route(gen) -> None:
     check(err <= 2.0**-8 * float(x.double().abs().sum()), "auto reduce at 2^28: off the f64 sum")
     x64 = x[:2 * 128 * 128].double()
     plan64 = R.plan_for(x64.shape, x64.dtype, device=x64.device)
-    torch.cuda.synchronize()
-    common.reset_launches()
-    got64 = R.reduce(x64)
-    torch.cuda.synchronize()
-    launches64 = {k: v for k, v in common.launch_counts().items() if v}
+    got64, launches64 = counted_run(lambda: R.reduce(x64))
+    launches64 = {k: v for k, v in launches64.items() if v}
     err64 = abs(float(got64) - float(x64.sum()))
     print(f"reduce(x) on auto, 2*128^2 f64 on the card: plan backend {plan64.backend}, "
           f"launches {launches64}, |d| vs torch.sum {err64:.4g}")
@@ -1532,7 +1599,6 @@ def run_multi_reduce_path() -> dict:
     from repro_torch import reduce as R
     from repro_torch.configs import get_arch
     from repro_torch.data import packing_offsets
-    from repro_torch.kernels import common
     from repro_torch.launch.reduce_demo import packed_offsets
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -1543,18 +1609,18 @@ def run_multi_reduce_path() -> dict:
               for shape in olmo_leaf_shapes(get_arch("olmo-1b"))]
     lengths = torch.randint(0, 8000, (SEGMENTS,), generator=gen, device=DEVICE).to(torch.int32)
     xb = x.to(torch.bfloat16)
-    torch.cuda.synchronize()
-    common.reset_launches()
+
+    def path():
+        return (R.reduce_many(docs, backend="cuda_fused"),
+                R.reduce_many(leaves, kind="sum", backend="cuda_fused"),
+                R.reduce_many(leaves, kind="moments", backend="cuda_fused"),
+                repro_torch.scan(x), repro_torch.scan(xb),
+                packing_offsets(lengths, backend="cuda_fused"))
+
     t0 = time.perf_counter()
-    per_doc = R.reduce_many(docs, backend="cuda_fused")
-    leaf_sums = R.reduce_many(leaves, kind="sum", backend="cuda_fused")
-    leaf_s, leaf_ss = R.reduce_many(leaves, kind="moments", backend="cuda_fused")
-    prefix = repro_torch.scan(x)
-    prefix_b = repro_torch.scan(xb)
-    offs = packing_offsets(lengths, backend="cuda_fused")
-    torch.cuda.synchronize()
+    out, launches = counted_run(path)
     wall = time.perf_counter() - t0
-    launches = common.launch_counts()
+    per_doc, leaf_sums, (leaf_s, leaf_ss), prefix, prefix_b, offs = out
     print(f"multi-reduce and scan path: {wall:.2f} s; launches {launches}")
     check(per_doc.shape == (SEGMENTS,) and bool(torch.isfinite(per_doc).all()),
           "reduce_many over the packed documents: bad result")
@@ -1580,18 +1646,12 @@ def run_reduce_demo() -> dict:
     """The paper's main path: ``launch.reduce_demo``'s ``main`` at n = 2^28
     on the card, every kernel launch counted. Returns the launch counts."""
     import numpy as np
-    import torch
 
-    from repro_torch.kernels import common
     from repro_torch.launch import reduce_demo
 
-    torch.cuda.synchronize()
-    common.reset_launches()
     t0 = time.perf_counter()
-    out = reduce_demo.main(["--n", str(PAPER_N)])
-    torch.cuda.synchronize()
+    out, launches = counted_run(lambda: reduce_demo.main(["--n", str(PAPER_N)]))
     wall = time.perf_counter() - t0
-    launches = common.launch_counts()
     print(f"reduce demo at n = {PAPER_N}: {wall:.2f} s; launches {launches}")
     for n, m, levels, steps, eq16, _, s_meas, s17 in out["steps"]:
         check(steps == 5 * levels and abs(eq16 - steps) < 1e-9 and abs(s_meas - s17) < 1e-9,
@@ -1843,17 +1903,13 @@ def run_matmul_stats_path() -> dict:
     f64 product's. Returns the launch counts."""
     import torch
 
-    from repro_torch.kernels import common, matmul_stats
+    from repro_torch.kernels import matmul_stats
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     operands = [ms_operands(m, dtype, gen) for m, dtype in MS_CASES]
-    torch.cuda.synchronize()
-    common.reset_launches()
     t0 = time.perf_counter()
-    outs = [matmul_stats(x, w) for x, w in operands]
-    torch.cuda.synchronize()
+    outs, launches = counted_run(lambda: [matmul_stats(x, w) for x, w in operands])
     wall = time.perf_counter() - t0
-    launches = common.launch_counts()
     print(f"matmul_stats path: {wall * 1e3:.2f} ms for {len(MS_CASES)} calls; launches "
           f"{launches}")
     for (x, w), (y, s, ss) in zip(operands, outs):
@@ -1878,11 +1934,115 @@ def run_matmul_stats_path() -> dict:
 # ------------------------------- model checks --------------------------------
 
 
-def check_tiny_against_cpu() -> None:
-    """Tiny olmo (f32) served on the card with the kernels and on the CPU
+def logit_sensitivity(eng, tokens, trials: int = 8) -> float:
+    """The largest change of a CPU engine's prefill logits when its weights
+    are multiplied by 1 + 1e-7 N(0, 1) (``trials`` seeds): the bf16
+    roundings inside the kernels' plain versions (the norms' squares,
+    attention's q, k, v and p) flip under such a change, as they may under
+    the card's f32 sums in other orders."""
+    import torch
+
+    def perturbed(tree, gen):
+        if isinstance(tree, torch.Tensor):
+            return tree * (1 + 1e-7 * torch.randn(tree.shape, generator=gen))
+        if isinstance(tree, dict):
+            return {k: perturbed(v, gen) for k, v in tree.items()}
+        return [perturbed(v, gen) for v in tree]
+
+    worst = 0.0
+    with torch.inference_mode():
+        base, _ = eng._prefill(eng.params, tokens)
+        for seed in range(trials):
+            got, _ = eng._prefill(perturbed(eng.params, torch.Generator().manual_seed(seed)),
+                                  tokens)
+            worst = max(worst, float((got - base).abs().max()))
+    return worst
+
+
+def replay_kernels_on_card(eng, tokens) -> float:
+    """Every kernel call of a CPU engine's prefill (the norms and attention,
+    whose plain versions run there) replayed on the card with the same
+    inputs: the largest difference between a kernel's output and its plain
+    version's. It isolates the kernels from the rounding flips that the
+    end-to-end comparison sees."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    names = ("flash_attention_diff", "rmsnorm", "layernorm_np")
+    real = {name: getattr(K, name) for name in names}
+    calls = []
+
+    def recorder(name):
+        def call(*args):
+            out = real[name](*args)
+            calls.append((name, args, out))
+            return out
+        return call
+
+    for name in names:
+        setattr(K, name, recorder(name))
+    try:
+        with torch.inference_mode():
+            eng._prefill(eng.params, tokens)
+    finally:
+        for name in names:
+            setattr(K, name, real[name])
+    worst = 0.0
+    with torch.inference_mode():
+        for name, args, out in calls:
+            dev = [a.to(DEVICE) if isinstance(a, torch.Tensor) else a for a in args]
+            got = real[name](*dev).cpu().float()
+            worst = max(worst, float((got - out.float()).abs().max()))
+    check(bool(calls), "no kernel call was replayed")
+    return worst
+
+
+def prefill_with_wrong_kv_heads(eng, tokens):
+    """The engine's prefill logits with a fault planted in attention: query
+    head h reads kv head h mod Hkv (the right one is h // (Hq / Hkv)), or,
+    with as many kv heads as query heads, kv head h + 1 mod Hkv. A limit
+    on the card-vs-CPU logits must fail it."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    real = K.flash_attention_diff
+
+    def wrong(q, k, v, *rest):
+        hq, hkv = q.shape[1], k.shape[1]
+        if hkv < hq:
+            k, v = k.repeat(1, hq // hkv, 1, 1), v.repeat(1, hq // hkv, 1, 1)
+        else:
+            k, v = k.roll(1, 1), v.roll(1, 1)
+        return real(q, k, v, *rest)
+
+    K.flash_attention_diff = wrong
+    try:
+        with torch.inference_mode():
+            logits, _ = eng._prefill(eng.params, tokens)
+    finally:
+        K.flash_attention_diff = real
+    return logits
+
+
+def check_tiny_against_cpu(arch: str = "olmo-1b") -> None:
+    """Tiny ``arch`` (f32) served on the card with the kernels and on the CPU
     with their plain versions, from the same weights: the same greedy tokens,
-    and prefill logits within 1e-3 (f32 sums in other orders; one bf16
-    rounding of an intermediate may flip)."""
+    and prefill logits within 1e-3 for olmo (f32 sums in other orders; one
+    bf16 rounding of an intermediate may flip). For the archs added later
+    every kernel call of the CPU prefill is replayed on the card
+    (``replay_kernels_on_card``: within 1e-5, f32 rounding), and the
+    logits are held within 0.01. ``tools/logit_gap_probe.py`` set it: the
+    f32 ops outside the kernels sum in other orders on the card, and where
+    that carries one of the kernels' bf16-rounded operands (attention's q,
+    k, v, the norms' squares) across a rounding boundary the flips cascade;
+    over 32 weight seeds of the tiny dense archs at 2 and 4 kv heads the
+    gap reached 0.0075 (GQA's share: 0, against the kv heads expanded onto
+    the MHA path), and a planted fault moved the logits by at least 3.47
+    (a wrong kv-head mapping), 0.18 (the softmax scale 10% off) and 0.018
+    (1% off). A wrong kv-head mapping is planted here too and must fail
+    the limit (``prefill_with_wrong_kv_heads``)."""
     import numpy as np
     import torch
 
@@ -1890,7 +2050,7 @@ def check_tiny_against_cpu() -> None:
     from repro_torch.launch.serve import GuardedEngine
     from repro_torch.runtime import Request, ServingRuntime
 
-    cfg = get_arch("olmo-1b", tiny=True)
+    cfg = get_arch(arch, tiny=True)
     gpu = GuardedEngine(cfg, 32, 2, seed=0)
     cpu_params = _cpu_copy(gpu.params)
     cpu = GuardedEngine(cfg, 32, 2, device="cpu", params=cpu_params)
@@ -1906,11 +2066,24 @@ def check_tiny_against_cpu() -> None:
         packed = np.stack(prompts[:2]).astype(np.int64)
         lg, _ = gpu._prefill(gpu.params, torch.from_numpy(packed).to(DEVICE))
         lc, _ = cpu._prefill(cpu.params, torch.from_numpy(packed))
+        wrong = prefill_with_wrong_kv_heads(gpu, torch.from_numpy(packed).to(DEVICE))
     err = float((lg.cpu() - lc).abs().max())
-    print(f"tiny olmo f32, card vs CPU: prefill logits max_abs_err {err:.3g} (tol 1e-3); "
-          f"greedy tokens equal: {outs[0] == outs[1]}")
-    check(outs[0] == outs[1], "tiny olmo: card and CPU tokens differ")
-    check(err <= 1e-3, "tiny olmo: card and CPU logits differ")
+    fault = float((wrong.cpu() - lc).abs().max())
+    tol = 1e-3 if arch == "olmo-1b" else 0.01
+    extra = ""
+    if arch != "olmo-1b":
+        replay = replay_kernels_on_card(cpu, torch.from_numpy(packed))
+        sens = logit_sensitivity(cpu, torch.from_numpy(packed))
+        extra = (f"; every kernel call replayed on the card: max_abs_err {replay:.3g} (tol "
+                 f"1e-5); the CPU's own logits move by {sens:.3g} under 1e-7 relative weight "
+                 "noise")
+        check(replay <= 1e-5, f"tiny {arch}: a kernel differs from its plain version")
+    print(f"tiny {arch} f32, card vs CPU: prefill logits max_abs_err {err:.3g} (tol {tol:.3g})"
+          f"{extra}; greedy tokens equal: {outs[0] == outs[1]}; with a wrong kv-head mapping "
+          f"planted on the card: {fault:.3g} (must exceed the tol)")
+    check(outs[0] == outs[1], f"tiny {arch}: card and CPU tokens differ")
+    check(err <= tol, f"tiny {arch}: card and CPU logits differ")
+    check(fault > tol, f"tiny {arch}: the limit passes a wrong kv-head mapping")
 
 
 def _cpu_copy(tree):
@@ -1924,14 +2097,19 @@ def _cpu_copy(tree):
     return [_cpu_copy(v) for v in tree]
 
 
-def serve_full_width() -> dict:
-    """Full-width olmo-1b through GuardedEngine + ServingRuntime, every
-    kernel launch counted. Returns the launch counts of this run."""
+def serve_full_width(arch: str = "olmo-1b") -> dict:
+    """Full-width ``arch`` through GuardedEngine + ServingRuntime, every
+    kernel launch counted and held to the config's launch model
+    (``launches_per_step``); the census total must be 0. Prints tokens/s,
+    the per-step latency p50/p99 and the bytes held on the card, then
+    profiles a prefill and a decode step. Returns the launch counts and
+    the figures."""
+    import gc
+
     import numpy as np
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import common
     from repro_torch.launch.serve import GuardedEngine
     from repro_torch.runtime import Request, ServingRuntime
 
@@ -1948,12 +2126,16 @@ def serve_full_width() -> dict:
             censuses.append(out[2])
             return out
 
-    cfg = get_arch("olmo-1b")
+    cfg = get_arch(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     eng = RecordingEngine(cfg, PROMPT + MAX_NEW + 1, SLOTS, seed=0)
     torch.cuda.synchronize()
-    print(f"olmo-1b: {cfg.param_count() / 1e9:.3f} B parameters initialised on the card "
-          f"in {time.time() - t0:.1f} s")
+    held = torch.cuda.memory_allocated()
+    print(f"{arch}: {cfg.param_count() / 1e9:.3f} B parameters initialised on the card in "
+          f"{time.time() - t0:.1f} s; {held / 1e9:.2f} GB held on the card")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=(PROMPT,)).astype(np.int32)
                for _ in range(REQUESTS)]
@@ -1961,41 +2143,50 @@ def serve_full_width() -> dict:
     ServingRuntime(eng).serve([Request(rid=0, prompt=prompts[0], max_new=2)])
     censuses.clear()
     runtime = ServingRuntime(eng)
-    torch.cuda.synchronize()
-    common.reset_launches()
     t0 = time.perf_counter()
-    results = runtime.serve([Request(rid=i, prompt=p, max_new=MAX_NEW)
-                             for i, p in enumerate(prompts)])
-    torch.cuda.synchronize()
+    results, launches = counted_run(lambda: runtime.serve(
+        [Request(rid=i, prompt=p, max_new=MAX_NEW) for i, p in enumerate(prompts)]))
     wall = time.perf_counter() - t0
-    launches = common.launch_counts()
     snap = runtime.metrics.snapshot()
     n_tok = sum(len(r.tokens) for r in results if r.ok)
-    print(f"served {sum(r.ok for r in results)}/{REQUESTS} requests, {n_tok} tokens in "
-          f"{wall:.3f} s: {n_tok / wall:.1f} tok/s; per-step latency p50 "
-          f"{snap['token_latency_p50_s'] * 1e3:.2f} ms p99 "
-          f"{snap['token_latency_p99_s'] * 1e3:.2f} ms; breaker_trips "
-          f"{snap['breaker_trips']}; launches {launches}")
-    check(all(r.ok and len(r.tokens) == MAX_NEW for r in results), "serving did not complete")
-    check(all(0 <= t < cfg.vocab_size for r in results for t in r.tokens), "token out of range")
-    check(snap["breaker_trips"] == 0, "the breaker tripped")
+    figures = {"tokens_per_s": n_tok / wall, "p50_ms": snap["token_latency_p50_s"] * 1e3,
+               "p99_ms": snap["token_latency_p99_s"] * 1e3, "held_gb": held / 1e9,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{arch}: served {sum(r.ok for r in results)}/{REQUESTS} requests, {n_tok} tokens "
+          f"in {wall:.3f} s: {figures['tokens_per_s']:.1f} tok/s; per-step latency p50 "
+          f"{figures['p50_ms']:.2f} ms p99 {figures['p99_ms']:.2f} ms; breaker_trips "
+          f"{snap['breaker_trips']}; peak device memory {figures['peak_gb']:.2f} GB; "
+          f"launches {launches}")
+    check(all(r.ok and len(r.tokens) == MAX_NEW for r in results), f"{arch}: serving did not "
+          "complete")
+    check(all(0 <= t < cfg.vocab_size for r in results for t in r.tokens),
+          f"{arch}: token out of range")
+    check(snap["breaker_trips"] == 0, f"{arch}: the breaker tripped")
     total_census = float(sum(float(c[-1]) for c in censuses))
-    print(f"census total over {len(censuses)} steps: {total_census}")
-    check(total_census == 0.0, "non-finite logits in the full-width run")
-    per_prefill, per_decode = launches_per_step(cfg.n_layers)
+    print(f"{arch}: census total over {len(censuses)} steps: {total_census}")
+    check(total_census == 0.0, f"{arch}: non-finite logits in the full-width run")
+    per_prefill, per_decode = launches_per_step(cfg)
     expected = {k: WAVES * (per_prefill[k] + (MAX_NEW - 1) * per_decode[k])
                 for k in per_prefill}
     for k, n in expected.items():
-        check(launches[k] == n, f"{k}: {launches[k]} launches, expected {n}")
-    check(launches["rmsnorm"] == 0, "rmsnorm is not on the olmo path")
-    profile_steps(eng, prompts[:SLOTS])
-    return launches
+        check(launches[k] == n, f"{arch}: {k}: {launches[k]} launches, expected {n}")
+    if cfg.norm == "layernorm_np":
+        check(launches["rmsnorm"] == 0, "rmsnorm is not on the olmo path")
+    else:
+        check(launches["rmsnorm"] > 0 and launches["layernorm_np"] == 0,
+              f"{arch}: K5b is not on the path")
+    figures.update(profile_steps(eng, prompts[:SLOTS]))
+    del eng, runtime
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, figures
 
 
-def profile_steps(eng, prompts) -> None:
+def profile_steps(eng, prompts) -> dict:
     """Where a step's time goes: the device's busy time per step (profiler:
     every kernel, memset and copy) against the step's wall time (host clock,
-    measured without the profiler), and the kernels that take the most."""
+    measured without the profiler), and the kernels that take the most.
+    Returns ``{"<step>_wall_ms", "<step>_busy_ms"}``."""
     import torch
 
     scales = [1.0] * SLOTS
@@ -2006,6 +2197,7 @@ def profile_steps(eng, prompts) -> None:
         # write is idempotent, so every repeat is the same step
         "decode": lambda: eng.decode(state, scales, "cuda_fused"),
     }
+    out = {}
     for name, step in steps.items():
         step()
         torch.cuda.synchronize()
@@ -2014,18 +2206,21 @@ def profile_steps(eng, prompts) -> None:
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / 5 * 1e3
-        per_step, _ = launches_per_step(eng.cfg.n_layers)
-        expect = {"::row_norm_kernel<": 5 * per_step["layernorm_np"], "::parts_kernel<": 5}
+        per_step, _ = launches_per_step(eng.cfg)
+        norms = per_step["layernorm_np"] + per_step["rmsnorm"]
+        expect = {"::row_norm_kernel<": 5 * norms, "::parts_kernel<": 5}
         if name == "prefill":
             expect["::attn_fwd_kernel<"] = 5 * per_step["flash_attention"]
         events = complete_events(lambda: [step() for _ in range(5)], expect, 1,
                                  f"the {name} step")
         busy_ms = sum(us for _, us in events.values()) / 5 / 1e3
         top = sorted(events.items(), key=lambda kv: kv[1][1], reverse=True)[:6]
-        print(f"{name} step (4 slots): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-              f"idle share {max(0.0, 1.0 - busy_ms / wall_ms):.3f}")
+        print(f"{eng.cfg.name} {name} step (4 slots): wall {wall_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms, idle share {max(0.0, 1.0 - busy_ms / wall_ms):.3f}")
         for key, (count, us) in top:
             print(f"    {us / 5 / 1e3:8.4f} ms/step  {count // 5:4d}x  {key[:90]}")
+        out[f"{name}_wall_ms"], out[f"{name}_busy_ms"] = wall_ms, busy_ms
+    return out
 
 
 def check_full_width_against_cpu() -> None:
@@ -2061,8 +2256,8 @@ def check_full_width_against_cpu() -> None:
     check(max(errs) <= 0.25, "full-width logits: card and CPU differ")
 
 
-def check_tiny_training_against_cpu() -> None:
-    """Tiny olmo (f32), 2 train steps on ``cuda_fused`` with the fused
+def check_tiny_training_against_cpu(arch: str = "olmo-1b") -> None:
+    """Tiny ``arch`` (f32), 2 train steps on ``cuda_fused`` with the fused
     second moment, on the card (kernels) and on the CPU (plain versions),
     from the same weights and batches. Loss within 1e-3 (the token sum
     rounds each per-token loss to bf16; one of them a few ulps apart can
@@ -2078,7 +2273,7 @@ def check_tiny_training_against_cpu() -> None:
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.train import build
 
-    cfg = get_arch("olmo-1b", tiny=True)
+    cfg = get_arch(arch, tiny=True)
     tcfg = TrainConfig(total_steps=2, warmup_steps=1, fused_second_moment=True)
     gparams, gopt, gstep = build(cfg, tcfg, DEVICE)
     cparams, copt, cstep = build(cfg, tcfg, "cpu", params=_cpu_copy(gparams))
@@ -2091,10 +2286,11 @@ def check_tiny_training_against_cpu() -> None:
                  for a, b in zip(R.tree_leaves(gparams), R.tree_leaves(cparams)))
         dl = abs(float(gm["loss"]) - float(cm["loss"]))
         dg = abs(float(gm["grad_norm"]) - float(cm["grad_norm"])) / float(cm["grad_norm"])
-        print(f"tiny olmo training step {step}, card vs CPU: loss {float(gm['loss']):.6f} vs "
+        print(f"tiny {arch} training step {step}, card vs CPU: loss {float(gm['loss']):.6f} vs "
               f"{float(cm['loss']):.6f} (|d| {dl:.3g}, tol 1e-3), grad norm rel. diff {dg:.3g} "
               f"(tol 1e-3), params max |d| {dp:.3g} (tol 1e-5)")
-        check(dl <= 1e-3 and dg <= 1e-3 and dp <= 1e-5, "tiny olmo training: card and CPU differ")
+        check(dl <= 1e-3 and dg <= 1e-3 and dp <= 1e-5,
+              f"tiny {arch} training: card and CPU differ")
 
 
 def check_full_width_training_against_cpu() -> None:
@@ -2129,50 +2325,152 @@ def check_full_width_training_against_cpu() -> None:
           "full-width training step: card and CPU differ")
 
 
-def train_full_width() -> dict:
-    """Full-width olmo-1b, batch 4 x seq 512, 3 AdamW steps through the
+def train_full_width(arch: str = "olmo-1b", guarded_steps: int = 0) -> dict:
+    """Full-width ``arch``, batch 4 x seq 512, 3 AdamW steps through the
     training CLI's ``main`` (``--reduce-backend cuda_fused``), every kernel
-    launch counted; then steps of a fresh model profiled. Returns the
-    launch counts."""
+    launch counted and held to ``train_launches_per_step``; with
+    ``guarded_steps``, that many steps through ``main --guard`` after it,
+    counted the same way; then steps of a fresh model profiled. Returns
+    the launch counts (the guarded run's under "guarded") and the profile."""
+    import gc
+
     import numpy as np
     import torch
 
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import common
     from repro_torch.launch import train as train_cli
 
-    cfg = get_arch("olmo-1b")
+    cfg = get_arch(arch)
+    argv = ["--arch", arch, "--reduce-backend", "cuda_fused", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--log-every", "1"]
+    per_step = train_launches_per_step(cfg)
+    runs = {"plain": ([], TRAIN_STEPS)}
+    if guarded_steps:
+        runs["guarded"] = (["--guard"], guarded_steps)
+    out = {}
+    for name, (extra, steps) in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses, launches = counted_run(
+            lambda: train_cli.main(argv + extra + ["--steps", str(steps)]))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"{arch} {name}: trained {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+              f"{wall:.2f} s (initialisation included); losses {losses}; peak device memory "
+              f"{peak:.2f} GB; launches {launches}")
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"{arch} {name}: non-finite training loss")
+        for k, n in per_step.items():
+            check(launches[k] == n * steps,
+                  f"{arch} {name} training: {k}: {launches[k]} launches, expected {n * steps}")
+        out[name] = dict(launches, peak_gb=peak)
+    gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    common.reset_launches()
-    t0 = time.perf_counter()
-    losses = train_cli.main([
-        "--arch", "olmo-1b", "--reduce-backend", "cuda_fused", "--steps", str(TRAIN_STEPS),
-        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
-    ])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = common.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"trained {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {wall:.2f} s "
-          f"(initialisation included); losses {losses}; peak device memory {peak:.2f} GiB; "
-          f"launches {launches}")
-    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), "non-finite training loss")
-    per_step = train_launches_per_step(cfg.n_layers)
-    for k, n in per_step.items():
-        check(launches[k] == n * TRAIN_STEPS,
-              f"training: {k}: {launches[k]} launches, expected {n * TRAIN_STEPS}")
     params, opt, step_fn = train_cli.build(cfg, TrainConfig(total_steps=10, warmup_steps=1),
                                            DEVICE)
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
     batches = [{"tokens": torch.from_numpy(data.next()["tokens"]).to(DEVICE)} for _ in range(4)]
-    prof = profile_train_step(step_fn, params, opt, batches)
+    prof = profile_train_step(cfg, step_fn, params, opt, batches, what=f"{arch} train step")
+    del params, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = out.pop("plain")
+    launches["guarded"] = out.get("guarded")
     return launches, prof
 
 
-def profile_train_step(step_fn, params, opt, batches, guard=None, what="train step") -> dict:
+def profile_clip_statistic(arch: str, olmo_k4_ms: float) -> dict:
+    """The guarded clip statistic of full-width ``arch`` on the card: the
+    norm, clip coefficient and census of seeded gradients of its parameter
+    shapes (bf16), through ``optim.global_norm_and_clip(census=True)`` on
+    cuda_fused. Past 128 leaves it takes the reference's route: every leaf
+    squared at f32 and packed, one K8 launch over the pack, and the census
+    counted on the host, leaf by leaf. Prints the pack's bytes, the launches,
+    the device time of the whole statistic and of its pieces (profiler),
+    beside olmo-1b's one-launch K4 at its training shape (``olmo_k4_ms``).
+    Also holds K8 against its plain version on the pack's segments."""
+    import gc
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch import reduce as R
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.mma_reduce import mma_sum_segments, mma_sum_segments_plain
+    from repro_torch.launch.train import param_leaves
+    from repro_torch.models import init_params
+
+    cfg = get_arch(arch)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    with torch.no_grad():
+        grads = init_params(cfg, gen, DEVICE)
+    leaves = R.tree_leaves(grads)
+    n = sum(t.numel() for t in leaves)
+    check(len(leaves) == param_leaves(cfg), f"{arch}: leaf count")
+    (gnorm, clip, counts), launches = counted_run(
+        lambda: optim.global_norm_and_clip(grads, 1.0, backend="cuda_fused", census=True))
+    launches = {k: v for k, v in launches.items() if v}
+    exact = float(sum(float(t.double().square().sum()) for t in leaves)) ** 0.5
+    rel = abs(float(gnorm) - exact) / exact
+    print(f"{arch} clip statistic: {len(leaves)} leaves, {n} values; route: pack {n * 4} bytes "
+          f"of f32 squares (peak {n * 8} bytes with the squared leaves), launches {launches}, "
+          f"host census {len(leaves)} passes; gnorm {float(gnorm):.6g} vs f64 {exact:.6g} "
+          f"(rel {rel:.3g}, tol 1e-5), clip {float(clip):.6g}, census total {float(counts[-1])}")
+    expected = {k: v for k, v in clip_statistic_kernels(cfg).items() if v}
+    check(launches == expected, f"{arch} clip statistic: launches {launches}, expected {expected}")
+    check(rel <= 1e-5 and float(counts[-1]) == 0.0, f"{arch} clip statistic: off the f64 norm")
+    events = complete_events(
+        lambda: optim.global_norm_and_clip(grads, 1.0, backend="cuda_fused", census=True),
+        {"::segments_kernel<": 1}, 1, f"the {arch} clip statistic")
+    busy_ms = sum(us for _, us in events.values()) / 1e3
+    k8_ms = sum(us for k, (_, us) in events.items() if "::segments_kernel<" in k) / 1e3
+    print(f"{arch} clip statistic device time {busy_ms:.3f} ms (K8 {k8_ms:.3f} ms, the pack "
+          f"and the host census the rest) against olmo-1b's one-launch K4 {olmo_k4_ms:.3f} ms")
+    for key, (count, us) in sorted(events.items(), key=lambda kv: kv[1][1], reverse=True)[:6]:
+        print(f"    {us / 1e3:9.4f} ms  {count:5d}x  {key[:90]}")
+    # K8 against its plain version at the pack's segments (f32 compute:
+    # bitwise, the same CUDA-core adds in the same order)
+    sizes = [t.numel() for t in leaves]
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + size)
+    pack = torch.cat([t.reshape(-1).float().square() for t in leaves])
+    del grads, leaves
+    gc.collect()
+    lanes = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    kw = dict(compute_dtype=torch.float32, num_lanes=lanes)
+    got = mma_sum_segments(pack, offsets, **kw)
+    want = mma_sum_segments_plain(pack, offsets, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"K8 at the {arch} clip statistic ({len(sizes)} segments, {n} f32): max_abs_err "
+          f"{err:.3g} vs plain (tol 0: the same f32 adds in the same order)")
+    check(torch.equal(got, want), f"K8 at the {arch} pack disagrees with its plain version")
+    lens = torch.tensor(sizes, device=DEVICE)
+    b8, by8 = bound_ms(n * 4 + len(sizes) * 4, core_flops=n)
+    timed = {
+        "max_abs_err": err, "segments": len(sizes), "n": n,
+        "ms": device_ms(lambda: mma_sum_segments(pack, offsets, **kw), "segments_kernel",
+                        iters=5),
+        "plain_ms": time_ms(lambda: mma_sum_segments_plain(pack, offsets, **kw), iters=2,
+                            warmup=1),
+        "bound_ms": b8, "bound_by": by8,
+        "library_ms": time_ms(lambda: torch.segment_reduce(pack, "sum", lengths=lens),
+                              iters=5, warmup=1),
+        "statistic_ms": busy_ms, "statistic_k8_ms": k8_ms, "olmo_k4_ms": olmo_k4_ms,
+    }
+    timed["timed_by"] = {k: timed_by(timed[k]) for k in ("ms", "plain_ms", "library_ms")}
+    del pack, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timed
+
+
+def profile_train_step(cfg, step_fn, params, opt, batches, guard=None,
+                       what="train step") -> dict:
     """Where a training step's time goes: wall time on the host clock
     (without the profiler) against the device's busy time (profiler: every
     kernel, memset and copy, from a session whose kernel counts match the
@@ -2180,8 +2478,6 @@ def profile_train_step(step_fn, params, opt, batches, guard=None, what="train st
     ``guard`` (a guard state) ``step_fn`` is a guarded step. Returns
     ``{"wall_ms", "busy_ms"}``."""
     import torch
-
-    from repro_torch.configs import get_arch
 
     def run(batch):
         nonlocal params, opt, guard
@@ -2197,10 +2493,11 @@ def profile_train_step(step_fn, params, opt, batches, guard=None, what="train st
         run(batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 2 * 1e3
-    n = train_launches_per_step(get_arch("olmo-1b").n_layers)
-    expect = {"::row_norm_kernel<": n["layernorm_np"], "::attn_fwd_kernel<": n["flash_attention"],
-              "::ce_kernel<": n["cross_entropy"], "::fused_sum_kernel<": n["mma_sum_fused"],
-              "::parts_kernel<": n["mma_sum_parts"]}
+    n = train_launches_per_step(cfg)
+    expect = {"::row_norm_kernel<": n["layernorm_np"] + n["rmsnorm"],
+              "::attn_fwd_kernel<": n["flash_attention"], "::ce_kernel<": n["cross_entropy"],
+              "::fused_sum_kernel<": n["mma_sum_fused"], "::parts_kernel<": n["mma_sum_parts"],
+              "::segments_kernel<": n["mma_sum_segments"]}
     events = complete_events(lambda: run(batches[3]), expect, 1, f"the {what}")
     busy_ms = sum(us for _, us in events.values()) / 1e3
     print(f"{what} (4 x 512 tokens): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
@@ -2264,7 +2561,6 @@ def run_nonkernel_route() -> dict:
     from repro_torch import models
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import common
     from repro_torch.models import losses
 
     t_phase = time.time()
@@ -2281,14 +2577,14 @@ def run_nonkernel_route() -> dict:
     per_tok, means, fwd_ms, launches = {}, {}, {}, {}
     with torch.inference_mode():
         for name, c in routes.items():
-            torch.cuda.synchronize()
-            common.reset_launches()
-            logits, aux = models.forward(params, c, inputs)
-            loss, _ = losses.lm_loss(logits, labels, aux, c)
-            per_tok[name] = losses.cross_entropy_tokens(logits, labels, mma=c.mma_reductions,
-                                                        use_kernels=c.use_kernels)
-            torch.cuda.synchronize()
-            launches[name] = {k: v for k, v in common.launch_counts().items() if v}
+            def route(c=c):
+                logits, aux = models.forward(params, c, inputs)
+                loss, _ = losses.lm_loss(logits, labels, aux, c)
+                return logits, loss, losses.cross_entropy_tokens(
+                    logits, labels, mma=c.mma_reductions, use_kernels=c.use_kernels)
+
+            (logits, loss, per_tok[name]), counts = counted_run(route)
+            launches[name] = {k: v for k, v in counts.items() if v}
             means[name] = float(loss)
             check(logits.shape == (TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
                   and bool(torch.isfinite(logits).all()), f"non-finite logits on route {name}")
@@ -2358,21 +2654,16 @@ def run_guarded_training(plain_busy_ms: float) -> dict:
     from repro_torch import optim
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import common
     from repro_torch.launch import train as train_cli
     from repro_torch.runtime import ChaosMonkey
 
     t_phase = time.time()
     cfg = get_arch("olmo-1b")
     torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    common.reset_launches()
-    losses, out = run_captured(lambda: train_cli.main([
+    (losses, out), launches = counted_run(lambda: run_captured(lambda: train_cli.main([
         "--arch", "olmo-1b", "--guard", "--reduce-backend", "cuda_fused",
         "--steps", str(GUARD_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-        "--log-every", "1"], chaos=ChaosMonkey(nan_steps=(2,))))
-    torch.cuda.synchronize()
-    launches = common.launch_counts()
+        "--log-every", "1"], chaos=ChaosMonkey(nan_steps=(2,)))))
     skipped = [ln for ln in out.splitlines() if ln.startswith("guard: step 2 skipped")]
     nonfinite = float(skipped[0].split("nonfinite ")[1].split(",")[0]) if skipped else 0.0
     print(f"guarded CLI run: losses {losses}; step 2 skipped: {bool(skipped)}, census "
@@ -2381,7 +2672,7 @@ def run_guarded_training(plain_busy_ms: float) -> dict:
           "guarded training: non-finite loss")
     check(bool(skipped) and nonfinite > 0, "guarded training: the NaN step was not skipped")
     check(out.count(" skipped (") == 1, "guarded training: a clean step was skipped")
-    per_step = train_launches_per_step(cfg.n_layers)
+    per_step = train_launches_per_step(cfg)
     for k, n in per_step.items():
         check(launches[k] == n * GUARD_STEPS,
               f"guarded training: {k}: {launches[k]} launches, expected {n * GUARD_STEPS}")
@@ -2393,10 +2684,9 @@ def run_guarded_training(plain_busy_ms: float) -> dict:
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=6)
     batches = [{"tokens": torch.from_numpy(data.next()["tokens"]).to(DEVICE)} for _ in range(5)]
     pparams, popt, pm = plain(pparams, popt, batches[0])
-    common.reset_launches()
-    gparams, gopt, guard, gm = guarded(gparams, gopt, guard, batches[0])
-    torch.cuda.synchronize()
-    k4_clean = common.launch_counts()["mma_sum_parts"]
+    (gparams, gopt, guard, gm), counts = counted_run(
+        lambda: guarded(gparams, gopt, guard, batches[0]))
+    k4_clean = counts["mma_sum_parts"]
     equal = _bitwise_equal(_state_tensors(gparams, gopt), _state_tensors(pparams, popt))
     print(f"clean guarded step vs plain step, same state and batch: loss {float(gm['loss'])!r} "
           f"vs {float(pm['loss'])!r}, skipped {float(gm['skipped'])}, parameters, moments and "
@@ -2406,11 +2696,10 @@ def run_guarded_training(plain_busy_ms: float) -> dict:
     del pparams, popt, plain
     torch.cuda.empty_cache()
     before = [t.detach().clone() for t in _state_tensors(gparams, gopt)]
-    common.reset_launches()
     poisoned = dict(batches[1], chaos_scale=torch.full((1,), float("nan"), device=DEVICE))
-    gparams, gopt, guard, gm = guarded(gparams, gopt, guard, poisoned)
-    torch.cuda.synchronize()
-    k4_bad = common.launch_counts()["mma_sum_parts"]
+    (gparams, gopt, guard, gm), counts = counted_run(
+        lambda: guarded(gparams, gopt, guard, poisoned))
+    k4_bad = counts["mma_sum_parts"]
     unchanged = _bitwise_equal(_state_tensors(gparams, gopt), before)
     print(f"NaN-poisoned guarded step: nonfinite {float(gm['nonfinite']):.0f}, skipped "
           f"{float(gm['skipped'])}, parameters, moments and step bitwise unchanged: "
@@ -2421,7 +2710,7 @@ def run_guarded_training(plain_busy_ms: float) -> dict:
     check(k4_bad == 1, f"the poisoned guarded step launched K4 {k4_bad} times")
     del before
     torch.cuda.empty_cache()
-    prof = profile_train_step(guarded, gparams, gopt, batches[1:], guard=guard,
+    prof = profile_train_step(cfg, guarded, gparams, gopt, batches[1:], guard=guard,
                               what="guarded train step")
     print(f"guarded step device busy {prof['busy_ms']:.3f} ms against the plain step's "
           f"{plain_busy_ms:.3f} ms (this run): {prof['busy_ms'] - plain_busy_ms:+.3f} ms")
@@ -2457,7 +2746,6 @@ def run_rollback_drill() -> dict:
 
     from repro_torch.checkpoint import CheckpointCorruptionError, CheckpointManager
     from repro_torch.configs import TrainConfig, get_arch
-    from repro_torch.kernels import common
     from repro_torch.launch import train as train_cli
     from repro_torch.runtime import ChaosMonkey
 
@@ -2466,15 +2754,11 @@ def run_rollback_drill() -> dict:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="rollback_drill_", dir=os.path.join(ROOT, "build"))
     try:
-        torch.cuda.synchronize()
-        common.reset_launches()
-        losses, out = run_captured(lambda: train_cli.main([
+        (losses, out), launches = counted_run(lambda: run_captured(lambda: train_cli.main([
             "--arch", "olmo-1b", "--guard", "--reduce-backend", "cuda_fused",
             "--steps", str(DRILL_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
             "--ckpt-dir", tmp, "--ckpt-every", "5", "--max-bad-steps", "3",
-            "--log-every", "1"], cfg=cfg, chaos=ChaosMonkey(nan_steps=(3, 4, 5))))
-        torch.cuda.synchronize()
-        launches = common.launch_counts()
+            "--log-every", "1"], cfg=cfg, chaos=ChaosMonkey(nan_steps=(3, 4, 5)))))
         rolled = re.findall(r"guard: rolled back to step (\d+) \(data step (\d+)\)", out)
         records = re.findall(r"checkpoint (save|restore) step (\d+): (\d+) bytes, (.*)", out)
         print(f"rollback drill: losses {losses}; rollbacks {rolled}; launches {launches}")
@@ -2525,6 +2809,255 @@ def run_rollback_drill() -> dict:
 # ----------------------------------- main ------------------------------------
 
 
+# --------------------- the dense archs' shapes, the meter, autotune ---------------------
+
+# internlm2-1.8b: vocabulary 92544, padded to 92672 (128 pad columns)
+INTERNLM2_VOCAB, INTERNLM2_PADDED = 92544, 92672
+
+
+def _sdpa_gqa(q, k, v):
+    """PyTorch's attention on GQA operands: ``enable_gqa`` where this
+    PyTorch has it, else the kv heads repeated."""
+    import torch.nn.functional as F
+
+    rep = q.shape[1] // k.shape[1]
+    try:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=rep > 1)
+    except TypeError:
+        k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+
+def check_dense_shapes(results: dict) -> None:
+    """K5b, K6 and K7 at the shapes internlm2-1.8b and deepseek-7b give
+    them, each against its plain version and timed beside its bound and its
+    PyTorch call (the kernel and the PyTorch call by the profiler's device
+    time; the plain version, many small kernels, by CUDA events around the
+    call, which keeps the run's profiler sessions fewer): RMSNorm (bf16,
+    gamma bf16) at the decode rows, the prefill rows and the training rows
+    at d = 2048, and at the decode and prefill rows at d = 4096; attention
+    at 16 query heads on 8 kv heads (GQA) for the prefill and the training
+    shape, and 32 on 32 at deepseek's prefill; the cross-entropy over
+    (2048, 92672) f32 logits, 128 pad columns at -1e30. Tolerances as
+    ``check_norms``, ``check_attention`` and ``check_cross_entropy``. The
+    figures go under the kernels' "dense_archs" and "internlm2" keys."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cross_entropy, flash_attention, rmsnorm
+    from repro_torch.kernels.cross_entropy import cross_entropy_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.row_moments import plan_for, rmsnorm_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    rms_lib = getattr(F, "rms_norm", None)
+    norms = {}
+    for arch, d, rows_all in (("internlm2", 2048, (SLOTS, SLOTS * PROMPT,
+                                                   TRAIN_BATCH * TRAIN_SEQ)),
+                              ("deepseek", 4096, (SLOTS, SLOTS * PROMPT))):
+        for rows in rows_all:
+            x = (torch.randn((rows, d), generator=gen, device=DEVICE) * 3 + 1).to(torch.bfloat16)
+            gamma = (torch.rand((d,), generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16)
+            got, want = rmsnorm(x, gamma, 1e-6), rmsnorm_plain(x, gamma, 1e-6)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            print(f"K5b rmsnorm ({rows}, {d}) bf16 ({arch}): max_abs_err {err:.3g} vs plain "
+                  f"(tol: 1 bf16 ulp); route {plan_for(x, gamma).name}")
+            check(bf16_ulp_ok(got, want), f"rmsnorm disagrees with its plain version at "
+                  f"({rows}, {d})")
+            b, by = bound_ms(2 * x.numel() * 2 + d * 2, tensor_flops=x.numel() * 16,
+                             core_flops=5 * x.numel())
+            norms[f"{arch}_{rows}x{d}"] = {
+                "max_abs_err": err,
+                "ms": device_ms(lambda: rmsnorm(x, gamma, 1e-6), "row_norm_kernel"),
+                "plain_ms": time_ms(lambda: rmsnorm_plain(x, gamma, 1e-6), iters=20),
+                "bound_ms": b, "bound_by": by,
+                "library_ms": (device_ms(lambda: rms_lib(x, (d,), gamma, 1e-6))
+                               if rms_lib is not None else None),
+                "norm_route": plan_for(x, gamma).name,
+            }
+    attn = {}
+    for arch, b_, hq, hkv, s_ in (("internlm2_train", TRAIN_BATCH, 16, 8, TRAIN_SEQ),
+                                  ("internlm2_prefill", SLOTS, 16, 8, PROMPT),
+                                  ("deepseek_prefill", SLOTS, 32, 32, PROMPT)):
+        q = (torch.randn((b_, hq, s_, 128), generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
+        k = (torch.randn((b_, hkv, s_, 128), generator=gen, device=DEVICE) * 0.5).to(
+            torch.bfloat16)
+        v = (torch.randn((b_, hkv, s_, 128), generator=gen, device=DEVICE) * 0.5).to(
+            torch.bfloat16)
+        got, want = flash_attention(q, k, v, causal=True), flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        print(f"K6 flash_attention {arch} ({b_}, {hq} q / {hkv} kv heads, {s_}, 128) bf16: "
+              f"max_abs_err {err:.3g} vs plain (tol: 2 bf16 ulps of the output)")
+        check(bool(torch.all((got.float() - want.float()).abs()
+                             <= 2.0**-6 * want.float().abs() + 2e-3)),
+              f"flash_attention disagrees with its plain version at {arch}")
+        lib = _sdpa_gqa(q, k, v)
+        lib_err = float((lib.float() - got.float()).abs().max())
+        print(f"    against PyTorch's attention: max |d| {lib_err:.3g}")
+        pairs = _causal_pairs(s_, s_, 0, None) * b_ * hq
+        bb, by = bound_ms((2 * q.numel() + 2 * k.numel()) * 2, tensor_flops=4 * 128 * pairs,
+                          core_flops=pairs)
+        attn[arch] = {
+            "max_abs_err": err,
+            "ms": device_ms(lambda: flash_attention(q, k, v, causal=True), "attn_fwd_kernel"),
+            "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), iters=5, warmup=1),
+            "bound_ms": bb, "bound_by": by,
+            "library_ms": device_ms(lambda: _sdpa_gqa(q, k, v)),
+        }
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    logits = torch.randn((rows, INTERNLM2_PADDED), generator=gen, device=DEVICE) * 3
+    logits[:, INTERNLM2_VOCAB:] = -1e30
+    labels = torch.randint(0, INTERNLM2_VOCAB, (rows,), generator=gen, device=DEVICE)
+    got, want = cross_entropy(logits, labels), cross_entropy_plain(logits, labels)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    cut = cross_entropy(logits[:, :INTERNLM2_VOCAB].contiguous(), labels)
+    d_cut = float((cut - got).abs().max())
+    print(f"K7 cross_entropy ({rows}, {INTERNLM2_PADDED}) f32 (internlm2, 128 pad columns, a "
+          f"ragged last slice): max_abs_err {err:.3g} vs plain (tol 1e-3); cut to the "
+          f"{INTERNLM2_VOCAB} real columns: max |d| {d_cut:.3g} (tol 1e-6)")
+    check(err <= 1e-3 and bool(torch.isfinite(got).all()),
+          "cross_entropy disagrees with its plain version at the internlm2 vocabulary")
+    check(d_cut <= 1e-6, "cross_entropy: padded and cut widths differ at the internlm2 vocabulary")
+    n = logits.numel()
+    bc, byc = bound_ms(n * 4 + rows * 8, tensor_flops=16 * n, core_flops=4 * n)
+    lab64 = labels.to(torch.int64)
+    ce = {
+        "max_abs_err": err,
+        "ms": device_ms(lambda: cross_entropy(logits, labels), "::ce_kernel<"),
+        "plain_ms": time_ms(lambda: cross_entropy_plain(logits, labels), iters=5, warmup=1),
+        "bound_ms": bc, "bound_by": byc,
+        "library_ms": device_ms(lambda: F.cross_entropy(logits, lab64, reduction="none")),
+    }
+    results["rmsnorm"]["dense_archs"] = norms
+    results["flash_attention"]["dense_archs"] = attn
+    results["cross_entropy"]["internlm2"] = ce
+    for key, t in list(norms.items()) + list(attn.items()) + [("internlm2 ce", ce)]:
+        lib = "-" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f}"
+        print(f"{key}: device {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+              f"library {lib} us, bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}")
+
+
+def run_meter_phase() -> dict:
+    """The launch meter on the card at 2^28 f32 and bf16: the bytes the
+    wrappers note (``measured_hbm_bytes``) equal ``ReducePlan.hbm_bytes(...)
+    .launch_io`` for ``reduce`` on cuda_hier (every level) and on
+    cuda_fused's one-lane in-launch finish; at the device's lanes
+    cuda_fused's read side equals the plan model's and the whole launch
+    equals ``cost_model.fused_launch_bytes`` (the port's kernel folds its
+    lanes in the launch, where the reference's model charges (C, m, m)
+    partials). ``assert_staging_free`` on the kernel routes of ``reduce``,
+    ``reduce_many`` over 100 arrays and ``reduce_tree`` over the same."""
+    import torch
+
+    from repro_torch import reduce as R
+    from repro_torch.core import cost_model
+    from repro_torch.kernels.mma_reduce import default_num_lanes
+
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    out = {}
+    x32 = torch.randn((PAPER_N,), generator=gen, device=DEVICE)
+    for x in (x32, x32.to(torch.bfloat16)):
+        name = str(x.dtype)[6:]
+        n = x.numel()
+        hier = R.plan_for(x.shape, x.dtype, backend="cuda_hier")
+        one = R.plan_for(x.shape, x.dtype, backend="cuda_fused", num_lanes=1)
+        lanes = default_num_lanes(x)
+        many = R.plan_for(x.shape, x.dtype, backend="cuda_fused", num_lanes=lanes)
+        got = {
+            "cuda_hier": (R.measured_hbm_bytes(R.reduce, x, plan=hier),
+                          hier.hbm_bytes(n, x.dtype).launch_io),
+            "cuda_fused one lane, sqrt in the launch": (
+                R.measured_hbm_bytes(R.reduce, x, plan=one, epilogue="sqrt"),
+                one.hbm_bytes(n, x.dtype, epilogue=1).launch_io),
+        }
+        for what, (meas, model) in got.items():
+            print(f"meter {what} at 2^28 {name}: measured {meas} bytes, plan model {model} "
+                  f"(must be equal)")
+            check(meas == model, f"meter: {what} at {name}: {meas} != {model}")
+        _, records = R.launch_records(R.reduce, x, plan=many)
+        port = cost_model.fused_launch_bytes(n, x.element_size(), num_lanes=lanes)
+        ref = many.hbm_bytes(n, x.dtype)
+        print(f"meter cuda_fused at {lanes} lanes, 2^28 {name}: read {records[0].read_bytes} "
+              f"(plan model {ref.kernel_read} + the lanes' words read back), written "
+              f"{records[0].write_bytes} (fused_launch_bytes {port.kernel_write}; the "
+              f"reference's model charges {ref.kernel_write} of (C, m, m) partials)")
+        check(len(records) == 1 and records[0].route == "kernel"
+              and records[0].read_bytes == port.kernel_read
+              and records[0].write_bytes == port.kernel_write
+              and port.kernel_read - (port.kernel_write - 4) == ref.kernel_read,
+              f"meter: cuda_fused at {lanes} lanes, {name}")
+        for backend in ("cuda_fused", "cuda_hier"):
+            R.assert_staging_free(R.reduce, x, backend=backend)
+        out[name] = {k: v[0] for k, v in got.items()}
+    sizes = torch.randint(2**16, 2**20, (100,), generator=gen, device=DEVICE).tolist()
+    arrays = [torch.randn((s,), generator=gen, device=DEVICE) for s in sizes]
+    floor = min(a.numel() for a in arrays)
+    R.assert_staging_free(R.reduce_many, arrays, backend="cuda_fused", min_elems=floor)
+    R.assert_staging_free(R.reduce_tree, arrays, kind="norm2", backend="cuda_fused",
+                          min_elems=floor)
+    total = sum(a.numel() for a in arrays)
+    parts = R.plan_for((total,), torch.float32, backend="cuda_fused")
+    meas = R.measured_hbm_bytes(R.reduce_many, arrays, plan=parts)
+    model = parts.hbm_bytes(total, torch.float32, segments=len(arrays)).launch_io
+    print(f"meter reduce_many over {len(arrays)} arrays ({total} f32): measured {meas}, plan "
+          f"model {model}; staging-free: reduce, reduce_many, reduce_tree on the kernel routes")
+    check(meas == model, "meter: reduce_many's parts launch")
+    return out
+
+
+def run_autotune_phase() -> dict:
+    """``autotune((2**28,), f32)`` and bf16 on the card over every backend
+    (cuda_fused sweeping tiles_per_block 2, 4, 8, 16 x 1, 2, 4 CTAs per SM;
+    cuda_hier the tiles): the winner and its time beside the untuned auto
+    plan's, timed the same way (CUDA events, best of 3 after a warm call);
+    then ``plan_for`` on auto returns the winner from the memo (its hits
+    rise). The tuned table is cleared after, so the later phases keep the
+    untuned route."""
+    import torch
+
+    from repro_torch import reduce as R
+    from repro_torch.reduce.plan import _elapsed_s
+
+    out = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        x = torch.randn((PAPER_N,), generator=gen, device=DEVICE).to(dtype)
+        R.plan_cache_clear(clear_tuned=True)
+        auto = R.plan_for(x.shape, dtype, device=x.device)
+        with torch.no_grad():
+            auto_s = _elapsed_s(lambda: R.reduce(x, plan=auto), x.device, 3)
+        del x
+        timings = {}
+        t0 = time.perf_counter()
+        best = R.autotune((PAPER_N,), dtype, timings=timings)
+        wall = time.perf_counter() - t0
+        before = R.plan_cache_info()
+        first = R.plan_for((PAPER_N,), dtype, device=DEVICE)
+        again = R.plan_for((PAPER_N,), dtype, device=DEVICE)
+        after = R.plan_cache_info()
+        print(f"autotune 2^28 {name}: {len(timings)} candidates in {wall:.1f} s; winner "
+              f"{best.backend} tiles_per_block {best.tiles_per_block} lanes {best.num_lanes}: "
+              f"{timings[best] * 1e3:.4f} ms; untuned auto plan {auto.backend} (tiles "
+              f"{auto.tiles_per_block}, lanes {auto.num_lanes}): {auto_s * 1e3:.4f} ms; "
+              f"plan_for hits {after.hits - before.hits}, misses {after.misses - before.misses}")
+        for plan, secs in sorted(timings.items(), key=lambda kv: kv[1])[:5]:
+            print(f"    {secs * 1e3:9.4f} ms  {plan.backend} tiles {plan.tiles_per_block} "
+                  f"lanes {plan.num_lanes}")
+        check((first.backend, first.tiles_per_block, first.num_lanes)
+              == (best.backend, best.tiles_per_block, best.num_lanes) and again is first
+              and after.hits - before.hits == 1, f"autotune {name}: plan_for did not return the "
+              "winner from the memo")
+        out[name] = {"winner": [best.backend, best.tiles_per_block, best.num_lanes],
+                     "winner_ms": timings[best] * 1e3, "auto_ms": auto_s * 1e3,
+                     "candidates": len(timings)}
+    R.plan_cache_clear(clear_tuned=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2564,13 +3097,25 @@ def main() -> int:
     check_fused_sum(results, gen)
     check_tile_partials(results, gen)
     check_moments_and_kahan(results, gen)
+    check_matmul_stats(results, gen)
+    ms_launches = run_matmul_stats_path()
+    torch.cuda.empty_cache()
     check_reduce_against_cpu(gen)
     check_auto_route(gen)
     torch.cuda.empty_cache()
+    check_dense_shapes(results)
+    torch.cuda.empty_cache()
+    meter = run_meter_phase()
+    torch.cuda.empty_cache()
+    tuned = run_autotune_phase()
+    torch.cuda.empty_cache()
     check_backward_times(results, gen)
-    check_tiny_against_cpu()
+    for arch in DENSE_ARCHS:
+        check_tiny_against_cpu(arch)
     check_full_width_against_cpu()
-    serve_launches = serve_full_width()
+    serve_launches, serving = {}, {}
+    for arch in DENSE_ARCHS:  # the olmo and internlm2 engines are freed before deepseek's
+        serve_launches[arch], serving[arch] = serve_full_width(arch)
     torch.cuda.empty_cache()
     nonkernel = run_nonkernel_route()
     torch.cuda.empty_cache()
@@ -2579,12 +3124,17 @@ def main() -> int:
 
     R.set_default_backend("cuda_fused")  # the training CLI's --reduce-backend cuda_fused
     try:
-        check_tiny_training_against_cpu()
+        for arch in DENSE_ARCHS:
+            check_tiny_training_against_cpu(arch)
         check_full_width_training_against_cpu()
         check_parts_training(results, gen)
         train_launches, train_prof = train_full_width()
         guarded = run_guarded_training(train_prof["busy_ms"])
         drill = run_rollback_drill()
+        torch.cuda.empty_cache()
+        intern_launches, intern_prof = train_full_width("internlm2-1.8b", guarded_steps=1)
+        clip_stat = profile_clip_statistic("internlm2-1.8b",
+                                           results["mma_sum_parts"]["census_on_ms"])
     finally:
         R.set_default_backend(None)
     torch.cuda.empty_cache()
@@ -2599,24 +3149,31 @@ def main() -> int:
     multi_launches = run_multi_reduce_path()
     torch.cuda.empty_cache()
     paper_launches = run_reduce_demo()
-    torch.cuda.empty_cache()
-    check_matmul_stats(results, gen)
-    ms_launches = run_matmul_stats_path()
 
     kernels = []
+    results["mma_sum_segments"]["internlm2_clip_statistic"] = clip_stat
+    olmo_serve = serve_launches["olmo-1b"]
     for name in KERNELS:
         r = results[name]
         main_path = (paper_launches if name in PAPER_KERNELS else
                      multi_launches if name in MULTI_KERNELS else
-                     ms_launches if name == "matmul_stats" else train_launches)
+                     ms_launches if name == "matmul_stats" else
+                     intern_launches if name == "rmsnorm" else train_launches)
+        check(main_path[name] > 0, f"{name} was not launched on its main path")
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name], "launches": main_path[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "timed_by": {k: timed_by(r[k]) for k in ("ms", "plain_ms", "library_ms")
+                         if r[k] is not None},
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "call_ms": r["call_ms"],
             "launches_training": train_launches[name],
-            "launches_serving": serve_launches[name], "launches_paper": paper_launches[name],
+            "launches_serving": olmo_serve[name], "launches_paper": paper_launches[name],
+            "launches_serving_internlm2": serve_launches["internlm2-1.8b"][name],
+            "launches_serving_deepseek": serve_launches["deepseek-7b"][name],
+            "launches_training_internlm2": intern_launches[name],
+            "launches_guarded_training_internlm2": intern_launches["guarded"][name],
             "launches_multi_reduce": multi_launches[name],
             "launches_matmul_stats": ms_launches[name],
             "launches_guarded_training": guarded["launches"][name],
@@ -2629,7 +3186,7 @@ def main() -> int:
         lib = "-" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.1f} us"
         shape = ("2^28 f32" if k["name"] in PAPER_KERNELS + MULTI_KERNELS
                  else "(2048x8192)@(8192x2048) bf16" if k["name"] == "matmul_stats"
-                 else "the training shape")
+                 else "the olmo training shape")
         print(f"{k['name']}: device {k['ms'] * 1e3:.2f} us per call at {shape} "
               f"(whole call {k['call_ms'] * 1e3:.1f} us; plain {k['plain_ms'] * 1e3:.1f} us, "
               f"library {lib}, bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}), "
@@ -2644,6 +3201,15 @@ def main() -> int:
           f"{k4['census_on_ms']:.4f} ms, without {k4['census_off_ms']:.4f} ms; non-kernel "
           f"route forward ms {nonkernel['forward_ms']}; checkpoints "
           f"{[(op, int(st), int(b), w) for op, st, b, w in drill['records']]}")
+    for arch, f in serving.items():
+        print(f"serving {arch}: {f['tokens_per_s']:.1f} tok/s, p50 {f['p50_ms']:.2f} ms, p99 "
+              f"{f['p99_ms']:.2f} ms, held {f['held_gb']:.2f} GB; prefill wall "
+              f"{f['prefill_wall_ms']:.3f} ms busy {f['prefill_busy_ms']:.3f} ms; decode wall "
+              f"{f['decode_wall_ms']:.3f} ms busy {f['decode_busy_ms']:.3f} ms")
+    print(f"training internlm2-1.8b: step wall {intern_prof['wall_ms']:.3f} ms, device busy "
+          f"{intern_prof['busy_ms']:.3f} ms (olmo-1b {train_prof['wall_ms']:.3f} / "
+          f"{train_prof['busy_ms']:.3f} ms); clip statistic {clip_stat}")
+    print(f"meter: {meter}; autotune: {tuned}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

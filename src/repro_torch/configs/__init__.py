@@ -1,19 +1,31 @@
 """Architecture registry: ``--arch <id>`` resolution for the launchers.
 
 ARCHS maps arch id -> full ModelConfig (the published dims); TINY_ARCHS
-maps arch id -> a reduced same-family config small enough for the CPU.
-Only olmo-1b is ported so far.
+maps arch id -> a reduced same-family config small enough for the CPU;
+SHAPES maps the four assigned shape cells by name. The dense archs are
+ported: olmo-1b, internlm2-1.8b and deepseek-7b.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import olmo_1b
-from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: F401
+from repro_torch.configs import deepseek_7b, internlm2_1_8b, olmo_1b
+from repro_torch.configs.base import (  # noqa: F401
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    TRAIN_4K,
+    ModelConfig,
+    ShapeConfig,
+    TrainConfig,
+    shape_applicable,
+)
 
-_MODULES = (olmo_1b,)
+_MODULES = (olmo_1b, deepseek_7b, internlm2_1_8b)
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 TINY_ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.TINY for m in _MODULES}
+SHAPES: dict[str, ShapeConfig] = {s.name: s for s in ALL_SHAPES}
 
 
 def get_arch(name: str, tiny: bool = False) -> ModelConfig:
@@ -21,3 +33,9 @@ def get_arch(name: str, tiny: bool = False) -> ModelConfig:
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(table)}")
     return table[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]

@@ -1,10 +1,13 @@
-"""Model configuration: a frozen, hashable ``ModelConfig`` per architecture.
+"""Model and shape configuration: a frozen, hashable ``ModelConfig`` per
+architecture, the four assigned ``ShapeConfig`` cells.
 
 A copy of ``repro/configs/base.py`` restricted to what the dense decoder of
-this package needs, plus the optimizer's ``TrainConfig``. ``use_pallas`` is
-``use_kernels`` here and defaults to True: the hot spots (norms, attention,
-the cross-entropy, the loss and clip statistics) run on the CUDA kernels of
-``repro_torch.kernels``.
+this package needs (``MoEConfig``, ``SSMConfig``, ``MLAConfig`` and
+``RGLRUConfig`` come with the families that use them), plus the
+optimizer's ``TrainConfig`` and the shape cells with ``shape_applicable``.
+``use_pallas`` is ``use_kernels`` here and defaults to True: the hot spots
+(norms, attention, the cross-entropy, the loss and clip statistics) run on
+the CUDA kernels of ``repro_torch.kernels``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ class ModelConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    # tanh soft cap of the logits, c * tanh(logits / c); 0 = off (the reference's)
+    logits_softcap: float = 0.0
     # --- framework knobs (not architecture) ---
     dtype: str = "bfloat16"        # params/activations dtype
     use_kernels: bool = True       # route hot spots to the CUDA kernels
@@ -41,6 +46,13 @@ class ModelConfig:
     def pattern_layers(self) -> tuple[str, ...]:
         reps = -(-self.n_layers // len(self.block_pattern))
         return (self.block_pattern * reps)[: self.n_layers]
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if the arch decodes with bounded state per token (SSM or
+        recurrent state, or a bounded local window): none of the ported
+        blocks, so False for every ported config."""
+        return all(k in ("ssm", "rec") for k in self.pattern_layers)
 
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks + head), the same
@@ -63,6 +75,37 @@ class ModelConfig:
     def _ffn_params(self) -> int:
         d = self.d_model
         return 3 * d * self.d_ff if self.ffn_kind == "swiglu" else 2 * d * self.d_ff
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.mode == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+# The four assigned LM shape cells (the reference's).
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """long_500k needs sub-quadratic attention; decoders run all other
+    cells. Returns (runs, reason-if-skipped)."""
+    if shape.name == "long_500k" and not model.subquadratic:
+        return False, ("full attention: 500k dense KV decode is the quadratic regime the "
+                       "spec excludes")
+    return True, ""
 
 
 @dataclasses.dataclass(frozen=True)

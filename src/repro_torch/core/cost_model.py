@@ -16,8 +16,12 @@ result write = 1, so
 Also the models of the multi-reduce and scan kernels: the segmented
 gather (K8), the parts pass (K4) and the triangular scan (K9; the
 reference's striped model, and the port's own look-back kernel beside it,
-``lookback_scan_hbm_bytes``). Not copied
-yet: the interconnect model (it comes with the distributed combine).
+``lookback_scan_hbm_bytes``), the staged comparison points
+(``staged_fused_hbm_bytes``, ``staged_sumsq_hbm_bytes``), the launch bytes
+of the port's fused kernels (``fused_launch_bytes``) and the eq. 13 table
+(``model_table``). Not copied: the interconnect model (it comes with the
+distributed combine) and ``tpu_reduction_roofline``, whose rates are a
+TPU's.
 """
 
 from __future__ import annotations
@@ -214,6 +218,48 @@ def fused_hbm_bytes(n: int, itemsize: int, *, m: int = M, num_cores: int = 1,
                       combine_read=partials, combine_write=(2 if dual else 1) * _F32)
 
 
+def staged_sumsq_hbm_bytes(n: int, itemsize: int, *, m: int = M, num_cores: int = 1,
+                           tiles_per_block: int = 8) -> HbmTraffic:
+    """The sumsq ingestion before the in-kernel square (the comparison
+    point): the squares taken at f32 on the host first (read n * itemsize,
+    write n * 4), then the fused pass over that f32 temporary."""
+    zc = fused_hbm_bytes(n, _F32, m=m, num_cores=num_cores, tiles_per_block=tiles_per_block)
+    return HbmTraffic(kernel_read=zc.kernel_read, kernel_write=zc.kernel_write,
+                      stage_read=n * itemsize, stage_write=n * _F32,
+                      combine_read=zc.combine_read, combine_write=zc.combine_write)
+
+
+def staged_fused_hbm_bytes(n: int, itemsize: int, *, m: int = M, num_cores: int = 1,
+                           tiles_per_block: int = 8, kahan: bool = False) -> HbmTraffic:
+    """The ingestion before zero-copy (the comparison point, and the model of
+    a dtype the kernels do not read): a padded f32 copy of the input made
+    before the launch (read n * itemsize, write tpad m^2 f32), which the
+    kernel then reads in place of the caller's data."""
+    tiles = max(1, -(-n // (m * m)))
+    _, c, _, tpad = stripe_geometry(tiles, tiles_per_block, num_cores)
+    staged = tpad * m * m * _F32
+    partials = (2 if kahan else 1) * c * m * m * _F32
+    return HbmTraffic(kernel_read=staged, kernel_write=partials, stage_read=n * itemsize,
+                      stage_write=staged, combine_read=partials, combine_write=_F32)
+
+
+def fused_launch_bytes(n: int, itemsize: int, *, num_lanes: int = 1, tiles_per_block: int = 8,
+                       m: int = M, outputs: int = 1, kahan: bool = False) -> HbmTraffic:
+    """What one launch of the port's fused kernels (K1, K2, K3) moves; no
+    counterpart in the reference, whose lanes write (C, m, m) partials for
+    a combine after the launch. The buffer is read once at its own width;
+    the launch writes its ``outputs`` finished f32 scalars (1 for a sum, 2
+    for a sum with its census or the moments pair). With C > 1 lanes each
+    lane's CTA also writes two 4-byte words (its partial and its count, or
+    the moments pair) that the last CTA reads back; under the Kahan carry
+    every lane, one lane included, writes its (s, c) pair."""
+    tiles = max(1, -(-n // (m * m)))
+    _, c, _, _ = stripe_geometry(tiles, tiles_per_block, num_lanes)
+    lane_words = 2 * c * 4 if (c > 1 or kahan) else 0
+    return HbmTraffic(kernel_read=n * itemsize + lane_words,
+                      kernel_write=outputs * _F32 + lane_words)
+
+
 def hier_hbm_bytes(n: int, itemsize: int, *, m: int = M,
                    tiles_per_block: int = 8) -> HbmTraffic:
     """The hierarchy of eq. 13: level 0 reads the buffer at its own width;
@@ -342,8 +388,9 @@ def hbm_bytes(path: str, n: int, itemsize: int, *, m: int = M, num_cores: int = 
               tiles_per_block: int = 8, kahan: bool = False, dual: bool = False,
               segments: int = 1, tiles: int = 0, fetched_elems: int | None = None,
               epilogue: bool = False, census: int = 0) -> HbmTraffic:
-    """Dispatch over the models: ``path`` is "fused", "hier",
-    "hier_moments", "segmented", "parts", "scan" or "scan_staged".
+    """Dispatch over the models: ``path`` is "fused", "fused_staged",
+    "sumsq_staged", "hier", "hier_moments", "segmented", "parts",
+    "parts_2trip", "scan" or "scan_staged" (the reference's).
     ``census`` widens the output of the multi-reduce paths by that many f32
     slots (no input bytes); for "parts", ``n * itemsize`` is the parts'
     summed bytes."""
@@ -351,6 +398,12 @@ def hbm_bytes(path: str, n: int, itemsize: int, *, m: int = M, num_cores: int = 
         return fused_hbm_bytes(n, itemsize, m=m, num_cores=num_cores,
                                tiles_per_block=tiles_per_block, kahan=kahan, dual=dual,
                                epilogue=epilogue)
+    if path == "fused_staged":
+        return staged_fused_hbm_bytes(n, itemsize, m=m, num_cores=num_cores,
+                                      tiles_per_block=tiles_per_block, kahan=kahan)
+    if path == "sumsq_staged":
+        return staged_sumsq_hbm_bytes(n, itemsize, m=m, num_cores=num_cores,
+                                      tiles_per_block=tiles_per_block)
     if path == "hier":
         return hier_hbm_bytes(n, itemsize, m=m, tiles_per_block=tiles_per_block)
     if path == "hier_moments":
@@ -367,4 +420,26 @@ def hbm_bytes(path: str, n: int, itemsize: int, *, m: int = M, num_cores: int = 
     if path == "scan_staged":
         return staged_scan_hbm_bytes(n, itemsize, m=m, num_cores=num_cores,
                                      tiles_per_block=tiles_per_block)
+    if path == "parts_2trip":
+        # the comparison for the optimizer step before the epilogue fork:
+        # the norm launch streams the gradients, then the update reads them again
+        base = parts_hbm_bytes(n * itemsize, segments=segments + census)
+        return HbmTraffic(kernel_read=base.kernel_read + n * itemsize,
+                          kernel_write=base.kernel_write)
     raise ValueError(f"unknown hbm_bytes path {path!r}")
+
+
+# --------------------- step-model table (benchmarks) ------------------------
+
+
+def model_table(ns=(2**10, 2**16, 2**20, 2**26, 2**30), ms=(2, 4, 16, 128)):
+    """Rows of (n, m, T_tc, T_classic, S_model) for the paper's tables."""
+    rows = []
+    for n in ns:
+        for m in ms:
+            rows.append(dict(
+                n=n, m=m, t_tc=t_tensor_core(n, m), t_classic=t_classic(n),
+                speedup=t_classic(n) / max(t_tensor_core(n, m), 1e-12),
+                speedup_closed_form=speedup_model(m),
+            ))
+    return rows

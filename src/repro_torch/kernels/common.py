@@ -9,12 +9,24 @@ Device rule, shared by every kernel wrapper: a wrapper given CPU tensors
 runs its plain PyTorch version; given CUDA tensors it launches its kernel
 or raises. There is no fallback from one to the other.
 
+Launch meter: every wrapper is registered by ``counted`` (its
+``launches`` counter) and notes each call that did its kernel's work by
+``record_io``: on the kernel route that is where the launch is counted,
+with the bytes it reads and writes; tagged "plain", where the plain
+version ran on CPU tensors (no launch).
+``reduce.inspect`` opens the record lists and reads ``inside_wrapper`` to
+tell a wrapper's own casts from staging around it.
+
 Gradient rule: a wrapper called with grad mode on and an input that
 requires grad either goes through its ``torch.autograd.Function`` or
 raises (``refuse_grad``); it never returns an output cut from the graph.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+import threading
 
 import torch
 
@@ -273,13 +285,97 @@ def fold_tickets(kernel: str, dev: torch.device, stream: int, count: int = 1,
 KERNEL_WRAPPERS: dict = {}
 
 
+@dataclasses.dataclass(frozen=True)
+class LaunchRecord:
+    """One call of a kernel wrapper that did the kernel's work, as the launch
+    meter (``reduce.inspect``) sees it: ``route`` "kernel" (launched on a
+    CUDA device) or "plain" (its plain version ran on CPU tensors), and the
+    bytes the launch reads and writes -- its tensor operands and outputs at
+    their own widths, each once, and scratch that one CTA writes and the
+    last reads back on both sides. Fold tickets are not counted."""
+
+    kernel: str
+    route: str
+    read_bytes: int
+    write_bytes: int
+
+    @property
+    def io_bytes(self) -> int:
+        return self.read_bytes + self.write_bytes
+
+
+# The meter's state. The record lists open (``reduce.inspect`` opens one per
+# metered call) are process-wide: a backward pass on a CUDA device runs on
+# autograd's own thread, and a launch there (a remat recompute) belongs to
+# the metered call too. The depth of wrapper bodies running is per thread:
+# it marks the ops of the thread's own call stack.
+_RECORDS: list = []
+_RECORDS_LOCK = threading.Lock()
+_DEPTH = threading.local()
+
+
+def open_meter() -> list:
+    """Start recording launches, from every thread; returns the list that
+    gets them (close it with ``close_meter``)."""
+    records: list = []
+    with _RECORDS_LOCK:
+        _RECORDS.append(records)
+    return records
+
+
+def close_meter(records: list) -> None:
+    with _RECORDS_LOCK:
+        _RECORDS.remove(records)
+
+
+def inside_wrapper() -> bool:
+    """True while a kernel wrapper's body runs on this thread: its casts,
+    copies and plain version are the kernel's work, not staging around it."""
+    return getattr(_DEPTH, "n", 0) > 0
+
+
+def record_io(fn, io, *, plain: bool = False) -> None:
+    """Note one call of wrapper ``fn`` that did its kernel's work. Called
+    right after a launch, it is the one place that counts it: ``fn.launches``
+    rises by one here and nowhere else. With ``plain`` the wrapper ran its
+    plain version on CPU tensors instead: no launch, and only an open meter
+    sees the call. ``io`` is the launch's (read, write) bytes, or a callable
+    that returns them; it is read only while a meter is open, so a call
+    with no meter costs a counter and a list check."""
+    if not plain:
+        with _RECORDS_LOCK:
+            fn.launches += 1
+    if _RECORDS:
+        read_bytes, write_bytes = io() if callable(io) else io
+        rec = LaunchRecord(fn.kernel_name, "plain" if plain else "kernel", int(read_bytes),
+                           int(write_bytes))
+        with _RECORDS_LOCK:
+            for records in _RECORDS:
+                records.append(rec)
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors at their own widths."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def counted(name: str):
-    """Register a kernel wrapper and give it a ``launches`` counter."""
+    """Register a kernel wrapper: give it a ``launches`` counter and mark its
+    body as inside the kernel for the meter's staging audit."""
 
     def wrap(fn):
-        fn.launches = 0
-        KERNEL_WRAPPERS[name] = fn
-        return fn
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            _DEPTH.n = getattr(_DEPTH, "n", 0) + 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _DEPTH.n -= 1
+
+        wrapper.launches = 0
+        wrapper.kernel_name = name
+        KERNEL_WRAPPERS[name] = wrapper
+        return wrapper
 
     return wrap
 

@@ -111,6 +111,7 @@ def _cross_entropy_forward(logits: torch.Tensor, labels: torch.Tensor):
     rows = logits.reshape(-1, width)
     lab = labels.reshape(-1)
     if common.on_cpu(rows, lab):
+        common.record_io(cross_entropy, (common.nbytes(rows, lab), 4 * rows.shape[0]), plain=True)
         return cross_entropy_plain(rows, lab).reshape(batch)
     if lab.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"labels must be int32 or int64; got {lab.dtype}")
@@ -135,7 +136,10 @@ def _cross_entropy_forward(logits: torch.Tensor, labels: torch.Tensor):
                 ticket.data_ptr(), stream,
             )
         build.check(err, "cross_entropy")
-        cross_entropy.launches += 1
+        # logits and labels in, the losses out; the slices' partials out and
+        # back into each row block's last CTA
+        common.record_io(cross_entropy, (common.nbytes(rows, lab, part),
+                                         common.nbytes(out, part)))
     return out.reshape(batch)
 
 

@@ -134,7 +134,9 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, q_offset, sm_scale):
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(causal=causal, window=window, q_offset=q_offset, sm_scale=sm_scale)
-        return _flash_attention_forward(q, k, v, **ctx.kw)
+        # through the counted wrapper (grad mode is off here), so the meter
+        # sees this forward as the kernel's work
+        return flash_attention(q, k, v, **ctx.kw)
 
     @staticmethod
     def backward(ctx, g):
@@ -187,6 +189,7 @@ def _flash_attention_forward(q, k, v, *, causal, window, q_offset, sm_scale):
     if sm_scale is None:
         sm_scale = d**-0.5
     if common.on_cpu(q, k, v):
+        common.record_io(flash_attention, (common.nbytes(q, k, v), common.nbytes(q)), plain=True)
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, q_offset=q_offset, sm_scale=sm_scale
         )
@@ -209,7 +212,7 @@ def _flash_attention_forward(q, k, v, *, causal, window, q_offset, sm_scale):
                 build.dtype_code(qc), build.stream_ptr(qc),
             )
         build.check(err, "flash_attention")
-        flash_attention.launches += 1
+        common.record_io(flash_attention, (common.nbytes(qc, kc, vc), common.nbytes(out)))
     elif qc.numel():
         out.zero_()  # no keys: acc = 0 -> 0 / max(0, 1e-30)
     return out.reshape(b, hq, sq, d)

@@ -127,7 +127,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor):
             common.fold_tickets("matmul_stats", x.device, stream, row_blocks).data_ptr(), stream,
         )
     build.check(err, "matmul_stats")
-    matmul_stats.launches += 1
+    # x and w in; y and the moments out; every CTA's row partials out and
+    # back into its row block's last CTA
+    common.record_io(matmul_stats, (common.nbytes(x, w, ws), common.nbytes(y, s, ss, ws)))
     return y, s, ss
 
 
@@ -145,6 +147,9 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128, bn: int = 2
     _check_args(x, w, bm, bn, bk)
     common.refuse_grad("matmul_stats", x, w, entry=None)
     if common.on_cpu(x, w):
+        common.record_io(matmul_stats, (common.nbytes(x, w),
+                                        x.shape[0] * (w.shape[1] * x.element_size() + 8)),
+                         plain=True)
         return matmul_stats_plain(x, w, bm=bm, bn=bn, bk=bk)
     if x.shape[0] == 0 or w.shape[1] == 0:
         return (torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype, device=x.device),

@@ -306,6 +306,23 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _fused_io(flat, out, lane_words):
+    """(read, write) bytes of one fused launch, from the tensors it was
+    given: the buffer in, the output out, and the lanes' words (None for
+    one lane of K1/K2) written by each lane's CTA and read back by the
+    last."""
+    lanes = 0 if lane_words is None else common.nbytes(lane_words)
+    return common.nbytes(flat) + lanes, common.nbytes(out) + lanes
+
+
+def _fused_plain_io(flat, num_lanes, tiles_per_block, outputs, kahan=False):
+    """What ``_fused_io`` notes for the launch the plain version stands in
+    for: the same tensors' bytes, by the launch's own lane geometry."""
+    c = lane_geometry(flat.numel(), num_lanes, tiles_per_block)[1]
+    lanes = 8 * c if (c > 1 or kahan) else 0
+    return common.nbytes(flat) + lanes, 4 * outputs + lanes
+
+
 def _launch_fused(flat, compute_dtype, prologue, chain, census, num_lanes, tiles_per_block):
     n = flat.numel()
     r, c, bpl, _ = lane_geometry(n, num_lanes, tiles_per_block)
@@ -324,6 +341,7 @@ def _launch_fused(flat, compute_dtype, prologue, chain, census, num_lanes, tiles
             common.fold_tickets("fused", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_sum_fused")
+    common.record_io(mma_sum_fused, lambda: _fused_io(flat, out, scratch))
     return out
 
 
@@ -344,6 +362,7 @@ def _launch_kahan(flat, compute_dtype, prologue, chain, num_lanes, tiles_per_blo
             lane_part.data_ptr(), common.fold_tickets("kahan", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_sum_fused(kahan=True)")
+    common.record_io(mma_sum_kahan, lambda: _fused_io(flat, out, lane_part))
     return out
 
 
@@ -406,11 +425,12 @@ def mma_sum_fused(
                                  itemsize=flat.element_size(), epilogue=bool(chain) and c == 1,
                                  census=census, fallback=fallback))
     if common.on_cpu(x):
+        common.record_io(mma_sum_fused, lambda: _fused_plain_io(
+            flat, num_lanes, tiles_per_block, 2 if census else 1), plain=True)
         return mma_sum_fused_plain(flat, compute_dtype, prologue, chain, census, num_lanes,
                                    tiles_per_block)
     out = _launch_fused(flat.contiguous(), compute_dtype, prologue, chain, census, num_lanes,
                         tiles_per_block)
-    mma_sum_fused.launches += 1
     return (out[0], out[1]) if census else out[0]
 
 
@@ -449,11 +469,12 @@ def mma_sum_kahan(
         trace.append(fused_trace(flat.numel(), tiles_per_block, num_lanes,
                                  itemsize=flat.element_size(), kahan=True, fallback=fallback))
     if common.on_cpu(x):
+        common.record_io(mma_sum_kahan, lambda: _fused_plain_io(
+            flat, num_lanes, tiles_per_block, 1, kahan=True), plain=True)
         return mma_sum_kahan_plain(flat, compute_dtype, prologue, chain, num_lanes,
                                    tiles_per_block)
     out = _launch_kahan(flat.contiguous(), compute_dtype, prologue, chain, num_lanes,
                         tiles_per_block)
-    mma_sum_kahan.launches += 1
     return out[0]
 
 
@@ -485,6 +506,8 @@ def mma_moments_fused(
         trace.append(fused_trace(flat.numel(), tiles_per_block, num_lanes,
                                  itemsize=flat.element_size(), dual=True, fallback=fallback))
     if common.on_cpu(x):
+        common.record_io(mma_moments_fused,
+                         lambda: _fused_plain_io(flat, num_lanes, tiles_per_block, 2), plain=True)
         return mma_moments_fused_plain(flat, compute_dtype, num_lanes, tiles_per_block)
     flat = flat.contiguous()
     n = flat.numel()
@@ -501,7 +524,7 @@ def mma_moments_fused(
             _ptr(scratch), common.fold_tickets("moments", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_moments_fused")
-    mma_moments_fused.launches += 1
+    common.record_io(mma_moments_fused, lambda: _fused_io(flat, out, scratch))
     return out[0], out[1]
 
 
@@ -579,9 +602,11 @@ def tile_partials(
     if flat.dtype not in _NATIVE:
         raise TypeError(f"tile_partials reads float32, bfloat16 or float16; got {flat.dtype}")
     cols = 2 if prologue == "moments" else 1
+    read, write = n * flat.element_size(), tpad * cols * 4
     if io is not None:
-        io.append(n * flat.element_size() + tpad * cols * 4)
+        io.append(read + write)
     if common.on_cpu(flat):
+        common.record_io(tile_partials, (read, write), plain=True)
         out = tile_partials_plain(flat, compute_dtype, prologue, chain, tiles_per_block)
         return out[:t]
     stride = flat.stride(0)
@@ -598,7 +623,7 @@ def tile_partials(
             build.stream_ptr(out),
         )
     build.check(err, "tile_partials")
-    tile_partials.launches += 1
+    common.record_io(tile_partials, (read, write))
     return out[:t]
 
 
@@ -1004,15 +1029,18 @@ def mma_sum_parts(
     out_slots = 2 * nseg if dual else nseg
     if not layout:
         return _empty_row(nseg, out_slots, slot_chain, total_chains, census, parts[0].device)
+    read = common.nbytes(*flats)
     if common.on_cpu(*parts):
-        return mma_sum_parts_plain(flats, pros, total_chains, census, compute_dtype, slot_chain)
+        out = mma_sum_parts_plain(flats, pros, total_chains, census, compute_dtype, slot_chain)
+        common.record_io(mma_sum_parts, (read, 4 * out.numel()), plain=True)
+        return out
     if len(layout) > PARTS_KERNEL_MAX:
         raise ValueError(
             f"{len(layout)} live parts exceed PARTS_KERNEL_MAX={PARTS_KERNEL_MAX}; "
             "the reduce backends pack such trees and take one sum_segments pass"
         )
     out = _launch(flats, layout, pros, compute_dtype, slot_chain, total_chains, census, dual)
-    mma_sum_parts.launches += 1
+    common.record_io(mma_sum_parts, (read, 4 * out.numel()))
     return out
 
 
@@ -1291,18 +1319,28 @@ def mma_sum_segments(
     if t == 0:
         return _segments_all_empty(nseg, chain, census, dual, flat.device)
     out_slots = 2 * nseg if (dual or census) else nseg
+    itemsize = src_flat.element_size()
+    sub_bytes = c * out_slots * 4
+
+    def fetched():
+        return _cover_fetched_elems(maps[0, :t], src_flat.numel(), TILE)
+
+    def launch_io():  # computed only for a trace or an open meter
+        # the cover blocks and maps in, the lanes' sub-partials out and back
+        # into the last CTA's fold, the result row out
+        read = fetched() * itemsize + maps.nbytes + sub_bytes
+        return read, sub_bytes + out_slots * 4
+
     if trace is not None:
-        itemsize = src_flat.element_size()
-        fetched = _cover_fetched_elems(maps[0, :t], src_flat.numel(), TILE)
-        io = fetched * itemsize + maps.nbytes + c * out_slots * 4
         flushes = int(maps[2].sum())
         trace.append(dataclasses.replace(
             segmented_trace(src_flat.numel(), (2 if (dual or census) else 1) * flushes, t,
-                            num_lanes, itemsize=itemsize, fetched_elems=fetched,
+                            num_lanes, itemsize=itemsize, fetched_elems=fetched(),
                             segments=out_slots, dual=dual, census=census,
-                            launch_io_bytes=io),
+                            launch_io_bytes=launch_io()[0]),
             fallback=fallback))
     if common.on_cpu(flat):
+        common.record_io(mma_sum_segments, launch_io, plain=True)
         return mma_sum_segments_plain(src_flat, offsets, compute_dtype, prologue, chain, census,
                                       num_lanes)
     x = src_flat.contiguous()
@@ -1321,5 +1359,5 @@ def mma_sum_segments(
             common.fold_tickets("segments", dev, stream).data_ptr(), stream,
         )
     build.check(err, "mma_sum_segments")
-    mma_sum_segments.launches += 1
+    common.record_io(mma_sum_segments, launch_io)
     return out

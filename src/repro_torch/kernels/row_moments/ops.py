@@ -132,6 +132,7 @@ def _check_rows(x: torch.Tensor) -> torch.Tensor:
 
 def _layernorm_np_forward(x: torch.Tensor, eps: float) -> torch.Tensor:
     if common.on_cpu(x):
+        common.record_io(layernorm_np, (common.nbytes(x), common.nbytes(x)), plain=True)
         return layernorm_np_plain(x, eps)
     x = _check_rows(x)
     out = torch.empty_like(x)
@@ -144,12 +145,13 @@ def _layernorm_np_forward(x: torch.Tensor, eps: float) -> torch.Tensor:
                 p.slabs, build.stream_ptr(x),
             )
         build.check(err, "layernorm_np")
-        layernorm_np.launches += 1
+        common.record_io(layernorm_np, (common.nbytes(x), common.nbytes(out)))
     return out
 
 
 def _rmsnorm_forward(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     if common.on_cpu(x, gamma):
+        common.record_io(rmsnorm, (common.nbytes(x, gamma), common.nbytes(x)), plain=True)
         return rmsnorm_plain(x, gamma, eps)
     x = _check_rows(x)
     if gamma.shape != (x.shape[-1],):
@@ -167,7 +169,7 @@ def _rmsnorm_forward(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.
                 p.warps_per_row, p.rows_per_cta, p.chunks, p.slabs, build.stream_ptr(x),
             )
         build.check(err, "rmsnorm")
-        rmsnorm.launches += 1
+        common.record_io(rmsnorm, (common.nbytes(x, gamma), common.nbytes(out)))
     return out
 
 

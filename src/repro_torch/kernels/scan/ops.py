@@ -174,12 +174,14 @@ def mma_scan(
         return torch.zeros(x.shape, dtype=x.dtype, device=x.device)
     tiles = common.ceil_div(n, TILE)
     itemsize = flat.element_size()
+    # the stream in, the tile-padded prefix and the look-back words out
+    read, write = n * itemsize, tiles * TILE * itemsize + 8 * (tiles + 1)
     if trace is not None:
         hbm = cost_model.lookback_scan_hbm_bytes(n, itemsize, m=MXU)
         trace.append(ScanTrace(n=n, m=MXU, hbm_bytes=hbm.total, inclusive=inclusive,
-                               fallback=fallback,
-                               launch_io_bytes=(n + tiles * TILE) * itemsize + 8 * (tiles + 1)))
+                               fallback=fallback, launch_io_bytes=read + write))
     if common.on_cpu(flat):
+        common.record_io(mma_scan, (read, write), plain=True)
         out = mma_scan_plain(flat, inclusive, cd)
     else:
         src = flat.contiguous()
@@ -194,7 +196,7 @@ def mma_scan(
                 state.data_ptr(), epoch, stream,
             )
         build.check(err, "mma_scan")
-        mma_scan.launches += 1
+        common.record_io(mma_scan, (read, write))
     return out[:n].reshape(x.shape).to(x.dtype)
 
 

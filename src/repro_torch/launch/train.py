@@ -32,9 +32,12 @@ Flags beyond the model and schedule:
                              <ckpt-dir>/guard_status.json)
 
 ``--mesh`` and ``--chaos-host`` are refused: they belong to the ROADMAP's
-distributed item, which is not ported. The unguarded loop reads its batches
-through a ``Prefetcher``; the guarded loop reads the source directly,
-because a rollback rewinds it.
+distributed item, which is not ported. So is a config whose training state
+does not fit one card (``train_state_bytes``: deepseek-7b's ~83 GB of
+parameters, gradients and moments, ~138 GB with the clip statistic's pack,
+against the H100's 80 GB), which trains only when that item shards it.
+The unguarded loop reads its batches through a ``Prefetcher``; the guarded
+loop reads the source directly, because a rollback rewinds it.
 """
 
 from __future__ import annotations
@@ -50,16 +53,41 @@ from repro_torch import reduce as R
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_arch
 from repro_torch.data import Prefetcher, ShardInfo, SyntheticLM
+from repro_torch.kernels.mma_reduce import PARTS_KERNEL_MAX
 from repro_torch.launch.serve import resolve_device
 from repro_torch.launch.steps import make_guarded_train_step, make_train_step
 from repro_torch.models import init_params
 from repro_torch.models.convert import reference_leaf_groups
+from repro_torch.models.model import param_dtype
 from repro_torch.runtime import ChaosMonkey, GuardMetrics, PreemptionGuard, StepGuard
 
 _NOT_PORTED = {
     "mesh": "the ROADMAP's distributed item (the data mesh and its deterministic combine)",
     "chaos_host": "the ROADMAP's distributed item (per-host poisoning needs the data mesh)",
 }
+
+
+def param_leaves(cfg) -> int:
+    """Tensors in ``init_params(cfg)`` for the dense block: per layer the
+    four attention weights, the FFN's two or three, and two RMSNorm scales;
+    the embedding, the final RMSNorm scale and an untied head."""
+    rms = cfg.norm == "rmsnorm"
+    per_layer = 4 + (3 if cfg.ffn_kind == "swiglu" else 2) + 2 * rms
+    return cfg.n_layers * per_layer + 1 + rms + (not cfg.tie_embeddings)
+
+
+def train_state_bytes(cfg, tcfg) -> int:
+    """Bytes of the training state before activations: the parameters and
+    their gradients at the parameters' dtype, AdamW's f32 first moment and
+    its f32 second moment (one scalar a group with ``fused_second_moment``,
+    counted as none); past ``PARTS_KERNEL_MAX`` leaves also the clip
+    statistic's pack, which holds every gradient squared at f32 and then
+    their concatenation (8 bytes a parameter at its peak)."""
+    item = torch.empty((), dtype=param_dtype(cfg)).element_size()
+    per = 2 * item + (4 if tcfg.fused_second_moment else 8)
+    if param_leaves(cfg) > PARTS_KERNEL_MAX:
+        per += 8
+    return cfg.param_count() * per
 
 
 def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0):
@@ -169,6 +197,14 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
         warmup_steps=max(1, args.steps // 10), microbatches=args.microbatches,
         fused_second_moment=args.fused_second_moment,
     )
+    if device.type == "cuda":
+        need = train_state_bytes(cfg, tcfg)
+        have = torch.cuda.get_device_properties(device).total_memory
+        if need > have:
+            ap.error(f"{cfg.name}: the training state takes {need / 1e9:.1f} GB before "
+                     f"activations, more than the card's {have / 1e9:.1f} GB; it trains at "
+                     f"full width only across cards, the ROADMAP's distributed item (not "
+                     f"ported yet)")
     params, opt_state, step_fn = build(cfg, tcfg, device, guard=args.guard,
                                        spike_z=args.spike_z)
     n_params = sum(p.numel() for p in R.tree_leaves(params))

@@ -1,4 +1,5 @@
-"""The dense decoder (OLMo) of the serving and training paths.
+"""The dense decoder (olmo-1b, internlm2-1.8b, deepseek-7b) of the serving
+and training paths.
 
 ``init_params`` / ``forward`` / ``prefill`` / ``decode_step`` /
 ``make_caches`` are the public contract of the launchers, as in the

@@ -11,7 +11,8 @@ cross as their raw 16-bit patterns and are reinterpreted: bitwise exact.
 ``reference_leaf_groups`` maps the port's optimizer leaves onto the
 reference's: the reference keeps one leaf per stacked unit position (8 for
 olmo: the embedding and 7 weights stacked over 16 layers), the port one
-per layer (113). Optimizer state kept per leaf -- the fused second
+per layer (113; 219 for internlm2-1.8b, whose untied head is one leaf
+on both sides). Optimizer state kept per leaf -- the fused second
 moment's scalar ``v`` -- must be kept per REFERENCE leaf for the two
 packages to take the same update.
 """
@@ -51,11 +52,14 @@ def params_from_jax(np_tree: dict, cfg, device="cpu") -> dict:
             layers.append(_convert(np_tree["units"][f"pos{j}"], device, index=u))
     for j in range(cfg.n_layers % len(pat)):
         layers.append(_convert(np_tree["tail"][f"pos{j}"], device))
-    return {
+    params = {
         "embed": _convert(np_tree["embed"], device),
         "layers": layers,
         "final_norm": _convert(np_tree["final_norm"], device),
     }
+    if "head" in np_tree:  # an untied head
+        params["head"] = _convert(np_tree["head"], device)
+    return params
 
 
 def _leaf_paths(tree, prefix=()):

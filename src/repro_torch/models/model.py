@@ -1,9 +1,10 @@
 """Model assembly: the dense decoder stack for training, prefill and decode.
 
 Port of ``repro/models/model.py`` restricted to the dense ``attn`` block
-(OLMo). The reference stacks unit parameters on a leading axis for
-``lax.scan``; here each layer is its own entry of ``params["layers"]`` and
-the stack is a Python loop.
+(olmo-1b, internlm2-1.8b, deepseek-7b), with tied or untied heads. The
+reference stacks unit parameters on a leading axis for ``lax.scan``; here
+each layer is its own entry of ``params["layers"]`` and the stack is a
+Python loop.
 
   forward_hidden  (B, S) tokens -> final normed hidden, every layer under
                   ``torch.utils.checkpoint`` when ``cfg.remat`` (the
@@ -21,7 +22,9 @@ statistics, ``attention.flash_attention_xla``), with ``cfg.mma_reductions``
 choosing the ones-MMA or the plain reduce backend.
 
 Logits are f32 (the head multiplies in f32, as the reference's einsum
-does) and pad-vocab masked. ``_head`` keeps the padded width (the chunked
+does: by the embedding table when tied, by ``params["head"]["w"]``, (d,
+padded vocab), when not), soft-capped when ``cfg.logits_softcap`` is set,
+and pad-vocab masked. ``_head`` keeps the padded width (the chunked
 loss uses it, as the reference's does); ``_head_public`` cuts it to
 ``vocab_size`` entries.
 """
@@ -46,8 +49,6 @@ def _check_ported(cfg) -> None:
     for kind in cfg.pattern_layers:
         if kind != "attn":
             raise NotImplementedError(f"block kind {kind!r} is not ported; only 'attn' is")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied output heads are not ported")
 
 
 def block_init(gen, cfg, device) -> dict:
@@ -62,14 +63,20 @@ def block_init(gen, cfg, device) -> dict:
 
 
 def init_params(cfg, gen: torch.Generator, device) -> dict:
-    """Random parameters drawn from ``gen`` (a generator on ``device``)."""
+    """Random parameters drawn from ``gen`` (a generator on ``device``), in
+    order: the embedding, the layers, then an untied head's (d, padded
+    vocab) weight."""
     _check_ported(cfg)
     dt = param_dtype(cfg)
-    return {
+    params = {
         "embed": P.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
         "layers": [block_init(gen, cfg, device) for _ in range(cfg.n_layers)],
         "final_norm": P.norm_init(cfg.norm, cfg.d_model, dt, device),
     }
+    if not cfg.tie_embeddings:
+        params["head"] = P.dense_init(gen, cfg.d_model, P.padded_vocab(cfg.vocab_size), dt,
+                                      device)
+    return params
 
 
 def _norm(p, h, cfg):
@@ -92,9 +99,16 @@ def _mask_pad_logits(logits, cfg):
 
 
 def _head(params, cfg, h):
-    """Tied-embedding head in f32 -> (B, S, padded vocab), pad logits at
-    -1e30."""
-    logits = torch.matmul(h.to(torch.float32), params["embed"]["table"].to(torch.float32).T)
+    """The head in f32 -> (B, S, padded vocab): the embedding table when
+    tied, ``head.w`` when not; the soft cap, then pad logits at -1e30."""
+    if cfg.tie_embeddings:
+        w = params["embed"]["table"].to(torch.float32).T
+    else:
+        w = params["head"]["w"].to(torch.float32)
+    logits = torch.matmul(h.to(torch.float32), w)
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits = torch.tanh(logits / c) * c
     return _mask_pad_logits(logits, cfg)
 
 

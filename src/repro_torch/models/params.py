@@ -3,7 +3,11 @@ explicit ``torch.Generator``.
 
 Port of ``repro/models/params.py`` without the logical sharding axes.
 Weights keep the reference's layout: a dense weight is (in, out) and is
-applied as ``x @ w``.
+applied as ``x @ w``. The reference's ``split`` (key splitting) and
+``stack_init`` (units stacked on a leading axis for ``lax.scan``) have no
+counterpart: one generator is drawn from in a fixed order, and each layer
+is its own entry of a Python list (``models.model``), which the Python
+loop over layers replaces ``lax.scan`` with.
 """
 
 from __future__ import annotations
@@ -24,6 +28,15 @@ def dense_init(gen, in_dim: int, out_dim: int, dtype, device, scale=None) -> dic
 
 def dense_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"].to(x.dtype)
+
+
+def count_params(tree) -> int:
+    """Elements of every tensor in a nested dict / list of tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return sum(count_params(v) for v in tree)
 
 
 def padded_vocab(vocab: int, multiple: int = 256) -> int:
