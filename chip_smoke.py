@@ -8,11 +8,15 @@ holds each kernel against its plain PyTorch version at the full-width
 shapes of the serving and training paths (olmo-1b: d_model 2048, 16 heads
 of 128, vocab 50304 padded to 50432, bf16; internlm2-1.8b: RMSNorm at
 2048, 16 query heads on 8 kv heads, vocab 92544 padded to 92672;
-deepseek-7b: RMSNorm at 4096, 32 heads) and of the paper's reduction
-(n = 2^28) and times it, checks tiny and 2-layer models end to end against
-the CPU (serving and training; tiny olmo, internlm2 and deepseek) and the
-reduction engine card against CPU, then drives the main paths with every
-kernel launch counted by the launch meter
+deepseek-7b: RMSNorm at 4096, 32 heads; granite-moe-1b-a400m: RMSNorm at
+1024, 16 query heads on 8 kv heads of 64, vocab 49155 padded to 49408;
+dbrx-132b: RMSNorm at 6144, 48 query heads on 8 kv heads, vocab 100352;
+attention at head widths 8 and 24, which the wrapper pads) and of the
+paper's reduction (n = 2^28) and times it, checks tiny and 2-layer models
+end to end against the CPU (serving and training; tiny olmo, internlm2,
+deepseek, granite-moe and dbrx, the MoE archs' routing tables equal on
+both devices) and the reduction engine card against CPU, then drives the
+main paths with every kernel launch counted by the launch meter
 (``repro_torch.reduce.inspect.count_kernel_launches``):
 
   meter     ``measured_hbm_bytes`` of ``reduce`` on cuda_hier and on
@@ -28,14 +32,20 @@ kernel launch counted by the launch meter
             order, each engine freed before the next) through the guarded
             runtime (8 requests, prompt 256, 16 new tokens, 4 slots), the
             launches held to the config's model (``launches_per_step``:
-            K5b for RMSNorm, K5a for OLMo's LayerNorm);
+            K5b for RMSNorm, K5a for OLMo's LayerNorm); then the MoE archs:
+            full-depth granite-moe-1b-a400m and dbrx-132b at full width cut
+            to 2 layers (its full depth refused before any allocation),
+            each with no kernel launched outside the model, two prefills
+            bitwise equal and the drop fraction at the prefill;
   training  full-width olmo-1b, batch 4 x seq 512, 3 AdamW steps through
             ``python -m repro_torch.launch.train``'s ``main`` with
             ``--reduce-backend cuda_fused``; then one step profiled; the
             same for internlm2-1.8b, plus one ``--guard`` step: its 219
             gradient leaves take the clip statistic past K4's 128 parts
             (the f32 pack, one K8 launch, the host census), whose bytes,
-            launches and device time are printed beside olmo's K4;
+            launches and device time are printed beside olmo's K4; the
+            same for granite-moe-1b-a400m (242 leaves), with its aux term
+            finite and non-zero;
   paper     ``python -m repro_torch.launch.reduce_demo``'s ``main`` at
             n = 2^28: step counts, precision and time per backend, through
             the hierarchy's level kernel (K10), the moments kernel (K2)
@@ -142,7 +152,11 @@ def train_launches_per_step(cfg) -> dict:
     CE kernel in its forward and again in its recompute; the token sum's
     kernel runs once, because its backward reads nothing of its output and
     the recompute stops at the last tensor the backward needs. The clip
-    statistic: ``clip_statistic_kernels``."""
+    statistic: ``clip_statistic_kernels``. An MoE FFN launches no kernel:
+    its routing's row sums (the softmax denominator, the load-balance
+    statistics) are the engine's row reductions, a ones-product in torch on
+    every backend (``cuda_fused`` inherits ``mma_torch``'s ``sum_axis``),
+    and its slot-base scan is pinned to ``mma_torch`` (``models.moe``)."""
     chunks = -(-TRAIN_SEQ // LOSS_CHUNK)
     return dict(_norm_kernels(cfg, 4 * cfg.n_layers + 1), **clip_statistic_kernels(cfg),
                 flash_attention=2 * cfg.n_layers, cross_entropy=2 * chunks,
@@ -152,7 +166,8 @@ def train_launches_per_step(cfg) -> dict:
 def launches_per_step(cfg):
     """Kernel launches per prefill and per decode step: two norms per layer
     plus the final norm, prefill attention per layer, one logit statistic
-    (K4 over the slots' logits)."""
+    (K4 over the slots' logits); an MoE FFN adds none (see
+    ``train_launches_per_step``)."""
     prefill = dict(_norm_kernels(cfg, 2 * cfg.n_layers + 1), flash_attention=cfg.n_layers,
                    mma_sum_parts=1)
     decode = dict(prefill, flash_attention=0)
@@ -2042,7 +2057,9 @@ def check_tiny_against_cpu(arch: str = "olmo-1b") -> None:
     the MHA path), and a planted fault moved the logits by at least 3.47
     (a wrong kv-head mapping), 0.18 (the softmax scale 10% off) and 0.018
     (1% off). A wrong kv-head mapping is planted here too and must fail
-    the limit (``prefill_with_wrong_kv_heads``)."""
+    the limit (``prefill_with_wrong_kv_heads``). For the MoE archs the
+    routing of every layer's prefill (expert ids, slot tokens, the keep
+    mask) must be equal on the card and the CPU."""
     import numpy as np
     import torch
 
@@ -2064,9 +2081,22 @@ def check_tiny_against_cpu(arch: str = "olmo-1b") -> None:
         outs.append([list(r.tokens) for r in res])
     with torch.inference_mode():
         packed = np.stack(prompts[:2]).astype(np.int64)
-        lg, _ = gpu._prefill(gpu.params, torch.from_numpy(packed).to(DEVICE))
-        lc, _ = cpu._prefill(cpu.params, torch.from_numpy(packed))
+        (lg, _), routes_g = record_routing(
+            lambda: gpu._prefill(gpu.params, torch.from_numpy(packed).to(DEVICE)))
+        (lc, _), routes_c = record_routing(lambda: cpu._prefill(cpu.params,
+                                                                torch.from_numpy(packed)))
         wrong = prefill_with_wrong_kv_heads(gpu, torch.from_numpy(packed).to(DEVICE))
+    if cfg.moe is not None:
+        same = [all(torch.equal(getattr(g, f).cpu(), getattr(c, f))
+                    for f in ("expert_ix", "slot_token", "keep"))
+                for g, c in zip(routes_g, routes_c)]
+        gate = max(float((g.slot_gate.cpu() - c.slot_gate).abs().max())
+                   for g, c in zip(routes_g, routes_c))
+        print(f"tiny {arch} f32, card vs CPU routing per layer (expert ids, slot tokens, keep) "
+              f"equal: {same}; slot gates max |d| {gate:.3g}; drop fractions "
+              f"{[round(x, 4) for x in drop_fractions(routes_g)]}")
+        check(len(routes_g) == len(routes_c) == cfg.n_layers and all(same),
+              f"tiny {arch}: the card and the CPU route differently")
     err = float((lg.cpu() - lc).abs().max())
     fault = float((wrong.cpu() - lc).abs().max())
     tol = 1e-3 if arch == "olmo-1b" else 0.01
@@ -2097,13 +2127,16 @@ def _cpu_copy(tree):
     return [_cpu_copy(v) for v in tree]
 
 
-def serve_full_width(arch: str = "olmo-1b") -> dict:
-    """Full-width ``arch`` through GuardedEngine + ServingRuntime, every
-    kernel launch counted and held to the config's launch model
-    (``launches_per_step``); the census total must be 0. Prints tokens/s,
-    the per-step latency p50/p99 and the bytes held on the card, then
-    profiles a prefill and a decode step. Returns the launch counts and
-    the figures."""
+def serve_full_width(arch: str = "olmo-1b", n_layers: int | None = None) -> dict:
+    """Full-width ``arch`` (its published depth, or ``n_layers``) through
+    GuardedEngine + ServingRuntime, every kernel launch counted and held to
+    the config's launch model (``launches_per_step``); the census total
+    must be 0. For an MoE arch no kernel outside the model may launch (its
+    routing's row sums and slot-base scan run in torch), and two prefills
+    must agree bitwise (``check_moe_prefill``). Prints tokens/s, the
+    per-step latency p50/p99 and the bytes held on the card, then profiles
+    a prefill and a decode step. Returns the launch counts and the
+    figures."""
     import gc
 
     import numpy as np
@@ -2127,6 +2160,9 @@ def serve_full_width(arch: str = "olmo-1b") -> dict:
             return out
 
     cfg = get_arch(arch)
+    if n_layers is not None:
+        print(f"{arch}: depth cut to {n_layers} of {cfg.n_layers} layers, full width")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2134,8 +2170,9 @@ def serve_full_width(arch: str = "olmo-1b") -> dict:
     eng = RecordingEngine(cfg, PROMPT + MAX_NEW + 1, SLOTS, seed=0)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
-    print(f"{arch}: {cfg.param_count() / 1e9:.3f} B parameters initialised on the card in "
-          f"{time.time() - t0:.1f} s; {held / 1e9:.2f} GB held on the card")
+    print(f"{arch}: {cfg.param_count() / 1e9:.3f} B parameters ({cfg.n_layers} layers) "
+          f"initialised on the card in {time.time() - t0:.1f} s; {held / 1e9:.2f} GB held on "
+          "the card")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=(PROMPT,)).astype(np.int32)
                for _ in range(REQUESTS)]
@@ -2175,6 +2212,10 @@ def serve_full_width(arch: str = "olmo-1b") -> dict:
     else:
         check(launches["rmsnorm"] > 0 and launches["layernorm_np"] == 0,
               f"{arch}: K5b is not on the path")
+    if cfg.moe is not None:
+        others = {k: n for k, n in launches.items() if n and k not in expected}
+        check(not others, f"{arch}: kernels outside the launch model launched: {others}")
+        figures.update(check_moe_prefill(eng, prompts[:SLOTS]))
     figures.update(profile_steps(eng, prompts[:SLOTS]))
     del eng, runtime
     gc.collect()
@@ -2373,7 +2414,19 @@ def train_full_width(arch: str = "olmo-1b", guarded_steps: int = 0) -> dict:
                                            DEVICE)
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
     batches = [{"tokens": torch.from_numpy(data.next()["tokens"]).to(DEVICE)} for _ in range(4)]
+    aux = None
+    if cfg.moe is not None:
+        from repro_torch.models.model import forward_hidden
+
+        with torch.no_grad():
+            _, aux = forward_hidden(params, cfg, batches[0]["tokens"][:, :-1])
+        print(f"{arch}: the aux term (moe_aux + moe_z over {cfg.n_layers} layers) on a batch of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}: {float(aux):.6g}")
+        check(bool(torch.isfinite(aux)) and float(aux) != 0.0,
+              f"{arch}: the aux term is not finite and non-zero")
     prof = profile_train_step(cfg, step_fn, params, opt, batches, what=f"{arch} train step")
+    if aux is not None:
+        prof["aux"] = float(aux)
     del params, opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -2828,6 +2881,116 @@ def _sdpa_gqa(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
 
+def _rmsnorm_case(gen, arch: str, rows: int, d: int) -> dict:
+    """K5b at (rows, d) bf16 with a bf16 gamma against its plain version
+    (1 bf16 ulp), timed beside its bound and ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels.row_moments import plan_for, rmsnorm_plain
+
+    rms_lib = getattr(F, "rms_norm", None)
+    x = (torch.randn((rows, d), generator=gen, device=DEVICE) * 3 + 1).to(torch.bfloat16)
+    gamma = (torch.rand((d,), generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16)
+    got, want = rmsnorm(x, gamma, 1e-6), rmsnorm_plain(x, gamma, 1e-6)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    print(f"K5b rmsnorm ({rows}, {d}) bf16 ({arch}): max_abs_err {err:.3g} vs plain "
+          f"(tol: 1 bf16 ulp); route {plan_for(x, gamma).name}")
+    check(bf16_ulp_ok(got, want), f"rmsnorm disagrees with its plain version at ({rows}, {d})")
+    b, by = bound_ms(2 * x.numel() * 2 + d * 2, tensor_flops=x.numel() * 16,
+                     core_flops=5 * x.numel())
+    return {
+        "max_abs_err": err,
+        "ms": device_ms(lambda: rmsnorm(x, gamma, 1e-6), "row_norm_kernel"),
+        "plain_ms": time_ms(lambda: rmsnorm_plain(x, gamma, 1e-6), iters=20),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": (device_ms(lambda: rms_lib(x, (d,), gamma, 1e-6))
+                       if rms_lib is not None else None),
+        "norm_route": plan_for(x, gamma).name,
+    }
+
+
+def _attention_case(gen, label: str, b_: int, hq: int, hkv: int, s_: int, d: int) -> dict:
+    """K6 causal at (b_, hq q / hkv kv heads, s_, d) bf16 against its plain
+    version (2 bf16 ulps of the output + 2e-3), timed beside its bound and
+    PyTorch's attention on the same GQA operands."""
+    import torch
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    q = (torch.randn((b_, hq, s_, d), generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
+    k = (torch.randn((b_, hkv, s_, d), generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
+    v = (torch.randn((b_, hkv, s_, d), generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
+    got, want = flash_attention(q, k, v, causal=True), flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    print(f"K6 flash_attention {label} ({b_}, {hq} q / {hkv} kv heads, {s_}, {d}) bf16: "
+          f"max_abs_err {err:.3g} vs plain (tol: 2 bf16 ulps of the output)")
+    check(bool(torch.all((got.float() - want.float()).abs()
+                         <= 2.0**-6 * want.float().abs() + 2e-3)),
+          f"flash_attention disagrees with its plain version at {label}")
+    lib_err = float((_sdpa_gqa(q, k, v).float() - got.float()).abs().max())
+    print(f"    against PyTorch's attention: max |d| {lib_err:.3g}")
+    pairs = _causal_pairs(s_, s_, 0, None) * b_ * hq
+    bb, by = bound_ms((2 * q.numel() + 2 * k.numel()) * 2, tensor_flops=4 * d * pairs,
+                      core_flops=pairs)
+    return {
+        "max_abs_err": err,
+        "ms": device_ms(lambda: flash_attention(q, k, v, causal=True), "attn_fwd_kernel"),
+        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), iters=5, warmup=1),
+        "bound_ms": bb, "bound_by": by,
+        "library_ms": device_ms(lambda: _sdpa_gqa(q, k, v)),
+    }
+
+
+def _cross_entropy_case(gen, arch: str, vocab: int, padded: int) -> dict:
+    """K7 over (2048, padded) f32 logits, the pad columns at -1e30 as the
+    chunked loss's head gives them, against its plain version (1e-3) and
+    the same logits cut to the real columns (1e-6), timed beside its bound
+    and ``F.cross_entropy``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cross_entropy
+    from repro_torch.kernels.cross_entropy import cross_entropy_plain
+
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    logits = torch.randn((rows, padded), generator=gen, device=DEVICE) * 3
+    logits[:, vocab:] = -1e30
+    labels = torch.randint(0, vocab, (rows,), generator=gen, device=DEVICE)
+    got, want = cross_entropy(logits, labels), cross_entropy_plain(logits, labels)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    cut = cross_entropy(logits[:, :vocab].contiguous(), labels)
+    d_cut = float((cut - got).abs().max())
+    print(f"K7 cross_entropy ({rows}, {padded}) f32 ({arch}, {padded - vocab} pad columns, a "
+          f"ragged last slice): max_abs_err {err:.3g} vs plain (tol 1e-3); cut to the "
+          f"{vocab} real columns: max |d| {d_cut:.3g} (tol 1e-6)")
+    check(err <= 1e-3 and bool(torch.isfinite(got).all()),
+          f"cross_entropy disagrees with its plain version at the {arch} vocabulary")
+    check(d_cut <= 1e-6, f"cross_entropy: padded and cut widths differ at the {arch} vocabulary")
+    n = logits.numel()
+    bc, byc = bound_ms(n * 4 + rows * 8, tensor_flops=16 * n, core_flops=4 * n)
+    lab64 = labels.to(torch.int64)
+    return {
+        "max_abs_err": err,
+        "ms": device_ms(lambda: cross_entropy(logits, labels), "::ce_kernel<"),
+        "plain_ms": time_ms(lambda: cross_entropy_plain(logits, labels), iters=5, warmup=1),
+        "bound_ms": bc, "bound_by": byc,
+        "library_ms": device_ms(lambda: F.cross_entropy(logits, lab64, reduction="none")),
+    }
+
+
+def _print_cases(cases) -> None:
+    for key, t in cases:
+        lib = "-" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f}"
+        print(f"{key}: device {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+              f"library {lib} us, bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}")
+
+
 def check_dense_shapes(results: dict) -> None:
     """K5b, K6 and K7 at the shapes internlm2-1.8b and deepseek-7b give
     them, each against its plain version and timed beside its bound and its
@@ -2842,102 +3005,213 @@ def check_dense_shapes(results: dict) -> None:
     ``check_norms``, ``check_attention`` and ``check_cross_entropy``. The
     figures go under the kernels' "dense_archs" and "internlm2" keys."""
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import cross_entropy, flash_attention, rmsnorm
-    from repro_torch.kernels.cross_entropy import cross_entropy_plain
-    from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.kernels.row_moments import plan_for, rmsnorm_plain
 
     gen = torch.Generator(device=DEVICE).manual_seed(11)
-    rms_lib = getattr(F, "rms_norm", None)
     norms = {}
     for arch, d, rows_all in (("internlm2", 2048, (SLOTS, SLOTS * PROMPT,
                                                    TRAIN_BATCH * TRAIN_SEQ)),
                               ("deepseek", 4096, (SLOTS, SLOTS * PROMPT))):
         for rows in rows_all:
-            x = (torch.randn((rows, d), generator=gen, device=DEVICE) * 3 + 1).to(torch.bfloat16)
-            gamma = (torch.rand((d,), generator=gen, device=DEVICE) + 0.5).to(torch.bfloat16)
-            got, want = rmsnorm(x, gamma, 1e-6), rmsnorm_plain(x, gamma, 1e-6)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            print(f"K5b rmsnorm ({rows}, {d}) bf16 ({arch}): max_abs_err {err:.3g} vs plain "
-                  f"(tol: 1 bf16 ulp); route {plan_for(x, gamma).name}")
-            check(bf16_ulp_ok(got, want), f"rmsnorm disagrees with its plain version at "
-                  f"({rows}, {d})")
-            b, by = bound_ms(2 * x.numel() * 2 + d * 2, tensor_flops=x.numel() * 16,
-                             core_flops=5 * x.numel())
-            norms[f"{arch}_{rows}x{d}"] = {
-                "max_abs_err": err,
-                "ms": device_ms(lambda: rmsnorm(x, gamma, 1e-6), "row_norm_kernel"),
-                "plain_ms": time_ms(lambda: rmsnorm_plain(x, gamma, 1e-6), iters=20),
-                "bound_ms": b, "bound_by": by,
-                "library_ms": (device_ms(lambda: rms_lib(x, (d,), gamma, 1e-6))
-                               if rms_lib is not None else None),
-                "norm_route": plan_for(x, gamma).name,
-            }
-    attn = {}
-    for arch, b_, hq, hkv, s_ in (("internlm2_train", TRAIN_BATCH, 16, 8, TRAIN_SEQ),
-                                  ("internlm2_prefill", SLOTS, 16, 8, PROMPT),
-                                  ("deepseek_prefill", SLOTS, 32, 32, PROMPT)):
-        q = (torch.randn((b_, hq, s_, 128), generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
-        k = (torch.randn((b_, hkv, s_, 128), generator=gen, device=DEVICE) * 0.5).to(
-            torch.bfloat16)
-        v = (torch.randn((b_, hkv, s_, 128), generator=gen, device=DEVICE) * 0.5).to(
-            torch.bfloat16)
-        got, want = flash_attention(q, k, v, causal=True), flash_attention_plain(q, k, v)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        print(f"K6 flash_attention {arch} ({b_}, {hq} q / {hkv} kv heads, {s_}, 128) bf16: "
-              f"max_abs_err {err:.3g} vs plain (tol: 2 bf16 ulps of the output)")
-        check(bool(torch.all((got.float() - want.float()).abs()
-                             <= 2.0**-6 * want.float().abs() + 2e-3)),
-              f"flash_attention disagrees with its plain version at {arch}")
-        lib = _sdpa_gqa(q, k, v)
-        lib_err = float((lib.float() - got.float()).abs().max())
-        print(f"    against PyTorch's attention: max |d| {lib_err:.3g}")
-        pairs = _causal_pairs(s_, s_, 0, None) * b_ * hq
-        bb, by = bound_ms((2 * q.numel() + 2 * k.numel()) * 2, tensor_flops=4 * 128 * pairs,
-                          core_flops=pairs)
-        attn[arch] = {
-            "max_abs_err": err,
-            "ms": device_ms(lambda: flash_attention(q, k, v, causal=True), "attn_fwd_kernel"),
-            "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), iters=5, warmup=1),
-            "bound_ms": bb, "bound_by": by,
-            "library_ms": device_ms(lambda: _sdpa_gqa(q, k, v)),
-        }
-    rows = TRAIN_BATCH * TRAIN_SEQ
-    logits = torch.randn((rows, INTERNLM2_PADDED), generator=gen, device=DEVICE) * 3
-    logits[:, INTERNLM2_VOCAB:] = -1e30
-    labels = torch.randint(0, INTERNLM2_VOCAB, (rows,), generator=gen, device=DEVICE)
-    got, want = cross_entropy(logits, labels), cross_entropy_plain(logits, labels)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    cut = cross_entropy(logits[:, :INTERNLM2_VOCAB].contiguous(), labels)
-    d_cut = float((cut - got).abs().max())
-    print(f"K7 cross_entropy ({rows}, {INTERNLM2_PADDED}) f32 (internlm2, 128 pad columns, a "
-          f"ragged last slice): max_abs_err {err:.3g} vs plain (tol 1e-3); cut to the "
-          f"{INTERNLM2_VOCAB} real columns: max |d| {d_cut:.3g} (tol 1e-6)")
-    check(err <= 1e-3 and bool(torch.isfinite(got).all()),
-          "cross_entropy disagrees with its plain version at the internlm2 vocabulary")
-    check(d_cut <= 1e-6, "cross_entropy: padded and cut widths differ at the internlm2 vocabulary")
-    n = logits.numel()
-    bc, byc = bound_ms(n * 4 + rows * 8, tensor_flops=16 * n, core_flops=4 * n)
-    lab64 = labels.to(torch.int64)
-    ce = {
-        "max_abs_err": err,
-        "ms": device_ms(lambda: cross_entropy(logits, labels), "::ce_kernel<"),
-        "plain_ms": time_ms(lambda: cross_entropy_plain(logits, labels), iters=5, warmup=1),
-        "bound_ms": bc, "bound_by": byc,
-        "library_ms": device_ms(lambda: F.cross_entropy(logits, lab64, reduction="none")),
-    }
+            norms[f"{arch}_{rows}x{d}"] = _rmsnorm_case(gen, arch, rows, d)
+    attn = {label: _attention_case(gen, label, *shape) for label, shape in (
+        ("internlm2_train", (TRAIN_BATCH, 16, 8, TRAIN_SEQ, 128)),
+        ("internlm2_prefill", (SLOTS, 16, 8, PROMPT, 128)),
+        ("deepseek_prefill", (SLOTS, 32, 32, PROMPT, 128)))}
+    ce = _cross_entropy_case(gen, "internlm2", INTERNLM2_VOCAB, INTERNLM2_PADDED)
     results["rmsnorm"]["dense_archs"] = norms
     results["flash_attention"]["dense_archs"] = attn
     results["cross_entropy"]["internlm2"] = ce
-    for key, t in list(norms.items()) + list(attn.items()) + [("internlm2 ce", ce)]:
-        lib = "-" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f}"
-        print(f"{key}: device {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
-              f"library {lib} us, bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}")
+    _print_cases(list(norms.items()) + list(attn.items()) + [("internlm2 ce", ce)])
+
+
+# ------------------------------- the MoE archs -------------------------------
+
+GRANITE, DBRX = "granite-moe-1b-a400m", "dbrx-132b"
+MOE_ARCHS = (GRANITE, DBRX)
+# granite: vocabulary 49155, padded to 49408 (253 pad columns); dbrx: 100352
+GRANITE_VOCAB, GRANITE_PADDED, DBRX_VOCAB = 49155, 49408, 100352
+# dbrx-132b's depth cut: its 40 layers take 263 GB at bf16, more than one
+# card; 2 layers with the embedding and the untied head take ~15.5 GB
+DBRX_LAYERS = 2
+
+
+def check_head_widths(results: dict, gen) -> None:
+    """K6 at head widths off the multiples of 16 (the wrapper zero-pads q,
+    k and v to the next one and keeps the first d columns): d = 8
+    (dbrx-tiny's heads) and 24, 8 query heads on 2 kv heads, 130 queries
+    (a ragged block), f32 and bf16, against its plain version (2 bf16 ulps
+    + 2e-3); one launch a call, counted by the meter."""
+    import torch
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    errs = {}
+    for d in (8, 24):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = ((torch.randn(shape, generator=gen, device=DEVICE) * 0.5).to(dtype)
+                       for shape in ((2, 8, 130, d), (2, 2, 130, d), (2, 2, 130, d)))
+            out, launches = counted_run(lambda: flash_attention(q, k, v))
+            plain = flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            err = float((out.float() - plain.float()).abs().max())
+            print(f"K6 flash_attention at head width {d} (padded to {16 * -(-d // 16)} inside "
+                  f"the wrapper) {str(dtype)[6:]}: max_abs_err {err:.3g} vs plain (tol: 2 bf16 "
+                  f"ulps + 2e-3); launches {launches['flash_attention']}")
+            check(out.shape == q.shape and launches["flash_attention"] == 1,
+                  f"flash_attention at d = {d}: shape or launches")
+            check(bool(torch.all((out.float() - plain.float()).abs()
+                                 <= 2.0**-6 * plain.float().abs() + 2e-3)),
+                  f"flash_attention disagrees with its plain version at d = {d}")
+            errs[f"d{d}_{str(dtype)[6:]}"] = err
+    results["flash_attention"]["head_widths"] = errs
+
+
+def _logit_stat_case(gen, vocab: int) -> dict:
+    """K4 as the guarded logit statistic over the public logits of the
+    serving slots, (SLOTS, 1, vocab) f32, with its census: against its
+    plain version (1e-6 x mass, counts exact), timed beside its bound and
+    a PyTorch row sum of squares."""
+    import torch
+
+    from repro_torch.kernels import mma_sum_parts
+    from repro_torch.kernels.mma_reduce import mma_sum_parts_plain
+
+    logits = torch.randn((SLOTS, 1, vocab), generator=gen, device=DEVICE) * 3
+    parts = [logits[i] for i in range(SLOTS)]
+    chains = ((),)
+
+    def k4():
+        return mma_sum_parts(parts, prologue="square", total_chains=chains, census=True)
+
+    out = k4()
+    plain = mma_sum_parts_plain(parts, ("square",) * SLOTS, chains, True)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    mass = float(logits.square().sum())
+    print(f"K4 mma_sum_parts {SLOTS} x {vocab} f32 (the logit statistic): max_abs_err {err:.3g} "
+          f"vs plain, mass {mass:.4g} (tol: 1e-6 x mass; counts exact)")
+    check(torch.equal(out[SLOTS + 1:], plain[SLOTS + 1:]) and err <= 1e-6 * mass,
+          f"mma_sum_parts disagrees with its plain version at {SLOTS} x {vocab}")
+    b, by = bound_ms(logits.numel() * 4 + out.numel() * 4, core_flops=3 * logits.numel())
+    return {
+        "max_abs_err": err,
+        "ms": device_ms(k4, "parts_kernel"),
+        "plain_ms": time_ms(lambda: mma_sum_parts_plain(parts, ("square",) * SLOTS, chains,
+                                                        True), iters=5, warmup=1),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": device_ms(lambda: logits.square().sum(-1)),
+    }
+
+
+def check_moe_shapes(results: dict) -> None:
+    """The kernels at the shapes the MoE archs give them, each against its
+    plain version and timed beside its bound and PyTorch call (as
+    ``check_dense_shapes``): K6 at d = 8 and 24 (``check_head_widths``);
+    K5b at d = 1024 (granite: the decode, prefill and training rows) and
+    d = 6144 (dbrx: decode and prefill rows); K6 at granite's 16 query on
+    8 kv heads of 64 for training and prefill, the training shape also at
+    heads of 128 (what the kernel's zero column half costs at 64), and
+    dbrx's 48 on 8 of 128 at prefill; K7 over granite's (2048, 49408) f32
+    logits, 253 pad columns; K4 as the logit statistic over granite's and
+    dbrx's public logits. The figures go under the kernels' "moe_archs"
+    keys."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    check_head_widths(results, gen)
+    norms = {f"granite_{rows}x1024": _rmsnorm_case(gen, "granite", rows, 1024)
+             for rows in (SLOTS, SLOTS * PROMPT, TRAIN_BATCH * TRAIN_SEQ)}
+    norms.update({f"dbrx_{rows}x6144": _rmsnorm_case(gen, "dbrx", rows, 6144)
+                  for rows in (SLOTS, SLOTS * PROMPT)})
+    attn = {label: _attention_case(gen, label, *shape) for label, shape in (
+        ("granite_train_d64", (TRAIN_BATCH, 16, 8, TRAIN_SEQ, 64)),
+        ("granite_train_at_d128", (TRAIN_BATCH, 16, 8, TRAIN_SEQ, 128)),
+        ("granite_prefill_d64", (SLOTS, 16, 8, PROMPT, 64)),
+        ("dbrx_prefill", (SLOTS, 48, 8, PROMPT, 128)))}
+    ce = _cross_entropy_case(gen, "granite", GRANITE_VOCAB, GRANITE_PADDED)
+    stat = {"granite": _logit_stat_case(gen, GRANITE_VOCAB),
+            "dbrx": _logit_stat_case(gen, DBRX_VOCAB)}
+    results["rmsnorm"]["moe_archs"] = norms
+    results["flash_attention"]["moe_archs"] = attn
+    results["cross_entropy"]["granite"] = ce
+    results["mma_sum_parts"]["moe_archs"] = stat
+    _print_cases(list(norms.items()) + list(attn.items()) + [("granite ce", ce)]
+                 + [(f"{k} logit statistic", v) for k, v in stat.items()])
+
+
+def record_routing(fn):
+    """``fn()`` with every MoE layer's routing recorded (``models.moe.route``,
+    in layer order): (fn's result, [Routing, ...])."""
+    from repro_torch.models import moe as MOE
+
+    real, seen = MOE.route, []
+
+    def recording(p, x, cfg):
+        r = real(p, x, cfg)
+        seen.append(r)
+        return r
+
+    MOE.route = recording
+    try:
+        out = fn()
+    finally:
+        MOE.route = real
+    return out, seen
+
+
+def drop_fractions(routes) -> list:
+    """Each layer's ``moe_drop_frac``: the share of routed pairs past their
+    expert's capacity."""
+    return [1.0 - float(r.keep.sum()) / r.keep.numel() for r in routes]
+
+
+def check_moe_prefill(eng, prompts) -> dict:
+    """Two prefills of the same wave give the same logits, bitwise (the
+    gather combine adds each token's expert outputs in a fixed order), and
+    route the same; each layer's drop fraction at the prefill."""
+    import numpy as np
+    import torch
+
+    packed = eng._pack_wave([np.asarray(p) for p in prompts])
+    with torch.inference_mode():
+        (first, _), routes = record_routing(lambda: eng._prefill(eng.params, packed))
+        (second, _), again = record_routing(lambda: eng._prefill(eng.params, packed))
+    torch.cuda.synchronize()
+    same = torch.equal(first, second)
+    same_routes = all(torch.equal(a.slot_token, b.slot_token) for a, b in zip(routes, again))
+    drops = drop_fractions(routes)
+    print(f"{eng.cfg.name}: two prefills of one wave, logits bitwise equal: {same}; routing "
+          f"equal: {same_routes}; moe_drop_frac at the prefill (capacity "
+          f"{routes[0].slot_token.shape[-1]} slots an expert): mean {np.mean(drops):.4f}, min "
+          f"{min(drops):.4f}, max {max(drops):.4f} over {len(drops)} layers")
+    check(same and same_routes, f"{eng.cfg.name}: two prefills differ")
+    return {"prefill_bitwise_equal": same, "drop_frac_mean": float(np.mean(drops)),
+            "drop_frac_max": max(drops)}
+
+
+def check_dbrx_refused() -> None:
+    """The serving entry refuses full-depth dbrx-132b (263 GB at bf16)
+    before it allocates anything."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import GuardedEngine, serve_state_bytes
+
+    cfg = get_arch(DBRX)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        GuardedEngine(cfg, PROMPT + MAX_NEW + 1, SLOTS, seed=0)
+        message = None
+    except ValueError as e:
+        message = str(e)
+    after = torch.cuda.memory_allocated()
+    print(f"{DBRX} at full depth ({cfg.n_layers} layers, "
+          f"{serve_state_bytes(cfg, SLOTS, PROMPT + MAX_NEW + 1) / 1e9:.1f} GB): refused: "
+          f"{message}; device memory allocated before / after: {before} / {after}")
+    check(message is not None and "the ROADMAP's distributed item" in message
+          and after == before, f"{DBRX}: full depth was not refused before allocating")
 
 
 def run_meter_phase() -> dict:
@@ -3105,17 +3379,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_dense_shapes(results)
     torch.cuda.empty_cache()
+    check_moe_shapes(results)
+    torch.cuda.empty_cache()
     meter = run_meter_phase()
     torch.cuda.empty_cache()
     tuned = run_autotune_phase()
     torch.cuda.empty_cache()
     check_backward_times(results, gen)
-    for arch in DENSE_ARCHS:
+    for arch in DENSE_ARCHS + MOE_ARCHS:
         check_tiny_against_cpu(arch)
     check_full_width_against_cpu()
     serve_launches, serving = {}, {}
     for arch in DENSE_ARCHS:  # the olmo and internlm2 engines are freed before deepseek's
         serve_launches[arch], serving[arch] = serve_full_width(arch)
+    serve_launches[GRANITE], serving[GRANITE] = serve_full_width(GRANITE)
+    check_dbrx_refused()
+    serve_launches[DBRX], serving[DBRX] = serve_full_width(DBRX, n_layers=DBRX_LAYERS)
     torch.cuda.empty_cache()
     nonkernel = run_nonkernel_route()
     torch.cuda.empty_cache()
@@ -3124,7 +3403,7 @@ def main() -> int:
 
     R.set_default_backend("cuda_fused")  # the training CLI's --reduce-backend cuda_fused
     try:
-        for arch in DENSE_ARCHS:
+        for arch in DENSE_ARCHS + MOE_ARCHS:
             check_tiny_training_against_cpu(arch)
         check_full_width_training_against_cpu()
         check_parts_training(results, gen)
@@ -3135,6 +3414,9 @@ def main() -> int:
         intern_launches, intern_prof = train_full_width("internlm2-1.8b", guarded_steps=1)
         clip_stat = profile_clip_statistic("internlm2-1.8b",
                                            results["mma_sum_parts"]["census_on_ms"])
+        torch.cuda.empty_cache()
+        granite_launches, granite_prof = train_full_width(GRANITE, guarded_steps=1)
+        granite_clip = profile_clip_statistic(GRANITE, results["mma_sum_parts"]["census_on_ms"])
     finally:
         R.set_default_backend(None)
     torch.cuda.empty_cache()
@@ -3152,6 +3434,7 @@ def main() -> int:
 
     kernels = []
     results["mma_sum_segments"]["internlm2_clip_statistic"] = clip_stat
+    results["mma_sum_segments"]["granite_clip_statistic"] = granite_clip
     olmo_serve = serve_launches["olmo-1b"]
     for name in KERNELS:
         r = results[name]
@@ -3174,6 +3457,10 @@ def main() -> int:
             "launches_serving_deepseek": serve_launches["deepseek-7b"][name],
             "launches_training_internlm2": intern_launches[name],
             "launches_guarded_training_internlm2": intern_launches["guarded"][name],
+            "launches_serving_granite": serve_launches[GRANITE][name],
+            "launches_serving_dbrx_2_layers": serve_launches[DBRX][name],
+            "launches_training_granite": granite_launches[name],
+            "launches_guarded_training_granite": granite_launches["guarded"][name],
             "launches_multi_reduce": multi_launches[name],
             "launches_matmul_stats": ms_launches[name],
             "launches_guarded_training": guarded["launches"][name],
@@ -3209,6 +3496,13 @@ def main() -> int:
     print(f"training internlm2-1.8b: step wall {intern_prof['wall_ms']:.3f} ms, device busy "
           f"{intern_prof['busy_ms']:.3f} ms (olmo-1b {train_prof['wall_ms']:.3f} / "
           f"{train_prof['busy_ms']:.3f} ms); clip statistic {clip_stat}")
+    print(f"training {GRANITE}: step wall {granite_prof['wall_ms']:.3f} ms, device busy "
+          f"{granite_prof['busy_ms']:.3f} ms, idle share "
+          f"{max(0.0, 1.0 - granite_prof['busy_ms'] / granite_prof['wall_ms']):.3f}, peak "
+          f"{granite_launches['peak_gb']:.2f} GB, aux {granite_prof['aux']:.6g}; clip statistic "
+          f"{granite_clip['statistic_ms']:.3f} ms (K8 {granite_clip['statistic_k8_ms']:.3f}) "
+          f"over {granite_clip['n']} values against internlm2's {clip_stat['statistic_ms']:.3f} "
+          f"ms over {clip_stat['n']}")
     print(f"meter: {meter}; autotune: {tuned}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

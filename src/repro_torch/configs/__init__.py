@@ -2,13 +2,14 @@
 
 ARCHS maps arch id -> full ModelConfig (the published dims); TINY_ARCHS
 maps arch id -> a reduced same-family config small enough for the CPU;
-SHAPES maps the four assigned shape cells by name. The dense archs are
-ported: olmo-1b, internlm2-1.8b and deepseek-7b.
+SHAPES maps the four assigned shape cells by name. The dense archs
+(olmo-1b, internlm2-1.8b, deepseek-7b) and the MoE archs
+(granite-moe-1b-a400m, dbrx-132b) are ported.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import deepseek_7b, internlm2_1_8b, olmo_1b
+from repro_torch.configs import dbrx_132b, deepseek_7b, granite_moe_1b, internlm2_1_8b, olmo_1b
 from repro_torch.configs.base import (  # noqa: F401
     ALL_SHAPES,
     DECODE_32K,
@@ -16,12 +17,13 @@ from repro_torch.configs.base import (  # noqa: F401
     PREFILL_32K,
     TRAIN_4K,
     ModelConfig,
+    MoEConfig,
     ShapeConfig,
     TrainConfig,
     shape_applicable,
 )
 
-_MODULES = (olmo_1b, deepseek_7b, internlm2_1_8b)
+_MODULES = (olmo_1b, deepseek_7b, internlm2_1_8b, granite_moe_1b, dbrx_132b)
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 TINY_ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.TINY for m in _MODULES}

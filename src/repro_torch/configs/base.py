@@ -1,8 +1,8 @@
 """Model and shape configuration: a frozen, hashable ``ModelConfig`` per
 architecture, the four assigned ``ShapeConfig`` cells.
 
-A copy of ``repro/configs/base.py`` restricted to what the dense decoder of
-this package needs (``MoEConfig``, ``SSMConfig``, ``MLAConfig`` and
+A copy of ``repro/configs/base.py`` restricted to what the dense and MoE
+decoders of this package need (``SSMConfig``, ``MLAConfig`` and
 ``RGLRUConfig`` come with the families that use them), plus the
 optimizer's ``TrainConfig`` and the shape cells with ``shape_applicable``.
 ``use_pallas`` is ``use_kernels`` here and defaults to True: the hot spots
@@ -13,12 +13,23 @@ the CUDA kernels of ``repro_torch.kernels``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    router_z_weight: float = 1e-3
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,8 +41,9 @@ class ModelConfig:
     # self-attention + FFN) is ported.
     block_pattern: tuple[str, ...] = ("attn",)
     norm: str = "rmsnorm"          # rmsnorm | layernorm_np
-    ffn_kind: str = "swiglu"       # swiglu (gelu is not ported)
+    ffn_kind: str = "swiglu"       # swiglu | gelu (gelu: the MoE experts only)
     rope_theta: float = 10000.0
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     # tanh soft cap of the logits, c * tanh(logits / c); 0 = off (the reference's)
@@ -56,7 +68,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks + head), the same
-        formula as the reference for the dense attention block."""
+        formula as the reference for the attention block with a dense or
+        MoE FFN."""
         d = self.d_model
         total = self.vocab_size * d  # embed
         if not self.tie_embeddings:
@@ -74,7 +87,21 @@ class ModelConfig:
 
     def _ffn_params(self) -> int:
         d = self.d_model
+        if self.moe is not None:
+            e = self.moe
+            per = 3 * d * e.d_ff_expert if self.ffn_kind == "swiglu" else 2 * d * e.d_ff_expert
+            return e.n_experts * per + d * e.n_experts
         return 3 * d * self.d_ff if self.ffn_kind == "swiglu" else 2 * d * self.d_ff
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only the top-k experts), the
+        N of MODEL_FLOPS = 6 N_active D."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        per = (3 if self.ffn_kind == "swiglu" else 2) * self.d_model * e.d_ff_expert
+        n_ffn_layers = sum(1 for k in self.pattern_layers if k == "attn")
+        return int(self.param_count() - n_ffn_layers * (e.n_experts - e.top_k) * per)
 
 
 @dataclasses.dataclass(frozen=True)

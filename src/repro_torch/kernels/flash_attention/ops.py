@@ -3,8 +3,9 @@
 Port of ``repro/kernels/flash_attention`` (``_attn_kernel`` behind
 ``flash_attention``). Layout at this function, as in the reference:
 q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D); Hq a multiple of Hkv (GQA).
-On CUDA tensors the wrapper launches ``csrc/flash_attention.cu``; on CPU
-tensors it runs ``flash_attention_plain``, which walks the same blocks
+On CUDA tensors the wrapper launches ``csrc/flash_attention.cu`` (a head
+width off the multiples of 16 zero-padded to one first); on CPU tensors it
+runs ``flash_attention_plain``, which walks the same blocks
 (128 queries, 128 keys: the reference's ``block_q`` and ``block_k``) with
 the same run test, masks, bf16 roundings and online update.
 
@@ -30,6 +31,16 @@ LOG2E = math.log2(math.e)  # the kernel's softmax runs in base 2
 BLOCK_Q = 128   # csrc/flash_attention.cu FA_BQ
 BLOCK_K = 128   # csrc/flash_attention.cu FA_BK
 MAX_HEAD_DIM = 128
+HEAD_DIM_MULTIPLE = 16  # the kernel's MMA k-step over the head width
+
+
+def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., D) zero-padded on its last axis to the next multiple of
+    16, the head widths the kernel takes. Zero columns add nothing to q.k
+    and give zero output columns, so the first D columns of attention over
+    the padded q, k, v (at the true scale D**-0.5) are attention over the
+    unpadded ones."""
+    return torch.nn.functional.pad(t, (0, (-t.shape[-1]) % HEAD_DIM_MULTIPLE))
 
 
 def flash_attention_plain(
@@ -167,9 +178,10 @@ def flash_attention(
     sm_scale: float | None = None,
 ) -> torch.Tensor:
     """IO-aware attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).
-    CPU tensors: plain version; CUDA tensors: the kernel (D a multiple of
-    16 up to 128). With an input that needs a gradient, the call goes
-    through ``flash_attention_diff``."""
+    CPU tensors: plain version; CUDA tensors: the kernel (any D up to 128:
+    a D that is not a multiple of 16 is zero-padded to one inside the
+    wrapper, ``pad_head_dim``). With an input that needs a gradient, the
+    call goes through ``flash_attention_diff``."""
     if common.needs_grad(q, k, v):
         return flash_attention_diff(q, k, v, causal, window, q_offset, sm_scale)
     return _flash_attention_forward(
@@ -193,10 +205,16 @@ def _flash_attention_forward(q, k, v, *, causal, window, q_offset, sm_scale):
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, q_offset=q_offset, sm_scale=sm_scale
         )
-    if d % 16 or d > MAX_HEAD_DIM:
-        raise ValueError(f"the attention kernel takes D a multiple of 16 up to {MAX_HEAD_DIM}; got {d}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernel takes D up to {MAX_HEAD_DIM}; got {d}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if d % HEAD_DIM_MULTIPLE:
+        # the padded copy is this call's own work; sm_scale stays d**-0.5
+        out = _flash_attention_forward(
+            pad_head_dim(q), pad_head_dim(k), pad_head_dim(v), causal=causal, window=window,
+            q_offset=q_offset, sm_scale=sm_scale)
+        return out[..., :d].contiguous()
     # the kernel reads 16-byte aligned rows (TMA, vector loads): a view
     # that starts off that alignment is copied
     qc, kc, vc = (t.reshape(n, s, d).contiguous() for t, n, s in

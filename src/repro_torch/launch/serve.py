@@ -13,7 +13,11 @@ slots; each engine step decodes one token for every slot.
                          breaker degrading cuda_fused -> mma_torch -> torch.
 
 Engines run on the GPU unless the caller passes ``device="cpu"``; with no
-GPU and no device they raise. Everything runs under inference mode.
+GPU and no device they raise. Everything runs under inference mode. An
+engine whose parameters and caches would not fit the card
+(``serve_state_bytes``: dbrx-132b's 263 GB at full depth) is refused
+before anything is allocated; it serves only across cards, the ROADMAP's
+distributed item.
 
   python -m repro_torch.launch.serve --arch olmo-1b --guard \\
       --requests 8 --batch-slots 4 --prompt-len 256 --max-new 16
@@ -31,6 +35,8 @@ from repro_torch import reduce as R
 from repro_torch.configs import get_arch
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import init_params
+from repro_torch.models.model import f32_param_count, param_dtype
+from repro_torch.models.params import padded_vocab
 from repro_torch.runtime.serving import Request, ServingRuntime, guarded_logit_stat
 
 
@@ -43,6 +49,31 @@ def resolve_device(device) -> torch.device:
             "it is given device='cpu'"
         )
     return dev
+
+
+def serve_state_bytes(cfg, batch_slots: int, s_max: int) -> int:
+    """Bytes an engine holds before it serves: the parameters at their
+    dtype (the padded vocabulary rows included, an MoE router at f32) and
+    every layer's k and v caches of ``batch_slots`` x ``s_max``."""
+    item = torch.empty((), dtype=param_dtype(cfg)).element_size()
+    pad_rows = (padded_vocab(cfg.vocab_size) - cfg.vocab_size) * (2 - cfg.tie_embeddings)
+    params = ((cfg.param_count() + pad_rows * cfg.d_model) * item
+              + f32_param_count(cfg) * (4 - item))
+    caches = cfg.n_layers * 2 * batch_slots * s_max * cfg.n_kv_heads * cfg.d_head * item
+    return params + caches
+
+
+def check_fits_card(cfg, batch_slots: int, s_max: int, device: torch.device) -> None:
+    """Refuse, before any allocation, an engine larger than the card."""
+    if device.type != "cuda":
+        return
+    need = serve_state_bytes(cfg, batch_slots, s_max)
+    have = torch.cuda.get_device_properties(device).total_memory
+    if need > have:
+        raise ValueError(
+            f"{cfg.name}: the parameters and caches take {need / 1e9:.1f} GB, more than the "
+            f"card's {have / 1e9:.1f} GB; it serves at this depth only across cards, the "
+            f"ROADMAP's distributed item (not ported yet)")
 
 
 def _tok_ints(tok: torch.Tensor) -> np.ndarray:
@@ -61,6 +92,7 @@ class Engine:
         self.slots = batch_slots
         self.device = resolve_device(device)
         if params is None:
+            check_fits_card(cfg, batch_slots, s_max, self.device)
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, self.device)
         self.params = params

@@ -41,8 +41,8 @@ def make_grads_fn(cfg, tcfg):
     ``reduce.tree_leaves`` order)."""
 
     def loss_fn(params, tokens):
-        h = forward_hidden(params, cfg, tokens[:, :-1])
-        loss, _ = lm_loss_chunked(params, cfg, h, tokens[:, 1:], 0.0)
+        h, aux = forward_hidden(params, cfg, tokens[:, :-1])
+        loss, _ = lm_loss_chunked(params, cfg, h, tokens[:, 1:], aux)
         return loss
 
     def compute_grads(params, batch):

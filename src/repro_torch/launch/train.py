@@ -58,7 +58,7 @@ from repro_torch.launch.serve import resolve_device
 from repro_torch.launch.steps import make_guarded_train_step, make_train_step
 from repro_torch.models import init_params
 from repro_torch.models.convert import reference_leaf_groups
-from repro_torch.models.model import param_dtype
+from repro_torch.models.model import f32_param_count, param_dtype
 from repro_torch.runtime import ChaosMonkey, GuardMetrics, PreemptionGuard, StepGuard
 
 _NOT_PORTED = {
@@ -68,26 +68,29 @@ _NOT_PORTED = {
 
 
 def param_leaves(cfg) -> int:
-    """Tensors in ``init_params(cfg)`` for the dense block: per layer the
-    four attention weights, the FFN's two or three, and two RMSNorm scales;
-    the embedding, the final RMSNorm scale and an untied head."""
+    """Tensors in ``init_params(cfg)``: per layer the four attention
+    weights, the FFN's two or three (an MoE FFN: the router and the two or
+    three stacked expert tensors), and two RMSNorm scales; the embedding,
+    the final RMSNorm scale and an untied head."""
     rms = cfg.norm == "rmsnorm"
-    per_layer = 4 + (3 if cfg.ffn_kind == "swiglu" else 2) + 2 * rms
+    ffn = (3 if cfg.ffn_kind == "swiglu" else 2) + (cfg.moe is not None)
+    per_layer = 4 + ffn + 2 * rms
     return cfg.n_layers * per_layer + 1 + rms + (not cfg.tie_embeddings)
 
 
 def train_state_bytes(cfg, tcfg) -> int:
     """Bytes of the training state before activations: the parameters and
-    their gradients at the parameters' dtype, AdamW's f32 first moment and
-    its f32 second moment (one scalar a group with ``fused_second_moment``,
-    counted as none); past ``PARTS_KERNEL_MAX`` leaves also the clip
-    statistic's pack, which holds every gradient squared at f32 and then
-    their concatenation (8 bytes a parameter at its peak)."""
+    their gradients at the parameters' dtype (an MoE router at f32),
+    AdamW's f32 first moment and its f32 second moment (one scalar a group
+    with ``fused_second_moment``, counted as none); past
+    ``PARTS_KERNEL_MAX`` leaves also the clip statistic's pack, which holds
+    every gradient squared at f32 and then their concatenation (8 bytes a
+    parameter at its peak)."""
     item = torch.empty((), dtype=param_dtype(cfg)).element_size()
     per = 2 * item + (4 if tcfg.fused_second_moment else 8)
     if param_leaves(cfg) > PARTS_KERNEL_MAX:
         per += 8
-    return cfg.param_count() * per
+    return cfg.param_count() * per + f32_param_count(cfg) * 2 * (4 - item)
 
 
 def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0):

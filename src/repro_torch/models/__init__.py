@@ -1,5 +1,6 @@
-"""The dense decoder (olmo-1b, internlm2-1.8b, deepseek-7b) of the serving
-and training paths.
+"""The decoder of the serving and training paths: the dense archs
+(olmo-1b, internlm2-1.8b, deepseek-7b) and the MoE archs
+(granite-moe-1b-a400m, dbrx-132b; ``models.moe``).
 
 ``init_params`` / ``forward`` / ``prefill`` / ``decode_step`` /
 ``make_caches`` are the public contract of the launchers, as in the

@@ -1,7 +1,7 @@
 """Shared layers: norms, FFNs, RoPE.
 
-Port of ``repro/models/layers.py`` (``norm_apply``, ``ffn_apply``,
-``rope``). With ``use_kernels`` the norms run the fused kernels of
+Port of ``repro/models/layers.py`` (``norm_apply``, ``softmax_mma``,
+``ffn_apply``, ``rope``). With ``use_kernels`` the norms run the fused kernels of
 ``kernels.row_moments`` (the reference's ``use_pallas`` route); without it
 their f32 row statistics are row reductions of the engine on
 ``backend_for_flags(mma)`` -- the ones-MMA route with the paper's technique
@@ -45,6 +45,21 @@ def norm_apply(kind: str, p: dict, x: torch.Tensor, *, eps: float, mma: bool,
             y = y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
         return y
     raise ValueError(f"norm {kind!r} is not ported")
+
+
+def softmax_mma(s: torch.Tensor, *, mma: bool, axis: int = -1) -> torch.Tensor:
+    """Softmax whose denominator is a row reduction of the engine on
+    ``backend_for_flags(True)`` when ``mma`` (the ones-product), else
+    ``torch.sum``. The max-subtraction stays an f32 elementwise op (max has
+    no '+' MMA encoding); the denominator is floored at 1e-30."""
+    sf = s.to(torch.float32)
+    m = torch.amax(sf, dim=axis, keepdim=True)
+    e = torch.exp(sf - m)
+    if mma and axis in (-1, s.ndim - 1):
+        denom = R.reduce(e, axis=-1, backend=R.backend_for_flags(True))[..., None]
+    else:
+        denom = torch.sum(e, dim=axis, keepdim=True)
+    return (e / torch.clamp_min(denom, 1e-30)).to(s.dtype)
 
 
 def ffn_init(gen, d: int, d_ff: int, kind: str, dtype, device) -> dict:

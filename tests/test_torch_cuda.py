@@ -186,9 +186,27 @@ def test_flash_attention_matches_plain(gen, case, dtype):
 
 
 def test_flash_attention_rejects_unsupported_head_dim(gen):
-    q = torch.zeros((1, 1, 8, 24), device="cuda")
+    # widths past 128 are refused (recurrentgemma's 256 waits for its
+    # slice); any width up to 128 is taken, see the padding test below
+    q = torch.zeros((1, 1, 8, 256), device="cuda")
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("d", [8, 24, 72])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_pads_head_width(gen, d, dtype):
+    # a width off the multiples of 16 is zero-padded inside the wrapper:
+    # one launch, the first d columns, at the true scale d**-0.5
+    q, k, v = ((torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
+               for shape in ((2, 8, 130, d), (2, 2, 130, d), (2, 2, 130, d)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    plain = flash_attention_plain(q, k, v)
+    assert out.shape == q.shape and out.dtype == dtype
+    diff = (out.float() - plain.float()).abs()
+    assert bool(torch.all(diff <= 2.0**-6 * plain.float().abs() + 2e-3))
 
 
 def test_parts_match_plain_with_census(gen):

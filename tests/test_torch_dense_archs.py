@@ -1,7 +1,12 @@
 """Port parity of the dense archs internlm2-1.8b (GQA, untied head, RMSNorm)
-and deepseek-7b (MHA at d = 4096, untied head, RMSNorm).
+and deepseek-7b (MHA at d = 4096, untied head, RMSNorm), and of the MoE
+archs granite-moe-1b-a400m (32 experts top-8, GQA heads of 64, tied
+embeddings) and dbrx-132b (16 experts top-4, 48 query heads on 8 kv heads,
+untied head; heads of 8 at its tiny size).
 
-  * ``param_count()`` at full and tiny size against the reference's.
+  * ``param_count()`` and ``active_param_count()`` at full and tiny size
+    against the reference's; the training CLI's leaf count against the
+    tree's.
   * Tiny-config prefill and two teacher-forced decode steps from the
     reference's own weights (``params_from_jax``, the untied head carried
     across), against ``repro.launch.serve.GuardedEngine`` with
@@ -19,6 +24,17 @@ Tolerances: as ``tests/test_torch_serve.py`` (logits 1e-4 in f32: both
 sides round the same intermediates to bf16 and sum in other orders) and
 ``tests/test_torch_train.py`` (loss 1e-3, grad norm and clip 1e-4
 relative, parameters within 2 lr x steps with all but 0.1% within 1e-5).
+The MoE archs' train steps are held to the same tolerances. Their
+logits are held within 0.01, the card-vs-CPU limit of ``chip_smoke.py``:
+the 1e-4 above is a property of the seed, not of the port. Over 12 prompt
+seeds the prefill logits of every tiny arch, dense included, leave 1e-4
+on 2 to 5 of them (up to 1.8e-3), and at this test's seed granite's
+decode steps do (1.1e-4, 1.5e-4): inputs 7e-7 apart (f32 sums of other
+orders) cross a bf16 rounding of attention's q, k, v or p on one side
+only (tiny granite's third layer: attention outputs 9e-4 apart), and the
+flip carries to the logits. A planted routing fault (every token sent to
+the next expert) must fail the 0.01 limit. ``tests/test_torch_moe.py``
+holds the routing tables themselves exactly.
 The >128-leaf statistic: norm and clip 1e-5 relative (f32 sums of the
 same squares in other orders: the pack folds 138 segments, K4 12 parts);
 the census counts exactly.
@@ -50,9 +66,11 @@ from repro_torch.models import init_params
 from repro_torch.models.convert import params_from_jax, reference_leaf_groups
 from repro_torch.models.params import count_params, padded_vocab
 
-ARCHS = ["internlm2-1.8b", "deepseek-7b"]
+ARCHS = ["internlm2-1.8b", "deepseek-7b", "granite-moe-1b-a400m", "dbrx-132b"]
+UNTIED = [a for a in ARCHS if a != "granite-moe-1b-a400m"]
 SLOTS, PROMPT, S_MAX = 2, 8, 16
 LOGIT_ATOL = 1e-4
+MOE_LOGIT_ATOL = 0.01
 BATCH, SEQ, STEPS = 2, 16, 2
 
 
@@ -60,9 +78,45 @@ BATCH, SEQ, STEPS = 2, 16, 2
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_count_matches_reference(arch, tiny):
     assert get_arch(arch, tiny).param_count() == ref_arch(arch, tiny).param_count()
+    assert get_arch(arch, tiny).active_param_count() == ref_arch(arch, tiny).active_param_count()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", [a for a in ARCHS if get_arch(a).moe is not None])
+def test_moe_leaves_counted_and_carried_across(arch):
+    cfg = get_arch(arch, tiny=True)
+    e = cfg.moe
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert train_cli.param_leaves(cfg) == len(R.tree_leaves(params))
+    rparams, _ = ref_init_params(jax.random.PRNGKey(0), ref_arch(arch, tiny=True))
+    assert count_params(params) == sum(x.size for x in jax.tree.leaves(rparams))
+    ffn = params["layers"][0]["ffn"]
+    assert ffn["router"].dtype == torch.float32
+    assert ffn["router"].shape == (cfg.d_model, e.n_experts)
+    assert ffn["up"].shape == (e.n_experts, cfg.d_model, e.d_ff_expert)
+    assert ffn["down"].shape == (e.n_experts, e.d_ff_expert, cfg.d_model)
+    # the carried-across tree maps its stacked expert leaves onto the
+    # reference's, one group per reference leaf
+    pparams = params_from_jax(jax.tree.map(np.asarray, rparams), cfg)
+    groups = reference_leaf_groups(pparams, cfg)
+    assert len(set(groups)) == len(jax.tree.leaves(rparams))
+    stacked = rparams["units"]["pos0"]["ffn"]
+    for i, layer in enumerate(pparams["layers"]):
+        for name, leaf in layer["ffn"].items():
+            assert torch.equal(leaf, torch.from_numpy(np.array(stacked[name][i])))
+
+
+def test_full_width_moe_leaves_and_state():
+    assert train_cli.param_leaves(get_arch("granite-moe-1b-a400m")) == 242
+    granite = get_arch("granite-moe-1b-a400m")
+    # 1.335 B parameters at 20 bytes (past 128 leaves: the clip pack too),
+    # the f32 routers (24 x 1024 x 32) 4 bytes more each in the parameters
+    # and the gradients
+    assert train_cli.train_state_bytes(granite, TrainConfig()) == \
+        granite.param_count() * 20 + 24 * 1024 * 32 * 4
+    assert 26e9 < train_cli.train_state_bytes(granite, TrainConfig()) < 27e9
+
+
+@pytest.mark.parametrize("arch", UNTIED)
 def test_untied_head_initialised_and_counted(arch):
     cfg = get_arch(arch, tiny=True)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -86,12 +140,13 @@ def _engines(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits_match_reference(arch):
     reng, peng = _engines(arch)
+    tol = LOGIT_ATOL if peng.cfg.moe is None else MOE_LOGIT_ATOL
     prompts = np.random.default_rng(1).integers(0, 256, size=(SLOTS, PROMPT))
     want, rcache = reng._jit_prefill(reng.params, jnp.asarray(prompts, jnp.int32))
     with torch.inference_mode():
         got, pcache = peng._prefill(peng.params, torch.from_numpy(prompts.astype(np.int64)))
     assert got.shape == want.shape == (SLOTS, 1, 256)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=LOGIT_ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=tol)
     rdec = jax.jit(ref_decode_step(reng.cfg, greedy=False))
     toks = np.random.default_rng(2).integers(0, 256, size=(2, SLOTS, 1))
     for t in range(2):
@@ -101,7 +156,22 @@ def test_prefill_and_decode_logits_match_reference(arch):
         with torch.inference_mode():
             got, pcache = peng._decode_logits(peng.params, pcache, torch.from_numpy(toks[t]),
                                               pos)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=LOGIT_ATOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if get_arch(a).moe is not None])
+def test_moe_logit_limit_catches_a_routing_fault(arch, monkeypatch):
+    from repro_torch.models import moe as M
+
+    reng, peng = _engines(arch)
+    prompts = np.random.default_rng(1).integers(0, 256, size=(SLOTS, PROMPT))
+    want, _ = reng._jit_prefill(reng.params, jnp.asarray(prompts, jnp.int32))
+    orig = M._dispatch_row
+    monkeypatch.setattr(M, "_dispatch_row", lambda ei, gv, E, cap, backend=None:
+                        orig((ei + 1) % E, gv, E, cap, backend=backend))
+    with torch.inference_mode():
+        got, _ = peng._prefill(peng.params, torch.from_numpy(prompts.astype(np.int64)))
+    assert float(np.abs(got.numpy() - np.asarray(want)).max()) > 10 * MOE_LOGIT_ATOL
 
 
 @pytest.fixture
@@ -196,3 +266,34 @@ def test_train_cli_refuses_a_state_larger_than_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: Props())
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", "deepseek-7b", "--steps", "1"])
+
+
+def test_serving_entry_refuses_a_state_larger_than_the_card(monkeypatch):
+    from repro_torch.launch import serve as serve_cli
+
+    dbrx = get_arch("dbrx-132b")
+    need = serve_cli.serve_state_bytes(dbrx, 4, 273)
+    assert 263e9 < need < 264e9  # 131.6 B parameters at bf16, and the caches
+
+    class Props:
+        total_memory = 85 * 10**9  # an 80 GB card
+
+    def no_alloc(*args, **kwargs):
+        raise AssertionError("the engine allocated parameters before its size check")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: Props())
+    monkeypatch.setattr(serve_cli, "init_params", no_alloc)
+    with pytest.raises(ValueError, match="the ROADMAP's distributed item"):
+        serve_cli.GuardedEngine(dbrx, 273, 4)
+    with pytest.raises(ValueError, match="the ROADMAP's distributed item"):
+        serve_cli.main(["--arch", "dbrx-132b", "--guard", "--prompt-len", "256"])
+    # what fits is served unchanged: dbrx at full width on 2 layers
+    # (~15.5 GB), granite and the dense archs at full depth
+    cuda = torch.device("cuda")
+    two = dataclasses.replace(dbrx, n_layers=2)
+    assert 15e9 < serve_cli.serve_state_bytes(two, 4, 273) < 16e9
+    for cfg in (two, get_arch("granite-moe-1b-a400m"), get_arch("deepseek-7b")):
+        serve_cli.check_fits_card(cfg, 4, 273, cuda)
+    # the CPU has no card to refuse for
+    serve_cli.check_fits_card(dbrx, 4, 273, torch.device("cpu"))

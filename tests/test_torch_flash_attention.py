@@ -20,6 +20,7 @@ import torch
 
 from repro.kernels import flash_attention as ref_flash_attention
 from repro_torch.kernels import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention_plain, pad_head_dim
 
 CASES = [
     # b, hq, hkv, sq, skv, d, causal, window, q_offset
@@ -65,3 +66,25 @@ def test_rejects_bad_arguments():
         flash_attention(q, k, k)  # Hq not a multiple of Hkv
     with pytest.raises(ValueError):
         flash_attention(k, k, k, window=0)
+
+
+@pytest.mark.parametrize("d", [8, 24])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+def test_head_width_padding_matches_unpadded(d, hq, hkv):
+    """The kernel takes head widths that are multiples of 16; the wrapper
+    zero-pads any other width up to one (``pad_head_dim``) at the true
+    scale d**-0.5 and keeps the first d columns. On the plain version the
+    padded call agrees with the unpadded one (zero columns add nothing to
+    q.k, and give zero output columns). dbrx-tiny's heads are 8 wide."""
+    rng = np.random.default_rng(d * 10 + hq)
+    q, k, v = (torch.from_numpy((rng.standard_normal((2, h, 70, d)) * 0.5)
+                                .astype(np.float32)) for h in (hq, hkv, hkv))
+    want = flash_attention_plain(q, k, v)
+    padded = [pad_head_dim(t) for t in (q, k, v)]
+    assert padded[0].shape[-1] == 16 * -(-d // 16)
+    assert all(bool((t[..., d:] == 0).all()) for t in padded)
+    out = flash_attention_plain(*padded, sm_scale=d**-0.5)
+    assert bool((out[..., d:] == 0).all())
+    torch.testing.assert_close(out[..., :d], want, rtol=0, atol=1e-6)
+    # the entry on the CPU (the plain version, unpadded) agrees too
+    torch.testing.assert_close(flash_attention(q, k, v), want, rtol=0, atol=0)
