@@ -3,27 +3,39 @@
 ARCHS maps arch id -> full ModelConfig (the published dims); TINY_ARCHS
 maps arch id -> a reduced same-family config small enough for the CPU;
 SHAPES maps the four assigned shape cells by name. The dense archs
-(olmo-1b, internlm2-1.8b, deepseek-7b) and the MoE archs
-(granite-moe-1b-a400m, dbrx-132b) are ported.
+(olmo-1b, internlm2-1.8b, deepseek-7b), the MoE archs
+(granite-moe-1b-a400m, dbrx-132b), MLA (minicpm3-4b) and the SSM
+(mamba2-780m) are ported.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import dbrx_132b, deepseek_7b, granite_moe_1b, internlm2_1_8b, olmo_1b
+from repro_torch.configs import (
+    dbrx_132b,
+    deepseek_7b,
+    granite_moe_1b,
+    internlm2_1_8b,
+    mamba2_780m,
+    minicpm3_4b,
+    olmo_1b,
+)
 from repro_torch.configs.base import (  # noqa: F401
     ALL_SHAPES,
     DECODE_32K,
     LONG_500K,
     PREFILL_32K,
     TRAIN_4K,
+    MLAConfig,
     ModelConfig,
     MoEConfig,
+    SSMConfig,
     ShapeConfig,
     TrainConfig,
     shape_applicable,
 )
 
-_MODULES = (olmo_1b, deepseek_7b, internlm2_1_8b, granite_moe_1b, dbrx_132b)
+_MODULES = (olmo_1b, deepseek_7b, internlm2_1_8b, granite_moe_1b, dbrx_132b, minicpm3_4b,
+            mamba2_780m)
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 TINY_ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.TINY for m in _MODULES}

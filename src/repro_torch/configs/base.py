@@ -1,10 +1,10 @@
 """Model and shape configuration: a frozen, hashable ``ModelConfig`` per
 architecture, the four assigned ``ShapeConfig`` cells.
 
-A copy of ``repro/configs/base.py`` restricted to what the dense and MoE
-decoders of this package need (``SSMConfig``, ``MLAConfig`` and
-``RGLRUConfig`` come with the families that use them), plus the
-optimizer's ``TrainConfig`` and the shape cells with ``shape_applicable``.
+A copy of ``repro/configs/base.py`` restricted to what the decoders of
+this package need (the dense and MoE FFNs, MLA and the Mamba-2 SSM block;
+``RGLRUConfig`` comes with the family that uses it), plus the optimizer's
+``TrainConfig`` and the shape cells with ``shape_applicable``.
 ``use_pallas`` is ``use_kernels`` here and defaults to True: the hot spots
 (norms, attention, the cross-entropy, the loss and clip statistics) run on
 the CUDA kernels of ``repro_torch.kernels``.
@@ -27,9 +27,34 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 / SSD hyperparameters."""
+
+    d_state: int = 128
+    expand: int = 2
+    headdim: int = 64
+    n_groups: int = 1
+    conv_width: int = 4
+    chunk: int = 256
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3)."""
+
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe (the families ported so far)
+    family: str                    # dense | moe | ssm (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -37,13 +62,16 @@ class ModelConfig:
     d_head: int
     d_ff: int
     vocab_size: int
-    # Repeating layer pattern cycled to n_layers; only "attn" (global
-    # self-attention + FFN) is ported.
+    # Repeating layer pattern cycled to n_layers; "attn" (global
+    # self-attention, or MLA when ``mla`` is set, + FFN) and "ssm" (the
+    # Mamba-2 block, no FFN) are ported.
     block_pattern: tuple[str, ...] = ("attn",)
     norm: str = "rmsnorm"          # rmsnorm | layernorm_np
     ffn_kind: str = "swiglu"       # swiglu | gelu (gelu: the MoE experts only)
     rope_theta: float = 10000.0
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    mla: Optional[MLAConfig] = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     # tanh soft cap of the logits, c * tanh(logits / c); 0 = off (the reference's)
@@ -60,29 +88,54 @@ class ModelConfig:
         return (self.block_pattern * reps)[: self.n_layers]
 
     @property
-    def subquadratic(self) -> bool:
-        """True if the arch decodes with bounded state per token (SSM or
-        recurrent state, or a bounded local window): none of the ported
-        blocks, so False for every ported config."""
+    def attention_free(self) -> bool:
         return all(k in ("ssm", "rec") for k in self.pattern_layers)
 
+    @property
+    def subquadratic(self) -> bool:
+        """True if the arch decodes with O(1) state per token: every layer an
+        SSM or recurrent block (mamba2-780m). The reference also counts a
+        bounded local-attention window, which comes with the RG-LRU
+        family."""
+        return self.attention_free
+
     def param_count(self) -> int:
-        """Analytic parameter count (embeddings + blocks + head), the same
-        formula as the reference for the attention block with a dense or
-        MoE FFN."""
+        """Analytic parameter count (embeddings + blocks + head), the
+        reference's formula for the attention block (MLA when ``mla`` is
+        set) with a dense or MoE FFN and for the SSM block (whose last term,
+        ``d_in + 2 nh``, is the reference's approximation: the block holds
+        ``d_in + 3 nh`` such values, ``A_log``, ``D`` and ``dt_bias``)."""
         d = self.d_model
         total = self.vocab_size * d  # embed
         if not self.tie_embeddings:
             total += self.vocab_size * d
         for kind in self.pattern_layers:
-            if kind != "attn":
+            if kind == "attn":
+                if self.mla is not None:
+                    m = self.mla
+                    total += d * m.q_lora_rank
+                    total += m.q_lora_rank * self.n_heads * (m.qk_nope_dim + m.qk_rope_dim)
+                    total += d * (m.kv_lora_rank + m.qk_rope_dim)
+                    total += m.kv_lora_rank * self.n_heads * (m.qk_nope_dim + m.v_head_dim)
+                    total += self.n_heads * m.v_head_dim * d
+                else:
+                    total += d * self.n_heads * self.d_head
+                    total += 2 * d * self.n_kv_heads * self.d_head
+                    total += self.n_heads * self.d_head * d
+                total += self._ffn_params()
+            elif kind == "ssm":
+                s = self.ssm
+                d_in = s.expand * d
+                conv_dim = d_in + 2 * s.n_groups * s.d_state
+                nh = d_in // s.headdim
+                total += d * (2 * d_in + 2 * s.n_groups * s.d_state + nh)
+                total += conv_dim * s.conv_width
+                total += d_in * d
+                total += d_in + 2 * nh  # gated-norm gamma + A, D, dt_bias approx
+            else:
                 raise NotImplementedError(
-                    f"block kind {kind!r} is not ported; only 'attn' is"
+                    f"block kind {kind!r} is not ported; 'attn' and 'ssm' are"
                 )
-            total += d * self.n_heads * self.d_head
-            total += 2 * d * self.n_kv_heads * self.d_head
-            total += self.n_heads * self.d_head * d
-            total += self._ffn_params()
         return int(total)
 
     def _ffn_params(self) -> int:

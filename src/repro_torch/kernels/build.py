@@ -27,9 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
-    "row_moments.cu", "flash_attention.cu", "parts_reduce.cu", "cross_entropy.cu",
-    "fused_reduce.cu", "fused_kahan.cu", "tile_partials.cu", "segmented_gather.cu", "scan.cu",
-    "matmul_stats.cu",
+    "row_moments.cu", "flash_attention.cu", "flash_attention_wide.cu", "parts_reduce.cu",
+    "cross_entropy.cu", "fused_reduce.cu", "fused_kahan.cu", "tile_partials.cu",
+    "segmented_gather.cu", "scan.cu", "matmul_stats.cu",
 )
 HEADERS = ("common.cuh", "reduce_common.cuh", "hopper.cuh")
 NVCC_FLAGS = (

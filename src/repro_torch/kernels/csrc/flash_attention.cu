@@ -51,7 +51,7 @@ namespace {
 
 constexpr int FA_BQ = 128;                   // query rows per CTA
 constexpr int FA_BK = 128;                   // keys per streamed block
-constexpr int FA_DMAX = 128;                 // largest head dim
+constexpr int FA_DMAX = 128;                 // largest head dim (wider: flash_attention_wide.cu)
 constexpr int FA_CWARPS = 8;                 // two consumer warpgroups
 constexpr int FA_THREADS = 32 * FA_CWARPS + 32;  // + the producer warp
 constexpr int FA_STAGES = 2;
@@ -406,15 +406,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq,
 
 }  // namespace
 
+extern "C" int fa_forward_wide(const void* q, const void* k, const void* v, void* o, int bh,
+                               int sq, int skv, int d, int n_q_heads, int n_kv_heads,
+                               float scale_log2, int causal, int window, int q_offset,
+                               int kv_len, int dtype, void* stream);
+
 // q: (bh, sq, d); k, v: (bh / (n_q_heads / n_kv_heads), skv, d); o like q;
 // every pointer 16-byte aligned. scale_log2 is the softmax scale times
 // log2(e). window <= 0 means no window. d must be a multiple of 16, at most
-// 128.
+// 256: past 128 the wide variant (flash_attention_wide.cu) runs.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, int bh,
                           int sq, int skv, int d, int n_q_heads, int n_kv_heads,
                           float scale_log2, int causal, int window, int q_offset,
                           int kv_len, int dtype, void* stream) {
-  if (d % 16 != 0 || d > FA_DMAX || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > FA_DMAX)
+    return fa_forward_wide(q, k, v, o, bh, sq, skv, d, n_q_heads, n_kv_heads, scale_log2,
+                           causal, window, q_offset, kv_len, dtype, stream);
+  if (d % 16 != 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);

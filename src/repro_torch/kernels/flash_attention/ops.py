@@ -4,10 +4,13 @@ Port of ``repro/kernels/flash_attention`` (``_attn_kernel`` behind
 ``flash_attention``). Layout at this function, as in the reference:
 q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D); Hq a multiple of Hkv (GQA).
 On CUDA tensors the wrapper launches ``csrc/flash_attention.cu`` (a head
-width off the multiples of 16 zero-padded to one first); on CPU tensors it
-runs ``flash_attention_plain``, which walks the same blocks
-(128 queries, 128 keys: the reference's ``block_q`` and ``block_k``) with
-the same run test, masks, bf16 roundings and online update.
+width off the multiples of 16 zero-padded to one first; past 128 wide the
+kernel hands the call to its wide variant, ``csrc/flash_attention_wide.cu``);
+on CPU tensors it runs ``flash_attention_plain``, which walks the same
+blocks (``blocks_for``: 128 queries and 128 keys, the reference's
+``block_q`` and ``block_k``, up to d = 128; 128 and 64 past it) with the
+same run test, masks, bf16 roundings and online update. Heads wider than
+256 are refused on the card.
 
 ``flash_attention_diff`` is the differentiable entry, the counterpart of
 the reference's custom-VJP ``flash_attention_diff``: the kernel forward,
@@ -30,8 +33,20 @@ NEG = -1e30
 LOG2E = math.log2(math.e)  # the kernel's softmax runs in base 2
 BLOCK_Q = 128   # csrc/flash_attention.cu FA_BQ
 BLOCK_K = 128   # csrc/flash_attention.cu FA_BK
-MAX_HEAD_DIM = 128
+NARROW_HEAD_DIM = 128  # csrc/flash_attention.cu FA_DMAX: wider heads take the wide variant
+WIDE_BLOCK_Q = 128  # csrc/flash_attention_wide.cu FW_BQ
+WIDE_BLOCK_K = 64   # csrc/flash_attention_wide.cu FW_BK
+MAX_HEAD_DIM = 256  # csrc/flash_attention_wide.cu FW_DMAX
 HEAD_DIM_MULTIPLE = 16  # the kernel's MMA k-step over the head width
+
+
+def blocks_for(d: int) -> tuple:
+    """(block_q, block_k) of the kernel that takes heads ``d`` wide (after
+    ``pad_head_dim``): 128 x 128 up to 128, the wide variant's 128 x 64
+    past it."""
+    if d + (-d) % HEAD_DIM_MULTIPLE > NARROW_HEAD_DIM:
+        return WIDE_BLOCK_Q, WIDE_BLOCK_K
+    return BLOCK_Q, BLOCK_K
 
 
 def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
@@ -52,16 +67,19 @@ def flash_attention_plain(
     window: int | None = None,
     q_offset: int = 0,
     sm_scale: float | None = None,
-    block_q: int = BLOCK_Q,
-    block_k: int = BLOCK_K,
+    block_q: int | None = None,
+    block_k: int | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the online softmax over
     ``block_k``-key blocks, each q block skipping the k blocks the kernel's
-    run test skips. Products of bf16-rounded operands accumulate in f32;
+    run test skips (the blocks default to the kernel's for this head
+    width, ``blocks_for``). Products of bf16-rounded operands accumulate in f32;
     the softmax runs in base 2, as the kernel's does (s = q.k * scale *
     log2 e, p = 2^(s - m): e^(scale q.k - scale m))."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    block_q = block_q or blocks_for(d)[0]
+    block_k = block_k or blocks_for(d)[1]
     scale = (sm_scale if sm_scale is not None else d**-0.5) * LOG2E
     rep = hq // hkv
     dev = q.device
@@ -178,9 +196,10 @@ def flash_attention(
     sm_scale: float | None = None,
 ) -> torch.Tensor:
     """IO-aware attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).
-    CPU tensors: plain version; CUDA tensors: the kernel (any D up to 128:
+    CPU tensors: plain version; CUDA tensors: the kernel (any D up to 256:
     a D that is not a multiple of 16 is zero-padded to one inside the
-    wrapper, ``pad_head_dim``). With an input that needs a gradient, the
+    wrapper, ``pad_head_dim``; past 128 the kernel's wide variant runs;
+    past 256 the call is refused). With an input that needs a gradient, the
     call goes through ``flash_attention_diff``."""
     if common.needs_grad(q, k, v):
         return flash_attention_diff(q, k, v, causal, window, q_offset, sm_scale)
@@ -206,7 +225,8 @@ def _flash_attention_forward(q, k, v, *, causal, window, q_offset, sm_scale):
             q, k, v, causal=causal, window=window, q_offset=q_offset, sm_scale=sm_scale
         )
     if d > MAX_HEAD_DIM:
-        raise ValueError(f"the attention kernel takes D up to {MAX_HEAD_DIM}; got {d}")
+        raise ValueError(f"the attention kernel takes D up to {MAX_HEAD_DIM}; got {d} (no "
+                         "configuration of the repository has wider heads)")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if d % HEAD_DIM_MULTIPLE:

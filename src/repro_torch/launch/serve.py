@@ -35,8 +35,8 @@ from repro_torch import reduce as R
 from repro_torch.configs import get_arch
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import init_params
-from repro_torch.models.model import f32_param_count, param_dtype
-from repro_torch.models.params import padded_vocab
+from repro_torch.models.model import f32_param_count, param_dtype, stored_param_count
+from repro_torch.models.ssm import _dims as ssm_dims
 from repro_torch.runtime.serving import Request, ServingRuntime, guarded_logit_stat
 
 
@@ -51,16 +51,31 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def cache_bytes(cfg, kind: str, batch_slots: int, s_max: int) -> int:
+    """Bytes of one layer's cache (``models.model.block_make_cache``): k and
+    v, or MLA's latent (kv_lora + rope values a token), with the int32
+    slot positions; an SSM block's conv window at the parameters' dtype and
+    its f32 state, whatever the sequence length."""
+    item = torch.empty((), dtype=param_dtype(cfg)).element_size()
+    if kind == "ssm":
+        s, _, nh, conv_dim = ssm_dims(cfg)
+        return batch_slots * ((s.conv_width - 1) * conv_dim * item + nh * s.headdim * s.d_state * 4)
+    if cfg.mla is not None:
+        per_token = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
+    else:
+        per_token = 2 * cfg.n_kv_heads * cfg.d_head
+    return batch_slots * s_max * per_token * item + s_max * 4
+
+
 def serve_state_bytes(cfg, batch_slots: int, s_max: int) -> int:
     """Bytes an engine holds before it serves: the parameters at their
-    dtype (the padded vocabulary rows included, an MoE router at f32) and
-    every layer's k and v caches of ``batch_slots`` x ``s_max``."""
+    dtype (``stored_param_count``: the padded vocabulary rows included; the
+    MoE routers and the SSM blocks' dt_bias, A_log and D at f32) and every
+    layer's cache of ``batch_slots`` x ``s_max`` (``cache_bytes``)."""
     item = torch.empty((), dtype=param_dtype(cfg)).element_size()
-    pad_rows = (padded_vocab(cfg.vocab_size) - cfg.vocab_size) * (2 - cfg.tie_embeddings)
-    params = ((cfg.param_count() + pad_rows * cfg.d_model) * item
-              + f32_param_count(cfg) * (4 - item))
-    caches = cfg.n_layers * 2 * batch_slots * s_max * cfg.n_kv_heads * cfg.d_head * item
-    return params + caches
+    params = stored_param_count(cfg) * item + f32_param_count(cfg) * (4 - item)
+    return params + sum(cache_bytes(cfg, kind, batch_slots, s_max)
+                        for kind in cfg.pattern_layers)
 
 
 def check_fits_card(cfg, batch_slots: int, s_max: int, device: torch.device) -> None:
@@ -147,9 +162,13 @@ class GuardedEngine(Engine):
     Each step is: model step + the chaos scale multiply (x1.0 is bitwise
     identity) + the per-slot logit statistic with its in-launch non-finite
     census (``guarded_logit_stat`` on the breaker's backend) + the greedy
-    argmax. Caches are written in place; a retried step from the committed
-    state rewrites the same slot with the same values (idempotent, see
-    ``models.attention``), so it reproduces the clean step bitwise."""
+    argmax. The KV and MLA latent caches are written in place; a retried
+    step from the committed state rewrites the same slot with the same
+    values (idempotent, see ``models.attention``). The SSM caches are never
+    written: a step returns new conv and state tensors
+    (``models.ssm.ssm_decode``), so the committed state stays as it was
+    until the runtime commits the new one. Either way a retried step
+    reproduces the clean step bitwise."""
 
     def __init__(self, cfg, s_max: int, batch_slots: int, seed: int = 0, *,
                  device=None, params=None):

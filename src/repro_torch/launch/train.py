@@ -33,9 +33,12 @@ Flags beyond the model and schedule:
 
 ``--mesh`` and ``--chaos-host`` are refused: they belong to the ROADMAP's
 distributed item, which is not ported. So is a config whose training state
-does not fit one card (``train_state_bytes``: deepseek-7b's ~83 GB of
-parameters, gradients and moments, ~138 GB with the clip statistic's pack,
-against the H100's 80 GB), which trains only when that item shards it.
+and an activation reserve do not fit one card (``check_fits_card``:
+deepseek-7b's ~83 GB of parameters, gradients and moments, ~138 GB with the
+clip statistic's pack, or minicpm3-4b's 85.2 GB at full depth, against the
+H100's 80 GB), which trains only when that item shards it. mamba2-780m
+(15.6 GB) trains at full depth; minicpm3-4b at full width cut in depth,
+through ``main(cfg=...)``.
 The unguarded loop reads its batches through a ``Prefetcher``; the guarded
 loop reads the source directly, because a rollback rewinds it.
 """
@@ -67,30 +70,58 @@ _NOT_PORTED = {
 }
 
 
+# Room kept for activations beside the training state when the CLI decides
+# whether a config fits the card. At batch 4 x seq 512 the full-width runs
+# on an H100 peaked at 41.64 GB for internlm2-1.8b (37.78 GB of state) and
+# 29.44 GB for granite-moe-1b-a400m (26.69 GB) (PERF.md section 5):
+# activations under remat took under 4 GB; 8 GB keeps twice that.
+ACTIVATION_RESERVE_BYTES = 8 * 10**9
+
+
 def param_leaves(cfg) -> int:
-    """Tensors in ``init_params(cfg)``: per layer the four attention
-    weights, the FFN's two or three (an MoE FFN: the router and the two or
-    three stacked expert tensors), and two RMSNorm scales; the embedding,
-    the final RMSNorm scale and an untied head."""
+    """Tensors in ``init_params(cfg)``: per attention block the mixer's
+    four weights (MLA: five projections and two latent norm scales), the
+    FFN's two or three (an MoE FFN: the router and the two or three stacked
+    expert tensors) and two RMSNorm scales; per SSM block its nine mixer
+    tensors and one RMSNorm scale (no FFN); the embedding, the final
+    RMSNorm scale and an untied head."""
     rms = cfg.norm == "rmsnorm"
     ffn = (3 if cfg.ffn_kind == "swiglu" else 2) + (cfg.moe is not None)
-    per_layer = 4 + ffn + 2 * rms
-    return cfg.n_layers * per_layer + 1 + rms + (not cfg.tie_embeddings)
+    mix = 7 if cfg.mla is not None else 4
+    n = sum(9 + rms if kind == "ssm" else mix + ffn + 2 * rms for kind in cfg.pattern_layers)
+    return n + 1 + rms + (not cfg.tie_embeddings)
 
 
 def train_state_bytes(cfg, tcfg) -> int:
     """Bytes of the training state before activations: the parameters and
-    their gradients at the parameters' dtype (an MoE router at f32),
-    AdamW's f32 first moment and its f32 second moment (one scalar a group
-    with ``fused_second_moment``, counted as none); past
-    ``PARTS_KERNEL_MAX`` leaves also the clip statistic's pack, which holds
-    every gradient squared at f32 and then their concatenation (8 bytes a
-    parameter at its peak)."""
+    their gradients at the parameters' dtype (the MoE routers and the SSM
+    blocks' dt_bias, A_log and D at f32), AdamW's f32 first moment and its
+    f32 second moment (one scalar a group with ``fused_second_moment``,
+    counted as none); past ``PARTS_KERNEL_MAX`` leaves also the clip
+    statistic's pack, which holds every gradient squared at f32 and then
+    their concatenation (8 bytes a parameter at its peak)."""
     item = torch.empty((), dtype=param_dtype(cfg)).element_size()
     per = 2 * item + (4 if tcfg.fused_second_moment else 8)
     if param_leaves(cfg) > PARTS_KERNEL_MAX:
         per += 8
     return cfg.param_count() * per + f32_param_count(cfg) * 2 * (4 - item)
+
+
+def check_fits_card(cfg, tcfg, device) -> None:
+    """Refuse, before any allocation, a config whose training state and
+    the activation reserve (``ACTIVATION_RESERVE_BYTES``) exceed the card:
+    deepseek-7b (~138 GB of state) and minicpm3-4b at full depth (85.2 GB
+    against an 80 GB card's 85.0 GB) are refused whatever the rounding."""
+    if device.type != "cuda":
+        return
+    need = train_state_bytes(cfg, tcfg)
+    have = torch.cuda.get_device_properties(device).total_memory
+    if need + ACTIVATION_RESERVE_BYTES > have:
+        raise ValueError(
+            f"{cfg.name}: the training state takes {need / 1e9:.1f} GB before activations "
+            f"(and {ACTIVATION_RESERVE_BYTES / 1e9:.0f} GB are kept for them), more than the "
+            f"card's {have / 1e9:.1f} GB; it trains at this depth only across cards, the "
+            f"ROADMAP's distributed item (not ported yet)")
 
 
 def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0):
@@ -200,14 +231,10 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
         warmup_steps=max(1, args.steps // 10), microbatches=args.microbatches,
         fused_second_moment=args.fused_second_moment,
     )
-    if device.type == "cuda":
-        need = train_state_bytes(cfg, tcfg)
-        have = torch.cuda.get_device_properties(device).total_memory
-        if need > have:
-            ap.error(f"{cfg.name}: the training state takes {need / 1e9:.1f} GB before "
-                     f"activations, more than the card's {have / 1e9:.1f} GB; it trains at "
-                     f"full width only across cards, the ROADMAP's distributed item (not "
-                     f"ported yet)")
+    try:
+        check_fits_card(cfg, tcfg, device)
+    except ValueError as e:
+        ap.error(str(e))
     params, opt_state, step_fn = build(cfg, tcfg, device, guard=args.guard,
                                        spike_z=args.spike_z)
     n_params = sum(p.numel() for p in R.tree_leaves(params))

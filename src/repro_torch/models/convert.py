@@ -4,7 +4,10 @@
 returns, already converted to numpy arrays by the caller (this package
 never imports jax), and returns the port's parameter dict. The reference
 stacks unit parameters on a leading ``n_units`` axis (for ``lax.scan``);
-here each layer becomes its own entry. bf16 leaves arrive as
+here each layer becomes its own entry, whatever its kind (an attention
+block with an MLA mixer or an MoE FFN, a Mamba-2 block), and every leaf
+keeps the reference's dtype (the SSM's f32 ``dt_bias``, ``A_log`` and ``D``
+in a bf16 model stay f32). bf16 leaves arrive as
 ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses, so they
 cross as their raw 16-bit patterns and are reinterpreted: bitwise exact.
 

@@ -1,7 +1,8 @@
-"""Shared layers: norms, FFNs, RoPE.
+"""Shared layers: norms, FFNs, RoPE, the causal depthwise conv.
 
-Port of ``repro/models/layers.py`` (``norm_apply``, ``softmax_mma``,
-``ffn_apply``, ``rope``). With ``use_kernels`` the norms run the fused kernels of
+Port of ``repro/models/layers.py`` (``norm_apply``, ``rmsnorm_apply_many``,
+``softmax_mma``, ``ffn_apply``, ``rope``, ``causal_conv1d``,
+``conv1d_step``). With ``use_kernels`` the norms run the fused kernels of
 ``kernels.row_moments`` (the reference's ``use_pallas`` route); without it
 their f32 row statistics are row reductions of the engine on
 ``backend_for_flags(mma)`` -- the ones-MMA route with the paper's technique
@@ -10,6 +11,8 @@ activation dtype, as the reference applies it.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +50,37 @@ def norm_apply(kind: str, p: dict, x: torch.Tensor, *, eps: float, mma: bool,
     raise ValueError(f"norm {kind!r} is not ported")
 
 
+def rmsnorm_apply_many(ps, xs, *, eps: float, mma: bool) -> list:
+    """N independent RMSNorms with every statistic in ONE pass: the rows'
+    f32 sums of squares of all of them through one ``reduce_many(axis=-1)``
+    on ``backend_for_flags(mma)`` (bf16 multipliers with f32 accumulation
+    on the MMA route, as ``norm_apply``'s), then each normalization in its
+    input's dtype. The same numerics as N ``norm_apply("rmsnorm", ...)``
+    calls on the engine's route (zero-padding to the widest row is exact
+    under f32 accumulation)."""
+    sss = R.reduce_many([x.to(torch.float32) for x in xs], kind="sumsq", axis=-1,
+                        backend=R.backend_for_flags(mma),
+                        compute_dtype="bfloat16" if mma else None)
+    out = []
+    for p, x, ss in zip(ps, xs, sss):
+        rstd = torch.rsqrt(ss / x.shape[-1] + eps).to(x.dtype)
+        out.append(x * rstd[..., None] * p["scale"].to(x.dtype))
+    return out
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """f32 products at full f32 inside the block (no TF32 on the card):
+    for products the reference takes in f32 where TF32's 10-bit mantissa
+    would move a result (MoE routing decisions, MLA's absorbed decode)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def softmax_mma(s: torch.Tensor, *, mma: bool, axis: int = -1) -> torch.Tensor:
     """Softmax whose denominator is a row reduction of the engine on
     ``backend_for_flags(True)`` when ``mma`` (the ones-product), else
@@ -76,6 +110,37 @@ def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: down(silu(x @ gate) * (x @ up))."""
     h = F.silu(P.dense_apply(p["gate"], x)) * P.dense_apply(p["up"], x)
     return P.dense_apply(p["down"], h)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv in f32. x: (B, L, C); w: (K, C) -> (B, L, C)
+    in x's dtype: out[t] = sum_k w[k] x[t - (K - 1) + k], x zero before 0.
+
+    Written as K shifted multiply-adds in a fixed order (k = 0 .. K-1), not
+    as ``F.conv1d``: cuDNN's depthwise weight gradient need not be bitwise
+    repeatable, and the training step is bitwise deterministic on the card.
+    """
+    k = w.shape[0]
+    length = x.shape[1]
+    xp = torch.nn.functional.pad(x.to(torch.float32), (0, 0, k - 1, 0))
+    wf = w.to(torch.float32)
+    out = xp[:, 0:length] * wf[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + length] * wf[i]
+    return out.to(x.dtype)
+
+
+def conv1d_step(conv_state: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor):
+    """One decode step of the causal conv. conv_state: (B, K-1, C), the
+    previous K-1 inputs; x_t: (B, C). Returns (new_state, y_t): NEW tensors,
+    the state given is not written (a retried step reads it again), and y_t
+    the same f32 multiply-adds in the same order as ``causal_conv1d``."""
+    window = torch.cat([conv_state, x_t[:, None, :]], 1)          # (B, K, C)
+    wf = w.to(torch.float32)
+    y = window[:, 0].to(torch.float32) * wf[0]
+    for i in range(1, w.shape[0]):
+        y = y + window[:, i].to(torch.float32) * wf[i]
+    return window[:, 1:], y.to(x_t.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -1,0 +1,172 @@
+"""Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3-4B).
+
+Port of ``repro/models/mla.py`` (``mla_init``, ``_expand``, ``mla_train``,
+``make_mla_cache``, ``mla_fill_cache``, ``mla_decode``). Q and KV are
+projected through low-rank latents; the cache holds only the compressed
+latent ``c_kv`` and the shared RoPE key (``kv_lora_rank + qk_rope_dim``
+values a token), which is MLA's memory saving.
+
+The routes are the reference's, which puts no kernel here:
+
+  train / prefill  ``mla_train`` runs the chunked ``attention.flash_attention_
+                   xla`` (qk 96 wide, v 64 wide, scale (nope + rope)**-0.5)
+                   whatever ``cfg.use_kernels`` says, as the reference runs
+                   it whatever ``use_pallas`` says; the two latent norms'
+                   statistics go through ONE ``layers.rmsnorm_apply_many``
+                   on the engine's route
+  decode           ``mla_decode``, weight-absorbed: attention runs in the
+                   latent space, the kv-latent norm over the whole cache
+                   and the softmax denominator on ``backend_for_flags(mma)``
+
+The absorbed decode's two f32 products (W_uk into the query, W_uv out of
+the latent) run at full f32 (``layers.full_f32_matmul``: no TF32 on the
+card); its score and PV products multiply bf16-rounded operands with f32
+accumulation, as the reference's einsums with ``preferred_element_type``
+do.
+
+The latent cache is written IN PLACE at slot ``pos`` (the reference's is
+an immutable array): as the KV cache's write (``models.attention``), it is
+idempotent, so a decode step retried from its committed state rewrites
+the same values and reproduces the clean step bitwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import reduce as R
+from repro_torch.kernels.common import bf16_round
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import params as P
+
+
+def mla_init(gen, cfg, dtype, device) -> dict:
+    """The five projections and the two latent RMSNorm scales, drawn from
+    ``gen`` in the reference's order (q_down, q_up, kv_down, kv_up, o)."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "q_down": P.dense_init(gen, d, m.q_lora_rank, dtype, device),
+        "q_up": P.dense_init(gen, m.q_lora_rank, h * qk, dtype, device),
+        "kv_down": P.dense_init(gen, d, m.kv_lora_rank + m.qk_rope_dim, dtype, device),
+        "kv_up": P.dense_init(gen, m.kv_lora_rank, h * (m.qk_nope_dim + m.v_head_dim), dtype,
+                              device),
+        "o": P.dense_init(gen, h * m.v_head_dim, d, dtype, device),
+        "q_norm": P.norm_init("rmsnorm", m.q_lora_rank, dtype, device),
+        "kv_norm": P.norm_init("rmsnorm", m.kv_lora_rank, dtype, device),
+    }
+
+
+def _expand(p, x, positions, cfg):
+    """x (B, S, d) -> per-head q (B, S, H, nope + rope), k (the same), v
+    (B, S, H, v_head) with RoPE applied, and the raw kv latent (B, S,
+    kv_lora + rope) before its norm. Both latent norms' statistics are one
+    ``rmsnorm_apply_many`` pass."""
+    m = cfg.mla
+    h = cfg.n_heads
+    b, s, _ = x.shape
+    cq = P.dense_apply(p["q_down"], x)
+    ckv_full = P.dense_apply(p["kv_down"], x)
+    ckv_raw, k_rope = ckv_full[..., :m.kv_lora_rank], ckv_full[..., m.kv_lora_rank:]
+    cq, ckv = L.rmsnorm_apply_many((p["q_norm"], p["kv_norm"]), (cq, ckv_raw),
+                                   eps=cfg.norm_eps, mma=cfg.mma_reductions)
+    q = P.dense_apply(p["q_up"], cq).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = L.rope(q_rope, positions, cfg.rope_theta)
+    k_rope = L.rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # one shared head
+    kv = P.dense_apply(p["kv_up"], ckv).reshape(b, s, h, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    k_rope_b = k_rope.expand(b, s, h, m.qk_rope_dim)
+    return torch.cat([q_nope, q_rope], -1), torch.cat([k_nope, k_rope_b], -1), v, ckv_full
+
+
+def mla_train(p, x, positions, cfg):
+    """(B, S, d) -> (B, S, d): causal MLA, train/prefill path, on the
+    chunked non-kernel attention (the reference's route)."""
+    m = cfg.mla
+    q, k, v, _ = _expand(p, x, positions, cfg)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    out = A.flash_attention_xla(q, k, v, causal=True, mma=cfg.mma_reductions, sm_scale=scale)
+    b, s = out.shape[0], out.shape[1]
+    return P.dense_apply(p["o"], out.reshape(b, s, -1))
+
+
+def make_mla_cache(batch: int, s_max: int, cfg, dtype, device) -> dict:
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, s_max, m.kv_lora_rank + m.qk_rope_dim), dtype=dtype,
+                           device=device),
+        "slot_pos": torch.full((s_max,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _latent(p, x, positions, cfg) -> torch.Tensor:
+    """What the cache stores for x: the raw kv latent, and the shared key
+    with RoPE applied at write time (positions are absolute)."""
+    m = cfg.mla
+    ckv_full = P.dense_apply(p["kv_down"], x)
+    k_rope = L.rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :], positions,
+                    cfg.rope_theta)[:, :, 0, :]
+    return torch.cat([ckv_full[..., :m.kv_lora_rank], k_rope], -1)
+
+
+def mla_fill_cache(p, x, positions, cache: dict, cfg) -> dict:
+    """Prefill: the prompt's latents into slots [0, S), in place."""
+    s = x.shape[1]
+    if s > cache["ckv"].shape[1]:
+        raise ValueError(f"prompt of {s} tokens exceeds the cache length "
+                         f"{cache['ckv'].shape[1]}")
+    cache["ckv"][:, :s] = _latent(p, x, positions, cfg)
+    cache["slot_pos"][:s] = torch.arange(s, dtype=torch.int32, device=x.device)
+    return cache
+
+
+def mla_decode(p, x_t, cache: dict, pos: int, cfg):
+    """One weight-absorbed decode step at absolute position ``pos``. x_t:
+    (B, 1, d). Writes this step's latent at slot ``pos`` (in place), then
+
+      score_h(i) = (W_uk_h^T q_nope_h) . c_i + q_rope_h . k_rope_i
+      out_h      = W_uv_h^T (sum_i p_h(i) c_i)
+
+    over the normed latents c_i of every slot: no per-head K/V is expanded
+    over the cache. Returns (out (B, 1, d), cache)."""
+    m = cfg.mla
+    h = cfg.n_heads
+    b = x_t.shape[0]
+    s_max = cache["ckv"].shape[1]
+    if pos >= s_max:
+        raise ValueError(f"decode position {pos} is past the cache length {s_max}")
+    posb = torch.full((b, 1), pos, dtype=torch.int64, device=x_t.device)
+    cq = P.dense_apply(p["q_down"], x_t)
+    cq = L.norm_apply("rmsnorm", p["q_norm"], cq, eps=cfg.norm_eps, mma=cfg.mma_reductions)
+    q = P.dense_apply(p["q_up"], cq).reshape(b, 1, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = L.rope(q_rope, posb, cfg.rope_theta)[:, 0]                 # (B, H, dr)
+    cache["ckv"][:, pos] = _latent(p, x_t, posb, cfg)[:, 0]
+    cache["slot_pos"][pos] = pos
+    ckv = cache["ckv"]
+    c_all = L.norm_apply("rmsnorm", p["kv_norm"], ckv[..., :m.kv_lora_rank],
+                         eps=cfg.norm_eps, mma=cfg.mma_reductions)      # (B, S, R)
+    k_rope_all = ckv[..., m.kv_lora_rank:]                              # (B, S, dr)
+    wkv = p["kv_up"]["w"].reshape(m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim)
+    w_uk, w_uv = wkv[..., :m.qk_nope_dim], wkv[..., m.qk_nope_dim:]
+    with L.full_f32_matmul():
+        q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(torch.float32),
+                           w_uk.to(torch.float32))
+    c_b = bf16_round(c_all)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    s = (torch.einsum("bhr,bsr->bhs", bf16_round(q_c), c_b)
+         + torch.einsum("bhd,bsd->bhs", bf16_round(q_rope), bf16_round(k_rope_all))) * scale
+    slot_pos = cache["slot_pos"]
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    s = torch.where(valid, s, A.NEG)
+    e = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    denom = R.reduce(e, axis=-1, backend=R.backend_for_flags(cfg.mma_reductions))
+    p_attn = e / torch.clamp_min(denom, 1e-30)[..., None]               # (B, H, S)
+    o_lat = torch.einsum("bhs,bsr->bhr", bf16_round(p_attn), c_b)       # (B, H, R)
+    with L.full_f32_matmul():
+        out_h = torch.einsum("bhr,rhd->bhd", o_lat, w_uv.to(torch.float32))
+    out = P.dense_apply(p["o"], out_h.reshape(b, 1, -1).to(x_t.dtype))
+    return out, cache

@@ -39,7 +39,6 @@ distributed item.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple
 
@@ -71,19 +70,6 @@ def capacity(s: int, cfg) -> int:
     archs."""
     e = cfg.moe
     return int(max(1, round(s * e.top_k / e.n_experts * e.capacity_factor)))
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """f32 products at full f32 inside the block (no TF32 on the card):
-    routing decisions are discrete, and a TF32 router product would move
-    them."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _dispatch_row(expert_ix, gate_vals, n_experts: int, cap: int, backend=None):
@@ -201,7 +187,7 @@ def route(p: dict, x: torch.Tensor, cfg) -> Routing:
     """The routing of x (B, S, d): router logits and probabilities, the
     top-k experts and gates, and the slot tables at ``capacity(S)``."""
     e = cfg.moe
-    with full_f32_matmul():
+    with L.full_f32_matmul():
         logits = torch.matmul(x.to(torch.float32), p["router"])        # (B, S, E)
         probs = L.softmax_mma(logits, mma=cfg.mma_reductions)
         gate_vals, expert_ix = torch.topk(probs, e.top_k, dim=-1)

@@ -186,11 +186,39 @@ def test_flash_attention_matches_plain(gen, case, dtype):
 
 
 def test_flash_attention_rejects_unsupported_head_dim(gen):
-    # widths past 128 are refused (recurrentgemma's 256 waits for its
-    # slice); any width up to 128 is taken, see the padding test below
-    q = torch.zeros((1, 1, 8, 256), device="cuda")
+    # widths past 256 are refused (no config of the repository has wider
+    # heads); any width up to 256 is taken, see the padding and wide tests
+    q = torch.zeros((1, 1, 8, 264), device="cuda")
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("case", [
+    (2, 4, 4, 100, 100, 256, True, None, 0),      # ragged blocks, MHA
+    (2, 16, 1, 256, 256, 256, True, None, 0),     # recurrentgemma's MQA, 16 q / 1 kv
+    (1, 8, 2, 130, 200, 200, False, None, 0),     # padded to 208, non-causal GQA
+    (1, 4, 2, 200, 200, 136, True, 64, 0),        # padded to 144, window
+    (1, 2, 1, 40, 200, 256, True, None, 160),     # q_offset
+    (1, 16, 4, 64, 320, 256, True, 128, 256),     # GQA + window + q_offset
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_attention_wide_heads_match_plain(gen, case, dtype):
+    # heads past 128 wide take the wide variant (64-key blocks: the plain
+    # version walks the same, blocks_for); one launch, no fallback, the
+    # same tolerance as above; a repeat is bitwise
+    b, hq, hkv, sq, skv, d, causal, window, q_offset = case
+    q, k, v = ((torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    plain = flash_attention_plain(q, k, v, **kw)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool(torch.all((out.float() - plain.float()).abs()
+                          <= 2.0**-6 * plain.float().abs() + 2e-3))
+    assert torch.equal(flash_attention(q, k, v, **kw), out)
 
 
 @pytest.mark.parametrize("d", [8, 24, 72])

@@ -5,6 +5,10 @@ Cases: causal and non-causal, GQA (Hq=4, Hkv=2), a sliding window, a
 ``q_offset``, and sequence lengths that are not block multiples. On the
 CPU the port runs the kernel's plain version.
 
+Heads 136, 200 and 256 wide take the kernel's wide variant on the card,
+whose plain version walks 128-query, 64-key blocks (``blocks_for``); they
+are held to the reference here at the same tolerance.
+
 Tolerance 2e-3 (outputs are O(0.5)): both sides round q, k, v and the
 probabilities p to bf16 and accumulate in f32, but the port streams 64-key
 blocks where the reference streams 128-key blocks, so past 64 keys the
@@ -30,6 +34,10 @@ CASES = [
     pytest.param(1, 2, 2, 40, 200, 32, True, None, 160, id="q-offset"),
     pytest.param(1, 4, 1, 50, 90, 16, False, None, 0, id="mqa-cross-lengths"),
     pytest.param(2, 4, 4, 64, 64, 16, True, None, 0, id="one-block"),
+    # heads past 128 wide: the wide variant's plain version (128 x 64 blocks)
+    pytest.param(1, 2, 1, 70, 70, 256, True, None, 0, id="wide-256-mqa"),
+    pytest.param(1, 2, 2, 40, 100, 200, True, 32, 60, id="wide-200-window-q-offset"),
+    pytest.param(1, 4, 2, 60, 60, 136, False, None, 0, id="wide-136-gqa"),
 ]
 
 
@@ -88,3 +96,19 @@ def test_head_width_padding_matches_unpadded(d, hq, hkv):
     torch.testing.assert_close(out[..., :d], want, rtol=0, atol=1e-6)
     # the entry on the CPU (the plain version, unpadded) agrees too
     torch.testing.assert_close(flash_attention(q, k, v), want, rtol=0, atol=0)
+
+
+def test_blocks_follow_the_kernel_for_the_head_width():
+    from repro_torch.kernels.flash_attention import blocks_for
+
+    # up to 128 (after padding to a multiple of 16) the 128 x 128 kernel;
+    # past it the wide variant's 128 x 64
+    assert [blocks_for(d) for d in (8, 120, 128)] == [(128, 128)] * 3
+    assert [blocks_for(d) for d in (129, 136, 200, 256)] == [(128, 64)] * 4
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 150, 144)).astype(np.float32))
+               for _ in range(3))
+    # the CPU wrapper runs the plain version with the wide variant's blocks
+    torch.testing.assert_close(flash_attention(q, k, v),
+                               flash_attention_plain(q, k, v, block_q=128, block_k=64),
+                               rtol=0, atol=0)
