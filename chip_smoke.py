@@ -14,7 +14,10 @@ dbrx-132b: RMSNorm at 6144, 48 query heads on 8 kv heads, vocab 100352;
 minicpm3-4b: RMSNorm at 2560, vocab 73448 padded to 73472; mamba2-780m:
 RMSNorm at 1536, vocab 50280 padded to 50432; attention at head widths 8
 and 24, which the wrapper pads, and 136, 200 and 256 on the kernel's wide
-variant, timed at recurrentgemma-9b's 16 query heads on 1 kv head of 256)
+variant, timed at recurrentgemma-9b's 16 query heads on 1 kv head of 256,
+also with its window of 2048 past it, at 2304 tokens; recurrentgemma-9b
+and llama-3.2-vision-11b: RMSNorm at 4096, vocabularies 256000 and
+128256, vision's 32 query heads on 8 kv heads of 128)
 and of the paper's reduction (n = 2^28) and times it, checks tiny and
 2-layer models end to end against the CPU (serving and training; tiny
 olmo, internlm2, deepseek, granite-moe, dbrx, minicpm3 and mamba2, the MoE
@@ -44,7 +47,17 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             full-depth minicpm3-4b (MLA: no K6, the chunked attention) and
             mamba2-780m (the SSM: no K6, no FFN), two prefills bitwise
             equal, and for mamba2 a decode step retried from its committed
-            state bitwise the clean one;
+            state bitwise the clean one; then full-depth recurrentgemma-9b
+            (38 layers: K6's wide variant with its window in the 12 local
+            layers, the RG-LRU's scan in torch) with its retried decode
+            bitwise, and its ring case: 4 prompts of 2304 tokens, past the
+            window of 2048, and 16 decoded tokens (the ring wraps) against
+            a teacher-forcing forward on the card, a ring filled at slot pos
+            planted to fail the limit; then full-depth
+            llama-3.2-vision-11b (40 layers, a synthetic 1032-token image
+            context a slot), and with its cross-attention gates opened to
+            0.5 its decode against the forward, the cross-attention's k and
+            v from the next kv head planted to fail the limit;
   training  full-width olmo-1b, batch 4 x seq 512, 3 AdamW steps through
             ``python -m repro_torch.launch.train``'s ``main`` with
             ``--reduce-backend cuda_fused``; then one step profiled; the
@@ -55,7 +68,10 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             same for granite-moe-1b-a400m (242 leaves), with its aux term
             finite and non-zero, for mamba2-780m (482 leaves) and for
             minicpm3-4b at full width cut to 16 of 62 layers (195 leaves;
-            its full depth refused by the CLI before any allocation);
+            its full depth refused by the CLI before any allocation); the
+            same for recurrentgemma-9b cut to 3 of 38 layers (36 leaves)
+            and llama-3.2-vision-11b cut to 10 of 40 (95 leaves), their
+            clip statistics one K4 launch;
   paper     ``python -m repro_torch.launch.reduce_demo``'s ``main`` at
             n = 2^28: step counts, precision and time per backend, through
             the hierarchy's level kernel (K10), the moments kernel (K2)
@@ -111,6 +127,7 @@ cores.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -157,16 +174,26 @@ def clip_statistic_kernels(cfg) -> dict:
 
 def _layer_launches(cfg) -> tuple:
     """(norm launches, attention launches) of one forward over the layers:
-    norm1 in every block and norm2 in those with an FFN (not the SSM
-    block); K6 in every attention block but MLA's, which runs the chunked
-    non-kernel attention, as the reference does (``models.mla``). The MLA
-    and SSM mixers launch no kernel: their latent and gated norms ride the
-    engine's row reductions (torch ones-products on every backend), and the
-    SSD's decay scans over batched rows the triangular product (K9 takes
-    1-D streams only)."""
+    norm1 in every block and norm2 in those with an FFN (all but the SSM
+    block); K6 in every self-attention block, global or local (past heads
+    of 128 its wide variant), but MLA's, which runs the chunked non-kernel
+    attention, as the reference does (``models.mla``), as does the
+    cross-attention block (``attention.cross_attention_apply``). The MLA,
+    SSM and RG-LRU mixers launch no kernel: their latent and gated norms
+    ride the engine's row reductions (torch ones-products on every
+    backend), the SSD's decay scans over batched rows the triangular
+    product (K9 takes 1-D streams only), and the RG-LRU's non-uniform
+    recurrence a log-depth scan of torch ops (no ones-product encodes
+    it)."""
     norms = sum(1 if kind == "ssm" else 2 for kind in cfg.pattern_layers)
-    attn = sum(1 for kind in cfg.pattern_layers if kind == "attn" and cfg.mla is None)
+    attn = sum(1 for kind in cfg.pattern_layers
+               if kind in ("attn", "local_attn") and cfg.mla is None)
     return norms, attn
+
+
+def _attn_kernel(cfg) -> str:
+    """The profiler's name of the K6 kernel the config's heads take."""
+    return "::attn_fwd_wide_kernel<" if cfg.d_head > 128 else "::attn_fwd_kernel<"
 
 
 def train_launches_per_step(cfg) -> dict:
@@ -304,48 +331,72 @@ def _self_device_us(evt) -> float:
     return float(t if t is not None else getattr(evt, "self_cuda_time_total", 0.0))
 
 
+# Late in this script a profiling session loses the device records of its
+# first few launches, wherever they start: a llama-3.2-vision-11b decode
+# step read 3001 or 3002 records where a fresh process read 3005, its first
+# norm launch among the lost, in every session, also 50 ms after the
+# session started; a lone launch (the clip statistic's K4) read nothing.
+# So each session opens with these many spin kernels (``torch.cuda._sleep``)
+# for the loss to fall on, and leaves them out of its result.
+PRIMING_LAUNCHES = 32
+PRIMER = "spin_kernel"
+
+
 def device_events(fn, calls: int = 1) -> dict:
-    """Run ``fn`` ``calls`` times under the profiler: ``{kernel name:
-    (count, device us)}`` of every kernel, memset and copy it ran."""
+    """Run ``fn`` ``calls`` times under the profiler, after
+    ``PRIMING_LAUNCHES`` spin kernels: ``{kernel name: (count, device
+    us)}`` of every kernel, memset and copy it ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PRIMING_LAUNCHES):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     return {e.key: (e.count, _self_device_us(e)) for e in prof.key_averages()
-            if _self_device_us(e) > 0.0}
+            if _self_device_us(e) > 0.0 and PRIMER not in e.key}
 
 
-def complete_events(fn, expect, calls: int, what: str, tries: int = 3) -> dict:
+def complete_events(fn, expect, calls: int, what: str, tries: int = 3,
+                    pause_s: float = 0.0) -> dict:
     """``device_events(fn, calls)`` from a session that lost none of the
     kernels named in ``expect`` (by substring): each ran ``expect[name]``
     times. A session that dropped device events (see ``device_ms``) would
-    read short; it is run again, up to ``tries`` in all, then the script
-    fails."""
+    read short; it is run again, up to ``tries`` in all, ``pause_s``
+    seconds after the last, then the script fails."""
     got = {}
     for attempt in range(1, tries + 1):
+        if attempt > 1:
+            time.sleep(pause_s)
         events = device_events(fn, calls)
         got = {name: sum(c for k, (c, _) in events.items() if name in k) for name in expect}
         if events and got == expect:
             return events
+        short = {k: c for k, (c, _) in events.items()
+                 if any(name in k for name, n in expect.items() if got[name] != n)}
         print(f"profiling session {attempt} of {what} is incomplete: kernel counts {got}, "
-              f"expected {expect}; run again")
+              f"expected {expect} (by name: {short}); run again")
     raise SmokeFailure(f"the profiler lost device events of {what} in {tries} sessions")
 
 
-def step_events(step, per_step: dict, what: str, steps: int = 5, tries: int = 5) -> tuple:
+def step_events(step, per_step: dict, what: str, steps: int = 5, tries: int = 8) -> tuple:
     """The device events of ``steps`` runs of ``step``, each run profiled in
     a session of its own that must hold every kernel of ``per_step`` (name
     substring -> launches), summed. A session that lost one is run again,
-    up to ``tries`` in all (``complete_events``): the tracer drops records
-    of long sessions (8 of 9 sessions of 4 to 6 decode steps of
-    minicpm3-4b or mamba2-780m lost one norm launch), and one step a
-    session loses fewer. Returns (events, steps)."""
+    up to ``tries`` in all, a fifth of a second apart (``complete_events``):
+    the tracer drops records of long sessions (8 of 9 sessions of 4 to 6
+    decode steps of minicpm3-4b or mamba2-780m lost one norm launch), one
+    step a session loses fewer, and the losses come in runs (5 sessions in
+    a row of one llama-3.2-vision-11b decode step lost one norm launch
+    each; in another run of the script none did, and a fresh process lost
+    none in 12). Returns (events, steps)."""
     total: dict = {}
     for i in range(steps):
-        events = complete_events(step, per_step, 1, f"{what} (run {i + 1} of {steps})", tries)
+        events = complete_events(step, per_step, 1, f"{what} (run {i + 1} of {steps})", tries,
+                                 pause_s=0.2)
         for key, (count, us) in events.items():
             c0, u0 = total.get(key, (0, 0.0))
             total[key] = (c0 + count, u0 + us)
@@ -2083,18 +2134,67 @@ def prefill_with_wrong_kv_heads(eng, tokens):
     return logits
 
 
+def _cross_kv_from_next_head(real):
+    """A planted fault: the cross-attention's keys and values taken from
+    the next kv head."""
+    def wrong(p, ctx, cfg):
+        k, v = real(p, ctx, cfg)
+        return k.roll(1, 2), v.roll(1, 2)
+    return wrong
+
+
+def _gates_exchanged(real):
+    """A planted fault: the RG-LRU's recurrence and input gates exchanged."""
+    def wrong(p, u, cfg):
+        return real(dict(p, gate_a=p["gate_x"], gate_x=p["gate_a"]), u, cfg)
+    return wrong
+
+
+def _ring_filled_at_slot_pos(real):
+    """A planted fault: a ring filled at slot pos instead of pos % slots,
+    as a cache without the ring would be: a prompt longer than the ring
+    keeps its FIRST positions and loses the most recent ones."""
+    def wrong(cache, k, v):
+        s_max = cache["k"].shape[1]
+        return real(cache, k[:, :s_max], v[:, :s_max])
+    return wrong
+
+
+@contextlib.contextmanager
+def planted(module, name: str, make_wrong):
+    """A context in which ``module.name`` is ``make_wrong(the real one)``."""
+    real = getattr(module, name)
+    setattr(module, name, make_wrong(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
 def prefill_with_planted_fault(eng, tokens):
     """The engine's prefill logits with a fault planted in the mixer, and
     what it was: a wrong kv-head mapping in K6 for the attention block
     (``prefill_with_wrong_kv_heads``); for MLA the chunked attention with
     k and v taken from the next head (it runs no K6); for the SSM block
-    the SSD with B and C exchanged."""
+    the SSD with B and C exchanged; for the RG-LRU hybrid the recurrence
+    and input gates exchanged (with one kv head, a wrong kv-head mapping is
+    no fault); for vision the cross-attention's k and v from the next kv
+    head (with its gates open, ``open_gates``)."""
     import torch
 
     from repro_torch.models import attention as A
+    from repro_torch.models import rglru as REC
     from repro_torch.models import ssm as S
 
     cfg = eng.cfg
+    faults = {"rec": (REC, "_gates", _gates_exchanged, "the RG-LRU's gates exchanged"),
+              "xattn": (A, "cross_kv", _cross_kv_from_next_head,
+                        "the cross-attention's k and v from the next kv head")}
+    for kind, (module, name, wrong, what) in faults.items():
+        if kind in cfg.pattern_layers:
+            with planted(module, name, wrong), torch.inference_mode():
+                logits, _ = eng._prefill(eng.params, tokens)
+            return logits, what
     if "ssm" in cfg.pattern_layers:
         module, name, what = S, "ssd_chunked", "B and C exchanged in the SSD"
 
@@ -2117,6 +2217,18 @@ def prefill_with_planted_fault(eng, tokens):
     return logits, what
 
 
+def open_gates(params, value: float = 0.5) -> None:
+    """Every cross-attention gate of ``params`` set to ``value`` in place:
+    the gates are zero at init, and a closed gate adds nothing a check
+    could see."""
+    import torch
+
+    with torch.no_grad():
+        for layer in params["layers"]:
+            if "gate" in layer["mix"]:
+                layer["mix"]["gate"].fill_(value)
+
+
 def check_tiny_against_cpu(arch: str = "olmo-1b") -> None:
     """Tiny ``arch`` (f32) served on the card with the kernels and on the CPU
     with their plain versions, from the same weights: the same greedy tokens,
@@ -2136,7 +2248,9 @@ def check_tiny_against_cpu(arch: str = "olmo-1b") -> None:
     the limit (``prefill_with_wrong_kv_heads``; for MLA and the SSM a fault
     of their own mixers, ``prefill_with_planted_fault``). For the MoE archs the
     routing of every layer's prefill (expert ids, slot tokens, the keep
-    mask) must be equal on the card and the CPU."""
+    mask) must be equal on the card and the CPU. A vision arch runs with its
+    cross-attention gates at 0.5 (``open_gates``) and the card engine's
+    context on both devices."""
     import numpy as np
     import torch
 
@@ -2146,8 +2260,11 @@ def check_tiny_against_cpu(arch: str = "olmo-1b") -> None:
 
     cfg = get_arch(arch, tiny=True)
     gpu = GuardedEngine(cfg, 32, 2, seed=0)
+    open_gates(gpu.params)
     cpu_params = _cpu_copy(gpu.params)
     cpu = GuardedEngine(cfg, 32, 2, device="cpu", params=cpu_params)
+    if gpu.ctx is not None:
+        cpu.ctx = gpu.ctx.cpu()
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=(12,)).astype(np.int32) for _ in range(3)]
     outs = []
@@ -2204,18 +2321,20 @@ def _cpu_copy(tree):
     return [_cpu_copy(v) for v in tree]
 
 
-def serve_full_width(arch: str = "olmo-1b", n_layers: int | None = None) -> dict:
+def serve_full_width(arch: str = "olmo-1b", n_layers: int | None = None,
+                     after=None) -> dict:
     """Full-width ``arch`` (its published depth, or ``n_layers``) through
     GuardedEngine + ServingRuntime, every kernel launch counted and held to
     the config's launch model (``launches_per_step``); the census total
     must be 0. For an MoE arch no kernel outside the model may launch (its
     routing's row sums and slot-base scan run in torch), and two prefills
     must agree bitwise (``check_moe_prefill``); the same for the MLA and
-    SSM archs (``check_prefill_bitwise``), and for the SSM a retried decode
-    step must be bitwise the clean one (``check_ssm_retry``). Prints tokens/s, the
-    per-step latency p50/p99 and the bytes held on the card, then profiles
-    a prefill and a decode step. Returns the launch counts and the
-    figures."""
+    SSM archs (``check_prefill_bitwise``) and those added later, and for
+    the SSM and RG-LRU archs a retried decode step must be bitwise the
+    clean one (``check_retry``). Prints tokens/s, the per-step latency
+    p50/p99 and the bytes held on the card, then profiles a prefill and a
+    decode step; ``after(engine)``, if given, runs last on the engine and
+    adds its figures. Returns the launch counts and the figures."""
     import gc
 
     import numpy as np
@@ -2291,7 +2410,7 @@ def serve_full_width(arch: str = "olmo-1b", n_layers: int | None = None) -> dict
     else:
         check(launches["rmsnorm"] > 0 and launches["layernorm_np"] == 0,
               f"{arch}: K5b is not on the path")
-    new_kind = cfg.mla is not None or "ssm" in cfg.pattern_layers
+    new_kind = cfg.mla is not None or set(cfg.pattern_layers) != {"attn"}
     if cfg.moe is not None or new_kind:
         others = {k: n for k, n in launches.items() if n and k not in expected}
         check(not others, f"{arch}: kernels outside the launch model launched: {others}")
@@ -2299,9 +2418,11 @@ def serve_full_width(arch: str = "olmo-1b", n_layers: int | None = None) -> dict
         figures.update(check_moe_prefill(eng, prompts[:SLOTS]))
     elif new_kind:
         figures.update(check_prefill_bitwise(eng, prompts[:SLOTS]))
-    if "ssm" in cfg.pattern_layers:
-        figures.update(check_ssm_retry(eng, prompts[:SLOTS]))
+    if {"ssm", "rec"} & set(cfg.pattern_layers):
+        figures.update(check_retry(eng, prompts[:SLOTS]))
     figures.update(profile_steps(eng, prompts[:SLOTS]))
+    if after is not None:
+        figures.update(after(eng))
     del eng, runtime
     gc.collect()
     torch.cuda.empty_cache()
@@ -2336,7 +2457,7 @@ def profile_steps(eng, prompts) -> dict:
         expect = {"::row_norm_kernel<": per_step["layernorm_np"] + per_step["rmsnorm"],
                   "::parts_kernel<": 1}
         if name == "prefill":
-            expect["::attn_fwd_kernel<"] = per_step["flash_attention"]
+            expect[_attn_kernel(eng.cfg)] = per_step["flash_attention"]
         events, n = step_events(step, expect, f"the {name} step")
         busy_ms = sum(us for _, us in events.values()) / n / 1e3
         top = sorted(events.items(), key=lambda kv: kv[1][1], reverse=True)[:6]
@@ -2385,7 +2506,8 @@ def check_full_width_against_cpu() -> None:
 def check_tiny_training_against_cpu(arch: str = "olmo-1b") -> None:
     """Tiny ``arch`` (f32), 2 train steps on ``cuda_fused`` with the fused
     second moment, on the card (kernels) and on the CPU (plain versions),
-    from the same weights and batches. Loss within 1e-3 (the token sum
+    from the same weights and batches (a vision arch with its gates at 0.5
+    and one context on both). Loss within 1e-3 (the token sum
     rounds each per-token loss to bf16; one of them a few ulps apart can
     round the other way: 2^-8 x ~6 / 32 tokens), grad norm within 1e-3
     relative (the same roundings of intermediates in f32 math summed in
@@ -2408,12 +2530,18 @@ def check_tiny_training_against_cpu(arch: str = "olmo-1b") -> None:
     dp_tol = 1e-4 if cfg.mla is not None else 1e-5
     tcfg = TrainConfig(total_steps=2, warmup_steps=1, fused_second_moment=True)
     gparams, gopt, gstep = build(cfg, tcfg, DEVICE)
+    open_gates(gparams)
     cparams, copt, cstep = build(cfg, tcfg, "cpu", params=_cpu_copy(gparams))
     data = SyntheticLM(cfg.vocab_size, 16, 2, seed=3)
+    ctx = {}
+    if cfg.n_img_tokens:
+        ctx = {"image_embeds": torch.randn((2, cfg.n_img_tokens, cfg.d_model),
+                                           generator=torch.Generator().manual_seed(3))}
     for step in (1, 2):
         tokens = torch.from_numpy(data.next()["tokens"])
-        gparams, gopt, gm = gstep(gparams, gopt, {"tokens": tokens.to(DEVICE)})
-        cparams, copt, cm = cstep(cparams, copt, {"tokens": tokens})
+        gparams, gopt, gm = gstep(gparams, gopt, {"tokens": tokens.to(DEVICE),
+                                                  **{k: v.to(DEVICE) for k, v in ctx.items()}})
+        cparams, copt, cm = cstep(cparams, copt, {"tokens": tokens, **ctx})
         diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
                            for a, b in zip(R.tree_leaves(gparams), R.tree_leaves(cparams))])
         dp, over = float(diffs.max()), int((diffs > 1e-5).sum())
@@ -2513,6 +2641,13 @@ def train_full_width(arch: str = "olmo-1b", guarded_steps: int = 0,
                                            DEVICE)
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
     batches = [{"tokens": torch.from_numpy(data.next()["tokens"]).to(DEVICE)} for _ in range(4)]
+    if cfg.n_img_tokens:  # the CLI's context: one synthetic image a sequence
+        from repro_torch.models.frontends import synth_image_embeds
+
+        ctx = synth_image_embeds(torch.Generator(device=DEVICE).manual_seed(1), TRAIN_BATCH,
+                                 cfg.n_img_tokens, cfg.d_model, torch.bfloat16, DEVICE)
+        for batch in batches:
+            batch["image_embeds"] = ctx
     aux = None
     if cfg.moe is not None:
         from repro_torch.models.model import forward_hidden
@@ -2543,7 +2678,9 @@ def profile_clip_statistic(arch: str, olmo_k4_ms: float, n_layers: int | None = 
     counted on the host, leaf by leaf. Prints the pack's bytes, the launches,
     the device time of the whole statistic and of its pieces (profiler),
     beside olmo-1b's one-launch K4 at its training shape (``olmo_k4_ms``).
-    Also holds K8 against its plain version on the pack's segments."""
+    Also holds K8 against its plain version on the pack's segments. Up to
+    128 leaves the statistic is one K4 launch: its device time is printed
+    and returned without K8's figures."""
     import gc
 
     import torch
@@ -2564,23 +2701,36 @@ def profile_clip_statistic(arch: str, olmo_k4_ms: float, n_layers: int | None = 
     leaves = R.tree_leaves(grads)
     n = sum(t.numel() for t in leaves)
     check(len(leaves) == param_leaves(cfg), f"{arch}: leaf count")
-    (gnorm, clip, counts), launches = counted_run(
-        lambda: optim.global_norm_and_clip(grads, 1.0, backend="cuda_fused", census=True))
+    def statistic():
+        return optim.global_norm_and_clip(grads, 1.0, backend="cuda_fused", census=True)
+
+    (gnorm, clip, counts), launches = counted_run(statistic)
     launches = {k: v for k, v in launches.items() if v}
     exact = float(sum(float(t.double().square().sum()) for t in leaves)) ** 0.5
     rel = abs(float(gnorm) - exact) / exact
-    print(f"{arch} clip statistic: {len(leaves)} leaves, {n} values; route: pack {n * 4} bytes "
-          f"of f32 squares (peak {n * 8} bytes with the squared leaves), launches {launches}, "
-          f"host census {len(leaves)} passes; gnorm {float(gnorm):.6g} vs f64 {exact:.6g} "
-          f"(rel {rel:.3g}, tol 1e-5), clip {float(clip):.6g}, census total {float(counts[-1])}")
     expected = {k: v for k, v in clip_statistic_kernels(cfg).items() if v}
+    parts = "mma_sum_parts" in expected
+    route = ("one K4 launch, its census in the launch" if parts else
+             f"pack {n * 4} bytes of f32 squares (peak {n * 8} bytes with the squared leaves), "
+             f"host census {len(leaves)} passes")
+    print(f"{arch} clip statistic: {len(leaves)} leaves, {n} values; route: {route}, launches "
+          f"{launches}; gnorm {float(gnorm):.6g} vs f64 {exact:.6g} (rel {rel:.3g}, tol 1e-5), "
+          f"clip {float(clip):.6g}, census total {float(counts[-1])}")
     check(launches == expected, f"{arch} clip statistic: launches {launches}, expected {expected}")
     check(rel <= 1e-5 and float(counts[-1]) == 0.0, f"{arch} clip statistic: off the f64 norm")
-    events = complete_events(
-        lambda: optim.global_norm_and_clip(grads, 1.0, backend="cuda_fused", census=True),
-        {"::segments_kernel<": 1}, 1, f"the {arch} clip statistic")
+    if parts:
+        busy_ms = device_ms(statistic, "parts_kernel", iters=5)
+        print(f"{arch} clip statistic device time {busy_ms:.3f} ms ({timed_by(busy_ms)}; one "
+              f"K4 launch and its epilogue) against olmo-1b's K4 {olmo_k4_ms:.3f} ms")
+        del grads, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"statistic_ms": busy_ms, "timed_by": timed_by(busy_ms), "n": n,
+                "segments": param_leaves(cfg), "olmo_k4_ms": olmo_k4_ms}
+    kernel = "::segments_kernel<"
+    events = complete_events(statistic, {kernel: 1}, 1, f"the {arch} clip statistic")
     busy_ms = sum(us for _, us in events.values()) / 1e3
-    k8_ms = sum(us for k, (_, us) in events.items() if "::segments_kernel<" in k) / 1e3
+    k8_ms = sum(us for k, (_, us) in events.items() if kernel in k) / 1e3
     print(f"{arch} clip statistic device time {busy_ms:.3f} ms (K8 {k8_ms:.3f} ms, the pack "
           f"and the host census the rest) against olmo-1b's one-launch K4 {olmo_k4_ms:.3f} ms")
     for key, (count, us) in sorted(events.items(), key=lambda kv: kv[1][1], reverse=True)[:6]:
@@ -2649,7 +2799,7 @@ def profile_train_step(cfg, step_fn, params, opt, batches, guard=None,
     wall_ms = (time.perf_counter() - t0) / 2 * 1e3
     n = train_launches_per_step(cfg)
     expect = {"::row_norm_kernel<": n["layernorm_np"] + n["rmsnorm"],
-              "::attn_fwd_kernel<": n["flash_attention"], "::ce_kernel<": n["cross_entropy"],
+              _attn_kernel(cfg): n["flash_attention"], "::ce_kernel<": n["cross_entropy"],
               "::fused_sum_kernel<": n["mma_sum_fused"], "::parts_kernel<": n["mma_sum_parts"],
               "::segments_kernel<": n["mma_sum_segments"]}
     events = complete_events(lambda: run(batches[3]), expect, 1, f"the {what}")
@@ -3016,8 +3166,9 @@ def _rmsnorm_case(gen, arch: str, rows: int, d: int) -> dict:
 def _attention_case(gen, label: str, b_: int, hq: int, hkv: int, s_: int, d: int) -> dict:
     """K6 causal at (b_, hq q / hkv kv heads, s_, d) bf16 against its plain
     version (2 bf16 ulps of the output + 2e-3), timed beside its bound and
-    PyTorch's attention on the same GQA operands. Heads past 128 wide run
-    the wide variant (``attn_fwd_wide_kernel``)."""
+    PyTorch's attention on the same GQA operands; its call time by CUDA
+    events around back-to-back wrapper calls. Heads past 128 wide run the
+    wide variant (``attn_fwd_wide_kernel``)."""
     import torch
 
     from repro_torch.kernels import flash_attention
@@ -3043,6 +3194,7 @@ def _attention_case(gen, label: str, b_: int, hq: int, hkv: int, s_: int, d: int
     return {
         "max_abs_err": err,
         "ms": device_ms(lambda: flash_attention(q, k, v, causal=True), kernel),
+        "call_ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
         "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), iters=5, warmup=1),
         "bound_ms": bb, "bound_by": by,
         "library_ms": device_ms(lambda: _sdpa_gqa(q, k, v)),
@@ -3090,7 +3242,8 @@ def _cross_entropy_case(gen, arch: str, vocab: int, padded: int) -> dict:
 def _print_cases(cases) -> None:
     for key, t in cases:
         lib = "-" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f}"
-        print(f"{key}: device {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+        call = f", call {t['call_ms'] * 1e3:.2f} us" if "call_ms" in t else ""
+        print(f"{key}: device {t['ms'] * 1e3:.2f} us{call}, plain {t['plain_ms'] * 1e3:.2f} us, "
               f"library {lib} us, bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}")
 
 
@@ -3365,19 +3518,23 @@ def check_prefill_bitwise(eng, prompts) -> dict:
     return {"prefill_bitwise_equal": same}
 
 
-def check_ssm_retry(eng, prompts) -> dict:
+def check_retry(eng, prompts) -> dict:
     """A decode step re-issued from one committed state -- a clean
     attempt, a NaN-poisoned one, the clean one again -- gives the same
     tokens, census and new caches, bitwise, and leaves the committed
-    caches bitwise as they were: the SSM's conv window and state are new
-    tensors, never written in place (``models.ssm.ssm_decode``)."""
+    recurrent caches bitwise as they were: the SSM's and the RG-LRU's conv
+    windows and states are new tensors, never written in place
+    (``models.ssm.ssm_decode``, ``models.rglru.rglru_decode``; a ring or KV
+    cache is rewritten at its slot with the same values)."""
     import torch
 
     from repro_torch import reduce as R
 
     ones = [1.0] * SLOTS
     state, _, _ = eng.start_wave(prompts, ones, "cuda_fused")
-    committed = [t.clone() for t in R.tree_leaves(state["caches"])]
+    recurrent = [c for kind, c in zip(eng.cfg.pattern_layers, state["caches"]["layers"])
+                 if kind in ("ssm", "rec")]
+    committed = [t.clone() for t in R.tree_leaves(recurrent)]
     s1, tok1, cen1 = eng.decode(state, ones, "cuda_fused")
     _, _, bad = eng.decode(state, [float("nan")] + ones[1:], "cuda_fused")
     s2, tok2, cen2 = eng.decode(state, ones, "cuda_fused")
@@ -3385,41 +3542,42 @@ def check_ssm_retry(eng, prompts) -> dict:
     same = ((tok1 == tok2).all() and (cen1 == cen2).all() and all(
         torch.equal(a, b) for a, b in zip(R.tree_leaves(s1["caches"]),
                                           R.tree_leaves(s2["caches"]))))
-    kept = all(torch.equal(a, b) for a, b in zip(committed, R.tree_leaves(state["caches"])))
+    kept = all(torch.equal(a, b) for a, b in zip(committed, R.tree_leaves(recurrent)))
     print(f"{eng.cfg.name}: a decode step retried from its committed state (after a poisoned "
           f"attempt, census {float(bad[0])}): tokens, census and caches bitwise the clean "
-          f"step's: {bool(same)}; committed caches untouched: {kept}")
+          f"step's: {bool(same)}; committed recurrent caches untouched: {kept}")
     check(bool(same) and kept and float(bad[0]) > 0,
           f"{eng.cfg.name}: a retried decode step differs from the clean one")
     return {"retry_bitwise_equal": bool(same), "committed_untouched": kept}
 
 
-def check_minicpm3_refused() -> None:
-    """The training CLI refuses full-depth minicpm3-4b (85.2 GB of state
-    before activations, with the activation reserve past the card) before
+def check_full_depth_refused(arch: str) -> None:
+    """The training CLI refuses ``arch`` at full depth (minicpm3-4b: 85.2
+    GB of state before activations, with the activation reserve past the
+    card; recurrentgemma-9b 191.4 GB, llama-3.2-vision-11b 195.5 GB) before
     it allocates anything."""
     import torch
 
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.launch import train as train_cli
 
-    cfg = get_arch(MINICPM)
+    cfg = get_arch(arch)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     try:
-        train_cli.main(["--arch", MINICPM, "--steps", "1", "--batch", str(TRAIN_BATCH),
+        train_cli.main(["--arch", arch, "--steps", "1", "--batch", str(TRAIN_BATCH),
                         "--seq", str(TRAIN_SEQ)])
         code = None
     except SystemExit as e:
         code = e.code
     after = torch.cuda.memory_allocated()
-    print(f"{MINICPM} training at full depth ({cfg.n_layers} layers, "
+    print(f"{arch} training at full depth ({cfg.n_layers} layers, "
           f"{train_cli.train_state_bytes(cfg, TrainConfig()) / 1e9:.2f} GB of state + "
           f"{train_cli.ACTIVATION_RESERVE_BYTES / 1e9:.0f} GB kept for activations, card "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB): refused with "
           f"exit code {code}; device memory allocated before / after: {before} / {after}")
     check(code not in (None, 0) and after == before,
-          f"{MINICPM}: full-depth training was not refused before allocating")
+          f"{arch}: full-depth training was not refused before allocating")
 
 
 def record_routing(fn):
@@ -3494,6 +3652,340 @@ def check_dbrx_refused() -> None:
           f"{message}; device memory allocated before / after: {before} / {after}")
     check(message is not None and "the ROADMAP's distributed item" in message
           and after == before, f"{DBRX}: full depth was not refused before allocating")
+
+
+# ---------------- the RG-LRU hybrid and vision cross-attention ----------------
+
+RG, VISION = "recurrentgemma-9b", "llama-3.2-vision-11b"
+RG_VISION_ARCHS = (RG, VISION)
+# both vocabularies are multiples of 256: no pad columns
+RG_VOCAB, VISION_VOCAB = 256000, 128256
+RG_WINDOW = 2048
+# the ring case: prompts past the window, so the prefill takes the ring
+# branch and the decode steps wrap the ring
+RING_PROMPT = RG_WINDOW + 256
+# training cut in depth to whole pattern units that fit one card with at
+# most 128 leaves (one K4 for the clip statistic): recurrentgemma 1 unit
+# (36 leaves, 32.2 GB of state), llama-3.2-vision 2 units (95, 38.8 GB).
+# recurrentgemma at 3 units (46.4 GB) ran out of memory in AdamW (74.07
+# GiB allocated): the f32 temporaries of its 1.05 B-element embedding and
+# head, ~3.9 GiB each, several alive at once
+RG_TRAIN_LAYERS, VISION_TRAIN_LAYERS = 3, 10
+# the cross-attention gates are zero at init (a closed gate adds nothing);
+# the vision checks open them to this
+OPEN_GATE = 0.5
+# Decode logits against a teacher-forcing forward over the same tokens on
+# the card at full width: |d| within these. The two sides multiply in other
+# shapes (GEMV against GEMM), attend on other routes (the decode's
+# bf16-rounded torch products against K6) and, for the RG-LRU, step the
+# recurrence against its log-depth scan. At bf16 every GEMM rounds its
+# output to bf16 in another order, and the gap read 0.14-0.16 on
+# recurrentgemma on an H100 against 0.36 for a ring filled at
+# slot pos: too near for a limit with margin. So the planted faults are
+# held at f32 (the same archs at full width, 38-39 GB of f32 weights),
+# where only attention's bf16-rounded operands separate the two sides.
+DECODE_LOGIT_TOL = 0.5
+F32_DECODE_LOGIT_TOL = 0.05
+
+
+# K6's wide variant at recurrentgemma's window: b, hq, hkv, sq, skv, d,
+# window, q_offset, all causal. Past the window whole key blocks fall out of
+# it: the block-skip conditions of ``flash_attention_wide.cu`` are first
+# exercised there. The last case is the decode-adjacent form: queries at
+# the end of a long stream, placed by q_offset.
+WINDOW_CASES = (
+    (1, RG_HEADS, RG_KV, RING_PROMPT, RING_PROMPT, RG_D, RG_WINDOW, 0),
+    (2, RG_HEADS, RG_KV, 64, RING_PROMPT, RG_D, RG_WINDOW, RING_PROMPT - 64),
+)
+
+
+def _sdpa_window(q, k, v, window: int, q_offset: int = 0):
+    """PyTorch's attention with the causal window as a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    sq, skv = q.shape[2], k.shape[2]
+    qp = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = (kp <= qp) & (qp - kp < window)
+    rep = q.shape[1] // k.shape[1]
+    try:
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=rep > 1)
+    except TypeError:
+        k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def _window_attention_case(gen, b_: int, s_: int, timed: bool) -> dict:
+    """K6's wide variant at recurrentgemma's heads (16 q / 1 kv x 256),
+    causal with the window of 2048 over ``s_`` tokens, bf16: against its
+    plain version (2 bf16 ulps + 2e-3), one launch; with ``timed`` its
+    device and call times beside its bound (the pairs the window leaves)
+    and PyTorch's attention with the window as a mask."""
+    import torch
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    q = (torch.randn((b_, RG_HEADS, s_, RG_D), generator=gen, device=DEVICE) * 0.5).bfloat16()
+    k = (torch.randn((b_, RG_KV, s_, RG_D), generator=gen, device=DEVICE) * 0.5).bfloat16()
+    v = (torch.randn((b_, RG_KV, s_, RG_D), generator=gen, device=DEVICE) * 0.5).bfloat16()
+    kw = dict(causal=True, window=RG_WINDOW)
+    got, launches = counted_run(lambda: flash_attention(q, k, v, **kw))
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(launches["flash_attention"] == 1 and bool(torch.all(
+        (got.float() - want.float()).abs() <= 2.0**-6 * want.float().abs() + 2e-3)),
+        f"flash_attention's wide variant disagrees with its plain version at {b_} x {s_}")
+    out = {"max_abs_err": err}
+    if timed:
+        pairs = _causal_pairs(s_, s_, 0, RG_WINDOW) * b_ * RG_HEADS
+        bb, by = bound_ms((2 * q.numel() + 2 * k.numel()) * 2, tensor_flops=4 * RG_D * pairs,
+                          core_flops=pairs)
+        out.update({
+            "ms": device_ms(lambda: flash_attention(q, k, v, **kw), "attn_fwd_wide_kernel"),
+            "call_ms": time_ms(lambda: flash_attention(q, k, v, **kw), iters=20),
+            "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=2,
+                                warmup=1),
+            "bound_ms": bb, "bound_by": by,
+            "library_ms": device_ms(lambda: _sdpa_window(q, k, v, RG_WINDOW)),
+        })
+    return out
+
+
+def check_window_attention(results: dict, gen) -> None:
+    """K6's wide variant at recurrentgemma's window (``WINDOW_CASES``, f32,
+    bf16 and f16; 2 bf16 ulps + 2e-3 of the plain version, one launch a
+    call), then timed at the ring case's prefill (4 x 2304 tokens, window
+    2048) and at the serving prefill's 1 x 2304."""
+    import torch
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    errs = {}
+    for case in WINDOW_CASES:
+        b, hq, hkv, sq, skv, d, window, q_offset = case
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            q, k, v = ((torch.randn(shape, generator=gen, device=DEVICE) * 0.5).to(dtype)
+                       for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+            out, launches = counted_run(lambda: flash_attention(q, k, v, **kw))
+            plain = flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = float((out.float() - plain.float()).abs().max())
+            check(out.shape == q.shape and launches["flash_attention"] == 1,
+                  f"flash_attention at {case}: shape or launches")
+            check(bool(torch.isfinite(out.float()).all()) and bool(torch.all(
+                (out.float() - plain.float()).abs() <= 2.0**-6 * plain.float().abs() + 2e-3)),
+                f"flash_attention disagrees with its plain version at {case} {dtype}")
+            errs[f"{case}_{str(dtype)[6:]}"] = err
+        print(f"K6 flash_attention, wide variant, window {window}, {case}: max_abs_err f32 / "
+              f"bf16 / f16 {[round(errs[f'{case}_{t}'], 6) for t in ('float32', 'bfloat16', 'float16')]} "
+              "vs plain (tol 2 bf16 ulps + 2e-3); one launch a call")
+    ring = _window_attention_case(gen, SLOTS, RING_PROMPT, timed=True)
+    wide = results["flash_attention"]["wide"]
+    wide["window_errs"] = errs
+    wide["ring_prefill"] = ring
+    wide["max_abs_err"] = max([wide["max_abs_err"], ring["max_abs_err"]] + list(errs.values()))
+    _print_cases([(f"K6 wide, window {RG_WINDOW}, {SLOTS} x {RING_PROMPT}", ring)])
+
+
+def check_rg_vision_shapes(results: dict) -> None:
+    """The kernels at the shapes recurrentgemma-9b and llama-3.2-vision-11b
+    give them, each against its plain version and timed beside its bound
+    and PyTorch call (as ``check_moe_shapes``): K6's wide variant at the
+    window (``check_window_attention``); K6 at vision's 32 query heads on
+    8 kv heads of 128 for training and prefill; K5b at d = 4096 (both
+    archs) at the decode, prefill and training rows; K7 over (2048,
+    256000) and (2048, 128256) f32 logits (no pad columns); K4 as the
+    logit statistic over 4 x 256000 and 4 x 128256. The figures go under
+    the kernels' "rg_vision_archs" keys."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    check_window_attention(results, gen)
+    norms = {f"d4096_{rows}x4096": _rmsnorm_case(gen, "recurrentgemma, llama-3.2-vision",
+                                                 rows, 4096)
+             for rows in (SLOTS, SLOTS * PROMPT, TRAIN_BATCH * TRAIN_SEQ)}
+    attn = {label: _attention_case(gen, label, *shape) for label, shape in (
+        ("vision_train", (TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128)),
+        ("vision_prefill", (SLOTS, 32, 8, PROMPT, 128)))}
+    ce = {"recurrentgemma": _cross_entropy_case(gen, "recurrentgemma", RG_VOCAB, RG_VOCAB),
+          "vision": _cross_entropy_case(gen, "llama-3.2-vision", VISION_VOCAB, VISION_VOCAB)}
+    stat = {"recurrentgemma": _logit_stat_case(gen, RG_VOCAB),
+            "vision": _logit_stat_case(gen, VISION_VOCAB)}
+    results["rmsnorm"]["rg_vision_archs"] = norms
+    results["flash_attention"]["rg_vision_archs"] = attn
+    results["cross_entropy"]["rg_vision_archs"] = ce
+    results["mma_sum_parts"]["rg_vision_archs"] = stat
+    _print_cases(list(norms.items()) + list(attn.items())
+                 + [(f"{k} ce", v) for k, v in ce.items()]
+                 + [(f"{k} logit statistic", v) for k, v in stat.items()])
+
+
+def teacher_forced_gap(eng, prompts, steps: int, seq=None, want=None):
+    """Prefill ``prompts`` and decode ``steps - 1`` tokens (greedy, or the
+    tokens of ``seq`` after the prompt), then a teacher-forcing forward
+    over the same tokens on the card (the head applied at the ``steps``
+    positions compared only), or ``want``, the forward's logits from an
+    earlier call (a planted fault may sit in code the forward shares):
+    ``(largest |decode logit - forward logit|, the token sequence, the
+    decode's launches, its last caches, the forward's logits)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import _head_public, forward_hidden
+
+    cfg = eng.cfg
+    packed = eng._pack_wave([np.asarray(p) for p in prompts])
+    plen = packed.shape[1]
+
+    def decode():
+        with torch.inference_mode():
+            logits, caches = eng._prefill(eng.params, packed)
+            outs, toks = [logits], [torch.argmax(logits, -1)]
+            for t in range(steps - 1):
+                tok = toks[-1] if seq is None else seq[:, plen + t:plen + t + 1]
+                logits, caches = eng._decode_logits(eng.params, caches, tok, plen + t)
+                outs.append(logits)
+                toks.append(torch.argmax(logits, -1))
+            return torch.cat(outs, 1), torch.cat([packed] + toks[:-1], 1), caches
+
+    (got, fed, caches), launches = counted_run(decode)
+    if seq is None:
+        seq = fed
+    if want is None:
+        with torch.inference_mode():
+            h, _ = forward_hidden(eng.params, cfg, seq, eng.ctx)
+            want = _head_public(eng.params, cfg, h[:, plen - 1:])
+            del h
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+          f"{cfg.name}: decode logits not finite or of the wrong shape")
+    return float((got - want).abs().max()), seq, launches, caches, want
+
+
+def check_ring_case(eng, tol: float, plant: bool) -> dict:
+    """recurrentgemma-9b at full width with prompts past its window: an
+    engine on ``eng``'s weights with a ring of 2048 slots, 4 prompts of
+    2304 tokens (the prefill takes the ring branch: each local layer keeps
+    positions 256..2303, position p at slot p % 2048) and 16 greedy tokens
+    (the decode steps evict the oldest keys), its decode logits against a
+    teacher-forcing forward over the same 2319 tokens within ``tol``; the
+    same at the serving prompt (256 tokens, no wrap) as the baseline; with
+    ``plant``, a ring filled at slot pos (the first 2048 positions kept)
+    must fail the limit. One K6 launch (the wide variant, with its window)
+    a local layer in the prefill and none in a decode step, counted by the
+    meter."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import GuardedEngine
+    from repro_torch.models import attention as A
+
+    cfg = eng.cfg
+    rng = np.random.default_rng(26)
+    ring_eng = GuardedEngine(cfg, RING_PROMPT + MAX_NEW + 1, SLOTS, params=eng.params)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(RING_PROMPT,)) for _ in range(SLOTS)]
+    t0 = time.perf_counter()
+    gap, seq, launches, caches, want = teacher_forced_gap(ring_eng, prompts, MAX_NEW)
+    wall = time.perf_counter() - t0
+    n_local = cfg.pattern_layers.count("local_attn")
+    ring = [c for kind, c in zip(cfg.pattern_layers, caches["layers"]) if kind == "local_attn"]
+    slots = ring[0]["slot_pos"].cpu()
+    last = RING_PROMPT + MAX_NEW - 2  # the last decoded position
+    expect = list(range(last - RG_WINDOW + 1, last + 1))
+    check(ring[0]["k"].shape[1] == RG_WINDOW and sorted(slots.tolist()) == expect
+          and all(int(p) % RG_WINDOW == i for i, p in enumerate(slots.tolist())),
+          f"{cfg.name}: the ring does not hold the last {RG_WINDOW} positions at p % window")
+    check(launches["flash_attention"] == n_local,
+          f"{cfg.name} ring case: {launches['flash_attention']} K6 launches, expected {n_local}")
+    fault = None
+    if plant:
+        with planted(A, "fill_kv_cache", _ring_filled_at_slot_pos):
+            fault = teacher_forced_gap(ring_eng, prompts, MAX_NEW, seq=seq, want=want)[0]
+    del ring_eng, caches, want
+    gc.collect()
+    base = teacher_forced_gap(eng, [p[:PROMPT] for p in prompts], MAX_NEW)[0]
+    planted_note = "" if fault is None else (
+        f"; with the ring filled at slot pos planted: {fault:.4g} (must exceed the tol)")
+    print(f"{cfg.name} {cfg.dtype} ring case ({SLOTS} x {RING_PROMPT} prompt tokens, window "
+          f"{RG_WINDOW}, {MAX_NEW} tokens decoded): decode vs teacher-forcing forward max |d| "
+          f"{gap:.4g} (tol {tol}); at the serving prompt of {PROMPT} (no wrap) {base:.4g}"
+          f"{planted_note}; ring slots hold positions {expect[0]}..{expect[-1]} at p % "
+          f"{RG_WINDOW}; launches {launches}; {wall:.2f} s with the forward")
+    check(gap <= tol and base <= tol, f"{cfg.name}: decode logits differ from the forward's")
+    check(fault is None or fault > tol,
+          f"{cfg.name}: the limit passes a ring filled at slot pos")
+    torch.cuda.empty_cache()
+    return {f"{cfg.dtype}_ring_gap": gap, f"{cfg.dtype}_unwrapped_gap": base,
+            f"{cfg.dtype}_ring_fault_gap": fault, f"{cfg.dtype}_ring_launches": launches}
+
+
+def check_vision_gated(eng, tol: float, plant: bool) -> dict:
+    """llama-3.2-vision-11b at full width with its 8 cross-attention gates
+    opened to 0.5: 4 prompts of 256 tokens and 16 greedy tokens against a
+    teacher-forcing forward over the same tokens with the same context,
+    within ``tol``; with ``plant``, the cross-attention's k and v taken
+    from the next kv head must fail it. The gates are closed again after."""
+    import numpy as np
+
+    from repro_torch.models import attention as A
+
+    cfg = eng.cfg
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(PROMPT,)) for _ in range(SLOTS)]
+    closed = teacher_forced_gap(eng, prompts, MAX_NEW)[0]
+    open_gates(eng.params, OPEN_GATE)
+    fault = None
+    try:
+        gap, seq, launches, _, want = teacher_forced_gap(eng, prompts, MAX_NEW)
+        if plant:
+            with planted(A, "cross_kv", _cross_kv_from_next_head):
+                fault = teacher_forced_gap(eng, prompts, MAX_NEW, seq=seq, want=want)[0]
+    finally:
+        open_gates(eng.params, 0.0)
+    n_attn = cfg.pattern_layers.count("attn")
+    planted_note = "" if fault is None else (
+        f"; with the cross-attention's k and v from the next kv head planted: {fault:.4g} "
+        "(must exceed the tol)")
+    print(f"{cfg.name} {cfg.dtype} with its gates at {OPEN_GATE} ({cfg.n_img_tokens} image "
+          f"tokens a slot): decode vs teacher-forcing forward max |d| {gap:.4g} (tol {tol}; "
+          f"gates closed {closed:.4g}){planted_note}; launches {launches}")
+    check(launches["flash_attention"] == n_attn,
+          f"{cfg.name}: {launches['flash_attention']} K6 launches, expected {n_attn}")
+    check(gap <= tol and closed <= tol, f"{cfg.name}: decode logits differ from the forward's")
+    check(fault is None or fault > tol,
+          f"{cfg.name}: the limit passes a wrong kv-head mapping")
+    return {f"{cfg.dtype}_gated_gap": gap, f"{cfg.dtype}_closed_gap": closed,
+            f"{cfg.dtype}_gated_fault_gap": fault}
+
+
+def check_at_f32(arch: str, check_fn) -> dict:
+    """``check_fn(engine, F32_DECODE_LOGIT_TOL, plant=True)`` on ``arch`` at
+    full width and depth with f32 weights (38-39 GB, seeded as the bf16
+    engine's), the engine freed after."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import GuardedEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    eng = GuardedEngine(cfg, PROMPT + MAX_NEW + 1, SLOTS, seed=0)
+    try:
+        return check_fn(eng, F32_DECODE_LOGIT_TOL, plant=True)
+    finally:
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def run_meter_phase() -> dict:
@@ -3665,12 +4157,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_mla_ssm_shapes(results)
     torch.cuda.empty_cache()
+    check_rg_vision_shapes(results)
+    torch.cuda.empty_cache()
     meter = run_meter_phase()
     torch.cuda.empty_cache()
     tuned = run_autotune_phase()
     torch.cuda.empty_cache()
     check_backward_times(results, gen)
-    for arch in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS:
+    for arch in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS + RG_VISION_ARCHS:
         check_tiny_against_cpu(arch)
     check_full_width_against_cpu()
     serve_launches, serving = {}, {}
@@ -3683,6 +4177,15 @@ def main() -> int:
     for arch in NEW_ARCHS:
         serve_launches[arch], serving[arch] = serve_full_width(arch)
     torch.cuda.empty_cache()
+    serve_launches[RG], serving[RG] = serve_full_width(
+        RG, after=lambda eng: check_ring_case(eng, DECODE_LOGIT_TOL, plant=False))
+    serving[RG].update(check_at_f32(RG, check_ring_case))
+    serve_launches[VISION], serving[VISION] = serve_full_width(
+        VISION, after=lambda eng: check_vision_gated(eng, DECODE_LOGIT_TOL, plant=False))
+    serving[VISION].update(check_at_f32(VISION, check_vision_gated))
+    ring_launches = serving[RG].pop("bfloat16_ring_launches")
+    serving[RG].pop("float32_ring_launches")
+    torch.cuda.empty_cache()
     nonkernel = run_nonkernel_route()
     torch.cuda.empty_cache()
 
@@ -3690,7 +4193,7 @@ def main() -> int:
 
     R.set_default_backend("cuda_fused")  # the training CLI's --reduce-backend cuda_fused
     try:
-        for arch in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS:
+        for arch in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS + RG_VISION_ARCHS:
             check_tiny_training_against_cpu(arch)
         check_full_width_training_against_cpu()
         check_parts_training(results, gen)
@@ -3708,11 +4211,19 @@ def main() -> int:
         mamba_launches, mamba_prof = train_full_width(MAMBA, guarded_steps=1)
         mamba_clip = profile_clip_statistic(MAMBA, results["mma_sum_parts"]["census_on_ms"])
         torch.cuda.empty_cache()
-        check_minicpm3_refused()
+        check_full_depth_refused(MINICPM)
         minicpm_launches, minicpm_prof = train_full_width(MINICPM, guarded_steps=1,
                                                           n_layers=MINICPM_TRAIN_LAYERS)
         minicpm_clip = profile_clip_statistic(MINICPM, results["mma_sum_parts"]["census_on_ms"],
                                               n_layers=MINICPM_TRAIN_LAYERS)
+        cut_training = {}
+        for arch, layers in ((RG, RG_TRAIN_LAYERS), (VISION, VISION_TRAIN_LAYERS)):
+            torch.cuda.empty_cache()
+            check_full_depth_refused(arch)
+            launches, prof = train_full_width(arch, guarded_steps=1, n_layers=layers)
+            clip = profile_clip_statistic(arch, results["mma_sum_parts"]["census_on_ms"],
+                                          n_layers=layers)
+            cut_training[arch] = (layers, launches, prof, clip)
     finally:
         R.set_default_backend(None)
     torch.cuda.empty_cache()
@@ -3765,6 +4276,17 @@ def main() -> int:
             "launches_guarded_training_mamba2": mamba_launches["guarded"][name],
             "launches_training_minicpm3_16_layers": minicpm_launches[name],
             "launches_guarded_training_minicpm3_16_layers": minicpm_launches["guarded"][name],
+            "launches_serving_recurrentgemma": serve_launches[RG][name],
+            "launches_serving_recurrentgemma_ring_case": ring_launches[name],
+            "launches_serving_llama_vision": serve_launches[VISION][name],
+            f"launches_training_recurrentgemma_{RG_TRAIN_LAYERS}_layers":
+                cut_training[RG][1][name],
+            f"launches_guarded_training_recurrentgemma_{RG_TRAIN_LAYERS}_layers":
+                cut_training[RG][1]["guarded"][name],
+            f"launches_training_llama_vision_{VISION_TRAIN_LAYERS}_layers":
+                cut_training[VISION][1][name],
+            f"launches_guarded_training_llama_vision_{VISION_TRAIN_LAYERS}_layers":
+                cut_training[VISION][1]["guarded"][name],
             "launches_multi_reduce": multi_launches[name],
             "launches_matmul_stats": ms_launches[name],
             "launches_guarded_training": guarded["launches"][name],
@@ -3816,7 +4338,23 @@ def main() -> int:
               f"{launches['peak_gb']:.2f} GB; clip statistic {clip['statistic_ms']:.3f} ms (K8 "
               f"{clip['statistic_k8_ms']:.3f}) over {clip['n']} values in {clip['segments']} "
               "leaves")
+    for arch, (layers, launches, prof, clip) in cut_training.items():
+        print(f"training {arch} ({layers} layers): step wall {prof['wall_ms']:.3f} ms, device "
+              f"busy {prof['busy_ms']:.3f} ms, idle share "
+              f"{max(0.0, 1.0 - prof['busy_ms'] / prof['wall_ms']):.3f}, peak "
+              f"{launches['peak_gb']:.2f} GB; clip statistic {clip['statistic_ms']:.3f} ms (one "
+              f"K4 launch) over {clip['n']} values in {clip['segments']} leaves")
     wide = results["flash_attention"]["wide"]
+    ring = wide["ring_prefill"]
+    print(f"K6 wide variant with the window {RG_WINDOW} at {SLOTS} x {RING_PROMPT}: device "
+          f"{ring['ms'] * 1e3:.2f} us, call {ring['call_ms'] * 1e3:.2f} us (SDPA with the mask "
+          f"{ring['library_ms'] * 1e3:.2f}, bound {ring['bound_ms'] * 1e3:.2f}); decode vs "
+          f"forward, bf16 / f32: the ring case {serving[RG]['bfloat16_ring_gap']:.4g} / "
+          f"{serving[RG]['float32_ring_gap']:.4g} (fault at f32 "
+          f"{serving[RG]['float32_ring_fault_gap']:.4g}), vision gated "
+          f"{serving[VISION]['bfloat16_gated_gap']:.4g} / "
+          f"{serving[VISION]['float32_gated_gap']:.4g} (fault at f32 "
+          f"{serving[VISION]['float32_gated_fault_gap']:.4g})")
     print(f"K6 wide variant at recurrentgemma's heads (16 q / 1 kv x 256): training 4 x 512 "
           f"{wide['training']['ms'] * 1e3:.2f} us (SDPA {wide['training']['library_ms'] * 1e3:.2f}, "
           f"bound {wide['training']['bound_ms'] * 1e3:.2f}), prefill 4 x 256 "

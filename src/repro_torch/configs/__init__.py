@@ -4,8 +4,10 @@ ARCHS maps arch id -> full ModelConfig (the published dims); TINY_ARCHS
 maps arch id -> a reduced same-family config small enough for the CPU;
 SHAPES maps the four assigned shape cells by name. The dense archs
 (olmo-1b, internlm2-1.8b, deepseek-7b), the MoE archs
-(granite-moe-1b-a400m, dbrx-132b), MLA (minicpm3-4b) and the SSM
-(mamba2-780m) are ported.
+(granite-moe-1b-a400m, dbrx-132b), MLA (minicpm3-4b), the SSM
+(mamba2-780m), the RG-LRU hybrid with local attention (recurrentgemma-9b)
+and vision cross-attention (llama-3.2-vision-11b) are ported; the audio
+family (musicgen-medium) is not yet.
 """
 
 from __future__ import annotations
@@ -15,9 +17,11 @@ from repro_torch.configs import (
     deepseek_7b,
     granite_moe_1b,
     internlm2_1_8b,
+    llama32_vision_11b,
     mamba2_780m,
     minicpm3_4b,
     olmo_1b,
+    recurrentgemma_9b,
 )
 from repro_torch.configs.base import (  # noqa: F401
     ALL_SHAPES,
@@ -28,6 +32,7 @@ from repro_torch.configs.base import (  # noqa: F401
     MLAConfig,
     ModelConfig,
     MoEConfig,
+    RGLRUConfig,
     SSMConfig,
     ShapeConfig,
     TrainConfig,
@@ -35,7 +40,7 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = (olmo_1b, deepseek_7b, internlm2_1_8b, granite_moe_1b, dbrx_132b, minicpm3_4b,
-            mamba2_780m)
+            mamba2_780m, recurrentgemma_9b, llama32_vision_11b)
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 TINY_ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.TINY for m in _MODULES}

@@ -2,9 +2,10 @@
 architecture, the four assigned ``ShapeConfig`` cells.
 
 A copy of ``repro/configs/base.py`` restricted to what the decoders of
-this package need (the dense and MoE FFNs, MLA and the Mamba-2 SSM block;
-``RGLRUConfig`` comes with the family that uses it), plus the optimizer's
-``TrainConfig`` and the shape cells with ``shape_applicable``.
+this package need (the dense and MoE FFNs, MLA, the Mamba-2 SSM block, the
+RG-LRU block with local attention, and vision cross-attention; the audio
+codebooks come with musicgen-medium), plus the optimizer's ``TrainConfig``
+and the shape cells with ``shape_applicable``.
 ``use_pallas`` is ``use_kernels`` here and defaults to True: the hot spots
 (norms, attention, the cross-entropy, the loss and clip statistics) run on
 the CUDA kernels of ``repro_torch.kernels``.
@@ -52,9 +53,18 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    """Griffin / RecurrentGemma RG-LRU block."""
+
+    lru_width: int = 0          # 0 -> d_model
+    conv_width: int = 4
+    c: float = 8.0              # Griffin's fixed decay sharpness
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm (the families ported so far)
+    family: str                    # dense | moe | ssm | hybrid | vlm (ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -62,16 +72,21 @@ class ModelConfig:
     d_head: int
     d_ff: int
     vocab_size: int
-    # Repeating layer pattern cycled to n_layers; "attn" (global
-    # self-attention, or MLA when ``mla`` is set, + FFN) and "ssm" (the
-    # Mamba-2 block, no FFN) are ported.
+    # Repeating layer pattern cycled to n_layers (tail truncated). Kinds:
+    # "attn" (global self-attention, or MLA when ``mla`` is set, + FFN),
+    # "local_attn" (self-attention within ``window`` + FFN), "xattn"
+    # (cross-attention to the frontend's embeddings + FFN), "ssm" (the
+    # Mamba-2 block, no FFN), "rec" (the RG-LRU block + FFN).
     block_pattern: tuple[str, ...] = ("attn",)
     norm: str = "rmsnorm"          # rmsnorm | layernorm_np
     ffn_kind: str = "swiglu"       # swiglu | gelu (gelu: the MoE experts only)
+    window: Optional[int] = None   # local_attn window size
     rope_theta: float = 10000.0
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     mla: Optional[MLAConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    n_img_tokens: int = 0          # vision frontend tokens (the xattn context)
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     # tanh soft cap of the logits, c * tanh(logits / c); 0 = off (the reference's)
@@ -93,24 +108,31 @@ class ModelConfig:
 
     @property
     def subquadratic(self) -> bool:
-        """True if the arch decodes with O(1) state per token: every layer an
-        SSM or recurrent block (mamba2-780m). The reference also counts a
-        bounded local-attention window, which comes with the RG-LRU
-        family."""
-        return self.attention_free
+        """True if the arch decodes with O(1)-or-bounded state per token:
+        every layer an SSM or recurrent block, or local attention with a
+        window (mamba2-780m, recurrentgemma-9b)."""
+        return all(
+            k in ("ssm", "rec") or (k == "local_attn" and self.window)
+            for k in self.pattern_layers
+        )
 
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks + head), the
-        reference's formula for the attention block (MLA when ``mla`` is
-        set) with a dense or MoE FFN and for the SSM block (whose last term,
-        ``d_in + 2 nh``, is the reference's approximation: the block holds
-        ``d_in + 3 nh`` such values, ``A_log``, ``D`` and ``dt_bias``)."""
+        reference's formula for every block kind: self-attention, global
+        or local (MLA when ``mla`` is set), and cross-attention, each with
+        a dense or MoE FFN; the SSM block (whose last term, ``d_in + 2 nh``,
+        is the reference's approximation: the block holds ``d_in + 3 nh``
+        such values, ``A_log``, ``D`` and ``dt_bias``); the RG-LRU block
+        with its FFN (whose ``3 w`` is the reference's approximation for
+        ``gate_a``, ``gate_x`` and ``lam``, which hold ``2 w^2 / 16 + w``
+        values). ``models.model.stored_param_count`` counts what is
+        stored."""
         d = self.d_model
         total = self.vocab_size * d  # embed
         if not self.tie_embeddings:
             total += self.vocab_size * d
         for kind in self.pattern_layers:
-            if kind == "attn":
+            if kind in ("attn", "local_attn"):
                 if self.mla is not None:
                     m = self.mla
                     total += d * m.q_lora_rank
@@ -123,6 +145,11 @@ class ModelConfig:
                     total += 2 * d * self.n_kv_heads * self.d_head
                     total += self.n_heads * self.d_head * d
                 total += self._ffn_params()
+            elif kind == "xattn":
+                total += d * self.n_heads * self.d_head
+                total += 2 * d * self.n_kv_heads * self.d_head
+                total += self.n_heads * self.d_head * d
+                total += self._ffn_params()
             elif kind == "ssm":
                 s = self.ssm
                 d_in = s.expand * d
@@ -132,10 +159,11 @@ class ModelConfig:
                 total += conv_dim * s.conv_width
                 total += d_in * d
                 total += d_in + 2 * nh  # gated-norm gamma + A, D, dt_bias approx
-            else:
-                raise NotImplementedError(
-                    f"block kind {kind!r} is not ported; 'attn' and 'ssm' are"
-                )
+            elif kind == "rec":
+                r = self.rglru or RGLRUConfig()
+                w = r.lru_width or d
+                total += 2 * d * w + w * d + r.conv_width * w + 3 * w
+                total += self._ffn_params()
         return int(total)
 
     def _ffn_params(self) -> int:
@@ -153,7 +181,8 @@ class ModelConfig:
             return self.param_count()
         e = self.moe
         per = (3 if self.ffn_kind == "swiglu" else 2) * self.d_model * e.d_ff_expert
-        n_ffn_layers = sum(1 for k in self.pattern_layers if k == "attn")
+        n_ffn_layers = sum(
+            1 for k in self.pattern_layers if k in ("attn", "local_attn", "xattn"))
         return int(self.param_count() - n_ffn_layers * (e.n_experts - e.top_k) * per)
 
 

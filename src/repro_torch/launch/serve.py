@@ -17,7 +17,8 @@ GPU and no device they raise. Everything runs under inference mode. An
 engine whose parameters and caches would not fit the card
 (``serve_state_bytes``: dbrx-132b's 263 GB at full depth) is refused
 before anything is allocated; it serves only across cards, the ROADMAP's
-distributed item.
+distributed item. A cross-attention arch (llama-3.2-vision-11b) serves
+against one synthetic image context per slot (``Engine.ctx``).
 
   python -m repro_torch.launch.serve --arch olmo-1b --guard \\
       --requests 8 --batch-slots 4 --prompt-len 256 --max-new 16
@@ -35,7 +36,9 @@ from repro_torch import reduce as R
 from repro_torch.configs import get_arch
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import init_params
+from repro_torch.models.frontends import synth_image_embeds
 from repro_torch.models.model import f32_param_count, param_dtype, stored_param_count
+from repro_torch.models.rglru import _width as rglru_width
 from repro_torch.models.ssm import _dims as ssm_dims
 from repro_torch.runtime.serving import Request, ServingRuntime, guarded_logit_stat
 
@@ -54,12 +57,21 @@ def resolve_device(device) -> torch.device:
 def cache_bytes(cfg, kind: str, batch_slots: int, s_max: int) -> int:
     """Bytes of one layer's cache (``models.model.block_make_cache``): k and
     v, or MLA's latent (kv_lora + rope values a token), with the int32
-    slot positions; an SSM block's conv window at the parameters' dtype and
-    its f32 state, whatever the sequence length."""
+    slot positions -- a local-attention layer's over its ring of
+    min(s_max, window) slots; a cross-attention layer's k and v of the
+    n_img_tokens context slots; an SSM or RG-LRU block's conv window at the
+    parameters' dtype and its f32 state, whatever the sequence length."""
     item = torch.empty((), dtype=param_dtype(cfg)).element_size()
     if kind == "ssm":
         s, _, nh, conv_dim = ssm_dims(cfg)
         return batch_slots * ((s.conv_width - 1) * conv_dim * item + nh * s.headdim * s.d_state * 4)
+    if kind == "rec":
+        w = rglru_width(cfg)
+        return batch_slots * ((cfg.rglru.conv_width - 1) * w * item + w * 4)
+    if kind == "xattn":
+        return batch_slots * cfg.n_img_tokens * 2 * cfg.n_kv_heads * cfg.d_head * item
+    if kind == "local_attn" and cfg.window:
+        s_max = min(s_max, cfg.window)
     if cfg.mla is not None:
         per_token = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
     else:
@@ -70,12 +82,15 @@ def cache_bytes(cfg, kind: str, batch_slots: int, s_max: int) -> int:
 def serve_state_bytes(cfg, batch_slots: int, s_max: int) -> int:
     """Bytes an engine holds before it serves: the parameters at their
     dtype (``stored_param_count``: the padded vocabulary rows included; the
-    MoE routers and the SSM blocks' dt_bias, A_log and D at f32) and every
-    layer's cache of ``batch_slots`` x ``s_max`` (``cache_bytes``)."""
+    MoE routers, the SSM blocks' dt_bias, A_log and D and the RG-LRU
+    blocks' lam at f32), every layer's cache of ``batch_slots`` x ``s_max``
+    (``cache_bytes``) and a cross-attention arch's context, (batch_slots,
+    n_img_tokens, d_model) at the parameters' dtype."""
     item = torch.empty((), dtype=param_dtype(cfg)).element_size()
     params = stored_param_count(cfg) * item + f32_param_count(cfg) * (4 - item)
-    return params + sum(cache_bytes(cfg, kind, batch_slots, s_max)
-                        for kind in cfg.pattern_layers)
+    ctx = batch_slots * cfg.n_img_tokens * cfg.d_model * item
+    return params + ctx + sum(cache_bytes(cfg, kind, batch_slots, s_max)
+                              for kind in cfg.pattern_layers)
 
 
 def check_fits_card(cfg, batch_slots: int, s_max: int, device: torch.device) -> None:
@@ -98,7 +113,11 @@ def _tok_ints(tok: torch.Tensor) -> np.ndarray:
 
 class Engine:
     """Greedy decoding engine over fixed batch slots. ``params`` (e.g. from
-    ``models.convert.params_from_jax``) replaces the seeded random init."""
+    ``models.convert.params_from_jax``) replaces the seeded random init. A
+    cross-attention arch holds one context, ``ctx``, (slots, n_img_tokens,
+    d_model) from a generator seeded 1 (the reference's engine draws its
+    from key 1), passed to every prefill and decode; a caller may replace
+    it."""
 
     def __init__(self, cfg, s_max: int, batch_slots: int, seed: int = 0, *,
                  device=None, params=None):
@@ -111,8 +130,23 @@ class Engine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, self.device)
         self.params = params
-        self._prefill = make_prefill_step(cfg, s_max)
-        self._decode = make_decode_step(cfg)
+        self.ctx = None
+        if cfg.n_img_tokens:
+            gen = torch.Generator(device=self.device).manual_seed(1)
+            self.ctx = synth_image_embeds(gen, batch_slots, cfg.n_img_tokens, cfg.d_model,
+                                          param_dtype(cfg), self.device)
+        self._prefill_step = make_prefill_step(cfg, s_max)
+        self._decode_step = make_decode_step(cfg)
+        self._decode_logits_step = make_decode_step(cfg, greedy=False)
+
+    def _prefill(self, params, tokens):
+        return self._prefill_step(params, tokens, self.ctx)
+
+    def _decode(self, params, caches, token, pos: int):
+        return self._decode_step(params, caches, token, pos, self.ctx)
+
+    def _decode_logits(self, params, caches, token, pos: int):
+        return self._decode_logits_step(params, caches, token, pos, self.ctx)
 
     def check_fits(self, prompt_len: int, max_new: int) -> None:
         """A prompt + its generation + the one trailing decode position must
@@ -162,18 +196,14 @@ class GuardedEngine(Engine):
     Each step is: model step + the chaos scale multiply (x1.0 is bitwise
     identity) + the per-slot logit statistic with its in-launch non-finite
     census (``guarded_logit_stat`` on the breaker's backend) + the greedy
-    argmax. The KV and MLA latent caches are written in place; a retried
-    step from the committed state rewrites the same slot with the same
-    values (idempotent, see ``models.attention``). The SSM caches are never
-    written: a step returns new conv and state tensors
-    (``models.ssm.ssm_decode``), so the committed state stays as it was
-    until the runtime commits the new one. Either way a retried step
-    reproduces the clean step bitwise."""
-
-    def __init__(self, cfg, s_max: int, batch_slots: int, seed: int = 0, *,
-                 device=None, params=None):
-        super().__init__(cfg, s_max, batch_slots, seed, device=device, params=params)
-        self._decode_logits = make_decode_step(cfg, greedy=False)
+    argmax. The KV (full or ring) and MLA latent caches are written in
+    place; a retried step from the committed state rewrites the same slot
+    with the same values (idempotent, see ``models.attention``); the
+    cross-attention caches are only read. The SSM and RG-LRU caches are
+    never written: a step returns new conv and state tensors
+    (``models.ssm.ssm_decode``, ``models.rglru.rglru_decode``), so the
+    committed state stays as it was until the runtime commits the new one.
+    Either way a retried step reproduces the clean step bitwise."""
 
     def validate(self, prompt, max_new: int):
         try:

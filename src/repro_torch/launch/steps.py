@@ -38,10 +38,11 @@ def make_grads_fn(cfg, tcfg):
     """``compute_grads(params, batch) -> (grads, mean_loss)``: per
     microbatch the loss and its gradients, accumulated in f32 and averaged
     over the microbatches (``grads`` are the flat leaves in
-    ``reduce.tree_leaves`` order)."""
+    ``reduce.tree_leaves`` order). ``batch["image_embeds"]``, where given,
+    is the cross-attention context, split with the tokens."""
 
-    def loss_fn(params, tokens):
-        h, aux = forward_hidden(params, cfg, tokens[:, :-1])
+    def loss_fn(params, tokens, ctx):
+        h, aux = forward_hidden(params, cfg, tokens[:, :-1], ctx)
         loss, _ = lm_loss_chunked(params, cfg, h, tokens[:, 1:], aux)
         return loss
 
@@ -50,8 +51,11 @@ def make_grads_fn(cfg, tcfg):
         n_micro = tcfg.microbatches
         gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
         lacc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        for mb in _split_batch(batch["tokens"], n_micro):
-            loss = loss_fn(params, mb.to(torch.int64))
+        mtoks = _split_batch(batch["tokens"], n_micro)
+        ctx = batch.get("image_embeds")
+        mctx = [None] * n_micro if ctx is None else _split_batch(ctx, n_micro)
+        for mb, cx in zip(mtoks, mctx):
+            loss = loss_fn(params, mb.to(torch.int64), cx)
             grads = torch.autograd.grad(loss, leaves)
             for a, g in zip(gacc, grads):
                 a.add_(g.to(torch.float32))
@@ -63,7 +67,8 @@ def make_grads_fn(cfg, tcfg):
 
 def make_train_step(cfg, tcfg):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; ``batch = {"tokens": (GB, S + 1) int}``. Parameters must
+    metrics)``; ``batch = {"tokens": (GB, S + 1) int}`` (and
+    ``"image_embeds"``, (GB, N, d), for a cross-attention arch). Parameters must
     require grad; they and the optimizer state update in place. The clip
     statistic runs on the config flags' backend (``cuda_fused`` with the
     kernels on; the launchers' ``--reduce-backend`` overrides it)."""
@@ -117,16 +122,16 @@ def make_guarded_train_step(cfg, tcfg, reduce_backend=None, spike_z: float = 6.0
 
 
 def make_prefill_step(cfg, s_max: int):
-    def prefill_step(params, tokens: torch.Tensor):
+    def prefill_step(params, tokens: torch.Tensor, ctx=None):
         caches = make_caches(cfg, tokens.shape[0], s_max, tokens.device)
-        return prefill(params, cfg, tokens, caches)
+        return prefill(params, cfg, tokens, caches, ctx)
 
     return prefill_step
 
 
 def make_decode_step(cfg, greedy: bool = True):
-    def decode_one(params, caches, token: torch.Tensor, pos: int):
-        logits, caches = model_decode(params, cfg, token, caches, pos)
+    def decode_one(params, caches, token: torch.Tensor, pos: int, ctx=None):
+        logits, caches = model_decode(params, cfg, token, caches, pos, ctx)
         if greedy:
             return torch.argmax(logits, -1).to(torch.int32), caches
         return logits, caches

@@ -35,10 +35,19 @@ Flags beyond the model and schedule:
 distributed item, which is not ported. So is a config whose training state
 and an activation reserve do not fit one card (``check_fits_card``:
 deepseek-7b's ~83 GB of parameters, gradients and moments, ~138 GB with the
-clip statistic's pack, or minicpm3-4b's 85.2 GB at full depth, against the
-H100's 80 GB), which trains only when that item shards it. mamba2-780m
-(15.6 GB) trains at full depth; minicpm3-4b at full width cut in depth,
-through ``main(cfg=...)``.
+clip statistic's pack, minicpm3-4b's 85.2 GB at full depth,
+recurrentgemma-9b's 191.4 GB and llama-3.2-vision-11b's 195.5 GB, against
+the H100's 80 GB), which trains only when that item shards it. mamba2-780m
+(15.6 GB) trains at full depth; minicpm3-4b, recurrentgemma-9b and
+llama-3.2-vision-11b at full width cut in depth, through ``main(cfg=...)``
+(recurrentgemma at 3 layers, one unit: 32.2 GB, 36 leaves; llama-3.2-vision
+at 10: 38.8 GB, 95 leaves). At a vocabulary of 256 000 the activation
+reserve is too small: recurrentgemma at 9 layers (46.4 GB) passes this
+check and then runs out of memory in AdamW, whose f32 temporaries of the
+1.05 B-element embedding and head (4.2 GB each) the reserve does not
+cover. A cross-attention arch trains against one synthetic
+image context, (batch, n_img_tokens, d_model) from a generator seeded 1,
+in every batch, as the reference's CLI does.
 The unguarded loop reads its batches through a ``Prefetcher``; the guarded
 loop reads the source directly, because a rollback rewinds it.
 """
@@ -61,6 +70,7 @@ from repro_torch.launch.serve import resolve_device
 from repro_torch.launch.steps import make_guarded_train_step, make_train_step
 from repro_torch.models import init_params
 from repro_torch.models.convert import reference_leaf_groups
+from repro_torch.models.frontends import synth_image_embeds
 from repro_torch.models.model import f32_param_count, param_dtype
 from repro_torch.runtime import ChaosMonkey, GuardMetrics, PreemptionGuard, StepGuard
 
@@ -79,16 +89,21 @@ ACTIVATION_RESERVE_BYTES = 8 * 10**9
 
 
 def param_leaves(cfg) -> int:
-    """Tensors in ``init_params(cfg)``: per attention block the mixer's
-    four weights (MLA: five projections and two latent norm scales), the
-    FFN's two or three (an MoE FFN: the router and the two or three stacked
-    expert tensors) and two RMSNorm scales; per SSM block its nine mixer
-    tensors and one RMSNorm scale (no FFN); the embedding, the final
-    RMSNorm scale and an untied head."""
+    """Tensors in ``init_params(cfg)``: per attention block, global or
+    local, the mixer's four weights (MLA: five projections and two latent
+    norm scales), per cross-attention block five (the four and the 0-d
+    gate), per RG-LRU block seven (three projections, the conv weight, the
+    two gate blocks and ``lam``), each with the FFN's two or three (an MoE
+    FFN: the router and the two or three stacked expert tensors) and two
+    RMSNorm scales; per SSM block its nine mixer tensors and one RMSNorm
+    scale (no FFN); the embedding, the final RMSNorm scale and an untied
+    head."""
     rms = cfg.norm == "rmsnorm"
     ffn = (3 if cfg.ffn_kind == "swiglu" else 2) + (cfg.moe is not None)
-    mix = 7 if cfg.mla is not None else 4
-    n = sum(9 + rms if kind == "ssm" else mix + ffn + 2 * rms for kind in cfg.pattern_layers)
+    mix = {"rec": 7, "xattn": 5}
+    n = sum(9 + rms if kind == "ssm" else
+            mix.get(kind, 7 if cfg.mla is not None else 4) + ffn + 2 * rms
+            for kind in cfg.pattern_layers)
     return n + 1 + rms + (not cfg.tie_embeddings)
 
 
@@ -110,8 +125,10 @@ def train_state_bytes(cfg, tcfg) -> int:
 def check_fits_card(cfg, tcfg, device) -> None:
     """Refuse, before any allocation, a config whose training state and
     the activation reserve (``ACTIVATION_RESERVE_BYTES``) exceed the card:
-    deepseek-7b (~138 GB of state) and minicpm3-4b at full depth (85.2 GB
-    against an 80 GB card's 85.0 GB) are refused whatever the rounding."""
+    deepseek-7b (~138 GB of state), minicpm3-4b at full depth (85.2 GB
+    against an 80 GB card's 85.0 GB), recurrentgemma-9b (191.4 GB) and
+    llama-3.2-vision-11b (195.5 GB) at full depth are refused whatever the
+    rounding."""
     if device.type != "cuda":
         return
     need = train_state_bytes(cfg, tcfg)
@@ -241,6 +258,10 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M steps={args.steps} device={device}")
 
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, ShardInfo(), seed=tcfg.seed)
+    ctx = None
+    if cfg.n_img_tokens:
+        ctx = synth_image_embeds(torch.Generator(device=device).manual_seed(1), args.batch,
+                                 cfg.n_img_tokens, cfg.d_model, param_dtype(cfg), device)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     if chaos is None and args.chaos > 0:
         chaos = ChaosMonkey.from_seed(args.chaos_seed, n_steps=args.steps,
@@ -278,6 +299,8 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
         while step < args.steps:
             batch = data.next() if prefetch is None else prefetch.next()
             feed = {"tokens": torch.from_numpy(batch["tokens"]).to(device)}
+            if ctx is not None:
+                feed["image_embeds"] = ctx
             if chaos is not None:
                 # keyed on step + 1, the step being taken; fire-once keeps
                 # a post-rollback replay clean

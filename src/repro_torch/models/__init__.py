@@ -1,6 +1,9 @@
 """The decoder of the serving and training paths: the dense archs
-(olmo-1b, internlm2-1.8b, deepseek-7b) and the MoE archs
-(granite-moe-1b-a400m, dbrx-132b; ``models.moe``).
+(olmo-1b, internlm2-1.8b, deepseek-7b), the MoE archs
+(granite-moe-1b-a400m, dbrx-132b; ``models.moe``), MLA (minicpm3-4b), the
+SSM (mamba2-780m), the RG-LRU hybrid with local attention
+(recurrentgemma-9b; ``models.rglru``) and vision cross-attention
+(llama-3.2-vision-11b; ``models.frontends`` makes its context).
 
 ``init_params`` / ``forward`` / ``prefill`` / ``decode_step`` /
 ``make_caches`` are the public contract of the launchers, as in the

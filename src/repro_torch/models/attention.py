@@ -1,6 +1,9 @@
-"""Attention: projections, the two train/prefill routes, KV caches and decode.
+"""Attention: projections, the two train/prefill routes, KV caches and
+decode, local attention's ring caches, and cross-attention.
 
-Port of ``repro/models/attention.py`` for global causal self-attention.
+Port of ``repro/models/attention.py``: causal self-attention, global or
+within a window (``window=``: keys less than ``window`` positions behind),
+and the vision layers' gated cross-attention.
 Activations keep the reference's (B, S, H, D) layout; the kernel takes
 (B, H, S, D), as the reference's does.
 
@@ -14,6 +17,9 @@ Activations keep the reference's (B, S, H, D) layout; the kernel takes
            instead of keeping every one of every layer).
   decode:  ``self_attention_decode`` writes the new K/V into the cache and
            runs ``decode_attention``.
+  cross:   ``cross_attention_apply`` runs ``flash_attention_xla`` with
+           ``causal=False`` on both routes (the reference's: its
+           cross-attention never takes the kernel), times tanh(gate).
 
 Both non-kernel routes multiply bf16-rounded operands with f32
 accumulation, as the reference's einsums do, and take the softmax
@@ -26,7 +32,13 @@ serving runtime may retry a decode step from its committed state; the step
 at position p writes slot p and then reads slots <= p, so a retry rewrites
 that slot with the same values before reading it: the in-place write is
 idempotent under retry, and a retried step reproduces the clean step
-bitwise (tests/test_torch_serve.py checks both).
+bitwise (tests/test_torch_serve.py checks both). A local-attention layer's
+cache is a RING of min(s_max, window) slots: position p lives at slot p %
+slots (``fill_kv_cache`` keeps a long prompt's last positions there), and
+the decode step at p overwrites the slot of position p - slots, which no
+query from p on may see (p - (p - slots) >= window). A retried step
+rewrites that slot with the same values again, so the argument above holds
+for the ring too (tests/test_torch_local_attention.py).
 """
 
 from __future__ import annotations
@@ -128,20 +140,22 @@ def flash_attention_xla(q, k, v, *, causal: bool = True, window=None, q_offset: 
     return out[:, :sq].to(q.dtype)
 
 
-def self_attention_train(p, x, positions, cfg, *, return_kv=False):
+def self_attention_train(p, x, positions, cfg, *, window=None, return_kv=False):
     """(B, S, d) -> (B, S, d): causal self-attention, train/prefill path,
-    on the kernel with ``cfg.use_kernels`` and on ``flash_attention_xla``
-    without it. ``return_kv=True`` also returns the RoPE'd keys and the
-    values (B, S, Hkv, D) -- what the prefill writes into the cache."""
+    on the kernel with ``cfg.use_kernels`` (its window mask; past heads of
+    128 the kernel's wide variant) and on ``flash_attention_xla`` without
+    it; ``window`` keeps the keys less than ``window`` positions behind.
+    ``return_kv=True`` also returns the RoPE'd keys and the values (B, S,
+    Hkv, D) -- what the prefill writes into the cache."""
     q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     if cfg.use_kernels:
         out = K.flash_attention_diff(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True, None, 0, None
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True, window, 0, None
         ).transpose(1, 2)
     else:
-        out = flash_attention_xla(q, k, v, causal=True, mma=cfg.mma_reductions)
+        out = flash_attention_xla(q, k, v, causal=True, window=window, mma=cfg.mma_reductions)
     b, s = out.shape[0], out.shape[1]
     out = P.dense_apply(p["o"], out.reshape(b, s, -1))
     return (out, k, v) if return_kv else out
@@ -156,22 +170,31 @@ def make_kv_cache(batch: int, s_max: int, n_kv: int, d_head: int, dtype, device)
 
 
 def fill_kv_cache(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
-    """Prefill: the prompt's RoPE'd keys and values into slots [0, S), in
-    place. (Ring caches for local attention are not ported.)"""
+    """Prefill: the prompt's RoPE'd keys and values into the cache, in
+    place. A prompt that fits goes to slots [0, S); a longer one into a
+    ring (local attention) keeps its last s_max positions, position p at
+    slot p % s_max, so that later decode writes (slot pos % s_max) evict
+    the oldest first -- the reference's ring branch."""
     s = k.shape[1]
     s_max = cache["k"].shape[1]
-    if s > s_max:
-        raise ValueError(f"prompt of {s} tokens exceeds the cache length {s_max}")
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
-    cache["slot_pos"][:s] = torch.arange(s, dtype=torch.int32, device=k.device)
+    if s <= s_max:
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+        cache["slot_pos"][:s] = torch.arange(s, dtype=torch.int32, device=k.device)
+        return cache
+    tail = torch.arange(s - s_max, s, device=k.device)
+    slots = tail % s_max
+    cache["k"][:, slots] = k[:, -s_max:]
+    cache["v"][:, slots] = v[:, -s_max:]
+    cache["slot_pos"][slots] = tail.to(torch.int32)
     return cache
 
 
-def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, mma: bool = True,
-                     sm_scale=None) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, window=None,
+                     mma: bool = True, sm_scale=None) -> torch.Tensor:
     """q: (B, 1, H, D), RoPE'd; caches (B, Smax, Hkv, D); slot_pos (Smax,)
-    absolute position per slot (-1 empty). Products of bf16-rounded
+    absolute position per slot (-1 empty); ``window`` keeps the slots less
+    than ``window`` positions behind ``pos``. Products of bf16-rounded
     operands accumulate in f32, as the reference's einsums do; ``mma``
     picks the denominator's reduce backend (``backend_for_flags(mma)``)."""
     b, _, h, d = q.shape
@@ -181,6 +204,8 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, mma: bool = Tru
     qg = bf16_round(q.reshape(b, hkv, g, d))
     s = torch.matmul(qg, bf16_round(k_cache).permute(0, 2, 3, 1)) * scale  # (B,Hkv,G,S)
     valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        valid = valid & ((pos - slot_pos) < window)
     s = torch.where(valid, s, NEG)
     m = s.amax(-1, keepdim=True)
     e = torch.where(valid, torch.exp(s - m), 0.0)
@@ -190,9 +215,11 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, mma: bool = Tru
     return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
 
 
-def self_attention_decode(p, x_t, cache, pos: int, cfg):
+def self_attention_decode(p, x_t, cache, pos: int, cfg, *, window=None):
     """One decode step at absolute position ``pos``. x_t: (B, 1, d). Writes
-    K/V at slot ``pos`` of the cache in place (see the module doc).
+    K/V at slot ``pos % s_max`` of the cache in place (see the module doc):
+    slot ``pos`` of a full cache, or the rotating slot of a local
+    attention's ring (``window`` given), which evicts the oldest key.
     Returns (out (B, 1, d), cache)."""
     b = x_t.shape[0]
     q, k, v = _project_qkv(p, x_t, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
@@ -200,11 +227,61 @@ def self_attention_decode(p, x_t, cache, pos: int, cfg):
     q = L.rope(q, posb, cfg.rope_theta)
     k = L.rope(k, posb, cfg.rope_theta)
     s_max = cache["k"].shape[1]
-    if pos >= s_max:
+    if pos >= s_max and (window is None or s_max < window):
+        # a full cache, or a ring shorter than the window, would evict a
+        # key the query still sees
         raise ValueError(f"decode position {pos} is past the cache length {s_max}")
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
-    cache["slot_pos"][pos] = pos
-    out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos,
+    slot = pos % s_max
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    cache["slot_pos"][slot] = pos
+    out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos, window=window,
                            mma=cfg.mma_reductions)
     return P.dense_apply(p["o"], out.reshape(b, 1, -1)), cache
+
+
+def cross_attention_init(gen, d: int, n_heads: int, n_kv: int, d_head: int, dtype,
+                         device) -> dict:
+    """``attn_init``'s q, k, v, o and a 0-d tanh gate at the parameters'
+    dtype, zero at init (Llama-3.2-vision): a new model's cross-attention
+    adds nothing until the gate is trained away from 0."""
+    p = attn_init(gen, d, n_heads, n_kv, d_head, dtype, device)
+    p["gate"] = torch.zeros((), dtype=dtype, device=device)
+    return p
+
+
+def cross_kv(p, ctx, cfg):
+    """The context's keys and values (B, N, Hkv, D), not RoPE'd: what the
+    prefill keeps in a cross-attention layer's cache."""
+    b, n, _ = ctx.shape
+    k = P.dense_apply(p["k"], ctx).reshape(b, n, cfg.n_kv_heads, cfg.d_head)
+    v = P.dense_apply(p["v"], ctx).reshape(b, n, cfg.n_kv_heads, cfg.d_head)
+    return k, v
+
+
+def _gated(p, out):
+    return torch.tanh(p["gate"].to(torch.float32)).to(out.dtype) * out
+
+
+def cross_attention_apply(p, x, ctx, cfg):
+    """x: (B, S, d) queries; ctx: (B, N, d) the frontend's embeddings, read
+    as they come (no norm). tanh(gate) o(attn(q(x), k(ctx), v(ctx))), no
+    RoPE, on the chunked ``flash_attention_xla`` (``causal=False``) on both
+    routes, as the reference runs it. -> (B, S, d)."""
+    b, s, _ = x.shape
+    q = P.dense_apply(p["q"], x).reshape(b, s, cfg.n_heads, cfg.d_head)
+    k, v = cross_kv(p, ctx, cfg)
+    out = flash_attention_xla(q, k, v, causal=False, mma=cfg.mma_reductions)
+    return _gated(p, P.dense_apply(p["o"], out.reshape(b, s, -1)))
+
+
+def cross_attention_decode(p, x_t, cache, cfg):
+    """One decode step of a cross-attention layer: x_t's query against all
+    N cached context slots (``decode_attention`` at slot positions 0..N-1,
+    every one visible), times tanh(gate). The cache is only read."""
+    b = x_t.shape[0]
+    q = P.dense_apply(p["q"], x_t).reshape(b, 1, cfg.n_heads, cfg.d_head)
+    n = cache["k"].shape[1]
+    slot_pos = torch.arange(n, dtype=torch.int32, device=x_t.device)
+    out = decode_attention(q, cache["k"], cache["v"], slot_pos, n, mma=cfg.mma_reductions)
+    return _gated(p, P.dense_apply(p["o"], out.reshape(b, 1, -1)))

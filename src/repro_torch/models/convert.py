@@ -5,9 +5,11 @@ returns, already converted to numpy arrays by the caller (this package
 never imports jax), and returns the port's parameter dict. The reference
 stacks unit parameters on a leading ``n_units`` axis (for ``lax.scan``);
 here each layer becomes its own entry, whatever its kind (an attention
-block with an MLA mixer or an MoE FFN, a Mamba-2 block), and every leaf
+block, global or local, with an MLA mixer or an MoE FFN, a cross-attention
+block with its 0-d gate, a Mamba-2 or an RG-LRU block), a partial tail unit
+(recurrentgemma's 38 = 12 x 3 + 2) follows the units, and every leaf
 keeps the reference's dtype (the SSM's f32 ``dt_bias``, ``A_log`` and ``D``
-in a bf16 model stay f32). bf16 leaves arrive as
+and the RG-LRU's f32 ``lam`` in a bf16 model stay f32). bf16 leaves arrive as
 ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses, so they
 cross as their raw 16-bit patterns and are reinterpreted: bitwise exact.
 
@@ -27,13 +29,15 @@ import torch
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
-    """numpy array -> tensor with the same bits (bf16 via an int16 view)."""
+    """numpy array -> tensor with the same bits and shape (bf16 via an
+    int16 view; a 0-d array, such as a cross-attention gate, stays 0-d)."""
+    shape = np.shape(a)
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a.copy())
-    return t.to(device)
+    return t.reshape(shape).to(device)
 
 
 def _convert(tree, device, index=None):

@@ -1,23 +1,34 @@
 """Model assembly: the decoder stack for training, prefill and decode.
 
-Port of ``repro/models/model.py`` for two block kinds, chosen per layer
+Port of ``repro/models/model.py`` for every block kind, chosen per layer
 from ``cfg.pattern_layers``:
 
-  attn  self-attention (``models.attention``; MLA, ``models.mla``, when
-        ``cfg.mla`` is set) and a dense FFN (olmo-1b, internlm2-1.8b,
-        deepseek-7b, minicpm3-4b) or an MoE FFN (granite-moe-1b-a400m,
-        dbrx-132b; ``models.moe``); its cache is the KV cache, or MLA's
-        compressed latent
-  ssm   the Mamba-2 block (``models.ssm``; mamba2-780m), no FFN; its cache
-        is O(1): the conv window and the SSD state
+  attn        self-attention (``models.attention``; MLA, ``models.mla``,
+              when ``cfg.mla`` is set) and a dense FFN (olmo-1b,
+              internlm2-1.8b, deepseek-7b, minicpm3-4b, llama-3.2-vision-
+              11b) or an MoE FFN (granite-moe-1b-a400m, dbrx-132b;
+              ``models.moe``); its cache is the KV cache, or MLA's
+              compressed latent
+  local_attn  self-attention within ``cfg.window`` and an FFN
+              (recurrentgemma-9b); its cache a ring of min(s_max, window)
+              slots
+  xattn       gated cross-attention to the frontend's context ``ctx`` and
+              an FFN (llama-3.2-vision-11b); its cache the context's keys
+              and values, filled by the prefill, read by the decode
+  ssm         the Mamba-2 block (``models.ssm``; mamba2-780m), no FFN; its
+              cache is O(1): the conv window and the SSD state
+  rec         the RG-LRU block (``models.rglru``; recurrentgemma-9b) and an
+              FFN; its cache O(1): the conv window and the f32 state
 
 ``block_init``, ``block_train``, ``block_make_cache``, ``block_fill_cache``
-and ``block_decode`` dispatch on the kind, as the reference's do; the kinds
-not ported yet (``rec``, ``local_attn``, ``xattn``) raise
-``NotImplementedError`` naming the ROADMAP item they wait for. Heads are
+and ``block_decode`` dispatch on the kind, as the reference's do. Heads are
 tied or untied. The reference stacks unit parameters on a leading axis for
 ``lax.scan``; here each layer is its own entry of ``params["layers"]``
 (caches: ``caches["layers"]``) and the stack is a Python loop.
+
+The entry points take the frontend's context, ``ctx`` (B, N, d) or None,
+which the cross-attention layers read (the reference threads it the same
+way).
 
   forward_hidden  (B, S) tokens -> (final normed hidden, aux), every layer
                   under ``torch.utils.checkpoint`` when ``cfg.remat`` (the
@@ -28,11 +39,12 @@ tied or untied. The reference stacks unit parameters on a leading axis for
                   teacher-forcing contract
   prefill         (B, S) tokens -> last-token logits, caches filled
   decode_step     one token per slot against the caches -> (logits, a NEW
-                  caches dict): the KV and latent caches are written in
-                  place at the step's slot (idempotent under retry); the
-                  SSM caches are replaced by new tensors, never written
-                  (a retry from the committed caches must not see the
-                  step applied once already)
+                  caches dict): the KV, ring and latent caches are written
+                  in place at the step's slot (idempotent under retry), the
+                  cross-attention caches only read; the SSM and RG-LRU
+                  caches are replaced by new tensors, never written (a
+                  retry from the committed caches must not see the step
+                  applied once already)
 
 Prefill and decode run the MoE FFN and drop its aux, as the reference does.
 
@@ -60,6 +72,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import params as P
+from repro_torch.models import rglru as REC
 from repro_torch.models import ssm as SSM
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -69,28 +82,12 @@ def param_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-# the block kinds of the reference not ported yet, and the ROADMAP item
-# (Queue 1, "the other model families") that brings each
-_WAITING = {
-    "rec": "the RG-LRU family (recurrentgemma-9b)",
-    "local_attn": "local attention with ring caches (the RG-LRU family, recurrentgemma-9b)",
-    "xattn": "vision cross-attention (llama-3.2-vision-11b)",
-}
+KINDS = ("attn", "local_attn", "xattn", "ssm", "rec")
 
 
 def _check_kind(kind: str) -> None:
-    if kind in ("attn", "ssm"):
-        return
-    if kind in _WAITING:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: it waits for {_WAITING[kind]}, in the "
-            "ROADMAP's item on the other model families")
-    raise ValueError(f"unknown block kind {kind!r}")
-
-
-def _check_ported(cfg) -> None:
-    for kind in cfg.pattern_layers:
-        _check_kind(kind)
+    if kind not in KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _has_ffn(kind: str) -> bool:
@@ -98,13 +95,17 @@ def _has_ffn(kind: str) -> bool:
 
 
 def f32_param_count(cfg) -> int:
-    """Parameters kept at f32 whatever ``cfg.dtype``: the MoE routers, and
-    each SSM block's ``dt_bias``, ``A_log`` and ``D`` (one a head each)."""
+    """Parameters kept at f32 whatever ``cfg.dtype``: the MoE routers, each
+    SSM block's ``dt_bias``, ``A_log`` and ``D`` (one a head each) and
+    each RG-LRU block's ``lam`` (one a channel)."""
     n = 0
     for kind in cfg.pattern_layers:
         if kind == "ssm":
             n += 3 * SSM._dims(cfg)[2]
-        elif cfg.moe is not None and _has_ffn(kind):
+            continue
+        if kind == "rec":
+            n += REC._width(cfg)
+        if cfg.moe is not None and _has_ffn(kind):
             n += cfg.d_model * cfg.moe.n_experts
     return n
 
@@ -113,9 +114,11 @@ def stored_param_count(cfg) -> int:
     """Elements ``init_params`` stores: ``cfg.param_count()`` and what the
     reference's formula leaves out -- the padded vocabulary rows of the
     embedding and of an untied head, the RMSNorm scales (the blocks' and
-    the final norm's, MLA's two latent norms), and per SSM block the one
+    the final norm's, MLA's two latent norms), per SSM block the one
     value a head that its approximate term (``d_in + 2 nh`` for ``d_in +
-    3 nh``) misses."""
+    3 nh``) misses, per RG-LRU block the difference between its ``3 w``
+    and the ``2 w^2 / 16 + w`` values that ``gate_a``, ``gate_x`` and
+    ``lam`` hold, and per cross-attention block its gate."""
     pad_rows = (P.padded_vocab(cfg.vocab_size) - cfg.vocab_size) * (2 - cfg.tie_embeddings)
     n = cfg.param_count() + pad_rows * cfg.d_model
     rms = cfg.norm == "rmsnorm"
@@ -124,7 +127,12 @@ def stored_param_count(cfg) -> int:
             n += rms * cfg.d_model + SSM._dims(cfg)[2]
             continue
         n += rms * 2 * cfg.d_model
-        if cfg.mla is not None:
+        if kind == "rec":
+            w = REC._width(cfg)
+            n += 2 * w * w // REC.N_GATE_BLOCKS - 2 * w
+        elif kind == "xattn":
+            n += 1
+        elif cfg.mla is not None:
             n += cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank
     return n + rms * cfg.d_model
 
@@ -161,6 +169,11 @@ def block_init(kind: str, gen, cfg, device) -> dict:
     p = {"norm1": P.norm_init(cfg.norm, d, dt, device)}
     if kind == "ssm":
         p["mix"] = SSM.ssm_init(gen, cfg, dt, device)
+    elif kind == "rec":
+        p["mix"] = REC.rglru_init(gen, cfg, dt, device)
+    elif kind == "xattn":
+        p["mix"] = A.cross_attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                                          dt, device)
     elif cfg.mla is not None:
         p["mix"] = MLA.mla_init(gen, cfg, dt, device)
     else:
@@ -175,7 +188,6 @@ def init_params(cfg, gen: torch.Generator, device) -> dict:
     """Random parameters drawn from ``gen`` (a generator on ``device``), in
     order: the embedding, the layers, then an untied head's (d, padded
     vocab) weight."""
-    _check_ported(cfg)
     dt = param_dtype(cfg)
     params = {
         "embed": P.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
@@ -234,42 +246,68 @@ def _ffn_residual(kind, p, h, cfg):
     return h + y, _aux(metrics, h.device)
 
 
-def block_train(kind: str, p, h, positions, cfg):
+def _window(kind: str, cfg):
+    return cfg.window if kind == "local_attn" else None
+
+
+def block_train(kind: str, p, h, positions, cfg, ctx=None):
     """One block, train/prefill compute: (B, S, d) -> ((B, S, d), aux f32
-    scalar)."""
+    scalar). ``ctx`` is the cross-attention layers' context."""
     hn = _norm(p["norm1"], h, cfg)
     if kind == "ssm":
         mix = SSM.ssm_train(p["mix"], hn, cfg)
+    elif kind == "rec":
+        mix = REC.rglru_train(p["mix"], hn, cfg)
+    elif kind == "xattn":
+        mix = A.cross_attention_apply(p["mix"], hn, ctx, cfg)
     elif cfg.mla is not None:
         mix = MLA.mla_train(p["mix"], hn, positions, cfg)
     else:
-        mix = A.self_attention_train(p["mix"], hn, positions, cfg)
+        mix = A.self_attention_train(p["mix"], hn, positions, cfg, window=_window(kind, cfg))
     return _ffn_residual(kind, p, h + mix, cfg)
 
 
 def block_make_cache(kind: str, batch: int, s_max: int, cfg, device) -> dict:
+    _check_kind(kind)
     dt = param_dtype(cfg)
     if kind == "ssm":
         return SSM.make_ssm_cache(batch, cfg, dt, device)
+    if kind == "rec":
+        return REC.make_rglru_cache(batch, cfg, dt, device)
+    if kind == "xattn":
+        shape = (batch, cfg.n_img_tokens, cfg.n_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
     if cfg.mla is not None:
         return MLA.make_mla_cache(batch, s_max, cfg, dt, device)
+    if kind == "local_attn" and cfg.window:
+        s_max = min(s_max, cfg.window)  # the ring
     return A.make_kv_cache(batch, s_max, cfg.n_kv_heads, cfg.d_head, dt, device)
 
 
-def block_fill_cache(kind: str, p, h, positions, cache, cfg):
+def block_fill_cache(kind: str, p, h, positions, cache, cfg, ctx=None):
     """Prefill: run the block AND fill its cache from norm1(h), the stream
-    the mixer reads. -> (h, cache): the KV and latent caches are filled in
-    place; the SSM block returns its cache from the train path's scan (the
-    conv window and the final state: the exact prefill -> decode
-    handoff)."""
+    the mixer reads. -> (h, cache): the KV (ring) and latent caches are
+    filled in place, a cross-attention layer's with the keys and values of
+    the context as given (not normed); the SSM and RG-LRU blocks return
+    their caches from the train path's scan (the conv window and the final
+    state: the exact prefill -> decode handoff)."""
     hn = _norm(p["norm1"], h, cfg)
     if kind == "ssm":
         mix, cache = SSM.ssm_train(p["mix"], hn, cfg, return_state=True)
+    elif kind == "rec":
+        mix, cache = REC.rglru_train(p["mix"], hn, cfg, return_state=True)
+    elif kind == "xattn":
+        k, v = A.cross_kv(p["mix"], ctx, cfg)
+        cache["k"].copy_(k)
+        cache["v"].copy_(v)
+        mix = A.cross_attention_apply(p["mix"], hn, ctx, cfg)
     elif cfg.mla is not None:
         cache = MLA.mla_fill_cache(p["mix"], hn, positions, cache, cfg)
         mix = MLA.mla_train(p["mix"], hn, positions, cfg)
     else:
-        mix, k, v = A.self_attention_train(p["mix"], hn, positions, cfg, return_kv=True)
+        mix, k, v = A.self_attention_train(p["mix"], hn, positions, cfg,
+                                           window=_window(kind, cfg), return_kv=True)
         A.fill_kv_cache(cache, k, v)
     return _ffn_residual(kind, p, h + mix, cfg)[0], cache
 
@@ -280,65 +318,69 @@ def block_decode(kind: str, p, h, cache, pos: int, cfg):
     hn = _norm(p["norm1"], h, cfg)
     if kind == "ssm":
         mix, cache = SSM.ssm_decode(p["mix"], hn, cache, cfg)
+    elif kind == "rec":
+        mix, cache = REC.rglru_decode(p["mix"], hn, cache, cfg)
+    elif kind == "xattn":
+        mix = A.cross_attention_decode(p["mix"], hn, cache, cfg)
     elif cfg.mla is not None:
         mix, cache = MLA.mla_decode(p["mix"], hn, cache, pos, cfg)
     else:
-        mix, cache = A.self_attention_decode(p["mix"], hn, cache, pos, cfg)
+        mix, cache = A.self_attention_decode(p["mix"], hn, cache, pos, cfg,
+                                             window=_window(kind, cfg))
     return _ffn_residual(kind, p, h + mix, cfg)[0], cache
 
 
-def forward_hidden(params, cfg, tokens: torch.Tensor):
+def forward_hidden(params, cfg, tokens: torch.Tensor, ctx=None):
     """Backbone forward to the final normed hidden state (B, S, d) and the
     aux loss summed over layers; no head (the chunked loss applies it per
-    sequence chunk). -> (h, aux)."""
-    _check_ported(cfg)
+    sequence chunk). ``ctx``: the cross-attention context (B, N, d) or
+    None. -> (h, aux)."""
     h = _embed(params, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for kind, p in zip(cfg.pattern_layers, params["layers"]):
         if cfg.remat:
-            h, a = checkpoint(block_train, kind, p, h, positions, cfg, use_reentrant=False)
+            h, a = checkpoint(block_train, kind, p, h, positions, cfg, ctx,
+                              use_reentrant=False)
         else:
-            h, a = block_train(kind, p, h, positions, cfg)
+            h, a = block_train(kind, p, h, positions, cfg, ctx)
         aux = aux + a
     return _norm(params["final_norm"], h, cfg), aux
 
 
-def forward(params, cfg, tokens: torch.Tensor):
+def forward(params, cfg, tokens: torch.Tensor, ctx=None):
     """Teacher-forcing forward. tokens: (B, S) -> (logits (B, S,
     vocab_size) f32, aux f32 scalar)."""
-    h, aux = forward_hidden(params, cfg, tokens)
+    h, aux = forward_hidden(params, cfg, tokens, ctx)
     return _head_public(params, cfg, h), aux
 
 
 def make_caches(cfg, batch: int, s_max: int, device) -> dict:
-    _check_ported(cfg)
     return {"layers": [block_make_cache(kind, batch, s_max, cfg, device)
                        for kind in cfg.pattern_layers]}
 
 
-def prefill(params, cfg, tokens: torch.Tensor, caches: dict):
+def prefill(params, cfg, tokens: torch.Tensor, caches: dict, ctx=None):
     """Run the prompt, filling caches. Returns (last-token logits (B, 1, V),
     caches)."""
-    _check_ported(cfg)
     h = _embed(params, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     filled = []
     for kind, p, cache in zip(cfg.pattern_layers, params["layers"], caches["layers"]):
-        h, cache = block_fill_cache(kind, p, h, positions, cache, cfg)
+        h, cache = block_fill_cache(kind, p, h, positions, cache, cfg, ctx)
         filled.append(cache)
     h = _norm(params["final_norm"], h, cfg)
     return _head_public(params, cfg, h[:, -1:]), {"layers": filled}
 
 
-def decode_step(params, cfg, token_t: torch.Tensor, caches: dict, pos: int):
+def decode_step(params, cfg, token_t: torch.Tensor, caches: dict, pos: int, ctx=None):
     """One token step. token_t: (B, 1); pos: the absolute position of this
-    token. Returns (logits (B, 1, V), a new caches dict); the dict given is
-    not changed, and its SSM caches' tensors are not written (see the
-    module doc)."""
-    _check_ported(cfg)
+    token; ``ctx`` is accepted for the reference's signature (the
+    cross-attention layers read their caches). Returns (logits (B, 1, V),
+    a new caches dict); the dict given is not changed, and its SSM and
+    RG-LRU caches' tensors are not written (see the module doc)."""
     h = _embed(params, token_t)
     stepped = []
     for kind, p, cache in zip(cfg.pattern_layers, params["layers"], caches["layers"]):

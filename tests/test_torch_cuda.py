@@ -200,6 +200,8 @@ def test_flash_attention_rejects_unsupported_head_dim(gen):
     (1, 4, 2, 200, 200, 136, True, 64, 0),        # padded to 144, window
     (1, 2, 1, 40, 200, 256, True, None, 160),     # q_offset
     (1, 16, 4, 64, 320, 256, True, 128, 256),     # GQA + window + q_offset
+    (1, 16, 1, 2304, 2304, 256, True, 2048, 0),   # recurrentgemma's window, past it
+    (2, 16, 1, 64, 2304, 256, True, 2048, 2240),  # the same, decode-adjacent q_offset
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_attention_wide_heads_match_plain(gen, case, dtype):
@@ -1000,3 +1002,41 @@ def test_matmul_stats_two_byte_offset_operands(gen, dtype):
         got = matmul_stats(a, b)
         assert all(torch.equal(u, v) for u, v in zip(got, matmul_stats(a, b)))
         assert _matmul_stats_close(a, b, got, matmul_stats_plain(a, b)) == (True, True, True)
+
+
+def _on_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _on_cpu(v) for k, v in tree.items()}
+    return [_on_cpu(v) for v in tree]
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "llama-3.2-vision-11b"])
+def test_tiny_hybrid_and_vision_prefill_and_decode_match_the_cpu(gen, arch):
+    # tiny recurrentgemma (the ring wraps: 20 prompt tokens, window 16) and
+    # tiny llama-3.2-vision (gates opened to 0.5, one context on both
+    # devices) on the card with the kernels and on the CPU with their plain
+    # versions, from the same weights: logits within 0.01 (chip_smoke.py's
+    # card-vs-CPU limit for the tiny archs)
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import GuardedEngine
+
+    cfg = get_arch(arch, tiny=True)
+    card = GuardedEngine(cfg, 32, 2, seed=0)
+    with torch.no_grad():
+        for layer in card.params["layers"]:
+            if "gate" in layer["mix"]:
+                layer["mix"]["gate"].fill_(0.5)
+    cpu = GuardedEngine(cfg, 32, 2, device="cpu", params=_on_cpu(card.params))
+    if card.ctx is not None:
+        cpu.ctx = card.ctx.cpu()
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        lg, cg = card._prefill(card.params, tokens[:, :20].cuda())
+        lc, cc = cpu._prefill(cpu.params, tokens[:, :20])
+        assert float((lg.cpu() - lc).abs().max()) <= 0.01
+        for pos in range(20, 24):
+            lg, cg = card._decode_logits(card.params, cg, tokens[:, pos:pos + 1].cuda(), pos)
+            lc, cc = cpu._decode_logits(cpu.params, cc, tokens[:, pos:pos + 1], pos)
+            assert float((lg.cpu() - lc).abs().max()) <= 0.01
