@@ -13,9 +13,10 @@ deepseek-7b: RMSNorm at 4096, 32 heads; granite-moe-1b-a400m: RMSNorm at
 dbrx-132b: RMSNorm at 6144, 48 query heads on 8 kv heads, vocab 100352;
 minicpm3-4b: RMSNorm at 2560, vocab 73448 padded to 73472; mamba2-780m:
 RMSNorm at 1536, vocab 50280 padded to 50432; attention at head widths 8
-and 24, which the wrapper pads, and 136, 200 and 256 on the kernel's wide
-variant, timed at recurrentgemma-9b's 16 query heads on 1 kv head of 256,
-also with its window of 2048 past it, at 2304 tokens; recurrentgemma-9b
+and 24, which the wrapper pads, and 136, 144, 200 and 256 on the kernel's
+wide variant, timed at recurrentgemma-9b's 16 query heads on 1 kv head of
+256, also with its window of 2048 past it, at 2304 tokens (and checked at
+2200); recurrentgemma-9b
 and llama-3.2-vision-11b: RMSNorm at 4096, vocabularies 256000 and
 128256, vision's 32 query heads on 8 kv heads of 128)
 and of the paper's reduction (n = 2^28) and times it, checks tiny and
@@ -71,7 +72,14 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             its full depth refused by the CLI before any allocation); the
             same for recurrentgemma-9b cut to 3 of 38 layers (36 leaves)
             and llama-3.2-vision-11b cut to 10 of 40 (95 leaves), their
-            clip statistics one K4 launch;
+            clip statistics one K4 launch; every training run's peak
+            device memory printed beside the fit check's model of the step
+            (``launch.train.train_step_peak_bytes``) and its activation
+            reserve, which must hold it;
+  fit       recurrentgemma-9b at the deepest whole unit of 3 layers that
+            ``launch.train.check_fits_card`` accepts, one plain step (6
+            layers on an 80 GB card) and one guarded (3), the next unit
+            refused by the CLI before any allocation;
   paper     ``python -m repro_torch.launch.reduce_demo``'s ``main`` at
             n = 2^28: step counts, precision and time per backend, through
             the hierarchy's level kernel (K10), the moments kernel (K2)
@@ -2588,6 +2596,37 @@ def check_full_width_training_against_cpu() -> None:
           "full-width training step: card and CPU differ")
 
 
+def fit_checked(what: str, cfg, guard: bool, fn):
+    """``fn()``, a training run through the CLI, with the device's peak
+    memory read around it: the fit check's model of the step
+    (``launch.train.train_step_peak_bytes``, guarded or not) plus the
+    activation reserve must hold the peak above what was allocated before;
+    the two are printed side by side. Returns ``(fn's result, that peak in
+    bytes)``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import train as train_cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    peak = torch.cuda.max_memory_allocated() - base
+    model = train_cli.train_step_peak_bytes(cfg, TrainConfig(), guard=guard)
+    reserve = train_cli.ACTIVATION_RESERVE_BYTES
+    print(f"fit, {what} ({cfg.n_layers} layers): measured peak {peak / 1e9:.2f} GB (above the "
+          f"{base / 1e9:.2f} GB held before); the check's model {model / 1e9:.2f} GB + "
+          f"{reserve / 1e9:.0f} GB reserve = {(model + reserve) / 1e9:.2f} GB; the peak past "
+          f"the model {(peak - model) / 1e9:+.2f} GB")
+    check(peak <= model + reserve,
+          f"{what}: the training step's peak is past the fit check's model and reserve")
+    return out, peak
+
+
 def train_full_width(arch: str = "olmo-1b", guarded_steps: int = 0,
                      n_layers: int | None = None) -> dict:
     """Full-width ``arch`` (its published depth, or ``n_layers``), batch 4 x
@@ -2618,12 +2657,11 @@ def train_full_width(arch: str = "olmo-1b", guarded_steps: int = 0,
         runs["guarded"] = (["--guard"], guarded_steps)
     out = {}
     for name, (extra, steps) in runs.items():
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        losses, launches = counted_run(
-            lambda: train_cli.main(argv + extra + ["--steps", str(steps)], cfg=cfg))
+        (losses, launches), _ = fit_checked(
+            f"{arch} {name}", cfg, name == "guarded",
+            lambda: counted_run(
+                lambda: train_cli.main(argv + extra + ["--steps", str(steps)], cfg=cfg)))
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 1e9
         print(f"{arch} {name}: trained {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
@@ -2963,11 +3001,12 @@ def run_guarded_training(plain_busy_ms: float) -> dict:
 
     t_phase = time.time()
     cfg = get_arch("olmo-1b")
-    torch.cuda.empty_cache()
-    (losses, out), launches = counted_run(lambda: run_captured(lambda: train_cli.main([
-        "--arch", "olmo-1b", "--guard", "--reduce-backend", "cuda_fused",
-        "--steps", str(GUARD_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-        "--log-every", "1"], chaos=ChaosMonkey(nan_steps=(2,)))))
+    ((losses, out), launches), _ = fit_checked(
+        "olmo-1b guarded, NaN on step 2", cfg, True,
+        lambda: counted_run(lambda: run_captured(lambda: train_cli.main([
+            "--arch", "olmo-1b", "--guard", "--reduce-backend", "cuda_fused",
+            "--steps", str(GUARD_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--log-every", "1"], chaos=ChaosMonkey(nan_steps=(2,))))))
     skipped = [ln for ln in out.splitlines() if ln.startswith("guard: step 2 skipped")]
     nonfinite = float(skipped[0].split("nonfinite ")[1].split(",")[0]) if skipped else 0.0
     print(f"guarded CLI run: losses {losses}; step 2 skipped: {bool(skipped)}, census "
@@ -3058,11 +3097,13 @@ def run_rollback_drill() -> dict:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="rollback_drill_", dir=os.path.join(ROOT, "build"))
     try:
-        (losses, out), launches = counted_run(lambda: run_captured(lambda: train_cli.main([
-            "--arch", "olmo-1b", "--guard", "--reduce-backend", "cuda_fused",
-            "--steps", str(DRILL_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-            "--ckpt-dir", tmp, "--ckpt-every", "5", "--max-bad-steps", "3",
-            "--log-every", "1"], cfg=cfg, chaos=ChaosMonkey(nan_steps=(3, 4, 5)))))
+        ((losses, out), launches), _ = fit_checked(
+            "olmo-1b rollback drill", cfg, True,
+            lambda: counted_run(lambda: run_captured(lambda: train_cli.main([
+                "--arch", "olmo-1b", "--guard", "--reduce-backend", "cuda_fused",
+                "--steps", str(DRILL_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--ckpt-dir", tmp, "--ckpt-every", "5", "--max-bad-steps", "3",
+                "--log-every", "1"], cfg=cfg, chaos=ChaosMonkey(nan_steps=(3, 4, 5))))))
         rolled = re.findall(r"guard: rolled back to step (\d+) \(data step (\d+)\)", out)
         records = re.findall(r"checkpoint (save|restore) step (\d+): (\d+) bytes, (.*)", out)
         print(f"rollback drill: losses {losses}; rollbacks {rolled}; launches {launches}")
@@ -3325,11 +3366,13 @@ def check_head_widths(results: dict, gen) -> None:
 
 # K6's wide variant (heads past 128 wide, up to 256): b, hq, hkv, sq, skv,
 # d, causal, window, q_offset. d = 136 and 200 are zero-padded to 144 and
-# 208 inside the wrapper.
+# 208 inside the wrapper; 144 and 208 reach the kernel as they are, its
+# tensor maps' inner extent, past which TMA reads zeros.
 WIDE_HEAD_CASES = (
     (2, 16, 1, 256, 256, 256, True, None, 0),     # recurrentgemma's MQA, 16 q / 1 kv
     (2, 16, 1, 256, 256, 200, True, None, 0),
     (2, 16, 1, 256, 256, 136, True, None, 0),
+    (2, 16, 1, 300, 300, 144, True, None, 0),     # d = 144: TMA zero-fills the columns past it
     (1, 16, 4, 64, 320, 256, True, 128, 256),     # GQA + window + q_offset
     (1, 8, 2, 130, 200, 200, False, None, 0),     # ragged, non-causal
     (1, 4, 2, 200, 200, 136, True, 64, 0),        # window
@@ -3551,11 +3594,66 @@ def check_retry(eng, prompts) -> dict:
     return {"retry_bitwise_equal": bool(same), "committed_untouched": kept}
 
 
+def run_fit_phase() -> dict:
+    """The training CLI's repaired fit check on the card, for
+    recurrentgemma-9b, whose AdamW temporaries of a 256 000-row embedding
+    and head set its peak: the deepest whole-unit depth that
+    ``check_fits_card`` accepts, unguarded and with ``--guard``; the next
+    unit refused by the CLI before any allocation; then one step at that
+    depth through ``main`` (one plain, one guarded), its peak beside the
+    check's model and reserve (``fit_checked``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.launch import train as train_cli
+
+    full = get_arch(RG)
+    out = {}
+    for guard in (False, True):
+        what = "guarded" if guard else "plain"
+        layers = 0
+        while layers + RG_UNIT <= full.n_layers:
+            try:
+                train_cli.check_fits_card(dataclasses.replace(full, n_layers=layers + RG_UNIT),
+                                          TrainConfig(), torch.device(DEVICE), guard=guard)
+            except ValueError:
+                break
+            layers += RG_UNIT
+        check(0 < layers < full.n_layers, f"{RG} {what}: no whole unit fits, or every one")
+        argv = ["--arch", RG, "--reduce-backend", "cuda_fused", "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--steps", "1", "--log-every", "1"]
+        argv += ["--guard"] * guard
+        nxt = dataclasses.replace(full, n_layers=layers + RG_UNIT)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        try:
+            train_cli.main(argv, cfg=nxt)
+            code = None
+        except SystemExit as e:
+            code = e.code
+        after = torch.cuda.memory_allocated()
+        need = train_cli.train_step_peak_bytes(nxt, TrainConfig(), guard=guard)
+        print(f"fit, {RG} {what}: {layers + RG_UNIT} layers (the step's {need / 1e9:.2f} GB) "
+              f"refused with exit code {code}; device memory allocated before / after: {before} "
+              f"/ {after}")
+        check(code not in (None, 0) and after == before,
+              f"{RG} {what} at {layers + RG_UNIT} layers was not refused before allocating")
+        cfg = dataclasses.replace(full, n_layers=layers)
+        losses, peak = fit_checked(f"{RG} {what}, the deepest unit accepted", cfg, guard,
+                                   lambda: train_cli.main(argv, cfg=cfg))
+        check(len(losses) == 1 and all(np.isfinite(losses)), f"{RG} {what}: non-finite loss")
+        out[what] = {"layers": layers, "refused_layers": layers + RG_UNIT,
+                     "peak_gb": peak / 1e9, "loss": losses[0], "model_gb": train_cli.
+                     train_step_peak_bytes(cfg, TrainConfig(), guard=guard) / 1e9}
+    return out
+
+
 def check_full_depth_refused(arch: str) -> None:
-    """The training CLI refuses ``arch`` at full depth (minicpm3-4b: 85.2
-    GB of state before activations, with the activation reserve past the
-    card; recurrentgemma-9b 191.4 GB, llama-3.2-vision-11b 195.5 GB) before
-    it allocates anything."""
+    """The training CLI refuses ``arch`` at full depth (the step's bytes by
+    ``launch.train.train_step_peak_bytes``, with the activation reserve past
+    the card: minicpm3-4b 93.8 GB, recurrentgemma-9b and
+    llama-3.2-vision-11b past 200 GB) before it allocates anything."""
     import torch
 
     from repro_torch.configs import TrainConfig, get_arch
@@ -3571,8 +3669,8 @@ def check_full_depth_refused(arch: str) -> None:
     except SystemExit as e:
         code = e.code
     after = torch.cuda.memory_allocated()
-    print(f"{arch} training at full depth ({cfg.n_layers} layers, "
-          f"{train_cli.train_state_bytes(cfg, TrainConfig()) / 1e9:.2f} GB of state + "
+    print(f"{arch} training at full depth ({cfg.n_layers} layers, the step's "
+          f"{train_cli.train_step_peak_bytes(cfg, TrainConfig()) / 1e9:.2f} GB + "
           f"{train_cli.ACTIVATION_RESERVE_BYTES / 1e9:.0f} GB kept for activations, card "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB): refused with "
           f"exit code {code}; device memory allocated before / after: {before} / {after}")
@@ -3665,12 +3763,13 @@ RG_WINDOW = 2048
 # branch and the decode steps wrap the ring
 RING_PROMPT = RG_WINDOW + 256
 # training cut in depth to whole pattern units that fit one card with at
-# most 128 leaves (one K4 for the clip statistic): recurrentgemma 1 unit
-# (36 leaves, 32.2 GB of state), llama-3.2-vision 2 units (95, 38.8 GB).
-# recurrentgemma at 3 units (46.4 GB) ran out of memory in AdamW (74.07
-# GiB allocated): the f32 temporaries of its 1.05 B-element embedding and
-# head, ~3.9 GiB each, several alive at once
+# most 128 leaves (one K4 for the clip statistic), plain and guarded:
+# recurrentgemma 1 unit (36 leaves; its step 67.0 GB, 75.4 guarded, by
+# ``launch.train.train_step_peak_bytes``), llama-3.2-vision 2 units (95;
+# 60.0 / 64.2 GB). The fit phase (``run_fit_phase``) takes recurrentgemma
+# to the deepest unit the check accepts.
 RG_TRAIN_LAYERS, VISION_TRAIN_LAYERS = 3, 10
+RG_UNIT = 3  # recurrentgemma-9b's pattern: rec, rec, local_attn
 # the cross-attention gates are zero at init (a closed gate adds nothing);
 # the vision checks open them to this
 OPEN_GATE = 0.5
@@ -3696,6 +3795,7 @@ F32_DECODE_LOGIT_TOL = 0.05
 WINDOW_CASES = (
     (1, RG_HEADS, RG_KV, RING_PROMPT, RING_PROMPT, RG_D, RG_WINDOW, 0),
     (2, RG_HEADS, RG_KV, 64, RING_PROMPT, RG_D, RG_WINDOW, RING_PROMPT - 64),
+    (1, RG_HEADS, RG_KV, 2200, 2200, RG_D, RG_WINDOW, 0),  # past the window, 2200 % 128 != 0
 )
 
 
@@ -4224,6 +4324,8 @@ def main() -> int:
             clip = profile_clip_statistic(arch, results["mma_sum_parts"]["census_on_ms"],
                                           n_layers=layers)
             cut_training[arch] = (layers, launches, prof, clip)
+        torch.cuda.empty_cache()
+        fit = run_fit_phase()
     finally:
         R.set_default_backend(None)
     torch.cuda.empty_cache()
@@ -4360,6 +4462,7 @@ def main() -> int:
           f"bound {wide['training']['bound_ms'] * 1e3:.2f}), prefill 4 x 256 "
           f"{wide['prefill']['ms'] * 1e3:.2f} us (SDPA {wide['prefill']['library_ms'] * 1e3:.2f}, "
           f"bound {wide['prefill']['bound_ms'] * 1e3:.2f})")
+    print(f"fit check, {RG}: {fit}")
     print(f"meter: {meter}; autotune: {tuned}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

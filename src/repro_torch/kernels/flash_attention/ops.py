@@ -5,7 +5,9 @@ Port of ``repro/kernels/flash_attention`` (``_attn_kernel`` behind
 q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D); Hq a multiple of Hkv (GQA).
 On CUDA tensors the wrapper launches ``csrc/flash_attention.cu`` (a head
 width off the multiples of 16 zero-padded to one first; past 128 wide the
-kernel hands the call to its wide variant, ``csrc/flash_attention_wide.cu``);
+kernel hands the call to its wide variant, ``csrc/flash_attention_wide.cu``:
+the same warp-specialized ``wgmma`` and TMA design at 128 queries by 64
+keys, its MMAs always 256 columns wide, the columns past d read as zeros);
 on CPU tensors it runs ``flash_attention_plain``, which walks the same
 blocks (``blocks_for``: 128 queries and 128 keys, the reference's
 ``block_q`` and ``block_k``, up to d = 128; 128 and 64 past it) with the
@@ -34,9 +36,9 @@ LOG2E = math.log2(math.e)  # the kernel's softmax runs in base 2
 BLOCK_Q = 128   # csrc/flash_attention.cu FA_BQ
 BLOCK_K = 128   # csrc/flash_attention.cu FA_BK
 NARROW_HEAD_DIM = 128  # csrc/flash_attention.cu FA_DMAX: wider heads take the wide variant
-WIDE_BLOCK_Q = 128  # csrc/flash_attention_wide.cu FW_BQ
-WIDE_BLOCK_K = 64   # csrc/flash_attention_wide.cu FW_BK
-MAX_HEAD_DIM = 256  # csrc/flash_attention_wide.cu FW_DMAX
+WIDE_BLOCK_Q = 128  # csrc/flash_attention_wide.cu FW_BQ: two consumer warpgroups of 64 rows
+WIDE_BLOCK_K = 64   # csrc/flash_attention_wide.cu FW_BK: S = Q K^T as wgmma m64n64
+MAX_HEAD_DIM = 256  # csrc/flash_attention_wide.cu FW_DMAX: every MMA runs over 256 columns
 HEAD_DIM_MULTIPLE = 16  # the kernel's MMA k-step over the head width
 
 

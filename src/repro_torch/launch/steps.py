@@ -37,8 +37,9 @@ def _split_batch(tokens: torch.Tensor, n_micro: int) -> torch.Tensor:
 def make_grads_fn(cfg, tcfg):
     """``compute_grads(params, batch) -> (grads, mean_loss)``: per
     microbatch the loss and its gradients, accumulated in f32 and averaged
-    over the microbatches (``grads`` are the flat leaves in
-    ``reduce.tree_leaves`` order). ``batch["image_embeds"]``, where given,
+    over the microbatches in place (``grads`` are the flat leaves in
+    ``reduce.tree_leaves`` order; ``launch.train.train_step_peak_bytes``
+    charges them). ``batch["image_embeds"]``, where given,
     is the cross-attention context, split with the tokens."""
 
     def loss_fn(params, tokens, ctx):
@@ -58,9 +59,12 @@ def make_grads_fn(cfg, tcfg):
             loss = loss_fn(params, mb.to(torch.int64), cx)
             grads = torch.autograd.grad(loss, leaves)
             for a, g in zip(gacc, grads):
-                a.add_(g.to(torch.float32))
+                a.add_(g)  # f32 += g: bitwise a + g.to(f32), with no f32 copy of g
+            del grads  # one microbatch's gradients alive at a time, as the fit check charges
             lacc = lacc + loss.detach()
-        return [a / n_micro for a in gacc], lacc / n_micro
+        for a in gacc:
+            a.div_(n_micro)  # in place: bitwise a / n_micro, with no second f32 copy
+        return gacc, lacc / n_micro
 
     return compute_grads
 

@@ -32,22 +32,20 @@ Flags beyond the model and schedule:
                              <ckpt-dir>/guard_status.json)
 
 ``--mesh`` and ``--chaos-host`` are refused: they belong to the ROADMAP's
-distributed item, which is not ported. So is a config whose training state
-and an activation reserve do not fit one card (``check_fits_card``:
-deepseek-7b's ~83 GB of parameters, gradients and moments, ~138 GB with the
-clip statistic's pack, minicpm3-4b's 85.2 GB at full depth,
-recurrentgemma-9b's 191.4 GB and llama-3.2-vision-11b's 195.5 GB, against
-the H100's 80 GB), which trains only when that item shards it. mamba2-780m
-(15.6 GB) trains at full depth; minicpm3-4b, recurrentgemma-9b and
-llama-3.2-vision-11b at full width cut in depth, through ``main(cfg=...)``
-(recurrentgemma at 3 layers, one unit: 32.2 GB, 36 leaves; llama-3.2-vision
-at 10: 38.8 GB, 95 leaves). At a vocabulary of 256 000 the activation
-reserve is too small: recurrentgemma at 9 layers (46.4 GB) passes this
-check and then runs out of memory in AdamW, whose f32 temporaries of the
-1.05 B-element embedding and head (4.2 GB each) the reserve does not
-cover. A cross-attention arch trains against one synthetic
-image context, (batch, n_img_tokens, d_model) from a generator seeded 1,
-in every batch, as the reference's CLI does.
+distributed item, which is not ported. So is a config whose training step
+and an activation reserve do not fit one card (``check_fits_card``, on
+``train_step_peak_bytes``: deepseek-7b's 152 GB, minicpm3-4b's 93.8 GB at
+full depth, recurrentgemma-9b and llama-3.2-vision-11b at full depth,
+against the H100's 80 GB), which trains only when that item shards it.
+mamba2-780m (17.2 GB) trains at full depth; minicpm3-4b, recurrentgemma-9b
+and llama-3.2-vision-11b at full width cut in depth, through
+``main(cfg=...)``: recurrentgemma in whole units of 3 layers, 6 layers
+unguarded (75.3 GB; 9 refused) and 3 with ``--guard`` (75.4 GB; 6
+refused), its peak set by AdamW's f32 temporaries of the 1.05 B-element
+embedding and head; llama-3.2-vision at 10 layers (60.0 / 64.2 GB). A
+cross-attention arch trains against one synthetic image context, (batch,
+n_img_tokens, d_model) from a generator seeded 1, in every batch, as the
+reference's CLI does.
 The unguarded loop reads its batches through a ``Prefetcher``; the guarded
 loop reads the source directly, because a rollback rewinds it.
 """
@@ -69,6 +67,7 @@ from repro_torch.kernels.mma_reduce import PARTS_KERNEL_MAX
 from repro_torch.launch.serve import resolve_device
 from repro_torch.launch.steps import make_guarded_train_step, make_train_step
 from repro_torch.models import init_params
+from repro_torch.models import model as model_lib
 from repro_torch.models.convert import reference_leaf_groups
 from repro_torch.models.frontends import synth_image_embeds
 from repro_torch.models.model import f32_param_count, param_dtype
@@ -80,11 +79,12 @@ _NOT_PORTED = {
 }
 
 
-# Room kept for activations beside the training state when the CLI decides
-# whether a config fits the card. At batch 4 x seq 512 the full-width runs
-# on an H100 peaked at 41.64 GB for internlm2-1.8b (37.78 GB of state) and
-# 29.44 GB for granite-moe-1b-a400m (26.69 GB) (PERF.md section 5):
-# activations under remat took under 4 GB; 8 GB keeps twice that.
+# Room kept for activations beside the training step's own bytes
+# (``train_step_peak_bytes``) when the CLI decides whether a config fits the
+# card. At batch 4 x seq 512 the full-width runs on an H100 peaked within
+# 0.1 GB of that model (internlm2-1.8b 41.64 GB against 41.57,
+# recurrentgemma-9b at 3 layers 67.10 against 67.03; PERF.md section 5):
+# under remat the activations take little beside AdamW's peak.
 ACTIVATION_RESERVE_BYTES = 8 * 10**9
 
 
@@ -114,7 +114,8 @@ def train_state_bytes(cfg, tcfg) -> int:
     f32 second moment (one scalar a group with ``fused_second_moment``,
     counted as none); past ``PARTS_KERNEL_MAX`` leaves also the clip
     statistic's pack, which holds every gradient squared at f32 and then
-    their concatenation (8 bytes a parameter at its peak)."""
+    their concatenation (8 bytes a parameter at its peak). The fit check
+    charges the whole step instead (``train_step_peak_bytes``)."""
     item = torch.empty((), dtype=param_dtype(cfg)).element_size()
     per = 2 * item + (4 if tcfg.fused_second_moment else 8)
     if param_leaves(cfg) > PARTS_KERNEL_MAX:
@@ -122,23 +123,64 @@ def train_state_bytes(cfg, tcfg) -> int:
     return cfg.param_count() * per + f32_param_count(cfg) * 2 * (4 - item)
 
 
-def check_fits_card(cfg, tcfg, device) -> None:
-    """Refuse, before any allocation, a config whose training state and
-    the activation reserve (``ACTIVATION_RESERVE_BYTES``) exceed the card:
-    deepseek-7b (~138 GB of state), minicpm3-4b at full depth (85.2 GB
-    against an 80 GB card's 85.0 GB), recurrentgemma-9b (191.4 GB) and
-    llama-3.2-vision-11b (195.5 GB) at full depth are refused whatever the
-    rounding."""
+# f32 temporaries the size of one leaf that ``optim.adamw._adamw_core``
+# holds at once: 7 on its unfused path (g * clip, m / bc1, v / bc2, p at
+# f32, delta, lr * delta and p - lr * delta, or sqrt(v / bc2) + eps and the
+# quotient on the way to delta), fewer on the fused one; the guarded step
+# adds its two candidate moments. Each leaf's update runs in a function of
+# its own, so no temporary outlives its leaf.
+ADAMW_LEAF_TEMPS = 7
+GUARD_LEAF_TEMPS = 2
+
+
+def param_shapes(cfg) -> list:
+    """``(numel, element size)`` of every tensor ``init_params(cfg)`` makes,
+    in ``reduce.tree_leaves`` order: built on the meta device, so nothing
+    is allocated."""
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+    return [(p.numel(), p.element_size()) for p in R.tree_leaves(params)]
+
+
+def train_step_peak_bytes(cfg, tcfg, *, guard: bool = False) -> int:
+    """Device bytes a training step holds at its peak, activations aside,
+    from the parameters' shapes (``param_shapes``): the larger of
+      the backward's end: the parameters, AdamW's f32 moments (one f32
+        tensor with ``fused_second_moment``), the f32 gradient accumulators
+        and one microbatch's gradients at the parameters' dtypes;
+      the update: the parameters, the moments and the averaged f32
+        gradients (averaged in place), with the larger of the clip
+        statistic's pack (past ``PARTS_KERNEL_MAX`` leaves: every gradient
+        squared at f32, then their concatenation, 8 bytes a parameter) and
+        AdamW's f32 temporaries of the largest leaf (``ADAMW_LEAF_TEMPS``,
+        with ``guard`` also ``GUARD_LEAF_TEMPS``)."""
+    shapes = param_shapes(cfg)
+    n = sum(k for k, _ in shapes)
+    params = sum(k * size for k, size in shapes)
+    moments = 4 * n * (1 if tcfg.fused_second_moment else 2)
+    backward = params + moments + 4 * n + params
+    temps = 4 * max(k for k, _ in shapes) * (ADAMW_LEAF_TEMPS + guard * GUARD_LEAF_TEMPS)
+    pack = 8 * n if len(shapes) > PARTS_KERNEL_MAX else 0
+    return max(backward, params + moments + 4 * n + max(pack, temps))
+
+
+def check_fits_card(cfg, tcfg, device, *, guard: bool = False) -> None:
+    """Refuse, before any allocation, a config whose training step
+    (``train_step_peak_bytes``, guarded or not) and the activation reserve
+    (``ACTIVATION_RESERVE_BYTES``) exceed the card: deepseek-7b (152 GB),
+    minicpm3-4b at full depth (93.8 GB), recurrentgemma-9b past 6 layers
+    (past 3 guarded) and llama-3.2-vision-11b at full depth are refused on
+    an 80 GB card."""
     if device.type != "cuda":
         return
-    need = train_state_bytes(cfg, tcfg)
+    need = train_step_peak_bytes(cfg, tcfg, guard=guard)
     have = torch.cuda.get_device_properties(device).total_memory
     if need + ACTIVATION_RESERVE_BYTES > have:
         raise ValueError(
-            f"{cfg.name}: the training state takes {need / 1e9:.1f} GB before activations "
-            f"(and {ACTIVATION_RESERVE_BYTES / 1e9:.0f} GB are kept for them), more than the "
-            f"card's {have / 1e9:.1f} GB; it trains at this depth only across cards, the "
-            f"ROADMAP's distributed item (not ported yet)")
+            f"{cfg.name} at {cfg.n_layers} layers: the {'guarded ' * guard}training step "
+            f"holds {need / 1e9:.1f} GB before activations (and "
+            f"{ACTIVATION_RESERVE_BYTES / 1e9:.0f} GB are kept for them), more than the card's "
+            f"{have / 1e9:.1f} GB; it trains at this depth only across cards, the ROADMAP's "
+            f"distributed item (not ported yet)")
 
 
 def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0):
@@ -249,7 +291,7 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
         fused_second_moment=args.fused_second_moment,
     )
     try:
-        check_fits_card(cfg, tcfg, device)
+        check_fits_card(cfg, tcfg, device, guard=args.guard)
     except ValueError as e:
         ap.error(str(e))
     params, opt_state, step_fn = build(cfg, tcfg, device, guard=args.guard,

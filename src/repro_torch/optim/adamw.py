@@ -158,7 +158,11 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
     ``keep`` (a bool scalar tensor, the guarded step's skip) computes each
     leaf's candidate into temporaries by the same operations and writes it
     back through ``_keep_into``: where ``keep`` is true nothing changes,
-    bitwise; where false the result is bitwise the unguarded update."""
+    bitwise; where false the result is bitwise the unguarded update.
+
+    Each leaf's update runs in a function of its own, so its temporaries
+    are freed before the next leaf's are made: the step's peak holds those
+    of one leaf (``launch.train.ADAMW_LEAF_TEMPS``)."""
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -195,15 +199,18 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
             # scalar EMA of E[(clip g)^2]; all moment math is size-1
             v[k] = b2 * v[k] + (1 - b2) * (clip * clip) * (sumsq / n)
             rcp.append(1.0 / (torch.sqrt(v[k] / bc2) + ADAM_EPS))
-        for p, g, m, k in zip(params, grads, state.m, groups):
+        def fused_leaf(p, g, m, k):
             gf = g.to(torch.float32) * clip
             m_new = moment(m, b1, (1 - b1) * gf)
             pf = p.to(torch.float32)
             write(p, m, m_new, pf - (lr * rcp[k] / bc1) * m_new - (lr * cfg.weight_decay) * pf)
+
+        for p, g, m, k in zip(params, grads, state.m, groups):
+            fused_leaf(p, g, m, k)
         if keep is not None:
             v = [_bitwise_keep(keep, old, new) for old, new in zip(state.v, v)]
         return AdamWState(step=step, m=state.m, v=v), lr
-    for p, g, m, v in zip(params, grads, state.m, state.v):
+    def leaf(p, g, m, v):
         gf = g.to(torch.float32) * clip
         m_new = moment(m, b1, (1 - b1) * gf)
         v_new = moment(v, b2, (1 - b2) * gf * gf)
@@ -212,6 +219,9 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
         pf = p.to(torch.float32)
         delta = mhat / (torch.sqrt(vhat) + ADAM_EPS) + cfg.weight_decay * pf
         write(p, m, m_new, pf - lr * delta, v, v_new)
+
+    for p, g, m, v in zip(params, grads, state.m, state.v):
+        leaf(p, g, m, v)
     return AdamWState(step=step, m=state.m, v=state.v), lr
 
 

@@ -202,6 +202,9 @@ def test_flash_attention_rejects_unsupported_head_dim(gen):
     (1, 16, 4, 64, 320, 256, True, 128, 256),     # GQA + window + q_offset
     (1, 16, 1, 2304, 2304, 256, True, 2048, 0),   # recurrentgemma's window, past it
     (2, 16, 1, 64, 2304, 256, True, 2048, 2240),  # the same, decode-adjacent q_offset
+    (2, 16, 1, 300, 300, 144, True, None, 0),     # d = 144: TMA zero-fills past it
+    (1, 16, 1, 2200, 2200, 256, True, 2048, 0),   # window past the sequence, sq % 128 != 0
+    (1, 8, 1, 100, 1100, 144, True, 1000, 1000),  # q_offset and a window at d = 144
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_attention_wide_heads_match_plain(gen, case, dtype):

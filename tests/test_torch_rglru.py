@@ -415,10 +415,12 @@ def test_tiny_train_steps_match_reference(kernel_backends):
         assert int((diffs > 1e-5).sum()) <= 1e-3 * diffs.numel()
 
 
-def refuses_full_depth(monkeypatch, arch: str, cut_layers: int, leaves: int, gb: tuple):
+def refuses_full_depth(monkeypatch, arch: str, cut_layers: int, leaves: int, gb: tuple,
+                       refused_layers: int | None = None):
     """The training CLI refuses ``arch`` at full depth on a mocked 80 GB
     card before it allocates, and accepts it cut to ``cut_layers`` layers
-    (``leaves`` leaves, a state of ``gb`` GB)."""
+    (``leaves`` leaves, a state of ``gb`` GB); ``refused_layers``, a cut
+    that must be refused too."""
     tcfg = TrainConfig()
     full = get_arch(arch)
     cut = dataclasses.replace(full, n_layers=cut_layers)
@@ -439,9 +441,19 @@ def refuses_full_depth(monkeypatch, arch: str, cut_layers: int, leaves: int, gb:
         train_cli.check_fits_card(full, tcfg, cuda)
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", arch, "--steps", "1"])
+    if refused_layers is not None:
+        with pytest.raises(ValueError, match="the ROADMAP's distributed item"):
+            train_cli.check_fits_card(dataclasses.replace(full, n_layers=refused_layers), tcfg,
+                                      cuda)
     train_cli.check_fits_card(cut, tcfg, cuda)
 
 
 def test_train_cli_refuses_full_depth_before_allocating(monkeypatch):
     assert 191e9 < train_cli.train_state_bytes(get_arch(ARCH), TrainConfig()) < 192e9
     refuses_full_depth(monkeypatch, ARCH, 3, 36, (32.2, 32.3))
+
+
+def test_train_cli_refuses_nine_layers_accepts_six(monkeypatch):
+    # 9 layers held 46.4 GB of state and ran out of memory in AdamW on the
+    # card: the step's model (train_step_peak_bytes) refuses it
+    refuses_full_depth(monkeypatch, ARCH, 6, 69, (39.3, 39.4), refused_layers=9)
