@@ -163,9 +163,12 @@ LOSS_CHUNK = 512  # models.losses.lm_loss_chunked's seq_chunk
 
 def _norm_kernels(cfg, per: int) -> dict:
     """``per`` launches of the config's norm kernel (K5b for RMSNorm, K5a
-    for OLMo's non-parametric LayerNorm) and none of the other."""
-    rms = cfg.norm == "rmsnorm"
-    return {"rmsnorm": per if rms else 0, "layernorm_np": 0 if rms else per}
+    for OLMo's non-parametric LayerNorm) and none of the other; a LayerNorm
+    with a scale and a bias launches neither: its moments are the engine's
+    row reductions (a ones-product in torch on every backend), as in the
+    reference, whose kernel route takes only the other two."""
+    return {"rmsnorm": per if cfg.norm == "rmsnorm" else 0,
+            "layernorm_np": per if cfg.norm == "layernorm_np" else 0}
 
 
 def clip_statistic_kernels(cfg) -> dict:
@@ -2258,7 +2261,9 @@ def check_tiny_against_cpu(arch: str = "olmo-1b") -> None:
     routing of every layer's prefill (expert ids, slot tokens, the keep
     mask) must be equal on the card and the CPU. A vision arch runs with its
     cross-attention gates at 0.5 (``open_gates``) and the card engine's
-    context on both devices."""
+    context on both devices. An audio arch's prefill reads (2, 12, 4)
+    codebook tokens, each stream its own (the served 1-D prompts are tiled
+    over the streams)."""
     import numpy as np
     import torch
 
@@ -2283,6 +2288,8 @@ def check_tiny_against_cpu(arch: str = "olmo-1b") -> None:
         outs.append([list(r.tokens) for r in res])
     with torch.inference_mode():
         packed = np.stack(prompts[:2]).astype(np.int64)
+        if cfg.n_codebooks:  # every stream its own tokens (served prompts are tiled)
+            packed = rng.integers(0, cfg.vocab_size, size=(2, 12, cfg.n_codebooks))
         (lg, _), routes_g = record_routing(
             lambda: gpu._prefill(gpu.params, torch.from_numpy(packed).to(DEVICE)))
         (lc, _), routes_c = record_routing(lambda: cpu._prefill(cpu.params,
@@ -2339,7 +2346,8 @@ def serve_full_width(arch: str = "olmo-1b", n_layers: int | None = None,
     must agree bitwise (``check_moe_prefill``); the same for the MLA and
     SSM archs (``check_prefill_bitwise``) and those added later, and for
     the SSM and RG-LRU archs a retried decode step must be bitwise the
-    clean one (``check_retry``). Prints tokens/s, the per-step latency
+    clean one (``check_retry``; also for the audio arch, whose steps carry
+    (4, 1, 4) codebook tokens). Prints tokens/s, the per-step latency
     p50/p99 and the bytes held on the card, then profiles a prefill and a
     decode step; ``after(engine)``, if given, runs last on the engine and
     adds its figures. Returns the launch counts and the figures."""
@@ -2415,10 +2423,14 @@ def serve_full_width(arch: str = "olmo-1b", n_layers: int | None = None,
         check(launches[k] == n, f"{arch}: {k}: {launches[k]} launches, expected {n}")
     if cfg.norm == "layernorm_np":
         check(launches["rmsnorm"] == 0, "rmsnorm is not on the olmo path")
+    elif cfg.norm == "layernorm":
+        check(launches["rmsnorm"] == launches["layernorm_np"] == 0,
+              f"{arch}: a norm kernel launched for the parametric LayerNorm")
     else:
         check(launches["rmsnorm"] > 0 and launches["layernorm_np"] == 0,
               f"{arch}: K5b is not on the path")
-    new_kind = cfg.mla is not None or set(cfg.pattern_layers) != {"attn"}
+    new_kind = (cfg.mla is not None or set(cfg.pattern_layers) != {"attn"}
+                or bool(cfg.n_codebooks))
     if cfg.moe is not None or new_kind:
         others = {k: n for k, n in launches.items() if n and k not in expected}
         check(not others, f"{arch}: kernels outside the launch model launched: {others}")
@@ -2426,7 +2438,7 @@ def serve_full_width(arch: str = "olmo-1b", n_layers: int | None = None,
         figures.update(check_moe_prefill(eng, prompts[:SLOTS]))
     elif new_kind:
         figures.update(check_prefill_bitwise(eng, prompts[:SLOTS]))
-    if {"ssm", "rec"} & set(cfg.pattern_layers):
+    if {"ssm", "rec"} & set(cfg.pattern_layers) or cfg.n_codebooks:
         figures.update(check_retry(eng, prompts[:SLOTS]))
     figures.update(profile_steps(eng, prompts[:SLOTS]))
     if after is not None:
@@ -2540,7 +2552,7 @@ def check_tiny_training_against_cpu(arch: str = "olmo-1b") -> None:
     gparams, gopt, gstep = build(cfg, tcfg, DEVICE)
     open_gates(gparams)
     cparams, copt, cstep = build(cfg, tcfg, "cpu", params=_cpu_copy(gparams))
-    data = SyntheticLM(cfg.vocab_size, 16, 2, seed=3)
+    data = SyntheticLM(cfg.vocab_size, 16, 2, seed=3, n_codebooks=cfg.n_codebooks)
     ctx = {}
     if cfg.n_img_tokens:
         ctx = {"image_embeds": torch.randn((2, cfg.n_img_tokens, cfg.d_model),
@@ -2677,7 +2689,8 @@ def train_full_width(arch: str = "olmo-1b", guarded_steps: int = 0,
     torch.cuda.empty_cache()
     params, opt, step_fn = train_cli.build(cfg, TrainConfig(total_steps=10, warmup_steps=1),
                                            DEVICE)
-    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1,
+                       n_codebooks=cfg.n_codebooks)
     batches = [{"tokens": torch.from_numpy(data.next()["tokens"]).to(DEVICE)} for _ in range(4)]
     if cfg.n_img_tokens:  # the CLI's context: one synthetic image a sequence
         from repro_torch.models.frontends import synth_image_embeds
@@ -3242,18 +3255,18 @@ def _attention_case(gen, label: str, b_: int, hq: int, hkv: int, s_: int, d: int
     }
 
 
-def _cross_entropy_case(gen, arch: str, vocab: int, padded: int) -> dict:
-    """K7 over (2048, padded) f32 logits, the pad columns at -1e30 as the
-    chunked loss's head gives them, against its plain version (1e-3) and
-    the same logits cut to the real columns (1e-6), timed beside its bound
-    and ``F.cross_entropy``."""
+def _cross_entropy_case(gen, arch: str, vocab: int, padded: int,
+                        rows: int = TRAIN_BATCH * TRAIN_SEQ) -> dict:
+    """K7 over (rows, padded) f32 logits (2048 rows: a training chunk), the
+    pad columns at -1e30 as the chunked loss's head gives them, against its
+    plain version (1e-3) and the same logits cut to the real columns
+    (1e-6), timed beside its bound and ``F.cross_entropy``."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import cross_entropy
     from repro_torch.kernels.cross_entropy import cross_entropy_plain
 
-    rows = TRAIN_BATCH * TRAIN_SEQ
     logits = torch.randn((rows, padded), generator=gen, device=DEVICE) * 3
     logits[:, vocab:] = -1e30
     labels = torch.randint(0, vocab, (rows,), generator=gen, device=DEVICE)
@@ -3431,17 +3444,19 @@ def check_wide_heads(results: dict, gen) -> None:
     results["flash_attention"]["wide"] = wide
 
 
-def _logit_stat_case(gen, vocab: int) -> dict:
+def _logit_stat_case(gen, vocab: int, books: int = 0) -> dict:
     """K4 as the guarded logit statistic over the public logits of the
-    serving slots, (SLOTS, 1, vocab) f32, with its census: against its
-    plain version (1e-6 x mass, counts exact), timed beside its bound and
-    a PyTorch row sum of squares."""
+    serving slots, (SLOTS, 1, vocab) f32 (with ``books`` codebook streams
+    (SLOTS, 1, books, vocab): a slot's streams are one part), with its
+    census: against its plain version (1e-6 x mass, counts exact), timed
+    beside its bound and a PyTorch sum of squares a slot."""
     import torch
 
     from repro_torch.kernels import mma_sum_parts
     from repro_torch.kernels.mma_reduce import mma_sum_parts_plain
 
-    logits = torch.randn((SLOTS, 1, vocab), generator=gen, device=DEVICE) * 3
+    shape = (SLOTS, 1, books, vocab) if books else (SLOTS, 1, vocab)
+    logits = torch.randn(shape, generator=gen, device=DEVICE) * 3
     parts = [logits[i] for i in range(SLOTS)]
     chains = ((),)
 
@@ -3453,7 +3468,8 @@ def _logit_stat_case(gen, vocab: int) -> dict:
     torch.cuda.synchronize()
     err = float((out - plain).abs().max())
     mass = float(logits.square().sum())
-    print(f"K4 mma_sum_parts {SLOTS} x {vocab} f32 (the logit statistic): max_abs_err {err:.3g} "
+    print(f"K4 mma_sum_parts {' x '.join(map(str, shape))} f32 (the logit statistic): "
+          f"max_abs_err {err:.3g} "
           f"vs plain, mass {mass:.4g} (tol: 1e-6 x mass; counts exact)")
     check(torch.equal(out[SLOTS + 1:], plain[SLOTS + 1:]) and err <= 1e-6 * mass,
           f"mma_sum_parts disagrees with its plain version at {SLOTS} x {vocab}")
@@ -3464,7 +3480,7 @@ def _logit_stat_case(gen, vocab: int) -> dict:
         "plain_ms": time_ms(lambda: mma_sum_parts_plain(parts, ("square",) * SLOTS, chains,
                                                         True), iters=5, warmup=1),
         "bound_ms": b, "bound_by": by,
-        "library_ms": device_ms(lambda: logits.square().sum(-1)),
+        "library_ms": device_ms(lambda: logits.reshape(SLOTS, -1).square().sum(-1)),
     }
 
 
@@ -4088,6 +4104,74 @@ def check_at_f32(arch: str, check_fn) -> dict:
         torch.cuda.empty_cache()
 
 
+# ------------------------------ the audio arch ------------------------------
+
+MUSICGEN = "musicgen-medium"
+# 24 MHA heads of 64; vocabulary 2048 (a multiple of 256: no pad columns),
+# 4 codebook streams; tiny musicgen's 64 columns are padded to 256
+MUSICGEN_HEADS, MUSICGEN_D, MUSICGEN_VOCAB, MUSICGEN_BOOKS = 24, 64, 2048, 4
+TINY_MUSICGEN_VOCAB, TINY_MUSICGEN_PADDED = 64, 256
+
+
+def _ce_launch_slices(gen, rows: int, width: int) -> int:
+    """K7's vocabulary slices a row block in one metered launch over (rows,
+    width) f32 logits, read from the bytes the launch noted: past the
+    logits, labels and losses they are the slices' (max, sum) partials, 16
+    rows x 2 f32 a slice and row block, which one slice does not write."""
+    import torch
+
+    from repro_torch import reduce as R
+    from repro_torch.kernels import common, cross_entropy
+    from repro_torch.kernels.cross_entropy.ops import BLOCK_ROWS
+
+    logits = torch.randn((rows, width), generator=gen, device=DEVICE)
+    labels = torch.randint(0, width, (rows,), generator=gen, device=DEVICE)
+    _, records = R.launch_records(cross_entropy, logits, labels)
+    check(len(records) == 1 and records[0].route == "kernel",
+          f"cross_entropy at {width} columns: one launch expected, got {records}")
+    part = records[0].write_bytes - 4 * rows
+    return 1 if part == 0 else part // (common.ceil_div(rows, BLOCK_ROWS) * BLOCK_ROWS * 2 * 4)
+
+
+def check_audio_shapes(results: dict) -> None:
+    """The kernels at the shapes musicgen-medium gives them, each against
+    its plain version and timed beside its bound and PyTorch call (as
+    ``check_moe_shapes``): K6 at 24 MHA heads of 64 (24 is no power of
+    two) for the training step (4 x 512) and the serving prefill (4 x
+    256); K7 over one training chunk's (8192, 2048) f32 logits (4 x 512
+    tokens x 4 streams; one 2048-column slice a row block, so no merge
+    across CTAs) and over tiny musicgen's (128, 256) with 192 pad columns;
+    K4 as the logit statistic over 4 slots of (1, 4, 2048). K7's split
+    count is read from its launches (``_ce_launch_slices``), at 4096 columns
+    as well, where it must be 2. Its LayerNorm has no kernel (the engine's
+    moments in torch). The figures go under the kernels' "musicgen" keys."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    attn = {label: _attention_case(gen, label, *shape) for label, shape in (
+        ("musicgen_train", (TRAIN_BATCH, MUSICGEN_HEADS, MUSICGEN_HEADS, TRAIN_SEQ, MUSICGEN_D)),
+        ("musicgen_prefill", (SLOTS, MUSICGEN_HEADS, MUSICGEN_HEADS, PROMPT, MUSICGEN_D)))}
+    rows = TRAIN_BATCH * TRAIN_SEQ * MUSICGEN_BOOKS
+    ce = {"musicgen": _cross_entropy_case(gen, MUSICGEN, MUSICGEN_VOCAB, MUSICGEN_VOCAB,
+                                          rows=rows),
+          "musicgen_tiny": _cross_entropy_case(gen, "musicgen-tiny", TINY_MUSICGEN_VOCAB,
+                                               TINY_MUSICGEN_PADDED, rows=2 * 16 * 4)}
+    slices = {width: _ce_launch_slices(gen, rows, width) for width in (
+        MUSICGEN_VOCAB, TINY_MUSICGEN_PADDED, 2 * MUSICGEN_VOCAB)}
+    print(f"K7's vocabulary split, read from its launches' partials: {slices[MUSICGEN_VOCAB]} "
+          f"slice a row block at {MUSICGEN}'s {MUSICGEN_VOCAB} columns (no merge across CTAs), "
+          f"{slices[TINY_MUSICGEN_PADDED]} at the tiny arch's {TINY_MUSICGEN_PADDED}; "
+          f"{slices[2 * MUSICGEN_VOCAB]} at {2 * MUSICGEN_VOCAB} (must be 1, 1, 2)")
+    check(slices == {MUSICGEN_VOCAB: 1, TINY_MUSICGEN_PADDED: 1, 2 * MUSICGEN_VOCAB: 2},
+          f"K7's vocabulary split at musicgen's widths: {slices}")
+    stat = {"musicgen": _logit_stat_case(gen, MUSICGEN_VOCAB, books=MUSICGEN_BOOKS)}
+    results["flash_attention"]["musicgen"] = attn
+    results["cross_entropy"]["musicgen"] = ce
+    results["mma_sum_parts"]["musicgen"] = stat
+    _print_cases(list(attn.items()) + [(f"{k} ce", v) for k, v in ce.items()]
+                 + [(f"{k} logit statistic", v) for k, v in stat.items()])
+
+
 def run_meter_phase() -> dict:
     """The launch meter on the card at 2^28 f32 and bf16: the bytes the
     wrappers note (``measured_hbm_bytes``) equal ``ReducePlan.hbm_bytes(...)
@@ -4219,6 +4303,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository (src/repro_torch is missing)",
               file=sys.stderr)
         return 2
+    t_start = time.time()
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -4259,12 +4344,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_rg_vision_shapes(results)
     torch.cuda.empty_cache()
+    check_audio_shapes(results)
+    torch.cuda.empty_cache()
     meter = run_meter_phase()
     torch.cuda.empty_cache()
     tuned = run_autotune_phase()
     torch.cuda.empty_cache()
     check_backward_times(results, gen)
-    for arch in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS + RG_VISION_ARCHS:
+    for arch in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS + RG_VISION_ARCHS + (MUSICGEN,):
         check_tiny_against_cpu(arch)
     check_full_width_against_cpu()
     serve_launches, serving = {}, {}
@@ -4286,6 +4373,8 @@ def main() -> int:
     ring_launches = serving[RG].pop("bfloat16_ring_launches")
     serving[RG].pop("float32_ring_launches")
     torch.cuda.empty_cache()
+    serve_launches[MUSICGEN], serving[MUSICGEN] = serve_full_width(MUSICGEN)
+    torch.cuda.empty_cache()
     nonkernel = run_nonkernel_route()
     torch.cuda.empty_cache()
 
@@ -4293,7 +4382,7 @@ def main() -> int:
 
     R.set_default_backend("cuda_fused")  # the training CLI's --reduce-backend cuda_fused
     try:
-        for arch in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS + RG_VISION_ARCHS:
+        for arch in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS + RG_VISION_ARCHS + (MUSICGEN,):
             check_tiny_training_against_cpu(arch)
         check_full_width_training_against_cpu()
         check_parts_training(results, gen)
@@ -4325,6 +4414,9 @@ def main() -> int:
                                           n_layers=layers)
             cut_training[arch] = (layers, launches, prof, clip)
         torch.cuda.empty_cache()
+        musicgen_launches, musicgen_prof = train_full_width(MUSICGEN, guarded_steps=1)
+        musicgen_clip = profile_clip_statistic(MUSICGEN, results["mma_sum_parts"]["census_on_ms"])
+        torch.cuda.empty_cache()
         fit = run_fit_phase()
     finally:
         R.set_default_backend(None)
@@ -4346,6 +4438,7 @@ def main() -> int:
     results["mma_sum_segments"]["granite_clip_statistic"] = granite_clip
     results["mma_sum_segments"]["mamba2_clip_statistic"] = mamba_clip
     results["mma_sum_segments"]["minicpm3_16_layers_clip_statistic"] = minicpm_clip
+    results["mma_sum_segments"]["musicgen_clip_statistic"] = musicgen_clip
     olmo_serve = serve_launches["olmo-1b"]
     for name in KERNELS:
         r = results[name]
@@ -4389,6 +4482,9 @@ def main() -> int:
                 cut_training[VISION][1][name],
             f"launches_guarded_training_llama_vision_{VISION_TRAIN_LAYERS}_layers":
                 cut_training[VISION][1]["guarded"][name],
+            "launches_serving_musicgen": serve_launches[MUSICGEN][name],
+            "launches_training_musicgen": musicgen_launches[name],
+            "launches_guarded_training_musicgen": musicgen_launches["guarded"][name],
             "launches_multi_reduce": multi_launches[name],
             "launches_matmul_stats": ms_launches[name],
             "launches_guarded_training": guarded["launches"][name],
@@ -4440,6 +4536,13 @@ def main() -> int:
               f"{launches['peak_gb']:.2f} GB; clip statistic {clip['statistic_ms']:.3f} ms (K8 "
               f"{clip['statistic_k8_ms']:.3f}) over {clip['n']} values in {clip['segments']} "
               "leaves")
+    print(f"training {MUSICGEN}: step wall {musicgen_prof['wall_ms']:.3f} ms, device busy "
+          f"{musicgen_prof['busy_ms']:.3f} ms, idle share "
+          f"{max(0.0, 1.0 - musicgen_prof['busy_ms'] / musicgen_prof['wall_ms']):.3f}, peak "
+          f"{musicgen_launches['peak_gb']:.2f} GB (guarded "
+          f"{musicgen_launches['guarded']['peak_gb']:.2f}); clip statistic "
+          f"{musicgen_clip['statistic_ms']:.3f} ms (K8 {musicgen_clip['statistic_k8_ms']:.3f}) "
+          f"over {musicgen_clip['n']} values in {musicgen_clip['segments']} leaves")
     for arch, (layers, launches, prof, clip) in cut_training.items():
         print(f"training {arch} ({layers} layers): step wall {prof['wall_ms']:.3f} ms, device "
               f"busy {prof['busy_ms']:.3f} ms, idle share "
@@ -4464,6 +4567,7 @@ def main() -> int:
           f"bound {wide['prefill']['bound_ms'] * 1e3:.2f})")
     print(f"fit check, {RG}: {fit}")
     print(f"meter: {meter}; autotune: {tuned}")
+    print(f"chip_smoke wall time: {time.time() - t_start:.1f} s (the build included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,9 @@ maps arch id -> a reduced same-family config small enough for the CPU;
 SHAPES maps the four assigned shape cells by name. The dense archs
 (olmo-1b, internlm2-1.8b, deepseek-7b), the MoE archs
 (granite-moe-1b-a400m, dbrx-132b), MLA (minicpm3-4b), the SSM
-(mamba2-780m), the RG-LRU hybrid with local attention (recurrentgemma-9b)
-and vision cross-attention (llama-3.2-vision-11b) are ported; the audio
-family (musicgen-medium) is not yet.
+(mamba2-780m), the RG-LRU hybrid with local attention (recurrentgemma-9b),
+vision cross-attention (llama-3.2-vision-11b) and the audio family's four
+codebook streams (musicgen-medium): every arch of the reference.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from repro_torch.configs import (
     llama32_vision_11b,
     mamba2_780m,
     minicpm3_4b,
+    musicgen_medium,
     olmo_1b,
     recurrentgemma_9b,
 )
@@ -40,7 +41,7 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = (olmo_1b, deepseek_7b, internlm2_1_8b, granite_moe_1b, dbrx_132b, minicpm3_4b,
-            mamba2_780m, recurrentgemma_9b, llama32_vision_11b)
+            mamba2_780m, recurrentgemma_9b, llama32_vision_11b, musicgen_medium)
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 TINY_ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.TINY for m in _MODULES}

@@ -3,9 +3,9 @@ architecture, the four assigned ``ShapeConfig`` cells.
 
 A copy of ``repro/configs/base.py`` restricted to what the decoders of
 this package need (the dense and MoE FFNs, MLA, the Mamba-2 SSM block, the
-RG-LRU block with local attention, and vision cross-attention; the audio
-codebooks come with musicgen-medium), plus the optimizer's ``TrainConfig``
-and the shape cells with ``shape_applicable``.
+RG-LRU block with local attention, vision cross-attention and the audio
+codebook streams), plus the optimizer's ``TrainConfig`` and the shape
+cells with ``shape_applicable``.
 ``use_pallas`` is ``use_kernels`` here and defaults to True: the hot spots
 (norms, attention, the cross-entropy, the loss and clip statistics) run on
 the CUDA kernels of ``repro_torch.kernels``.
@@ -64,7 +64,7 @@ class RGLRUConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid | vlm (ported so far)
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -78,8 +78,8 @@ class ModelConfig:
     # (cross-attention to the frontend's embeddings + FFN), "ssm" (the
     # Mamba-2 block, no FFN), "rec" (the RG-LRU block + FFN).
     block_pattern: tuple[str, ...] = ("attn",)
-    norm: str = "rmsnorm"          # rmsnorm | layernorm_np
-    ffn_kind: str = "swiglu"       # swiglu | gelu (gelu: the MoE experts only)
+    norm: str = "rmsnorm"          # rmsnorm | layernorm | layernorm_np
+    ffn_kind: str = "swiglu"       # swiglu | gelu
     window: Optional[int] = None   # local_attn window size
     rope_theta: float = 10000.0
     moe: Optional[MoEConfig] = None
@@ -87,6 +87,7 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     rglru: Optional[RGLRUConfig] = None
     n_img_tokens: int = 0          # vision frontend tokens (the xattn context)
+    n_codebooks: int = 0           # audio codebook streams (musicgen)
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     # tanh soft cap of the logits, c * tanh(logits / c); 0 = off (the reference's)
@@ -125,12 +126,15 @@ class ModelConfig:
         such values, ``A_log``, ``D`` and ``dt_bias``); the RG-LRU block
         with its FFN (whose ``3 w`` is the reference's approximation for
         ``gate_a``, ``gate_x`` and ``lam``, which hold ``2 w^2 / 16 + w``
-        values). ``models.model.stored_param_count`` counts what is
+        values); K codebook streams add K - 1 embedding tables and K - 1
+        heads. ``models.model.stored_param_count`` counts what is
         stored."""
         d = self.d_model
         total = self.vocab_size * d  # embed
+        if self.n_codebooks:
+            total += (self.n_codebooks - 1) * self.vocab_size * d
         if not self.tie_embeddings:
-            total += self.vocab_size * d
+            total += self.vocab_size * d * max(1, self.n_codebooks or 1)
         for kind in self.pattern_layers:
             if kind in ("attn", "local_attn"):
                 if self.mla is not None:

@@ -18,7 +18,9 @@ engine whose parameters and caches would not fit the card
 (``serve_state_bytes``: dbrx-132b's 263 GB at full depth) is refused
 before anything is allocated; it serves only across cards, the ROADMAP's
 distributed item. A cross-attention arch (llama-3.2-vision-11b) serves
-against one synthetic image context per slot (``Engine.ctx``).
+against one synthetic image context per slot (``Engine.ctx``); an audio
+arch (musicgen-medium) takes (L, n_codebooks) prompts or tiles 1-D ones
+over its streams, and reports codebook 0.
 
   python -m repro_torch.launch.serve --arch olmo-1b --guard \\
       --requests 8 --batch-slots 4 --prompt-len 256 --max-new 16
@@ -107,8 +109,10 @@ def check_fits_card(cfg, batch_slots: int, s_max: int, device: torch.device) -> 
 
 
 def _tok_ints(tok: torch.Tensor) -> np.ndarray:
-    """Per-slot int tokens from a (B, 1) greedy-argmax output."""
-    return tok[:, 0].cpu().numpy()
+    """Per-slot int tokens from a (B, 1) or (B, 1, K) greedy-argmax output
+    (an audio arch reports codebook 0, as the reference does)."""
+    tok = tok[:, 0]
+    return (tok if tok.ndim == 1 else tok[:, 0]).cpu().numpy()
 
 
 class Engine:
@@ -161,11 +165,15 @@ class Engine:
 
     def _pack_wave(self, wave: list) -> torch.Tensor:
         """Stack a wave of prompts into (slots, L), padding the tail with
-        MASKED dummy slots (zero prompts)."""
+        MASKED dummy slots (zero prompts). An audio arch's prompts are (L,
+        K) codebook tokens; a 1-D prompt is tiled over the K streams, as
+        the reference tiles it."""
         if len(wave) < self.slots:
             dummy = np.zeros_like(np.asarray(wave[0]))
             wave = list(wave) + [dummy] * (self.slots - len(wave))
         prompts = np.stack([np.asarray(w) for w in wave]).astype(np.int64)
+        if self.cfg.n_codebooks and prompts.ndim == 2:
+            prompts = np.tile(prompts[..., None], (1, 1, self.cfg.n_codebooks))
         return torch.from_numpy(prompts).to(self.device)
 
     def serve(self, requests: list, max_new: int) -> list:

@@ -44,7 +44,8 @@ def make_grads_fn(cfg, tcfg):
 
     def loss_fn(params, tokens, ctx):
         h, aux = forward_hidden(params, cfg, tokens[:, :-1], ctx)
-        loss, _ = lm_loss_chunked(params, cfg, h, tokens[:, 1:], aux)
+        labels = tokens[:, 1:]  # (B, S - 1), or (B, S - 1, K) with codebooks
+        loss, _ = lm_loss_chunked(params, cfg, h, labels, aux)
         return loss
 
     def compute_grads(params, batch):
@@ -71,7 +72,8 @@ def make_grads_fn(cfg, tcfg):
 
 def make_train_step(cfg, tcfg):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; ``batch = {"tokens": (GB, S + 1) int}`` (and
+    metrics)``; ``batch = {"tokens": (GB, S + 1) int}`` ((GB, S + 1, K) for
+    an arch with K codebook streams; and
     ``"image_embeds"``, (GB, N, d), for a cross-attention arch). Parameters must
     require grad; they and the optimizer state update in place. The clip
     statistic runs on the config flags' backend (``cuda_fused`` with the

@@ -37,15 +37,17 @@ and an activation reserve do not fit one card (``check_fits_card``, on
 ``train_step_peak_bytes``: deepseek-7b's 152 GB, minicpm3-4b's 93.8 GB at
 full depth, recurrentgemma-9b and llama-3.2-vision-11b at full depth,
 against the H100's 80 GB), which trains only when that item shards it.
-mamba2-780m (17.2 GB) trains at full depth; minicpm3-4b, recurrentgemma-9b
-and llama-3.2-vision-11b at full width cut in depth, through
+mamba2-780m (17.2 GB) and musicgen-medium (30.5 GB) train at full depth;
+minicpm3-4b, recurrentgemma-9b and llama-3.2-vision-11b at full width cut
+in depth, through
 ``main(cfg=...)``: recurrentgemma in whole units of 3 layers, 6 layers
 unguarded (75.3 GB; 9 refused) and 3 with ``--guard`` (75.4 GB; 6
 refused), its peak set by AdamW's f32 temporaries of the 1.05 B-element
 embedding and head; llama-3.2-vision at 10 layers (60.0 / 64.2 GB). A
 cross-attention arch trains against one synthetic image context, (batch,
 n_img_tokens, d_model) from a generator seeded 1, in every batch, as the
-reference's CLI does.
+reference's CLI does; an audio arch reads (batch, seq + 1, n_codebooks)
+tokens from the same stream.
 The unguarded loop reads its batches through a ``Prefetcher``; the guarded
 loop reads the source directly, because a rollback rewinds it.
 """
@@ -71,6 +73,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.convert import reference_leaf_groups
 from repro_torch.models.frontends import synth_image_embeds
 from repro_torch.models.model import f32_param_count, param_dtype
+from repro_torch.models.params import NORM_TENSORS
 from repro_torch.runtime import ChaosMonkey, GuardMetrics, PreemptionGuard, StepGuard
 
 _NOT_PORTED = {
@@ -95,16 +98,18 @@ def param_leaves(cfg) -> int:
     gate), per RG-LRU block seven (three projections, the conv weight, the
     two gate blocks and ``lam``), each with the FFN's two or three (an MoE
     FFN: the router and the two or three stacked expert tensors) and two
-    RMSNorm scales; per SSM block its nine mixer tensors and one RMSNorm
-    scale (no FFN); the embedding, the final RMSNorm scale and an untied
-    head."""
-    rms = cfg.norm == "rmsnorm"
+    norms; per SSM block its nine mixer tensors and one norm (no FFN); the
+    embedding, the final norm and an untied head (with codebooks one (K,
+    vocab, d) table and one (K, d, padded vocab) head). A norm is one
+    tensor for an RMSNorm (its scale), two for a LayerNorm (scale and
+    bias), none for OLMo's non-parametric LayerNorm."""
+    norm = NORM_TENSORS[cfg.norm]
     ffn = (3 if cfg.ffn_kind == "swiglu" else 2) + (cfg.moe is not None)
     mix = {"rec": 7, "xattn": 5}
-    n = sum(9 + rms if kind == "ssm" else
-            mix.get(kind, 7 if cfg.mla is not None else 4) + ffn + 2 * rms
+    n = sum(9 + norm if kind == "ssm" else
+            mix.get(kind, 7 if cfg.mla is not None else 4) + ffn + 2 * norm
             for kind in cfg.pattern_layers)
-    return n + 1 + rms + (not cfg.tie_embeddings)
+    return n + 1 + norm + (not cfg.tie_embeddings)
 
 
 def train_state_bytes(cfg, tcfg) -> int:
@@ -299,7 +304,8 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
     n_params = sum(p.numel() for p in R.tree_leaves(params))
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M steps={args.steps} device={device}")
 
-    data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, ShardInfo(), seed=tcfg.seed)
+    data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, ShardInfo(), seed=tcfg.seed,
+                       n_codebooks=cfg.n_codebooks)
     ctx = None
     if cfg.n_img_tokens:
         ctx = synth_image_embeds(torch.Generator(device=device).manual_seed(1), args.batch,

@@ -12,14 +12,17 @@ keeps the reference's dtype (the SSM's f32 ``dt_bias``, ``A_log`` and ``D``
 and the RG-LRU's f32 ``lam`` in a bf16 model stay f32). bf16 leaves arrive as
 ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses, so they
 cross as their raw 16-bit patterns and are reinterpreted: bitwise exact.
+An audio arch's (K, vocab, d) codebook table, its (K, d, padded vocab)
+heads and its LayerNorms' biases cross like any other leaf.
 
 ``reference_leaf_groups`` maps the port's optimizer leaves onto the
 reference's: the reference keeps one leaf per stacked unit position (8 for
 olmo: the embedding and 7 weights stacked over 16 layers), the port one
 per layer (113; 219 for internlm2-1.8b, whose untied head is one leaf
-on both sides). Optimizer state kept per leaf -- the fused second
-moment's scalar ``v`` -- must be kept per REFERENCE leaf for the two
-packages to take the same update.
+on both sides; 484 on 14 for musicgen-medium, whose codebook table and
+heads are one leaf each and whose LayerNorms are two). Optimizer state
+kept per leaf -- the fused second moment's scalar ``v`` -- must be kept
+per REFERENCE leaf for the two packages to take the same update.
 """
 
 from __future__ import annotations

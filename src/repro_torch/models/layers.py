@@ -103,12 +103,19 @@ def ffn_init(gen, d: int, d_ff: int, kind: str, dtype, device) -> dict:
             "up": P.dense_init(gen, d, d_ff, dtype, device),
             "down": P.dense_init(gen, d_ff, d, dtype, device),
         }
-    raise ValueError(f"ffn {kind!r} is not ported; only 'swiglu' is")
+    if kind == "gelu":
+        return {"up": P.dense_init(gen, d, d_ff, dtype, device),
+                "down": P.dense_init(gen, d_ff, d, dtype, device)}
+    raise ValueError(f"ffn {kind!r} is not ported")
 
 
-def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: down(silu(x @ gate) * (x @ up))."""
-    h = F.silu(P.dense_apply(p["gate"], x)) * P.dense_apply(p["up"], x)
+def ffn_apply(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """SwiGLU, down(silu(x @ gate) * (x @ up)), or GELU, down(gelu(x @
+    up)) with the tanh form of the GELU (``jax.nn.gelu``'s default)."""
+    if kind == "swiglu":
+        h = F.silu(P.dense_apply(p["gate"], x)) * P.dense_apply(p["up"], x)
+    else:
+        h = F.gelu(P.dense_apply(p["up"], x), approximate="tanh")
     return P.dense_apply(p["down"], h)
 
 

@@ -30,7 +30,8 @@ def cross_entropy_tokens(logits, labels, *, mma: bool, use_kernels: bool = False
 
 
 def lm_loss(logits, labels, aux, cfg):
-    """Mean next-token loss (+ aux)."""
+    """Mean next-token loss (+ aux). logits (B, S, V) with labels (B, S),
+    or (B, S, K, V) with (B, S, K): the mean over every token and stream."""
     per_tok = cross_entropy_tokens(
         logits, labels, mma=cfg.mma_reductions, use_kernels=cfg.use_kernels
     )
@@ -43,14 +44,17 @@ def lm_loss_chunked(params, cfg, h, labels, aux, *, seq_chunk: int = 512):
     sequence chunk under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint`` of the scan body), so the (B, S, V) logits never
     exist -- one (B, seq_chunk, V) f32 tile at a time, recomputed in the
-    backward pass. h: final normed hidden (B, S, d); labels: (B, S)."""
+    backward pass. h: final normed hidden (B, S, d); labels: (B, S), or
+    (B, S, K) with K codebook streams, whose per-token CE is averaged over
+    K before the mask and the token sum, as the reference's is. The pad
+    goes on the sequence axis."""
     from repro_torch.models.model import _head  # padded + masked head
 
     b, s, _ = h.shape
     chunk = min(seq_chunk, s)
     pad = (-s) % chunk
     hp = torch.nn.functional.pad(h, (0, 0, 0, pad))
-    lp = torch.nn.functional.pad(labels, (0, pad))
+    lp = torch.nn.functional.pad(labels, (0, 0) * (labels.ndim - 2) + (0, pad))
     # padded positions are masked out of the mean
     mask = torch.nn.functional.pad(torch.ones((b, s), dtype=torch.float32, device=h.device),
                                    (0, pad))
@@ -61,6 +65,8 @@ def lm_loss_chunked(params, cfg, h, labels, aux, *, seq_chunk: int = 512):
         per_tok = cross_entropy_tokens(
             logits, lcb, mma=cfg.mma_reductions, use_kernels=cfg.use_kernels
         )
+        if per_tok.ndim == 3:  # codebook streams: the mean over K
+            per_tok = torch.mean(per_tok, -1)
         return R.reduce(per_tok * mcb, backend=backend)
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -48,6 +48,12 @@ way).
 
 Prefill and decode run the MoE FFN and drop its aux, as the reference does.
 
+An audio arch (``cfg.n_codebooks`` = K > 0, musicgen-medium) reads (B, S,
+K) tokens: its embedding is a (K, vocab, d) table, not vocabulary-padded,
+whose K gathered rows are summed in order k = 0 .. K-1, and its untied head
+is (K, d, padded vocab), one head a stream, so its logits are (B, S, K,
+vocab).
+
 Both routes run here: ``cfg.use_kernels`` puts the norms and the
 train/prefill attention on the CUDA kernels; without it they run the
 reference's non-kernel route (``layers.norm_apply``'s engine row
@@ -56,10 +62,10 @@ choosing the ones-MMA or the plain reduce backend.
 
 Logits are f32 (the head multiplies in f32, as the reference's einsum
 does: by the embedding table when tied, by ``params["head"]["w"]``, (d,
-padded vocab), when not), soft-capped when ``cfg.logits_softcap`` is set,
-and pad-vocab masked. ``_head`` keeps the padded width (the chunked
-loss uses it, as the reference's does); ``_head_public`` cuts it to
-``vocab_size`` entries.
+padded vocab) or (K, d, padded vocab), when not), soft-capped when
+``cfg.logits_softcap`` is set, and pad-vocab masked. ``_head`` keeps the
+padded width (the chunked loss uses it, as the reference's does);
+``_head_public`` cuts it to ``vocab_size`` entries.
 """
 
 from __future__ import annotations
@@ -113,20 +119,26 @@ def f32_param_count(cfg) -> int:
 def stored_param_count(cfg) -> int:
     """Elements ``init_params`` stores: ``cfg.param_count()`` and what the
     reference's formula leaves out -- the padded vocabulary rows of the
-    embedding and of an untied head, the RMSNorm scales (the blocks' and
-    the final norm's, MLA's two latent norms), per SSM block the one
+    embedding and of an untied head (with codebooks only the K heads' are
+    padded, the (K, vocab, d) table is not), the norms' tensors (an
+    RMSNorm's scale, a LayerNorm's scale and bias: the blocks' and the
+    final norm's; MLA's two latent RMSNorms), per SSM block the one
     value a head that its approximate term (``d_in + 2 nh`` for ``d_in +
     3 nh``) misses, per RG-LRU block the difference between its ``3 w``
     and the ``2 w^2 / 16 + w`` values that ``gate_a``, ``gate_x`` and
     ``lam`` hold, and per cross-attention block its gate."""
-    pad_rows = (P.padded_vocab(cfg.vocab_size) - cfg.vocab_size) * (2 - cfg.tie_embeddings)
+    pad = P.padded_vocab(cfg.vocab_size) - cfg.vocab_size
+    if cfg.n_codebooks:
+        pad_rows = pad * cfg.n_codebooks * (not cfg.tie_embeddings)
+    else:
+        pad_rows = pad * (2 - cfg.tie_embeddings)
     n = cfg.param_count() + pad_rows * cfg.d_model
-    rms = cfg.norm == "rmsnorm"
+    norm = P.NORM_TENSORS[cfg.norm] * cfg.d_model
     for kind in cfg.pattern_layers:
         if kind == "ssm":
-            n += rms * cfg.d_model + SSM._dims(cfg)[2]
+            n += norm + SSM._dims(cfg)[2]
             continue
-        n += rms * 2 * cfg.d_model
+        n += 2 * norm
         if kind == "rec":
             w = REC._width(cfg)
             n += 2 * w * w // REC.N_GATE_BLOCKS - 2 * w
@@ -134,7 +146,7 @@ def stored_param_count(cfg) -> int:
             n += 1
         elif cfg.mla is not None:
             n += cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank
-    return n + rms * cfg.d_model
+    return n + norm
 
 
 def _ffn_init(gen, cfg, device) -> dict:
@@ -148,7 +160,7 @@ def _ffn_apply(p, h, cfg):
     """The block's FFN -> (y, metrics); a dense FFN has no metrics."""
     if cfg.moe is not None:
         return MOE.moe_apply(p, h, cfg)
-    return L.ffn_apply(p, h), {}
+    return L.ffn_apply(p, h, cfg.ffn_kind), {}
 
 
 def _aux(metrics: dict, device) -> torch.Tensor:
@@ -187,16 +199,22 @@ def block_init(kind: str, gen, cfg, device) -> dict:
 def init_params(cfg, gen: torch.Generator, device) -> dict:
     """Random parameters drawn from ``gen`` (a generator on ``device``), in
     order: the embedding, the layers, then an untied head's (d, padded
-    vocab) weight."""
+    vocab) weight. With K codebook streams the embedding is a (K, vocab,
+    d) table and the head (K, d, padded vocab), both drawn at d**-0.5, as
+    the reference draws them."""
     dt = param_dtype(cfg)
+    d, nv = cfg.d_model, P.padded_vocab(cfg.vocab_size)
+    k = cfg.n_codebooks
+    embed = ({"table": P._normal(gen, (k, cfg.vocab_size, d), d**-0.5, dt, device)} if k
+             else P.embed_init(gen, cfg.vocab_size, d, dt, device))
     params = {
-        "embed": P.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
+        "embed": embed,
         "layers": [block_init(kind, gen, cfg, device) for kind in cfg.pattern_layers],
-        "final_norm": P.norm_init(cfg.norm, cfg.d_model, dt, device),
+        "final_norm": P.norm_init(cfg.norm, d, dt, device),
     }
     if not cfg.tie_embeddings:
-        params["head"] = P.dense_init(gen, cfg.d_model, P.padded_vocab(cfg.vocab_size), dt,
-                                      device)
+        params["head"] = ({"w": P._normal(gen, (k, d, nv), d**-0.5, dt, device)} if k
+                          else P.dense_init(gen, d, nv, dt, device))
     return params
 
 
@@ -205,8 +223,17 @@ def _norm(p, h, cfg):
                         use_kernels=cfg.use_kernels)
 
 
-def _embed(params, tokens):
-    return params["embed"]["table"][tokens]
+def _embed(params, cfg, tokens):
+    """(B, S) tokens -> their embedding rows; (B, S, K) codebook tokens ->
+    the sum of the K streams' rows, added in order k = 0 .. K-1 in the
+    parameters' dtype, as the reference adds them."""
+    table = params["embed"]["table"]
+    if not cfg.n_codebooks:
+        return table[tokens]
+    h = table[0][tokens[..., 0]]
+    for k in range(1, cfg.n_codebooks):
+        h = h + table[k][tokens[..., k]]
+    return h
 
 
 def _mask_pad_logits(logits, cfg):
@@ -221,12 +248,15 @@ def _mask_pad_logits(logits, cfg):
 
 def _head(params, cfg, h):
     """The head in f32 -> (B, S, padded vocab): the embedding table when
-    tied, ``head.w`` when not; the soft cap, then pad logits at -1e30."""
+    tied, ``head.w`` when not (with K codebook streams (B, S, K, padded
+    vocab), one head a stream); the soft cap, then pad logits at -1e30."""
+    hf = h.to(torch.float32)
     if cfg.tie_embeddings:
-        w = params["embed"]["table"].to(torch.float32).T
+        logits = torch.matmul(hf, params["embed"]["table"].to(torch.float32).T)
+    elif cfg.n_codebooks:
+        logits = torch.einsum("bsd,kdv->bskv", hf, params["head"]["w"].to(torch.float32))
     else:
-        w = params["head"]["w"].to(torch.float32)
-    logits = torch.matmul(h.to(torch.float32), w)
+        logits = torch.matmul(hf, params["head"]["w"].to(torch.float32))
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
@@ -333,10 +363,10 @@ def block_decode(kind: str, p, h, cache, pos: int, cfg):
 def forward_hidden(params, cfg, tokens: torch.Tensor, ctx=None):
     """Backbone forward to the final normed hidden state (B, S, d) and the
     aux loss summed over layers; no head (the chunked loss applies it per
-    sequence chunk). ``ctx``: the cross-attention context (B, N, d) or
-    None. -> (h, aux)."""
-    h = _embed(params, tokens)
-    b, s = tokens.shape
+    sequence chunk). tokens: (B, S), or (B, S, K) with codebooks; ``ctx``:
+    the cross-attention context (B, N, d) or None. -> (h, aux)."""
+    h = _embed(params, cfg, tokens)
+    b, s = tokens.shape[:2]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for kind, p in zip(cfg.pattern_layers, params["layers"]):
@@ -350,8 +380,8 @@ def forward_hidden(params, cfg, tokens: torch.Tensor, ctx=None):
 
 
 def forward(params, cfg, tokens: torch.Tensor, ctx=None):
-    """Teacher-forcing forward. tokens: (B, S) -> (logits (B, S,
-    vocab_size) f32, aux f32 scalar)."""
+    """Teacher-forcing forward. tokens: (B, S) or (B, S, K) -> (logits (B,
+    S, vocab_size) or (B, S, K, vocab_size) f32, aux f32 scalar)."""
     h, aux = forward_hidden(params, cfg, tokens, ctx)
     return _head_public(params, cfg, h), aux
 
@@ -362,10 +392,10 @@ def make_caches(cfg, batch: int, s_max: int, device) -> dict:
 
 
 def prefill(params, cfg, tokens: torch.Tensor, caches: dict, ctx=None):
-    """Run the prompt, filling caches. Returns (last-token logits (B, 1, V),
-    caches)."""
-    h = _embed(params, tokens)
-    b, s = tokens.shape
+    """Run the prompt, (B, S) or (B, S, K) tokens, filling caches. Returns
+    (last-token logits (B, 1, V) or (B, 1, K, V), caches)."""
+    h = _embed(params, cfg, tokens)
+    b, s = tokens.shape[:2]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     filled = []
     for kind, p, cache in zip(cfg.pattern_layers, params["layers"], caches["layers"]):
@@ -376,12 +406,13 @@ def prefill(params, cfg, tokens: torch.Tensor, caches: dict, ctx=None):
 
 
 def decode_step(params, cfg, token_t: torch.Tensor, caches: dict, pos: int, ctx=None):
-    """One token step. token_t: (B, 1); pos: the absolute position of this
-    token; ``ctx`` is accepted for the reference's signature (the
-    cross-attention layers read their caches). Returns (logits (B, 1, V),
-    a new caches dict); the dict given is not changed, and its SSM and
-    RG-LRU caches' tensors are not written (see the module doc)."""
-    h = _embed(params, token_t)
+    """One token step. token_t: (B, 1) or (B, 1, K); pos: the absolute
+    position of this token; ``ctx`` is accepted for the reference's
+    signature (the cross-attention layers read their caches). Returns
+    (logits (B, 1, V) or (B, 1, K, V), a new caches dict); the dict
+    given is not changed, and its SSM and RG-LRU caches' tensors are not
+    written (see the module doc)."""
+    h = _embed(params, cfg, token_t)
     stepped = []
     for kind, p, cache in zip(cfg.pattern_layers, params["layers"], caches["layers"]):
         h, cache = block_decode(kind, p, h, cache, pos, cfg)

@@ -49,9 +49,16 @@ def embed_init(gen, vocab: int, dim: int, dtype, device) -> dict:
     return {"table": _normal(gen, (padded_vocab(vocab), dim), dim**-0.5, dtype, device)}
 
 
+# Tensors ``norm_init`` makes for each kind of norm.
+NORM_TENSORS = {"rmsnorm": 1, "layernorm": 2, "layernorm_np": 0}
+
+
 def norm_init(kind: str, dim: int, dtype, device) -> dict:
     if kind == "rmsnorm":
         return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+                "bias": torch.zeros((dim,), dtype=dtype, device=device)}
     if kind == "layernorm_np":  # OLMo: non-parametric
         return {}
     raise ValueError(f"norm {kind!r} is not ported")

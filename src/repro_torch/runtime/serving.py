@@ -275,7 +275,8 @@ def _planner_close(name: str) -> None:
 def guarded_logit_stat(logits, *, backend: Optional[str] = None):
     """Per-slot logit sumsq + in-launch non-finite census, ONE launch.
 
-    ``logits``: (B, ...) slot-major logits. Each slot enters the parts
+    ``logits``: (B, ...) slot-major logits (an audio arch's (B, 1, K, V):
+    a slot's K streams are one leaf). Each slot enters the parts
     kernel as its own leaf (a view: no copy), so the return is
     ``(stat, counts)``: per-slot sum of squares (B,) and per-slot NaN/Inf
     counts with the cross-slot total appended (B + 1,). On cuda_fused this

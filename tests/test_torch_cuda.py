@@ -1043,3 +1043,55 @@ def test_tiny_hybrid_and_vision_prefill_and_decode_match_the_cpu(gen, arch):
             lg, cg = card._decode_logits(card.params, cg, tokens[:, pos:pos + 1].cuda(), pos)
             lc, cc = cpu._decode_logits(cpu.params, cc, tokens[:, pos:pos + 1], pos)
             assert float((lg.cpu() - lc).abs().max()) <= 0.01
+
+
+# --------------------- musicgen-medium's shapes (K6, K7) ---------------------
+
+
+@pytest.mark.parametrize("case", [
+    (4, 24, 24, 512, 512, 64, True, None, 0),   # the training step: 24 MHA heads of 64
+    (4, 24, 24, 256, 256, 64, True, None, 0),   # the serving prefill
+    (2, 4, 4, 12, 12, 16, True, None, 0),       # tiny musicgen's heads
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_musicgen_heads_match_plain(gen, case, dtype):
+    # 24 heads, not a power of two: every (batch, head) pair has its own
+    # query blocks; against the plain version head by head, one launch,
+    # bitwise on repeat; tolerance as above
+    b, hq, hkv, sq, skv, d, causal, window, q_offset = case
+    q, k, v = ((torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    plain = flash_attention_plain(q, k, v, causal=causal)
+    assert out.shape == q.shape and bool(torch.isfinite(out.float()).all())
+    assert bool(torch.all((out.float() - plain.float()).abs()
+                          <= 2.0**-6 * plain.float().abs() + 2e-3))
+    # a head's output is its own: the last head alone gives the same values
+    alone = flash_attention(q[:, -1:].contiguous(), k[:, -1:].contiguous(),
+                            v[:, -1:].contiguous(), causal=causal)
+    assert torch.equal(alone, out[:, -1:])
+    assert torch.equal(flash_attention(q, k, v, causal=causal), out)
+
+
+@pytest.mark.parametrize("shape,vocab", [
+    ((8192, 2048), 2048),         # musicgen's training chunk: 4 x 512 x 4 streams, one slice
+    ((4, 512, 4, 2048), 2048),    # the same as the chunked loss gives it, (B, S, K, V)
+    ((2, 16, 4, 256), 64),        # tiny musicgen: 256 columns, 192 of them pad
+])
+def test_cross_entropy_musicgen_shapes_match_plain(gen, shape, vocab):
+    # one 2048-column slice a row block: no merge across CTAs; the pad
+    # columns at -1e30 as the head gives them; one launch, bitwise repeat
+    logits = torch.randn(shape, generator=gen, device="cuda") * 3
+    logits[..., vocab:] = -1e30
+    labels = torch.randint(0, vocab, shape[:-1], generator=gen, device="cuda")
+    before = cross_entropy.launches
+    out = cross_entropy(logits, labels)
+    assert cross_entropy.launches == before + 1
+    assert out.shape == shape[:-1]
+    plain = cross_entropy_plain(logits.reshape(-1, shape[-1]), labels.reshape(-1))
+    assert float((out.reshape(-1) - plain).abs().max()) <= 1e-3
+    cut = cross_entropy(logits[..., :vocab].contiguous(), labels)
+    assert float((cut - out).abs().max()) <= 1e-6
+    assert torch.equal(cross_entropy(logits, labels), out)
