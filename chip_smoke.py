@@ -111,7 +111,28 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             ``--guard --ckpt-dir``: NaN on three steps in a row, a rollback
             to the step-0 anchor, the replay's losses bitwise the first
             run's, a truncated shard caught and ``restore_latest_valid``
-            falling back; the checkpoints' bytes and seconds.
+            falling back; the checkpoints' bytes and seconds;
+  data mesh the port's data-parallel guarded path (``run_data_mesh_phase``):
+            the engine's ``reduce_tree(census=True, mesh_axes="data")``
+            over olmo-1b's 113 f32 leaves split by rows, under NCCL at
+            world min(device_count, 4) and under gloo at world 2 with both
+            ranks on card 0 (the same bits on every rank and in two runs,
+            within ``budget_for`` of the world-1 value, one K4 launch a
+            rank, census exact with a planted NaN, received bytes equal to
+            ``interconnect_bytes``), NCCL refused for two ranks on one
+            card, one-ulp faults planted on rank 1 caught by
+            ``replica_bits_agree``, ``census_agreement`` and the checker;
+            then ``launch.train --arch olmo-1b --guard --mesh --chaos-host
+            1`` at full width and depth on two gloo ranks sharing the
+            first card (batch 2 + 2 x 512; rank 1 poisoned on step 2,
+            skipped on both ranks with the parameters bitwise, a rollback
+            at the same step on both, every step's metrics printed bitwise
+            the same, an agreement round over ``FileTransport`` a step, the
+            combine's metered bytes equal to ``interconnect_bytes``, the
+            step-1 loss, grad norm and clip against the single-rank guarded
+            step's), each step's wall, device busy, combine seconds and
+            bytes with the transport and peak memory a rank;
+            then tiny olmo-1b at world 2 on the card against CPU ranks.
 
 Exits nonzero, with no result line, when any check fails or there is no
 GPU.
@@ -2325,15 +2346,15 @@ def check_tiny_against_cpu(arch: str = "olmo-1b") -> None:
     check(fault > tol, f"tiny {arch}: the limit passes {planted}")
 
 
-def _cpu_copy(tree):
-    """A detached copy of a parameter tree on the CPU."""
+def _cpu_copy(tree, device="cpu"):
+    """A detached copy of a parameter tree on the CPU (or ``device``)."""
     import torch
 
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        return tree.detach().to(device, copy=True)
     if isinstance(tree, dict):
-        return {k: _cpu_copy(v) for k, v in tree.items()}
-    return [_cpu_copy(v) for v in tree]
+        return {k: _cpu_copy(v, device) for k, v in tree.items()}
+    return [_cpu_copy(v, device) for v in tree]
 
 
 def serve_full_width(arch: str = "olmo-1b", n_layers: int | None = None,
@@ -3003,7 +3024,9 @@ def run_guarded_training(plain_busy_ms: float) -> dict:
     batch: a clean guarded step equals a plain step bitwise (parameters,
     moments, step), and a NaN-poisoned guarded step leaves all of them
     bitwise unchanged with one K4 launch. Last, the guarded step's device
-    time against the plain step's (``plain_busy_ms``, this run)."""
+    time against the plain step's (``plain_busy_ms``, this run). Returns
+    the CLI run's step-1 loss, grad norm and clip at full precision, which
+    the data mesh's run of the same global batch is held against."""
     import torch
 
     from repro_torch import optim
@@ -3014,12 +3037,30 @@ def run_guarded_training(plain_busy_ms: float) -> dict:
 
     t_phase = time.time()
     cfg = get_arch("olmo-1b")
-    ((losses, out), launches), _ = fit_checked(
-        "olmo-1b guarded, NaN on step 2", cfg, True,
-        lambda: counted_run(lambda: run_captured(lambda: train_cli.main([
-            "--arch", "olmo-1b", "--guard", "--reduce-backend", "cuda_fused",
-            "--steps", str(GUARD_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-            "--log-every", "1"], chaos=ChaosMonkey(nan_steps=(2,))))))
+    step1 = {}
+    real_make = train_cli.make_guarded_train_step
+
+    def recording(*args, **kwargs):  # the CLI's step, its first call's metrics kept
+        step = real_make(*args, **kwargs)
+
+        def run(*a):
+            out = step(*a)
+            if not step1:
+                step1.update(grad_norm=float(out[3]["grad_norm"]), clip=float(out[3]["clip"]))
+            return out
+
+        return run
+
+    train_cli.make_guarded_train_step = recording
+    try:
+        ((losses, out), launches), _ = fit_checked(
+            "olmo-1b guarded, NaN on step 2", cfg, True,
+            lambda: counted_run(lambda: run_captured(lambda: train_cli.main([
+                "--arch", "olmo-1b", "--guard", "--reduce-backend", "cuda_fused",
+                "--steps", str(GUARD_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--log-every", "1"], chaos=ChaosMonkey(nan_steps=(2,))))))
+    finally:
+        train_cli.make_guarded_train_step = real_make
     skipped = [ln for ln in out.splitlines() if ln.startswith("guard: step 2 skipped")]
     nonfinite = float(skipped[0].split("nonfinite ")[1].split(",")[0]) if skipped else 0.0
     print(f"guarded CLI run: losses {losses}; step 2 skipped: {bool(skipped)}, census "
@@ -3074,7 +3115,7 @@ def run_guarded_training(plain_busy_ms: float) -> dict:
     torch.cuda.empty_cache()
     print(f"guarded training phase: {time.time() - t_phase:.1f} s")
     return {"launches": launches, "busy_ms": prof["busy_ms"], "wall_ms": prof["wall_ms"],
-            "plain_busy_ms": plain_busy_ms}
+            "plain_busy_ms": plain_busy_ms, "step1_loss": losses[0], "step1": step1}
 
 
 DRILL_LAYERS, DRILL_STEPS = 2, 5  # NaN on steps 3, 4, 5; rollback to the step-0 anchor
@@ -3764,7 +3805,7 @@ def check_dbrx_refused() -> None:
     print(f"{DBRX} at full depth ({cfg.n_layers} layers, "
           f"{serve_state_bytes(cfg, SLOTS, PROMPT + MAX_NEW + 1) / 1e9:.1f} GB): refused: "
           f"{message}; device memory allocated before / after: {before} / {after}")
-    check(message is not None and "the ROADMAP's distributed item" in message
+    check(message is not None and "the ROADMAP's sharding item" in message
           and after == before, f"{DBRX}: full depth was not refused before allocating")
 
 
@@ -4172,6 +4213,474 @@ def check_audio_shapes(results: dict) -> None:
                  + [(f"{k} logit statistic", v) for k, v in stat.items()])
 
 
+# ------------------------------- the data mesh -------------------------------
+
+# The data-mesh phase's training run: olmo-1b at full width and depth, two
+# ranks sharing the card (gloo), the global batch 4 x 512 split 2 + 2,
+# rank 1's gradients poisoned with NaN on step 2 and --max-bad-steps 1, so
+# step 2 is skipped on both ranks and rolls back to the step-0 anchor; then
+# steps 1-2 again, clean (the drill fires once). Four step calls a rank.
+MESH_WORLD, MESH_STEPS, MESH_NAN_STEPS, MESH_HOST = 2, 2, (2,), 1
+# Its step-1 loss, grad norm and clip against the single-rank guarded step's
+# on the same global batch (``run_guarded_training``, this run). The loss is
+# the mean over the rows each rank took, combined, and reads bitwise equal
+# on the card; its limit leaves room for cuBLAS picking other kernels for
+# the ranks' 1024 rows than for the single rank's 2048, and sits under the
+# gap between a half batch's loss and the whole batch's
+# (``tools/mesh_grad_probe.py``), so a rank that takes the wrong rows
+# fails it. The grad norm and the clip come after the combine, and the two
+# routes round differently: olmo-1b's tied bf16 embedding sums its
+# gradient over 2044 tokens on one rank and over 1022 on each mesh rank,
+# and the probe reads that leaf's norm 3.9% under the f32 reference's on
+# one rank and 2.1% under on the mesh (every other leaf within 2.1e-4), so
+# the global norm and the clip read 2.5e-3 apart. The limit is four times
+# that reading; a combine that drops a rank's gradients or skips the
+# division moves them by a factor, and one that differs between ranks
+# fails the bitwise agreement of every step's metrics.
+MESH_LOSS_TOL, MESH_GRAD_REL = 1e-3, 1e-2
+# The engine's limit against the world-1 value: ``tests/harness.py``'s
+# ``budget_for(x, "norm2", f32 multipliers)``: 2e-4 of the sum of squares
+# over twice the norm, plus 1e-6.
+MESH_REL = 2e-4
+
+
+def _mesh_rank(rank: int, world: int, tmp: str, job: str, kw: dict) -> None:
+    """One rank of a data-mesh run, started by ``torch.multiprocessing.spawn``
+    (this script re-imported in a fresh process): the launcher's
+    environment, then ``job``; what it returns goes to ``tmp`` as JSON and
+    what it prints to ``tmp/rank<r>.log``. A rank that raises fails the
+    spawn, and the script with it. With ``kw["one_card"]`` the rank sees the
+    first visible card alone, so ranks share it whatever the host holds."""
+    sys.path.insert(0, SRC)
+    if kw.get("one_card"):  # before CUDA starts in this process
+        os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES",
+                                                            "0").split(",")[0]
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(kw["port"]))
+    with open(os.path.join(tmp, f"rank{rank}.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        out = {"engine": _mesh_engine_rank, "train": _mesh_train_rank}[job](rank, world, kw)
+        if "peak_gb" not in out:
+            out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if torch.cuda.is_initialized() else 0.0)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def spawn_ranks(job: str, world: int, **kw) -> list:
+    """``world`` ranks of ``job`` (``_mesh_rank``), joined: each rank's
+    result and its log, in rank order."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        kw = dict(kw, port=free_port(), tmp=tmp)
+        t0 = time.perf_counter()
+        mp.spawn(_mesh_rank, args=(world, tmp, job, kw), nprocs=world)
+        print(f"data mesh, {job}: {world} ranks ran in {time.perf_counter() - t0:.1f} s")
+        results = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res = json.load(f)
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                res["log"] = f.read()
+            results.append(res)
+    return results
+
+
+def _nudge(t):
+    import torch
+
+    return torch.nextafter(t, torch.full_like(t, float("inf")))
+
+
+def _mesh_engine_rank(rank: int, world: int, kw: dict) -> dict:
+    """(a) and (c): ``reduce_tree(census=True, mesh_axes="data")`` over
+    olmo-1b's 113 gradient-shaped f32 leaves at full width, split by rows
+    across the ranks (each leaf drawn whole from its own seed, so every
+    world reduces the same values): K4 launches and received bytes metered,
+    repeated, timed, then with a NaN planted in the last rank's shard of
+    leaf 7; with two or more ranks also the planted one-ulp faults."""
+    import torch
+
+    from repro_torch import reduce as R
+    from repro_torch.configs import get_arch
+    from repro_torch.core import collectives as C
+    from repro_torch.core.cost_model import interconnect_bytes
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.reduce import inspect
+    from repro_torch.runtime import (AgreementChecker, DivergenceError, FileTransport,
+                                     exchange, step_fingerprint)
+
+    _, _, dev, transport = mesh_lib.init_process_group(kw.get("device"), backend=kw["backend"])
+    on_card = dev.type == "cuda"
+    try:
+        mesh = mesh_lib.make_data_mesh()
+        shards = []
+        for i, shape in enumerate(olmo_leaf_shapes(get_arch("olmo-1b", tiny=kw["tiny"]))):
+            gen = torch.Generator(device=dev).manual_seed(1000 + i)
+            full = torch.randn(shape, generator=gen, device=dev) * 1e-3
+            shards.append(full.tensor_split(world, dim=0)[rank].clone())
+            del full
+        s = len(shards)
+
+        def call(leaves=shards):
+            out = R.reduce_tree(leaves, "norm2", backend="cuda_fused", census=True,
+                                mesh_axes="data")
+            if on_card:
+                torch.cuda.synchronize()
+            return out
+
+        res = {"transport": transport, "leaves": s, "rank_elements": sum(x.numel() for x in shards)}
+        with C.bound_mesh(mesh):
+            call()  # warm-up
+            (norm, counts), launches = R.count_kernel_launches(call, include_plain=not on_card)
+            got = {}
+            recv = inspect.collective_recv_bytes(lambda: got.setdefault("out", call()))
+            norm2, _ = got["out"]
+            t0 = time.perf_counter()
+            for _ in range(10):
+                call()
+            res["call_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+            row = torch.zeros(2 * s + 2, device=dev)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                C.fixed_order_combine(row, ("data",))
+            if on_card:
+                torch.cuda.synchronize()
+            res["combine_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+            bad = list(shards)
+            if rank == world - 1:
+                bad[7] = shards[7].clone()
+                bad[7].view(-1)[-1] = float("nan")
+            nan_norm, nan_counts = call(bad)
+            res.update(norm=float(norm).hex(), repeat=float(norm2).hex(),
+                       counts=counts.tolist(), launches=launches, recv_bytes=recv,
+                       model_bytes=interconnect_bytes(2 * s + 2, world).recv_per_device,
+                       nan_norm=float(nan_norm).hex(), nan_counts=nan_counts.tolist())
+            if world > 1:
+                # (c): rank 1's copy of the (replicated) norm one ulp off; rank
+                # 1's fold one ulp off; rank 1's fingerprint one ulp off
+                held = _nudge(norm) if rank == 1 else norm.clone()
+                res["fault_bits_agree"] = bool(C.replica_bits_agree(held, ("data",)))
+                real = C.fixed_order_combine
+                if rank == 1:
+                    C.fixed_order_combine = lambda x, axes: _nudge(real(x, axes))
+                try:
+                    _, agree = C.census_agreement(counts, ("data",))
+                finally:
+                    C.fixed_order_combine = real
+                res["fault_census_agree"] = bool(agree)
+                _, clean_agree = C.census_agreement(counts, ("data",))
+                res["clean_census_agree"] = bool(clean_agree)
+                transport_dir = FileTransport(os.path.join(kw["tmp"], "fingerprints"))
+                skipped = (counts[-1] > 0).to(torch.float32)
+                res["checker_clean"] = exchange(
+                    AgreementChecker(world), transport_dir, 1, rank,
+                    step_fingerprint(1, counts, skipped, norm))
+                try:
+                    exchange(AgreementChecker(world), transport_dir, 2, rank,
+                             step_fingerprint(2, counts, skipped, held))
+                    res["checker_fault"] = None
+                except DivergenceError as e:
+                    res["checker_fault"] = [e.step, e.host]
+    except BaseException:
+        mesh_lib.shutdown(barrier=False)
+        raise
+    mesh_lib.shutdown()
+    return res
+
+
+def _mesh_train_rank(rank: int, world: int, kw: dict) -> dict:
+    """(b) and (d): the training CLI's ``main`` with ``--guard --mesh`` on
+    this rank, its step wrapped to record, per call: host wall time, the
+    device's busy time (the profiler), the combine's seconds and bytes
+    (the step's ``combine_bytes``, from ``interconnect_bytes``, beside the
+    bytes the meter saw its all-gathers bring in:
+    ``reduce.inspect.collective_recv_bytes`` around the step, which costs
+    host time only), the transport and device of the rank's mesh, the
+    device's peak memory in the step, whether a poisoned step left the
+    parameters bitwise, and an agreement round (``step_fingerprint`` over
+    ``FileTransport``, which raises on a divergence). Every kernel launch
+    of the run counted."""
+    import torch
+
+    from repro_torch import reduce as R
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.reduce import inspect
+    from repro_torch.runtime import AgreementChecker, ChaosMonkey, FileTransport, exchange
+    from repro_torch.runtime import step_fingerprint
+
+    calls = []
+    real = train_cli.make_mesh_guarded_train_step
+    on_card = kw["device"] != "cpu"
+
+    def recording(cfg, tcfg, mesh, *args, **kwargs):
+        step = real(cfg, tcfg, mesh, *args, **kwargs)
+        checker = AgreementChecker(world)
+        fps = FileTransport(os.path.join(kw["tmp"], "fingerprints"))
+
+        def run(params, opt, guard, batch):
+            n = len(calls) + 1
+            scale = batch.get("chaos_scale")
+            poisoned = scale is not None and not bool(torch.isfinite(scale).all())
+            before = ([p.detach().clone() for p in R.tree_leaves(params)] if poisoned
+                      else None)
+            out = []
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            got = {}
+
+            def metered():
+                got["recv"] = inspect.collective_recv_bytes(
+                    lambda: out.append(step(params, opt, guard, batch)))
+
+            t0 = time.perf_counter()
+            if on_card and kw.get("profile"):
+                events = device_events(metered)
+                busy = sum(us for _, us in events.values()) / 1e3 if events else None
+            else:
+                metered()
+                busy = None
+            if on_card:
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            step_peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+            params, opt, guard, m = out[0]
+            fp = step_fingerprint(n, m["nonfinite"], m["skipped"],
+                                  torch.stack([m["loss"], m["grad_norm"], m["clip"]]))
+            agreed = exchange(checker, fps, n, rank, fp)
+            unchanged = None if before is None else _bitwise_equal(before,
+                                                                   R.tree_leaves(params))
+            calls.append(dict(call=n, wall_ms=wall, busy_ms=busy, loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]), clip=float(m["clip"]),
+                              skipped=float(m["skipped"]), nonfinite=float(m["nonfinite"]),
+                              combine_s=m["combine_s"], combine_bytes=m["combine_bytes"],
+                              recv_bytes=got["recv"], transport=mesh.backend,
+                              device=str(mesh.device),
+                              unchanged=unchanged, agreed=agreed, step_peak_gb=step_peak))
+            return out[0]
+
+        return run
+
+    train_cli.make_mesh_guarded_train_step = recording
+    if kw.get("params"):  # the same weights on every device (card against CPU)
+        saved = torch.load(kw["params"])
+        train_cli.init_params = lambda cfg, gen, device: _cpu_copy(saved, device)
+    cfg = get_arch("olmo-1b", tiny=kw["tiny"])
+    chaos = ChaosMonkey(nan_steps=kw["nan_steps"], host=kw["host"]) if kw["nan_steps"] else None
+    run = lambda: train_cli.main(kw["argv"], cfg=cfg, chaos=chaos)  # noqa: E731
+    if on_card:
+        losses, launches = R.count_kernel_launches(run)
+    else:
+        losses, launches = run(), {}
+    return {"calls": calls, "losses": losses, "launches": launches,
+            "peak_gb": max(c["step_peak_gb"] for c in calls)}
+
+
+def _mesh_lines(log: str) -> list:
+    """A rank's per-step metric lines, its rank and timings taken out."""
+    return [line.split(" rank ")[0] + ":" + line.split(":", 1)[1].split("; combine")[0]
+            for line in log.splitlines() if line.startswith("mesh step ")]
+
+
+def _guard_lines(log: str) -> list:
+    return [line for line in log.splitlines() if line.startswith("guard:")]
+
+
+def check_mesh_engine() -> dict:
+    """(a) and (c): the engine's mesh path under NCCL at world
+    min(device_count, 4) (1 on a one-card machine: the world-1 value) and
+    under gloo at world 2 with both ranks on card 0; NCCL refused for two
+    ranks on one card."""
+    import torch
+
+    from repro_torch.launch.mesh import choose_backend
+
+    try:
+        choose_backend(torch.device("cuda", 0), 2 * torch.cuda.device_count(), "nccl")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"NCCL asked for two ranks on one card: {refused}")
+    check(refused is not None and "Duplicate GPU detected" in refused,
+          "NCCL was not refused for two ranks on one card")
+    out = {}
+    for backend, world in (("nccl", min(torch.cuda.device_count(), 4)), ("gloo", 2)):
+        ranks = spawn_ranks("engine", world, backend=backend, tiny=False,
+                            one_card=backend == "gloo")
+        for r, res in enumerate(ranks):
+            print(f"engine, {backend} world {world} rank {r}: {res['log'].strip()}; norm "
+                  f"{float.fromhex(res['norm'])!r} over {res['rank_elements']} elements of "
+                  f"{res['leaves']} leaves; K4 launches {res['launches']['mma_sum_parts']}, "
+                  f"all kernels {sum(res['launches'].values())}; "
+                  f"received {res['recv_bytes']} B (model {res['model_bytes']}); call "
+                  f"{res['call_ms']:.3f} ms, combine of the {2 * res['leaves'] + 2}-slot row "
+                  f"{res['combine_ms']:.3f} ms; NaN-planted counts total "
+                  f"{res['nan_counts'][-1]:.0f}; peak {res['peak_gb']:.2f} GB")
+        check(all(r["transport"] == backend for r in ranks), f"engine: transport not {backend}")
+        check(len({(r["norm"], r["repeat"], tuple(r["counts"])) for r in ranks}) == 1,
+              f"engine, {backend}: the ranks hold different bits")
+        check(all(r["norm"] == r["repeat"] for r in ranks),
+              f"engine, {backend}: two runs gave different bits")
+        check(all(r["launches"]["mma_sum_parts"] == 1
+                  and sum(r["launches"].values()) == 1 for r in ranks),
+              f"engine, {backend}: not one K4 launch a rank")
+        check(all(r["recv_bytes"] == r["model_bytes"] for r in ranks),
+              f"engine, {backend}: received bytes differ from interconnect_bytes")
+        s = ranks[0]["leaves"]
+        check(all(c == 0 for c in ranks[0]["counts"]), f"engine, {backend}: census of clean "
+              "leaves not 0")
+        want = [0.0] * (s + 1)
+        want[7], want[s] = 1.0, 1.0
+        check(len({(r["nan_norm"], tuple(r["nan_counts"])) for r in ranks}) == 1
+              and ranks[0]["nan_counts"] == want and math.isnan(float.fromhex(
+                  ranks[0]["nan_norm"])), f"engine, {backend}: the planted NaN's census is "
+              "not exact on every rank")
+        out[backend] = ranks
+    base = float.fromhex(out["nccl"][0]["norm"])
+    got = float.fromhex(out["gloo"][0]["norm"])
+    budget = MESH_REL * base * base / (2.0 * base) + 1e-6
+    print(f"engine: gloo world 2 norm {got!r} against the world-1 value {base!r}: |d| "
+          f"{abs(got - base):.3g} (budget_for {budget:.3g})")
+    check(abs(got - base) <= budget, "engine: the mesh norm is off the world-1 value")
+    for r in out["gloo"]:
+        print(f"planted faults, rank {out['gloo'].index(r)}: replica_bits_agree "
+              f"{r['fault_bits_agree']}, census_agreement {r['fault_census_agree']} (clean "
+              f"{r['clean_census_agree']}), checker {r['checker_fault']} (clean "
+              f"{r['checker_clean']})")
+        check(r["clean_census_agree"] and r["checker_clean"],
+              "engine: the clean agreement checks failed")
+        check(not r["fault_bits_agree"] and not r["fault_census_agree"]
+              and r["checker_fault"] == [2, 1],
+              "engine: a planted one-ulp fault was not reported on every rank")
+    return {"nccl_world": len(out["nccl"]), "call_ms": [r["call_ms"] for r in out["gloo"]],
+            "combine_ms": [r["combine_ms"] for r in out["gloo"]]}
+
+
+def run_data_mesh_phase(single: dict) -> dict:
+    """The data mesh on the card: (a) and (c) ``check_mesh_engine``; (b)
+    ``python -m repro_torch.launch.train --arch olmo-1b --guard --mesh
+    --chaos-host 1`` at full width and depth, two ranks sharing the first
+    card on gloo (``MESH_*``; pinned to it on a host of several cards,
+    where the ranks would otherwise get a card each and NCCL), against the
+    single-rank guarded step of this run (``single``: its step-1 loss,
+    grad norm and clip, its wall and busy); (d) tiny
+    olmo-1b at world 2 on the card against two CPU ranks. Returns the
+    launches of the training run's rank 0 (its main path)."""
+    import tempfile
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.launch import train as train_cli
+
+    t_phase = time.time()
+    engine = check_mesh_engine()
+    cfg = get_arch("olmo-1b")
+    per_rank = (train_cli.train_step_peak_bytes(cfg, TrainConfig(), guard=True)
+                + train_cli.combine_peak_bytes(cfg, MESH_WORLD))
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ckpt:
+        argv = ["--arch", "olmo-1b", "--guard", "--mesh", "--chaos-host", str(MESH_HOST),
+                "--reduce-backend", "cuda_fused", "--steps", str(MESH_STEPS), "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+                "--max-bad-steps", "1", "--ckpt-dir", ckpt, "--ckpt-every", "100"]
+        ranks = spawn_ranks("train", MESH_WORLD, argv=argv, tiny=False, device="cuda",
+                            nan_steps=list(MESH_NAN_STEPS), host=MESH_HOST, profile=True,
+                            one_card=True)
+    print("data mesh, training rank 0's log:\n" + ranks[0]["log"])
+    for r, res in enumerate(ranks):
+        for c in res["calls"]:
+            busy = "not measured" if c["busy_ms"] is None else f"{c['busy_ms']:.3f} ms"
+            print(f"data mesh step call {c['call']} rank {r}: wall {c['wall_ms']:.3f} ms, device "
+                  f"busy {busy}, combine {c['combine_s']:.4f} s {c['combine_bytes']} B "
+                  f"modelled, {c['recv_bytes']} B metered, over {c['transport']} on "
+                  f"{c['device']}, peak {c['step_peak_gb']:.2f} GB, loss {c['loss']!r}, "
+                  f"grad norm {c['grad_norm']!r}, clip {c['clip']!r}, skipped "
+                  f"{c['skipped']:.0f}, agreed {c['agreed']}")
+        print(f"data mesh rank {r}: peak device memory {res['peak_gb']:.2f} GB in a step (the "
+              f"fit check's model of a rank {per_rank / 1e9:.2f} GB + "
+              f"{train_cli.ACTIVATION_RESERVE_BYTES / 1e9:.0f} GB reserve); launches "
+              f"{res['launches']}")
+    lines = [_mesh_lines(r["log"]) for r in ranks]
+    check(len(lines[0]) == 2 + MESH_STEPS and all(ln == lines[0] for ln in lines),
+          "data mesh: the ranks printed different per-step metrics")
+    check(all(_guard_lines(r["log"]) == _guard_lines(ranks[0]["log"]) for r in ranks),
+          "data mesh: the guard's skips and rollback differ between ranks")
+    check(any(ln.startswith("guard: rolled back to step 0") for ln in _guard_lines(
+        ranks[0]["log"])), "data mesh: no rollback")
+    for r in ranks:
+        calls = r["calls"]
+        check([c["skipped"] for c in calls] == [0.0, 1.0, 0.0, 0.0],
+              f"data mesh: skips {[c['skipped'] for c in calls]}, expected call 2 alone")
+        check(calls[1]["nonfinite"] > 0 and calls[1]["unchanged"] is True,
+              "data mesh: the poisoned step did not pass the parameters through bitwise")
+        check(all(c["agreed"] for c in calls), "data mesh: an agreement round failed")
+        check(all(c["transport"] == "gloo" and c["device"] == "cuda:0" for c in calls),
+              "data mesh: the ranks did not share card 0 over gloo")
+        check(all(c["recv_bytes"] == c["combine_bytes"] for c in calls),
+              "data mesh: the metered combine bytes differ from interconnect_bytes")
+        check(r["peak_gb"] * 1e9 <= per_rank + train_cli.ACTIVATION_RESERVE_BYTES,
+              "data mesh: a rank's step peak is past the fit check's model and reserve")
+        n = len(calls)
+        for k, per in train_launches_per_step(cfg).items():
+            check(r["launches"][k] == per * n,
+                  f"data mesh: {k}: {r['launches'][k]} launches in {n} steps, expected {per * n}")
+    first, one = ranks[0]["calls"][0], single["step1"]
+    dl = abs(first["loss"] - single["step1_loss"])
+    dg = {k: abs(first[k] - one[k]) / one[k] for k in ("grad_norm", "clip")}
+    print(f"data mesh step 1 against the single-rank guarded step's on the same global batch: "
+          f"loss {first['loss']!r} vs {single['step1_loss']!r} (|d| {dl:.3g}, tol "
+          f"{MESH_LOSS_TOL}); grad norm {first['grad_norm']!r} vs {one['grad_norm']!r} (rel. "
+          f"{dg['grad_norm']:.3g}, tol {MESH_GRAD_REL}); clip {first['clip']!r} vs "
+          f"{one['clip']!r} (rel. {dg['clip']:.3g}, tol {MESH_GRAD_REL}); single-rank guarded "
+          f"step wall {single['wall_ms']:.3f} ms, busy {single['busy_ms']:.3f} ms")
+    check(dl <= MESH_LOSS_TOL, "data mesh: the step-1 loss is off the single-rank guarded step's")
+    check(all(d <= MESH_GRAD_REL for d in dg.values()),
+          "data mesh: the step-1 grad norm or clip is off the single-rank guarded step's")
+    # (d) tiny olmo-1b at world 2, card against CPU ranks, from the same weights
+    import torch
+
+    from repro_torch.models import init_params
+
+    tiny = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        weights = os.path.join(tmp, "tiny_olmo.pt")
+        torch.save(init_params(get_arch("olmo-1b", tiny=True), torch.Generator().manual_seed(0),
+                               torch.device("cpu")), weights)
+        for device in ("cuda", "cpu"):
+            argv = ["--arch", "olmo-1b", "--tiny", "--guard", "--mesh", "--reduce-backend",
+                    "cuda_fused", "--steps", "2", "--batch", "4", "--seq", "16", "--log-every",
+                    "1"]
+            if device == "cpu":
+                argv += ["--device", "cpu"]
+            tiny[device] = spawn_ranks("train", 2, argv=argv, tiny=True, device=device,
+                                       nan_steps=[], host=1, profile=False, params=weights)
+    for step in range(2):  # the limits of check_tiny_training_against_cpu
+        g, c = (tiny[d][0]["calls"][step] for d in ("cuda", "cpu"))
+        dl = abs(g["loss"] - c["loss"])
+        dg = abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+        print(f"tiny olmo-1b data mesh step {step + 1}, card vs CPU ranks: loss {g['loss']!r} "
+              f"vs {c['loss']!r} (|d| {dl:.3g}, tol 1e-3), grad norm rel. diff {dg:.3g} (tol "
+              "1e-3)")
+        check(dl <= 1e-3 and dg <= 1e-3, "tiny data mesh: card and CPU ranks differ")
+    check(all(_mesh_lines(r["log"]) == _mesh_lines(tiny["cuda"][0]["log"])
+              for r in tiny["cuda"]), "tiny data mesh: the card's ranks differ")
+    print(f"data mesh phase: {time.time() - t_phase:.1f} s")
+    return {"launches": ranks[0]["launches"], "engine": engine,
+            "calls": [r["calls"] for r in ranks], "peak_gb": [r["peak_gb"] for r in ranks]}
+
+
 def run_meter_phase() -> dict:
     """The launch meter on the card at 2^28 f32 and bf16: the bytes the
     wrappers note (``measured_hbm_bytes``) equal ``ReducePlan.hbm_bytes(...)
@@ -4390,6 +4899,8 @@ def main() -> int:
         guarded = run_guarded_training(train_prof["busy_ms"])
         drill = run_rollback_drill()
         torch.cuda.empty_cache()
+        mesh = run_data_mesh_phase(guarded)
+        torch.cuda.empty_cache()
         intern_launches, intern_prof = train_full_width("internlm2-1.8b", guarded_steps=1)
         clip_stat = profile_clip_statistic("internlm2-1.8b",
                                            results["mma_sum_parts"]["census_on_ms"])
@@ -4489,6 +5000,7 @@ def main() -> int:
             "launches_matmul_stats": ms_launches[name],
             "launches_guarded_training": guarded["launches"][name],
             "launches_rollback_drill": drill["launches"][name],
+            "launches_data_mesh": mesh["launches"].get(name, 0),
             "launches_forward_kernel_route": nonkernel["launches"].get(name, 0),
         }
         entry.update({k: v for k, v in r.items() if k not in entry})
@@ -4566,6 +5078,8 @@ def main() -> int:
           f"{wide['prefill']['ms'] * 1e3:.2f} us (SDPA {wide['prefill']['library_ms'] * 1e3:.2f}, "
           f"bound {wide['prefill']['bound_ms'] * 1e3:.2f})")
     print(f"fit check, {RG}: {fit}")
+    print(f"data mesh: engine {mesh['engine']}; training step peaks {mesh['peak_gb']} GB a "
+          f"rank")
     print(f"meter: {meter}; autotune: {tuned}")
     print(f"chip_smoke wall time: {time.time() - t_start:.1f} s (the build included)")
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,7 @@ vocab=100352, untied head, RMSNorm: 131.6 B parameters (~36 B active),
 263 GB at bf16 -- more than one card holds. The serving entry refuses it
 at full depth (``launch.serve.serve_state_bytes``); its full width runs on
 one card cut in depth (two layers take ~15.5 GB). Full depth waits for the
-ROADMAP's distributed item.
+ROADMAP's sharding item.
 """
 
 from repro_torch.configs.base import ModelConfig, MoEConfig

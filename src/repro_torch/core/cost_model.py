@@ -19,9 +19,11 @@ reference's striped model, and the port's own look-back kernel beside it,
 ``lookback_scan_hbm_bytes``), the staged comparison points
 (``staged_fused_hbm_bytes``, ``staged_sumsq_hbm_bytes``), the launch bytes
 of the port's fused kernels (``fused_launch_bytes``) and the eq. 13 table
-(``model_table``). Not copied: the interconnect model (it comes with the
-distributed combine) and ``tpu_reduction_roofline``, whose rates are a
-TPU's.
+(``model_table``), and the interconnect model of the fixed-order combine
+(``interconnect_bytes``, ``IciTraffic``; the names kept so a reader finds
+the counterpart). Not copied: ``tpu_reduction_roofline`` and ``ICI_BW``,
+whose rates are a TPU's; the combine's time bound takes the rate of the
+transport in use instead (``link_bytes_per_s``).
 """
 
 from __future__ import annotations
@@ -443,3 +445,74 @@ def model_table(ns=(2**10, 2**16, 2**20, 2**26, 2**30), ms=(2, 4, 16, 128)):
                 speedup_closed_form=speedup_model(m),
             ))
     return rows
+
+
+# ------------------------- interconnect traffic ------------------------------
+
+# NVLink of an H100 SXM: 900 GB/s to the other cards of the host, all to
+# all, 450 GB/s each way (NVIDIA's data sheet).
+NVLINK_H100_BYTES_PER_S = 450e9
+
+
+def link_bytes_per_s(transport: str):
+    """The per-direction link rate a combine's bytes cross under
+    ``transport``: NVLink's for NCCL between H100 cards; None for gloo,
+    whose bytes go through the host (no link rate stands for it)."""
+    return {"nccl": NVLINK_H100_BYTES_PER_S, "gloo": None}[transport]
+
+
+@dataclasses.dataclass(frozen=True)
+class IciTraffic:
+    """Bytes of one fixed-order combine of ``slots`` f32 partials across a
+    ``world``-rank mesh axis: ONE all-gather, after which every rank folds
+    the P rows itself (no reduction on the wire, which is what makes the
+    result bitwise the same on every rank). ``recv_per_device`` is held
+    EQUAL to ``reduce.inspect.collective_recv_bytes`` of the call, as
+    ``ReducePlan.hbm_bytes`` is to the launches' bytes."""
+
+    slots: int
+    world: int
+    itemsize: int = _F32
+    link_bytes_per_s: float | None = None
+
+    @property
+    def recv_per_device(self) -> int:
+        """Bytes into each rank: the other P - 1 rows."""
+        return (self.world - 1) * self.slots * self.itemsize
+
+    @property
+    def send_per_device(self) -> int:
+        """Bytes out of each rank: its row to the other P - 1."""
+        return (self.world - 1) * self.slots * self.itemsize
+
+    @property
+    def wire_total(self) -> int:
+        return self.world * self.recv_per_device
+
+    @property
+    def time_s(self) -> float:
+        """Least time of the gather at the transport's link rate; a
+        transport without one (gloo through the host) has no bound."""
+        if self.link_bytes_per_s is None:
+            raise ValueError("this transport has no link rate (gloo goes through the host): "
+                             "the combine's time has no bound here")
+        return self.recv_per_device / self.link_bytes_per_s
+
+    def vs_psum_recv(self) -> float:
+        """Against an ideal reduce-scatter + gather all-reduce of the same
+        row (about 2 x slots x itemsize a rank whatever P): the fixed order
+        costs O(P) gathered bytes."""
+        return self.recv_per_device / max(2 * self.slots * self.itemsize, 1)
+
+
+def interconnect_bytes(slots: int, world: int, *, itemsize: int = _F32,
+                       transport: str | None = None) -> IciTraffic:
+    """Traffic of the ``mesh_axes=`` reduce path: the rank's additive row
+    (per-leaf slots, raw total, census counts) gathered once and folded on
+    each rank. ``world`` is the axis size (several axes combine one at a
+    time: sum one instance per axis); ``transport`` ("nccl" or "gloo")
+    sets the link rate of ``time_s``."""
+    if slots < 0 or world < 1:
+        raise ValueError(f"invalid interconnect geometry: {slots=} {world=}")
+    rate = None if transport is None else link_bytes_per_s(transport)
+    return IciTraffic(slots=slots, world=world, itemsize=itemsize, link_bytes_per_s=rate)

@@ -17,7 +17,7 @@ GPU and no device they raise. Everything runs under inference mode. An
 engine whose parameters and caches would not fit the card
 (``serve_state_bytes``: dbrx-132b's 263 GB at full depth) is refused
 before anything is allocated; it serves only across cards, the ROADMAP's
-distributed item. A cross-attention arch (llama-3.2-vision-11b) serves
+sharding item (FSDP/TP and expert parallelism). A cross-attention arch (llama-3.2-vision-11b) serves
 against one synthetic image context per slot (``Engine.ctx``); an audio
 arch (musicgen-medium) takes (L, n_codebooks) prompts or tiles 1-D ones
 over its streams, and reports codebook 0.
@@ -104,8 +104,8 @@ def check_fits_card(cfg, batch_slots: int, s_max: int, device: torch.device) -> 
     if need > have:
         raise ValueError(
             f"{cfg.name}: the parameters and caches take {need / 1e9:.1f} GB, more than the "
-            f"card's {have / 1e9:.1f} GB; it serves at this depth only across cards, the "
-            f"ROADMAP's distributed item (not ported yet)")
+            f"card's {have / 1e9:.1f} GB; it serves at this depth only across cards, when the "
+            f"ROADMAP's sharding item (FSDP/TP and expert parallelism) shards it")
 
 
 def _tok_ints(tok: torch.Tensor) -> np.ndarray:

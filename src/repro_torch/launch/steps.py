@@ -12,9 +12,16 @@ make_guarded_train_step: the same gradients (``make_grads_fn``), finished
 by ``optim.guarded_apply_updates``: the same launch also counts NaN/Inf
 gradient elements, and a poisoned or loss-spiking step passes the
 parameters and the optimizer state through bitwise unchanged.
+make_mesh_guarded_train_step: the data-parallel guarded step of the
+reference's ``--mesh`` (``shard_map`` there, one process per rank here):
+each rank's gradients on its rows of the global batch, summed across ranks
+by the fixed-order combine, so the guarded update runs on bitwise the same
+inputs on every rank.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -123,6 +130,87 @@ def make_guarded_train_step(cfg, tcfg, reduce_backend=None, spike_z: float = 6.0
             leaf_groups=reference_leaf_groups(params, cfg),
         )
         return params, opt_state, guard_state, dict(metrics, loss=mean_loss)
+
+    return guarded_step
+
+
+def _rows_of(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    """Rank ``rank``'s equal share of ``x``'s leading axis."""
+    if x.shape[0] % world:
+        raise ValueError(f"a batch of {x.shape[0]} does not split over {world} ranks")
+    n = x.shape[0] // world
+    return x[rank * n:(rank + 1) * n]
+
+
+def make_mesh_guarded_train_step(cfg, tcfg, mesh, reduce_backend=None, spike_z: float = 6.0):
+    """The data-parallel guarded step over a 1-D data mesh
+    (``launch.mesh.make_data_mesh``): ``guarded_step(params, opt_state,
+    guard_state, batch) -> (params, opt_state, guard_state, metrics)`` with
+    the signature of ``make_guarded_train_step``'s. Parameters, moments and
+    guard state are replicated: every rank holds them whole and updates
+    them in place. Every rank is given the GLOBAL batch (its leading axis
+    must divide by the mesh) and
+      computes the gradients of its own rows (``make_grads_fn``);
+      multiplies them by its entry of ``batch["chaos_scale"]`` (shape
+        (world,), where given: driving one entry to NaN models one host's
+        shard going bad);
+      sums the gradients and the loss across ranks by
+        ``core.collectives.fixed_order_combine`` and divides by the world
+        size: bitwise the same on every rank, unlike an all-reduce, whose
+        order is the transport's;
+      runs ``optim.guarded_apply_updates`` on those inputs, so the census,
+        the skip, the write-back and the guard state move in lockstep,
+        even when one rank's shard is poisoned.
+    As in the reference, the clip statistic then runs locally over the
+    combined gradients (one K4 launch a rank on cuda_fused).
+
+    ``metrics`` adds ``combine_s`` (host seconds of the exchange, the card
+    synchronised on both sides) and ``combine_bytes`` (bytes it brings
+    into this rank, modelled: ``core.cost_model.interconnect_bytes`` of the
+    gathered elements; ``reduce.inspect.collective_recv_bytes`` around the
+    step meters the same, as ``tests/test_torch_data_mesh.py`` and
+    ``chip_smoke.py`` check)."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.cost_model import interconnect_bytes
+
+    if reduce_backend is None:
+        reduce_backend = R.backend_for_flags(cfg.mma_reductions, cfg.use_kernels)
+    (axis,) = mesh.axis_names
+    rank, world = mesh.axis_index(axis), mesh.axis_size(axis)
+    compute_grads = make_grads_fn(cfg, tcfg)
+
+    def sync(device):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def guarded_step(params, opt_state, guard_state, batch):
+        batch = dict(batch)
+        scale = batch.pop("chaos_scale", None)
+        grads, loss = compute_grads(params, {k: _rows_of(v, rank, world)
+                                             for k, v in batch.items()})
+        if scale is not None:
+            s = scale.reshape(-1)[rank]
+            for g in grads:
+                g.mul_(s.to(g.dtype))
+        sync(loss.device)
+        t0 = time.perf_counter()
+        with coll.bound_mesh(mesh):
+            for i, g in enumerate(grads):
+                # the combined sum replaces the local gradient (freed here)
+                grads[i] = coll.fixed_order_combine(g, (axis,)).div_(world)
+            loss = coll.fixed_order_combine(loss.reshape(1), (axis,))[0] / world
+        sync(loss.device)
+        combine_s = time.perf_counter() - t0
+        params, opt_state, guard_state, metrics = optim.guarded_apply_updates(
+            params, grads, opt_state, tcfg, loss=loss, guard=guard_state,
+            spike_z=spike_z, reduce_backend=reduce_backend,
+            fused_second_moment=tcfg.fused_second_moment,
+            leaf_groups=reference_leaf_groups(params, cfg),
+        )
+        n = sum(g.numel() for g in grads) + 1
+        return params, opt_state, guard_state, dict(
+            metrics, loss=loss, combine_s=combine_s,
+            combine_bytes=interconnect_bytes(n, world).recv_per_device)
 
     return guarded_step
 

@@ -30,13 +30,30 @@ Flags beyond the model and schedule:
   --status-path              the guard metrics' JSON status file, rewritten
                              at every commit (default
                              <ckpt-dir>/guard_status.json)
+  --mesh                     the data-parallel guarded step over every rank
+                             (needs --guard; --batch must divide by the
+                             world): ``make_mesh_guarded_train_step``
+                             (``launch.steps``), whose fixed-order gradient
+                             combine keeps the skip and rollback decisions
+                             bitwise the same on every rank. Start the ranks with
+                             torchrun; each reads the global batch and
+                             takes its rows; rank 0 alone writes
+                             checkpoints, behind a barrier, and every rank
+                             restores, so rollbacks stay in lockstep
+  --chaos-host               with --mesh, the rank whose gradients the NaN
+                             drill poisons (``ChaosMonkey.corrupt_shard``)
 
-``--mesh`` and ``--chaos-host`` are refused: they belong to the ROADMAP's
-distributed item, which is not ported. So is a config whose training step
-and an activation reserve do not fit one card (``check_fits_card``, on
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch olmo-1b \\
+      --tiny --guard --mesh --chaos 0.5 --chaos-host 1 --device cpu
+
+Refused: a config whose training step and an activation reserve do not
+fit one card (``check_fits_card``, on
 ``train_step_peak_bytes``: deepseek-7b's 152 GB, minicpm3-4b's 93.8 GB at
 full depth, recurrentgemma-9b and llama-3.2-vision-11b at full depth,
-against the H100's 80 GB), which trains only when that item shards it.
+against the H100's 80 GB), which trains only when the ROADMAP's sharding
+item (FSDP/TP and expert parallelism) shards it: a data mesh replicates
+the state, so it makes no config fit. Under ``--mesh`` the check charges
+every rank that shares the card.
 mamba2-780m (17.2 GB) and musicgen-medium (30.5 GB) train at full depth;
 minicpm3-4b, recurrentgemma-9b and llama-3.2-vision-11b at full width cut
 in depth, through
@@ -66,8 +83,13 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_arch
 from repro_torch.data import Prefetcher, ShardInfo, SyntheticLM
 from repro_torch.kernels.mma_reduce import PARTS_KERNEL_MAX
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import resolve_device
-from repro_torch.launch.steps import make_guarded_train_step, make_train_step
+from repro_torch.launch.steps import (
+    make_guarded_train_step,
+    make_mesh_guarded_train_step,
+    make_train_step,
+)
 from repro_torch.models import init_params
 from repro_torch.models import model as model_lib
 from repro_torch.models.convert import reference_leaf_groups
@@ -75,12 +97,6 @@ from repro_torch.models.frontends import synth_image_embeds
 from repro_torch.models.model import f32_param_count, param_dtype
 from repro_torch.models.params import NORM_TENSORS
 from repro_torch.runtime import ChaosMonkey, GuardMetrics, PreemptionGuard, StepGuard
-
-_NOT_PORTED = {
-    "mesh": "the ROADMAP's distributed item (the data mesh and its deterministic combine)",
-    "chaos_host": "the ROADMAP's distributed item (per-host poisoning needs the data mesh)",
-}
-
 
 # Room kept for activations beside the training step's own bytes
 # (``train_step_peak_bytes``) when the CLI decides whether a config fits the
@@ -168,31 +184,49 @@ def train_step_peak_bytes(cfg, tcfg, *, guard: bool = False) -> int:
     return max(backward, params + moments + 4 * n + max(pack, temps))
 
 
-def check_fits_card(cfg, tcfg, device, *, guard: bool = False) -> None:
+def combine_peak_bytes(cfg, world: int) -> int:
+    """Device bytes the data mesh's gradient combine adds at its peak: the
+    gathered f32 rows of the largest leaf (one a rank) and the fold's
+    accumulator."""
+    return 4 * max(k for k, _ in param_shapes(cfg)) * (world + 1)
+
+
+def check_fits_card(cfg, tcfg, device, *, guard: bool = False, ranks_on_card: int = 1,
+                    world: int = 1) -> None:
     """Refuse, before any allocation, a config whose training step
     (``train_step_peak_bytes``, guarded or not) and the activation reserve
     (``ACTIVATION_RESERVE_BYTES``) exceed the card: deepseek-7b (152 GB),
     minicpm3-4b at full depth (93.8 GB), recurrentgemma-9b past 6 layers
     (past 3 guarded) and llama-3.2-vision-11b at full depth are refused on
-    an 80 GB card."""
+    an 80 GB card. Under a data mesh of ``world`` ranks (``world`` > 1)
+    the step, the reserve and the combine's buffers
+    (``combine_peak_bytes``) are charged once for each of the
+    ``ranks_on_card`` ranks that share the card."""
     if device.type != "cuda":
         return
-    need = train_step_peak_bytes(cfg, tcfg, guard=guard)
+    per_rank = train_step_peak_bytes(cfg, tcfg, guard=guard) + ACTIVATION_RESERVE_BYTES
+    if world > 1:
+        per_rank += combine_peak_bytes(cfg, world)
+    need = per_rank * ranks_on_card
     have = torch.cuda.get_device_properties(device).total_memory
-    if need + ACTIVATION_RESERVE_BYTES > have:
+    if need > have:
+        ranks = f" for each of {ranks_on_card} ranks on the card" if ranks_on_card > 1 else ""
         raise ValueError(
             f"{cfg.name} at {cfg.n_layers} layers: the {'guarded ' * guard}training step "
-            f"holds {need / 1e9:.1f} GB before activations (and "
-            f"{ACTIVATION_RESERVE_BYTES / 1e9:.0f} GB are kept for them), more than the card's "
-            f"{have / 1e9:.1f} GB; it trains at this depth only across cards, the ROADMAP's "
-            f"distributed item (not ported yet)")
+            f"holds {(per_rank - ACTIVATION_RESERVE_BYTES) / 1e9:.1f} GB before activations "
+            f"(and {ACTIVATION_RESERVE_BYTES / 1e9:.0f} GB are kept for them){ranks}, "
+            f"{need / 1e9:.1f} GB, more than the card's {have / 1e9:.1f} GB; it trains at "
+            f"this depth only when the ROADMAP's sharding item (FSDP/TP and expert "
+            f"parallelism) shards it")
 
 
-def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0):
+def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0,
+          data_mesh=None):
     """Parameters (seeded random unless given; they are set to require
     grad), optimizer state and the train step: ``make_train_step``'s, or
     with ``guard`` ``make_guarded_train_step``'s (which also takes and
-    returns the guard state)."""
+    returns the guard state), or with ``data_mesh`` too
+    ``make_mesh_guarded_train_step``'s."""
     if params is None:
         gen = torch.Generator(device=device).manual_seed(tcfg.seed)
         params = init_params(cfg, gen, device)
@@ -202,8 +236,12 @@ def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float
         params, fused_second_moment=tcfg.fused_second_moment,
         leaf_groups=reference_leaf_groups(params, cfg),
     )
-    step_fn = (make_guarded_train_step(cfg, tcfg, spike_z=spike_z) if guard
-               else make_train_step(cfg, tcfg))
+    if data_mesh is not None:
+        step_fn = make_mesh_guarded_train_step(cfg, tcfg, data_mesh, spike_z=spike_z)
+    elif guard:
+        step_fn = make_guarded_train_step(cfg, tcfg, spike_z=spike_z)
+    else:
+        step_fn = make_train_step(cfg, tcfg)
     return params, opt_state, step_fn
 
 
@@ -267,8 +305,16 @@ def _parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the plain versions)")
-    ap.add_argument("--mesh", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--chaos-host", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument(
+        "--mesh", action="store_true",
+        help="data-parallel guarded step over every rank (start them with torchrun) with "
+        "the deterministic fixed-order gradient combine, so the skip and rollback "
+        "decisions are bitwise the same on every rank (requires --guard; --batch must "
+        "divide by the world)",
+    )
+    ap.add_argument("--chaos-host", type=int, default=0,
+                    help="with --mesh, the rank whose local gradients the NaN drill poisons: "
+                    "the combined census must still skip on every rank in lockstep")
     return ap
 
 
@@ -280,12 +326,34 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
     included."""
     ap = _parser()
     args = ap.parse_args(argv)
-    for name, item in _NOT_PORTED.items():
-        if getattr(args, name) not in (None, False):
-            ap.error(f"--{name.replace('_', '-')} is not ported yet: {item}")
+    if args.mesh and not args.guard:
+        ap.error("--mesh requires --guard")
     if (args.chaos or chaos is not None) and not args.guard:
         ap.error("--chaos requires --guard")
-    device = resolve_device(args.device)
+    if not args.mesh:
+        return _train(ap, args, resolve_device(args.device), cfg, chaos)
+    _, world, _, local_world = mesh_lib.rank_env()
+    if args.batch % world:
+        ap.error(f"--batch {args.batch} must divide by the {world} ranks of the mesh")
+    _, world, device, transport = mesh_lib.init_process_group(args.device)
+    try:
+        data_mesh = mesh_lib.make_data_mesh()
+        print(f"mesh guard: {world}-way data mesh over {transport}, deterministic combine")
+        ranks = mesh_lib.ranks_per_card(local_world) if device.type == "cuda" else 1
+        losses = _train(ap, args, device, cfg, chaos, data_mesh, ranks)
+    except BaseException:
+        mesh_lib.shutdown(barrier=False)  # a failed rank must not wait on the others
+        raise
+    mesh_lib.shutdown()
+    return losses
+
+
+def _train(ap, args, device, cfg, chaos, data_mesh=None, ranks_on_card: int = 1):
+    """The CLI's run on ``device``; with ``data_mesh`` (a bound process
+    group) the data-parallel guarded step on this rank."""
+    rank = 0 if data_mesh is None else data_mesh.rank
+    world = 1 if data_mesh is None else data_mesh.size
+    lead = rank == 0  # the rank that writes checkpoints and the status file
     if args.reduce_backend:
         R.set_default_backend(args.reduce_backend)
     if cfg is None:
@@ -296,11 +364,12 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
         fused_second_moment=args.fused_second_moment,
     )
     try:
-        check_fits_card(cfg, tcfg, device, guard=args.guard)
+        check_fits_card(cfg, tcfg, device, guard=args.guard, ranks_on_card=ranks_on_card,
+                        world=world)
     except ValueError as e:
         ap.error(str(e))
     params, opt_state, step_fn = build(cfg, tcfg, device, guard=args.guard,
-                                       spike_z=args.spike_z)
+                                       spike_z=args.spike_z, data_mesh=data_mesh)
     n_params = sum(p.numel() for p in R.tree_leaves(params))
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M steps={args.steps} device={device}")
 
@@ -313,11 +382,18 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     if chaos is None and args.chaos > 0:
         chaos = ChaosMonkey.from_seed(args.chaos_seed, n_steps=args.steps,
-                                      nan_rate=args.chaos / 2, fail_rate=args.chaos / 2)
+                                      nan_rate=args.chaos / 2, fail_rate=args.chaos / 2,
+                                      host=args.chaos_host)
     if chaos is not None:
         origin = f"seed={args.chaos_seed} rate={args.chaos}" if args.chaos > 0 else "given"
+        host = f" host={chaos.host}" if data_mesh is not None else ""
         print(f"chaos: {origin} nan_steps={sorted(chaos.nan_steps)} "
-              f"fail_steps={sorted(chaos.fail_steps)}")
+              f"fail_steps={sorted(chaos.fail_steps)}{host}")
+
+    def barrier():
+        if data_mesh is not None:
+            torch.distributed.barrier()
+
     guard_state = optim.init_guard_state(args.spike_window, device) if args.guard else None
     step_guard = StepGuard(args.max_bad_steps) if args.guard else None
     gmetrics = GuardMetrics() if args.guard else None
@@ -331,7 +407,8 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
         params, opt_state, data_step = _restore(ckpt, start_step, params, opt_state)
         data.seek(data_step)
         print(f"resumed from step {start_step}")
-    if args.guard and ckpt and ckpt.latest() is None:
+    barrier()  # every rank has read the directory before the lead writes to it
+    if args.guard and ckpt and ckpt.latest() is None and lead:
         # anchor commit: a guard trip before the first periodic save still
         # has a rollback target
         ckpt.save(0, (params, opt_state), extra={"data_step": data.state()["step"]})
@@ -351,9 +428,11 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
                 feed["image_embeds"] = ctx
             if chaos is not None:
                 # keyed on step + 1, the step being taken; fire-once keeps
-                # a post-rollback replay clean
-                feed["chaos_scale"] = chaos.corrupt(
-                    torch.ones((1,), dtype=torch.float32, device=device), step + 1)
+                # a post-rollback replay clean. Under the mesh one entry a
+                # rank, of which --chaos-host's is poisoned
+                ones = torch.ones((world,), dtype=torch.float32, device=device)
+                feed["chaos_scale"] = (chaos.corrupt(ones, step + 1) if data_mesh is None
+                                       else chaos.corrupt_shard(ones, step + 1, shards=world))
 
             def attempt():
                 if chaos is not None:
@@ -376,6 +455,7 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
                 params, opt_state, guard_state, metrics = out
             else:
                 params, opt_state, metrics = out
+            del out  # a rollback below must leave no reference to the state it replaces
             losses.append(float(metrics["loss"]))
             step += 1
             skipped = False
@@ -398,6 +478,13 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
                     f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f} ms/step" + extra
                 )
                 t0 = time.time()
+            if data_mesh is not None:
+                # the metrics at full precision: every rank prints the same bits
+                print(f"mesh step {step} rank {rank}: loss {float(metrics['loss'])!r} gnorm "
+                      f"{float(metrics['grad_norm'])!r} clip {float(metrics['clip'])!r} "
+                      f"nonfinite {float(metrics['nonfinite']):.0f} skipped "
+                      f"{float(metrics['skipped']):.0f}; combine {metrics['combine_s']:.4f} s "
+                      f"{metrics['combine_bytes']} B over {data_mesh.backend}", flush=True)
             if step_guard is not None:
                 step_guard.record(skipped)
                 gmetrics.record_step(step, skipped=skipped,
@@ -409,6 +496,7 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
                         step_guard.reset()
                     else:
                         ckpt.wait()
+                        barrier()  # the lead's commits are on disk for every rank
                         back = ckpt.latest()
                         params, opt_state, data_step = _restore(ckpt, back, params,
                                                                 opt_state)
@@ -417,7 +505,7 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
                         step_guard.reset()
                         step_guard.rollbacks += 1
                         gmetrics.record_rollback()
-                        if status_path:
+                        if status_path and lead:
                             gmetrics.write(status_path)
                         print(f"guard: rolled back to step {back} (data step {data_step})")
                         step = back
@@ -425,10 +513,12 @@ def main(argv=None, *, cfg=None, chaos: ChaosMonkey | None = None):
             # never commit mid-skip-streak (see TrainSupervisor.run)
             if ckpt and ((step % args.ckpt_every == 0 and not skipped)
                          or preempt.should_stop):
-                ckpt.save(step, (params, opt_state), extra={"data_step": data.state()["step"]})
+                if lead:
+                    ckpt.save(step, (params, opt_state),
+                              extra={"data_step": data.state()["step"]})
                 if gmetrics is not None:
                     gmetrics.record_commit()
-                    if status_path:
+                    if status_path and lead:
                         gmetrics.write(status_path)
                     snap = gmetrics.snapshot()
                     print(f"commit step {step}: skipped {snap['steps_skipped']}/"

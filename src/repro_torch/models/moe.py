@@ -34,7 +34,7 @@ ones-product in torch, no kernel launch.
 
 Not ported: the shard_map dispatch and the activation-sharding constraints
 (``_data_degree``, ``_model_degree``, ``CTX``); they belong to the ROADMAP's
-distributed item.
+sharding item.
 """
 
 from __future__ import annotations

@@ -93,28 +93,33 @@ def cosine_lr(cfg, step: torch.Tensor) -> torch.Tensor:
     return cfg.learning_rate * warm * 0.5 * (1 + torch.cos(math.pi * prog))
 
 
-def global_norm(grads, *, mma: bool = True, backend: Optional[str] = None):
+def global_norm(grads, *, mma: bool = True, backend: Optional[str] = None, mesh_axes=None):
     """L2 norm over the gradient tree via the reduction engine (one parts
-    launch on cuda_fused)."""
+    launch on cuda_fused). ``mesh_axes`` (axis names of the bound mesh)
+    makes it the norm of the tree sharded across ranks, through the
+    fixed-order combine: bitwise the same on every rank."""
     if backend is None:
         backend = R.backend_for_flags(mma)
-    return R.reduce_tree(grads, kind="norm2", backend=backend)
+    return R.reduce_tree(grads, kind="norm2", backend=backend, mesh_axes=mesh_axes)
 
 
 def global_norm_and_clip(grads, max_norm, *, mma: bool = True, backend: Optional[str] = None,
-                         return_per_leaf: bool = False, census: bool = False):
+                         return_per_leaf: bool = False, census: bool = False, mesh_axes=None):
     """``(gnorm, clip)`` from ONE reduction launch (the epilogue fork
     finishes the norm's sqrt and ``min(1, max_norm / max(gnorm,
     GNORM_EPS))`` in it). ``return_per_leaf=True`` first returns the raw
     per-leaf sums of squares of the same launch. ``census=True`` appends
     the (S + 1,) NaN/Inf counts (per leaf, then their total), counted by
     the same launch on the elements it already streams: the guarded step's
-    detector at no extra input bytes."""
+    detector at no extra input bytes. ``mesh_axes`` (over gradients sharded
+    across ranks) makes the norm, the clip, the per-leaf sums and the
+    census global through the fixed-order combine: every rank sees the
+    same bits, so a skip decided from them is the same on every rank."""
     if backend is None:
         backend = R.backend_for_flags(mma)
     fork = [(), ("clip_coeff", float(max_norm), GNORM_EPS)]
     out = R.reduce_tree(grads, kind="norm2", backend=backend, epilogue=fork,
-                        return_per_leaf=return_per_leaf, census=census)
+                        return_per_leaf=return_per_leaf, census=census, mesh_axes=mesh_axes)
     if return_per_leaf:
         if census:
             per_leaf, fork_out, counts = out
@@ -227,21 +232,24 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
 
 def apply_updates(params, grads, state: AdamWState, cfg, *, mma: bool = True,
                   reduce_backend: Optional[str] = None, fused_second_moment: bool = False,
-                  leaf_groups: Optional[Sequence[int]] = None):
+                  leaf_groups: Optional[Sequence[int]] = None, mesh_axes=None):
     """One AdamW step on the parameter tree (updated in place). ``grads``
     is a tree like ``params`` or the flat list of its leaves. Returns
-    (params, new_state, metrics)."""
+    (params, new_state, metrics). ``mesh_axes``: parameters, gradients and
+    moments are this rank's shards of trees sharded across those axes; the
+    clip statistic is the global one (``global_norm_and_clip``)."""
     flat_p = R.tree_leaves(params)
     flat_g = R.tree_leaves(grads)
     if len(flat_g) != len(flat_p):
         raise ValueError(f"{len(flat_g)} gradients for {len(flat_p)} parameters")
     if fused_second_moment:
         per_leaf, gnorm, clip = global_norm_and_clip(
-            flat_g, cfg.grad_clip, mma=mma, backend=reduce_backend, return_per_leaf=True)
+            flat_g, cfg.grad_clip, mma=mma, backend=reduce_backend, return_per_leaf=True,
+            mesh_axes=mesh_axes)
     else:
         per_leaf = None
         gnorm, clip = global_norm_and_clip(flat_g, cfg.grad_clip, mma=mma,
-                                           backend=reduce_backend)
+                                           backend=reduce_backend, mesh_axes=mesh_axes)
     new_state, lr = _adamw_core(flat_p, flat_g, state, cfg, clip=clip, per_leaf=per_leaf,
                                 fused_second_moment=fused_second_moment,
                                 leaf_groups=leaf_groups)
@@ -297,7 +305,7 @@ def guarded_apply_updates(params, grads, state: AdamWState, cfg, *, loss=None,
                           guard: Optional[GuardState] = None, spike_z: float = 6.0,
                           mma: bool = True, reduce_backend: Optional[str] = None,
                           fused_second_moment: bool = False,
-                          leaf_groups: Optional[Sequence[int]] = None):
+                          leaf_groups: Optional[Sequence[int]] = None, mesh_axes=None):
     """One GUARDED AdamW step: the single-launch clip statistic of
     ``apply_updates`` with the in-launch NaN/Inf census, and a skip decided
     on the device: if any gradient element is NaN/Inf (or the windowed
@@ -309,7 +317,14 @@ def guarded_apply_updates(params, grads, state: AdamWState, cfg, *, loss=None,
     ``loss``/``guard`` feed the spike test (either None disables it): the
     window records ACCEPTED finite losses only. ``metrics['skipped']`` is
     this step's skip flag (0/1 f32), ``metrics['nonfinite']`` the census
-    total."""
+    total.
+
+    ``mesh_axes`` (parameters, gradients and moments sharded across those
+    axes of the bound mesh): the statistic, the census and the clip come
+    out of the fixed-order combine bitwise the same on every rank, so the
+    skip, the write-back and the guard state move in lockstep while each
+    rank updates only its shards. ``loss`` must already be the same on
+    every rank for the spike test to agree."""
     flat_p = R.tree_leaves(params)
     flat_g = R.tree_leaves(grads)
     if len(flat_g) != len(flat_p):
@@ -317,11 +332,12 @@ def guarded_apply_updates(params, grads, state: AdamWState, cfg, *, loss=None,
     if fused_second_moment:
         per_leaf, gnorm, clip, counts = global_norm_and_clip(
             flat_g, cfg.grad_clip, mma=mma, backend=reduce_backend, return_per_leaf=True,
-            census=True)
+            census=True, mesh_axes=mesh_axes)
     else:
         per_leaf = None
         gnorm, clip, counts = global_norm_and_clip(
-            flat_g, cfg.grad_clip, mma=mma, backend=reduce_backend, census=True)
+            flat_g, cfg.grad_clip, mma=mma, backend=reduce_backend, census=True,
+            mesh_axes=mesh_axes)
     nonfinite = counts[-1]
     bad = nonfinite > 0
     loss_f = None if loss is None else torch.as_tensor(loss, dtype=torch.float32,

@@ -17,6 +17,8 @@ from repro_torch.reduce.inspect import (  # noqa: F401
     assert_epilogue_free,
     assert_staging_free,
     census_ops,
+    collective_eqns,
+    collective_recv_bytes,
     count_kernel_launches,
     epilogue_ops,
     launch_records,
@@ -30,6 +32,7 @@ from repro_torch.reduce.plan import (  # noqa: F401
     autotune,
     backend_for_flags,
     default_backend,
+    norm_mesh_axes,
     plan_cache_clear,
     plan_cache_info,
     plan_for,

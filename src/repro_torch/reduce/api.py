@@ -49,7 +49,16 @@ cotangent is the prologue's chain rule against its slot(s), after the
 chains' own rule at the raw totals. Not differentiable: ``reduce(...,
 census=True)`` (raises on an input that requires grad).
 
-Not ported: ``mesh_axes`` (the distributed combine).
+``mesh_axes=`` (names of axes of the mesh bound by
+``core.collectives.bound_mesh``; full reductions only) makes a statistic
+global across ranks: the local launch computes the shard's ADDITIVE row
+exactly as a single rank would (on the kernel backends ``reduce_tree``'s
+row ``[per leaf | raw total | census counts]`` from ONE K4 launch), one
+fixed-order combine (``Backend.cross_device_combine``) folds the ranks'
+rows in rank order, and the finishers (norm2's sqrt, mean's 1/n over the
+global count, the chains) apply to the combined row. Every output is then
+bitwise the same on every rank. Not differentiable: it raises on an input
+that requires grad.
 """
 
 from __future__ import annotations
@@ -64,7 +73,7 @@ from repro_torch.core import precision as _precision
 from repro_torch.kernels import common as _kcommon
 from repro_torch.reduce import backends as _backends
 from repro_torch.reduce import plan as P
-from repro_torch.reduce.plan import ReducePlan, dtype_name, plan_for
+from repro_torch.reduce.plan import ReducePlan, dtype_name, norm_mesh_axes, plan_for
 
 KINDS = ("sum", "mean", "sumsq", "norm2", "moments")
 TREE_KINDS = ("sum", "sumsq", "norm2")
@@ -217,10 +226,51 @@ def _row_plan(plan: ReducePlan) -> ReducePlan:
     return plan
 
 
+def _cross_combine(row: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
+    """Fold per-rank ADDITIVE partials across ``plan.mesh_axes``."""
+    return _backends.get_backend(plan.backend).cross_device_combine(row, plan)
+
+
+def _refuse_mesh_grad(*tensors) -> None:
+    if _kcommon.needs_grad(*tensors):
+        raise RuntimeError("mesh_axes= is not differentiable (the gather has no backward "
+                           "here); call it under torch.no_grad()")
+
+
+def _mesh_count(n: int, plan: ReducePlan) -> int:
+    """The global element count of equal shards of n elements."""
+    from repro_torch.core import collectives as _coll  # deferred: import cycle
+
+    return n * _coll.mesh_world_size(plan.mesh_axes)
+
+
+def _reduce_mesh_full(x: torch.Tensor, kind: str, p: ReducePlan, chain: tuple):
+    """Full reduction with ``p.mesh_axes`` bound: the shard's additive
+    statistic from the local launch, one fixed-order combine, then the
+    kind's finisher and the chain on the combined total (they are not
+    additive, so they cannot run before the fold)."""
+    _refuse_mesh_grad(x)
+    lp = p.replace(mesh_axes=())
+    if kind == "moments":
+        s, ss = _moments_full(x, lp)
+        row = _cross_combine(torch.stack([s, ss]), p)
+        return row[0], row[1]
+    local = _sum_full(x, lp, "square" if kind in ("sumsq", "norm2") else "identity")
+    total = _cross_combine(local, p)
+    if kind == "mean":
+        count = _mesh_count(x.numel(), p)
+        total = total * ((1.0 / count) if count else float("nan"))
+    if kind == "norm2":
+        total = torch.sqrt(total)
+    return _kcommon.apply_epilogue(total, chain)
+
+
 def _reduce_census_full(x: torch.Tensor, kind: str, plan: ReducePlan, chain: tuple):
     """Full reduction plus the NaN/Inf count of x from the same launch:
     ``(statistic, count)``. The kind's finisher (norm2's sqrt, mean's 1/n)
-    leads the chain."""
+    leads the chain. Under ``plan.mesh_axes`` the additive row (sum, raw
+    total, counts) of one parts launch rides the fixed-order combine and
+    the finishers apply to the combined total."""
     if _kcommon.needs_grad(x):
         raise RuntimeError("census=True is not differentiable; call it under torch.no_grad()")
     if plan.precision == "kahan":
@@ -233,10 +283,16 @@ def _reduce_census_full(x: torch.Tensor, kind: str, plan: ReducePlan, chain: tup
     if kind == "norm2":
         post = (("sqrt",),) + post
     if kind == "mean":
-        post = (("scale", 1.0 / x.numel() if x.numel() else float("nan")),) + post
+        n = _mesh_count(x.numel(), plan) if plan.mesh_axes else x.numel()
+        post = (("scale", 1.0 / n if n else float("nan")),) + post
     if x.numel() == 0:
         z = torch.zeros((), dtype=accum, device=x.device)
         return _kcommon.apply_epilogue(z, post), z
+    if plan.mesh_axes:
+        # row: [per-part sum | raw total | counts (part 0, total)]
+        row = _sum_parts_total_impl([x], plan.replace(mesh_axes=()), prologue, ((),), True)
+        row = _cross_combine(row, plan)
+        return _kcommon.apply_epilogue(row[1], post).to(accum), row[3]
     stat, count = _backends.get_backend(plan.backend).sum_all(x, plan, prologue, post,
                                                               census=True)
     return stat.to(accum), count.to(accum)
@@ -251,6 +307,8 @@ def _resolve_plan(shape, dtype, axis_t, kind, plan, segments=None, device=None,
         return plan_for(shape, dtype, kind=kind, axis=axis_t or None, segments=segments,
                         device=device, **fields)
     over = {k: v for k, v in fields.items() if v is not None}
+    if "mesh_axes" in over:
+        over["mesh_axes"] = norm_mesh_axes(over["mesh_axes"])
     for key in ("compute_dtype", "accum_dtype"):
         if key in over:
             over[key] = dtype_name(over[key])
@@ -272,6 +330,7 @@ def reduce(
     kahan_block: Optional[int] = None,
     epilogue=None,
     census: bool = False,
+    mesh_axes=None,
 ):
     """Reduce ``x`` over ``axis`` (None = all elements, the default; () =
     no axes, numpy's convention). The result's dtype is the plan's
@@ -298,7 +357,13 @@ def reduce(
     kernel backends it runs inside the launch that forms the total.
     ``census=True`` (full reductions, not moments) also returns the
     NaN/Inf count of x's elements: ``(statistic, count)``. All kinds are
-    differentiable (see the module doc) except with ``census``.
+    differentiable (see the module doc) except with ``census`` or
+    ``mesh_axes``.
+
+    ``mesh_axes`` (an axis name or a tuple of names of the bound mesh; full
+    reductions only) makes the statistic global across ranks through the
+    fixed-order combine, bitwise the same on every rank (see the module
+    doc); with ``census`` the count rides the same combine.
     """
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
@@ -314,10 +379,15 @@ def reduce(
     p = _resolve_plan(x.shape, x.dtype, axis_t, kind, plan, device=x.device,
                       backend=backend, compute_dtype=compute_dtype,
                       accum_dtype=accum_dtype, num_lanes=num_lanes, tiles_per_block=tiles_per_block,
-                      precision=precision, kahan_block=kahan_block)
+                      precision=precision, kahan_block=kahan_block, mesh_axes=mesh_axes)
     accum = p.accum_torch
     if census:
         return _reduce_census_full(x, kind, p, chain)
+    if p.mesh_axes:
+        if axis_t is not None:
+            raise ValueError("mesh_axes= applies to FULL reductions (axis=None): the combine "
+                             f"makes one global statistic; got axis={axis!r}")
+        return _reduce_mesh_full(x, kind, p, chain)
     if axis_t == _NO_AXES:
         xf = x.to(accum)
         return {"sum": xf, "mean": xf, "sumsq": xf * xf, "norm2": torch.abs(xf),
@@ -521,6 +591,27 @@ def _reduce_many_full(arrs, kind: str, plan: ReducePlan, chain: tuple = ()):
     return out[:len(arrs)], out[len(arrs):]
 
 
+def _reduce_many_full_mesh(arrs, kind: str, p: ReducePlan, chain: tuple):
+    """``reduce_many(axis=None)`` with ``p.mesh_axes``: one local parts
+    pass makes the shard's additive (N,) vector ((2N,) for moments), one
+    fixed-order combine folds the ranks' vectors, and the finishers and the
+    chain map the combined vector."""
+    _refuse_mesh_grad(*arrs)
+    lp = p.replace(mesh_axes=())
+    s = len(arrs)
+    if kind == "moments":
+        out = _cross_combine(_sum_parts(arrs, lp, "moments"), p)
+        return out[:s], out[s:]
+    out = _cross_combine(
+        _sum_parts(arrs, lp, "square" if kind in ("sumsq", "norm2") else "identity"), p)
+    if kind == "mean":
+        out = out / torch.tensor([max(_mesh_count(a.numel(), p), 1) for a in arrs],
+                                 dtype=p.accum_torch, device=out.device)
+    if kind == "norm2":
+        out = torch.sqrt(out)
+    return _kcommon.apply_epilogue(out, chain)
+
+
 def _reduce_many_rows(arrs, kind: str, plan: ReducePlan):
     """Every array reduced over its last axis in one backend pass: the rows
     zero-padded to the widest (exact: zeros add nothing) and stacked into
@@ -601,18 +692,15 @@ def reduce_many(
     accumulator precision and summed by ONE launch of the gather kernel
     (K8), the reference's route. The auto backend is the "segmented" route.
     ``epilogue`` (axis=None; sum/sumsq/norm2) maps every per-array
-    statistic. Differentiable on every backend. ``mesh_axes`` is not
-    ported.
+    statistic. Differentiable on every backend. ``mesh_axes`` (axis=None
+    only) makes every per-array statistic global across ranks: the whole
+    vector rides ONE fixed-order combine (see ``reduce``).
     """
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
     if axis not in (None, -1):
         raise ValueError("reduce_many reduces each array fully (axis=None) or over its last "
                          f"axis (axis=-1); got axis={axis!r}")
-    if mesh_axes:
-        raise NotImplementedError(
-            "reduce_many(mesh_axes=...) is not ported: the distributed combine belongs to "
-            "the ROADMAP's distributed item")
     chain = _kcommon.normalize_epilogue(epilogue)
     if chain and axis is not None:
         raise ValueError(f"reduce_many epilogues apply to full reductions (axis=None); "
@@ -634,7 +722,12 @@ def reduce_many(
                       compute_dtype=compute_dtype,
                       accum_dtype=accum_dtype, num_lanes=num_lanes,
                       tiles_per_block=tiles_per_block, precision=precision,
-                      kahan_block=kahan_block)
+                      kahan_block=kahan_block, mesh_axes=mesh_axes)
+    if p.mesh_axes:
+        if axis is not None:
+            raise ValueError("mesh_axes= applies to FULL per-array reductions (axis=None); got "
+                             f"axis={axis!r}")
+        return _reduce_many_full_mesh(arrs, kind, p, chain)
     if axis is None:
         return _reduce_many_full(arrs, kind, p, chain)
     return _reduce_many_rows(arrs, kind, p)
@@ -655,6 +748,18 @@ def tree_leaves(tree) -> list:
     raise TypeError(f"reduce_tree leaves must be tensors; got {type(tree).__name__}")
 
 
+def _leaf_row_partials(leaves, plan: ReducePlan, be, square: bool) -> list:
+    """Each leaf's last-axis sums (of squares) at accumulator precision,
+    flattened: the operands of the non-kernel backends' parts pass."""
+    partials = []
+    for leaf in leaves:
+        xf = leaf.to(plan.accum_torch)
+        v = xf * xf if square else xf
+        partials.append(v.reshape(1) if v.ndim == 0 else
+                        be.sum_axis(v, plan).to(plan.accum_torch).reshape(-1))
+    return partials
+
+
 def reduce_tree(
     tree,
     kind: str = "sumsq",
@@ -665,6 +770,7 @@ def reduce_tree(
     epilogue=None,
     return_per_leaf: bool = False,
     census: bool = False,
+    mesh_axes=None,
 ):
     """Reduce a whole tree of arrays to one statistic ("sum", "sumsq" or
     "norm2").
@@ -690,6 +796,14 @@ def reduce_tree(
     the chains and the census host-side (reference semantics). Leaves that
     require grad differentiate on every backend (``_KSumParts`` /
     ``_KSumPartsTotal`` around the kernel; the census counts get none).
+
+    ``mesh_axes`` (axis names of the bound mesh) makes the whole statistic
+    global across ranks: each rank's local pass over its shards (one K4
+    launch on cuda_fused, the census counted in it) makes the additive row
+    ``[per leaf | raw total | counts]``, ONE fixed-order combine folds the
+    ranks' rows, and the chains (norm2's sqrt first) finish the combined
+    total. Statistic, per-leaf sums, chain outputs and counts are bitwise
+    the same on every rank.
     """
     if kind not in TREE_KINDS:
         raise ValueError(f"reduce_tree supports {TREE_KINDS}; got {kind!r}")
@@ -706,11 +820,13 @@ def reduce_tree(
             (total_n,), torch.float32, kind="sumsq" if square else "sum",
             backend=backend, num_lanes=num_lanes,
             compute_dtype="float32",  # exactness for clipping
-            device=leaves[0].device if leaves else None,
+            device=leaves[0].device if leaves else None, mesh_axes=mesh_axes,
         )
     else:
-        over = {k: v for k, v in (("backend", backend), ("num_lanes", num_lanes))
-                if v is not None}
+        over = {k: v for k, v in (("backend", backend), ("num_lanes", num_lanes),
+                                  ("mesh_axes", mesh_axes)) if v is not None}
+        if "mesh_axes" in over:
+            over["mesh_axes"] = norm_mesh_axes(over["mesh_axes"])
         plan = plan.replace(**over) if over else plan
     accum = plan.accum_torch
 
@@ -732,6 +848,26 @@ def reduce_tree(
         return _finish(torch.zeros((0,), dtype=accum), totals, torch.zeros((1,), dtype=accum))
     be = _backends.get_backend(plan.backend)
     prologue = "square" if square else "identity"
+    if plan.mesh_axes:
+        _refuse_mesh_grad(*leaves)
+        lp = plan.replace(mesh_axes=())
+        s = len(leaves)
+        if be.native_prologue:
+            # one launch: the identity total chain makes the row exactly
+            # [per leaf | raw total | counts]
+            row = _sum_parts_total(leaves, lp, prologue, ((),), census)
+        else:
+            per = _sum_parts(_leaf_row_partials(leaves, lp, be, square), lp)
+            pieces = [per, torch.sum(per)[None]]
+            if census:
+                pieces.append(_backends.host_nonfinite_census(leaves, accum))
+            row = torch.cat(pieces)
+        row = _cross_combine(row, plan)
+        total = row[s]
+        if chains is None:
+            return torch.sqrt(total) if kind == "norm2" else total
+        totals = torch.stack([_kcommon.apply_epilogue(total, ch) for ch in chains]).to(accum)
+        return _finish(row[:s], totals, row[s + 1:] if census else None)
     if be.native_prologue:
         if chains is not None:
             out = _sum_parts_total(leaves, plan, prologue, chains, census)
@@ -741,15 +877,7 @@ def reduce_tree(
             return _finish(out[:s], out[s:])
         total = torch.sum(_sum_parts(leaves, plan, prologue))
         return torch.sqrt(total) if kind == "norm2" else total
-    partials = []
-    for leaf in leaves:
-        xf = leaf.to(accum)
-        v = xf * xf if square else xf
-        if v.ndim == 0:
-            partials.append(v.reshape(1))
-            continue
-        partials.append(be.sum_axis(v, plan).to(accum).reshape(-1))
-    per_leaf = _sum_parts(partials, plan)
+    per_leaf = _sum_parts(_leaf_row_partials(leaves, plan, be, square), plan)
     total = torch.sum(per_leaf)
     if chains is not None:
         totals = torch.stack([_kcommon.apply_epilogue(total, ch) for ch in chains]).to(accum)

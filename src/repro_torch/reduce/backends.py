@@ -31,6 +31,9 @@ primitives:
   scan_axis(x, plan, inclusive, trace)
                           -- (..., L) -> (..., L) prefix sum over the last
                              axis (``plan`` a ``ScanPlan``), in x's dtype
+  cross_device_combine(partials, plan)
+                          -- per-rank additive partials combined across
+                             ``plan.mesh_axes`` by the fixed-order fold
 
 Registered here (analogues of the reference's xla / mma_jnp /
 pallas_hier / pallas_fused / segmented):
@@ -258,6 +261,18 @@ class Backend:
         if census:
             pieces.append(host_nonfinite_census(parts, per.dtype))
         return torch.cat(pieces)
+
+
+    def cross_device_combine(self, partials: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
+        """Combine per-rank ADDITIVE partials across ``plan.mesh_axes``: the
+        fixed-order all-gather fold (``core.collectives.fixed_order_combine``),
+        never an all-reduce whose order is the transport's, so the result is
+        bitwise the same on every rank at any rank count."""
+        if not plan.mesh_axes:
+            return partials
+        from repro_torch.core import collectives as _coll  # deferred: import cycle
+
+        return _coll.fixed_order_combine(partials, plan.mesh_axes)
 
 
 class TorchBackend(Backend):

@@ -25,8 +25,12 @@ the port runs eagerly, so each audit here RUNS ``fn(*args)`` and watches it:
 hierarchy's levels, the parts kernel, a fused kernel's one-lane finish;
 see ``ReducePlan.hbm_bytes`` for the multi-lane fused kernels).
 
-The reference's ``collective_*`` audits wait for the distributed item (the
-port has no collectives yet).
+  * the collectives (``torch.distributed``'s c10d ops, which do pass
+    through the dispatcher) go through the same kind of mode:
+    ``collective_eqns`` lists every one a call runs, with its bytes, and
+    ``collective_recv_bytes`` sums what its all-gathers bring into the
+    rank -- the measured side of ``core.cost_model.interconnect_bytes``,
+    as ``measured_hbm_bytes`` is of ``ReducePlan.hbm_bytes``.
 
 Metering never changes what a call does: errors propagate.
 """
@@ -103,6 +107,64 @@ def _tensors(tree):
 
 def _largest(args) -> int:
     return max((t.numel() for t in _tensors(args)), default=1)
+
+
+# --------------------------------- collectives ---------------------------------
+
+# c10d ops of torch.distributed as the dispatcher names them (the
+# reference's COLLECTIVE_PRIMITIVES: all_gather, psum, ppermute, ...).
+COLLECTIVE_OPS = ("allgather_", "_allgather_base_", "allgather_into_tensor_coalesced_",
+                  "allreduce_", "allreduce_coalesced_", "broadcast_", "reduce_scatter_",
+                  "_reduce_scatter_base_", "alltoall_", "alltoall_base_", "send", "recv_",
+                  "recv_any_source_")
+_GATHERS = ("allgather_", "_allgather_base_", "allgather_into_tensor_coalesced_")
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(common.nbytes(t) for t in _tensors(tree))
+
+
+class _CollectiveWatch(TorchDispatchMode):
+    """Records ``(c10d op, bytes in, bytes out)`` for every collective a
+    call runs: an all-gather brings in its output less its input, a send
+    puts out its tensors, a receive takes them in, an all-reduce does both."""
+
+    def __init__(self):
+        super().__init__()
+        self.found: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if name in COLLECTIVE_OPS:
+            if name in _GATHERS:
+                inb, outb = _tensor_bytes(args[1]), _tensor_bytes(args[0])
+            elif name == "send":
+                inb, outb = _tensor_bytes(args[0]), 0
+            elif name.startswith("recv"):
+                inb, outb = 0, _tensor_bytes(args[0])
+            else:
+                inb = outb = _tensor_bytes(args[0])
+            self.found.append((name, inb, outb))
+        return out
+
+
+def collective_eqns(fn, *args, **kwargs) -> list:
+    """Run ``fn(*args, **kwargs)``: ``[(c10d op, bytes in, bytes out), ...]``
+    for every collective it ran, in order (the reference's
+    ``collective_eqns`` of a lowered program)."""
+    with _CollectiveWatch() as w:
+        fn(*args, **kwargs)
+    return list(w.found)
+
+
+def collective_recv_bytes(fn, *args, **kwargs) -> int:
+    """Bytes that ``fn(*args, **kwargs)``'s all-gathers brought into this
+    rank: each gather's output holds the rank's own row and P - 1 others,
+    so output less input is what crossed the wire. Held equal to
+    ``cost_model.interconnect_bytes(slots, world).recv_per_device``."""
+    return sum(out - inb for name, inb, out in collective_eqns(fn, *args, **kwargs)
+               if name in _GATHERS)
 
 
 # ----------------------------- the launch notes -------------------------------

@@ -116,7 +116,10 @@ class ReducePlan:
     leaves it to the device (``kernels.mma_reduce.default_num_lanes``: 1 on
     the CPU); precision: "native" or "kahan" (the compensated sum: in the
     fused kernel's carry on cuda_fused, the blocked combine elsewhere);
-    kahan_block: the blocked combine's block length."""
+    kahan_block: the blocked combine's block length; mesh_axes: names of
+    axes of the bound mesh (``core.collectives.bound_mesh``) the reduction
+    combines across after the local launch (the fixed-order combine), a
+    tuple of strings so plans hash; () is single-rank semantics."""
 
     backend: str = "mma_torch"
     m: int = MXU
@@ -126,6 +129,7 @@ class ReducePlan:
     num_lanes: Optional[int] = None
     precision: str = "native"
     kahan_block: int = 4096
+    mesh_axes: Tuple[str, ...] = ()
 
     def __post_init__(self):
         if self.m < 2:
@@ -138,6 +142,10 @@ class ReducePlan:
             raise ValueError(f"unknown precision policy {self.precision!r}; expected {PRECISIONS}")
         if self.kahan_block < 1:
             raise ValueError(f"kahan_block must be >= 1; got {self.kahan_block}")
+        if not isinstance(self.mesh_axes, tuple) or not all(
+                isinstance(a, str) and a for a in self.mesh_axes):
+            raise ValueError(f"mesh_axes must be a tuple of axis-name strings; got "
+                             f"{self.mesh_axes!r}")
 
     @property
     def compute_torch(self) -> torch.dtype:
@@ -300,10 +308,20 @@ def _problem_key(shape, dtype_s, kind, axis, segments, device_type) -> Tuple:
     return (shape, dtype_s, kind, axis, segments, device_type)
 
 
+def norm_mesh_axes(mesh_axes) -> Tuple[str, ...]:
+    """The hashable form of a ``mesh_axes`` argument: a bare axis name
+    becomes a 1-tuple, any sequence a tuple, None or empty ()."""
+    if mesh_axes is None:
+        return ()
+    if isinstance(mesh_axes, str):
+        return (mesh_axes,)
+    return tuple(str(a) for a in mesh_axes)
+
+
 @functools.lru_cache(maxsize=_PLAN_CACHE_SIZE)
 def _plan_for_cached(shape, dtype_s, kind, axis, name, compute_dtype, accum_dtype, num_lanes,
                      tiles_per_block, precision, kahan_block, segments,
-                     device_type) -> ReducePlan:
+                     device_type, mesh_axes=()) -> ReducePlan:
     if name == "auto" and segments is not None:
         name = "segmented"
     if accum_dtype is None:
@@ -338,6 +356,7 @@ def _plan_for_cached(shape, dtype_s, kind, axis, name, compute_dtype, accum_dtyp
         tiles_per_block=8 if tiles_per_block is None else tiles_per_block,
         precision=precision,
         kahan_block=4096 if kahan_block is None else kahan_block,
+        mesh_axes=mesh_axes,
     )
 
 
@@ -356,13 +375,16 @@ def plan_for(
     kahan_block: Optional[int] = None,
     segments: Optional[int] = None,
     device=None,
+    mesh_axes=None,
 ) -> ReducePlan:
     """The plan for reducing ``shape``/``dtype`` over ``axis`` (the reduced
     extent, the dtype and the operand's ``device`` pick the auto backend;
     unset fields follow the reference: 8 tiles per block, native
     precision, Kahan blocks of 4096). ``segments=N`` marks a multi-reduce
     of N pieces (``shape`` is then the packed stream): on auto it routes
-    to the "segmented" backend. Memoized (see the module doc)."""
+    to the "segmented" backend. ``mesh_axes`` (axis names of the bound
+    mesh) makes the reduction combine across ranks after the local launch.
+    Memoized (see the module doc); the memo keys on ``mesh_axes`` too."""
     shape_t = tuple(int(d) for d in shape)
     return _plan_for_cached(
         shape_t, dtype_name(dtype), kind, _norm_axis(axis, len(shape_t)),
@@ -375,6 +397,7 @@ def plan_for(
         None if kahan_block is None else int(kahan_block),
         None if segments is None else int(segments),
         _device_type(device),
+        norm_mesh_axes(mesh_axes),
     )
 
 

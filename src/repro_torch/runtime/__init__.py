@@ -1,7 +1,16 @@
-"""Runtime: chaos injection, guard metrics, the guarded serving loop, and
-the fault tolerance of the training loop (retry, skip accounting, rollback,
-preemption, resume)."""
+"""Runtime: chaos injection, guard metrics, the guarded serving loop, the
+fault tolerance of the training loop (retry, skip accounting, rollback,
+preemption, resume), and the cross-rank agreement checker."""
 
+from repro_torch.runtime.agreement import (  # noqa: F401
+    AgreementChecker,
+    DivergenceError,
+    FileTransport,
+    Transport,
+    exchange,
+    fingerprint,
+    step_fingerprint,
+)
 from repro_torch.runtime.chaos import (  # noqa: F401
     ChaosMonkey,
     Preemption,

@@ -102,8 +102,31 @@ def test_steps_past_the_card_refused(card, arch, layers, guard):
     cfg = get_arch(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    with pytest.raises(ValueError, match="the ROADMAP's distributed item"):
+    with pytest.raises(ValueError, match="the ROADMAP's sharding item"):
         train_cli.check_fits_card(cfg, TrainConfig(), card, guard=guard)
+
+
+@pytest.mark.parametrize("arch,ranks_on_card,world,fits", [
+    ("olmo-1b", 2, 2, True),           # chip_smoke.py's data mesh: two replicas on one card
+    ("olmo-1b", 1, 4, True),           # four ranks, each on a card of its own
+    ("olmo-1b", 3, 3, False),          # three replicas and their reserves pass 80 GB
+    ("internlm2-1.8b", 2, 2, False),   # one guarded replica alone takes 41 GB
+    ("internlm2-1.8b", 1, 2, True),
+])
+def test_data_mesh_charges_every_rank_on_the_card(card, arch, ranks_on_card, world, fits):
+    cfg, tcfg = get_arch(arch), TrainConfig()
+    per_rank = (train_cli.train_step_peak_bytes(cfg, tcfg, guard=True)
+                + train_cli.ACTIVATION_RESERVE_BYTES + train_cli.combine_peak_bytes(cfg, world))
+    largest = max(k for k, _ in train_cli.param_shapes(cfg))
+    assert train_cli.combine_peak_bytes(cfg, world) == 4 * largest * (world + 1)
+    assert (per_rank * ranks_on_card <= H100_BYTES) == fits
+    if fits:
+        train_cli.check_fits_card(cfg, tcfg, card, guard=True, ranks_on_card=ranks_on_card,
+                                  world=world)
+    else:
+        with pytest.raises(ValueError, match="the ROADMAP's sharding item"):
+            train_cli.check_fits_card(cfg, tcfg, card, guard=True,
+                                      ranks_on_card=ranks_on_card, world=world)
 
 
 def test_train_cli_refuses_guarded_depth_before_allocating(card):

@@ -298,7 +298,7 @@ def test_train_cli_refuses_full_depth_before_allocating(monkeypatch):
     monkeypatch.setattr(train_cli, "init_params", no_alloc)
     cuda = torch.device("cuda")
     for name in (ARCH, "deepseek-7b"):
-        with pytest.raises(ValueError, match="the ROADMAP's distributed item"):
+        with pytest.raises(ValueError, match="the ROADMAP's sharding item"):
             train_cli.check_fits_card(get_arch(name), tcfg, cuda)
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", ARCH, "--steps", "1"])

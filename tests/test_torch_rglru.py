@@ -437,12 +437,12 @@ def refuses_full_depth(monkeypatch, arch: str, cut_layers: int, leaves: int, gb:
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: Props())
     monkeypatch.setattr(train_cli, "init_params", no_alloc)
     cuda = torch.device("cuda")
-    with pytest.raises(ValueError, match="the ROADMAP's distributed item"):
+    with pytest.raises(ValueError, match="the ROADMAP's sharding item"):
         train_cli.check_fits_card(full, tcfg, cuda)
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", arch, "--steps", "1"])
     if refused_layers is not None:
-        with pytest.raises(ValueError, match="the ROADMAP's distributed item"):
+        with pytest.raises(ValueError, match="the ROADMAP's sharding item"):
             train_cli.check_fits_card(dataclasses.replace(full, n_layers=refused_layers), tcfg,
                                       cuda)
     train_cli.check_fits_card(cut, tcfg, cuda)

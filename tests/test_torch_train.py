@@ -12,7 +12,8 @@
     mode); plain AdamW, the fused second moment, and 2 microbatches. Per
     step: loss, grad norm, clip coefficient and every parameter.
   * The CLI on the CPU, and its refusal without a GPU or ``--device``, of
-    the distributed flags, and of ``--chaos`` without ``--guard``.
+    ``--mesh`` without ``--guard`` or with a batch that does not divide by
+    the world, and of ``--chaos`` without ``--guard``.
 
 Tolerances (tiny olmo is f32):
   * loss 1e-3: the token sum (K1) rounds each per-token loss to bf16, as
@@ -158,7 +159,12 @@ def test_cli_needs_a_device_or_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--arch", "olmo-1b", "--tiny", "--steps", "1"])
-    # refused: the distributed flags, and the chaos drill without the guard
-    for flag in (["--mesh"], ["--guard", "--chaos-host", "1"], ["--chaos", "0.1"]):
+    # refused, as the reference refuses them: the mesh without the guard,
+    # a global batch that does not divide by the mesh's ranks (3 here, read
+    # from the launcher's environment before any process group forms), and
+    # the chaos drill without the guard
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    for flag in (["--mesh"], ["--guard", "--mesh", "--batch", "4"], ["--chaos", "0.1"]):
         with pytest.raises(SystemExit):
             train_cli.main(["--arch", "olmo-1b", "--tiny", "--device", "cpu"] + flag)
+    assert not torch.distributed.is_initialized()
