@@ -123,16 +123,30 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             card, one-ulp faults planted on rank 1 caught by
             ``replica_bits_agree``, ``census_agreement`` and the checker;
             then ``launch.train --arch olmo-1b --guard --mesh --chaos-host
-            1`` at full width and depth on two gloo ranks sharing the
-            first card (batch 2 + 2 x 512; rank 1 poisoned on step 2,
+            1`` at full width cut to 4 layers on two gloo ranks sharing
+            the first card (batch 2 + 2 x 512; rank 1 poisoned on step 2,
             skipped on both ranks with the parameters bitwise, a rollback
             at the same step on both, every step's metrics printed bitwise
             the same, an agreement round over ``FileTransport`` a step, the
             combine's metered bytes equal to ``interconnect_bytes``, the
             step-1 loss, grad norm and clip against the single-rank guarded
-            step's), each step's wall, device busy, combine seconds and
-            bytes with the transport and peak memory a rank;
-            then tiny olmo-1b at world 2 on the card against CPU ranks.
+            step's at that depth), each step's wall, device busy, combine
+            seconds and bytes with the transport and peak memory a rank;
+            then tiny olmo-1b at world 2 on the card against CPU ranks;
+  sharded   the sharded step (``run_sharded_phase``): four gloo ranks
+            sharing the first card on a (data 2, model 2) mesh train
+            deepseek-7b at full width (FSDP + TP + vocab TP, cut to the
+            deepest depth the sharded fit check takes) and
+            granite-moe-1b-a400m at full depth (FSDP + vocab TP + EP), two
+            steps each at a learning rate past warmup: both steps' loss,
+            grad norm and clip against the single-rank step's, step 1's
+            update of layer 0's leaves against the single rank's,
+            replicated leaves bitwise equal across ranks, each rank's collective
+            bytes equal to the dry run's model, its launches to the launch
+            model; K7's partial variant against its plain version; the dry
+            run of deepseek-7b train_4k on (2, 2) and (16, 16) (a model
+            figure: the step's peak, the reserve and the checkpointed
+            block inputs a rank).
 
 Exits nonzero, with no result line, when any check fails or there is no
 GPU.
@@ -267,6 +281,7 @@ TPU_KERNELS = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:50",
     "mma_sum_parts": "src/repro/kernels/mma_reduce/kernel.py:728",
     "cross_entropy": "src/repro/kernels/cross_entropy/kernel.py:39",
+    "cross_entropy_partial": "src/repro/kernels/cross_entropy/kernel.py:39",
     "mma_sum_fused": "src/repro/kernels/mma_reduce/kernel.py:186",
     "mma_sum_segments": "src/repro/kernels/mma_reduce/kernel.py:512",
     "mma_scan": "src/repro/kernels/scan.py:68",
@@ -281,13 +296,14 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "mma_sum_parts": "src/repro_torch/kernels/csrc/parts_reduce.cu",
     "cross_entropy": "src/repro_torch/kernels/csrc/cross_entropy.cu",
+    "cross_entropy_partial": "src/repro_torch/kernels/csrc/cross_entropy.cu",
     "mma_sum_fused": "src/repro_torch/kernels/csrc/fused_reduce.cu",
     "mma_sum_segments": "src/repro_torch/kernels/csrc/segmented_gather.cu",
     "mma_scan": "src/repro_torch/kernels/csrc/scan.cu",
     "matmul_stats": "src/repro_torch/kernels/csrc/matmul_stats.cu",
 }
 KERNELS = ("mma_sum_parts", "layernorm_np", "rmsnorm", "flash_attention", "cross_entropy",
-           "mma_sum_fused", "mma_moments_fused", "mma_sum_kahan", "tile_partials",
+           "cross_entropy_partial", "mma_sum_fused", "mma_moments_fused", "mma_sum_kahan", "tile_partials",
            "mma_sum_segments", "mma_scan", "matmul_stats")
 PAPER_KERNELS = ("mma_moments_fused", "mma_sum_kahan", "tile_partials")
 MULTI_KERNELS = ("mma_sum_segments", "mma_scan")
@@ -3742,8 +3758,8 @@ def record_routing(fn):
 
     real, seen = MOE.route, []
 
-    def recording(p, x, cfg):
-        r = real(p, x, cfg)
+    def recording(p, x, cfg, **kwargs):
+        r = real(p, x, cfg, **kwargs)
         seen.append(r)
         return r
 
@@ -3805,7 +3821,7 @@ def check_dbrx_refused() -> None:
     print(f"{DBRX} at full depth ({cfg.n_layers} layers, "
           f"{serve_state_bytes(cfg, SLOTS, PROMPT + MAX_NEW + 1) / 1e9:.1f} GB): refused: "
           f"{message}; device memory allocated before / after: {before} / {after}")
-    check(message is not None and "the ROADMAP's sharding item" in message
+    check(message is not None and "sharded over more cards" in message
           and after == before, f"{DBRX}: full depth was not refused before allocating")
 
 
@@ -4215,14 +4231,16 @@ def check_audio_shapes(results: dict) -> None:
 
 # ------------------------------- the data mesh -------------------------------
 
-# The data-mesh phase's training run: olmo-1b at full width and depth, two
-# ranks sharing the card (gloo), the global batch 4 x 512 split 2 + 2,
+# The data-mesh phase's training run: olmo-1b at full width cut to
+# MESH_LAYERS of its 16 layers (the whole script's time: at full depth the
+# run's 4.7 GB a step through gloo took ~150 s), two ranks sharing the card
+# (gloo), the global batch 4 x 512 split 2 + 2,
 # rank 1's gradients poisoned with NaN on step 2 and --max-bad-steps 1, so
 # step 2 is skipped on both ranks and rolls back to the step-0 anchor; then
 # steps 1-2 again, clean (the drill fires once). Four step calls a rank.
-MESH_WORLD, MESH_STEPS, MESH_NAN_STEPS, MESH_HOST = 2, 2, (2,), 1
+MESH_WORLD, MESH_STEPS, MESH_NAN_STEPS, MESH_HOST, MESH_LAYERS = 2, 2, (2,), 1, 4
 # Its step-1 loss, grad norm and clip against the single-rank guarded step's
-# on the same global batch (``run_guarded_training``, this run). The loss is
+# on the same global batch at the same depth (``guarded_step1``). The loss is
 # the mean over the rows each rank took, combined, and reads bitwise equal
 # on the card; its limit leaves room for cuBLAS picking other kernels for
 # the ranks' 1024 rows than for the single rank's 2048, and sits under the
@@ -4233,8 +4251,9 @@ MESH_WORLD, MESH_STEPS, MESH_NAN_STEPS, MESH_HOST = 2, 2, (2,), 1
 # gradient over 2044 tokens on one rank and over 1022 on each mesh rank,
 # and the probe reads that leaf's norm 3.9% under the f32 reference's on
 # one rank and 2.1% under on the mesh (every other leaf within 2.1e-4), so
-# the global norm and the clip read 2.5e-3 apart. The limit is four times
-# that reading; a combine that drops a rank's gradients or skips the
+# the global norm and the clip read 2.5e-3 apart at full depth, and 4.6e-3
+# at MESH_LAYERS (the embedding's share of the norm is larger there). The
+# limit is twice that reading; a combine that drops a rank's gradients or skips the
 # division moves them by a factor, and one that differs between ranks
 # fails the bitwise agreement of every step's metrics.
 MESH_LOSS_TOL, MESH_GRAD_REL = 1e-3, 1e-2
@@ -4264,7 +4283,8 @@ def _mesh_rank(rank: int, world: int, tmp: str, job: str, kw: dict) -> None:
                       MASTER_PORT=str(kw["port"]))
     with open(os.path.join(tmp, f"rank{rank}.log"), "w") as log, \
             contextlib.redirect_stdout(log):
-        out = {"engine": _mesh_engine_rank, "train": _mesh_train_rank}[job](rank, world, kw)
+        out = {"engine": _mesh_engine_rank, "train": _mesh_train_rank,
+               "sharded": _sharded_rank}[job](rank, world, kw)
         if "peak_gb" not in out:
             out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                               if torch.cuda.is_initialized() else 0.0)
@@ -4480,6 +4500,8 @@ def _mesh_train_rank(rank: int, world: int, kw: dict) -> dict:
         saved = torch.load(kw["params"])
         train_cli.init_params = lambda cfg, gen, device: _cpu_copy(saved, device)
     cfg = get_arch("olmo-1b", tiny=kw["tiny"])
+    if kw.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=kw["layers"])
     chaos = ChaosMonkey(nan_steps=kw["nan_steps"], host=kw["host"]) if kw["nan_steps"] else None
     run = lambda: train_cli.main(kw["argv"], cfg=cfg, chaos=chaos)  # noqa: E731
     if on_card:
@@ -4570,16 +4592,53 @@ def check_mesh_engine() -> dict:
             "combine_ms": [r["combine_ms"] for r in out["gloo"]]}
 
 
-def run_data_mesh_phase(single: dict) -> dict:
+def guarded_step1(cfg) -> dict:
+    """The training CLI's single-rank guarded step 1 (``--guard
+    --reduce-backend cuda_fused``, batch 4 x 512) at ``cfg``: its loss, grad
+    norm and clip at full precision, and its host wall."""
+    import torch
+
+    from repro_torch.launch import train as train_cli
+
+    step1 = {}
+    real_make = train_cli.make_guarded_train_step
+
+    def recording(*args, **kwargs):  # the CLI's step, its first call's metrics kept
+        step = real_make(*args, **kwargs)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            if not step1:
+                step1.update(grad_norm=float(out[3]["grad_norm"]), clip=float(out[3]["clip"]),
+                             wall_ms=(time.perf_counter() - t0) * 1e3)
+            return out
+
+        return run
+
+    train_cli.make_guarded_train_step = recording
+    try:
+        losses = train_cli.main(["--arch", "olmo-1b", "--guard", "--reduce-backend",
+                                 "cuda_fused", "--steps", "1", "--batch", str(TRAIN_BATCH),
+                                 "--seq", str(TRAIN_SEQ)], cfg=cfg)
+    finally:
+        train_cli.make_guarded_train_step = real_make
+    torch.cuda.empty_cache()
+    return dict(step1, loss=losses[0])
+
+
+def run_data_mesh_phase() -> dict:
     """The data mesh on the card: (a) and (c) ``check_mesh_engine``; (b)
     ``python -m repro_torch.launch.train --arch olmo-1b --guard --mesh
-    --chaos-host 1`` at full width and depth, two ranks sharing the first
-    card on gloo (``MESH_*``; pinned to it on a host of several cards,
-    where the ranks would otherwise get a card each and NCCL), against the
-    single-rank guarded step of this run (``single``: its step-1 loss,
-    grad norm and clip, its wall and busy); (d) tiny
-    olmo-1b at world 2 on the card against two CPU ranks. Returns the
-    launches of the training run's rank 0 (its main path)."""
+    --chaos-host 1`` at full width cut to ``MESH_LAYERS``, two ranks
+    sharing the first card on gloo (``MESH_*``; pinned to it on a host of
+    several cards, where the ranks would otherwise get a card each and
+    NCCL), against the single-rank guarded step at that depth on the same
+    global batch (``guarded_step1``: its step-1 loss, grad norm, clip and
+    wall); (d) tiny olmo-1b at world 2 on the card against two CPU ranks.
+    Returns the launches of the training run's rank 0 (its main path)."""
     import tempfile
 
     from repro_torch.configs import TrainConfig, get_arch
@@ -4587,7 +4646,8 @@ def run_data_mesh_phase(single: dict) -> dict:
 
     t_phase = time.time()
     engine = check_mesh_engine()
-    cfg = get_arch("olmo-1b")
+    cfg = dataclasses.replace(get_arch("olmo-1b"), n_layers=MESH_LAYERS)
+    single = guarded_step1(cfg)
     per_rank = (train_cli.train_step_peak_bytes(cfg, TrainConfig(), guard=True)
                 + train_cli.combine_peak_bytes(cfg, MESH_WORLD))
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ckpt:
@@ -4597,7 +4657,7 @@ def run_data_mesh_phase(single: dict) -> dict:
                 "--max-bad-steps", "1", "--ckpt-dir", ckpt, "--ckpt-every", "100"]
         ranks = spawn_ranks("train", MESH_WORLD, argv=argv, tiny=False, device="cuda",
                             nan_steps=list(MESH_NAN_STEPS), host=MESH_HOST, profile=True,
-                            one_card=True)
+                            one_card=True, layers=MESH_LAYERS)
     print("data mesh, training rank 0's log:\n" + ranks[0]["log"])
     for r, res in enumerate(ranks):
         for c in res["calls"]:
@@ -4636,15 +4696,15 @@ def run_data_mesh_phase(single: dict) -> dict:
         for k, per in train_launches_per_step(cfg).items():
             check(r["launches"][k] == per * n,
                   f"data mesh: {k}: {r['launches'][k]} launches in {n} steps, expected {per * n}")
-    first, one = ranks[0]["calls"][0], single["step1"]
-    dl = abs(first["loss"] - single["step1_loss"])
+    first, one = ranks[0]["calls"][0], single
+    dl = abs(first["loss"] - single["loss"])
     dg = {k: abs(first[k] - one[k]) / one[k] for k in ("grad_norm", "clip")}
-    print(f"data mesh step 1 against the single-rank guarded step's on the same global batch: "
-          f"loss {first['loss']!r} vs {single['step1_loss']!r} (|d| {dl:.3g}, tol "
-          f"{MESH_LOSS_TOL}); grad norm {first['grad_norm']!r} vs {one['grad_norm']!r} (rel. "
-          f"{dg['grad_norm']:.3g}, tol {MESH_GRAD_REL}); clip {first['clip']!r} vs "
+    print(f"data mesh step 1 ({MESH_LAYERS} layers) against the single-rank guarded step's on "
+          f"the same global batch: loss {first['loss']!r} vs {single['loss']!r} (|d| {dl:.3g}, "
+          f"tol {MESH_LOSS_TOL}); grad norm {first['grad_norm']!r} vs {one['grad_norm']!r} "
+          f"(rel. {dg['grad_norm']:.3g}, tol {MESH_GRAD_REL}); clip {first['clip']!r} vs "
           f"{one['clip']!r} (rel. {dg['clip']:.3g}, tol {MESH_GRAD_REL}); single-rank guarded "
-          f"step wall {single['wall_ms']:.3f} ms, busy {single['busy_ms']:.3f} ms")
+          f"step wall {single['wall_ms']:.3f} ms")
     check(dl <= MESH_LOSS_TOL, "data mesh: the step-1 loss is off the single-rank guarded step's")
     check(all(d <= MESH_GRAD_REL for d in dg.values()),
           "data mesh: the step-1 grad norm or clip is off the single-rank guarded step's")
@@ -4679,6 +4739,446 @@ def run_data_mesh_phase(single: dict) -> dict:
     print(f"data mesh phase: {time.time() - t_phase:.1f} s")
     return {"launches": ranks[0]["launches"], "engine": engine,
             "calls": [r["calls"] for r in ranks], "peak_gb": [r["peak_gb"] for r in ranks]}
+
+
+# ---------------- the sharded step: FSDP, TP and EP over (data, model) ----------------
+
+SHARDED_SHAPE, SHARDED_AXES = (2, 2), ("data", "model")
+SHARDED_WORLD, SHARDED_STEPS, SHARDED_SEED = 4, 2, 0
+# The learning rate is past warmup from step 1 (3e-4), so that step 1's
+# AdamW update moves the bf16 weights by whole ulps and step 2 sees it (at
+# the default warmup's 3e-6 most bf16 weights would not move at all).
+SHARDED_WARMUP = 1
+# Both steps against the single-rank step on the same weights and batches,
+# both bf16 on the kernels: the model ranks' partial sums of each
+# row-parallel product (o, down) add in another order than the whole
+# product's, a bf16 rounding apart in the hidden states. On an H100 step 1
+# read 4.05e-5 (deepseek-7b) and 4.44e-5 (granite) relative in the loss,
+# 1.48e-4 and 2.2e-3 in the grad norm (PERF.md section 6). Limits: loss
+# 1e-3 relative; the grad norm and clip, sums of bf16 gradients, 5e-3.
+SHARDED_LOSS_REL, SHARDED_GRAD_REL = 1e-3, 5e-3
+# Step 1's update (after - before, f32) of every leaf of layer 0 of at most
+# 2^25 elements (attention, norms, router, experts), the ranks' blocks
+# against the same blocks of the single-rank update: ||sharded - single|| /
+# ||single|| a leaf. A step-1 AdamW update is lr x the gradient's sign an
+# element, so bf16 gradients that round apart flip the sign of those near
+# 0; on the CPU (tests/test_torch_sharded_step.py, tiny internlm2-1.8b at
+# bf16) that read 0.146, where a half batch of other rows reads 1.2-1.3
+# and a flipped update 2. A leaf the single rank left alone must stay so.
+SHARDED_UPDATE_REL, SHARDED_PROBE_MAX = 0.5, 1 << 25
+# Granite's drop fractions: the ranks of a data group route alike (bitwise:
+# the same rows, the same router); against the single-rank step's routing
+# of the same rows a pair may flip where two experts' probabilities sit a
+# bf16 rounding apart: 0.01 of the pairs a layer.
+SHARDED_DROP_TOL = 0.01
+SHARDED_RULES = {"deepseek-7b": "DEFAULT_RULES", GRANITE: "SMALL_MODEL_RULES"}
+
+
+def sharded_specs(cfg, rules: str, mesh):
+    """The spec tree of ``cfg``'s parameters under ``rules`` (from the meta
+    device)."""
+    import torch
+
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.model import init_params, param_axes
+
+    meta = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+    return SH.param_shardings(param_axes(cfg), mesh, getattr(SH, rules), meta)
+
+
+def sharded_cut_depth(arch: str) -> int:
+    """The deepest cut of ``arch`` that the sharded fit check accepts for
+    ``SHARDED_WORLD`` ranks on the card, and the single-rank check for the
+    reference step (``launch.train.check_fits_card``; raises on neither)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import abstract_mesh
+
+    full = get_arch(arch)
+    dev = torch.device("cuda", 0)
+    for layers in range(full.n_layers, 0, -1):
+        cfg = dataclasses.replace(full, n_layers=layers)
+        mesh = abstract_mesh(SHARDED_SHAPE, SHARDED_AXES)
+        try:
+            train_cli.check_fits_card(cfg, TrainConfig(), dev, ranks_on_card=SHARDED_WORLD,
+                                      world=SHARDED_WORLD,
+                                      shard=(mesh, sharded_specs(cfg, SHARDED_RULES[arch],
+                                                                 mesh)))
+            train_cli.check_fits_card(cfg, TrainConfig(), dev)
+        except ValueError:
+            continue
+        return layers
+    raise SmokeFailure(f"{arch}: no depth fits the card sharded over {SHARDED_WORLD} ranks")
+
+
+def sharded_launches_per_step(cfg) -> dict:
+    """Kernel launches of a rank in one sharded step (one microbatch):
+    each layer's norms and attention forward and in the recompute, the
+    final norm once (``train_launches_per_step``, on the rank's heads);
+    per loss chunk K7's partial variant forward and in the recompute, and
+    the token sum's K1 both times too (the sharded forward runs its
+    recomputes whole: ``launch.steps``); the clip statistic once
+    (``clip_statistic_kernels``); no whole-vocabulary K7."""
+    chunks = -(-TRAIN_SEQ // LOSS_CHUNK)
+    out = dict(train_launches_per_step(cfg), cross_entropy=0,
+               cross_entropy_partial=2 * chunks, mma_sum_fused=2 * chunks)
+    return out
+
+
+def _sharded_batches(cfg, device) -> list:
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    return [{"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                     generator=gen, device=device)}
+            for _ in range(SHARDED_STEPS)]
+
+
+def _sharded_rank(rank: int, world: int, kw: dict) -> dict:
+    """One rank of the sharded phase: ``kw["arch"]`` cut to ``kw["layers"]``
+    under its rules on a (2, 2) mesh of ranks sharing the first card (gloo);
+    the weights drawn whole from the phase's seed on the card and cut to
+    the rank's blocks; ``SHARDED_STEPS`` steps of the global batch, step 1
+    under the launch meter, the collective meter (c10d bytes) and the
+    traffic notes; the replicas' bits; the routing's drop fractions."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch import reduce as R
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.core import collectives as C
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.dryrun import summarize
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.reduce import inspect
+
+    R.set_default_backend("cuda_fused")
+    mesh_lib.init_process_group(kw.get("device", "cuda"))
+    try:
+        mesh = mesh_lib.make_mesh(SHARDED_SHAPE, SHARDED_AXES)
+        cfg = dataclasses.replace(get_arch(kw["arch"]), n_layers=kw["layers"])
+        tcfg = TrainConfig(warmup_steps=SHARDED_WARMUP)
+        specs = sharded_specs(cfg, kw["rules"], mesh)
+        dev = mesh.device
+        train_cli.check_fits_card(cfg, tcfg, dev, ranks_on_card=world, world=world,
+                                  shard=(mesh, specs))
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(SHARDED_SEED), dev)
+        params = SH.shard_tree(full, specs, mesh)
+        del full
+        torch.cuda.empty_cache()
+        for p in R.tree_leaves(params):
+            p.requires_grad_(True)
+        opt = optim.init_state(params)
+        step = make_train_step(cfg, tcfg, mesh=mesh, param_shardings=specs)
+        single_update = torch.load(kw["probe"])  # {leaf index: the single rank's whole update}
+        leaves, spec_leaves = R.tree_leaves(params), SH.tree_leaves(specs)
+        before = {j: leaves[j].detach().to("cpu", copy=True) for j in single_update}
+        metrics, walls, out, update = [], [], {}, []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, batch in enumerate(_sharded_batches(cfg, dev)):
+            t0 = time.perf_counter()
+            if i == 0:
+                def metered():
+                    with C.traffic() as notes:
+                        eqns = inspect.collective_eqns(
+                            lambda: out.update(res=step(params, opt, batch)))
+                    out.update(notes=notes, eqns=eqns)
+
+                (_, routes), launches = counted_run(lambda: record_routing(metered))
+            else:
+                out["res"] = step(params, opt, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            params, opt, m = out.pop("res")
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:  # the rank's blocks of step 1's update against the single rank's
+                leaves = R.tree_leaves(params)
+                for j, whole in single_update.items():
+                    mine = leaves[j].detach().cpu().float() - before[j].float()
+                    ref = SH.block_of(whole, spec_leaves[j], mesh)
+                    update.append([j, float((mine - ref).square().sum()),
+                                   float(ref.square().sum()), float((mine + ref).square().sum()),
+                                   float(mine.square().sum())])
+                del single_update, before
+        agree = True
+        for p, s in zip(R.tree_leaves(params), SH.tree_leaves(specs)):
+            whole = tuple(ax for ax in mesh.axis_names if ax not in SH.spec_axes(s))
+            if whole:
+                agree &= bool(C.replica_bits_agree(p.detach(), whole, mesh))
+        records = {}
+        for kind, ax, b in out["notes"]:
+            records[(kind, ax, "")] = records.get((kind, ax, ""), 0) + b
+        recv = sum(o - i for op, i, o in out["eqns"] if op.startswith("allgather")
+                   or op == "_allgather_base_")
+        return {"metrics": metrics, "wall_ms": walls, "launches": launches, "update": update,
+                "recv_bytes": recv, "traffic": summarize(records)["by_kind"],
+                "replicas_agree": agree, "drops": drop_fractions(routes[:kw["layers"]]),
+                "transport": mesh.backend, "device": str(dev),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "model_gb": (train_cli.sharded_step_peak_bytes(cfg, tcfg, mesh, specs)
+                             + train_cli.ACTIVATION_RESERVE_BYTES // 2) / 1e9}
+    finally:
+        mesh_lib.shutdown(barrier=False)
+
+
+def _sharded_single(arch: str, layers: int, probe_path: str) -> dict:
+    """The single-rank steps of the phase's config on the same weights and
+    batches: each step's loss, grad norm and clip, step 1's routing, and
+    step 1's update of the probed leaves (``SHARDED_UPDATE_REL``), saved
+    whole at f32 to ``probe_path`` by leaf index for the ranks."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch import reduce as R
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SHARDED_SEED), DEVICE)
+    for p in R.tree_leaves(params):
+        p.requires_grad_(True)
+    opt = optim.init_state(params)
+    step = make_train_step(cfg, TrainConfig(warmup_steps=SHARDED_WARMUP))
+    first = {id(t) for t in R.tree_leaves(params["layers"][0])}
+    probe = [j for j, t in enumerate(R.tree_leaves(params))
+             if id(t) in first and t.numel() <= SHARDED_PROBE_MAX]
+    before = {j: R.tree_leaves(params)[j].detach().clone() for j in probe}
+    out = {"metrics": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(_sharded_batches(cfg, DEVICE)):
+        t0 = time.perf_counter()
+        if i == 0:
+            (res, routes) = record_routing(lambda: step(params, opt, batch))
+        else:
+            res = step(params, opt, batch)
+        torch.cuda.synchronize()
+        params, opt, m = res
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            out.update(drops=drop_fractions(routes[:layers]),  # the forward's
+                       wall_ms=(time.perf_counter() - t0) * 1e3,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            leaves = R.tree_leaves(params)
+            torch.save({j: (leaves[j].detach().float() - before[j].float()).cpu()
+                        for j in probe}, probe_path)
+            del before, routes
+    del params, opt, res, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_cross_entropy_partial(results: dict, gen) -> None:
+    """K7's partial variant at deepseek-7b's rank shape on the (2, 2) mesh:
+    a rank's rows of a loss chunk (2 x 512) x its 51 200 columns of the
+    102 400-column vocabulary, f32, against its plain version; the two
+    model ranks' triples merged against K7 over the whole row; timed beside
+    its bound and ``torch.logsumexp`` over the slice (the nearest library
+    call: no one call gives the partial)."""
+    import torch
+
+    from repro_torch.kernels import cross_entropy, cross_entropy_partial
+    from repro_torch.kernels.cross_entropy import cross_entropy_partial_plain, merge_partials
+
+    rows, vocab = (TRAIN_BATCH // SHARDED_SHAPE[0]) * LOSS_CHUNK, 102400
+    width = vocab // SHARDED_SHAPE[1]
+    whole = torch.randn((rows, vocab), generator=gen, device=DEVICE) * 3
+    labels = torch.randint(0, vocab, (rows,), generator=gen, device=DEVICE)
+    parts, err = [], 0.0
+    for r in range(SHARDED_SHAPE[1]):
+        x = whole[:, r * width:(r + 1) * width].contiguous()
+        before = cross_entropy_partial.launches
+        got = cross_entropy_partial(x, labels, r * width)
+        check(cross_entropy_partial.launches == before + 1, "cross_entropy_partial: launches")
+        want = cross_entropy_partial_plain(x, labels, r * width)
+        torch.cuda.synchronize()
+        lse = lambda t: t[:, 0] + torch.log(t[:, 1])  # noqa: E731
+        err = max(err, float((lse(got) - lse(want)).abs().max()),
+                  float((got[:, 2] - want[:, 2]).abs().max()))
+        check(torch.equal(got, cross_entropy_partial(x, labels, r * width)),
+              "cross_entropy_partial: a repeat differs")
+        parts.append(got)
+    merged, _ = merge_partials(parts)
+    full = cross_entropy(whole, labels)
+    d_full = float((merged - full).abs().max())
+    print(f"K7 partial ({rows}, {width}) f32 at col0 0 and {width} (deepseek-7b's rank shape "
+          f"on (2, 2)): max_abs_err {err:.3g} in the slice's logsumexp and pick vs plain (tol "
+          f"1e-3, K7's); the two slices merged vs K7 over the whole {vocab} columns: max |d| "
+          f"{d_full:.3g} (tol 1e-4: the same 2048-column slices, merged in another order)")
+    check(err <= 1e-3, "cross_entropy_partial disagrees with its plain version")
+    check(d_full <= 1e-4, "cross_entropy_partial: the merged slices are off K7's loss")
+    x = whole[:, :width].contiguous()
+    n = x.numel()
+    b, by = bound_ms(n * 4 + rows * 4 + rows * 12, tensor_flops=16 * n, core_flops=4 * n)
+    results["cross_entropy_partial"] = {
+        "max_abs_err": err,
+        "ms": device_ms(lambda: cross_entropy_partial(x, labels, 0), "::ce_kernel<"),
+        "call_ms": time_ms(lambda: cross_entropy_partial(x, labels, 0), iters=20),
+        "plain_ms": device_ms(lambda: cross_entropy_partial_plain(x, labels, 0), iters=3),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": device_ms(lambda: torch.logsumexp(x, -1)),
+        "merged_vs_full_max_abs": d_full,
+    }
+
+
+def sharded_update_gaps(ranks) -> dict:
+    """Per probed leaf, the ranks' block sums added: ``gap`` =
+    ||sharded - single|| / ||single|| of step 1's update, ``flipped`` the
+    same with the sharded update negated, ``moved`` whether the single
+    rank's update moved the leaf (without it, ``gap`` is 0 when the sharded
+    update left it alone too, else inf)."""
+    sums = {}
+    for res in ranks:
+        for j, *terms in res["update"]:
+            acc = sums.setdefault(j, [0.0] * 4)
+            for k, v in enumerate(terms):
+                acc[k] += v
+    out = {}
+    for j, (diff, ref, flip, mine) in sums.items():
+        if ref > 0:
+            out[j] = {"moved": True, "gap": math.sqrt(diff / ref), "flipped": math.sqrt(flip / ref)}
+        else:
+            out[j] = {"moved": False, "gap": 0.0 if mine == 0 else math.inf, "flipped": math.inf}
+    return out
+
+
+def run_sharded_phase(results: dict, gen) -> dict:
+    """The sharded step on the card, four gloo ranks sharing the first card
+    on a (data 2, model 2) mesh: (a) deepseek-7b at full width under
+    DEFAULT_RULES (FSDP + TP + vocab TP), cut to the deepest depth the
+    sharded fit check accepts for four ranks and the single-rank check for
+    its reference (``sharded_cut_depth``); (b) granite-moe-1b-a400m at full
+    width and depth under SMALL_MODEL_RULES (FSDP + vocab TP + EP, 16
+    experts a rank). Each: ``SHARDED_STEPS`` steps of 4 x 512 tokens; every
+    step's loss, grad norm and clip against the single-rank step on the
+    same weights and batches, and step 1's update of layer 0's leaves
+    against the single rank's (``SHARDED_UPDATE_REL``); replicated leaves
+    bitwise equal across ranks; the
+    metered c10d bytes and the noted traffic of step 1 equal to the dry
+    run's model (``launch.dryrun.step_collectives``); the launches per
+    rank equal ``sharded_launches_per_step``; the peak beside the fit
+    check's model. Then K7's partial variant against its plain version
+    (``check_cross_entropy_partial``), and (c) the dry run of deepseek-7b
+    train_4k on (2, 2) and on the production (16, 16): a rank's bytes (a
+    model figure). Returns rank 0's launches of (a), its main path."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+
+    t_phase = time.time()
+    out = {}
+    for arch in ("deepseek-7b", GRANITE):
+        t0 = time.time()
+        layers = sharded_cut_depth(arch) if arch != GRANITE else get_arch(arch).n_layers
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+            probe = os.path.join(tmp, "single_update.pt")
+            single = _sharded_single(arch, layers, probe)
+            ranks = spawn_ranks("sharded", SHARDED_WORLD, arch=arch, layers=layers,
+                                rules=SHARDED_RULES[arch], one_card=True, probe=probe)
+        mesh = abstract_mesh(SHARDED_SHAPE, SHARDED_AXES)
+        specs = sharded_specs(cfg, SHARDED_RULES[arch], mesh)
+        model = dryrun.summarize(dryrun.step_collectives(
+            cfg, TrainConfig(), mesh, specs, (TRAIN_BATCH, TRAIN_SEQ + 1)))
+        want_launches = sharded_launches_per_step(cfg)
+        one = single["metrics"][0]
+        print(f"sharded {arch} at {layers} of {get_arch(arch).n_layers} layers "
+              f"({SHARDED_RULES[arch]}, (data 2, model 2), 4 ranks on one card over "
+              f"{ranks[0]['transport']}): single-rank step 1 loss {one['loss']!r}, grad norm "
+              f"{one['grad_norm']!r}, clip {one['clip']!r}, wall {single['wall_ms']:.1f} ms, "
+              f"peak {single['peak_gb']:.2f} GB")
+        for r, res in enumerate(ranks):
+            m = res["metrics"][0]
+            print(f"sharded {arch} rank {r}: step 1 loss {m['loss']!r}, grad norm "
+                  f"{m['grad_norm']!r}, clip {m['clip']!r}; step walls "
+                  f"{[round(w, 1) for w in res['wall_ms']]} ms; c10d bytes in {res['recv_bytes']} "
+                  f"(dry run {model['total_bytes']}), by kind {res['traffic']}; peak "
+                  f"{res['peak_gb']:.2f} GB (the fit check's model "
+                  f"{res['model_gb']:.2f} GB with the reserve); replicas bitwise "
+                  f"{res['replicas_agree']}; launches {res['launches']}")
+            check(res["transport"] == "gloo" and res["device"] == "cuda:0",
+                  f"sharded {arch}: rank {r} did not share card 0 over gloo")
+            check(res["metrics"] == ranks[0]["metrics"],
+                  f"sharded {arch}: the ranks' metrics differ")
+            check(res["replicas_agree"], f"sharded {arch}: replicated leaves differ across ranks")
+            check(res["recv_bytes"] == model["total_bytes"]
+                  and res["traffic"] == model["by_kind"],
+                  f"sharded {arch}: rank {r}'s collective bytes are off the dry run's")
+            for k, n in want_launches.items():
+                check(res["launches"][k] == n,
+                      f"sharded {arch}: {k}: {res['launches'][k]} launches, expected {n}")
+            check(res["peak_gb"] <= res["model_gb"],
+                  f"sharded {arch}: rank {r}'s peak is past the fit check's model")
+            check(all(math.isfinite(v) for mm in res["metrics"] for v in mm.values()),
+                  f"sharded {arch}: non-finite metrics")
+        for i, (got, want) in enumerate(zip(ranks[0]["metrics"], single["metrics"]), 1):
+            rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm", "clip")}
+            print(f"sharded {arch} step {i} against the single-rank step: loss {got['loss']!r} "
+                  f"vs {want['loss']!r}, rel. {rel['loss']:.3g} (tol {SHARDED_LOSS_REL}); grad "
+                  f"norm rel. {rel['grad_norm']:.3g}, clip rel. {rel['clip']:.3g} (tol "
+                  f"{SHARDED_GRAD_REL})")
+            check(rel["loss"] <= SHARDED_LOSS_REL,
+                  f"sharded {arch}: step-{i} loss off the single rank")
+            check(rel["grad_norm"] <= SHARDED_GRAD_REL and rel["clip"] <= SHARDED_GRAD_REL,
+                  f"sharded {arch}: step-{i} grad norm or clip off the single rank")
+        check(len(single["metrics"]) == SHARDED_STEPS == len(ranks[0]["metrics"]),
+              f"sharded {arch}: steps missing")
+        gaps = sharded_update_gaps(ranks)
+        moved = [g for g in gaps.values() if g["moved"]]
+        worst = max(g["gap"] for g in moved)
+        flipped = min(g["flipped"] for g in moved)
+        print(f"sharded {arch} step 1's update of {len(gaps)} leaves of layer 0 ({len(moved)} "
+              f"moved) against the single rank's: worst ||sharded - single|| / ||single|| "
+              f"{worst:.4g} (tol {SHARDED_UPDATE_REL}; a flipped update would read {flipped:.4g}); "
+              f"leaves left alone by both: {all(g['moved'] or g['gap'] == 0 for g in gaps.values())}")
+        check(moved and worst <= SHARDED_UPDATE_REL < flipped,
+              f"sharded {arch}: step 1's update off the single rank's")
+        check(all(g["moved"] or g["gap"] == 0 for g in gaps.values()),
+              f"sharded {arch}: a leaf the single rank left alone moved")
+        if cfg.moe is not None:
+            # ranks (d, 0) and (d, 1) route the same rows; the two data
+            # groups' rows together are the single rank's batch
+            d0, d1 = ranks[0]["drops"], ranks[2]["drops"]
+            check(ranks[1]["drops"] == d0 and ranks[3]["drops"] == d1,
+                  f"sharded {arch}: the model ranks of a data group routed differently")
+            merged = [(a + b) / 2 for a, b in zip(d0, d1)]
+            gap = max(abs(a - b) for a, b in zip(merged, single["drops"]))
+            print(f"sharded {arch}: moe_drop_frac over the global batch, mean "
+                  f"{sum(merged) / len(merged):.4f} (single rank "
+                  f"{sum(single['drops']) / len(single['drops']):.4f}), largest gap a layer "
+                  f"{gap:.4g} (tol {SHARDED_DROP_TOL})")
+            check(len(merged) == layers and gap <= SHARDED_DROP_TOL,
+                  f"sharded {arch}: drop fractions off the single rank's")
+        print(f"sharded {arch}: {time.time() - t0:.1f} s")
+        out[arch] = {"layers": layers, "ranks": ranks, "single": single, "model": model}
+        torch.cuda.empty_cache()
+    check_cross_entropy_partial(results, gen)
+    for mesh_name in ("2x2", "single"):
+        rec = dryrun.run_cell("deepseek-7b", "train_4k", mesh_name)
+        print("dry run (a model figure, nothing allocated): " + dryrun.describe(rec))
+        check(rec["status"] == "ok", f"dry run of deepseek-7b train_4k on {mesh_name} failed")
+        out[f"dryrun_{mesh_name}"] = rec["bytes_per_rank"]
+    print(f"sharded phase: {time.time() - t_phase:.1f} s")
+    out["launches"] = out["deepseek-7b"]["ranks"][0]["launches"]
+    return out
 
 
 def run_meter_phase() -> dict:
@@ -4899,7 +5399,9 @@ def main() -> int:
         guarded = run_guarded_training(train_prof["busy_ms"])
         drill = run_rollback_drill()
         torch.cuda.empty_cache()
-        mesh = run_data_mesh_phase(guarded)
+        mesh = run_data_mesh_phase()
+        torch.cuda.empty_cache()
+        sharded = run_sharded_phase(results, gen)
         torch.cuda.empty_cache()
         intern_launches, intern_prof = train_full_width("internlm2-1.8b", guarded_steps=1)
         clip_stat = profile_clip_statistic("internlm2-1.8b",
@@ -4956,6 +5458,7 @@ def main() -> int:
         main_path = (paper_launches if name in PAPER_KERNELS else
                      multi_launches if name in MULTI_KERNELS else
                      ms_launches if name == "matmul_stats" else
+                     sharded["launches"] if name == "cross_entropy_partial" else
                      intern_launches if name == "rmsnorm" else train_launches)
         check(main_path[name] > 0, f"{name} was not launched on its main path")
         entry = {
@@ -5001,6 +5504,9 @@ def main() -> int:
             "launches_guarded_training": guarded["launches"][name],
             "launches_rollback_drill": drill["launches"][name],
             "launches_data_mesh": mesh["launches"].get(name, 0),
+            f"launches_sharded_deepseek_{sharded['deepseek-7b']['layers']}_layers_rank0":
+                sharded["launches"][name],
+            "launches_sharded_granite_rank0": sharded[GRANITE]["ranks"][0]["launches"][name],
             "launches_forward_kernel_route": nonkernel["launches"].get(name, 0),
         }
         entry.update({k: v for k, v in r.items() if k not in entry})
@@ -5009,6 +5515,8 @@ def main() -> int:
         lib = "-" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.1f} us"
         shape = ("2^28 f32" if k["name"] in PAPER_KERNELS + MULTI_KERNELS
                  else "(2048x8192)@(8192x2048) bf16" if k["name"] == "matmul_stats"
+                 else "deepseek-7b's rank shape on (2, 2), 1024 x 51200 f32"
+                 if k["name"] == "cross_entropy_partial"
                  else "the olmo training shape")
         print(f"{k['name']}: device {k['ms'] * 1e3:.2f} us per call at {shape} "
               f"(whole call {k['call_ms'] * 1e3:.1f} us; plain {k['plain_ms'] * 1e3:.1f} us, "
@@ -5080,6 +5588,15 @@ def main() -> int:
     print(f"fit check, {RG}: {fit}")
     print(f"data mesh: engine {mesh['engine']}; training step peaks {mesh['peak_gb']} GB a "
           f"rank")
+    for arch in ("deepseek-7b", GRANITE):
+        sh = sharded[arch]
+        print(f"sharded {arch} ({sh['layers']} layers, (data 2, model 2), 4 gloo ranks on one "
+              f"card): step walls rank 0 {[round(w, 1) for w in sh['ranks'][0]['wall_ms']]} ms "
+              f"(single rank {sh['single']['wall_ms']:.1f} ms), c10d bytes in a rank a step "
+              f"{sh['model']['total_bytes']}, peaks {[round(r['peak_gb'], 2) for r in sh['ranks']]}"
+              f" GB")
+    print(f"dry run, deepseek-7b train_4k (a model figure): (2, 2) {sharded['dryrun_2x2']}, "
+          f"(16, 16) {sharded['dryrun_single']} bytes a rank")
     print(f"meter: {meter}; autotune: {tuned}")
     print(f"chip_smoke wall time: {time.time() - t_start:.1f} s (the build included)")
     print(json.dumps({"kernels": kernels}))

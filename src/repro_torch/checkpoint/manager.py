@@ -28,8 +28,8 @@ by its path in the reference's key-string style: ``[0]['embed']['table']``,
 ``[1].m[3]``; dict keys in sorted order. bf16 leaves are written as their
 uint16 bit patterns with ``"bfloat16"`` as the manifest's dtype (numpy has
 no bf16), so a leaf's CRC is taken over the same bytes as the reference's.
-There is no ``shardings=`` (a replicated state; the elastic restore
-belongs to the ROADMAP's sharding item).
+There is no ``shardings=`` (a replicated state; the elastic restore of a
+sharded state is not ported).
 
 ``records`` lists each save and restore with its bytes and seconds.
 """

@@ -24,6 +24,25 @@ as the reference's do.
                                     int32 (exact)
   make_sharded_global_norm_sq    -- the clipping statistic of a sharded
                                     tree
+  gather_blocks,
+  reduce_scatter_blocks          -- the blocks of a tensor cut along one dim
+                                    over mesh axes gathered whole, and the
+                                    fixed-order sum of whole tensors cut back
+                                    into the rank's block (an all-gather and
+                                    a rank-order fold of the rank's block:
+                                    gloo has no reduce-scatter)
+  gather_scatter, sum_forward,
+  sum_backward, sum_both         -- the autograd pairs of the sharded step:
+                                    all-gather / reduce-scatter (FSDP, and
+                                    kv heads gathered over "model"); a
+                                    fixed-order all-reduce forward with an
+                                    identity backward and its transpose
+                                    (Megatron's g and f); the all-reduce
+                                    both ways (a statistic summed over the
+                                    batch axes)
+  traffic                        -- every collective above noted with its
+                                    kind, its axes and the bytes it brought
+                                    in (the dry run's figures, per kind)
 
 The transport is the process group's (``Mesh.backend``): NCCL where each
 rank has a card of its own, gloo for CPU ranks and for several ranks that
@@ -37,6 +56,11 @@ every fold and every comparison runs on the rank's own device.
 
 ``shard_map_unchecked`` has no counterpart: there is no replication
 checker to switch off when every rank is its own process.
+
+Every helper resolves its axes against the bound mesh, or against the
+``mesh=`` it is given. The autograd pairs keep the mesh they were called
+with for their backward, which may run on another thread (the autograd
+engine's, on a card) where no mesh is bound.
 """
 
 from __future__ import annotations
@@ -131,14 +155,52 @@ def mesh_world_size(axis_names: Sequence[str]) -> int:
     return world
 
 
-def _all_gather(x: torch.Tensor, ax: str) -> list:
+def _axis_of(ax: str, mesh: Optional[Mesh]):
+    if mesh is None:
+        return _axis(ax)
+    if ax not in mesh.axis_names:
+        raise ValueError(f"unbound axis name {ax!r}; the mesh has {mesh.axis_names}")
+    return mesh, mesh.groups.get(ax)
+
+
+# The open traffic records (``traffic``): a plain list, not a thread's own,
+# so the collectives of a backward pass on the autograd engine's thread are
+# noted too.
+_TRAFFIC: list = []
+
+
+@contextlib.contextmanager
+def traffic():
+    """Note every collective of this module run inside the block as
+    ``(kind, axis, bytes brought into this rank)``: kind "all-gather",
+    "reduce-scatter" or "all-reduce" (a fixed-order combine), its bytes the
+    gathered rows less the rank's own, which is what the launch meter
+    (``reduce.inspect.collective_recv_bytes``) counts of the c10d
+    all-gather underneath."""
+    records: list = []
+    _TRAFFIC.append(records)
+    try:
+        yield records
+    finally:
+        _TRAFFIC.remove(records)
+
+
+def _note(kind: str, ax: str, x: torch.Tensor, size: int) -> None:
+    for records in _TRAFFIC:
+        records.append((kind, ax, (size - 1) * x.numel() * x.element_size()))
+
+
+def _all_gather(x: torch.Tensor, ax: str, mesh: Optional[Mesh] = None,
+                kind: str = "all-reduce") -> list:
     """The P rows of ``x`` along axis ``ax``, in rank order, on x's device.
     A one-rank mesh has no group and gathers its own row."""
-    mesh, group = _axis(ax)
+    mesh, group = _axis_of(ax, mesh)
     if group is None:
         return [x]
-    rows = [torch.empty_like(x) for _ in range(mesh.axis_size(ax))]
+    size = mesh.axis_size(ax)
+    rows = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(rows, x.contiguous(), group=group)
+    _note(kind, ax, x, size)
     return rows
 
 
@@ -172,19 +234,139 @@ def local_mma_then_psum(x: torch.Tensor, axis_names: Sequence[str], *,
 # ------------------- deterministic fixed-order combine ----------------------
 
 
-def fixed_order_combine(x: torch.Tensor, axis_names: Sequence[str]) -> torch.Tensor:
+def _fold(rows: list) -> torch.Tensor:
+    """``rows[0] + rows[1] + ...`` left to right (a fresh tensor)."""
+    acc = rows[0].clone() if len(rows) == 1 else rows[0] + rows[1]
+    for row in rows[2:]:
+        acc = acc + row
+    return acc
+
+
+def fixed_order_combine(x: torch.Tensor, axis_names: Sequence[str],
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Deterministic cross-rank sum: all-gather the per-rank partials, then
     fold them in rank order (``acc = g[0]; acc = acc + g[i]``), one axis at
     a time. Every rank runs the same fold over the same gathered rows, so
     the result is BITWISE the same on every rank at any rank count (an
     all-reduce's order belongs to the transport)."""
     for ax in axis_names:
-        g = _all_gather(x, ax)
-        acc = g[0].clone() if len(g) == 1 else g[0] + g[1]
-        for row in g[2:]:
-            acc = acc + row
-        x = acc
+        x = _fold(_all_gather(x, ax, mesh))
     return x
+
+
+# ------------------------- blocks along one dimension -------------------------
+
+
+def _block_axes(axes) -> tuple:
+    """A spec entry's mesh axes as a tuple: "data" -> ("data",)."""
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def gather_blocks(x: torch.Tensor, axes, dim: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The whole tensor from the rank blocks of a dim cut over ``axes`` (a
+    name or a spec entry's tuple of names, the first the major one): an
+    all-gather per axis, the last axis first, the blocks concatenated along
+    ``dim`` in rank order."""
+    for ax in reversed(_block_axes(axes)):
+        rows = _all_gather(x, ax, mesh, kind="all-gather")
+        x = rows[0] if len(rows) == 1 else torch.cat(rows, dim)
+    return x
+
+
+def reduce_scatter_blocks(x: torch.Tensor, axes, dim: int,
+                          mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The rank's block along ``dim`` of the sum over ``axes`` of every
+    rank's whole ``x``, folded in rank order (the first axis first): the
+    transpose of ``gather_blocks``. gloo has no reduce-scatter, so each
+    axis is an all-gather of the whole tensors and a fold of the rank's
+    block of each: bitwise the same block as folding the whole tensors and
+    cutting, on every rank."""
+    for ax in _block_axes(axes):
+        m, _ = _axis_of(ax, mesh)
+        size = m.axis_size(ax)
+        if x.shape[dim] % size:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {size} ranks "
+                             f"of {ax!r}")
+        rows = _all_gather(x, ax, mesh, kind="reduce-scatter")
+        n, i = x.shape[dim] // size, m.axis_index(ax)
+        x = _fold([r.narrow(dim, i * n, n) for r in rows]).contiguous()
+    return x
+
+
+class _GatherScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim, mesh):
+        ctx.axes, ctx.dim, ctx.mesh = axes, dim, mesh
+        return gather_blocks(x, axes, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_blocks(g, ctx.axes, ctx.dim, ctx.mesh), None, None, None
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return fixed_order_combine(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fixed_order_combine(g, ctx.axes, ctx.mesh), None, None
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return fixed_order_combine(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fixed_order_combine(g, ctx.axes, ctx.mesh), None, None
+
+
+def gather_scatter(x: torch.Tensor, axes, dim: int, mesh: Mesh) -> torch.Tensor:
+    """``gather_blocks`` whose backward is ``reduce_scatter_blocks``: a
+    weight stored cut over ``axes`` (FSDP over the batch axes, or kv heads
+    over "model") gathered for the ranks to use in different ways, its
+    gradient the rank-order sum of theirs, cut back to the rank's block."""
+    axes = _block_axes(axes)
+    return _GatherScatter.apply(x, axes, dim, mesh) if axes else x
+
+
+def sum_forward(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """The fixed-order all-reduce forward, the identity backward
+    (Megatron's g): the partial sums of a row-parallel product, whose sum
+    every rank of ``axes`` then uses alike."""
+    axes = _block_axes(axes)
+    return _SumForward.apply(x, axes, mesh) if axes else x
+
+
+def sum_backward(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """The identity forward, the fixed-order all-reduce backward
+    (Megatron's f): a tensor every rank of ``axes`` holds alike, feeding
+    work that differs by rank, whose gradients add up."""
+    axes = _block_axes(axes)
+    return _SumBackward.apply(x, axes, mesh) if axes else x
+
+
+def sum_both(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """The fixed-order all-reduce both ways: the sum over the batch axes of
+    a statistic each rank took over its own rows, where each rank's loss
+    is its own term of a sum over those ranks."""
+    axes = _block_axes(axes)
+    return _SumBoth.apply(x, axes, mesh) if axes else x
 
 
 _INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -200,13 +382,17 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def replica_bits_agree(x: torch.Tensor, axis_names: Sequence[str]) -> torch.Tensor:
+def replica_bits_agree(x: torch.Tensor, axis_names: Sequence[str],
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Bool scalar, the same on every rank: True iff ``x``'s bits are the
-    same on every rank along the axes."""
+    same on every rank along the axes (2-byte floats travel as bytes: gloo
+    gathers no 16-bit integers)."""
     bits = _bits(x)
+    if bits.dtype == torch.int16:
+        bits = bits.view(torch.uint8)
     agree = torch.ones((), dtype=torch.bool, device=x.device)
     for ax in axis_names:
-        g = _all_gather(bits, ax)
+        g = _all_gather(bits, ax, mesh, kind="all-gather")
         for row in g[1:]:
             agree = agree & torch.equal(row, g[0])
     return agree

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "pr_parts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                  _P, _P, _P, _P),
     "ce_forward": (_P, _P, _P, _I, _LL, _I, _I, _I, _P, _P, _P),
+    "ce_partial": (_P, _P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P),
     "fr_sum": (_P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "fr_moments": (_P, _LL, _I, _I, _LL, _LL, _I, _I, _P, _P, _P, _P),
     "fk_sum": (_P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),

@@ -31,6 +31,15 @@ tensor-core product would round it.
 
 ``cross_entropy`` is differentiable in the logits: its backward is
 ``(softmax - onehot) * g`` in f32, the reference's host math.
+
+``cross_entropy_partial`` is the kernel's partial variant (``ce_partial``,
+the same launch with another epilogue) for a vocabulary cut over ranks:
+its logits are the columns [col0, col0 + V) of the whole, and it returns
+per row the slice's (M, L, pick) -- max, sum of exp(s - M) and the label's
+logit when the label falls in the slice, else 0 -- which
+``merge_partials`` folds across the slices in rank order into the loss.
+``cross_entropy_partial_plain`` walks the same order on the CPU. Not
+differentiable itself: ``models.losses`` wraps it with its merge.
 """
 
 from __future__ import annotations
@@ -52,14 +61,9 @@ def step_columns(itemsize: int) -> int:
     return 4 * 4 * (16 // itemsize)
 
 
-def cross_entropy_plain(logits: torch.Tensor, labels: torch.Tensor, slice_v: int = SLICE_V,
-                        warps: int = WARPS, step_v: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (R, V) logits, (R,) int labels
-    -> (R,) f32 per-row loss, in the kernel's fold order (module doc):
-    ``slice_v``-column slices, ``step_v``-column steps (by default the
-    kernel's for the logits' dtype) dealt to ``warps`` warps in turn, each
-    warp's running max, masks and bf16 rounding of p, then the warps and
-    the slices merged in order. A label outside [0, V) picks 0."""
+def _plain_stats(logits: torch.Tensor, slice_v: int, warps: int, step_v: int | None):
+    """The kernel's (M, L) of each row in its fold order, and the padded
+    f32 logits."""
     rows, vocab = logits.shape
     step_v = step_v or step_columns(logits.element_size())
     if slice_v % (warps * step_v):
@@ -88,10 +92,54 @@ def cross_entropy_plain(logits: torch.Tensor, labels: torch.Tensor, slice_v: int
     big_l = torch.zeros_like(big_m)
     for j in range(slices):
         big_l = big_l + lj[:, j] * torch.exp(mj[:, j] - big_m)
-    lab = labels.to(torch.int64)
+    return big_m, big_l, lf
+
+
+def _pick(lf: torch.Tensor, labels: torch.Tensor, vocab: int, col0: int = 0) -> torch.Tensor:
+    """The label's logit (label - col0 in [0, vocab)), else 0."""
+    lab = labels.to(torch.int64) - col0
     hit = (lab >= 0) & (lab < vocab)
-    pick = torch.where(hit, torch.gather(lf, 1, torch.where(hit, lab, 0)[:, None])[:, 0], 0.0)
+    return torch.where(hit, torch.gather(lf, 1, torch.where(hit, lab, 0)[:, None])[:, 0], 0.0)
+
+
+def cross_entropy_plain(logits: torch.Tensor, labels: torch.Tensor, slice_v: int = SLICE_V,
+                        warps: int = WARPS, step_v: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: (R, V) logits, (R,) int labels
+    -> (R,) f32 per-row loss, in the kernel's fold order (module doc):
+    ``slice_v``-column slices, ``step_v``-column steps (by default the
+    kernel's for the logits' dtype) dealt to ``warps`` warps in turn, each
+    warp's running max, masks and bf16 rounding of p, then the warps and
+    the slices merged in order. A label outside [0, V) picks 0."""
+    big_m, big_l, lf = _plain_stats(logits, slice_v, warps, step_v)
+    pick = _pick(lf, labels, logits.shape[1])
     return big_m + torch.log(torch.clamp_min(big_l, 1e-30)) - pick
+
+
+def cross_entropy_partial_plain(logits: torch.Tensor, labels: torch.Tensor, col0: int,
+                                slice_v: int = SLICE_V, warps: int = WARPS,
+                                step_v: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the partial variant: (R, V) logits, the
+    columns [col0, col0 + V) of a vocabulary, (R,) global int labels ->
+    (R, 3) f32, (M, L, pick) a row, in the kernel's fold order."""
+    big_m, big_l, lf = _plain_stats(logits, slice_v, warps, step_v)
+    return torch.stack([big_m, big_l, _pick(lf, labels, logits.shape[1], col0)], -1)
+
+
+def merge_partials(parts: list) -> tuple:
+    """Slices' (R, 3) triples in rank order -> (loss (R,), lse (R,)): M =
+    max M_r, L = sum in order L_r exp(M_r - M) (each term one rounded
+    product), lse = M + log(max(L, 1e-30)), loss = lse - sum of picks
+    (one nonzero: exact)."""
+    big_m = parts[0][:, 0]
+    for p in parts[1:]:
+        big_m = torch.maximum(big_m, p[:, 0])
+    big_l = torch.zeros_like(big_m)
+    pick = torch.zeros_like(big_m)
+    for p in parts:
+        big_l = big_l + p[:, 1] * torch.exp(p[:, 0] - big_m)
+        pick = pick + p[:, 2]
+    lse = big_m + torch.log(torch.clamp_min(big_l, 1e-30))
+    return lse - pick, lse
 
 
 def cross_entropy_bwd(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -168,3 +216,43 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     if common.needs_grad(logits):
         return _CrossEntropy.apply(logits, labels)
     return _cross_entropy_forward(logits, labels)
+
+
+@common.counted("cross_entropy_partial")
+def cross_entropy_partial(logits: torch.Tensor, labels: torch.Tensor, col0: int) -> torch.Tensor:
+    """K7's partial variant. logits: (R, V) float, the columns [col0, col0
+    + V) of a vocabulary; labels: (R,) int global ids -> (R, 3) f32, (M,
+    L, pick) a row. CPU tensors: plain version; CUDA tensors: the kernel
+    (one launch). Not differentiable."""
+    if logits.ndim != 2 or logits.shape[1] < 1 or labels.shape != logits.shape[:1]:
+        raise ValueError(f"expected (R, V) logits and (R,) labels; got {tuple(logits.shape)}, "
+                         f"{tuple(labels.shape)}")
+    if col0 < 0:
+        raise ValueError(f"col0 must be >= 0; got {col0}")
+    rows, width = logits.shape
+    if common.on_cpu(logits, labels):
+        common.record_io(cross_entropy_partial, (common.nbytes(logits, labels), 12 * rows),
+                         plain=True)
+        return cross_entropy_partial_plain(logits, labels, col0)
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"labels must be int32 or int64; got {labels.dtype}")
+    x = logits.contiguous()
+    lab = labels.to(torch.int32).contiguous()
+    out = torch.empty((rows, 3), dtype=torch.float32, device=x.device)
+    vec = int(x.data_ptr() % 16 == 0 and width * x.element_size() % 16 == 0)
+    blocks = common.ceil_div(rows, BLOCK_ROWS)
+    slices = common.ceil_div(width, SLICE_V)
+    part = torch.empty((blocks * slices * BLOCK_ROWS * 2,) if slices > 1 else (0,),
+                       dtype=torch.float32, device=x.device)
+    if rows:
+        stream = build.stream_ptr(x)
+        ticket = common.fold_tickets("cross_entropy", x.device, stream, count=blocks)
+        with torch.cuda.device(x.device):
+            err = build.library().ce_partial(
+                x.data_ptr(), lab.data_ptr(), out.data_ptr(), rows, width, width, int(col0),
+                vec, build.dtype_code(x), part.data_ptr() if slices > 1 else None,
+                ticket.data_ptr(), stream)
+        build.check(err, "cross_entropy_partial")
+        common.record_io(cross_entropy_partial, (common.nbytes(x, lab, part),
+                                                 common.nbytes(out, part)))
+    return out

@@ -60,6 +60,15 @@
 // A warp or slice that holds only pad logits (-1e30) has m = -1e30 and a
 // nonzero l; its merge term l exp(-1e30 - M) is exactly 0 when the row has
 // a real logit, so padded and cut widths give the same loss bitwise.
+//
+// The partial variant (`ce_partial`, a template flag of the same kernel):
+// the logits are one slice of a vocabulary cut over ranks, starting at
+// global column `col0` (the vocab-parallel cross-entropy of the sharded
+// step). The split, the steps and the merges are the same; the row block's
+// last CTA writes, per row, (M, L, pick) -- the slice's max, its sum of
+// exp(s - M), and the label's logit when the label falls in [col0, col0 +
+// vocab), else 0 -- instead of the loss. The ranks' triples merge in rank
+// order on the host side (models.losses) by the formula of step 3.
 #include <type_traits>
 
 #include "common.cuh"
@@ -250,11 +259,27 @@ __device__ __forceinline__ float finish(const T* logits, const int* labels, long
   return M + logf(fmaxf(L, 1e-30f)) - pick;
 }
 
-template <typename T, bool VEC>
+// A finished row: its loss, or with PARTIAL its (M, L, pick) triple, the
+// label taken relative to the slice's first global column `col0`.
+template <typename T, bool PARTIAL>
+__device__ __forceinline__ void write_row(const T* logits, const int* labels, float* out,
+                                          long long ld, int vocab, int col0, int row, float M,
+                                          float L) {
+  if constexpr (PARTIAL) {
+    const long long lab = static_cast<long long>(labels[row]) - col0;
+    out[3LL * row] = M;
+    out[3LL * row + 1] = L;
+    out[3LL * row + 2] = lab >= 0 && lab < vocab ? to_f32(logits[row * ld + lab]) : 0.f;
+  } else {
+    out[row] = finish(logits, labels, ld, vocab, row, M, L);
+  }
+}
+
+template <typename T, bool VEC, bool PARTIAL>
 __global__ void __launch_bounds__(CE_THREADS, CE_MIN_CTAS)
 ce_kernel(const T* __restrict__ logits, const int* __restrict__ labels, float* __restrict__ out,
           float2* __restrict__ part, unsigned int* __restrict__ ticket, int rows, long long ld,
-          int vocab, int slices) {
+          int vocab, int slices, int col0) {
   constexpr int SC = step_cols<T>();
   __shared__ float warp_m[CE_WARPS][CE_ROWS], warp_l[CE_WARPS][CE_ROWS];
   __shared__ bool am_last;
@@ -314,7 +339,8 @@ ce_kernel(const T* __restrict__ logits, const int* __restrict__ labels, float* _
 #pragma unroll
     for (int w = 0; w < CE_WARPS; ++w) L = __fadd_rn(L, merge_term(warp_l[w][r], warp_m[w][r], M));
     if (slices == 1) {
-      if (row0 + r < rows) out[row0 + r] = finish(logits, labels, ld, vocab, row0 + r, M, L);
+      if (row0 + r < rows)
+        write_row<T, PARTIAL>(logits, labels, out, ld, vocab, col0, row0 + r, M, L);
     } else {
       part[static_cast<long long>(blockIdx.x) * CE_ROWS + r] = make_float2(M, L);
       __threadfence();  // publish the pair before the ticket
@@ -337,13 +363,13 @@ ce_kernel(const T* __restrict__ logits, const int* __restrict__ labels, float* _
       const float2 v = __ldcg(pr + k * CE_ROWS);
       L = __fadd_rn(L, merge_term(v.y, v.x, M));
     }
-    out[row0 + r] = finish(logits, labels, ld, vocab, row0 + r, M, L);
+    write_row<T, PARTIAL>(logits, labels, out, ld, vocab, col0, row0 + r, M, L);
   }
 }
 
-template <typename T>
+template <typename T, bool PARTIAL = false>
 int launch(const void* logits, const int* labels, float* out, int rows, long long ld, int vocab,
-           int vec, void* part, unsigned int* ticket, cudaStream_t stream) {
+           int vec, void* part, unsigned int* ticket, cudaStream_t stream, int col0 = 0) {
   const int slices = (vocab + CE_SLICE - 1) / CE_SLICE;
   const long long ctas = static_cast<long long>((rows + CE_ROWS - 1) / CE_ROWS) * slices;
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -351,11 +377,11 @@ int launch(const void* logits, const int* labels, float* out, int rows, long lon
   const T* x = static_cast<const T*>(logits);
   float2* p = static_cast<float2*>(part);
   if (vec)
-    ce_kernel<T, true><<<grid, CE_THREADS, 0, stream>>>(x, labels, out, p, ticket, rows, ld,
-                                                        vocab, slices);
+    ce_kernel<T, true, PARTIAL><<<grid, CE_THREADS, 0, stream>>>(x, labels, out, p, ticket, rows,
+                                                                 ld, vocab, slices, col0);
   else
-    ce_kernel<T, false><<<grid, CE_THREADS, 0, stream>>>(x, labels, out, p, ticket, rows, ld,
-                                                         vocab, slices);
+    ce_kernel<T, false, PARTIAL><<<grid, CE_THREADS, 0, stream>>>(x, labels, out, p, ticket,
+                                                                  rows, ld, vocab, slices, col0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,6 +407,32 @@ extern "C" int ce_forward(const void* logits, const int* labels, float* out, int
       return launch<__nv_bfloat16>(logits, labels, out, rows, width, vocab, vec, part, ticket, s);
     case DT_F16:
       return launch<__half>(logits, labels, out, rows, width, vocab, vec, part, ticket, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The partial variant: logits (rows, vocab) with row stride `width`, one
+// slice of a vocabulary starting at global column `col0`; labels global
+// ids; out: (rows, 3) f32, (M, L, pick) a row. `part` and `ticket` as for
+// ce_forward.
+extern "C" int ce_partial(const void* logits, const int* labels, float* out, int rows,
+                          long long width, int vocab, int col0, int vec, int dtype, void* part,
+                          unsigned int* ticket, void* stream) {
+  if (rows < 0 || vocab < 1 || vocab > width || col0 < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case DT_F32:
+      return launch<float, true>(logits, labels, out, rows, width, vocab, vec, part, ticket, s,
+                                 col0);
+    case DT_BF16:
+      return launch<__nv_bfloat16, true>(logits, labels, out, rows, width, vocab, vec, part,
+                                         ticket, s, col0);
+    case DT_F16:
+      return launch<__half, true>(logits, labels, out, rows, width, vocab, vec, part, ticket, s,
+                                  col0);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,8 +1,12 @@
 """Meshes, and the process group of a data-parallel launch.
 
-Port of ``repro/launch/mesh.py``'s ``make_data_mesh``, ``make_host_mesh``
-and ``batch_axes``; ``make_production_mesh`` (the TPU pod shapes) waits
-for the ROADMAP's sharding item. A rank is one process: ``torchrun``
+Port of ``repro/launch/mesh.py``: ``make_production_mesh`` (the pod
+shapes, (16, 16) over ("data", "model") and (2, 16, 16) over ("pod",
+"data", "model")), ``make_host_mesh``, ``make_data_mesh`` and
+``batch_axes``; ``make_mesh`` takes any shape whose ranks fill the world,
+and ``abstract_mesh`` a shape alone, with no process group (the dry run
+and the rule tests, where the reference's tests use ``FakeMesh``). A rank
+is one process: ``torchrun``
 (``python -m torch.distributed.run``) or ``torch.multiprocessing.spawn``
 starts them, and ``init_process_group`` below reads ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` (and ``LOCAL_WORLD_SIZE``), world 1 when
@@ -20,13 +24,18 @@ moved to gloo. A rank's device is ``cuda:{LOCAL_RANK % device_count}``
 unless the caller asks for the CPU.
 
 The meshes are ``core.collectives.Mesh`` objects of the port's own: named
-axes mapped onto process groups (the whole world for an axis that spans
-it, none for an axis of one rank), carrying the transport that was chosen
-at set-up.
+axes mapped onto process groups, carrying the transport that was chosen at
+set-up. Ranks lie in row-major order of the shape (the last axis varies
+fastest). An axis of one rank has no group, an axis that spans the world
+is the world's group, and an axis that splits the world has one group per
+slice of it (the ranks that differ only in their coordinate along it):
+every rank creates every such group, in the same order (``dist.new_group``
+must be called so, or the ranks hang), and keeps its own.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import socket
@@ -139,24 +148,92 @@ def shutdown(barrier: bool = True) -> None:
     _STATE.clear()
 
 
+def axis_slices(shape: tuple, i: int) -> list:
+    """The slices of axis ``i`` of a mesh of ``shape``: for each setting of
+    the other coordinates (row-major), the ranks along axis ``i`` in
+    order."""
+    strides = [math.prod(shape[j + 1:]) for j in range(len(shape))]
+    others = [range(n) if j != i else range(1) for j, n in enumerate(shape)]
+    return [[sum(c * s for c, s in zip(coord, strides)) + k * strides[i]
+             for k in range(shape[i])] for coord in itertools.product(*others)]
+
+
+def _axis_group(shape: tuple, i: int, rank: int, world: int):
+    """This rank's group along axis ``i``: None for one rank, the world's
+    group for an axis that spans it, else one new group per slice, every
+    slice's made here (in the same order on every rank), the rank's kept.
+    Groups are made once per (shape, axis) in a process."""
+    size = shape[i]
+    if size == 1:
+        return None  # a one-rank axis has no group: its gather is its own row
+    if size == world:
+        return dist.group.WORLD
+    made = _STATE.setdefault("groups", {})
+    key = (tuple(shape), i)
+    if key not in made:
+        mine = None
+        for ranks in axis_slices(shape, i):
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine = g
+        made[key] = mine
+    return made[key]
+
+
 def _mesh(shape: tuple, axis_names: tuple) -> Mesh:
     if not dist.is_initialized():
         raise RuntimeError("no process group: call launch.mesh.init_process_group() first")
     world, rank = dist.get_world_size(), dist.get_rank()
+    if len(shape) != len(axis_names):
+        raise ValueError(f"a mesh of shape {shape} needs {len(shape)} axis names; got "
+                         f"{axis_names}")
     if math.prod(shape) != world:
         raise ValueError(f"a mesh of shape {shape} needs {math.prod(shape)} ranks; the world "
                          f"has {world}")
-    groups = {}
-    for name, size in zip(axis_names, shape):
-        if size not in (1, world):
-            raise NotImplementedError(
-                f"axis {name!r} of {size} ranks in a world of {world}: meshes whose axes "
-                "split the world (make_production_mesh) wait for the ROADMAP's sharding item")
-        # a one-rank axis has no group: its gather is its own row
-        groups[name] = dist.group.WORLD if size == world else None
+    groups = {name: _axis_group(tuple(shape), i, rank, world)
+              for i, name in enumerate(axis_names)}
     dev, be = _STATE["device"], _STATE["backend"]
     return Mesh(shape=tuple(shape), axis_names=tuple(axis_names), rank=rank, groups=groups,
                 backend=be, device=dev)
+
+
+def make_mesh(shape, axis_names) -> Mesh:
+    """A mesh of ``shape`` over ``axis_names`` whose ranks fill the world,
+    e.g. (2, 2) over ("data", "model") at world 4."""
+    return _mesh(tuple(int(n) for n in shape), tuple(axis_names))
+
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes: (16, 16) over ("data", "model"),
+    256 ranks; with ``multi_pod`` (2, 16, 16) over ("pod", "data",
+    "model"), 512. A world of another size is refused."""
+    shape, names = PRODUCTION_SHAPES[bool(multi_pod)]
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != math.prod(shape):
+        raise ValueError(f"the production mesh {shape} needs {math.prod(shape)} ranks; the "
+                         f"world has {world} (abstract_mesh gives its shape alone, as the dry "
+                         "run uses it)")
+    return _mesh(shape, names)
+
+
+def abstract_mesh(shape, axis_names) -> Mesh:
+    """A mesh of ``shape`` alone: axis names and sizes, no process group
+    and no collective (the dry run on the meta device, the rule tests).
+    Its rank is 0; ``Mesh.axis_index`` gives rank 0's coordinates."""
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != len(tuple(axis_names)):
+        raise ValueError(f"a mesh of shape {shape} needs {len(shape)} axis names")
+    return Mesh(shape=shape, axis_names=tuple(axis_names), rank=0, groups={}, backend="none",
+                device=torch.device("meta"))
+
+
+def abstract_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """``make_production_mesh``'s shape as an ``abstract_mesh``."""
+    return abstract_mesh(*PRODUCTION_SHAPES[bool(multi_pod)])
 
 
 def make_data_mesh(n: int | None = None) -> Mesh:

@@ -17,13 +17,33 @@ reference's ``--mesh`` (``shard_map`` there, one process per rank here):
 each rank's gradients on its rows of the global batch, summed across ranks
 by the fixed-order combine, so the guarded update runs on bitwise the same
 inputs on every rank.
+
+``mesh=`` and ``param_shardings=`` on ``make_train_step`` and
+``make_guarded_train_step`` (as the reference has them) make the sharded
+step over a mesh that splits the world, e.g. (data 2, model 2): every
+parameter is a rank's block of its spec (``launch.sharding``), and the
+forward and backward run FSDP, tensor and expert parallelism
+(``models.parallel``). Every rank is given the GLOBAL batch and runs its
+rows: each microbatch cut over the batch axes (``mesh.batch_axes``); the
+model ranks of a data group hold the same rows. The f32 accumulators are per
+block. After the microbatches, a leaf its spec leaves whole along a batch
+axis has its gradient summed over that axis (a fixed-order combine; the
+blocks cut over it came summed out of the backward's reduce-scatter), and
+every gradient is divided by the microbatches times the batch ranks. The
+loss is the rank-order mean over the batch axes. The clip statistic counts
+each leaf once (``optim.adamw.sharded_norm_and_clip``), and AdamW updates
+each rank's blocks in place. ``torch.utils.checkpoint``'s early stop is
+off in the sharded forward, so each recompute runs its block's
+collectives again, all of them (``launch.dryrun`` counts them so).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from repro_torch import optim
 from repro_torch import reduce as R
@@ -41,18 +61,23 @@ def _split_batch(tokens: torch.Tensor, n_micro: int) -> torch.Tensor:
     return tokens.reshape((n_micro, gb // n_micro) + tuple(tokens.shape[1:]))
 
 
-def make_grads_fn(cfg, tcfg):
+def make_grads_fn(cfg, tcfg, plan=None):
     """``compute_grads(params, batch) -> (grads, mean_loss)``: per
     microbatch the loss and its gradients, accumulated in f32 and averaged
     over the microbatches in place (``grads`` are the flat leaves in
     ``reduce.tree_leaves`` order; ``launch.train.train_step_peak_bytes``
     charges them). ``batch["image_embeds"]``, where given,
-    is the cross-attention context, split with the tokens."""
+    is the cross-attention context, split with the tokens. ``plan``
+    (``models.parallel.Plan``): ``params`` are a rank's blocks and
+    ``batch`` its rows; the gradients are summed over the batch axes and
+    averaged over them too, and the loss is the batch ranks' mean (module
+    doc)."""
 
     def loss_fn(params, tokens, ctx):
-        h, aux = forward_hidden(params, cfg, tokens[:, :-1], ctx)
-        labels = tokens[:, 1:]  # (B, S - 1), or (B, S - 1, K) with codebooks
-        loss, _ = lm_loss_chunked(params, cfg, h, labels, aux)
+        with contextlib.nullcontext() if plan is None else set_checkpoint_early_stop(False):
+            h, aux = forward_hidden(params, cfg, tokens[:, :-1], ctx, plan)
+            labels = tokens[:, 1:]  # (B, S - 1), or (B, S - 1, K) with codebooks
+            loss, _ = lm_loss_chunked(params, cfg, h, labels, aux, plan=plan)
         return loss
 
     def compute_grads(params, batch):
@@ -70,37 +95,123 @@ def make_grads_fn(cfg, tcfg):
                 a.add_(g)  # f32 += g: bitwise a + g.to(f32), with no f32 copy of g
             del grads  # one microbatch's gradients alive at a time, as the fit check charges
             lacc = lacc + loss.detach()
-        for a in gacc:
-            a.div_(n_micro)  # in place: bitwise a / n_micro, with no second f32 copy
-        return gacc, lacc / n_micro
+        if plan is None:
+            for a in gacc:
+                a.div_(n_micro)  # in place: bitwise a / n_micro, with no second f32 copy
+            return gacc, lacc / n_micro
+        return _finish_sharded(plan, gacc, lacc / n_micro, n_micro)
 
     return compute_grads
 
 
-def make_train_step(cfg, tcfg):
+# Elements a step-end gradient combine gathers at a time (``_finish_sharded``).
+COMBINE_CHUNK = 1 << 24
+
+
+def _finish_sharded(plan, gacc: list, loss, n_micro: int):
+    """The sharded step's gradients and loss after the microbatches (module
+    doc): each leaf summed over the batch axes its spec leaves whole, all
+    divided by the microbatches times the batch ranks; the loss averaged
+    over the batch ranks."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch.sharding import spec_axes, tree_leaves
+
+    specs = tree_leaves(plan.specs)
+    for a, spec in zip(gacc, specs):
+        whole = tuple(ax for ax in plan.batch if ax not in spec_axes(spec))
+        if whole:  # in pieces, in place: the fold is elementwise
+            flat = a.view(-1)
+            for i in range(0, flat.numel(), COMBINE_CHUNK):
+                piece = flat[i:i + COMBINE_CHUNK]
+                piece.copy_(coll.fixed_order_combine(piece, whole, plan.mesh))
+        a.div_(n_micro * plan.data_degree)
+    loss = coll.fixed_order_combine(loss.reshape(1), plan.batch, plan.mesh)[0]
+    return gacc, loss / plan.data_degree
+
+
+def _sharded(cfg, mesh, param_shardings):
+    """The plan of a sharded step; specs from ``param_axes`` under
+    DEFAULT_RULES when none are given."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.model import init_params, param_axes
+    from repro_torch.models.parallel import Plan
+
+    if param_shardings is None:
+        shapes = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+        param_shardings = SH.param_shardings(param_axes(cfg), mesh, SH.DEFAULT_RULES, shapes)
+    return Plan(cfg, mesh, param_shardings)
+
+
+def _plan_rows(plan, batch: dict, n_micro: int) -> dict:
+    """The rank's rows of every tensor of the global batch: each of the
+    ``n_micro`` microbatches (contiguous, as the single-device step cuts
+    them) cut over the batch axes, row-major in them, and the rank's parts
+    of the microbatches laid end to end; so microbatch j of the rank is
+    its part of the single-device step's microbatch j (the MoE's
+    load-balance statistic is taken over a whole microbatch)."""
+    from repro_torch.launch.sharding import _degree_and_index
+
+    deg, idx = _degree_and_index(plan.mesh, plan.batch)
+
+    def rows(x):
+        micro = _split_batch(x, n_micro)
+        part = torch.stack([_rows_of(m, idx, deg) for m in micro])
+        return part.reshape((-1,) + tuple(x.shape[1:]))
+
+    return {k: rows(v) for k, v in batch.items()}
+
+
+def _leaf_axes(plan) -> list:
+    from repro_torch.launch.sharding import spec_axes, tree_leaves
+
+    return [spec_axes(s) for s in tree_leaves(plan.specs)]
+
+
+def _activations(plan, rows: int):
+    """The activation context of the sharded forward (``models.context``):
+    the rank's rows of each microbatch."""
+    from repro_torch.models import context as CTX
+
+    entry = plan.batch[0] if len(plan.batch) == 1 else (plan.batch or None)
+    return CTX.activation_sharding(plan.mesh, (entry, None, None), rows)
+
+
+def make_train_step(cfg, tcfg, mesh=None, param_shardings=None):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch = {"tokens": (GB, S + 1) int}`` ((GB, S + 1, K) for
     an arch with K codebook streams; and
     ``"image_embeds"``, (GB, N, d), for a cross-attention arch). Parameters must
     require grad; they and the optimizer state update in place. The clip
     statistic runs on the config flags' backend (``cuda_fused`` with the
-    kernels on; the launchers' ``--reduce-backend`` overrides it)."""
+    kernels on; the launchers' ``--reduce-backend`` overrides it).
+
+    ``mesh`` (with ``param_shardings``, a spec tree like the parameters;
+    DEFAULT_RULES' when None): the sharded step (module doc); parameters
+    and moments are the rank's blocks, ``batch`` the global batch."""
     reduce_backend = R.backend_for_flags(cfg.mma_reductions, cfg.use_kernels)
-    compute_grads = make_grads_fn(cfg, tcfg)
+    plan = None if mesh is None else _sharded(cfg, mesh, param_shardings)
+    compute_grads = make_grads_fn(cfg, tcfg, plan)
+    sharded = {} if plan is None else dict(leaf_axes=_leaf_axes(plan), mesh=mesh)
 
     def train_step(params, opt_state, batch):
-        grads, mean_loss = compute_grads(params, batch)
+        if plan is None:
+            grads, mean_loss = compute_grads(params, batch)
+        else:
+            batch = _plan_rows(plan, batch, tcfg.microbatches)
+            with _activations(plan, batch["tokens"].shape[0] // tcfg.microbatches):
+                grads, mean_loss = compute_grads(params, batch)
         params, opt_state, metrics = optim.apply_updates(
             params, grads, opt_state, tcfg, reduce_backend=reduce_backend,
             fused_second_moment=tcfg.fused_second_moment,
-            leaf_groups=reference_leaf_groups(params, cfg),
+            leaf_groups=reference_leaf_groups(params, cfg), **sharded,
         )
         return params, opt_state, dict(metrics, loss=mean_loss)
 
     return train_step
 
 
-def make_guarded_train_step(cfg, tcfg, reduce_backend=None, spike_z: float = 6.0):
+def make_guarded_train_step(cfg, tcfg, reduce_backend=None, spike_z: float = 6.0, mesh=None,
+                            param_shardings=None):
     """Returns ``guarded_step(params, opt_state, guard_state, batch) ->
     (params, opt_state, guard_state, metrics)``; ``guard_state`` is
     ``optim.init_guard_state(W)`` on the training device. The clip
@@ -110,24 +221,37 @@ def make_guarded_train_step(cfg, tcfg, reduce_backend=None, spike_z: float = 6.0
     the rollback counter); an accepted step is bitwise ``make_train_step``'s
     on the same batch. ``batch`` may carry ``"chaos_scale"``, a (1,)
     tensor the gradients are multiplied by: the fault drills drive it to
-    NaN or Inf on a scheduled step, and x1.0 is bitwise identity."""
+    NaN or Inf on a scheduled step, and x1.0 is bitwise identity.
+
+    ``mesh``/``param_shardings``: the sharded step, as in
+    ``make_train_step``; ``chaos_scale`` is then (world,), each rank's
+    gradients multiplied by their entry (one poisoned rank poisons the
+    census of every rank: the skip moves in lockstep)."""
     if reduce_backend is None:
         reduce_backend = R.backend_for_flags(cfg.mma_reductions, cfg.use_kernels)
-    compute_grads = make_grads_fn(cfg, tcfg)
+    plan = None if mesh is None else _sharded(cfg, mesh, param_shardings)
+    compute_grads = make_grads_fn(cfg, tcfg, plan)
+    sharded = {} if plan is None else dict(leaf_axes=_leaf_axes(plan), mesh=mesh)
 
     def guarded_step(params, opt_state, guard_state, batch):
         batch = dict(batch)
         scale = batch.pop("chaos_scale", None)
-        grads, mean_loss = compute_grads(params, batch)
-        if scale is not None:
-            s = scale.reshape(-1)[0]
+        if plan is None:
+            grads, mean_loss = compute_grads(params, batch)
+            s = None if scale is None else scale.reshape(-1)[0]
+        else:
+            batch = _plan_rows(plan, batch, tcfg.microbatches)
+            with _activations(plan, batch["tokens"].shape[0] // tcfg.microbatches):
+                grads, mean_loss = compute_grads(params, batch)
+            s = None if scale is None else scale.reshape(-1)[mesh.rank]
+        if s is not None:
             for g in grads:
                 g.mul_(s.to(g.dtype))
         params, opt_state, guard_state, metrics = optim.guarded_apply_updates(
             params, grads, opt_state, tcfg, loss=mean_loss, guard=guard_state,
             spike_z=spike_z, reduce_backend=reduce_backend,
             fused_second_moment=tcfg.fused_second_moment,
-            leaf_groups=reference_leaf_groups(params, cfg),
+            leaf_groups=reference_leaf_groups(params, cfg), **sharded,
         )
         return params, opt_state, guard_state, dict(metrics, loss=mean_loss)
 

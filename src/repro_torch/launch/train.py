@@ -50,10 +50,12 @@ Refused: a config whose training step and an activation reserve do not
 fit one card (``check_fits_card``, on
 ``train_step_peak_bytes``: deepseek-7b's 152 GB, minicpm3-4b's 93.8 GB at
 full depth, recurrentgemma-9b and llama-3.2-vision-11b at full depth,
-against the H100's 80 GB), which trains only when the ROADMAP's sharding
-item (FSDP/TP and expert parallelism) shards it: a data mesh replicates
+against the H100's 80 GB), which trains only sharded over more cards (the
+sharded step, ``launch.steps.make_train_step(mesh=, param_shardings=)``:
+FSDP, TP and EP; ``launch.dryrun`` sizes a rank): a data mesh replicates
 the state, so it makes no config fit. Under ``--mesh`` the check charges
-every rank that shares the card.
+every rank that shares the card; ``check_fits_card(shard=(mesh, specs))``
+charges a sharded rank its own blocks' peak (``sharded_step_peak_bytes``).
 mamba2-780m (17.2 GB) and musicgen-medium (30.5 GB) train at full depth;
 minicpm3-4b, recurrentgemma-9b and llama-3.2-vision-11b at full width cut
 in depth, through
@@ -72,6 +74,7 @@ loop reads the source directly, because a rollback rewinds it.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
@@ -105,6 +108,9 @@ from repro_torch.runtime import ChaosMonkey, GuardMetrics, PreemptionGuard, Step
 # recurrentgemma-9b at 3 layers 67.10 against 67.03; PERF.md section 5):
 # under remat the activations take little beside AdamW's peak.
 ACTIVATION_RESERVE_BYTES = 8 * 10**9
+# A rank process's CUDA context and library handles, held outside PyTorch's
+# allocator: charged to each sharded rank that shares its card.
+RANK_CONTEXT_BYTES = 10**9
 
 
 def param_leaves(cfg) -> int:
@@ -162,7 +168,7 @@ def param_shapes(cfg) -> list:
     return [(p.numel(), p.element_size()) for p in R.tree_leaves(params)]
 
 
-def train_step_peak_bytes(cfg, tcfg, *, guard: bool = False) -> int:
+def train_step_peak_bytes(cfg, tcfg, *, guard: bool = False, shapes=None) -> int:
     """Device bytes a training step holds at its peak, activations aside,
     from the parameters' shapes (``param_shapes``): the larger of
       the backward's end: the parameters, AdamW's f32 moments (one f32
@@ -173,13 +179,16 @@ def train_step_peak_bytes(cfg, tcfg, *, guard: bool = False) -> int:
         statistic's pack (past ``PARTS_KERNEL_MAX`` leaves: every gradient
         squared at f32, then their concatenation, 8 bytes a parameter) and
         AdamW's f32 temporaries of the largest leaf (``ADAMW_LEAF_TEMPS``,
-        with ``guard`` also ``GUARD_LEAF_TEMPS``)."""
-    shapes = param_shapes(cfg)
+        with ``guard`` also ``GUARD_LEAF_TEMPS``).
+    ``shapes`` (``(numel, element size)`` a leaf) replaces the config's
+    (a sharded rank's blocks: ``shard_shapes``)."""
+    shapes = param_shapes(cfg) if shapes is None else shapes
     n = sum(k for k, _ in shapes)
     params = sum(k * size for k, size in shapes)
     moments = 4 * n * (1 if tcfg.fused_second_moment else 2)
     backward = params + moments + 4 * n + params
-    temps = 4 * max(k for k, _ in shapes) * (ADAMW_LEAF_TEMPS + guard * GUARD_LEAF_TEMPS)
+    largest = max(k for k, _ in shapes)
+    temps = 4 * largest * (ADAMW_LEAF_TEMPS + guard * GUARD_LEAF_TEMPS)
     pack = 8 * n if len(shapes) > PARTS_KERNEL_MAX else 0
     return max(backward, params + moments + 4 * n + max(pack, temps))
 
@@ -191,8 +200,57 @@ def combine_peak_bytes(cfg, world: int) -> int:
     return 4 * max(k for k, _ in param_shapes(cfg)) * (world + 1)
 
 
+def shard_shapes(cfg, mesh, specs) -> list:
+    """``(numel, element size)`` of a rank's block of every leaf under
+    ``specs`` (every rank's blocks have the same shapes), in
+    ``reduce.tree_leaves`` order, from the meta device."""
+    from repro_torch.launch.sharding import local_shape, tree_leaves
+
+    leaves = R.tree_leaves(model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                                 torch.device("meta")))
+    return [(math.prod(local_shape(t.shape, s, mesh)), t.element_size())
+            for t, s in zip(leaves, tree_leaves(specs))]
+
+
+def sharded_step_peak_bytes(cfg, tcfg, mesh, specs, *, guard: bool = False) -> int:
+    """A rank's device bytes at the sharded step's peak (``launch.steps``
+    with ``mesh=``), activations aside: ``train_step_peak_bytes`` on its
+    blocks (``shard_shapes``), plus
+      the largest block's weights gathered over the batch axes (FSDP) and
+        their gradients, and the largest such leaf's gradient gathered
+        from every batch rank for the reduce-scatter;
+      the step-end combine of a leaf held whole along a batch axis: its
+        rank rows and the fold of one ``steps.COMBINE_CHUNK`` piece, f32."""
+    from repro_torch.launch.sharding import entry_axes, local_shape, tree_leaves
+    from repro_torch.launch.steps import COMBINE_CHUNK
+
+    shapes = shard_shapes(cfg, mesh, specs)
+    base = train_step_peak_bytes(cfg, tcfg, guard=guard, shapes=shapes)
+    batch = tuple(ax for ax in mesh.axis_names
+                  if ax in ("pod", "data") and mesh.axis_size(ax) > 1)
+    data = math.prod(mesh.axis_size(ax) for ax in batch)
+
+    def fsdp_degree(spec) -> int:
+        return math.prod(mesh.axis_size(ax) for e in spec for ax in entry_axes(e)
+                         if ax in batch)
+
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+
+    def gathered(tree, spec_tree) -> list:  # bytes of each FSDP leaf once gathered
+        return [math.prod(local_shape(t.shape, sp, mesh)) * t.element_size() * fsdp_degree(sp)
+                for t, sp in zip(R.tree_leaves(tree), tree_leaves(spec_tree))
+                if fsdp_degree(sp) > 1]
+
+    block = max((sum(gathered(p, sp)) for p, sp in zip(params["layers"], specs["layers"])),
+                default=0)
+    leaf = max(gathered(params, specs), default=0)
+    whole = [k for (k, _), sp in zip(shapes, tree_leaves(specs)) if fsdp_degree(sp) < data]
+    combine = 4 * min(max(whole, default=0), COMBINE_CHUNK) * (data + 1) if data > 1 else 0
+    return base + 2 * block + data * leaf + combine
+
+
 def check_fits_card(cfg, tcfg, device, *, guard: bool = False, ranks_on_card: int = 1,
-                    world: int = 1) -> None:
+                    world: int = 1, shard=None) -> None:
     """Refuse, before any allocation, a config whose training step
     (``train_step_peak_bytes``, guarded or not) and the activation reserve
     (``ACTIVATION_RESERVE_BYTES``) exceed the card: deepseek-7b (152 GB),
@@ -201,23 +259,38 @@ def check_fits_card(cfg, tcfg, device, *, guard: bool = False, ranks_on_card: in
     an 80 GB card. Under a data mesh of ``world`` ranks (``world`` > 1)
     the step, the reserve and the combine's buffers
     (``combine_peak_bytes``) are charged once for each of the
-    ``ranks_on_card`` ranks that share the card."""
+    ``ranks_on_card`` ranks that share the card. Under a sharded step
+    (``shard=(mesh, specs)``) each rank is charged its own blocks' peak
+    (``sharded_step_peak_bytes``) and the reserve in its share of the
+    batch (the reserve over the batch ranks), and where ranks share the
+    card, each its process's CUDA context (``RANK_CONTEXT_BYTES``, outside
+    PyTorch's allocator)."""
     if device.type != "cuda":
         return
-    per_rank = train_step_peak_bytes(cfg, tcfg, guard=guard) + ACTIVATION_RESERVE_BYTES
-    if world > 1:
+    if shard is not None:
+        mesh, specs = shard
+        data = math.prod(mesh.axis_size(ax) for ax in mesh.axis_names if ax in ("pod", "data"))
+        reserve = ACTIVATION_RESERVE_BYTES // data
+        per_rank = sharded_step_peak_bytes(cfg, tcfg, mesh, specs, guard=guard) + reserve
+        if ranks_on_card > 1:
+            per_rank += RANK_CONTEXT_BYTES
+    else:
+        reserve = ACTIVATION_RESERVE_BYTES
+        per_rank = train_step_peak_bytes(cfg, tcfg, guard=guard) + reserve
+    if world > 1 and shard is None:
         per_rank += combine_peak_bytes(cfg, world)
     need = per_rank * ranks_on_card
     have = torch.cuda.get_device_properties(device).total_memory
     if need > have:
         ranks = f" for each of {ranks_on_card} ranks on the card" if ranks_on_card > 1 else ""
         raise ValueError(
-            f"{cfg.name} at {cfg.n_layers} layers: the {'guarded ' * guard}training step "
-            f"holds {(per_rank - ACTIVATION_RESERVE_BYTES) / 1e9:.1f} GB before activations "
-            f"(and {ACTIVATION_RESERVE_BYTES / 1e9:.0f} GB are kept for them){ranks}, "
-            f"{need / 1e9:.1f} GB, more than the card's {have / 1e9:.1f} GB; it trains at "
-            f"this depth only when the ROADMAP's sharding item (FSDP/TP and expert "
-            f"parallelism) shards it")
+            f"{cfg.name} at {cfg.n_layers} layers: the {'guarded ' * guard}"
+            f"{'sharded ' * (shard is not None)}training step holds "
+            f"{(per_rank - reserve) / 1e9:.1f} GB before activations (and "
+            f"{reserve / 1e9:.0f} GB are kept for them){ranks}, {need / 1e9:.1f} GB, more "
+            f"than the card's {have / 1e9:.1f} GB; it trains at this depth only sharded over "
+            f"more cards (launch.steps.make_train_step(mesh=...); a rank's bytes: python -m "
+            f"repro_torch.launch.dryrun)")
 
 
 def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0,

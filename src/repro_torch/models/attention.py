@@ -67,11 +67,13 @@ def attn_init(gen, d: int, n_heads: int, n_kv: int, d_head: int, dtype, device) 
     }
 
 
-def _project_qkv(p, x, n_heads, n_kv, d_head):
+def _project_qkv(p, x, d_head):
+    """q, k, v (B, S, heads, d_head) with as many heads as the weights
+    hold: the model's, or a tensor-parallel rank's own."""
     b, s, _ = x.shape
-    q = P.dense_apply(p["q"], x).reshape(b, s, n_heads, d_head)
-    k = P.dense_apply(p["k"], x).reshape(b, s, n_kv, d_head)
-    v = P.dense_apply(p["v"], x).reshape(b, s, n_kv, d_head)
+    q = P.dense_apply(p["q"], x).reshape(b, s, -1, d_head)
+    k = P.dense_apply(p["k"], x).reshape(b, s, -1, d_head)
+    v = P.dense_apply(p["v"], x).reshape(b, s, -1, d_head)
     return q, k, v
 
 
@@ -140,14 +142,19 @@ def flash_attention_xla(q, k, v, *, causal: bool = True, window=None, q_offset: 
     return out[:, :sq].to(q.dtype)
 
 
-def self_attention_train(p, x, positions, cfg, *, window=None, return_kv=False):
+def self_attention_train(p, x, positions, cfg, *, window=None, return_kv=False, tp=None):
     """(B, S, d) -> (B, S, d): causal self-attention, train/prefill path,
     on the kernel with ``cfg.use_kernels`` (its window mask; past heads of
     128 the kernel's wide variant) and on ``flash_attention_xla`` without
     it; ``window`` keeps the keys less than ``window`` positions behind.
     ``return_kv=True`` also returns the RoPE'd keys and the values (B, S,
-    Hkv, D) -- what the prefill writes into the cache."""
-    q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    Hkv, D) -- what the prefill writes into the cache. ``tp``
+    (``models.parallel.TP``): the weights hold a rank's heads, q/k/v are
+    column-parallel (x through ``tp.enter``) and o row-parallel (its
+    partial sums through ``tp.exit``)."""
+    if tp is not None:
+        x = tp.enter(x)
+    q, k, v = _project_qkv(p, x, cfg.d_head)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     if cfg.use_kernels:
@@ -158,6 +165,8 @@ def self_attention_train(p, x, positions, cfg, *, window=None, return_kv=False):
         out = flash_attention_xla(q, k, v, causal=True, window=window, mma=cfg.mma_reductions)
     b, s = out.shape[0], out.shape[1]
     out = P.dense_apply(p["o"], out.reshape(b, s, -1))
+    if tp is not None:
+        out = tp.exit(out)
     return (out, k, v) if return_kv else out
 
 
@@ -222,7 +231,7 @@ def self_attention_decode(p, x_t, cache, pos: int, cfg, *, window=None):
     attention's ring (``window`` given), which evicts the oldest key.
     Returns (out (B, 1, d), cache)."""
     b = x_t.shape[0]
-    q, k, v = _project_qkv(p, x_t, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    q, k, v = _project_qkv(p, x_t, cfg.d_head)
     posb = torch.full((b, 1), pos, dtype=torch.int64, device=x_t.device)
     q = L.rope(q, posb, cfg.rope_theta)
     k = L.rope(k, posb, cfg.rope_theta)

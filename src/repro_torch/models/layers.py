@@ -109,9 +109,14 @@ def ffn_init(gen, d: int, d_ff: int, kind: str, dtype, device) -> dict:
     raise ValueError(f"ffn {kind!r} is not ported")
 
 
-def ffn_apply(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def ffn_apply(p: dict, x: torch.Tensor, kind: str, tp=None) -> torch.Tensor:
     """SwiGLU, down(silu(x @ gate) * (x @ up)), or GELU, down(gelu(x @
-    up)) with the tanh form of the GELU (``jax.nn.gelu``'s default)."""
+    up)) with the tanh form of the GELU (``jax.nn.gelu``'s default).
+    ``tp`` (``models.parallel.TP``): gate and up hold a rank's columns
+    (column-parallel, x through ``tp.enter``), down its rows (row-parallel,
+    the partial sums through ``tp.exit``)."""
+    if tp is not None:
+        return tp.exit(ffn_apply(p, tp.enter(x), kind))
     if kind == "swiglu":
         h = F.silu(P.dense_apply(p["gate"], x)) * P.dense_apply(p["up"], x)
     else:

@@ -74,6 +74,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
+from repro_torch.models import context as CTX
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
@@ -156,11 +157,13 @@ def _ffn_init(gen, cfg, device) -> dict:
     return L.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dt, device)
 
 
-def _ffn_apply(p, h, cfg):
-    """The block's FFN -> (y, metrics); a dense FFN has no metrics."""
+def _ffn_apply(p, h, cfg, hooks=None):
+    """The block's FFN -> (y, metrics); a dense FFN has no metrics.
+    ``hooks`` (``models.parallel.Hooks``): its tensor or expert
+    parallelism."""
     if cfg.moe is not None:
-        return MOE.moe_apply(p, h, cfg)
-    return L.ffn_apply(p, h, cfg.ffn_kind), {}
+        return MOE.moe_apply(p, h, cfg, ep=None if hooks is None else hooks.ep)
+    return L.ffn_apply(p, h, cfg.ffn_kind, tp=None if hooks is None else hooks.ffn), {}
 
 
 def _aux(metrics: dict, device) -> torch.Tensor:
@@ -218,16 +221,115 @@ def init_params(cfg, gen: torch.Generator, device) -> dict:
     return params
 
 
+# ------------------------------ logical axes ---------------------------------
+# The reference's ``init_params`` returns an axes tree beside the parameters
+# (``repro.models.params``' vocabulary: "vocab", "embed", "ffn", "heads",
+# "kv_heads", "experts", "inner", None); ``launch.sharding`` maps it onto
+# mesh axes. Here it is its own function of the config, leaf for leaf the
+# port's parameter tree; a per-layer leaf has the reference's stacked axes
+# without their leading (unsharded) layer axis.
+
+def _dense_axes(a, b) -> dict:
+    return {"w": (a, b)}
+
+
+def _norm_axes(kind: str) -> dict:
+    return {"scale": ("embed",), "bias": ("embed",)} if kind == "layernorm" else (
+        {"scale": ("embed",)} if kind == "rmsnorm" else {})
+
+
+def _mixer_axes(kind: str, cfg) -> dict:
+    if kind == "ssm":
+        return {"z": _dense_axes("embed", "inner"), "xbc": _dense_axes("embed", "inner"),
+                "dt": _dense_axes("embed", None), "out": _dense_axes("inner", "embed"),
+                "conv_w": (None, "inner"), "dt_bias": None, "A_log": None, "D": None,
+                "norm_scale": ("inner",)}
+    if kind == "rec":
+        return {"in_x": _dense_axes("embed", "inner"), "in_gate": _dense_axes("embed", "inner"),
+                "out": _dense_axes("inner", "embed"), "conv_w": (None, "inner"),
+                "gate_a": ("inner", None, None), "gate_x": ("inner", None, None),
+                "lam": ("inner",)}
+    if kind != "xattn" and cfg.mla is not None:
+        return {"q_down": _dense_axes("embed", None), "q_up": _dense_axes(None, "heads"),
+                "kv_down": _dense_axes("embed", None), "kv_up": _dense_axes(None, "heads"),
+                "o": _dense_axes("heads", "embed"), "q_norm": _norm_axes("rmsnorm"),
+                "kv_norm": _norm_axes("rmsnorm")}
+    axes = {"q": _dense_axes("embed", "heads"), "k": _dense_axes("embed", "kv_heads"),
+            "v": _dense_axes("embed", "kv_heads"), "o": _dense_axes("heads", "embed")}
+    if kind == "xattn":
+        axes["gate"] = None
+    return axes
+
+
+def _ffn_axes(cfg) -> dict:
+    if cfg.moe is not None:
+        axes = {"router": ("embed", None), "up": ("experts", "embed", "ffn"),
+                "down": ("experts", "ffn", "embed")}
+        if cfg.ffn_kind == "swiglu":
+            axes["gate"] = ("experts", "embed", "ffn")
+        return axes
+    axes = {"up": _dense_axes("embed", "ffn"), "down": _dense_axes("ffn", "embed")}
+    if cfg.ffn_kind == "swiglu":
+        axes["gate"] = _dense_axes("embed", "ffn")
+    return axes
+
+
+def block_axes(kind: str, cfg) -> dict:
+    """One block's axes tree, the structure of ``block_init``'s."""
+    _check_kind(kind)
+    axes = {"norm1": _norm_axes(cfg.norm), "mix": _mixer_axes(kind, cfg)}
+    if _has_ffn(kind):
+        axes["norm2"] = _norm_axes(cfg.norm)
+        axes["ffn"] = _ffn_axes(cfg)
+    return axes
+
+
+def param_axes(cfg) -> dict:
+    """The logical-axes tree of ``init_params(cfg, ...)``: one tuple of
+    names a leaf (one name or None a dim), or None for a leaf the rules
+    never cut. Checked against the shapes of ``init_params`` on the meta
+    device (no allocation): every leaf's tuple has its rank."""
+    books = cfg.n_codebooks
+    axes = {
+        "embed": {"table": (None, "vocab", "embed") if books else ("vocab", None)},
+        "layers": [block_axes(kind, cfg) for kind in cfg.pattern_layers],
+        "final_norm": _norm_axes(cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        axes["head"] = {"w": (None, None, "vocab") if books else (None, "vocab")}
+    shapes = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+    _check_axes(axes, shapes)
+    return axes
+
+
+def _check_axes(axes, shapes, path=()) -> None:
+    if isinstance(shapes, torch.Tensor):
+        if axes is not None and len(axes) != shapes.ndim:
+            raise AssertionError(f"axes {axes} at {path} for a leaf of shape "
+                                 f"{tuple(shapes.shape)}")
+        return
+    keys = range(len(shapes)) if isinstance(shapes, list) else shapes.keys()
+    if (len(axes) != len(shapes) or (isinstance(shapes, dict)
+                                     and set(axes) != set(shapes))):
+        raise AssertionError(f"the axes tree at {path} does not match the parameters")
+    for k in keys:
+        _check_axes(axes[k], shapes[k], path + (k,))
+
+
 def _norm(p, h, cfg):
     return L.norm_apply(cfg.norm, p, h, eps=cfg.norm_eps, mma=cfg.mma_reductions,
                         use_kernels=cfg.use_kernels)
 
 
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, plan=None):
     """(B, S) tokens -> their embedding rows; (B, S, K) codebook tokens ->
     the sum of the K streams' rows, added in order k = 0 .. K-1 in the
-    parameters' dtype, as the reference adds them."""
+    parameters' dtype, as the reference adds them. Under a ``plan``
+    (``models.parallel.Plan``) whose vocabulary is cut over "model", the
+    vocab-parallel lookup (``Plan.embed``)."""
     table = params["embed"]["table"]
+    if plan is not None:
+        return plan.embed(table, tokens)
     if not cfg.n_codebooks:
         return table[tokens]
     h = table[0][tokens[..., 0]]
@@ -236,20 +338,26 @@ def _embed(params, cfg, tokens):
     return h
 
 
-def _mask_pad_logits(logits, cfg):
+def _mask_pad_logits(logits, cfg, col0: int = 0):
     """Pad-vocab logits are masked to -1e30 so argmax and softmax see the
-    unpadded math."""
+    unpadded math. ``col0``: the global id of the first column (a
+    vocab-parallel rank's logits are a slice of the vocabulary)."""
     nv = logits.shape[-1]
-    if nv == cfg.vocab_size:
+    if col0 + nv <= cfg.vocab_size:
         return logits
-    pad = torch.arange(nv, device=logits.device) >= cfg.vocab_size
+    pad = torch.arange(col0, col0 + nv, device=logits.device) >= cfg.vocab_size
     return torch.where(pad, -1e30, logits)
 
 
-def _head(params, cfg, h):
+def _head(params, cfg, h, plan=None):
     """The head in f32 -> (B, S, padded vocab): the embedding table when
     tied, ``head.w`` when not (with K codebook streams (B, S, K, padded
-    vocab), one head a stream); the soft cap, then pad logits at -1e30."""
+    vocab), one head a stream); the soft cap, then pad logits at -1e30.
+    Under a ``plan`` whose vocabulary is cut over "model", the rank's
+    columns (from ``plan.vocab0``), masked by global column id."""
+    col0 = 0
+    if plan is not None:
+        h, col0 = plan.head_input(h), plan.vocab0
     hf = h.to(torch.float32)
     if cfg.tie_embeddings:
         logits = torch.matmul(hf, params["embed"]["table"].to(torch.float32).T)
@@ -260,7 +368,7 @@ def _head(params, cfg, h):
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
-    return _mask_pad_logits(logits, cfg)
+    return _mask_pad_logits(logits, cfg, col0)
 
 
 def _head_public(params, cfg, h):
@@ -268,11 +376,11 @@ def _head_public(params, cfg, h):
     return _head(params, cfg, h)[..., : cfg.vocab_size]
 
 
-def _ffn_residual(kind, p, h, cfg):
+def _ffn_residual(kind, p, h, cfg, hooks=None):
     """h plus the block's FFN of norm2(h) (a kind with an FFN) -> (h, aux)."""
     if not _has_ffn(kind):
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
-    y, metrics = _ffn_apply(p["ffn"], _norm(p["norm2"], h, cfg), cfg)
+    y, metrics = _ffn_apply(p["ffn"], _norm(p["norm2"], h, cfg), cfg, hooks)
     return h + y, _aux(metrics, h.device)
 
 
@@ -280,9 +388,11 @@ def _window(kind: str, cfg):
     return cfg.window if kind == "local_attn" else None
 
 
-def block_train(kind: str, p, h, positions, cfg, ctx=None):
+def block_train(kind: str, p, h, positions, cfg, ctx=None, hooks=None):
     """One block, train/prefill compute: (B, S, d) -> ((B, S, d), aux f32
-    scalar). ``ctx`` is the cross-attention layers' context."""
+    scalar). ``ctx`` is the cross-attention layers' context; ``hooks``
+    (``models.parallel.Hooks``) the block's tensor and expert parallelism,
+    its weights a rank's (``Plan.block``)."""
     hn = _norm(p["norm1"], h, cfg)
     if kind == "ssm":
         mix = SSM.ssm_train(p["mix"], hn, cfg)
@@ -293,8 +403,9 @@ def block_train(kind: str, p, h, positions, cfg, ctx=None):
     elif cfg.mla is not None:
         mix = MLA.mla_train(p["mix"], hn, positions, cfg)
     else:
-        mix = A.self_attention_train(p["mix"], hn, positions, cfg, window=_window(kind, cfg))
-    return _ffn_residual(kind, p, h + mix, cfg)
+        mix = A.self_attention_train(p["mix"], hn, positions, cfg, window=_window(kind, cfg),
+                                     tp=None if hooks is None else hooks.attn)
+    return _ffn_residual(kind, p, h + mix, cfg, hooks)
 
 
 def block_make_cache(kind: str, batch: int, s_max: int, cfg, device) -> dict:
@@ -360,23 +471,43 @@ def block_decode(kind: str, p, h, cache, pos: int, cfg):
     return _ffn_residual(kind, p, h + mix, cfg)[0], cache
 
 
-def forward_hidden(params, cfg, tokens: torch.Tensor, ctx=None):
+def _sharded_block(kind, p, specs, h, positions, cfg, ctx, plan):
+    """One block under ``plan``: its weights gathered (FSDP, kv heads) and
+    run with its hooks, inside the block's checkpoint."""
+    p, hooks = plan.block(kind, p, specs)
+    return block_train(kind, p, h, positions, cfg, ctx, hooks)
+
+
+def forward_hidden(params, cfg, tokens: torch.Tensor, ctx=None, plan=None):
     """Backbone forward to the final normed hidden state (B, S, d) and the
     aux loss summed over layers; no head (the chunked loss applies it per
     sequence chunk). tokens: (B, S), or (B, S, K) with codebooks; ``ctx``:
-    the cross-attention context (B, N, d) or None. -> (h, aux)."""
-    h = _embed(params, cfg, tokens)
+    the cross-attention context (B, N, d) or None. -> (h, aux).
+
+    ``plan`` (``models.parallel.Plan``): ``params`` are a rank's blocks and
+    ``tokens`` its rows; each layer gathers its weights inside its
+    checkpoint (the recompute gathers again), and the activations between
+    layers are checked to hold the rank's rows (``context.constrain``)."""
+    h = CTX.constrain(_embed(params, cfg, tokens, plan))
     b, s = tokens.shape[:2]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for kind, p in zip(cfg.pattern_layers, params["layers"]):
-        if cfg.remat:
-            h, a = checkpoint(block_train, kind, p, h, positions, cfg, ctx,
-                              use_reentrant=False)
+    for i, (kind, p) in enumerate(zip(cfg.pattern_layers, params["layers"])):
+        if plan is not None:
+            args = (_sharded_block, kind, p, plan.specs["layers"][i], h, positions, cfg, ctx,
+                    plan)
         else:
-            h, a = block_train(kind, p, h, positions, cfg, ctx)
+            args = (block_train, kind, p, h, positions, cfg, ctx)
+        if cfg.remat:
+            h, a = checkpoint(*args, use_reentrant=False)
+        else:
+            h, a = args[0](*args[1:])
+        h = CTX.constrain(h)
         aux = aux + a
-    return _norm(params["final_norm"], h, cfg), aux
+    final = params["final_norm"]
+    if plan is not None:
+        final = plan.gather(final, plan.specs["final_norm"])
+    return _norm(final, h, cfg), aux
 
 
 def forward(params, cfg, tokens: torch.Tensor, ctx=None):

@@ -32,9 +32,26 @@ The routing's row sums (the softmax denominator, the load-balance
 statistics) are the engine's row reductions: on every backend a
 ones-product in torch, no kernel launch.
 
-Not ported: the shard_map dispatch and the activation-sharding constraints
-(``_data_degree``, ``_model_degree``, ``CTX``); they belong to the ROADMAP's
-sharding item.
+Expert parallelism (``moe_apply(ep=)``, ``models.parallel.EP``): the
+leading E axis of every expert weight carries the "experts" axis, cut over
+"model". Every rank of a model group holds the same tokens, so each routes
+them alike (the router is whole on every rank), keeps the slot tables of
+its own E / model experts, runs those experts, and adds its gate-weighted
+combine's partial token sums to the others' over "model" in rank order
+(the reference's psum at the end of its shard_map dispatch). The tokens
+enter the dispatch, and the gates the tables, through ``sum_backward``:
+each rank's experts see their own slots, so their gradients add over
+"model", while the aux losses, which every rank takes alike from the whole
+routing, do not. The load-balance statistics are sums over the whole
+batch: each rank's over its rows, then summed over the batch axes
+(``sum_both``). The degrees come from the ``Plan``'s ``EP``.
+
+The reference chooses between two dispatch routes, its shard_map dispatch
+and the one that constrains the (E, C, d) block to the mesh
+(``USE_SHARD_MAP_DISPATCH``, with ``_data_degree`` and ``_model_degree``
+reading the mesh for it). Here, with a process a rank, both are the one
+rank-local dispatch above, so the switch and its two helpers have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -46,6 +63,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import reduce as R
+from repro_torch.core import collectives as C
+from repro_torch.models import context as CTX
 from repro_torch.models import layers as L
 from repro_torch.models import params as P
 
@@ -183,31 +202,55 @@ def scan_backend(cfg) -> str:
     return rb if rb in ("torch", "mma_torch") else "mma_torch"
 
 
-def route(p: dict, x: torch.Tensor, cfg) -> Routing:
+def route(p: dict, x: torch.Tensor, cfg, gate_hook=None) -> Routing:
     """The routing of x (B, S, d): router logits and probabilities, the
-    top-k experts and gates, and the slot tables at ``capacity(S)``."""
+    top-k experts and gates, and the slot tables at ``capacity(S)``.
+    ``gate_hook`` maps the renormalized gates before the tables take them
+    (expert parallelism's ``sum_backward``)."""
     e = cfg.moe
     with L.full_f32_matmul():
         logits = torch.matmul(x.to(torch.float32), p["router"])        # (B, S, E)
         probs = L.softmax_mma(logits, mma=cfg.mma_reductions)
         gate_vals, expert_ix = torch.topk(probs, e.top_k, dim=-1)
         gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+        if gate_hook is not None:
+            gate_vals = gate_hook(gate_vals)
         tables = _dispatch_row(expert_ix, gate_vals, e.n_experts, capacity(x.shape[1], cfg),
                                backend=scan_backend(cfg))
     return Routing(logits, probs, expert_ix, gate_vals, *tables)
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg):
+def _local_slots(token_slots: torch.Tensor, lo: int, hi: int, cap: int) -> torch.Tensor:
+    """Each token's slots among experts [lo, hi), renumbered from lo's
+    first slot and ascending; (hi - lo) C marks none."""
+    n = (hi - lo) * cap
+    local = token_slots - lo * cap
+    local = torch.where((local >= 0) & (local < n), local, n)
+    return torch.sort(local, dim=-1).values
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg, ep=None):
     """x (B, S, d) -> (y (B, S, d) in x's dtype, metrics). Capacity-dropped
     pairs add nothing: a token with every pair dropped passes through the
     block's residual unchanged. ``metrics``: ``moe_aux`` (the load-balance
     term times its weight), ``moe_z`` (the router z-loss times its weight)
-    and ``moe_drop_frac``."""
+    and ``moe_drop_frac``. ``ep`` (``models.parallel.EP``): ``p``'s expert
+    weights are the rank's experts, and x the rank's rows (module doc)."""
     e = cfg.moe
     b, s, d = x.shape
-    r = route(p, x, cfg)
+    tp = None if ep is None else ep.tp
+    r = route(p, x, cfg) if tp is None else route(p, x, cfg, gate_hook=tp.enter)
     cap = r.slot_token.shape[-1]
-    gathered = _Dispatch.apply(x, r.slot_token, r.token_slots).view(b, e.n_experts, cap, d)
+    n_local = p["up"].shape[0]
+    slot_token, slot_gate, token_slots = r.slot_token, r.slot_gate, r.token_slots
+    xd = x
+    if tp is not None:
+        lo = ep.e0
+        slot_token, slot_gate = slot_token[:, lo:lo + n_local], slot_gate[:, lo:lo + n_local]
+        token_slots = _local_slots(token_slots, lo, lo + n_local, cap)
+        xd = tp.enter(x)
+    gathered = _Dispatch.apply(xd, slot_token, token_slots).view(b, n_local, cap, d)
+    gathered = CTX.constrain_moe_dispatch(gathered, e.n_experts)
     # ---- expert FFNs as batched products ----
     up = torch.einsum("becd,edf->becf", gathered, p["up"].to(x.dtype))
     if cfg.ffn_kind == "swiglu":
@@ -217,10 +260,12 @@ def moe_apply(p: dict, x: torch.Tensor, cfg):
     yexp = torch.einsum("becf,efd->becd", h, p["down"].to(x.dtype))
     # ---- gate-weighted combine back to tokens ----
     # the gate is cast to the activation dtype before the multiply
-    yflat = (yexp * r.slot_gate[..., None].to(yexp.dtype)).reshape(b, -1, d)
-    y = _Combine.apply(yflat, r.token_slots, r.slot_token)
+    yflat = (yexp * slot_gate[..., None].to(yexp.dtype)).reshape(b, -1, d)
+    y = _Combine.apply(yflat, token_slots, slot_token)
+    if tp is not None:
+        y = tp.exit(y)  # the ranks' partial token sums, in rank order
     # ---- aux statistics: both per-expert sums over all B S tokens in one
-    # row pass of the engine ----
+    # row pass of the engine (over the batch axes, summed across them) ----
     counts = F.one_hot(r.expert_ix, e.n_experts).to(torch.float32).sum(2)   # (B, S, E)
     t = b * s
     tpe_sum, prob_sum = R.reduce_many(
@@ -228,6 +273,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg):
          r.probs.movedim(-1, 0).reshape(e.n_experts, -1)],
         axis=-1, backend=R.backend_for_flags(cfg.mma_reductions),
     )
+    if ep is not None and ep.batch:
+        both = C.sum_both(torch.stack([tpe_sum, prob_sum]), ep.batch, ep.mesh)
+        tpe_sum, prob_sum = both[0], both[1]
+        t = t * ep.data_degree
     aux = e.n_experts * torch.sum((tpe_sum / t) * (prob_sum / t))
     zloss = torch.mean(torch.logsumexp(r.logits, -1) ** 2)
     metrics = {

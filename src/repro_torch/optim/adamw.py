@@ -132,6 +132,48 @@ def global_norm_and_clip(grads, max_norm, *, mma: bool = True, backend: Optional
     return out[0], out[1]
 
 
+@torch.no_grad()
+def sharded_norm_and_clip(grads, max_norm, leaf_axes, mesh, *, backend: Optional[str] = None,
+                          census: bool = False):
+    """``(per_leaf, gnorm, clip[, nonfinite])`` of gradients cut over a
+    mesh, each leaf a rank's block of its spec. One local launch of the
+    engine (one K4 launch on cuda_fused, with the census counted in it)
+    gives every leaf's sum of squares over the rank's block; then, one
+    mesh axis at a time, a fixed-order combine over the axis replaces the
+    sums of the leaves cut over it (``leaf_axes[i]``: the axes leaf i is
+    cut over), and leaves it leaves whole keep theirs: a leaf counts once
+    however many ranks hold it alike. The total, its sqrt and the clip
+    coefficient then follow on the same bits on every rank.
+
+    With ``census`` the rank's NaN/Inf count is summed over every axis
+    (a fixed-order combine, one rank's poisoned block reaching every rank):
+    ``nonfinite`` is that sum, the same on every rank, so a skip decided
+    from it moves in lockstep (replicated blocks are counted once a rank
+    that holds them)."""
+    flat = R.tree_leaves(grads)
+    out = R.reduce_tree(flat, kind="sumsq", backend=backend, return_per_leaf=True,
+                        census=census)
+    per_leaf = out[0]
+    dev = per_leaf.device
+    from repro_torch.core import collectives as coll  # deferred: the engine imports it
+
+    for ax in mesh.axis_names:
+        if mesh.axis_size(ax) == 1:
+            continue
+        cut = torch.tensor([ax in axes for axes in leaf_axes], dtype=torch.bool, device=dev)
+        per_leaf = torch.where(cut, coll.fixed_order_combine(per_leaf, (ax,), mesh), per_leaf)
+    total = torch.zeros((), dtype=per_leaf.dtype, device=dev)
+    for i in range(per_leaf.shape[0]):  # leaf order, one add at a time
+        total = total + per_leaf[i]
+    gnorm = torch.sqrt(total)
+    clip = torch.clamp_max(float(max_norm) / torch.clamp_min(gnorm, GNORM_EPS), 1.0)
+    if not census:
+        return per_leaf, gnorm, clip
+    live = tuple(ax for ax in mesh.axis_names if mesh.axis_size(ax) > 1)
+    nonfinite = coll.fixed_order_combine(out[2][-1].reshape(1), live, mesh)[0]
+    return per_leaf, gnorm, clip, nonfinite
+
+
 # Signed integer views for the bitwise keep/advance select, by element size
 # (the reference's unsigned ``_BLEND_UINT``; a select moves bits either way).
 _INT_VIEW = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -230,19 +272,33 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
     return AdamWState(step=step, m=state.m, v=state.v), lr
 
 
+def _refuse_fused_sharded(fused_second_moment: bool, leaf_axes) -> None:
+    if fused_second_moment and leaf_axes is not None:
+        raise NotImplementedError("the fused second moment under a sharded step (its group "
+                                  "sizes are whole-leaf counts) is not ported")
+
+
 def apply_updates(params, grads, state: AdamWState, cfg, *, mma: bool = True,
                   reduce_backend: Optional[str] = None, fused_second_moment: bool = False,
-                  leaf_groups: Optional[Sequence[int]] = None, mesh_axes=None):
+                  leaf_groups: Optional[Sequence[int]] = None, mesh_axes=None,
+                  leaf_axes=None, mesh=None):
     """One AdamW step on the parameter tree (updated in place). ``grads``
     is a tree like ``params`` or the flat list of its leaves. Returns
     (params, new_state, metrics). ``mesh_axes``: parameters, gradients and
     moments are this rank's shards of trees sharded across those axes; the
-    clip statistic is the global one (``global_norm_and_clip``)."""
+    clip statistic is the global one (``global_norm_and_clip``).
+    ``leaf_axes`` (with ``mesh``): each leaf is a rank's block of a tensor
+    cut over its own axes (the sharded step's), and the clip statistic
+    counts every leaf once (``sharded_norm_and_clip``)."""
     flat_p = R.tree_leaves(params)
     flat_g = R.tree_leaves(grads)
     if len(flat_g) != len(flat_p):
         raise ValueError(f"{len(flat_g)} gradients for {len(flat_p)} parameters")
-    if fused_second_moment:
+    _refuse_fused_sharded(fused_second_moment, leaf_axes)
+    if leaf_axes is not None:
+        per_leaf, gnorm, clip = sharded_norm_and_clip(flat_g, cfg.grad_clip, leaf_axes, mesh,
+                                                      backend=reduce_backend)
+    elif fused_second_moment:
         per_leaf, gnorm, clip = global_norm_and_clip(
             flat_g, cfg.grad_clip, mma=mma, backend=reduce_backend, return_per_leaf=True,
             mesh_axes=mesh_axes)
@@ -305,7 +361,8 @@ def guarded_apply_updates(params, grads, state: AdamWState, cfg, *, loss=None,
                           guard: Optional[GuardState] = None, spike_z: float = 6.0,
                           mma: bool = True, reduce_backend: Optional[str] = None,
                           fused_second_moment: bool = False,
-                          leaf_groups: Optional[Sequence[int]] = None, mesh_axes=None):
+                          leaf_groups: Optional[Sequence[int]] = None, mesh_axes=None,
+                          leaf_axes=None, mesh=None):
     """One GUARDED AdamW step: the single-launch clip statistic of
     ``apply_updates`` with the in-launch NaN/Inf census, and a skip decided
     on the device: if any gradient element is NaN/Inf (or the windowed
@@ -324,12 +381,19 @@ def guarded_apply_updates(params, grads, state: AdamWState, cfg, *, loss=None,
     out of the fixed-order combine bitwise the same on every rank, so the
     skip, the write-back and the guard state move in lockstep while each
     rank updates only its shards. ``loss`` must already be the same on
-    every rank for the spike test to agree."""
+    every rank for the spike test to agree. ``leaf_axes`` (with ``mesh``):
+    the sharded step's blocks, as in ``apply_updates``; the census is
+    summed over every axis, so the skip is the same on every rank."""
     flat_p = R.tree_leaves(params)
     flat_g = R.tree_leaves(grads)
     if len(flat_g) != len(flat_p):
         raise ValueError(f"{len(flat_g)} gradients for {len(flat_p)} parameters")
-    if fused_second_moment:
+    _refuse_fused_sharded(fused_second_moment, leaf_axes)
+    if leaf_axes is not None:
+        per_leaf, gnorm, clip, nonfinite = sharded_norm_and_clip(
+            flat_g, cfg.grad_clip, leaf_axes, mesh, backend=reduce_backend, census=True)
+        per_leaf = None
+    elif fused_second_moment:
         per_leaf, gnorm, clip, counts = global_norm_and_clip(
             flat_g, cfg.grad_clip, mma=mma, backend=reduce_backend, return_per_leaf=True,
             census=True, mesh_axes=mesh_axes)
@@ -338,7 +402,8 @@ def guarded_apply_updates(params, grads, state: AdamWState, cfg, *, loss=None,
         gnorm, clip, counts = global_norm_and_clip(
             flat_g, cfg.grad_clip, mma=mma, backend=reduce_backend, census=True,
             mesh_axes=mesh_axes)
-    nonfinite = counts[-1]
+    if leaf_axes is None:
+        nonfinite = counts[-1]
     bad = nonfinite > 0
     loss_f = None if loss is None else torch.as_tensor(loss, dtype=torch.float32,
                                                        device=bad.device)

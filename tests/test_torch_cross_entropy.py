@@ -22,6 +22,16 @@ agrees within 2^-9 (relative change of l) ~ 2e-3 in the worst case
 (observed 7e-4). The label logit is exact on both sides. Gradients are the same f32 host math
 (softmax - onehot) on the same logits: 1e-6.
 
+The partial variant (``cross_entropy_partial``, the vocab-parallel
+cross-entropy of the sharded step): each rank's slice of the columns gives
+(M, L, pick), and the slices merged in rank order (``merge_partials``) give
+the full loss -- bitwise the full plain version where every rank holds one
+whole 2048-column slice (the same folds in the same order), within the
+reference tolerance's 2e-3 where a rank's slice ends inside one (the bf16
+rounding of p at other maxima, as above) -- and the slices' gradients at
+the exact logsumexp merged from their f32 statistics (``losses.exact_stats``,
+``vocab_parallel_grad``) the full host gradient: 1e-6.
+
 The emulation walks one row, one slice, one warp and one step at a time
 in numpy f32 scalars; its exp is torch's f32 exp (numpy's differs from it
 in the last ulp for many inputs, which would move the bf16 rounding of a p
@@ -40,7 +50,9 @@ import torch
 
 from repro.kernels import cross_entropy as ref_cross_entropy
 from repro_torch.kernels import common, cross_entropy
-from repro_torch.kernels.cross_entropy import cross_entropy_plain
+from repro_torch.kernels.cross_entropy import (cross_entropy_bwd, cross_entropy_partial,
+                                               cross_entropy_plain, merge_partials)
+from repro_torch.models.losses import exact_stats, vocab_parallel_grad
 from repro_torch.kernels.cross_entropy.ops import NEG, SLICE_V, WARPS, step_columns
 
 ROWS = 24
@@ -193,3 +205,40 @@ def test_labels_at_the_edges_and_ragged_rows(rows):
     got = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-3)
     np.testing.assert_allclose(got.numpy(), _emulate(logits, labels, 4), rtol=0, atol=4e-6)
+
+
+@pytest.mark.parametrize("width,ranks,pad", [(4096, 2, False), (6144, 3, False),
+                                             (2304, 2, True), (1000, 4, False)],
+                         ids=["2x2048", "3x2048", "padded-2x1152", "ragged-4x250"])
+def test_partial_slices_merge_into_the_full_loss_and_gradient(width, ranks, pad):
+    logits, labels = _inputs(width, seed=4, pad=pad)
+    x, lab = torch.from_numpy(logits), torch.from_numpy(labels)
+    n = width // ranks
+    common.reset_launches()
+    parts = [cross_entropy_partial(x[:, r * n:(r + 1) * n], lab, r * n) for r in range(ranks)]
+    assert cross_entropy_partial.launches == 0  # CPU operands: the plain version
+    for r, part in enumerate(parts):
+        assert part.shape == (ROWS, 3)
+        lab_r = labels - r * n
+        hit = (lab_r >= 0) & (lab_r < n)
+        want = np.where(hit, logits[np.arange(ROWS), np.clip(labels, 0, width - 1)], 0.0)
+        np.testing.assert_array_equal(part[:, 2].numpy(), want.astype(np.float32))
+    loss, lse = merge_partials(parts)
+    full = cross_entropy_plain(x, lab)
+    if n % SLICE_V == 0:
+        assert torch.equal(loss, full)
+    else:
+        np.testing.assert_allclose(loss.numpy(), full.numpy(), rtol=2e-3)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(ROWS).astype(np.float32))
+    _, lse = merge_partials([exact_stats(x[:, r * n:(r + 1) * n]) for r in range(ranks)])
+    grad = torch.cat([vocab_parallel_grad(x[:, r * n:(r + 1) * n], lab, lse, r * n, g)
+                      for r in range(ranks)], -1)
+    np.testing.assert_allclose(grad.numpy(), cross_entropy_bwd(x, lab, g).numpy(), atol=1e-6)
+
+
+def test_partial_variant_refuses_bad_arguments():
+    x, lab = torch.zeros(4, 8), torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="col0"):
+        cross_entropy_partial(x, lab, -1)
+    with pytest.raises(ValueError, match="expected"):
+        cross_entropy_partial(x[None], lab, 0)

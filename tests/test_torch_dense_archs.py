@@ -284,9 +284,9 @@ def test_serving_entry_refuses_a_state_larger_than_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: Props())
     monkeypatch.setattr(serve_cli, "init_params", no_alloc)
-    with pytest.raises(ValueError, match="the ROADMAP's sharding item"):
+    with pytest.raises(ValueError, match="sharded over more cards"):
         serve_cli.GuardedEngine(dbrx, 273, 4)
-    with pytest.raises(ValueError, match="the ROADMAP's sharding item"):
+    with pytest.raises(ValueError, match="sharded over more cards"):
         serve_cli.main(["--arch", "dbrx-132b", "--guard", "--prompt-len", "256"])
     # what fits is served unchanged: dbrx at full width on 2 layers
     # (~15.5 GB), granite and the dense archs at full depth

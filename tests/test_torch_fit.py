@@ -102,7 +102,7 @@ def test_steps_past_the_card_refused(card, arch, layers, guard):
     cfg = get_arch(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    with pytest.raises(ValueError, match="the ROADMAP's sharding item"):
+    with pytest.raises(ValueError, match="sharded over more cards"):
         train_cli.check_fits_card(cfg, TrainConfig(), card, guard=guard)
 
 
@@ -124,7 +124,7 @@ def test_data_mesh_charges_every_rank_on_the_card(card, arch, ranks_on_card, wor
         train_cli.check_fits_card(cfg, tcfg, card, guard=True, ranks_on_card=ranks_on_card,
                                   world=world)
     else:
-        with pytest.raises(ValueError, match="the ROADMAP's sharding item"):
+        with pytest.raises(ValueError, match="sharded over more cards"):
             train_cli.check_fits_card(cfg, tcfg, card, guard=True,
                                       ranks_on_card=ranks_on_card, world=world)
 

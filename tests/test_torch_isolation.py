@@ -72,3 +72,23 @@ def test_train_import_loads_neither_jax_nor_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_sharding_modules_are_covered():
+    """The modules of the sharded step and the dry run are among the files
+    checked above, and the dry run's import loads neither jax nor repro."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in _sources()[:-1]}
+    assert {"launch/sharding.py", "launch/specs.py", "launch/dryrun.py", "launch/mesh.py",
+            "models/context.py", "models/parallel.py", "core/collectives.py"} <= names
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.dryrun, repro_torch.models.parallel\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

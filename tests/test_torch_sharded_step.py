@@ -1,0 +1,262 @@
+"""The sharded training step against the single-device step.
+
+gloo CPU ranks under ``torch.multiprocessing.spawn`` (workers in
+``tests/torch_mesh_workers.py``: ``run_mesh``, one spawn per mesh, each
+with its own deadline). The weights are the JAX package's ``init_params``
+(numpy, carried across by ``models.convert.params_from_jax``), cut by the
+rules into each rank's blocks (``launch.sharding.shard_tree``); every rank
+gets the same global batch of seeded numpy tokens. The single-device step
+is the port's ``make_train_step`` on the whole parameters.
+
+  * tiny deepseek-7b, f32, DEFAULT_RULES (FSDP + TP + vocab TP) on (2, 2),
+    two steps, two microbatches: loss, grad norm and every parameter
+    within 1e-5 relative (a parameter as ||sharded - single|| / ||single||).
+    The f32 cases run the f32 route (no kernels, no ones-MMA rounding) and
+    the attention without its bf16 rounding of its operands
+    (``exact_f32_attention``): those rounding steps turn a last-bit
+    difference of a product taken over a rank's columns into a bf16 ulp
+    (~4e-3 relative), which would bury the sharding's own agreement (~1e-7
+    measured). A planted fault -- rank 1's Megatron all-reduce 2^-10 too
+    large -- must fail that limit, and the replica check.
+  * tiny granite-moe-1b-a400m, f32, SMALL_MODEL_RULES (FSDP + vocab TP +
+    EP, 4 experts a rank) on (2, 2): the same limit.
+  * tiny internlm2-1.8b at bf16 on (2, 4) with the kernel route (their
+    plain versions on the CPU), two microbatches of 8 x 32 tokens: the
+    counterpart of the reference's own sharded test (2 kv heads x 16 on a
+    model axis of 4: a rank's k/v block ends inside a head, so k and v are
+    gathered over "model" and the rank's kv head cut out). The learning
+    rate is past warmup from step 1 (3e-4), so the AdamW steps move the
+    bf16 weights by whole ulps. Limits, each above what bf16 moves: loss
+    2e-3 relative (one bf16 ulp of a loss near 6 is 4e-3 absolute, ~6e-4
+    relative; the per-token terms round at different points), grad norm
+    2e-3 relative (the norm of bf16 gradients whose partial sums round at
+    different points), and the update over the two steps (after - before,
+    f32) 0.5 relative in every leaf it moves (``_update_gaps``): a step-1
+    AdamW update is lr x the gradient's sign a element, and the gradients'
+    roundings flip the sign of those near 0 (0.146 measured); the same
+    steps with half the batch's rows replaced read 1.2-1.3 in every moved
+    leaf, a flipped update 2. A leaf it leaves alone (the norm scales: 3e-4
+    is under half a bf16 ulp of 1.0) must stay bitwise alone.
+  * the guarded sharded step (deepseek, f32): rank 2's gradients NaN on
+    step 2, the step skipped on every rank in lockstep, the blocks
+    bitwise unchanged across it, the guard states equal.
+On every case the leaves a spec leaves whole are bitwise equal across the
+ranks of those axes, and a second run from the same start is bitwise the
+first.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as ref_arch
+from repro.models import init_params as ref_init
+from repro_torch import optim
+from repro_torch import reduce as R
+from repro_torch.configs import TrainConfig
+from repro_torch.launch.steps import make_guarded_train_step, make_train_step
+from repro_torch.models.convert import params_from_jax
+
+import torch_mesh_workers as W
+
+F32_REL = 1e-5
+BF16_LOSS_REL, BF16_GNORM_REL, BF16_UPDATE_REL = 2e-3, 2e-3, 0.5
+
+
+def _ref_params(arch, dtype):
+    cfg = dataclasses.replace(ref_arch(arch, tiny=True), dtype=dtype)
+    return jax.tree.map(np.asarray, ref_init(jax.random.PRNGKey(3), cfg)[0])
+
+
+def _tokens(n, rows, seq, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (rows, seq + 1)).astype(np.int64) for _ in range(n)]
+
+
+def _case(arch, dtype, kernels, rules, micro, rows=8, seq=32, **kw):
+    return dict(arch=arch, dtype=dtype, kernels=kernels, rules=rules, micro=micro,
+                params=_ref_params(arch, dtype), tokens=_tokens(2, rows, seq, 7),
+                exact_f32=dtype == "float32", **kw)
+
+
+def _single(case):
+    """The port's single-device steps on the whole parameters."""
+    from repro_torch.models import attention
+
+    saved = attention.bf16_round
+    if case.get("exact_f32"):
+        W.exact_f32_attention()
+    try:
+        cfg = W.sharded_cfg(case["arch"], case["dtype"], case["kernels"])
+        tcfg = TrainConfig(microbatches=case["micro"], **case.get("tcfg", {}))
+        params = params_from_jax(case["params"], cfg)
+        for p in R.tree_leaves(params):
+            p.requires_grad_(True)
+        opt = optim.init_state(params)
+        metrics = []
+        if case.get("guard"):
+            step, gstate = make_guarded_train_step(cfg, tcfg), optim.init_guard_state(4)
+            for tok in case["tokens"]:
+                params, opt, gstate, m = step(params, opt, gstate,
+                                              {"tokens": torch.from_numpy(tok)})
+                metrics.append({k: float(v) for k, v in m.items()})
+        else:
+            step = make_train_step(cfg, tcfg)
+            for tok in case["tokens"]:
+                params, opt, m = step(params, opt, {"tokens": torch.from_numpy(tok)})
+                metrics.append({k: float(v) for k, v in m.items()})
+        return metrics, [p.detach() for p in R.tree_leaves(params)]
+    finally:
+        attention.bf16_round = saved
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _worst_param(whole, single):
+    return max(float((w - s).float().norm() / s.float().norm().clamp_min(1e-30))
+               for w, s in zip(whole, single))
+
+
+def _update_gaps(whole, single, start):
+    """The two runs' updates, each leaf's after - before in f32: the worst
+    ||sharded - single|| / ||single|| over the leaves the single-device
+    update moved, and the least that gap would be with the sharded update's
+    sign flipped. A leaf the single-device update left alone must be left
+    alone (a gap of inf otherwise)."""
+    worst, flipped = 0.0, float("inf")
+    for w, s, p0 in zip(whole, single, start):
+        d_sharded = w.float() - p0.float()
+        d_single = s.float() - p0.float()
+        ref = float(d_single.norm())
+        if ref == 0.0:
+            worst = max(worst, 0.0 if float(d_sharded.norm()) == 0.0 else float("inf"))
+            continue
+        worst = max(worst, float((d_sharded - d_single).norm()) / ref)
+        flipped = min(flipped, float((d_sharded + d_single).norm()) / ref)
+    return worst, flipped
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _same(a, b) -> bool:
+    """Metrics lists equal bit for bit (NaN equal to NaN)."""
+    def key(ms):
+        return [{k: np.float64(v).tobytes() for k, v in m.items()} for m in ms]
+    return key(a) == key(b)
+
+
+def _bitwise_repeat(ranks):
+    for r in ranks:
+        first, second = r["runs"][0], r["runs"][1]
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(first["local"],
+                                                                    second["local"]))
+        assert _same(first["metrics"], second["metrics"])
+
+
+def _check(ranks, single, loss_rel, gnorm_rel, param_rel):
+    metrics, params = single
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for r in ranks:
+        for run in r["runs"]:
+            assert run["replicas_agree"]
+            for got, want in zip(run["metrics"], metrics):
+                for k in worst:
+                    worst[k] = max(worst[k], _rel(got[k], want[k]))
+        assert _same(r["runs"][0]["metrics"], ranks[0]["runs"][0]["metrics"])  # the same bits
+    if param_rel is None:
+        return worst["loss"] <= loss_rel and worst["grad_norm"] <= gnorm_rel, worst
+    worst["param"] = _worst_param(ranks[0]["whole"], params)
+    return (worst["loss"] <= loss_rel and worst["grad_norm"] <= gnorm_rel
+            and worst["param"] <= param_rel), worst
+
+
+def _guarded_case():
+    case = _case("deepseek-7b", "float32", False, "DEFAULT_RULES", 1, guard=True)
+    case["tokens"] = _tokens(3, 8, 32, 11)
+    scales = [np.ones(4, np.float32) for _ in range(3)]
+    scales[1][2] = np.nan  # rank 2's gradients poisoned on step 2
+    case["scales"] = scales
+    return case
+
+
+@pytest.fixture(scope="module")
+def f32_cases():
+    return {
+        "deepseek": _case("deepseek-7b", "float32", False, "DEFAULT_RULES", 2),
+        "granite": _case("granite-moe-1b-a400m", "float32", False, "SMALL_MODEL_RULES", 2),
+        "guarded": _guarded_case(),
+        "fault": _case("deepseek-7b", "float32", False, "DEFAULT_RULES", 2, fault=True,
+                       runs=1),
+    }
+
+
+@pytest.fixture(scope="module")
+def ranks_2x2(tmp_path_factory, f32_cases):
+    """Every f32 case on one spawn of (2, 2), the planted fault last."""
+    ranks = W.run_mesh("sharded_cases", (2, 2), ("data", "model"),
+                       tmp_path_factory.mktemp("sharded"), f32_cases)
+    return {name: [r[name] for r in ranks] for name in f32_cases}
+
+
+@pytest.mark.parametrize("name", ["deepseek", "granite"])
+def test_f32_sharded_step_holds_the_single_device_step(ranks_2x2, f32_cases, name):
+    ok, worst = _check(ranks_2x2[name], _single(f32_cases[name]), F32_REL, F32_REL, F32_REL)
+    assert ok, worst
+    _bitwise_repeat(ranks_2x2[name])
+
+
+def test_planted_fault_fails_the_limit(ranks_2x2, f32_cases):
+    """Rank 1's Megatron all-reduce 2^-10 too large: the sharded step
+    leaves the limit (the merged loss and the combined norm stay the same
+    on every rank, so the gap shows against the single-device step)."""
+    ranks = ranks_2x2["fault"]
+    metrics, params = _single(f32_cases["fault"])
+    firsts = [r["runs"][0]["metrics"] for r in ranks]
+    worst = max(_rel(got[k], want[k]) for run in firsts for got, want in zip(run, metrics)
+                for k in ("loss", "grad_norm"))
+    worst = max(worst, _worst_param(ranks[0]["whole"], params))
+    print(f"planted fault: worst relative gap {worst:.3g}")
+    assert worst > F32_REL
+
+
+def test_internlm2_bf16_on_2x4(tmp_path):
+    case = _case("internlm2-1.8b", "bfloat16", True, "DEFAULT_RULES", 2,
+                 tcfg={"warmup_steps": 1})
+    ranks = W.run_mesh("sharded_train", (2, 4), ("data", "model"), tmp_path, case)
+    single = _single(case)
+    ok, worst = _check(ranks, single, BF16_LOSS_REL, BF16_GNORM_REL, None)
+    assert ok, worst
+    cfg = W.sharded_cfg(case["arch"], case["dtype"], case["kernels"])
+    start = [p.detach() for p in R.tree_leaves(params_from_jax(case["params"], cfg))]
+    gap, flipped = _update_gaps(ranks[0]["whole"], single[1], start)
+    assert gap <= BF16_UPDATE_REL < flipped, (gap, flipped)
+    _bitwise_repeat(ranks)
+
+
+def test_guarded_sharded_step_skips_in_lockstep(ranks_2x2, f32_cases):
+    case, ranks = f32_cases["guarded"], ranks_2x2["guarded"]
+    for r in ranks:
+        run = r["runs"][0]
+        assert [m["skipped"] for m in run["metrics"]] == [0.0, 1.0, 0.0]
+        assert run["replicas_agree"]
+        before, after = run["bits_after"][0], run["bits_after"][1]
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(before, after))
+        assert r["guard"] == ranks[0]["guard"] == {"skipped": 1, "filled": 2}
+        assert _same(run["metrics"], ranks[0]["runs"][0]["metrics"])
+    _bitwise_repeat(ranks)
+    # the accepted steps hold the single-device guarded step on the same
+    # batches with step 2 skipped
+    single_case = dict(case, tokens=[case["tokens"][0], case["tokens"][2]])
+    metrics, params = _single(single_case)
+    got = ranks[0]["runs"][0]["metrics"]
+    for g, m in zip([got[0], got[2]], metrics):
+        assert _rel(g["loss"], m["loss"]) <= F32_REL
+        assert _rel(g["grad_norm"], m["grad_norm"]) <= F32_REL
+    assert _worst_param(ranks[0]["whole"], params) <= F32_REL

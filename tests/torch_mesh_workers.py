@@ -283,3 +283,194 @@ def meshes(rank, world):
     return dict(shape=host.shape, axes=host.axis_names, data_group=host.groups["data"] is None,
                 batch=mesh_lib.batch_axes(host), data_batch=mesh_lib.batch_axes(C.current_mesh()),
                 total=float(total), world=C.mesh_world_size(("data",)))
+
+
+# ----------------------------- the sharded step --------------------------------
+# ``run_mesh`` spawns the ranks of a mesh that splits the world, e.g. (2, 2)
+# over ("data", "model"), each with its own deadline.
+
+SPAWN_TIMEOUT_S = 300
+
+
+def run_mesh(name: str, shape: tuple, axes: tuple, tmp, *args,
+             timeout: float = SPAWN_TIMEOUT_S) -> list:
+    """``name(rank, mesh, *args)`` on every rank of a ``shape`` mesh over
+    ``axes`` (gloo CPU ranks); what every rank returned, in rank order.
+    The ranks are ended and the call raises when they pass ``timeout``
+    seconds (a rank waiting on a group another never joined)."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    tmp = pathlib.Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    world = int(np.prod(shape))
+    ctx = mp.spawn(_mesh_entry, args=(world, str(tmp), name, tuple(shape), tuple(axes), args),
+                   nprocs=world, join=False)
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{name}: the ranks of {shape} passed {timeout} s")
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _mesh_entry(rank, world, tmp, name, shape, axes, args) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(1)
+    mesh_lib.init_process_group("cpu", init_method=f"file://{tmp}/store")
+    try:
+        out = globals()[name](rank, mesh_lib.make_mesh(shape, axes), *args)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    except BaseException:
+        mesh_lib.shutdown(barrier=False)
+        raise
+    mesh_lib.shutdown()
+
+
+def exact_f32_attention():
+    """The attention's bf16 rounding of its operands off (the f32 cases):
+    it turns a last-bit difference of a product taken on a rank's columns
+    into a bf16 ulp, which would hide the sharding's own agreement."""
+    from repro_torch.models import attention
+
+    attention.bf16_round = lambda x: x
+
+
+def sharded_cfg(arch: str, dtype: str, kernels: bool):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(arch, tiny=True), dtype=dtype, use_kernels=kernels,
+                               mma_reductions=kernels)
+
+
+def _replicas_agree(params, specs, mesh) -> bool:
+    """Every leaf's bits equal across the ranks of each axis its spec
+    leaves whole (a replicated leaf is the same on every rank)."""
+    from repro_torch.launch import sharding as SH
+
+    ok = True
+    for p, s in zip(R.tree_leaves(params), SH.tree_leaves(specs)):
+        whole = tuple(ax for ax in mesh.axis_names if ax not in SH.spec_axes(s))
+        if whole:
+            ok &= bool(C.replica_bits_agree(p.detach(), whole, mesh))
+    return ok
+
+
+def _nudge_one_rank(rank: int):
+    """Rank 1's Megatron all-reduce (``sum_forward``) comes out 2^-10 too
+    large: a fold that desynced on one rank. Returns the undo."""
+    from repro_torch.core import collectives as coll
+
+    real = coll._SumForward.forward
+
+    def wrong(ctx, x, axes, mesh):
+        out = real(ctx, x, axes, mesh)
+        return out * (1 + 2**-10) if rank == 1 else out
+
+    coll._SumForward.forward = staticmethod(wrong)
+
+    def undo():
+        coll._SumForward.forward = staticmethod(real)
+
+    return undo
+
+
+def sharded_cases(rank, mesh, cases: dict) -> dict:
+    """``sharded_train`` of each case in turn, on one process group."""
+    return {name: sharded_train(rank, mesh, case) for name, case in cases.items()}
+
+
+def sharded_train(rank, mesh, case: dict):
+    """``case``'s sharded training, twice from the same start: the steps'
+    metrics, the parameters gathered whole, the local blocks' bits of the
+    second run against the first, the replicas' agreement, and (with
+    ``case["meter"]``) the step's traffic, its c10d bytes and the bytes of
+    the rank's blocks."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_guarded_train_step, make_train_step
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.model import param_axes
+    from repro_torch.reduce import inspect
+
+    if case.get("exact_f32"):
+        exact_f32_attention()
+    undo = _nudge_one_rank(rank) if case.get("fault") else None
+    try:
+        return _sharded_train(rank, mesh, case)
+    finally:
+        if undo is not None:
+            undo()
+
+
+def _sharded_train(rank, mesh, case: dict):
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_guarded_train_step, make_train_step
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.model import param_axes
+    from repro_torch.reduce import inspect
+
+    cfg = sharded_cfg(case["arch"], case["dtype"], case["kernels"])
+    tcfg = TrainConfig(microbatches=case["micro"], **case.get("tcfg", {}))
+    rules = getattr(SH, case["rules"])
+    out = {"runs": []}
+    for run in range(case.get("runs", 2)):
+        whole = params_from_jax(case["params"], cfg)
+        specs = SH.param_shardings(param_axes(cfg), mesh, rules, whole)
+        params = SH.shard_tree(whole, specs, mesh)
+        for p in R.tree_leaves(params):
+            p.requires_grad_(True)
+        opt = optim.init_state(params)
+        guard = case.get("guard")
+        if guard:
+            step = make_guarded_train_step(cfg, tcfg, mesh=mesh, param_shardings=specs)
+            gstate = optim.init_guard_state(4)
+        else:
+            step = make_train_step(cfg, tcfg, mesh=mesh, param_shardings=specs)
+        metrics, bits_after = [], []
+        for i, tok in enumerate(case["tokens"]):
+            batch = {"tokens": torch.from_numpy(tok)}
+            if guard:
+                batch["chaos_scale"] = torch.from_numpy(case["scales"][i])
+
+                def go():
+                    return step(params, opt, gstate, batch)
+            else:
+                def go():
+                    return step(params, opt, batch)
+            if case.get("meter") and i == 0:
+                with C.traffic() as notes:
+                    eqns = inspect.collective_eqns(lambda: out.setdefault("res", go()))
+                res = out.pop("res")
+                out["traffic"] = list(notes)
+                out["c10d"] = [(n, a, b) for n, a, b in eqns]
+            else:
+                res = go()
+            if guard:
+                params, opt, gstate, m = res
+            else:
+                params, opt, m = res
+            metrics.append({k: float(v) for k, v in m.items()})
+            bits_after.append([p.detach().clone() for p in R.tree_leaves(params)])
+        out["runs"].append({
+            "metrics": metrics,
+            "local": [p.detach().clone() for p in R.tree_leaves(params)],
+            "bits_after": bits_after,
+            "replicas_agree": _replicas_agree(params, specs, mesh),
+        })
+        if run == 0:
+            out["whole"] = [SH.gather_whole(p.detach(), s, mesh)
+                            for p, s in zip(R.tree_leaves(params), SH.tree_leaves(specs))]
+            out["block_bytes"] = {
+                "params": sum(p.numel() * p.element_size() for p in R.tree_leaves(params)),
+                "moments": sum(t.numel() * t.element_size() for t in opt.m + opt.v),
+                "accumulators": 4 * sum(p.numel() for p in R.tree_leaves(params))}
+            if guard:
+                out["guard"] = {"skipped": int(gstate.skipped), "filled": int(gstate.filled)}
+    return out
