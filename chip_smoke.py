@@ -137,8 +137,8 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             sharing the first card on a (data 2, model 2) mesh train
             deepseek-7b at full width (FSDP + TP + vocab TP, cut to the
             deepest depth the sharded fit check takes) and
-            granite-moe-1b-a400m at full depth (FSDP + vocab TP + EP), two
-            steps each at a learning rate past warmup: both steps' loss,
+            granite-moe-1b-a400m at 12 of 24 layers (FSDP + vocab TP +
+            EP), two steps each at a learning rate past warmup: both steps' loss,
             grad norm and clip against the single-rank step's, step 1's
             update of layer 0's leaves against the single rank's,
             replicated leaves bitwise equal across ranks, each rank's collective
@@ -146,7 +146,18 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             model; K7's partial variant against its plain version; the dry
             run of deepseek-7b train_4k on (2, 2) and (16, 16) (a model
             figure: the step's peak, the reserve and the checkpointed
-            block inputs a rank).
+            block inputs a rank);
+  sharded serving  the sharded prefill and decode steps
+            (``run_sharded_serving_phase``): four gloo ranks sharing the
+            first card on (data 2, model 2) serve deepseek-7b at full width
+            and depth (TP_ONLY_RULES: heads cut, K6 and K5b on the rank's
+            heads) and granite-moe-1b-a400m (SMALL_MODEL_RULES: weights
+            whole over "model", FSDP, EP, caches cut by heads), 4 prompts
+            of 256 tokens and 16 teacher-forced decode steps each, against
+            the single rank on the same weights: logits within a limit and
+            a planted fault ten times past it, greedy tokens, a retried
+            step bitwise, c10d bytes equal to the dry run's serving cell,
+            launches, the peak a rank under the dry run's bytes.
 
 Exits nonzero, with no result line, when any check fails or there is no
 GPU.
@@ -2202,9 +2213,9 @@ def _ring_filled_at_slot_pos(real):
     """A planted fault: a ring filled at slot pos instead of pos % slots,
     as a cache without the ring would be: a prompt longer than the ring
     keeps its FIRST positions and loses the most recent ones."""
-    def wrong(cache, k, v):
+    def wrong(cache, k, v, slot0=0):
         s_max = cache["k"].shape[1]
-        return real(cache, k[:, :s_max], v[:, :s_max])
+        return real(cache, k[:, :s_max], v[:, :s_max], slot0)
     return wrong
 
 
@@ -4284,7 +4295,7 @@ def _mesh_rank(rank: int, world: int, tmp: str, job: str, kw: dict) -> None:
     with open(os.path.join(tmp, f"rank{rank}.log"), "w") as log, \
             contextlib.redirect_stdout(log):
         out = {"engine": _mesh_engine_rank, "train": _mesh_train_rank,
-               "sharded": _sharded_rank}[job](rank, world, kw)
+               "sharded": _sharded_rank, "serving": _serving_rank}[job](rank, world, kw)
         if "peak_gb" not in out:
             out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                               if torch.cuda.is_initialized() else 0.0)
@@ -4745,6 +4756,10 @@ def run_data_mesh_phase() -> dict:
 
 SHARDED_SHAPE, SHARDED_AXES = (2, 2), ("data", "model")
 SHARDED_WORLD, SHARDED_STEPS, SHARDED_SEED = 4, 2, 0
+# granite-moe-1b-a400m's depth in the sharded training run, cut from 24:
+# the sharded serving phase after it serves at full depth inside the
+# script's time limit (PERF.md section 4).
+SHARDED_GRANITE_LAYERS = 12
 # The learning rate is past warmup from step 1 (3e-4), so that step 1's
 # AdamW update moves the bf16 weights by whole ulps and step 2 sees it (at
 # the default warmup's 3e-6 most bf16 weights would not move at all).
@@ -5061,13 +5076,13 @@ def run_sharded_phase(results: dict, gen) -> dict:
     DEFAULT_RULES (FSDP + TP + vocab TP), cut to the deepest depth the
     sharded fit check accepts for four ranks and the single-rank check for
     its reference (``sharded_cut_depth``); (b) granite-moe-1b-a400m at full
-    width and depth under SMALL_MODEL_RULES (FSDP + vocab TP + EP, 16
-    experts a rank). Each: ``SHARDED_STEPS`` steps of 4 x 512 tokens; every
-    step's loss, grad norm and clip against the single-rank step on the
-    same weights and batches, and step 1's update of layer 0's leaves
-    against the single rank's (``SHARDED_UPDATE_REL``); replicated leaves
-    bitwise equal across ranks; the
-    metered c10d bytes and the noted traffic of step 1 equal to the dry
+    width and ``SHARDED_GRANITE_LAYERS`` layers under SMALL_MODEL_RULES
+    (FSDP + vocab TP + EP, 16 experts a rank). Each: ``SHARDED_STEPS``
+    steps of 4 x 512 tokens; every step's loss, grad norm and clip against
+    the single-rank step on the same weights and batches, and step 1's
+    update of layer 0's leaves against the single rank's
+    (``SHARDED_UPDATE_REL``); replicated leaves bitwise equal across
+    ranks; the metered c10d bytes and the noted traffic of step 1 equal to the dry
     run's model (``launch.dryrun.step_collectives``); the launches per
     rank equal ``sharded_launches_per_step``; the peak beside the fit
     check's model. Then K7's partial variant against its plain version
@@ -5087,7 +5102,8 @@ def run_sharded_phase(results: dict, gen) -> dict:
     out = {}
     for arch in ("deepseek-7b", GRANITE):
         t0 = time.time()
-        layers = sharded_cut_depth(arch) if arch != GRANITE else get_arch(arch).n_layers
+        layers = (sharded_cut_depth(arch) if arch != GRANITE
+                  else min(get_arch(arch).n_layers, SHARDED_GRANITE_LAYERS))
         cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
             probe = os.path.join(tmp, "single_update.pt")
@@ -5178,6 +5194,434 @@ def run_sharded_phase(results: dict, gen) -> dict:
         out[f"dryrun_{mesh_name}"] = rec["bytes_per_rank"]
     print(f"sharded phase: {time.time() - t_phase:.1f} s")
     out["launches"] = out["deepseek-7b"]["ranks"][0]["launches"]
+    return out
+
+
+# ------------- sharded serving: prefill and decode over (data, model) -------------
+
+SERVE_SHARDED_RULES = {"deepseek-7b": "TP_ONLY_RULES", GRANITE: "SMALL_MODEL_RULES"}
+SERVE_SHARDED_STEPS, SERVE_SHARDED_SEED = 16, 2
+# The sharded logits against the single rank's on the same card, weights
+# and tokens, both bf16 on the kernels: a tensor of logits (the prefill's
+# last token, or one decode step's) at a time, max |sharded - single| over
+# max |single|. The ranks add their partial products (o, down, the
+# experts' combine) in bf16 in another order than the whole product, and
+# from there the two runs part by bf16's own error: on an H100
+# (tools/serve_gap_probe.py, PERF.md section 6) each sits as far from the
+# same weights run in f32 as the other (single / sharded: deepseek-7b
+# 0.0190 / 0.0217, granite 0.0500 / 0.0499), granite's routers pick
+# another expert set for 7-9% of (token, layer) between the two, and they
+# read 0.0276 and 0.0442 apart. At f32 the two agree to 6.7e-6 and 1.0e-6.
+SERVE_SHARDED_REL = 0.05
+# The planted fault: model rank 1's fixed-order all-reduce returns twice its
+# own partial in place of the ranks' sum (a fold that desynced), in one
+# extra prefill. It must read at least this many times the limit.
+SERVE_SHARDED_FAULT_X = 10
+# The sharding's own error, which bf16's hides: the same weights upcast to
+# f32 on the plain route with the attention's bf16 operand rounding off,
+# the prefill and SERVE_F32_STEPS decode steps against the single rank's
+# f32 run. Limit 1e-4 (the probe's readings 15-100 times under it), and a
+# small fault that must read SERVE_SHARDED_FAULT_X times over it: model
+# rank 1's all-reduce returns the sum plus SERVE_SMALL_FAULT of its own
+# partial (one bf16 ulp).
+SERVE_F32_REL, SERVE_F32_STEPS, SERVE_SMALL_FAULT = 1e-4, 1, 2.0 ** -8
+
+
+def _serve_prompts(cfg, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SERVE_SHARDED_SEED)
+    return torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT), generator=gen, device=device)
+
+
+def _rel_gap(got, want) -> float:
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def _f32_cfg(cfg):
+    """The f32 route of the sharded serving phase's second check."""
+    return dataclasses.replace(cfg, dtype="float32", use_kernels=False, mma_reductions=False)
+
+
+def _upcast(params):
+    from repro_torch.launch.sharding import tree_map
+
+    return tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+
+
+@contextlib.contextmanager
+def _f32_route():
+    """The process's settings for the f32 route: the plain reductions (no
+    process default) and the attention's bf16 operand rounding off; the
+    phase's ``cuda_fused`` default and the rounding after."""
+    from repro_torch import reduce as R
+    from repro_torch.models import attention
+
+    real = attention.bf16_round
+    R.set_default_backend(None)
+    attention.bf16_round = lambda x: x
+    try:
+        yield
+    finally:
+        attention.bf16_round = real
+        R.set_default_backend("cuda_fused")
+
+
+def serving_single(arch: str, path: str) -> dict:
+    """The single rank's prefill of ``SLOTS`` x ``PROMPT`` prompts and
+    ``SERVE_SHARDED_STEPS`` greedy decode steps on the phase's weights (the
+    seed of the sharded step's phase), saved to ``path`` for the ranks:
+    the prompts, the prefill's logits, each step's input tokens and
+    logits (the teacher-forced inputs of the ranks), and the f32 route's
+    logits of the prefill and ``SERVE_F32_STEPS`` decode steps on the same
+    values upcast; its prefill ms and decode ms a token (host clock, the
+    card synchronised)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = get_arch(arch)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SHARDED_SEED), DEVICE)
+    prefill = make_prefill_step(cfg, PROMPT + SERVE_SHARDED_STEPS)
+    decode = make_decode_step(cfg, greedy=False)
+    prompts = _serve_prompts(cfg, DEVICE)
+    out = {"prompts": prompts.cpu(), "tokens": [], "steps": []}
+    with torch.inference_mode():
+        prefill(params, prompts)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, prompts)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        out["prefill"] = logits.cpu()
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        t0 = time.perf_counter()
+        for i in range(SERVE_SHARDED_STEPS):
+            out["tokens"].append(tok.cpu())
+            lg, caches = decode(params, caches, tok, PROMPT + i)
+            out["steps"].append(lg.cpu())  # synchronises
+            tok = torch.argmax(lg, -1).to(torch.int32)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / SERVE_SHARDED_STEPS
+    del caches, logits, lg
+    params = _upcast(params)  # the bf16 values, freed
+    torch.cuda.empty_cache()
+    f32 = _f32_cfg(cfg)
+    with torch.inference_mode(), _f32_route():
+        logits, caches = make_prefill_step(f32, PROMPT + SERVE_SHARDED_STEPS)(params, prompts)
+        out["f32"] = [logits.cpu()]
+        decode = make_decode_step(f32, greedy=False)
+        for i in range(SERVE_F32_STEPS):
+            lg, caches = decode(params, caches, out["tokens"][i].to(DEVICE), PROMPT + i)
+            out["f32"].append(lg.cpu())
+    torch.save(out, path)
+    del params, caches, logits, lg
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def _desync_model_rank(mesh, small=None):
+    """On model rank 1 of each data group the fixed-order all-reduce
+    (``sum_forward``) returns twice the rank's own partial in place of the
+    ranks' sum (with ``small``, the sum plus ``small`` times its own
+    partial); it still joins the gather, so no rank waits. Returns the
+    undo."""
+    from repro_torch.core import collectives as coll
+
+    real = coll._SumForward.forward
+    faulty = mesh.axis_index("model") == 1
+
+    def wrong(ctx, x, axes, mesh):
+        out = real(ctx, x, axes, mesh)
+        if not faulty:
+            return out
+        return x + x if small is None else out + small * x
+
+    coll._SumForward.forward = staticmethod(wrong)
+
+    def undo():
+        coll._SumForward.forward = staticmethod(real)
+
+    return undo
+
+
+def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str) -> dict:
+    """One arch of the sharded serving phase on this rank: the weights drawn
+    whole on the card and cut to the rank's blocks one rank at a time; the
+    sharded prefill (metered: launches, c10d ops, traffic) and its second
+    run bitwise; ``SERVE_SHARDED_STEPS`` decode steps teacher-forced with
+    the single rank's tokens, each run for its logits and again for its
+    greedy token (step 1 metered, and retried: logits and caches bitwise);
+    every gap against the single rank's logits; a prefill with the planted
+    fault. Then the blocks upcast to f32: the prefill and
+    ``SERVE_F32_STEPS`` decode steps on the f32 route against the single
+    rank's, and a prefill with the small fault."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import reduce as R
+    from repro_torch.configs import get_arch
+    from repro_torch.core import collectives as C
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.reduce import inspect
+
+    cfg = get_arch(arch)
+    specs = sharded_specs(cfg, SERVE_SHARDED_RULES[arch], mesh)
+    dev = mesh.device
+    for r in range(world):  # one whole model on the card at a time
+        if r == rank:
+            full = init_params(cfg, torch.Generator(device=dev).manual_seed(SHARDED_SEED), dev)
+            params = SH.shard_tree(full, specs, mesh)
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier()
+    ref = torch.load(single_path)
+    s_max = PROMPT + SERVE_SHARDED_STEPS
+    prefill = make_prefill_step(cfg, s_max, mesh=mesh, param_shardings=specs)
+    decode = make_decode_step(cfg, greedy=False, mesh=mesh, param_shardings=specs)
+    greedy = make_decode_step(cfg, greedy=True, mesh=mesh, param_shardings=specs)
+    prompts = ref["prompts"].to(dev)
+    d, n = mesh.axis_index("data"), SLOTS // mesh.axis_size("data")
+    rows = slice(d * n, (d + 1) * n)
+    res = {}
+
+    def metered(name, fn):
+        def go():
+            with C.traffic() as notes:
+                eqns = inspect.collective_eqns(lambda: res.update(out=fn()))
+            kinds = {}
+            for kind, _, b in notes:
+                kinds[kind] = kinds.get(kind, 0) + b
+            res[f"{name}_by_kind"] = kinds
+            res[f"{name}_c10d"] = sum(o - i for op, i, o in eqns if op.startswith("allgather")
+                                      or op == "_allgather_base_")
+
+        _, res[f"{name}_launches"] = counted_run(go)
+        return res.pop("out")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, caches = metered("prefill", lambda: prefill(params, prompts))
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    again, caches2 = prefill(params, prompts)  # a second prefill beside the first: not peaked
+    torch.cuda.synchronize()
+    res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    res["prefill_bitwise"] = bool(torch.equal(logits, again))
+    del again, caches2
+    torch.cuda.reset_peak_memory_stats()
+    res["prefill_gap"] = _rel_gap(logits.cpu(), ref["prefill"][rows])
+    agree = bool(C.replica_bits_agree(logits, ("model",), mesh))
+    gaps, kept, excluded, walls, equal = [], 0, 0, [], True
+    for i in range(SERVE_SHARDED_STEPS):
+        tok, pos = ref["tokens"][i].to(dev), PROMPT + i
+        if i == 0:
+            lg, caches = metered("decode", lambda: decode(params, caches, tok, pos))
+            after = [t.cpu() for t in R.tree_leaves(caches)]
+            lg2, caches = decode(params, caches, tok, pos)
+            res["retry_bitwise"] = bool(torch.equal(lg, lg2)) and all(
+                torch.equal(a, b.cpu()) for a, b in zip(after, R.tree_leaves(caches)))
+            nxt, caches = metered("greedy", lambda: greedy(params, caches, tok, pos))
+        else:
+            lg, caches = decode(params, caches, tok, pos)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt, caches = greedy(params, caches, tok, pos)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        agree &= bool(C.replica_bits_agree(lg, ("model",), mesh))
+        want = ref["steps"][i][rows]
+        mine = lg.cpu()
+        gaps.append(_rel_gap(mine, want))
+        equal &= bool(torch.equal(nxt.cpu(), torch.argmax(mine, -1).to(torch.int32)))
+        for j in range(n):  # the single rank's token where its margin is clear
+            top = torch.topk(want[j, 0].double(), 2).values
+            row_gap = float((mine[j].double() - want[j].double()).abs().max())
+            if float(top[0] - top[1]) > 2 * row_gap:
+                kept += 1
+                equal_tok = int(nxt[j, 0]) == int(torch.argmax(want[j, 0]))
+                res.setdefault("token_misses", 0)
+                res["token_misses"] += int(not equal_tok)
+            else:
+                excluded += 1
+    res["peak_gb"] = max(peak, torch.cuda.max_memory_allocated()) / 1e9
+    undo = _desync_model_rank(mesh)
+    try:
+        faulty, _ = prefill(params, prompts)
+    finally:
+        undo()
+    res.update(step_gaps=gaps, decode_ms=sum(walls) / len(walls), greedy_is_argmax=equal,
+               tokens_checked=kept, tokens_excluded=excluded, replicas_agree=agree,
+               fault_gap=_rel_gap(faulty.cpu(), ref["prefill"][rows]),
+               token_misses=res.get("token_misses", 0))
+    del caches, logits, faulty
+    for r in range(world):  # the blocks upcast one rank at a time, the bf16 ones freed
+        if r == rank:
+            params = _upcast(params)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    f32 = _f32_cfg(cfg)
+    prefill = make_prefill_step(f32, s_max, mesh=mesh, param_shardings=specs)
+    decode = make_decode_step(f32, greedy=False, mesh=mesh, param_shardings=specs)
+    with _f32_route():
+        logits, caches = prefill(params, prompts)
+        res["f32_gaps"] = [_rel_gap(logits.cpu(), ref["f32"][0][rows])]
+        for i in range(SERVE_F32_STEPS):
+            lg, caches = decode(params, caches, ref["tokens"][i].to(dev), PROMPT + i)
+            res["f32_gaps"].append(_rel_gap(lg.cpu(), ref["f32"][i + 1][rows]))
+        undo = _desync_model_rank(mesh, small=SERVE_SMALL_FAULT)
+        try:
+            faulty, _ = prefill(params, prompts)
+        finally:
+            undo()
+    res["f32_fault_gap"] = _rel_gap(faulty.cpu(), ref["f32"][0][rows])
+    del params, caches, logits, lg, faulty
+    torch.cuda.empty_cache()
+    return res
+
+
+def _serving_rank(rank: int, world: int, kw: dict) -> dict:
+    """One rank of the sharded serving phase: a (2, 2) mesh of ranks
+    sharing the first card over gloo, each arch of ``kw["archs"]`` in
+    turn (``_serve_arch_on_rank``)."""
+    from repro_torch import reduce as R
+    from repro_torch.launch import mesh as mesh_lib
+
+    R.set_default_backend("cuda_fused")
+    mesh_lib.init_process_group(kw.get("device", "cuda"))
+    try:
+        mesh = mesh_lib.make_mesh(SHARDED_SHAPE, SHARDED_AXES)
+        out = {arch: _serve_arch_on_rank(rank, world, mesh, arch, path)
+               for arch, path in kw["archs"]}
+        out.update(transport=mesh.backend, device=str(mesh.device))
+        return out
+    finally:
+        mesh_lib.shutdown(barrier=False)
+
+
+def serving_launches(cfg) -> dict:
+    """A rank's launches in one sharded prefill or decode step: both norms
+    of every block and the final norm (K5b; K5a for a LayerNorm arch), K6
+    once a self-attention block in the prefill only (on the rank's heads);
+    nothing else."""
+    norms, attn = _layer_launches(cfg)
+    norm = "layernorm" if cfg.norm == "layernorm_np" else "rmsnorm"
+    return {"prefill": {norm: norms + 1, "flash_attention": attn}, "decode": {norm: norms + 1}}
+
+
+def run_sharded_serving_phase() -> dict:
+    """Sharded serving on the card (``launch.steps.make_prefill_step`` and
+    ``make_decode_step`` with ``mesh=``): four gloo ranks sharing the first
+    card on (data 2, model 2) serve deepseek-7b at full width and depth
+    under TP_ONLY_RULES (heads cut; K6 and K5b in the prefill on the rank's
+    heads) and granite-moe-1b-a400m at full depth under SMALL_MODEL_RULES
+    (weights whole over "model", FSDP over "data", EP; caches cut by
+    heads), ``SLOTS`` prompts of ``PROMPT`` tokens and
+    ``SERVE_SHARDED_STEPS`` decode steps each. Each is held to the single
+    rank on the same card and weights, run before the ranks: the
+    prefill's last-token logits and every teacher-forced decode step's
+    within ``SERVE_SHARDED_REL``, the planted fault at least
+    ``SERVE_SHARDED_FAULT_X`` times over it, and the same weights at f32
+    on the plain route within ``SERVE_F32_REL``, a small fault at least as
+    many times over that; the greedy token equal to the
+    single rank's where that rank's top-2 margin is more than twice the
+    row's gap (and always to the argmax of the rank's own logits); a
+    retried decode step bitwise; the c10d bytes of the prefill and of a
+    decode step equal to the dry run's serving cell at this depth and
+    batch; the launches to ``serving_launches``; the peak of a rank under
+    the dry run's bytes. Returns rank 0's launches by arch."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+
+    t_phase = time.time()
+    archs = ("deepseek-7b", GRANITE)
+    mesh = abstract_mesh(SHARDED_SHAPE, SHARDED_AXES)
+    s_max = PROMPT + SERVE_SHARDED_STEPS
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        paths = [(arch, os.path.join(tmp, f"{arch}.pt")) for arch in archs]
+        single = {arch: serving_single(arch, path) for arch, path in paths}
+        ranks = spawn_ranks("serving", SHARDED_WORLD, archs=paths, one_card=True)
+    for arch in archs:
+        cfg = get_arch(arch)
+        specs = sharded_specs(cfg, SERVE_SHARDED_RULES[arch], mesh)
+        models = {"prefill": dryrun.serve_collectives(cfg, mesh, specs, "prefill", SLOTS, PROMPT,
+                                                      s_max=s_max),
+                  "decode": dryrun.serve_collectives(cfg, mesh, specs, "decode", SLOTS, s_max,
+                                                     greedy=False),
+                  "greedy": dryrun.serve_collectives(cfg, mesh, specs, "decode", SLOTS, s_max)}
+        need = dryrun.serve_rank_bytes(cfg, mesh, specs, "prefill", SLOTS, PROMPT,
+                                       s_max=s_max)["need"]
+        launches = serving_launches(cfg)
+        one = single[arch]
+        print(f"sharded serving {arch} ({SERVE_SHARDED_RULES[arch]}, {cfg.n_layers} layers, "
+              f"(data 2, model 2), 4 ranks on one card over {ranks[0]['transport']}): single "
+              f"rank prefill {one['prefill_ms']:.1f} ms, decode {one['decode_ms']:.2f} ms a "
+              f"token ({SLOTS} x {PROMPT} prompts)")
+        for r, res in enumerate(ranks):
+            a = res[arch]
+            print(f"sharded serving {arch} rank {r}: prefill {a['prefill_ms']:.1f} ms, decode "
+                  f"{a['decode_ms']:.2f} ms a token (greedy step); c10d bytes in: prefill "
+                  f"{a['prefill_c10d']} (dry run {sum(models['prefill'].values())}), a decode "
+                  f"step {a['greedy_c10d']} greedy / {a['decode_c10d']} with logits (dry run "
+                  f"{sum(models['greedy'].values())} / {sum(models['decode'].values())}); "
+                  f"peak {a['peak_gb']:.3f} GB (dry run {need / 1e9:.3f}); prefill gap "
+                  f"{a['prefill_gap']:.4g}, decode gaps max {max(a['step_gaps']):.4g} (limit "
+                  f"{SERVE_SHARDED_REL}); planted fault {a['fault_gap']:.4g}; at f32 gaps "
+                  f"{[float(f'{g:.4g}') for g in a['f32_gaps']]} (limit {SERVE_F32_REL}), the "
+                  f"small fault {a['f32_fault_gap']:.4g}; tokens checked "
+                  f"{a['tokens_checked']}, excluded by the margin {a['tokens_excluded']}, "
+                  f"missed {a['token_misses']}; launches prefill "
+                  f"{ {k: v for k, v in a['prefill_launches'].items() if v} }, decode step "
+                  f"{ {k: v for k, v in a['greedy_launches'].items() if v} }")
+            check(ranks[r]["transport"] == "gloo" and ranks[r]["device"] == "cuda:0",
+                  f"sharded serving: rank {r} did not share card 0 over gloo")
+            for mode, model in models.items():
+                kinds = {}
+                for (kind, _, _), b in model.items():
+                    kinds[kind] = kinds.get(kind, 0) + b
+                check(a[f"{mode}_c10d"] == sum(model.values()) and a[f"{mode}_by_kind"] == kinds,
+                      f"sharded serving {arch}: rank {r}'s {mode} collective bytes are off the "
+                      "dry run's")
+            for mode in ("prefill", "decode", "greedy"):
+                got = {k: v for k, v in a[f"{mode}_launches"].items() if v}
+                check(got == launches["prefill" if mode == "prefill" else "decode"],
+                      f"sharded serving {arch}: {mode} launches {got}, off the launch model")
+            check(a["prefill_gap"] <= SERVE_SHARDED_REL
+                  and max(a["step_gaps"]) <= SERVE_SHARDED_REL,
+                  f"sharded serving {arch}: rank {r}'s logits are off the single rank's")
+            check(a["fault_gap"] >= SERVE_SHARDED_FAULT_X * SERVE_SHARDED_REL,
+                  f"sharded serving {arch}: the planted fault reads under "
+                  f"{SERVE_SHARDED_FAULT_X} times the limit")
+            check(max(a["f32_gaps"]) <= SERVE_F32_REL,
+                  f"sharded serving {arch}: rank {r}'s f32 logits are off the single rank's")
+            check(a["f32_fault_gap"] >= SERVE_SHARDED_FAULT_X * SERVE_F32_REL,
+                  f"sharded serving {arch}: the small planted fault reads under "
+                  f"{SERVE_SHARDED_FAULT_X} times the f32 limit")
+            check(a["greedy_is_argmax"] and a["token_misses"] == 0 and a["tokens_checked"] > 0,
+                  f"sharded serving {arch}: rank {r}'s greedy tokens are off")
+            check(a["retry_bitwise"] and a["prefill_bitwise"] and a["replicas_agree"],
+                  f"sharded serving {arch}: a retry, a repeat or a replica differs")
+            check(a["peak_gb"] * 1e9 <= need,
+                  f"sharded serving {arch}: rank {r}'s peak is past the dry run's bytes")
+        out[arch] = {"single": one, "ranks": [res[arch] for res in ranks],
+                     "c10d_model": {k: sum(v.values()) for k, v in models.items()},
+                     "need": need}
+    print(f"sharded serving phase: {time.time() - t_phase:.1f} s")
+    # rank 0's metered calls: the prefill, a decode step for its logits and
+    # one for its greedy token
+    out["launches"] = {arch: {k: sum(out[arch]["ranks"][0][f"{m}_launches"].get(k, 0)
+                                     for m in ("prefill", "decode", "greedy"))
+                              for k in out[arch]["ranks"][0]["prefill_launches"]}
+                       for arch in archs}
     return out
 
 
@@ -5403,6 +5847,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         sharded = run_sharded_phase(results, gen)
         torch.cuda.empty_cache()
+        serving_sharded = run_sharded_serving_phase()
+        torch.cuda.empty_cache()
         intern_launches, intern_prof = train_full_width("internlm2-1.8b", guarded_steps=1)
         clip_stat = profile_clip_statistic("internlm2-1.8b",
                                            results["mma_sum_parts"]["census_on_ms"])
@@ -5507,6 +5953,10 @@ def main() -> int:
             f"launches_sharded_deepseek_{sharded['deepseek-7b']['layers']}_layers_rank0":
                 sharded["launches"][name],
             "launches_sharded_granite_rank0": sharded[GRANITE]["ranks"][0]["launches"][name],
+            "launches_sharded_serving_deepseek_rank0":
+                serving_sharded["launches"]["deepseek-7b"].get(name, 0),
+            "launches_sharded_serving_granite_rank0":
+                serving_sharded["launches"][GRANITE].get(name, 0),
             "launches_forward_kernel_route": nonkernel["launches"].get(name, 0),
         }
         entry.update({k: v for k, v in r.items() if k not in entry})
@@ -5595,6 +6045,15 @@ def main() -> int:
               f"(single rank {sh['single']['wall_ms']:.1f} ms), c10d bytes in a rank a step "
               f"{sh['model']['total_bytes']}, peaks {[round(r['peak_gb'], 2) for r in sh['ranks']]}"
               f" GB")
+    for arch in ("deepseek-7b", GRANITE):
+        sv = serving_sharded[arch]
+        r0 = sv["ranks"][0]
+        print(f"sharded serving {arch} (4 gloo ranks on one card): rank 0 prefill "
+              f"{r0['prefill_ms']:.1f} ms (single rank {sv['single']['prefill_ms']:.1f}), decode "
+              f"{r0['decode_ms']:.2f} ms a token (single rank {sv['single']['decode_ms']:.2f}); "
+              f"c10d bytes in a rank {sv['c10d_model']}; peaks "
+              f"{[round(r['peak_gb'], 3) for r in sv['ranks']]} GB (dry run "
+              f"{sv['need'] / 1e9:.3f})")
     print(f"dry run, deepseek-7b train_4k (a model figure): (2, 2) {sharded['dryrun_2x2']}, "
           f"(16, 16) {sharded['dryrun_single']} bytes a rank")
     print(f"meter: {meter}; autotune: {tuned}")

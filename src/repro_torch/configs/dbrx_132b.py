@@ -5,8 +5,8 @@ vocab=100352, untied head, RMSNorm: 131.6 B parameters (~36 B active),
 263 GB at bf16 -- more than one card holds. The serving entry refuses it
 at full depth (``launch.serve.serve_state_bytes``); its full width runs on
 one card cut in depth (two layers take ~15.5 GB). Its training step shards
-over a mesh (BIG_MODEL_RULES; ``launch.dryrun`` sizes a rank); serving it
-at full depth waits for sharded serving.
+over a mesh (BIG_MODEL_RULES; ``launch.dryrun`` sizes a rank), and so do
+its prefill and decode steps (``launch.steps`` with ``mesh=``).
 """
 
 from repro_torch.configs.base import ModelConfig, MoEConfig

@@ -24,6 +24,8 @@ as the reference's do.
                                     int32 (exact)
   make_sharded_global_norm_sq    -- the clipping statistic of a sharded
                                     tree
+  gather_rows                    -- every rank's tensor, in rank order (an
+                                    all-gather for a merge that is no sum)
   gather_blocks,
   reduce_scatter_blocks          -- the blocks of a tensor cut along one dim
                                     over mesh axes gathered whole, and the
@@ -271,6 +273,13 @@ def gather_blocks(x: torch.Tensor, axes, dim: int, mesh: Optional[Mesh] = None) 
         rows = _all_gather(x, ax, mesh, kind="all-gather")
         x = rows[0] if len(rows) == 1 else torch.cat(rows, dim)
     return x
+
+
+def gather_rows(x: torch.Tensor, ax: str, mesh: Optional[Mesh] = None) -> list:
+    """Every rank's ``x`` along axis ``ax``, in rank order (an all-gather):
+    what a merge that is not a sum folds (the serving steps' partial
+    softmaxes and greedy tokens)."""
+    return _all_gather(x, ax, mesh, kind="all-gather")
 
 
 def reduce_scatter_blocks(x: torch.Tensor, axes, dim: int,

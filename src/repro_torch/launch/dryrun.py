@@ -1,42 +1,48 @@
-"""The dry run of the sharded training step, on the meta device.
+"""The dry run of the sharded steps, on the meta device.
 
 Port of ``repro/launch/dryrun.py``. The reference lowers and compiles every
 (arch x shape x mesh) cell against the production meshes and reads the
 memory and the collectives out of the compiled HLO. Here nothing is
-compiled or allocated: for each training cell the parameters are meta
-tensors (``launch.specs``), their specs come from the reference's rules
-choice, and this module computes, for a rank of the mesh,
+compiled or allocated: for each cell the parameters are meta tensors
+(``launch.specs``), their specs come from the reference's rules choice
+(``rules_for``), and this module computes, for a rank of the mesh,
 
-  bytes        its blocks of the parameters, AdamW's two f32 moments, the
-               f32 gradient accumulators, the step's peak
+  bytes        training: its blocks of the parameters, AdamW's two f32
+               moments, the f32 gradient accumulators, the step's peak
                (``launch.train.sharded_step_peak_bytes``, activations
                aside), and what the fit verdict charges beside that peak:
                the activation reserve over the batch ranks, as
                ``launch.train.check_fits_card(shard=)`` charges it, and
                the checkpointed block inputs of a microbatch (its rows x
                seq x d_model x the activations' bytes x layers), which
-               grow with the cell's batch;
+               grow with the cell's batch. Prefill and decode
+               (``serve_rank_bytes``): its parameter blocks, its cache
+               blocks (``launch.sharding.cache_shardings``), the logits it
+               returns, and the working set of one block (the largest
+               gathered block, the head's f32 copy, one block's
+               activations);
   collectives  the bytes each collective of the sharded step
                (``launch.steps`` with ``mesh=``) brings into the rank, by
                kind (all-gather, reduce-scatter, all-reduce: a fixed-order
                combine) and by depth: once a "step", per "microbatch", per
                "block" per microbatch, per loss "chunk" per microbatch --
                the counterpart of the reference's ``parse_collective_bytes``
-               and ``parse_collective_depths``, computed from the sharded
-               step's structure (``step_collectives``), not from HLO. A
-               collective over an axis of P ranks brings in P - 1 times its
-               operand (gloo has no reduce-scatter: that one gathers whole
-               tensors), which is what ``core.collectives.traffic`` notes
-               and the launch meter (``reduce.inspect.collective_recv_bytes``)
-               counts of a real run (``tests/test_torch_dryrun.py`` holds
-               them equal on a tiny (2, 2) run, byte for byte).
+               and ``parse_collective_depths``, computed from the step's
+               structure (``step_collectives``; ``serve_collectives`` for
+               a prefill or one decode step: "step" and "block"), not from
+               HLO. A collective over an axis of P ranks brings in P - 1
+               times its operand (gloo has no reduce-scatter: that one
+               gathers whole tensors), which is what
+               ``core.collectives.traffic`` notes and the launch meter
+               (``reduce.inspect.collective_recv_bytes``) counts of a real
+               run (``tests/test_torch_dryrun.py`` holds them equal on tiny
+               (2, 2) runs, byte for byte).
 
 Every rank's blocks have the same shapes (the rules cut a dim only where
-it divides), so the figures are those of every rank. Prefill and decode
-cells wait for sharded serving and say so; archs whose blocks the sharded
-step does not run (``models.parallel.Plan``: MLA, SSM, RG-LRU,
-cross-attention, codebook streams) get their bytes and the refusal's
-reason.
+it divides), so the figures are those of every rank. Archs whose blocks
+the sharded steps do not run (``models.parallel.Plan``: MLA, SSM, RG-LRU,
+cross-attention, codebook streams) get ``refused`` with the reason (a
+training cell its bytes too).
 
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k --mesh 2x2
   python -m repro_torch.launch.dryrun --all --mesh single
@@ -60,8 +66,12 @@ from repro_torch.configs.base import shape_applicable
 from repro_torch.launch import sharding as SH
 from repro_torch.launch import specs as SPECS
 from repro_torch.launch.mesh import abstract_mesh, abstract_production_mesh
+from repro_torch.launch.specs import META
 from repro_torch.launch.train import (ACTIVATION_RESERVE_BYTES, sharded_step_peak_bytes,
                                       shard_shapes)
+from repro_torch.models import make_caches
+from repro_torch.models import moe as MOE
+from repro_torch.models import params as P
 from repro_torch.models.parallel import Plan
 
 ART_DIR = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
@@ -69,6 +79,10 @@ KINDS = ("all-gather", "reduce-scatter", "all-reduce")
 DEPTHS = ("step", "microbatch", "block", "chunk")
 LOSS_CHUNK = 512  # models.losses.lm_loss_chunked's seq_chunk
 CARD_BYTES = 80 * 10**9
+# cuBLAS's and cuBLASLt's workspaces, which PyTorch takes from its caching
+# allocator on the rank's first GEMMs (so a rank's peak counts them): a
+# serving rank's bytes are charged 64 MiB for them.
+LIBRARY_WORKSPACE_BYTES = 64 << 20
 
 
 def mesh_named(name: str):
@@ -221,6 +235,162 @@ def activation_bytes(cfg, tcfg, mesh, tokens_shape) -> dict:
             "block_inputs": rows * (tokens_shape[1] - 1) * cfg.d_model * act * cfg.n_layers}
 
 
+def _serve_rows(plan, batch: int) -> int:
+    """A rank's rows of a serving batch (``Plan.rows``)."""
+    deg = plan.data_degree
+    return batch // deg if deg > 1 and batch % deg == 0 else batch
+
+
+def serve_plan(cfg, mesh, specs, batch: int, s_max: int):
+    """The serving plan of a cell: the parameters' specs and the caches'
+    (``cache_shardings`` of ``batch`` x ``s_max`` slots), as
+    ``launch.steps.make_prefill_step`` / ``make_decode_step`` build it."""
+    meta = make_caches(cfg, batch, s_max, META)
+    return Plan(cfg, mesh, specs, SH.cache_shardings(meta, cfg, mesh)), meta
+
+
+def serve_collectives(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
+                      greedy: bool = True, s_max=None) -> dict:
+    """``{(kind, axis, depth): bytes}`` a rank brings in over one sharded
+    prefill of ``batch`` x ``seq`` tokens into caches of ``s_max`` slots
+    (``seq`` when None, as the dry run's cells have it), or one decode step
+    against caches of ``s_max`` slots (``launch.steps``' serving steps with
+    ``mesh=``; ``greedy``: the decode's (max, index) merge, else its logits
+    gathered); depth "step" (once) or "block" (once a block). No backward,
+    so no reduce-scatter."""
+    s_max = seq if s_max is None else s_max
+    plan, _ = serve_plan(cfg, mesh, specs, batch, s_max)
+    params = _meta_params(cfg)
+    rows = _serve_rows(plan, batch)
+    toks = rows * (seq if mode == "prefill" else 1)
+    act = params["embed"]["table"].element_size()
+    hidden = toks * cfg.d_model * act
+    model, d = plan.model, cfg.d_head
+    out: collections.Counter = collections.Counter()
+
+    def note(kind, axis, depth, nbytes):
+        if axis is not None and mesh.axis_size(axis) > 1:
+            out[(kind, axis, depth)] += (mesh.axis_size(axis) - 1) * int(nbytes)
+
+    def fsdp(tree, spec_tree, depth):
+        for t, sp in zip(R.tree_leaves(tree), SH.tree_leaves(spec_tree)):
+            shape = list(SH.local_shape(t.shape, sp, mesh))
+            for i, e in enumerate(sp):
+                for ax in reversed([ax for ax in SH.entry_axes(e) if ax in plan.batch]):
+                    note("all-gather", ax, depth, math.prod(shape) * t.element_size())
+                    shape[i] *= mesh.axis_size(ax)
+
+    if plan.vocab_parallel:
+        note("all-reduce", model, "step", hidden)  # the lookup's sum
+    for i, (p, sp) in enumerate(zip(params["layers"], specs["layers"])):
+        lay = plan.serve_layout(i, s_max)
+        fsdp(p, sp, "block")
+        for name in ("k", "v"):
+            w = p["mix"][name]["w"]
+            if (plan._model_cut(sp["mix"][name]["w"], 1)
+                    and not (lay["kv"] == "local" and lay["cache"] == "heads")):
+                note("all-gather", model, "block",
+                     math.prod(SH.local_shape(w.shape, sp["mix"][name]["w"], mesh))
+                     * w.element_size())
+        q0, q1 = lay["q_heads"]
+        if mode == "decode" and lay["cache"] == "seq":
+            if (q0, q1) != (0, cfg.n_heads):
+                note("all-gather", model, "block", rows * (q1 - q0) * d * act)  # q
+            note("all-gather", model, "block", rows * cfg.n_heads * (d + 2) * 4)  # partials
+        if lay["gather_heads"]:
+            note("all-gather", model, "block", toks * (q1 - q0) * d * act)
+        for tp in ("attn_tp", "ffn_tp"):
+            if lay[tp]:
+                note("all-reduce", model, "block", hidden)  # o / down: g
+        if lay["ep"] == "model":
+            note("all-reduce", model, "block", hidden)  # the combine
+    fsdp(params["final_norm"], specs["final_norm"], "step")
+    if plan.vocab_parallel:
+        cols = P.padded_vocab(cfg.vocab_size) // mesh.axis_size(model)
+        note("all-gather", model, "step",
+             rows * 2 * 8 if mode == "decode" and greedy else rows * cols * 4)
+    return dict(out)
+
+
+def serve_rank_bytes(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
+                     s_max=None) -> dict:
+    """A rank's bytes in a serving cell: its parameter blocks, its cache
+    blocks, the logits it returns (the prefill's gathered over the whole
+    padded vocabulary; the greedy decode's columns of the rank, never
+    gathered), and the working set beside them (a model figure): the
+    largest block's weights gathered (FSDP over the batch axes, k and v
+    over "model"), the head's f32 copy of the rank's columns, and one
+    block's activations of the rank's rows -- the residual stream and its
+    norm (4 d a token), q, k, v and the head outputs of its heads, the
+    FFN's hidden (3 f: gate, up and their product; the MoE's at its
+    capacity over the rank's experts, with the dispatched rows twice); and
+    the GEMM libraries' workspaces (``LIBRARY_WORKSPACE_BYTES``).
+    ``seq``: the prompt's length (prefill), ``s_max`` the caches' (``seq``
+    when None)."""
+    s_max = seq if s_max is None else s_max
+    plan, meta = serve_plan(cfg, mesh, specs, batch, s_max)
+    params = _meta_params(cfg)
+    rows = _serve_rows(plan, batch)
+    toks = rows * (seq if mode == "prefill" else 1)
+    act = params["embed"]["table"].element_size()
+    n_model = mesh.axis_size(plan.model) if plan.model else 1
+    vocab = P.padded_vocab(cfg.vocab_size)
+    cols = vocab // n_model if plan.vocab_parallel else vocab
+    caches = sum(math.prod(SH.local_shape(t.shape, s, mesh)) * t.element_size()
+                 for t, s in zip(R.tree_leaves(meta), SH.tree_leaves(plan.cache_specs)))
+    gathered, work = 0, 0
+    for i, (p, sp) in enumerate(zip(params["layers"], specs["layers"])):
+        lay = plan.serve_layout(i, s_max)
+        g = 0
+        for t, s in zip(R.tree_leaves(p), SH.tree_leaves(sp)):
+            batch_cut = [ax for ax in SH.spec_axes(s) if ax in plan.batch]
+            if batch_cut:
+                g += math.prod(SH.local_shape(t.shape, s, mesh)) * t.element_size() * (
+                    math.prod(mesh.axis_size(ax) for ax in batch_cut) - 1)
+        for name in ("k", "v"):
+            w = p["mix"][name]["w"]
+            if plan._model_cut(sp["mix"][name]["w"], 1) and lay["kv"] != "local":
+                g += w.numel() * w.element_size() // n_model * (n_model - 1)
+        gathered = max(gathered, g)
+        heads = ((lay["q_heads"][1] - lay["q_heads"][0]) * 2 + cfg.n_heads * lay["gather_heads"]
+                 + 2 * (lay["cache_heads"][1] - lay["cache_heads"][0]))
+        if cfg.moe is not None:
+            e = cfg.moe
+            n_exp = e.n_experts // n_model if lay["ep"] == "model" else e.n_experts
+            per_row = seq if mode == "prefill" else 1
+            ffn = rows * n_exp * MOE.capacity(per_row, cfg) * (2 * cfg.d_model
+                                                               + 3 * e.d_ff_expert) * act
+        else:
+            ffn = toks * 3 * cfg.d_ff // (n_model if lay["ffn_tp"] else 1) * act
+        work = max(work, toks * (4 * cfg.d_model + heads * cfg.d_head) * act + ffn)
+    out = {"params": sum(k * size for k, size in shard_shapes(cfg, mesh, specs)),
+           "caches": caches,
+           "logits": rows * (vocab if mode == "prefill" else cols) * 4,
+           "gathered_block": gathered, "head_f32": cfg.d_model * cols * 4 * max(
+               1, cfg.n_codebooks), "activations": work, "workspace": LIBRARY_WORKSPACE_BYTES}
+    out["need"] = sum(out.values())
+    return out
+
+
+def serve_cell(cfg, shape, mesh, rules: str) -> dict:
+    """A prefill or decode cell's record: the rules, a rank's bytes, the
+    fit verdict and the collectives (``serve_collectives``); the blocks
+    ``Plan`` refuses give ``refused`` with its reason."""
+    meta, axes = SPECS.param_specs(cfg)
+    specs = SH.param_shardings(axes, mesh, getattr(SH, rules), meta)
+    rec = {"rules": rules, "mesh_shape": list(mesh.shape), "axes": list(mesh.axis_names)}
+    try:
+        b = serve_rank_bytes(cfg, mesh, specs, shape.mode, shape.global_batch, shape.seq_len)
+        records = serve_collectives(cfg, mesh, specs, shape.mode, shape.global_batch,
+                                    shape.seq_len)
+    except NotImplementedError as e:
+        return dict(rec, status="refused", reason=str(e))
+    rec.update(status="ok", bytes_per_rank=b, fits_80gb_card_per_rank=b["need"] <= CARD_BYTES,
+               collectives=summarize(records))
+    rec["collectives"]["records"] = [[k, ax, d, n] for (k, ax, d), n in sorted(records.items())]
+    return rec
+
+
 def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir=None, *,
              n_layers=None) -> dict:
     """One cell's record (written as JSON under ``out_dir`` when given)."""
@@ -233,7 +403,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir=None, *,
     if not runs:
         rec.update(status="skipped", reason=reason)
     elif shape.mode != "train":
-        rec.update(status="waits", reason="prefill and decode cells wait for sharded serving")
+        rec.update(serve_cell(cfg, shape, mesh_named(mesh_name), rules_for(cfg, shape.mode)))
     else:
         mesh = mesh_named(mesh_name)
         rules = rules_for(cfg, shape.mode)
@@ -265,10 +435,28 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir=None, *,
     return rec
 
 
+def _describe_serving(head: str, rec: dict) -> str:
+    if rec["status"] == "refused":
+        return f"[refused] {head} ({rec['rules']}): the sharded serving step refuses it: " \
+               f"{rec['reason']}"
+    b, c = rec["bytes_per_rank"], rec["collectives"]
+    return (f"[ok] {head} ({rec['rules']}): a rank holds params {b['params'] / 1e9:.2f} GB, "
+            f"caches {b['caches'] / 1e9:.2f} GB, logits {b['logits'] / 1e9:.4f} GB; "
+            f"{b['need'] / 1e9:.2f} GB with a gathered block {b['gathered_block'] / 1e9:.2f}, "
+            f"the head's f32 copy {b['head_f32'] / 1e9:.2f}, a block's activations "
+            f"{b['activations'] / 1e9:.2f} and the GEMM workspaces ("
+            f"{'fits' if rec['fits_80gb_card_per_rank'] else 'does not fit'} an 80 GB card; "
+            f"a model figure); collectives {c['total_bytes'] / 1e9:.4f} GB a step a rank "
+            f"({', '.join(f'{k} {v / 1e9:.4f}' for k, v in c['by_kind'].items() if v)}; "
+            f"by depth {', '.join(f'{k} {v / 1e9:.4f}' for k, v in c['by_depth'].items() if v)})")
+
+
 def describe(rec: dict) -> str:
     head = f"{rec['arch']} x {rec['shape']} x {rec['mesh']}"
-    if rec["status"] in ("skipped", "waits"):
+    if rec["status"] == "skipped":
         return f"[{rec['status']}] {head}: {rec['reason']}"
+    if rec["mode"] != "train":
+        return _describe_serving(head, rec)
     b = rec["bytes_per_rank"]
     line = (f"[{rec['status']}] {head} ({rec['rules']}, {rec['microbatches']} "
             f"microbatches): a rank holds params {b['params'] / 1e9:.2f} GB, moments "

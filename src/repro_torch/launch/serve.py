@@ -16,10 +16,11 @@ Engines run on the GPU unless the caller passes ``device="cpu"``; with no
 GPU and no device they raise. Everything runs under inference mode. An
 engine whose parameters and caches would not fit the card
 (``serve_state_bytes``: dbrx-132b's 263 GB at full depth) is refused
-before anything is allocated; it serves only sharded over several cards,
-which waits for sharded serving (the training step shards already:
-``launch.steps``, ``launch.dryrun``). A cross-attention arch (llama-3.2-vision-11b) serves
-against one synthetic image context per slot (``Engine.ctx``); an audio
+before anything is allocated; it serves only sharded over several cards
+(``launch.steps.make_prefill_step`` and ``make_decode_step`` with
+``mesh=``; a rank's bytes in ``launch.dryrun``'s serving cells). A
+cross-attention arch (llama-3.2-vision-11b) serves against one synthetic
+image context per slot (``Engine.ctx``); an audio
 arch (musicgen-medium) takes (L, n_codebooks) prompts or tiles 1-D ones
 over its streams, and reports codebook 0.
 
@@ -106,8 +107,9 @@ def check_fits_card(cfg, batch_slots: int, s_max: int, device: torch.device) -> 
         raise ValueError(
             f"{cfg.name}: the parameters and caches take {need / 1e9:.1f} GB, more than the "
             f"card's {have / 1e9:.1f} GB; it serves at this depth only sharded over more cards "
-            f"(sharded serving follows the sharded step, launch.steps.make_train_step(mesh=...); "
-            f"a rank's bytes: python -m repro_torch.launch.dryrun)")
+            f"(launch.steps.make_prefill_step(mesh=...) and make_decode_step(mesh=...); a "
+            f"rank's bytes: the dry run's prefill and decode cells, python -m "
+            f"repro_torch.launch.dryrun)")
 
 
 def _tok_ints(tok: torch.Tensor) -> np.ndarray:

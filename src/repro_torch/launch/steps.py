@@ -35,6 +35,17 @@ each leaf once (``optim.adamw.sharded_norm_and_clip``), and AdamW updates
 each rank's blocks in place. ``torch.utils.checkpoint``'s early stop is
 off in the sharded forward, so each recompute runs its block's
 collectives again, all of them (``launch.dryrun`` counts them so).
+
+``mesh=`` and ``param_shardings=`` on ``make_prefill_step`` and
+``make_decode_step`` make the sharded serving steps (the reference's rules
+for the config, ``launch.dryrun.rules_for``, when no specs are given): the
+rank's blocks of the weights and of the caches
+(``launch.sharding.cache_shardings``, made by rank: ``make_rank_caches``),
+its rows of the global batch, each block laid out by
+``models.parallel.Plan.serve_layout`` (TP, EP, FSDP, and the caches cut by
+heads or by slots: the split-KV decode), the logits gathered over the
+whole vocabulary, and the greedy token by a (max, index) merge over
+"model". With ``mesh=None`` both are the single-device steps.
 """
 
 from __future__ import annotations
@@ -339,19 +350,102 @@ def make_mesh_guarded_train_step(cfg, tcfg, mesh, reduce_backend=None, spike_z: 
     return guarded_step
 
 
-def make_prefill_step(cfg, s_max: int):
-    def prefill_step(params, tokens: torch.Tensor, ctx=None):
-        caches = make_caches(cfg, tokens.shape[0], s_max, tokens.device)
-        return prefill(params, cfg, tokens, caches, ctx)
+def _serving(cfg, mesh, param_shardings):
+    """``plan_for(batch, s_max)``: the plan of a sharded serving step for a
+    global batch of ``batch`` rows and caches of ``s_max`` slots (memoized)
+    and the caches' meta tensors. Specs from ``param_axes`` under the rules
+    the reference picks (``launch.dryrun.rules_for``) when none are given;
+    the caches' from ``cache_shardings``. The blocks ``Plan`` refuses raise
+    here, before any call."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.model import init_params, param_axes
+    from repro_torch.models.parallel import Plan
 
-    return prefill_step
+    if param_shardings is None:
+        shapes = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+        rules = getattr(SH, dryrun.rules_for(cfg, "serve"))
+        param_shardings = SH.param_shardings(param_axes(cfg), mesh, rules, shapes)
+    plan = Plan(cfg, mesh, param_shardings)
+    memo: dict = {}
+
+    def plan_for(batch: int, s_max: int):
+        if (batch, s_max) not in memo:
+            meta = make_caches(cfg, batch, s_max, torch.device("meta"))
+            memo[(batch, s_max)] = (plan.for_caches(SH.cache_shardings(meta, cfg, mesh)), meta)
+        return memo[(batch, s_max)]
+
+    return plan_for
 
 
-def make_decode_step(cfg, greedy: bool = True):
-    def decode_one(params, caches, token: torch.Tensor, pos: int, ctx=None):
-        logits, caches = model_decode(params, cfg, token, caches, pos, ctx)
-        if greedy:
-            return torch.argmax(logits, -1).to(torch.int32), caches
-        return logits, caches
+def make_rank_caches(plan, meta, device) -> dict:
+    """The rank's blocks of the caches ``meta`` (meta tensors of the global
+    shapes) under ``plan.cache_specs``: zeros, and -1 in the slot positions
+    (whole on every rank)."""
+    from repro_torch.launch.sharding import local_shape
 
-    return decode_one
+    def block(t, spec, fill):
+        return torch.full(local_shape(t.shape, spec, plan.mesh), fill, dtype=t.dtype,
+                          device=device)
+
+    return {"layers": [{k: block(t, cs[k], -1 if k == "slot_pos" else 0) for k, t in c.items()}
+                       for c, cs in zip(meta["layers"], plan.cache_specs["layers"])]}
+
+
+def make_prefill_step(cfg, s_max: int, mesh=None, param_shardings=None):
+    """``prefill_step(params, tokens, ctx=None) -> (last-token logits,
+    caches)``: new caches of ``s_max`` slots, filled by the prompt.
+
+    ``mesh`` (with ``param_shardings``, a spec tree like the parameters;
+    the reference's rules for the config when None): the sharded prefill
+    (``models.parallel``'s module doc). ``params`` are the rank's blocks
+    and ``tokens`` the GLOBAL batch; the rank runs its rows (``Plan.rows``)
+    and returns their logits over the whole vocabulary and its blocks of
+    the caches (``launch.sharding.cache_shardings``). The blocks ``Plan``
+    refuses raise ``NotImplementedError``."""
+    if mesh is None:
+        def prefill_step(params, tokens: torch.Tensor, ctx=None):
+            caches = make_caches(cfg, tokens.shape[0], s_max, tokens.device)
+            return prefill(params, cfg, tokens, caches, ctx)
+
+        return prefill_step
+    plan_for = _serving(cfg, mesh, param_shardings)
+
+    def sharded_prefill_step(params, tokens: torch.Tensor, ctx=None):
+        plan, meta = plan_for(tokens.shape[0], s_max)
+        caches = make_rank_caches(plan, meta, tokens.device)
+        with torch.no_grad():
+            logits, caches = prefill(params, cfg, plan.rows(tokens), caches, ctx, plan)
+            return plan.gather_logits(logits)[..., :cfg.vocab_size], caches
+
+    return sharded_prefill_step
+
+
+def make_decode_step(cfg, greedy: bool = True, mesh=None, param_shardings=None):
+    """``decode_one(params, caches, token, pos, ctx=None) -> (next token
+    (B, 1) int32, or the logits with ``greedy=False``, caches)``.
+
+    ``mesh``/``param_shardings``: the sharded decode (``make_prefill_step``'s);
+    ``caches`` the rank's blocks from the sharded prefill, ``token`` the
+    GLOBAL batch's (B, 1), as the prefill's tokens. The greedy token is the
+    (max, index) merge over "model" (``Plan.greedy``), the logits the whole
+    vocabulary's; both of the rank's rows."""
+    if mesh is None:
+        def decode_one(params, caches, token: torch.Tensor, pos: int, ctx=None):
+            logits, caches = model_decode(params, cfg, token, caches, pos, ctx)
+            if greedy:
+                return torch.argmax(logits, -1).to(torch.int32), caches
+            return logits, caches
+
+        return decode_one
+    plan_for = _serving(cfg, mesh, param_shardings)
+
+    def sharded_decode_one(params, caches, token: torch.Tensor, pos: int, ctx=None):
+        plan, _ = plan_for(token.shape[0], caches["layers"][0]["slot_pos"].shape[0])
+        with torch.no_grad():
+            logits, caches = model_decode(params, cfg, plan.rows(token), caches, pos, ctx, plan)
+            if greedy:
+                return plan.greedy(logits), caches
+            return plan.gather_logits(logits)[..., :cfg.vocab_size], caches
+
+    return sharded_decode_one

@@ -294,12 +294,17 @@ def check_fits_card(cfg, tcfg, device, *, guard: bool = False, ranks_on_card: in
 
 
 def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0,
-          data_mesh=None):
+          data_mesh=None, mesh=None, param_shardings=None):
     """Parameters (seeded random unless given; they are set to require
     grad), optimizer state and the train step: ``make_train_step``'s, or
     with ``guard`` ``make_guarded_train_step``'s (which also takes and
     returns the guard state), or with ``data_mesh`` too
-    ``make_mesh_guarded_train_step``'s."""
+    ``make_mesh_guarded_train_step``'s. ``mesh`` (and ``param_shardings``):
+    the sharded step of either, as the reference's ``build(mesh=)``;
+    ``params`` are then the rank's blocks (required: a rank never draws
+    the whole model)."""
+    if mesh is not None and (params is None or data_mesh is not None):
+        raise ValueError("build(mesh=) takes the rank's blocks as params= and no data_mesh=")
     if params is None:
         gen = torch.Generator(device=device).manual_seed(tcfg.seed)
         params = init_params(cfg, gen, device)
@@ -312,9 +317,10 @@ def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float
     if data_mesh is not None:
         step_fn = make_mesh_guarded_train_step(cfg, tcfg, data_mesh, spike_z=spike_z)
     elif guard:
-        step_fn = make_guarded_train_step(cfg, tcfg, spike_z=spike_z)
+        step_fn = make_guarded_train_step(cfg, tcfg, spike_z=spike_z, mesh=mesh,
+                                          param_shardings=param_shardings)
     else:
-        step_fn = make_train_step(cfg, tcfg)
+        step_fn = make_train_step(cfg, tcfg, mesh=mesh, param_shardings=param_shardings)
     return params, opt_state, step_fn
 
 

@@ -142,7 +142,29 @@ def flash_attention_xla(q, k, v, *, causal: bool = True, window=None, q_offset: 
     return out[:, :sq].to(q.dtype)
 
 
-def self_attention_train(p, x, positions, cfg, *, window=None, return_kv=False, tp=None):
+def _read_kv(k, v, sv, cfg):
+    """k and v (B, S, Hkv', D) cut to the kv heads the rank's query heads
+    read (``sv``: its ``models.parallel.Serve``; None: all of them)."""
+    if sv is None:
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    (q0, q1), c0 = sv.q_heads, sv.cache_heads[0]
+    a, z = q0 // g - c0, (q1 - 1) // g + 1 - c0
+    return k[:, :, a:z], v[:, :, a:z]
+
+
+def _out(p, out, tp, sv):
+    """The head outputs (B, S, H' D) through o: gathered over the model
+    ranks first where ``sv`` says so (o whole, the rank holding some of the
+    heads); under ``tp`` the rank's rows of o, then Megatron's g."""
+    if sv is not None and sv.gather_heads:
+        out = sv.gather(out, 2)
+    out = P.dense_apply(p["o"], out)
+    return out if tp is None else tp.exit(out)
+
+
+def self_attention_train(p, x, positions, cfg, *, window=None, return_kv=False, tp=None,
+                         sv=None):
     """(B, S, d) -> (B, S, d): causal self-attention, train/prefill path,
     on the kernel with ``cfg.use_kernels`` (its window mask; past heads of
     128 the kernel's wide variant) and on ``flash_attention_xla`` without
@@ -151,22 +173,24 @@ def self_attention_train(p, x, positions, cfg, *, window=None, return_kv=False, 
     Hkv, D) -- what the prefill writes into the cache. ``tp``
     (``models.parallel.TP``): the weights hold a rank's heads, q/k/v are
     column-parallel (x through ``tp.enter``) and o row-parallel (its
-    partial sums through ``tp.exit``)."""
+    partial sums through ``tp.exit``). ``sv`` (``models.parallel.Serve``,
+    the sharded prefill): q holds the rank's query heads and k/v its
+    cache's kv heads; the rank attends its query heads, and its head
+    outputs are gathered for a whole o where ``sv.gather_heads``."""
     if tp is not None:
         x = tp.enter(x)
     q, k, v = _project_qkv(p, x, cfg.d_head)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
+    ka, va = _read_kv(k, v, sv, cfg)
     if cfg.use_kernels:
         out = K.flash_attention_diff(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True, window, 0, None
+            q.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2), True, window, 0, None
         ).transpose(1, 2)
     else:
-        out = flash_attention_xla(q, k, v, causal=True, window=window, mma=cfg.mma_reductions)
+        out = flash_attention_xla(q, ka, va, causal=True, window=window, mma=cfg.mma_reductions)
     b, s = out.shape[0], out.shape[1]
-    out = P.dense_apply(p["o"], out.reshape(b, s, -1))
-    if tp is not None:
-        out = tp.exit(out)
+    out = _out(p, out.reshape(b, s, -1), tp, sv)
     return (out, k, v) if return_kv else out
 
 
@@ -178,17 +202,21 @@ def make_kv_cache(batch: int, s_max: int, n_kv: int, d_head: int, dtype, device)
     }
 
 
-def fill_kv_cache(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+def fill_kv_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, slot0: int = 0) -> dict:
     """Prefill: the prompt's RoPE'd keys and values into the cache, in
     place. A prompt that fits goes to slots [0, S); a longer one into a
     ring (local attention) keeps its last s_max positions, position p at
     slot p % s_max, so that later decode writes (slot pos % s_max) evict
-    the oldest first -- the reference's ring branch."""
+    the oldest first -- the reference's ring branch. ``slot0``: a cache
+    that holds the block of slots from ``slot0`` on (a rank's, the cache
+    cut by slots) gets its slots of the prompt; ``slot_pos`` is whole on
+    every rank and written whole."""
     s = k.shape[1]
-    s_max = cache["k"].shape[1]
+    s_max = cache["slot_pos"].shape[0]
     if s <= s_max:
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+        n = max(0, min(s - slot0, cache["k"].shape[1]))
+        cache["k"][:, :n] = k[:, slot0:slot0 + n]
+        cache["v"][:, :n] = v[:, slot0:slot0 + n]
         cache["slot_pos"][:s] = torch.arange(s, dtype=torch.int32, device=k.device)
         return cache
     tail = torch.arange(s - s_max, s, device=k.device)
@@ -199,13 +227,14 @@ def fill_kv_cache(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
     return cache
 
 
-def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, window=None,
-                     mma: bool = True, sm_scale=None) -> torch.Tensor:
-    """q: (B, 1, H, D), RoPE'd; caches (B, Smax, Hkv, D); slot_pos (Smax,)
-    absolute position per slot (-1 empty); ``window`` keeps the slots less
-    than ``window`` positions behind ``pos``. Products of bf16-rounded
-    operands accumulate in f32, as the reference's einsums do; ``mma``
-    picks the denominator's reduce backend (``backend_for_flags(mma)``)."""
+def decode_attention_partial(q, k_cache, v_cache, slot_pos, pos: int, *, window=None,
+                             mma: bool = True, sm_scale=None):
+    """The partial softmax of one decode query over the slots given:
+    q (B, 1, H, D), RoPE'd; caches (B, S, Hkv, D); slot_pos (S,) absolute
+    position per slot (-1 empty). -> (m (B, Hkv, G, 1), the slots' max
+    score; denom (B, Hkv, G), the sum of exp(score - m); out (B, Hkv, G,
+    Dv), the unnormalised exp-weighted values), all f32. A block of slots
+    with none visible gives m = -1e30, denom 0, out 0."""
     b, _, h, d = q.shape
     hkv = k_cache.shape[2]
     g = h // hkv
@@ -220,33 +249,93 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, window=None,
     e = torch.where(valid, torch.exp(s - m), 0.0)
     denom = R.reduce(e, -1, backend=R.backend_for_flags(mma))
     out = torch.matmul(bf16_round(e), bf16_round(v_cache).permute(0, 2, 1, 3))
+    return m, denom, out
+
+
+def merge_decode_partials(parts: list) -> torch.Tensor:
+    """Several blocks of slots' ``decode_attention_partial`` triples, in
+    order, merged into the normalised output (B, Hkv, G, Dv) f32: M = max
+    m_r, denominator sum_r e^(m_r - M) d_r, output sum_r e^(m_r - M) o_r
+    over the denominator, each sum a left fold in the order given."""
+    big = parts[0][0]
+    for m, _, _ in parts[1:]:
+        big = torch.maximum(big, m)
+    denom = out = None
+    for m, dn, o in parts:
+        w = torch.exp(m - big)
+        denom = w[..., 0] * dn if denom is None else denom + w[..., 0] * dn
+        out = w * o if out is None else out + w * o
+    return out / torch.clamp_min(denom, 1e-30)[..., None]
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, window=None,
+                     mma: bool = True, sm_scale=None) -> torch.Tensor:
+    """q: (B, 1, H, D), RoPE'd; caches (B, Smax, Hkv, D); slot_pos (Smax,)
+    absolute position per slot (-1 empty); ``window`` keeps the slots less
+    than ``window`` positions behind ``pos``. Products of bf16-rounded
+    operands accumulate in f32, as the reference's einsums do; ``mma``
+    picks the denominator's reduce backend (``backend_for_flags(mma)``).
+    The one-block case of ``decode_attention_partial``: its output over
+    its denominator."""
+    b, _, h, _ = q.shape
+    _, denom, out = decode_attention_partial(q, k_cache, v_cache, slot_pos, pos, window=window,
+                                             mma=mma, sm_scale=sm_scale)
     out = out / torch.clamp_min(denom, 1e-30)[..., None]
     return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
 
 
-def self_attention_decode(p, x_t, cache, pos: int, cfg, *, window=None):
+def _split_kv_decode(q, cache, pos: int, cfg, sv, window):
+    """The split-KV decode of a cache cut by slots (``models.parallel``'s
+    module doc): q gathered over "model" where the rank holds some of the
+    query heads, the partial softmax of every query head over the rank's
+    slots, the partials merged over "model" in rank order, the rank's
+    heads taken. -> (B, 1, H', Dv)."""
+    b = q.shape[0]
+    if sv.q_heads != (0, cfg.n_heads):
+        q = sv.gather(q, 2)  # every query head reads every rank's slots
+    lo, hi = sv.slots
+    m, denom, o = decode_attention_partial(q, cache["k"], cache["v"], cache["slot_pos"][lo:hi],
+                                           pos, window=window, mma=cfg.mma_reductions)
+    rows = sv.rows(torch.cat([m, denom[..., None], o], -1))
+    out = merge_decode_partials([(r[..., :1], r[..., 1], r[..., 2:]) for r in rows])
+    out = out.reshape(b, 1, cfg.n_heads, o.shape[-1])
+    return out[:, :, sv.q_heads[0]:sv.q_heads[1]].to(q.dtype)
+
+
+def self_attention_decode(p, x_t, cache, pos: int, cfg, *, window=None, tp=None, sv=None):
     """One decode step at absolute position ``pos``. x_t: (B, 1, d). Writes
     K/V at slot ``pos % s_max`` of the cache in place (see the module doc):
     slot ``pos`` of a full cache, or the rotating slot of a local
     attention's ring (``window`` given), which evicts the oldest key.
-    Returns (out (B, 1, d), cache)."""
+    Returns (out (B, 1, d), cache).
+
+    ``tp`` and ``sv``: the sharded decode (``self_attention_train``'s).
+    Only the rank whose cache holds the slot writes the new key and value
+    (``slot_pos`` is whole and written on every rank); a cache cut by
+    slots attends through ``_split_kv_decode``."""
     b = x_t.shape[0]
     q, k, v = _project_qkv(p, x_t, cfg.d_head)
     posb = torch.full((b, 1), pos, dtype=torch.int64, device=x_t.device)
     q = L.rope(q, posb, cfg.rope_theta)
     k = L.rope(k, posb, cfg.rope_theta)
-    s_max = cache["k"].shape[1]
+    s_max = cache["slot_pos"].shape[0]
     if pos >= s_max and (window is None or s_max < window):
         # a full cache, or a ring shorter than the window, would evict a
         # key the query still sees
         raise ValueError(f"decode position {pos} is past the cache length {s_max}")
     slot = pos % s_max
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+    lo = 0 if sv is None else sv.slots[0]
+    if lo <= slot < lo + cache["k"].shape[1]:
+        cache["k"][:, slot - lo] = k[:, 0]
+        cache["v"][:, slot - lo] = v[:, 0]
     cache["slot_pos"][slot] = pos
-    out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos, window=window,
-                           mma=cfg.mma_reductions)
-    return P.dense_apply(p["o"], out.reshape(b, 1, -1)), cache
+    if sv is not None and sv.cache == "seq":
+        out = _split_kv_decode(q, cache, pos, cfg, sv, window)
+    else:
+        kc, vc = _read_kv(cache["k"], cache["v"], sv, cfg)
+        out = decode_attention(q, kc, vc, cache["slot_pos"], pos, window=window,
+                               mma=cfg.mma_reductions)
+    return _out(p, out.reshape(b, 1, -1), tp, sv), cache
 
 
 def cross_attention_init(gen, d: int, n_heads: int, n_kv: int, d_head: int, dtype,

@@ -384,6 +384,23 @@ def _ffn_residual(kind, p, h, cfg, hooks=None):
     return h + y, _aux(metrics, h.device)
 
 
+def _final_norm(params, cfg, h, plan=None):
+    """The final norm; under a ``plan`` its scale FSDP-gathered (the head's
+    weights are never cut over the batch axes)."""
+    final = params["final_norm"]
+    if plan is not None:
+        final = plan.gather(final, plan.specs["final_norm"])
+    return _norm(final, h, cfg)
+
+
+def _serve_logits(params, cfg, h, plan):
+    """The serving head of the last hidden states: ``vocab_size`` logits,
+    or under a ``plan`` the rank's columns of the padded vocabulary, pads
+    masked (``Plan.gather_logits`` and ``Plan.greedy`` take them whole)."""
+    h = _final_norm(params, cfg, h, plan)
+    return _head_public(params, cfg, h) if plan is None else _head(params, cfg, h, plan)
+
+
 def _window(kind: str, cfg):
     return cfg.window if kind == "local_attn" else None
 
@@ -426,13 +443,15 @@ def block_make_cache(kind: str, batch: int, s_max: int, cfg, device) -> dict:
     return A.make_kv_cache(batch, s_max, cfg.n_kv_heads, cfg.d_head, dt, device)
 
 
-def block_fill_cache(kind: str, p, h, positions, cache, cfg, ctx=None):
+def block_fill_cache(kind: str, p, h, positions, cache, cfg, ctx=None, hooks=None):
     """Prefill: run the block AND fill its cache from norm1(h), the stream
     the mixer reads. -> (h, cache): the KV (ring) and latent caches are
     filled in place, a cross-attention layer's with the keys and values of
     the context as given (not normed); the SSM and RG-LRU blocks return
     their caches from the train path's scan (the conv window and the final
-    state: the exact prefill -> decode handoff)."""
+    state: the exact prefill -> decode handoff). ``hooks``: the sharded
+    prefill's (``Plan.serve_block``): the rank's heads and its block of the
+    cache."""
     hn = _norm(p["norm1"], h, cfg)
     if kind == "ssm":
         mix, cache = SSM.ssm_train(p["mix"], hn, cfg, return_state=True)
@@ -447,15 +466,18 @@ def block_fill_cache(kind: str, p, h, positions, cache, cfg, ctx=None):
         cache = MLA.mla_fill_cache(p["mix"], hn, positions, cache, cfg)
         mix = MLA.mla_train(p["mix"], hn, positions, cfg)
     else:
+        tp, sv = (None, None) if hooks is None else (hooks.attn, hooks.serve)
         mix, k, v = A.self_attention_train(p["mix"], hn, positions, cfg,
-                                           window=_window(kind, cfg), return_kv=True)
-        A.fill_kv_cache(cache, k, v)
-    return _ffn_residual(kind, p, h + mix, cfg)[0], cache
+                                           window=_window(kind, cfg), return_kv=True, tp=tp,
+                                           sv=sv)
+        A.fill_kv_cache(cache, k, v, 0 if sv is None else sv.slots[0])
+    return _ffn_residual(kind, p, h + mix, cfg, hooks)[0], cache
 
 
-def block_decode(kind: str, p, h, cache, pos: int, cfg):
+def block_decode(kind: str, p, h, cache, pos: int, cfg, hooks=None):
     """One decode step of one block -> (h, cache) (see the module doc for
-    which caches are written in place and which are new)."""
+    which caches are written in place and which are new); ``hooks`` as in
+    ``block_fill_cache``."""
     hn = _norm(p["norm1"], h, cfg)
     if kind == "ssm":
         mix, cache = SSM.ssm_decode(p["mix"], hn, cache, cfg)
@@ -467,8 +489,10 @@ def block_decode(kind: str, p, h, cache, pos: int, cfg):
         mix, cache = MLA.mla_decode(p["mix"], hn, cache, pos, cfg)
     else:
         mix, cache = A.self_attention_decode(p["mix"], hn, cache, pos, cfg,
-                                             window=_window(kind, cfg))
-    return _ffn_residual(kind, p, h + mix, cfg)[0], cache
+                                             window=_window(kind, cfg),
+                                             tp=None if hooks is None else hooks.attn,
+                                             sv=None if hooks is None else hooks.serve)
+    return _ffn_residual(kind, p, h + mix, cfg, hooks)[0], cache
 
 
 def _sharded_block(kind, p, specs, h, positions, cfg, ctx, plan):
@@ -504,10 +528,7 @@ def forward_hidden(params, cfg, tokens: torch.Tensor, ctx=None, plan=None):
             h, a = args[0](*args[1:])
         h = CTX.constrain(h)
         aux = aux + a
-    final = params["final_norm"]
-    if plan is not None:
-        final = plan.gather(final, plan.specs["final_norm"])
-    return _norm(final, h, cfg), aux
+    return _final_norm(params, cfg, h, plan), aux
 
 
 def forward(params, cfg, tokens: torch.Tensor, ctx=None):
@@ -522,31 +543,50 @@ def make_caches(cfg, batch: int, s_max: int, device) -> dict:
                        for kind in cfg.pattern_layers]}
 
 
-def prefill(params, cfg, tokens: torch.Tensor, caches: dict, ctx=None):
+def prefill(params, cfg, tokens: torch.Tensor, caches: dict, ctx=None, plan=None):
     """Run the prompt, (B, S) or (B, S, K) tokens, filling caches. Returns
-    (last-token logits (B, 1, V) or (B, 1, K, V), caches)."""
-    h = _embed(params, cfg, tokens)
+    (last-token logits (B, 1, V) or (B, 1, K, V), caches).
+
+    ``plan`` (``models.parallel.Plan`` with ``cache_specs``): ``params``
+    and ``caches`` are the rank's blocks and ``tokens`` its rows; each
+    block runs as ``Plan.serve_block`` lays it out (its gathered weights
+    freed before the next block's gather), and the logits are the rank's
+    columns of the padded vocabulary (``launch.steps.make_prefill_step``
+    gathers them)."""
+    h = _embed(params, cfg, tokens, plan)
     b, s = tokens.shape[:2]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     filled = []
-    for kind, p, cache in zip(cfg.pattern_layers, params["layers"], caches["layers"]):
-        h, cache = block_fill_cache(kind, p, h, positions, cache, cfg, ctx)
+    for i, (kind, p, cache) in enumerate(zip(cfg.pattern_layers, params["layers"],
+                                             caches["layers"])):
+        hooks = None
+        if plan is not None:
+            p, hooks = plan.serve_block(i, p, cache["slot_pos"].shape[0])
+        h, cache = block_fill_cache(kind, p, h, positions, cache, cfg, ctx, hooks)
         filled.append(cache)
-    h = _norm(params["final_norm"], h, cfg)
-    return _head_public(params, cfg, h[:, -1:]), {"layers": filled}
+    del p  # under a plan the last block's gathered weights, freed before the head
+    return _serve_logits(params, cfg, h[:, -1:], plan), {"layers": filled}
 
 
-def decode_step(params, cfg, token_t: torch.Tensor, caches: dict, pos: int, ctx=None):
+def decode_step(params, cfg, token_t: torch.Tensor, caches: dict, pos: int, ctx=None,
+                plan=None):
     """One token step. token_t: (B, 1) or (B, 1, K); pos: the absolute
     position of this token; ``ctx`` is accepted for the reference's
     signature (the cross-attention layers read their caches). Returns
     (logits (B, 1, V) or (B, 1, K, V), a new caches dict); the dict
     given is not changed, and its SSM and RG-LRU caches' tensors are not
-    written (see the module doc)."""
-    h = _embed(params, cfg, token_t)
+    written (see the module doc). ``plan``: the sharded step
+    (``prefill``'s): ``token_t`` the rank's rows, the logits the rank's
+    columns (``launch.steps.make_decode_step`` gathers them, or takes the
+    greedy token from them)."""
+    h = _embed(params, cfg, token_t, plan)
     stepped = []
-    for kind, p, cache in zip(cfg.pattern_layers, params["layers"], caches["layers"]):
-        h, cache = block_decode(kind, p, h, cache, pos, cfg)
+    for i, (kind, p, cache) in enumerate(zip(cfg.pattern_layers, params["layers"],
+                                             caches["layers"])):
+        hooks = None
+        if plan is not None:
+            p, hooks = plan.serve_block(i, p, cache["slot_pos"].shape[0])
+        h, cache = block_decode(kind, p, h, cache, pos, cfg, hooks)
         stepped.append(cache)
-    h = _norm(params["final_norm"], h, cfg)
-    return _head_public(params, cfg, h), {"layers": stepped}
+    del p  # under a plan the last block's gathered weights, freed before the head
+    return _serve_logits(params, cfg, h, plan), {"layers": stepped}

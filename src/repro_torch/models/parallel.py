@@ -39,10 +39,44 @@ alike has the same gradient on each of them.
 ``Plan`` checks that the config's blocks are ones the sharded step runs
 (self-attention, global or local, without MLA, and a dense or MoE FFN; no
 codebook streams); the others refuse with that reason.
+
+Serving (``Plan(..., cache_specs=)``, ``launch.steps.make_prefill_step``
+and ``make_decode_step`` with ``mesh=``) runs the same blocks forward only,
+each rank on its rows of the batch (``launch.sharding.batch_partition``:
+all of them where the batch does not divide the data axes), with the
+caches cut as ``launch.sharding.cache_shardings`` cuts them. Those can cut
+a cache where the weights are whole (SMALL_MODEL_RULES), so a block's
+attention follows its cache (``Plan.serve_layout``):
+
+  heads  the k/v cache cut by kv heads over "model": the rank computes q
+         for the query heads of its kv heads and k/v for those kv heads
+         (columns of whole weights, or its own blocks under TP), writes
+         its cache and attends its heads; under TP its o rows and Megatron's
+         g follow, else its head outputs are gathered over "model" in rank
+         order for the whole o.
+  seq    the cache cut by slots over "model" (the kv heads do not split):
+         every rank holds every kv head for its block of slots. The
+         prefill runs the attention as the training step does and writes
+         the rank's slots; the decode writes the new key only on the rank
+         that holds its slot, each rank takes the partial softmax (max,
+         denominator, unnormalised output) of every query head over its
+         slots, and the partials merge over "model" in rank order
+         (``attention.merge_decode_partials``) before the rank takes its
+         heads for o. The decode gathers q over "model" first where q is
+         cut by heads. A ring cache (local attention) is not cut so.
+  whole  the cache whole on every model rank: every rank writes it all.
+
+The head's columns are gathered over "model" into the whole vocabulary
+(prefill, and a decode that returns logits), or the greedy token is taken
+by a (max, global index) merge in rank order with no gather
+(``Plan.greedy``), equal to ``torch.argmax`` over the whole row: the
+lowest index wins a tie, and NaN counts as the maximum. The MoE runs EP
+without the load-balance statistics (serving drops the aux loss).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -85,11 +119,13 @@ class EP:
 @dataclasses.dataclass(frozen=True)
 class Hooks:
     """What one block runs sharded: attention and FFN tensor parallelism,
-    expert parallelism (None where the block runs whole on every rank)."""
+    expert parallelism (None where the block runs whole on every rank),
+    and in serving its attention's heads and cache (``Serve``)."""
 
     attn: object = None
     ffn: object = None
     ep: object = None
+    serve: object = None
 
 
 def _gather_batch_dims(x: torch.Tensor, spec: tuple, mesh, batch: tuple) -> torch.Tensor:
@@ -105,12 +141,42 @@ def _gather_batch_dims(x: torch.Tensor, spec: tuple, mesh, batch: tuple) -> torc
     return x
 
 
+@dataclasses.dataclass(frozen=True)
+class Serve:
+    """How a rank runs one self-attention block's prefill and decode
+    (``Plan.serve_block``; the module doc). Its weights are already the
+    rank's: q for ``q_heads``, k and v for ``cache_heads``, o for
+    ``q_heads``' rows under TP (``Hooks.attn``), whole otherwise.
+    ``slots``: the global cache slots the rank's k/v cache holds;
+    ``gather_heads``: the head outputs are gathered over ``axis`` before
+    the whole o."""
+
+    mesh: object
+    axis: object
+    cache: str
+    q_heads: tuple
+    cache_heads: tuple
+    slots: tuple
+    gather_heads: bool
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model ranks' blocks of ``x`` along ``dim``, in rank order."""
+        return C.gather_blocks(x, self.axis, dim, self.mesh) if self.axis else x
+
+    def rows(self, x: torch.Tensor) -> list:
+        """Every model rank's ``x``, in rank order."""
+        return C.gather_rows(x, self.axis, self.mesh) if self.axis else [x]
+
+
 class Plan:
     """The sharded forward's layout: the mesh, every leaf's spec, and the
-    axes that matter (those of more than one rank)."""
+    axes that matter (those of more than one rank). ``cache_specs``
+    (``launch.sharding.cache_shardings`` of the caches): the serving
+    layout's."""
 
-    def __init__(self, cfg, mesh, specs):
+    def __init__(self, cfg, mesh, specs, cache_specs=None):
         self.cfg, self.mesh, self.specs = cfg, mesh, specs
+        self.cache_specs = cache_specs
         live = tuple(ax for ax in mesh.axis_names if mesh.axis_size(ax) > 1)
         self.batch = tuple(ax for ax in live if ax in ("pod", "data"))
         self.model = "model" if "model" in live else None
@@ -128,6 +194,14 @@ class Plan:
         if self.vocab_parallel:
             n = P.padded_vocab(cfg.vocab_size) // mesh.axis_size(self.model)
             self.vocab0 = mesh.axis_index(self.model) * n
+
+    def for_caches(self, cache_specs) -> "Plan":
+        """This plan with the caches' specs (``launch.sharding.
+        cache_shardings``): the serving layout's, for one batch and cache
+        length."""
+        plan = copy.copy(self)
+        plan.cache_specs = cache_specs
+        return plan
 
     # ------------------------------ parameters -------------------------------
 
@@ -225,3 +299,124 @@ class Plan:
         """The head's input: every model rank's logit columns read it, so
         its gradient is their sum."""
         return self.tp.enter(h) if self.vocab_parallel else h
+
+    # -------------------------------- serving ---------------------------------
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of a global batch: its block over the batch axes
+        where the batch divides them, every row where it does not
+        (``launch.sharding.batch_partition``)."""
+        from repro_torch.launch.sharding import _degree_and_index
+
+        deg, idx = _degree_and_index(self.mesh, self.batch)
+        if deg == 1 or x.shape[0] % deg:
+            return x
+        n = x.shape[0] // deg
+        return x[idx * n:(idx + 1) * n]
+
+    def serve_layout(self, i: int, s_max: int) -> dict:
+        """How block ``i`` serves with caches of ``s_max`` slots (the module
+        doc): ``layout``'s keys and ``cache`` ("heads", "seq" or "whole"),
+        ``q_heads``, ``cache_heads`` and ``slots`` (global ranges, hi
+        excluded) and ``gather_heads``. Refuses what the serving steps do
+        not run."""
+        if self.cache_specs is None:
+            raise ValueError("the serving layout needs the caches' specs (Plan(cache_specs=))")
+        cfg, mesh = self.cfg, self.mesh
+        kind = cfg.pattern_layers[i]
+        lay = self.layout(self.specs["layers"][i])
+        cspec = self.cache_specs["layers"][i]["k"]
+        n_model = mesh.axis_size(self.model) if self.model else 1
+        m = mesh.axis_index(self.model) if self.model else 0
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        group = h // hkv
+        cache = ("heads" if self._model_cut(cspec, 2) else
+                 "seq" if self._model_cut(cspec, 1) else "whole")
+        if cache == "seq" and kind == "local_attn" and cfg.window:
+            raise NotImplementedError(f"{cfg.name}: a ring cache (local attention) cut over "
+                                      "the sequence is not served sharded")
+        cache_heads, slots = (0, hkv), (0, s_max)
+        if cache == "heads":
+            cache_heads = (m * hkv // n_model, (m + 1) * hkv // n_model)
+        elif cache == "seq":
+            n = s_max // n_model
+            slots = (m * n, (m + 1) * n)
+        if lay["attn_tp"]:
+            hq = h // n_model
+            q_heads = (m * hq, (m + 1) * hq)
+            if cache == "heads" and q_heads != (cache_heads[0] * group, cache_heads[1] * group):
+                raise NotImplementedError("the query heads' block and the cache's kv heads "
+                                          "are cut apart over 'model'")
+        elif cache == "heads":
+            q_heads = (cache_heads[0] * group, cache_heads[1] * group)
+        else:
+            q_heads = (0, h)
+        n_q = q_heads[1] - q_heads[0]
+        whole_groups = n_q % group == 0 and q_heads[0] % group == 0
+        in_one_group = group % n_q == 0 and q_heads[0] // group == (q_heads[1] - 1) // group
+        if not (whole_groups or in_one_group):
+            raise NotImplementedError(f"{n_q} query heads a rank from head {q_heads[0]} do not "
+                                      f"map onto whole groups of {group}")
+        return dict(lay, cache=cache, q_heads=q_heads, cache_heads=cache_heads, slots=slots,
+                    gather_heads=not lay["attn_tp"] and q_heads != (0, h))
+
+    def serve_block(self, i: int, p: dict, s_max: int):
+        """Block ``i``'s weights as the serving rank uses them (FSDP
+        gathered; q, k and v cut to the heads of its ``Serve``) and its
+        ``Hooks`` (TP, EP and the ``Serve``)."""
+        cfg, mesh = self.cfg, self.mesh
+        lay = self.serve_layout(i, s_max)
+        specs = self.specs["layers"][i]
+        p = self.gather(p, specs)
+        mix, d = dict(p["mix"]), cfg.d_head
+        (q0, q1), (c0, c1) = lay["q_heads"], lay["cache_heads"]
+        if not lay["attn_tp"]:
+            mix["q"] = {"w": mix["q"]["w"][:, q0 * d:q1 * d]}
+        for name in ("k", "v"):
+            w = mix[name]["w"]
+            if self._model_cut(specs["mix"][name]["w"], 1):
+                if lay["kv"] == "local" and lay["cache"] == "heads":
+                    continue  # the rank's block is its cache's kv heads
+                w = C.gather_blocks(w, self.model, 1, mesh)
+            mix[name] = {"w": w[:, c0 * d:c1 * d]}
+        ep = None
+        if lay["ep"] == "model":
+            n = cfg.moe.n_experts // mesh.axis_size(self.model)
+            ep = EP(mesh, self.tp, mesh.axis_index(self.model) * n, n, (), 1)
+        serve = Serve(mesh, self.model, lay["cache"], lay["q_heads"], lay["cache_heads"],
+                      lay["slots"], lay["gather_heads"])
+        return dict(p, mix=mix), Hooks(attn=self.tp if lay["attn_tp"] else None,
+                                       ffn=self.tp if lay["ffn_tp"] else None, ep=ep, serve=serve)
+
+    def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The rank's logit columns gathered over "model" into the whole
+        (padded) vocabulary, in rank order."""
+        if not self.vocab_parallel:
+            return logits
+        return C.gather_blocks(logits, self.model, logits.ndim - 1, self.mesh)
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy token (int32, the last dim dropped) of the rank's
+        logit columns: its own argmax over its columns below
+        ``vocab_size``, then a (max, global index) merge over "model" in
+        rank order (one gather of two f64 a row, no gather of the
+        vocabulary). A later rank wins only with a larger value, or a NaN
+        over a number: ``torch.argmax`` over the whole row."""
+        if not self.vocab_parallel:
+            return torch.argmax(logits[..., :self.cfg.vocab_size], -1).to(torch.int32)
+        valid = max(0, min(logits.shape[-1], self.cfg.vocab_size - self.vocab0))
+        if valid:
+            x = logits[..., :valid]
+            idx = torch.argmax(x, -1, keepdim=True)
+            val = torch.gather(x, -1, idx)
+        else:
+            idx = torch.zeros(logits.shape[:-1] + (1,), dtype=torch.int64, device=logits.device)
+            val = torch.full(idx.shape, float("-inf"), device=logits.device)
+        pair = torch.cat([val.to(torch.float64), (idx + self.vocab0).to(torch.float64)], -1)
+        rows = C.gather_rows(pair, self.model, self.mesh)
+        best = rows[0]
+        for row in rows[1:]:
+            v, b = row[..., 0], best[..., 0]
+            take = (v > b) | (torch.isnan(v) & ~torch.isnan(b))
+            best = torch.where(take[..., None], row, best)
+        return best[..., 1].to(torch.int32)

@@ -14,8 +14,18 @@ meter). On the meta device, with nothing allocated, the dry run's
     (``collective_recv_bytes``' measure), exactly.
 
 ``--all --mesh single`` runs on the CPU without allocating (a dispatch
-mode refuses any tensor off the meta device past a few elements), and
+mode refuses any tensor off the meta device past a few elements), every
+prefill and decode cell ``ok`` or ``refused`` with ``Plan``'s reason, and
 deepseek-7b train_4k reports its per-rank bytes on (2, 2) and (16, 16).
+
+The serving cells are held to the one sharded serving spawn of
+``tests/torch_serving_cases.py`` (shared with
+``tests/test_torch_sharded_serving.py``): for each case the modelled
+bytes of a rank (``serve_rank_bytes``: parameter blocks, cache blocks,
+the prefill's gathered logits) equal the allocated blocks, and the
+modelled collectives of the prefill and of one decode step, greedy and
+not (``serve_collectives``), equal the noted traffic by kind and axis and the
+c10d all-gathers' bytes, exactly.
 """
 
 import collections
@@ -36,6 +46,7 @@ from repro_torch.launch.mesh import abstract_mesh
 from repro_torch.models.model import init_params, param_axes
 
 import torch_mesh_workers as W
+import torch_serving_cases as SC
 
 CASES = {"deepseek": ("deepseek-7b", "DEFAULT_RULES", True),
          "granite": ("granite-moe-1b-a400m", "SMALL_MODEL_RULES", False)}
@@ -128,8 +139,17 @@ def test_all_cells_on_the_production_mesh_allocate_nothing(tmp_path, capsys):
     ok = {r["arch"] for r in recs if r["status"] == "ok"}
     assert ok == {"olmo-1b", "internlm2-1.8b", "deepseek-7b", "granite-moe-1b-a400m",
                   "dbrx-132b"}
-    assert all(r["status"] == "waits" for r in recs if r["mode"] != "train"
-               and r["status"] != "skipped")
+    serving = [r for r in recs if r["mode"] != "train" and r["status"] != "skipped"]
+    assert all(r["status"] in ("ok", "refused") for r in recs if r["status"] != "skipped")
+    assert {r["arch"] for r in serving if r["status"] == "ok"} == ok
+    for r in serving:
+        if r["status"] == "refused":
+            assert r["reason"].startswith("the sharded step runs self-attention blocks")
+    cells = {(r["arch"], r["shape"]): r for r in serving}
+    for arch in ("deepseek-7b", "internlm2-1.8b", "dbrx-132b"):
+        assert cells[(arch, "decode_32k")]["status"] == "ok"
+        assert cells[(arch, "decode_32k")]["fits_80gb_card_per_rank"]
+    assert '"waits"' not in text and "[waits]" not in text
 
 
 @pytest.mark.parametrize("mesh_name", ["2x2", "single"])
@@ -144,3 +164,48 @@ def test_deepseek_train_4k_per_rank_bytes(tmp_path, mesh_name):
     assert b["params"] * ranks > 2 * 6.9e9
     assert rec["collectives"]["total_bytes"] > 0
     assert (tmp_path / f"deepseek-7b__train_4k__{mesh_name}.json").exists()
+
+
+@pytest.fixture(scope="module")
+def serving_ranks(request, tmp_path_factory):
+    return SC.serving_ranks(request, tmp_path_factory)
+
+
+def _by_kind_axis(records) -> collections.Counter:
+    out = collections.Counter()
+    for key, b in records.items():
+        out[key[:2]] += b
+    return out
+
+
+@pytest.mark.parametrize("name", SC.CASES)
+def test_serving_cells_equal_the_metered_run(serving_ranks, name):
+    case = SC.case(name)
+    cfg = W.serving_cfg(case)
+    mesh = abstract_mesh((2, 2), ("data", "model"))
+    meta = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+    specs = SH.param_shardings(param_axes(cfg), mesh, getattr(SH, case["rules"]), meta)
+    batch, prompt = case["prompts"].shape
+    want = dryrun.serve_rank_bytes(cfg, mesh, specs, "prefill", batch, prompt,
+                                   s_max=case["s_max"])
+    for mode, greedy in (("prefill", False), ("decode", False), ("decode", True)):
+        model = dryrun.serve_collectives(cfg, mesh, specs, mode, batch,
+                                         prompt if mode == "prefill" else case["s_max"],
+                                         greedy=greedy, s_max=case["s_max"])
+        if greedy:
+            mode = "greedy"
+        for r in serving_ranks:
+            res = r[name]
+            noted = collections.Counter()
+            for kind, ax, b in res[f"{mode}_traffic"]:
+                noted[(kind, ax)] += b
+            assert noted == _by_kind_axis(model), mode
+            gathered = sum(out - inb for op, inb, out in res[f"{mode}_c10d"]
+                           if op.startswith("allgather") or op == "_allgather_base_")
+            assert gathered == sum(model.values()), mode
+            assert all(op.startswith("allgather") or op == "_allgather_base_"
+                       for op, _, _ in res[f"{mode}_c10d"])
+    for r in serving_ranks:
+        for k in ("params", "caches", "logits"):
+            assert r[name]["block_bytes"][k] == want[k], k
+    assert want["need"] > want["params"] + want["caches"] + want["logits"]

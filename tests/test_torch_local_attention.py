@@ -118,12 +118,12 @@ def test_decode_writes_the_ring_slot_and_refuses_past_a_full_cache():
                                     8, pcfg, window=16)
 
 
-def _fill_at_slot_pos(cache, k, v):
+def _fill_at_slot_pos(cache, k, v, slot0=0):
     """A planted fault: the ring filled at slot pos instead of pos % s_max,
     as a cache without the ring would be -- a long prompt keeps its FIRST
     s_max positions, each at slot p, and loses the most recent ones."""
     s_max = cache["k"].shape[1]
-    return REAL_FILL(cache, k[:, :s_max], v[:, :s_max])
+    return REAL_FILL(cache, k[:, :s_max], v[:, :s_max], slot0)
 
 
 REAL_FILL = A.fill_kv_cache

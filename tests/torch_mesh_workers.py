@@ -474,3 +474,206 @@ def _sharded_train(rank, mesh, case: dict):
             if guard:
                 out["guard"] = {"skipped": int(gstate.skipped), "filled": int(gstate.filled)}
     return out
+
+
+# ------------------------------- sharded serving --------------------------------
+
+
+def serving_cfg(case: dict):
+    """The case's tiny config at f32 on the non-kernel route, with its
+    ``n_kv_heads`` where the case sets one."""
+    import dataclasses
+
+    cfg = sharded_cfg(case["arch"], "float32", False)
+    return dataclasses.replace(cfg, **case.get("cfg", {}))
+
+
+def _bits_of(t):
+    t = t.detach().contiguous()
+    return t.view(torch.int16 if t.element_size() == 2 else
+                  torch.int64 if t.element_size() == 8 else torch.int32) \
+        if t.is_floating_point() else t
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits_of(a), _bits_of(b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _clone(tree):
+    from repro_torch.launch.sharding import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def serving_cases(rank, mesh, cases: dict, extra: dict) -> dict:
+    """Every serving case in turn on one process group (``sharded_serve``),
+    then ``extra``'s checks: the greedy merge on planted rows
+    (``greedy_planted``) and ``launch.train.build(mesh=)`` (``build_step``)."""
+    out = {name: sharded_serve(rank, mesh, case) for name, case in cases.items()}
+    out["greedy_planted"] = greedy_planted(mesh, extra["greedy"])
+    out["build_step"] = build_step(mesh, extra["build"])
+    return out
+
+
+def sharded_serve(rank, mesh, case: dict) -> dict:
+    """``_sharded_serve`` with the attention's operand rounding off and,
+    with ``case["fault"]``, rank 1's split-KV merge 2^-10 too large (a
+    merge that desynced on one rank: unlike a nudged all-reduce, which
+    scales every residual term of the rank alike and which the norms then
+    cancel, it moves the attention's share of the stream alone)."""
+    from repro_torch.models import attention
+
+    saved, merge = attention.bf16_round, attention.merge_decode_partials
+    exact_f32_attention()
+    if case.get("fault") and rank == 1:
+        attention.merge_decode_partials = lambda parts: merge(parts) * (1 + 2**-10)
+    try:
+        return _sharded_serve(mesh, case)
+    finally:
+        attention.bf16_round, attention.merge_decode_partials = saved, merge
+
+
+def _sharded_serve(mesh, case: dict) -> dict:
+    """``case``'s sharded prefill and teacher-forced decode steps, run
+    ``case["runs"]`` times from the same start: each run's prefill logits
+    (the rank's rows), its caches gathered whole, and per step the logits
+    and the greedy token of a retried step; the first step retried bitwise
+    (logits and caches); the replicated outputs' bits over the axes that
+    hold them alike; with ``case["meter"]`` the first run's traffic notes
+    and c10d ops of the prefill and of the first decode step, and the
+    bytes of the rank's blocks."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.model import param_axes
+    from repro_torch.reduce import inspect
+
+    cfg = serving_cfg(case)
+    rules = getattr(SH, case["rules"])
+    whole = params_from_jax(case["params"], cfg)
+    specs = SH.param_shardings(param_axes(cfg), mesh, rules, whole)
+    params = SH.shard_tree(whole, specs, mesh)
+    prefill_step = make_prefill_step(cfg, case["s_max"], mesh=mesh, param_shardings=specs)
+    decode_logits = make_decode_step(cfg, greedy=False, mesh=mesh, param_shardings=specs)
+    decode_greedy = make_decode_step(cfg, greedy=True, mesh=mesh, param_shardings=specs)
+    prompts = torch.from_numpy(case["prompts"])
+    out = {"runs": []}
+
+    def metered(name, fn):
+        res = {}
+        with C.traffic() as notes:
+            eqns = inspect.collective_eqns(lambda: res.setdefault("r", fn()))
+        out[f"{name}_traffic"] = list(notes)
+        out[f"{name}_c10d"] = [(n, a, b) for n, a, b in eqns]
+        return res["r"]
+
+    for run in range(case.get("runs", 2)):
+        meter = case.get("meter") and run == 0
+        go = lambda: prefill_step(params, prompts)  # noqa: E731
+        logits, caches = metered("prefill", go) if meter else go()
+        cspecs = SH.cache_shardings(caches, cfg, mesh)
+        if meter:
+            out["block_bytes"] = {
+                "params": sum(p.numel() * p.element_size() for p in R.tree_leaves(params)),
+                "caches": sum(t.numel() * t.element_size() for t in R.tree_leaves(caches)),
+                "logits": logits.untyped_storage().nbytes()}
+        res = {"prefill": logits.clone(),
+               "caches": [SH.gather_whole(t, s, mesh).clone() for t, s in
+                          zip(R.tree_leaves(caches), SH.tree_leaves(_global_cache_specs(
+                              cfg, mesh, prompts.shape[0], case["s_max"])))],
+               "steps": []}
+        agree = bool(C.replica_bits_agree(logits, ("model",), mesh))
+        pos = prompts.shape[1]
+        for i, tok in enumerate(case["decode"]):
+            tok = torch.from_numpy(tok)
+            if i == 0:
+                before = _clone(caches)
+                go = lambda: decode_logits(params, caches, tok, pos)  # noqa: E731
+                lg, caches = metered("decode", go) if meter else go()
+                after = _clone(caches)
+                lg2, caches = decode_logits(params, caches, tok, pos)
+                res["retry_bitwise"] = _same_bits(lg, lg2) and _same_bits(after, _clone(caches))
+                res["retry_wrote"] = not _same_bits(before, after)
+            else:
+                lg, caches = decode_logits(params, caches, tok, pos)
+            go = lambda: decode_greedy(params, caches, tok, pos)  # noqa: E731
+            nxt, caches = metered("greedy", go) if meter and i == 0 else go()
+            agree &= bool(C.replica_bits_agree(lg, ("model",), mesh))
+            agree &= bool(C.replica_bits_agree(nxt, ("model",), mesh))
+            res["steps"].append({"logits": lg.clone(), "token": nxt.clone()})
+            pos += 1
+        for t, s in zip(R.tree_leaves(caches), SH.tree_leaves(cspecs)):
+            held = tuple(ax for ax in mesh.axis_names if ax not in SH.spec_axes(s))
+            if held:
+                agree &= bool(C.replica_bits_agree(t, held, mesh))
+        res["replicas_agree"] = agree
+        out["runs"].append(res)
+    return out
+
+
+def _global_cache_specs(cfg, mesh, batch, s_max):
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import make_caches
+
+    return SH.cache_shardings(make_caches(cfg, batch, s_max, torch.device("meta")), cfg, mesh)
+
+
+def greedy_planted(mesh, case: dict) -> dict:
+    """``Plan.greedy`` on planted rows of the whole (padded) vocabulary:
+    each rank takes its columns; the merged token against ``torch.argmax``
+    over each row's ``vocab_size`` columns."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import _serving
+    from repro_torch.models.model import param_axes
+
+    from repro_torch.models.model import init_params
+
+    cfg = serving_cfg(case)
+    meta = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+    specs = SH.param_shardings(param_axes(cfg), mesh, SH.TP_ONLY_RULES, meta)
+    plan, _ = _serving(cfg, mesh, specs)(1, 8)
+    rows = torch.from_numpy(case["rows"])  # (R, 1, padded vocab)
+    n = rows.shape[-1] // mesh.axis_size("model")
+    mine = rows[..., plan.vocab0:plan.vocab0 + n]
+    return {"merged": plan.greedy(mine), "argmax": torch.argmax(rows[..., :cfg.vocab_size],
+                                                                -1).to(torch.int32)}
+
+
+def build_step(mesh, case: dict) -> dict:
+    """``launch.train.build(mesh=, param_shardings=)`` against
+    ``make_train_step(mesh=)``: one step each from the same blocks and
+    batch, the losses' bits and the blocks after."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.model import param_axes
+
+    exact_f32_attention()
+    cfg = sharded_cfg(case["arch"], "float32", False)
+    tcfg = TrainConfig()
+    whole = params_from_jax(case["params"], cfg)
+    specs = SH.param_shardings(param_axes(cfg), mesh, SH.DEFAULT_RULES, whole)
+    batch = {"tokens": torch.from_numpy(case["tokens"])}
+    out = {}
+    for name in ("build", "direct"):
+        params = SH.shard_tree(whole, specs, mesh)
+        if name == "build":
+            params, opt, step = train_cli.build(cfg, tcfg, "cpu", params=params, mesh=mesh,
+                                                param_shardings=specs)
+        else:
+            for p in R.tree_leaves(params):
+                p.requires_grad_(True)
+            opt = optim.init_state(params)
+            step = make_train_step(cfg, tcfg, mesh=mesh, param_shardings=specs)
+        params, opt, m = step(params, opt, batch)
+        out[name] = {"loss": m["loss"].detach().clone(),
+                     "params": [p.detach().clone() for p in R.tree_leaves(params)]}
+    return out
