@@ -123,7 +123,7 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             card, one-ulp faults planted on rank 1 caught by
             ``replica_bits_agree``, ``census_agreement`` and the checker;
             then ``launch.train --arch olmo-1b --guard --mesh --chaos-host
-            1`` at full width cut to 4 layers on two gloo ranks sharing
+            1`` at full width cut to 2 layers on two gloo ranks sharing
             the first card (batch 2 + 2 x 512; rank 1 poisoned on step 2,
             skipped on both ranks with the parameters bitwise, a rollback
             at the same step on both, every step's metrics printed bitwise
@@ -134,16 +134,22 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             seconds and bytes with the transport and peak memory a rank;
             then tiny olmo-1b at world 2 on the card against CPU ranks;
   sharded   the sharded step (``run_sharded_phase``): four gloo ranks
-            sharing the first card on a (data 2, model 2) mesh train
-            deepseek-7b at full width (FSDP + TP + vocab TP, cut to the
-            deepest depth the sharded fit check takes) and
-            granite-moe-1b-a400m at 12 of 24 layers (FSDP + vocab TP +
-            EP), two steps each at a learning rate past warmup: both steps' loss,
+            sharing the first card, in one spawn, train at full width on a
+            (data 2, model 2) mesh deepseek-7b at 3 layers (FSDP + TP +
+            vocab TP), granite-moe-1b-a400m at 6 of 24 layers (FSDP +
+            vocab TP + EP), minicpm3-4b at 2 (MLA's TP) and
+            llama-3.2-vision-11b at 5 (cross-attention's TP, its gates
+            open), and on (data 1, model 4) recurrentgemma-9b at 3 (the
+            RG-LRU's channels, local attention's one kv head gathered),
+            two steps each at a learning rate past warmup: both steps' loss,
             grad norm and clip against the single-rank step's, step 1's
-            update of layer 0's leaves against the single rank's,
-            replicated leaves bitwise equal across ranks, each rank's collective
-            bytes equal to the dry run's model, its launches to the launch
-            model; K7's partial variant against its plain version; the dry
+            update of the probed leaves (layer 0's, the first rec and
+            xattn block's) against the single rank's, replicated leaves
+            bitwise equal across ranks, each rank's collective bytes equal
+            to the dry run's model, its launches to the launch model; for
+            the three new mixers step 1's gradient of the probed leaves,
+            and a planted fault in each mixer's TP that must read 10 x its
+            limit; K7's partial variant against its plain version; the dry
             run of deepseek-7b train_4k on (2, 2) and (16, 16) (a model
             figure: the step's peak, the reserve and the checkpointed
             block inputs a rank);
@@ -4244,12 +4250,13 @@ def check_audio_shapes(results: dict) -> None:
 
 # The data-mesh phase's training run: olmo-1b at full width cut to
 # MESH_LAYERS of its 16 layers (the whole script's time: at full depth the
-# run's 4.7 GB a step through gloo took ~150 s), two ranks sharing the card
+# run's 4.7 GB a step through gloo took ~150 s; 4 layers until the sharded
+# phase took the MLA, RG-LRU and cross-attention archs), two ranks sharing the card
 # (gloo), the global batch 4 x 512 split 2 + 2,
 # rank 1's gradients poisoned with NaN on step 2 and --max-bad-steps 1, so
 # step 2 is skipped on both ranks and rolls back to the step-0 anchor; then
 # steps 1-2 again, clean (the drill fires once). Four step calls a rank.
-MESH_WORLD, MESH_STEPS, MESH_NAN_STEPS, MESH_HOST, MESH_LAYERS = 2, 2, (2,), 1, 4
+MESH_WORLD, MESH_STEPS, MESH_NAN_STEPS, MESH_HOST, MESH_LAYERS = 2, 2, (2,), 1, 2
 # Its step-1 loss, grad norm and clip against the single-rank guarded step's
 # on the same global batch at the same depth (``guarded_step1``). The loss is
 # the mean over the rows each rank took, combined, and reads bitwise equal
@@ -4263,8 +4270,9 @@ MESH_WORLD, MESH_STEPS, MESH_NAN_STEPS, MESH_HOST, MESH_LAYERS = 2, 2, (2,), 1, 
 # and the probe reads that leaf's norm 3.9% under the f32 reference's on
 # one rank and 2.1% under on the mesh (every other leaf within 2.1e-4), so
 # the global norm and the clip read 2.5e-3 apart at full depth, and 4.6e-3
-# at MESH_LAYERS (the embedding's share of the norm is larger there). The
-# limit is twice that reading; a combine that drops a rank's gradients or skips the
+# at 4 layers (the embedding's share of the norm is larger there; at 2 it
+# is larger again, read in PERF.md section 6). The limit is twice the
+# 4-layer reading; a combine that drops a rank's gradients or skips the
 # division moves them by a factor, and one that differs between ranks
 # fails the bitwise agreement of every step's metrics.
 MESH_LOSS_TOL, MESH_GRAD_REL = 1e-3, 1e-2
@@ -4756,10 +4764,25 @@ def run_data_mesh_phase() -> dict:
 
 SHARDED_SHAPE, SHARDED_AXES = (2, 2), ("data", "model")
 SHARDED_WORLD, SHARDED_STEPS, SHARDED_SEED = 4, 2, 0
-# granite-moe-1b-a400m's depth in the sharded training run, cut from 24:
-# the sharded serving phase after it serves at full depth inside the
-# script's time limit (PERF.md section 4).
-SHARDED_GRANITE_LAYERS = 12
+# granite-moe-1b-a400m's depth in the sharded training run, cut from 24 (12
+# until the MLA, RG-LRU and cross-attention archs joined the phase: the
+# script's time limit, PERF.md section 4).
+SHARDED_GRANITE_LAYERS = 6
+# deepseek-7b's: the deepest cut the sharded fit check accepts (5 layers),
+# capped at 3 for the script's time limit.
+SHARDED_DEEPSEEK_LAYERS = 3
+# The MLA, RG-LRU and cross-attention archs at full width under
+# DEFAULT_RULES, each at the least depth that holds every block kind of
+# its pattern, on the mesh whose four ranks the fit check lets share one
+# card: minicpm3-4b (MLA) at 2 layers and llama-3.2-vision-11b (four attn,
+# one xattn) at 5 on (data 2, model 2); recurrentgemma-9b (rec, rec,
+# local_attn) at 3 on (data 1, model 4). On (2, 2) its 256 000-row
+# embedding and head, cut in two, hold 16.8 GB a rank in parameters,
+# moments, accumulators and gradients alone, and the fit check refuses four
+# such ranks on one card at any depth (99.5 GB with the reserve at 3
+# layers); over 4 model ranks they hold half that (79.1 GB in all).
+SHARDED_MIXERS = {MINICPM: (2, (2, 2)), VISION: (5, (2, 2)), RG: (3, (1, 4))}
+SHARDED_ARCHS = ("deepseek-7b", GRANITE) + tuple(SHARDED_MIXERS)
 # The learning rate is past warmup from step 1 (3e-4), so that step 1's
 # AdamW update moves the bf16 weights by whole ulps and step 2 sees it (at
 # the default warmup's 3e-6 most bf16 weights would not move at all).
@@ -4772,21 +4795,40 @@ SHARDED_WARMUP = 1
 # 1.48e-4 and 2.2e-3 in the grad norm (PERF.md section 6). Limits: loss
 # 1e-3 relative; the grad norm and clip, sums of bf16 gradients, 5e-3.
 SHARDED_LOSS_REL, SHARDED_GRAD_REL = 1e-3, 5e-3
-# Step 1's update (after - before, f32) of every leaf of layer 0 of at most
-# 2^25 elements (attention, norms, router, experts), the ranks' blocks
-# against the same blocks of the single-rank update: ||sharded - single|| /
-# ||single|| a leaf. A step-1 AdamW update is lr x the gradient's sign an
-# element, so bf16 gradients that round apart flip the sign of those near
-# 0; on the CPU (tests/test_torch_sharded_step.py, tiny internlm2-1.8b at
-# bf16) that read 0.146, where a half batch of other rows reads 1.2-1.3
-# and a flipped update 2. A leaf the single rank left alone must stay so.
+# Step 1's update (after - before, f32) of every probed leaf of at most
+# 2^25 elements (layer 0's: attention, norms, router, experts; and the
+# first rec and xattn block's), the ranks' blocks against the same blocks
+# of the single-rank update: ||sharded - single|| / ||single|| a leaf. A
+# step-1 AdamW update is lr x the gradient's sign an element, so bf16
+# gradients that round apart flip the sign of those near 0; on the CPU
+# (tests/test_torch_sharded_step.py, tiny internlm2-1.8b at bf16) that read
+# 0.146, where a half batch of other rows reads 1.2-1.3 and a flipped update
+# 2. A leaf the single rank left alone must stay so.
 SHARDED_UPDATE_REL, SHARDED_PROBE_MAX = 0.5, 1 << 25
+# Step 1's gradient of the same probed leaves, read from AdamW's first
+# moment over the step's clip coefficient (after step 1, m = (1 - b1) clip
+# g), each rank's block against the same block of the single rank's:
+# ||sharded - single|| / ||single|| a leaf and a rank. The two sum bf16
+# partial products in other orders; predicted near 1e-2, limit 0.05. Held
+# for the MLA, RG-LRU and cross-attention archs, whose planted faults it
+# reads: global rank 1's f of the mixer's input (MLA: its two latents and
+# its RoPE key) summed twice in the backward, which doubles the gradient of
+# the whole leaves before it on that rank (the block's norm; MLA's q_down,
+# kv_down and latent norms): a gap near 1, which must read at least
+# SHARDED_FAULT_X times the limit.
+SHARDED_LEAF_GRAD_REL, SHARDED_FAULT_X = 0.05, 10
 # Granite's drop fractions: the ranks of a data group route alike (bitwise:
 # the same rows, the same router); against the single-rank step's routing
 # of the same rows a pair may flip where two experts' probabilities sit a
 # bf16 rounding apart: 0.01 of the pairs a layer.
 SHARDED_DROP_TOL = 0.01
-SHARDED_RULES = {"deepseek-7b": "DEFAULT_RULES", GRANITE: "SMALL_MODEL_RULES"}
+SHARDED_RULES = {"deepseek-7b": "DEFAULT_RULES", GRANITE: "SMALL_MODEL_RULES",
+                 MINICPM: "DEFAULT_RULES", VISION: "DEFAULT_RULES", RG: "DEFAULT_RULES"}
+# The mixer each new arch's planted fault goes into, and the function that
+# takes its ``tp``.
+MIXER_FAULTS = {MINICPM: ("repro_torch.models.mla", "mla_train"),
+                RG: ("repro_torch.models.rglru", "rglru_train"),
+                VISION: ("repro_torch.models.attention", "cross_attention_apply")}
 
 
 def sharded_specs(cfg, rules: str, mesh):
@@ -4801,10 +4843,11 @@ def sharded_specs(cfg, rules: str, mesh):
     return SH.param_shardings(param_axes(cfg), mesh, getattr(SH, rules), meta)
 
 
-def sharded_cut_depth(arch: str) -> int:
-    """The deepest cut of ``arch`` that the sharded fit check accepts for
-    ``SHARDED_WORLD`` ranks on the card, and the single-rank check for the
-    reference step (``launch.train.check_fits_card``; raises on neither)."""
+def sharded_fits(arch: str, layers: int, shape=SHARDED_SHAPE) -> bool:
+    """Whether ``arch`` cut to ``layers`` passes the sharded fit check for
+    ``SHARDED_WORLD`` ranks of a ``shape`` mesh on the card, and the
+    single-rank check for the reference step (``launch.train.
+    check_fits_card``)."""
     import dataclasses
 
     import torch
@@ -4813,20 +4856,26 @@ def sharded_cut_depth(arch: str) -> int:
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import abstract_mesh
 
-    full = get_arch(arch)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
     dev = torch.device("cuda", 0)
-    for layers in range(full.n_layers, 0, -1):
-        cfg = dataclasses.replace(full, n_layers=layers)
-        mesh = abstract_mesh(SHARDED_SHAPE, SHARDED_AXES)
-        try:
-            train_cli.check_fits_card(cfg, TrainConfig(), dev, ranks_on_card=SHARDED_WORLD,
-                                      world=SHARDED_WORLD,
-                                      shard=(mesh, sharded_specs(cfg, SHARDED_RULES[arch],
-                                                                 mesh)))
-            train_cli.check_fits_card(cfg, TrainConfig(), dev)
-        except ValueError:
-            continue
-        return layers
+    mesh = abstract_mesh(shape, SHARDED_AXES)
+    try:
+        train_cli.check_fits_card(cfg, TrainConfig(), dev, ranks_on_card=SHARDED_WORLD,
+                                  world=SHARDED_WORLD,
+                                  shard=(mesh, sharded_specs(cfg, SHARDED_RULES[arch], mesh)))
+        train_cli.check_fits_card(cfg, TrainConfig(), dev)
+    except ValueError:
+        return False
+    return True
+
+
+def sharded_cut_depth(arch: str) -> int:
+    """The deepest cut of ``arch`` that ``sharded_fits``."""
+    from repro_torch.configs import get_arch
+
+    for layers in range(get_arch(arch).n_layers, 0, -1):
+        if sharded_fits(arch, layers):
+            return layers
     raise SmokeFailure(f"{arch}: no depth fits the card sharded over {SHARDED_WORLD} ranks")
 
 
@@ -4845,22 +4894,124 @@ def sharded_launches_per_step(cfg) -> dict:
 
 
 def _sharded_batches(cfg, device) -> list:
+    """The phase's global batches: tokens, and a cross-attention arch's
+    context (``frontends.synth_image_embeds``), from a generator seeded 1."""
     import torch
 
+    from repro_torch.models.frontends import synth_image_embeds
+    from repro_torch.models.model import param_dtype
+
     gen = torch.Generator(device=device).manual_seed(1)
-    return [{"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
-                                     generator=gen, device=device)}
-            for _ in range(SHARDED_STEPS)]
+    out = []
+    for _ in range(SHARDED_STEPS):
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                         generator=gen, device=device)}
+        if cfg.n_img_tokens:
+            batch["image_embeds"] = synth_image_embeds(gen, TRAIN_BATCH, cfg.n_img_tokens,
+                                                       cfg.d_model, param_dtype(cfg), device)
+        out.append(batch)
+    return out
 
 
-def _sharded_rank(rank: int, world: int, kw: dict) -> dict:
-    """One rank of the sharded phase: ``kw["arch"]`` cut to ``kw["layers"]``
-    under its rules on a (2, 2) mesh of ranks sharing the first card (gloo);
-    the weights drawn whole from the phase's seed on the card and cut to
-    the rank's blocks; ``SHARDED_STEPS`` steps of the global batch, step 1
-    under the launch meter, the collective meter (c10d bytes) and the
-    traffic notes; the replicas' bits; the routing's drop fractions."""
+def _sharded_params(cfg, device):
+    """The phase's whole weights: seeded, every cross-attention gate open
+    (``OPEN_GATE``: at its init value 0 the block adds nothing, and its q,
+    k, v and o get no gradient), for the single rank and the ranks alike."""
+    import torch
+
+    from repro_torch.models import init_params
+
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SHARDED_SEED), device)
+    open_gates(params, OPEN_GATE)
+    return params
+
+
+def _probe_leaves(params, cfg) -> list:
+    """Leaf indices (``reduce.tree_leaves`` order) of the leaves of at most
+    ``SHARDED_PROBE_MAX`` elements in layer 0 and in the first rec and the
+    first xattn block."""
+    from repro_torch import reduce as R
+
+    layers = {0} | {cfg.pattern_layers.index(k) for k in ("rec", "xattn")
+                    if k in cfg.pattern_layers}
+    probed = {id(t) for i in layers for t in R.tree_leaves(params["layers"][i])}
+    return [j for j, t in enumerate(R.tree_leaves(params))
+            if id(t) in probed and t.numel() <= SHARDED_PROBE_MAX]
+
+
+def plant_doubled_f(arch: str, rank: int):
+    """On global rank 1, the f (``models.parallel.TP.enter``) of ``arch``'s
+    new mixer sums the gradient twice: its backward runs the all-reduce and
+    returns twice its sum, so every leaf before it that "model" leaves
+    whole gets twice its gradient on that rank. Returns the undo."""
+    import importlib
+
+    import torch
+
+    from repro_torch.core import collectives as C
+
+    class DoubledF(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, axes, mesh):
+            ctx.axes, ctx.mesh = axes, mesh
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return 2 * C.fixed_order_combine(g, ctx.axes, ctx.mesh), None, None
+
+    class Planted:
+        def __init__(self, tp):
+            self.tp = tp
+
+        def enter(self, x):
+            return DoubledF.apply(x, C._block_axes(self.tp.axis), self.tp.mesh)
+
+        def exit(self, y):
+            return self.tp.exit(y)
+
+    path, name = MIXER_FAULTS[arch]
+    module = importlib.import_module(path)
+    real = getattr(module, name)
+
+    def wrong(*args, tp=None, **kwargs):
+        return real(*args, tp=Planted(tp) if tp is not None and rank == 1 else tp, **kwargs)
+
+    setattr(module, name, wrong)
+    return lambda: setattr(module, name, real)
+
+
+def _grad_gaps(opt, clip: float, single: dict, spec_leaves, mesh) -> list:
+    """[leaf, ||mine - single|| / ||single||] of step 1's gradient a probed
+    leaf, from AdamW's first moment over the clip coefficient
+    (``SHARDED_LEAF_GRAD_REL``): the rank's block against the same block of
+    the single rank's."""
+    from repro_torch.launch import sharding as SH
+
+    out = []
+    for j, probe in single.items():
+        mine = opt.m[j].detach().cpu() / clip
+        ref = SH.block_of(probe["grad"], spec_leaves[j], mesh)
+        den = float(ref.square().sum())
+        num = float((mine - ref).square().sum())
+        out.append([j, math.sqrt(num / den) if den > 0 else (0.0 if num == 0 else math.inf)])
+    return out
+
+
+def _sharded_job(rank: int, world: int, job: dict) -> dict:
+    """One arch of the sharded phase on this rank: ``job["arch"]`` cut to
+    ``job["layers"]`` under its rules on a ``job["shape"]`` mesh of ranks
+    sharing the first card (gloo); the weights drawn whole from the
+    phase's seed on the card and cut to the rank's blocks;
+    ``SHARDED_STEPS`` steps of the global batch, step 1 under the launch
+    meter, the collective meter (c10d bytes) and the traffic notes; the
+    replicas' bits; the routing's drop fractions; step 1's update and
+    gradient of the probed leaves against the single rank's (saved by
+    ``_sharded_single`` to ``job["probe"]``). With ``job["fault"]``, step 1
+    again from the same start with ``plant_doubled_f``: its gradient gaps
+    and the replicas' bits."""
     import dataclasses
+    import gc
 
     import torch
 
@@ -4873,75 +5024,121 @@ def _sharded_rank(rank: int, world: int, kw: dict) -> dict:
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.dryrun import summarize
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import init_params
     from repro_torch.reduce import inspect
 
-    R.set_default_backend("cuda_fused")
-    mesh_lib.init_process_group(kw.get("device", "cuda"))
-    try:
-        mesh = mesh_lib.make_mesh(SHARDED_SHAPE, SHARDED_AXES)
-        cfg = dataclasses.replace(get_arch(kw["arch"]), n_layers=kw["layers"])
-        tcfg = TrainConfig(warmup_steps=SHARDED_WARMUP)
-        specs = sharded_specs(cfg, kw["rules"], mesh)
-        dev = mesh.device
-        train_cli.check_fits_card(cfg, tcfg, dev, ranks_on_card=world, world=world,
-                                  shard=(mesh, specs))
-        full = init_params(cfg, torch.Generator(device=dev).manual_seed(SHARDED_SEED), dev)
+    t_job = time.perf_counter()
+    mesh = mesh_lib.make_mesh(job["shape"], SHARDED_AXES)
+    cfg = dataclasses.replace(get_arch(job["arch"]), n_layers=job["layers"])
+    tcfg = TrainConfig(warmup_steps=SHARDED_WARMUP)
+    specs = sharded_specs(cfg, job["rules"], mesh)
+    spec_leaves = SH.tree_leaves(specs)
+    dev = mesh.device
+    data = mesh.size // mesh.axis_size("model")
+    train_cli.check_fits_card(cfg, tcfg, dev, ranks_on_card=world, world=world,
+                              shard=(mesh, specs))
+
+    def start():
+        full = _sharded_params(cfg, dev)
         params = SH.shard_tree(full, specs, mesh)
         del full
         torch.cuda.empty_cache()
         for p in R.tree_leaves(params):
             p.requires_grad_(True)
-        opt = optim.init_state(params)
-        step = make_train_step(cfg, tcfg, mesh=mesh, param_shardings=specs)
-        single_update = torch.load(kw["probe"])  # {leaf index: the single rank's whole update}
-        leaves, spec_leaves = R.tree_leaves(params), SH.tree_leaves(specs)
-        before = {j: leaves[j].detach().to("cpu", copy=True) for j in single_update}
-        metrics, walls, out, update = [], [], {}, []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for i, batch in enumerate(_sharded_batches(cfg, dev)):
-            t0 = time.perf_counter()
-            if i == 0:
-                def metered():
-                    with C.traffic() as notes:
-                        eqns = inspect.collective_eqns(
-                            lambda: out.update(res=step(params, opt, batch)))
-                    out.update(notes=notes, eqns=eqns)
+        return params, optim.init_state(params), make_train_step(cfg, tcfg, mesh=mesh,
+                                                                 param_shardings=specs)
 
-                (_, routes), launches = counted_run(lambda: record_routing(metered))
-            else:
-                out["res"] = step(params, opt, batch)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-            params, opt, m = out.pop("res")
-            metrics.append({k: float(v) for k, v in m.items()})
-            if i == 0:  # the rank's blocks of step 1's update against the single rank's
-                leaves = R.tree_leaves(params)
-                for j, whole in single_update.items():
-                    mine = leaves[j].detach().cpu().float() - before[j].float()
-                    ref = SH.block_of(whole, spec_leaves[j], mesh)
-                    update.append([j, float((mine - ref).square().sum()),
-                                   float(ref.square().sum()), float((mine + ref).square().sum()),
-                                   float(mine.square().sum())])
-                del single_update, before
+    def replicas(params):
         agree = True
-        for p, s in zip(R.tree_leaves(params), SH.tree_leaves(specs)):
+        for p, s in zip(R.tree_leaves(params), spec_leaves):
             whole = tuple(ax for ax in mesh.axis_names if ax not in SH.spec_axes(s))
             if whole:
                 agree &= bool(C.replica_bits_agree(p.detach(), whole, mesh))
-        records = {}
-        for kind, ax, b in out["notes"]:
-            records[(kind, ax, "")] = records.get((kind, ax, ""), 0) + b
-        recv = sum(o - i for op, i, o in out["eqns"] if op.startswith("allgather")
-                   or op == "_allgather_base_")
-        return {"metrics": metrics, "wall_ms": walls, "launches": launches, "update": update,
-                "recv_bytes": recv, "traffic": summarize(records)["by_kind"],
-                "replicas_agree": agree, "drops": drop_fractions(routes[:kw["layers"]]),
-                "transport": mesh.backend, "device": str(dev),
-                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "model_gb": (train_cli.sharded_step_peak_bytes(cfg, tcfg, mesh, specs)
-                             + train_cli.ACTIVATION_RESERVE_BYTES // 2) / 1e9}
+        return agree
+
+    single = torch.load(job["probe"])  # {leaf: the single rank's whole update and gradient}
+    batches = _sharded_batches(cfg, dev)
+    params, opt, step = start()
+    leaves = R.tree_leaves(params)
+    before = {j: leaves[j].detach().to("cpu", copy=True) for j in single}
+    metrics, walls, out, update, grads = [], [], {}, [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        if i == 0:
+            def metered():
+                with C.traffic() as notes:
+                    eqns = inspect.collective_eqns(
+                        lambda: out.update(res=step(params, opt, batch)))
+                out.update(notes=notes, eqns=eqns)
+
+            (_, routes), launches = counted_run(lambda: record_routing(metered))
+        else:
+            out["res"] = step(params, opt, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        params, opt, m = out.pop("res")
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:  # the rank's blocks of step 1's update against the single rank's
+            leaves = R.tree_leaves(params)
+            for j, probe in single.items():
+                mine = leaves[j].detach().cpu().float() - before[j].float()
+                ref = SH.block_of(probe["update"], spec_leaves[j], mesh)
+                update.append([j, float((mine - ref).square().sum()),
+                               float(ref.square().sum()), float((mine + ref).square().sum()),
+                               float(mine.square().sum())])
+            grads = _grad_gaps(opt, metrics[0]["clip"], single, spec_leaves, mesh)
+            del before
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = {"metrics": metrics, "wall_ms": walls, "launches": launches, "update": update,
+           "grad_gaps": grads, "replicas_agree": replicas(params),
+           "drops": drop_fractions(routes[:job["layers"]]), "transport": mesh.backend,
+           "device": str(dev), "peak_gb": peak_gb,
+           "model_gb": (train_cli.sharded_step_peak_bytes(cfg, tcfg, mesh, specs)
+                        + train_cli.ACTIVATION_RESERVE_BYTES // data) / 1e9}
+    records = {}
+    for kind, ax, b in out["notes"]:
+        records[(kind, ax, "")] = records.get((kind, ax, ""), 0) + b
+    res["recv_bytes"] = sum(o - i for op, i, o in out["eqns"] if op.startswith("allgather")
+                            or op == "_allgather_base_")
+    res["traffic"] = summarize(records)["by_kind"]
+    if job["fault"]:
+        del params, opt, step, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        params, opt, step = start()
+        undo = plant_doubled_f(job["arch"], rank)
+        try:
+            params, opt, m = step(params, opt, batches[0])
+        finally:
+            undo()
+        res["fault"] = {"metrics": {k: float(v) for k, v in m.items()},
+                        "grad_gaps": _grad_gaps(opt, float(m["clip"]), single, spec_leaves,
+                                                mesh),
+                        "replicas_agree": replicas(params)}
+    res["seconds"] = time.perf_counter() - t_job
+    return res
+
+
+def _sharded_rank(rank: int, world: int, kw: dict) -> dict:
+    """One rank of the sharded phase: every job of ``kw["jobs"]`` in turn
+    (``_sharded_job``), each freed before the next."""
+    import gc
+
+    import torch
+
+    from repro_torch import reduce as R
+    from repro_torch.launch import mesh as mesh_lib
+
+    R.set_default_backend("cuda_fused")
+    mesh_lib.init_process_group(kw.get("device", "cuda"))
+    try:
+        jobs = []
+        for job in kw["jobs"]:
+            jobs.append(_sharded_job(rank, world, job))
+            gc.collect()
+            torch.cuda.empty_cache()
+        return {"jobs": jobs, "peak_gb": max(j["peak_gb"] for j in jobs)}
     finally:
         mesh_lib.shutdown(barrier=False)
 
@@ -4949,8 +5146,9 @@ def _sharded_rank(rank: int, world: int, kw: dict) -> dict:
 def _sharded_single(arch: str, layers: int, probe_path: str) -> dict:
     """The single-rank steps of the phase's config on the same weights and
     batches: each step's loss, grad norm and clip, step 1's routing, and
-    step 1's update of the probed leaves (``SHARDED_UPDATE_REL``), saved
-    whole at f32 to ``probe_path`` by leaf index for the ranks."""
+    step 1's update and gradient (AdamW's first moment over the clip
+    coefficient) of the probed leaves (``_probe_leaves``), saved whole at
+    f32 to ``probe_path`` by leaf index for the ranks."""
     import dataclasses
 
     import torch
@@ -4959,17 +5157,14 @@ def _sharded_single(arch: str, layers: int, probe_path: str) -> dict:
     from repro_torch import reduce as R
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import init_params
 
     cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
-    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SHARDED_SEED), DEVICE)
+    params = _sharded_params(cfg, DEVICE)
     for p in R.tree_leaves(params):
         p.requires_grad_(True)
     opt = optim.init_state(params)
     step = make_train_step(cfg, TrainConfig(warmup_steps=SHARDED_WARMUP))
-    first = {id(t) for t in R.tree_leaves(params["layers"][0])}
-    probe = [j for j, t in enumerate(R.tree_leaves(params))
-             if id(t) in first and t.numel() <= SHARDED_PROBE_MAX]
+    probe = _probe_leaves(params, cfg)
     before = {j: R.tree_leaves(params)[j].detach().clone() for j in probe}
     out = {"metrics": []}
     torch.cuda.synchronize()
@@ -4987,9 +5182,9 @@ def _sharded_single(arch: str, layers: int, probe_path: str) -> dict:
             out.update(drops=drop_fractions(routes[:layers]),  # the forward's
                        wall_ms=(time.perf_counter() - t0) * 1e3,
                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-            leaves = R.tree_leaves(params)
-            torch.save({j: (leaves[j].detach().float() - before[j].float()).cpu()
-                        for j in probe}, probe_path)
+            leaves, clip = R.tree_leaves(params), float(m["clip"])
+            torch.save({j: {"update": (leaves[j].detach().float() - before[j].float()).cpu(),
+                            "grad": opt.m[j].detach().cpu() / clip} for j in probe}, probe_path)
             del before, routes
     del params, opt, res, m
     torch.cuda.empty_cache()
@@ -5070,122 +5265,175 @@ def sharded_update_gaps(ranks) -> dict:
     return out
 
 
-def run_sharded_phase(results: dict, gen) -> dict:
-    """The sharded step on the card, four gloo ranks sharing the first card
-    on a (data 2, model 2) mesh: (a) deepseek-7b at full width under
-    DEFAULT_RULES (FSDP + TP + vocab TP), cut to the deepest depth the
-    sharded fit check accepts for four ranks and the single-rank check for
-    its reference (``sharded_cut_depth``); (b) granite-moe-1b-a400m at full
-    width and ``SHARDED_GRANITE_LAYERS`` layers under SMALL_MODEL_RULES
-    (FSDP + vocab TP + EP, 16 experts a rank). Each: ``SHARDED_STEPS``
-    steps of 4 x 512 tokens; every step's loss, grad norm and clip against
-    the single-rank step on the same weights and batches, and step 1's
-    update of layer 0's leaves against the single rank's
-    (``SHARDED_UPDATE_REL``); replicated leaves bitwise equal across
-    ranks; the metered c10d bytes and the noted traffic of step 1 equal to the dry
-    run's model (``launch.dryrun.step_collectives``); the launches per
-    rank equal ``sharded_launches_per_step``; the peak beside the fit
-    check's model. Then K7's partial variant against its plain version
-    (``check_cross_entropy_partial``), and (c) the dry run of deepseek-7b
-    train_4k on (2, 2) and on the production (16, 16): a rank's bytes (a
-    model figure). Returns rank 0's launches of (a), its main path."""
+def _check_sharded_arch(arch: str, layers: int, shape, ranks: list, single: dict) -> dict:
+    """The checks of one arch of the sharded phase (``run_sharded_phase``)
+    on its ranks' results against the single rank's; returns the dry run's
+    collectives summary."""
     import dataclasses
-    import tempfile
-
-    import torch
 
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import abstract_mesh
 
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    mesh = abstract_mesh(shape, SHARDED_AXES)
+    specs = sharded_specs(cfg, SHARDED_RULES[arch], mesh)
+    model = dryrun.summarize(dryrun.step_collectives(
+        cfg, TrainConfig(), mesh, specs, (TRAIN_BATCH, TRAIN_SEQ + 1)))
+    want_launches = sharded_launches_per_step(cfg)
+    one = single["metrics"][0]
+    mesh_name = f"(data {shape[0]}, model {shape[1]})"
+    print(f"sharded {arch} at {layers} of {get_arch(arch).n_layers} layers "
+          f"({SHARDED_RULES[arch]}, {mesh_name}, 4 ranks on one card over "
+          f"{ranks[0]['transport']}): single-rank step 1 loss {one['loss']!r}, grad norm "
+          f"{one['grad_norm']!r}, clip {one['clip']!r}, wall {single['wall_ms']:.1f} ms, "
+          f"peak {single['peak_gb']:.2f} GB")
+    for r, res in enumerate(ranks):
+        m = res["metrics"][0]
+        print(f"sharded {arch} rank {r}: step 1 loss {m['loss']!r}, grad norm "
+              f"{m['grad_norm']!r}, clip {m['clip']!r}; step walls "
+              f"{[round(w, 1) for w in res['wall_ms']]} ms; c10d bytes in {res['recv_bytes']} "
+              f"(dry run {model['total_bytes']}), by kind {res['traffic']}; peak "
+              f"{res['peak_gb']:.2f} GB (the fit check's model "
+              f"{res['model_gb']:.2f} GB with the reserve); replicas bitwise "
+              f"{res['replicas_agree']}; launches {res['launches']}; {res['seconds']:.1f} s")
+        check(res["transport"] == "gloo" and res["device"] == "cuda:0",
+              f"sharded {arch}: rank {r} did not share card 0 over gloo")
+        check(res["metrics"] == ranks[0]["metrics"], f"sharded {arch}: the ranks' metrics differ")
+        check(res["replicas_agree"], f"sharded {arch}: replicated leaves differ across ranks")
+        check(res["recv_bytes"] == model["total_bytes"] and res["traffic"] == model["by_kind"],
+              f"sharded {arch}: rank {r}'s collective bytes are off the dry run's")
+        for k, n in want_launches.items():
+            check(res["launches"][k] == n,
+                  f"sharded {arch}: {k}: {res['launches'][k]} launches, expected {n}")
+        check(res["peak_gb"] <= res["model_gb"],
+              f"sharded {arch}: rank {r}'s peak is past the fit check's model")
+        check(all(math.isfinite(v) for mm in res["metrics"] for v in mm.values()),
+              f"sharded {arch}: non-finite metrics")
+    for i, (got, want) in enumerate(zip(ranks[0]["metrics"], single["metrics"]), 1):
+        rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm", "clip")}
+        print(f"sharded {arch} step {i} against the single-rank step: loss {got['loss']!r} vs "
+              f"{want['loss']!r}, rel. {rel['loss']:.3g} (tol {SHARDED_LOSS_REL}); grad norm "
+              f"rel. {rel['grad_norm']:.3g}, clip rel. {rel['clip']:.3g} (tol "
+              f"{SHARDED_GRAD_REL})")
+        check(rel["loss"] <= SHARDED_LOSS_REL, f"sharded {arch}: step-{i} loss off the single rank")
+        check(rel["grad_norm"] <= SHARDED_GRAD_REL and rel["clip"] <= SHARDED_GRAD_REL,
+              f"sharded {arch}: step-{i} grad norm or clip off the single rank")
+    check(len(single["metrics"]) == SHARDED_STEPS == len(ranks[0]["metrics"]),
+          f"sharded {arch}: steps missing")
+    gaps = sharded_update_gaps(ranks)
+    moved = [g for g in gaps.values() if g["moved"]]
+    worst = max(g["gap"] for g in moved)
+    flipped = min(g["flipped"] for g in moved)
+    print(f"sharded {arch} step 1's update of {len(gaps)} probed leaves ({len(moved)} moved) "
+          f"against the single rank's: worst ||sharded - single|| / ||single|| {worst:.4g} (tol "
+          f"{SHARDED_UPDATE_REL}; a flipped update would read {flipped:.4g}); leaves left alone "
+          f"by both: {all(g['moved'] or g['gap'] == 0 for g in gaps.values())}")
+    check(moved and worst <= SHARDED_UPDATE_REL < flipped,
+          f"sharded {arch}: step 1's update off the single rank's")
+    check(all(g["moved"] or g["gap"] == 0 for g in gaps.values()),
+          f"sharded {arch}: a leaf the single rank left alone moved")
+    grad = max(g for res in ranks for _, g in res["grad_gaps"])
+    print(f"sharded {arch} step 1's gradient of the probed leaves against the single rank's: "
+          f"worst ||sharded - single|| / ||single|| a leaf and rank {grad:.4g}"
+          + (f" (tol {SHARDED_LEAF_GRAD_REL})" if arch in SHARDED_MIXERS else ""))
+    out = {"model": model, "grad_gap": grad}
+    if arch in SHARDED_MIXERS:
+        check(grad <= SHARDED_LEAF_GRAD_REL, f"sharded {arch}: step 1's gradient off the single "
+              "rank's")
+        fault = max(g for res in ranks for _, g in res["fault"]["grad_gaps"])
+        agree = [res["fault"]["replicas_agree"] for res in ranks]
+        print(f"sharded {arch} with rank 1's f in its {MIXER_FAULTS[arch][1]} summed twice: "
+              f"worst gradient gap {fault:.4g}, {fault / SHARDED_LEAF_GRAD_REL:.3g} x the limit "
+              f"(at least {SHARDED_FAULT_X} needed); replicas bitwise {agree}")
+        # not a check: step 1's AdamW update is lr x the gradient's sign,
+        # which a doubled gradient keeps, and most bf16 weights do not move
+        # by it, so the replicas may stay equal
+        check(fault >= SHARDED_FAULT_X * SHARDED_LEAF_GRAD_REL,
+              f"sharded {arch}: the planted fault does not read {SHARDED_FAULT_X} x the limit")
+        out["fault_gap"] = fault
+    if get_arch(arch).moe is not None:
+        # ranks (d, 0) and (d, 1) route the same rows; the two data
+        # groups' rows together are the single rank's batch
+        d0, d1 = ranks[0]["drops"], ranks[2]["drops"]
+        check(ranks[1]["drops"] == d0 and ranks[3]["drops"] == d1,
+              f"sharded {arch}: the model ranks of a data group routed differently")
+        merged = [(a + b) / 2 for a, b in zip(d0, d1)]
+        gap = max(abs(a - b) for a, b in zip(merged, single["drops"]))
+        print(f"sharded {arch}: moe_drop_frac over the global batch, mean "
+              f"{sum(merged) / len(merged):.4f} (single rank "
+              f"{sum(single['drops']) / len(single['drops']):.4f}), largest gap a layer "
+              f"{gap:.4g} (tol {SHARDED_DROP_TOL})")
+        check(len(merged) == layers and gap <= SHARDED_DROP_TOL,
+              f"sharded {arch}: drop fractions off the single rank's")
+    return out
+
+
+def run_sharded_phase(results: dict, gen) -> dict:
+    """The sharded step on the card, four gloo ranks sharing the first card
+    in one spawn that runs every arch in turn: (a) deepseek-7b at full
+    width under DEFAULT_RULES (FSDP + TP + vocab TP) on (data 2, model 2),
+    cut to the deepest depth the sharded fit check accepts for four ranks
+    and the single-rank check for its reference (``sharded_cut_depth``),
+    capped at ``SHARDED_DEEPSEEK_LAYERS``; (b) granite-moe-1b-a400m at full
+    width and ``SHARDED_GRANITE_LAYERS`` layers under SMALL_MODEL_RULES
+    (FSDP + vocab TP + EP, 16 experts a rank); (c) minicpm3-4b (MLA),
+    llama-3.2-vision-11b (cross-attention, its (4, 1032, 4096) context) and
+    recurrentgemma-9b (RG-LRU and local attention) at full width under
+    DEFAULT_RULES, at the depths and on the meshes of ``SHARDED_MIXERS``.
+    Each: ``SHARDED_STEPS`` steps of 4 x 512 tokens; every step's loss,
+    grad norm and clip against the single-rank step on the same weights
+    and batches (run before the ranks, never beside them), step 1's update
+    of the probed leaves against the single rank's
+    (``SHARDED_UPDATE_REL``); replicated leaves bitwise equal across ranks;
+    the metered c10d bytes and the noted traffic of step 1 equal to the dry
+    run's model (``launch.dryrun.step_collectives``); the launches per rank
+    equal ``sharded_launches_per_step``; the peak beside the fit check's
+    model; for (c) step 1's gradient of the probed leaves
+    (``SHARDED_LEAF_GRAD_REL``) and a planted fault in the new mixer
+    (``plant_doubled_f``) that must read ``SHARDED_FAULT_X`` times that
+    limit. Then K7's partial variant against its plain version
+    (``check_cross_entropy_partial``), and (d) the dry run of deepseek-7b
+    train_4k on (2, 2) and on the production (16, 16): a rank's bytes (a
+    model figure). Returns rank 0's launches of (a), its main path."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+
     t_phase = time.time()
+    jobs = []
+    for arch in SHARDED_ARCHS:
+        shape = SHARDED_SHAPE
+        if arch == GRANITE:
+            layers = min(get_arch(arch).n_layers, SHARDED_GRANITE_LAYERS)
+        elif arch == "deepseek-7b":
+            layers = min(sharded_cut_depth(arch), SHARDED_DEEPSEEK_LAYERS)
+        else:
+            layers, shape = SHARDED_MIXERS[arch]
+            check(sharded_fits(arch, layers, shape),
+                  f"sharded {arch} at {layers} layers does not fit the card on {shape}")
+        jobs.append({"arch": arch, "layers": layers, "shape": shape,
+                     "rules": SHARDED_RULES[arch], "fault": arch in SHARDED_MIXERS})
     out = {}
-    for arch in ("deepseek-7b", GRANITE):
-        t0 = time.time()
-        layers = (sharded_cut_depth(arch) if arch != GRANITE
-                  else min(get_arch(arch).n_layers, SHARDED_GRANITE_LAYERS))
-        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
-        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-            probe = os.path.join(tmp, "single_update.pt")
-            single = _sharded_single(arch, layers, probe)
-            ranks = spawn_ranks("sharded", SHARDED_WORLD, arch=arch, layers=layers,
-                                rules=SHARDED_RULES[arch], one_card=True, probe=probe)
-        mesh = abstract_mesh(SHARDED_SHAPE, SHARDED_AXES)
-        specs = sharded_specs(cfg, SHARDED_RULES[arch], mesh)
-        model = dryrun.summarize(dryrun.step_collectives(
-            cfg, TrainConfig(), mesh, specs, (TRAIN_BATCH, TRAIN_SEQ + 1)))
-        want_launches = sharded_launches_per_step(cfg)
-        one = single["metrics"][0]
-        print(f"sharded {arch} at {layers} of {get_arch(arch).n_layers} layers "
-              f"({SHARDED_RULES[arch]}, (data 2, model 2), 4 ranks on one card over "
-              f"{ranks[0]['transport']}): single-rank step 1 loss {one['loss']!r}, grad norm "
-              f"{one['grad_norm']!r}, clip {one['clip']!r}, wall {single['wall_ms']:.1f} ms, "
-              f"peak {single['peak_gb']:.2f} GB")
-        for r, res in enumerate(ranks):
-            m = res["metrics"][0]
-            print(f"sharded {arch} rank {r}: step 1 loss {m['loss']!r}, grad norm "
-                  f"{m['grad_norm']!r}, clip {m['clip']!r}; step walls "
-                  f"{[round(w, 1) for w in res['wall_ms']]} ms; c10d bytes in {res['recv_bytes']} "
-                  f"(dry run {model['total_bytes']}), by kind {res['traffic']}; peak "
-                  f"{res['peak_gb']:.2f} GB (the fit check's model "
-                  f"{res['model_gb']:.2f} GB with the reserve); replicas bitwise "
-                  f"{res['replicas_agree']}; launches {res['launches']}")
-            check(res["transport"] == "gloo" and res["device"] == "cuda:0",
-                  f"sharded {arch}: rank {r} did not share card 0 over gloo")
-            check(res["metrics"] == ranks[0]["metrics"],
-                  f"sharded {arch}: the ranks' metrics differ")
-            check(res["replicas_agree"], f"sharded {arch}: replicated leaves differ across ranks")
-            check(res["recv_bytes"] == model["total_bytes"]
-                  and res["traffic"] == model["by_kind"],
-                  f"sharded {arch}: rank {r}'s collective bytes are off the dry run's")
-            for k, n in want_launches.items():
-                check(res["launches"][k] == n,
-                      f"sharded {arch}: {k}: {res['launches'][k]} launches, expected {n}")
-            check(res["peak_gb"] <= res["model_gb"],
-                  f"sharded {arch}: rank {r}'s peak is past the fit check's model")
-            check(all(math.isfinite(v) for mm in res["metrics"] for v in mm.values()),
-                  f"sharded {arch}: non-finite metrics")
-        for i, (got, want) in enumerate(zip(ranks[0]["metrics"], single["metrics"]), 1):
-            rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm", "clip")}
-            print(f"sharded {arch} step {i} against the single-rank step: loss {got['loss']!r} "
-                  f"vs {want['loss']!r}, rel. {rel['loss']:.3g} (tol {SHARDED_LOSS_REL}); grad "
-                  f"norm rel. {rel['grad_norm']:.3g}, clip rel. {rel['clip']:.3g} (tol "
-                  f"{SHARDED_GRAD_REL})")
-            check(rel["loss"] <= SHARDED_LOSS_REL,
-                  f"sharded {arch}: step-{i} loss off the single rank")
-            check(rel["grad_norm"] <= SHARDED_GRAD_REL and rel["clip"] <= SHARDED_GRAD_REL,
-                  f"sharded {arch}: step-{i} grad norm or clip off the single rank")
-        check(len(single["metrics"]) == SHARDED_STEPS == len(ranks[0]["metrics"]),
-              f"sharded {arch}: steps missing")
-        gaps = sharded_update_gaps(ranks)
-        moved = [g for g in gaps.values() if g["moved"]]
-        worst = max(g["gap"] for g in moved)
-        flipped = min(g["flipped"] for g in moved)
-        print(f"sharded {arch} step 1's update of {len(gaps)} leaves of layer 0 ({len(moved)} "
-              f"moved) against the single rank's: worst ||sharded - single|| / ||single|| "
-              f"{worst:.4g} (tol {SHARDED_UPDATE_REL}; a flipped update would read {flipped:.4g}); "
-              f"leaves left alone by both: {all(g['moved'] or g['gap'] == 0 for g in gaps.values())}")
-        check(moved and worst <= SHARDED_UPDATE_REL < flipped,
-              f"sharded {arch}: step 1's update off the single rank's")
-        check(all(g["moved"] or g["gap"] == 0 for g in gaps.values()),
-              f"sharded {arch}: a leaf the single rank left alone moved")
-        if cfg.moe is not None:
-            # ranks (d, 0) and (d, 1) route the same rows; the two data
-            # groups' rows together are the single rank's batch
-            d0, d1 = ranks[0]["drops"], ranks[2]["drops"]
-            check(ranks[1]["drops"] == d0 and ranks[3]["drops"] == d1,
-                  f"sharded {arch}: the model ranks of a data group routed differently")
-            merged = [(a + b) / 2 for a, b in zip(d0, d1)]
-            gap = max(abs(a - b) for a, b in zip(merged, single["drops"]))
-            print(f"sharded {arch}: moe_drop_frac over the global batch, mean "
-                  f"{sum(merged) / len(merged):.4f} (single rank "
-                  f"{sum(single['drops']) / len(single['drops']):.4f}), largest gap a layer "
-                  f"{gap:.4g} (tol {SHARDED_DROP_TOL})")
-            check(len(merged) == layers and gap <= SHARDED_DROP_TOL,
-                  f"sharded {arch}: drop fractions off the single rank's")
-        print(f"sharded {arch}: {time.time() - t0:.1f} s")
-        out[arch] = {"layers": layers, "ranks": ranks, "single": single, "model": model}
-        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        singles = {}
+        for job in jobs:
+            t0 = time.time()
+            job["probe"] = os.path.join(tmp, f"{job['arch']}_single.pt")
+            singles[job["arch"]] = _sharded_single(job["arch"], job["layers"], job["probe"])
+            print(f"sharded {job['arch']}: the single rank's steps {time.time() - t0:.1f} s")
+        ranks = spawn_ranks("sharded", SHARDED_WORLD, jobs=jobs, one_card=True)
+    for i, job in enumerate(jobs):
+        arch = job["arch"]
+        arch_ranks = [r["jobs"][i] for r in ranks]
+        out[arch] = dict(_check_sharded_arch(arch, job["layers"], job["shape"], arch_ranks,
+                                             singles[arch]),
+                         layers=job["layers"], shape=job["shape"], ranks=arch_ranks,
+                         single=singles[arch])
+    torch.cuda.empty_cache()
     check_cross_entropy_partial(results, gen)
     for mesh_name in ("2x2", "single"):
         rec = dryrun.run_cell("deepseek-7b", "train_4k", mesh_name)
@@ -5953,6 +6201,8 @@ def main() -> int:
             f"launches_sharded_deepseek_{sharded['deepseek-7b']['layers']}_layers_rank0":
                 sharded["launches"][name],
             "launches_sharded_granite_rank0": sharded[GRANITE]["ranks"][0]["launches"][name],
+            **{f"launches_sharded_{arch}_{sharded[arch]['layers']}_layers_rank0":
+               sharded[arch]["ranks"][0]["launches"][name] for arch in SHARDED_MIXERS},
             "launches_sharded_serving_deepseek_rank0":
                 serving_sharded["launches"]["deepseek-7b"].get(name, 0),
             "launches_sharded_serving_granite_rank0":
@@ -6038,13 +6288,15 @@ def main() -> int:
     print(f"fit check, {RG}: {fit}")
     print(f"data mesh: engine {mesh['engine']}; training step peaks {mesh['peak_gb']} GB a "
           f"rank")
-    for arch in ("deepseek-7b", GRANITE):
+    for arch in SHARDED_ARCHS:
         sh = sharded[arch]
-        print(f"sharded {arch} ({sh['layers']} layers, (data 2, model 2), 4 gloo ranks on one "
-              f"card): step walls rank 0 {[round(w, 1) for w in sh['ranks'][0]['wall_ms']]} ms "
-              f"(single rank {sh['single']['wall_ms']:.1f} ms), c10d bytes in a rank a step "
+        print(f"sharded {arch} ({sh['layers']} layers, (data {sh['shape'][0]}, model "
+              f"{sh['shape'][1]}), 4 gloo ranks on one card): step walls rank 0 "
+              f"{[round(w, 1) for w in sh['ranks'][0]['wall_ms']]} ms (single rank "
+              f"{sh['single']['wall_ms']:.1f} ms), c10d bytes in a rank a step "
               f"{sh['model']['total_bytes']}, peaks {[round(r['peak_gb'], 2) for r in sh['ranks']]}"
-              f" GB")
+              f" GB, step 1's gradient gap {sh['grad_gap']:.4g}"
+              + (f" (planted fault {sh['fault_gap']:.4g})" if "fault_gap" in sh else ""))
     for arch in ("deepseek-7b", GRANITE):
         sv = serving_sharded[arch]
         r0 = sv["ranks"][0]

@@ -395,10 +395,10 @@ def replica_bits_agree(x: torch.Tensor, axis_names: Sequence[str],
                        mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Bool scalar, the same on every rank: True iff ``x``'s bits are the
     same on every rank along the axes (2-byte floats travel as bytes: gloo
-    gathers no 16-bit integers)."""
+    gathers no 16-bit integers; a 0-d one, a bf16 gate, as a 1-d row)."""
     bits = _bits(x)
     if bits.dtype == torch.int16:
-        bits = bits.view(torch.uint8)
+        bits = bits.reshape(-1).view(torch.uint8)
     agree = torch.ones((), dtype=torch.bool, device=x.device)
     for ax in axis_names:
         g = _all_gather(bits, ax, mesh, kind="all-gather")

@@ -39,10 +39,15 @@ compiled or allocated: for each cell the parameters are meta tensors
                (2, 2) runs, byte for byte).
 
 Every rank's blocks have the same shapes (the rules cut a dim only where
-it divides), so the figures are those of every rank. Archs whose blocks
-the sharded steps do not run (``models.parallel.Plan``: MLA, SSM, RG-LRU,
-cross-attention, codebook streams) get ``refused`` with the reason (a
-training cell its bytes too).
+it divides), so the figures are those of every rank. The training cells
+run every block kind but the SSM's (``models.parallel.Plan``: attention,
+global or local, MLA, the RG-LRU and cross-attention, each mixer's
+collectives counted as it runs them); archs with SSM blocks or codebook
+streams, and cuts a mixer cannot run (MLA's 40 heads over 16 model
+ranks), get ``refused`` with the reason (a training cell its bytes too).
+The serving cells run self-attention blocks alone: the MLA, RG-LRU and
+cross-attention archs' are ``refused`` with the serving layout's reason
+(``models.parallel.check_serves``).
 
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k --mesh 2x2
   python -m repro_torch.launch.dryrun --all --mesh single
@@ -150,8 +155,11 @@ def step_collectives(cfg, tcfg, mesh, specs, tokens_shape, *, guard: bool = Fals
     model = plan.model
     if plan.vocab_parallel:
         note("all-reduce", model, "microbatch", hidden)  # the lookup's sum
-    for p, sp in zip(params["layers"], specs["layers"]):
-        lay = plan.layout(sp)
+    if cfg.mla is not None:  # MLA's f: the two normed latents and the shared key
+        m = cfg.mla
+        mla_f = rows * seq * (m.q_lora_rank + m.kv_lora_rank + m.qk_rope_dim) * act
+    for kind, p, sp in zip(cfg.pattern_layers, params["layers"], specs["layers"]):
+        lay = plan.layout(sp, kind)
         fsdp(p, sp, "block", fw)
         if lay["kv"] in ("gather", "whole"):
             cols = cfg.n_kv_heads * cfg.d_head
@@ -163,10 +171,13 @@ def step_collectives(cfg, tcfg, mesh, specs, tokens_shape, *, guard: bool = Fals
                     note("reduce-scatter", model, "block", whole)
                 else:
                     note("all-reduce", model, "block", whole)
-        for tp in ("attn_tp", "ffn_tp"):
-            if lay[tp]:
-                note("all-reduce", model, "block", hidden, fw)  # o / down: g
-                note("all-reduce", model, "block", hidden)      # the input's f
+        if lay["attn_tp"] or lay["inner_tp"]:
+            note("all-reduce", model, "block", hidden, fw)  # o / out: g
+            mla = kind == "attn" and cfg.mla is not None
+            note("all-reduce", model, "block", mla_f if mla else hidden)  # f
+        if lay["ffn_tp"]:
+            note("all-reduce", model, "block", hidden, fw)  # down: g
+            note("all-reduce", model, "block", hidden)      # the input's f
         if lay["ep"] is not None:
             stats = 2 * cfg.moe.n_experts * 4
             for ax in plan.batch:  # the load-balance sums, both ways
@@ -226,13 +237,16 @@ def activation_bytes(cfg, tcfg, mesh, tokens_shape) -> dict:
     """What a rank's fit is charged beside the step's peak on a global
     batch of ``tokens_shape`` ((GB, S + 1)): the reserve over the batch
     ranks (``check_fits_card(shard=)``'s charge, which covers one block's
-    working set as measured at 4 x 512) and the checkpointed input of
-    every block for one microbatch of the rank's rows."""
+    working set as measured at 4 x 512), the checkpointed input of every
+    block for one microbatch of the rank's rows, and a cross-attention
+    arch's context: the rank's rows of every microbatch, (rows, N, d),
+    held for the step."""
     data = mesh.size // mesh.axis_size("model")
     rows = tokens_shape[0] // tcfg.microbatches // data
     act = _meta_params(cfg)["embed"]["table"].element_size()
     return {"reserve": ACTIVATION_RESERVE_BYTES // data,
-            "block_inputs": rows * (tokens_shape[1] - 1) * cfg.d_model * act * cfg.n_layers}
+            "block_inputs": rows * (tokens_shape[1] - 1) * cfg.d_model * act * cfg.n_layers,
+            "context": tokens_shape[0] // data * cfg.n_img_tokens * cfg.d_model * act}
 
 
 def _serve_rows(plan, batch: int) -> int:
@@ -417,7 +431,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir=None, *,
                                                                             specs))
         b = rec["bytes_per_rank"]
         b.update(activation_bytes(cfg, tcfg, mesh, (shape.global_batch, shape.seq_len)))
-        b["need"] = b["peak"] + b["reserve"] + b["block_inputs"]
+        b["need"] = b["peak"] + b["reserve"] + b["block_inputs"] + b["context"]
         rec["fits_80gb_card_per_rank"] = b["need"] <= CARD_BYTES
         try:
             records = step_collectives(cfg, tcfg, mesh, specs,
@@ -462,8 +476,8 @@ def describe(rec: dict) -> str:
             f"microbatches): a rank holds params {b['params'] / 1e9:.2f} GB, moments "
             f"{b['moments'] / 1e9:.2f} GB, accumulators {b['accumulators'] / 1e9:.2f} GB; step "
             f"peak {b['peak'] / 1e9:.2f} GB before activations, {b['need'] / 1e9:.2f} GB with "
-            f"the reserve {b['reserve'] / 1e9:.2f} and the checkpointed block inputs "
-            f"{b['block_inputs'] / 1e9:.2f} ("
+            f"the reserve {b['reserve'] / 1e9:.2f}, the checkpointed block inputs "
+            f"{b['block_inputs'] / 1e9:.2f} and the context {b['context'] / 1e9:.2f} ("
             f"{'fits' if rec['fits_80gb_card_per_rank'] else 'does not fit'} an 80 GB card; "
             "a model figure)")
     if rec["status"] == "refused":

@@ -355,17 +355,19 @@ def _serving(cfg, mesh, param_shardings):
     global batch of ``batch`` rows and caches of ``s_max`` slots (memoized)
     and the caches' meta tensors. Specs from ``param_axes`` under the rules
     the reference picks (``launch.dryrun.rules_for``) when none are given;
-    the caches' from ``cache_shardings``. The blocks ``Plan`` refuses raise
-    here, before any call."""
+    the caches' from ``cache_shardings``. The blocks ``Plan`` refuses, and
+    those it trains but does not serve (``parallel.check_serves``), raise here,
+    before any call."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import sharding as SH
     from repro_torch.models.model import init_params, param_axes
-    from repro_torch.models.parallel import Plan
+    from repro_torch.models.parallel import Plan, check_serves
 
     if param_shardings is None:
         shapes = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
         rules = getattr(SH, dryrun.rules_for(cfg, "serve"))
         param_shardings = SH.param_shardings(param_axes(cfg), mesh, rules, shapes)
+    check_serves(cfg)
     plan = Plan(cfg, mesh, param_shardings)
     memo: dict = {}
 

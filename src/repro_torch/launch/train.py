@@ -52,13 +52,14 @@ fit one card (``check_fits_card``, on
 full depth, recurrentgemma-9b and llama-3.2-vision-11b at full depth,
 against the H100's 80 GB), which trains only sharded over more cards (the
 sharded step, ``launch.steps.make_train_step(mesh=, param_shardings=)``:
-FSDP, TP and EP; ``launch.dryrun`` sizes a rank): a data mesh replicates
+FSDP, EP, and the TP of attention, MLA, the RG-LRU and cross-attention;
+``launch.dryrun`` sizes a rank): a data mesh replicates
 the state, so it makes no config fit. Under ``--mesh`` the check charges
 every rank that shares the card; ``check_fits_card(shard=(mesh, specs))``
 charges a sharded rank its own blocks' peak (``sharded_step_peak_bytes``).
 mamba2-780m (17.2 GB) and musicgen-medium (30.5 GB) train at full depth;
-minicpm3-4b, recurrentgemma-9b and llama-3.2-vision-11b at full width cut
-in depth, through
+minicpm3-4b, recurrentgemma-9b and llama-3.2-vision-11b on one card at
+full width cut in depth (deeper, to full depth, only sharded), through
 ``main(cfg=...)``: recurrentgemma in whole units of 3 layers, 6 layers
 unguarded (75.3 GB; 9 refused) and 3 with ``--guard`` (75.4 GB; 6
 refused), its peak set by AdamW's f32 temporaries of the 1.05 B-element
@@ -168,7 +169,8 @@ def param_shapes(cfg) -> list:
     return [(p.numel(), p.element_size()) for p in R.tree_leaves(params)]
 
 
-def train_step_peak_bytes(cfg, tcfg, *, guard: bool = False, shapes=None) -> int:
+def train_step_peak_bytes(cfg, tcfg, *, guard: bool = False, shapes=None,
+                          piece=None) -> int:
     """Device bytes a training step holds at its peak, activations aside,
     from the parameters' shapes (``param_shapes``): the larger of
       the backward's end: the parameters, AdamW's f32 moments (one f32
@@ -181,13 +183,17 @@ def train_step_peak_bytes(cfg, tcfg, *, guard: bool = False, shapes=None) -> int
         AdamW's f32 temporaries of the largest leaf (``ADAMW_LEAF_TEMPS``,
         with ``guard`` also ``GUARD_LEAF_TEMPS``).
     ``shapes`` (``(numel, element size)`` a leaf) replaces the config's
-    (a sharded rank's blocks: ``shard_shapes``)."""
+    (a sharded rank's blocks: ``shard_shapes``); ``piece``: AdamW updates
+    a leaf in pieces of at most that many elements (the sharded step's
+    ``optim.adamw.SHARDED_PIECE``), so its temporaries are a piece's."""
     shapes = param_shapes(cfg) if shapes is None else shapes
     n = sum(k for k, _ in shapes)
     params = sum(k * size for k, size in shapes)
     moments = 4 * n * (1 if tcfg.fused_second_moment else 2)
     backward = params + moments + 4 * n + params
     largest = max(k for k, _ in shapes)
+    if piece is not None:
+        largest = min(largest, piece)
     temps = 4 * largest * (ADAMW_LEAF_TEMPS + guard * GUARD_LEAF_TEMPS)
     pack = 8 * n if len(shapes) > PARTS_KERNEL_MAX else 0
     return max(backward, params + moments + 4 * n + max(pack, temps))
@@ -215,7 +221,8 @@ def shard_shapes(cfg, mesh, specs) -> list:
 def sharded_step_peak_bytes(cfg, tcfg, mesh, specs, *, guard: bool = False) -> int:
     """A rank's device bytes at the sharded step's peak (``launch.steps``
     with ``mesh=``), activations aside: ``train_step_peak_bytes`` on its
-    blocks (``shard_shapes``), plus
+    blocks (``shard_shapes``), AdamW's temporaries those of one piece
+    (``optim.adamw.SHARDED_PIECE``), plus
       the largest block's weights gathered over the batch axes (FSDP) and
         their gradients, and the largest such leaf's gradient gathered
         from every batch rank for the reduce-scatter;
@@ -225,7 +232,8 @@ def sharded_step_peak_bytes(cfg, tcfg, mesh, specs, *, guard: bool = False) -> i
     from repro_torch.launch.steps import COMBINE_CHUNK
 
     shapes = shard_shapes(cfg, mesh, specs)
-    base = train_step_peak_bytes(cfg, tcfg, guard=guard, shapes=shapes)
+    base = train_step_peak_bytes(cfg, tcfg, guard=guard, shapes=shapes,
+                                 piece=optim.adamw.SHARDED_PIECE)
     batch = tuple(ax for ax in mesh.axis_names
                   if ax in ("pod", "data") and mesh.axis_size(ax) > 1)
     data = math.prod(mesh.axis_size(ax) for ax in batch)
@@ -256,13 +264,17 @@ def check_fits_card(cfg, tcfg, device, *, guard: bool = False, ranks_on_card: in
     (``ACTIVATION_RESERVE_BYTES``) exceed the card: deepseek-7b (152 GB),
     minicpm3-4b at full depth (93.8 GB), recurrentgemma-9b past 6 layers
     (past 3 guarded) and llama-3.2-vision-11b at full depth are refused on
-    an 80 GB card. Under a data mesh of ``world`` ranks (``world`` > 1)
+    an 80 GB card; the message points at the sharded step, which trains
+    each of them (their MLA, RG-LRU and cross-attention blocks with the
+    mixer's TP) over more cards. Under a data mesh of ``world`` ranks (``world`` > 1)
     the step, the reserve and the combine's buffers
     (``combine_peak_bytes``) are charged once for each of the
     ``ranks_on_card`` ranks that share the card. Under a sharded step
     (``shard=(mesh, specs)``) each rank is charged its own blocks' peak
-    (``sharded_step_peak_bytes``) and the reserve in its share of the
-    batch (the reserve over the batch ranks), and where ranks share the
+    (``sharded_step_peak_bytes``: every block, MLA, RG-LRU and
+    cross-attention ones too, at the rank's widths) and the reserve in its
+    share of the batch (the reserve over the batch ranks), and where ranks
+    share the
     card, each its process's CUDA context (``RANK_CONTEXT_BYTES``, outside
     PyTorch's allocator)."""
     if device.type != "cuda":
@@ -289,8 +301,9 @@ def check_fits_card(cfg, tcfg, device, *, guard: bool = False, ranks_on_card: in
             f"{(per_rank - reserve) / 1e9:.1f} GB before activations (and "
             f"{reserve / 1e9:.0f} GB are kept for them){ranks}, {need / 1e9:.1f} GB, more "
             f"than the card's {have / 1e9:.1f} GB; it trains at this depth only sharded over "
-            f"more cards (launch.steps.make_train_step(mesh=...); a rank's bytes: python -m "
-            f"repro_torch.launch.dryrun)")
+            f"more cards: the sharded step, launch.steps.make_train_step(mesh=...), runs "
+            f"self-attention, MLA, RG-LRU and cross-attention blocks (a rank's bytes: python "
+            f"-m repro_torch.launch.dryrun)")
 
 
 def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0,

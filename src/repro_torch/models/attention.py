@@ -350,10 +350,11 @@ def cross_attention_init(gen, d: int, n_heads: int, n_kv: int, d_head: int, dtyp
 
 def cross_kv(p, ctx, cfg):
     """The context's keys and values (B, N, Hkv, D), not RoPE'd: what the
-    prefill keeps in a cross-attention layer's cache."""
+    prefill keeps in a cross-attention layer's cache; as many kv heads as
+    the weights hold (a tensor-parallel rank's own)."""
     b, n, _ = ctx.shape
-    k = P.dense_apply(p["k"], ctx).reshape(b, n, cfg.n_kv_heads, cfg.d_head)
-    v = P.dense_apply(p["v"], ctx).reshape(b, n, cfg.n_kv_heads, cfg.d_head)
+    k = P.dense_apply(p["k"], ctx).reshape(b, n, -1, cfg.d_head)
+    v = P.dense_apply(p["v"], ctx).reshape(b, n, -1, cfg.d_head)
     return k, v
 
 
@@ -361,16 +362,22 @@ def _gated(p, out):
     return torch.tanh(p["gate"].to(torch.float32)).to(out.dtype) * out
 
 
-def cross_attention_apply(p, x, ctx, cfg):
+def cross_attention_apply(p, x, ctx, cfg, tp=None):
     """x: (B, S, d) queries; ctx: (B, N, d) the frontend's embeddings, read
     as they come (no norm). tanh(gate) o(attn(q(x), k(ctx), v(ctx))), no
     RoPE, on the chunked ``flash_attention_xla`` (``causal=False``) on both
-    routes, as the reference runs it. -> (B, S, d)."""
+    routes, as the reference runs it. -> (B, S, d). ``tp``
+    (``models.parallel.TP``): q, k and v hold a rank's heads and the kv
+    heads they read, x goes through ``tp.enter`` (the context, an input
+    with no gradient, needs none), o is row-parallel with ``tp.exit``, and
+    the whole gate multiplies after it."""
     b, s, _ = x.shape
-    q = P.dense_apply(p["q"], x).reshape(b, s, cfg.n_heads, cfg.d_head)
+    if tp is not None:
+        x = tp.enter(x)
+    q = P.dense_apply(p["q"], x).reshape(b, s, -1, cfg.d_head)
     k, v = cross_kv(p, ctx, cfg)
     out = flash_attention_xla(q, k, v, causal=False, mma=cfg.mma_reductions)
-    return _gated(p, P.dense_apply(p["o"], out.reshape(b, s, -1)))
+    return _gated(p, _out(p, out.reshape(b, s, -1), tp, None))
 
 
 def cross_attention_decode(p, x_t, cache, cfg):

@@ -59,38 +59,46 @@ def mla_init(gen, cfg, dtype, device) -> dict:
     }
 
 
-def _expand(p, x, positions, cfg):
+def _expand(p, x, positions, cfg, tp=None):
     """x (B, S, d) -> per-head q (B, S, H, nope + rope), k (the same), v
     (B, S, H, v_head) with RoPE applied, and the raw kv latent (B, S,
     kv_lora + rope) before its norm. Both latent norms' statistics are one
-    ``rmsnorm_apply_many`` pass."""
+    ``rmsnorm_apply_many`` pass. ``tp`` (``models.parallel.TP``): q_up and
+    kv_up hold a rank's heads (H of them: their columns are head-major),
+    and the two normed latents and the shared RoPE key, which every
+    rank's heads read, go through ``tp.enter`` (Megatron's f)."""
     m = cfg.mla
-    h = cfg.n_heads
     b, s, _ = x.shape
     cq = P.dense_apply(p["q_down"], x)
     ckv_full = P.dense_apply(p["kv_down"], x)
     ckv_raw, k_rope = ckv_full[..., :m.kv_lora_rank], ckv_full[..., m.kv_lora_rank:]
     cq, ckv = L.rmsnorm_apply_many((p["q_norm"], p["kv_norm"]), (cq, ckv_raw),
                                    eps=cfg.norm_eps, mma=cfg.mma_reductions)
-    q = P.dense_apply(p["q_up"], cq).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    k_rope = L.rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # one shared head
+    if tp is not None:
+        cq, ckv, k_rope = tp.enter(cq), tp.enter(ckv), tp.enter(k_rope)
+    q = P.dense_apply(p["q_up"], cq).reshape(b, s, -1, m.qk_nope_dim + m.qk_rope_dim)
+    h = q.shape[2]
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = L.rope(q_rope, positions, cfg.rope_theta)
-    k_rope = L.rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # one shared head
     kv = P.dense_apply(p["kv_up"], ckv).reshape(b, s, h, m.qk_nope_dim + m.v_head_dim)
     k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
     k_rope_b = k_rope.expand(b, s, h, m.qk_rope_dim)
     return torch.cat([q_nope, q_rope], -1), torch.cat([k_nope, k_rope_b], -1), v, ckv_full
 
 
-def mla_train(p, x, positions, cfg):
+def mla_train(p, x, positions, cfg, tp=None):
     """(B, S, d) -> (B, S, d): causal MLA, train/prefill path, on the
-    chunked non-kernel attention (the reference's route)."""
+    chunked non-kernel attention (the reference's route). ``tp``: the
+    rank's heads (``_expand``), o row-parallel and its partial sums
+    through ``tp.exit`` (Megatron's g)."""
     m = cfg.mla
-    q, k, v, _ = _expand(p, x, positions, cfg)
+    q, k, v, _ = _expand(p, x, positions, cfg, tp)
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
     out = A.flash_attention_xla(q, k, v, causal=True, mma=cfg.mma_reductions, sm_scale=scale)
     b, s = out.shape[0], out.shape[1]
-    return P.dense_apply(p["o"], out.reshape(b, s, -1))
+    out = P.dense_apply(p["o"], out.reshape(b, s, -1))
+    return out if tp is None else tp.exit(out)
 
 
 def make_mla_cache(batch: int, s_max: int, cfg, dtype, device) -> dict:

@@ -408,20 +408,22 @@ def _window(kind: str, cfg):
 def block_train(kind: str, p, h, positions, cfg, ctx=None, hooks=None):
     """One block, train/prefill compute: (B, S, d) -> ((B, S, d), aux f32
     scalar). ``ctx`` is the cross-attention layers' context; ``hooks``
-    (``models.parallel.Hooks``) the block's tensor and expert parallelism,
-    its weights a rank's (``Plan.block``)."""
+    (``models.parallel.Hooks``) the block's tensor and expert parallelism
+    (``hooks.attn`` the mixer's: attention, MLA, cross-attention or the
+    RG-LRU), its weights a rank's (``Plan.block``)."""
     hn = _norm(p["norm1"], h, cfg)
+    tp = None if hooks is None else hooks.attn
     if kind == "ssm":
         mix = SSM.ssm_train(p["mix"], hn, cfg)
     elif kind == "rec":
-        mix = REC.rglru_train(p["mix"], hn, cfg)
+        mix = REC.rglru_train(p["mix"], hn, cfg, tp=tp)
     elif kind == "xattn":
-        mix = A.cross_attention_apply(p["mix"], hn, ctx, cfg)
+        mix = A.cross_attention_apply(p["mix"], hn, ctx, cfg, tp=tp)
     elif cfg.mla is not None:
-        mix = MLA.mla_train(p["mix"], hn, positions, cfg)
+        mix = MLA.mla_train(p["mix"], hn, positions, cfg, tp=tp)
     else:
         mix = A.self_attention_train(p["mix"], hn, positions, cfg, window=_window(kind, cfg),
-                                     tp=None if hooks is None else hooks.attn)
+                                     tp=tp)
     return _ffn_residual(kind, p, h + mix, cfg, hooks)
 
 

@@ -28,6 +28,26 @@ reference's rules (``launch/sharding.py`` of the JAX package):
          slots routed to them, and the gate-weighted combine's partial
          token sums add over "model" in rank order (``models.moe``).
 
+The other mixers, under the same rules:
+
+  MLA    "heads" over "model": q_up's and kv_up's columns and o's rows are
+         the rank's heads (the columns are head-major, so a block of them
+         is whole heads); q_down, kv_down and the two latent norms stay
+         whole over "model". Megatron's f goes on the normed latents and
+         on the shared RoPE key, which every rank's heads read, so the
+         whole leaves before them get the same gradient on every model
+         rank; o's output goes through g.
+  RG-LRU "inner" over "model": in_x's and in_gate's columns, conv_w's
+         columns, ``lam``, the gate blocks (dim 0 of gate_a/gate_x) and
+         out's rows are the rank's channels, which must hold whole gate
+         blocks. The block input goes through f; everything from in_x to
+         the product h * gate is per channel or per gate block, so it runs
+         on the rank's channels alone; out is row-parallel, with g.
+  xattn  self-attention's layout (the same leaves and kv modes): q of the
+         block input through f, k and v the rank's kv heads of the context
+         (an input with no gradient: no f), o row-parallel with g, and the
+         whole tanh gate after g.
+
 Every cross-rank sum is a fixed-order fold (``core.collectives``), so a
 replicated tensor has the same bits on every rank and two runs have the
 same bits. The loss of a rank is its own rows' mean: the step sums the
@@ -37,14 +57,17 @@ of a model group computes the same loss, and a tensor the group holds
 alike has the same gradient on each of them.
 
 ``Plan`` checks that the config's blocks are ones the sharded step runs
-(self-attention, global or local, without MLA, and a dense or MoE FFN; no
-codebook streams); the others refuse with that reason.
+(self-attention, global, local or MLA, the RG-LRU and cross-attention,
+each with a dense or MoE FFN); SSM blocks and codebook streams refuse with
+that reason, and so do the cuts a mixer cannot run (``Plan.layout``).
 
 Serving (``Plan(..., cache_specs=)``, ``launch.steps.make_prefill_step``
 and ``make_decode_step`` with ``mesh=``) runs the same blocks forward only,
 each rank on its rows of the batch (``launch.sharding.batch_partition``:
 all of them where the batch does not divide the data axes), with the
-caches cut as ``launch.sharding.cache_shardings`` cuts them. Those can cut
+caches cut as ``launch.sharding.cache_shardings`` cuts them. It runs the
+self-attention blocks alone (``check_serves``: the MLA, RG-LRU and
+cross-attention caches are not cut for it yet). Those can cut
 a cache where the weights are whole (SMALL_MODEL_RULES), so a block's
 attention follows its cache (``Plan.serve_layout``):
 
@@ -85,6 +108,7 @@ import torch
 from repro_torch.core import collectives as C
 from repro_torch.launch.sharding import entry_axes, spec_axes, tree_map
 from repro_torch.models import params as P
+from repro_torch.models.rglru import N_GATE_BLOCKS, _width
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,9 +142,11 @@ class EP:
 
 @dataclasses.dataclass(frozen=True)
 class Hooks:
-    """What one block runs sharded: attention and FFN tensor parallelism,
-    expert parallelism (None where the block runs whole on every rank),
-    and in serving its attention's heads and cache (``Serve``)."""
+    """What one block runs sharded: the mixer's tensor parallelism
+    (``attn``: attention, MLA or cross-attention heads, or the RG-LRU's
+    channels) and the FFN's, expert parallelism (None where the block runs
+    whole on every rank), and in serving its attention's heads and cache
+    (``Serve``)."""
 
     attn: object = None
     ffn: object = None
@@ -168,6 +194,18 @@ class Serve:
         return C.gather_rows(x, self.axis, self.mesh) if self.axis else [x]
 
 
+def check_serves(cfg) -> None:
+    """Refuses a config whose blocks the sharded serving steps do not run:
+    they serve self-attention blocks, global or local, alone."""
+    what = (["MLA"] if cfg.mla is not None else []) + sorted(
+        {k for k in cfg.pattern_layers if k in ("rec", "xattn")})
+    if what:
+        raise NotImplementedError(f"sharded serving runs self-attention blocks (global or "
+                                  f"local) alone: {cfg.name} has {', '.join(what)} blocks, "
+                                  "whose caches are not cut over a mesh yet (the sharded "
+                                  "training step runs them)")
+
+
 class Plan:
     """The sharded forward's layout: the mesh, every leaf's spec, and the
     axes that matter (those of more than one rank). ``cache_specs``
@@ -177,16 +215,18 @@ class Plan:
     def __init__(self, cfg, mesh, specs, cache_specs=None):
         self.cfg, self.mesh, self.specs = cfg, mesh, specs
         self.cache_specs = cache_specs
+        if cache_specs is not None:
+            check_serves(cfg)
         live = tuple(ax for ax in mesh.axis_names if mesh.axis_size(ax) > 1)
         self.batch = tuple(ax for ax in live if ax in ("pod", "data"))
         self.model = "model" if "model" in live else None
         self.data_degree = math.prod(mesh.axis_size(ax) for ax in self.batch)
-        bad = [k for k in cfg.pattern_layers if k not in ("attn", "local_attn")]
-        if bad or cfg.mla is not None or cfg.n_codebooks:
-            what = (f"block kinds {sorted(set(bad))}" if bad else
-                    "MLA" if cfg.mla is not None else "codebook streams")
-            raise NotImplementedError(f"the sharded step runs self-attention blocks with a "
-                                      f"dense or MoE FFN; {cfg.name} has {what}")
+        bad = [k for k in cfg.pattern_layers if k not in ("attn", "local_attn", "xattn", "rec")]
+        if bad or cfg.n_codebooks:
+            what = f"block kinds {sorted(set(bad))}" if bad else "codebook streams"
+            raise NotImplementedError(f"the sharded step runs self-attention (global, local or "
+                                      f"MLA), RG-LRU and cross-attention blocks with a dense or "
+                                      f"MoE FFN; {cfg.name} has {what}")
         table = specs["embed"]["table"]
         self.vocab_parallel = self.model is not None and self.model in spec_axes(table)
         self.tp = TP(mesh, self.model) if self.model else None
@@ -194,6 +234,8 @@ class Plan:
         if self.vocab_parallel:
             n = P.padded_vocab(cfg.vocab_size) // mesh.axis_size(self.model)
             self.vocab0 = mesh.axis_index(self.model) * n
+        for kind, sp in zip(cfg.pattern_layers, specs["layers"]):
+            self.layout(sp, kind)  # a cut a block cannot run refuses here
 
     def for_caches(self, cache_specs) -> "Plan":
         """This plan with the caches' specs (``launch.sharding.
@@ -213,26 +255,73 @@ class Plan:
     def _model_cut(self, spec: tuple, dim: int) -> bool:
         return self.model is not None and len(spec) > dim and self.model in entry_axes(spec[dim])
 
-    def layout(self, specs: dict) -> dict:
-        """How a block with these specs runs (no tensors): ``attn_tp``
-        (its heads split over "model"), ``kv`` ("local": the rank's block
-        is its kv heads; "gather": k/v gathered over "model", the rank's
-        heads cut out; "whole": k/v held whole, the rank's heads cut out;
-        None without TP), the kv head range, ``ffn_tp``, and ``ep``
-        ("model": experts split over it; "batch": the load-balance sums
-        over the batch axes only; None)."""
+    def _heads_split(self) -> int:
+        """The query heads a model rank holds; refuses where they do not
+        split."""
+        n_model = self.mesh.axis_size(self.model)
+        if self.cfg.n_heads % n_model:
+            raise NotImplementedError(f"{self.cfg.n_heads} query heads do not split over "
+                                      f"{n_model} model ranks")
+        return self.cfg.n_heads // n_model
+
+    def _rec_layout(self, ms: dict) -> bool:
+        """Whether the RG-LRU's channels are cut over "model" (``inner_tp``):
+        every channel leaf alike, each rank's channels whole gate blocks."""
+        cuts = {name: self._model_cut(s, dim) for name, s, dim in (
+            ("in_x", ms["in_x"]["w"], 1), ("in_gate", ms["in_gate"]["w"], 1),
+            ("conv_w", ms["conv_w"], 1), ("lam", ms["lam"], 0), ("out", ms["out"]["w"], 0),
+            ("gate_a", ms["gate_a"], 0), ("gate_x", ms["gate_x"], 0))}
+        if len(set(cuts.values())) == 1:
+            return cuts["in_x"]
+        w, n_model = _width(self.cfg), self.mesh.axis_size(self.model)
+        channels = {v for k, v in cuts.items() if not k.startswith("gate")}
+        if channels == {True} and not (cuts["gate_a"] or cuts["gate_x"]):
+            raise NotImplementedError(
+                f"{self.cfg.name}: a model rank's {w // n_model} RG-LRU channels do not hold "
+                f"whole gate blocks of {w // N_GATE_BLOCKS} ({N_GATE_BLOCKS} blocks over "
+                f"{n_model} model ranks), so the gate blocks stay whole while the channels "
+                "are cut")
+        raise NotImplementedError(f"the RG-LRU's channel leaves must be cut over 'model' "
+                                  f"alike (cut: {sorted(k for k, v in cuts.items() if v)})")
+
+    def layout(self, specs: dict, kind: str) -> dict:
+        """How a block of ``kind`` with these specs runs (no tensors):
+        ``attn_tp`` (its attention, MLA or cross-attention heads split over
+        "model"), ``inner_tp`` (the RG-LRU's channels split over it),
+        ``kv`` ("local": the rank's block is its kv heads; "gather": k/v
+        gathered over "model", the rank's heads cut out; "whole": k/v held
+        whole, the rank's heads cut out; None without TP or without k/v),
+        the kv head range, ``ffn_tp``, and ``ep`` ("model": experts split
+        over it; "batch": the load-balance sums over the batch axes only;
+        None)."""
+        cfg, ms = self.cfg, specs["mix"]
+        out = {"attn_tp": False, "inner_tp": False, "kv": None, "kv_heads": None,
+               "ffn_tp": False, "ep": None}
+        if kind == "rec":
+            out["inner_tp"] = self._rec_layout(ms)
+        elif kind != "xattn" and cfg.mla is not None:
+            cuts = {self._model_cut(ms["q_up"]["w"], 1), self._model_cut(ms["kv_up"]["w"], 1),
+                    self._model_cut(ms["o"]["w"], 0)}
+            if len(cuts) > 1:
+                raise NotImplementedError("MLA's q_up, kv_up and o must be cut over 'model' "
+                                          "alike")
+            out["attn_tp"] = cuts.pop()
+            if out["attn_tp"]:
+                self._heads_split()
+        else:
+            out.update(self._attn_layout(ms))
+        return self._ffn_layout(specs, out)
+
+    def _attn_layout(self, ms: dict) -> dict:
+        """Self- or cross-attention's ``attn_tp``, ``kv`` and kv heads."""
         cfg, mesh = self.cfg, self.mesh
-        ms = specs["mix"]
         attn_tp = self._model_cut(ms["q"]["w"], 1)
         if attn_tp != self._model_cut(ms["o"]["w"], 0):
             raise NotImplementedError("q and o must be cut over 'model' alike")
-        out = {"attn_tp": attn_tp, "kv": None, "kv_heads": None, "ffn_tp": False, "ep": None}
+        out = {"attn_tp": attn_tp}
         if attn_tp:
             m, n_model = mesh.axis_index(self.model), mesh.axis_size(self.model)
-            if cfg.n_heads % n_model:
-                raise NotImplementedError(f"{cfg.n_heads} query heads do not split over "
-                                          f"{n_model} model ranks")
-            hq = cfg.n_heads // n_model
+            hq = self._heads_split()
             group = cfg.n_heads // cfg.n_kv_heads
             out["kv_heads"] = (m * hq // group, (m * hq + hq - 1) // group + 1)
             cuts = {self._model_cut(ms[n]["w"], 1) for n in ("k", "v")}
@@ -243,6 +332,11 @@ class Plan:
                          "gather" if cut else "whole")
         elif any(self._model_cut(ms[n]["w"], 1) for n in ("k", "v")):
             raise NotImplementedError("k/v cut over 'model' while the query heads are not")
+        return out
+
+    def _ffn_layout(self, specs: dict, out: dict) -> dict:
+        """``out`` with the FFN's ``ffn_tp`` and ``ep``."""
+        cfg = self.cfg
         if "ffn" in specs:
             fs = specs["ffn"]
             if cfg.moe is not None:
@@ -258,7 +352,7 @@ class Plan:
     def block(self, kind: str, p: dict, specs: dict):
         """A block's weights as its ranks use them, and its ``Hooks``."""
         cfg, mesh = self.cfg, self.mesh
-        lay = self.layout(specs)
+        lay = self.layout(specs, kind)
         p = self.gather(p, specs)
         mix = dict(p["mix"])
         if lay["kv"] in ("gather", "whole"):
@@ -278,7 +372,7 @@ class Plan:
                     self.data_degree)
         elif lay["ep"] == "batch":
             ep = EP(mesh, None, 0, cfg.moe.n_experts, self.batch, self.data_degree)
-        return p, Hooks(attn=self.tp if lay["attn_tp"] else None,
+        return p, Hooks(attn=self.tp if lay["attn_tp"] or lay["inner_tp"] else None,
                         ffn=self.tp if lay["ffn_tp"] else None, ep=ep)
 
     # ------------------------------- vocabulary -------------------------------
@@ -322,9 +416,10 @@ class Plan:
         not run."""
         if self.cache_specs is None:
             raise ValueError("the serving layout needs the caches' specs (Plan(cache_specs=))")
+        check_serves(self.cfg)
         cfg, mesh = self.cfg, self.mesh
         kind = cfg.pattern_layers[i]
-        lay = self.layout(self.specs["layers"][i])
+        lay = self.layout(self.specs["layers"][i], kind)
         cspec = self.cache_specs["layers"][i]["k"]
         n_model = mesh.axis_size(self.model) if self.model else 1
         m = mesh.axis_index(self.model) if self.model else 0

@@ -110,17 +110,25 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor):
     return _interleave(ea, oa), _interleave(eb, ob)
 
 
-def rglru_train(p, x: torch.Tensor, cfg, return_state: bool = False):
+def rglru_train(p, x: torch.Tensor, cfg, return_state: bool = False, tp=None):
     """The block, train/prefill. x: (B, L, d) -> (B, L, d), or with
     ``return_state`` (out, cache): the conv window (the last K-1 pre-conv
     inputs, zero-filled in front of a short prompt) and the final state
-    h_{L-1} (f32), the prefill -> decode handoff."""
+    h_{L-1} (f32), the prefill -> decode handoff. ``tp``
+    (``models.parallel.TP``): the channel leaves hold a rank's channels
+    (whole gate blocks); x goes through ``tp.enter`` (Megatron's f), every
+    op up to h * gate runs on those channels alone, and out is
+    row-parallel, its partial sums through ``tp.exit`` (g)."""
+    if tp is not None:
+        x = tp.enter(x)
     u_raw = P.dense_apply(p["in_x"], x)
     u = L.causal_conv1d(u_raw, p["conv_w"])
     a, b = _gates(p, u, cfg)
     _, h = associative_scan(a, b)
     gate = F.gelu(P.dense_apply(p["in_gate"], x).to(torch.float32), approximate="tanh")
     out = P.dense_apply(p["out"], (h * gate).to(x.dtype))
+    if tp is not None:
+        out = tp.exit(out)
     if not return_state:
         return out
     k = cfg.rglru.conv_width

@@ -195,9 +195,15 @@ def _keep_into(keep_old, dst, new) -> None:
     torch.where(keep_old, d, new.view(it), out=d)
 
 
+# Elements of a leaf the sharded step's AdamW updates at a time
+# (``_adamw_core(piece=)``): ranks that share a card each hold one piece's
+# f32 temporaries at once, not those of a whole embedding block.
+SHARDED_PIECE = 1 << 24
+
+
 @torch.no_grad()
 def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_leaf=None,
-                fused_second_moment: bool = False, leaf_groups=None, keep=None):
+                fused_second_moment: bool = False, leaf_groups=None, keep=None, piece=None):
     """The AdamW arithmetic given the clip coefficient (and, for the fused
     second moment, the per-leaf sumsq slots), in the reference's operation
     order; parameters and moments update in place. Returns (state, lr).
@@ -209,7 +215,11 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
 
     Each leaf's update runs in a function of its own, so its temporaries
     are freed before the next leaf's are made: the step's peak holds those
-    of one leaf (``launch.train.ADAMW_LEAF_TEMPS``)."""
+    of one leaf (``launch.train.ADAMW_LEAF_TEMPS``). ``piece`` (the
+    unfused path): a leaf of more elements runs in pieces of that many,
+    each on flat views of its parameter, gradient and moments, so the peak
+    holds one piece's; every operation is elementwise, so the result is
+    bitwise the whole leaf's."""
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -268,7 +278,12 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
         write(p, m, m_new, pf - lr * delta, v, v_new)
 
     for p, g, m, v in zip(params, grads, state.m, state.v):
-        leaf(p, g, m, v)
+        if piece is None or p.numel() <= piece:
+            leaf(p, g, m, v)
+            continue
+        flat = [t.view(-1) for t in (p, g, m, v)]
+        for i in range(0, p.numel(), piece):
+            leaf(*(t[i:i + piece] for t in flat))
     return AdamWState(step=step, m=state.m, v=state.v), lr
 
 
@@ -288,8 +303,9 @@ def apply_updates(params, grads, state: AdamWState, cfg, *, mma: bool = True,
     moments are this rank's shards of trees sharded across those axes; the
     clip statistic is the global one (``global_norm_and_clip``).
     ``leaf_axes`` (with ``mesh``): each leaf is a rank's block of a tensor
-    cut over its own axes (the sharded step's), and the clip statistic
-    counts every leaf once (``sharded_norm_and_clip``)."""
+    cut over its own axes (the sharded step's), the clip statistic counts
+    every leaf once (``sharded_norm_and_clip``), and a leaf past
+    ``SHARDED_PIECE`` elements updates in pieces (``_adamw_core``)."""
     flat_p = R.tree_leaves(params)
     flat_g = R.tree_leaves(grads)
     if len(flat_g) != len(flat_p):
@@ -308,7 +324,8 @@ def apply_updates(params, grads, state: AdamWState, cfg, *, mma: bool = True,
                                            backend=reduce_backend, mesh_axes=mesh_axes)
     new_state, lr = _adamw_core(flat_p, flat_g, state, cfg, clip=clip, per_leaf=per_leaf,
                                 fused_second_moment=fused_second_moment,
-                                leaf_groups=leaf_groups)
+                                leaf_groups=leaf_groups,
+                                piece=None if leaf_axes is None else SHARDED_PIECE)
     return params, new_state, {"grad_norm": gnorm, "lr": lr, "clip": clip}
 
 
@@ -414,7 +431,8 @@ def guarded_apply_updates(params, grads, state: AdamWState, cfg, *, loss=None,
     skip = bad | spike
     new_state, lr = _adamw_core(flat_p, flat_g, state, cfg, clip=clip, per_leaf=per_leaf,
                                 fused_second_moment=fused_second_moment,
-                                leaf_groups=leaf_groups, keep=skip)
+                                leaf_groups=leaf_groups, keep=skip,
+                                piece=None if leaf_axes is None else SHARDED_PIECE)
     new_guard = guard
     if guard is not None:
         w = guard.window.shape[0]

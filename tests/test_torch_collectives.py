@@ -161,6 +161,13 @@ def test_planted_faults_seen_on_every_rank(ranks):
     assert [r["fault_census_agree"] for r in ranks] == [False] * WORLD
 
 
+def test_replica_bits_of_a_0d_bf16_leaf(ranks):
+    """A 0-d bf16 tensor (llama-3.2-vision's cross-attention gate) is
+    compared as bytes like any 16-bit leaf: equal on every rank, and one
+    rank's value one bf16 ulp off seen on all of them."""
+    assert [r["gate_bits_agree"] for r in ranks] == [(True, False)] * WORLD
+
+
 @pytest.mark.parametrize("backend,device,staged", [
     ("gloo", "cuda", True), ("gloo", "cpu", False), ("nccl", "cuda", False)])
 def test_p2p_through_host_follows_the_transport_and_device(backend, device, staged):

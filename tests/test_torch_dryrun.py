@@ -2,8 +2,12 @@
 
 One spawn of four gloo CPU ranks on (2, 2) runs one sharded step of tiny
 deepseek-7b (DEFAULT_RULES: FSDP, TP, vocab TP; guarded, so the census
-combine is in it) and of tiny granite-moe-1b-a400m (SMALL_MODEL_RULES: FSDP,
-vocab TP, EP), with two microbatches, and notes every collective
+combine is in it), of tiny granite-moe-1b-a400m (SMALL_MODEL_RULES: FSDP,
+vocab TP, EP), and under DEFAULT_RULES of tiny minicpm3-4b (MLA's TP, its
+f on the latents), tiny recurrentgemma-9b (the RG-LRU's channels, local
+attention's gathered kv head) and tiny llama-3.2-vision-11b (cross-
+attention on a seeded context, its gates open), with two microbatches,
+and notes every collective
 (``core.collectives.traffic``) and every c10d op (``reduce.inspect``'s
 meter). On the meta device, with nothing allocated, the dry run's
 
@@ -15,8 +19,12 @@ meter). On the meta device, with nothing allocated, the dry run's
 
 ``--all --mesh single`` runs on the CPU without allocating (a dispatch
 mode refuses any tensor off the meta device past a few elements), every
-prefill and decode cell ``ok`` or ``refused`` with ``Plan``'s reason, and
-deepseek-7b train_4k reports its per-rank bytes on (2, 2) and (16, 16).
+prefill and decode cell ``ok`` or ``refused`` with ``Plan``'s reason or
+the serving layout's, and deepseek-7b train_4k reports its per-rank bytes
+on (2, 2) and (16, 16). On (2, 2) the train cells of minicpm3-4b,
+recurrentgemma-9b and llama-3.2-vision-11b are ``ok``; mamba2-780m's and
+musicgen-medium's, and the three archs' prefill and decode cells, are
+``refused`` with their reasons.
 
 The serving cells are held to the one sharded serving spawn of
 ``tests/torch_serving_cases.py`` (shared with
@@ -49,7 +57,10 @@ import torch_mesh_workers as W
 import torch_serving_cases as SC
 
 CASES = {"deepseek": ("deepseek-7b", "DEFAULT_RULES", True),
-         "granite": ("granite-moe-1b-a400m", "SMALL_MODEL_RULES", False)}
+         "granite": ("granite-moe-1b-a400m", "SMALL_MODEL_RULES", False),
+         "minicpm3": ("minicpm3-4b", "DEFAULT_RULES", False),
+         "recurrentgemma": ("recurrentgemma-9b", "DEFAULT_RULES", False),
+         "vision": ("llama-3.2-vision-11b", "DEFAULT_RULES", False)}
 MICRO, ROWS, SEQ = 2, 8, 32
 
 
@@ -62,6 +73,10 @@ def _case(arch, rules, guard):
                 params=params, tokens=tokens, runs=1, meter=True, guard=guard)
     if guard:
         case["scales"] = [np.ones(4, np.float32)]
+    if cfg.n_img_tokens:  # the context, and the gates open (0 at init)
+        case["ctx"] = [rng.standard_normal((ROWS, cfg.n_img_tokens, cfg.d_model))
+                       .astype(np.float32)]
+        case["gate"] = 0.5
     return case
 
 
@@ -137,14 +152,20 @@ def test_all_cells_on_the_production_mesh_allocate_nothing(tmp_path, capsys):
     recs = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
     assert len(recs) == 40
     ok = {r["arch"] for r in recs if r["status"] == "ok"}
-    assert ok == {"olmo-1b", "internlm2-1.8b", "deepseek-7b", "granite-moe-1b-a400m",
-                  "dbrx-132b"}
+    served = {"olmo-1b", "internlm2-1.8b", "deepseek-7b", "granite-moe-1b-a400m", "dbrx-132b"}
+    # minicpm3-4b's 40 heads do not split over 16 model ranks
+    assert ok == served | {"recurrentgemma-9b", "llama-3.2-vision-11b"}
     serving = [r for r in recs if r["mode"] != "train" and r["status"] != "skipped"]
     assert all(r["status"] in ("ok", "refused") for r in recs if r["status"] != "skipped")
-    assert {r["arch"] for r in serving if r["status"] == "ok"} == ok
+    assert {r["arch"] for r in serving if r["status"] == "ok"} == served
     for r in serving:
         if r["status"] == "refused":
-            assert r["reason"].startswith("the sharded step runs self-attention blocks")
+            assert r["reason"].startswith(
+                "the sharded step runs self-attention" if r["arch"] in (
+                    "mamba2-780m", "musicgen-medium") else "sharded serving runs")
+    for r in recs:
+        if r["arch"] == "minicpm3-4b" and r["mode"] == "train":
+            assert r["status"] == "refused" and "40 query heads do not split" in r["reason"]
     cells = {(r["arch"], r["shape"]): r for r in serving}
     for arch in ("deepseek-7b", "internlm2-1.8b", "dbrx-132b"):
         assert cells[(arch, "decode_32k")]["status"] == "ok"
@@ -209,3 +230,28 @@ def test_serving_cells_equal_the_metered_run(serving_ranks, name):
         for k in ("params", "caches", "logits"):
             assert r[name]["block_bytes"][k] == want[k], k
     assert want["need"] > want["params"] + want["caches"] + want["logits"]
+
+
+def test_the_new_mixers_train_cells_on_2x2(tmp_path):
+    """On (2, 2): the train cells of the MLA, RG-LRU and cross-attention
+    archs ``ok``; mamba2-780m's and musicgen-medium's ``refused`` with
+    ``Plan``'s reason; the three archs' serving cells with the serving
+    layout's."""
+    from repro_torch.configs import SHAPES, get_arch, get_shape
+    from repro_torch.configs.base import shape_applicable
+
+    for arch in ("minicpm3-4b", "recurrentgemma-9b", "llama-3.2-vision-11b", "mamba2-780m",
+                 "musicgen-medium"):
+        for shape in SHAPES:
+            if not shape_applicable(get_arch(arch), get_shape(shape))[0]:
+                continue
+            rec = dryrun.run_cell(arch, shape, "2x2", tmp_path)
+            new = arch in ("minicpm3-4b", "recurrentgemma-9b", "llama-3.2-vision-11b")
+            if rec["mode"] == "train" and new:
+                assert rec["status"] == "ok", (arch, shape, rec.get("reason"))
+                assert rec["collectives"]["total_bytes"] > 0
+            elif new:
+                assert rec["status"] == "refused" and "sharded serving" in rec["reason"]
+            else:
+                assert rec["status"] == "refused" and rec["reason"].startswith(
+                    "the sharded step runs self-attention")

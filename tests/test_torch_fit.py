@@ -191,3 +191,38 @@ def test_step_bitwise_the_earlier_arithmetic(arch):
         assert torch.equal(a.detach().reshape(-1).view(bits[a.element_size()]),
                            b.detach().reshape(-1).view(bits[b.element_size()]))
     assert int(oa.step) == int(ob.step) == 2
+
+
+def _sharded_fit(card, arch, layers, shape, rules="DEFAULT_RULES"):
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.model import param_axes
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    mesh = abstract_mesh(shape, ("data", "model"))
+    meta = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+    specs = SH.param_shardings(param_axes(cfg), mesh, getattr(SH, rules), meta)
+    train_cli.check_fits_card(cfg, TrainConfig(), card, ranks_on_card=4, world=4,
+                              shard=(mesh, specs))
+
+
+@pytest.mark.parametrize("arch,layers,shape,rules", [
+    ("deepseek-7b", 3, (2, 2), "DEFAULT_RULES"),
+    ("granite-moe-1b-a400m", 6, (2, 2), "SMALL_MODEL_RULES"),
+    ("minicpm3-4b", 2, (2, 2), "DEFAULT_RULES"),
+    ("llama-3.2-vision-11b", 5, (2, 2), "DEFAULT_RULES"),
+    ("recurrentgemma-9b", 3, (1, 4), "DEFAULT_RULES"),
+])
+def test_chip_smoke_sharded_runs_fit_four_ranks_on_a_card(card, arch, layers, shape, rules):
+    """The sharded phase's archs, depths and meshes: four ranks sharing one
+    card, each charged its blocks' peak with AdamW's temporaries of one
+    piece, the reserve over its batch ranks and its CUDA context."""
+    _sharded_fit(card, arch, layers, shape, rules)
+
+
+def test_recurrentgemma_on_2x2_does_not_fit_four_ranks_on_a_card(card):
+    """On (data 2, model 2) a rank holds half of the 256 000-row embedding
+    and head, with their moments, accumulators and gradients: 16.8 GB,
+    past a quarter of the card with the reserve at any depth."""
+    with pytest.raises(ValueError, match="sharded over more cards"):
+        _sharded_fit(card, "recurrentgemma-9b", 1, (2, 2))

@@ -40,6 +40,22 @@ is the port's ``make_train_step`` on the whole parameters.
   * the guarded sharded step (deepseek, f32): rank 2's gradients NaN on
     step 2, the step skipped on every rank in lockstep, the blocks
     bitwise unchanged across it, the guard states equal.
+  * the other mixers, f32, DEFAULT_RULES on (2, 2), two steps, two
+    microbatches, in the same spawn and to the same 1e-5 as deepseek (for
+    the same reason): tiny minicpm3-4b (MLA, 2 of 4 heads a rank), tiny
+    recurrentgemma-9b (rec, rec, local_attn: the RG-LRU's 32 of 64
+    channels a rank, 8 of 16 gate blocks; local attention's one kv head
+    gathered over "model"; the soft-capped logits into the vocab-parallel
+    loss) and tiny llama-3.2-vision-11b (four attn and one xattn, with a
+    seeded numpy context of 16 slots cut by rows with the batch). Every
+    cross-attention gate is set to 0.5 in the weights before they are cut,
+    for the ranks and the single-device step alike: at init it is 0, the
+    block adds nothing and its q, k, v and o get no gradient, so its
+    tensor parallelism would go untested. One planted fault a mixer, on
+    rank 1, must fail the limit and the replica check: MLA's f dropped on
+    the shared RoPE key, the RG-LRU's g 2^-10 too large, cross-attention's
+    f dropped on the query input (a backward fault: only an open gate
+    shows it).
 On every case the leaves a spec leaves whole are bitwise equal across the
 ranks of those axes, and a second run from the same start is bitwise the
 first.
@@ -64,6 +80,9 @@ import torch_mesh_workers as W
 
 F32_REL = 1e-5
 BF16_LOSS_REL, BF16_GNORM_REL, BF16_UPDATE_REL = 2e-3, 2e-3, 0.5
+OPEN_GATE = 0.5
+MIXERS = {"minicpm3": ("minicpm3-4b", "mla"), "recurrentgemma": ("recurrentgemma-9b", "rec"),
+          "vision": ("llama-3.2-vision-11b", "xattn")}
 
 
 def _ref_params(arch, dtype):
@@ -77,9 +96,23 @@ def _tokens(n, rows, seq, seed):
 
 
 def _case(arch, dtype, kernels, rules, micro, rows=8, seq=32, **kw):
-    return dict(arch=arch, dtype=dtype, kernels=kernels, rules=rules, micro=micro,
+    case = dict(arch=arch, dtype=dtype, kernels=kernels, rules=rules, micro=micro,
                 params=_ref_params(arch, dtype), tokens=_tokens(2, rows, seq, 7),
                 exact_f32=dtype == "float32", **kw)
+    ref = ref_arch(arch, tiny=True)
+    if ref.n_img_tokens:  # a cross-attention arch: its context, and its gates open
+        rng = np.random.default_rng(9)
+        case["ctx"] = [rng.standard_normal((rows, ref.n_img_tokens, ref.d_model))
+                       .astype(np.float32) for _ in case["tokens"]]
+        case["gate"] = OPEN_GATE
+    return case
+
+
+def _batch(case, i):
+    batch = {"tokens": torch.from_numpy(case["tokens"][i])}
+    if "ctx" in case:
+        batch["image_embeds"] = torch.from_numpy(case["ctx"][i])
+    return batch
 
 
 def _single(case):
@@ -93,20 +126,21 @@ def _single(case):
         cfg = W.sharded_cfg(case["arch"], case["dtype"], case["kernels"])
         tcfg = TrainConfig(microbatches=case["micro"], **case.get("tcfg", {}))
         params = params_from_jax(case["params"], cfg)
+        if case.get("gate") is not None:
+            W.open_gates(params, cfg, case["gate"])
         for p in R.tree_leaves(params):
             p.requires_grad_(True)
         opt = optim.init_state(params)
         metrics = []
         if case.get("guard"):
             step, gstate = make_guarded_train_step(cfg, tcfg), optim.init_guard_state(4)
-            for tok in case["tokens"]:
-                params, opt, gstate, m = step(params, opt, gstate,
-                                              {"tokens": torch.from_numpy(tok)})
+            for i in range(len(case["tokens"])):
+                params, opt, gstate, m = step(params, opt, gstate, _batch(case, i))
                 metrics.append({k: float(v) for k, v in m.items()})
         else:
             step = make_train_step(cfg, tcfg)
-            for tok in case["tokens"]:
-                params, opt, m = step(params, opt, {"tokens": torch.from_numpy(tok)})
+            for i in range(len(case["tokens"])):
+                params, opt, m = step(params, opt, _batch(case, i))
                 metrics.append({k: float(v) for k, v in m.items()})
         return metrics, [p.detach() for p in R.tree_leaves(params)]
     finally:
@@ -188,36 +222,81 @@ def _guarded_case():
 
 @pytest.fixture(scope="module")
 def f32_cases():
-    return {
+    cases = {
         "deepseek": _case("deepseek-7b", "float32", False, "DEFAULT_RULES", 2),
         "granite": _case("granite-moe-1b-a400m", "float32", False, "SMALL_MODEL_RULES", 2),
         "guarded": _guarded_case(),
-        "fault": _case("deepseek-7b", "float32", False, "DEFAULT_RULES", 2, fault=True,
-                       runs=1),
     }
+    for name, (arch, _) in MIXERS.items():
+        cases[name] = _case(arch, "float32", False, "DEFAULT_RULES", 2)
+    cases["fault"] = _case("deepseek-7b", "float32", False, "DEFAULT_RULES", 2, fault=True,
+                           runs=1)
+    for name, (arch, kind) in MIXERS.items():
+        cases[f"fault_{kind}"] = _case(arch, "float32", False, "DEFAULT_RULES", 2, fault=kind,
+                                       runs=1)
+    return cases
+
+
+@pytest.fixture(scope="module")
+def singles(f32_cases):
+    """The single-device steps of the clean cases, made once (a planted
+    fault's case has its clean case's weights and batches)."""
+    memo = {}
+
+    def get(name):
+        if name not in memo:
+            memo[name] = _single(f32_cases[name])
+        return memo[name]
+
+    return get
 
 
 @pytest.fixture(scope="module")
 def ranks_2x2(tmp_path_factory, f32_cases):
-    """Every f32 case on one spawn of (2, 2), the planted fault last."""
+    """Every f32 case on one spawn of (2, 2), the planted faults last."""
     ranks = W.run_mesh("sharded_cases", (2, 2), ("data", "model"),
                        tmp_path_factory.mktemp("sharded"), f32_cases)
     return {name: [r[name] for r in ranks] for name in f32_cases}
 
 
-@pytest.mark.parametrize("name", ["deepseek", "granite"])
-def test_f32_sharded_step_holds_the_single_device_step(ranks_2x2, f32_cases, name):
-    ok, worst = _check(ranks_2x2[name], _single(f32_cases[name]), F32_REL, F32_REL, F32_REL)
+@pytest.mark.parametrize("name", ["deepseek", "granite", "minicpm3", "recurrentgemma",
+                                  "vision"])
+def test_f32_sharded_step_holds_the_single_device_step(ranks_2x2, singles, name):
+    ok, worst = _check(ranks_2x2[name], singles(name), F32_REL, F32_REL, F32_REL)
     assert ok, worst
     _bitwise_repeat(ranks_2x2[name])
 
 
-def test_planted_fault_fails_the_limit(ranks_2x2, f32_cases):
+@pytest.mark.parametrize("name", sorted(MIXERS))
+def test_planted_mixer_fault_fails_the_limit_and_the_replicas(ranks_2x2, singles, name):
+    """One mixer's f or g planted wrong on rank 1 (the module doc): the
+    sharded step leaves the limit, and the leaves its spec leaves whole
+    (kv_down before MLA's RoPE key, the norms before the RG-LRU and the
+    cross-attention) no longer agree across the model ranks."""
+    ranks = ranks_2x2[f"fault_{MIXERS[name][1]}"]
+    ok, worst = _check_gaps(ranks, singles(name))
+    print(f"planted {MIXERS[name][1]} fault: worst relative gaps {worst}")
+    assert max(worst.values()) > F32_REL
+    assert not all(r["runs"][0]["replicas_agree"] for r in ranks)
+
+
+def _check_gaps(ranks, single):
+    """The worst relative gaps of every rank's first run against the
+    single-device step: loss, grad norm, and every parameter."""
+    metrics, params = single
+    worst = {k: max(_rel(got[k], want[k]) for r in ranks
+                    for got, want in zip(r["runs"][0]["metrics"], metrics))
+             for k in ("loss", "grad_norm")}
+    worst["param"] = _worst_param(ranks[0]["whole"], params)
+    return max(worst.values()) <= F32_REL, worst
+
+
+def test_planted_fault_fails_the_limit(ranks_2x2, singles):
     """Rank 1's Megatron all-reduce 2^-10 too large: the sharded step
     leaves the limit (the merged loss and the combined norm stay the same
     on every rank, so the gap shows against the single-device step)."""
     ranks = ranks_2x2["fault"]
-    metrics, params = _single(f32_cases["fault"])
+    metrics, params = singles("deepseek")
     firsts = [r["runs"][0]["metrics"] for r in ranks]
     worst = max(_rel(got[k], want[k]) for run in firsts for got, want in zip(run, metrics)
                 for k in ("loss", "grad_norm"))
@@ -260,3 +339,82 @@ def test_guarded_sharded_step_skips_in_lockstep(ranks_2x2, f32_cases):
         assert _rel(g["loss"], m["loss"]) <= F32_REL
         assert _rel(g["grad_norm"], m["grad_norm"]) <= F32_REL
     assert _worst_param(ranks[0]["whole"], params) <= F32_REL
+
+
+def _plan(cfg, shape, rules="DEFAULT_RULES"):
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.model import init_params, param_axes
+    from repro_torch.models.parallel import Plan
+
+    mesh = abstract_mesh(shape, ("data", "model"))
+    meta = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+    return Plan(cfg, mesh, SH.param_shardings(param_axes(cfg), mesh, getattr(SH, rules), meta))
+
+
+@pytest.mark.parametrize("what", ["gate_blocks", "mla_heads"])
+def test_plan_refuses_the_cuts_a_mixer_cannot_run(what):
+    """An RG-LRU whose rank's channels are no whole gate blocks (64
+    channels over 32 model ranks: 2 a rank, gate blocks of 4, which the
+    rules leave whole), and MLA's 4 heads over 8 model ranks (its q_up,
+    kv_up and o cut, inside a head)."""
+    from repro_torch.configs import get_arch
+
+    if what == "gate_blocks":
+        cfg, shape, match = get_arch("recurrentgemma-9b", tiny=True), (1, 32), "whole gate blocks"
+    else:
+        cfg, shape, match = get_arch("minicpm3-4b", tiny=True), (1, 8), "4 query heads do not split"
+    with pytest.raises(NotImplementedError, match=match):
+        _plan(cfg, shape)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "musicgen-medium"])
+def test_plan_refuses_ssm_blocks_and_codebook_streams(arch):
+    from repro_torch.configs import get_arch
+
+    match = "block kinds \\['ssm'\\]" if arch.startswith("mamba") else "codebook streams"
+    with pytest.raises(NotImplementedError, match=match):
+        _plan(get_arch(arch, tiny=True), (2, 2))
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "recurrentgemma-9b", "llama-3.2-vision-11b"])
+def test_plan_takes_the_mixers_and_the_serving_layout_refuses_them(arch):
+    """The training plan of each new mixer on (2, 2), its layout's TP as
+    the rules cut it; the serving layout of the same plan refuses, naming
+    sharded serving."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import make_caches
+
+    cfg = get_arch(arch, tiny=True)
+    plan = _plan(cfg, (2, 2))
+    for kind, sp in zip(cfg.pattern_layers, plan.specs["layers"]):
+        lay = plan.layout(sp, kind)
+        assert lay["inner_tp" if kind == "rec" else "attn_tp"], kind
+    meta = make_caches(cfg, 2, 16, torch.device("meta"))
+    plan = plan.for_caches(SH.cache_shardings(meta, cfg, plan.mesh))
+    with pytest.raises(NotImplementedError, match="sharded serving runs self-attention"):
+        plan.serve_layout(0, 16)
+
+
+@pytest.mark.parametrize("guarded", [False, True])
+def test_adamw_in_pieces_is_bitwise_the_whole_leaf(guarded):
+    """The sharded step's AdamW runs a leaf past ``SHARDED_PIECE`` elements
+    in pieces (so that ranks sharing a card hold one piece's f32
+    temporaries): two steps in pieces of 7 are bitwise two whole-leaf
+    steps, plain and guarded (a clean step and a skipped one)."""
+    from repro_torch.optim import adamw
+
+    tcfg = TrainConfig(warmup_steps=1)
+    runs = []
+    for piece in (None, 7):
+        gen = torch.Generator().manual_seed(0)
+        params = [torch.randn(5, 9, generator=gen), torch.randn(3, generator=gen).bfloat16(),
+                  torch.randn(100, 33, generator=gen)]
+        grads = [torch.randn(p.shape, generator=gen).to(p.dtype) for p in params]
+        state = optim.init_state(params)
+        for keep in ((torch.tensor(False), torch.tensor(True)) if guarded else (None, None)):
+            state, _ = adamw._adamw_core(params, grads, state, tcfg, clip=torch.tensor(0.7),
+                                         keep=keep, piece=piece)
+        runs.append([_bits(t) for t in params + state.m + state.v])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -97,6 +97,11 @@ def collectives(rank, world, cases):
     if rank == 1:
         rep = torch.nextafter(rep, torch.full_like(rep, float("inf")))
     out["fault_bits_agree"] = bool(C.replica_bits_agree(rep, ("data",)))
+    # a 0-d 16-bit leaf (a bf16 gate) travels as bytes too
+    gate = torch.tensor(0.5 + (rank == 1) * 2**-8, dtype=torch.bfloat16)
+    out["gate_bits_agree"] = (bool(C.replica_bits_agree(torch.tensor(0.5, dtype=torch.bfloat16),
+                                                        ("data",))),
+                              bool(C.replica_bits_agree(gate, ("data",))))
     real = C.fixed_order_combine
     if rank == 1:
         C.fixed_order_combine = _nudged(real)
@@ -348,6 +353,16 @@ def sharded_cfg(arch: str, dtype: str, kernels: bool):
                                mma_reductions=kernels)
 
 
+def open_gates(params, cfg, value: float) -> None:
+    """Every cross-attention gate of ``params`` set to ``value``, in place.
+    At init the gates are 0: the block then adds nothing, its q, k, v and
+    o get no gradient, and a fault in its tensor parallelism would not
+    show (a trained model's gates are open)."""
+    for kind, layer in zip(cfg.pattern_layers, params["layers"]):
+        if kind == "xattn":
+            layer["mix"]["gate"].fill_(value)
+
+
 def _replicas_agree(params, specs, mesh) -> bool:
     """Every leaf's bits equal across the ranks of each axis its spec
     leaves whole (a replicated leaf is the same on every rank)."""
@@ -380,6 +395,80 @@ def _nudge_one_rank(rank: int):
     return undo
 
 
+class _OwnPartBackward(torch.autograd.Function):
+    """Megatron's f with its sum dropped: the backward still runs the
+    all-reduce (the ranks stay in lockstep) but keeps the rank's own part
+    of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        C.fixed_order_combine(g, ctx.axes, ctx.mesh)
+        return g, None, None
+
+
+def _dropped_f(tp, x):
+    return _OwnPartBackward.apply(x, C._block_axes(tp.axis), tp.mesh)
+
+
+class _PlantedTP:
+    """A mixer's ``models.parallel.TP`` with its f (``enter``) or g
+    (``exit``) replaced by ``enter(tp, x)`` / ``exit(tp, y)``."""
+
+    def __init__(self, tp, enter=None, exit=None):
+        self.tp, self._enter, self._exit = tp, enter, exit
+
+    def enter(self, x):
+        return (self._enter or type(self.tp).enter)(self.tp, x)
+
+    def exit(self, y):
+        return (self._exit or type(self.tp).exit)(self.tp, y)
+
+
+def _plant_mixer_fault(rank: int, kind: str):
+    """A planted fault in one mixer's tensor parallelism, on global rank 1
+    (data 0, model 1); returns the undo.
+
+      mla    f dropped on the shared RoPE key (``_expand``'s third f):
+             kv_down's rope columns and everything before them get that
+             rank's heads' part of its gradient alone
+      rec    the RG-LRU's g comes out 2^-10 too large
+      xattn  f dropped on the query input: a backward fault, which only a
+             nonzero gate shows
+    A dropped f still runs its all-reduce (``_OwnPartBackward``): a rank
+    that skipped it would leave the others waiting.
+    """
+    from repro_torch.models import attention, mla, rglru
+
+    module, name = {"mla": (mla, "mla_train"), "rec": (rglru, "rglru_train"),
+                    "xattn": (attention, "cross_attention_apply")}[kind]
+    real = getattr(module, name)
+
+    def planted_tp(tp):
+        if kind == "mla":
+            calls = [0]
+
+            def enter(t, x):  # cq, ckv, then the RoPE key
+                calls[0] += 1
+                return _dropped_f(t, x) if calls[0] == 3 else type(t).enter(t, x)
+            return _PlantedTP(tp, enter=enter)
+        if kind == "rec":
+            return _PlantedTP(tp, exit=lambda t, y: type(t).exit(t, y) * (1 + 2**-10))
+        return _PlantedTP(tp, enter=_dropped_f)
+
+    def wrong(*args, tp=None, **kwargs):
+        if tp is not None and rank == 1:
+            tp = planted_tp(tp)
+        return real(*args, tp=tp, **kwargs)
+
+    setattr(module, name, wrong)
+    return lambda: setattr(module, name, real)
+
+
 def sharded_cases(rank, mesh, cases: dict) -> dict:
     """``sharded_train`` of each case in turn, on one process group."""
     return {name: sharded_train(rank, mesh, case) for name, case in cases.items()}
@@ -400,7 +489,9 @@ def sharded_train(rank, mesh, case: dict):
 
     if case.get("exact_f32"):
         exact_f32_attention()
-    undo = _nudge_one_rank(rank) if case.get("fault") else None
+    fault = case.get("fault")
+    undo = (None if not fault else _nudge_one_rank(rank) if fault is True
+            else _plant_mixer_fault(rank, fault))
     try:
         return _sharded_train(rank, mesh, case)
     finally:
@@ -422,6 +513,8 @@ def _sharded_train(rank, mesh, case: dict):
     out = {"runs": []}
     for run in range(case.get("runs", 2)):
         whole = params_from_jax(case["params"], cfg)
+        if case.get("gate") is not None:
+            open_gates(whole, cfg, case["gate"])
         specs = SH.param_shardings(param_axes(cfg), mesh, rules, whole)
         params = SH.shard_tree(whole, specs, mesh)
         for p in R.tree_leaves(params):
@@ -436,6 +529,8 @@ def _sharded_train(rank, mesh, case: dict):
         metrics, bits_after = [], []
         for i, tok in enumerate(case["tokens"]):
             batch = {"tokens": torch.from_numpy(tok)}
+            if "ctx" in case:
+                batch["image_embeds"] = torch.from_numpy(case["ctx"][i])
             if guard:
                 batch["chaos_scale"] = torch.from_numpy(case["scales"][i])
 
