@@ -137,19 +137,22 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             sharing the first card, in one spawn, train at full width on a
             (data 2, model 2) mesh deepseek-7b at 3 layers (FSDP + TP +
             vocab TP), granite-moe-1b-a400m at 6 of 24 layers (FSDP +
-            vocab TP + EP), minicpm3-4b at 2 (MLA's TP) and
+            vocab TP + EP), minicpm3-4b at 2 (MLA's TP),
             llama-3.2-vision-11b at 5 (cross-attention's TP, its gates
-            open), and on (data 1, model 4) recurrentgemma-9b at 3 (the
-            RG-LRU's channels, local attention's one kv head gathered),
-            two steps each at a learning rate past warmup: both steps' loss,
-            grad norm and clip against the single-rank step's, step 1's
-            update of the probed leaves (layer 0's, the first rec and
-            xattn block's) against the single rank's, replicated leaves
-            bitwise equal across ranks, each rank's collective bytes equal
-            to the dry run's model, its launches to the launch model; for
-            the three new mixers step 1's gradient of the probed leaves,
-            and a planted fault in each mixer's TP that must read 10 x its
-            limit; K7's partial variant against its plain version; the dry
+            open), mamba2-780m at 2 (the SSM's TP) and musicgen-medium at
+            2 (SMALL_MODEL_RULES: the codebook streams vocab-parallel, the
+            fused second moment), and on (data 1, model 4)
+            recurrentgemma-9b at 3 (the RG-LRU's channels, local
+            attention's one kv head gathered), two steps each at a
+            learning rate past warmup: both steps' loss, grad norm and clip
+            against the single-rank step's, step 1's update of the probed
+            leaves (layer 0's, the first rec and xattn block's, a codebook
+            table) against the single rank's, replicated leaves bitwise
+            equal across ranks, each rank's collective bytes equal to the
+            dry run's model, its launches to the launch model; for the
+            five new kinds step 1's gradient of the probed leaves, and a
+            planted fault in each mixer's TP (musicgen's: its lookup one
+            row off) that must read 10 x its limit; K7's partial variant against its plain version; the dry
             run of deepseek-7b train_4k on (2, 2) and (16, 16) (a model
             figure: the step's peak, the reserve and the checkpointed
             block inputs a rank);
@@ -4781,8 +4784,17 @@ SHARDED_DEEPSEEK_LAYERS = 3
 # moments, accumulators and gradients alone, and the fit check refuses four
 # such ranks on one card at any depth (99.5 GB with the reserve at 3
 # layers); over 4 model ranks they hold half that (79.1 GB in all).
-SHARDED_MIXERS = {MINICPM: (2, (2, 2)), VISION: (5, (2, 2)), RG: (3, (1, 4))}
+# mamba2-780m (DEFAULT_RULES: the SSM's tensor parallelism, 24 of 48 heads a
+# rank, its tied 50 432-row table cut in two) and musicgen-medium
+# (SMALL_MODEL_RULES, as the reference's rules choice gives it: FSDP and its
+# four codebook streams vocab-parallel) at 2 layers on (2, 2).
+SHARDED_MIXERS = {MINICPM: (2, (2, 2)), VISION: (5, (2, 2)), RG: (3, (1, 4)),
+                  MAMBA: (2, (2, 2)), MUSICGEN: (2, (2, 2))}
 SHARDED_ARCHS = ("deepseek-7b", GRANITE) + tuple(SHARDED_MIXERS)
+# The archs whose sharded run (and its single rank) keeps the fused second
+# moment (``TrainConfig(fused_second_moment=True)``: one scalar EMA a
+# reference leaf, its group sizes the whole leaves' under the sharded step).
+SHARDED_FUSED = (MUSICGEN,)
 # The learning rate is past warmup from step 1 (3e-4), so that step 1's
 # AdamW update moves the bf16 weights by whole ulps and step 2 sees it (at
 # the default warmup's 3e-6 most bf16 weights would not move at all).
@@ -4823,12 +4835,15 @@ SHARDED_LEAF_GRAD_REL, SHARDED_FAULT_X = 0.05, 10
 # bf16 rounding apart: 0.01 of the pairs a layer.
 SHARDED_DROP_TOL = 0.01
 SHARDED_RULES = {"deepseek-7b": "DEFAULT_RULES", GRANITE: "SMALL_MODEL_RULES",
-                 MINICPM: "DEFAULT_RULES", VISION: "DEFAULT_RULES", RG: "DEFAULT_RULES"}
+                 MINICPM: "DEFAULT_RULES", VISION: "DEFAULT_RULES", RG: "DEFAULT_RULES",
+                 MAMBA: "DEFAULT_RULES", MUSICGEN: "SMALL_MODEL_RULES"}
 # The mixer each new arch's planted fault goes into, and the function that
-# takes its ``tp``.
+# takes its ``tp``. musicgen-medium's blocks run whole under its rules: its
+# fault goes into the codebook lookup instead (``plant_book_slip``).
 MIXER_FAULTS = {MINICPM: ("repro_torch.models.mla", "mla_train"),
                 RG: ("repro_torch.models.rglru", "rglru_train"),
-                VISION: ("repro_torch.models.attention", "cross_attention_apply")}
+                VISION: ("repro_torch.models.attention", "cross_attention_apply"),
+                MAMBA: ("repro_torch.models.ssm", "ssm_train")}
 
 
 def sharded_specs(cfg, rules: str, mesh):
@@ -4893,18 +4908,38 @@ def sharded_launches_per_step(cfg) -> dict:
     return out
 
 
+def sharded_tcfg(arch: str):
+    """The phase's ``TrainConfig`` of ``arch``: past warmup from step 1,
+    and the fused second moment for ``SHARDED_FUSED``."""
+    from repro_torch.configs import TrainConfig
+
+    return TrainConfig(warmup_steps=SHARDED_WARMUP, fused_second_moment=arch in SHARDED_FUSED)
+
+
+def sharded_opt(params, cfg, tcfg):
+    """AdamW's state for ``params`` (the fused second moment's scalars one
+    a reference leaf)."""
+    from repro_torch import optim
+    from repro_torch.models.convert import reference_leaf_groups
+
+    return optim.init_state(params, fused_second_moment=tcfg.fused_second_moment,
+                            leaf_groups=reference_leaf_groups(params, cfg))
+
+
 def _sharded_batches(cfg, device) -> list:
-    """The phase's global batches: tokens, and a cross-attention arch's
-    context (``frontends.synth_image_embeds``), from a generator seeded 1."""
+    """The phase's global batches: tokens ((B, S + 1, K) with K codebook
+    streams), and a cross-attention arch's context
+    (``frontends.synth_image_embeds``), from a generator seeded 1."""
     import torch
 
     from repro_torch.models.frontends import synth_image_embeds
     from repro_torch.models.model import param_dtype
 
     gen = torch.Generator(device=device).manual_seed(1)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     out = []
     for _ in range(SHARDED_STEPS):
-        batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1) + books,
                                          generator=gen, device=device)}
         if cfg.n_img_tokens:
             batch["image_embeds"] = synth_image_embeds(gen, TRAIN_BATCH, cfg.n_img_tokens,
@@ -4929,12 +4964,14 @@ def _sharded_params(cfg, device):
 def _probe_leaves(params, cfg) -> list:
     """Leaf indices (``reduce.tree_leaves`` order) of the leaves of at most
     ``SHARDED_PROBE_MAX`` elements in layer 0 and in the first rec and the
-    first xattn block."""
+    first xattn block, and a codebook arch's table."""
     from repro_torch import reduce as R
 
     layers = {0} | {cfg.pattern_layers.index(k) for k in ("rec", "xattn")
                     if k in cfg.pattern_layers}
     probed = {id(t) for i in layers for t in R.tree_leaves(params["layers"][i])}
+    if cfg.n_codebooks:
+        probed.add(id(params["embed"]["table"]))
     return [j for j, t in enumerate(R.tree_leaves(params))
             if id(t) in probed and t.numel() <= SHARDED_PROBE_MAX]
 
@@ -4962,13 +4999,16 @@ def plant_doubled_f(arch: str, rank: int):
 
     class Planted:
         def __init__(self, tp):
-            self.tp = tp
+            self.tp, self.mesh, self.axis = tp, tp.mesh, tp.axis
 
         def enter(self, x):
             return DoubledF.apply(x, C._block_axes(self.tp.axis), self.tp.mesh)
 
         def exit(self, y):
             return self.tp.exit(y)
+
+        def both(self, s):
+            return self.tp.both(s)
 
     path, name = MIXER_FAULTS[arch]
     module = importlib.import_module(path)
@@ -4979,6 +5019,38 @@ def plant_doubled_f(arch: str, rank: int):
 
     setattr(module, name, wrong)
     return lambda: setattr(module, name, real)
+
+
+def plant_book_slip(rank: int):
+    """On global rank 1, the codebook lookup reads each token's row one row
+    down its block (its offset ``Plan.book0`` one too large; the last row
+    of the block misses): rank 1's streams look up their neighbours' rows,
+    so the table's gradient lands one row off on that rank's block. The
+    offset fault of the CPU case (``Plan.vocab0`` for ``book0``) hides at
+    the full 2048 rows, where the two offsets agree. Returns the undo."""
+    from repro_torch.models import parallel
+
+    real = parallel.Plan.__init__
+
+    def wrong(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        if rank == 1:
+            self.book0 += 1
+
+    parallel.Plan.__init__ = wrong
+    return lambda: setattr(parallel.Plan, "__init__", real)
+
+
+def plant_fault(arch: str, rank: int):
+    """``arch``'s planted fault on global rank 1 (``plant_doubled_f``, or
+    ``plant_book_slip`` for the codebook arch). Returns the undo."""
+    return plant_doubled_f(arch, rank) if arch in MIXER_FAULTS else plant_book_slip(rank)
+
+
+def fault_name(arch: str) -> str:
+    if arch in MIXER_FAULTS:
+        return f"rank 1's f in its {MIXER_FAULTS[arch][1]} summed twice"
+    return "rank 1's codebook lookup one row off"
 
 
 def _grad_gaps(opt, clip: float, single: dict, spec_leaves, mesh) -> list:
@@ -5008,16 +5080,15 @@ def _sharded_job(rank: int, world: int, job: dict) -> dict:
     replicas' bits; the routing's drop fractions; step 1's update and
     gradient of the probed leaves against the single rank's (saved by
     ``_sharded_single`` to ``job["probe"]``). With ``job["fault"]``, step 1
-    again from the same start with ``plant_doubled_f``: its gradient gaps
-    and the replicas' bits."""
+    again from the same start with ``plant_fault``: its gradient gaps and
+    the replicas' bits."""
     import dataclasses
     import gc
 
     import torch
 
-    from repro_torch import optim
     from repro_torch import reduce as R
-    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.configs import get_arch
     from repro_torch.core import collectives as C
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import sharding as SH
@@ -5029,7 +5100,7 @@ def _sharded_job(rank: int, world: int, job: dict) -> dict:
     t_job = time.perf_counter()
     mesh = mesh_lib.make_mesh(job["shape"], SHARDED_AXES)
     cfg = dataclasses.replace(get_arch(job["arch"]), n_layers=job["layers"])
-    tcfg = TrainConfig(warmup_steps=SHARDED_WARMUP)
+    tcfg = sharded_tcfg(job["arch"])
     specs = sharded_specs(cfg, job["rules"], mesh)
     spec_leaves = SH.tree_leaves(specs)
     dev = mesh.device
@@ -5044,8 +5115,8 @@ def _sharded_job(rank: int, world: int, job: dict) -> dict:
         torch.cuda.empty_cache()
         for p in R.tree_leaves(params):
             p.requires_grad_(True)
-        return params, optim.init_state(params), make_train_step(cfg, tcfg, mesh=mesh,
-                                                                 param_shardings=specs)
+        return params, sharded_opt(params, cfg, tcfg), make_train_step(cfg, tcfg, mesh=mesh,
+                                                                       param_shardings=specs)
 
     def replicas(params):
         agree = True
@@ -5106,9 +5177,9 @@ def _sharded_job(rank: int, world: int, job: dict) -> dict:
         del params, opt, step, out
         gc.collect()
         torch.cuda.empty_cache()
-        params, opt, step = start()
-        undo = plant_doubled_f(job["arch"], rank)
-        try:
+        undo = plant_fault(job["arch"], rank)
+        try:  # the plan is made with the step
+            params, opt, step = start()
             params, opt, m = step(params, opt, batches[0])
         finally:
             undo()
@@ -5153,17 +5224,17 @@ def _sharded_single(arch: str, layers: int, probe_path: str) -> dict:
 
     import torch
 
-    from repro_torch import optim
     from repro_torch import reduce as R
-    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.configs import get_arch
     from repro_torch.launch.steps import make_train_step
 
     cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
     params = _sharded_params(cfg, DEVICE)
     for p in R.tree_leaves(params):
         p.requires_grad_(True)
-    opt = optim.init_state(params)
-    step = make_train_step(cfg, TrainConfig(warmup_steps=SHARDED_WARMUP))
+    tcfg = sharded_tcfg(arch)
+    opt = sharded_opt(params, cfg, tcfg)
+    step = make_train_step(cfg, tcfg)
     probe = _probe_leaves(params, cfg)
     before = {j: R.tree_leaves(params)[j].detach().clone() for j in probe}
     out = {"metrics": []}
@@ -5343,7 +5414,7 @@ def _check_sharded_arch(arch: str, layers: int, shape, ranks: list, single: dict
               "rank's")
         fault = max(g for res in ranks for _, g in res["fault"]["grad_gaps"])
         agree = [res["fault"]["replicas_agree"] for res in ranks]
-        print(f"sharded {arch} with rank 1's f in its {MIXER_FAULTS[arch][1]} summed twice: "
+        print(f"sharded {arch} with {fault_name(arch)}: "
               f"worst gradient gap {fault:.4g}, {fault / SHARDED_LEAF_GRAD_REL:.3g} x the limit "
               f"(at least {SHARDED_FAULT_X} needed); replicas bitwise {agree}")
         # not a check: step 1's AdamW update is lr x the gradient's sign,
@@ -5378,9 +5449,11 @@ def run_sharded_phase(results: dict, gen) -> dict:
     capped at ``SHARDED_DEEPSEEK_LAYERS``; (b) granite-moe-1b-a400m at full
     width and ``SHARDED_GRANITE_LAYERS`` layers under SMALL_MODEL_RULES
     (FSDP + vocab TP + EP, 16 experts a rank); (c) minicpm3-4b (MLA),
-    llama-3.2-vision-11b (cross-attention, its (4, 1032, 4096) context) and
-    recurrentgemma-9b (RG-LRU and local attention) at full width under
-    DEFAULT_RULES, at the depths and on the meshes of ``SHARDED_MIXERS``.
+    llama-3.2-vision-11b (cross-attention, its (4, 1032, 4096) context),
+    recurrentgemma-9b (RG-LRU and local attention) and mamba2-780m (the
+    SSM) at full width under DEFAULT_RULES, and musicgen-medium (codebook
+    streams, the fused second moment) under SMALL_MODEL_RULES, at the
+    depths and on the meshes of ``SHARDED_MIXERS``.
     Each: ``SHARDED_STEPS`` steps of 4 x 512 tokens; every step's loss,
     grad norm and clip against the single-rank step on the same weights
     and batches (run before the ranks, never beside them), step 1's update
@@ -5390,8 +5463,8 @@ def run_sharded_phase(results: dict, gen) -> dict:
     run's model (``launch.dryrun.step_collectives``); the launches per rank
     equal ``sharded_launches_per_step``; the peak beside the fit check's
     model; for (c) step 1's gradient of the probed leaves
-    (``SHARDED_LEAF_GRAD_REL``) and a planted fault in the new mixer
-    (``plant_doubled_f``) that must read ``SHARDED_FAULT_X`` times that
+    (``SHARDED_LEAF_GRAD_REL``) and a planted fault in the new kind
+    (``plant_fault``) that must read ``SHARDED_FAULT_X`` times that
     limit. Then K7's partial variant against its plain version
     (``check_cross_entropy_partial``), and (d) the dry run of deepseek-7b
     train_4k on (2, 2) and on the production (16, 16): a rank's bytes (a

@@ -40,13 +40,13 @@ compiled or allocated: for each cell the parameters are meta tensors
 
 Every rank's blocks have the same shapes (the rules cut a dim only where
 it divides), so the figures are those of every rank. The training cells
-run every block kind but the SSM's (``models.parallel.Plan``: attention,
-global or local, MLA, the RG-LRU and cross-attention, each mixer's
-collectives counted as it runs them); archs with SSM blocks or codebook
-streams, and cuts a mixer cannot run (MLA's 40 heads over 16 model
-ranks), get ``refused`` with the reason (a training cell its bytes too).
-The serving cells run self-attention blocks alone: the MLA, RG-LRU and
-cross-attention archs' are ``refused`` with the serving layout's reason
+run every block kind and codebook streams (``models.parallel.Plan``:
+attention, global or local, MLA, the SSM, the RG-LRU and cross-attention,
+each mixer's collectives counted as it runs them); cuts a mixer cannot run
+(MLA's 40 heads over 16 model ranks) get ``refused`` with the reason (a
+training cell its bytes too). The serving cells run self-attention blocks
+alone: the MLA, SSM, RG-LRU, cross-attention and codebook archs' are
+``refused`` with the serving layout's reason
 (``models.parallel.check_serves``).
 
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k --mesh 2x2
@@ -153,8 +153,10 @@ def step_collectives(cfg, tcfg, mesh, specs, tokens_shape, *, guard: bool = Fals
 
     fw = 2 if cfg.remat else 1  # a block's forward and its recompute
     model = plan.model
+    books = max(1, cfg.n_codebooks)  # the streams: looked up and scored each
+    fsdp(params["embed"], specs["embed"], "microbatch", 1)  # a codebook table's d
     if plan.vocab_parallel:
-        note("all-reduce", model, "microbatch", hidden)  # the lookup's sum
+        note("all-reduce", model, "microbatch", books * hidden)  # the lookup's sum
     if cfg.mla is not None:  # MLA's f: the two normed latents and the shared key
         m = cfg.mla
         mla_f = rows * seq * (m.q_lora_rank + m.kv_lora_rank + m.qk_rope_dim) * act
@@ -175,6 +177,16 @@ def step_collectives(cfg, tcfg, mesh, specs, tokens_shape, *, guard: bool = Fals
             note("all-reduce", model, "block", hidden, fw)  # o / out: g
             mla = kind == "attn" and cfg.mla is not None
             note("all-reduce", model, "block", mla_f if mla else hidden)  # f
+        if kind == "ssm" and lay["inner_tp"]:
+            mix, n_model = p["mix"], mesh.axis_size(model)
+            note("all-reduce", model, "block", rows * seq * 4, fw + 1)  # the gated norm's ss
+            for name in ("xbc", "conv_w"):  # gathered over "model", reduce-scattered
+                w = mix[name]["w"] if name == "xbc" else mix[name]
+                whole = w.shape[0] * w.shape[1] * w.element_size()
+                note("all-gather", model, "block", whole // n_model, fw)
+                note("reduce-scatter", model, "block", whole)
+            for w in (mix["dt"]["w"], mix["dt_bias"], mix["A_log"], mix["D"]):  # f's sums
+                note("all-reduce", model, "block", w.numel() * w.element_size())
         if lay["ffn_tp"]:
             note("all-reduce", model, "block", hidden, fw)  # down: g
             note("all-reduce", model, "block", hidden)      # the input's f
@@ -191,7 +203,7 @@ def step_collectives(cfg, tcfg, mesh, specs, tokens_shape, *, guard: bool = Fals
         chunk = min(LOSS_CHUNK, seq)
         chunks = -(-seq // chunk)
         # the kernel's statistics (forward, recompute), the exact ones (backward)
-        note("all-gather", model, "chunk", rows * chunk * 3 * 4, 3 * chunks)
+        note("all-gather", model, "chunk", rows * chunk * books * 3 * 4, 3 * chunks)
         note("all-reduce", model, "chunk", rows * chunk * cfg.d_model * act, chunks)  # head's f
     for key in list(out):
         out[key] *= n_micro

@@ -224,8 +224,12 @@ def sharded_step_peak_bytes(cfg, tcfg, mesh, specs, *, guard: bool = False) -> i
     blocks (``shard_shapes``), AdamW's temporaries those of one piece
     (``optim.adamw.SHARDED_PIECE``), plus
       the largest block's weights gathered over the batch axes (FSDP) and
-        their gradients, and the largest such leaf's gradient gathered
-        from every batch rank for the reduce-scatter;
+        their gradients (an SSM block under tensor parallelism with its
+        xbc and conv_w gathered over "model", their gradients gathered
+        from every model rank for the reduce-scatter, and the rank's cut
+        of them; a codebook table, gathered for the lookup, counts as a
+        block), and the largest such leaf's gradient gathered from every
+        batch rank for the reduce-scatter;
       the step-end combine of a leaf held whole along a batch axis: its
         rank rows and the fold of one ``steps.COMBINE_CHUNK`` piece, f32."""
     from repro_torch.launch.sharding import entry_axes, local_shape, tree_leaves
@@ -249,8 +253,18 @@ def sharded_step_peak_bytes(cfg, tcfg, mesh, specs, *, guard: bool = False) -> i
                 for t, sp in zip(R.tree_leaves(tree), tree_leaves(spec_tree))
                 if fsdp_degree(sp) > 1]
 
-    block = max((sum(gathered(p, sp)) for p, sp in zip(params["layers"], specs["layers"])),
-                default=0)
+    def model_gathered(kind, p, sp) -> int:  # an SSM's xbc and conv_w over "model"
+        xbc = sp["mix"]["xbc"]["w"] if kind == "ssm" else ()
+        if len(xbc) < 2 or "model" not in entry_axes(xbc[1]):
+            return 0
+        n_model = mesh.axis_size("model")
+        whole = sum(w.numel() * w.element_size() for w in (p["mix"]["xbc"]["w"],
+                                                          p["mix"]["conv_w"]))
+        return whole * (n_model + 3)
+
+    block = max([sum(gathered(p, sp)) + model_gathered(kind, p, sp)
+                 for kind, p, sp in zip(cfg.pattern_layers, params["layers"], specs["layers"])]
+                + gathered(params["embed"], specs["embed"]), default=0)
     leaf = max(gathered(params, specs), default=0)
     whole = [k for (k, _), sp in zip(shapes, tree_leaves(specs)) if fsdp_degree(sp) < data]
     combine = 4 * min(max(whole, default=0), COMBINE_CHUNK) * (data + 1) if data > 1 else 0
@@ -271,12 +285,11 @@ def check_fits_card(cfg, tcfg, device, *, guard: bool = False, ranks_on_card: in
     (``combine_peak_bytes``) are charged once for each of the
     ``ranks_on_card`` ranks that share the card. Under a sharded step
     (``shard=(mesh, specs)``) each rank is charged its own blocks' peak
-    (``sharded_step_peak_bytes``: every block, MLA, RG-LRU and
-    cross-attention ones too, at the rank's widths) and the reserve in its
-    share of the batch (the reserve over the batch ranks), and where ranks
-    share the
-    card, each its process's CUDA context (``RANK_CONTEXT_BYTES``, outside
-    PyTorch's allocator)."""
+    (``sharded_step_peak_bytes``: every block, MLA, SSM, RG-LRU and
+    cross-attention ones too, at the rank's widths, and a codebook table)
+    and the reserve in its share of the batch (the reserve over the batch
+    ranks), and where ranks share the card, each its process's CUDA
+    context (``RANK_CONTEXT_BYTES``, outside PyTorch's allocator)."""
     if device.type != "cuda":
         return
     if shard is not None:
@@ -302,8 +315,7 @@ def check_fits_card(cfg, tcfg, device, *, guard: bool = False, ranks_on_card: in
             f"{reserve / 1e9:.0f} GB are kept for them){ranks}, {need / 1e9:.1f} GB, more "
             f"than the card's {have / 1e9:.1f} GB; it trains at this depth only sharded over "
             f"more cards: the sharded step, launch.steps.make_train_step(mesh=...), runs "
-            f"self-attention, MLA, RG-LRU and cross-attention blocks (a rank's bytes: python "
-            f"-m repro_torch.launch.dryrun)")
+            f"every block kind (a rank's bytes: python -m repro_torch.launch.dryrun)")
 
 
 def build(cfg, tcfg, device, params=None, *, guard: bool = False, spike_z: float = 6.0,

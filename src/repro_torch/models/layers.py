@@ -23,8 +23,12 @@ from repro_torch.models import params as P
 
 
 def norm_apply(kind: str, p: dict, x: torch.Tensor, *, eps: float, mma: bool,
-               use_kernels: bool = False) -> torch.Tensor:
-    if use_kernels:
+               use_kernels: bool = False, tp=None) -> torch.Tensor:
+    """``tp`` (``models.parallel.TP``; an RMSNorm on the engine's route):
+    ``x`` and the scale hold a rank's block of each row's channels, and
+    the row's sum of squares is the ranks' summed over ``tp`` both ways
+    (``tp.both``), over the whole width."""
+    if use_kernels and tp is None:
         if kind == "rmsnorm":
             return K.rmsnorm(x, p["scale"], eps)
         if kind == "layernorm_np":
@@ -36,6 +40,8 @@ def norm_apply(kind: str, p: dict, x: torch.Tensor, *, eps: float, mma: bool,
         # bf16 multipliers with f32 accumulation on the MMA route
         ss = R.reduce(xf, axis=-1, kind="sumsq", backend=backend,
                       compute_dtype="bfloat16" if mma else None)
+        if tp is not None:
+            ss, d = tp.both(ss), d * tp.mesh.axis_size(tp.axis)
         rstd = torch.rsqrt(ss / d + eps).to(x.dtype)
         return x * rstd[..., None] * p["scale"].to(x.dtype)
     if kind in ("layernorm", "layernorm_np"):

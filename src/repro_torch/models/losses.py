@@ -12,7 +12,9 @@ per-row (max, sum of exp, label logit if the label is in the slice) come
 from K7's partial variant (``kernels.cross_entropy_partial``; without the
 kernels, the engine's row reduction), are gathered over "model" and merged
 in rank order into the loss; the backward is ``softmax - onehot`` on the
-rank's columns at the exact f32 logsumexp, merged the same way.
+rank's columns at the exact f32 logsumexp, merged the same way. With K
+codebook streams the rows are B x S x K (each stream's label against its
+own head's columns), and the mean over K follows the merge.
 """
 
 from __future__ import annotations

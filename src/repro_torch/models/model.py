@@ -409,12 +409,12 @@ def block_train(kind: str, p, h, positions, cfg, ctx=None, hooks=None):
     """One block, train/prefill compute: (B, S, d) -> ((B, S, d), aux f32
     scalar). ``ctx`` is the cross-attention layers' context; ``hooks``
     (``models.parallel.Hooks``) the block's tensor and expert parallelism
-    (``hooks.attn`` the mixer's: attention, MLA, cross-attention or the
-    RG-LRU), its weights a rank's (``Plan.block``)."""
+    (``hooks.attn`` the mixer's: attention, MLA, cross-attention, the SSM
+    or the RG-LRU), its weights a rank's (``Plan.block``)."""
     hn = _norm(p["norm1"], h, cfg)
     tp = None if hooks is None else hooks.attn
     if kind == "ssm":
-        mix = SSM.ssm_train(p["mix"], hn, cfg)
+        mix = SSM.ssm_train(p["mix"], hn, cfg, tp=tp)
     elif kind == "rec":
         mix = REC.rglru_train(p["mix"], hn, cfg, tp=tp)
     elif kind == "xattn":

@@ -47,6 +47,18 @@ The other mixers, under the same rules:
          block input through f, k and v the rank's kv heads of the context
          (an input with no gradient: no f), o row-parallel with g, and the
          whole tanh gate after g.
+  SSM    "inner" over "model": z's columns, norm_scale and out's rows are
+         the rank's heads' channels (a rank's block of d_inner must be
+         whole heads); xbc's columns are [x, B, C], whose "inner" cut
+         ends at no head boundary, so xbc and conv_w are gathered over
+         "model" and cut to the rank's x heads and all of B and C; dt's
+         columns, dt_bias, A_log and D stay whole over "model" and each
+         rank takes its heads (through f). The block input goes through
+         f; the conv, the SSD and the gate run on the rank's heads with
+         the whole B and C; the gated norm's row statistic is the ranks'
+         sums of squares added both ways (``TP.both``: each rank's
+         normed channels feed its own rows of out, so the statistic's
+         gradient is partial too); out is row-parallel, with g.
 
 Every cross-rank sum is a fixed-order fold (``core.collectives``), so a
 replicated tensor has the same bits on every rank and two runs have the
@@ -56,18 +68,29 @@ gradients over the batch axes and divides by their ranks
 of a model group computes the same loss, and a tensor the group holds
 alike has the same gradient on each of them.
 
-``Plan`` checks that the config's blocks are ones the sharded step runs
-(self-attention, global, local or MLA, the RG-LRU and cross-attention,
-each with a dense or MoE FFN); SSM blocks and codebook streams refuse with
-that reason, and so do the cuts a mixer cannot run (``Plan.layout``).
+The codebook streams (K > 0, musicgen-medium): the (K, vocab, d) table
+has its d cut over the batch axes (FSDP), so the lookup gathers it first;
+its vocabulary rows are cut over "model" unpadded, so a rank's rows start
+at ``Plan.book0``, not at the head's ``Plan.vocab0`` in the padded
+vocabulary. The K streams' rows (zeros off the rank) are summed over
+"model" in one fixed-order all-reduce of the stacked (K, rows, seq, d)
+tensor, then added in order k = 0 .. K-1 as one device adds them. The K
+heads give (B, S, K) rows of the rank's columns to the vocab-parallel
+loss.
+
+``Plan`` takes every block kind the training step runs (self-attention,
+global, local or MLA, the SSM, the RG-LRU and cross-attention, each with
+a dense or MoE FFN, and codebook streams) and refuses the cuts a mixer
+cannot run (``Plan.layout``).
 
 Serving (``Plan(..., cache_specs=)``, ``launch.steps.make_prefill_step``
 and ``make_decode_step`` with ``mesh=``) runs the same blocks forward only,
 each rank on its rows of the batch (``launch.sharding.batch_partition``:
 all of them where the batch does not divide the data axes), with the
 caches cut as ``launch.sharding.cache_shardings`` cuts them. It runs the
-self-attention blocks alone (``check_serves``: the MLA, RG-LRU and
-cross-attention caches are not cut for it yet). Those can cut
+self-attention blocks alone (``check_serves``: the MLA, SSM, RG-LRU and
+cross-attention caches and the codebook streams are not served over a
+mesh yet). Those can cut
 a cache where the weights are whole (SMALL_MODEL_RULES), so a block's
 attention follows its cache (``Plan.serve_layout``):
 
@@ -109,6 +132,7 @@ from repro_torch.core import collectives as C
 from repro_torch.launch.sharding import entry_axes, spec_axes, tree_map
 from repro_torch.models import params as P
 from repro_torch.models.rglru import N_GATE_BLOCKS, _width
+from repro_torch.models.ssm import _dims as _ssm_dims
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +147,11 @@ class TP:
 
     def exit(self, y: torch.Tensor) -> torch.Tensor:
         return C.sum_forward(y, self.axis, self.mesh)
+
+    def both(self, s: torch.Tensor) -> torch.Tensor:
+        """A statistic each rank took over its own channels, summed over
+        the axis both ways (the SSM's gated norm)."""
+        return C.sum_both(s, self.axis, self.mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,14 +225,18 @@ class Serve:
 
 def check_serves(cfg) -> None:
     """Refuses a config whose blocks the sharded serving steps do not run:
-    they serve self-attention blocks, global or local, alone."""
+    they serve self-attention blocks, global or local, alone, and no
+    codebook streams."""
     what = (["MLA"] if cfg.mla is not None else []) + sorted(
-        {k for k in cfg.pattern_layers if k in ("rec", "xattn")})
+        {k for k in cfg.pattern_layers if k in ("ssm", "rec", "xattn")})
+    what = [f"{', '.join(what)} blocks"] if what else []
+    if cfg.n_codebooks:
+        what.append("codebook streams")
     if what:
         raise NotImplementedError(f"sharded serving runs self-attention blocks (global or "
-                                  f"local) alone: {cfg.name} has {', '.join(what)} blocks, "
-                                  "whose caches are not cut over a mesh yet (the sharded "
-                                  "training step runs them)")
+                                  f"local) alone: {cfg.name} has {' and '.join(what)}, not "
+                                  "served over a mesh yet (the sharded training step runs "
+                                  "them)")
 
 
 class Plan:
@@ -221,19 +254,20 @@ class Plan:
         self.batch = tuple(ax for ax in live if ax in ("pod", "data"))
         self.model = "model" if "model" in live else None
         self.data_degree = math.prod(mesh.axis_size(ax) for ax in self.batch)
-        bad = [k for k in cfg.pattern_layers if k not in ("attn", "local_attn", "xattn", "rec")]
-        if bad or cfg.n_codebooks:
-            what = f"block kinds {sorted(set(bad))}" if bad else "codebook streams"
-            raise NotImplementedError(f"the sharded step runs self-attention (global, local or "
-                                      f"MLA), RG-LRU and cross-attention blocks with a dense or "
-                                      f"MoE FFN; {cfg.name} has {what}")
         table = specs["embed"]["table"]
         self.vocab_parallel = self.model is not None and self.model in spec_axes(table)
         self.tp = TP(mesh, self.model) if self.model else None
-        self.vocab0 = 0
+        self.vocab0 = self.book0 = 0
         if self.vocab_parallel:
-            n = P.padded_vocab(cfg.vocab_size) // mesh.axis_size(self.model)
-            self.vocab0 = mesh.axis_index(self.model) * n
+            n_model, m = mesh.axis_size(self.model), mesh.axis_index(self.model)
+            self.vocab0 = m * (P.padded_vocab(cfg.vocab_size) // n_model)
+            # the codebook table's rows are the unpadded vocabulary's
+            self.book0 = m * (cfg.vocab_size // n_model)
+        if cfg.n_codebooks and "head" in specs and self.vocab_parallel != (
+                self.model is not None and self.model in spec_axes(specs["head"]["w"])):
+            raise NotImplementedError(f"{cfg.name}: the codebook table's {cfg.vocab_size} rows "
+                                      "and the heads' padded columns must be cut over 'model' "
+                                      "alike")
         for kind, sp in zip(cfg.pattern_layers, specs["layers"]):
             self.layout(sp, kind)  # a cut a block cannot run refuses here
 
@@ -284,10 +318,36 @@ class Plan:
         raise NotImplementedError(f"the RG-LRU's channel leaves must be cut over 'model' "
                                   f"alike (cut: {sorted(k for k, v in cuts.items() if v)})")
 
+    def _ssm_layout(self, ms: dict) -> bool:
+        """Whether the SSM's channels are cut over "model" (``inner_tp``):
+        z's and xbc's columns, conv_w's, norm_scale and out's rows alike,
+        each rank's block of d_inner whole heads of the one group of B and
+        C (xbc's block need not end on a head: ``Plan.block`` gathers
+        it)."""
+        cuts = {name: self._model_cut(s, dim) for name, s, dim in (
+            ("z", ms["z"]["w"], 1), ("xbc", ms["xbc"]["w"], 1), ("conv_w", ms["conv_w"], 1),
+            ("norm_scale", ms["norm_scale"], 0), ("out", ms["out"]["w"], 0))}
+        if len(set(cuts.values())) > 1:
+            raise NotImplementedError(f"the SSM's channel leaves must be cut over 'model' alike "
+                                      f"(cut: {sorted(k for k, v in cuts.items() if v)})")
+        if not cuts["z"]:
+            return False
+        s, d_in, _, _ = _ssm_dims(self.cfg)
+        n_model = self.mesh.axis_size(self.model)
+        if (d_in // n_model) % s.headdim:
+            raise NotImplementedError(f"{self.cfg.name}: a model rank's {d_in // n_model} SSM "
+                                      f"channels ({d_in} over {n_model} model ranks) are not "
+                                      f"whole heads of {s.headdim}")
+        if s.n_groups != 1:
+            raise NotImplementedError(f"{self.cfg.name}: the SSM's tensor parallelism runs one "
+                                      f"group of B and C, not {s.n_groups}")
+        return True
+
     def layout(self, specs: dict, kind: str) -> dict:
         """How a block of ``kind`` with these specs runs (no tensors):
         ``attn_tp`` (its attention, MLA or cross-attention heads split over
-        "model"), ``inner_tp`` (the RG-LRU's channels split over it),
+        "model"), ``inner_tp`` (the SSM's or the RG-LRU's channels split
+        over it),
         ``kv`` ("local": the rank's block is its kv heads; "gather": k/v
         gathered over "model", the rank's heads cut out; "whole": k/v held
         whole, the rank's heads cut out; None without TP or without k/v),
@@ -297,7 +357,9 @@ class Plan:
         cfg, ms = self.cfg, specs["mix"]
         out = {"attn_tp": False, "inner_tp": False, "kv": None, "kv_heads": None,
                "ffn_tp": False, "ep": None}
-        if kind == "rec":
+        if kind == "ssm":
+            out["inner_tp"] = self._ssm_layout(ms)
+        elif kind == "rec":
             out["inner_tp"] = self._rec_layout(ms)
         elif kind != "xattn" and cfg.mla is not None:
             cuts = {self._model_cut(ms["q_up"]["w"], 1), self._model_cut(ms["kv_up"]["w"], 1),
@@ -364,6 +426,8 @@ class Plan:
                 w = (C.gather_scatter(w, self.model, 1, mesh) if lay["kv"] == "gather"
                      else C.sum_backward(w, self.model, mesh))
                 mix[name] = {"w": w[:, lo * cfg.d_head:hi * cfg.d_head]}
+        if kind == "ssm" and lay["inner_tp"]:
+            mix = self._ssm_heads(mix)
         p = dict(p, mix=mix)
         ep = None
         if lay["ep"] == "model":
@@ -375,19 +439,67 @@ class Plan:
         return p, Hooks(attn=self.tp if lay["attn_tp"] or lay["inner_tp"] else None,
                         ffn=self.tp if lay["ffn_tp"] else None, ep=ep)
 
+    def _ssm_heads(self, mix: dict) -> dict:
+        """An SSM block's leaves as the rank's heads use them (the module
+        doc): xbc and conv_w gathered over "model" (their gradients the
+        ranks' sum, cut back to the rank's block) and cut to the rank's x
+        channels, then all of B and C; dt's columns, dt_bias, A_log and D
+        (whole over "model", each rank using its heads' part) through
+        ``sum_backward``."""
+        s, d_in, nh, _ = _ssm_dims(self.cfg)
+        n = nh // self.mesh.axis_size(self.model)
+        h0 = self.mesh.axis_index(self.model) * n
+        c0, c1 = h0 * s.headdim, (h0 + n) * s.headdim
+
+        def x_b_c(w):
+            w = C.gather_scatter(w, self.model, 1, self.mesh)
+            return torch.cat([w[:, c0:c1], w[:, d_in:]], 1)
+
+        def heads(w):
+            return C.sum_backward(w, self.model, self.mesh)[..., h0:h0 + n]
+
+        return dict(mix, xbc={"w": x_b_c(mix["xbc"]["w"])}, conv_w=x_b_c(mix["conv_w"]),
+                    dt={"w": heads(mix["dt"]["w"])}, dt_bias=heads(mix["dt_bias"]),
+                    A_log=heads(mix["A_log"]), D=heads(mix["D"]))
+
     # ------------------------------- vocabulary -------------------------------
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         """The vocab-parallel lookup: the rank's rows, zeros elsewhere,
-        summed over "model" (one nonzero row a token: exact)."""
+        summed over "model" (one nonzero row a token: exact). With codebook
+        streams, ``_embed_books``."""
+        if self.cfg.n_codebooks:
+            return self._embed_books(table, tokens)
         if not self.vocab_parallel:
             return table[tokens]
-        local = tokens - self.vocab0
+        return self.tp.exit(self._rows(table, tokens, self.vocab0))
+
+    def _rows(self, table: torch.Tensor, tokens: torch.Tensor, row0: int) -> torch.Tensor:
+        """The rows of ``tokens`` in a table whose first row is global row
+        ``row0``, zeros for the tokens outside it."""
+        local = tokens - row0
         hit = (local >= 0) & (local < table.shape[0])
         rows = table[torch.where(hit, local, 0)]
-        rows = torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+        return torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                              device=rows.device))
-        return self.tp.exit(rows)
+
+    def _embed_books(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, S, K) tokens -> the K streams' rows added in order k = 0 ..
+        K-1, in the table's dtype (the module doc): the table's d gathered
+        over the batch axes; under vocab TP each stream's rows of the
+        rank's block (from ``book0``), the stacked streams summed over
+        "model" in one fixed-order all-reduce."""
+        table = self.gather(table, self.specs["embed"]["table"])
+        books = range(self.cfg.n_codebooks)
+        if self.vocab_parallel:
+            rows = self.tp.exit(torch.stack([self._rows(table[k], tokens[..., k], self.book0)
+                                             for k in books]))
+        else:
+            rows = [table[k][tokens[..., k]] for k in books]
+        h = rows[0]
+        for k in books[1:]:
+            h = h + rows[k]
+        return h
 
     def head_input(self, h: torch.Tensor) -> torch.Tensor:
         """The head's input: every model rank's logit columns read it, so

@@ -18,6 +18,11 @@ reference's has no ``use_pallas``.
 
 ``dt_bias``, ``A_log`` and ``D`` are f32 whatever ``cfg.dtype`` is.
 
+Under the sharded step's tensor parallelism (``ssm_train(tp=)``) the
+block's leaves are a rank's heads (``models.parallel.Plan.block``): the
+widths below are read off ``norm_scale`` (the rank's channels) and the
+rank's xbc columns are its x heads, then all of B and C.
+
 The decode step does NOT update the recurrent cache in place:
 ``ssm_decode`` returns new ``conv`` and ``state`` tensors and leaves the
 ones it was given untouched. The serving runtime re-issues a failed or
@@ -144,19 +149,29 @@ def _split_xbc(xbc, s, d_in):
     return xbc[..., :d_in], xbc[..., d_in:d_in + gn], xbc[..., d_in + gn:]
 
 
-def _gate_and_norm(p, y, z, cfg, dtype):
-    """y * silu(z) in f32, then the gated RMSNorm on the engine's route."""
+def _gate_and_norm(p, y, z, cfg, dtype, tp=None):
+    """y * silu(z) in f32, then the gated RMSNorm on the engine's route
+    (``tp``: over the ranks' channels, ``layers.norm_apply(tp=)``)."""
     y = y * F.silu(z.to(torch.float32))
     return L.norm_apply("rmsnorm", {"scale": p["norm_scale"]}, y.to(dtype), eps=cfg.norm_eps,
-                        mma=cfg.mma_reductions)
+                        mma=cfg.mma_reductions, tp=tp)
 
 
-def ssm_train(p, x, cfg, return_state: bool = False):
+def ssm_train(p, x, cfg, return_state: bool = False, tp=None):
     """The Mamba-2 block, train/prefill. x: (B, L, d) -> (B, L, d), or with
     ``return_state`` (out, cache): the conv window (the last K-1 pre-conv
     inputs, zero-filled in front of a short prompt) and the SSD's final
-    state, the prefill -> decode handoff."""
-    s, d_in, nh, conv_dim = _dims(cfg)
+    state, the prefill -> decode handoff. ``tp`` (``models.parallel.TP``):
+    the leaves hold a rank's heads (the module doc); x goes through
+    ``tp.enter`` (Megatron's f), the conv, the SSD and the gate run on
+    those heads with the whole B and C, the gated norm's statistic is
+    summed over the ranks both ways, and out is row-parallel, its partial
+    sums through ``tp.exit`` (g)."""
+    s = cfg.ssm
+    d_in = p["norm_scale"].shape[0]
+    nh = d_in // s.headdim
+    if tp is not None:
+        x = tp.enter(x)
     b, l, _ = x.shape
     z = P.dense_apply(p["z"], x)
     xbc_raw = P.dense_apply(p["xbc"], x)
@@ -171,7 +186,9 @@ def ssm_train(p, x, cfg, return_state: bool = False):
     y, final_state = ssd_chunked(xh.to(torch.float32), dt, A, Bh, Ch, s.chunk,
                                  backend=R.backend_for_flags(cfg.mma_reductions))
     y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
-    out = P.dense_apply(p["out"], _gate_and_norm(p, y.reshape(b, l, d_in), z, cfg, x.dtype))
+    out = P.dense_apply(p["out"], _gate_and_norm(p, y.reshape(b, l, d_in), z, cfg, x.dtype, tp))
+    if tp is not None:
+        out = tp.exit(out)
     if not return_state:
         return out
     k = s.conv_width

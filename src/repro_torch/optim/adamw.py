@@ -20,7 +20,10 @@ state on the card.
 ``fused_second_moment`` (olmax-style) keeps ONE scalar second-moment EMA
 per REFERENCE leaf (``models.convert.reference_leaf_groups``: the port
 keeps one leaf per layer, the reference one per stacked unit position), fed
-by the per-leaf sumsq slots of the norm launch.
+by the per-leaf sumsq slots of the norm launch. Under a sharded step the
+slots are each leaf's global sum (``sharded_norm_and_clip``) and a group's
+size counts its whole leaves (``whole_leaf_counts``), so the EMA is the
+single device's.
 
 ``guarded_apply_updates`` adds the in-launch NaN/Inf census to the same
 single launch (``census=True``: on cuda_fused K4 counts the elements it
@@ -201,9 +204,18 @@ def _keep_into(keep_old, dst, new) -> None:
 SHARDED_PIECE = 1 << 24
 
 
+def whole_leaf_counts(params: list, leaf_axes, mesh) -> list:
+    """Each leaf's whole element count from a rank's block of it: the
+    block's times the ranks of every axis the leaf is cut over (the rules
+    cut a dim only where it divides, so every rank's block is alike)."""
+    return [p.numel() * math.prod(mesh.axis_size(ax) for ax in axes)
+            for p, axes in zip(params, leaf_axes)]
+
+
 @torch.no_grad()
 def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_leaf=None,
-                fused_second_moment: bool = False, leaf_groups=None, keep=None, piece=None):
+                fused_second_moment: bool = False, leaf_groups=None, keep=None, piece=None,
+                counts=None):
     """The AdamW arithmetic given the clip coefficient (and, for the fused
     second moment, the per-leaf sumsq slots), in the reference's operation
     order; parameters and moments update in place. Returns (state, lr).
@@ -215,11 +227,13 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
 
     Each leaf's update runs in a function of its own, so its temporaries
     are freed before the next leaf's are made: the step's peak holds those
-    of one leaf (``launch.train.ADAMW_LEAF_TEMPS``). ``piece`` (the
-    unfused path): a leaf of more elements runs in pieces of that many,
-    each on flat views of its parameter, gradient and moments, so the peak
-    holds one piece's; every operation is elementwise, so the result is
-    bitwise the whole leaf's."""
+    of one leaf (``launch.train.ADAMW_LEAF_TEMPS``). ``piece``: a leaf of
+    more elements runs in pieces of that many, each on flat views of its
+    parameter, gradient and moments, so the peak holds one piece's; every
+    leaf operation is elementwise, so the result is bitwise the whole
+    leaf's. ``counts``: each leaf's element count in the fused second
+    moment's group sizes (the leaves' own when None; a sharded step's
+    whole leaves, ``whole_leaf_counts``)."""
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -243,13 +257,24 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
         if v is not None:
             _keep_into(keep, v, v_new)
 
+    def pieces(leaf_fn, tensors, *args):
+        p = tensors[0]
+        if piece is None or p.numel() <= piece:
+            leaf_fn(*tensors, *args)
+            return
+        flat = [t.view(-1) for t in tensors]
+        for i in range(0, p.numel(), piece):
+            leaf_fn(*(t[i:i + piece] for t in flat), *args)
+
     if fused_second_moment:
         groups = _groups(len(params), leaf_groups)
+        if counts is None:
+            counts = [p.numel() for p in params]
         v = list(state.v)
         rcp = []
         for k in range(len(v)):
             members = [i for i, gk in enumerate(groups) if gk == k]
-            n = max(sum(params[i].numel() for i in members), 1)
+            n = max(sum(counts[i] for i in members), 1)
             sumsq = per_leaf[members[0]]
             for i in members[1:]:
                 sumsq = sumsq + per_leaf[i]
@@ -263,7 +288,7 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
             write(p, m, m_new, pf - (lr * rcp[k] / bc1) * m_new - (lr * cfg.weight_decay) * pf)
 
         for p, g, m, k in zip(params, grads, state.m, groups):
-            fused_leaf(p, g, m, k)
+            pieces(fused_leaf, (p, g, m), k)
         if keep is not None:
             v = [_bitwise_keep(keep, old, new) for old, new in zip(state.v, v)]
         return AdamWState(step=step, m=state.m, v=v), lr
@@ -278,19 +303,16 @@ def _adamw_core(params: list, grads: list, state: AdamWState, cfg, *, clip, per_
         write(p, m, m_new, pf - lr * delta, v, v_new)
 
     for p, g, m, v in zip(params, grads, state.m, state.v):
-        if piece is None or p.numel() <= piece:
-            leaf(p, g, m, v)
-            continue
-        flat = [t.view(-1) for t in (p, g, m, v)]
-        for i in range(0, p.numel(), piece):
-            leaf(*(t[i:i + piece] for t in flat))
+        pieces(leaf, (p, g, m, v))
     return AdamWState(step=step, m=state.m, v=state.v), lr
 
 
-def _refuse_fused_sharded(fused_second_moment: bool, leaf_axes) -> None:
-    if fused_second_moment and leaf_axes is not None:
-        raise NotImplementedError("the fused second moment under a sharded step (its group "
-                                  "sizes are whole-leaf counts) is not ported")
+def _sharded(flat_p, leaf_axes, mesh) -> dict:
+    """``_adamw_core``'s arguments of a sharded step (``leaf_axes`` given):
+    AdamW in pieces, and the fused second moment's whole-leaf counts."""
+    if leaf_axes is None:
+        return {}
+    return {"piece": SHARDED_PIECE, "counts": whole_leaf_counts(flat_p, leaf_axes, mesh)}
 
 
 def apply_updates(params, grads, state: AdamWState, cfg, *, mma: bool = True,
@@ -303,14 +325,15 @@ def apply_updates(params, grads, state: AdamWState, cfg, *, mma: bool = True,
     moments are this rank's shards of trees sharded across those axes; the
     clip statistic is the global one (``global_norm_and_clip``).
     ``leaf_axes`` (with ``mesh``): each leaf is a rank's block of a tensor
-    cut over its own axes (the sharded step's), the clip statistic counts
-    every leaf once (``sharded_norm_and_clip``), and a leaf past
-    ``SHARDED_PIECE`` elements updates in pieces (``_adamw_core``)."""
+    cut over its own axes (the sharded step's), the clip statistic and the
+    fused second moment's per-leaf sums count every leaf once
+    (``sharded_norm_and_clip``), the fused groups' sizes count whole leaves
+    (``whole_leaf_counts``), and a leaf past ``SHARDED_PIECE`` elements
+    updates in pieces (``_adamw_core``)."""
     flat_p = R.tree_leaves(params)
     flat_g = R.tree_leaves(grads)
     if len(flat_g) != len(flat_p):
         raise ValueError(f"{len(flat_g)} gradients for {len(flat_p)} parameters")
-    _refuse_fused_sharded(fused_second_moment, leaf_axes)
     if leaf_axes is not None:
         per_leaf, gnorm, clip = sharded_norm_and_clip(flat_g, cfg.grad_clip, leaf_axes, mesh,
                                                       backend=reduce_backend)
@@ -324,8 +347,7 @@ def apply_updates(params, grads, state: AdamWState, cfg, *, mma: bool = True,
                                            backend=reduce_backend, mesh_axes=mesh_axes)
     new_state, lr = _adamw_core(flat_p, flat_g, state, cfg, clip=clip, per_leaf=per_leaf,
                                 fused_second_moment=fused_second_moment,
-                                leaf_groups=leaf_groups,
-                                piece=None if leaf_axes is None else SHARDED_PIECE)
+                                leaf_groups=leaf_groups, **_sharded(flat_p, leaf_axes, mesh))
     return params, new_state, {"grad_norm": gnorm, "lr": lr, "clip": clip}
 
 
@@ -405,11 +427,9 @@ def guarded_apply_updates(params, grads, state: AdamWState, cfg, *, loss=None,
     flat_g = R.tree_leaves(grads)
     if len(flat_g) != len(flat_p):
         raise ValueError(f"{len(flat_g)} gradients for {len(flat_p)} parameters")
-    _refuse_fused_sharded(fused_second_moment, leaf_axes)
     if leaf_axes is not None:
         per_leaf, gnorm, clip, nonfinite = sharded_norm_and_clip(
             flat_g, cfg.grad_clip, leaf_axes, mesh, backend=reduce_backend, census=True)
-        per_leaf = None
     elif fused_second_moment:
         per_leaf, gnorm, clip, counts = global_norm_and_clip(
             flat_g, cfg.grad_clip, mma=mma, backend=reduce_backend, return_per_leaf=True,
@@ -432,7 +452,7 @@ def guarded_apply_updates(params, grads, state: AdamWState, cfg, *, loss=None,
     new_state, lr = _adamw_core(flat_p, flat_g, state, cfg, clip=clip, per_leaf=per_leaf,
                                 fused_second_moment=fused_second_moment,
                                 leaf_groups=leaf_groups, keep=skip,
-                                piece=None if leaf_axes is None else SHARDED_PIECE)
+                                **_sharded(flat_p, leaf_axes, mesh))
     new_guard = guard
     if guard is not None:
         w = guard.window.shape[0]

@@ -3,11 +3,16 @@
 One spawn of four gloo CPU ranks on (2, 2) runs one sharded step of tiny
 deepseek-7b (DEFAULT_RULES: FSDP, TP, vocab TP; guarded, so the census
 combine is in it), of tiny granite-moe-1b-a400m (SMALL_MODEL_RULES: FSDP,
-vocab TP, EP), and under DEFAULT_RULES of tiny minicpm3-4b (MLA's TP, its
-f on the latents), tiny recurrentgemma-9b (the RG-LRU's channels, local
-attention's gathered kv head) and tiny llama-3.2-vision-11b (cross-
-attention on a seeded context, its gates open), with two microbatches,
-and notes every collective
+vocab TP, EP), under DEFAULT_RULES of tiny minicpm3-4b (MLA's TP, its f
+on the latents), tiny recurrentgemma-9b (the RG-LRU's channels, local
+attention's gathered kv head), tiny llama-3.2-vision-11b (cross-
+attention on a seeded context, its gates open) and tiny mamba2-780m (the
+SSM's heads: xbc and conv_w gathered over "model", the gated norm's
+statistic summed both ways, dt and its f32 leaves through f), and under
+SMALL_MODEL_RULES of tiny musicgen-medium (the codebook table gathered
+over "data", the stacked streams' lookup sum, the K streams' loss
+statistics; tokens (rows, seq + 1, 4) below its vocabulary of 64), with
+two microbatches, and notes every collective
 (``core.collectives.traffic``) and every c10d op (``reduce.inspect``'s
 meter). On the meta device, with nothing allocated, the dry run's
 
@@ -22,9 +27,9 @@ mode refuses any tensor off the meta device past a few elements), every
 prefill and decode cell ``ok`` or ``refused`` with ``Plan``'s reason or
 the serving layout's, and deepseek-7b train_4k reports its per-rank bytes
 on (2, 2) and (16, 16). On (2, 2) the train cells of minicpm3-4b,
-recurrentgemma-9b and llama-3.2-vision-11b are ``ok``; mamba2-780m's and
-musicgen-medium's, and the three archs' prefill and decode cells, are
-``refused`` with their reasons.
+recurrentgemma-9b, llama-3.2-vision-11b, mamba2-780m and musicgen-medium
+are ``ok``; the five archs' prefill and decode cells are ``refused`` with
+the serving layout's reason.
 
 The serving cells are held to the one sharded serving spawn of
 ``tests/torch_serving_cases.py`` (shared with
@@ -60,7 +65,9 @@ CASES = {"deepseek": ("deepseek-7b", "DEFAULT_RULES", True),
          "granite": ("granite-moe-1b-a400m", "SMALL_MODEL_RULES", False),
          "minicpm3": ("minicpm3-4b", "DEFAULT_RULES", False),
          "recurrentgemma": ("recurrentgemma-9b", "DEFAULT_RULES", False),
-         "vision": ("llama-3.2-vision-11b", "DEFAULT_RULES", False)}
+         "vision": ("llama-3.2-vision-11b", "DEFAULT_RULES", False),
+         "mamba2": ("mamba2-780m", "DEFAULT_RULES", False),
+         "musicgen": ("musicgen-medium", "SMALL_MODEL_RULES", False)}
 MICRO, ROWS, SEQ = 2, 8, 32
 
 
@@ -68,7 +75,8 @@ def _case(arch, rules, guard):
     cfg = dataclasses.replace(ref_arch(arch, tiny=True), dtype="float32")
     params = jax.tree.map(np.asarray, ref_init(jax.random.PRNGKey(5), cfg)[0])
     rng = np.random.default_rng(3)
-    tokens = [rng.integers(0, 256, (ROWS, SEQ + 1)).astype(np.int64)]
+    shape = (ROWS, SEQ + 1) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    tokens = [rng.integers(0, min(256, cfg.vocab_size), shape).astype(np.int64)]
     case = dict(arch=arch, dtype="float32", kernels=False, rules=rules, micro=MICRO,
                 params=params, tokens=tokens, runs=1, meter=True, guard=guard)
     if guard:
@@ -154,15 +162,17 @@ def test_all_cells_on_the_production_mesh_allocate_nothing(tmp_path, capsys):
     ok = {r["arch"] for r in recs if r["status"] == "ok"}
     served = {"olmo-1b", "internlm2-1.8b", "deepseek-7b", "granite-moe-1b-a400m", "dbrx-132b"}
     # minicpm3-4b's 40 heads do not split over 16 model ranks
-    assert ok == served | {"recurrentgemma-9b", "llama-3.2-vision-11b"}
+    assert ok == served | {"recurrentgemma-9b", "llama-3.2-vision-11b", "mamba2-780m",
+                           "musicgen-medium"}
+    for r in recs:
+        if r["arch"] in ("mamba2-780m", "musicgen-medium") and r["mode"] == "train":
+            assert r["status"] == "ok" and r["rules"] == "SMALL_MODEL_RULES"
     serving = [r for r in recs if r["mode"] != "train" and r["status"] != "skipped"]
     assert all(r["status"] in ("ok", "refused") for r in recs if r["status"] != "skipped")
     assert {r["arch"] for r in serving if r["status"] == "ok"} == served
     for r in serving:
         if r["status"] == "refused":
-            assert r["reason"].startswith(
-                "the sharded step runs self-attention" if r["arch"] in (
-                    "mamba2-780m", "musicgen-medium") else "sharded serving runs")
+            assert r["reason"].startswith("sharded serving runs")
     for r in recs:
         if r["arch"] == "minicpm3-4b" and r["mode"] == "train":
             assert r["status"] == "refused" and "40 query heads do not split" in r["reason"]
@@ -233,10 +243,9 @@ def test_serving_cells_equal_the_metered_run(serving_ranks, name):
 
 
 def test_the_new_mixers_train_cells_on_2x2(tmp_path):
-    """On (2, 2): the train cells of the MLA, RG-LRU and cross-attention
-    archs ``ok``; mamba2-780m's and musicgen-medium's ``refused`` with
-    ``Plan``'s reason; the three archs' serving cells with the serving
-    layout's."""
+    """On (2, 2): the train cells of the MLA, SSM, RG-LRU, cross-attention
+    and codebook archs ``ok``; their serving cells ``refused`` with the
+    serving layout's reason, which names sharded serving."""
     from repro_torch.configs import SHAPES, get_arch, get_shape
     from repro_torch.configs.base import shape_applicable
 
@@ -246,12 +255,8 @@ def test_the_new_mixers_train_cells_on_2x2(tmp_path):
             if not shape_applicable(get_arch(arch), get_shape(shape))[0]:
                 continue
             rec = dryrun.run_cell(arch, shape, "2x2", tmp_path)
-            new = arch in ("minicpm3-4b", "recurrentgemma-9b", "llama-3.2-vision-11b")
-            if rec["mode"] == "train" and new:
+            if rec["mode"] == "train":
                 assert rec["status"] == "ok", (arch, shape, rec.get("reason"))
                 assert rec["collectives"]["total_bytes"] > 0
-            elif new:
-                assert rec["status"] == "refused" and "sharded serving" in rec["reason"]
             else:
-                assert rec["status"] == "refused" and rec["reason"].startswith(
-                    "the sharded step runs self-attention")
+                assert rec["status"] == "refused" and "sharded serving" in rec["reason"]

@@ -194,17 +194,15 @@ def test_build_with_a_mesh_gives_the_sharded_step(ranks):
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "mamba2-780m", "recurrentgemma-9b",
                                   "llama-3.2-vision-11b", "musicgen-medium"])
 def test_serving_steps_refuse_the_blocks_the_plan_does_not_run(arch):
-    """Raised when the serving step is made: the training step's refusal
-    (SSM blocks, codebook streams), or the serving layout's for the
-    blocks the sharded training step runs but sharded serving does not
-    (MLA, RG-LRU, cross-attention)."""
+    """Raised when the serving step is made: the serving layout's refusal
+    of the blocks the sharded training step runs but sharded serving does
+    not (MLA, SSM, RG-LRU, cross-attention, codebook streams)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import abstract_mesh
 
     mesh = abstract_mesh((2, 2), ("data", "model"))
     cfg = get_arch(arch, tiny=True)
-    match = ("the sharded step runs self-attention" if arch in ("mamba2-780m", "musicgen-medium")
-             else "sharded serving runs self-attention blocks")
+    match = "sharded serving runs self-attention blocks"
     for make in (lambda: make_prefill_step(cfg, 16, mesh=mesh),
                  lambda: make_decode_step(cfg, mesh=mesh)):
         with pytest.raises(NotImplementedError, match=match):

@@ -56,6 +56,25 @@ is the port's ``make_train_step`` on the whole parameters.
     the shared RoPE key, the RG-LRU's g 2^-10 too large, cross-attention's
     f dropped on the query input (a backward fault: only an open gate
     shows it).
+  * the SSM and the codebook streams, f32 on (2, 2), two steps, two
+    microbatches, in the same spawn and to the same 1e-5: tiny mamba2-780m
+    under DEFAULT_RULES (the SSM's tensor parallelism: 4 of 8 heads a
+    rank, xbc and conv_w gathered over "model" and cut to the rank's x
+    heads and all of B and C, the gated norm's statistic summed both
+    ways; the tied head vocab-parallel) and under SMALL_MODEL_RULES (FSDP
+    and the tied vocab-parallel head alone), and tiny musicgen-medium
+    (four codebook streams, tokens below its vocabulary of 64) under
+    SMALL_MODEL_RULES and DEFAULT_RULES (the (K, 64, d) table's d FSDP-cut
+    and its rows cut 32 a rank, the K heads' columns 128 a rank of the
+    padded 256, the K streams' CE). One planted fault each, on rank 1:
+    the gated norm's statistic summed forward only (its gradient the
+    rank's part), and the codebook lookup's row offset taken from the
+    head's ``Plan.vocab0`` (128 on rank 1, where the table's block starts
+    at 32).
+  * the fused second moment under the sharded step: tiny deepseek-7b f32
+    on (2, 2) with ``fused_second_moment=True``, plain and guarded,
+    against the single-device fused steps; a planted fault on rank 1
+    sizes the EMA's groups by the rank's blocks, not the whole leaves.
 On every case the leaves a spec leaves whole are bitwise equal across the
 ranks of those axes, and a second run from the same start is bitwise the
 first.
@@ -74,7 +93,7 @@ from repro_torch import optim
 from repro_torch import reduce as R
 from repro_torch.configs import TrainConfig
 from repro_torch.launch.steps import make_guarded_train_step, make_train_step
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import params_from_jax, reference_leaf_groups
 
 import torch_mesh_workers as W
 
@@ -83,6 +102,16 @@ BF16_LOSS_REL, BF16_GNORM_REL, BF16_UPDATE_REL = 2e-3, 2e-3, 0.5
 OPEN_GATE = 0.5
 MIXERS = {"minicpm3": ("minicpm3-4b", "mla"), "recurrentgemma": ("recurrentgemma-9b", "rec"),
           "vision": ("llama-3.2-vision-11b", "xattn")}
+# This slice's cases: name -> (arch, rules, TrainConfig fields, guarded).
+SLICE = {"mamba2": ("mamba2-780m", "DEFAULT_RULES", {}, False),
+         "mamba2_small": ("mamba2-780m", "SMALL_MODEL_RULES", {}, False),
+         "musicgen": ("musicgen-medium", "DEFAULT_RULES", {}, False),
+         "musicgen_small": ("musicgen-medium", "SMALL_MODEL_RULES", {}, False),
+         "fused": ("deepseek-7b", "DEFAULT_RULES", {"fused_second_moment": True}, False),
+         "fused_guarded": ("deepseek-7b", "DEFAULT_RULES", {"fused_second_moment": True}, True)}
+# Each planted fault of this slice -> (the clean case it is held to, the fault).
+SLICE_FAULTS = {"ssm": ("mamba2", "ssm"), "books": ("musicgen_small", "books"),
+                "ema": ("fused", "ema")}
 
 
 def _ref_params(arch, dtype):
@@ -90,16 +119,20 @@ def _ref_params(arch, dtype):
     return jax.tree.map(np.asarray, ref_init(jax.random.PRNGKey(3), cfg)[0])
 
 
-def _tokens(n, rows, seq, seed):
+def _tokens(n, rows, seq, seed, vocab=256, books=0):
+    """``n`` batches of seeded tokens below ``vocab``: (rows, seq + 1), or
+    (rows, seq + 1, books) for an arch with codebook streams."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, 256, (rows, seq + 1)).astype(np.int64) for _ in range(n)]
+    shape = (rows, seq + 1) + ((books,) if books else ())
+    return [rng.integers(0, vocab, shape).astype(np.int64) for _ in range(n)]
 
 
 def _case(arch, dtype, kernels, rules, micro, rows=8, seq=32, **kw):
-    case = dict(arch=arch, dtype=dtype, kernels=kernels, rules=rules, micro=micro,
-                params=_ref_params(arch, dtype), tokens=_tokens(2, rows, seq, 7),
-                exact_f32=dtype == "float32", **kw)
     ref = ref_arch(arch, tiny=True)
+    case = dict(arch=arch, dtype=dtype, kernels=kernels, rules=rules, micro=micro,
+                params=_ref_params(arch, dtype),
+                tokens=_tokens(2, rows, seq, 7, ref.vocab_size, ref.n_codebooks),
+                exact_f32=dtype == "float32", **kw)
     if ref.n_img_tokens:  # a cross-attention arch: its context, and its gates open
         rng = np.random.default_rng(9)
         case["ctx"] = [rng.standard_normal((rows, ref.n_img_tokens, ref.d_model))
@@ -130,7 +163,8 @@ def _single(case):
             W.open_gates(params, cfg, case["gate"])
         for p in R.tree_leaves(params):
             p.requires_grad_(True)
-        opt = optim.init_state(params)
+        opt = optim.init_state(params, fused_second_moment=tcfg.fused_second_moment,
+                               leaf_groups=reference_leaf_groups(params, cfg))
         metrics = []
         if case.get("guard"):
             step, gstate = make_guarded_train_step(cfg, tcfg), optim.init_guard_state(4)
@@ -234,6 +268,12 @@ def f32_cases():
     for name, (arch, kind) in MIXERS.items():
         cases[f"fault_{kind}"] = _case(arch, "float32", False, "DEFAULT_RULES", 2, fault=kind,
                                        runs=1)
+    for name, (arch, rules, tcfg, guard) in SLICE.items():
+        cases[name] = _case(arch, "float32", False, rules, 2, tcfg=tcfg, guard=guard)
+        if guard:  # no poisoned step: the accepted steps against the single device's
+            cases[name]["scales"] = [np.ones(4, np.float32) for _ in cases[name]["tokens"]]
+    for kind, (clean, fault) in SLICE_FAULTS.items():
+        cases[f"fault_{kind}"] = dict(cases[clean], fault=fault, runs=1)
     return cases
 
 
@@ -253,14 +293,17 @@ def singles(f32_cases):
 
 @pytest.fixture(scope="module")
 def ranks_2x2(tmp_path_factory, f32_cases):
-    """Every f32 case on one spawn of (2, 2), the planted faults last."""
+    """Every f32 case on one spawn of (2, 2), the planted faults last. Its
+    deadline (a hang's, no limit on the result) is twice a spawn's: the
+    cases take ~80 s alone and 280 s beside the whole suite on 8 cores."""
     ranks = W.run_mesh("sharded_cases", (2, 2), ("data", "model"),
-                       tmp_path_factory.mktemp("sharded"), f32_cases)
+                       tmp_path_factory.mktemp("sharded"), f32_cases,
+                       timeout=2 * W.SPAWN_TIMEOUT_S)
     return {name: [r[name] for r in ranks] for name in f32_cases}
 
 
 @pytest.mark.parametrize("name", ["deepseek", "granite", "minicpm3", "recurrentgemma",
-                                  "vision"])
+                                  "vision"] + list(SLICE))
 def test_f32_sharded_step_holds_the_single_device_step(ranks_2x2, singles, name):
     ok, worst = _check(ranks_2x2[name], singles(name), F32_REL, F32_REL, F32_REL)
     assert ok, worst
@@ -289,6 +332,33 @@ def _check_gaps(ranks, single):
              for k in ("loss", "grad_norm")}
     worst["param"] = _worst_param(ranks[0]["whole"], params)
     return max(worst.values()) <= F32_REL, worst
+
+
+@pytest.mark.parametrize("kind", sorted(SLICE_FAULTS))
+def test_planted_slice_fault_fails_the_limit(ranks_2x2, singles, f32_cases, kind):
+    """This slice's planted faults on rank 1 (the module doc): the gated
+    norm's statistic summed forward only, the codebook lookup's offset
+    from ``Plan.vocab0``, the fused EMA's group sizes from the rank's
+    blocks. Each leaves the 1e-5 limit against the single-device step.
+    The EMA's fault moves the update alone (the loss and the norm are the
+    clean step's, and the warmup's small learning rate keeps the weights
+    near their start), so its two steps' update (after - before) must
+    also sit over 100 times further from the single device's than the
+    clean fused case's does."""
+    clean, _ = SLICE_FAULTS[kind]
+    ranks = ranks_2x2[f"fault_{kind}"]
+    ok, worst = _check_gaps(ranks, singles(clean))
+    print(f"planted {kind} fault: worst relative gaps {worst}")
+    assert max(worst.values()) > F32_REL
+    if kind == "ema":
+        cfg = W.sharded_cfg("deepseek-7b", "float32", False)
+        start = [p.detach() for p in R.tree_leaves(params_from_jax(
+            f32_cases[clean]["params"], cfg))]
+        single = singles(clean)[1]
+        gap, _ = _update_gaps(ranks[0]["whole"], single, start)
+        clean_gap, _ = _update_gaps(ranks_2x2[clean][0]["whole"], single, start)
+        print(f"planted ema fault: update gap {gap:.4g}, the clean case's {clean_gap:.4g}")
+        assert gap > 100 * clean_gap
 
 
 def test_planted_fault_fails_the_limit(ranks_2x2, singles):
@@ -352,29 +422,59 @@ def _plan(cfg, shape, rules="DEFAULT_RULES"):
     return Plan(cfg, mesh, SH.param_shardings(param_axes(cfg), mesh, getattr(SH, rules), meta))
 
 
-@pytest.mark.parametrize("what", ["gate_blocks", "mla_heads"])
+@pytest.mark.parametrize("what", ["gate_blocks", "mla_heads", "ssm_heads"])
 def test_plan_refuses_the_cuts_a_mixer_cannot_run(what):
     """An RG-LRU whose rank's channels are no whole gate blocks (64
     channels over 32 model ranks: 2 a rank, gate blocks of 4, which the
-    rules leave whole), and MLA's 4 heads over 8 model ranks (its q_up,
-    kv_up and o cut, inside a head)."""
+    rules leave whole), MLA's 4 heads over 8 model ranks (its q_up, kv_up
+    and o cut, inside a head), and an SSM whose rank's channels are no
+    whole heads (tiny mamba2's 128 over 16 model ranks: 8 a rank, heads of
+    16)."""
     from repro_torch.configs import get_arch
 
     if what == "gate_blocks":
         cfg, shape, match = get_arch("recurrentgemma-9b", tiny=True), (1, 32), "whole gate blocks"
-    else:
+    elif what == "mla_heads":
         cfg, shape, match = get_arch("minicpm3-4b", tiny=True), (1, 8), "4 query heads do not split"
+    else:
+        cfg, shape, match = get_arch("mamba2-780m", tiny=True), (1, 16), "not whole heads of 16"
     with pytest.raises(NotImplementedError, match=match):
         _plan(cfg, shape)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "musicgen-medium"])
-def test_plan_refuses_ssm_blocks_and_codebook_streams(arch):
+@pytest.mark.parametrize("rules", ["DEFAULT_RULES", "SMALL_MODEL_RULES"])
+def test_plan_takes_ssm_blocks_and_codebook_streams(arch, rules):
+    """The training plan takes the SSM and the codebook streams on (2, 2):
+    the SSM's channels split over "model" (``inner_tp``) as the rules cut
+    "inner" (DEFAULT_RULES) and whole under SMALL_MODEL_RULES; the
+    vocabulary cut over "model" under both, the codebook table's rows from
+    its own block start (32 on rank 1 of tiny musicgen's 64), the head's
+    columns from the padded vocabulary's (128 of 256). The serving layout
+    of the same plan refuses, naming sharded serving."""
     from repro_torch.configs import get_arch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import make_caches
+    from repro_torch.models.model import init_params, param_axes
+    from repro_torch.models.parallel import Plan
 
-    match = "block kinds \\['ssm'\\]" if arch.startswith("mamba") else "codebook streams"
-    with pytest.raises(NotImplementedError, match=match):
-        _plan(get_arch(arch, tiny=True), (2, 2))
+    cfg = get_arch(arch, tiny=True)
+    plan = _plan(cfg, (2, 2), rules)
+    assert plan.vocab_parallel
+    for kind, sp in zip(cfg.pattern_layers, plan.specs["layers"]):
+        lay = plan.layout(sp, kind)
+        tp = lay["inner_tp" if kind == "ssm" else "attn_tp"]
+        assert tp == (rules == "DEFAULT_RULES"), kind
+    mesh = dataclasses.replace(abstract_mesh((2, 2), ("data", "model")), rank=1)  # model 1
+    meta = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
+    rank1 = Plan(cfg, mesh, SH.param_shardings(param_axes(cfg), mesh, getattr(SH, rules), meta))
+    assert rank1.vocab0 == 128
+    assert rank1.book0 == (32 if cfg.n_codebooks else 128)
+    caches = make_caches(cfg, 2, 16, torch.device("meta"))
+    plan = plan.for_caches(SH.cache_shardings(caches, cfg, plan.mesh))
+    with pytest.raises(NotImplementedError, match="sharded serving runs self-attention"):
+        plan.serve_layout(0, 16)
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "recurrentgemma-9b", "llama-3.2-vision-11b"])
@@ -397,12 +497,14 @@ def test_plan_takes_the_mixers_and_the_serving_layout_refuses_them(arch):
         plan.serve_layout(0, 16)
 
 
+@pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("guarded", [False, True])
-def test_adamw_in_pieces_is_bitwise_the_whole_leaf(guarded):
+def test_adamw_in_pieces_is_bitwise_the_whole_leaf(guarded, fused):
     """The sharded step's AdamW runs a leaf past ``SHARDED_PIECE`` elements
     in pieces (so that ranks sharing a card hold one piece's f32
     temporaries): two steps in pieces of 7 are bitwise two whole-leaf
-    steps, plain and guarded (a clean step and a skipped one)."""
+    steps, plain and guarded (a clean step and a skipped one), with the
+    elementwise second moment and the fused one."""
     from repro_torch.optim import adamw
 
     tcfg = TrainConfig(warmup_steps=1)
@@ -412,9 +514,11 @@ def test_adamw_in_pieces_is_bitwise_the_whole_leaf(guarded):
         params = [torch.randn(5, 9, generator=gen), torch.randn(3, generator=gen).bfloat16(),
                   torch.randn(100, 33, generator=gen)]
         grads = [torch.randn(p.shape, generator=gen).to(p.dtype) for p in params]
-        state = optim.init_state(params)
+        per_leaf = torch.stack([g.float().square().sum() for g in grads])
+        state = optim.init_state(params, fused_second_moment=fused)
         for keep in ((torch.tensor(False), torch.tensor(True)) if guarded else (None, None)):
             state, _ = adamw._adamw_core(params, grads, state, tcfg, clip=torch.tensor(0.7),
+                                         per_leaf=per_leaf, fused_second_moment=fused,
                                          keep=keep, piece=piece)
         runs.append([_bits(t) for t in params + state.m + state.v])
     assert all(torch.equal(a, b) for a, b in zip(*runs))

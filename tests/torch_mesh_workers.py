@@ -415,18 +415,39 @@ def _dropped_f(tp, x):
     return _OwnPartBackward.apply(x, C._block_axes(tp.axis), tp.mesh)
 
 
-class _PlantedTP:
-    """A mixer's ``models.parallel.TP`` with its f (``enter``) or g
-    (``exit``) replaced by ``enter(tp, x)`` / ``exit(tp, y)``."""
+class _SumForwardOnly(torch.autograd.Function):
+    """A statistic summed over the ranks forward only: the backward still
+    runs the all-reduce (the ranks stay in lockstep) but keeps the rank's
+    own part of the gradient."""
 
-    def __init__(self, tp, enter=None, exit=None):
-        self.tp, self._enter, self._exit = tp, enter, exit
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return C.fixed_order_combine(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        C.fixed_order_combine(g, ctx.axes, ctx.mesh)
+        return g, None, None
+
+
+class _PlantedTP:
+    """A mixer's ``models.parallel.TP`` with its f (``enter``), g
+    (``exit``) or two-way sum (``both``) replaced by ``enter(tp, x)`` /
+    ``exit(tp, y)`` / ``both(tp, s)``."""
+
+    def __init__(self, tp, enter=None, exit=None, both=None):
+        self.tp, self._enter, self._exit, self._both = tp, enter, exit, both
+        self.mesh, self.axis = tp.mesh, tp.axis
 
     def enter(self, x):
         return (self._enter or type(self.tp).enter)(self.tp, x)
 
     def exit(self, y):
         return (self._exit or type(self.tp).exit)(self.tp, y)
+
+    def both(self, s):
+        return (self._both or type(self.tp).both)(self.tp, s)
 
 
 def _plant_mixer_fault(rank: int, kind: str):
@@ -439,13 +460,17 @@ def _plant_mixer_fault(rank: int, kind: str):
       rec    the RG-LRU's g comes out 2^-10 too large
       xattn  f dropped on the query input: a backward fault, which only a
              nonzero gate shows
-    A dropped f still runs its all-reduce (``_OwnPartBackward``): a rank
-    that skipped it would leave the others waiting.
+      ssm    the gated norm's statistic summed over "model" forward only:
+             its gradient stays the rank's part (a backward fault)
+    A dropped f or sum still runs its all-reduce (``_OwnPartBackward``,
+    ``_SumForwardOnly``): a rank that skipped it would leave the others
+    waiting.
     """
-    from repro_torch.models import attention, mla, rglru
+    from repro_torch.models import attention, mla, rglru, ssm
 
     module, name = {"mla": (mla, "mla_train"), "rec": (rglru, "rglru_train"),
-                    "xattn": (attention, "cross_attention_apply")}[kind]
+                    "xattn": (attention, "cross_attention_apply"),
+                    "ssm": (ssm, "ssm_train")}[kind]
     real = getattr(module, name)
 
     def planted_tp(tp):
@@ -458,6 +483,9 @@ def _plant_mixer_fault(rank: int, kind: str):
             return _PlantedTP(tp, enter=enter)
         if kind == "rec":
             return _PlantedTP(tp, exit=lambda t, y: type(t).exit(t, y) * (1 + 2**-10))
+        if kind == "ssm":
+            return _PlantedTP(tp, both=lambda t, s: _SumForwardOnly.apply(
+                s, C._block_axes(t.axis), t.mesh))
         return _PlantedTP(tp, enter=_dropped_f)
 
     def wrong(*args, tp=None, **kwargs):
@@ -467,6 +495,52 @@ def _plant_mixer_fault(rank: int, kind: str):
 
     setattr(module, name, wrong)
     return lambda: setattr(module, name, real)
+
+
+def _plant_book_offset(rank: int):
+    """Global rank 1's codebook lookup takes its rows' offset from
+    ``Plan.vocab0`` (the head's, in the padded vocabulary), not from the
+    table's own block start: tiny musicgen's rank 1 holds rows 32-63 of 64
+    but looks them up from 128, so those tokens get zero rows. Returns the
+    undo."""
+    from repro_torch.models import parallel
+
+    real = parallel.Plan.__init__
+
+    def wrong(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        if rank == 1:
+            self.book0 = self.vocab0
+
+    parallel.Plan.__init__ = wrong
+    return lambda: setattr(parallel.Plan, "__init__", real)
+
+
+def _plant_ema_counts(rank: int):
+    """Global rank 1's fused second moment sizes its groups by the rank's
+    blocks, not the whole leaves. Returns the undo."""
+    from repro_torch.optim import adamw
+
+    real = adamw.whole_leaf_counts
+
+    def wrong(params, leaf_axes, mesh):
+        return [p.numel() for p in params] if rank == 1 else real(params, leaf_axes, mesh)
+
+    adamw.whole_leaf_counts = wrong
+    return lambda: setattr(adamw, "whole_leaf_counts", real)
+
+
+def _plant(rank: int, fault):
+    """The undo of ``fault`` planted on global rank 1 (None: no fault)."""
+    if not fault:
+        return None
+    if fault is True:
+        return _nudge_one_rank(rank)
+    if fault == "books":
+        return _plant_book_offset(rank)
+    if fault == "ema":
+        return _plant_ema_counts(rank)
+    return _plant_mixer_fault(rank, fault)
 
 
 def sharded_cases(rank, mesh, cases: dict) -> dict:
@@ -480,18 +554,9 @@ def sharded_train(rank, mesh, case: dict):
     second run against the first, the replicas' agreement, and (with
     ``case["meter"]``) the step's traffic, its c10d bytes and the bytes of
     the rank's blocks."""
-    from repro_torch.configs import TrainConfig
-    from repro_torch.launch import sharding as SH
-    from repro_torch.launch.steps import make_guarded_train_step, make_train_step
-    from repro_torch.models.convert import params_from_jax
-    from repro_torch.models.model import param_axes
-    from repro_torch.reduce import inspect
-
     if case.get("exact_f32"):
         exact_f32_attention()
-    fault = case.get("fault")
-    undo = (None if not fault else _nudge_one_rank(rank) if fault is True
-            else _plant_mixer_fault(rank, fault))
+    undo = _plant(rank, case.get("fault"))
     try:
         return _sharded_train(rank, mesh, case)
     finally:
@@ -503,7 +568,7 @@ def _sharded_train(rank, mesh, case: dict):
     from repro_torch.configs import TrainConfig
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.steps import make_guarded_train_step, make_train_step
-    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.convert import params_from_jax, reference_leaf_groups
     from repro_torch.models.model import param_axes
     from repro_torch.reduce import inspect
 
@@ -519,7 +584,8 @@ def _sharded_train(rank, mesh, case: dict):
         params = SH.shard_tree(whole, specs, mesh)
         for p in R.tree_leaves(params):
             p.requires_grad_(True)
-        opt = optim.init_state(params)
+        opt = optim.init_state(params, fused_second_moment=tcfg.fused_second_moment,
+                               leaf_groups=reference_leaf_groups(params, cfg))
         guard = case.get("guard")
         if guard:
             step = make_guarded_train_step(cfg, tcfg, mesh=mesh, param_shardings=specs)
