@@ -3909,18 +3909,19 @@ def _sdpa_window(q, k, v, window: int, q_offset: int = 0):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-def _window_attention_case(gen, b_: int, s_: int, timed: bool) -> dict:
-    """K6's wide variant at recurrentgemma's heads (16 q / 1 kv x 256),
-    causal with the window of 2048 over ``s_`` tokens, bf16: against its
-    plain version (2 bf16 ulps + 2e-3), one launch; with ``timed`` its
-    device and call times beside its bound (the pairs the window leaves)
-    and PyTorch's attention with the window as a mask."""
+def _window_attention_case(gen, b_: int, s_: int, timed: bool, hq: int = RG_HEADS) -> dict:
+    """K6's wide variant at recurrentgemma's heads (16 q / 1 kv x 256; ``hq``
+    query heads: a model rank's 8 in the sharded ring prefill), causal with
+    the window of 2048 over ``s_`` tokens, bf16: against its plain version
+    (2 bf16 ulps + 2e-3), one launch; with ``timed`` its device and call
+    times beside its bound (the pairs the window leaves) and PyTorch's
+    attention with the window as a mask."""
     import torch
 
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
-    q = (torch.randn((b_, RG_HEADS, s_, RG_D), generator=gen, device=DEVICE) * 0.5).bfloat16()
+    q = (torch.randn((b_, hq, s_, RG_D), generator=gen, device=DEVICE) * 0.5).bfloat16()
     k = (torch.randn((b_, RG_KV, s_, RG_D), generator=gen, device=DEVICE) * 0.5).bfloat16()
     v = (torch.randn((b_, RG_KV, s_, RG_D), generator=gen, device=DEVICE) * 0.5).bfloat16()
     kw = dict(causal=True, window=RG_WINDOW)
@@ -3933,7 +3934,7 @@ def _window_attention_case(gen, b_: int, s_: int, timed: bool) -> dict:
         f"flash_attention's wide variant disagrees with its plain version at {b_} x {s_}")
     out = {"max_abs_err": err}
     if timed:
-        pairs = _causal_pairs(s_, s_, 0, RG_WINDOW) * b_ * RG_HEADS
+        pairs = _causal_pairs(s_, s_, 0, RG_WINDOW) * b_ * hq
         bb, by = bound_ms((2 * q.numel() + 2 * k.numel()) * 2, tensor_flops=4 * RG_D * pairs,
                           core_flops=pairs)
         out.update({
@@ -3978,11 +3979,16 @@ def check_window_attention(results: dict, gen) -> None:
               f"bf16 / f16 {[round(errs[f'{case}_{t}'], 6) for t in ('float32', 'bfloat16', 'float16')]} "
               "vs plain (tol 2 bf16 ulps + 2e-3); one launch a call")
     ring = _window_attention_case(gen, SLOTS, RING_PROMPT, timed=True)
+    # a model rank's half of the heads: the sharded serving phase's ring prefill
+    half = _window_attention_case(gen, SLOTS, RING_PROMPT, timed=True, hq=RG_HEADS // 2)
     wide = results["flash_attention"]["wide"]
     wide["window_errs"] = errs
-    wide["ring_prefill"] = ring
-    wide["max_abs_err"] = max([wide["max_abs_err"], ring["max_abs_err"]] + list(errs.values()))
-    _print_cases([(f"K6 wide, window {RG_WINDOW}, {SLOTS} x {RING_PROMPT}", ring)])
+    wide["ring_prefill"], wide["ring_prefill_sharded"] = ring, half
+    wide["max_abs_err"] = max([wide["max_abs_err"], ring["max_abs_err"], half["max_abs_err"]]
+                              + list(errs.values()))
+    _print_cases([(f"K6 wide, window {RG_WINDOW}, {SLOTS} x {RING_PROMPT}", ring),
+                  (f"K6 wide, window {RG_WINDOW}, {SLOTS} x {RG_HEADS // 2}q/{RG_KV}kv x "
+                   f"{RING_PROMPT} (a model rank's heads)", half)])
 
 
 def check_rg_vision_shapes(results: dict) -> None:
@@ -5520,7 +5526,21 @@ def run_sharded_phase(results: dict, gen) -> dict:
 
 # ------------- sharded serving: prefill and decode over (data, model) -------------
 
-SERVE_SHARDED_RULES = {"deepseek-7b": "TP_ONLY_RULES", GRANITE: "SMALL_MODEL_RULES"}
+# Each arch of the sharded serving phase: the reference's serving rules for
+# it (``dryrun.rules_for(cfg, "serve")``), its depth (None: all of it) and
+# its prompts' length. granite at full depth; deepseek-7b at 8 of 30 layers
+# (at 30 the whole script took 1002.3 s, PERF.md section 6); the MLA, SSM,
+# RG-LRU, cross-attention and codebook archs at full width, each at the
+# least depth that holds every block kind of its pattern (mamba2-780m at 4
+# layers), recurrentgemma's prompts past its window of 2048 so that the
+# ring it cuts by slots wraps over the cut.
+SERVE_SHARDED = {"deepseek-7b": ("TP_ONLY_RULES", 8, PROMPT),
+                 GRANITE: ("SMALL_MODEL_RULES", None, PROMPT),
+                 MINICPM: ("TP_ONLY_RULES", 2, PROMPT),
+                 MAMBA: ("SMALL_MODEL_RULES", 4, PROMPT),
+                 RG: ("TP_ONLY_RULES", 3, RING_PROMPT),
+                 VISION: ("TP_ONLY_RULES", 5, PROMPT),
+                 MUSICGEN: ("SMALL_MODEL_RULES", 2, PROMPT)}
 SERVE_SHARDED_STEPS, SERVE_SHARDED_SEED = 16, 2
 # The sharded logits against the single rank's on the same card, weights
 # and tokens, both bf16 on the kernels: a tensor of logits (the prefill's
@@ -5535,8 +5555,13 @@ SERVE_SHARDED_STEPS, SERVE_SHARDED_SEED = 16, 2
 # read 0.0276 and 0.0442 apart. At f32 the two agree to 6.7e-6 and 1.0e-6.
 SERVE_SHARDED_REL = 0.05
 # The planted fault: model rank 1's fixed-order all-reduce returns twice its
-# own partial in place of the ranks' sum (a fold that desynced), in one
-# extra prefill. It must read at least this many times the limit.
+# own partial in place of the ranks' sum (a fold that desynced), and its
+# block of every serving gather (``models.parallel.Serve.gather``: the
+# head outputs, the SSM's conv outputs and y, the RG-LRU's products) adds
+# its neighbour channel's value, in one extra prefill: the archs served
+# under SMALL_MODEL_RULES have no all-reduce past the vocabulary lookup,
+# whose fault the next norm mostly cancels. It must read at least this
+# many times the limit.
 SERVE_SHARDED_FAULT_X = 10
 # The sharding's own error, which bf16's hides: the same weights upcast to
 # f32 on the plain route with the attention's bf16 operand rounding off,
@@ -5544,15 +5569,38 @@ SERVE_SHARDED_FAULT_X = 10
 # f32 run. Limit 1e-4 (the probe's readings 15-100 times under it), and a
 # small fault that must read SERVE_SHARDED_FAULT_X times over it: model
 # rank 1's all-reduce returns the sum plus SERVE_SMALL_FAULT of its own
-# partial (one bf16 ulp).
+# partial (one bf16 ulp), and its gathered blocks SERVE_SMALL_FAULT of
+# their neighbour channel's value.
 SERVE_F32_REL, SERVE_F32_STEPS, SERVE_SMALL_FAULT = 1e-4, 1, 2.0 ** -8
 
 
-def _serve_prompts(cfg, device):
+def _serve_cfg(arch: str):
+    """``arch`` cut to its depth in the sharded serving phase."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    layers = SERVE_SHARDED[arch][1]
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def _serve_prompts(cfg, device, prompt: int):
+    """``SLOTS`` seeded prompts of ``prompt`` tokens ((SLOTS, prompt, K) with
+    K codebook streams), and a cross-attention arch's context: one
+    synthetic image a prompt (``frontends.synth_image_embeds``, seeded 1),
+    else None."""
     import torch
 
+    from repro_torch.models.frontends import synth_image_embeds
+
     gen = torch.Generator(device=device).manual_seed(SERVE_SHARDED_SEED)
-    return torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT), generator=gen, device=device)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    prompts = torch.randint(0, cfg.vocab_size, (SLOTS, prompt) + books, generator=gen,
+                            device=device)
+    ctx = None
+    if cfg.n_img_tokens:
+        ctx = synth_image_embeds(torch.Generator(device=device).manual_seed(1), SLOTS,
+                                 cfg.n_img_tokens, cfg.d_model, torch.bfloat16, device)
+    return prompts, ctx
 
 
 def _rel_gap(got, want) -> float:
@@ -5589,31 +5637,35 @@ def _f32_route():
 
 
 def serving_single(arch: str, path: str) -> dict:
-    """The single rank's prefill of ``SLOTS`` x ``PROMPT`` prompts and
+    """The single rank's prefill of ``SLOTS`` prompts (``SERVE_SHARDED``'s
+    length; a cross-attention arch's context beside them) and
     ``SERVE_SHARDED_STEPS`` greedy decode steps on the phase's weights (the
-    seed of the sharded step's phase), saved to ``path`` for the ranks:
-    the prompts, the prefill's logits, each step's input tokens and
-    logits (the teacher-forced inputs of the ranks), and the f32 route's
-    logits of the prefill and ``SERVE_F32_STEPS`` decode steps on the same
-    values upcast; its prefill ms and decode ms a token (host clock, the
-    card synchronised)."""
+    seed of the sharded step's phase, the cross-attention gates opened to
+    ``OPEN_GATE``), saved to ``path`` for the ranks: the prompts and the
+    context, the prefill's logits, each step's input tokens and logits
+    (the teacher-forced inputs of the ranks), and the f32 route's logits
+    of the prefill and ``SERVE_F32_STEPS`` decode steps on the same values
+    upcast; its prefill ms and decode ms a token (host clock, the card
+    synchronised)."""
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import init_params
 
-    cfg = get_arch(arch)
+    cfg = _serve_cfg(arch)
+    prompt = SERVE_SHARDED[arch][2]
     params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SHARDED_SEED), DEVICE)
-    prefill = make_prefill_step(cfg, PROMPT + SERVE_SHARDED_STEPS)
+    open_gates(params, OPEN_GATE)
+    prefill = make_prefill_step(cfg, prompt + SERVE_SHARDED_STEPS)
     decode = make_decode_step(cfg, greedy=False)
-    prompts = _serve_prompts(cfg, DEVICE)
-    out = {"prompts": prompts.cpu(), "tokens": [], "steps": []}
+    prompts, ctx = _serve_prompts(cfg, DEVICE, prompt)
+    out = {"prompts": prompts.cpu(), "ctx": None if ctx is None else ctx.cpu(), "tokens": [],
+           "steps": []}
     with torch.inference_mode():
-        prefill(params, prompts)  # warm-up
+        prefill(params, prompts, ctx)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches = prefill(params, prompts)
+        logits, caches = prefill(params, prompts, ctx)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         out["prefill"] = logits.cpu()
@@ -5621,7 +5673,7 @@ def serving_single(arch: str, path: str) -> dict:
         t0 = time.perf_counter()
         for i in range(SERVE_SHARDED_STEPS):
             out["tokens"].append(tok.cpu())
-            lg, caches = decode(params, caches, tok, PROMPT + i)
+            lg, caches = decode(params, caches, tok, prompt + i)
             out["steps"].append(lg.cpu())  # synchronises
             tok = torch.argmax(lg, -1).to(torch.int32)
         decode_ms = (time.perf_counter() - t0) * 1e3 / SERVE_SHARDED_STEPS
@@ -5630,11 +5682,12 @@ def serving_single(arch: str, path: str) -> dict:
     torch.cuda.empty_cache()
     f32 = _f32_cfg(cfg)
     with torch.inference_mode(), _f32_route():
-        logits, caches = make_prefill_step(f32, PROMPT + SERVE_SHARDED_STEPS)(params, prompts)
+        logits, caches = make_prefill_step(f32, prompt + SERVE_SHARDED_STEPS)(
+            params, prompts, None if ctx is None else ctx.float())
         out["f32"] = [logits.cpu()]
         decode = make_decode_step(f32, greedy=False)
         for i in range(SERVE_F32_STEPS):
-            lg, caches = decode(params, caches, out["tokens"][i].to(DEVICE), PROMPT + i)
+            lg, caches = decode(params, caches, out["tokens"][i].to(DEVICE), prompt + i)
             out["f32"].append(lg.cpu())
     torch.save(out, path)
     del params, caches, logits, lg
@@ -5646,11 +5699,13 @@ def _desync_model_rank(mesh, small=None):
     """On model rank 1 of each data group the fixed-order all-reduce
     (``sum_forward``) returns twice the rank's own partial in place of the
     ranks' sum (with ``small``, the sum plus ``small`` times its own
-    partial); it still joins the gather, so no rank waits. Returns the
-    undo."""
+    partial), and the block it gives to a serving gather (``Serve.gather``)
+    adds its neighbour channel's value (``small`` times it); it still joins
+    every collective, so no rank waits. Returns the undo."""
     from repro_torch.core import collectives as coll
+    from repro_torch.models import parallel
 
-    real = coll._SumForward.forward
+    real, real_gather = coll._SumForward.forward, parallel.Serve.gather
     faulty = mesh.axis_index("model") == 1
 
     def wrong(ctx, x, axes, mesh):
@@ -5659,10 +5714,17 @@ def _desync_model_rank(mesh, small=None):
             return out
         return x + x if small is None else out + small * x
 
+    def wrong_gather(self, x, dim):
+        if faulty:
+            x = x + (1.0 if small is None else small) * x.roll(1, -1)
+        return real_gather(self, x, dim)
+
     coll._SumForward.forward = staticmethod(wrong)
+    parallel.Serve.gather = wrong_gather
 
     def undo():
         coll._SumForward.forward = staticmethod(real)
+        parallel.Serve.gather = real_gather
 
     return undo
 
@@ -5682,29 +5744,32 @@ def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str
     import torch.distributed as dist
 
     from repro_torch import reduce as R
-    from repro_torch.configs import get_arch
     from repro_torch.core import collectives as C
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import init_params
     from repro_torch.reduce import inspect
 
-    cfg = get_arch(arch)
-    specs = sharded_specs(cfg, SERVE_SHARDED_RULES[arch], mesh)
+    t_arch = time.perf_counter()
+    cfg = _serve_cfg(arch)
+    rules, _, prompt = SERVE_SHARDED[arch]
+    specs = sharded_specs(cfg, rules, mesh)
     dev = mesh.device
     for r in range(world):  # one whole model on the card at a time
         if r == rank:
             full = init_params(cfg, torch.Generator(device=dev).manual_seed(SHARDED_SEED), dev)
+            open_gates(full, OPEN_GATE)
             params = SH.shard_tree(full, specs, mesh)
             del full
             torch.cuda.empty_cache()
         dist.barrier()
     ref = torch.load(single_path)
-    s_max = PROMPT + SERVE_SHARDED_STEPS
+    s_max = prompt + SERVE_SHARDED_STEPS
     prefill = make_prefill_step(cfg, s_max, mesh=mesh, param_shardings=specs)
     decode = make_decode_step(cfg, greedy=False, mesh=mesh, param_shardings=specs)
     greedy = make_decode_step(cfg, greedy=True, mesh=mesh, param_shardings=specs)
     prompts = ref["prompts"].to(dev)
+    ctx = None if ref["ctx"] is None else ref["ctx"].to(dev)
     d, n = mesh.axis_index("data"), SLOTS // mesh.axis_size("data")
     rows = slice(d * n, (d + 1) * n)
     res = {}
@@ -5725,10 +5790,10 @@ def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    logits, caches = metered("prefill", lambda: prefill(params, prompts))
+    logits, caches = metered("prefill", lambda: prefill(params, prompts, ctx))
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    again, caches2 = prefill(params, prompts)  # a second prefill beside the first: not peaked
+    again, caches2 = prefill(params, prompts, ctx)  # a second prefill beside the first: not peaked
     torch.cuda.synchronize()
     res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
     res["prefill_bitwise"] = bool(torch.equal(logits, again))
@@ -5738,19 +5803,24 @@ def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str
     agree = bool(C.replica_bits_agree(logits, ("model",), mesh))
     gaps, kept, excluded, walls, equal = [], 0, 0, [], True
     for i in range(SERVE_SHARDED_STEPS):
-        tok, pos = ref["tokens"][i].to(dev), PROMPT + i
+        tok, pos = ref["tokens"][i].to(dev), prompt + i
+        # each step runs from the committed caches (``pre``): the recurrent
+        # caches are new tensors a step, the KV and latent caches' in-place
+        # write of the step's slot repeats bitwise, so the retry and the
+        # greedy run of the same step see the state the first run saw
+        pre = caches
         if i == 0:
-            lg, caches = metered("decode", lambda: decode(params, caches, tok, pos))
+            lg, caches = metered("decode", lambda: decode(params, pre, tok, pos))
             after = [t.cpu() for t in R.tree_leaves(caches)]
-            lg2, caches = decode(params, caches, tok, pos)
+            lg2, caches = decode(params, pre, tok, pos)
             res["retry_bitwise"] = bool(torch.equal(lg, lg2)) and all(
                 torch.equal(a, b.cpu()) for a, b in zip(after, R.tree_leaves(caches)))
-            nxt, caches = metered("greedy", lambda: greedy(params, caches, tok, pos))
+            nxt, caches = metered("greedy", lambda: greedy(params, pre, tok, pos))
         else:
-            lg, caches = decode(params, caches, tok, pos)
+            lg, caches = decode(params, pre, tok, pos)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            nxt, caches = greedy(params, caches, tok, pos)
+            nxt, caches = greedy(params, pre, tok, pos)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         agree &= bool(C.replica_bits_agree(lg, ("model",), mesh))
@@ -5758,20 +5828,23 @@ def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str
         mine = lg.cpu()
         gaps.append(_rel_gap(mine, want))
         equal &= bool(torch.equal(nxt.cpu(), torch.argmax(mine, -1).to(torch.int32)))
-        for j in range(n):  # the single rank's token where its margin is clear
-            top = torch.topk(want[j, 0].double(), 2).values
-            row_gap = float((mine[j].double() - want[j].double()).abs().max())
+        vocab = want.shape[-1]
+        # the single rank's token where its margin is clear, a row (and a
+        # codebook stream) at a time
+        for w_row, m_row, tok_j in zip(want.reshape(-1, vocab), mine.reshape(-1, vocab),
+                                       nxt.cpu().reshape(-1)):
+            top = torch.topk(w_row.double(), 2).values
+            row_gap = float((m_row.double() - w_row.double()).abs().max())
             if float(top[0] - top[1]) > 2 * row_gap:
                 kept += 1
-                equal_tok = int(nxt[j, 0]) == int(torch.argmax(want[j, 0]))
                 res.setdefault("token_misses", 0)
-                res["token_misses"] += int(not equal_tok)
+                res["token_misses"] += int(int(tok_j) != int(torch.argmax(w_row)))
             else:
                 excluded += 1
     res["peak_gb"] = max(peak, torch.cuda.max_memory_allocated()) / 1e9
     undo = _desync_model_rank(mesh)
     try:
-        faulty, _ = prefill(params, prompts)
+        faulty, _ = prefill(params, prompts, ctx)
     finally:
         undo()
     res.update(step_gaps=gaps, decode_ms=sum(walls) / len(walls), greedy_is_argmax=equal,
@@ -5787,20 +5860,22 @@ def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str
     f32 = _f32_cfg(cfg)
     prefill = make_prefill_step(f32, s_max, mesh=mesh, param_shardings=specs)
     decode = make_decode_step(f32, greedy=False, mesh=mesh, param_shardings=specs)
+    ctx = None if ctx is None else ctx.float()
     with _f32_route():
-        logits, caches = prefill(params, prompts)
+        logits, caches = prefill(params, prompts, ctx)
         res["f32_gaps"] = [_rel_gap(logits.cpu(), ref["f32"][0][rows])]
         for i in range(SERVE_F32_STEPS):
-            lg, caches = decode(params, caches, ref["tokens"][i].to(dev), PROMPT + i)
+            lg, caches = decode(params, caches, ref["tokens"][i].to(dev), prompt + i)
             res["f32_gaps"].append(_rel_gap(lg.cpu(), ref["f32"][i + 1][rows]))
         undo = _desync_model_rank(mesh, small=SERVE_SMALL_FAULT)
         try:
-            faulty, _ = prefill(params, prompts)
+            faulty, _ = prefill(params, prompts, ctx)
         finally:
             undo()
     res["f32_fault_gap"] = _rel_gap(faulty.cpu(), ref["f32"][0][rows])
     del params, caches, logits, lg, faulty
     torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_arch
     return res
 
 
@@ -5824,24 +5899,35 @@ def _serving_rank(rank: int, world: int, kw: dict) -> dict:
 
 
 def serving_launches(cfg) -> dict:
-    """A rank's launches in one sharded prefill or decode step: both norms
-    of every block and the final norm (K5b; K5a for a LayerNorm arch), K6
-    once a self-attention block in the prefill only (on the rank's heads);
-    nothing else."""
+    """A rank's launches in one sharded prefill or decode step: the block
+    norms and the final norm (``_layer_launches``: K5b; K5a for a
+    non-parametric LayerNorm, none for musicgen's LayerNorm with scale and
+    bias), K6 once a self-attention block in the prefill only (on the
+    rank's heads; past heads of 128 its wide variant; none for MLA and
+    cross-attention); nothing else (the MLA, SSM and RG-LRU mixers launch
+    no kernel)."""
     norms, attn = _layer_launches(cfg)
-    norm = "layernorm" if cfg.norm == "layernorm_np" else "rmsnorm"
-    return {"prefill": {norm: norms + 1, "flash_attention": attn}, "decode": {norm: norms + 1}}
+    decode = {k: v for k, v in _norm_kernels(cfg, norms + 1).items() if v}
+    return {"prefill": dict(decode, **({"flash_attention": attn} if attn else {})),
+            "decode": decode}
 
 
 def run_sharded_serving_phase() -> dict:
     """Sharded serving on the card (``launch.steps.make_prefill_step`` and
     ``make_decode_step`` with ``mesh=``): four gloo ranks sharing the first
-    card on (data 2, model 2) serve deepseek-7b at full width and depth
-    under TP_ONLY_RULES (heads cut; K6 and K5b in the prefill on the rank's
-    heads) and granite-moe-1b-a400m at full depth under SMALL_MODEL_RULES
-    (weights whole over "model", FSDP over "data", EP; caches cut by
-    heads), ``SLOTS`` prompts of ``PROMPT`` tokens and
-    ``SERVE_SHARDED_STEPS`` decode steps each. Each is held to the single
+    card on (data 2, model 2) serve each arch of ``SERVE_SHARDED`` at full
+    width: deepseek-7b at 8 layers under TP_ONLY_RULES (heads cut; K6 and
+    K5b in the prefill on the rank's heads), granite-moe-1b-a400m at full
+    depth under SMALL_MODEL_RULES (weights whole over "model", FSDP over
+    "data", EP; caches cut by heads), minicpm3-4b (MLA's heads cut, its
+    latent by slots: the split-KV decode in latent space), mamba2-780m
+    under SMALL_MODEL_RULES (the state cut by heads, the conv cache by
+    channels), recurrentgemma-9b (the RG-LRU's channels, the local
+    attention's one-kv-head ring cut by slots past the window: K6 wide on
+    the rank's 8 of 16 heads), llama-3.2-vision-11b (cross-attention cut
+    by kv heads, the gates open) and musicgen-medium under
+    SMALL_MODEL_RULES (the codebook streams), ``SLOTS`` prompts each and
+    ``SERVE_SHARDED_STEPS`` decode steps. Each is held to the single
     rank on the same card and weights, run before the ranks: the
     prefill's last-token logits and every teacher-forced decode step's
     within ``SERVE_SHARDED_REL``, the planted fault at least
@@ -5858,39 +5944,40 @@ def run_sharded_serving_phase() -> dict:
 
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import abstract_mesh
 
     t_phase = time.time()
-    archs = ("deepseek-7b", GRANITE)
+    archs = tuple(SERVE_SHARDED)
     mesh = abstract_mesh(SHARDED_SHAPE, SHARDED_AXES)
-    s_max = PROMPT + SERVE_SHARDED_STEPS
     out = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         paths = [(arch, os.path.join(tmp, f"{arch}.pt")) for arch in archs]
         single = {arch: serving_single(arch, path) for arch, path in paths}
         ranks = spawn_ranks("serving", SHARDED_WORLD, archs=paths, one_card=True)
     for arch in archs:
-        cfg = get_arch(arch)
-        specs = sharded_specs(cfg, SERVE_SHARDED_RULES[arch], mesh)
-        models = {"prefill": dryrun.serve_collectives(cfg, mesh, specs, "prefill", SLOTS, PROMPT,
+        cfg = _serve_cfg(arch)
+        rules, _, prompt = SERVE_SHARDED[arch]
+        s_max = prompt + SERVE_SHARDED_STEPS
+        specs = sharded_specs(cfg, rules, mesh)
+        models = {"prefill": dryrun.serve_collectives(cfg, mesh, specs, "prefill", SLOTS, prompt,
                                                       s_max=s_max),
                   "decode": dryrun.serve_collectives(cfg, mesh, specs, "decode", SLOTS, s_max,
                                                      greedy=False),
                   "greedy": dryrun.serve_collectives(cfg, mesh, specs, "decode", SLOTS, s_max)}
-        need = dryrun.serve_rank_bytes(cfg, mesh, specs, "prefill", SLOTS, PROMPT,
+        need = dryrun.serve_rank_bytes(cfg, mesh, specs, "prefill", SLOTS, prompt,
                                        s_max=s_max)["need"]
         launches = serving_launches(cfg)
         one = single[arch]
-        print(f"sharded serving {arch} ({SERVE_SHARDED_RULES[arch]}, {cfg.n_layers} layers, "
-              f"(data 2, model 2), 4 ranks on one card over {ranks[0]['transport']}): single "
-              f"rank prefill {one['prefill_ms']:.1f} ms, decode {one['decode_ms']:.2f} ms a "
-              f"token ({SLOTS} x {PROMPT} prompts)")
+        print(f"sharded serving {arch} ({rules}, {cfg.n_layers} layers, (data 2, model 2), 4 "
+              f"ranks on one card over {ranks[0]['transport']}): single rank prefill "
+              f"{one['prefill_ms']:.1f} ms, decode {one['decode_ms']:.2f} ms a token ({SLOTS} x "
+              f"{prompt} prompts)")
         for r, res in enumerate(ranks):
             a = res[arch]
-            print(f"sharded serving {arch} rank {r}: prefill {a['prefill_ms']:.1f} ms, decode "
-                  f"{a['decode_ms']:.2f} ms a token (greedy step); c10d bytes in: prefill "
+            print(f"sharded serving {arch} rank {r}: {a['wall_s']:.1f} s in all; prefill "
+                  f"{a['prefill_ms']:.1f} ms, decode {a['decode_ms']:.2f} ms a token (greedy "
+                  f"step); c10d bytes in: prefill "
                   f"{a['prefill_c10d']} (dry run {sum(models['prefill'].values())}), a decode "
                   f"step {a['greedy_c10d']} greedy / {a['decode_c10d']} with logits (dry run "
                   f"{sum(models['greedy'].values())} / {sum(models['decode'].values())}); "
@@ -5935,7 +6022,7 @@ def run_sharded_serving_phase() -> dict:
                   f"sharded serving {arch}: rank {r}'s peak is past the dry run's bytes")
         out[arch] = {"single": one, "ranks": [res[arch] for res in ranks],
                      "c10d_model": {k: sum(v.values()) for k, v in models.items()},
-                     "need": need}
+                     "need": need, "layers": cfg.n_layers}
     print(f"sharded serving phase: {time.time() - t_phase:.1f} s")
     # rank 0's metered calls: the prefill, a decode step for its logits and
     # one for its greedy token
@@ -6280,6 +6367,9 @@ def main() -> int:
                 serving_sharded["launches"]["deepseek-7b"].get(name, 0),
             "launches_sharded_serving_granite_rank0":
                 serving_sharded["launches"][GRANITE].get(name, 0),
+            **{f"launches_sharded_serving_{arch}_{serving_sharded[arch]['layers']}_layers_rank0":
+               serving_sharded["launches"][arch].get(name, 0)
+               for arch in SERVE_SHARDED if arch not in ("deepseek-7b", GRANITE)},
             "launches_forward_kernel_route": nonkernel["launches"].get(name, 0),
         }
         entry.update({k: v for k, v in r.items() if k not in entry})

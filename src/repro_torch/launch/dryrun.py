@@ -42,12 +42,11 @@ Every rank's blocks have the same shapes (the rules cut a dim only where
 it divides), so the figures are those of every rank. The training cells
 run every block kind and codebook streams (``models.parallel.Plan``:
 attention, global or local, MLA, the SSM, the RG-LRU and cross-attention,
-each mixer's collectives counted as it runs them); cuts a mixer cannot run
-(MLA's 40 heads over 16 model ranks) get ``refused`` with the reason (a
-training cell its bytes too). The serving cells run self-attention blocks
-alone: the MLA, SSM, RG-LRU, cross-attention and codebook archs' are
-``refused`` with the serving layout's reason
-(``models.parallel.check_serves``).
+each mixer's collectives counted as it runs them), and so do the serving
+cells (``models.parallel.Plan.serve_layout``: each kind's cache cut as
+``cache_shardings`` cuts it, its collectives and its working set by
+kind); cuts a block cannot run (MLA's 40 heads over 16 model ranks) get
+``refused`` with the layout's reason (a training cell its bytes too).
 
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k --mesh 2x2
   python -m repro_torch.launch.dryrun --all --mesh single
@@ -77,6 +76,8 @@ from repro_torch.launch.train import (ACTIVATION_RESERVE_BYTES, sharded_step_pea
 from repro_torch.models import make_caches
 from repro_torch.models import moe as MOE
 from repro_torch.models import params as P
+from repro_torch.models import rglru as REC
+from repro_torch.models import ssm as SSM
 from repro_torch.models.parallel import Plan
 
 ART_DIR = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
@@ -272,7 +273,7 @@ def serve_plan(cfg, mesh, specs, batch: int, s_max: int):
     (``cache_shardings`` of ``batch`` x ``s_max`` slots), as
     ``launch.steps.make_prefill_step`` / ``make_decode_step`` build it."""
     meta = make_caches(cfg, batch, s_max, META)
-    return Plan(cfg, mesh, specs, SH.cache_shardings(meta, cfg, mesh)), meta
+    return Plan(cfg, mesh, specs).for_caches(meta), meta
 
 
 def serve_collectives(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
@@ -283,7 +284,11 @@ def serve_collectives(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
     against caches of ``s_max`` slots (``launch.steps``' serving steps with
     ``mesh=``; ``greedy``: the decode's (max, index) merge, else its logits
     gathered); depth "step" (once) or "block" (once a block). No backward,
-    so no reduce-scatter."""
+    so no reduce-scatter. Each block kind's own (``_block_serve_collectives``):
+    attention's and cross-attention's k/v gathers, split-KV partials and
+    head gathers; MLA's q gather and latent partials; the SSM's conv-output
+    gather and norm statistic, or its heads' y; the RG-LRU's products; and
+    Megatron's g of every cut mixer and FFN."""
     s_max = seq if s_max is None else s_max
     plan, _ = serve_plan(cfg, mesh, specs, batch, s_max)
     params = _meta_params(cfg)
@@ -291,7 +296,8 @@ def serve_collectives(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
     toks = rows * (seq if mode == "prefill" else 1)
     act = params["embed"]["table"].element_size()
     hidden = toks * cfg.d_model * act
-    model, d = plan.model, cfg.d_head
+    model = plan.model
+    books = max(1, cfg.n_codebooks)  # the streams: looked up and scored each
     out: collections.Counter = collections.Counter()
 
     def note(kind, axis, depth, nbytes):
@@ -306,53 +312,150 @@ def serve_collectives(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
                     note("all-gather", ax, depth, math.prod(shape) * t.element_size())
                     shape[i] *= mesh.axis_size(ax)
 
+    fsdp(params["embed"], specs["embed"], "step")  # a codebook table's d
     if plan.vocab_parallel:
-        note("all-reduce", model, "step", hidden)  # the lookup's sum
-    for i, (p, sp) in enumerate(zip(params["layers"], specs["layers"])):
-        lay = plan.serve_layout(i, s_max)
+        note("all-reduce", model, "step", books * hidden)  # the lookup's sum
+    for i, (kind, p, sp) in enumerate(zip(cfg.pattern_layers, params["layers"],
+                                         specs["layers"])):
+        lay = plan.serve_layout(i)
         fsdp(p, sp, "block")
-        for name in ("k", "v"):
-            w = p["mix"][name]["w"]
-            if (plan._model_cut(sp["mix"][name]["w"], 1)
-                    and not (lay["kv"] == "local" and lay["cache"] == "heads")):
-                note("all-gather", model, "block",
-                     math.prod(SH.local_shape(w.shape, sp["mix"][name]["w"], mesh))
-                     * w.element_size())
-        q0, q1 = lay["q_heads"]
-        if mode == "decode" and lay["cache"] == "seq":
-            if (q0, q1) != (0, cfg.n_heads):
-                note("all-gather", model, "block", rows * (q1 - q0) * d * act)  # q
-            note("all-gather", model, "block", rows * cfg.n_heads * (d + 2) * 4)  # partials
-        if lay["gather_heads"]:
-            note("all-gather", model, "block", toks * (q1 - q0) * d * act)
-        for tp in ("attn_tp", "ffn_tp"):
+        for kind_, nbytes in _block_serve_collectives(cfg, plan, kind, lay, p, sp, mode, rows,
+                                                      toks, act):
+            note(kind_, model, "block", nbytes)
+        for tp in ("attn_tp", "inner_tp", "ffn_tp"):
             if lay[tp]:
-                note("all-reduce", model, "block", hidden)  # o / down: g
+                note("all-reduce", model, "block", hidden)  # o / out / down: g
         if lay["ep"] == "model":
             note("all-reduce", model, "block", hidden)  # the combine
     fsdp(params["final_norm"], specs["final_norm"], "step")
     if plan.vocab_parallel:
         cols = P.padded_vocab(cfg.vocab_size) // mesh.axis_size(model)
         note("all-gather", model, "step",
-             rows * 2 * 8 if mode == "decode" and greedy else rows * cols * 4)
+             books * (rows * 2 * 8 if mode == "decode" and greedy else rows * cols * 4))
     return dict(out)
+
+
+def _block_serve_collectives(cfg, plan, kind, lay, p, sp, mode, rows, toks, act) -> list:
+    """A block's own collectives over "model" in one serving step, as
+    (kind, bytes of the rank's operand) pairs (``serve_collectives``)."""
+    mesh, decode = plan.mesh, mode == "decode"
+    out = []
+    if kind == "ssm":
+        s, _, _, conv_dim = SSM._dims(cfg)
+        (h0, h1), (c0, c1) = lay["q_heads"], lay["channels"]
+        if (c0, c1) != (0, conv_dim):
+            out.append(("all-gather", toks * (c1 - c0) * act))  # the conv's outputs
+        if lay["inner_tp"]:
+            out.append(("all-reduce", toks * 4))  # the gated norm's statistic
+        if lay["gather_heads"]:
+            out.append(("all-gather", toks * (h1 - h0) * s.headdim * 4))  # the heads' y
+        return out
+    if kind == "rec":
+        c0, c1 = lay["channels"]
+        if lay["gather_heads"]:
+            out.append(("all-gather", toks * (c1 - c0) * act))  # the products h * gate
+        return out
+    q0, q1 = lay["q_heads"]
+    if kind != "xattn" and cfg.mla is not None:
+        m = cfg.mla
+        if decode and lay["cache"] == "seq":
+            if (q0, q1) != (0, cfg.n_heads):  # q_c (f32) and q_rope
+                out.append(("all-gather", rows * (q1 - q0) * m.kv_lora_rank * 4))
+                out.append(("all-gather", rows * (q1 - q0) * m.qk_rope_dim * act))
+            out.append(("all-gather", rows * cfg.n_heads * (m.kv_lora_rank + 2) * 4))  # partials
+        return out
+    d = cfg.d_head
+    for name in ("k", "v"):
+        w = p["mix"][name]["w"]
+        if (plan._model_cut(sp["mix"][name]["w"], 1)
+                and not (lay["kv"] == "local" and lay["cache"] == "heads")):
+            out.append(("all-gather", math.prod(SH.local_shape(w.shape, sp["mix"][name]["w"],
+                                                                mesh)) * w.element_size()))
+    if decode and lay["cache"] == "seq":
+        if (q0, q1) != (0, cfg.n_heads):
+            out.append(("all-gather", rows * (q1 - q0) * d * act))  # q
+        out.append(("all-gather", rows * cfg.n_heads * (d + 2) * 4))  # the partials
+    if lay["gather_heads"]:
+        out.append(("all-gather", toks * (q1 - q0) * d * act))
+    return out
+
+
+def _score_tiles(rows: int, heads: int, sq: int, skv: int, dv: int) -> int:
+    """``attention.flash_attention_xla``'s f32 working set: a few
+    temporaries of one (q chunk, kv chunk) score tile a head, and the
+    chunks' outputs, kept and then concatenated."""
+    return 4 * rows * heads * (4 * min(512, sq) * min(1024, skv) + 2 * sq * dv)
+
+
+def _block_work(cfg, kind, lay, mode, rows, seq, s_max, act, n_model) -> int:
+    """One block's activations in a serving step of the rank's ``rows``
+    (``serve_rank_bytes``' model figure), its FFN aside: the residual
+    stream and its norm (4 d a token), and the mixer's own, by kind."""
+    toks = rows * (seq if mode == "prefill" else 1)
+    base = toks * 4 * cfg.d_model * act
+    if kind == "ssm":
+        s, _, _, conv_dim = SSM._dims(cfg)
+        (h0, h1), (c0, c1) = lay["q_heads"], lay["channels"]
+        hp = (h1 - h0) * s.headdim
+        per_tok = (hp + 3 * (c1 - c0) + 2 * conv_dim) * act + (8 * hp + 2 * conv_dim) * 4
+        if mode == "prefill":
+            q = min(s.chunk, seq)
+            pad = -(-seq // q) * q
+            # the SSD's chunk tensors: the decay and CB masks, the states
+            ssd = 4 * rows * (h1 - h0) * (6 * pad * q + 3 * (pad // q) * s.headdim * s.d_state)
+        else:  # the state decayed and the new state beside the cached one
+            ssd = 2 * 4 * rows * (h1 - h0) * s.headdim * s.d_state
+        return base + toks * per_tok + ssd
+    if kind == "rec":
+        c0, c1 = lay["channels"]
+        w = REC._width(cfg)
+        return base + toks * ((c1 - c0) * (3 * act + 12 * 4) + w * act)
+    q0, q1 = lay["q_heads"]
+    hq = q1 - q0
+    if kind != "xattn" and cfg.mla is not None:
+        m = cfg.mla
+        qk, lat = m.qk_nope_dim + m.qk_rope_dim, m.kv_lora_rank + m.qk_rope_dim
+        if mode == "prefill":
+            per_tok = 2 * m.q_lora_rank + 3 * lat + hq * (3 * qk + 2 * (m.qk_nope_dim
+                                                                          + m.v_head_dim)
+                                                           + 2 * m.v_head_dim)
+            return base + toks * per_tok * act + _score_tiles(rows, hq, seq, seq, m.v_head_dim)
+        s0, s1 = lay["slots"]
+        slots = s1 - s0
+        # the normed latents (and their f32 copy), the scores, the partials
+        return base + rows * (slots * m.kv_lora_rank * (act + 4) + 3 * cfg.n_heads * slots * 4
+                              + (n_model + 2) * cfg.n_heads * (m.kv_lora_rank + 2) * 4)
+    c0, c1 = lay["cache_heads"]
+    heads = 2 * hq + cfg.n_heads * lay["gather_heads"] + 2 * (c1 - c0)
+    work = base + toks * heads * cfg.d_head * act
+    if kind == "xattn":  # the context, its keys and values, and the chunked attention
+        n = cfg.n_img_tokens
+        work += rows * n * (cfg.d_model + 2 * (c1 - c0) * cfg.d_head) * act
+        if mode == "prefill":
+            work += _score_tiles(rows, hq, seq, n, cfg.d_head)
+    return work
 
 
 def serve_rank_bytes(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
                      s_max=None) -> dict:
     """A rank's bytes in a serving cell: its parameter blocks, its cache
-    blocks, the logits it returns (the prefill's gathered over the whole
-    padded vocabulary; the greedy decode's columns of the rank, never
-    gathered), and the working set beside them (a model figure): the
-    largest block's weights gathered (FSDP over the batch axes, k and v
-    over "model"), the head's f32 copy of the rank's columns, and one
-    block's activations of the rank's rows -- the residual stream and its
-    norm (4 d a token), q, k, v and the head outputs of its heads, the
-    FFN's hidden (3 f: gate, up and their product; the MoE's at its
-    capacity over the rank's experts, with the dispatched rows twice); and
-    the GEMM libraries' workspaces (``LIBRARY_WORKSPACE_BYTES``).
-    ``seq``: the prompt's length (prefill), ``s_max`` the caches' (``seq``
-    when None)."""
+    blocks (the KV caches, MLA's latent, the SSM's conv window and f32
+    state, the RG-LRU's conv window and f32 ``h``, as ``cache_shardings``
+    cuts them), the logits it returns (the prefill's gathered over the
+    whole padded vocabulary, each codebook stream's; the greedy decode's
+    columns of the rank, never gathered), and the working set beside them
+    (a model figure): the largest block's weights gathered (FSDP over the
+    batch axes, k and v over "model"), the head's f32 copy of the rank's
+    columns, one block's activations of the rank's rows (``_block_work``:
+    the residual stream and its norm, each mixer's own -- attention's
+    heads, MLA's expanded heads and score tiles or its latent partials,
+    the SSM's conv blocks and SSD chunk tensors or its stepped state, the
+    RG-LRU's channels, cross-attention's context -- and the FFN's hidden:
+    3 f, gate, up and their product; the MoE's at its capacity over the
+    rank's experts, with the dispatched rows twice); and the GEMM
+    libraries' workspaces (``LIBRARY_WORKSPACE_BYTES``). ``seq``: the
+    prompt's length (prefill), ``s_max`` the caches' (``seq`` when
+    None)."""
     s_max = seq if s_max is None else s_max
     plan, meta = serve_plan(cfg, mesh, specs, batch, s_max)
     params = _meta_params(cfg)
@@ -362,25 +465,27 @@ def serve_rank_bytes(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
     n_model = mesh.axis_size(plan.model) if plan.model else 1
     vocab = P.padded_vocab(cfg.vocab_size)
     cols = vocab // n_model if plan.vocab_parallel else vocab
+    books = max(1, cfg.n_codebooks)
     caches = sum(math.prod(SH.local_shape(t.shape, s, mesh)) * t.element_size()
                  for t, s in zip(R.tree_leaves(meta), SH.tree_leaves(plan.cache_specs)))
     gathered, work = 0, 0
-    for i, (p, sp) in enumerate(zip(params["layers"], specs["layers"])):
-        lay = plan.serve_layout(i, s_max)
+    for i, (kind, p, sp) in enumerate(zip(cfg.pattern_layers, params["layers"],
+                                         specs["layers"])):
+        lay = plan.serve_layout(i)
         g = 0
         for t, s in zip(R.tree_leaves(p), SH.tree_leaves(sp)):
             batch_cut = [ax for ax in SH.spec_axes(s) if ax in plan.batch]
             if batch_cut:
                 g += math.prod(SH.local_shape(t.shape, s, mesh)) * t.element_size() * (
                     math.prod(mesh.axis_size(ax) for ax in batch_cut) - 1)
-        for name in ("k", "v"):
+        for name in ("k", "v") if "k" in p["mix"] else ():
             w = p["mix"][name]["w"]
             if plan._model_cut(sp["mix"][name]["w"], 1) and lay["kv"] != "local":
                 g += w.numel() * w.element_size() // n_model * (n_model - 1)
         gathered = max(gathered, g)
-        heads = ((lay["q_heads"][1] - lay["q_heads"][0]) * 2 + cfg.n_heads * lay["gather_heads"]
-                 + 2 * (lay["cache_heads"][1] - lay["cache_heads"][0]))
-        if cfg.moe is not None:
+        if "ffn" not in p:
+            ffn = 0
+        elif cfg.moe is not None:
             e = cfg.moe
             n_exp = e.n_experts // n_model if lay["ep"] == "model" else e.n_experts
             per_row = seq if mode == "prefill" else 1
@@ -388,12 +493,12 @@ def serve_rank_bytes(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
                                                                + 3 * e.d_ff_expert) * act
         else:
             ffn = toks * 3 * cfg.d_ff // (n_model if lay["ffn_tp"] else 1) * act
-        work = max(work, toks * (4 * cfg.d_model + heads * cfg.d_head) * act + ffn)
+        work = max(work, _block_work(cfg, kind, lay, mode, rows, seq, s_max, act, n_model) + ffn)
     out = {"params": sum(k * size for k, size in shard_shapes(cfg, mesh, specs)),
            "caches": caches,
-           "logits": rows * (vocab if mode == "prefill" else cols) * 4,
-           "gathered_block": gathered, "head_f32": cfg.d_model * cols * 4 * max(
-               1, cfg.n_codebooks), "activations": work, "workspace": LIBRARY_WORKSPACE_BYTES}
+           "logits": books * rows * (vocab if mode == "prefill" else cols) * 4,
+           "gathered_block": gathered, "head_f32": cfg.d_model * cols * 4 * books,
+           "activations": work, "workspace": LIBRARY_WORKSPACE_BYTES}
     out["need"] = sum(out.values())
     return out
 

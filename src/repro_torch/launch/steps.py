@@ -42,10 +42,13 @@ for the config, ``launch.dryrun.rules_for``, when no specs are given): the
 rank's blocks of the weights and of the caches
 (``launch.sharding.cache_shardings``, made by rank: ``make_rank_caches``),
 its rows of the global batch, each block laid out by
-``models.parallel.Plan.serve_layout`` (TP, EP, FSDP, and the caches cut by
-heads or by slots: the split-KV decode), the logits gathered over the
-whole vocabulary, and the greedy token by a (max, index) merge over
-"model". With ``mesh=None`` both are the single-device steps.
+``models.parallel.Plan.serve_layout`` (TP, EP, FSDP, and every block
+kind's caches: k/v and cross-attention caches cut by heads or by slots --
+the split-KV decode, a ring's too -- MLA's latent by slots, the SSM's
+state by heads and its conv window by channels, the RG-LRU's by
+channels), the logits gathered over the whole vocabulary (each codebook
+stream's), and the greedy token by a (max, index) merge over "model".
+With ``mesh=None`` both are the single-device steps.
 """
 
 from __future__ import annotations
@@ -355,29 +358,35 @@ def _serving(cfg, mesh, param_shardings):
     global batch of ``batch`` rows and caches of ``s_max`` slots (memoized)
     and the caches' meta tensors. Specs from ``param_axes`` under the rules
     the reference picks (``launch.dryrun.rules_for``) when none are given;
-    the caches' from ``cache_shardings``. The blocks ``Plan`` refuses, and
-    those it trains but does not serve (``parallel.check_serves``), raise here,
-    before any call."""
+    the caches' from ``cache_shardings`` (``Plan.for_caches``). The cuts
+    ``Plan`` refuses raise here, before any call."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import sharding as SH
     from repro_torch.models.model import init_params, param_axes
-    from repro_torch.models.parallel import Plan, check_serves
+    from repro_torch.models.parallel import Plan
 
     if param_shardings is None:
         shapes = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
         rules = getattr(SH, dryrun.rules_for(cfg, "serve"))
         param_shardings = SH.param_shardings(param_axes(cfg), mesh, rules, shapes)
-    check_serves(cfg)
     plan = Plan(cfg, mesh, param_shardings)
     memo: dict = {}
 
     def plan_for(batch: int, s_max: int):
         if (batch, s_max) not in memo:
             meta = make_caches(cfg, batch, s_max, torch.device("meta"))
-            memo[(batch, s_max)] = (plan.for_caches(SH.cache_shardings(meta, cfg, mesh)), meta)
+            memo[(batch, s_max)] = (plan.for_caches(meta), meta)
         return memo[(batch, s_max)]
 
     return plan_for
+
+
+def _slots_of(caches: dict) -> int:
+    """The caches' length as the decode step finds it: the most slots of a
+    layer's (whole) slot positions; a ring's own where every slotted layer
+    is a ring (the same caches); 1 where no layer has slots (recurrent
+    states and cross-attention caches alone)."""
+    return max((c["slot_pos"].shape[0] for c in caches["layers"] if "slot_pos" in c), default=1)
 
 
 def make_rank_caches(plan, meta, device) -> dict:
@@ -401,10 +410,11 @@ def make_prefill_step(cfg, s_max: int, mesh=None, param_shardings=None):
     ``mesh`` (with ``param_shardings``, a spec tree like the parameters;
     the reference's rules for the config when None): the sharded prefill
     (``models.parallel``'s module doc). ``params`` are the rank's blocks
-    and ``tokens`` the GLOBAL batch; the rank runs its rows (``Plan.rows``)
-    and returns their logits over the whole vocabulary and its blocks of
-    the caches (``launch.sharding.cache_shardings``). The blocks ``Plan``
-    refuses raise ``NotImplementedError``."""
+    and ``tokens`` (and a cross-attention arch's ``ctx``) the GLOBAL batch;
+    the rank runs its rows (``Plan.rows``) and returns their logits over
+    the whole vocabulary and its blocks of the caches
+    (``launch.sharding.cache_shardings``). The cuts ``Plan`` refuses raise
+    ``NotImplementedError``."""
     if mesh is None:
         def prefill_step(params, tokens: torch.Tensor, ctx=None):
             caches = make_caches(cfg, tokens.shape[0], s_max, tokens.device)
@@ -417,6 +427,7 @@ def make_prefill_step(cfg, s_max: int, mesh=None, param_shardings=None):
         plan, meta = plan_for(tokens.shape[0], s_max)
         caches = make_rank_caches(plan, meta, tokens.device)
         with torch.no_grad():
+            ctx = None if ctx is None else plan.rows(ctx)
             logits, caches = prefill(params, cfg, plan.rows(tokens), caches, ctx, plan)
             return plan.gather_logits(logits)[..., :cfg.vocab_size], caches
 
@@ -443,7 +454,7 @@ def make_decode_step(cfg, greedy: bool = True, mesh=None, param_shardings=None):
     plan_for = _serving(cfg, mesh, param_shardings)
 
     def sharded_decode_one(params, caches, token: torch.Tensor, pos: int, ctx=None):
-        plan, _ = plan_for(token.shape[0], caches["layers"][0]["slot_pos"].shape[0])
+        plan, _ = plan_for(token.shape[0], _slots_of(caches))
         with torch.no_grad():
             logits, caches = model_decode(params, cfg, plan.rows(token), caches, pos, ctx, plan)
             if greedy:

@@ -157,9 +157,7 @@ def _out(p, out, tp, sv):
     """The head outputs (B, S, H' D) through o: gathered over the model
     ranks first where ``sv`` says so (o whole, the rank holding some of the
     heads); under ``tp`` the rank's rows of o, then Megatron's g."""
-    if sv is not None and sv.gather_heads:
-        out = sv.gather(out, 2)
-    out = P.dense_apply(p["o"], out)
+    out = P.dense_apply(p["o"], L.gather_outputs(out, sv))
     return out if tp is None else tp.exit(out)
 
 
@@ -209,20 +207,22 @@ def fill_kv_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, slot0: int = 0)
     slot p % s_max, so that later decode writes (slot pos % s_max) evict
     the oldest first -- the reference's ring branch. ``slot0``: a cache
     that holds the block of slots from ``slot0`` on (a rank's, the cache
-    cut by slots) gets its slots of the prompt; ``slot_pos`` is whole on
+    cut by slots) gets its slots of the prompt (of a ring, the positions
+    whose slots p % s_max are its own); ``slot_pos`` is whole on
     every rank and written whole."""
     s = k.shape[1]
-    s_max = cache["slot_pos"].shape[0]
+    s_max, n = cache["slot_pos"].shape[0], cache["k"].shape[1]
     if s <= s_max:
-        n = max(0, min(s - slot0, cache["k"].shape[1]))
+        n = max(0, min(s - slot0, n))
         cache["k"][:, :n] = k[:, slot0:slot0 + n]
         cache["v"][:, :n] = v[:, slot0:slot0 + n]
         cache["slot_pos"][:s] = torch.arange(s, dtype=torch.int32, device=k.device)
         return cache
     tail = torch.arange(s - s_max, s, device=k.device)
     slots = tail % s_max
-    cache["k"][:, slots] = k[:, -s_max:]
-    cache["v"][:, slots] = v[:, -s_max:]
+    mine = (slots >= slot0) & (slots < slot0 + n)
+    cache["k"][:, slots[mine] - slot0] = k[:, -s_max:][:, mine]
+    cache["v"][:, slots[mine] - slot0] = v[:, -s_max:][:, mine]
     cache["slot_pos"][slots] = tail.to(torch.int32)
     return cache
 
@@ -284,22 +284,29 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos: int, *, window=None,
     return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
 
 
-def _split_kv_decode(q, cache, pos: int, cfg, sv, window):
+def _split_kv_decode(q, k, v, slot_pos, pos: int, cfg, sv, window):
     """The split-KV decode of a cache cut by slots (``models.parallel``'s
     module doc): q gathered over "model" where the rank holds some of the
     query heads, the partial softmax of every query head over the rank's
-    slots, the partials merged over "model" in rank order, the rank's
-    heads taken. -> (B, 1, H', Dv)."""
+    slots (k, v and their positions ``slot_pos``), the partials merged
+    over "model" in rank order, the rank's heads taken. -> (B, 1, H',
+    Dv)."""
     b = q.shape[0]
     if sv.q_heads != (0, cfg.n_heads):
         q = sv.gather(q, 2)  # every query head reads every rank's slots
-    lo, hi = sv.slots
-    m, denom, o = decode_attention_partial(q, cache["k"], cache["v"], cache["slot_pos"][lo:hi],
-                                           pos, window=window, mma=cfg.mma_reductions)
-    rows = sv.rows(torch.cat([m, denom[..., None], o], -1))
-    out = merge_decode_partials([(r[..., :1], r[..., 1], r[..., 2:]) for r in rows])
+    m, denom, o = decode_attention_partial(q, k, v, slot_pos, pos, window=window,
+                                           mma=cfg.mma_reductions)
+    out = merge_partials(sv, m, denom, o)
     out = out.reshape(b, 1, cfg.n_heads, o.shape[-1])
     return out[:, :, sv.q_heads[0]:sv.q_heads[1]].to(q.dtype)
+
+
+def merge_partials(sv, m, denom, o) -> torch.Tensor:
+    """Every model rank's partial softmax (m (..., 1), denom (...), o (...,
+    Dv)) gathered over ``sv``'s axis and merged in rank order
+    (``merge_decode_partials``): the normalised output (..., Dv) f32."""
+    rows = sv.rows(torch.cat([m, denom[..., None], o], -1))
+    return merge_decode_partials([(r[..., :1], r[..., 1], r[..., 2:]) for r in rows])
 
 
 def self_attention_decode(p, x_t, cache, pos: int, cfg, *, window=None, tp=None, sv=None):
@@ -330,7 +337,8 @@ def self_attention_decode(p, x_t, cache, pos: int, cfg, *, window=None, tp=None,
         cache["v"][:, slot - lo] = v[:, 0]
     cache["slot_pos"][slot] = pos
     if sv is not None and sv.cache == "seq":
-        out = _split_kv_decode(q, cache, pos, cfg, sv, window)
+        mine = cache["slot_pos"][lo:lo + cache["k"].shape[1]]
+        out = _split_kv_decode(q, cache["k"], cache["v"], mine, pos, cfg, sv, window)
     else:
         kc, vc = _read_kv(cache["k"], cache["v"], sv, cfg)
         out = decode_attention(q, kc, vc, cache["slot_pos"], pos, window=window,
@@ -362,7 +370,7 @@ def _gated(p, out):
     return torch.tanh(p["gate"].to(torch.float32)).to(out.dtype) * out
 
 
-def cross_attention_apply(p, x, ctx, cfg, tp=None):
+def cross_attention_apply(p, x, ctx, cfg, tp=None, sv=None):
     """x: (B, S, d) queries; ctx: (B, N, d) the frontend's embeddings, read
     as they come (no norm). tanh(gate) o(attn(q(x), k(ctx), v(ctx))), no
     RoPE, on the chunked ``flash_attention_xla`` (``causal=False``) on both
@@ -370,23 +378,47 @@ def cross_attention_apply(p, x, ctx, cfg, tp=None):
     (``models.parallel.TP``): q, k and v hold a rank's heads and the kv
     heads they read, x goes through ``tp.enter`` (the context, an input
     with no gradient, needs none), o is row-parallel with ``tp.exit``, and
-    the whole gate multiplies after it."""
+    the whole gate multiplies after it. ``sv`` (the sharded prefill): as
+    ``self_attention_train``'s."""
     b, s, _ = x.shape
     if tp is not None:
         x = tp.enter(x)
     q = P.dense_apply(p["q"], x).reshape(b, s, -1, cfg.d_head)
-    k, v = cross_kv(p, ctx, cfg)
+    k, v = _read_kv(*cross_kv(p, ctx, cfg), sv, cfg)
     out = flash_attention_xla(q, k, v, causal=False, mma=cfg.mma_reductions)
-    return _gated(p, _out(p, out.reshape(b, s, -1), tp, None))
+    return _gated(p, _out(p, out.reshape(b, s, -1), tp, sv))
 
 
-def cross_attention_decode(p, x_t, cache, cfg):
+def fill_cross_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, sv=None) -> dict:
+    """Prefill: the context's keys and values (B, N, Hkv', D) into a
+    cross-attention cache, in place: all of them, or (``sv``, a cache cut
+    by image tokens) the rank's tokens. Under a ``Serve`` cut by heads
+    the weights already gave the rank's kv heads."""
+    if sv is not None and sv.cache == "seq":
+        lo, hi = sv.slots
+        k, v = k[:, lo:hi], v[:, lo:hi]
+    cache["k"].copy_(k)
+    cache["v"].copy_(v)
+    return cache
+
+
+def cross_attention_decode(p, x_t, cache, cfg, tp=None, sv=None):
     """One decode step of a cross-attention layer: x_t's query against all
     N cached context slots (``decode_attention`` at slot positions 0..N-1,
-    every one visible), times tanh(gate). The cache is only read."""
+    every one visible), times tanh(gate). The cache is only read. ``tp``
+    and ``sv``: the sharded decode (``self_attention_decode``'s); a cache
+    cut by image tokens attends through ``_split_kv_decode``, every one
+    of its tokens visible."""
     b = x_t.shape[0]
-    q = P.dense_apply(p["q"], x_t).reshape(b, 1, cfg.n_heads, cfg.d_head)
-    n = cache["k"].shape[1]
-    slot_pos = torch.arange(n, dtype=torch.int32, device=x_t.device)
-    out = decode_attention(q, cache["k"], cache["v"], slot_pos, n, mma=cfg.mma_reductions)
-    return _gated(p, P.dense_apply(p["o"], out.reshape(b, 1, -1)))
+    q = P.dense_apply(p["q"], x_t).reshape(b, 1, -1, cfg.d_head)
+    if sv is not None and sv.cache == "seq":
+        lo, hi = sv.slots
+        slot_pos = torch.arange(lo, hi, dtype=torch.int32, device=x_t.device)
+        out = _split_kv_decode(q, cache["k"], cache["v"], slot_pos, cfg.n_img_tokens, cfg, sv,
+                               None)
+    else:
+        kc, vc = _read_kv(cache["k"], cache["v"], sv, cfg)
+        n = kc.shape[1]
+        slot_pos = torch.arange(n, dtype=torch.int32, device=x_t.device)
+        out = decode_attention(q, kc, vc, slot_pos, n, mma=cfg.mma_reductions)
+    return _gated(p, _out(p, out.reshape(b, 1, -1), tp, sv))

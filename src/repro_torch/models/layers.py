@@ -161,6 +161,13 @@ def conv1d_step(conv_state: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor):
     return window[:, 1:], y.to(x_t.dtype)
 
 
+def gather_outputs(y: torch.Tensor, sv) -> torch.Tensor:
+    """A serving rank's outputs of its heads or channels (the last dim)
+    gathered over ``sv``'s axis in rank order where the weights after
+    them are whole (``models.parallel.Serve.gather_heads``)."""
+    return sv.gather(y, -1) if sv is not None and sv.gather_heads else y
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding. x: (..., S, H, D); positions broadcastable to
     (..., S). Computed in f32, returned in x's dtype."""

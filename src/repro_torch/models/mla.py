@@ -28,6 +28,11 @@ The latent cache is written IN PLACE at slot ``pos`` (the reference's is
 an immutable array): as the KV cache's write (``models.attention``), it is
 idempotent, so a decode step retried from its committed state rewrites
 the same values and reproduces the clean step bitwise.
+
+The operand rounding is ``attention.bf16_round`` (read at call time), the
+attention's own. Sharded serving (``models.parallel``): the latent cache
+cut by slots is filled with the rank's slots (``mla_fill_cache(slot0=)``)
+and the decode is a split-KV decode in latent space (``mla_decode(sv=)``).
 """
 
 from __future__ import annotations
@@ -35,7 +40,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch import reduce as R
-from repro_torch.kernels.common import bf16_round
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import params as P
@@ -120,18 +124,22 @@ def _latent(p, x, positions, cfg) -> torch.Tensor:
     return torch.cat([ckv_full[..., :m.kv_lora_rank], k_rope], -1)
 
 
-def mla_fill_cache(p, x, positions, cache: dict, cfg) -> dict:
-    """Prefill: the prompt's latents into slots [0, S), in place."""
+def mla_fill_cache(p, x, positions, cache: dict, cfg, slot0: int = 0) -> dict:
+    """Prefill: the prompt's latents into slots [0, S), in place.
+    ``slot0``: a cache that holds the block of slots from ``slot0`` on (a
+    rank's, the latent cut by slots) gets its slots of the prompt;
+    ``slot_pos`` is whole on every rank and written whole."""
     s = x.shape[1]
-    if s > cache["ckv"].shape[1]:
+    if s > cache["slot_pos"].shape[0]:
         raise ValueError(f"prompt of {s} tokens exceeds the cache length "
-                         f"{cache['ckv'].shape[1]}")
-    cache["ckv"][:, :s] = _latent(p, x, positions, cfg)
+                         f"{cache['slot_pos'].shape[0]}")
+    n = max(0, min(s - slot0, cache["ckv"].shape[1]))
+    cache["ckv"][:, :n] = _latent(p, x, positions, cfg)[:, slot0:slot0 + n]
     cache["slot_pos"][:s] = torch.arange(s, dtype=torch.int32, device=x.device)
     return cache
 
 
-def mla_decode(p, x_t, cache: dict, pos: int, cfg):
+def mla_decode(p, x_t, cache: dict, pos: int, cfg, tp=None, sv=None):
     """One weight-absorbed decode step at absolute position ``pos``. x_t:
     (B, 1, d). Writes this step's latent at slot ``pos`` (in place), then
 
@@ -139,42 +147,64 @@ def mla_decode(p, x_t, cache: dict, pos: int, cfg):
       out_h      = W_uv_h^T (sum_i p_h(i) c_i)
 
     over the normed latents c_i of every slot: no per-head K/V is expanded
-    over the cache. Returns (out (B, 1, d), cache)."""
+    over the cache. Returns (out (B, 1, d), cache).
+
+    ``tp`` (``models.parallel.TP``): q_up, kv_up and o hold a rank's heads,
+    o's partial sums through ``tp.exit``. ``sv`` (``models.parallel.
+    Serve``): the rank's heads and its block of the latent; only the rank
+    whose block holds slot ``pos`` writes it (``slot_pos`` is whole and
+    written on every rank). A latent cut by slots decodes split-KV: q_c
+    and q_rope gathered over "model" where the heads are cut, every
+    head's partial softmax over the rank's slots (the kv-latent norm of
+    its own slots), the partials merged in rank order
+    (``attention.merge_partials``), then the rank's heads through W_uv.
+    The merge can only round the unnormalised weights to bf16 where one
+    device rounds the normalised ones, so the two part by bf16's error."""
     m = cfg.mla
-    h = cfg.n_heads
     b = x_t.shape[0]
-    s_max = cache["ckv"].shape[1]
+    s_max = cache["slot_pos"].shape[0]
     if pos >= s_max:
         raise ValueError(f"decode position {pos} is past the cache length {s_max}")
     posb = torch.full((b, 1), pos, dtype=torch.int64, device=x_t.device)
     cq = P.dense_apply(p["q_down"], x_t)
     cq = L.norm_apply("rmsnorm", p["q_norm"], cq, eps=cfg.norm_eps, mma=cfg.mma_reductions)
-    q = P.dense_apply(p["q_up"], cq).reshape(b, 1, h, m.qk_nope_dim + m.qk_rope_dim)
+    q = P.dense_apply(p["q_up"], cq).reshape(b, 1, -1, m.qk_nope_dim + m.qk_rope_dim)
+    h = q.shape[2]
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = L.rope(q_rope, posb, cfg.rope_theta)[:, 0]                 # (B, H, dr)
-    cache["ckv"][:, pos] = _latent(p, x_t, posb, cfg)[:, 0]
+    lo = 0 if sv is None else sv.slots[0]
+    if lo <= pos < lo + cache["ckv"].shape[1]:
+        cache["ckv"][:, pos - lo] = _latent(p, x_t, posb, cfg)[:, 0]
     cache["slot_pos"][pos] = pos
-    ckv = cache["ckv"]
-    c_all = L.norm_apply("rmsnorm", p["kv_norm"], ckv[..., :m.kv_lora_rank],
-                         eps=cfg.norm_eps, mma=cfg.mma_reductions)      # (B, S, R)
-    k_rope_all = ckv[..., m.kv_lora_rank:]                              # (B, S, dr)
     wkv = p["kv_up"]["w"].reshape(m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim)
     w_uk, w_uv = wkv[..., :m.qk_nope_dim], wkv[..., m.qk_nope_dim:]
     with L.full_f32_matmul():
         q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(torch.float32),
                            w_uk.to(torch.float32))
-    c_b = bf16_round(c_all)
+    ckv = cache["ckv"]
+    slot_pos = cache["slot_pos"][lo:lo + ckv.shape[1]]
+    split = sv is not None and sv.cache == "seq"
+    if split and sv.q_heads != (0, cfg.n_heads):
+        q_c, q_rope = sv.gather(q_c, 1), sv.gather(q_rope, 1)  # every head reads every slot
+    c_all = L.norm_apply("rmsnorm", p["kv_norm"], ckv[..., :m.kv_lora_rank],
+                         eps=cfg.norm_eps, mma=cfg.mma_reductions)      # (B, S, R)
+    k_rope_all = ckv[..., m.kv_lora_rank:]                              # (B, S, dr)
+    c_b = A.bf16_round(c_all)
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
-    s = (torch.einsum("bhr,bsr->bhs", bf16_round(q_c), c_b)
-         + torch.einsum("bhd,bsd->bhs", bf16_round(q_rope), bf16_round(k_rope_all))) * scale
-    slot_pos = cache["slot_pos"]
+    s = (torch.einsum("bhr,bsr->bhs", A.bf16_round(q_c), c_b)
+         + torch.einsum("bhd,bsd->bhs", A.bf16_round(q_rope), A.bf16_round(k_rope_all))) * scale
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     s = torch.where(valid, s, A.NEG)
-    e = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    mx = s.amax(-1, keepdim=True)
+    e = torch.where(valid, torch.exp(s - mx), 0.0)
     denom = R.reduce(e, axis=-1, backend=R.backend_for_flags(cfg.mma_reductions))
-    p_attn = e / torch.clamp_min(denom, 1e-30)[..., None]               # (B, H, S)
-    o_lat = torch.einsum("bhs,bsr->bhr", bf16_round(p_attn), c_b)       # (B, H, R)
+    if split:
+        o_lat = A.merge_partials(sv, mx, denom, torch.einsum("bhs,bsr->bhr", A.bf16_round(e), c_b))
+        o_lat = o_lat[:, sv.q_heads[0]:sv.q_heads[1]]                  # (B, H', R)
+    else:
+        p_attn = e / torch.clamp_min(denom, 1e-30)[..., None]           # (B, H, S)
+        o_lat = torch.einsum("bhs,bsr->bhr", A.bf16_round(p_attn), c_b)  # (B, H, R)
     with L.full_f32_matmul():
         out_h = torch.einsum("bhr,rhd->bhd", o_lat, w_uv.to(torch.float32))
     out = P.dense_apply(p["o"], out_h.reshape(b, 1, -1).to(x_t.dtype))
-    return out, cache
+    return out if tp is None else tp.exit(out), cache

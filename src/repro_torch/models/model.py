@@ -452,27 +452,26 @@ def block_fill_cache(kind: str, p, h, positions, cache, cfg, ctx=None, hooks=Non
     the context as given (not normed); the SSM and RG-LRU blocks return
     their caches from the train path's scan (the conv window and the final
     state: the exact prefill -> decode handoff). ``hooks``: the sharded
-    prefill's (``Plan.serve_block``): the rank's heads and its block of the
-    cache."""
+    prefill's (``Plan.serve_block``): the mixer's tensor parallelism, and
+    the rank's heads or channels and its block of the cache."""
     hn = _norm(p["norm1"], h, cfg)
+    tp, sv = (None, None) if hooks is None else (hooks.attn, hooks.serve)
+    slot0 = 0 if sv is None or sv.slots is None else sv.slots[0]
     if kind == "ssm":
-        mix, cache = SSM.ssm_train(p["mix"], hn, cfg, return_state=True)
+        mix, cache = SSM.ssm_train(p["mix"], hn, cfg, return_state=True, tp=tp, sv=sv)
     elif kind == "rec":
-        mix, cache = REC.rglru_train(p["mix"], hn, cfg, return_state=True)
+        mix, cache = REC.rglru_train(p["mix"], hn, cfg, return_state=True, tp=tp, sv=sv)
     elif kind == "xattn":
-        k, v = A.cross_kv(p["mix"], ctx, cfg)
-        cache["k"].copy_(k)
-        cache["v"].copy_(v)
-        mix = A.cross_attention_apply(p["mix"], hn, ctx, cfg)
+        A.fill_cross_cache(cache, *A.cross_kv(p["mix"], ctx, cfg), sv)
+        mix = A.cross_attention_apply(p["mix"], hn, ctx, cfg, tp=tp, sv=sv)
     elif cfg.mla is not None:
-        cache = MLA.mla_fill_cache(p["mix"], hn, positions, cache, cfg)
-        mix = MLA.mla_train(p["mix"], hn, positions, cfg)
+        cache = MLA.mla_fill_cache(p["mix"], hn, positions, cache, cfg, slot0)
+        mix = MLA.mla_train(p["mix"], hn, positions, cfg, tp=tp)
     else:
-        tp, sv = (None, None) if hooks is None else (hooks.attn, hooks.serve)
         mix, k, v = A.self_attention_train(p["mix"], hn, positions, cfg,
                                            window=_window(kind, cfg), return_kv=True, tp=tp,
                                            sv=sv)
-        A.fill_kv_cache(cache, k, v, 0 if sv is None else sv.slots[0])
+        A.fill_kv_cache(cache, k, v, slot0)
     return _ffn_residual(kind, p, h + mix, cfg, hooks)[0], cache
 
 
@@ -481,19 +480,18 @@ def block_decode(kind: str, p, h, cache, pos: int, cfg, hooks=None):
     which caches are written in place and which are new); ``hooks`` as in
     ``block_fill_cache``."""
     hn = _norm(p["norm1"], h, cfg)
+    tp, sv = (None, None) if hooks is None else (hooks.attn, hooks.serve)
     if kind == "ssm":
-        mix, cache = SSM.ssm_decode(p["mix"], hn, cache, cfg)
+        mix, cache = SSM.ssm_decode(p["mix"], hn, cache, cfg, tp=tp, sv=sv)
     elif kind == "rec":
-        mix, cache = REC.rglru_decode(p["mix"], hn, cache, cfg)
+        mix, cache = REC.rglru_decode(p["mix"], hn, cache, cfg, tp=tp, sv=sv)
     elif kind == "xattn":
-        mix = A.cross_attention_decode(p["mix"], hn, cache, cfg)
+        mix = A.cross_attention_decode(p["mix"], hn, cache, cfg, tp=tp, sv=sv)
     elif cfg.mla is not None:
-        mix, cache = MLA.mla_decode(p["mix"], hn, cache, pos, cfg)
+        mix, cache = MLA.mla_decode(p["mix"], hn, cache, pos, cfg, tp=tp, sv=sv)
     else:
         mix, cache = A.self_attention_decode(p["mix"], hn, cache, pos, cfg,
-                                             window=_window(kind, cfg),
-                                             tp=None if hooks is None else hooks.attn,
-                                             sv=None if hooks is None else hooks.serve)
+                                             window=_window(kind, cfg), tp=tp, sv=sv)
     return _ffn_residual(kind, p, h + mix, cfg, hooks)[0], cache
 
 
@@ -549,7 +547,7 @@ def prefill(params, cfg, tokens: torch.Tensor, caches: dict, ctx=None, plan=None
     """Run the prompt, (B, S) or (B, S, K) tokens, filling caches. Returns
     (last-token logits (B, 1, V) or (B, 1, K, V), caches).
 
-    ``plan`` (``models.parallel.Plan`` with ``cache_specs``): ``params``
+    ``plan`` (``models.parallel.Plan.for_caches``): ``params``
     and ``caches`` are the rank's blocks and ``tokens`` its rows; each
     block runs as ``Plan.serve_block`` lays it out (its gathered weights
     freed before the next block's gather), and the logits are the rank's
@@ -563,7 +561,7 @@ def prefill(params, cfg, tokens: torch.Tensor, caches: dict, ctx=None, plan=None
                                              caches["layers"])):
         hooks = None
         if plan is not None:
-            p, hooks = plan.serve_block(i, p, cache["slot_pos"].shape[0])
+            p, hooks = plan.serve_block(i, p)
         h, cache = block_fill_cache(kind, p, h, positions, cache, cfg, ctx, hooks)
         filled.append(cache)
     del p  # under a plan the last block's gathered weights, freed before the head
@@ -587,7 +585,7 @@ def decode_step(params, cfg, token_t: torch.Tensor, caches: dict, pos: int, ctx=
                                              caches["layers"])):
         hooks = None
         if plan is not None:
-            p, hooks = plan.serve_block(i, p, cache["slot_pos"].shape[0])
+            p, hooks = plan.serve_block(i, p)
         h, cache = block_decode(kind, p, h, cache, pos, cfg, hooks)
         stepped.append(cache)
     del p  # under a plan the last block's gathered weights, freed before the head

@@ -83,41 +83,66 @@ global, local or MLA, the SSM, the RG-LRU and cross-attention, each with
 a dense or MoE FFN, and codebook streams) and refuses the cuts a mixer
 cannot run (``Plan.layout``).
 
-Serving (``Plan(..., cache_specs=)``, ``launch.steps.make_prefill_step``
-and ``make_decode_step`` with ``mesh=``) runs the same blocks forward only,
+Serving (``Plan.for_caches``, ``launch.steps.make_prefill_step`` and
+``make_decode_step`` with ``mesh=``) runs every block kind forward only,
 each rank on its rows of the batch (``launch.sharding.batch_partition``:
 all of them where the batch does not divide the data axes), with the
-caches cut as ``launch.sharding.cache_shardings`` cuts them. It runs the
-self-attention blocks alone (``check_serves``: the MLA, SSM, RG-LRU and
-cross-attention caches and the codebook streams are not served over a
-mesh yet). Those can cut
-a cache where the weights are whole (SMALL_MODEL_RULES), so a block's
-attention follows its cache (``Plan.serve_layout``):
+caches cut as ``launch.sharding.cache_shardings`` cuts them. A cache can
+be cut where the weights are whole (SMALL_MODEL_RULES), so each block
+follows its cache (``Plan.serve_layout``, keyed on the kind's cache
+leaves; a ``Serve`` in the block's ``Hooks``):
 
-  heads  the k/v cache cut by kv heads over "model": the rank computes q
-         for the query heads of its kv heads and k/v for those kv heads
-         (columns of whole weights, or its own blocks under TP), writes
-         its cache and attends its heads; under TP its o rows and Megatron's
-         g follow, else its head outputs are gathered over "model" in rank
-         order for the whole o.
+  heads  self- or cross-attention's k/v cache cut by kv heads over
+         "model": the rank computes q for the query heads of its kv heads
+         and k/v for those kv heads (columns of whole weights, or its own
+         blocks under TP), writes its cache and attends its heads; under TP
+         its o rows and Megatron's g follow, else its head outputs are
+         gathered over "model" in rank order for the whole o.
   seq    the cache cut by slots over "model" (the kv heads do not split):
          every rank holds every kv head for its block of slots. The
          prefill runs the attention as the training step does and writes
-         the rank's slots; the decode writes the new key only on the rank
-         that holds its slot, each rank takes the partial softmax (max,
+         the rank's slots (of a local attention's ring, the positions whose
+         slots p % ring fall in its block, so a prompt past the window
+         wraps over the cut); the decode writes the new key only on the
+         rank that holds its slot, each rank takes the partial softmax (max,
          denominator, unnormalised output) of every query head over its
          slots, and the partials merge over "model" in rank order
-         (``attention.merge_decode_partials``) before the rank takes its
-         heads for o. The decode gathers q over "model" first where q is
-         cut by heads. A ring cache (local attention) is not cut so.
+         (``attention.merge_partials``) before the rank takes its heads for
+         o. The decode gathers q over "model" first where q is cut by
+         heads. A cross-attention cache cut so holds the rank's image
+         tokens, every one visible. MLA's latent is cut so too: the prefill
+         writes the rank's slots of the latent (``kv_down`` is whole, so
+         every rank computes it) and the decode is a split-KV decode in
+         latent space (``mla.mla_decode``: q_c and q_rope gathered, each
+         head's partial over the rank's slots with ``kv_norm`` of its own
+         slots, merged, then the rank's heads through W_uv and o).
+  channels  the SSM's state cut by heads and its conv window by channels
+         of [x, B, C], a block that need not end on a head: the rank's xbc
+         and conv_w columns are its conv block (under TP its own blocks;
+         whole weights are cut to it), it steps that block, the conv
+         outputs are gathered over "model" in rank order and it takes its
+         x heads and all of B and C; under TP the gated norm's statistic
+         is summed over "model" and out is row-parallel, with whole weights
+         the heads' y is gathered before the whole norm and out. The
+         RG-LRU's ``h`` and conv window cut by channels, the same block as
+         ``inner_tp``'s weights: under TP the rank runs its channels to
+         h * gate and out is row-parallel; with whole weights it runs its
+         channels' columns (whole gate blocks) and the products are
+         gathered before the whole out.
   whole  the cache whole on every model rank: every rank writes it all.
 
 The head's columns are gathered over "model" into the whole vocabulary
 (prefill, and a decode that returns logits), or the greedy token is taken
 by a (max, global index) merge in rank order with no gather
 (``Plan.greedy``), equal to ``torch.argmax`` over the whole row: the
-lowest index wins a tie, and NaN counts as the maximum. The MoE runs EP
-without the load-balance statistics (serving drops the aux loss).
+lowest index wins a tie, and NaN counts as the maximum. Codebook streams
+give (B, 1, K, columns) logits: gathered on the last dim, or one greedy
+merge a stream. The MoE runs EP without the load-balance statistics
+(serving drops the aux loss). The cuts a block cannot run are refused
+with the reason: heads that do not split, query heads that are not whole
+groups of a kv head's, RG-LRU channels that are not whole gate blocks, an
+SSM rank's channels that are not whole heads (or more than one group of
+B and C with the state cut by heads).
 """
 
 from __future__ import annotations
@@ -174,8 +199,8 @@ class Hooks:
     """What one block runs sharded: the mixer's tensor parallelism
     (``attn``: attention, MLA or cross-attention heads, or the RG-LRU's
     channels) and the FFN's, expert parallelism (None where the block runs
-    whole on every rank), and in serving its attention's heads and cache
-    (``Serve``)."""
+    whole on every rank), and in serving its heads or channels and its
+    block of the cache (``Serve``)."""
 
     attn: object = None
     ffn: object = None
@@ -198,21 +223,26 @@ def _gather_batch_dims(x: torch.Tensor, spec: tuple, mesh, batch: tuple) -> torc
 
 @dataclasses.dataclass(frozen=True)
 class Serve:
-    """How a rank runs one self-attention block's prefill and decode
-    (``Plan.serve_block``; the module doc). Its weights are already the
-    rank's: q for ``q_heads``, k and v for ``cache_heads``, o for
-    ``q_heads``' rows under TP (``Hooks.attn``), whole otherwise.
-    ``slots``: the global cache slots the rank's k/v cache holds;
-    ``gather_heads``: the head outputs are gathered over ``axis`` before
-    the whole o."""
+    """How a rank runs one block's prefill and decode (``Plan.serve_block``;
+    the module doc). Its weights are already the rank's. ``cache``: how
+    its cache is cut over ``axis`` ("heads", "seq", "channels" or
+    "whole"); ``q_heads``: the heads the rank runs (attention's, MLA's or
+    cross-attention's query heads, or the SSM's heads, its state's block);
+    ``cache_heads``: the kv heads its k/v cache holds; ``slots``: the
+    global slots its cache holds (a cross-attention cache's image tokens);
+    ``channels``: the channels its conv cache holds (the SSM's [x, B, C],
+    the RG-LRU's width, whose ``h`` is cut alike); ``gather_heads``: its
+    outputs (attention's heads, the SSM's y, the RG-LRU's products) are
+    gathered over ``axis`` before the whole o or out."""
 
     mesh: object
     axis: object
     cache: str
-    q_heads: tuple
-    cache_heads: tuple
-    slots: tuple
-    gather_heads: bool
+    q_heads: tuple = None
+    cache_heads: tuple = None
+    slots: tuple = None
+    channels: tuple = None
+    gather_heads: bool = False
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The model ranks' blocks of ``x`` along ``dim``, in rank order."""
@@ -223,33 +253,14 @@ class Serve:
         return C.gather_rows(x, self.axis, self.mesh) if self.axis else [x]
 
 
-def check_serves(cfg) -> None:
-    """Refuses a config whose blocks the sharded serving steps do not run:
-    they serve self-attention blocks, global or local, alone, and no
-    codebook streams."""
-    what = (["MLA"] if cfg.mla is not None else []) + sorted(
-        {k for k in cfg.pattern_layers if k in ("ssm", "rec", "xattn")})
-    what = [f"{', '.join(what)} blocks"] if what else []
-    if cfg.n_codebooks:
-        what.append("codebook streams")
-    if what:
-        raise NotImplementedError(f"sharded serving runs self-attention blocks (global or "
-                                  f"local) alone: {cfg.name} has {' and '.join(what)}, not "
-                                  "served over a mesh yet (the sharded training step runs "
-                                  "them)")
-
-
 class Plan:
     """The sharded forward's layout: the mesh, every leaf's spec, and the
-    axes that matter (those of more than one rank). ``cache_specs``
-    (``launch.sharding.cache_shardings`` of the caches): the serving
-    layout's."""
+    axes that matter (those of more than one rank); the serving layout's
+    caches from ``for_caches``."""
 
-    def __init__(self, cfg, mesh, specs, cache_specs=None):
+    def __init__(self, cfg, mesh, specs):
         self.cfg, self.mesh, self.specs = cfg, mesh, specs
-        self.cache_specs = cache_specs
-        if cache_specs is not None:
-            check_serves(cfg)
+        self.cache_specs = self.cache_meta = None
         live = tuple(ax for ax in mesh.axis_names if mesh.axis_size(ax) > 1)
         self.batch = tuple(ax for ax in live if ax in ("pod", "data"))
         self.model = "model" if "model" in live else None
@@ -271,12 +282,16 @@ class Plan:
         for kind, sp in zip(cfg.pattern_layers, specs["layers"]):
             self.layout(sp, kind)  # a cut a block cannot run refuses here
 
-    def for_caches(self, cache_specs) -> "Plan":
-        """This plan with the caches' specs (``launch.sharding.
-        cache_shardings``): the serving layout's, for one batch and cache
-        length."""
+    def for_caches(self, meta) -> "Plan":
+        """This plan with the serving layout's caches: ``meta``, the global
+        caches of one batch and cache length (``models.make_caches`` on the
+        meta device), and their specs (``launch.sharding.
+        cache_shardings``)."""
+        from repro_torch.launch.sharding import cache_shardings
+
         plan = copy.copy(self)
-        plan.cache_specs = cache_specs
+        plan.cache_meta = meta
+        plan.cache_specs = cache_shardings(meta, self.cfg, self.mesh)
         return plan
 
     # ------------------------------ parameters -------------------------------
@@ -520,37 +535,50 @@ class Plan:
         n = x.shape[0] // deg
         return x[idx * n:(idx + 1) * n]
 
-    def serve_layout(self, i: int, s_max: int) -> dict:
-        """How block ``i`` serves with caches of ``s_max`` slots (the module
-        doc): ``layout``'s keys and ``cache`` ("heads", "seq" or "whole"),
-        ``q_heads``, ``cache_heads`` and ``slots`` (global ranges, hi
-        excluded) and ``gather_heads``. Refuses what the serving steps do
-        not run."""
+    def serve_layout(self, i: int) -> dict:
+        """How block ``i`` serves with the caches of ``for_caches`` (the
+        module doc): ``layout``'s keys and ``Serve``'s fields (``cache``,
+        ``q_heads``, ``cache_heads``, ``slots``, ``channels``, global
+        ranges with hi excluded, and ``gather_heads``), keyed on the
+        block's cache leaves. Refuses the cuts a block cannot run."""
         if self.cache_specs is None:
-            raise ValueError("the serving layout needs the caches' specs (Plan(cache_specs=))")
-        check_serves(self.cfg)
-        cfg, mesh = self.cfg, self.mesh
+            raise ValueError("the serving layout needs the caches (Plan.for_caches)")
+        cfg = self.cfg
         kind = cfg.pattern_layers[i]
-        lay = self.layout(self.specs["layers"][i], kind)
-        cspec = self.cache_specs["layers"][i]["k"]
-        n_model = mesh.axis_size(self.model) if self.model else 1
-        m = mesh.axis_index(self.model) if self.model else 0
+        lay = dict(self.layout(self.specs["layers"][i], kind), cache="whole", q_heads=None,
+                   cache_heads=None, slots=None, channels=None, gather_heads=False)
+        cs, meta = self.cache_specs["layers"][i], self.cache_meta["layers"][i]
+        if kind == "ssm":
+            return self._serve_ssm(lay, cs)
+        if kind == "rec":
+            return self._serve_rec(lay, cs)
+        if kind != "xattn" and cfg.mla is not None:
+            cut = self._model_cut(cs["ckv"], 1)
+            return dict(lay, cache="seq" if cut else "whole",
+                        q_heads=self._block(cfg.n_heads, lay["attn_tp"]),
+                        slots=self._block(meta["ckv"].shape[1], cut))
+        return self._serve_attn(lay, cs, meta["k"].shape[1])
+
+    def _block(self, n: int, cut: bool) -> tuple:
+        """The rank's block of ``n`` along a dim cut over "model", or all of
+        it."""
+        if not cut:
+            return (0, n)
+        n_model, m = self.mesh.axis_size(self.model), self.mesh.axis_index(self.model)
+        return (m * n // n_model, (m + 1) * n // n_model)
+
+    def _serve_attn(self, lay: dict, cs: dict, n_slots: int) -> dict:
+        """Self- or cross-attention's serving layout: its k/v cache cut by
+        kv heads ("heads"), by slots ("seq": a cross-attention cache's image
+        tokens) or "whole", and the rank's query heads."""
+        cfg = self.cfg
         h, hkv = cfg.n_heads, cfg.n_kv_heads
         group = h // hkv
-        cache = ("heads" if self._model_cut(cspec, 2) else
-                 "seq" if self._model_cut(cspec, 1) else "whole")
-        if cache == "seq" and kind == "local_attn" and cfg.window:
-            raise NotImplementedError(f"{cfg.name}: a ring cache (local attention) cut over "
-                                      "the sequence is not served sharded")
-        cache_heads, slots = (0, hkv), (0, s_max)
-        if cache == "heads":
-            cache_heads = (m * hkv // n_model, (m + 1) * hkv // n_model)
-        elif cache == "seq":
-            n = s_max // n_model
-            slots = (m * n, (m + 1) * n)
+        cache = ("heads" if self._model_cut(cs["k"], 2) else
+                 "seq" if self._model_cut(cs["k"], 1) else "whole")
+        cache_heads = self._block(hkv, cache == "heads")
         if lay["attn_tp"]:
-            hq = h // n_model
-            q_heads = (m * hq, (m + 1) * hq)
+            q_heads = self._block(h, True)
             if cache == "heads" and q_heads != (cache_heads[0] * group, cache_heads[1] * group):
                 raise NotImplementedError("the query heads' block and the cache's kv heads "
                                           "are cut apart over 'model'")
@@ -564,36 +592,118 @@ class Plan:
         if not (whole_groups or in_one_group):
             raise NotImplementedError(f"{n_q} query heads a rank from head {q_heads[0]} do not "
                                       f"map onto whole groups of {group}")
-        return dict(lay, cache=cache, q_heads=q_heads, cache_heads=cache_heads, slots=slots,
+        return dict(lay, cache=cache, q_heads=q_heads, cache_heads=cache_heads,
+                    slots=self._block(n_slots, cache == "seq"),
                     gather_heads=not lay["attn_tp"] and q_heads != (0, h))
 
-    def serve_block(self, i: int, p: dict, s_max: int):
+    def _serve_ssm(self, lay: dict, cs: dict) -> dict:
+        """The SSM's serving layout: its state cut by heads, its conv cache
+        by channels of [x, B, C] (a block that need not end on a head:
+        each rank steps its block of the conv and the outputs are gathered
+        over "model"); where the weights are whole, the heads' y gathered
+        before the whole norm and out."""
+        s, _, nh, conv_dim = _ssm_dims(self.cfg)
+        conv_cut, heads_cut = self._model_cut(cs["conv"], 2), self._model_cut(cs["state"], 1)
+        if lay["inner_tp"] and not (conv_cut and heads_cut):
+            raise NotImplementedError("the SSM's tensor parallelism needs its conv and state "
+                                      "caches cut over 'model' as its channels are")
+        if heads_cut and s.n_groups != 1:
+            raise NotImplementedError(f"{self.cfg.name}: the SSM's state cut by heads runs one "
+                                      f"group of B and C, not {s.n_groups}; a model axis the "
+                                      "heads do not divide keeps the state whole and serves it")
+        return dict(lay, cache="channels" if conv_cut or heads_cut else "whole",
+                    q_heads=self._block(nh, heads_cut), channels=self._block(conv_dim, conv_cut),
+                    gather_heads=heads_cut and not lay["inner_tp"])
+
+    def _serve_rec(self, lay: dict, cs: dict) -> dict:
+        """The RG-LRU's serving layout: ``h`` and the conv cache cut by
+        channels, the same block as ``inner_tp``'s weights; where the
+        weights are whole the rank runs its channels (whole gate blocks)
+        and their products are gathered before the whole out."""
+        w = _width(self.cfg)
+        cut = self._model_cut(cs["h"], 1)
+        if cut != self._model_cut(cs["conv"], 2) or (lay["inner_tp"] and not cut):
+            raise NotImplementedError("the RG-LRU's h and conv caches must be cut over 'model' "
+                                      "as its channels are")
+        c0, c1 = self._block(w, cut)
+        bs = w // N_GATE_BLOCKS
+        if cut and not lay["inner_tp"] and (c0 % bs or (c1 - c0) % bs):
+            raise NotImplementedError(
+                f"{self.cfg.name}: a model rank's {c1 - c0} RG-LRU channels do not hold whole "
+                f"gate blocks of {bs}; a model axis that divides the {N_GATE_BLOCKS} gate blocks "
+                "serves it")
+        return dict(lay, cache="channels" if cut else "whole", channels=(c0, c1),
+                    gather_heads=cut and not lay["inner_tp"])
+
+    def serve_block(self, i: int, p: dict):
         """Block ``i``'s weights as the serving rank uses them (FSDP
-        gathered; q, k and v cut to the heads of its ``Serve``) and its
-        ``Hooks`` (TP, EP and the ``Serve``)."""
+        gathered; cut to the heads, channels or conv block of its
+        ``Serve``) and its ``Hooks`` (TP, EP and the ``Serve``)."""
         cfg, mesh = self.cfg, self.mesh
-        lay = self.serve_layout(i, s_max)
+        kind = cfg.pattern_layers[i]
+        lay = self.serve_layout(i)
         specs = self.specs["layers"][i]
         p = self.gather(p, specs)
-        mix, d = dict(p["mix"]), cfg.d_head
-        (q0, q1), (c0, c1) = lay["q_heads"], lay["cache_heads"]
-        if not lay["attn_tp"]:
-            mix["q"] = {"w": mix["q"]["w"][:, q0 * d:q1 * d]}
-        for name in ("k", "v"):
-            w = mix[name]["w"]
-            if self._model_cut(specs["mix"][name]["w"], 1):
-                if lay["kv"] == "local" and lay["cache"] == "heads":
-                    continue  # the rank's block is its cache's kv heads
-                w = C.gather_blocks(w, self.model, 1, mesh)
-            mix[name] = {"w": w[:, c0 * d:c1 * d]}
+        mix = dict(p["mix"])
+        if kind == "ssm":
+            mix = self._serve_ssm_leaves(mix, lay)
+        elif kind == "rec":
+            mix = self._serve_rec_leaves(mix, lay)
+        elif kind == "xattn" or cfg.mla is None:
+            mix = self._serve_attn_leaves(mix, lay, specs["mix"])
         ep = None
         if lay["ep"] == "model":
             n = cfg.moe.n_experts // mesh.axis_size(self.model)
             ep = EP(mesh, self.tp, mesh.axis_index(self.model) * n, n, (), 1)
         serve = Serve(mesh, self.model, lay["cache"], lay["q_heads"], lay["cache_heads"],
-                      lay["slots"], lay["gather_heads"])
-        return dict(p, mix=mix), Hooks(attn=self.tp if lay["attn_tp"] else None,
+                      lay["slots"], lay["channels"], lay["gather_heads"])
+        return dict(p, mix=mix), Hooks(attn=self.tp if lay["attn_tp"] or lay["inner_tp"] else None,
                                        ffn=self.tp if lay["ffn_tp"] else None, ep=ep, serve=serve)
+
+    def _serve_attn_leaves(self, mix: dict, lay: dict, ms: dict) -> dict:
+        """q cut to the rank's query heads (whole weights), k and v to its
+        cache's kv heads (gathered over "model" where cut otherwise)."""
+        d = self.cfg.d_head
+        (q0, q1), (c0, c1) = lay["q_heads"], lay["cache_heads"]
+        if not lay["attn_tp"]:
+            mix["q"] = {"w": mix["q"]["w"][:, q0 * d:q1 * d]}
+        for name in ("k", "v"):
+            w = mix[name]["w"]
+            if self._model_cut(ms[name]["w"], 1):
+                if lay["kv"] == "local" and lay["cache"] == "heads":
+                    continue  # the rank's block is its cache's kv heads
+                w = C.gather_blocks(w, self.model, 1, self.mesh)
+            mix[name] = {"w": w[:, c0 * d:c1 * d]}
+        return mix
+
+    def _serve_ssm_leaves(self, mix: dict, lay: dict) -> dict:
+        """dt's columns, dt_bias, A_log and D (whole over "model") cut to
+        the rank's heads; where the weights are whole, xbc's and conv_w's
+        columns cut to its conv block (under TP its blocks are that block
+        already)."""
+        h0, h1 = lay["q_heads"]
+        if not lay["inner_tp"]:
+            c0, c1 = lay["channels"]
+            mix["xbc"] = {"w": mix["xbc"]["w"][:, c0:c1]}
+            mix["conv_w"] = mix["conv_w"][:, c0:c1]
+        mix["dt"] = {"w": mix["dt"]["w"][:, h0:h1]}
+        for name in ("dt_bias", "A_log", "D"):
+            mix[name] = mix[name][h0:h1]
+        return mix
+
+    def _serve_rec_leaves(self, mix: dict, lay: dict) -> dict:
+        """Where the weights are whole, every channel leaf but out cut to the
+        rank's channels and gate blocks (under TP they are its own)."""
+        if lay["inner_tp"]:
+            return mix
+        c0, c1 = lay["channels"]
+        bs = _width(self.cfg) // N_GATE_BLOCKS
+        out = dict(mix, in_x={"w": mix["in_x"]["w"][:, c0:c1]},
+                   in_gate={"w": mix["in_gate"]["w"][:, c0:c1]}, conv_w=mix["conv_w"][:, c0:c1],
+                   lam=mix["lam"][c0:c1])
+        for name in ("gate_a", "gate_x"):
+            out[name] = mix[name][c0 // bs:c1 // bs]
+        return out
 
     def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """The rank's logit columns gathered over "model" into the whole

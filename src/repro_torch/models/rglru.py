@@ -22,6 +22,14 @@ combine (a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2): about 2 log2(L) levels
 of a few elementwise launches each, never a loop over L.
 
 ``lam`` and the recurrent state ``h`` are f32 whatever ``cfg.dtype``.
+
+In sharded serving (``sv=``, a ``models.parallel.Serve``) ``h`` and the
+conv window hold the rank's channels: under tensor parallelism (``tp``)
+its weights are those channels' and out is row-parallel; with whole
+weights the rank runs its channels' columns (whole gate blocks) and the
+products h * gate are gathered over "model" in rank order before the
+whole out.
+
 The decode step returns NEW ``conv`` and ``h`` tensors and leaves the
 cache it was given untouched, as ``models.ssm.ssm_decode`` does: the
 serving runtime re-issues a failed or poisoned step from the committed
@@ -110,7 +118,7 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor):
     return _interleave(ea, oa), _interleave(eb, ob)
 
 
-def rglru_train(p, x: torch.Tensor, cfg, return_state: bool = False, tp=None):
+def rglru_train(p, x: torch.Tensor, cfg, return_state: bool = False, tp=None, sv=None):
     """The block, train/prefill. x: (B, L, d) -> (B, L, d), or with
     ``return_state`` (out, cache): the conv window (the last K-1 pre-conv
     inputs, zero-filled in front of a short prompt) and the final state
@@ -118,7 +126,9 @@ def rglru_train(p, x: torch.Tensor, cfg, return_state: bool = False, tp=None):
     (``models.parallel.TP``): the channel leaves hold a rank's channels
     (whole gate blocks); x goes through ``tp.enter`` (Megatron's f), every
     op up to h * gate runs on those channels alone, and out is
-    row-parallel, its partial sums through ``tp.exit`` (g)."""
+    row-parallel, its partial sums through ``tp.exit`` (g). ``sv``: the
+    sharded prefill (the module doc); the cache returned holds the rank's
+    channels."""
     if tp is not None:
         x = tp.enter(x)
     u_raw = P.dense_apply(p["in_x"], x)
@@ -126,7 +136,7 @@ def rglru_train(p, x: torch.Tensor, cfg, return_state: bool = False, tp=None):
     a, b = _gates(p, u, cfg)
     _, h = associative_scan(a, b)
     gate = F.gelu(P.dense_apply(p["in_gate"], x).to(torch.float32), approximate="tanh")
-    out = P.dense_apply(p["out"], (h * gate).to(x.dtype))
+    out = P.dense_apply(p["out"], L.gather_outputs((h * gate).to(x.dtype), sv))
     if tp is not None:
         out = tp.exit(out)
     if not return_state:
@@ -144,16 +154,19 @@ def make_rglru_cache(batch: int, cfg, dtype, device) -> dict:
     }
 
 
-def rglru_decode(p, x_t: torch.Tensor, cache: dict, cfg):
+def rglru_decode(p, x_t: torch.Tensor, cache: dict, cfg, tp=None, sv=None):
     """One decode step. x_t: (B, 1, d) -> (out (B, 1, d), a NEW cache): the
     conv window shifted by one and h = a h + b, both new tensors; ``cache``
-    is left as it was (see the module doc)."""
+    is left as it was (see the module doc). ``tp`` and ``sv``: the sharded
+    decode, as ``rglru_train``'s."""
     xt = x_t[:, 0]
     u_t = P.dense_apply(p["in_x"], xt)
     conv_state, u_t = L.conv1d_step(cache["conv"], u_t, p["conv_w"])
     a, b = _gates(p, u_t, cfg)
     h = a * cache["h"] + b
     gate = F.gelu(P.dense_apply(p["in_gate"], xt).to(torch.float32), approximate="tanh")
-    out = P.dense_apply(p["out"], (h * gate).to(x_t.dtype))[:, None, :]
-    return out, {"conv": conv_state, "h": h}
+    out = P.dense_apply(p["out"], L.gather_outputs((h * gate).to(x_t.dtype), sv))
+    if tp is not None:
+        out = tp.exit(out)
+    return out[:, None, :], {"conv": conv_state, "h": h}
 

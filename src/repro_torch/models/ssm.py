@@ -23,6 +23,16 @@ block's leaves are a rank's heads (``models.parallel.Plan.block``): the
 widths below are read off ``norm_scale`` (the rank's channels) and the
 rank's xbc columns are its x heads, then all of B and C.
 
+In sharded serving (``ssm_train(sv=)``, ``ssm_decode(sv=)``; a
+``models.parallel.Serve``) the conv cache holds the rank's block of the
+[x, B, C] channels and the state its heads. The rank's xbc and conv_w
+columns are that block: it runs the conv on them alone (per channel, so
+bitwise one device's), gathers the outputs over "model" in rank order and
+takes its x heads and all of B and C; the SSD then runs its heads. Under
+tensor parallelism the gated norm's statistic is summed over "model"
+(``tp``); with whole weights the heads' y is gathered before the whole
+norm and out.
+
 The decode step does NOT update the recurrent cache in place:
 ``ssm_decode`` returns new ``conv`` and ``state`` tensors and leaves the
 ones it was given untouched. The serving runtime re-issues a failed or
@@ -157,7 +167,19 @@ def _gate_and_norm(p, y, z, cfg, dtype, tp=None):
                         mma=cfg.mma_reductions, tp=tp)
 
 
-def ssm_train(p, x, cfg, return_state: bool = False, tp=None):
+def _serve_split(conv: torch.Tensor, cfg, sv, f32: bool = False):
+    """The conv's output over the rank's block of channels (``sv.channels``)
+    -> its x heads (``sv.q_heads``), B and C: the blocks gathered over
+    "model" in rank order, then (in f32 with ``f32``, the decode's) silu."""
+    s, d_in, _, conv_dim = _dims(cfg)
+    if sv.channels != (0, conv_dim):
+        conv = sv.gather(conv, -1)
+    xs, Bx, Cx = _split_xbc(F.silu(conv.to(torch.float32) if f32 else conv), s, d_in)
+    h0, h1 = sv.q_heads
+    return xs[..., h0 * s.headdim:h1 * s.headdim], Bx, Cx
+
+
+def ssm_train(p, x, cfg, return_state: bool = False, tp=None, sv=None):
     """The Mamba-2 block, train/prefill. x: (B, L, d) -> (B, L, d), or with
     ``return_state`` (out, cache): the conv window (the last K-1 pre-conv
     inputs, zero-filled in front of a short prompt) and the SSD's final
@@ -166,18 +188,22 @@ def ssm_train(p, x, cfg, return_state: bool = False, tp=None):
     ``tp.enter`` (Megatron's f), the conv, the SSD and the gate run on
     those heads with the whole B and C, the gated norm's statistic is
     summed over the ranks both ways, and out is row-parallel, its partial
-    sums through ``tp.exit`` (g)."""
+    sums through ``tp.exit`` (g). ``sv`` (``models.parallel.Serve``, the
+    sharded prefill): the module doc; the conv window returned is the
+    rank's block of channels and the state its heads'."""
     s = cfg.ssm
-    d_in = p["norm_scale"].shape[0]
-    nh = d_in // s.headdim
     if tp is not None:
         x = tp.enter(x)
     b, l, _ = x.shape
     z = P.dense_apply(p["z"], x)
     xbc_raw = P.dense_apply(p["xbc"], x)
     dt_raw = P.dense_apply(p["dt"], x).to(torch.float32)
-    xbc = F.silu(L.causal_conv1d(xbc_raw, p["conv_w"]))
-    xs, Bx, Cx = _split_xbc(xbc, s, d_in)
+    conv = L.causal_conv1d(xbc_raw, p["conv_w"])
+    if sv is None:
+        xs, Bx, Cx = _split_xbc(F.silu(conv), s, p["norm_scale"].shape[0])
+    else:
+        xs, Bx, Cx = _serve_split(conv, cfg, sv)
+    nh = xs.shape[-1] // s.headdim
     xh = xs.reshape(b, l, nh, s.headdim)
     Bh = Bx.reshape(b, l, s.n_groups, s.d_state).to(torch.float32)
     Ch = Cx.reshape(b, l, s.n_groups, s.d_state).to(torch.float32)
@@ -186,7 +212,8 @@ def ssm_train(p, x, cfg, return_state: bool = False, tp=None):
     y, final_state = ssd_chunked(xh.to(torch.float32), dt, A, Bh, Ch, s.chunk,
                                  backend=R.backend_for_flags(cfg.mma_reductions))
     y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
-    out = P.dense_apply(p["out"], _gate_and_norm(p, y.reshape(b, l, d_in), z, cfg, x.dtype, tp))
+    y = L.gather_outputs(y.reshape(b, l, nh * s.headdim), sv)
+    out = P.dense_apply(p["out"], _gate_and_norm(p, y, z, cfg, x.dtype, tp))
     if tp is not None:
         out = tp.exit(out)
     if not return_state:
@@ -205,10 +232,13 @@ def make_ssm_cache(batch: int, cfg, dtype, device) -> dict:
     }
 
 
-def ssm_decode(p, x_t, cache: dict, cfg):
+def ssm_decode(p, x_t, cache: dict, cfg, tp=None, sv=None):
     """One decode step. x_t: (B, 1, d) -> (out (B, 1, d), a NEW cache): the
     conv window shifted by one and the state decayed and added to, both
-    new tensors; ``cache`` is left as it was (see the module doc)."""
+    new tensors; ``cache`` is left as it was (see the module doc). ``tp``
+    and ``sv``: the sharded decode (the module doc): the rank steps its
+    block of the conv window and its heads' state, the gated norm's
+    statistic summed over "model" under ``tp`` and out row-parallel."""
     s, d_in, nh, conv_dim = _dims(cfg)
     b = x_t.shape[0]
     xt = x_t[:, 0]
@@ -216,7 +246,11 @@ def ssm_decode(p, x_t, cache: dict, cfg):
     xbc_t = P.dense_apply(p["xbc"], xt)
     dt_raw = P.dense_apply(p["dt"], xt).to(torch.float32)
     conv_state, y_conv = L.conv1d_step(cache["conv"], xbc_t, p["conv_w"])
-    xs, Bx, Cx = _split_xbc(F.silu(y_conv.to(torch.float32)), s, d_in)
+    if sv is None:
+        xs, Bx, Cx = _split_xbc(F.silu(y_conv.to(torch.float32)), s, d_in)
+    else:
+        xs, Bx, Cx = _serve_split(y_conv, cfg, sv, f32=True)
+        nh = xs.shape[-1] // s.headdim
     xh = xs.reshape(b, nh, s.headdim)
     Bh = Bx.reshape(b, s.n_groups, s.d_state)
     Ch = Cx.reshape(b, s.n_groups, s.d_state)
@@ -229,5 +263,8 @@ def ssm_decode(p, x_t, cache: dict, cfg):
         "bh,bhp,bin->bhpn", dt, xh.to(torch.float32), Bh[:, :1, :])
     y = torch.einsum("bin,bhpn->bhp", Ch, state)                          # C . state
     y = y + p["D"][None, :, None] * xh.to(torch.float32)
-    out = P.dense_apply(p["out"], _gate_and_norm(p, y.reshape(b, d_in), z, cfg, x_t.dtype))
+    y = L.gather_outputs(y.reshape(b, nh * s.headdim), sv)
+    out = P.dense_apply(p["out"], _gate_and_norm(p, y, z, cfg, x_t.dtype, tp))
+    if tp is not None:
+        out = tp.exit(out)
     return out[:, None, :], {"conv": conv_state, "state": state}

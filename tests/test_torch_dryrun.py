@@ -24,20 +24,23 @@ meter). On the meta device, with nothing allocated, the dry run's
 
 ``--all --mesh single`` runs on the CPU without allocating (a dispatch
 mode refuses any tensor off the meta device past a few elements), every
-prefill and decode cell ``ok`` or ``refused`` with ``Plan``'s reason or
-the serving layout's, and deepseek-7b train_4k reports its per-rank bytes
-on (2, 2) and (16, 16). On (2, 2) the train cells of minicpm3-4b,
+prefill and decode cell ``ok`` but minicpm3-4b's, which ``Plan`` refuses
+with its layout reason (40 query heads over 16 model ranks), and
+deepseek-7b train_4k reports its per-rank bytes on (2, 2) and (16, 16).
+On (2, 2) the train, prefill and decode cells of minicpm3-4b,
 recurrentgemma-9b, llama-3.2-vision-11b, mamba2-780m and musicgen-medium
-are ``ok``; the five archs' prefill and decode cells are ``refused`` with
-the serving layout's reason.
+are ``ok``.
 
 The serving cells are held to the one sharded serving spawn of
 ``tests/torch_serving_cases.py`` (shared with
-``tests/test_torch_sharded_serving.py``): for each case the modelled
-bytes of a rank (``serve_rank_bytes``: parameter blocks, cache blocks,
-the prefill's gathered logits) equal the allocated blocks, and the
-modelled collectives of the prefill and of one decode step, greedy and
-not (``serve_collectives``), equal the noted traffic by kind and axis and the
+``tests/test_torch_sharded_serving.py``; every block kind and the
+codebook streams): for each case the modelled bytes of a rank
+(``serve_rank_bytes``: parameter blocks, cache blocks -- the latent, the
+SSM's f32 state and conv block, the RG-LRU's channels, a ring's slots,
+the cross-attention cache's kv heads or image tokens -- and the prefill's
+gathered logits) equal the allocated blocks, and the modelled collectives
+of the prefill and of one decode step, greedy and not
+(``serve_collectives``), equal the noted traffic by kind and axis and the
 c10d all-gathers' bytes, exactly.
 """
 
@@ -160,21 +163,18 @@ def test_all_cells_on_the_production_mesh_allocate_nothing(tmp_path, capsys):
     recs = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
     assert len(recs) == 40
     ok = {r["arch"] for r in recs if r["status"] == "ok"}
-    served = {"olmo-1b", "internlm2-1.8b", "deepseek-7b", "granite-moe-1b-a400m", "dbrx-132b"}
+    served = {"olmo-1b", "internlm2-1.8b", "deepseek-7b", "granite-moe-1b-a400m", "dbrx-132b",
+              "recurrentgemma-9b", "llama-3.2-vision-11b", "mamba2-780m", "musicgen-medium"}
     # minicpm3-4b's 40 heads do not split over 16 model ranks
-    assert ok == served | {"recurrentgemma-9b", "llama-3.2-vision-11b", "mamba2-780m",
-                           "musicgen-medium"}
+    assert ok == served
     for r in recs:
         if r["arch"] in ("mamba2-780m", "musicgen-medium") and r["mode"] == "train":
             assert r["status"] == "ok" and r["rules"] == "SMALL_MODEL_RULES"
     serving = [r for r in recs if r["mode"] != "train" and r["status"] != "skipped"]
     assert all(r["status"] in ("ok", "refused") for r in recs if r["status"] != "skipped")
     assert {r["arch"] for r in serving if r["status"] == "ok"} == served
-    for r in serving:
-        if r["status"] == "refused":
-            assert r["reason"].startswith("sharded serving runs")
     for r in recs:
-        if r["arch"] == "minicpm3-4b" and r["mode"] == "train":
+        if r["arch"] == "minicpm3-4b" and r["status"] != "skipped":
             assert r["status"] == "refused" and "40 query heads do not split" in r["reason"]
     cells = {(r["arch"], r["shape"]): r for r in serving}
     for arch in ("deepseek-7b", "internlm2-1.8b", "dbrx-132b"):
@@ -216,7 +216,7 @@ def test_serving_cells_equal_the_metered_run(serving_ranks, name):
     mesh = abstract_mesh((2, 2), ("data", "model"))
     meta = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
     specs = SH.param_shardings(param_axes(cfg), mesh, getattr(SH, case["rules"]), meta)
-    batch, prompt = case["prompts"].shape
+    batch, prompt = case["prompts"].shape[:2]
     want = dryrun.serve_rank_bytes(cfg, mesh, specs, "prefill", batch, prompt,
                                    s_max=case["s_max"])
     for mode, greedy in (("prefill", False), ("decode", False), ("decode", True)):
@@ -243,9 +243,9 @@ def test_serving_cells_equal_the_metered_run(serving_ranks, name):
 
 
 def test_the_new_mixers_train_cells_on_2x2(tmp_path):
-    """On (2, 2): the train cells of the MLA, SSM, RG-LRU, cross-attention
-    and codebook archs ``ok``; their serving cells ``refused`` with the
-    serving layout's reason, which names sharded serving."""
+    """On (2, 2): the train, prefill and decode cells of the MLA, SSM,
+    RG-LRU, cross-attention and codebook archs ``ok``, each with
+    collectives (the serving cells' by their own block kinds)."""
     from repro_torch.configs import SHAPES, get_arch, get_shape
     from repro_torch.configs.base import shape_applicable
 
@@ -255,8 +255,5 @@ def test_the_new_mixers_train_cells_on_2x2(tmp_path):
             if not shape_applicable(get_arch(arch), get_shape(shape))[0]:
                 continue
             rec = dryrun.run_cell(arch, shape, "2x2", tmp_path)
-            if rec["mode"] == "train":
-                assert rec["status"] == "ok", (arch, shape, rec.get("reason"))
-                assert rec["collectives"]["total_bytes"] > 0
-            else:
-                assert rec["status"] == "refused" and "sharded serving" in rec["reason"]
+            assert rec["status"] == "ok", (arch, shape, rec.get("reason"))
+            assert rec["collectives"]["total_bytes"] > 0

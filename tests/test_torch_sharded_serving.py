@@ -3,10 +3,14 @@
 One spawn of four gloo CPU ranks on (data 2, model 2) runs every case
 (``tests/torch_serving_cases.py``: TP with heads cut, SMALL_MODEL_RULES'
 whole weights with caches cut by heads, EP, the split-KV merge of caches
-cut by sequence, FSDP under BIG_MODEL_RULES, and a planted fault), each
-twice from the same start, plus the greedy merge on planted rows and
-``launch.train.build(mesh=)``. Each rank gets the global batch of seeded
-numpy prompts and the same teacher-forced decode tokens.
+cut by sequence, FSDP under BIG_MODEL_RULES; MLA's latent cut by slots,
+the SSM's state by heads and its conv cache by channels, the RG-LRU's
+channels and a local attention's ring cut by slots, cross-attention cut
+by kv heads and by image tokens, the codebook streams; and the planted
+faults), each twice from the same start, plus the greedy merge on planted
+rows and ``launch.train.build(mesh=)``. Each rank gets the global batch
+of seeded numpy prompts (and a cross-attention arch's context) and the
+same teacher-forced decode tokens.
 
   * The sharded prefill's last-token logits and its caches (gathered
     whole) match the port's single-device prefill, and the next 4 decode
@@ -17,8 +21,13 @@ numpy prompts and the same teacher-forced decode tokens.
     would turn a last-bit difference of a product taken over a rank's
     columns or heads into a bf16 ulp (~4e-3), where the sharding's own
     agreement reads ~1e-6 (the row-parallel partial sums and the
-    split-KV merge add in other orders than the whole products). The
-    greedy tokens equal ``torch.argmax`` of the single-device logits.
+    split-KV merge add in other orders than the whole products; MLA's
+    latent merge divides once where one device normalises every weight).
+    With the rounding on, MLA's merge could round only the unnormalised
+    weights where one device rounds the normalised ones: the two would
+    part by bf16's error, which is why the f32 limit is held with it off.
+    The greedy tokens equal ``torch.argmax`` of the single-device logits
+    (per codebook stream).
   * The single-device steps (the operand rounding on, as the reference's)
     hold the JAX package's ``make_prefill_step`` and ``make_decode_step``
     on the same weights within 0.01 absolute on the logits, the MoE archs'
@@ -34,8 +43,11 @@ numpy prompts and the same teacher-forced decode tokens.
     caches included; two runs, and the outputs every rank of an axis
     holds alike (the logits and tokens over "model", the caches over the
     axes their spec leaves whole), are equal bit for bit.
-  * A planted fault -- rank 1's split-KV merge 2^-10 too large -- fails
-    the 1e-5 limit.
+  * Each planted fault (``torch_serving_cases.FAULTS``) fails its check:
+    a logit fault the 1e-5 limit by at least 10 times, the greedy merge's
+    fault the tokens' equality.
+  * The ring cache cut by slots wrapped over the cut: after the prefill,
+    each model rank's slots hold a position past the window.
 """
 
 import jax
@@ -59,6 +71,7 @@ import torch_serving_cases as SC
 
 REL = 1e-5
 REF_ATOL = 0.01
+FAULT_X = 10  # a planted logit fault reads at least this many times REL
 
 
 @pytest.fixture(scope="module")
@@ -80,9 +93,10 @@ def _single(case, exact: bool = True) -> dict:
         cfg = W.serving_cfg(case)
         params = params_from_jax(case["params"], cfg)
         decode = make_decode_step(cfg, greedy=False)
+        ctx = torch.from_numpy(case["ctx"]) if "ctx" in case else None
         with torch.inference_mode():
             logits, caches = make_prefill_step(cfg, case["s_max"])(
-                params, torch.from_numpy(case["prompts"]))
+                params, torch.from_numpy(case["prompts"]), ctx)
             out = {"prefill": logits, "caches": [t.clone() for t in R.tree_leaves(caches)],
                    "steps": []}
             pos = case["prompts"].shape[1]
@@ -142,14 +156,15 @@ def test_single_device_serving_holds_the_reference(name):
     rcfg = dataclasses.replace(ref_arch(case["arch"], tiny=True), dtype="float32",
                                mma_reductions=False, **case["cfg"])
     params = jax.tree.map(jnp.asarray, case["params"])
+    ctx = jnp.asarray(case["ctx"]) if "ctx" in case else None
     logits, caches = jax.jit(ref_prefill_step(rcfg, case["s_max"]))(
-        params, jnp.asarray(case["prompts"], jnp.int32))
+        params, jnp.asarray(case["prompts"], jnp.int32), ctx)
     np.testing.assert_allclose(got["prefill"].numpy(), np.asarray(logits), rtol=0, atol=REF_ATOL)
     decode = jax.jit(ref_decode_step(rcfg, greedy=False))
     pos = case["prompts"].shape[1]
     for tok, mine in zip(case["decode"], got["steps"]):
         want, caches = decode(params, caches, jnp.asarray(tok, jnp.int32),
-                              jnp.asarray(pos, jnp.int32))
+                              jnp.asarray(pos, jnp.int32), ctx)
         np.testing.assert_allclose(mine.numpy(), np.asarray(want), rtol=0, atol=REF_ATOL)
         pos += 1
 
@@ -175,11 +190,44 @@ def test_retried_decode_step_and_repeats_are_bitwise(ranks, name):
         assert all(W._same_bits(a, b) for a, b in zip(runs[0]["steps"], runs[1]["steps"]))
 
 
-def test_planted_fault_fails_the_limit(ranks):
-    case = SC.case("internlm2")
-    worst = _worst([r["fault"] for r in ranks], _single(case), case["prompts"].shape[0])
-    print(f"planted fault: worst relative gaps {worst}")
-    assert max(worst.values()) > REL
+@pytest.mark.parametrize("fault", sorted(SC.FAULTS))
+def test_planted_fault_fails_the_limit(ranks, fault):
+    """A logit fault reads at least ``FAULT_X`` times the limit; the greedy
+    merge's fault (its logits untouched) gives a token off the argmax."""
+    on, kind = SC.FAULTS[fault]
+    case = SC.case(on)
+    single = _single(case)
+    batch = case["prompts"].shape[0]
+    got = [r[fault] for r in ranks]
+    if kind == "books":
+        misses = 0
+        for r, res in enumerate(got):
+            rows = _rows(r, batch)
+            for step, want in zip(res["runs"][0]["steps"], single["steps"]):
+                misses += int((step["token"] != torch.argmax(want[rows], -1)).sum())
+        print(f"{fault}: {misses} greedy tokens off the argmax")
+        assert misses > 0
+        return
+    worst = _worst(got, single, batch)
+    print(f"{fault}: worst relative gaps {worst}")
+    assert max(worst.values()) >= FAULT_X * REL, worst
+
+
+def test_ring_cache_wrapped_over_the_cut(ranks):
+    """The rg case's ring (16 slots, 8 a model rank) after a prompt of 28:
+    each model rank's slots hold a position past the window, so the
+    prefill's writes wrapped across the cut; the sharded caches held the
+    single device's (``test_sharded_serving_holds_the_single_device_steps``)."""
+    case = SC.case("rg")
+    window = W.serving_cfg(case).window
+    assert case["prompts"].shape[1] > window
+    for res in ranks:
+        rings = [t for t in res["rg"]["runs"][0]["caches"]
+                 if not t.is_floating_point() and t.shape[0] == window]
+        assert rings
+        for pos in rings:
+            half = window // 2
+            assert int(pos[:half].max()) >= window and int(pos[half:].max()) >= window
 
 
 def test_build_with_a_mesh_gives_the_sharded_step(ranks):
@@ -191,45 +239,34 @@ def test_build_with_a_mesh_gives_the_sharded_step(ranks):
         assert W._same_bits(built["params"], direct["params"])
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "mamba2-780m", "recurrentgemma-9b",
-                                  "llama-3.2-vision-11b", "musicgen-medium"])
-def test_serving_steps_refuse_the_blocks_the_plan_does_not_run(arch):
-    """Raised when the serving step is made: the serving layout's refusal
-    of the blocks the sharded training step runs but sharded serving does
-    not (MLA, SSM, RG-LRU, cross-attention, codebook streams)."""
-    from repro_torch.configs import get_arch
-    from repro_torch.launch.mesh import abstract_mesh
-
-    mesh = abstract_mesh((2, 2), ("data", "model"))
-    cfg = get_arch(arch, tiny=True)
-    match = "sharded serving runs self-attention blocks"
-    for make in (lambda: make_prefill_step(cfg, 16, mesh=mesh),
-                 lambda: make_decode_step(cfg, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match=match):
-            make()
-
-
-@pytest.mark.parametrize("what", ["ring", "groups"])
+@pytest.mark.parametrize("what", ["groups", "gate_blocks", "ssm_groups"])
 def test_serve_layout_refuses_what_it_does_not_serve(what):
-    """A ring cache (local attention) cut by slots, and query heads a rank
-    that do not fall on whole groups of one kv head's queries."""
+    """Query heads a rank that do not fall on whole groups of one kv head's
+    queries; an RG-LRU cache cut by channels that are not whole gate
+    blocks, its weights whole; an SSM state cut by heads with more than
+    one group of B and C."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.launch.steps import _serving
     from repro_torch.models.model import init_params, param_axes
 
-    mesh = abstract_mesh((1, 2), ("data", "model"))
-    if what == "ring":  # one kv head: the ring of 16 slots is cut by slots
-        cfg = dataclasses.replace(get_arch("recurrentgemma-9b", tiny=True),
-                                  block_pattern=("local_attn",), n_layers=1)
-        match = "ring cache"
-    else:  # 6 query heads over 3 kv heads: 3 a rank, groups of 2
+    mesh, rules = abstract_mesh((1, 2), ("data", "model")), SH.TP_ONLY_RULES
+    if what == "groups":  # 6 query heads over 3 kv heads: 3 a rank, groups of 2
         cfg = dataclasses.replace(get_arch("deepseek-7b", tiny=True), n_heads=6, n_kv_heads=3,
                                   d_head=16)
         match = "whole groups"
+    elif what == "gate_blocks":  # 64 channels over 32 ranks: 2 a rank, gate blocks of 4
+        cfg = get_arch("recurrentgemma-9b", tiny=True)
+        mesh, rules = abstract_mesh((1, 32), ("data", "model")), SH.SMALL_MODEL_RULES
+        match = "whole gate blocks"
+    else:  # 8 heads over 2 ranks, 2 groups of B and C
+        base = get_arch("mamba2-780m", tiny=True)
+        cfg = dataclasses.replace(base, ssm=dataclasses.replace(base.ssm, n_groups=2))
+        rules = SH.SMALL_MODEL_RULES
+        match = "one group of B and C"
     meta = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
-    specs = SH.param_shardings(param_axes(cfg), mesh, SH.TP_ONLY_RULES, meta)
+    specs = SH.param_shardings(param_axes(cfg), mesh, rules, meta)
     plan, _ = _serving(cfg, mesh, specs)(2, 16)
     with pytest.raises(NotImplementedError, match=match):
-        plan.serve_layout(0, 16)
+        plan.serve_layout(0)

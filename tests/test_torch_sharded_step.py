@@ -451,7 +451,9 @@ def test_plan_takes_ssm_blocks_and_codebook_streams(arch, rules):
     vocabulary cut over "model" under both, the codebook table's rows from
     its own block start (32 on rank 1 of tiny musicgen's 64), the head's
     columns from the padded vocabulary's (128 of 256). The serving layout
-    of the same plan refuses, naming sharded serving."""
+    of the same plan takes every block: the SSM's state cut by heads and
+    its conv cache by channels, the heads' y gathered where the weights
+    are whole; the codebook arch's k/v caches by kv heads."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.mesh import abstract_mesh
@@ -471,19 +473,25 @@ def test_plan_takes_ssm_blocks_and_codebook_streams(arch, rules):
     rank1 = Plan(cfg, mesh, SH.param_shardings(param_axes(cfg), mesh, getattr(SH, rules), meta))
     assert rank1.vocab0 == 128
     assert rank1.book0 == (32 if cfg.n_codebooks else 128)
-    caches = make_caches(cfg, 2, 16, torch.device("meta"))
-    plan = plan.for_caches(SH.cache_shardings(caches, cfg, plan.mesh))
-    with pytest.raises(NotImplementedError, match="sharded serving runs self-attention"):
-        plan.serve_layout(0, 16)
+    plan = plan.for_caches(make_caches(cfg, 2, 16, torch.device("meta")))
+    for i, kind in enumerate(cfg.pattern_layers):
+        lay = plan.serve_layout(i)
+        if kind == "ssm":  # 8 heads and 160 conv channels of [x, B, C] over 2 ranks
+            assert (lay["cache"], lay["q_heads"], lay["channels"]) == ("channels", (0, 4),
+                                                                      (0, 80))
+            assert lay["gather_heads"] == (rules == "SMALL_MODEL_RULES")
+        else:
+            assert (lay["cache"], lay["cache_heads"]) == ("heads", (0, 2))
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "recurrentgemma-9b", "llama-3.2-vision-11b"])
 def test_plan_takes_the_mixers_and_the_serving_layout_refuses_them(arch):
     """The training plan of each new mixer on (2, 2), its layout's TP as
-    the rules cut it; the serving layout of the same plan refuses, naming
-    sharded serving."""
+    the rules cut it; the serving layout of the same plan takes each
+    block: MLA's latent and the one-kv-head ring cut by slots, the
+    RG-LRU's channels and the cross-attention cache by kv heads, each
+    rank on its half of the heads or channels."""
     from repro_torch.configs import get_arch
-    from repro_torch.launch import sharding as SH
     from repro_torch.models import make_caches
 
     cfg = get_arch(arch, tiny=True)
@@ -491,10 +499,19 @@ def test_plan_takes_the_mixers_and_the_serving_layout_refuses_them(arch):
     for kind, sp in zip(cfg.pattern_layers, plan.specs["layers"]):
         lay = plan.layout(sp, kind)
         assert lay["inner_tp" if kind == "rec" else "attn_tp"], kind
-    meta = make_caches(cfg, 2, 16, torch.device("meta"))
-    plan = plan.for_caches(SH.cache_shardings(meta, cfg, plan.mesh))
-    with pytest.raises(NotImplementedError, match="sharded serving runs self-attention"):
-        plan.serve_layout(0, 16)
+    plan = plan.for_caches(make_caches(cfg, 2, 16, torch.device("meta")))
+    for i, kind in enumerate(cfg.pattern_layers):
+        lay = plan.serve_layout(i)
+        if kind == "rec":  # 64 channels, 16 gate blocks of 4, over 2 ranks
+            assert (lay["cache"], lay["channels"], lay["gather_heads"]) == ("channels", (0, 32),
+                                                                           False)
+        elif kind == "local_attn":  # one kv head: the ring of 16 slots cut by slots
+            assert (lay["cache"], lay["slots"], lay["q_heads"]) == ("seq", (0, 8), (0, 2))
+        elif kind == "xattn" or cfg.mla is None:  # two kv heads: one a rank
+            assert (lay["cache"], lay["cache_heads"], lay["q_heads"]) == ("heads", (0, 1),
+                                                                         (0, 2))
+        else:  # MLA's latent cut by slots
+            assert (lay["cache"], lay["slots"], lay["q_heads"]) == ("seq", (0, 8), (0, 2))
 
 
 @pytest.mark.parametrize("fused", [False, True])

@@ -336,9 +336,10 @@ def _mesh_entry(rank, world, tmp, name, shape, axes, args) -> None:
 
 
 def exact_f32_attention():
-    """The attention's bf16 rounding of its operands off (the f32 cases):
-    it turns a last-bit difference of a product taken on a rank's columns
-    into a bf16 ulp, which would hide the sharding's own agreement."""
+    """The attention's bf16 rounding of its operands off (the f32 cases;
+    MLA's decode reads the same switch): it turns a last-bit difference of
+    a product taken on a rank's columns into a bf16 ulp, which would hide
+    the sharding's own agreement."""
     from repro_torch.models import attention
 
     attention.bf16_round = lambda x: x
@@ -683,21 +684,91 @@ def serving_cases(rank, mesh, cases: dict, extra: dict) -> dict:
 
 
 def sharded_serve(rank, mesh, case: dict) -> dict:
-    """``_sharded_serve`` with the attention's operand rounding off and,
-    with ``case["fault"]``, rank 1's split-KV merge 2^-10 too large (a
-    merge that desynced on one rank: unlike a nudged all-reduce, which
-    scales every residual term of the rank alike and which the norms then
-    cancel, it moves the attention's share of the stream alone)."""
+    """``_sharded_serve`` with the attention's operand rounding off and
+    ``case["fault"]`` planted on global rank 1 (``_plant_serving``)."""
     from repro_torch.models import attention
 
-    saved, merge = attention.bf16_round, attention.merge_decode_partials
+    saved = attention.bf16_round
     exact_f32_attention()
-    if case.get("fault") and rank == 1:
-        attention.merge_decode_partials = lambda parts: merge(parts) * (1 + 2**-10)
+    undo = _plant_serving(rank, case.get("fault"))
     try:
         return _sharded_serve(mesh, case)
     finally:
-        attention.bf16_round, attention.merge_decode_partials = saved, merge
+        attention.bf16_round = saved
+        if undo is not None:
+            undo()
+
+
+def _plant_serving(rank: int, fault):
+    """A planted fault of sharded serving on global rank 1 (data 0, model
+    1); returns the undo (None: no fault). Each moves one term, not every
+    residual term of a rank alike (a nudged all-reduce, which the norms
+    would cancel):
+
+      True    the split-KV merge 2^-10 too large (a merge that desynced)
+      ring    a ring cache cut by slots filled at global slot numbers
+              (``fill_kv_cache``'s ``slot0`` taken as 0: the rank keeps
+              rank 0's positions)
+      mla     the latent merge's denominators 2^-10 too large
+      ssm     the SSM decode's conv block read one channel off
+      rec     the RG-LRU decode's ``h`` from its neighbour's channels (every
+              rank gathers the blocks, so none waits)
+      books   stream 0's greedy merge on the rank-local column index
+              (every rank splits the streams alike, so none waits)
+    """
+    from repro_torch.models import attention, parallel, rglru, ssm
+
+    if not fault:
+        return None
+    mine = rank == 1
+    if fault in (True, "mla"):
+        module, name = attention, "merge_decode_partials"
+        real = module.merge_decode_partials
+        if fault is True:
+            def wrong(parts):
+                return real(parts) * (1 + 2**-10) if mine else real(parts)
+        else:
+            def wrong(parts):
+                return real([(m, d * (1 + 2**-10), o) for m, d, o in parts] if mine else parts)
+    elif fault == "ring":
+        module, name = attention, "fill_kv_cache"
+        real = module.fill_kv_cache
+
+        def wrong(cache, k, v, slot0=0):
+            return real(cache, k, v, 0 if mine else slot0)
+    elif fault == "ssm":
+        module, name = ssm, "ssm_decode"
+        real = module.ssm_decode
+
+        def wrong(p, x_t, cache, cfg, **kw):
+            if mine:
+                cache = dict(cache, conv=torch.roll(cache["conv"], 1, -1))
+            return real(p, x_t, cache, cfg, **kw)
+    elif fault == "rec":
+        module, name = rglru, "rglru_decode"
+        real = module.rglru_decode
+
+        def wrong(p, x_t, cache, cfg, tp=None, sv=None):
+            blocks = sv.rows(cache["h"])
+            if mine:
+                cache = dict(cache, h=blocks[0])
+            return real(p, x_t, cache, cfg, tp=tp, sv=sv)
+    else:
+        module, name = parallel.Plan, "greedy"
+        real = module.greedy
+
+        def wrong(self, logits):
+            first, rest = logits[..., :1, :], logits[..., 1:, :]
+            saved = self.vocab0
+            if mine:
+                self.vocab0 = 0
+            try:
+                tok = real(self, first)
+            finally:
+                self.vocab0 = saved
+            return torch.cat([tok, real(self, rest)], -1)
+    setattr(module, name, wrong)
+    return lambda: setattr(module, name, real)
 
 
 def _sharded_serve(mesh, case: dict) -> dict:
@@ -705,8 +776,8 @@ def _sharded_serve(mesh, case: dict) -> dict:
     ``case["runs"]`` times from the same start: each run's prefill logits
     (the rank's rows), its caches gathered whole, and per step the logits
     and the greedy token of a retried step; the first step retried bitwise
-    (logits and caches); the replicated outputs' bits over the axes that
-    hold them alike; with ``case["meter"]`` the first run's traffic notes
+    (logits and caches) from the caches before it; the replicated outputs'
+    bits over the axes that hold them alike; with ``case["meter"]`` the first run's traffic notes
     and c10d ops of the prefill and of the first decode step, and the
     bytes of the rank's blocks."""
     from repro_torch.launch import sharding as SH
@@ -724,6 +795,7 @@ def _sharded_serve(mesh, case: dict) -> dict:
     decode_logits = make_decode_step(cfg, greedy=False, mesh=mesh, param_shardings=specs)
     decode_greedy = make_decode_step(cfg, greedy=True, mesh=mesh, param_shardings=specs)
     prompts = torch.from_numpy(case["prompts"])
+    ctx = torch.from_numpy(case["ctx"]) if "ctx" in case else None
     out = {"runs": []}
 
     def metered(name, fn):
@@ -736,7 +808,7 @@ def _sharded_serve(mesh, case: dict) -> dict:
 
     for run in range(case.get("runs", 2)):
         meter = case.get("meter") and run == 0
-        go = lambda: prefill_step(params, prompts)  # noqa: E731
+        go = lambda: prefill_step(params, prompts, ctx)  # noqa: E731
         logits, caches = metered("prefill", go) if meter else go()
         cspecs = SH.cache_shardings(caches, cfg, mesh)
         if meter:
@@ -753,18 +825,20 @@ def _sharded_serve(mesh, case: dict) -> dict:
         pos = prompts.shape[1]
         for i, tok in enumerate(case["decode"]):
             tok = torch.from_numpy(tok)
+            # each step from the committed caches: the recurrent ones are
+            # new tensors a step, the KV caches' in-place write repeats
+            before = _clone(caches)
             if i == 0:
-                before = _clone(caches)
                 go = lambda: decode_logits(params, caches, tok, pos)  # noqa: E731
                 lg, caches = metered("decode", go) if meter else go()
                 after = _clone(caches)
-                lg2, caches = decode_logits(params, caches, tok, pos)
+                lg2, caches = decode_logits(params, _clone(before), tok, pos)  # the retry
                 res["retry_bitwise"] = _same_bits(lg, lg2) and _same_bits(after, _clone(caches))
                 res["retry_wrote"] = not _same_bits(before, after)
             else:
                 lg, caches = decode_logits(params, caches, tok, pos)
-            go = lambda: decode_greedy(params, caches, tok, pos)  # noqa: E731
-            nxt, caches = metered("greedy", go) if meter and i == 0 else go()
+            go = lambda: decode_greedy(params, _clone(before), tok, pos)  # noqa: E731
+            nxt, _ = metered("greedy", go) if meter and i == 0 else go()
             agree &= bool(C.replica_bits_agree(lg, ("model",), mesh))
             agree &= bool(C.replica_bits_agree(nxt, ("model",), mesh))
             res["steps"].append({"logits": lg.clone(), "token": nxt.clone()})
