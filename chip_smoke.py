@@ -80,10 +80,24 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             ``launch.train.check_fits_card`` accepts, one plain step (6
             layers on an 80 GB card) and one guarded (3), the next unit
             refused by the CLI before any allocation;
+  examples  the reference's examples through the port's entry points
+            (``run_examples_phase``): ``examples.quickstart`` (K1's sum of
+            2^20 numbers against the exact sum of its bf16 operands, tiny
+            olmo-1b's 10 steps with a falling loss),
+            ``examples.serve_batched`` (6 and 4 outputs of 8 tokens, the
+            same on a rerun) and ``examples.train_100m`` at its defaults:
+            llama-110m at full width, 300 steps of 8 x 512 with a falling
+            loss, its launches a step held to the launch model (K5b 49, K6
+            24 at 12 heads of 64, K7 2, K1 1, K4 1), the loss every 30
+            steps, the step wall's p50, the steps a second and the peak
+            memory; K6, K7 and K4 at its shapes (``check_llama_110m_shapes``);
   paper     ``python -m repro_torch.launch.reduce_demo``'s ``main`` at
             n = 2^28: step counts, precision and time per backend, through
             the hierarchy's level kernel (K10), the moments kernel (K2)
-            and the Kahan kernel (K3), and its segmented section;
+            and the Kahan kernel (K3), its segmented section, and the
+            card's roofline (``core.cost_model.gpu_reduction_roofline``)
+            with K1 and K10 timed at f32 and bf16 as shares of their cold
+            bound: a share under 0.95 (``ROOFLINE_FLOOR``) fails the run;
   multi     the multi-reduce and scan path: ``reduce_many`` over 2^28 f32
             values in 2048 packed ragged segments (the pack and one launch
             of the gather kernel, K8), ``reduce_many`` kinds sum and
@@ -159,8 +173,9 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
   sharded serving  the sharded prefill and decode steps
             (``run_sharded_serving_phase``): four gloo ranks sharing the
             first card on (data 2, model 2) serve deepseek-7b at full width
-            and depth (TP_ONLY_RULES: heads cut, K6 and K5b on the rank's
-            heads) and granite-moe-1b-a400m (SMALL_MODEL_RULES: weights
+            and 8 of 30 layers (TP_ONLY_RULES: heads cut, K6 and K5b on the
+            rank's heads) and granite-moe-1b-a400m at full depth
+            (SMALL_MODEL_RULES: weights
             whole over "model", FSDP, EP, caches cut by heads), 4 prompts
             of 256 tokens and 16 teacher-forced decode steps each, against
             the single rank on the same weights: logits within a limit and
@@ -202,9 +217,16 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
-F32_CUDA_CORE_FLOPS = 67e12
+# The card's rates, from the one place the repository states them.
+sys.path.insert(0, SRC)
+try:
+    from repro_torch.core.cost_model import (  # noqa: E402
+        BF16_TENSOR_FLOPS,
+        F32_CUDA_CORE_FLOPS,
+        HBM_BYTES_PER_S,
+    )
+except ImportError:  # not a checkout of the repository: main() refuses to run
+    BF16_TENSOR_FLOPS = F32_CUDA_CORE_FLOPS = HBM_BYTES_PER_S = None
 
 # The serving run: full-width olmo-1b, depth as published.
 SLOTS, PROMPT, MAX_NEW, REQUESTS = 4, 256, 16, 8
@@ -262,7 +284,7 @@ def _attn_kernel(cfg) -> str:
     return "::attn_fwd_wide_kernel<" if cfg.d_head > 128 else "::attn_fwd_kernel<"
 
 
-def train_launches_per_step(cfg) -> dict:
+def train_launches_per_step(cfg, seq: int = TRAIN_SEQ) -> dict:
     """Kernel launches per training step under remat. Forward: the layers'
     norms plus the final norm and their attentions (``_layer_launches``);
     backward: each layer recomputed (its norms and attention again). The chunked loss runs the
@@ -274,7 +296,7 @@ def train_launches_per_step(cfg) -> dict:
     statistics) are the engine's row reductions, a ones-product in torch on
     every backend (``cuda_fused`` inherits ``mma_torch``'s ``sum_axis``),
     and its slot-base scan is pinned to ``mma_torch`` (``models.moe``)."""
-    chunks = -(-TRAIN_SEQ // LOSS_CHUNK)
+    chunks = -(-seq // LOSS_CHUNK)
     norms, attn = _layer_launches(cfg)
     return dict(_norm_kernels(cfg, 2 * norms + 1), **clip_statistic_kernels(cfg),
                 flash_attention=2 * attn, cross_entropy=2 * chunks,
@@ -328,6 +350,9 @@ KERNELS = ("mma_sum_parts", "layernorm_np", "rmsnorm", "flash_attention", "cross
 PAPER_KERNELS = ("mma_moments_fused", "mma_sum_kahan", "tile_partials")
 MULTI_KERNELS = ("mma_sum_segments", "mma_scan")
 PAPER_N = 2**28  # the reduce demo's n: 1.07 GB of f32
+# The least share of its cold bound (``cost_model.gpu_reduction_roofline``)
+# a measured K1 or K10 call may read: under it the bound's arithmetic is wrong.
+ROOFLINE_FLOOR = 0.95
 # The dense archs, each served at full width; internlm2-1.8b also trains at
 # full width (deepseek-7b's training state does not fit one card).
 DENSE_ARCHS = ("olmo-1b", "internlm2-1.8b", "deepseek-7b")
@@ -1843,6 +1868,15 @@ def run_reduce_demo() -> dict:
         check(abs(got - exact) <= 1e-4 * exact, "the demo's three segments are off f64")
     for name in PAPER_KERNELS + ("mma_sum_segments",):
         check(launches[name] > 0, f"the paper's path did not launch {name}")
+    # the roofline section: a reading under the cold bound would beat the
+    # card, so the bound's arithmetic would be wrong
+    for backend, kernel, dt, ms, bound, share in out["measured"]:
+        check(share >= ROOFLINE_FLOOR,
+              f"{kernel} ({backend}) at {dt}: {ms * 1e3:.2f} us per call, under "
+              f"{ROOFLINE_FLOOR} x its cold bound {bound * 1e3:.2f} us")
+    check(len(out["roofline"]) == 6 and all(
+        r.tensor_core_bandwidth_neutral for n, m, r, _ in out["roofline"] if m == 128),
+        "the roofline table: the MMA encoding is not bandwidth-neutral at m = 128 for bf16")
     return launches
 
 
@@ -3294,24 +3328,28 @@ def _rmsnorm_case(gen, arch: str, rows: int, d: int) -> dict:
     }
 
 
-def _attention_case(gen, label: str, b_: int, hq: int, hkv: int, s_: int, d: int) -> dict:
-    """K6 causal at (b_, hq q / hkv kv heads, s_, d) bf16 against its plain
-    version (2 bf16 ulps of the output + 2e-3), timed beside its bound and
-    PyTorch's attention on the same GQA operands; its call time by CUDA
-    events around back-to-back wrapper calls. Heads past 128 wide run the
-    wide variant (``attn_fwd_wide_kernel``)."""
+def _attention_case(gen, label: str, b_: int, hq: int, hkv: int, s_: int, d: int,
+                    dtype: str = "bfloat16") -> dict:
+    """K6 causal at (b_, hq q / hkv kv heads, s_, d) in ``dtype`` (f32
+    operands are rounded to bf16 by the kernel's producer, as the plain
+    version rounds them) against its plain version (2 bf16 ulps of the
+    output + 2e-3), timed beside its bound and PyTorch's attention on the
+    same GQA operands; its call time by CUDA events around back-to-back
+    wrapper calls. Heads past 128 wide run the wide variant
+    (``attn_fwd_wide_kernel``)."""
     import torch
 
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
-    q = (torch.randn((b_, hq, s_, d), generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
-    k = (torch.randn((b_, hkv, s_, d), generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
-    v = (torch.randn((b_, hkv, s_, d), generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
+    dt = getattr(torch, dtype)
+    q = (torch.randn((b_, hq, s_, d), generator=gen, device=DEVICE) * 0.5).to(dt)
+    k = (torch.randn((b_, hkv, s_, d), generator=gen, device=DEVICE) * 0.5).to(dt)
+    v = (torch.randn((b_, hkv, s_, d), generator=gen, device=DEVICE) * 0.5).to(dt)
     got, want = flash_attention(q, k, v, causal=True), flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    print(f"K6 flash_attention {label} ({b_}, {hq} q / {hkv} kv heads, {s_}, {d}) bf16: "
+    print(f"K6 flash_attention {label} ({b_}, {hq} q / {hkv} kv heads, {s_}, {d}) {dtype}: "
           f"max_abs_err {err:.3g} vs plain (tol: 2 bf16 ulps of the output)")
     check(bool(torch.all((got.float() - want.float()).abs()
                          <= 2.0**-6 * want.float().abs() + 2e-3)),
@@ -3319,8 +3357,8 @@ def _attention_case(gen, label: str, b_: int, hq: int, hkv: int, s_: int, d: int
     lib_err = float((_sdpa_gqa(q, k, v).float() - got.float()).abs().max())
     print(f"    against PyTorch's attention: max |d| {lib_err:.3g}")
     pairs = _causal_pairs(s_, s_, 0, None) * b_ * hq
-    bb, by = bound_ms((2 * q.numel() + 2 * k.numel()) * 2, tensor_flops=4 * d * pairs,
-                      core_flops=pairs)
+    bb, by = bound_ms((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                      tensor_flops=4 * d * pairs, core_flops=pairs)
     kernel = "attn_fwd_wide_kernel" if d > 128 else "attn_fwd_kernel"
     return {
         "max_abs_err": err,
@@ -4253,6 +4291,151 @@ def check_audio_shapes(results: dict) -> None:
     results["mma_sum_parts"]["musicgen"] = stat
     _print_cases(list(attn.items()) + [(f"{k} ce", v) for k, v in ce.items()]
                  + [(f"{k} logit statistic", v) for k, v in stat.items()])
+
+
+# ------------------- the reference's examples as entry points -------------------
+
+# train_100m at the reference's defaults: llama-110m, 300 steps of 8 x 512.
+LLAMA_STEPS, LLAMA_BATCH, LLAMA_SEQ = 300, 8, 512
+LLAMA_LOG_EVERY = 30
+
+
+def check_llama_110m_shapes(results: dict) -> None:
+    """The kernels at the shapes ``examples.train_100m`` gives them, each
+    against its plain version and timed beside its bound and its PyTorch
+    call: K6 at 8 x 12 MHA heads of 64 x 512 on f32 operands (the config's
+    dtype; the kernel rounds them to bf16 as the reference's attention
+    does), K7 over (4096, 32000) f32 (no pad columns: 32000 is a multiple
+    of 256), and K4 as the clip statistic over llama-110m's 111 f32
+    gradient leaves with the optimizer's fork (tolerance 1e-6 x the mass:
+    f32 sums in another order; its device time by the profiler and its
+    whole call by CUDA events: at 162 M values the host's work on the 111
+    parts shows in the call), against ``get_total_norm``. The figures go
+    under each kernel's "llama_110m" key."""
+    import torch
+
+    from repro_torch.examples.train_100m import CFG_100M as cfg
+    from repro_torch.kernels import mma_sum_parts
+    from repro_torch.kernels.mma_reduce import mma_sum_parts_plain
+    from repro_torch.launch.train import param_shapes
+
+    gen = torch.Generator(device=DEVICE).manual_seed(35)
+    attn = _attention_case(gen, "llama-110m train", LLAMA_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                           LLAMA_SEQ, cfg.d_head, dtype="float32")
+    ce = _cross_entropy_case(gen, "llama-110m", cfg.vocab_size, cfg.vocab_size,
+                             rows=LLAMA_BATCH * LLAMA_SEQ)
+    leaves = [torch.randn((numel,), generator=gen, device=DEVICE) * 1e-3
+              for numel, _ in param_shapes(cfg)]
+    total = sum(p.numel() for p in leaves)
+    chains = ((("sqrt",),), (("sqrt",), ("clip_coeff", 1.0, 1e-9)))
+    pros = ("square",) * len(leaves)
+
+    def k4():
+        return mma_sum_parts(leaves, prologue="square", total_chains=chains)
+
+    out, plain = k4(), mma_sum_parts_plain(leaves, pros, chains, False)
+    torch.cuda.synchronize()
+    n_leaves = len(leaves)
+    mass = float(plain[:n_leaves].sum())
+    err = float((out - plain).abs().max())
+    print(f"K4 mma_sum_parts, llama-110m's clip statistic: {n_leaves} f32 leaves, {total} "
+          f"elements: max_abs_err {err:.3g} vs plain at mass {mass:.4g} (tol 1e-6 x mass)")
+    check(err <= 1e-6 * mass, "K4 over llama-110m's leaves disagrees with its plain version")
+    lib = getattr(torch.nn.utils, "get_total_norm", None)
+    b4, by4 = bound_ms(total * 4 + out.numel() * 4, core_flops=2 * total)
+    parts = {
+        "max_abs_err": err, "leaves": n_leaves, "elements": total,
+        "ms": device_ms(k4, "parts_kernel", iters=5, warmup=1),
+        "call_ms": time_ms(k4, iters=5, warmup=1),
+        "plain_ms": time_ms(lambda: mma_sum_parts_plain(leaves, pros, chains, False), iters=1,
+                            warmup=0),
+        "bound_ms": b4, "bound_by": by4,
+        "library_ms": time_ms(lambda: lib(leaves), iters=5, warmup=1) if lib is not None else None,
+    }
+    del leaves
+    torch.cuda.empty_cache()
+    results["flash_attention"]["llama_110m"] = attn
+    results["cross_entropy"]["llama_110m"] = ce
+    results["mma_sum_parts"]["llama_110m"] = parts
+    _print_cases([("llama-110m K6 8 x 12 x 512 x 64 f32", attn),
+                  ("llama-110m K7 4096 x 32000 f32", ce), ("llama-110m K4 clip statistic", parts)])
+
+
+def run_examples_phase() -> dict:
+    """The reference's examples through the port's entry points, each
+    under the launch meter: ``examples.quickstart.main([])`` (the sum of
+    2^20 numbers on K1 against ``mma_sum`` on the same bf16-rounded
+    operands within 1e-6 of their mass, then tiny olmo-1b's 10 steps with
+    a falling loss), ``examples.serve_batched.main([])`` (6 and 4 outputs
+    of 8 tokens, the same on a rerun) and ``examples.train_100m.main([])``
+    at its defaults: full-width llama-110m, 300 steps of 8 x 512, its loss
+    falling, every kernel's launches held to ``train_launches_per_step``
+    (K5b, K6, K7, K1 and K4 each launched). Prints the parameter count,
+    the loss every 30 steps, the step wall's p50, the steps a second and
+    the peak device memory. Returns the launches of each and the run's
+    figures."""
+    import numpy as np
+    import torch
+
+    from repro_torch.examples import quickstart, serve_batched, train_100m
+    from repro_torch.launch.train import param_shapes
+
+    t0 = time.perf_counter()
+    qs, qs_launches = counted_run(lambda: quickstart.main([]))
+    x = torch.from_numpy(np.random.RandomState(0).randn(quickstart.N).astype(np.float32))
+    want = float(x.to(torch.bfloat16).double().sum())  # the bf16 multipliers' exact sum
+    mass = float(x.abs().sum())
+    print(f"quickstart: {time.perf_counter() - t0:.2f} s; K1 {qs['reduce']:.6f}, mma_sum "
+          f"{qs['mma_sum']:.6f} against the f64 sum of the bf16-rounded operands {want:.6f} "
+          f"(tol 1e-6 x the mass {mass:.6g}; mma_sum's group sums re-enter at bf16: 2^-8 "
+          f"of the sum more); losses {[round(v, 4) for v in qs['losses']]}; launches "
+          f"{qs_launches}")
+    check(abs(qs["reduce"] - want) <= 1e-6 * mass, "quickstart: K1 is off the exact sum")
+    check(abs(qs["mma_sum"] - want) <= 1e-6 * mass + 2.0**-8 * abs(want),
+          "quickstart: mma_sum is off the exact sum")
+    check(all(np.isfinite(qs["losses"])) and qs["losses"][-1] < qs["losses"][0],
+          "quickstart: the tiny model's loss did not fall")
+    check(qs_launches["mma_sum_fused"] >= 1, "quickstart: the reduction did not launch K1")
+    t0 = time.perf_counter()
+    served, sb_launches = counted_run(lambda: serve_batched.main([]))
+    again = serve_batched.main([])
+    print(f"serve_batched: {time.perf_counter() - t0:.2f} s (twice); outputs "
+          f"{[[len(o) for o in run] for run in served]}; launches {sb_launches}")
+    check([[len(o) for o in run] for run in served] == [[8] * 6, [8] * 4],
+          "serve_batched: not 6 and 4 outputs of 8 tokens")
+    check(served == again, "serve_batched: a rerun served other tokens")
+    check(sb_launches["layernorm_np"] > 0 and sb_launches["rmsnorm"] > 0,
+          "serve_batched: the norms did not launch their kernels")
+
+    cfg = train_100m.CFG_100M
+    per_step = train_launches_per_step(cfg, LLAMA_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    t0 = time.perf_counter()
+    losses, launches = counted_run(lambda: train_100m.main([], walls=walls))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(numel for numel, _ in param_shapes(cfg))
+    p50 = float(np.median(walls))
+    print(f"train_100m: {cfg.name}, {n_params} parameters ({n_params / 1e6:.1f}M), "
+          f"{LLAMA_STEPS} steps of {LLAMA_BATCH} x {LLAMA_SEQ} in {wall:.2f} s (initialisation "
+          f"included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; every {LLAMA_LOG_EVERY} steps "
+          f"{[round(v, 4) for v in losses[LLAMA_LOG_EVERY - 1::LLAMA_LOG_EVERY]]}; "
+          f"step wall p50 {p50 * 1e3:.3f} ms ({1 / p50:.3f} steps/s), min "
+          f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}; peak device memory "
+          f"{peak:.3f} GB; launches a step "
+          f"{ {k: v / LLAMA_STEPS for k, v in launches.items() if v} }")
+    check(len(losses) == LLAMA_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "train_100m: the loss is not finite or did not fall")
+    for k, n in per_step.items():
+        check(launches[k] == n * LLAMA_STEPS,
+              f"train_100m: {k}: {launches[k]} launches, expected {n * LLAMA_STEPS}")
+    for k in ("rmsnorm", "flash_attention", "cross_entropy", "mma_sum_fused", "mma_sum_parts"):
+        check(launches[k] > 0, f"train_100m: {k} was not launched")
+    torch.cuda.empty_cache()
+    return {"quickstart": qs_launches, "serve_batched": sb_launches, "train_100m": launches,
+            "losses": losses, "p50_ms": p50 * 1e3, "steps_per_s": 1 / p50, "peak_gb": peak,
+            "wall_s": wall, "params": n_params}
 
 
 # ------------------------------- the data mesh -------------------------------
@@ -6151,6 +6334,11 @@ def run_autotune_phase() -> dict:
     return out
 
 
+def mark(t_start: float, what: str) -> None:
+    """One line of the script's timeline: seconds since ``t_start``."""
+    print(f"[chip_smoke +{time.time() - t_start:.1f} s] {what} done", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -6192,10 +6380,12 @@ def main() -> int:
     check_tile_partials(results, gen)
     check_moments_and_kahan(results, gen)
     check_matmul_stats(results, gen)
+    mark(t_start, "kernel checks")
     ms_launches = run_matmul_stats_path()
     torch.cuda.empty_cache()
     check_reduce_against_cpu(gen)
     check_auto_route(gen)
+    mark(t_start, "reduce card vs CPU")
     torch.cuda.empty_cache()
     check_dense_shapes(results)
     torch.cuda.empty_cache()
@@ -6207,14 +6397,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_audio_shapes(results)
     torch.cuda.empty_cache()
+    check_llama_110m_shapes(results)
+    mark(t_start, "arch shapes")
+    torch.cuda.empty_cache()
     meter = run_meter_phase()
     torch.cuda.empty_cache()
     tuned = run_autotune_phase()
+    mark(t_start, "meter, autotune")
     torch.cuda.empty_cache()
     check_backward_times(results, gen)
     for arch in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS + RG_VISION_ARCHS + (MUSICGEN,):
         check_tiny_against_cpu(arch)
     check_full_width_against_cpu()
+    mark(t_start, "tiny and 2-layer models card vs CPU")
     serve_launches, serving = {}, {}
     for arch in DENSE_ARCHS:  # the olmo and internlm2 engines are freed before deepseek's
         serve_launches[arch], serving[arch] = serve_full_width(arch)
@@ -6235,6 +6430,7 @@ def main() -> int:
     serving[RG].pop("float32_ring_launches")
     torch.cuda.empty_cache()
     serve_launches[MUSICGEN], serving[MUSICGEN] = serve_full_width(MUSICGEN)
+    mark(t_start, "full-width serving")
     torch.cuda.empty_cache()
     nonkernel = run_nonkernel_route()
     torch.cuda.empty_cache()
@@ -6248,14 +6444,23 @@ def main() -> int:
         check_full_width_training_against_cpu()
         check_parts_training(results, gen)
         train_launches, train_prof = train_full_width()
+        mark(t_start, "training checks, olmo-1b training")
+        torch.cuda.empty_cache()
+        examples = run_examples_phase()
+        mark(t_start, "examples")
+        torch.cuda.empty_cache()
         guarded = run_guarded_training(train_prof["busy_ms"])
         drill = run_rollback_drill()
+        mark(t_start, "guarded training, rollback drill")
         torch.cuda.empty_cache()
         mesh = run_data_mesh_phase()
+        mark(t_start, "data mesh")
         torch.cuda.empty_cache()
         sharded = run_sharded_phase(results, gen)
+        mark(t_start, "sharded step")
         torch.cuda.empty_cache()
         serving_sharded = run_sharded_serving_phase()
+        mark(t_start, "sharded serving")
         torch.cuda.empty_cache()
         intern_launches, intern_prof = train_full_width("internlm2-1.8b", guarded_steps=1)
         clip_stat = profile_clip_statistic("internlm2-1.8b",
@@ -6285,6 +6490,7 @@ def main() -> int:
         musicgen_clip = profile_clip_statistic(MUSICGEN, results["mma_sum_parts"]["census_on_ms"])
         torch.cuda.empty_cache()
         fit = run_fit_phase()
+        mark(t_start, "full-width training, fit")
     finally:
         R.set_default_backend(None)
     torch.cuda.empty_cache()
@@ -6297,8 +6503,10 @@ def main() -> int:
     check_packing_offsets(gen)
     torch.cuda.empty_cache()
     multi_launches = run_multi_reduce_path()
+    mark(t_start, "multi-reduce and scan")
     torch.cuda.empty_cache()
     paper_launches = run_reduce_demo()
+    mark(t_start, "reduce demo")
 
     kernels = []
     results["mma_sum_segments"]["internlm2_clip_statistic"] = clip_stat
@@ -6371,6 +6579,9 @@ def main() -> int:
                serving_sharded["launches"][arch].get(name, 0)
                for arch in SERVE_SHARDED if arch not in ("deepseek-7b", GRANITE)},
             "launches_forward_kernel_route": nonkernel["launches"].get(name, 0),
+            "launches_train_100m": examples["train_100m"][name],
+            "launches_quickstart": examples["quickstart"][name],
+            "launches_serve_batched": examples["serve_batched"][name],
         }
         entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
@@ -6449,6 +6660,12 @@ def main() -> int:
           f"{wide['prefill']['ms'] * 1e3:.2f} us (SDPA {wide['prefill']['library_ms'] * 1e3:.2f}, "
           f"bound {wide['prefill']['bound_ms'] * 1e3:.2f})")
     print(f"fit check, {RG}: {fit}")
+    print(f"train_100m (llama-110m, {LLAMA_STEPS} x {LLAMA_BATCH} x {LLAMA_SEQ}): "
+          f"{examples['params']} parameters, loss {examples['losses'][0]:.4f} -> "
+          f"{examples['losses'][-1]:.4f}, step wall p50 {examples['p50_ms']:.3f} ms "
+          f"({examples['steps_per_s']:.3f} steps/s), peak {examples['peak_gb']:.3f} GB, "
+          f"{examples['wall_s']:.1f} s; launches a step "
+          f"{ {k: v / LLAMA_STEPS for k, v in examples['train_100m'].items() if v} }")
     print(f"data mesh: engine {mesh['engine']}; training step peaks {mesh['peak_gb']} GB a "
           f"rank")
     for arch in SHARDED_ARCHS:

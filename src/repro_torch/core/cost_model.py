@@ -21,9 +21,17 @@ reference's striped model, and the port's own look-back kernel beside it,
 of the port's fused kernels (``fused_launch_bytes``) and the eq. 13 table
 (``model_table``), and the interconnect model of the fixed-order combine
 (``interconnect_bytes``, ``IciTraffic``; the names kept so a reader finds
-the counterpart). Not copied: ``tpu_reduction_roofline`` and ``ICI_BW``,
-whose rates are a TPU's; the combine's time bound takes the rate of the
-transport in use instead (``link_bytes_per_s``).
+the counterpart). Not copied: ``ICI_BW``, whose rate is a TPU's; the
+combine's time bound takes the rate of the transport in use instead
+(``link_bytes_per_s``).
+
+The card's rates (``HBM_BYTES_PER_S``, ``BF16_TENSOR_FLOPS``,
+``F32_CUDA_CORE_FLOPS``, ``SM_CLOCK_HZ``; an H100 SXM at its 700 W limit)
+live here and nowhere else: every bound the repository states for the card
+(``chip_smoke.py``'s kernel bounds, the probes under ``tools/``) is taken
+from them, and so is ``gpu_reduction_roofline``, the card's counterpart of
+the reference's ``tpu_reduction_roofline``: where the MMA encoding of a
+reduction lands on the card, against the stream bound and the classic tree.
 """
 
 from __future__ import annotations
@@ -32,6 +40,14 @@ import dataclasses
 import math
 
 M = 128  # the paper's tile size m as the kernels run it (common.MXU)
+
+# The card every bound is stated for, as ``nvidia-smi --query-gpu=name,
+# power.limit --format=csv,noheader`` names it, and its data-sheet rates.
+CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+HBM_BYTES_PER_S = 3.35e12       # HBM3 stream rate
+BF16_TENSOR_FLOPS = 989e12      # dense bf16 on the tensor cores, f32 accumulate
+F32_CUDA_CORE_FLOPS = 67e12     # f32 on the CUDA cores, an FMA counted as 2
+SM_CLOCK_HZ = 1.98e9            # the SMs' boost clock: 132 SMs x 128 lanes x 2 x clock = 67 TF
 
 _F32 = 4  # partials, accumulators and outputs are f32
 
@@ -516,3 +532,78 @@ def interconnect_bytes(slots: int, world: int, *, itemsize: int = _F32,
         raise ValueError(f"invalid interconnect geometry: {slots=} {world=}")
     rate = None if transport is None else link_bytes_per_s(transport)
     return IciTraffic(slots=slots, world=world, itemsize=itemsize, link_bytes_per_s=rate)
+
+
+# --------------------------- the card's roofline ------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ReductionRoofline:
+    """Three-term roofline for reducing n elements of ``bytes_per_el`` on
+    the card; the reference's TPU terms under the card's unit names:
+
+      hbm_s          <- hbm_s   the operand streamed from HBM once;
+      cuda_core_s    <- vpu_s   the classic tree on the CUDA cores (one
+                                f32 add an element at the f32 rate, an FMA
+                                slot each, plus a log-depth tail of 10
+                                cycles a level), operand on chip;
+      tensor_core_s  <- mxu_s   the paper's MMA encoding at tile size m
+                                (``tensor_flops`` at the dense bf16 tensor
+                                rate), operand on chip.
+
+    ``tensor_core_bandwidth_neutral`` is the reference's
+    ``mxu_bandwidth_neutral``."""
+
+    n: int
+    bytes_per_el: int
+    m: int
+    hbm_s: float
+    cuda_core_s: float
+    tensor_core_s: float
+    tensor_flops: float
+
+    @property
+    def cold_bound_s(self) -> float:
+        """A cold reduction can never beat the stream time, nor the MMAs'."""
+        return max(self.hbm_s, self.tensor_core_s)
+
+    @property
+    def fused_speedup(self) -> float:
+        """CUDA-core / tensor-core time for an on-chip (fused) reduction:
+        below 1 where the tensor cores take longer, which is the price of
+        leaving the CUDA cores free for the surrounding kernel."""
+        return self.cuda_core_s / self.tensor_core_s if self.tensor_core_s else float("inf")
+
+    @property
+    def tensor_core_bandwidth_neutral(self) -> bool:
+        """True when the MMA encoding adds no wall time over the HBM stream
+        bound for a cold operand (within 1.15x of the stream)."""
+        return self.tensor_core_s <= self.hbm_s * 1.15
+
+
+def reduction_mma_flops(n: int, m: int = M) -> float:
+    """The reference's MMA-FLOP count of the eq. 13 hierarchy: level by
+    level, k = ceil(remaining / m^2) tiles, each 2 MMAs of 2 m^3 FLOPs,
+    until one value is left (``tpu_reduction_roofline``'s loop, with m a
+    parameter)."""
+    group = m * m
+    flops, remaining = 0.0, n
+    while remaining > 1:
+        k = -(-remaining // group)
+        flops += 2 * k * 2 * m**3
+        remaining = k
+    return flops
+
+
+def gpu_reduction_roofline(n: int, bytes_per_el: int = 2, *, m: int = M) -> ReductionRoofline:
+    """Where a reduction of n elements lands on the card (``CARD``): the
+    stream, the classic tree on the CUDA cores and the MMA encoding on the
+    tensor cores (``ReductionRoofline``). ``m``: the tile size of the
+    encoding (the port's kernels run 128; the paper's Volta WMMA tile is
+    16)."""
+    hbm_s = n * bytes_per_el / HBM_BYTES_PER_S
+    cuda_core_s = n / (F32_CUDA_CORE_FLOPS / 2) + 10 * math.log2(max(n, 2)) / SM_CLOCK_HZ
+    flops = reduction_mma_flops(n, m)
+    return ReductionRoofline(n=n, bytes_per_el=bytes_per_el, m=m, hbm_s=hbm_s,
+                             cuda_core_s=cuda_core_s, tensor_core_s=flops / BF16_TENSOR_FLOPS,
+                             tensor_flops=flops)

@@ -203,3 +203,57 @@ def classic_tree_sum(
     if trace is not None:
         trace.append(ReductionTrace(n=n0, m=2, levels=levels, mma_ops=0))
     return flat.reshape(())
+
+
+# ---------------------------------------------------------------------------
+# The reference's older entry points, kept for its callers: a differentiable
+# full sum, a reduction over chosen axes, and the squared norm of a tree.
+# ---------------------------------------------------------------------------
+
+
+class _MmaSumDiff(torch.autograd.Function):
+    """``mma_sum`` with the exact gradient of a sum: the cotangent
+    broadcast to the input, whatever the reduction's schedule."""
+
+    @staticmethod
+    def forward(ctx, x, m):
+        ctx.shape, ctx.dtype = x.shape, x.dtype
+        return mma_sum(x, m=m)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.expand(ctx.shape).to(ctx.dtype), None
+
+
+def mma_sum_diff(x: torch.Tensor, m: int = DEFAULT_M) -> torch.Tensor:
+    """``mma_sum(x, m=m)`` under autograd (the reference's custom VJP)."""
+    return _MmaSumDiff.apply(x, m)
+
+
+def mma_sum_axis(x: torch.Tensor, axis, *, m: int = DEFAULT_M, **kw) -> torch.Tensor:
+    """Reduce the ``axis`` axes (an int or a sequence) with the all-ones
+    row product, keeping the others batched: the reduced axes move last,
+    are flattened, and one ``row_sum_mma`` (``kw``: its dtypes) sums them.
+    ``m`` is taken for the reference's signature; the row product is one
+    MMA over the whole extent, as the reference's single dot."""
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    axes = tuple(a % x.ndim for a in axes)
+    keep = tuple(a for a in range(x.ndim) if a not in axes)
+    xt = x.permute(keep + axes)
+    batch_shape = xt.shape[:len(keep)]
+    red = int(math.prod(xt.shape[len(keep):])) if axes else 1
+    return row_sum_mma(xt.reshape(batch_shape + (red,)), **kw)
+
+
+def global_norm_sq_mma(tree, *, m: int = DEFAULT_M) -> torch.Tensor:
+    """Sum of squares over a whole tree of tensors on the ``mma_torch``
+    backend at f32 multipliers and tile size ``m``: a thin delegate to
+    ``reduce.reduce_tree(kind="sumsq")``, as in the reference."""
+    # deferred: the engine imports this module
+    from repro_torch.reduce import plan_for, reduce_tree, tree_leaves
+
+    leaves = tree_leaves(tree)
+    n = sum(leaf.numel() for leaf in leaves)
+    plan = plan_for((n,), torch.float32, kind="sumsq", backend="mma_torch",
+                    compute_dtype="float32", device=leaves[0].device if leaves else None)
+    return reduce_tree(tree, kind="sumsq", plan=plan.replace(m=m))

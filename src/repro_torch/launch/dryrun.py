@@ -52,7 +52,8 @@ kind); cuts a block cannot run (MLA's 40 heads over 16 model ranks) get
   python -m repro_torch.launch.dryrun --all --mesh single
 
 Each cell's JSON goes to ``--out`` (``artifacts/dryrun_torch`` by default,
-which ``.gitignore`` lists).
+which ``.gitignore`` lists); ``--skip-existing`` keeps a cell whose JSON
+is there already with a verdict at the depth asked for (``existing_cell``).
 """
 
 from __future__ import annotations
@@ -566,6 +567,24 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir=None, *,
     return rec
 
 
+# Verdicts ``--skip-existing`` keeps: every status ``run_cell`` writes (the
+# reference keeps "ok" and "skipped" and reruns its "failed" cells; a cell
+# of the port either has a verdict or raises before writing).
+KEPT = ("ok", "skipped", "refused")
+
+
+def existing_cell(out_dir, arch: str, shape_name: str, mesh_name: str, n_layers=None):
+    """The record ``run_cell`` wrote for the cell under ``out_dir``, if it
+    holds a kept verdict (``KEPT``) at the depth asked for (the arch's own
+    when ``n_layers`` is None); else None."""
+    path = pathlib.Path(out_dir) / f"{arch}__{shape_name}__{mesh_name}.json"
+    if not path.exists():
+        return None
+    rec = json.loads(path.read_text())
+    depth = get_arch(arch).n_layers if n_layers is None else n_layers
+    return rec if rec.get("status") in KEPT and rec.get("n_layers") == depth else None
+
+
 def _describe_serving(head: str, rec: dict) -> str:
     if rec["status"] == "refused":
         return f"[refused] {head} ({rec['rules']}): the sharded serving step refuses it: " \
@@ -612,6 +631,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="single", help="single, multi, both, or AxB (data x model)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--layers", type=int, default=None, help="cut the arch to this depth")
+    ap.add_argument("--skip-existing", action="store_true",
+                    help="keep a cell whose JSON under --out already holds a verdict")
     ap.add_argument("--out", default=str(ART_DIR))
     args = ap.parse_args(argv)
     archs = list(ARCHS) if (args.all or not args.arch) else [args.arch]
@@ -620,6 +641,11 @@ def main(argv=None) -> int:
     for arch in archs:
         for shape in shapes:
             for mesh in meshes:
+                prior = existing_cell(args.out, arch, shape, mesh, args.layers) \
+                    if args.skip_existing else None
+                if prior is not None:
+                    print(f"[keep] {arch} x {shape} x {mesh}", flush=True)
+                    continue
                 print(describe(run_cell(arch, shape, mesh, args.out, n_layers=args.layers)),
                       flush=True)
     print("dry run complete: nothing was allocated (meta device)")

@@ -28,7 +28,15 @@ Four tables:
      lengths (two empty in the middle, boundaries off the tile grid)
      through ``reduce_many`` on ``cuda_fused`` -- the pack and ONE launch
      of the gather kernel -- with the worst error against the f64 segment
-     sums relative to each segment's mass, and the time per call.
+     sums relative to each segment's mass, and the time per call;
+  5. where it lands on the card (the reference demo's last section, for
+     its TPU): ``core.cost_model.gpu_reduction_roofline`` for n = 2^16,
+     2^24, 2^28 and m = 16 (the paper's Volta tile), 128 (the port's):
+     the stream at bf16 and f32, the classic tree on the CUDA cores, the
+     MMA encoding on the tensor cores, and whether the encoding is
+     bandwidth-neutral; then ``cuda_fused`` (K1) and ``cuda_hier`` (K10)
+     timed on the n numbers at f32 and at bf16, each as a share of its
+     cold bound at m = 128 (a share under 1 would beat the card).
 """
 
 from __future__ import annotations
@@ -47,6 +55,9 @@ from repro_torch.kernels.mma_reduce import mma_sum_hier
 from repro_torch.launch.serve import resolve_device
 
 STEP_MS = (4, 16, 128)
+ROOFLINE_NS = (1 << 16, 1 << 24, 1 << 28)
+ROOFLINE_MS = (16, 128)
+MEASURED = (("cuda_fused", "K1"), ("cuda_hier", "K10"))
 SEGMENTS = 2048  # packed documents in the segmented table
 MULTIPLIERS = (("bf16", torch.bfloat16), ("f16", torch.float16), ("f32", torch.float32))
 TIMED = (
@@ -181,6 +192,30 @@ def segmented_table(x: torch.Tensor, iters: int, seed: int) -> dict:
             "ms": ms, "offsets": offsets}
 
 
+def roofline_table(ns=ROOFLINE_NS, ms=ROOFLINE_MS) -> list:
+    """(n, m, the bf16 roofline, the f32 roofline) rows
+    (``cost_model.ReductionRoofline``; only the stream differs)."""
+    return [(n, m, cost_model.gpu_reduction_roofline(n, 2, m=m),
+             cost_model.gpu_reduction_roofline(n, 4, m=m)) for n in ns for m in ms]
+
+
+def measured_against_roofline(x: torch.Tensor, iters: int) -> list:
+    """(backend, kernel, dtype, ms per call, cold bound ms, share) rows: the
+    full sum of ``x`` at f32 and rounded to bf16 on each of ``MEASURED``'s
+    backends, against ``gpu_reduction_roofline(n, itemsize).cold_bound_s``
+    at the kernels' m = 128."""
+    rows = []
+    for xd in (x, x.to(torch.bfloat16)):
+        roofline = cost_model.gpu_reduction_roofline(xd.numel(), xd.element_size())
+        bound_ms = roofline.cold_bound_s * 1e3
+        for backend, kernel in MEASURED:
+            ms = time_per_call(lambda: R.reduce(xd, backend=backend), xd.device, iters)
+            rows.append((backend, kernel, str(xd.dtype).replace("torch.", ""), ms, bound_ms,
+                         ms / bound_ms))
+        del xd
+    return rows
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 28, help="numbers reduced (default 2^28)")
@@ -212,8 +247,27 @@ def main(argv=None) -> dict:
 
     print(f"\n=== segmented multi-reduce: N reductions, ONE pass ({label}) ===")
     segments = segmented_table(x, args.iters, args.seed)
+
+    print(f"\n=== where it lands on the card ({cost_model.CARD}: "
+          f"{cost_model.HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+          f"{cost_model.BF16_TENSOR_FLOPS / 1e12:.0f} "
+          f"TFLOP/s bf16 tensor, {cost_model.F32_CUDA_CORE_FLOPS / 1e12:.0f} TFLOP/s f32) ===")
+    print(f"{'n':>10} {'m':>4} {'HBM bf16':>10} {'HBM f32':>10} {'CUDA core':>10} "
+          f"{'tensor':>10} {'neutral bf16/f32':>17}   (us)")
+    roofline = roofline_table()
+    for n, m, r2, r4 in roofline:
+        print(f"{n:>10} {m:>4} {r2.hbm_s * 1e6:>10.3f} {r4.hbm_s * 1e6:>10.3f} "
+              f"{r2.cuda_core_s * 1e6:>10.3f} {r2.tensor_core_s * 1e6:>10.3f} "
+              f"{str(r2.tensor_core_bandwidth_neutral):>8}/"
+              f"{str(r4.tensor_core_bandwidth_neutral):<8}")
+    measured = measured_against_roofline(x, args.iters)
+    for backend, kernel, dt, ms, bound, share in measured:
+        print(f"  {backend} ({kernel}) at n = {args.n} {dt}: {ms * 1e3:.2f} us per call, cold "
+              f"bound {bound * 1e3:.2f} us, share {share:.3f} ({label})")
+    print("cold reductions are bound by the stream; the MMA encoding's work fits under it at "
+          "m = 128, and frees the CUDA cores inside fused kernels (norms, softmax, CE)")
     return {"steps": steps, "precision": prec, "times": times, "segments": segments,
-            "device": label}
+            "roofline": roofline, "measured": measured, "device": label}
 
 
 if __name__ == "__main__":

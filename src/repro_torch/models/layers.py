@@ -168,14 +168,17 @@ def gather_outputs(y: torch.Tensor, sv) -> torch.Tensor:
     return sv.gather(y, -1) if sv is not None and sv.gather_heads else y
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         rot_dim: int | None = None) -> torch.Tensor:
     """Rotary embedding. x: (..., S, H, D); positions broadcastable to
-    (..., S). Computed in f32, returned in x's dtype."""
-    d = x.shape[-1]
-    half = d // 2
+    (..., S). ``rot_dim`` (default D): only the first ``rot_dim`` channels
+    rotate, the rest pass through. Computed in f32, returned in x's
+    dtype."""
+    rot = rot_dim or x.shape[-1]
+    half = rot // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
     ang = positions[..., None].to(torch.float32) * freqs
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:rot]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin, x[..., rot:]], -1).to(x.dtype)

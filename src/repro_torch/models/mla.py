@@ -45,6 +45,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import params as P
 
 
+def cfg_dtype(cfg) -> torch.dtype:
+    """The config's parameter and cache dtype (``models.model.param_dtype``)."""
+    return getattr(torch, cfg.dtype)
+
+
 def mla_init(gen, cfg, dtype, device) -> dict:
     """The five projections and the two latent RMSNorm scales, drawn from
     ``gen`` in the reference's order (q_down, q_up, kv_down, kv_up, o)."""

@@ -3,11 +3,12 @@ explicit ``torch.Generator``.
 
 Port of ``repro/models/params.py`` without the logical sharding axes.
 Weights keep the reference's layout: a dense weight is (in, out) and is
-applied as ``x @ w``. The reference's ``split`` (key splitting) and
-``stack_init`` (units stacked on a leading axis for ``lax.scan``) have no
-counterpart: one generator is drawn from in a fixed order, and each layer
-is its own entry of a Python list (``models.model``), which the Python
-loop over layers replaces ``lax.scan`` with.
+applied as ``x @ w``. The models draw from one generator in a fixed order,
+and each layer is its own entry of a Python list (``models.model``), which
+the Python loop over layers replaces ``lax.scan`` with; ``split`` (a
+generator split into independent children, the reference's key split) and
+``stack_init`` (copies of a module stacked on a leading axis, as the
+reference stacks its units) are kept for callers that want either.
 """
 
 from __future__ import annotations
@@ -28,6 +29,27 @@ def dense_init(gen, in_dim: int, out_dim: int, dtype, device, scale=None) -> dic
 
 def dense_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"].to(x.dtype)
+
+
+def split(gen: torch.Generator, n: int) -> list:
+    """``n`` generators on ``gen``'s device, each seeded by one draw of
+    ``gen``: independent streams, the same for the same ``gen`` state (the
+    reference's ``jax.random.split``)."""
+    seeds = torch.randint(0, 2**62, (n,), generator=gen, device=gen.device).tolist()
+    return [torch.Generator(device=gen.device).manual_seed(int(s)) for s in seeds]
+
+
+def stack_init(init_fn, gen: torch.Generator, n: int):
+    """``n`` copies of a module stacked on a leading axis:
+    ``init_fn(generator) -> params`` (a nested dict of tensors) is called
+    once per generator of ``split(gen, n)``, and each leaf stacked."""
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    return stack([init_fn(g) for g in split(gen, n)])
 
 
 def count_params(tree) -> int:

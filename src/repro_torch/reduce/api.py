@@ -65,7 +65,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -75,6 +75,9 @@ from repro_torch.reduce import backends as _backends
 from repro_torch.reduce import plan as P
 from repro_torch.reduce.plan import ReducePlan, dtype_name, norm_mesh_axes, plan_for
 
+# what ``reduce``'s ``axis`` takes: None (every axis), one axis, or several
+Axis = Union[None, int, Sequence[int]]
+
 KINDS = ("sum", "mean", "sumsq", "norm2", "moments")
 TREE_KINDS = ("sum", "sumsq", "norm2")
 
@@ -82,7 +85,7 @@ TREE_KINDS = ("sum", "sumsq", "norm2")
 _NO_AXES = ()
 
 
-def _normalize_axis(axis, ndim: int):
+def _normalize_axis(axis: Axis, ndim: int):
     """-> None (reduce everything), () (reduce nothing), or a sorted tuple
     of unique non-negative axes (the reference's ``_normalize_axis``)."""
     if axis is None:
@@ -317,7 +320,7 @@ def _resolve_plan(shape, dtype, axis_t, kind, plan, segments=None, device=None,
 
 def reduce(
     x: torch.Tensor,
-    axis=None,
+    axis: Axis = None,
     kind: str = "sum",
     *,
     plan: Optional[ReducePlan] = None,

@@ -210,10 +210,12 @@ class ReducePlan:
             dual=dual and path == "fused", epilogue=bool(epilogue) and path == "fused")
 
 
-def set_default_backend(name: Optional[str]) -> None:
-    """Set the process-wide default backend (None restores auto)."""
+def set_default_backend(name: Optional[str]) -> Optional[str]:
+    """Set the process-wide default backend (None restores auto). Returns
+    the earlier setting, so that a caller can put it back."""
     global _default_backend
-    _default_backend = name
+    earlier, _default_backend = _default_backend, name
+    return earlier
 
 
 def default_backend() -> str:

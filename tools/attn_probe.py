@@ -39,6 +39,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.core import cost_model  # noqa: E402
+
 HQ, HKV, D = 16, 1, 256  # recurrentgemma-9b's heads
 WINDOW = 2048
 # label, batch, tokens, window
@@ -180,8 +182,8 @@ def main() -> int:
               + f"; roofline share {bound * 1e3 / min(t['this']):.3f}")
         del q, k, v, out, want, got, sdpa
         torch.cuda.empty_cache()
-    print(f"bound rates: {cs.HBM_BYTES_PER_S / 1e12:.2f} TB/s of HBM, "
-          f"{cs.BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s bf16 on the tensor cores")
+    print(f"bound rates: {cost_model.HBM_BYTES_PER_S / 1e12:.2f} TB/s of HBM, "
+          f"{cost_model.BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s bf16 on the tensor cores")
     return 0
 
 
