@@ -151,7 +151,7 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
             sharing the first card, in one spawn, train at full width on a
             (data 2, model 2) mesh deepseek-7b at 3 layers (FSDP + TP +
             vocab TP), granite-moe-1b-a400m at 6 of 24 layers (FSDP +
-            vocab TP + EP), minicpm3-4b at 2 (MLA's TP),
+            vocab TP + EP), minicpm3-4b at 1 (MLA's TP),
             llama-3.2-vision-11b at 5 (cross-attention's TP, its gates
             open), mamba2-780m at 2 (the SSM's TP) and musicgen-medium at
             2 (SMALL_MODEL_RULES: the codebook streams vocab-parallel, the
@@ -173,15 +173,26 @@ meter (``repro_torch.reduce.inspect.count_kernel_launches``):
   sharded serving  the sharded prefill and decode steps
             (``run_sharded_serving_phase``): four gloo ranks sharing the
             first card on (data 2, model 2) serve deepseek-7b at full width
-            and 8 of 30 layers (TP_ONLY_RULES: heads cut, K6 and K5b on the
-            rank's heads) and granite-moe-1b-a400m at full depth
+            and 3 of 30 layers (TP_ONLY_RULES: heads cut, K6 and K5b on the
+            rank's heads), granite-moe-1b-a400m at full depth
             (SMALL_MODEL_RULES: weights
-            whole over "model", FSDP, EP, caches cut by heads), 4 prompts
+            whole over "model", FSDP, EP, caches cut by heads) and the MLA,
+            SSM, RG-LRU, cross-attention and codebook archs, 4 prompts
             of 256 tokens and 16 teacher-forced decode steps each, against
             the single rank on the same weights: logits within a limit and
             a planted fault ten times past it, greedy tokens, a retried
             step bitwise, c10d bytes equal to the dry run's serving cell,
-            launches, the peak a rank under the dry run's bytes.
+            launches, the peak a rank under the dry run's bytes;
+  uneven heads  MLA's 40 query heads over a model axis of 3
+            (``run_uneven_heads_phase``): three gloo ranks sharing the
+            first card, in one spawn, train minicpm3-4b at full width and
+            2 layers on (data 1, model 3) (13, 13 and 14 heads a rank,
+            q_up gathered over "model", kv_up and o whole), two steps
+            against the single rank as the sharded phase holds its archs,
+            then serve it (4 prompts of 254 tokens, so that the 270-slot
+            latent is cut by slots, and 16 decode steps: the decode's
+            uneven q gather) as the sharded serving phase does; the
+            planted fault: rank 1's o cut one head off its rows.
 
 Exits nonzero, with no result line, when any check fails or there is no
 GPU.
@@ -4495,7 +4506,8 @@ def _mesh_rank(rank: int, world: int, tmp: str, job: str, kw: dict) -> None:
     with open(os.path.join(tmp, f"rank{rank}.log"), "w") as log, \
             contextlib.redirect_stdout(log):
         out = {"engine": _mesh_engine_rank, "train": _mesh_train_rank,
-               "sharded": _sharded_rank, "serving": _serving_rank}[job](rank, world, kw)
+               "sharded": _sharded_rank, "serving": _serving_rank,
+               "uneven": _uneven_rank}[job](rank, world, kw)
         if "peak_gb" not in out:
             out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                               if torch.cuda.is_initialized() else 0.0)
@@ -4966,7 +4978,8 @@ SHARDED_DEEPSEEK_LAYERS = 3
 # The MLA, RG-LRU and cross-attention archs at full width under
 # DEFAULT_RULES, each at the least depth that holds every block kind of
 # its pattern, on the mesh whose four ranks the fit check lets share one
-# card: minicpm3-4b (MLA) at 2 layers and llama-3.2-vision-11b (four attn,
+# card: minicpm3-4b (MLA) at 1 layer (2 until the uneven-heads phase
+# joined the script: its time limit) and llama-3.2-vision-11b (four attn,
 # one xattn) at 5 on (data 2, model 2); recurrentgemma-9b (rec, rec,
 # local_attn) at 3 on (data 1, model 4). On (2, 2) its 256 000-row
 # embedding and head, cut in two, hold 16.8 GB a rank in parameters,
@@ -4977,7 +4990,7 @@ SHARDED_DEEPSEEK_LAYERS = 3
 # rank, its tied 50 432-row table cut in two) and musicgen-medium
 # (SMALL_MODEL_RULES, as the reference's rules choice gives it: FSDP and its
 # four codebook streams vocab-parallel) at 2 layers on (2, 2).
-SHARDED_MIXERS = {MINICPM: (2, (2, 2)), VISION: (5, (2, 2)), RG: (3, (1, 4)),
+SHARDED_MIXERS = {MINICPM: (1, (2, 2)), VISION: (5, (2, 2)), RG: (3, (1, 4)),
                   MAMBA: (2, (2, 2)), MUSICGEN: (2, (2, 2))}
 SHARDED_ARCHS = ("deepseek-7b", GRANITE) + tuple(SHARDED_MIXERS)
 # The archs whose sharded run (and its single rank) keeps the fused second
@@ -5083,18 +5096,19 @@ def sharded_cut_depth(arch: str) -> int:
     raise SmokeFailure(f"{arch}: no depth fits the card sharded over {SHARDED_WORLD} ranks")
 
 
-def sharded_launches_per_step(cfg) -> dict:
+def sharded_launches_per_step(cfg, vocab_parallel: bool = True) -> dict:
     """Kernel launches of a rank in one sharded step (one microbatch):
     each layer's norms and attention forward and in the recompute, the
     final norm once (``train_launches_per_step``, on the rank's heads);
-    per loss chunk K7's partial variant forward and in the recompute, and
-    the token sum's K1 both times too (the sharded forward runs its
-    recomputes whole: ``launch.steps``); the clip statistic once
-    (``clip_statistic_kernels``); no whole-vocabulary K7."""
+    per loss chunk K7's partial variant forward and in the recompute (with
+    the vocabulary whole over "model", K7 over the whole vocabulary
+    instead), and the token sum's K1 both times too (the sharded forward
+    runs its recomputes whole: ``launch.steps``); the clip statistic once
+    (``clip_statistic_kernels``)."""
     chunks = -(-TRAIN_SEQ // LOSS_CHUNK)
-    out = dict(train_launches_per_step(cfg), cross_entropy=0,
-               cross_entropy_partial=2 * chunks, mma_sum_fused=2 * chunks)
-    return out
+    ce = 2 * chunks
+    return dict(train_launches_per_step(cfg), cross_entropy=0 if vocab_parallel else ce,
+                cross_entropy_partial=ce if vocab_parallel else 0, mma_sum_fused=2 * chunks)
 
 
 def sharded_tcfg(arch: str):
@@ -5230,13 +5244,36 @@ def plant_book_slip(rank: int):
     return lambda: setattr(parallel.Plan, "__init__", real)
 
 
-def plant_fault(arch: str, rank: int):
+def plant_o_rows(rank: int):
+    """On global rank 1, MLA's o cut one head below the rank's own block of
+    rows (heads the model ranks do not divide, o gathered or held whole:
+    ``models.parallel.Plan._mla_leaf``), so its heads' outputs meet
+    another head's rows. Returns the undo."""
+    from repro_torch.models import parallel
+
+    real = parallel.Plan._mla_leaf
+
+    def wrong(self, w, dim, mode, heads, width):
+        if rank == 1 and dim == 0:
+            heads = (heads[0] - 1, heads[1] - 1)
+        return real(self, w, dim, mode, heads, width)
+
+    parallel.Plan._mla_leaf = wrong
+    return lambda: setattr(parallel.Plan, "_mla_leaf", real)
+
+
+def plant_fault(arch: str, rank: int, fault=True):
     """``arch``'s planted fault on global rank 1 (``plant_doubled_f``, or
-    ``plant_book_slip`` for the codebook arch). Returns the undo."""
+    ``plant_book_slip`` for the codebook arch; ``fault="o_rows"``:
+    ``plant_o_rows``). Returns the undo."""
+    if fault == "o_rows":
+        return plant_o_rows(rank)
     return plant_doubled_f(arch, rank) if arch in MIXER_FAULTS else plant_book_slip(rank)
 
 
-def fault_name(arch: str) -> str:
+def fault_name(arch: str, fault=True) -> str:
+    if fault == "o_rows":
+        return "rank 1's o cut one head off its block of rows"
     if arch in MIXER_FAULTS:
         return f"rank 1's f in its {MIXER_FAULTS[arch][1]} summed twice"
     return "rank 1's codebook lookup one row off"
@@ -5366,7 +5403,7 @@ def _sharded_job(rank: int, world: int, job: dict) -> dict:
         del params, opt, step, out
         gc.collect()
         torch.cuda.empty_cache()
-        undo = plant_fault(job["arch"], rank)
+        undo = plant_fault(job["arch"], rank, job["fault"])
         try:  # the plan is made with the step
             params, opt, step = start()
             params, opt, m = step(params, opt, batches[0])
@@ -5525,26 +5562,29 @@ def sharded_update_gaps(ranks) -> dict:
     return out
 
 
-def _check_sharded_arch(arch: str, layers: int, shape, ranks: list, single: dict) -> dict:
+def _check_sharded_arch(arch: str, layers: int, shape, ranks: list, single: dict,
+                        planted=True) -> dict:
     """The checks of one arch of the sharded phase (``run_sharded_phase``)
     on its ranks' results against the single rank's; returns the dry run's
-    collectives summary."""
+    collectives summary. ``planted``: the fault the ranks planted
+    (``plant_fault``)."""
     import dataclasses
 
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.parallel import Plan
 
     cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
     mesh = abstract_mesh(shape, SHARDED_AXES)
     specs = sharded_specs(cfg, SHARDED_RULES[arch], mesh)
     model = dryrun.summarize(dryrun.step_collectives(
         cfg, TrainConfig(), mesh, specs, (TRAIN_BATCH, TRAIN_SEQ + 1)))
-    want_launches = sharded_launches_per_step(cfg)
+    want_launches = sharded_launches_per_step(cfg, Plan(cfg, mesh, specs).vocab_parallel)
     one = single["metrics"][0]
     mesh_name = f"(data {shape[0]}, model {shape[1]})"
     print(f"sharded {arch} at {layers} of {get_arch(arch).n_layers} layers "
-          f"({SHARDED_RULES[arch]}, {mesh_name}, 4 ranks on one card over "
+          f"({SHARDED_RULES[arch]}, {mesh_name}, {len(ranks)} ranks on one card over "
           f"{ranks[0]['transport']}): single-rank step 1 loss {one['loss']!r}, grad norm "
           f"{one['grad_norm']!r}, clip {one['clip']!r}, wall {single['wall_ms']:.1f} ms, "
           f"peak {single['peak_gb']:.2f} GB")
@@ -5603,7 +5643,7 @@ def _check_sharded_arch(arch: str, layers: int, shape, ranks: list, single: dict
               "rank's")
         fault = max(g for res in ranks for _, g in res["fault"]["grad_gaps"])
         agree = [res["fault"]["replicas_agree"] for res in ranks]
-        print(f"sharded {arch} with {fault_name(arch)}: "
+        print(f"sharded {arch} with {fault_name(arch, planted)}: "
               f"worst gradient gap {fault:.4g}, {fault / SHARDED_LEAF_GRAD_REL:.3g} x the limit "
               f"(at least {SHARDED_FAULT_X} needed); replicas bitwise {agree}")
         # not a check: step 1's AdamW update is lr x the gradient's sign,
@@ -5711,15 +5751,17 @@ def run_sharded_phase(results: dict, gen) -> dict:
 
 # Each arch of the sharded serving phase: the reference's serving rules for
 # it (``dryrun.rules_for(cfg, "serve")``), its depth (None: all of it) and
-# its prompts' length. granite at full depth; deepseek-7b at 8 of 30 layers
-# (at 30 the whole script took 1002.3 s, PERF.md section 6); the MLA, SSM,
-# RG-LRU, cross-attention and codebook archs at full width, each at the
-# least depth that holds every block kind of its pattern (mamba2-780m at 4
-# layers), recurrentgemma's prompts past its window of 2048 so that the
-# ring it cuts by slots wraps over the cut.
-SERVE_SHARDED = {"deepseek-7b": ("TP_ONLY_RULES", 8, PROMPT),
+# its prompts' length. granite at full depth; deepseek-7b at 3 of 30 layers
+# (at 30 the whole script took 1002.3 s, PERF.md section 6; 8 until the
+# uneven-heads phase joined the script); the MLA, SSM, RG-LRU,
+# cross-attention and codebook archs at full width, each at the least
+# depth that holds every block kind of its pattern (minicpm3-4b at 1 layer,
+# 2 until the uneven-heads phase; mamba2-780m at 4 layers),
+# recurrentgemma's prompts past its window of 2048 so that the ring it
+# cuts by slots wraps over the cut.
+SERVE_SHARDED = {"deepseek-7b": ("TP_ONLY_RULES", 3, PROMPT),
                  GRANITE: ("SMALL_MODEL_RULES", None, PROMPT),
-                 MINICPM: ("TP_ONLY_RULES", 2, PROMPT),
+                 MINICPM: ("TP_ONLY_RULES", 1, PROMPT),
                  MAMBA: ("SMALL_MODEL_RULES", 4, PROMPT),
                  RG: ("TP_ONLY_RULES", 3, RING_PROMPT),
                  VISION: ("TP_ONLY_RULES", 5, PROMPT),
@@ -5757,12 +5799,13 @@ SERVE_SHARDED_FAULT_X = 10
 SERVE_F32_REL, SERVE_F32_STEPS, SERVE_SMALL_FAULT = 1e-4, 1, 2.0 ** -8
 
 
-def _serve_cfg(arch: str):
-    """``arch`` cut to its depth in the sharded serving phase."""
+def _serve_cfg(arch: str, spec=None):
+    """``arch`` cut to its depth in the sharded serving phase (``spec``:
+    (rules, depth, prompt length), ``SERVE_SHARDED``'s by default)."""
     from repro_torch.configs import get_arch
 
     cfg = get_arch(arch)
-    layers = SERVE_SHARDED[arch][1]
+    layers = (spec or SERVE_SHARDED[arch])[1]
     return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
 
 
@@ -5819,9 +5862,9 @@ def _f32_route():
         R.set_default_backend("cuda_fused")
 
 
-def serving_single(arch: str, path: str) -> dict:
+def serving_single(arch: str, path: str, spec=None) -> dict:
     """The single rank's prefill of ``SLOTS`` prompts (``SERVE_SHARDED``'s
-    length; a cross-attention arch's context beside them) and
+    length, or ``spec``'s; a cross-attention arch's context beside them) and
     ``SERVE_SHARDED_STEPS`` greedy decode steps on the phase's weights (the
     seed of the sharded step's phase, the cross-attention gates opened to
     ``OPEN_GATE``), saved to ``path`` for the ranks: the prompts and the
@@ -5835,8 +5878,8 @@ def serving_single(arch: str, path: str) -> dict:
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import init_params
 
-    cfg = _serve_cfg(arch)
-    prompt = SERVE_SHARDED[arch][2]
+    cfg = _serve_cfg(arch, spec)
+    prompt = (spec or SERVE_SHARDED[arch])[2]
     params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SHARDED_SEED), DEVICE)
     open_gates(params, OPEN_GATE)
     prefill = make_prefill_step(cfg, prompt + SERVE_SHARDED_STEPS)
@@ -5897,10 +5940,10 @@ def _desync_model_rank(mesh, small=None):
             return out
         return x + x if small is None else out + small * x
 
-    def wrong_gather(self, x, dim):
+    def wrong_gather(self, x, dim, sizes=None):
         if faulty:
             x = x + (1.0 if small is None else small) * x.roll(1, -1)
-        return real_gather(self, x, dim)
+        return real_gather(self, x, dim, sizes)
 
     coll._SumForward.forward = staticmethod(wrong)
     parallel.Serve.gather = wrong_gather
@@ -5912,7 +5955,8 @@ def _desync_model_rank(mesh, small=None):
     return undo
 
 
-def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str) -> dict:
+def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str, spec=None,
+                        o_rows: bool = False) -> dict:
     """One arch of the sharded serving phase on this rank: the weights drawn
     whole on the card and cut to the rank's blocks one rank at a time; the
     sharded prefill (metered: launches, c10d ops, traffic) and its second
@@ -5922,7 +5966,9 @@ def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str
     every gap against the single rank's logits; a prefill with the planted
     fault. Then the blocks upcast to f32: the prefill and
     ``SERVE_F32_STEPS`` decode steps on the f32 route against the single
-    rank's, and a prefill with the small fault."""
+    rank's, and a prefill with the small fault. With ``o_rows`` the planted
+    fault is ``plant_o_rows`` at bf16 and at f32 alike. ``spec``: (rules,
+    depth, prompt length), ``SERVE_SHARDED``'s by default."""
     import torch
     import torch.distributed as dist
 
@@ -5934,8 +5980,12 @@ def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str
     from repro_torch.reduce import inspect
 
     t_arch = time.perf_counter()
-    cfg = _serve_cfg(arch)
-    rules, _, prompt = SERVE_SHARDED[arch]
+    cfg = _serve_cfg(arch, spec)
+    rules, _, prompt = spec or SERVE_SHARDED[arch]
+
+    def plant(small):
+        return plant_o_rows(dist.get_rank()) if o_rows else _desync_model_rank(mesh, small)
+
     specs = sharded_specs(cfg, rules, mesh)
     dev = mesh.device
     for r in range(world):  # one whole model on the card at a time
@@ -6025,7 +6075,7 @@ def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str
             else:
                 excluded += 1
     res["peak_gb"] = max(peak, torch.cuda.max_memory_allocated()) / 1e9
-    undo = _desync_model_rank(mesh)
+    undo = plant(None)
     try:
         faulty, _ = prefill(params, prompts, ctx)
     finally:
@@ -6050,7 +6100,7 @@ def _serve_arch_on_rank(rank: int, world: int, mesh, arch: str, single_path: str
         for i in range(SERVE_F32_STEPS):
             lg, caches = decode(params, caches, ref["tokens"][i].to(dev), prompt + i)
             res["f32_gaps"].append(_rel_gap(lg.cpu(), ref["f32"][i + 1][rows]))
-        undo = _desync_model_rank(mesh, small=SERVE_SMALL_FAULT)
+        undo = plant(SERVE_SMALL_FAULT)
         try:
             faulty, _ = prefill(params, prompts, ctx)
         finally:
@@ -6099,7 +6149,7 @@ def run_sharded_serving_phase() -> dict:
     """Sharded serving on the card (``launch.steps.make_prefill_step`` and
     ``make_decode_step`` with ``mesh=``): four gloo ranks sharing the first
     card on (data 2, model 2) serve each arch of ``SERVE_SHARDED`` at full
-    width: deepseek-7b at 8 layers under TP_ONLY_RULES (heads cut; K6 and
+    width: deepseek-7b at 3 layers under TP_ONLY_RULES (heads cut; K6 and
     K5b in the prefill on the rank's heads), granite-moe-1b-a400m at full
     depth under SMALL_MODEL_RULES (weights whole over "model", FSDP over
     "data", EP; caches cut by heads), minicpm3-4b (MLA's heads cut, its
@@ -6125,87 +6175,20 @@ def run_sharded_serving_phase() -> dict:
     the dry run's bytes. Returns rank 0's launches by arch."""
     import tempfile
 
-    import torch
-
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import abstract_mesh
-
     t_phase = time.time()
     archs = tuple(SERVE_SHARDED)
-    mesh = abstract_mesh(SHARDED_SHAPE, SHARDED_AXES)
     out = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         paths = [(arch, os.path.join(tmp, f"{arch}.pt")) for arch in archs]
         single = {arch: serving_single(arch, path) for arch, path in paths}
         ranks = spawn_ranks("serving", SHARDED_WORLD, archs=paths, one_card=True)
+    for r, res in enumerate(ranks):
+        check(res["transport"] == "gloo" and res["device"] == "cuda:0",
+              f"sharded serving: rank {r} did not share card 0 over gloo")
     for arch in archs:
-        cfg = _serve_cfg(arch)
-        rules, _, prompt = SERVE_SHARDED[arch]
-        s_max = prompt + SERVE_SHARDED_STEPS
-        specs = sharded_specs(cfg, rules, mesh)
-        models = {"prefill": dryrun.serve_collectives(cfg, mesh, specs, "prefill", SLOTS, prompt,
-                                                      s_max=s_max),
-                  "decode": dryrun.serve_collectives(cfg, mesh, specs, "decode", SLOTS, s_max,
-                                                     greedy=False),
-                  "greedy": dryrun.serve_collectives(cfg, mesh, specs, "decode", SLOTS, s_max)}
-        need = dryrun.serve_rank_bytes(cfg, mesh, specs, "prefill", SLOTS, prompt,
-                                       s_max=s_max)["need"]
-        launches = serving_launches(cfg)
-        one = single[arch]
-        print(f"sharded serving {arch} ({rules}, {cfg.n_layers} layers, (data 2, model 2), 4 "
-              f"ranks on one card over {ranks[0]['transport']}): single rank prefill "
-              f"{one['prefill_ms']:.1f} ms, decode {one['decode_ms']:.2f} ms a token ({SLOTS} x "
-              f"{prompt} prompts)")
-        for r, res in enumerate(ranks):
-            a = res[arch]
-            print(f"sharded serving {arch} rank {r}: {a['wall_s']:.1f} s in all; prefill "
-                  f"{a['prefill_ms']:.1f} ms, decode {a['decode_ms']:.2f} ms a token (greedy "
-                  f"step); c10d bytes in: prefill "
-                  f"{a['prefill_c10d']} (dry run {sum(models['prefill'].values())}), a decode "
-                  f"step {a['greedy_c10d']} greedy / {a['decode_c10d']} with logits (dry run "
-                  f"{sum(models['greedy'].values())} / {sum(models['decode'].values())}); "
-                  f"peak {a['peak_gb']:.3f} GB (dry run {need / 1e9:.3f}); prefill gap "
-                  f"{a['prefill_gap']:.4g}, decode gaps max {max(a['step_gaps']):.4g} (limit "
-                  f"{SERVE_SHARDED_REL}); planted fault {a['fault_gap']:.4g}; at f32 gaps "
-                  f"{[float(f'{g:.4g}') for g in a['f32_gaps']]} (limit {SERVE_F32_REL}), the "
-                  f"small fault {a['f32_fault_gap']:.4g}; tokens checked "
-                  f"{a['tokens_checked']}, excluded by the margin {a['tokens_excluded']}, "
-                  f"missed {a['token_misses']}; launches prefill "
-                  f"{ {k: v for k, v in a['prefill_launches'].items() if v} }, decode step "
-                  f"{ {k: v for k, v in a['greedy_launches'].items() if v} }")
-            check(ranks[r]["transport"] == "gloo" and ranks[r]["device"] == "cuda:0",
-                  f"sharded serving: rank {r} did not share card 0 over gloo")
-            for mode, model in models.items():
-                kinds = {}
-                for (kind, _, _), b in model.items():
-                    kinds[kind] = kinds.get(kind, 0) + b
-                check(a[f"{mode}_c10d"] == sum(model.values()) and a[f"{mode}_by_kind"] == kinds,
-                      f"sharded serving {arch}: rank {r}'s {mode} collective bytes are off the "
-                      "dry run's")
-            for mode in ("prefill", "decode", "greedy"):
-                got = {k: v for k, v in a[f"{mode}_launches"].items() if v}
-                check(got == launches["prefill" if mode == "prefill" else "decode"],
-                      f"sharded serving {arch}: {mode} launches {got}, off the launch model")
-            check(a["prefill_gap"] <= SERVE_SHARDED_REL
-                  and max(a["step_gaps"]) <= SERVE_SHARDED_REL,
-                  f"sharded serving {arch}: rank {r}'s logits are off the single rank's")
-            check(a["fault_gap"] >= SERVE_SHARDED_FAULT_X * SERVE_SHARDED_REL,
-                  f"sharded serving {arch}: the planted fault reads under "
-                  f"{SERVE_SHARDED_FAULT_X} times the limit")
-            check(max(a["f32_gaps"]) <= SERVE_F32_REL,
-                  f"sharded serving {arch}: rank {r}'s f32 logits are off the single rank's")
-            check(a["f32_fault_gap"] >= SERVE_SHARDED_FAULT_X * SERVE_F32_REL,
-                  f"sharded serving {arch}: the small planted fault reads under "
-                  f"{SERVE_SHARDED_FAULT_X} times the f32 limit")
-            check(a["greedy_is_argmax"] and a["token_misses"] == 0 and a["tokens_checked"] > 0,
-                  f"sharded serving {arch}: rank {r}'s greedy tokens are off")
-            check(a["retry_bitwise"] and a["prefill_bitwise"] and a["replicas_agree"],
-                  f"sharded serving {arch}: a retry, a repeat or a replica differs")
-            check(a["peak_gb"] * 1e9 <= need,
-                  f"sharded serving {arch}: rank {r}'s peak is past the dry run's bytes")
-        out[arch] = {"single": one, "ranks": [res[arch] for res in ranks],
-                     "c10d_model": {k: sum(v.values()) for k, v in models.items()},
-                     "need": need, "layers": cfg.n_layers}
+        out[arch] = _check_serving_arch(arch, SERVE_SHARDED[arch], SHARDED_SHAPE,
+                                        [res[arch] for res in ranks], single[arch],
+                                        ranks[0]["transport"])
     print(f"sharded serving phase: {time.time() - t_phase:.1f} s")
     # rank 0's metered calls: the prefill, a decode step for its logits and
     # one for its greedy token
@@ -6213,6 +6196,191 @@ def run_sharded_serving_phase() -> dict:
                                      for m in ("prefill", "decode", "greedy"))
                               for k in out[arch]["ranks"][0]["prefill_launches"]}
                        for arch in archs}
+    return out
+
+
+def _check_serving_arch(arch: str, spec, shape, ranks: list, one: dict, transport: str) -> dict:
+    """The checks of one arch of sharded serving on its ranks' results
+    (``_serve_arch_on_rank``) against the single rank's (``one``): ``spec``
+    (rules, depth, prompt length) on a ``shape`` mesh (the docstring of
+    ``run_sharded_serving_phase``). Returns the arch's record."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+
+    mesh = abstract_mesh(shape, SHARDED_AXES)
+    cfg = _serve_cfg(arch, spec)
+    rules, _, prompt = spec
+    s_max = prompt + SERVE_SHARDED_STEPS
+    specs = sharded_specs(cfg, rules, mesh)
+    models = {"prefill": dryrun.serve_collectives(cfg, mesh, specs, "prefill", SLOTS, prompt,
+                                                  s_max=s_max),
+              "decode": dryrun.serve_collectives(cfg, mesh, specs, "decode", SLOTS, s_max,
+                                                 greedy=False),
+              "greedy": dryrun.serve_collectives(cfg, mesh, specs, "decode", SLOTS, s_max)}
+    need = dryrun.serve_rank_bytes(cfg, mesh, specs, "prefill", SLOTS, prompt,
+                                   s_max=s_max)["need"]
+    launches = serving_launches(cfg)
+    print(f"sharded serving {arch} ({rules}, {cfg.n_layers} layers, (data {shape[0]}, model "
+          f"{shape[1]}), {len(ranks)} ranks on one card over {transport}): single rank prefill "
+          f"{one['prefill_ms']:.1f} ms, decode {one['decode_ms']:.2f} ms a token ({SLOTS} x "
+          f"{prompt} prompts, {s_max} cache slots)")
+    for r, a in enumerate(ranks):
+        print(f"sharded serving {arch} rank {r}: {a['wall_s']:.1f} s in all; prefill "
+              f"{a['prefill_ms']:.1f} ms, decode {a['decode_ms']:.2f} ms a token (greedy "
+              f"step); c10d bytes in: prefill "
+              f"{a['prefill_c10d']} (dry run {sum(models['prefill'].values())}), a decode "
+              f"step {a['greedy_c10d']} greedy / {a['decode_c10d']} with logits (dry run "
+              f"{sum(models['greedy'].values())} / {sum(models['decode'].values())}); "
+              f"peak {a['peak_gb']:.3f} GB (dry run {need / 1e9:.3f}); prefill gap "
+              f"{a['prefill_gap']:.4g}, decode gaps max {max(a['step_gaps']):.4g} (limit "
+              f"{SERVE_SHARDED_REL}); planted fault {a['fault_gap']:.4g}; at f32 gaps "
+              f"{[float(f'{g:.4g}') for g in a['f32_gaps']]} (limit {SERVE_F32_REL}), the "
+              f"f32 planted fault {a['f32_fault_gap']:.4g}; tokens checked "
+              f"{a['tokens_checked']}, excluded by the margin {a['tokens_excluded']}, "
+              f"missed {a['token_misses']}; launches prefill "
+              f"{ {k: v for k, v in a['prefill_launches'].items() if v} }, decode step "
+              f"{ {k: v for k, v in a['greedy_launches'].items() if v} }")
+        for mode, model in models.items():
+            kinds = {}
+            for (kind, _, _), b in model.items():
+                kinds[kind] = kinds.get(kind, 0) + b
+            check(a[f"{mode}_c10d"] == sum(model.values()) and a[f"{mode}_by_kind"] == kinds,
+                  f"sharded serving {arch}: rank {r}'s {mode} collective bytes are off the "
+                  "dry run's")
+        for mode in ("prefill", "decode", "greedy"):
+            got = {k: v for k, v in a[f"{mode}_launches"].items() if v}
+            check(got == launches["prefill" if mode == "prefill" else "decode"],
+                  f"sharded serving {arch}: {mode} launches {got}, off the launch model")
+        check(a["prefill_gap"] <= SERVE_SHARDED_REL
+              and max(a["step_gaps"]) <= SERVE_SHARDED_REL,
+              f"sharded serving {arch}: rank {r}'s logits are off the single rank's")
+        check(a["fault_gap"] >= SERVE_SHARDED_FAULT_X * SERVE_SHARDED_REL,
+              f"sharded serving {arch}: the planted fault reads under "
+              f"{SERVE_SHARDED_FAULT_X} times the limit")
+        check(max(a["f32_gaps"]) <= SERVE_F32_REL,
+              f"sharded serving {arch}: rank {r}'s f32 logits are off the single rank's")
+        check(a["f32_fault_gap"] >= SERVE_SHARDED_FAULT_X * SERVE_F32_REL,
+              f"sharded serving {arch}: the small planted fault reads under "
+              f"{SERVE_SHARDED_FAULT_X} times the f32 limit")
+        check(a["greedy_is_argmax"] and a["token_misses"] == 0 and a["tokens_checked"] > 0,
+              f"sharded serving {arch}: rank {r}'s greedy tokens are off")
+        check(a["retry_bitwise"] and a["prefill_bitwise"] and a["replicas_agree"],
+              f"sharded serving {arch}: a retry, a repeat or a replica differs")
+        check(a["peak_gb"] * 1e9 <= need,
+              f"sharded serving {arch}: rank {r}'s peak is past the dry run's bytes")
+    return {"single": one, "ranks": ranks,
+            "c10d_model": {k: sum(v.values()) for k, v in models.items()},
+            "need": need, "layers": cfg.n_layers}
+
+
+# ------------- MLA's query heads over a model axis they do not divide -------------
+
+# minicpm3-4b at full width and UNEVEN_LAYERS layers on (data 1, model 3):
+# three gloo ranks sharing the card, one spawn for training and serving.
+# On this mesh the rules cut q_up alone (3840 columns, 1280 a rank: 13 1/3
+# heads, so it is gathered over "model"); kv_up's 5120 columns, o's 2560
+# rows, the FFN's 6400 and the 73 472-row vocabulary do not divide by 3 and
+# stay whole. The ranks run 13, 13 and 14 of the 40 heads.
+UNEVEN_SHAPE, UNEVEN_LAYERS = (1, 3), 2
+# The serving prompts: their caches hold UNEVEN_PROMPT + SERVE_SHARDED_STEPS
+# = 270 slots, which divide by 3, so the latent is cut by slots (90 a rank)
+# and each decode step gathers q_c and q_rope in blocks of 13, 13 and 14
+# heads, padded to 14. The prompt fills ranks 0 and 1 and 74 of rank 2's
+# slots; the decode writes rank 2's.
+UNEVEN_PROMPT = 254
+UNEVEN_SERVE = ("TP_ONLY_RULES", UNEVEN_LAYERS, UNEVEN_PROMPT)
+
+
+def _uneven_rank(rank: int, world: int, kw: dict) -> dict:
+    """One rank of the uneven-heads phase: the sharded training job
+    (``_sharded_job``), then sharded serving (``_serve_arch_on_rank`` with
+    ``UNEVEN_SERVE``), each with ``plant_o_rows`` as its planted fault."""
+    import gc
+
+    import torch
+
+    from repro_torch import reduce as R
+    from repro_torch.launch import mesh as mesh_lib
+
+    R.set_default_backend("cuda_fused")
+    mesh_lib.init_process_group(kw.get("device", "cuda"))
+    try:
+        train = _sharded_job(rank, world, kw["train"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = mesh_lib.make_mesh(UNEVEN_SHAPE, SHARDED_AXES)
+        serve = _serve_arch_on_rank(rank, world, mesh, MINICPM, kw["serve_path"], UNEVEN_SERVE,
+                                    o_rows=True)
+        return {"train": train, "serve": serve, "transport": mesh.backend,
+                "device": str(mesh.device), "peak_gb": max(train["peak_gb"], serve["peak_gb"])}
+    finally:
+        mesh_lib.shutdown(barrier=False)
+
+
+def run_uneven_heads_phase() -> dict:
+    """MLA's 40 query heads over a model axis of 3 (``models.parallel``'s
+    module doc): three gloo ranks sharing the first card run minicpm3-4b at
+    full width and ``UNEVEN_LAYERS`` layers on (data 1, model 3), in one
+    spawn. Training (DEFAULT_RULES, ``SHARDED_STEPS`` steps of 4 x 512) is
+    held to the single-rank step as ``run_sharded_phase`` holds its archs
+    (``_check_sharded_arch``: loss, grad norm and clip within
+    ``SHARDED_LOSS_REL`` / ``SHARDED_GRAD_REL``, step 1's update and
+    gradient of layer 0's leaves, replicas' bits, c10d bytes equal to the
+    dry run's (1, 3) cell, launches a rank equal to the launch model: K7
+    over the whole vocabulary), with ``plant_o_rows`` as its planted fault
+    (``SHARDED_FAULT_X`` times ``SHARDED_LEAF_GRAD_REL``). Serving
+    (TP_ONLY_RULES, ``SLOTS`` prompts of ``UNEVEN_PROMPT`` tokens,
+    ``SERVE_SHARDED_STEPS`` teacher-forced decode steps, the latent cut by
+    slots) is held as ``run_sharded_serving_phase`` holds its archs
+    (``_check_serving_arch``), its planted faults at bf16 and at f32
+    ``plant_o_rows``. Returns rank 0's
+    launches of the training step and of the serving calls."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.parallel import Plan
+
+    t_phase = time.time()
+    cfg = dataclasses.replace(get_arch(MINICPM), n_layers=UNEVEN_LAYERS)
+    mesh = abstract_mesh(UNEVEN_SHAPE, SHARDED_AXES)
+    plan = Plan(cfg, mesh, sharded_specs(cfg, SHARDED_RULES[MINICPM], mesh))
+    modes = plan.layout(plan.specs["layers"][0], "attn")["mla"]
+    blocks = plan._blocks(cfg.n_heads)
+    print(f"uneven heads: {MINICPM}'s {cfg.n_heads} heads over {UNEVEN_SHAPE[1]} model ranks: "
+          f"{blocks}; head leaves {modes}")
+    check(modes == {"q_up": "gather", "kv_up": "whole", "o": "whole"}
+          and [b - a for a, b in blocks] == [13, 13, 14],
+          "uneven heads: the layout is not the one this phase runs")
+    job = {"arch": MINICPM, "layers": UNEVEN_LAYERS, "shape": UNEVEN_SHAPE,
+           "rules": SHARDED_RULES[MINICPM], "fault": "o_rows"}
+    world = math.prod(UNEVEN_SHAPE)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        job["probe"] = os.path.join(tmp, "train_single.pt")
+        serve_path = os.path.join(tmp, "serve_single.pt")
+        t0 = time.time()
+        single_train = _sharded_single(MINICPM, UNEVEN_LAYERS, job["probe"])
+        single_serve = serving_single(MINICPM, serve_path, UNEVEN_SERVE)
+        print(f"uneven heads: the single rank's steps and serving {time.time() - t0:.1f} s")
+        ranks = spawn_ranks("uneven", world, train=job, serve_path=serve_path, one_card=True)
+    for r, res in enumerate(ranks):
+        check(res["transport"] == "gloo" and res["device"] == "cuda:0",
+              f"uneven heads: rank {r} did not share card 0 over gloo")
+    train = _check_sharded_arch(MINICPM, UNEVEN_LAYERS, UNEVEN_SHAPE,
+                                [r["train"] for r in ranks], single_train, planted="o_rows")
+    serve = _check_serving_arch(MINICPM, UNEVEN_SERVE, UNEVEN_SHAPE,
+                                [r["serve"] for r in ranks], single_serve,
+                                ranks[0]["transport"])
+    torch.cuda.empty_cache()
+    r0 = ranks[0]["serve"]
+    out = {"train": train, "serve": serve, "train_launches": ranks[0]["train"]["launches"],
+           "serve_launches": {k: sum(r0[f"{m}_launches"].get(k, 0)
+                                     for m in ("prefill", "decode", "greedy"))
+                              for k in r0["prefill_launches"]},
+           "ranks": ranks, "single_train": single_train, "wall_s": time.time() - t_phase}
+    print(f"uneven heads phase: {out['wall_s']:.1f} s")
     return out
 
 
@@ -6462,6 +6630,9 @@ def main() -> int:
         serving_sharded = run_sharded_serving_phase()
         mark(t_start, "sharded serving")
         torch.cuda.empty_cache()
+        uneven = run_uneven_heads_phase()
+        mark(t_start, "uneven heads")
+        torch.cuda.empty_cache()
         intern_launches, intern_prof = train_full_width("internlm2-1.8b", guarded_steps=1)
         clip_stat = profile_clip_statistic("internlm2-1.8b",
                                            results["mma_sum_parts"]["census_on_ms"])
@@ -6578,6 +6749,10 @@ def main() -> int:
             **{f"launches_sharded_serving_{arch}_{serving_sharded[arch]['layers']}_layers_rank0":
                serving_sharded["launches"][arch].get(name, 0)
                for arch in SERVE_SHARDED if arch not in ("deepseek-7b", GRANITE)},
+            f"launches_uneven_heads_{MINICPM}_{UNEVEN_LAYERS}_layers_training_rank0":
+                uneven["train_launches"].get(name, 0),
+            f"launches_uneven_heads_{MINICPM}_{UNEVEN_LAYERS}_layers_serving_rank0":
+                uneven["serve_launches"].get(name, 0),
             "launches_forward_kernel_route": nonkernel["launches"].get(name, 0),
             "launches_train_100m": examples["train_100m"][name],
             "launches_quickstart": examples["quickstart"][name],
@@ -6686,6 +6861,17 @@ def main() -> int:
               f"c10d bytes in a rank {sv['c10d_model']}; peaks "
               f"{[round(r['peak_gb'], 3) for r in sv['ranks']]} GB (dry run "
               f"{sv['need'] / 1e9:.3f})")
+    ut, us = uneven["train"], uneven["serve"]
+    print(f"uneven heads, {MINICPM} ({UNEVEN_LAYERS} layers, (data 1, model 3), 3 gloo ranks on "
+          f"one card): step walls rank 0 "
+          f"{[round(w, 1) for w in uneven['ranks'][0]['train']['wall_ms']]} ms (single rank "
+          f"{uneven['single_train']['wall_ms']:.1f} ms), c10d bytes a step "
+          f"{ut['model']['total_bytes']}, step 1's gradient gap {ut['grad_gap']:.4g} (planted "
+          f"fault {ut['fault_gap']:.4g}); serving rank 0 prefill "
+          f"{us['ranks'][0]['prefill_ms']:.1f} ms (single {us['single']['prefill_ms']:.1f}), "
+          f"decode {us['ranks'][0]['decode_ms']:.2f} ms a token (single "
+          f"{us['single']['decode_ms']:.2f}), c10d {us['c10d_model']}; phase "
+          f"{uneven['wall_s']:.1f} s")
     print(f"dry run, deepseek-7b train_4k (a model figure): (2, 2) {sharded['dryrun_2x2']}, "
           f"(16, 16) {sharded['dryrun_single']} bytes a rank")
     print(f"meter: {meter}; autotune: {tuned}")

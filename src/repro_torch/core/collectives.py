@@ -28,7 +28,8 @@ as the reference's do.
                                     all-gather for a merge that is no sum)
   gather_blocks,
   reduce_scatter_blocks          -- the blocks of a tensor cut along one dim
-                                    over mesh axes gathered whole, and the
+                                    over mesh axes gathered whole (unequal
+                                    blocks padded to the largest), and the
                                     fixed-order sum of whole tensors cut back
                                     into the rank's block (an all-gather and
                                     a rank-order fold of the rank's block:
@@ -264,11 +265,21 @@ def _block_axes(axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
-def gather_blocks(x: torch.Tensor, axes, dim: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
+def gather_blocks(x: torch.Tensor, axes, dim: int, mesh: Optional[Mesh] = None,
+                  sizes=None) -> torch.Tensor:
     """The whole tensor from the rank blocks of a dim cut over ``axes`` (a
     name or a spec entry's tuple of names, the first the major one): an
     all-gather per axis, the last axis first, the blocks concatenated along
-    ``dim`` in rank order."""
+    ``dim`` in rank order. ``sizes``: over one axis, each rank's length
+    along ``dim`` where the blocks differ (a rank's block of query heads
+    that the ranks do not divide evenly): each block travels padded with
+    zeros to the largest, and the padding is stripped in rank order."""
+    if sizes is not None and len(set(sizes)) > 1:
+        (ax,) = _block_axes(axes)
+        pad = list(x.shape)
+        pad[dim] = max(sizes) - x.shape[dim]
+        rows = _all_gather(torch.cat([x, x.new_zeros(pad)], dim), ax, mesh, kind="all-gather")
+        return torch.cat([r.narrow(dim, 0, n) for r, n in zip(rows, sizes)], dim)
     for ax in reversed(_block_axes(axes)):
         rows = _all_gather(x, ax, mesh, kind="all-gather")
         x = rows[0] if len(rows) == 1 else torch.cat(rows, dim)

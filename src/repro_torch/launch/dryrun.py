@@ -39,14 +39,19 @@ compiled or allocated: for each cell the parameters are meta tensors
                (2, 2) runs, byte for byte).
 
 Every rank's blocks have the same shapes (the rules cut a dim only where
-it divides), so the figures are those of every rank. The training cells
-run every block kind and codebook streams (``models.parallel.Plan``:
-attention, global or local, MLA, the SSM, the RG-LRU and cross-attention,
-each mixer's collectives counted as it runs them), and so do the serving
-cells (``models.parallel.Plan.serve_layout``: each kind's cache cut as
-``cache_shardings`` cuts it, its collectives and its working set by
-kind); cuts a block cannot run (MLA's 40 heads over 16 model ranks) get
-``refused`` with the layout's reason (a training cell its bytes too).
+it divides), so the figures are those of every rank (where MLA's ranks
+run unequal blocks of heads, the working set is the largest block's).
+The training cells run every block kind and codebook streams
+(``models.parallel.Plan``: attention, global or local, MLA, the SSM, the
+RG-LRU and cross-attention, each mixer's collectives counted as it runs
+them; MLA's query heads need
+not divide "model": minicpm3-4b's 40 over 16 ranks gather q_up, kv_up and
+o over "model" and run 2 or 3 heads a rank), and so do the serving cells
+(``models.parallel.Plan.serve_layout``: each kind's cache cut as
+``cache_shardings`` cuts it, its collectives and its working set by kind;
+MLA's uneven q gather at its padded size); cuts a block cannot run
+(self-attention's query heads that do not split) get ``refused`` with
+the layout's reason (a training cell its bytes too).
 
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k --mesh 2x2
   python -m repro_torch.launch.dryrun --all --mesh single
@@ -79,7 +84,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import params as P
 from repro_torch.models import rglru as REC
 from repro_torch.models import ssm as SSM
-from repro_torch.models.parallel import Plan
+from repro_torch.models.parallel import MLA_HEAD_LEAVES, Plan
 
 ART_DIR = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 KINDS = ("all-gather", "reduce-scatter", "all-reduce")
@@ -175,6 +180,14 @@ def step_collectives(cfg, tcfg, mesh, specs, tokens_shape, *, guard: bool = Fals
                     note("reduce-scatter", model, "block", whole)
                 else:
                     note("all-reduce", model, "block", whole)
+        for name, _ in MLA_HEAD_LEAVES if lay["mla"] else ():
+            w = p["mix"][name]["w"]
+            whole = w.numel() * w.element_size()
+            if lay["mla"][name] == "gather":  # gathered over "model", reduce-scattered
+                note("all-gather", model, "block", whole // mesh.axis_size(model), fw)
+                note("reduce-scatter", model, "block", whole)
+            elif lay["mla"][name] == "whole":  # sum_backward's all-reduce
+                note("all-reduce", model, "block", whole)
         if lay["attn_tp"] or lay["inner_tp"]:
             note("all-reduce", model, "block", hidden, fw)  # o / out: g
             mla = kind == "attn" and cfg.mla is not None
@@ -359,10 +372,15 @@ def _block_serve_collectives(cfg, plan, kind, lay, p, sp, mode, rows, toks, act)
     q0, q1 = lay["q_heads"]
     if kind != "xattn" and cfg.mla is not None:
         m = cfg.mla
+        for name, _ in MLA_HEAD_LEAVES if lay["mla"] else ():
+            if lay["mla"][name] == "gather":  # the head leaf gathered over "model"
+                w = p["mix"][name]["w"]
+                out.append(("all-gather", w.numel() * w.element_size() // mesh.axis_size("model")))
         if decode and lay["cache"] == "seq":
-            if (q0, q1) != (0, cfg.n_heads):  # q_c (f32) and q_rope
-                out.append(("all-gather", rows * (q1 - q0) * m.kv_lora_rank * 4))
-                out.append(("all-gather", rows * (q1 - q0) * m.qk_rope_dim * act))
+            if (q0, q1) != (0, cfg.n_heads):  # q_c (f32) and q_rope, padded to the largest block
+                big = max(lay["q_sizes"])
+                out.append(("all-gather", rows * big * m.kv_lora_rank * 4))
+                out.append(("all-gather", rows * big * m.qk_rope_dim * act))
             out.append(("all-gather", rows * cfg.n_heads * (m.kv_lora_rank + 2) * 4))  # partials
         return out
     d = cfg.d_head
@@ -415,6 +433,7 @@ def _block_work(cfg, kind, lay, mode, rows, seq, s_max, act, n_model) -> int:
     hq = q1 - q0
     if kind != "xattn" and cfg.mla is not None:
         m = cfg.mla
+        hq = max(lay["q_sizes"] or (hq,))  # the largest rank's heads, where they differ
         qk, lat = m.qk_nope_dim + m.qk_rope_dim, m.kv_lora_rank + m.qk_rope_dim
         if mode == "prefill":
             per_tok = 2 * m.q_lora_rank + 3 * lat + hq * (3 * qk + 2 * (m.qk_nope_dim
@@ -423,9 +442,13 @@ def _block_work(cfg, kind, lay, mode, rows, seq, s_max, act, n_model) -> int:
             return base + toks * per_tok * act + _score_tiles(rows, hq, seq, seq, m.v_head_dim)
         s0, s1 = lay["slots"]
         slots = s1 - s0
-        # the normed latents (and their f32 copy), the scores, the partials
+        # the normed latents (and their f32 copy), the scores, the partials,
+        # and q_c and q_rope gathered at the largest block
+        gathered = (n_model + 1) * hq * (m.kv_lora_rank * 4 + m.qk_rope_dim * act) \
+            if lay["q_sizes"] and lay["cache"] == "seq" else 0
         return base + rows * (slots * m.kv_lora_rank * (act + 4) + 3 * cfg.n_heads * slots * 4
-                              + (n_model + 2) * cfg.n_heads * (m.kv_lora_rank + 2) * 4)
+                              + (n_model + 2) * cfg.n_heads * (m.kv_lora_rank + 2) * 4
+                              + gathered)
     c0, c1 = lay["cache_heads"]
     heads = 2 * hq + cfg.n_heads * lay["gather_heads"] + 2 * (c1 - c0)
     work = base + toks * heads * cfg.d_head * act
@@ -446,7 +469,8 @@ def serve_rank_bytes(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
     whole padded vocabulary, each codebook stream's; the greedy decode's
     columns of the rank, never gathered), and the working set beside them
     (a model figure): the largest block's weights gathered (FSDP over the
-    batch axes, k and v over "model"), the head's f32 copy of the rank's
+    batch axes, k and v and MLA's head leaves cut inside a head over
+    "model"), the head's f32 copy of the rank's
     columns, one block's activations of the rank's rows (``_block_work``:
     the residual stream and its norm, each mixer's own -- attention's
     heads, MLA's expanded heads and score tiles or its latent partials,
@@ -482,6 +506,10 @@ def serve_rank_bytes(cfg, mesh, specs, mode: str, batch: int, seq: int, *,
         for name in ("k", "v") if "k" in p["mix"] else ():
             w = p["mix"][name]["w"]
             if plan._model_cut(sp["mix"][name]["w"], 1) and lay["kv"] != "local":
+                g += w.numel() * w.element_size() // n_model * (n_model - 1)
+        for name, _ in MLA_HEAD_LEAVES if lay["mla"] else ():
+            w = p["mix"][name]["w"]
+            if lay["mla"][name] == "gather":
                 g += w.numel() * w.element_size() // n_model * (n_model - 1)
         gathered = max(gathered, g)
         if "ffn" not in p:

@@ -227,13 +227,16 @@ def sharded_step_peak_bytes(cfg, tcfg, mesh, specs, *, guard: bool = False) -> i
         their gradients (an SSM block under tensor parallelism with its
         xbc and conv_w gathered over "model", their gradients gathered
         from every model rank for the reduce-scatter, and the rank's cut
-        of them; a codebook table, gathered for the lookup, counts as a
-        block), and the largest such leaf's gradient gathered from every
-        batch rank for the reduce-scatter;
+        of them; so an MLA block's head leaves gathered over "model" or
+        held whole, whose query heads the model ranks do not divide; a
+        codebook table, gathered for the lookup, counts as a block), and
+        the largest such leaf's gradient gathered from every batch rank
+        for the reduce-scatter;
       the step-end combine of a leaf held whole along a batch axis: its
         rank rows and the fold of one ``steps.COMBINE_CHUNK`` piece, f32."""
     from repro_torch.launch.sharding import entry_axes, local_shape, tree_leaves
     from repro_torch.launch.steps import COMBINE_CHUNK
+    from repro_torch.models.parallel import mla_leaf_modes
 
     shapes = shard_shapes(cfg, mesh, specs)
     base = train_step_peak_bytes(cfg, tcfg, guard=guard, shapes=shapes,
@@ -253,14 +256,16 @@ def sharded_step_peak_bytes(cfg, tcfg, mesh, specs, *, guard: bool = False) -> i
                 for t, sp in zip(R.tree_leaves(tree), tree_leaves(spec_tree))
                 if fsdp_degree(sp) > 1]
 
-    def model_gathered(kind, p, sp) -> int:  # an SSM's xbc and conv_w over "model"
-        xbc = sp["mix"]["xbc"]["w"] if kind == "ssm" else ()
-        if len(xbc) < 2 or "model" not in entry_axes(xbc[1]):
-            return 0
-        n_model = mesh.axis_size("model")
-        whole = sum(w.numel() * w.element_size() for w in (p["mix"]["xbc"]["w"],
-                                                          p["mix"]["conv_w"]))
-        return whole * (n_model + 3)
+    def model_gathered(kind, p, sp) -> int:  # an SSM's xbc and conv_w, MLA's head leaves
+        if kind not in ("ssm", "xattn") and cfg.mla is not None:
+            modes = mla_leaf_modes(cfg, mesh, sp["mix"]) or {}
+            leaves = [p["mix"][name]["w"] for name, mode in modes.items() if mode != "local"]
+        else:
+            xbc = sp["mix"]["xbc"]["w"] if kind == "ssm" else ()
+            cut = len(xbc) > 1 and "model" in entry_axes(xbc[1])
+            leaves = [p["mix"]["xbc"]["w"], p["mix"]["conv_w"]] if cut else []
+        whole = sum(w.numel() * w.element_size() for w in leaves)
+        return whole * (mesh.axis_size("model") + 3) if whole else 0
 
     block = max([sum(gathered(p, sp)) + model_gathered(kind, p, sp)
                  for kind, p, sp in zip(cfg.pattern_layers, params["layers"], specs["layers"])]

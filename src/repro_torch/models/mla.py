@@ -73,11 +73,14 @@ def _expand(p, x, positions, cfg, tp=None):
     (B, S, H, v_head) with RoPE applied, and the raw kv latent (B, S,
     kv_lora + rope) before its norm. Both latent norms' statistics are one
     ``rmsnorm_apply_many`` pass. ``tp`` (``models.parallel.TP``): q_up and
-    kv_up hold a rank's heads (H of them: their columns are head-major),
-    and the two normed latents and the shared RoPE key, which every
-    rank's heads read, go through ``tp.enter`` (Megatron's f)."""
+    kv_up hold a rank's heads (H of them, read from q_up's columns, which
+    are head-major; H may be 0), and the two normed latents and the shared
+    RoPE key, which every rank's heads read, go through ``tp.enter``
+    (Megatron's f)."""
     m = cfg.mla
     b, s, _ = x.shape
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    h = p["q_up"]["w"].shape[1] // qk
     cq = P.dense_apply(p["q_down"], x)
     ckv_full = P.dense_apply(p["kv_down"], x)
     ckv_raw, k_rope = ckv_full[..., :m.kv_lora_rank], ckv_full[..., m.kv_lora_rank:]
@@ -86,8 +89,7 @@ def _expand(p, x, positions, cfg, tp=None):
     k_rope = L.rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # one shared head
     if tp is not None:
         cq, ckv, k_rope = tp.enter(cq), tp.enter(ckv), tp.enter(k_rope)
-    q = P.dense_apply(p["q_up"], cq).reshape(b, s, -1, m.qk_nope_dim + m.qk_rope_dim)
-    h = q.shape[2]
+    q = P.dense_apply(p["q_up"], cq).reshape(b, s, h, qk)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = L.rope(q_rope, positions, cfg.rope_theta)
     kv = P.dense_apply(p["kv_up"], ckv).reshape(b, s, h, m.qk_nope_dim + m.v_head_dim)
@@ -100,13 +102,18 @@ def mla_train(p, x, positions, cfg, tp=None):
     """(B, S, d) -> (B, S, d): causal MLA, train/prefill path, on the
     chunked non-kernel attention (the reference's route). ``tp``: the
     rank's heads (``_expand``), o row-parallel and its partial sums
-    through ``tp.exit`` (Megatron's g)."""
+    through ``tp.exit`` (Megatron's g). A rank with no heads gives zeros
+    to g, its empty q, k and v still in the graph, so that its f's
+    all-reduces run in the backward as every other rank's do."""
     m = cfg.mla
     q, k, v, _ = _expand(p, x, positions, cfg, tp)
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
-    out = A.flash_attention_xla(q, k, v, causal=True, mma=cfg.mma_reductions, sm_scale=scale)
-    b, s = out.shape[0], out.shape[1]
-    out = P.dense_apply(p["o"], out.reshape(b, s, -1))
+    b, s, h = q.shape[:3]
+    if h:
+        scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+        out = A.flash_attention_xla(q, k, v, causal=True, mma=cfg.mma_reductions, sm_scale=scale)
+    else:
+        out = torch.cat([q, k, v], -1)
+    out = P.dense_apply(p["o"], out.reshape(b, s, h * m.v_head_dim))
     return out if tp is None else tp.exit(out)
 
 
@@ -159,7 +166,8 @@ def mla_decode(p, x_t, cache: dict, pos: int, cfg, tp=None, sv=None):
     Serve``): the rank's heads and its block of the latent; only the rank
     whose block holds slot ``pos`` writes it (``slot_pos`` is whole and
     written on every rank). A latent cut by slots decodes split-KV: q_c
-    and q_rope gathered over "model" where the heads are cut, every
+    and q_rope gathered over "model" where the heads are cut (blocks of
+    unequal sizes, ``sv.q_sizes``, padded to the largest), every
     head's partial softmax over the rank's slots (the kv-latent norm of
     its own slots), the partials merged in rank order
     (``attention.merge_partials``), then the rank's heads through W_uv.
@@ -173,8 +181,9 @@ def mla_decode(p, x_t, cache: dict, pos: int, cfg, tp=None, sv=None):
     posb = torch.full((b, 1), pos, dtype=torch.int64, device=x_t.device)
     cq = P.dense_apply(p["q_down"], x_t)
     cq = L.norm_apply("rmsnorm", p["q_norm"], cq, eps=cfg.norm_eps, mma=cfg.mma_reductions)
-    q = P.dense_apply(p["q_up"], cq).reshape(b, 1, -1, m.qk_nope_dim + m.qk_rope_dim)
-    h = q.shape[2]
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    h = p["q_up"]["w"].shape[1] // qk
+    q = P.dense_apply(p["q_up"], cq).reshape(b, 1, h, qk)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = L.rope(q_rope, posb, cfg.rope_theta)[:, 0]                 # (B, H, dr)
     lo = 0 if sv is None else sv.slots[0]
@@ -190,7 +199,8 @@ def mla_decode(p, x_t, cache: dict, pos: int, cfg, tp=None, sv=None):
     slot_pos = cache["slot_pos"][lo:lo + ckv.shape[1]]
     split = sv is not None and sv.cache == "seq"
     if split and sv.q_heads != (0, cfg.n_heads):
-        q_c, q_rope = sv.gather(q_c, 1), sv.gather(q_rope, 1)  # every head reads every slot
+        # every head reads every slot
+        q_c, q_rope = sv.gather(q_c, 1, sv.q_sizes), sv.gather(q_rope, 1, sv.q_sizes)
     c_all = L.norm_apply("rmsnorm", p["kv_norm"], ckv[..., :m.kv_lora_rank],
                          eps=cfg.norm_eps, mma=cfg.mma_reductions)      # (B, S, R)
     k_rope_all = ckv[..., m.kv_lora_rank:]                              # (B, S, dr)
@@ -211,5 +221,5 @@ def mla_decode(p, x_t, cache: dict, pos: int, cfg, tp=None, sv=None):
         o_lat = torch.einsum("bhs,bsr->bhr", A.bf16_round(p_attn), c_b)  # (B, H, R)
     with L.full_f32_matmul():
         out_h = torch.einsum("bhr,rhd->bhd", o_lat, w_uv.to(torch.float32))
-    out = P.dense_apply(p["o"], out_h.reshape(b, 1, -1).to(x_t.dtype))
+    out = P.dense_apply(p["o"], out_h.reshape(b, 1, h * m.v_head_dim).to(x_t.dtype))
     return out if tp is None else tp.exit(out), cache

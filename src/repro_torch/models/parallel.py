@@ -30,13 +30,21 @@ reference's rules (``launch/sharding.py`` of the JAX package):
 
 The other mixers, under the same rules:
 
-  MLA    "heads" over "model": q_up's and kv_up's columns and o's rows are
-         the rank's heads (the columns are head-major, so a block of them
-         is whole heads); q_down, kv_down and the two latent norms stay
-         whole over "model". Megatron's f goes on the normed latents and
-         on the shared RoPE key, which every rank's heads read, so the
-         whole leaves before them get the same gradient on every model
-         rank; o's output goes through g.
+  MLA    "heads" over "model": the rank runs its block of the query
+         heads, ``Plan._block(n_heads)``, which need not be equal (40
+         heads over 16 ranks: 2, 3, 2, 3, ...; 4 over 8: some ranks none,
+         which give zeros to g). q_up's and kv_up's columns and o's rows
+         carry the heads (head-major), and the rules cut each where its
+         flattened dim divides "model", so each is "local" (cut into
+         whole heads: the rank's block is its heads), "gather" (cut inside
+         a head: gathered over "model" with ``gather_scatter``, whose
+         backward reduce-scatters the gradient, then cut to the rank's
+         heads) or "whole" (through ``sum_backward``, then cut to them):
+         ``Plan.layout``'s ``mla`` key. q_down, kv_down and the two latent
+         norms stay whole over "model". Megatron's f goes on the normed
+         latents and on the shared RoPE key, which every rank's heads
+         read, so the whole leaves before them get the same gradient on
+         every model rank; o's output goes through g.
   RG-LRU "inner" over "model": in_x's and in_gate's columns, conv_w's
          columns, ``lam``, the gate blocks (dim 0 of gate_a/gate_x) and
          out's rows are the rank's channels, which must hold whole gate
@@ -114,8 +122,12 @@ leaves; a ``Serve`` in the block's ``Hooks``):
          writes the rank's slots of the latent (``kv_down`` is whole, so
          every rank computes it) and the decode is a split-KV decode in
          latent space (``mla.mla_decode``: q_c and q_rope gathered, each
-         head's partial over the rank's slots with ``kv_norm`` of its own
-         slots, merged, then the rank's heads through W_uv and o).
+         rank's block of heads padded to the largest and the padding
+         stripped in rank order where the blocks differ, each head's
+         partial over the rank's slots with ``kv_norm`` of its own slots,
+         merged, then the rank's heads through W_uv and o). MLA's head
+         leaves are cut to the rank's heads as in training
+         (``Plan._mla_heads``, forward only).
   channels  the SSM's state cut by heads and its conv window by channels
          of [x, B, C], a block that need not end on a head: the rank's xbc
          and conv_w columns are its conv block (under TP its own blocks;
@@ -142,7 +154,9 @@ merge a stream. The MoE runs EP without the load-balance statistics
 with the reason: heads that do not split, query heads that are not whole
 groups of a kv head's, RG-LRU channels that are not whole gate blocks, an
 SSM rank's channels that are not whole heads (or more than one group of
-B and C with the state cut by heads).
+B and C with the state cut by heads). Self- and cross-attention refuse
+query heads that do not split over "model": K6's GQA needs whole groups of
+a kv head's query heads on a rank, and no config reaches that case.
 """
 
 from __future__ import annotations
@@ -158,6 +172,24 @@ from repro_torch.launch.sharding import entry_axes, spec_axes, tree_map
 from repro_torch.models import params as P
 from repro_torch.models.rglru import N_GATE_BLOCKS, _width
 from repro_torch.models.ssm import _dims as _ssm_dims
+
+# MLA's leaves that carry the heads, and the dim that carries them.
+MLA_HEAD_LEAVES = (("q_up", 1), ("kv_up", 1), ("o", 0))
+
+
+def mla_leaf_modes(cfg, mesh, ms: dict):
+    """How an MLA block's head leaves (specs ``ms``) reach the rank's
+    heads (the module doc): None where none is cut over "model" (every
+    rank runs every head), else each leaf's "local", "gather" or
+    "whole"."""
+    if "model" not in mesh.axis_names or mesh.axis_size("model") == 1:
+        return None
+    cut = {name: len(ms[name]["w"]) > dim and "model" in entry_axes(ms[name]["w"][dim])
+           for name, dim in MLA_HEAD_LEAVES}
+    if not any(cut.values()):
+        return None
+    even = cfg.n_heads % mesh.axis_size("model") == 0
+    return {name: "whole" if not c else "local" if even else "gather" for name, c in cut.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,7 +265,9 @@ class Serve:
     ``channels``: the channels its conv cache holds (the SSM's [x, B, C],
     the RG-LRU's width, whose ``h`` is cut alike); ``gather_heads``: its
     outputs (attention's heads, the SSM's y, the RG-LRU's products) are
-    gathered over ``axis`` before the whole o or out."""
+    gathered over ``axis`` before the whole o or out; ``q_sizes``: every
+    model rank's count of query heads, in rank order, where MLA's decode
+    gathers them (the blocks may differ)."""
 
     mesh: object
     axis: object
@@ -243,10 +277,12 @@ class Serve:
     slots: tuple = None
     channels: tuple = None
     gather_heads: bool = False
+    q_sizes: tuple = None
 
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The model ranks' blocks of ``x`` along ``dim``, in rank order."""
-        return C.gather_blocks(x, self.axis, dim, self.mesh) if self.axis else x
+    def gather(self, x: torch.Tensor, dim: int, sizes=None) -> torch.Tensor:
+        """The model ranks' blocks of ``x`` along ``dim``, in rank order;
+        ``sizes``: each rank's length along ``dim`` where they differ."""
+        return C.gather_blocks(x, self.axis, dim, self.mesh, sizes) if self.axis else x
 
     def rows(self, x: torch.Tensor) -> list:
         """Every model rank's ``x``, in rank order."""
@@ -305,8 +341,9 @@ class Plan:
         return self.model is not None and len(spec) > dim and self.model in entry_axes(spec[dim])
 
     def _heads_split(self) -> int:
-        """The query heads a model rank holds; refuses where they do not
-        split."""
+        """The query heads a model rank holds under self- or
+        cross-attention's tensor parallelism; refuses where they do not
+        split (the module doc)."""
         n_model = self.mesh.axis_size(self.model)
         if self.cfg.n_heads % n_model:
             raise NotImplementedError(f"{self.cfg.n_heads} query heads do not split over "
@@ -366,25 +403,20 @@ class Plan:
         ``kv`` ("local": the rank's block is its kv heads; "gather": k/v
         gathered over "model", the rank's heads cut out; "whole": k/v held
         whole, the rank's heads cut out; None without TP or without k/v),
-        the kv head range, ``ffn_tp``, and ``ep`` ("model": experts split
-        over it; "batch": the load-balance sums over the batch axes only;
-        None)."""
+        the kv head range, ``mla`` (MLA's head leaves: ``mla_leaf_modes``,
+        None where every rank runs every head), ``ffn_tp``, and ``ep``
+        ("model": experts split over it; "batch": the load-balance sums
+        over the batch axes only; None)."""
         cfg, ms = self.cfg, specs["mix"]
-        out = {"attn_tp": False, "inner_tp": False, "kv": None, "kv_heads": None,
+        out = {"attn_tp": False, "inner_tp": False, "kv": None, "kv_heads": None, "mla": None,
                "ffn_tp": False, "ep": None}
         if kind == "ssm":
             out["inner_tp"] = self._ssm_layout(ms)
         elif kind == "rec":
             out["inner_tp"] = self._rec_layout(ms)
         elif kind != "xattn" and cfg.mla is not None:
-            cuts = {self._model_cut(ms["q_up"]["w"], 1), self._model_cut(ms["kv_up"]["w"], 1),
-                    self._model_cut(ms["o"]["w"], 0)}
-            if len(cuts) > 1:
-                raise NotImplementedError("MLA's q_up, kv_up and o must be cut over 'model' "
-                                          "alike")
-            out["attn_tp"] = cuts.pop()
-            if out["attn_tp"]:
-                self._heads_split()
+            out["mla"] = mla_leaf_modes(cfg, self.mesh, ms)
+            out["attn_tp"] = out["mla"] is not None
         else:
             out.update(self._attn_layout(ms))
         return self._ffn_layout(specs, out)
@@ -443,6 +475,8 @@ class Plan:
                 mix[name] = {"w": w[:, lo * cfg.d_head:hi * cfg.d_head]}
         if kind == "ssm" and lay["inner_tp"]:
             mix = self._ssm_heads(mix)
+        if lay["mla"] is not None:
+            mix = self._mla_heads(mix, lay["mla"])
         p = dict(p, mix=mix)
         ep = None
         if lay["ep"] == "model":
@@ -476,6 +510,31 @@ class Plan:
         return dict(mix, xbc={"w": x_b_c(mix["xbc"]["w"])}, conv_w=x_b_c(mix["conv_w"]),
                     dt={"w": heads(mix["dt"]["w"])}, dt_bias=heads(mix["dt_bias"]),
                     A_log=heads(mix["A_log"]), D=heads(mix["D"]))
+
+    def _mla_heads(self, mix: dict, modes: dict) -> dict:
+        """An MLA block's head leaves cut to the rank's query heads
+        (``modes``: ``mla_leaf_modes``; the module doc). Serving runs the
+        same ops under ``no_grad``: the gathers forward only."""
+        m = self.cfg.mla
+        heads = self._block(self.cfg.n_heads, True)
+        widths = {"q_up": m.qk_nope_dim + m.qk_rope_dim, "kv_up": m.qk_nope_dim + m.v_head_dim,
+                  "o": m.v_head_dim}  # one head's columns (rows of o)
+        out = dict(mix)
+        for name, dim in MLA_HEAD_LEAVES:
+            if modes[name] != "local":
+                out[name] = {"w": self._mla_leaf(mix[name]["w"], dim, modes[name], heads,
+                                                 widths[name])}
+        return out
+
+    def _mla_leaf(self, w: torch.Tensor, dim: int, mode: str, heads: tuple,
+                  width: int) -> torch.Tensor:
+        """One head leaf ("gather" or "whole") as the rank uses it: the
+        heads ``heads`` of ``width`` along ``dim``."""
+        if mode == "gather":
+            w = C.gather_scatter(w, self.model, dim, self.mesh)
+        else:  # each rank uses its heads' part: the gradients add up
+            w = C.sum_backward(w, self.model, self.mesh)
+        return w.narrow(dim, heads[0] * width, (heads[1] - heads[0]) * width)
 
     # ------------------------------- vocabulary -------------------------------
 
@@ -546,7 +605,8 @@ class Plan:
         cfg = self.cfg
         kind = cfg.pattern_layers[i]
         lay = dict(self.layout(self.specs["layers"][i], kind), cache="whole", q_heads=None,
-                   cache_heads=None, slots=None, channels=None, gather_heads=False)
+                   cache_heads=None, slots=None, channels=None, gather_heads=False,
+                   q_sizes=None)
         cs, meta = self.cache_specs["layers"][i], self.cache_meta["layers"][i]
         if kind == "ssm":
             return self._serve_ssm(lay, cs)
@@ -556,6 +616,8 @@ class Plan:
             cut = self._model_cut(cs["ckv"], 1)
             return dict(lay, cache="seq" if cut else "whole",
                         q_heads=self._block(cfg.n_heads, lay["attn_tp"]),
+                        q_sizes=tuple(b - a for a, b in self._blocks(cfg.n_heads))
+                        if lay["attn_tp"] else None,
                         slots=self._block(meta["ckv"].shape[1], cut))
         return self._serve_attn(lay, cs, meta["k"].shape[1])
 
@@ -564,8 +626,14 @@ class Plan:
         it."""
         if not cut:
             return (0, n)
-        n_model, m = self.mesh.axis_size(self.model), self.mesh.axis_index(self.model)
-        return (m * n // n_model, (m + 1) * n // n_model)
+        return self._blocks(n)[self.mesh.axis_index(self.model)]
+
+    def _blocks(self, n: int) -> list:
+        """Every model rank's block of ``n``, in rank order: from m n / P
+        to (m + 1) n / P, rounded down (unequal where P does not divide
+        n)."""
+        n_model = self.mesh.axis_size(self.model)
+        return [(m * n // n_model, (m + 1) * n // n_model) for m in range(n_model)]
 
     def _serve_attn(self, lay: dict, cs: dict, n_slots: int) -> dict:
         """Self- or cross-attention's serving layout: its k/v cache cut by
@@ -651,12 +719,14 @@ class Plan:
             mix = self._serve_rec_leaves(mix, lay)
         elif kind == "xattn" or cfg.mla is None:
             mix = self._serve_attn_leaves(mix, lay, specs["mix"])
+        elif lay["mla"] is not None:
+            mix = self._mla_heads(mix, lay["mla"])
         ep = None
         if lay["ep"] == "model":
             n = cfg.moe.n_experts // mesh.axis_size(self.model)
             ep = EP(mesh, self.tp, mesh.axis_index(self.model) * n, n, (), 1)
         serve = Serve(mesh, self.model, lay["cache"], lay["q_heads"], lay["cache_heads"],
-                      lay["slots"], lay["channels"], lay["gather_heads"])
+                      lay["slots"], lay["channels"], lay["gather_heads"], lay["q_sizes"])
         return dict(p, mix=mix), Hooks(attn=self.tp if lay["attn_tp"] or lay["inner_tp"] else None,
                                        ffn=self.tp if lay["ffn_tp"] else None, ep=ep, serve=serve)
 

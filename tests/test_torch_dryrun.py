@@ -11,8 +11,12 @@ SSM's heads: xbc and conv_w gathered over "model", the gated norm's
 statistic summed both ways, dt and its f32 leaves through f), and under
 SMALL_MODEL_RULES of tiny musicgen-medium (the codebook table gathered
 over "data", the stacked streams' lookup sum, the K streams' loss
-statistics; tokens (rows, seq + 1, 4) below its vocabulary of 64), with
-two microbatches, and notes every collective
+statistics; tokens (rows, seq + 1, 4) below its vocabulary of 64), and of
+tiny minicpm3-4b at 3 heads under DEFAULT_RULES (MLA's heads not dividing
+"model": q_up, kv_up and o gathered over it, 1 and 2 heads a rank); a
+second spawn of three ranks on (1, 3) runs tiny minicpm3-4b's 4 heads
+(q_up gathered, kv_up and o whole through ``sum_backward``, 1, 1 and 2
+heads a rank). Each with two microbatches, noting every collective
 (``core.collectives.traffic``) and every c10d op (``reduce.inspect``'s
 meter). On the meta device, with nothing allocated, the dry run's
 
@@ -24,9 +28,9 @@ meter). On the meta device, with nothing allocated, the dry run's
 
 ``--all --mesh single`` runs on the CPU without allocating (a dispatch
 mode refuses any tensor off the meta device past a few elements), every
-prefill and decode cell ``ok`` but minicpm3-4b's, which ``Plan`` refuses
-with its layout reason (40 query heads over 16 model ranks), and
-deepseek-7b train_4k reports its per-rank bytes on (2, 2) and (16, 16).
+cell that runs its shape ``ok``, minicpm3-4b's too (its 40 query heads
+over 16 model ranks, 2 or 3 a rank), and deepseek-7b train_4k reports its
+per-rank bytes on (2, 2) and (16, 16).
 On (2, 2) the train, prefill and decode cells of minicpm3-4b,
 recurrentgemma-9b, llama-3.2-vision-11b, mamba2-780m and musicgen-medium
 are ``ok``.
@@ -64,23 +68,27 @@ from repro_torch.models.model import init_params, param_axes
 import torch_mesh_workers as W
 import torch_serving_cases as SC
 
-CASES = {"deepseek": ("deepseek-7b", "DEFAULT_RULES", True),
-         "granite": ("granite-moe-1b-a400m", "SMALL_MODEL_RULES", False),
-         "minicpm3": ("minicpm3-4b", "DEFAULT_RULES", False),
-         "recurrentgemma": ("recurrentgemma-9b", "DEFAULT_RULES", False),
-         "vision": ("llama-3.2-vision-11b", "DEFAULT_RULES", False),
-         "mamba2": ("mamba2-780m", "DEFAULT_RULES", False),
-         "musicgen": ("musicgen-medium", "SMALL_MODEL_RULES", False)}
+# name -> (arch, rules, guarded, config overrides, mesh)
+CASES = {"deepseek": ("deepseek-7b", "DEFAULT_RULES", True, {}, (2, 2)),
+         "granite": ("granite-moe-1b-a400m", "SMALL_MODEL_RULES", False, {}, (2, 2)),
+         "minicpm3": ("minicpm3-4b", "DEFAULT_RULES", False, {}, (2, 2)),
+         "recurrentgemma": ("recurrentgemma-9b", "DEFAULT_RULES", False, {}, (2, 2)),
+         "vision": ("llama-3.2-vision-11b", "DEFAULT_RULES", False, {}, (2, 2)),
+         "mamba2": ("mamba2-780m", "DEFAULT_RULES", False, {}, (2, 2)),
+         "musicgen": ("musicgen-medium", "SMALL_MODEL_RULES", False, {}, (2, 2)),
+         "minicpm3_heads3": ("minicpm3-4b", "DEFAULT_RULES", False,
+                             {"n_heads": 3, "n_kv_heads": 3}, (2, 2)),
+         "minicpm3_1x3": ("minicpm3-4b", "DEFAULT_RULES", False, {}, (1, 3))}
 MICRO, ROWS, SEQ = 2, 8, 32
 
 
-def _case(arch, rules, guard):
-    cfg = dataclasses.replace(ref_arch(arch, tiny=True), dtype="float32")
+def _case(arch, rules, guard, over, _):
+    cfg = dataclasses.replace(ref_arch(arch, tiny=True), dtype="float32", **over)
     params = jax.tree.map(np.asarray, ref_init(jax.random.PRNGKey(5), cfg)[0])
     rng = np.random.default_rng(3)
     shape = (ROWS, SEQ + 1) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
     tokens = [rng.integers(0, min(256, cfg.vocab_size), shape).astype(np.int64)]
-    case = dict(arch=arch, dtype="float32", kernels=False, rules=rules, micro=MICRO,
+    case = dict(arch=arch, dtype="float32", kernels=False, rules=rules, micro=MICRO, cfg=over,
                 params=params, tokens=tokens, runs=1, meter=True, guard=guard)
     if guard:
         case["scales"] = [np.ones(4, np.float32)]
@@ -93,16 +101,20 @@ def _case(arch, rules, guard):
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    cases = {name: _case(*spec) for name, spec in CASES.items()}
-    out = W.run_mesh("sharded_cases", (2, 2), ("data", "model"),
-                     tmp_path_factory.mktemp("dryrun"), cases)
-    return {name: [r[name] for r in out] for name in cases}
+    """Every case's ranks: one spawn a mesh."""
+    out = {}
+    for shape in sorted({spec[-1] for spec in CASES.values()}):
+        cases = {name: _case(*spec) for name, spec in CASES.items() if spec[-1] == shape}
+        got = W.run_mesh("sharded_cases", shape, ("data", "model"),
+                         tmp_path_factory.mktemp("dryrun"), cases)
+        out.update({name: [r[name] for r in got] for name in cases})
+    return out
 
 
 def _model(name):
-    arch, rules, guard = CASES[name]
-    cfg = W.sharded_cfg(arch, "float32", False)
-    mesh = abstract_mesh((2, 2), ("data", "model"))
+    arch, rules, guard, over, shape = CASES[name]
+    cfg = dataclasses.replace(W.sharded_cfg(arch, "float32", False), **over)
+    mesh = abstract_mesh(shape, ("data", "model"))
     meta = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
     specs = SH.param_shardings(param_axes(cfg), mesh, getattr(SH, rules), meta)
     tcfg = TrainConfig(microbatches=MICRO)
@@ -164,8 +176,8 @@ def test_all_cells_on_the_production_mesh_allocate_nothing(tmp_path, capsys):
     assert len(recs) == 40
     ok = {r["arch"] for r in recs if r["status"] == "ok"}
     served = {"olmo-1b", "internlm2-1.8b", "deepseek-7b", "granite-moe-1b-a400m", "dbrx-132b",
-              "recurrentgemma-9b", "llama-3.2-vision-11b", "mamba2-780m", "musicgen-medium"}
-    # minicpm3-4b's 40 heads do not split over 16 model ranks
+              "minicpm3-4b", "recurrentgemma-9b", "llama-3.2-vision-11b", "mamba2-780m",
+              "musicgen-medium"}
     assert ok == served
     for r in recs:
         if r["arch"] in ("mamba2-780m", "musicgen-medium") and r["mode"] == "train":
@@ -173,9 +185,13 @@ def test_all_cells_on_the_production_mesh_allocate_nothing(tmp_path, capsys):
     serving = [r for r in recs if r["mode"] != "train" and r["status"] != "skipped"]
     assert all(r["status"] in ("ok", "refused") for r in recs if r["status"] != "skipped")
     assert {r["arch"] for r in serving if r["status"] == "ok"} == served
-    for r in recs:
-        if r["arch"] == "minicpm3-4b" and r["status"] != "skipped":
-            assert r["status"] == "refused" and "40 query heads do not split" in r["reason"]
+    # minicpm3-4b's 40 heads over 16 model ranks run, 2 or 3 a rank, with
+    # its fit verdicts
+    mla = [r for r in recs if r["arch"] == "minicpm3-4b" and r["status"] != "skipped"]
+    assert sorted(r["mode"] for r in mla) == ["decode", "prefill", "train"]
+    for r in mla:
+        assert r["status"] == "ok" and r["fits_80gb_card_per_rank"], r["shape"]
+        assert r["collectives"]["total_bytes"] > 0
     cells = {(r["arch"], r["shape"]): r for r in serving}
     for arch in ("deepseek-7b", "internlm2-1.8b", "dbrx-132b"):
         assert cells[(arch, "decode_32k")]["status"] == "ok"

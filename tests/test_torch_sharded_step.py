@@ -411,35 +411,81 @@ def test_guarded_sharded_step_skips_in_lockstep(ranks_2x2, f32_cases):
     assert _worst_param(ranks[0]["whole"], params) <= F32_REL
 
 
-def _plan(cfg, shape, rules="DEFAULT_RULES"):
+def _plan(cfg, shape, rules="DEFAULT_RULES", rank=0):
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.models.model import init_params, param_axes
     from repro_torch.models.parallel import Plan
 
-    mesh = abstract_mesh(shape, ("data", "model"))
+    mesh = dataclasses.replace(abstract_mesh(shape, ("data", "model")), rank=rank)
     meta = init_params(cfg, torch.Generator().manual_seed(0), torch.device("meta"))
     return Plan(cfg, mesh, SH.param_shardings(param_axes(cfg), mesh, getattr(SH, rules), meta))
 
 
-@pytest.mark.parametrize("what", ["gate_blocks", "mla_heads", "ssm_heads"])
+@pytest.mark.parametrize("what", ["gate_blocks", "ssm_heads"])
 def test_plan_refuses_the_cuts_a_mixer_cannot_run(what):
     """An RG-LRU whose rank's channels are no whole gate blocks (64
     channels over 32 model ranks: 2 a rank, gate blocks of 4, which the
-    rules leave whole), MLA's 4 heads over 8 model ranks (its q_up, kv_up
-    and o cut, inside a head), and an SSM whose rank's channels are no
-    whole heads (tiny mamba2's 128 over 16 model ranks: 8 a rank, heads of
+    rules leave whole), and an SSM whose rank's channels are no whole
+    heads (tiny mamba2's 128 over 16 model ranks: 8 a rank, heads of
     16)."""
     from repro_torch.configs import get_arch
 
     if what == "gate_blocks":
         cfg, shape, match = get_arch("recurrentgemma-9b", tiny=True), (1, 32), "whole gate blocks"
-    elif what == "mla_heads":
-        cfg, shape, match = get_arch("minicpm3-4b", tiny=True), (1, 8), "4 query heads do not split"
     else:
         cfg, shape, match = get_arch("mamba2-780m", tiny=True), (1, 16), "not whole heads of 16"
     with pytest.raises(NotImplementedError, match=match):
         _plan(cfg, shape)
+
+
+# name -> (arch, tiny, config overrides, mesh, cache slots, the model ranks'
+# head blocks, q_up / kv_up / o: "gather" or "whole")
+UNEVEN = {
+    "tiny_1x8": ("minicpm3-4b", True, {}, (1, 8), 16,
+                 [(0, 0), (0, 1), (1, 1), (1, 2), (2, 2), (2, 3), (3, 3), (3, 4)],
+                 ("gather", "gather", "gather")),
+    "tiny_heads3_2x2": ("minicpm3-4b", True, {"n_heads": 3, "n_kv_heads": 3}, (2, 2), 16,
+                        [(0, 1), (1, 3)], ("gather", "gather", "gather")),
+    "tiny_1x3": ("minicpm3-4b", True, {}, (1, 3), 12, [(0, 1), (1, 2), (2, 4)],
+                 ("gather", "whole", "whole")),
+    "full_1x3": ("minicpm3-4b", False, {}, (1, 3), 270, [(0, 13), (13, 26), (26, 40)],
+                 ("gather", "whole", "whole")),
+    "full_16x16": ("minicpm3-4b", False, {}, (16, 16), 32,
+                   [(m * 40 // 16, (m + 1) * 40 // 16) for m in range(16)],
+                   ("gather", "gather", "gather")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNEVEN))
+def test_plan_takes_mla_heads_a_model_axis_does_not_divide(name):
+    """MLA's query heads over a model axis they do not divide: each model
+    rank's block of the heads (m H / P to (m + 1) H / P: 40 over 16 gives
+    2, 3, 2, 3, ...; 4 over 8 leaves every other rank none), the head
+    leaves cut inside a head gathered over "model" and those the rules
+    leave whole (5120 and 2560 over 3 ranks) used whole, on every block;
+    the serving layout's latent cut by slots and every rank's head count
+    for the decode's padded q gather."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import make_caches
+
+    arch, tiny, over, shape, s_max, blocks, modes = UNEVEN[name]
+    cfg = dataclasses.replace(get_arch(arch, tiny=tiny), **over)
+    n_model = shape[1]
+    plan = _plan(cfg, shape)
+    assert plan._blocks(cfg.n_heads) == blocks
+    for m in (1, n_model - 1):  # a model rank's own block
+        assert _plan(cfg, shape, rank=m)._block(cfg.n_heads, True) == blocks[m]
+    want = dict(zip(("q_up", "kv_up", "o"), modes))
+    for kind, sp in zip(cfg.pattern_layers, plan.specs["layers"]):
+        lay = plan.layout(sp, kind)
+        assert lay["attn_tp"] and lay["mla"] == want, kind
+    plan = plan.for_caches(make_caches(cfg, 16, s_max, torch.device("meta")))
+    for i in range(cfg.n_layers):
+        lay = plan.serve_layout(i)
+        assert lay["cache"] == "seq" and lay["slots"] == (0, s_max // n_model)
+        assert lay["q_heads"] == blocks[0]
+        assert lay["q_sizes"] == tuple(b - a for a, b in blocks)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "musicgen-medium"])

@@ -531,12 +531,32 @@ def _plant_ema_counts(rank: int):
     return lambda: setattr(adamw, "whole_leaf_counts", real)
 
 
+def _plant_o_rows(rank: int):
+    """Global rank 1 cuts MLA's o one head below its own block of rows
+    (heads the model ranks do not divide, o gathered or held whole:
+    ``Plan._mla_leaf``), so its heads' outputs meet another head's rows.
+    Returns the undo."""
+    from repro_torch.models import parallel
+
+    real = parallel.Plan._mla_leaf
+
+    def wrong(self, w, dim, mode, heads, width):
+        if rank == 1 and dim == 0:
+            heads = (heads[0] - 1, heads[1] - 1)
+        return real(self, w, dim, mode, heads, width)
+
+    parallel.Plan._mla_leaf = wrong
+    return lambda: setattr(parallel.Plan, "_mla_leaf", real)
+
+
 def _plant(rank: int, fault):
     """The undo of ``fault`` planted on global rank 1 (None: no fault)."""
     if not fault:
         return None
     if fault is True:
         return _nudge_one_rank(rank)
+    if fault == "o_rows":
+        return _plant_o_rows(rank)
     if fault == "books":
         return _plant_book_offset(rank)
     if fault == "ema":
@@ -547,6 +567,13 @@ def _plant(rank: int, fault):
 def sharded_cases(rank, mesh, cases: dict) -> dict:
     """``sharded_train`` of each case in turn, on one process group."""
     return {name: sharded_train(rank, mesh, case) for name, case in cases.items()}
+
+
+def train_and_serve(rank, mesh, train: dict, serve: dict) -> dict:
+    """``sharded_train`` of each of ``train``'s cases, then
+    ``sharded_serve`` of each of ``serve``'s, on one process group."""
+    return {"train": sharded_cases(rank, mesh, train),
+            "serve": {name: sharded_serve(rank, mesh, case) for name, case in serve.items()}}
 
 
 def sharded_train(rank, mesh, case: dict):
@@ -566,6 +593,8 @@ def sharded_train(rank, mesh, case: dict):
 
 
 def _sharded_train(rank, mesh, case: dict):
+    import dataclasses
+
     from repro_torch.configs import TrainConfig
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.steps import make_guarded_train_step, make_train_step
@@ -573,7 +602,8 @@ def _sharded_train(rank, mesh, case: dict):
     from repro_torch.models.model import param_axes
     from repro_torch.reduce import inspect
 
-    cfg = sharded_cfg(case["arch"], case["dtype"], case["kernels"])
+    cfg = dataclasses.replace(sharded_cfg(case["arch"], case["dtype"], case["kernels"]),
+                              **case.get("cfg", {}))
     tcfg = TrainConfig(microbatches=case["micro"], **case.get("tcfg", {}))
     rules = getattr(SH, case["rules"])
     out = {"runs": []}
@@ -715,11 +745,14 @@ def _plant_serving(rank: int, fault):
               rank gathers the blocks, so none waits)
       books   stream 0's greedy merge on the rank-local column index
               (every rank splits the streams alike, so none waits)
+      o_rows  MLA's o cut one head off (``_plant_o_rows``)
     """
     from repro_torch.models import attention, parallel, rglru, ssm
 
     if not fault:
         return None
+    if fault == "o_rows":
+        return _plant_o_rows(rank)
     mine = rank == 1
     if fault in (True, "mla"):
         module, name = attention, "merge_decode_partials"
@@ -810,7 +843,9 @@ def _sharded_serve(mesh, case: dict) -> dict:
         meter = case.get("meter") and run == 0
         go = lambda: prefill_step(params, prompts, ctx)  # noqa: E731
         logits, caches = metered("prefill", go) if meter else go()
-        cspecs = SH.cache_shardings(caches, cfg, mesh)
+        # the specs of the global caches: a rank's block of slots need not
+        # divide over "model" again (4 of 12 slots on 3 ranks)
+        cspecs = _global_cache_specs(cfg, mesh, prompts.shape[0], case["s_max"])
         if meter:
             out["block_bytes"] = {
                 "params": sum(p.numel() * p.element_size() for p in R.tree_leaves(params)),
@@ -818,8 +853,7 @@ def _sharded_serve(mesh, case: dict) -> dict:
                 "logits": logits.untyped_storage().nbytes()}
         res = {"prefill": logits.clone(),
                "caches": [SH.gather_whole(t, s, mesh).clone() for t, s in
-                          zip(R.tree_leaves(caches), SH.tree_leaves(_global_cache_specs(
-                              cfg, mesh, prompts.shape[0], case["s_max"])))],
+                          zip(R.tree_leaves(caches), SH.tree_leaves(cspecs))],
                "steps": []}
         agree = bool(C.replica_bits_agree(logits, ("model",), mesh))
         pos = prompts.shape[1]
